@@ -1,0 +1,105 @@
+"""Build and load the package's CUDA kernels at first use.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with
+a plain C interface, ``build/epgpy_torch/libepgpy_torch_<hash>.so`` beside
+the package (the hash covers every source and header, so an edited source
+builds a new library), which is loaded with ``ctypes``.  Nothing here runs
+at import: the first kernel launch calls :func:`load`.  There is no
+fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["build", "load", "build_info", "library_path", "BUILD_DIR",
+           "NVCC_FLAGS"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "epgpy_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+#: C entry points and their argument types (see csrc/*.cu)
+_SIGNATURES = {
+    "epg_fisp_half": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _F, _F,
+                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _P],
+}
+
+#: the loaded library and what its build printed: {"lib", "path",
+#: "seconds", "log"}; "seconds" is None when the library was already built
+_loaded: dict = {}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives."""
+    cu, cuh = _sources()
+    h = hashlib.sha256()
+    for f in cu + cuh + [Path(__file__)]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libepgpy_torch_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((Path(home) / "bin" / "nvcc") if home else None,
+                 shutil.which("nvcc"), Path("/usr/local/cuda/bin/nvcc")):
+        if cand and Path(cand).is_file():
+            return str(cand)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the epgpy_torch CUDA kernels build from source")
+
+
+def build() -> dict:
+    """Compile the library if the current sources have none yet.
+
+    Returns {"path", "seconds", "log"}: the build's wall time (None when
+    nothing was compiled) and nvcc's output (register and shared-memory
+    use per kernel from ``-Xptxas -v``)."""
+    path = library_path()
+    if path.exists():
+        return {"path": path, "seconds": None, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           *map(str, cu)], capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, path)        # atomic: concurrent builds agree
+    return {"path": path, "seconds": seconds, "log": log}
+
+
+def load():
+    """The kernel library (built first if needed) as a ctypes.CDLL with
+    every entry point's argtypes/restype declared."""
+    if "lib" not in _loaded:
+        info = build()
+        lib = ctypes.CDLL(str(info["path"]))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _loaded.update(info, lib=lib)
+    return _loaded["lib"]
+
+
+def build_info() -> dict:
+    """{"path", "seconds", "log"} of the loaded library (after load())."""
+    return {k: _loaded[k] for k in ("path", "seconds", "log")}

@@ -1,0 +1,95 @@
+"""Shape utilities: append-style broadcasting.
+
+Counterpart of ``epgpy_tpu/common.py``.  Parameter arrays broadcast
+**left-aligned** ("append" style, reference epgpy/common.py:273-334): new
+axes go *after* existing ones, the opposite of NumPy's prepend rule.  An
+operator with batch shape (100,) composes with one of batch shape
+(100, 50) by implicit trailing expansion.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import config
+
+__all__ = ["get_shape", "expand_shapes", "broadcastable", "broadcast_shapes",
+           "expand_arrays", "to_real"]
+
+
+def get_shape(obj) -> tuple:
+    """Shape of an array, tensor, nested sequence or scalar (scalars -> ())."""
+    if obj is None:
+        return ()
+    if hasattr(obj, "shape"):
+        return tuple(obj.shape)
+    if isinstance(obj, (list, tuple)):
+        if len(obj) == 0:
+            return (0,)
+        return (len(obj),) + get_shape(obj[0])
+    return ()
+
+
+def expand_shapes(*shapes):
+    """Pad shapes to a common rank on the right (append rule)."""
+    ndim = max((len(s) for s in shapes), default=0)
+    return [tuple(s) + (1,) * (ndim - len(s)) for s in shapes]
+
+
+def broadcastable(*shapes) -> bool:
+    """Whether shapes broadcast together under the append rule."""
+    padded = expand_shapes(*shapes)
+    return all(len({d for d in dims if d != 1}) <= 1 for dims in zip(*padded))
+
+
+def broadcast_shapes(*shapes) -> tuple:
+    """Broadcast shapes together, left-aligned (append rule)."""
+    padded = expand_shapes(*shapes)
+    out = []
+    for dims in zip(*padded):
+        nontrivial = {d for d in dims if d != 1}
+        if len(nontrivial) > 1:
+            raise ValueError(f"Incompatible shapes: {shapes}")
+        out.append(nontrivial.pop() if nontrivial else 1)
+    return tuple(out)
+
+
+def expand_arrays(*objs):
+    """Expand arrays/tensors to a common rank by appending trailing
+    singleton axes (None and scalars pass through); nested sequences
+    become numpy arrays first."""
+    objs = [np.asarray(o) if isinstance(o, (list, tuple)) else o
+            for o in objs]
+    shapes = [get_shape(o) for o in objs]
+    if not broadcastable(*shapes):
+        raise ValueError(f"Shapes cannot be broadcast: {shapes}")
+    ndim = max((len(s) for s in shapes), default=0)
+    out = []
+    for obj, shape in zip(objs, shapes):
+        if obj is None or not shape:
+            out.append(obj)
+        else:
+            out.append(obj.reshape(tuple(shape) + (1,) * (ndim - len(shape))))
+    return tuple(out)
+
+
+def as_real(value):
+    """Parameter coercion shared by the physics ops: None, tensors and
+    float numpy arrays stay as given (host parameters are what the kernel
+    dispatch reads); python numbers and sequences become float host
+    values."""
+    if value is None or isinstance(value, torch.Tensor):
+        return value
+    if isinstance(value, (np.ndarray, np.floating)) and np.issubdtype(
+            value.dtype, np.floating):
+        return value
+    if isinstance(value, (int, float, np.integer)):
+        return float(value)
+    return np.asarray(value, dtype=float)
+
+
+def to_real(x):
+    """Host value or tensor -> real tensor on the working device/dtype."""
+    return torch.as_tensor(x, dtype=config.real_dtype(),
+                           device=config.device())

@@ -1,0 +1,125 @@
+// epg_planes.cuh -- plane math shared by the folded half-ladder EPG kernels.
+//
+// Device-function counterpart of epgpy_tpu/models/pallas_common.py:19-120
+// (_cmul, _rot_coeffs, _rot_A/_rot_B/_rot_Z, _apply_rot, _shift_store);
+// the torch twins live in epgpy_torch/models/planes.py and keep the same
+// operation order, so a kernel and its plain version differ only by
+// rounding (FMA contraction, libm).
+//
+// Layout: one atom's ladder is a "plane set" of six real planes of H =
+// nstate + 1 rows -- A(k) = F+(k), B(k) = F+(-k), Z(k), each as (re, im),
+// k = 0..N.  F-(k) = conj(F+(-k)) is implied (the FISP-family evolution
+// preserves the conjugate symmetry), so every rotation term is rowwise.
+// In shared memory, plane j row k of the thread's atom sits at
+// base[(j * H + k) * ld] with ld = blockDim.x: consecutive threads touch
+// consecutive words (no bank conflicts), and each thread owns its column,
+// so no __syncthreads is needed between rows or pulses.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace epg {
+
+// Weigel rotation closed forms for flip a (radians) and phase terms
+// (cos phi, sin phi, cos 2phi, sin 2phi): the 10-tuple of _rot_coeffs.
+struct Rot {
+    float c2, a1r, a1i, a2r, a2i;    // A row: cos^2(a/2), m01, m02
+    float caa, b0r, b0i, b1r, b1i;   // Z row: cos a, m20, m21
+};
+
+__device__ __forceinline__ void cmul(float cr, float ci, float xr, float xi,
+                                     float& re, float& im) {
+    re = cr * xr - ci * xi;
+    im = cr * xi + ci * xr;
+}
+
+__device__ __forceinline__ Rot rot_coeffs(float a, float cp, float sp,
+                                          float c2p, float s2p) {
+    float sa, ca;
+    sincosf(a, &sa, &ca);
+    const float cos2 = (1.0f + ca) * 0.5f;
+    const float sin2 = (1.0f - ca) * 0.5f;
+    Rot r;
+    r.c2 = cos2;
+    r.a1r = c2p * sin2;
+    r.a1i = s2p * sin2;
+    r.a2r = sp * sa;
+    r.a2i = -cp * sa;
+    r.caa = ca;
+    r.b0r = -0.5f * sp * sa;
+    r.b0i = -0.5f * cp * sa;
+    r.b1r = -0.5f * sp * sa;
+    r.b1i = 0.5f * cp * sa;
+    return r;
+}
+
+// c2*A + (a1)*conj(B) + (a2)*Z
+__device__ __forceinline__ void rot_A(const Rot& r, float AR, float AI,
+                                      float BR, float BI, float ZR, float ZI,
+                                      float& re, float& im) {
+    re = r.c2 * AR + r.a1r * BR + r.a1i * BI + r.a2r * ZR - r.a2i * ZI;
+    im = r.c2 * AI + r.a1i * BR - r.a1r * BI + r.a2r * ZI + r.a2i * ZR;
+}
+
+// c2*B + (a1)*conj(A) + (a2)*conj(Z)
+__device__ __forceinline__ void rot_B(const Rot& r, float AR, float AI,
+                                      float BR, float BI, float ZR, float ZI,
+                                      float& re, float& im) {
+    re = r.c2 * BR + r.a1r * AR + r.a1i * AI + r.a2r * ZR + r.a2i * ZI;
+    im = r.c2 * BI + r.a1i * AR - r.a1r * AI + r.a2i * ZR - r.a2r * ZI;
+}
+
+// (b0)*A + (b1)*conj(B) + caa*Z
+__device__ __forceinline__ void rot_Z(const Rot& r, float AR, float AI,
+                                      float BR, float BI, float ZR, float ZI,
+                                      float& re, float& im) {
+    re = r.b0r * AR - r.b0i * AI + r.b1r * BR + r.b1i * BI + r.caa * ZR;
+    im = r.b0r * AI + r.b0i * AR + r.b1i * BR - r.b1r * BI + r.caa * ZI;
+}
+
+// One thread's plane set in shared memory.
+struct PlaneSet {
+    float* base;  // &smem[threadIdx.x]
+    int H;        // rows per plane (nstate + 1)
+    int ld;       // stride between rows (blockDim.x)
+    __device__ __forceinline__ float& at(int j, int k) const {
+        return base[(j * H + k) * ld];
+    }
+};
+
+// The unit ladder shift of _shift_store, folded through k = 0 and done in
+// place as a row walk: A(k) <- A(k-1), A(0) <- B(1), B(k) <- B(k+1),
+// B(N) <- 0, Z unshifted.  The caller reads row k, computes its new
+// (unshifted) values and hands them to put(k, ...) for k = 0, 1, ..., H-1
+// in order; rows are written only after they have been read.  finish()
+// zero-fills B(N).
+struct FoldedShift {
+    PlaneSet s;
+    float carR, carI;  // new A(k-1), waiting for row k to be read
+
+    __device__ __forceinline__ void put(int k, float nAR, float nAI,
+                                        float nBR, float nBI, float nZR,
+                                        float nZI) {
+        s.at(4, k) = nZR;
+        s.at(5, k) = nZI;
+        if (k >= 1) {
+            s.at(0, k) = carR;
+            s.at(1, k) = carI;
+            s.at(2, k - 1) = nBR;
+            s.at(3, k - 1) = nBI;
+            if (k == 1) {
+                s.at(0, 0) = nBR;
+                s.at(1, 0) = nBI;
+            }
+        }
+        carR = nAR;
+        carI = nAI;
+    }
+
+    __device__ __forceinline__ void finish() {
+        s.at(2, s.H - 1) = 0.0f;
+        s.at(3, s.H - 1) = 0.0f;
+    }
+};
+
+}  // namespace epg

@@ -1,0 +1,237 @@
+"""Simulation engine: run an operator sequence, return the probe values.
+
+Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
+``simulate()`` has two routes:
+
+* **the FISP dispatch**: an exact FISP train (fisp_dispatch.match_fisp)
+  runs as one fused CUDA kernel (models/cuda_fisp.py).  ``fisp_kernel=
+  "auto"`` engages it when the working device is CUDA and the precision
+  float32 (the kernel computes in float32); ``"force"`` engages it
+  anywhere, running the kernel's plain twin for the CPU;
+  ``False`` opts out.  Whenever a call does not take the kernel, one INFO
+  line says why (device, precision, off-pattern op, shared-memory gate);
+* **the general path**: the eager operator loop of ``simulate_simple``
+  over a StateMatrix broadcast to the sequence's batch shape.  It stands
+  in for the JAX package's scan planner, which is not ported yet.
+
+The ladder capacity is fixed up front from the sequence's total shift
+count, capped by ``max_nstate``.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import List
+
+import numpy as np
+import torch
+
+from . import common, config
+from .ops import base, probe as probe_mod
+from .statematrix import StateMatrix
+
+LOGGER = logging.getLogger(__name__)
+
+__all__ = ["simulate", "simulate_simple", "modify", "default_modifier",
+           "flatten_sequence", "getshape", "getnshift", "get_adc_times"]
+
+
+# -- sequence introspection (host-side) --
+
+
+def flatten_sequence(seq, flatten_multi: bool = True) -> List[base.Operator]:
+    """Flatten nested lists / MultiOperators into a flat operator list."""
+    seq = [seq] if isinstance(seq, base.Operator) else seq
+    out = []
+    for item in seq:
+        if isinstance(item, (list, tuple)):
+            out.extend(flatten_sequence(item, flatten_multi))
+        elif flatten_multi and isinstance(item, base.MultiOperator):
+            out.extend(flatten_sequence(item.operators, flatten_multi))
+        elif isinstance(item, base.Operator):
+            out.append(item)
+        else:
+            raise ValueError(f"Invalid operator: {item!r}")
+    return out
+
+
+def getshape(sequence) -> tuple:
+    """Broadcast batch shape of the whole sequence (append rule)."""
+    return common.broadcast_shapes(*[op.shape
+                                     for op in flatten_sequence(sequence)])
+
+
+def getnshift(sequence) -> int:
+    """Total ladder growth over the sequence."""
+    return sum(op.nshift for op in flatten_sequence(sequence))
+
+
+def get_adc_times(sequence):
+    """ADC opening times from operator durations (host-side metadata)."""
+    tic, times = 0, []
+    for op in flatten_sequence(sequence):
+        tic = tic + np.asarray(op.duration)
+        if isinstance(op, probe_mod.Probe):
+            times.append(tic)
+    return times
+
+
+def _capacity(nshift: int, max_nstate) -> int:
+    """Static ladder half-capacity of a 1-D integer-shift sequence: exact
+    with ``nshift``, capped at ``max_nstate``."""
+    return min(int(nshift), int(max_nstate)) if max_nstate else int(nshift)
+
+
+def simulate_simple(sm, sequence, probes=None, callback=None, disp=False,
+                    max_nstate=None):
+    """Plain eager sequence loop (reference functions.py:173-192).
+
+    Applies each operator to `sm` and acquires `probes` (or the
+    sequence's own probe ops) at every Probe.  Returns ``(values,
+    times)`` with ``values[i] = [probe values at the i-th probe op]``.
+    The ladder is pre-sized to the sequence's shift count, capped at
+    `max_nstate` (the reference resizes inside each shift).
+    """
+    seq = flatten_sequence(sequence)
+    ncap = _capacity(getnshift(seq), max_nstate)
+    if sm.nstate < ncap:
+        sm = sm.resize(ncap)
+    if disp:
+        LOGGER.info("simulate_simple: %d ops, nstate=%d", len(seq), ncap)
+    tic = 0
+    times, values = [], []
+    for op in seq:
+        sm = op(sm)
+        tic = tic + np.asarray(op.duration)
+        if isinstance(op, probe_mod.Probe):
+            values.append([(pb if pb is not None else op).acquire(
+                sm, post=op.post) for pb in (probes or [op])])
+            times.append(tic)
+        elif callback is not None:
+            callback(sm)
+    return values, times
+
+
+def _fisp_dispatch(sequence, ncap, fisp_kernel, disp):
+    """The FISP kernel's echo train (N, *batch), or None (logged)."""
+    from . import fisp_dispatch
+
+    if fisp_kernel not in ("auto", "force"):
+        raise ValueError(f"fisp_kernel must be 'auto', 'force' or False, "
+                         f"got {fisp_kernel!r}")
+    if fisp_kernel == "auto":
+        if config.device().type != "cuda":
+            LOGGER.info("simulate: FISP kernel not used: device is %s "
+                        "(the kernel runs on cuda)", config.device())
+            return None
+        if config.precision() != "float32":
+            LOGGER.info("simulate: FISP kernel not used: precision is %s "
+                        "(the kernel computes in float32)",
+                        config.precision())
+            return None
+    params = fisp_dispatch.match_fisp(sequence)
+    if params is None:
+        return None
+    if not fisp_dispatch.kernel_fits(ncap):
+        LOGGER.info("simulate: FISP kernel not used: gate: nstate=%d does "
+                    "not fit in shared memory", ncap)
+        return None
+    if disp:
+        LOGGER.info("simulate: FISP train -> fused CUDA kernel (%d TR, "
+                    "nstate=%d)", len(params["FA"]), ncap)
+    fisp_dispatch.count_dispatch("fisp")
+    return fisp_dispatch.run_fisp_kernel(params, ncap)
+
+
+def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,
+             disp: bool = False, max_nstate=None, fisp_kernel="auto"):
+    """Simulate an operator sequence; returns the ADC values.
+
+    API of ``epgpy_tpu.simulate`` (reference epgpy/functions.py:50-170)
+    for the options this port honours.  Returns an (N_adc, *batch)
+    complex array -- numpy with ``asarray`` (default), else a tensor on
+    the working device -- and, with ``adc_time``, the ADC times first.
+    """
+    sequence = flatten_sequence(sequence)
+    if not any(isinstance(op, probe_mod.Probe) for op in sequence):
+        raise ValueError("Cannot simulate sequence without at least one "
+                         "Probe/ADC")
+    nshift, shape = getnshift(sequence), getshape(sequence)
+    ncap = _capacity(nshift, max_nstate)
+    LOGGER.info("simulate: %d ops, nshift=%d, shape=%s", len(sequence),
+                nshift, shape)
+
+    values = None
+    if fisp_kernel not in (False, None):
+        values = _fisp_dispatch(sequence, ncap, fisp_kernel, disp)
+    if values is None:
+        if disp:
+            LOGGER.info("simulate: general path (%d ops, nstate=%d)",
+                        len(sequence), ncap)
+        sm = StateMatrix([0, 0, 1], nstate=ncap).broadcast(shape)
+        acquired, _ = simulate_simple(sm, sequence, max_nstate=max_nstate)
+        values = torch.stack([v[0] for v in acquired])
+    if asarray:
+        values = values.cpu().numpy()
+    if adc_time:
+        times = get_adc_times(sequence)
+        return (np.asarray(times) if asarray else times), values
+    return values
+
+
+# -- modify (reference epgpy/functions.py:251-347) --
+
+
+def modify(sequence, modifier=None, *, expand: bool = True, **params):
+    """Rewrite a sequence, combining ops with duration-matched E/P."""
+    shape = getshape(sequence)
+    values = common.expand_arrays(*params.values())
+    if expand and (len(shape) > 1 or shape[0] > 1):
+        dims = len(shape)
+        values = tuple(
+            v.reshape((1,) * dims + common.get_shape(v))
+            if common.get_shape(v) else v for v in values)
+    params = dict(zip(params, values))
+
+    if modifier is None:
+        modifier = default_modifier
+        if not params:
+            return sequence
+    elif not callable(modifier):
+        raise TypeError("`modifier` must be a callable")
+
+    newseq, opdict = [], {}
+    for op in flatten_sequence(sequence):
+        if id(op) not in opdict:
+            opdict[id(op)] = modifier(op, **params)
+        newseq.append(opdict[id(op)])
+    if isinstance(sequence, base.MultiOperator):
+        return base.MultiOperator(newseq, name=sequence.name)
+    return newseq
+
+
+def default_modifier(op, **kwargs):
+    """Default modifier: B1 attenuation of T, relaxation over durations."""
+    from .ops import evolution, transition
+
+    if isinstance(op, transition.T):
+        att = kwargs.get("att")
+        if att is not None and not (
+                common.get_shape(att) == () and np.allclose(att, 1)):
+            op = transition.T(op.alpha * att, op.phi, name=op.name + "#",
+                              duration=op.duration)
+
+    if np.any(np.asarray(op.duration) > 0):
+        T1, T2, g = kwargs.get("T1"), kwargs.get("T2"), kwargs.get("g")
+        if T1 is None and T2 is None and g is None:
+            pass
+        elif T1 is None and T2 is None:
+            op = op * evolution.P(op.duration, g, duration=0)
+            op.name = op[0].name + "*"
+        else:
+            T1 = 1e10 if T1 is None else T1
+            T2 = 1e10 if T2 is None else T2
+            g = 0 if g is None else g
+            op = op * evolution.E(op.duration, T1, T2, g, duration=0)
+            op.name = op[0].name + "*"
+    return op

@@ -1,0 +1,323 @@
+"""FISP MR-fingerprinting dictionary: the CUDA kernel and its plain twin.
+
+Counterpart of ``epgpy_tpu/models/pallas_fisp.py:fisp_dictionary_pallas``
+(:899) with its folded half-ladder kernel ``_kernel_half`` (:270).  The
+kernel is ``epgpy_torch/csrc/fisp_half.cu`` (see its header for the
+design); ``fisp_dictionary_plain`` is the same recurrence with the same
+operation order, vectorised over atoms as (6, nstate+1, B) planes in a
+Python loop over pulses.  It runs on the tensors' device in either
+precision and is what the CPU tests check and what the kernel is held
+against on the card.
+
+``fisp_dictionary_cuda`` takes the kernel for CUDA tensors (and raises on
+what the kernel does not take: no fallback) and the plain twin for CPU
+tensors.  ``LAUNCHES`` counts kernel launches.  The TPU-only knobs of the
+JAX signature (``btile``, ``pchunk``, ``interpret``, ``half_ladder``) are
+not taken: there is no padding and no full-ladder variant here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from . import planes
+
+__all__ = ["fisp_dictionary_cuda", "fisp_dictionary_plain", "fisp_echoes",
+           "fisp_echoes_plain", "kernel_fits", "block_size", "SMEM_PER_BLOCK"]
+
+#: kernel launches so far (diagnostics: proves a run went through it)
+LAUNCHES = 0
+
+#: shared memory one block may use on sm_90 (H100), bytes
+SMEM_PER_BLOCK = 232448
+_PLANES = 6
+
+
+def _smem_bytes(nstate, block):
+    return 4 * _PLANES * (int(nstate) + 1) * block
+
+
+def kernel_fits(nstate) -> bool:
+    """Whether the kernel's shared-memory state fits at its smallest block
+    (32 threads): 6 planes x (nstate+1) rows x 32 atoms x 4 bytes."""
+    return _smem_bytes(nstate, 32) <= SMEM_PER_BLOCK
+
+
+def block_size(nstate) -> int:
+    """Threads per block: 128, halved while the state does not fit."""
+    block = 128
+    while block > 32 and _smem_bytes(nstate, block) > SMEM_PER_BLOCK:
+        block //= 2
+    return block
+
+
+def _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
+             strict):
+    """Normalize the arguments to tensors on T1s's device and dtype.
+
+    Per-pulse values become (P,) tensors (scalars broadcast), per-atom
+    values (B,) tensors, TE a python float or a (P,) tensor.  With
+    `strict` (the CUDA kernel) a tensor argument of another device, dtype
+    or shape, or a non-contiguous one, raises instead of being converted.
+    """
+    if not isinstance(T1s, torch.Tensor):
+        raise TypeError("T1s must be a tensor: its device selects the "
+                        "kernel (CUDA) or the plain twin (CPU)")
+    dev, dt = T1s.device, T1s.dtype
+    B = T1s.shape[0] if T1s.ndim == 1 else -1
+
+    def vec(x, n, name):
+        if isinstance(x, torch.Tensor):
+            if strict and (x.device != dev or x.dtype != dt
+                           or not x.is_contiguous()):
+                raise ValueError(
+                    f"{name}: expected a contiguous {dt} tensor on {dev}, "
+                    f"got {x.dtype} on {x.device}")
+            x = x.to(device=dev, dtype=dt)
+        else:
+            x = torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dt,
+                                device=dev)
+        if x.ndim == 0:
+            x = x.expand(n).contiguous()
+        if tuple(x.shape) != (n,):
+            raise ValueError(f"{name}: expected shape ({n},), "
+                             f"got {tuple(x.shape)}")
+        return x
+
+    if B < 1:
+        raise ValueError(f"T1s: expected shape (B,) with B >= 1, "
+                         f"got {tuple(T1s.shape)}")
+    if np.ndim(FA) != 1 or len(FA) < 1:
+        raise ValueError("FA: expected a non-empty (P,) pulse train")
+    FA = vec(FA, len(FA), "FA")
+    P = FA.shape[0]
+    x = {"FA": FA, "phi": vec(phi, P, "phi"), "TR": vec(TR, P, "TR"),
+         "T1": vec(T1s, B, "T1s"), "T2": vec(T2s, B, "T2s"),
+         "B1": vec(B1s, B, "B1s"),
+         "df": None if dfs is None else vec(dfs, B, "dfs"),
+         "TI": None if inversion is None else float(inversion),
+         "P": P, "B": B}
+    if np.ndim(TE) == 0:
+        x["TE"] = float(TE)
+    else:
+        x["TE"] = vec(TE, P, "TE")
+    if diffusion is not None:
+        bT, bL, Dc = diffusion
+        x["diff"] = (float(bT), float(bL), vec(Dc, B, "Dc"))
+    else:
+        x["diff"] = None
+    return x
+
+
+def fisp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                      nstate=10, demodulate=False, inversion=None,
+                      inversion_df=True, diffusion=None, diff_ramp=True):
+    """Echo train (re, im), each (P, B), by the plain PyTorch recurrence
+    (the kernel's twin), on T1s's device in T1s's dtype."""
+    if int(nstate) < 1:
+        raise ValueError("the folded ladder needs nstate >= 1")
+    x = _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
+                 strict=False)
+    T1, T2, B1, DF = x["T1"], x["T2"], x["B1"], x["df"]
+    P, B, H = x["P"], x["B"], int(nstate) + 1
+    use_df = DF is not None
+    z = torch.zeros((H, B), dtype=T1.dtype, device=T1.device)
+    s = [z.clone() for _ in range(6)]
+    if x["TI"] is not None:
+        TI = x["TI"]
+        ai = math.pi * B1
+        E1i = torch.exp(-TI / T1)
+        E2i = torch.exp(-TI / T2)
+        fpi = -torch.sin(ai) * E2i
+        if use_df and inversion_df:
+            th = 2 * math.pi * DF * TI
+            cth, sth = torch.cos(th), torch.sin(th)
+            s[0][0] = -fpi * sth
+            s[1][0] = fpi * cth
+            s[2][0] = -fpi * sth
+            s[3][0] = fpi * cth
+        else:
+            s[1][0] = fpi
+            s[3][0] = fpi
+        s[4][0] = torch.cos(ai) * E1i + 1.0 - E1i
+    else:
+        s[4][0] = 1.0
+
+    deg = math.pi / 180.0
+    cp, sp, c2p, s2p = planes.phase_terms(x["phi"] * deg)
+    var_te = isinstance(x["TE"], torch.Tensor)
+    if not var_te:
+        te = x["TE"]
+        e1te, e2te = torch.exp(-te / T1), torch.exp(-te / T2)
+    if x["diff"] is not None:
+        bT, bL, Dc = x["diff"]
+        rows = torch.arange(H, dtype=T1.dtype, device=T1.device)[:, None]
+        k2 = rows * rows
+        if diff_ramp:
+            aA = torch.exp(-(bT * (k2 - rows + 1.0 / 3.0)) * Dc)
+            aB = torch.exp(-(bT * (k2 + rows + 1.0 / 3.0)) * Dc)
+        else:
+            aA = torch.exp(-(bT * k2) * Dc)
+            aB = aA
+        aZ = torch.exp(-(bL * k2) * Dc)
+
+    out_re = torch.empty((P, B), dtype=T1.dtype, device=T1.device)
+    out_im = torch.empty_like(out_re)
+    FA, TR = x["FA"], x["TR"]
+    for i in range(P):
+        if var_te:
+            te = x["TE"][i]
+            e1te, e2te = torch.exp(-te / T1), torch.exp(-te / T2)
+        rc = planes.rot_coeffs(FA[i] * B1 * deg, cp[i], sp[i], c2p[i],
+                               s2p[i])
+        rem = TR[i] - te
+        E1b = torch.exp(-rem / T1)
+        E2b = torch.exp(-rem / T2)
+        cF = e2te * E2b
+        cZ = e1te * E1b
+        rec = (1.0 - e1te) * E1b + (1.0 - E1b)
+        rAR, rAI, rBR, rBI, rZR, rZI = planes.apply_rot(rc, s)
+
+        # echo from the k = 0 row after rotation and TE decay
+        eR, eI = rAR[0] * e2te, rAI[0] * e2te
+        if use_df:
+            ang_te = 2 * math.pi * DF * te
+            eR, eI = planes.cmul(torch.cos(ang_te), torch.sin(ang_te), eR, eI)
+        if demodulate:
+            eR, eI = eR * cp[i] + eI * sp[i], eI * cp[i] - eR * sp[i]
+        out_re[i] = eR
+        out_im[i] = eI
+
+        if use_df:
+            ang = 2 * math.pi * DF * (te + rem)
+            cFr, cFi = cF * torch.cos(ang), cF * torch.sin(ang)
+            nAR, nAI = planes.cmul(cFr, cFi, rAR, rAI)
+            nBR, nBI = planes.cmul(cFr, cFi, rBR, rBI)
+        else:
+            nAR, nAI, nBR, nBI = cF * rAR, cF * rAI, cF * rBR, cF * rBI
+        nZR = cZ * rZR
+        nZR[0] = nZR[0] + rec
+        s = planes.shift_fold((nAR, nAI, nBR, nBI, nZR, cZ * rZI))
+        if x["diff"] is not None:
+            s = (s[0] * aA, s[1] * aA, s[2] * aB, s[3] * aB, s[4] * aZ,
+                 s[5] * aZ)
+    return out_re, out_im
+
+
+def fisp_echoes(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *, nstate=10,
+                demodulate=False, inversion=None, inversion_df=True,
+                diffusion=None, diff_ramp=True):
+    """Echo train (re, im), each (P, B) float32: the CUDA kernel for CUDA
+    tensors, the plain twin for CPU tensors."""
+    kw = dict(nstate=nstate, demodulate=demodulate, inversion=inversion,
+              inversion_df=inversion_df, diffusion=diffusion,
+              diff_ramp=diff_ramp)
+    if not isinstance(T1s, torch.Tensor):
+        raise TypeError("T1s must be a tensor")
+    if T1s.device.type == "cpu":
+        return fisp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs, **kw)
+    if T1s.device.type != "cuda":
+        raise ValueError(f"no FISP kernel for device {T1s.device}")
+    return _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, **kw)
+
+
+def _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate,
+            inversion, inversion_df, diffusion, diff_ramp):
+    global LAUNCHES
+    from .. import _build
+
+    if T1s.dtype != torch.float32:
+        raise TypeError(f"the FISP kernel computes in float32, got {T1s.dtype}")
+    nstate = int(nstate)
+    if nstate < 1:
+        raise ValueError("the folded ladder needs nstate >= 1")
+    if not kernel_fits(nstate):
+        raise ValueError(f"nstate={nstate}: the kernel state does not fit "
+                         f"in {SMEM_PER_BLOCK} bytes of shared memory")
+    x = _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
+                 strict=True)
+    P, B = x["P"], x["B"]
+    out_re = torch.empty((P, B), dtype=torch.float32, device=T1s.device)
+    out_im = torch.empty_like(out_re)
+    var_te = isinstance(x["TE"], torch.Tensor)
+    bT, bL, Dc = x["diff"] if x["diff"] is not None else (0.0, 0.0, None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    # The launch is asynchronous on PyTorch's current stream.  Temporaries
+    # made by _prepare may be freed when this returns: the caching
+    # allocator hands their memory out again only in that stream's order,
+    # so the kernel has read them first.
+    lib = _build.load()
+    rc = lib.epg_fisp_half(
+        ptr(x["FA"]), ptr(x["phi"]), ptr(x["TR"]),
+        ptr(x["TE"]) if var_te else None, 0.0 if var_te else x["TE"],
+        0.0 if x["TI"] is None else x["TI"],
+        ptr(x["T1"]), ptr(x["T2"]), ptr(x["B1"]), ptr(x["df"]), ptr(Dc),
+        bT, bL, ptr(out_re), ptr(out_im), P, B, nstate,
+        int(var_te), int(x["TI"] is not None), int(bool(inversion_df)),
+        int(x["df"] is not None), int(bool(demodulate)),
+        int(x["diff"] is not None), int(bool(diff_ramp)), block_size(nstate),
+        T1s.device.index if T1s.device.index is not None
+        else torch.cuda.current_device(),
+        torch.cuda.current_stream(T1s.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fisp_half kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out_re, out_im
+
+
+def _finish(re, im, normalize):
+    """(B, P) views of the (P, B) echoes, optionally unit-norm per atom
+    (the matched-filter dictionary epilogue)."""
+    re, im = re.T, im.T
+    if normalize:
+        nrm = torch.sqrt(torch.sum(re * re + im * im, dim=-1, keepdim=True))
+        scale = torch.where(nrm > 0, 1.0 / nrm, torch.zeros_like(nrm))
+        re, im = re * scale, im * scale
+    return re, im
+
+
+def fisp_dictionary_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                          nstate=10, demodulate=False, inversion=None,
+                          inversion_df=True, normalize=False,
+                          diffusion=None, diff_ramp=True):
+    """FISP MRF dictionary by the plain PyTorch twin of the kernel.
+
+    Arguments as :func:`fisp_dictionary_cuda`; any device, either
+    precision.  Returns (re, im), each (B, P)."""
+    re, im = fisp_echoes_plain(
+        FA, phi, TR, TE, T1s, T2s, B1s, dfs, nstate=nstate,
+        demodulate=demodulate, inversion=inversion,
+        inversion_df=inversion_df, diffusion=diffusion, diff_ramp=diff_ramp)
+    return _finish(re, im, normalize)
+
+
+def fisp_dictionary_cuda(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                         nstate=10, demodulate=False, inversion=None,
+                         inversion_df=True, normalize=False,
+                         diffusion=None, diff_ramp=True):
+    """FISP MRF dictionary via the fused CUDA kernel.
+
+    Args mirror ``fisp_dictionary_pallas``: FA (P,) flip angles (deg);
+    phi and TR scalars or (P,); TE a scalar or (P,) (ms); T1s, T2s, B1s
+    and the optional off-resonance dfs (kHz) (B,) tensors, whose device
+    selects the kernel (CUDA, float32, contiguous) or the plain twin
+    (CPU).  ``inversion`` (TI, ms) prepends a 180*B1 inversion, whose
+    residual F+ precesses by df during TI when ``inversion_df``.
+    ``diffusion=(bT, bL, Dc)`` adds the DW-FISP post-shift attenuation
+    (``diff_ramp=False`` drops the gradient-ramp 1/3 term).
+    ``normalize`` returns unit-norm fingerprints.
+
+    Returns (re, im), each (B, P): transposed views of the kernel's
+    (P, B) output unless normalized.
+    """
+    re, im = fisp_echoes(
+        FA, phi, TR, TE, T1s, T2s, B1s, dfs, nstate=nstate,
+        demodulate=demodulate, inversion=inversion,
+        inversion_df=inversion_df, diffusion=diffusion, diff_ramp=diff_ramp)
+    return _finish(re, im, normalize)

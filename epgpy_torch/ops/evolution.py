@@ -1,0 +1,91 @@
+"""Relaxation / precession operators.
+
+Counterpart of ``epgpy_tpu/ops/evolution.py`` (reference
+epgpy/evolution.py:220-256):
+
+* ``E(tau, T1, T2, g)`` -- relaxation + precession, complex rates
+  ``rT = tau (1/T2 + 2 i pi g)``, ``rL = r0 = tau / T1``: coefficients
+  ``(conj(e^{-rT}), e^{-rT}, e^{-rL})`` plus recovery ``(0, 0, 1-e^{-r0})``;
+* ``P(tau, g)`` -- pure precession, ``rT = 2 i pi g tau``.
+
+Times are in ms, off-resonance ``g`` in kHz.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import common, config
+from . import base
+from .scalarop import apply_coefficient_elements
+from .transition import _repr
+
+__all__ = ["E", "P", "evolution_elements"]
+
+
+def evolution_elements(rT, rL=None, r0=None):
+    """Element-form evolution coefficients from complex rates (tensors):
+    ``((conj(e^{-rT}), e^{-rT}, e^{-rL}), (None, None, 1 - e^{-r0}))``."""
+    eT = torch.exp(-rT)
+    eL = (torch.ones((), dtype=config.complex_dtype(), device=eT.device)
+          if rL is None else torch.exp(-rL))
+    elems = (torch.conj(eT), eT, eL)
+    if r0 is None:
+        return elems, None
+    return elems, (None, None, 1 - torch.exp(-r0))
+
+
+class E(base.DiffOperator):
+    """Relaxation + precession: tau (ms), T1/T2 (ms), g (kHz)."""
+
+    def __init__(self, tau, T1, T2, g=0, *, name=None, duration=None):
+        self.tau = common.as_real(tau)
+        self.T1 = common.as_real(T1)
+        self.T2 = common.as_real(T2)
+        self.g = common.as_real(0 if g is None else g)
+        if duration is True:
+            duration = tau
+        super().__init__(name=name or _repr("E", tau, T1, T2, self.g),
+                         duration=duration)
+
+    @property
+    def shape(self):
+        return common.broadcast_shapes(
+            common.get_shape(self.tau), common.get_shape(self.T1),
+            common.get_shape(self.T2), common.get_shape(self.g), (1,))
+
+    def coefficient_elements(self):
+        tau, T1, T2, g = (common.to_real(x) for x in common.expand_arrays(
+            self.tau, self.T1, self.T2, self.g))
+        rT = tau * (1.0 / T2 + 2j * math.pi * g)
+        rL = (tau / T1).to(config.complex_dtype())
+        return evolution_elements(rT, rL, rL)
+
+    def apply(self, sm):
+        return apply_coefficient_elements(sm, *self.coefficient_elements())
+
+
+class P(base.DiffOperator):
+    """Pure precession: tau (ms), g (kHz)."""
+
+    def __init__(self, tau, g, *, name=None, duration=None):
+        self.tau = common.as_real(tau)
+        self.g = common.as_real(g)
+        if duration is True:
+            duration = tau
+        super().__init__(name=name or _repr("P", tau, g), duration=duration)
+
+    @property
+    def shape(self):
+        return common.broadcast_shapes(common.get_shape(self.tau),
+                                       common.get_shape(self.g), (1,))
+
+    def coefficient_elements(self):
+        tau, g = (common.to_real(x)
+                  for x in common.expand_arrays(self.tau, self.g))
+        return evolution_elements(2j * math.pi * g * tau)
+
+    def apply(self, sm):
+        return apply_coefficient_elements(sm, *self.coefficient_elements())

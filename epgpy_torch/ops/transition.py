@@ -1,0 +1,143 @@
+"""RF-pulse (transition) operators.
+
+Counterpart of ``epgpy_tpu/ops/transition.py``.  An instantaneous RF pulse
+of flip angle ``alpha`` and phase ``phi`` (degrees) mixes each k-state's
+``(F+, F-, Z)`` components by the Weigel rotation ``Rz(phi) Rx(alpha)
+Rz(-phi)`` in the configuration basis (reference epgpy/transition.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import common, config
+from . import base
+from .scalarop import align_batch, apply_coefficients
+
+__all__ = ["T", "Tx", "Ty", "Phi", "rotation_operator", "rotation_elements",
+           "rotation_alpha", "rotation_phi"]
+
+
+def _rad(x):
+    return torch.deg2rad(common.to_real(x))
+
+
+def rotation_alpha(alpha):
+    """EPG rotation about x by `alpha` degrees, configuration basis."""
+    a = _rad(alpha)
+    cos2, sin2 = torch.cos(a / 2) ** 2, torch.sin(a / 2) ** 2
+    sin, cos = torch.sin(a), torch.cos(a)
+    mat = torch.stack([
+        torch.stack([cos2, sin2, -sin], dim=-1),
+        torch.stack([sin2, cos2, sin], dim=-1),
+        torch.stack([-0.5 * sin, 0.5 * sin, cos], dim=-1),
+    ], dim=-2).to(config.complex_dtype())
+    # the off-diagonal sin terms carry a factor of i
+    mask = torch.tensor([[1, 1, 1j], [1, 1, 1j], [1j, 1j, 1]],
+                        dtype=mat.dtype, device=mat.device)
+    return mat * mask
+
+
+def rotation_phi(phi):
+    """z-rotation by `phi` degrees: diag(e^{i phi}, e^{-i phi}, 1)."""
+    e = torch.exp(1j * _rad(phi))
+    zero, one = torch.zeros_like(e), torch.ones_like(e)
+    return torch.stack([
+        torch.stack([e, zero, zero], dim=-1),
+        torch.stack([zero, torch.conj_physical(e), zero], dim=-1),
+        torch.stack([zero, zero, one], dim=-1),
+    ], dim=-2)
+
+
+def rotation_elements(alpha, phi):
+    """The nine Weigel rotation coefficients (row-major), each a complex
+    tensor of the broadcast (append-rule) batch shape of alpha and phi."""
+    alpha, phi = common.expand_arrays(alpha, phi)
+    a, p = torch.broadcast_tensors(_rad(alpha), _rad(phi))
+    cdtype = config.complex_dtype()
+    cos2 = ((1 + torch.cos(a)) / 2).to(cdtype)
+    sin2 = ((1 - torch.cos(a)) / 2).to(cdtype)
+    sin = torch.sin(a)
+    ep = torch.exp(1j * p)
+    m01 = ep * ep * sin2
+    m02 = -1j * ep * sin
+    m12 = 1j * torch.conj(ep) * sin
+    m20 = -0.5j * torch.conj(ep) * sin
+    m21 = 0.5j * ep * sin
+    m22 = torch.cos(a).to(cdtype)
+    return (cos2, m01, m02, torch.conj_physical(m01), cos2, m12, m20, m21,
+            m22)
+
+
+def rotation_operator(alpha, phi):
+    """Full RF rotation ``Rz(phi) Rx(alpha) Rz(-phi)`` (degrees) as a
+    (*batch, 3, 3) complex tensor."""
+    alpha, phi = common.expand_arrays(alpha, phi)
+    ra, rp = rotation_alpha(alpha), rotation_phi(phi)
+    rm = rotation_phi(-common.to_real(phi))
+    nb = max(ra.ndim, rp.ndim) - 2
+    ra, rp, rm = (align_batch(m, nb, 2) for m in (ra, rp, rm))
+    mat = torch.einsum("...ij,...jk,...kl->...il", rp, ra, rm)
+    return mat[None] if mat.ndim == 2 else mat
+
+
+class T(base.DiffOperator):
+    """Instantaneous RF pulse: flip `alpha`, phase `phi` (degrees)."""
+
+    def __init__(self, alpha, phi, *, name=None, duration=None):
+        self.alpha = common.as_real(alpha)
+        self.phi = common.as_real(phi)
+        super().__init__(name=name or _repr("T", alpha, phi),
+                         duration=duration)
+
+    @property
+    def shape(self):
+        return common.broadcast_shapes(common.get_shape(self.alpha),
+                                       common.get_shape(self.phi), (1,))
+
+    def apply(self, sm):
+        # coefficient-level madds: no (batch, 3, 3) array is materialized
+        m = [align_batch(torch.atleast_1d(e), sm.ndim, 0)[..., None]
+             for e in rotation_elements(self.alpha, self.phi)]
+        s = sm.states
+        comps = [m[3 * i] * s[..., 0] + m[3 * i + 1] * s[..., 1]
+                 + m[3 * i + 2] * s[..., 2] for i in range(3)]
+        return sm.update(states=torch.stack(comps, dim=-1))
+
+
+def Tx(alpha, **kwargs):
+    """RF pulse about x (phi = 0)."""
+    return T(alpha, 0, **kwargs)
+
+
+def Ty(alpha, **kwargs):
+    """RF pulse about y (phi = 90)."""
+    return T(alpha, 90, **kwargs)
+
+
+class Phi(base.DiffOperator):
+    """Pure phase offset (z-rotation by `phi` degrees)."""
+
+    def __init__(self, phi, *, name=None, duration=0):
+        self.phi = common.as_real(phi)
+        super().__init__(name=name or _repr("Phi", phi), duration=duration)
+
+    @property
+    def shape(self):
+        return common.get_shape(self.phi) or (1,)
+
+    def coefficients(self):
+        e = torch.exp(1j * _rad(self.phi))
+        arr = torch.stack([e, torch.conj(e), torch.ones_like(e)], dim=-1)
+        return (arr[None] if arr.ndim == 1 else arr), None
+
+    def apply(self, sm):
+        return apply_coefficients(sm, *self.coefficients())
+
+
+def _repr(name, *values):
+    """Cosmetic operator name: scalars printed, arrays as their shape."""
+    def fmt(v):
+        shape = common.get_shape(v)
+        return "array" + str(shape) if shape else f"{float(v):.1f}"
+    return f"{name}({', '.join(fmt(v) for v in values)})"
