@@ -12,15 +12,28 @@ Phases (each raises on failure: a failure exits non-zero with no result):
 3. the FISP kernel against its plain PyTorch twin on the card, over a
    covering set of option cases at 4096 atoms x 1000 pulses (plus one
    case at nstate 40, beyond 48 KB of shared memory per block);
+3b. the same for the FISP Jacobian kernel (fingerprints + dS/dT1, dT2,
+   dB1[, dD]), per tangent column relative to the column's largest value;
 4. the main path at full size: the FISP MR-fingerprinting dictionary
    train [T(FA_i*B1, 90), E(5, T1, T2), ADC, E(7, T1, T2), S(1)] x 1000
    over 102,400 atoms (T1 x T2 x B1 grid) through
    ``epgpy_torch.simulate(seq, max_nstate=10)``; checks that it went
    through the kernel and matches the float64 reference probe of the
    first 8 atoms (bench_baseline.json);
+4b. the same train with T1/T2 tracked on the E ops and B1 on the T ops,
+   through ``simulate(seq, probe=[ADC, Jacobian(["magnitude", "T1",
+   "T2", "B1"])])``: it must reach the Jacobian kernel, its signal match
+   the float64 probe, and its columns the port's float64
+   ``fisp_mrf_jacobian`` for the first 8 atoms;
 5. numbers: kernel and plain twin at the main-path shape, simulate() end
    to end (first call with the host-side match, then memoized), the
-   general operator loop at 4096 atoms x 100 TRs.
+   general operator loop at 4096 atoms x 100 TRs, and the same for the
+   Jacobian kernel;
+5b. serving: 8,192 off-grid voxels (seeded truth, noise 0.002, random
+   complex PD) matched against the unnormalized phase-4 dictionary with
+   ``parallel.mrf_reconstruct``, then 5 Gauss-Newton iterations whose
+   Jacobians come through ``simulate()`` and the Jacobian kernel; the
+   refined T1 and T2 RMSE must beat the match-only RMSE.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object of per-kernel results; the last line is
@@ -46,6 +59,16 @@ NATOMS, NPULSE = 102400, 1000
 TOL_KERNEL = 2e-6
 #: float32 main path vs the float64 reference probe over 1000 pulses
 TOL_PROBE = 1e-6
+#: Jacobian kernel vs its plain twin, per tangent column relative to the
+#: column's largest value (the tangents sum more terms than the primal)
+TOL_JAC_KERNEL = 1e-5
+#: float32 Jacobian columns vs the float64 model over 1000 pulses, relative
+#: to the column's largest value (the JAX package's budget,
+#: tests/test_pallas.py:83-88)
+TOL_JAC_MODEL = 1e-4
+#: serving: measured voxels, their noise level and seed
+NVOX, NOISE, SEED = 8192, 0.002, 0
+JAC_NAMES = ["magnitude", "T1", "T2", "B1"]
 
 #: covering set of the kernel's options: every value of each option
 #: appears at least once (var_te: per-pulse TE; inversion: TI in ms;
@@ -65,6 +88,33 @@ OPTION_CASES = [
     dict(name="all", var_te=True, inversion=15.0, df=True, demodulate=True,
          diffusion="ramp", normalize=True),
 ]
+
+
+#: covering set of the Jacobian kernel's options (no normalize; the
+#: diffusion case without the ramp term also tracks D: 30 planes)
+JAC_CASES = [
+    dict(name="base"),
+    dict(name="var_te", var_te=True),
+    dict(name="inv", inversion=20.0),
+    dict(name="inv_df", inversion=20.0, df=True, inversion_df=True),
+    dict(name="inv_df_off", inversion=20.0, df=True, inversion_df=False),
+    dict(name="df_demod", df=True, demodulate=True),
+    dict(name="demod", demodulate=True),
+    dict(name="diff_ramp", diffusion="ramp"),
+    dict(name="diff_noramp_d", diffusion="noramp", var_te=True, track_d=True),
+    dict(name="nstate6", nstate=6, df=True),
+    dict(name="all", var_te=True, inversion=15.0, df=True, demodulate=True,
+         diffusion="ramp", track_d=True),
+]
+
+
+def make_jac_case(case, natoms, npulse, seed=0):
+    """Numpy inputs of one Jacobian option case: (args, kwargs) of
+    fisp_jacobian_{cuda,plain,pallas}."""
+    args, kw = make_case(case, natoms, npulse, seed)
+    del kw["normalize"]
+    kw["track_diffusivity"] = case.get("track_d", False)
+    return args, kw
 
 
 def make_case(case, natoms, npulse, seed=0):
@@ -116,13 +166,35 @@ def make_atoms(natoms):
     return g[:, 0], g[:, 1], g[:, 2]
 
 
-def fisp_sequence(epg, FA, T1, T2, B1):
-    """The main-path train as plain operators, as a user writes it."""
+def fisp_sequence(epg, FA, T1, T2, B1, tracked=False):
+    """The main-path train as plain operators, as a user writes it; with
+    `tracked`, the E ops track T1 and T2 and the T ops track B1 (chain
+    rule d(alpha_i)/dB1 = FA_i)."""
+    o1 = ["T1", "T2"] if tracked else False
     seq = []
     for fa in FA:
-        seq += [epg.T((fa * B1).astype(np.float32), 90), epg.E(TE, T1, T2),
-                epg.ADC, epg.E(TR - TE, T1, T2), epg.S(1)]
+        seq += [epg.T((fa * B1).astype(np.float32), 90,
+                      order1={"B1": {"alpha": float(fa)}} if tracked
+                      else False),
+                epg.E(TE, T1, T2, order1=o1), epg.ADC,
+                epg.E(TR - TE, T1, T2, order1=o1), epg.S(1)]
     return seq
+
+
+def reference_probe():
+    """The float64 reference signal of the first 8 main-path atoms,
+    (8, P) complex (bench_baseline.json)."""
+    with open(os.path.join(HERE, "bench_baseline.json")) as fh:
+        baseline = json.load(fh)
+    return (np.asarray(baseline["probe_re"])
+            + 1j * np.asarray(baseline["probe_im"])).T
+
+
+def col_errors(got, want):
+    """Per-column max |delta| of (..., k) arrays relative to the column's
+    largest magnitude."""
+    return [float(np.abs(got[..., c] - want[..., c]).max()
+                  / np.abs(want[..., c]).max()) for c in range(want.shape[-1])]
 
 
 def _tensors(torch, args, kw, device):
@@ -225,10 +297,7 @@ def phase_main_path(torch, epg):
     from epgpy_torch import fisp_dispatch
     from epgpy_torch.models import cuda_fisp
 
-    with open(os.path.join(HERE, "bench_baseline.json")) as fh:
-        baseline = json.load(fh)
-    ref8 = (np.asarray(baseline["probe_re"])
-            + 1j * np.asarray(baseline["probe_im"])).T          # (8, P)
+    ref8 = reference_probe()                                   # (8, P)
     FA = make_train(NPULSE)
     T1, T2, B1 = make_atoms(NATOMS)
     seq = fisp_sequence(epg, FA, T1, T2, B1)
@@ -260,7 +329,7 @@ def phase_main_path(torch, epg):
     if not probe_err <= TOL_PROBE:
         raise AssertionError(f"probe error {probe_err:.3e} > {TOL_PROBE}")
     return dict(seq=seq, launches=launches, first_s=first_s,
-                probe_err=probe_err)
+                probe_err=probe_err, dictionary=out)
 
 
 def phase_numbers(torch, epg, card, run):
@@ -317,6 +386,233 @@ def phase_numbers(torch, epg, card, run):
             "ms": k_ms, "plain_ms": p_ms}
 
 
+def phase_jac_cases(torch, natoms=4096, npulse=NPULSE):
+    """Jacobian kernel vs plain twin over the option cases; returns the
+    worst fingerprint |delta| and the worst per-column relative error."""
+    from epgpy_torch.models import cuda_fisp
+
+    worst_sig = worst_col = 0.0
+    for case in JAC_CASES + [dict(name="nstate40", nstate=40,
+                                  inversion=20.0, df=True)]:
+        args, kw = _tensors(torch, *make_jac_case(case, natoms, npulse),
+                            "cuda")
+        (kre, kim), (kd_re, kd_im) = cuda_fisp.fisp_jacobian_cuda(*args, **kw)
+        (pre, pim), (pd_re, pd_im) = cuda_fisp.fisp_jacobian_plain(*args,
+                                                                   **kw)
+        sig = max(float((kre - pre).abs().max()),
+                  float((kim - pim).abs().max()))
+        cols = col_errors(torch.complex(kd_re, kd_im).cpu().numpy(),
+                          torch.complex(pd_re, pd_im).cpu().numpy())
+        ok = all(bool(torch.isfinite(t).all())
+                 for t in (kre, kim, kd_re, kd_im))
+        print(f"[jac-cases] {case['name']:14s} nstate={kw['nstate']:2d} "
+              f"max|kernel - plain| = {sig:.3e}, per column "
+              f"{', '.join(f'{c:.2e}' for c in cols)}")
+        if not ok or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL:
+            raise AssertionError(
+                f"case {case['name']}: Jacobian kernel vs plain twin "
+                f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
+                f"{TOL_JAC_KERNEL} or not finite")
+        worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+    return worst_sig, worst_col
+
+
+def phase_jac_path(torch, epg):
+    """The full-size Jacobian through simulate(); returns the run's facts
+    (sequence, launches, first-call time, errors)."""
+    from epgpy_torch import config, fisp_dispatch
+    from epgpy_torch.models import cuda_fisp, mrf
+
+    FA = make_train(NPULSE)
+    T1, T2, B1 = make_atoms(NATOMS)
+    seq = fisp_sequence(epg, FA, T1, T2, B1, tracked=True)
+    probes = [epg.ADC, epg.Jacobian(JAC_NAMES)]
+
+    fisp_dispatch.clear_cache()
+    fisp_dispatch.DISPATCH_COUNTS.clear()
+    cuda_fisp.JAC_LAUNCHES = 0
+    t0 = time.perf_counter()
+    sig, jac = epg.simulate(seq, max_nstate=NSTATE, asarray=False,
+                            probe=probes)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = cuda_fisp.JAC_LAUNCHES
+    dispatched = fisp_dispatch.DISPATCH_COUNTS.get("jac:fisp", 0)
+    print(f"[jac] simulate(probe=[ADC, Jacobian({JAC_NAMES})]): {NPULSE} "
+          f"pulses x {NATOMS} atoms -> {tuple(sig.shape)}, "
+          f"{tuple(jac.shape)} {jac.dtype}; dispatch jac:fisp="
+          f"{dispatched}, Jacobian kernel launches={launches}")
+    if dispatched < 1 or launches < 1:
+        raise AssertionError("the Jacobian did not go through the kernel")
+    if (tuple(sig.shape) != (NPULSE, NATOMS)
+            or tuple(jac.shape) != (NPULSE, NATOMS, len(JAC_NAMES))
+            or jac.dtype != torch.complex64):
+        raise AssertionError(f"unexpected outputs {tuple(sig.shape)}, "
+                             f"{tuple(jac.shape)} {jac.dtype}")
+    for t in (sig, jac):
+        if not bool(torch.isfinite(torch.view_as_real(t)).all()):
+            raise AssertionError("non-finite values in the Jacobian path")
+    ours = sig[:, :8].cpu().numpy().T                          # (8, P)
+    probe_err = float(np.abs(ours - reference_probe()).max())
+    mag_err = float((jac[..., 0] - sig).abs().max())
+    # the float64 oracle: the port's full-ladder model, jvp'd, on the CPU
+    old = (config.device(), config.precision())
+    config.set_device("cpu")
+    config.set_precision("float64")
+    try:
+        _, (dre, dim) = mrf.fisp_mrf_jacobian(
+            FA, TR, TE, T1[:8], T2[:8], B1[:8], phi=90.0,
+            variables=("T1", "T2", "B1"), nstate=NSTATE)
+    finally:
+        config.set_device(old[0])
+        config.set_precision(old[1])
+    want = (dre.numpy() + 1j * dim.numpy()).transpose(1, 0, 2)  # (P, 8, 3)
+    cols = col_errors(jac[:, :8, 1:].cpu().numpy(), want)
+    print(f"[jac] max|signal - f64 reference probe| (8 atoms) = "
+          f"{probe_err:.3e} (limit {TOL_PROBE}); magnitude column = signal "
+          f"to {mag_err:.1e}; T1/T2/B1 columns vs f64 fisp_mrf_jacobian: "
+          f"{', '.join(f'{c:.3e}' for c in cols)} (limit {TOL_JAC_MODEL})")
+    if not probe_err <= TOL_PROBE or mag_err != 0.0:
+        raise AssertionError(f"Jacobian-path signal error {probe_err:.3e}")
+    if not max(cols) <= TOL_JAC_MODEL:
+        raise AssertionError(f"Jacobian column error {max(cols):.3e} > "
+                             f"{TOL_JAC_MODEL}")
+    del sig, jac
+    memo_s = _host_s(torch, lambda: epg.simulate(
+        seq, max_nstate=NSTATE, asarray=False, probe=probes), reps=2)
+    return dict(seq=seq, launches=launches, first_s=first_s, memo_s=memo_s,
+                probe_err=probe_err, col_err=max(cols))
+
+
+def phase_serving(torch, epg, dictionary):
+    """Match + Gauss-Newton refinement of NVOX off-grid voxels against
+    the phase-4 dictionary; returns the run's facts (launches, timings,
+    RMSEs)."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_fisp
+    from epgpy_torch.parallel import gauss_newton_refine, mrf_reconstruct
+
+    rng = np.random.default_rng(SEED)
+    T1t = rng.uniform(300.0, 2500.0, NVOX)
+    T2t = np.minimum(rng.uniform(30.0, 200.0, NVOX), 0.5 * T1t)
+    B1t = rng.uniform(0.75, 1.25, NVOX)
+    truth = np.stack([T1t, T2t, B1t])
+    pd = rng.uniform(0.5, 2.0, NVOX) * np.exp(2j * np.pi * rng.random(NVOX))
+    noise = NOISE * (rng.standard_normal((NPULSE, NVOX))
+                     + 1j * rng.standard_normal((NPULSE, NVOX)))
+    FA = make_train(NPULSE)
+    T1, T2, B1 = make_atoms(NATOMS)
+    grid = np.stack([T1, T2, B1], -1)
+
+    fisp_dispatch.DISPATCH_COUNTS.clear()
+    cuda_fisp.LAUNCHES = cuda_fisp.JAC_LAUNCHES = 0
+    clean = epg.simulate(fisp_sequence(epg, FA, T1t, T2t, B1t),
+                         max_nstate=NSTATE, asarray=False)       # (P, V)
+    meas = (clean * torch.as_tensor(pd.astype(np.complex64),
+                                    device=clean.device)
+            + torch.as_tensor(noise.astype(np.complex64), device=clean.device))
+    sre, sim = meas.real.T.contiguous(), meas.imag.T.contiguous()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = mrf_reconstruct(sre, sim, dictionary.real.T, dictionary.imag.T,
+                          grid, atom_chunk=16384)
+    torch.cuda.synchronize()
+    match_s = time.perf_counter() - t0
+    theta0 = rec["maps"].T.cpu().numpy()
+
+    split = {"host": 0.0, "simulate": 0.0}
+
+    def signal_and_jac(theta):
+        t0 = time.perf_counter()
+        seq = fisp_sequence(epg, FA, *theta, tracked=True)
+        fisp_dispatch.match_fisp(seq)           # memoized for simulate()
+        t1 = time.perf_counter()
+        sig, jac = epg.simulate(seq, max_nstate=NSTATE, asarray=False,
+                                probe=[epg.ADC, epg.Jacobian(JAC_NAMES[1:])])
+        torch.cuda.synchronize()
+        split["host"] += t1 - t0
+        split["simulate"] += time.perf_counter() - t1
+        return (sig.real, sig.imag), (jac.real, jac.imag)
+
+    iters = 5
+    t0 = time.perf_counter()
+    theta = gauss_newton_refine(
+        signal_and_jac, theta0, meas.real, meas.imag, iters=iters,
+        bounds=[(100.0, 4000.0), (5.0, 400.0), (0.5, 1.5)], solve_scale=True)
+    gn_s = time.perf_counter() - t0
+    launches = dict(fisp_half=cuda_fisp.LAUNCHES,
+                    fisp_jac=cuda_fisp.JAC_LAUNCHES)
+    dispatched = fisp_dispatch.DISPATCH_COUNTS.get("jac:fisp", 0)
+
+    def rmse(est):
+        return np.sqrt(np.mean((est - truth) ** 2, axis=1))
+
+    r0, r1 = rmse(theta0), rmse(theta)
+    print(f"[serve] {NVOX} voxels x {NATOMS} atoms: match "
+          f"{match_s * 1e3:.1f} ms; match-only RMSE T1 {r0[0]:.3f} ms, T2 "
+          f"{r0[1]:.3f} ms, B1 {r0[2]:.5f}")
+    print(f"[serve] Gauss-Newton x{iters}: RMSE T1 {r1[0]:.3f} ms, T2 "
+          f"{r1[1]:.3f} ms, B1 {r1[2]:.5f}; dispatch jac:fisp={dispatched}, "
+          f"launches {launches}")
+    if dispatched != iters or launches["fisp_jac"] != iters:
+        raise AssertionError("a Gauss-Newton iteration missed the kernel")
+    if not (r1[0] < r0[0] and r1[1] < r0[1]):
+        raise AssertionError("refinement did not beat the grid match")
+    per = {k: v / iters for k, v in split.items()}
+    per["solve"] = gn_s / iters - per["host"] - per["simulate"]
+    return dict(launches=launches, match_s=match_s, per_iter=per,
+                gn_s=gn_s, rmse0=r0, rmse1=r1)
+
+
+def phase_jac_numbers(torch, epg, card, run):
+    """Jacobian kernel and plain twin at the main-path shape; returns the
+    kernel's JSON entry."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_fisp
+
+    params = fisp_dispatch.match_fisp(run["seq"])          # memoized
+    d = fisp_dispatch.device_params(params)
+    args = (d["FA"], d["phi"], d["TR"], d["TE"], d["T1"], d["T2"], d["B1"],
+            d["df"])
+
+    def kernel():
+        return cuda_fisp.fisp_jacobian_echoes(*args, nstate=NSTATE)
+
+    def plain():
+        return cuda_fisp.fisp_jacobian_echoes_plain(*args, nstate=NSTATE)
+
+    (kre, kim), (kdre, kdim) = kernel()
+    (pre, pim), (pdre, pdim) = plain()
+    err = max(float((a - b).abs().max())
+              for a, b in ((kre, pre), (kim, pim), (kdre, pdre),
+                           (kdim, pdim)))
+    cols = [max(float((kdre[..., c] - pdre[..., c]).abs().max()),
+                float((kdim[..., c] - pdim[..., c]).abs().max()))
+            / max(float(pdre[..., c].abs().max()),
+                  float(pdim[..., c].abs().max())) for c in range(3)]
+    print(f"[numbers] Jacobian main-path shape: max|kernel - plain| = "
+          f"{err:.3e}, per column {', '.join(f'{c:.2e}' for c in cols)}")
+    if not max(cols) <= TOL_JAC_KERNEL:
+        raise AssertionError(f"Jacobian kernel vs plain twin {max(cols):.3e}")
+    del kre, kim, kdre, kdim, pre, pim, pdre, pdim
+    k_ms = _cuda_ms(torch, kernel)
+    p_ms = _cuda_ms(torch, plain, reps=1)
+    tag = f"({card})"
+    print(f"[numbers] fisp_jac kernel, {NATOMS} atoms x {NPULSE} pulses: "
+          f"{k_ms:.3f} ms = {NATOMS / (k_ms / 1e3):.4g} atoms/s {tag}")
+    print(f"[numbers] Jacobian plain twin on the card, same shape: "
+          f"{p_ms:.3f} ms {tag}")
+    print(f"[numbers] simulate() Jacobian end to end, first call (match + "
+          f"kernel): {run['first_s']:.3f} s; memoized match: "
+          f"{run['memo_s']:.4f} s {tag}")
+    return {"name": "fisp_jac", "route": "cuda",
+            "source": "epgpy_torch/csrc/fisp_jac.cu",
+            "replaces": "epgpy_tpu/models/pallas_fisp.py:458",
+            "launches": run["launches"], "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms}
+
+
 def main():
     import torch
 
@@ -329,10 +625,28 @@ def main():
     worst = phase_cases(torch)
     print(f"[cases] worst max|kernel - plain| = {worst:.3e} "
           f"(limit {TOL_KERNEL})")
+    worst_sig, worst_col = phase_jac_cases(torch)
+    print(f"[jac-cases] worst max|kernel - plain| = {worst_sig:.3e} (limit "
+          f"{TOL_KERNEL}), worst column {worst_col:.3e} (limit "
+          f"{TOL_JAC_KERNEL})")
     main_run = phase_main_path(torch, epg)
+    jac_run = phase_jac_path(torch, epg)
+    serve = phase_serving(torch, epg, main_run.pop("dictionary"))
     entry = phase_numbers(torch, epg, card, main_run)
+    jac_entry = phase_jac_numbers(torch, epg, card, jac_run)
+    # launches on the main paths: the dictionary (4), the Jacobian (4b)
+    # and serving (5b: truth fingerprints, one Jacobian per iteration)
+    entry["launches"] += serve["launches"]["fisp_half"]
+    jac_entry["launches"] += serve["launches"]["fisp_jac"]
+    per = serve["per_iter"]
+    print(f"[numbers] serving, {NVOX} voxels x {NATOMS} atoms: match "
+          f"{serve['match_s'] * 1e3:.1f} ms; Gauss-Newton per iteration "
+          f"{serve['gn_s'] / 5:.3f} s = host build + match "
+          f"{per['host']:.3f} s + simulate (kernel + assembly) "
+          f"{per['simulate']:.3f} s + update/solve {per['solve']:.3f} s "
+          f"({card})")
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, jac_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,19 +8,23 @@ the same names:
 >>> seq = [epg.T(90, 90)] + [epg.S(1), epg.T(150, 0), epg.S(1), epg.ADC] * 20
 >>> signal = epg.simulate(epg.modify(seq, T2=[30, 40, 50]))
 
-This slice covers the operators T/E/P/S(int)/ADC, the StateMatrix, the
-eager general engine, the FISP MR-fingerprinting models and the fused FISP
-dictionary kernel for the H100 (``models/cuda_fisp.py``,
-``csrc/fisp_half.cu``), which ``simulate()`` dispatches to for exact FISP
-trains on CUDA in float32.
+This port covers the operators T/E/P/R/S(int)/ADC with order1 derivative
+specs, the StateMatrix, the eager general engine, Jacobian probes
+(``diff.py``: forward-mode autodiff through the operator loop), the FISP
+MR-fingerprinting models, the fused FISP dictionary and Jacobian kernels
+for the H100 (``models/cuda_fisp.py``, ``csrc/fisp_half.cu``,
+``csrc/fisp_jac.cu``), which ``simulate()`` dispatches to for exact FISP
+trains on CUDA in float32, and MRF serving (``parallel``: dictionary
+match, reconstruction, Gauss-Newton refinement).
 """
 
 from . import config
 from .statematrix import StateMatrix
 from .ops import (
     Operator, EmptyOperator, MultiOperator, DiffOperator, Wait,
-    T, Tx, Ty, Phi, E, P, S, G, C, Probe, Adc, ADC, DFT, Imaging,
+    T, Tx, Ty, Phi, E, P, R, S, G, C, Probe, Adc, ADC, DFT, Imaging,
 )
+from .diff import Jacobian, Hessian, PartialsPruner
 from .engine import (
     simulate, simulate_simple, modify, flatten_sequence, getshape,
     getnshift, get_adc_times,
@@ -28,8 +32,9 @@ from .engine import (
 
 __all__ = [
     "config", "StateMatrix", "Operator", "EmptyOperator", "MultiOperator",
-    "DiffOperator", "Wait", "T", "Tx", "Ty", "Phi", "E", "P", "S", "G", "C",
-    "Probe", "Adc", "ADC", "DFT", "Imaging", "simulate", "simulate_simple",
+    "DiffOperator", "Wait", "T", "Tx", "Ty", "Phi", "E", "P", "R", "S", "G",
+    "C", "Probe", "Adc", "ADC", "DFT", "Imaging", "Jacobian", "Hessian",
+    "PartialsPruner", "simulate", "simulate_simple",
     "modify", "flatten_sequence", "getshape", "getnshift", "get_adc_times",
 ]
 

@@ -32,6 +32,9 @@ _SIGNATURES = {
     "epg_fisp_half": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _F, _F,
                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P],
+    "epg_fisp_jac": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _F, _F, _P,
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
 }
 
 #: the loaded library and what its build printed: {"lib", "path",

@@ -4,9 +4,10 @@ Both functions take plain numpy values, so this module needs no JAX:
 
 * :func:`from_numpy_params` turns the host dict of
   ``epgpy_tpu.fisp_dispatch.match_fisp`` (keys FA, phi, TR, TE, T1, T2,
-  B1, TI, inv_df, df, demod, shape) into a match dict of this package,
-  with its kernel tensors already on `device`: ready for
-  ``epgpy_torch.fisp_dispatch.run_fisp_kernel``;
+  B1, TI, inv_df, vars, b1_scale, d_var, demod, shape, df, diffusion)
+  into a match dict of this package, with its kernel tensors already on
+  `device`: ready for ``epgpy_torch.fisp_dispatch.run_fisp_kernel`` and,
+  for a Jacobian match (``vars``, ``b1_scale``), ``run_fisp_jacobian``;
 * :func:`from_numpy_states` builds a :class:`StateMatrix` from the complex
   ``(*batch, K, 3)`` ladder of a JAX ``StateMatrix.states``.
 """
@@ -20,8 +21,8 @@ from .statematrix import StateMatrix
 
 __all__ = ["from_numpy_params", "from_numpy_states"]
 
-_KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "inv_df", "df",
-         "demod", "shape")
+_KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "inv_df", "vars",
+         "b1_scale", "d_var", "demod", "shape", "df", "diffusion")
 
 
 def from_numpy_params(params: dict, device) -> dict:
@@ -35,6 +36,9 @@ def from_numpy_params(params: dict, device) -> dict:
     else:
         out["TE"] = np.asarray(out["TE"])
     out["shape"] = tuple(out["shape"])
+    out["vars"] = tuple(out["vars"] or ())
+    if out["b1_scale"] is not None:
+        out["b1_scale"] = float(out["b1_scale"])
     fisp_dispatch.device_params(out, device)
     return out
 

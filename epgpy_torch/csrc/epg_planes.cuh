@@ -22,6 +22,7 @@ namespace epg {
 
 // Weigel rotation closed forms for flip a (radians) and phase terms
 // (cos phi, sin phi, cos 2phi, sin 2phi): the 10-tuple of _rot_coeffs.
+// The same struct holds coefficient derivatives (rot_coeffs_db1).
 struct Rot {
     float c2, a1r, a1i, a2r, a2i;    // A row: cos^2(a/2), m01, m02
     float caa, b0r, b0i, b1r, b1i;   // Z row: cos a, m20, m21
@@ -33,10 +34,9 @@ __device__ __forceinline__ void cmul(float cr, float ci, float xr, float xi,
     im = cr * xi + ci * xr;
 }
 
-__device__ __forceinline__ Rot rot_coeffs(float a, float cp, float sp,
-                                          float c2p, float s2p) {
-    float sa, ca;
-    sincosf(a, &sa, &ca);
+// rot_coeffs from sin a and cos a
+__device__ __forceinline__ Rot rot_coeffs_sc(float sa, float ca, float cp,
+                                             float sp, float c2p, float s2p) {
     const float cos2 = (1.0f + ca) * 0.5f;
     const float sin2 = (1.0f - ca) * 0.5f;
     Rot r;
@@ -50,6 +50,34 @@ __device__ __forceinline__ Rot rot_coeffs(float a, float cp, float sp,
     r.b0i = -0.5f * cp * sa;
     r.b1r = -0.5f * sp * sa;
     r.b1i = 0.5f * cp * sa;
+    return r;
+}
+
+__device__ __forceinline__ Rot rot_coeffs(float a, float cp, float sp,
+                                          float c2p, float s2p) {
+    float sa, ca;
+    sincosf(a, &sa, &ca);
+    return rot_coeffs_sc(sa, ca, cp, sp, c2p, s2p);
+}
+
+// d/dB1 of rot_coeffs for a flip a = FA * B1 with da = d(a)/dB1 (the
+// FISP Jacobian's B1 tangent; _kernel_jac's dcos2, dm01 .. dm21, dca)
+__device__ __forceinline__ Rot rot_coeffs_db1(float sa, float ca, float da,
+                                              float cp, float sp, float c2p,
+                                              float s2p) {
+    const float dsa = ca * da;
+    const float dsin2 = 0.5f * sa * da;
+    Rot r;
+    r.c2 = -0.5f * sa * da;
+    r.a1r = c2p * dsin2;
+    r.a1i = s2p * dsin2;
+    r.a2r = sp * dsa;
+    r.a2i = -cp * dsa;
+    r.caa = -sa * da;
+    r.b0r = -0.5f * sp * dsa;
+    r.b0i = -0.5f * cp * dsa;
+    r.b1r = -0.5f * sp * dsa;
+    r.b1i = 0.5f * cp * dsa;
     return r;
 }
 

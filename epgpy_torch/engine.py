@@ -4,15 +4,20 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
 ``simulate()`` has two routes:
 
 * **the FISP dispatch**: an exact FISP train (fisp_dispatch.match_fisp)
-  runs as one fused CUDA kernel (models/cuda_fisp.py).  ``fisp_kernel=
-  "auto"`` engages it when the working device is CUDA and the precision
-  float32 (the kernel computes in float32); ``"force"`` engages it
-  anywhere, running the kernel's plain twin for the CPU;
-  ``False`` opts out.  Whenever a call does not take the kernel, one INFO
-  line says why (device, precision, off-pattern op, shared-memory gate);
+  runs as one fused CUDA kernel (models/cuda_fisp.py), and so do its
+  Jacobian probes (``probe=[ADC, Jacobian([...])]`` on a train whose E ops
+  track ``order1=["T1", "T2"]`` and whose T ops may track B1): the fused
+  primal+tangent kernel.  ``fisp_kernel="auto"`` engages them when the
+  working device is CUDA and the precision float32 (the kernels compute
+  in float32); ``"force"`` engages them anywhere, running the kernels'
+  plain twins for the CPU; ``False`` opts out.  Whenever a call does not
+  take a kernel, one INFO line says why (device, precision, off-pattern
+  op or probe, shared-memory gate);
 * **the general path**: the eager operator loop of ``simulate_simple``
-  over a StateMatrix broadcast to the sequence's batch shape.  It stands
-  in for the JAX package's scan planner, which is not ported yet.
+  over a StateMatrix broadcast to the sequence's batch shape (for
+  Jacobian probes, forward-mode autodiff through it: diff.simulate_diff).
+  It stands in for the JAX package's scan planner, which is not ported
+  yet.
 
 The ladder capacity is fixed up front from the sequence's total shift
 count, capped by ``max_nstate``.
@@ -112,23 +117,30 @@ def simulate_simple(sm, sequence, probes=None, callback=None, disp=False,
     return values, times
 
 
-def _fisp_dispatch(sequence, ncap, fisp_kernel, disp):
-    """The FISP kernel's echo train (N, *batch), or None (logged)."""
-    from . import fisp_dispatch
-
+def _kernel_gate(fisp_kernel, what):
+    """Whether the device and precision let `fisp_kernel` engage a fused
+    kernel; logs the reason at INFO when they do not."""
     if fisp_kernel not in ("auto", "force"):
         raise ValueError(f"fisp_kernel must be 'auto', 'force' or False, "
                          f"got {fisp_kernel!r}")
     if fisp_kernel == "auto":
         if config.device().type != "cuda":
-            LOGGER.info("simulate: FISP kernel not used: device is %s "
-                        "(the kernel runs on cuda)", config.device())
-            return None
+            LOGGER.info("simulate: %s not used: device is %s (the kernel "
+                        "runs on cuda)", what, config.device())
+            return False
         if config.precision() != "float32":
-            LOGGER.info("simulate: FISP kernel not used: precision is %s "
-                        "(the kernel computes in float32)",
-                        config.precision())
-            return None
+            LOGGER.info("simulate: %s not used: precision is %s (the kernel "
+                        "computes in float32)", what, config.precision())
+            return False
+    return True
+
+
+def _fisp_dispatch(sequence, ncap, fisp_kernel, disp):
+    """The FISP kernel's echo train (N, *batch), or None (logged)."""
+    from . import fisp_dispatch
+
+    if not _kernel_gate(fisp_kernel, "FISP kernel"):
+        return None
     params = fisp_dispatch.match_fisp(sequence)
     if params is None:
         return None
@@ -143,36 +155,114 @@ def _fisp_dispatch(sequence, ncap, fisp_kernel, disp):
     return fisp_dispatch.run_fisp_kernel(params, ncap)
 
 
+def _jacobian_dispatch(sequence, probes, ncap, fisp_kernel, disp):
+    """Jacobian probes on a FISP train (engine.py:1042-1136 of the JAX
+    package): the fused primal+tangent kernel's outputs, a tuple over
+    probes, or None (logged) for the general path."""
+    from . import fisp_dispatch
+
+    if not _kernel_gate(fisp_kernel, "FISP Jacobian kernel"):
+        return None
+    # cheap probe-shape pre-check against the maximal variable set before
+    # paying the host-side train factorization
+    specs = fisp_dispatch.match_jacobian_probes(
+        probes, ("T1", "T2", "g", "B1", "D", "Dcoef"))
+    if specs is None:
+        LOGGER.info("simulate: FISP Jacobian kernel not used: probes are "
+                    "not [Adc | Jacobian(F0)] over kernel variables")
+        return None
+    params = fisp_dispatch.match_fisp(sequence)
+    if params is None:
+        # the CPMG, bSSFP, DESS, ME-GRE, DW-FISP and composite Jacobian
+        # families of the JAX dispatcher are not ported yet (ROADMAP)
+        LOGGER.info("simulate: FISP Jacobian kernel not used: not a FISP "
+                    "train (other Jacobian families are not ported)")
+        return None
+    specs = fisp_dispatch.match_jacobian_probes(probes, params["vars"])
+    if specs is None:
+        LOGGER.info("simulate: FISP Jacobian kernel not used: probe "
+                    "variables %s are not the train's tracked %s",
+                    [getattr(pb, "variables", None) for pb in probes],
+                    params["vars"])
+        return None
+    if not fisp_dispatch.jac_kernel_fits(ncap):
+        LOGGER.info("simulate: FISP Jacobian kernel not used: gate: "
+                    "nstate=%d does not fit in shared memory", ncap)
+        return None
+    if disp:
+        LOGGER.info("simulate: FISP diff train -> fused CUDA Jacobian "
+                    "kernel (%d pulses, nstate=%d)", len(params["FA"]), ncap)
+    fisp_dispatch.count_dispatch("jac:fisp")
+    return fisp_dispatch.run_fisp_jacobian(params, ncap, specs)
+
+
 def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,
-             disp: bool = False, max_nstate=None, fisp_kernel="auto"):
+             disp: bool = False, max_nstate=None, fisp_kernel="auto",
+             probe=None, jacobian_chunk=None):
     """Simulate an operator sequence; returns the ADC values.
 
     API of ``epgpy_tpu.simulate`` (reference epgpy/functions.py:50-170)
-    for the options this port honours.  Returns an (N_adc, *batch)
-    complex array -- numpy with ``asarray`` (default), else a tensor on
-    the working device -- and, with ``adc_time``, the ADC times first.
+    for the options this port honours.  Without `probe`, returns an
+    (N_adc, *batch) complex array of the sequence's own ADC values.  With
+    `probe` (one probe or a list: ``Adc``, callables, ``diff.Jacobian``),
+    returns one array per probe (a tuple for a list),
+    acquired at every ADC; a Jacobian is (N_adc, *batch, nvars).  Arrays
+    are numpy with ``asarray`` (default), else tensors on the working
+    device; with ``adc_time``, the ADC times come first.
+    ``jacobian_chunk=N`` pushes N tangent columns at a time on the
+    general Jacobian path (memory bound).
     """
+    from . import diff
+
     sequence = flatten_sequence(sequence)
     if not any(isinstance(op, probe_mod.Probe) for op in sequence):
         raise ValueError("Cannot simulate sequence without at least one "
                          "Probe/ADC")
+    probes = None
+    if probe is not None:
+        probes = tuple(pb if isinstance(pb, probe_mod.Probe)
+                       else probe_mod.Probe(pb)
+                       for pb in (probe if isinstance(probe, (tuple, list))
+                                  else [probe]))
     nshift, shape = getnshift(sequence), getshape(sequence)
     ncap = _capacity(nshift, max_nstate)
     LOGGER.info("simulate: %d ops, nshift=%d, shape=%s", len(sequence),
                 nshift, shape)
+    use_kernel = fisp_kernel not in (False, None)
 
     values = None
-    if fisp_kernel not in (False, None):
-        values = _fisp_dispatch(sequence, ncap, fisp_kernel, disp)
-    if values is None:
-        if disp:
-            LOGGER.info("simulate: general path (%d ops, nstate=%d)",
-                        len(sequence), ncap)
-        sm = StateMatrix([0, 0, 1], nstate=ncap).broadcast(shape)
-        acquired, _ = simulate_simple(sm, sequence, max_nstate=max_nstate)
-        values = torch.stack([v[0] for v in acquired])
+    if probes is not None and any(isinstance(pb, (diff.Jacobian,
+                                                  diff.Hessian))
+                                  for pb in probes):
+        if use_kernel:
+            values = _jacobian_dispatch(sequence, probes, ncap, fisp_kernel,
+                                        disp)
+        if values is None:
+            if disp:
+                LOGGER.info("simulate: general diff path (%d ops, "
+                            "nstate=%d)", len(sequence), ncap)
+            sm = StateMatrix([0, 0, 1], nstate=ncap).broadcast(shape)
+            values = diff.simulate_diff(sequence, probes, sm,
+                                        max_nstate=max_nstate,
+                                        jacobian_chunk=jacobian_chunk)
+    else:
+        if use_kernel and probes is None:
+            values = _fisp_dispatch(sequence, ncap, fisp_kernel, disp)
+            if values is not None:
+                values = (values,)
+        if values is None:
+            if disp:
+                LOGGER.info("simulate: general path (%d ops, nstate=%d)",
+                            len(sequence), ncap)
+            sm = StateMatrix([0, 0, 1], nstate=ncap).broadcast(shape)
+            acquired, _ = simulate_simple(sm, sequence, probes=probes,
+                                          max_nstate=max_nstate)
+            values = tuple(torch.stack([v[i] for v in acquired])
+                           for i in range(len(acquired[0])))
     if asarray:
-        values = values.cpu().numpy()
+        values = tuple(v.detach().cpu().numpy() for v in values)
+    if len(values) == 1:
+        values = values[0]
     if adc_time:
         times = get_adc_times(sequence)
         return (np.asarray(times) if asarray else times), values

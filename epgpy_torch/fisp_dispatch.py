@@ -16,6 +16,15 @@ the kernel's parameters; :func:`run_fisp_kernel` runs the kernel
 shift, host parameter values.  A non-match returns None and logs its
 reason at INFO; the engine then takes the general path.
 
+Derivative specs are part of the match (``:164-258, :379-381, :429-443,
+:542-545, :569-587`` of the JAX dispatcher): E ops may track
+``order1=["T1", "T2"]`` (unit coefficients, the same spec on every E), T
+ops may track B1 as ``order1={"B1": {"alpha": c_i}}`` with one shared
+ratio FA_i / c_i; the dict's ``vars`` and ``b1_scale`` tell the Jacobian
+runner (:func:`run_fisp_jacobian`, the fused primal+tangent kernel) which
+columns it serves.  Aliases, chain-rule coefficients other than that,
+and order2 specs do not match.
+
 Matching is host work, O(pulses x atoms) for the rank-1 flip
 factorization, so results (matches and non-matches) are memoized on the
 operator identities.  The DW-FISP, CPMG, bSSFP, DESS, ME-GRE, EPG-X and
@@ -35,6 +44,7 @@ from .models import cuda_fisp
 LOGGER = logging.getLogger(__name__)
 
 __all__ = ["match_fisp", "run_fisp_kernel", "device_params", "kernel_fits",
+           "jac_kernel_fits", "match_jacobian_probes", "run_fisp_jacobian",
            "count_dispatch", "DISPATCH_COUNTS", "clear_cache"]
 
 #: per-sequence match memo keyed on operator identities; entries pin the
@@ -63,6 +73,13 @@ def kernel_fits(nstate) -> bool:
     on the H100 (see cuda_fisp.kernel_fits); oversized ladders take the
     general path instead of failing the launch."""
     return cuda_fisp.kernel_fits(max(int(nstate), 1))
+
+
+def jac_kernel_fits(nstate) -> bool:
+    """Whether the FISP Jacobian kernel's 24 planes fit in one block's
+    shared memory (see cuda_fisp.jac_kernel_fits); the FISP family has
+    no diffusion, so its Jacobians never need the 30-plane layout."""
+    return cuda_fisp.jac_kernel_fits(max(int(nstate), 1))
 
 
 def _memoized(key, sequence, compute):
@@ -111,6 +128,87 @@ def _host_nd(x):
         return None
 
 
+def _no_diff(op):
+    return not getattr(op, "order1", None) and not getattr(op, "order2", None)
+
+
+def _host_scalar_coeff(c):
+    """A chain-rule coefficient as a host float, or None (device, traced
+    or non-scalar coefficients disqualify; never raise: the matcher must
+    fall through on exotic specs)."""
+    if _is_device(c) or np.ndim(c) != 0:
+        return None
+    try:
+        return float(c)
+    except (TypeError, ValueError):
+        return None
+
+
+def _canonical_order1(op, allowed=("T1", "T2")):
+    """E-op order1 as a sorted tuple of tracked names, or None.
+
+    The fused Jacobian kernel propagates dS/d(param) for the atom
+    parameters, which is the order1 spec whose variable IS the parameter
+    with unit coefficient (``order1=["T1", "T2"]``).  Aliased variables,
+    chain-rule coefficients, parameters outside `allowed` and order2
+    disqualify the train."""
+    if getattr(op, "order2", None):
+        return None
+    o1 = getattr(op, "order1", None)
+    if not o1:
+        return ()
+    names = []
+    for var, cfs in o1.items():
+        if var not in allowed or set(cfs) != {var}:
+            return None
+        if _host_scalar_coeff(cfs[var]) != 1.0:
+            return None
+        names.append(var)
+    return tuple(sorted(names))
+
+
+def _t_b1_order1(op):
+    """T-op order1 for B1 tracking: no spec -> ``()`` (untracked); exactly
+    ``order1={"B1": {"alpha": c}}`` with a host scalar c = d(alpha)/dB1
+    -> ``float(c)``; anything else -> None (no match).  B1 enters only as
+    the flip attenuation, so dS/dB1 = sum_i c_i dS/dalpha_i."""
+    if getattr(op, "order2", None):
+        return None
+    o1 = getattr(op, "order1", None)
+    if not o1:
+        return ()
+    if set(o1) != {"B1"}:
+        return None
+    cfs = o1["B1"]
+    if not isinstance(cfs, dict) or set(cfs) != {"alpha"}:
+        return None
+    return _host_scalar_coeff(cfs["alpha"])
+
+
+def _b1_scale_from_coeffs(FA, coeffs):
+    """Shared-ratio validation for B1-tracked trains.
+
+    The kernel's dB1 column is w.r.t. its internally factored B1
+    (``_rank1_factor`` absorbs the physical scale into FA), with per-pulse
+    coefficient d(a_i)/dB1_kernel = FA_i.  The spec says d(alpha_i)/dB1 =
+    c_i, so one shared ratio s = FA_i / c_i must hold on every pulse with
+    a flip; then dS/dB1 = dS/dB1_kernel / s.  Pulses without a flip must
+    be untracked.  Returns s or None."""
+    s = None
+    for fa, c in zip(FA, coeffs):
+        if abs(float(fa)) > 1e-12:
+            if c == () or c == 0.0:
+                return None
+            r = float(fa) / c
+            if s is None:
+                s = r
+            elif abs(r - s) > 1e-5 * max(abs(s), 1e-30):
+                return None
+        elif c != () and c != 0.0:
+            return None
+    return s
+
+
 def _append_rows(arrs, bshape):
     """Right-pad (append-broadcast rule) and broadcast each array to
     `bshape`, flattened -- views, no copies."""
@@ -157,9 +255,11 @@ def match_fisp(sequence):
     """Match ``[T, E, ADC, E, S(1)] * N`` (optionally after a [T, E]
     inversion prep) and extract the kernel parameters.
 
-    Returns ``dict(FA, phi, TR, TE, T1, T2, B1, TI, inv_df, df, demod,
-    shape)`` of host values -- the keys and values of the JAX matcher's
-    dict for the same train -- or None, logging the reason at INFO.
+    Returns ``dict(FA, phi, TR, TE, T1, T2, B1, TI, inv_df, vars,
+    b1_scale, d_var, demod, shape, df, diffusion)`` of host values -- the
+    keys and values of the JAX matcher's dict for the same train (``d_var``
+    and ``diffusion`` are None: they belong to the DW-FISP family) -- or
+    None, logging the reason at INFO.
     """
     n = len(sequence)
     if n < 10 or n % 5 not in (0, 2):
@@ -187,6 +287,8 @@ def _match_fisp_impl(sequence):
         t0, e0 = sequence[0], sequence[1]
         if type(t0) is not T or type(e0) is not E:
             return None, "ops 0-1 are not a [T, E] inversion prep"
+        if _t_b1_order1(t0) is None or _canonical_order1(e0) is None:
+            return None, "ops 0-1: derivative spec the kernel does not take"
         TI = _scalar(e0.tau)
         if TI is None:
             return None, "op 1: the prep delay is not a host scalar"
@@ -194,7 +296,8 @@ def _match_fisp_impl(sequence):
         sequence = sequence[2:]
 
     alphas, phis, te_taus, tr_taus, adc_phases = [], [], [], [], []
-    T1 = T2 = DF = None
+    b1_coeffs = []
+    T1 = T2 = DF = tracked = None
     for i in range(len(sequence) // 5):
         group = sequence[5 * i:5 * i + 5]
         for j, (op, typ) in enumerate(zip(group, (T, E, Adc, E, S))):
@@ -203,6 +306,19 @@ def _match_fisp_impl(sequence):
                               f"{typ.__name__}")
         t_op, e1, adc, e2, s = group
         at = off + 5 * i
+        # T may track B1 (chain-rule spec), E may track T1/T2 -- the same
+        # spec on every E; the readout and the shift track nothing
+        b1c = _t_b1_order1(t_op)
+        if b1c is None or not _no_diff(adc) or not _no_diff(s):
+            return None, (f"ops {at}-{at + 4}: derivative spec the kernel "
+                          f"does not take")
+        b1_coeffs.append(b1c)
+        c1, c2 = _canonical_order1(e1), _canonical_order1(e2)
+        if c1 is None or c1 != c2 or (tracked is not None
+                                      and tracked != c1):
+            return None, (f"ops {at + 1},{at + 3}: E derivative specs are "
+                          f"not one canonical T1/T2 tracking")
+        tracked = c1
         # ADC: F0; phase absent or a host scalar (checked against -phi
         # below: receiver demodulation)
         ph_adc = None if adc.phase is None else _scalar(adc.phase)
@@ -278,6 +394,10 @@ def _match_fisp_impl(sequence):
             if not np.array_equal(g0, DF):
                 return None, "op 1: prep off-resonance differs from train's"
             inv_df = True
+        if _canonical_order1(e0) != tracked:
+            # the kernel seeds prep tangents in closed form: the prep
+            # relaxation is differentiated, so tracking must agree
+            return None, "op 1: prep tracking differs from the train's"
         a0, ph0 = _host_nd(t0.alpha), _scalar(t0.phi)
         if a0 is None or ph0 is None:
             return None, "op 0: prep pulse not host values"
@@ -300,17 +420,37 @@ def _match_fisp_impl(sequence):
         else:
             return None, "op 0: prep phase is not 0"
 
+    # B1-tracked trains: one shared ratio s = FA_kernel / c against the
+    # final (post-prep-renormalization) factorization.  The kernel's dB1
+    # column covers the train AND the prep's 180*B1, so a prepped train
+    # matches only when its prep pulse is tracked too -- as a pseudo-pulse
+    # of kernel coefficient 180 (d(180*B1n)/dB1n)
+    b1_scale = None
+    prep_b1c = () if prep is None else _t_b1_order1(prep[0])
+    if any(c != () for c in b1_coeffs) or prep_b1c != ():
+        fa_ext, cf_ext = list(FA), list(b1_coeffs)
+        if prep is not None:
+            if prep_b1c == ():
+                return None, "op 0: B1-tracked train with an untracked prep"
+            fa_ext.append(180.0)
+            cf_ext.append(prep_b1c)
+        b1_scale = _b1_scale_from_coeffs(fa_ext, cf_ext)
+        if b1_scale is None:
+            return None, "B1 chain-rule coefficients are not one ratio of FA"
+
     # n-D batch grids flatten to the kernel's atom axis (append rule);
     # run_fisp_kernel restores the batch shape on the outputs
     if not common.broadcastable(T1.shape, T2.shape, B1.shape, DF.shape):
         return None, "T1, T2, B1 and df batch shapes do not broadcast"
     bshape = common.broadcast_shapes(T1.shape, T2.shape, B1.shape, DF.shape)
     T1f, T2f, B1f, DFf = _append_rows((T1, T2, B1, DF), bshape)
+    out_vars = tuple(tracked) + (("B1",) if b1_scale is not None else ())
     return {
         "FA": FA, "phi": np.asarray(phis), "TR": TR, "TE": TE,
         "T1": T1f, "T2": T2f, "B1": B1f, "TI": TI, "inv_df": inv_df,
-        "demod": demod, "shape": bshape,
-        "df": DFf if DFf.any() else None,
+        "vars": tuple(sorted(out_vars)), "b1_scale": b1_scale,
+        "d_var": None, "demod": demod, "shape": bshape,
+        "df": DFf if DFf.any() else None, "diffusion": None,
     }, None
 
 
@@ -348,3 +488,93 @@ def run_fisp_kernel(params, nstate):
         inversion_df=bool(params.get("inv_df")))
     return torch.complex(re, im).reshape((re.shape[0],)
                                          + tuple(params["shape"]))
+
+
+def match_jacobian_probes(probes, tracked):
+    """Map a simulate() probe tuple onto the fused Jacobian kernel's
+    outputs (``epgpy_tpu/fisp_dispatch.py:2026``).
+
+    Accepts only plain F0 ``Adc`` probes and ``Jacobian`` probes (F0) over
+    ``{"magnitude"} | tracked``, at least one Jacobian.  Returns a tuple
+    of per-probe specs -- ``("sig",)`` or ``("jac", names)`` -- or None.
+    "magnitude" maps to the signal itself (dS/d|M0| = S).  Hessians and
+    other probes take the general path.
+    """
+    from . import diff
+    from .ops.probe import Adc
+
+    tracked = set(tracked or ())
+    specs = []
+    for pb in probes:
+        if isinstance(pb, diff.Hessian):
+            return None
+        if isinstance(pb, diff.Jacobian):
+            names = tuple(pb.variables)
+            if pb.probe_attr != "F0" or any(
+                    v != "magnitude" and v not in tracked for v in names):
+                return None
+            specs.append(("jac", names))
+        elif type(pb) is Adc and pb.attr == "F0" and pb.phase is None:
+            specs.append(("sig",))
+        else:
+            return None
+    return tuple(specs) if any(s[0] == "jac" for s in specs) else None
+
+
+def _assemble_jac_outputs(re, im, dre, dim, specs, bshape, cols):
+    """Per-probe outputs of the fused Jacobian kernel
+    (``epgpy_tpu/fisp_dispatch.py:1987``).
+
+    ``re/im``: (P, B) signal; ``dre/dim``: (P, B, G) tangent columns;
+    ``cols`` maps each tracked name to its column and scale.  Returns a
+    tuple of complex tensors: the signal (P, *bshape), a Jacobian
+    (P, *bshape, k) with columns in probe-variable order."""
+    P = re.shape[0]
+    cplx = torch.complex64 if re.dtype == torch.float32 else torch.complex128
+    outs = []
+    for spec in specs:
+        if spec[0] == "sig":
+            outs.append(torch.complex(re, im).reshape((P,) + bshape))
+            continue
+        names = spec[1]
+        jac = torch.empty(re.shape + (len(names),), dtype=cplx,
+                          device=re.device)
+        parts = torch.view_as_real(jac)              # (P, B, k, 2)
+        for j, name in enumerate(names):
+            if name == "magnitude":
+                parts[..., j, 0], parts[..., j, 1] = re, im
+            else:
+                g, scale = cols[name]
+                if scale is None:
+                    parts[..., j, 0] = dre[..., g]
+                    parts[..., j, 1] = dim[..., g]
+                else:
+                    parts[..., j, 0] = dre[..., g] * scale
+                    parts[..., j, 1] = dim[..., g] * scale
+        outs.append(jac.reshape((P,) + bshape + (len(names),)))
+    return tuple(outs)
+
+
+def run_fisp_jacobian(params, nstate, specs):
+    """Run the fused Jacobian kernel for matched diff probes
+    (``epgpy_tpu/fisp_dispatch.py:2061-2123``).
+
+    Returns a tuple over probes of complex tensors in the engine's layout:
+    signal (N, *batch), Jacobian (N, *batch, k) with columns in
+    probe-variable order.  The kernel's dB1 column is w.r.t. its factored
+    B1; dividing by the matcher's ``b1_scale`` expresses it in the user's
+    B1 units."""
+    d = device_params(params)
+    (re, im), (dre, dim) = cuda_fisp.fisp_jacobian_echoes(
+        d["FA"], d["phi"], d["TR"], d["TE"], d["T1"], d["T2"], d["B1"],
+        d["df"], nstate=max(int(nstate), 1),
+        demodulate=bool(params.get("demod")), inversion=params.get("TI"),
+        inversion_df=bool(params.get("inv_df")))
+    b1s, inv = params.get("b1_scale"), None
+    if b1s is not None:
+        # 1/s in the kernel's precision, as the JAX runner scales
+        inv = (float(np.float32(1.0) / np.float32(b1s))
+               if re.dtype == torch.float32 else 1.0 / float(b1s))
+    cols = {"T1": (0, None), "T2": (1, None), "B1": (2, inv)}
+    return _assemble_jac_outputs(re, im, dre, dim, specs,
+                                 tuple(params["shape"]), cols)

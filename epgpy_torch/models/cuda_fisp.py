@@ -1,4 +1,4 @@
-"""FISP MR-fingerprinting dictionary: the CUDA kernel and its plain twin.
+"""FISP MR-fingerprinting dictionary and Jacobian: CUDA kernels, plain twins.
 
 Counterpart of ``epgpy_tpu/models/pallas_fisp.py:fisp_dictionary_pallas``
 (:899) with its folded half-ladder kernel ``_kernel_half`` (:270).  The
@@ -14,6 +14,12 @@ what the kernel does not take: no fallback) and the plain twin for CPU
 tensors.  ``LAUNCHES`` counts kernel launches.  The TPU-only knobs of the
 JAX signature (``btile``, ``pchunk``, ``interpret``, ``half_ladder``) are
 not taken: there is no padding and no full-ladder variant here.
+
+The Jacobian (``fisp_jacobian_pallas`` :775 with ``_kernel_jac`` :458)
+follows the same pattern: ``fisp_jacobian_cuda`` / ``fisp_jacobian_plain``
+(kernel ``epgpy_torch/csrc/fisp_jac.cu``; fingerprints and dS/d(T1, T2,
+B1[, D]) in one pass), the echo-layout ``fisp_jacobian_echoes[_plain]``
+that the dispatch uses, and ``JAC_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -26,10 +32,14 @@ import torch
 from . import planes
 
 __all__ = ["fisp_dictionary_cuda", "fisp_dictionary_plain", "fisp_echoes",
-           "fisp_echoes_plain", "kernel_fits", "block_size", "SMEM_PER_BLOCK"]
+           "fisp_echoes_plain", "kernel_fits", "block_size", "SMEM_PER_BLOCK",
+           "fisp_jacobian_cuda", "fisp_jacobian_plain", "fisp_jacobian_echoes",
+           "fisp_jacobian_echoes_plain", "jac_kernel_fits", "jac_block_size"]
 
 #: kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
+#: Jacobian kernel launches so far
+JAC_LAUNCHES = 0
 
 #: shared memory one block may use on sm_90 (H100), bytes
 SMEM_PER_BLOCK = 232448
@@ -128,10 +138,7 @@ def fisp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
     s = [z.clone() for _ in range(6)]
     if x["TI"] is not None:
         TI = x["TI"]
-        ai = math.pi * B1
-        E1i = torch.exp(-TI / T1)
-        E2i = torch.exp(-TI / T2)
-        fpi = -torch.sin(ai) * E2i
+        (fpi, z0), _ = planes.inversion_prep(B1, T1, T2, TI)
         if use_df and inversion_df:
             th = 2 * math.pi * DF * TI
             cth, sth = torch.cos(th), torch.sin(th)
@@ -142,7 +149,7 @@ def fisp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
         else:
             s[1][0] = fpi
             s[3][0] = fpi
-        s[4][0] = torch.cos(ai) * E1i + 1.0 - E1i
+        s[4][0] = z0
     else:
         s[4][0] = 1.0
 
@@ -154,15 +161,7 @@ def fisp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
         e1te, e2te = torch.exp(-te / T1), torch.exp(-te / T2)
     if x["diff"] is not None:
         bT, bL, Dc = x["diff"]
-        rows = torch.arange(H, dtype=T1.dtype, device=T1.device)[:, None]
-        k2 = rows * rows
-        if diff_ramp:
-            aA = torch.exp(-(bT * (k2 - rows + 1.0 / 3.0)) * Dc)
-            aB = torch.exp(-(bT * (k2 + rows + 1.0 / 3.0)) * Dc)
-        else:
-            aA = torch.exp(-(bT * k2) * Dc)
-            aB = aA
-        aZ = torch.exp(-(bL * k2) * Dc)
+        (aA, aB, aZ), _ = planes.diff_attenuation(bT, bL, Dc, H, diff_ramp)
 
     out_re = torch.empty((P, B), dtype=T1.dtype, device=T1.device)
     out_im = torch.empty_like(out_re)
@@ -321,3 +320,289 @@ def fisp_dictionary_cuda(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
         demodulate=demodulate, inversion=inversion,
         inversion_df=inversion_df, diffusion=diffusion, diff_ramp=diff_ramp)
     return _finish(re, im, normalize)
+
+
+# -- the Jacobian: fingerprints + dS/d(T1, T2, B1[, D]) --
+
+
+def _jac_planes(track_diffusivity):
+    return 30 if track_diffusivity else 24
+
+
+def jac_kernel_fits(nstate, track_diffusivity=False) -> bool:
+    """Whether the Jacobian kernel's shared-memory state fits at its
+    smallest block (32 threads): 24 (30 with D) planes x (nstate+1) rows
+    x 32 atoms x 4 bytes -- nstate <= 74 (59)."""
+    return (4 * _jac_planes(track_diffusivity) * (int(nstate) + 1) * 32
+            <= SMEM_PER_BLOCK)
+
+
+def jac_block_size(nstate, track_diffusivity=False) -> int:
+    """Threads per block of the Jacobian kernel: 64, halved while the
+    state does not fit (at nstate 10, 64 threads hold 67.5 KB and an SM
+    keeps 3 blocks resident)."""
+    block = 64
+    while block > 32 and (4 * _jac_planes(track_diffusivity)
+                          * (int(nstate) + 1) * block > SMEM_PER_BLOCK):
+        block //= 2
+    return block
+
+
+def _jac_views(out):
+    """((re, im), (dre, dim)) views of a (2 + 2G, P, B) output buffer:
+    (P, B) echoes and (P, B, G) tangents."""
+    return (out[0], out[1]), (out[2::2].permute(1, 2, 0),
+                              out[3::2].permute(1, 2, 0))
+
+
+def fisp_jacobian_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                               nstate=10, demodulate=False, inversion=None,
+                               inversion_df=True, diffusion=None,
+                               diff_ramp=True, track_diffusivity=False):
+    """Echoes (re, im), each (P, B), and tangents (dre, dim), each
+    (P, B, 3[+1]) ordered (T1, T2, B1[, D]), by the plain PyTorch
+    recurrence (the Jacobian kernel's twin), on T1s's device and dtype."""
+    if int(nstate) < 1:
+        raise ValueError("the folded ladder needs nstate >= 1")
+    track_d = bool(track_diffusivity)
+    if track_d and diffusion is None:
+        raise ValueError("track_diffusivity requires diffusion=")
+    x = _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
+                 strict=False)
+    T1, T2, B1, DF = x["T1"], x["T2"], x["B1"], x["df"]
+    P, B, H = x["P"], x["B"], int(nstate) + 1
+    G = 4 if track_d else 3
+    use_df = DF is not None
+    z = torch.zeros((H, B), dtype=T1.dtype, device=T1.device)
+    # st[g]: plane set of group g (0 primal, then dT1, dT2, dB1[, dD])
+    st = [[z.clone() for _ in range(6)] for _ in range(G + 1)]
+    if x["TI"] is not None:
+        TI = x["TI"]
+        (fpi, z0), (d1z0, d2fpi, bfpi, bz0) = planes.inversion_prep(
+            B1, T1, T2, TI)
+        st[0][4][0], st[1][4][0], st[3][4][0] = z0, d1z0, bz0
+        seeds = ((0, fpi), (2, d2fpi), (3, bfpi))
+        if use_df and inversion_df:
+            th = 2 * math.pi * DF * TI
+            cth, sth = torch.cos(th), torch.sin(th)
+            for g, val in seeds:
+                st[g][0][0], st[g][1][0] = -val * sth, val * cth
+                st[g][2][0], st[g][3][0] = -val * sth, val * cth
+        else:
+            for g, val in seeds:
+                st[g][1][0], st[g][3][0] = val, val
+    else:
+        st[0][4][0] = 1.0
+
+    deg = math.pi / 180.0
+    cp, sp, c2p, s2p = planes.phase_terms(x["phi"] * deg)
+    var_te = isinstance(x["TE"], torch.Tensor)
+
+    def te_terms(te):
+        e2te = torch.exp(-te / T2)
+        pte = None
+        if use_df:
+            ang = 2 * math.pi * DF * te
+            pte = (torch.cos(ang), torch.sin(ang))
+        return torch.exp(-te / T1), e2te, e2te * te / (T2 * T2), pte
+
+    if not var_te:
+        te = x["TE"]
+        e1te, e2te, de2te, pte = te_terms(te)
+    if x["diff"] is not None:
+        bT, bL, Dc = x["diff"]
+        att, datt = planes.diff_attenuation(bT, bL, Dc, H, diff_ramp)
+        att = (att[0], att[0], att[1], att[1], att[2], att[2])
+        datt = (datt[0], datt[0], datt[1], datt[1], datt[2], datt[2])
+
+    out = torch.empty((2 + 2 * G, P, B), dtype=T1.dtype, device=T1.device)
+    FA, TR = x["FA"], x["TR"]
+    for i in range(P):
+        if var_te:
+            te = x["TE"][i]
+            e1te, e2te, de2te, pte = te_terms(te)
+        a = FA[i] * B1 * deg
+        rc = planes.rot_coeffs(a, cp[i], sp[i], c2p[i], s2p[i])
+        drc = planes.rot_coeffs_db1(a, FA[i] * deg, cp[i], sp[i], c2p[i],
+                                    s2p[i])
+        TRi = TR[i]
+        rem = TRi - te
+        E1b = torch.exp(-rem / T1)
+        E2b = torch.exp(-rem / T2)
+        cF = e2te * E2b
+        cZ = e1te * E1b
+        rec = 1.0 - cZ            # == (1 - E1te) E1b + (1 - E1b)
+        dcZ, dcF = planes.relax_tangents(cZ, cF, TRi, T1, T2)
+        if use_df:
+            ang = 2 * math.pi * DF * TRi
+            cpR, cpI = torch.cos(ang), torch.sin(ang)
+            cFc, dcFc = (cF * cpR, cF * cpI), (dcF * cpR, dcF * cpI)
+
+            def fmul(re, im, c=cFc):
+                return planes.cmul(c[0], c[1], re, im)
+
+            def dfmul(re, im, c=dcFc):
+                return planes.cmul(c[0], c[1], re, im)
+        else:
+            def fmul(re, im, c=cF):
+                return c * re, c * im
+
+            def dfmul(re, im, c=dcF):
+                return c * re, c * im
+
+        R = [planes.apply_rot(rc, g) for g in st]   # rotated groups
+        C = planes.apply_rot(drc, st[0])            # B1 coefficient pass
+
+        def write(o, eR, eI):
+            if use_df:
+                eR, eI = planes.cmul(pte[0], pte[1], eR, eI)
+            if demodulate:
+                eR, eI = eR * cp[i] + eI * sp[i], eI * cp[i] - eR * sp[i]
+            out[2 * o, i] = eR
+            out[2 * o + 1, i] = eI
+
+        p0, r1, r2, r3 = R[:4]
+        write(0, e2te * p0[0][0], e2te * p0[1][0])
+        write(1, e2te * r1[0][0], e2te * r1[1][0])
+        write(2, e2te * r2[0][0] + de2te * p0[0][0],
+              e2te * r2[1][0] + de2te * p0[1][0])
+        write(3, e2te * (r3[0][0] + C[0][0]), e2te * (r3[1][0] + C[1][0]))
+        if track_d:
+            write(4, e2te * R[4][0][0], e2te * R[4][1][0])
+
+        pZ = cZ * p0[4]
+        pZ[0] = pZ[0] + rec
+        t1Z = cZ * r1[4] + dcZ * p0[4]
+        t1Z[0] = t1Z[0] - dcZ
+        xa, xb = dfmul(p0[0], p0[1]), dfmul(p0[2], p0[3])
+        ta, tb = fmul(r2[0], r2[1]), fmul(r2[2], r2[3])
+        new = [
+            fmul(p0[0], p0[1]) + fmul(p0[2], p0[3]) + (pZ, cZ * p0[5]),
+            fmul(r1[0], r1[1]) + fmul(r1[2], r1[3])
+            + (t1Z, cZ * r1[5] + dcZ * p0[5]),
+            (ta[0] + xa[0], ta[1] + xa[1], tb[0] + xb[0], tb[1] + xb[1],
+             cZ * r2[4], cZ * r2[5]),
+            fmul(r3[0] + C[0], r3[1] + C[1]) + fmul(r3[2] + C[2], r3[3] + C[3])
+            + (cZ * (r3[4] + C[4]), cZ * (r3[5] + C[5])),
+        ]
+        if track_d:
+            r4 = R[4]
+            new.append(fmul(r4[0], r4[1]) + fmul(r4[2], r4[3])
+                       + (cZ * r4[4], cZ * r4[5]))
+        st = [planes.shift_fold(n) for n in new]
+        if x["diff"] is not None:
+            psh = st[0]
+            st = [tuple(v * a for v, a in zip(g, att)) for g in st]
+            if track_d:
+                st[4] = tuple(v + d * q for v, d, q in zip(st[4], datt, psh))
+    return _jac_views(out)
+
+
+def fisp_jacobian_echoes(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                         nstate=10, demodulate=False, inversion=None,
+                         inversion_df=True, diffusion=None, diff_ramp=True,
+                         track_diffusivity=False):
+    """Echoes (P, B) and tangents (P, B, 3[+1]) in float32: the CUDA
+    Jacobian kernel for CUDA tensors, the plain twin for CPU tensors."""
+    kw = dict(nstate=nstate, demodulate=demodulate, inversion=inversion,
+              inversion_df=inversion_df, diffusion=diffusion,
+              diff_ramp=diff_ramp, track_diffusivity=track_diffusivity)
+    if not isinstance(T1s, torch.Tensor):
+        raise TypeError("T1s must be a tensor")
+    if T1s.device.type == "cpu":
+        return fisp_jacobian_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s,
+                                          dfs, **kw)
+    if T1s.device.type != "cuda":
+        raise ValueError(f"no FISP Jacobian kernel for device {T1s.device}")
+    return _launch_jac(FA, phi, TR, TE, T1s, T2s, B1s, dfs, **kw)
+
+
+def _launch_jac(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate,
+                inversion, inversion_df, diffusion, diff_ramp,
+                track_diffusivity):
+    global JAC_LAUNCHES
+    from .. import _build
+
+    if T1s.dtype != torch.float32:
+        raise TypeError(f"the FISP Jacobian kernel computes in float32, got "
+                        f"{T1s.dtype}")
+    nstate = int(nstate)
+    track_d = bool(track_diffusivity)
+    if nstate < 1:
+        raise ValueError("the folded ladder needs nstate >= 1")
+    if track_d and diffusion is None:
+        raise ValueError("track_diffusivity requires diffusion=")
+    if not jac_kernel_fits(nstate, track_d):
+        raise ValueError(f"nstate={nstate}: the Jacobian kernel state does "
+                         f"not fit in {SMEM_PER_BLOCK} bytes of shared memory")
+    x = _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
+                 strict=True)
+    P, B = x["P"], x["B"]
+    G = 4 if track_d else 3
+    out = torch.empty((2 + 2 * G, P, B), dtype=torch.float32,
+                      device=T1s.device)
+    var_te = isinstance(x["TE"], torch.Tensor)
+    bT, bL, Dc = x["diff"] if x["diff"] is not None else (0.0, 0.0, None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    # asynchronous on the current stream; see _launch on temporaries
+    lib = _build.load()
+    rc = lib.epg_fisp_jac(
+        ptr(x["FA"]), ptr(x["phi"]), ptr(x["TR"]),
+        ptr(x["TE"]) if var_te else None, 0.0 if var_te else x["TE"],
+        0.0 if x["TI"] is None else x["TI"],
+        ptr(x["T1"]), ptr(x["T2"]), ptr(x["B1"]), ptr(x["df"]), ptr(Dc),
+        bT, bL, ptr(out), P, B, nstate,
+        int(var_te), int(x["TI"] is not None), int(bool(inversion_df)),
+        int(x["df"] is not None), int(bool(demodulate)),
+        int(x["diff"] is not None), int(bool(diff_ramp)), int(track_d),
+        jac_block_size(nstate, track_d),
+        T1s.device.index if T1s.device.index is not None
+        else torch.cuda.current_device(),
+        torch.cuda.current_stream(T1s.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fisp_jac kernel launch failed: CUDA error {rc}")
+    JAC_LAUNCHES += 1
+    return _jac_views(out)
+
+
+def _jac_finish(echoes):
+    """(B, P) and (B, P, G) views of echo-layout Jacobian outputs."""
+    (re, im), (dre, dim) = echoes
+    return (re.T, im.T), (dre.transpose(0, 1), dim.transpose(0, 1))
+
+
+def fisp_jacobian_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                        nstate=10, demodulate=False, inversion=None,
+                        inversion_df=True, diffusion=None, diff_ramp=True,
+                        track_diffusivity=False):
+    """FISP fingerprints and Jacobian by the plain PyTorch twin of the
+    kernel.  Arguments and returns as :func:`fisp_jacobian_cuda`; any
+    device, either precision."""
+    return _jac_finish(fisp_jacobian_echoes_plain(
+        FA, phi, TR, TE, T1s, T2s, B1s, dfs, nstate=nstate,
+        demodulate=demodulate, inversion=inversion,
+        inversion_df=inversion_df, diffusion=diffusion, diff_ramp=diff_ramp,
+        track_diffusivity=track_diffusivity))
+
+
+def fisp_jacobian_cuda(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                       nstate=10, demodulate=False, inversion=None,
+                       inversion_df=True, diffusion=None, diff_ramp=True,
+                       track_diffusivity=False):
+    """Fingerprints + dS/d(T1, T2, B1[, D]) via the fused CUDA kernel.
+
+    Arguments mirror ``fisp_jacobian_pallas`` and
+    :func:`fisp_dictionary_cuda` (no ``normalize``);
+    ``track_diffusivity=True`` (with ``diffusion=``) appends the dS/dD
+    column.  Returns ((re, im), (dre, dim)): (B, P) fingerprints and
+    (B, P, 3[+1]) derivatives ordered (T1, T2, B1[, D]), as views of the
+    kernel's (P, B) outputs.
+    """
+    return _jac_finish(fisp_jacobian_echoes(
+        FA, phi, TR, TE, T1s, T2s, B1s, dfs, nstate=nstate,
+        demodulate=demodulate, inversion=inversion,
+        inversion_df=inversion_df, diffusion=diffusion, diff_ramp=diff_ramp,
+        track_diffusivity=track_diffusivity))

@@ -11,8 +11,9 @@ Counterpart of ``epgpy_tpu/models/mrf.py:46-298``.  Physics per TR
 (F+ and Z carried, F- rebuilt as the conjugate flip of F+) in a Python
 loop over pulses.  It is the port's full-ladder oracle for the folded
 kernel (models/cuda_fisp.py) and runs on the working device and precision
-(config.py).  ``fisp_mrf_jacobian`` waits for the Jacobian kernel
-(ROADMAP).
+(config.py).  ``fisp_mrf_jacobian`` differentiates that program forward
+(``torch.func.jvp`` with the tangent basis batched by ``vmap``): the
+float64 oracle of the Jacobian kernel.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ from .. import common, config
 from ..ops.shift import shift1d
 from ..ops.transition import rotation_operator
 
-__all__ = ["fisp_mrf_signal", "fisp_mrf_dictionary", "save_dictionary",
-           "load_dictionary"]
+__all__ = ["fisp_mrf_signal", "fisp_mrf_dictionary", "fisp_mrf_jacobian",
+           "save_dictionary", "load_dictionary"]
 
 
 def _relax(states, tau, T1, T2, nstate):
@@ -197,6 +198,47 @@ def fisp_mrf_dictionary(FA, TR, TE, T1s, T2s, B1s=None, dfs=None, *,
         demodulate=demodulate,
         inversion=None if inversion is None else float(inversion),
         normalize=normalize)
+
+
+def fisp_mrf_jacobian(FA, TR, TE, T1s, T2s, B1s=None, dfs=None, *,
+                      phi=90.0, variables=("T1", "T2"), nstate: int = 10,
+                      demodulate: bool = False, inversion=None):
+    """Per-atom fingerprint derivatives dS/d(variables).
+
+    Counterpart of ``epgpy_tpu/models/mrf.py:301-369``.  `variables` is a
+    subset of ("T1", "T2", "B1"); `dfs` an optional (B,) off-resonance
+    (kHz; not a differentiation variable).  Returns ((re, im), (dre, dim))
+    with fingerprints (B, P) and derivatives (B, P, nvars).
+
+    Atoms are independent, so dS_b/dtheta_b is a jvp of the batched
+    program with an all-ones tangent on that parameter; ``vmap`` over the
+    tangent basis pushes every variable through one pass.
+    """
+    T1s = common.to_real(T1s)
+    T2s = common.to_real(T2s)
+    B1s = torch.ones_like(T1s) if B1s is None else common.to_real(B1s)
+    dfs = None if dfs is None else common.to_real(dfs)
+    args = (common.to_real(FA), common.to_real(phi), common.to_real(TR),
+            common.to_real(TE))
+    kw = dict(nstate=int(nstate), demodulate=demodulate,
+              inversion=None if inversion is None else float(inversion),
+              normalize=False)
+    idx = {"T1": 0, "T2": 1, "B1": 2}
+    sel = tuple(idx[v] for v in variables)
+
+    def f(t1, t2, b1):
+        return _dictionary_program(*args, t1, t2, b1, dfs, **kw)
+
+    ones, zeros = torch.ones_like(T1s), torch.zeros_like(T1s)
+
+    def pushfwd(onehot):
+        tangents = tuple(ones * onehot[sel.index(v)] if v in sel else zeros
+                         for v in range(3))
+        return torch.func.jvp(f, (T1s, T2s, B1s), tangents)[1]
+
+    basis = torch.eye(len(sel), dtype=T1s.dtype, device=T1s.device)
+    dre, dim = torch.func.vmap(pushfwd)(basis)
+    return f(T1s, T2s, B1s), (dre.movedim(0, -1), dim.movedim(0, -1))
 
 
 def _host(x):

@@ -3,10 +3,10 @@
 from .base import (Operator, EmptyOperator, MultiOperator, DiffOperator,
                    Wait)
 from .transition import T, Tx, Ty, Phi, rotation_operator
-from .evolution import E, P
+from .evolution import E, P, R
 from .shift import S, G, C
 from .probe import Probe, Adc, ADC, DFT, Imaging
 
 __all__ = ["Operator", "EmptyOperator", "MultiOperator", "DiffOperator",
            "Wait", "T", "Tx", "Ty", "Phi", "rotation_operator", "E", "P",
-           "S", "G", "C", "Probe", "Adc", "ADC", "DFT", "Imaging"]
+           "R", "S", "G", "C", "Probe", "Adc", "ADC", "DFT", "Imaging"]

@@ -22,9 +22,25 @@ __all__ = ["Operator", "EmptyOperator", "MultiOperator", "DiffOperator",
 class Operator:
     """Base linear operator acting on a StateMatrix."""
 
-    def __init__(self, *, name: Optional[str] = None, duration=None):
+    #: parameters with defined first/second derivatives (diff layer)
+    PARAMETERS_ORDER1: frozenset = frozenset()
+
+    def __init__(self, *, name: Optional[str] = None, duration=None,
+                 order1=False, order2=False):
         self.name = name if name is not None else type(self).__name__
         self.duration = 0.0 if duration is None else duration
+        if order1 or order2:
+            from .. import diff
+            # an order2-only bool/str spec implies the same order1 spec
+            # (reference epgpy/diff.py:160-162)
+            o1 = order1 if order1 else (
+                order2 if isinstance(order2, (bool, str)) else False)
+            self.order1 = diff.parse_order1(o1, self.PARAMETERS_ORDER1)
+            self.order2 = diff.parse_order2(order2, self.order1,
+                                            self.PARAMETERS_ORDER1)
+        else:
+            self.order1 = {}
+            self.order2 = {}
 
     @property
     def shape(self) -> tuple:
@@ -98,6 +114,7 @@ class MultiOperator(Operator):
 
 
 class DiffOperator(Operator):
-    """Marker base of the physics operators (T, E, P, S), as in the
+    """Marker base of the physics operators (T, E, P, R, S), as in the
     reference hierarchy (epgpy/diff.py:20): probes and Wait are not
-    DiffOperators.  Derivative specs are not ported yet."""
+    DiffOperators.  The order1/order2 parsing itself lives in
+    Operator.__init__; this class adds no behavior."""

@@ -6,7 +6,8 @@ epgpy/evolution.py:220-256):
 * ``E(tau, T1, T2, g)`` -- relaxation + precession, complex rates
   ``rT = tau (1/T2 + 2 i pi g)``, ``rL = r0 = tau / T1``: coefficients
   ``(conj(e^{-rT}), e^{-rT}, e^{-rL})`` plus recovery ``(0, 0, 1-e^{-r0})``;
-* ``P(tau, g)`` -- pure precession, ``rT = 2 i pi g tau``.
+* ``P(tau, g)`` -- pure precession, ``rT = 2 i pi g tau``;
+* ``R(rT, rL, r0)`` -- generic evolution from complex rates.
 
 Times are in ms, off-resonance ``g`` in kHz.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import common, config
@@ -22,7 +24,7 @@ from . import base
 from .scalarop import apply_coefficient_elements
 from .transition import _repr
 
-__all__ = ["E", "P", "evolution_elements"]
+__all__ = ["E", "P", "R", "evolution_elements"]
 
 
 def evolution_elements(rT, rL=None, r0=None):
@@ -37,10 +39,56 @@ def evolution_elements(rT, rL=None, r0=None):
     return elems, (None, None, 1 - torch.exp(-r0))
 
 
+class R(base.DiffOperator):
+    """Generic evolution from complex rates: coefficients
+    ``(conj(e^{-rT}), e^{-rT}, e^{-rL})`` plus recovery ``1 - e^{-r0}``
+    (none when ``r0`` is None)."""
+
+    PARAMETERS_ORDER1 = frozenset({"rT", "rL", "r0"})
+
+    def __init__(self, rT=0, rL=0, *, r0=None, name=None, duration=None,
+                 order1=False, order2=False):
+        self.rT, self.rL, self.r0 = (None if x is None else _as_complex(x)
+                                     for x in (rT, rL, r0))
+        if r0 is None:
+            # order1=True must not try to differentiate an absent
+            # recovery term (diff.substitute would shift a None)
+            self.PARAMETERS_ORDER1 = frozenset({"rT", "rL"})
+        super().__init__(name=name or "R", duration=duration,
+                         order1=order1, order2=order2)
+
+    @property
+    def shape(self):
+        return common.broadcast_shapes(
+            common.get_shape(self.rT), common.get_shape(self.rL),
+            common.get_shape(self.r0), (1,))
+
+    def coefficient_elements(self):
+        cdtype = config.complex_dtype()
+        rT, rL, r0 = (None if x is None else torch.as_tensor(
+            x, dtype=cdtype, device=config.device())
+            for x in common.expand_arrays(self.rT, self.rL, self.r0))
+        return evolution_elements(rT, rL, r0)
+
+    def apply(self, sm):
+        return apply_coefficient_elements(sm, *self.coefficient_elements())
+
+
+def _as_complex(value):
+    """Rate coercion of R: tensors stay, host values become complex."""
+    if isinstance(value, torch.Tensor):
+        return value
+    arr = np.asarray(value, dtype=complex)
+    return complex(arr) if arr.ndim == 0 else arr
+
+
 class E(base.DiffOperator):
     """Relaxation + precession: tau (ms), T1/T2 (ms), g (kHz)."""
 
-    def __init__(self, tau, T1, T2, g=0, *, name=None, duration=None):
+    PARAMETERS_ORDER1 = frozenset({"tau", "T1", "T2", "g"})
+
+    def __init__(self, tau, T1, T2, g=0, *, name=None, duration=None,
+                 order1=False, order2=False):
         self.tau = common.as_real(tau)
         self.T1 = common.as_real(T1)
         self.T2 = common.as_real(T2)
@@ -48,7 +96,7 @@ class E(base.DiffOperator):
         if duration is True:
             duration = tau
         super().__init__(name=name or _repr("E", tau, T1, T2, self.g),
-                         duration=duration)
+                         duration=duration, order1=order1, order2=order2)
 
     @property
     def shape(self):
@@ -70,12 +118,16 @@ class E(base.DiffOperator):
 class P(base.DiffOperator):
     """Pure precession: tau (ms), g (kHz)."""
 
-    def __init__(self, tau, g, *, name=None, duration=None):
+    PARAMETERS_ORDER1 = frozenset({"tau", "g"})
+
+    def __init__(self, tau, g, *, name=None, duration=None, order1=False,
+                 order2=False):
         self.tau = common.as_real(tau)
         self.g = common.as_real(g)
         if duration is True:
             duration = tau
-        super().__init__(name=name or _repr("P", tau, g), duration=duration)
+        super().__init__(name=name or _repr("P", tau, g), duration=duration,
+                         order1=order1, order2=order2)
 
     @property
     def shape(self):

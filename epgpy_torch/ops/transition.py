@@ -84,11 +84,14 @@ def rotation_operator(alpha, phi):
 class T(base.DiffOperator):
     """Instantaneous RF pulse: flip `alpha`, phase `phi` (degrees)."""
 
-    def __init__(self, alpha, phi, *, name=None, duration=None):
+    PARAMETERS_ORDER1 = frozenset({"alpha", "phi"})
+
+    def __init__(self, alpha, phi, *, name=None, duration=None,
+                 order1=False, order2=False):
         self.alpha = common.as_real(alpha)
         self.phi = common.as_real(phi)
         super().__init__(name=name or _repr("T", alpha, phi),
-                         duration=duration)
+                         duration=duration, order1=order1, order2=order2)
 
     @property
     def shape(self):
@@ -118,9 +121,13 @@ def Ty(alpha, **kwargs):
 class Phi(base.DiffOperator):
     """Pure phase offset (z-rotation by `phi` degrees)."""
 
-    def __init__(self, phi, *, name=None, duration=0):
+    PARAMETERS_ORDER1 = frozenset({"phi"})
+
+    def __init__(self, phi, *, name=None, duration=0, order1=False,
+                 order2=False):
         self.phi = common.as_real(phi)
-        super().__init__(name=name or _repr("Phi", phi), duration=duration)
+        super().__init__(name=name or _repr("Phi", phi), duration=duration,
+                         order1=order1, order2=order2)
 
     @property
     def shape(self):

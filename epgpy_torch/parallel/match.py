@@ -1,0 +1,166 @@
+"""MRF dictionary matching.
+
+Counterpart of ``epgpy_tpu/parallel/match.py`` (:21-196, :315-328).  Given
+a dictionary (atoms x pulses fingerprints) and measured signals (voxels x
+pulses), find for each voxel the atom with the highest |inner product|:
+the MRF reconstruction step.  The correlations are real matrix products
+(``torch.matmul``) in true float32 or float64: close dictionary atoms are
+separated by 1e-4 to 1e-3 in correlation, and a reduced-precision product
+(TF32 on a CUDA card) flips those matches, so every product here runs
+with TF32 switched off (:func:`full_precision`).  The atom-sharded form
+(``mesh=``) is not ported yet (ROADMAP queue 1, item 9).
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+
+from .. import config
+
+__all__ = ["dictionary_match", "compress_dictionary", "project_signals",
+           "full_precision"]
+
+
+@contextlib.contextmanager
+def full_precision():
+    """Float32 matrix products in full float32 (TF32 off) inside the
+    block, restoring the caller's setting after it; raises if TF32 is
+    still on (so a product never runs reduced)."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("TF32 matmuls are on: dictionary matching "
+                               "needs full-precision products")
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def _tensor(x):
+    """A tensor as it is; a host array on the working device and dtype."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(np.asarray(x), dtype=config.real_dtype(),
+                           device=config.device())
+
+
+def dictionary_match(dict_re, dict_im, sig_re, sig_im, mesh=None, *,
+                     axis: str = "atoms", atom_chunk: int = None):
+    """Best-matching atom index + correlation per voxel.
+
+    Args:
+        dict_re/dict_im: (B, P) dictionary fingerprints (split complex).
+        sig_re/sig_im: (V, P) measured signals.
+        mesh, axis: the atom-sharded form; only ``mesh=None`` is ported.
+        atom_chunk: optional atom-axis chunk size: the (V, B) correlation
+            plane is the match's memory footprint (8192 voxels x 102,400
+            atoms = 3.4 GB per float32 plane), so the match can run over
+            atom chunks with a running (max, argmax), materializing only
+            (V, atom_chunk) at a time.  Exact: ties resolve to the lowest
+            atom index either way.
+
+    Returns (indices (V,), correlations (V,)) as tensors.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "the atom-sharded match (mesh=) is not ported to epgpy_torch "
+            "yet: ROADMAP queue 1, item 9")
+    dre, dim, sre, sim = (_tensor(x) for x in (dict_re, dict_im, sig_re,
+                                               sig_im))
+    if atom_chunk and dre.shape[0] > atom_chunk:
+        return _chunked_match(dre, dim, sre, sim, int(atom_chunk))
+    with full_precision():
+        # re/im stacked on the contraction axis: two (V, 2P) x (2P, B)
+        # products instead of four (V, P) x (P, B)
+        s_cat = torch.cat([sre, sim], dim=1)                  # (V, 2P)
+        x = s_cat @ torch.cat([dre, dim], dim=1).T            # Re<d, s>
+        y = s_cat @ torch.cat([-dim, dre], dim=1).T           # Im<d, s>
+    corr2 = x * x + y * y                                     # (V, B)
+    val, best = torch.max(corr2, dim=-1)
+    return best, torch.sqrt(val)
+
+
+def _chunked_match(dre, dim, sre, sim, C):
+    """Atom-chunked |corr|^2 argmax with a running (val, index) carry;
+    only a (V, C) plane and one (C, 2P) block are live at a time.  The
+    last window's offset clamps to B - C, so it overlaps the previous
+    one: re-evaluated atoms give identical correlations and the strict >
+    merge keeps the first occurrence, so the result equals the one-shot
+    argmax exactly."""
+    B = dre.shape[0]
+    s_cat = torch.cat([sre, sim], dim=1)                      # (V, 2P)
+    V = s_cat.shape[0]
+    best = torch.zeros((V,), dtype=torch.int64, device=sre.device)
+    val = torch.full((V,), -1.0, dtype=sre.dtype, device=sre.device)
+    for k in range(-(-B // C)):
+        off = min(k * C, B - C)
+        br, bi = dre[off:off + C], dim[off:off + C]           # (C, P)
+        with full_precision():
+            x = s_cat @ torch.cat([br, bi], dim=1).T
+            y = s_cat @ torch.cat([-bi, br], dim=1).T
+        corr2 = x * x + y * y                                 # (V, C)
+        mx, am = torch.max(corr2, dim=-1)
+        take = mx > val
+        best = torch.where(take, am + off, best)
+        val = torch.where(take, mx, val)
+    return best, torch.sqrt(torch.clamp(val, min=0.0))
+
+
+def compress_dictionary(dict_re, dict_im, rank):
+    """Rank-r SVD compression of an MRF dictionary (McGivney 2014).
+
+    The (P, P) Gram matrix G = D^H D is computed on the device with four
+    real products; only the Gram (2 x P x P floats) goes to the host for a
+    NumPy Hermitian eigendecomposition, and the (P, r) basis comes back for
+    the projection of the atoms.
+
+    Returns a dict with "basis_re"/"basis_im" ((P, r) right-singular
+    vectors, host arrays), "cdict_re"/"cdict_im" ((B, r) compressed
+    atoms, tensors) and "energy" (fraction of the singular energy kept).
+    """
+    dre, dim = _tensor(dict_re), _tensor(dict_im)
+    g_re, g_im = (g.cpu().numpy() for g in _gram(dre, dim))
+    b_re, b_im, energy = _host_eigh_basis(g_re, g_im, rank)
+    c_re, c_im = project_signals(b_re, b_im, dre, dim)
+    return {"basis_re": b_re, "basis_im": b_im,
+            "cdict_re": c_re, "cdict_im": c_im, "energy": energy}
+
+
+def _gram(dre, dim):
+    """(P, P) Gram G = D^H D = (Dr - i Di)^T (Dr + i Di) of a (B, P)
+    split-complex dictionary by four real products."""
+    with full_precision():
+        grr, gii = dre.T @ dre, dim.T @ dim
+        gri, gir = dre.T @ dim, dim.T @ dre
+    return grr + gii, gri - gir
+
+
+def _host_eigh_basis(g_re, g_im, rank):
+    """Top-`rank` eigenbasis of a Hermitian Gram (host NumPy; the Gram is
+    2 x P x P floats)."""
+    G = np.asarray(g_re) + 1j * np.asarray(g_im)
+    w, V = np.linalg.eigh((G + G.conj().T) / 2)    # ascending eigenvalues
+    order = np.argsort(w)[::-1][:rank]
+    basis = V[:, order]                             # (P, r)
+    energy = float(np.clip(w[order], 0, None).sum()
+                   / max(np.clip(w, 0, None).sum(), 1e-30))
+    dtype = np.asarray(g_re).dtype
+    return (np.ascontiguousarray(basis.real, dtype=dtype),
+            np.ascontiguousarray(basis.imag, dtype=dtype), energy)
+
+
+def project_signals(basis_re, basis_im, sig_re, sig_im):
+    """Project (V, P) signals onto the (P, r) compression basis: s V, as
+    four real products.  Use on measured signals before
+    :func:`dictionary_match` against a compressed dictionary."""
+    sre, sim = _tensor(sig_re), _tensor(sig_im)
+    bre, bim = (torch.as_tensor(b, dtype=sre.dtype, device=sre.device)
+                for b in (basis_re, basis_im))
+    with full_precision():
+        rr, ii = sre @ bre, sim @ bim
+        ri, ir = sre @ bim, sim @ bre
+    return rr - ii, ri + ir

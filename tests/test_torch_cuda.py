@@ -1,4 +1,5 @@
-"""The CUDA FISP kernel vs its plain twin, on the card.
+"""The CUDA FISP kernels (dictionary and Jacobian) vs their plain twins,
+on the card.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it runs on the GPU machine as it is:
@@ -9,7 +10,8 @@ JAX, so it runs on the GPU machine as it is:
 import pytest
 import torch
 
-from chip_smoke import OPTION_CASES, make_case, _tensors
+from chip_smoke import (JAC_CASES, OPTION_CASES, make_case, make_jac_case,
+                        _tensors)
 from epgpy_torch import config
 from epgpy_torch.models import cuda_fisp
 
@@ -38,3 +40,27 @@ def test_cuda_kernel_matches_plain_twin(card, case):
     assert cuda_fisp.LAUNCHES == before + 1
     p = cuda_fisp.fisp_dictionary_plain(*targs, **tkw)
     assert max(float((k[i] - p[i]).abs().max()) for i in (0, 1)) < 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in JAC_CASES if c["name"] in (
+    "base", "inv_df", "all")], ids=lambda c: c["name"])
+def test_cuda_jacobian_kernel_matches_plain_twin(card, case):
+    """On the card: the Jacobian kernel == its plain twin, fingerprints to
+    2e-6 and tangent columns to 1e-5 of the column's largest value
+    (float32 both, same operation order; FMA contraction and libm
+    differ, and the tangents sum more terms)."""
+    targs, tkw = _tensors(torch, *make_jac_case(case, 1000, 500), "cuda")
+    before = cuda_fisp.JAC_LAUNCHES
+    (kre, kim), (kdre, kdim) = cuda_fisp.fisp_jacobian_cuda(*targs, **tkw)
+    torch.cuda.synchronize()
+    assert cuda_fisp.JAC_LAUNCHES == before + 1
+    (pre, pim), (pdre, pdim) = cuda_fisp.fisp_jacobian_plain(*targs, **tkw)
+    assert max(float((kre - pre).abs().max()),
+               float((kim - pim).abs().max())) < 2e-6
+    for c in range(pdre.shape[-1]):
+        scale = max(float(pdre[..., c].abs().max()),
+                    float(pdim[..., c].abs().max()))
+        err = max(float((kdre[..., c] - pdre[..., c]).abs().max()),
+                  float((kdim[..., c] - pdim[..., c]).abs().max()))
+        assert err < 1e-5 * scale, (c, err, scale)

@@ -1,7 +1,8 @@
 """The FISP dispatch and the general engine of epgpy_torch vs epgpy_tpu.
 
-* ``match_fisp`` returns the JAX matcher's dict on equivalent sequences
-  and None (with a logged reason) off-pattern;
+* ``match_fisp`` returns the JAX matcher's dict (every key, the
+  derivative keys ``vars``/``b1_scale``/``d_var``/``diffusion`` included)
+  on equivalent sequences and None (with a logged reason) off-pattern;
 * ``simulate(fisp_kernel="force")`` (the kernel's plain twin on the CPU,
   float32) equals the port's general path and JAX's forced dispatch to
   atol 1e-5 (float32 both, different operation order);
@@ -23,8 +24,8 @@ from epgpy_tpu import fisp_dispatch as jfd
 
 from torch_support import GOLDEN_DIR, port_f32, port_f64  # noqa: F401
 
-KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "inv_df", "df",
-        "demod", "shape")
+KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "inv_df", "vars",
+        "b1_scale", "d_var", "demod", "shape", "df", "diffusion")
 
 
 def fisp_train(e, P=12, *, B=5, prep=False, var_te=False, demod=False,

@@ -8,20 +8,34 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PUBLIC = ["config", "StateMatrix", "Operator", "EmptyOperator",
           "MultiOperator", "DiffOperator", "Wait", "T", "Tx", "Ty", "Phi",
-          "E", "P", "S", "Probe", "Adc", "ADC", "simulate",
+          "E", "P", "R", "S", "Probe", "Adc", "ADC", "Jacobian", "Hessian",
+          "PartialsPruner", "simulate",
           "simulate_simple", "modify", "flatten_sequence", "getshape",
           "getnshift", "get_adc_times"]
 MODULES = {
     "epgpy_torch.models.cuda_fisp": ["fisp_dictionary_cuda",
                                      "fisp_dictionary_plain", "kernel_fits",
-                                     "LAUNCHES"],
+                                     "LAUNCHES", "fisp_jacobian_cuda",
+                                     "fisp_jacobian_plain",
+                                     "fisp_jacobian_echoes",
+                                     "jac_kernel_fits", "JAC_LAUNCHES"],
     "epgpy_torch.models.mrf": ["fisp_mrf_signal", "fisp_mrf_dictionary",
-                               "save_dictionary", "load_dictionary"],
-    "epgpy_torch.models.planes": ["cmul", "rot_coeffs", "rot_A", "rot_B",
-                                  "rot_Z", "apply_rot", "shift_fold"],
+                               "fisp_mrf_jacobian", "save_dictionary",
+                               "load_dictionary"],
+    "epgpy_torch.models.planes": ["cmul", "rot_coeffs", "rot_coeffs_db1",
+                                  "rot_A", "rot_B", "rot_Z", "apply_rot",
+                                  "shift_fold", "relax_tangents",
+                                  "inversion_prep", "diff_attenuation"],
     "epgpy_torch.fisp_dispatch": ["match_fisp", "run_fisp_kernel",
                                   "kernel_fits", "DISPATCH_COUNTS",
-                                  "count_dispatch"],
+                                  "count_dispatch", "jac_kernel_fits",
+                                  "match_jacobian_probes",
+                                  "run_fisp_jacobian"],
+    "epgpy_torch.diff": ["Jacobian", "Hessian", "parse_order1",
+                         "parse_order2", "simulate_diff", "substitute"],
+    "epgpy_torch.parallel": ["dictionary_match", "compress_dictionary",
+                             "project_signals", "mrf_reconstruct",
+                             "gauss_newton_refine"],
     "epgpy_torch.convert": ["from_numpy_params", "from_numpy_states"],
     "epgpy_torch.config": ["set_precision", "real_dtype", "complex_dtype",
                            "set_device", "device"],
