@@ -33,16 +33,36 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    complex PD) matched against the unnormalized phase-4 dictionary with
    ``parallel.mrf_reconstruct``, then 5 Gauss-Newton iterations whose
    Jacobians come through ``simulate()`` and the Jacobian kernel; the
-   refined T1 and T2 RMSE must beat the match-only RMSE.
+   refined T1 and T2 RMSE must beat the match-only RMSE;
+3c. the per-pulse Hessian kernel against its plain twin over every
+   option (4-op/5-op form, inversion, second order, nstate 6/10, phi
+   90/30) at 400 TRs x 64 atoms, per output block, and its pulse > echo
+   entries exactly zero;
+4c. the flagship Hessian through ``simulate()``: the 400-TR train
+   [T(a_i, 90), E(tau_i, T1, T2), ADC, S(1)] with alpha/tau aliases over
+   256 atoms, probes [ADC, Jacobian([mag, T1, T2]), Hessian([mag, T1, T2],
+   alphas + taus)]; it must reach the Hessian kernel, agree with the
+   float64 twin on 8 atoms and with a finite difference of it;
+5c. CRLB design: the Hessian kernel against its twin at the design's own
+   shape (5-op form after an inversion, 256 atoms),
+   ``mrf_design_loss_grad_fused`` at 256 atoms, its first 8 atoms against
+   float64 autograd of ``mrf_design_loss``, then 5 SLSQP iterations
+   (``engine="fused"``, one kernel launch per evaluation) whose loss must
+   not rise;
+5d. numbers for the Hessian: kernel and twin at the flagship shape,
+   ``simulate()`` first call and memoized, the assembly's device share
+   (``torch.profiler``), the design iteration times.
 
 The second-to-last lines are the card's name and power limit and a JSON
 object of per-kernel results; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import cProfile
 import json
 import math
 import os
+import pstats
 import shutil
 import subprocess
 import sys
@@ -69,6 +89,19 @@ TOL_JAC_MODEL = 1e-4
 #: serving: measured voxels, their noise level and seed
 NVOX, NOISE, SEED = 8192, 0.002, 0
 JAC_NAMES = ["magnitude", "T1", "T2", "B1"]
+#: the flagship Hessian (examples/profiling_differentiation_mrf.py) and the
+#: design (examples/optim_mrf.py): pulses, atoms, design TE and TI
+HESS_N, HESS_ATOMS, DESIGN_TE, DESIGN_TI = 400, 256, 5.0, 20.0
+#: Hessian kernel vs its plain twin, per output block relative to the
+#: block's largest magnitude (float32 both, same operation order)
+TOL_HESS_KERNEL = 1e-5
+#: float32 flagship blocks vs the float64 twin, per block (400 pulses)
+TOL_HESS_F64 = 1e-5
+#: d2S/dT2 dalpha_5 vs a central difference, absolute (the example's)
+TOL_HESS_FD = 1e-5
+#: fused design loss and gradients vs float64 autograd, relative (the JAX
+#: package's budget, tests/test_hessian_dispatch.py:248-250)
+TOL_DESIGN = 2e-5
 
 #: covering set of the kernel's options: every value of each option
 #: appears at least once (var_te: per-pulse TE; inversion: TI in ms;
@@ -106,6 +139,44 @@ JAC_CASES = [
     dict(name="all", var_te=True, inversion=15.0, df=True, demodulate=True,
          diffusion="ramp", track_d=True),
 ]
+
+
+#: every option of the Hessian kernel: form (4-op: echo at tau; 5-op: echo
+#: at TE 5), inversion (TI 20), second order, nstate, RF phase
+HESS_CASES = [dict(name=f"{'5op' if te else '4op'}{'_inv' if inv else ''}"
+                   f"{'' if so else '_o1'}_n{ns}_phi{phi}",
+                   te=te, inversion=inv, second_order=so, nstate=ns, phi=phi)
+              for te in (None, 5.0) for inv in (None, 20.0)
+              for so in (True, False) for ns in (6, 10) for phi in (90, 30)]
+
+
+def make_hess_case(case, natoms, npulse, seed=0):
+    """Numpy inputs of one Hessian option case: (args, kwargs) of
+    fisp_hessian_{cuda,plain,pallas} (FA, phi, TAU, T1s, T2s)."""
+    rng = np.random.default_rng(seed)
+    FA = rng.uniform(10.0, 60.0, npulse)
+    TAU = rng.uniform(11.0, 16.0, npulse)
+    if case.get("te") is not None:
+        TAU = TAU - case["te"]
+    T1 = rng.uniform(400.0, 1600.0, natoms)
+    T2 = rng.uniform(40.0, 120.0, natoms)
+    kw = dict(te=case.get("te"), inversion=case.get("inversion"),
+              nstate=case.get("nstate", NSTATE),
+              second_order=case.get("second_order", True))
+    return (FA, float(case.get("phi", 90)), TAU, T1, T2), kw
+
+
+def hess_block_errors(got, want):
+    """Per output block max |delta| relative to the block's largest
+    magnitude, over the keys of `want` ((re, im) tensor pairs)."""
+    errs = {}
+    for key, (wre, wim) in want.items():
+        gre, gim = got[key]
+        scale = max(float(wre.abs().max()), float(wim.abs().max()), 1e-30)
+        errs[key] = max(float((gre.double() - wre.double()).abs().max()),
+                        float((gim.double() - wim.double()).abs().max())) \
+            / scale
+    return errs
 
 
 def make_jac_case(case, natoms, npulse, seed=0):
@@ -613,6 +684,341 @@ def phase_jac_numbers(torch, epg, card, run):
             "ms": k_ms, "plain_ms": p_ms}
 
 
+def phase_hess_cases(torch, natoms=64):
+    """Hessian kernel vs plain twin over every option; returns the worst
+    per-block relative error."""
+    from epgpy_torch.models import cuda_hessian
+
+    worst = 0.0
+    for case in HESS_CASES:
+        args, kw = make_hess_case(case, natoms, HESS_N)
+        targs, _ = _tensors(torch, args, {}, "cuda")
+        k = cuda_hessian.fisp_hessian_cuda(*targs, **kw)
+        p = cuda_hessian.fisp_hessian_plain(*targs, **kw)
+        errs = hess_block_errors(k, p)
+        parts = [t for pair in k.values() for t in pair]
+        ok = all(bool(torch.isfinite(t).all()) for t in parts)
+        upper = max(float(torch.triu(t, diagonal=1).abs().max())
+                    for t in parts if t.ndim == 3)
+        err = max(errs.values())
+        print(f"[hess-cases] {case['name']:22s} max per-block |kernel - "
+              f"plain| = {err:.3e}; pulse > echo entries max {upper:.1e}")
+        if not ok or not err <= TOL_HESS_KERNEL or upper != 0.0:
+            raise AssertionError(
+                f"case {case['name']}: Hessian kernel vs plain twin "
+                f"{err:.3e} > {TOL_HESS_KERNEL}, non-finite, or nonzero "
+                f"pulse > echo entries ({upper:.1e})")
+        worst = max(worst, err)
+    return worst
+
+
+def flagship_train():
+    """The flagship differentiation train: FA ~ U(10, 60), tau ~ U(11, 16)
+    (examples/profiling_differentiation_mrf.py:36-54)."""
+    rng = np.random.default_rng(0)
+    return rng.uniform(10, 60, HESS_N), rng.uniform(11, 16, HESS_N)
+
+
+def design_atoms():
+    """The design atoms: T1 ~ U(400, 1600), T2 ~ U(40, 120)
+    (examples/optim_mrf.py:main)."""
+    rng = np.random.default_rng(1)
+    return (rng.uniform(400.0, 1600.0, HESS_ATOMS),
+            rng.uniform(40.0, 120.0, HESS_ATOMS))
+
+
+def initial_train(n):
+    """The design's start: sine FA ramp + smooth TR noise
+    (examples/optim_mrf.py:48-64)."""
+    rng = np.random.RandomState(0)
+    nFA = 300
+    FA = []
+    for _ in range(n // nFA + 1):
+        ramp = np.sin(np.arange(1, 1 + nFA) * np.pi / nFA) * 50 + 10
+        ramp[-10:] = 10
+        FA.extend(ramp.tolist())
+    FA = np.clip(FA[:n], 10.0, 60.0)
+    knots = rng.uniform(11.5, 14.5, n // 10 + 2)
+    x = np.arange(n) / 10.0
+    i = x.astype(int)
+    s = x - i
+    h = 3 * s**2 - 2 * s**3
+    TR = knots[i] * (1 - h) + knots[i + 1] * h
+    return np.asarray(FA), np.clip(TR, 11.0, 16.0)
+
+
+def hessian_sequence(epg, FA, TAU, T1, T2):
+    """The flagship train as a user writes it: each T tracks its alpha
+    alias, each E T1, T2 and its tau alias."""
+    alphas = [f"alpha_{i:03d}" for i in range(len(FA))]
+    taus = [f"tau_{i:03d}" for i in range(len(FA))]
+    seq = []
+    for i in range(len(FA)):
+        seq += [epg.T(float(FA[i]), 90, order1={alphas[i]: "alpha"}),
+                epg.E(float(TAU[i]), T1, T2,
+                      order1={"T1": "T1", "T2": "T2", taus[i]: "tau"}),
+                epg.ADC, epg.S(1)]
+    probes = [epg.ADC, epg.Jacobian(["magnitude", "T1", "T2"]),
+              epg.Hessian(["magnitude", "T1", "T2"], alphas + taus)]
+    return seq, probes
+
+
+def phase_hess_path(torch, epg):
+    """The flagship Hessian through simulate(); returns the run's facts."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_hessian
+
+    N = HESS_N
+    FA, TAU = flagship_train()
+    T1, T2 = design_atoms()
+    seq, probes = hessian_sequence(epg, FA, TAU, T1, T2)
+
+    fisp_dispatch.clear_cache()
+    fisp_dispatch.DISPATCH_COUNTS.clear()
+    cuda_hessian.HESS_LAUNCHES = 0
+    t0 = time.perf_counter()
+    sig, jac, hes = epg.simulate(seq, max_nstate=NSTATE, asarray=False,
+                                 probe=probes)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = cuda_hessian.HESS_LAUNCHES
+    dispatched = fisp_dispatch.DISPATCH_COUNTS.get("hessian", 0)
+    print(f"[hess] simulate(probe=[ADC, Jacobian, Hessian(3 x {2 * N})]): "
+          f"{N} pulses x {HESS_ATOMS} atoms -> {tuple(hes.shape)} "
+          f"{hes.dtype}; dispatch hessian={dispatched}, Hessian kernel "
+          f"launches={launches}")
+    if dispatched != 1 or launches < 1:
+        raise AssertionError("the Hessian did not go through the kernel")
+    if (tuple(sig.shape) != (N, HESS_ATOMS)
+            or tuple(jac.shape) != (N, HESS_ATOMS, 3)
+            or tuple(hes.shape) != (N, HESS_ATOMS, 3, 2 * N)
+            or hes.dtype != torch.complex64):
+        raise AssertionError(f"unexpected outputs {tuple(sig.shape)}, "
+                             f"{tuple(jac.shape)}, {tuple(hes.shape)}")
+    for t in (sig, jac, hes):
+        if not bool(torch.isfinite(torch.view_as_real(t)).all()):
+            raise AssertionError("non-finite values in the Hessian path")
+    if not bool((jac[..., 0] == sig).all()):
+        raise AssertionError("the magnitude column is not the signal")
+
+    # the float64 twin on the first 8 atoms, on the card
+    d64 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float64,  # noqa
+                                    device="cuda")
+    ref = cuda_hessian.fisp_hessian_plain(d64(FA), 90.0, d64(TAU),
+                                          d64(T1[:8]), d64(T2[:8]),
+                                          nstate=NSTATE)
+    h8 = hes[:, :8].permute(1, 0, 2, 3)                    # (8, j, 3, 2N)
+
+    def pair(t):
+        return t.real, t.imag
+
+    got = {"sig": pair(sig[:, :8].T), "dT1": pair(jac[:, :8, 1].T),
+           "dT2": pair(jac[:, :8, 2].T)}
+    for r, pre in enumerate(("d", "dT1d", "dT2d")):
+        got[pre + "alpha"] = pair(h8[:, :, r, :N])
+        got[pre + "tau"] = pair(h8[:, :, r, N:])
+    errs = hess_block_errors(got, ref)
+    err = max(errs.values())
+
+    # the example's check: d2S/dT2 dalpha_5 vs a central difference of the
+    # float64 twin's dalpha_5 column in T2, at one atom
+    eps = 1e-4
+    side = [cuda_hessian.fisp_hessian_plain(
+        d64(FA), 90.0, d64(TAU), d64(T1[:1]), d64(T2[:1] + s * eps),
+        nstate=NSTATE, second_order=False)["dalpha"] for s in (1, -1)]
+    fd = torch.complex(side[0][0][0, :, 5] - side[1][0][0, :, 5],
+                       side[0][1][0, :, 5] - side[1][1][0, :, 5]) / (2 * eps)
+    fd_err = float((hes[:, 0, 2, 5].to(torch.complex128) - fd).abs().max())
+    print(f"[hess] first 8 atoms vs the float64 twin, per block: "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (limit "
+          f"{TOL_HESS_F64}); d2S/dT2 dalpha_5 vs central difference "
+          f"{fd_err:.3e} (limit {TOL_HESS_FD})")
+    if not err <= TOL_HESS_F64 or not fd_err <= TOL_HESS_FD:
+        raise AssertionError(f"Hessian path error {err:.3e} / FD "
+                             f"{fd_err:.3e}")
+    del sig, jac, hes, h8, got
+    memo_s = _host_s(torch, lambda: epg.simulate(
+        seq, max_nstate=NSTATE, asarray=False, probe=probes), reps=3)
+    return dict(seq=seq, probes=probes, launches=launches, first_s=first_s,
+                memo_s=memo_s, f64_err=err, fd_err=fd_err)
+
+
+def phase_design(torch, epg):
+    """CRLB design: the kernel at the design's shape against its twin, the
+    fused loss and gradient at 256 atoms, checked on 8 atoms against
+    float64 autograd, then SLSQP; returns the facts."""
+    from epgpy_torch import config
+    from epgpy_torch.models import cuda_hessian
+    from epgpy_torch.parallel import (mrf_design_loss,
+                                      mrf_design_loss_grad_fused,
+                                      mrf_design_slsqp)
+
+    FA0, TR0 = initial_train(HESS_N)
+    T1, T2 = design_atoms()
+    kw = dict(TE=DESIGN_TE, nstate=NSTATE, inversion=DESIGN_TI, sigma2=10.0)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),  # noqa: E731
+                                    device="cuda")
+    fa0, tr0, t1s, t2s = f32(FA0), f32(TR0), f32(T1), f32(T2)
+
+    # the kernel against its plain twin on the inputs the design launches:
+    # the 5-op form after an inversion, 256 atoms
+    hargs = (fa0, 90.0, tr0 - DESIGN_TE, t1s, t2s)
+    hkw = dict(te=DESIGN_TE, inversion=DESIGN_TI, nstate=NSTATE)
+    errs = hess_block_errors(cuda_hessian.fisp_hessian_cuda(*hargs, **hkw),
+                             cuda_hessian.fisp_hessian_plain(*hargs, **hkw))
+    herr = max(errs.values())
+    print(f"[design] kernel vs plain twin, 5-op form with inversion, "
+          f"{HESS_ATOMS} atoms x {HESS_N} pulses: max per-block "
+          f"|kernel - plain| = {herr:.3e} (limit {TOL_HESS_KERNEL})")
+    if not herr <= TOL_HESS_KERNEL:
+        raise AssertionError(f"Hessian kernel vs plain twin at the design "
+                             f"shape {herr:.3e}")
+
+    # the float64 autograd oracle on the first 8 atoms, on the CPU
+    fused8 = mrf_design_loss_grad_fused(fa0, tr0, t1s[:8], t2s[:8], **kw)
+    old = (config.device(), config.precision())
+    config.set_device("cpu")
+    config.set_precision("float64")
+    try:
+        fa = torch.tensor(FA0, requires_grad=True)
+        tr = torch.tensor(TR0, requires_grad=True)
+        loss = mrf_design_loss(fa, tr, T1[:8], T2[:8], ridge=0.0, **kw)
+        oracle = (loss.detach(),) + torch.autograd.grad(loss, (fa, tr))
+    finally:
+        config.set_device(old[0])
+        config.set_precision(old[1])
+    rel = [float((g.double().cpu() - o).abs().max() / o.abs().max())
+           for g, o in zip(fused8, oracle)]
+    print(f"[design] 8 atoms, fused vs float64 autograd: loss {rel[0]:.2e},"
+          f" gFA {rel[1]:.2e}, gTR {rel[2]:.2e} (limit {TOL_DESIGN})")
+    if not max(rel) <= TOL_DESIGN:
+        raise AssertionError(f"fused design gradient {max(rel):.3e} > "
+                             f"{TOL_DESIGN}")
+
+    loss0, gfa, gtr = mrf_design_loss_grad_fused(fa0, tr0, t1s, t2s, **kw)
+    torch.cuda.synchronize()
+    vals = [float(loss0)] + [float(v.abs().max()) for v in (gfa, gtr)]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError("non-finite design loss or gradient")
+    fused_ms = _host_s(torch, lambda: mrf_design_loss_grad_fused(
+        fa0, tr0, t1s, t2s, **kw), reps=3) * 1e3
+
+    # per iteration: the loss SLSQP evaluated at the iterate (the callback
+    # launches nothing) and the wall time since the previous callback;
+    # cProfile times the evaluations (costjac: kernel, contraction and the
+    # copy to the host) against the whole run
+    last, losses, iter_s = [0.0], [], []
+
+    def record(intermediate_result):
+        iter_s.append(time.perf_counter() - last[0])
+        losses.append(float(intermediate_result.fun))
+        last[0] = time.perf_counter()
+
+    prof = cProfile.Profile()
+    cuda_hessian.HESS_LAUNCHES = 0
+    last[0] = t0 = time.perf_counter()
+    prof.enable()
+    fa, tr, res = mrf_design_slsqp(FA0, TR0, t1s, t2s, engine="fused",
+                                   maxiter=5, callback=record, **kw)
+    prof.disable()
+    slsqp_s = time.perf_counter() - t0
+    launches = cuda_hessian.HESS_LAUNCHES
+    evals = [(v[1], v[3]) for k, v in pstats.Stats(prof).stats.items()
+             if k[2] == "costjac"]
+    n_eval, eval_s = (sum(x) for x in zip(*evals)) if evals else (0, 0.0)
+    print(f"[design] {HESS_ATOMS} atoms x {HESS_N} pulses: fused loss + "
+          f"2x{HESS_N} gradient {fused_ms:.2f} ms; loss {vals[0]:.6g}")
+    for k, (v, dt) in enumerate(zip(losses, iter_s)):
+        print(f"[design] SLSQP iteration {k + 1}: loss {v:.6g}, "
+              f"{dt:.3f} s")
+    print(f"[design] SLSQP: {res.nit} iterations, {res.nfev} evaluations, "
+          f"status {res.status} ({res.message}); Hessian kernel launches="
+          f"{launches}, evaluation calls={n_eval}")
+    print(f"[design] SLSQP wall {slsqp_s:.3f} s: evaluations {eval_s:.3f} s,"
+          f" scipy and the rest {slsqp_s - eval_s:.3f} s "
+          f"({100 * (slsqp_s - eval_s) / slsqp_s:.1f}%, cProfile)")
+    if launches < 1 or launches != n_eval or n_eval < res.nfev:
+        raise AssertionError(
+            f"the design's launches ({launches}) are not one per evaluation "
+            f"({n_eval} calls, {res.nfev} counted by SLSQP)")
+    if not losses or not losses[-1] <= vals[0]:
+        raise AssertionError(f"the design loss rose: {vals[0]:.6g} -> "
+                             f"{losses[-1] if losses else None}")
+    return dict(launches=launches, fused_ms=fused_ms, iter_s=iter_s,
+                losses=losses, rel=max(rel), loss0=vals[0], herr=herr,
+                slsqp_s=slsqp_s, eval_s=eval_s)
+
+
+def _device_us(event):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def phase_hess_numbers(torch, epg, card, run):
+    """Hessian kernel and plain twin at the flagship shape, the
+    assembly's share; returns the kernel's JSON entry."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_hessian
+    from torch.profiler import ProfilerActivity, profile
+
+    params = fisp_dispatch.match_fisp_hessian(run["seq"])      # memoized
+    d = fisp_dispatch.hess_device_params(params)
+    args = (d["FA"], d["phi"], d["TAU"], d["T1"], d["T2"])
+
+    def kernel():
+        return cuda_hessian.fisp_hessian_cuda(*args, nstate=NSTATE)
+
+    def plain():
+        return cuda_hessian.fisp_hessian_plain(*args, nstate=NSTATE)
+
+    k, p = kernel(), plain()
+    errs = hess_block_errors(k, p)
+    err = max(max(float((a - b).abs().max()) for a, b in zip(k[n], p[n]))
+              for n in p)
+    print(f"[numbers] Hessian main-path shape: max|kernel - plain| = "
+          f"{err:.3e}, per block <= {max(errs.values()):.2e}")
+    if not max(errs.values()) <= TOL_HESS_KERNEL:
+        raise AssertionError(f"Hessian kernel vs plain twin "
+                             f"{max(errs.values()):.3e}")
+    del k, p
+    k_ms = _cuda_ms(torch, kernel)
+    p_ms = _cuda_ms(torch, plain, reps=1)
+
+    seq, probes = run["seq"], run["probes"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        epg.simulate(seq, max_nstate=NSTATE, asarray=False, probe=probes)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(_device_us(e) for e in events)
+    kern = sum(_device_us(e) for e in events if "fisp_hess" in e.key)
+    tag = f"({card})"
+    print(f"[numbers] fisp_hess kernel, {HESS_ATOMS} atoms x {HESS_N} "
+          f"pulses (3 x {2 * HESS_N}): {k_ms:.3f} ms = "
+          f"{HESS_ATOMS / (k_ms / 1e3):.4g} atoms/s {tag}")
+    print(f"[numbers] Hessian plain twin on the card, same shape: "
+          f"{p_ms:.3f} ms {tag}")
+    print(f"[numbers] simulate() Hessian end to end, first call (match + "
+          f"kernel + assembly): {run['first_s']:.3f} s; memoized match: "
+          f"{run['memo_s'] * 1e3:.2f} ms {tag}")
+    if total > 0:
+        print(f"[numbers] simulate() Hessian device time (torch.profiler): "
+              f"{total / 1e3:.3f} ms, fisp_hess kernel {kern / 1e3:.3f} ms, "
+              f"output assembly and the rest {(total - kern) / 1e3:.3f} ms "
+              f"({100 * (total - kern) / total:.1f}%) {tag}")
+    else:
+        print("[numbers] simulate() Hessian device time: not measured "
+              "(the profiler reported no device time)")
+    return {"name": "fisp_hess", "route": "cuda",
+            "source": "epgpy_torch/csrc/fisp_hess.cu",
+            "replaces": "epgpy_tpu/models/pallas_hessian.py:83",
+            "launches": run["launches"], "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms}
+
+
 def main():
     import torch
 
@@ -629,11 +1035,20 @@ def main():
     print(f"[jac-cases] worst max|kernel - plain| = {worst_sig:.3e} (limit "
           f"{TOL_KERNEL}), worst column {worst_col:.3e} (limit "
           f"{TOL_JAC_KERNEL})")
+    worst_hess = phase_hess_cases(torch)
+    print(f"[hess-cases] worst per-block |kernel - plain| = {worst_hess:.3e} "
+          f"(limit {TOL_HESS_KERNEL}) over {len(HESS_CASES)} cases")
     main_run = phase_main_path(torch, epg)
     jac_run = phase_jac_path(torch, epg)
     serve = phase_serving(torch, epg, main_run.pop("dictionary"))
+    hess_run = phase_hess_path(torch, epg)
+    design = phase_design(torch, epg)
     entry = phase_numbers(torch, epg, card, main_run)
     jac_entry = phase_jac_numbers(torch, epg, card, jac_run)
+    hess_entry = phase_hess_numbers(torch, epg, card, hess_run)
+    # launches on the Hessian's main paths: the flagship (4c) and the SLSQP
+    # run of the design (5c)
+    hess_entry["launches"] += design["launches"]
     # launches on the main paths: the dictionary (4), the Jacobian (4b)
     # and serving (5b: truth fingerprints, one Jacobian per iteration)
     entry["launches"] += serve["launches"]["fisp_half"]
@@ -645,8 +1060,15 @@ def main():
           f"{per['host']:.3f} s + simulate (kernel + assembly) "
           f"{per['simulate']:.3f} s + update/solve {per['solve']:.3f} s "
           f"({card})")
+    its = design["iter_s"]
+    print(f"[numbers] design, {HESS_ATOMS} atoms x {HESS_N} pulses: fused "
+          f"loss + gradient {design['fused_ms']:.2f} ms; SLSQP "
+          f"{len(its)} iterations, {sum(its) / max(len(its), 1):.3f} s per "
+          f"iteration ({design['eval_s'] / design['slsqp_s']:.1%} of the "
+          f"run in evaluations), loss {design['loss0']:.6g} -> "
+          f"{design['losses'][-1]:.6g} ({card})")
     print(card)
-    print(json.dumps({"kernels": [entry, jac_entry]}))
+    print(json.dumps({"kernels": [entry, jac_entry, hess_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,17 +8,19 @@ the same names:
 >>> seq = [epg.T(90, 90)] + [epg.S(1), epg.T(150, 0), epg.S(1), epg.ADC] * 20
 >>> signal = epg.simulate(epg.modify(seq, T2=[30, 40, 50]))
 
-This port covers the operators T/E/P/R/S(int)/ADC with order1 derivative
-specs, the StateMatrix, the eager general engine, Jacobian probes
-(``diff.py``: forward-mode autodiff through the operator loop), the FISP
-MR-fingerprinting models, the fused FISP dictionary and Jacobian kernels
-for the H100 (``models/cuda_fisp.py``, ``csrc/fisp_half.cu``,
-``csrc/fisp_jac.cu``), which ``simulate()`` dispatches to for exact FISP
-trains on CUDA in float32, and MRF serving (``parallel``: dictionary
-match, reconstruction, Gauss-Newton refinement).
+This port covers the operators T/E/P/R/S(int)/ADC with order1/order2
+derivative specs, the StateMatrix, the eager general engine, Jacobian and
+Hessian probes (``diff.py``: forward-mode autodiff through the operator
+loop), the FISP MR-fingerprinting models, the fused FISP dictionary,
+Jacobian and per-pulse Hessian kernels for the H100
+(``models/cuda_fisp.py``, ``models/cuda_hessian.py``, ``csrc/*.cu``),
+which ``simulate()`` dispatches to on CUDA in float32, CRLB statistics
+(``stats``), MRF serving and sequence design (``parallel``: dictionary
+match, reconstruction, Gauss-Newton refinement, CRLB design of the MRF
+train).
 """
 
-from . import config
+from . import config, stats
 from .statematrix import StateMatrix
 from .ops import (
     Operator, EmptyOperator, MultiOperator, DiffOperator, Wait,

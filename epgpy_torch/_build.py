@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels at first use.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with
-a plain C interface, ``build/epgpy_torch/libepgpy_torch_<hash>.so`` beside
-the package (the hash covers every source and header, so an edited source
+All ``csrc/*.cu`` files compile with ``nvcc`` (one process per source, all
+started together) and link into one shared library with a plain C
+interface, ``build/epgpy_torch/libepgpy_torch_<hash>.so`` beside the
+package (the hash covers every source and header, so an edited source
 builds a new library), which is loaded with ``ctypes``.  Nothing here runs
 at import: the first kernel launch calls :func:`load`.  There is no
 fallback: a missing ``nvcc`` or a failed build raises.
@@ -24,7 +25,7 @@ __all__ = ["build", "load", "build_info", "library_path", "BUILD_DIR",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "epgpy_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 #: C entry points and their argument types (see csrc/*.cu)
@@ -35,6 +36,8 @@ _SIGNATURES = {
     "epg_fisp_jac": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _F, _F, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P],
+    "epg_fisp_hess": [_P, _P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _P],
 }
 
 #: the loaded library and what its build printed: {"lib", "path",
@@ -77,14 +80,29 @@ def build() -> dict:
         return {"path": path, "seconds": None, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
+    tmp = path.with_name(f"{tag}.so.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, cu)], capture_output=True, text=True)
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(f)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for f, o in zip(cu, objs)]
+    logs = [f"== {f.name}\n{p.communicate()[0]}" for f, p in zip(cu, procs)]
+    failed = [f.name for f, p in zip(cu, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed = ["link"]
+    for o in objs:
+        o.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, path)        # atomic: concurrent builds agree
     return {"path": path, "seconds": seconds, "log": log}
 

@@ -9,14 +9,20 @@ global x64 flag and its device itself; here both are explicit settings:
 * ``set_device(...)`` selects where state and operator coefficients live.
   The default is CUDA.  There is no automatic fallback to the CPU: only an
   explicit ``set_device("cpu")`` (the test suite does this) selects it.
+
+``full_precision()`` runs float32 matrix products in true float32 (TF32
+off) inside a block: dictionary matching and the Fisher products of
+``stats`` need it.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 __all__ = ["set_precision", "precision", "real_dtype", "complex_dtype",
-           "set_device", "device"]
+           "set_device", "device", "full_precision"]
 
 _PRECISIONS = {
     "float32": (torch.float32, torch.complex64),
@@ -57,3 +63,19 @@ def set_device(dev) -> None:
 def device() -> torch.device:
     """The selected device (CUDA unless ``set_device`` chose another)."""
     return _state["device"]
+
+
+@contextlib.contextmanager
+def full_precision():
+    """Float32 matrix products in full float32 (TF32 off) inside the
+    block, restoring the caller's setting after it; raises if TF32 is
+    still on (so a product never runs reduced)."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise RuntimeError("TF32 matmuls are on: this product needs "
+                               "full float32 precision")
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)

@@ -8,6 +8,8 @@ Both functions take plain numpy values, so this module needs no JAX:
   into a match dict of this package, with its kernel tensors already on
   `device`: ready for ``epgpy_torch.fisp_dispatch.run_fisp_kernel`` and,
   for a Jacobian match (``vars``, ``b1_scale``), ``run_fisp_jacobian``;
+  it also takes the dict of ``match_fisp_hessian`` (keys FA, phi, TAU,
+  T1, T2, TE, TI, amap, shape), ready for ``run_fisp_hessian``;
 * :func:`from_numpy_states` builds a :class:`StateMatrix` from the complex
   ``(*batch, K, 3)`` ladder of a JAX ``StateMatrix.states``.
 """
@@ -23,10 +25,14 @@ __all__ = ["from_numpy_params", "from_numpy_states"]
 
 _KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "inv_df", "vars",
          "b1_scale", "d_var", "demod", "shape", "df", "diffusion")
+_HESS_KEYS = ("FA", "phi", "TAU", "T1", "T2", "TE", "TI", "amap", "shape")
 
 
 def from_numpy_params(params: dict, device) -> dict:
-    """A JAX FISP match dict -> this package's, with device tensors."""
+    """A JAX FISP (or per-pulse Hessian) match dict -> this package's,
+    with device tensors."""
+    if "amap" in params:
+        return _hessian_params(params, device)
     out = {k: params.get(k) for k in _KEYS}
     for k in ("FA", "phi", "TR", "T1", "T2", "B1", "df"):
         if out[k] is not None:
@@ -40,6 +46,20 @@ def from_numpy_params(params: dict, device) -> dict:
     if out["b1_scale"] is not None:
         out["b1_scale"] = float(out["b1_scale"])
     fisp_dispatch.device_params(out, device)
+    return out
+
+
+def _hessian_params(params, device):
+    out = {k: params.get(k) for k in _HESS_KEYS}
+    for k in ("FA", "phi", "TAU", "T1", "T2"):
+        out[k] = np.asarray(out[k])
+    for k in ("TE", "TI"):
+        if out[k] is not None:
+            out[k] = float(out[k])
+    out["amap"] = {v: (str(tok[0]), int(tok[1]))
+                   for v, tok in out["amap"].items()}
+    out["shape"] = tuple(out["shape"])
+    fisp_dispatch.hess_device_params(out, device)
     return out
 
 

@@ -81,6 +81,24 @@ __device__ __forceinline__ Rot rot_coeffs_db1(float sa, float ca, float da,
     return r;
 }
 
+// TR-derivatives of the folded relaxation cF = e^{-TR/T2}, cZ = e^{-TR/T1}
+// (the per-pulse Hessian kernel's tau tangents; relax_tau_terms of
+// planes.py): dcF/dTR, dcZ/dTR, d2cF/dTR dT2, d2cZ/dTR dT1.
+struct TauTerms {
+    float cFt, cZt, cFt2, cZt1;
+};
+
+__device__ __forceinline__ TauTerms relax_tau_terms(float cZ, float cF,
+                                                    float TR, float T1,
+                                                    float T2) {
+    TauTerms t;
+    t.cFt = -cF / T2;
+    t.cZt = -cZ / T1;
+    t.cFt2 = cF * (1.0f - TR / T2) / (T2 * T2);
+    t.cZt1 = cZ * (1.0f - TR / T1) / (T1 * T1);
+    return t;
+}
+
 // c2*A + (a1)*conj(B) + (a2)*Z
 __device__ __forceinline__ void rot_A(const Rot& r, float AR, float AI,
                                       float BR, float BI, float ZR, float ZI,

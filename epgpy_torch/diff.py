@@ -1,25 +1,30 @@
-"""Differentiation layer: Jacobian probes by forward-mode autodiff.
+"""Differentiation layer: Jacobian and Hessian probes by forward-mode
+autodiff.
 
-Counterpart of ``epgpy_tpu/diff.py:47-560``.  The reference hand-derives
+Counterpart of ``epgpy_tpu/diff.py:47-617``.  The reference hand-derives
 per-operator derivative matrices (reference epgpy/diff.py:20-378); here,
 as in the JAX package, derivatives come from autodiff through the whole
 sequence:
 
 * every operator keeps its physical parameters, so the derivative of its
   coefficients w.r.t. any parameter is exact autodiff;
-* variable aliases and chain-rule coefficients (order1 specs) become an
-  epsilon substitution: each tracked parameter is replaced by
-  ``p(eps) = p + sum_v c1[v] eps_v``, and the Jacobian is the derivative
-  of the signal w.r.t. eps at 0;
+* variable aliases and chain-rule coefficients (order1/order2 specs)
+  become an epsilon substitution: each tracked parameter is replaced by
+
+      p(eps) = p + sum_v c1[v] eps_v
+                 + sum_{v<=w} c2[(v,w)] eps_v eps_w (1/2 if v == w)
+
+  and the Jacobian/Hessian are the first/second derivatives of the signal
+  w.r.t. eps at 0;
 * the forward pass is the port's eager operator loop
   (``engine.simulate_simple``); ``torch.func.jvp`` pushes the tangent
   basis through it, batched by ``torch.func.vmap`` (the primal does not
-  depend on the tangent, so it runs once per call).
+  depend on the tangent, so it runs once per call); a Hessian is a jvp of
+  that jvp over the restricted tangent sets vars1 x vars2.
 
-Outputs match the reference probes: Jacobian -> (nADC, ..., nvars); the
-pseudo-variable "magnitude" maps to the signal itself.  Order 2 (the
-``Hessian`` probe) is not ported yet: it comes with the fused Hessian
-kernel (ROADMAP queue 1, item 7) and raises NotImplementedError here.
+Outputs match the reference probes: Jacobian -> (nADC, ..., nvars),
+Hessian -> (nADC, ..., n1, n2); the pseudo-variable "magnitude" maps to
+the signal itself / its first derivatives (reference epgpy/diff.py:384-476).
 """
 
 from __future__ import annotations
@@ -38,11 +43,6 @@ from .ops import base, probe as probe_mod
 __all__ = ["Jacobian", "Hessian", "Pair", "PartialsPruner", "get_combinations",
            "parse_order1", "parse_order2", "tracked_variables", "substitute",
            "simulate_diff"]
-
-_NO_ORDER2 = ("Hessian probes (order-2 derivatives) are not ported to "
-              "epgpy_torch yet: they come with the fused Hessian kernel "
-              "(ROADMAP queue 1, item 7; queue 2, row 4)")
-
 
 def Pair(*args):
     """Sorted variable pair (reference epgpy/diff.py:534)."""
@@ -134,8 +134,7 @@ class Jacobian(probe_mod.Probe):
 
 
 class Hessian(probe_mod.Probe):
-    """Probe returning d2(signal)/d(vars1)d(vars2) at each ADC (order 2:
-    accepted here, computed only by a later slice; simulate() raises)."""
+    """Probe returning d2(signal)/d(vars1)d(vars2) at each ADC."""
 
     def __init__(self, variables1, variables2=None, *, probe="F0"):
         self.probe_attr = probe
@@ -200,21 +199,28 @@ def _param_tensor(value):
 
 
 def substitute(op, eps: Dict[str, torch.Tensor]):
-    """Copy `op` with tracked parameters shifted by the linear eps
-    expansion ``sum_v c1 eps_v``.  The order2 curvature terms are
-    quadratic in eps, so they do not reach first derivatives at eps = 0;
-    they come with the Hessian.  Ops without specs are returned as
-    they are."""
+    """Copy `op` with tracked parameters shifted by the eps expansion:
+    linear deltas ``sum_v c1 eps_v`` and the order2 curvature terms
+    ``c2 eps_v eps_w`` (scale 1/2 on the diagonal), which reach the
+    Hessian only.  Ops without specs are returned as they are."""
     order1 = getattr(op, "order1", {}) or {}
+    order2 = getattr(op, "order2", {}) or {}
     if not order1:
         return op
     delta: Dict[str, object] = {}
+
+    def add(param, term):
+        delta[param] = term if param not in delta else delta[param] + term
+
     for var, coeffs in order1.items():
         if var in eps:
             for param, c in coeffs.items():
-                term = _param_tensor(c) * eps[var]
-                delta[param] = term if param not in delta else (
-                    delta[param] + term)
+                add(param, _param_tensor(c) * eps[var])
+    for (v1, v2), coeffs in order2.items():
+        if v1 in eps and v2 in eps:
+            scale = 0.5 if v1 == v2 else 1.0
+            for param, c in coeffs.items():
+                add(param, scale * _param_tensor(c) * eps[v1] * eps[v2])
     new = copy.copy(op)
     new.order1, new.order2 = {}, {}
     for param, d in delta.items():
@@ -231,43 +237,50 @@ def substitute(op, eps: Dict[str, torch.Tensor]):
 
 def simulate_diff(sequence, probes, sm, *, max_nstate=None,
                   jacobian_chunk: Optional[int] = None):
-    """Run simulate with Jacobian probes by forward-mode autodiff.
+    """Run simulate with Jacobian/Hessian probes by forward-mode autodiff.
 
     Tangents are seeded on an epsilon vector with one slot per tracked
     variable and pushed through the eager operator loop with
     ``torch.func.jvp``, ``jacobian_chunk`` columns at a time (all at once
-    by default) under ``torch.func.vmap``.
+    by default) under ``torch.func.vmap``.  Hessians differentiate the
+    *restricted* tangent sets vars1 x vars2 of the Hessian probes (not all
+    pairs: what keeps an 800-variable MRF Hessian tractable), a jvp of the
+    jvp, in ``jacobian_chunk`` x ``jacobian_chunk`` blocks.
 
     Args:
-        sequence: flat op list (with order1 specs attached).
-        probes: tuple of probe objects (plain probes and Jacobians).
+        sequence: flat op list (with order1/order2 specs attached).
+        probes: tuple of probe objects (plain probes, Jacobians, Hessians).
         sm: initial StateMatrix, broadcast to the sequence's batch shape.
         max_nstate: ladder cap of the operator loop.
         jacobian_chunk: max tangent columns pushed at once (None = all).
 
     Returns a tuple over probes of tensors with the ADC axis leading:
-    plain probes (N, *batch), Jacobians (N, *batch, len(variables)).
+    plain probes (N, *batch), Jacobians (N, *batch, len(variables)),
+    Hessians (N, *batch, len(variables1), len(variables2)).
     """
     from .engine import simulate_simple
     from .ops.probe import Adc
 
-    if any(isinstance(pb, Hessian) for pb in probes):
-        raise NotImplementedError(_NO_ORDER2)
     variables = tracked_variables(sequence)
     nvars = len(variables)
     var_idx = {v: i for i, v in enumerate(variables)}
     for pb in probes:
-        for var in getattr(pb, "variables", ()):
-            if var != "magnitude" and var not in var_idx:
-                # a zero column would silently poison downstream CRLB /
-                # Gauss-Newton fits (the reference raises KeyError)
-                raise ValueError(
-                    f"Jacobian probe variable {var!r} is not tracked by any "
-                    f"operator (tracked: {sorted(var_idx)})")
+        if isinstance(pb, Jacobian):
+            _check_tracked(pb.variables, var_idx, "Jacobian")
+        elif isinstance(pb, Hessian):
+            _check_tracked(pb.variables1 + pb.variables2, var_idx, "Hessian")
 
+    hess_probes = [pb for pb in probes if isinstance(pb, Hessian)]
+    vars1 = list(dict.fromkeys(v for pb in hess_probes for v in pb.variables1
+                               if v != "magnitude"))
+    vars2 = list(dict.fromkeys(v for pb in hess_probes for v in pb.variables2
+                               if v != "magnitude"))
+    need_hessian = bool(vars1) and bool(vars2)
+
+    diff_types = (Jacobian, Hessian)
     attrs = list(dict.fromkeys(pb.probe_attr for pb in probes
-                               if isinstance(pb, Jacobian)))
-    regular = [pb for pb in probes if not isinstance(pb, Jacobian)]
+                               if isinstance(pb, diff_types)))
+    regular = [pb for pb in probes if not isinstance(pb, diff_types)]
     eval_probes = regular + [Adc(attr=a, name=f"_d_{a}") for a in attrs]
 
     def run(eps_vec):
@@ -285,20 +298,47 @@ def simulate_diff(sequence, probes, sm, *, max_nstate=None,
 
     zero = torch.zeros((nvars,), dtype=config.real_dtype(),
                        device=config.device())
+    basis = torch.eye(max(nvars, 1), dtype=zero.dtype, device=zero.device)
     value = run(zero)
+
+    def d1(x, u):
+        return torch.func.jvp(run, (x,), (u,))[1]
+
     jac = None
     if nvars:
-        def push(tangent):
-            return torch.func.jvp(run, (zero,), (tangent,))[1]
-
         chunk = nvars if not jacobian_chunk else min(int(jacobian_chunk),
                                                      nvars)
-        basis = torch.eye(nvars, dtype=zero.dtype, device=zero.device)
-        parts = [torch.func.vmap(push)(basis[i:i + chunk])
+        parts = [torch.func.vmap(lambda u: d1(zero, u))(basis[i:i + chunk])
                  for i in range(0, nvars, chunk)]
         jac = tuple(torch.cat([p[k] for p in parts]).movedim(0, -1)
                     for k in range(len(eval_probes)))
 
+    hess = None
+    if need_hessian:
+        def d2(u, w):
+            # shared variables get both tangents: d2/du dw at eps = 0
+            return torch.func.jvp(lambda x: d1(x, u), (zero,), (w,))[1]
+
+        B1 = basis[[var_idx[v] for v in vars1]]
+        B2 = basis[[var_idx[v] for v in vars2]]
+        c1 = len(vars1) if not jacobian_chunk else int(jacobian_chunk)
+        c2 = len(vars2) if not jacobian_chunk else int(jacobian_chunk)
+        rows = []
+        for i in range(0, len(vars1), c1):
+            row = []
+            for j in range(0, len(vars2), c2):
+                # inner vmap over vars2 tangents, outer over vars1:
+                # leaves (c1, c2, N, ...)
+                blk = torch.func.vmap(lambda u: torch.func.vmap(
+                    lambda w: d2(u, w))(B2[j:j + c2]))(B1[i:i + c1])
+                row.append(blk)
+            rows.append(tuple(torch.cat([b[k] for b in row], dim=1)
+                              for k in range(len(eval_probes))))
+        hess = tuple(torch.cat([r[k] for r in rows]).movedim(0, -1)
+                     .movedim(0, -1) for k in range(len(eval_probes)))
+
+    row1 = {v: k for k, v in enumerate(vars1)}
+    col2 = {v: k for k, v in enumerate(vars2)}
     out = []
     for pb in probes:
         if isinstance(pb, Jacobian):
@@ -306,6 +346,38 @@ def simulate_diff(sequence, probes, sm, *, max_nstate=None,
             cols = [value[k] if var == "magnitude"
                     else jac[k][..., var_idx[var]] for var in pb.variables]
             out.append(torch.stack(cols, dim=-1))
+        elif isinstance(pb, Hessian):
+            k = len(regular) + attrs.index(pb.probe_attr)
+            rows_out = []
+            for v1 in pb.variables1:
+                row = []
+                for v2 in pb.variables2:
+                    if v1 == "magnitude" and v2 == "magnitude":
+                        row.append(torch.zeros_like(value[k]))
+                    elif v1 == "magnitude":
+                        row.append(jac[k][..., var_idx[v2]])
+                    elif v2 == "magnitude":
+                        row.append(jac[k][..., var_idx[v1]])
+                    elif v1 in row1 and v2 in col2:
+                        row.append(hess[k][..., row1[v1], col2[v2]])
+                    else:
+                        raise ValueError(
+                            f"Hessian pair ({v1!r}, {v2!r}) is outside the "
+                            f"computed block ({sorted(row1)} x "
+                            f"{sorted(col2)})")
+                rows_out.append(torch.stack(row, dim=-1))
+            out.append(torch.stack(rows_out, dim=-2))
         else:
             out.append(value[regular.index(pb)])
     return tuple(out)
+
+
+def _check_tracked(names, var_idx, kind):
+    """A probe variable that no operator tracks raises: a zero column
+    would silently poison downstream CRLB / Gauss-Newton fits (the
+    reference raises KeyError)."""
+    for var in names:
+        if var != "magnitude" and var not in var_idx:
+            raise ValueError(
+                f"{kind} probe variable {var!r} is not tracked by any "
+                f"operator (tracked: {sorted(var_idx)})")

@@ -7,7 +7,11 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
   runs as one fused CUDA kernel (models/cuda_fisp.py), and so do its
   Jacobian probes (``probe=[ADC, Jacobian([...])]`` on a train whose E ops
   track ``order1=["T1", "T2"]`` and whose T ops may track B1): the fused
-  primal+tangent kernel.  ``fisp_kernel="auto"`` engages them when the
+  primal+tangent kernel; per-pulse trains (T ops tracking alpha aliases,
+  E ops T1/T2 and tau aliases) with Jacobian/Hessian probes run as one
+  launch of the per-pulse Hessian kernel (models/cuda_hessian.py), the
+  flagship (magnitude, T1, T2) x (alphas + taus) Hessian and the CRLB
+  design's workload.  ``fisp_kernel="auto"`` engages them when the
   working device is CUDA and the precision float32 (the kernels compute
   in float32); ``"force"`` engages them anywhere, running the kernels'
   plain twins for the CPU; ``False`` opts out.  Whenever a call does not
@@ -15,7 +19,8 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
   op or probe, shared-memory gate);
 * **the general path**: the eager operator loop of ``simulate_simple``
   over a StateMatrix broadcast to the sequence's batch shape (for
-  Jacobian probes, forward-mode autodiff through it: diff.simulate_diff).
+  Jacobian and Hessian probes, forward-mode autodiff through it:
+  diff.simulate_diff).
   It stands in for the JAX package's scan planner, which is not ported
   yet.
 
@@ -155,14 +160,52 @@ def _fisp_dispatch(sequence, ncap, fisp_kernel, disp):
     return fisp_dispatch.run_fisp_kernel(params, ncap)
 
 
-def _jacobian_dispatch(sequence, probes, ncap, fisp_kernel, disp):
+def _hessian_dispatch(sequence, probes, ncap, disp):
+    """Per-pulse (alias-variable) trains with Jacobian/Hessian probes
+    (engine.py:1002-1041 of the JAX package): the per-pulse Hessian
+    kernel's outputs, a tuple over probes, or None (logged)."""
+    from . import fisp_dispatch
+
+    params = fisp_dispatch.match_fisp_hessian(sequence)
+    if params is None:
+        return None
+    hmatch = fisp_dispatch.match_hessian_probes(probes, params)
+    if hmatch is None:
+        LOGGER.info("simulate: FISP Hessian kernel not used: probes are "
+                    "not [Adc | Jacobian(F0) | Hessian(F0) of (magnitude, "
+                    "T1, T2) x aliases] over the train's aliases")
+        return None
+    specs, second = hmatch
+    if not fisp_dispatch.hess_kernel_fits(ncap, second):
+        LOGGER.info("simulate: FISP Hessian kernel not used: gate: "
+                    "nstate=%d does not fit in shared memory", ncap)
+        return None
+    if disp:
+        LOGGER.info("simulate: per-pulse diff train -> fused CUDA Hessian "
+                    "kernel (%d TR, nstate=%d, order=%d)", len(params["FA"]),
+                    ncap, 2 if second else 1)
+    fisp_dispatch.count_dispatch("hessian")
+    return fisp_dispatch.run_fisp_hessian(params, ncap, specs, second)
+
+
+def _diff_dispatch(sequence, probes, ncap, fisp_kernel, disp):
+    """Jacobian/Hessian probes through a fused kernel: the per-pulse
+    Hessian kernel first, then the FISP Jacobian kernel; None (logged)
+    takes the general diff path."""
+    if not _kernel_gate(fisp_kernel, "fused diff kernels"):
+        return None
+    values = _hessian_dispatch(sequence, probes, ncap, disp)
+    if values is None:
+        values = _jacobian_dispatch(sequence, probes, ncap, disp)
+    return values
+
+
+def _jacobian_dispatch(sequence, probes, ncap, disp):
     """Jacobian probes on a FISP train (engine.py:1042-1136 of the JAX
     package): the fused primal+tangent kernel's outputs, a tuple over
     probes, or None (logged) for the general path."""
     from . import fisp_dispatch
 
-    if not _kernel_gate(fisp_kernel, "FISP Jacobian kernel"):
-        return None
     # cheap probe-shape pre-check against the maximal variable set before
     # paying the host-side train factorization
     specs = fisp_dispatch.match_jacobian_probes(
@@ -204,13 +247,14 @@ def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,
     API of ``epgpy_tpu.simulate`` (reference epgpy/functions.py:50-170)
     for the options this port honours.  Without `probe`, returns an
     (N_adc, *batch) complex array of the sequence's own ADC values.  With
-    `probe` (one probe or a list: ``Adc``, callables, ``diff.Jacobian``),
-    returns one array per probe (a tuple for a list),
-    acquired at every ADC; a Jacobian is (N_adc, *batch, nvars).  Arrays
+    `probe` (one probe or a list: ``Adc``, callables, ``diff.Jacobian``,
+    ``diff.Hessian``), returns one array per probe (a tuple for a list),
+    acquired at every ADC; a Jacobian is (N_adc, *batch, nvars), a Hessian
+    (N_adc, *batch, n1, n2).  Arrays
     are numpy with ``asarray`` (default), else tensors on the working
     device; with ``adc_time``, the ADC times come first.
     ``jacobian_chunk=N`` pushes N tangent columns at a time on the
-    general Jacobian path (memory bound).
+    general diff path (N x N Hessian blocks; memory bound).
     """
     from . import diff
 
@@ -235,8 +279,8 @@ def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,
                                                   diff.Hessian))
                                   for pb in probes):
         if use_kernel:
-            values = _jacobian_dispatch(sequence, probes, ncap, fisp_kernel,
-                                        disp)
+            values = _diff_dispatch(sequence, probes, ncap, fisp_kernel,
+                                    disp)
         if values is None:
             if disp:
                 LOGGER.info("simulate: general diff path (%d ops, "

@@ -27,7 +27,15 @@ and order2 specs do not match.
 
 Matching is host work, O(pulses x atoms) for the rank-1 flip
 factorization, so results (matches and non-matches) are memoized on the
-operator identities.  The DW-FISP, CPMG, bSSFP, DESS, ME-GRE, EPG-X and
+operator identities.
+
+The per-pulse Hessian family (``:1653-1984``): :func:`match_fisp_hessian`
+recognizes trains whose T ops track one alpha alias each and whose E ops
+track T1, T2 and (all or none) one tau alias each;
+:func:`match_hessian_probes` maps Adc/Jacobian/Hessian probes onto the
+kernel's column bank and :func:`run_fisp_hessian` runs the per-pulse
+Hessian kernel (models/cuda_hessian.py) and copies its blocks into the
+probes' outputs.  The DW-FISP, CPMG, bSSFP, DESS, ME-GRE, EPG-X and
 composite families of the JAX dispatcher are not ported yet (ROADMAP).
 """
 
@@ -39,13 +47,15 @@ import numpy as np
 import torch
 
 from . import common, config
-from .models import cuda_fisp
+from .models import cuda_fisp, cuda_hessian
 
 LOGGER = logging.getLogger(__name__)
 
 __all__ = ["match_fisp", "run_fisp_kernel", "device_params", "kernel_fits",
            "jac_kernel_fits", "match_jacobian_probes", "run_fisp_jacobian",
-           "count_dispatch", "DISPATCH_COUNTS", "clear_cache"]
+           "match_fisp_hessian", "match_hessian_probes", "run_fisp_hessian",
+           "hess_kernel_fits", "hess_device_params", "count_dispatch",
+           "DISPATCH_COUNTS", "clear_cache"]
 
 #: per-sequence match memo keyed on operator identities; entries pin the
 #: operator list so ids cannot be reused while cached
@@ -454,26 +464,35 @@ def _match_fisp_impl(sequence):
     }, None
 
 
-def device_params(params, device=None):
-    """The kernel's float32 tensors for a match dict, cached on the dict
-    (the match memo pins it): repeated simulate() calls on one train do
-    not re-pay the host-to-device copies.  TE stays a python float when
-    constant (the kernel hoists its decay factors)."""
+def _cached_device(params, device, build):
+    """`build(device)`'s tensors for a match dict, cached on the dict (the
+    match memo pins it): repeated simulate() calls on one train do not
+    re-pay the host-to-device copies."""
     device = torch.device(config.device() if device is None else device)
     hit = params.get("_dev")
     if hit is not None and hit[0] == device:
         return hit[1]
-
-    def vec(k):
-        return torch.as_tensor(np.asarray(params[k], np.float32),
-                               device=device)
-
-    TE = params["TE"]
-    dev = {k: vec(k) for k in ("FA", "phi", "TR", "T1", "T2", "B1")}
-    dev["TE"] = float(TE) if np.ndim(TE) == 0 else vec("TE")
-    dev["df"] = None if params.get("df") is None else vec("df")
+    dev = build(device)
     params["_dev"] = (device, dev)
     return dev
+
+
+def device_params(params, device=None):
+    """The FISP kernels' float32 tensors for a match dict (cached on it).
+    TE stays a python float when constant (the kernel hoists its decay
+    factors)."""
+    def build(device):
+        def vec(k):
+            return torch.as_tensor(np.asarray(params[k], np.float32),
+                                   device=device)
+
+        TE = params["TE"]
+        dev = {k: vec(k) for k in ("FA", "phi", "TR", "T1", "T2", "B1")}
+        dev["TE"] = float(TE) if np.ndim(TE) == 0 else vec("TE")
+        dev["df"] = None if params.get("df") is None else vec("df")
+        return dev
+
+    return _cached_device(params, device, build)
 
 
 def run_fisp_kernel(params, nstate):
@@ -488,6 +507,330 @@ def run_fisp_kernel(params, nstate):
         inversion_df=bool(params.get("inv_df")))
     return torch.complex(re, im).reshape((re.shape[0],)
                                          + tuple(params["shape"]))
+
+
+def hess_kernel_fits(nstate, second_order=True) -> bool:
+    """Whether the per-pulse Hessian kernel's lane groups fit in one
+    block's shared memory at its smallest block (see
+    cuda_hessian.hess_kernel_fits); it takes the place of the JAX
+    dispatcher's VMEM gate."""
+    return cuda_hessian.hess_kernel_fits(max(int(nstate), 1), second_order)
+
+
+def match_fisp_hessian(sequence):
+    """Match the per-pulse differentiation train
+    (``epgpy_tpu/fisp_dispatch.py:1653``).
+
+    Two train shapes: ``[T(a_i, order1={alias_i: "alpha"}), E(tau_i, T1,
+    T2, order1={"T1", "T2", alias'_i: "tau"}), Adc, S(1)] * N`` (echo read
+    at tau_i), or the 5-op form with a constant-TE echo ``[T, E(TE,
+    {"T1", "T2"}), Adc, E(tau_i, ...), S(1)] * N``, optionally after a
+    ``[T(180), E(TI, {"T1", "T2"})]`` inversion prep.  Every T tracks a
+    distinct alpha alias; every E tracks T1 and T2 with unit coefficients
+    and (all or none) the tail E a distinct tau alias.  Returns the JAX
+    matcher's dict ``(FA, phi, TAU, T1, T2, TE, TI, amap, shape)`` --
+    ``amap`` maps each alias to its column token ("a" | "t", i) -- or
+    None, logging the reasons at INFO; memoized on operator identities.
+    """
+    if len(sequence) < 8:
+        LOGGER.info("match_fisp_hessian: not a per-pulse train: %d ops",
+                    len(sequence))
+        return None
+    key = ("hess",) + tuple(id(op) for op in sequence)
+
+    def compute():
+        n, reasons = len(sequence), []
+        for group in (4, 5):
+            for prep in (0, 2):
+                if n - prep >= 2 * group and (n - prep) % group == 0:
+                    params, why = _match_fisp_hessian_impl(
+                        sequence[prep:], group=group,
+                        prep=sequence[:prep] if prep else None)
+                    if params is not None:
+                        return params, None
+                    reasons.append(f"{group}-op{' + prep' if prep else ''}:"
+                                   f" {why}")
+        return None, "; ".join(reasons) or f"{n} ops fit no layout"
+
+    params, reason = _memoized(key, sequence, compute)
+    if params is None:
+        LOGGER.info("match_fisp_hessian: not a per-pulse train: %s", reason)
+    return params
+
+
+def _alias_order1(op, param, extra=()):
+    """Parse ``op.order1`` as {extra params tracked as themselves} plus at
+    most one alias variable of `param` (``epgpy_tpu/fisp_dispatch.py:
+    1693``).  Returns ``(alias_or_None,)``, or False when off-pattern;
+    every coefficient must be the host scalar 1.0."""
+    o1 = getattr(op, "order1", None) or {}
+    if getattr(op, "order2", None):
+        return False
+    alias, seen = None, set()
+    for var, cfs in o1.items():
+        if len(cfs) != 1:
+            return False
+        (p, c), = cfs.items()
+        if _host_scalar_coeff(c) != 1.0:
+            return False
+        if var in extra and p == var:
+            seen.add(var)
+        elif p == param and var not in extra and alias is None:
+            alias = var
+        else:
+            return False
+    if seen != set(extra):
+        return False
+    return (alias,)
+
+
+def _match_fisp_hessian_impl(sequence, group=4, prep=None):
+    """(params, None) for a per-pulse train of `group`-op blocks, else
+    (None, reason)."""
+    from .ops.evolution import E
+    from .ops.probe import Adc
+    from .ops.shift import S
+    from .ops.transition import T
+
+    N = len(sequence) // group
+    FA, PHI, TAU, avars, tvars = [], [], [], [], []
+    T1 = T2 = TE = None
+
+    def check_e(e_op, want_alias):
+        """Shared E validation: (tau, alias) or a reason string."""
+        nonlocal T1, T2
+        if type(e_op) is not E:
+            return f"{e_op.name} is not E"
+        tv = _alias_order1(e_op, "tau", extra=("T1", "T2"))
+        if tv is False or (tv[0] is not None and not want_alias):
+            return f"{e_op.name}: not T1/T2 tracking (+ one tau alias)"
+        tau = _scalar(e_op.tau)
+        if tau is None or _scalar(e_op.g) != 0.0:
+            return f"{e_op.name}: delay not a host scalar or g != 0"
+        t1v, t2v = _host_nd(e_op.T1), _host_nd(e_op.T2)
+        if t1v is None or t2v is None or t1v.ndim > 1 or t2v.ndim > 1:
+            return f"{e_op.name}: T1/T2 not host scalars or 1-D"
+        if T1 is None:
+            T1, T2 = t1v, t2v
+        elif not (np.array_equal(T1, t1v) and np.array_equal(T2, t2v)):
+            return f"{e_op.name}: T1/T2 differ from the first E's"
+        return tau, tv[0]
+
+    for i in range(N):
+        blk = sequence[group * i:group * i + group]
+        if group == 4:
+            t_op, e_op, adc, s = blk
+            e_te = None
+        else:
+            t_op, e_te, adc, e_op, s = blk
+        at = group * i
+        if type(t_op) is not T or type(adc) is not Adc or type(s) is not S:
+            return None, f"block {i}: not [T, E, Adc, (E,) S]"
+        if not _no_diff(adc) or not _no_diff(s) or s.k != 1:
+            return None, f"op {at + group - 1}: not a plain S(1)"
+        if adc.attr != "F0" or adc.phase is not None:
+            return None, f"op {at + 2 - (group == 4)}: not a plain F0 readout"
+        av = _alias_order1(t_op, "alpha")
+        if av is False or av[0] is None:
+            return None, f"op {at}: T does not track one alpha alias"
+        ev = check_e(e_op, want_alias=True)
+        if isinstance(ev, str):
+            return None, ev
+        if e_te is not None:
+            # 5-op form: constant echo time, T1/T2 tracking only
+            et = check_e(e_te, want_alias=False)
+            if isinstance(et, str):
+                return None, et
+            if TE is None:
+                TE = et[0]
+            elif et[0] != TE:
+                return None, f"op {at + 1}: echo time differs from pulse 0"
+        avars.append(av[0])
+        tvars.append(ev[1])
+        a, ph = _scalar(t_op.alpha), _scalar(t_op.phi)
+        if a is None or ph is None:
+            return None, f"op {at}: flip or phase not a host scalar"
+        FA.append(a)
+        PHI.append(ph)
+        TAU.append(ev[0])
+
+    TI = None
+    if prep is not None:
+        t0, e0 = prep
+        if (type(t0) is not T or not _no_diff(t0)
+                or _scalar(t0.alpha) != 180.0 or _scalar(t0.phi) is None):
+            return None, "op 0: prep is not an untracked scalar T(180)"
+        ep = check_e(e0, want_alias=False)
+        if isinstance(ep, str):
+            return None, f"prep {ep}"
+        TI = ep[0]
+
+    # distinct aliases; tau tracking all or none
+    if len(set(avars)) != N:
+        return None, "alpha aliases are not distinct"
+    have_tau = [v is not None for v in tvars]
+    if any(have_tau) != all(have_tau):
+        return None, "tau aliases on some pulses only"
+    if all(have_tau) and len(set(tvars)) != N:
+        return None, "tau aliases are not distinct"
+    reserved = {"magnitude", "T1", "T2"}
+    if reserved & set(avars) or reserved & {v for v in tvars if v}:
+        return None, "an alias is named magnitude, T1 or T2"
+    if not common.broadcastable(T1.shape, T2.shape):
+        return None, "T1 and T2 batch shapes do not broadcast"
+    bshape = common.broadcast_shapes(T1.shape, T2.shape)
+    B = int(np.prod(bshape))
+    if B * N * N > (1 << 26):
+        # the JAX dispatcher's output cap, kept so both packages make the
+        # same dispatch decisions
+        return None, f"B*N*N = {B * N * N} outputs exceed 2**26"
+    amap = {v: ("a", i) for i, v in enumerate(avars)}
+    if all(have_tau):
+        amap.update({v: ("t", i) for i, v in enumerate(tvars)})
+    T1f, T2f = _append_rows((T1, T2), bshape)
+    return {"FA": np.asarray(FA), "phi": np.asarray(PHI),
+            "TAU": np.asarray(TAU), "T1": T1f, "T2": T2f, "TE": TE,
+            "TI": TI, "amap": amap, "shape": bshape}, None
+
+
+def match_hessian_probes(probes, params):
+    """Map a probe tuple onto the per-pulse Hessian kernel's outputs
+    (``epgpy_tpu/fisp_dispatch.py:1840``).
+
+    Accepts plain F0 ``Adc`` probes, ``Jacobian`` over {magnitude, T1, T2}
+    and the train's alias variables, and ``Hessian(vars1, vars2)`` with
+    vars1 in {magnitude, T1, T2} and vars2 among the aliases.  Returns
+    ``(specs, second_order)`` or None; column tokens index the
+    concatenated [sig, dT1, dT2, dalpha(N), dtau(N)] bank."""
+    from . import diff
+    from .ops.probe import Adc
+
+    amap, N = params["amap"], len(params["FA"])
+    glob = {"magnitude": 0, "T1": 1, "T2": 2}
+
+    def col(v):
+        if v in glob:
+            return glob[v]
+        tok = amap.get(v)
+        if tok is None:
+            return None
+        return 3 + tok[1] + (N if tok[0] == "t" else 0)
+
+    specs, second, have_diff = [], False, False
+    for pb in probes:
+        if isinstance(pb, diff.Hessian):
+            if pb.probe_attr != "F0":
+                return None
+            rows = tuple(pb.variables1)
+            if any(v not in glob for v in rows):
+                return None
+            cols = tuple(col(v) for v in pb.variables2)
+            if any(c is None or c < 3 for c in cols):
+                return None
+            specs.append(("hess", rows, cols))
+            second = second or any(v != "magnitude" for v in rows)
+            have_diff = True
+        elif isinstance(pb, diff.Jacobian):
+            if pb.probe_attr != "F0":
+                return None
+            cols = tuple(col(v) for v in pb.variables)
+            if any(c is None for c in cols):
+                return None
+            specs.append(("jac", cols))
+            have_diff = True
+        elif type(pb) is Adc and pb.attr == "F0" and pb.phase is None:
+            specs.append(("sig",))
+        else:
+            return None
+    return (tuple(specs), second) if have_diff else None
+
+
+def hess_device_params(params, device=None):
+    """The Hessian kernel's float32 tensors for a match dict (cached on
+    it); TE and TI stay python floats."""
+    return _cached_device(params, device, lambda device: {
+        k: torch.as_tensor(np.asarray(params[k], np.float32), device=device)
+        for k in ("FA", "phi", "TAU", "T1", "T2")})
+
+
+def _fill_columns(dst, cols, scalar, lanes, N):
+    """Copy the column bank entries `cols` into ``dst``, the real view
+    (N_echo, B, ncols, 2) of one output row.
+
+    ``scalar`` holds the (re, im) pairs of (B, N) tensors of tokens 0-2
+    (sig, dT1, dT2; only the magnitude row's bank has them: Hessian specs
+    take tokens >= 3); ``lanes`` the (re, im) blocks (B, N_echo, N_pulse)
+    of tokens 3.. (dalpha) and 3 + N.. (dtau).  Consecutive tokens of one
+    block become one strided slice copy."""
+    pos = 0
+    while pos < len(cols):
+        c = cols[pos]
+        if c < 3:
+            for ri in (0, 1):
+                dst[:, :, pos, ri].copy_(scalar[c][ri].T)
+            pos += 1
+            continue
+        blk, i0 = divmod(c - 3, N)
+        end = pos + 1
+        while (end < len(cols) and cols[end] == c + end - pos
+               and (cols[end] - 3) // N == blk):
+            end += 1
+        for ri in (0, 1):
+            dst[:, :, pos:end, ri].copy_(
+                lanes[blk][ri][:, :, i0:i0 + end - pos].permute(1, 0, 2))
+        pos = end
+
+
+def _assemble_hess_outputs(out, specs, bshape, N):
+    """Per-probe complex outputs of the Hessian kernel's dict
+    (``_run_hess_jit`` of the JAX dispatcher, :1911-1963, without its
+    column-bank copies): signal (N, *bshape), Jacobian (N, *bshape, k),
+    Hessian (N, *bshape, n1, n2)."""
+    B = out["sig"][0].shape[0]
+    cplx = (torch.complex64 if out["sig"][0].dtype == torch.float32
+            else torch.complex128)
+    # the bank rows: 0 = magnitude (first order), 1 = dT1, 2 = dT2
+    banks = {0: ((out["sig"], out["dT1"], out["dT2"]),
+                 (out["dalpha"], out["dtau"]))}
+    for ri, key in ((1, "dT1"), (2, "dT2")):
+        if key + "dalpha" in out:
+            banks[ri] = (None, (out[key + "dalpha"], out[key + "dtau"]))
+    glob = {"magnitude": 0, "T1": 1, "T2": 2}
+    outs = []
+    for spec in specs:
+        if spec[0] == "sig":
+            sig = torch.complex(out["sig"][0], out["sig"][1])
+            outs.append(sig.T.reshape((N,) + bshape))
+            continue
+        if spec[0] == "jac":
+            rows, cols = (0,), spec[1]
+        else:
+            rows, cols = tuple(glob[v] for v in spec[1]), spec[2]
+        res = torch.empty((N, B, len(rows), len(cols)), dtype=cplx,
+                          device=out["sig"][0].device)
+        view = torch.view_as_real(res)
+        for r, ri in enumerate(rows):
+            _fill_columns(view[:, :, r], cols, *banks[ri], N)
+        if spec[0] == "jac":
+            res = res[:, :, 0]
+        outs.append(res.reshape((N,) + bshape + res.shape[2:]))
+    return tuple(outs)
+
+
+def run_fisp_hessian(params, nstate, specs, second_order):
+    """Run the per-pulse Hessian kernel for matched diff probes
+    (``epgpy_tpu/fisp_dispatch.py:1966``).
+
+    Returns a tuple over probes of complex tensors in the engine's layout:
+    signal (N, *batch), Jacobian (N, *batch, k), Hessian (N, *batch, n1,
+    n2), columns in probe-variable order."""
+    d = hess_device_params(params)
+    out = cuda_hessian.fisp_hessian_cuda(
+        d["FA"], d["phi"], d["TAU"], d["T1"], d["T2"], te=params.get("TE"),
+        inversion=params.get("TI"), nstate=max(int(nstate), 1),
+        second_order=bool(second_order))
+    return _assemble_hess_outputs(out, specs, tuple(params["shape"]),
+                                  len(params["FA"]))
 
 
 def match_jacobian_probes(probes, tracked):

@@ -23,7 +23,7 @@ import torch
 
 __all__ = ["cmul", "phase_terms", "rot_coeffs", "rot_coeffs_db1", "rot_A",
            "rot_B", "rot_Z", "apply_rot", "shift_fold", "relax_tangents",
-           "inversion_prep", "diff_attenuation"]
+           "relax_tau_terms", "inversion_prep", "diff_attenuation"]
 
 
 def cmul(cr, ci, xr, xi):
@@ -49,7 +49,9 @@ def rot_coeffs(a, cp, sp, c2p, s2p):
 def rot_coeffs_db1(a, da, cp, sp, c2p, s2p):
     """d/dB1 of :func:`rot_coeffs` for a flip ``a = FA * B1`` (radians),
     ``da = d(a)/dB1``: the 10-tuple (dcos2, dm01r, dm01i, dm02r, dm02i,
-    dca, dm20r, dm20i, dm21r, dm21i)."""
+    dca, dm20r, dm20i, dm21r, dm21i).  With ``a = alpha * pi/180`` and
+    ``da = pi/180`` it is d/dalpha (alpha in degrees), the per-pulse
+    Hessian kernel's coefficient pass (pallas_hessian.py:140-146)."""
     ca, sa = torch.cos(a), torch.sin(a)
     dsa = ca * da
     dsin2 = 0.5 * sa * da
@@ -63,6 +65,15 @@ def relax_tangents(cZ, cF, TR, T1, T2):
     cZ = e^{-TR/T1}, cF = e^{-TR/T2} (the k = 0 recovery 1 - cZ has
     tangent -dcZ)."""
     return cZ * TR / (T1 * T1), cF * TR / (T2 * T2)
+
+
+def relax_tau_terms(cZ, cF, TR, T1, T2):
+    """The per-pulse Hessian kernel's TR-derivatives of the folded
+    relaxation (``epgpy_tpu/models/pallas_hessian.py:159-162``): (dcF/dTR,
+    dcZ/dTR, d2cF/dTR dT2, d2cZ/dTR dT1); the k = 0 recovery 1 - cZ has
+    TR-derivative -dcZ/dTR."""
+    return (-cF / T2, -cZ / T1, cF * (1.0 - TR / T2) / (T2 * T2),
+            cZ * (1.0 - TR / T1) / (T1 * T1))
 
 
 def inversion_prep(B1, T1, T2, TI):

@@ -7,37 +7,20 @@ the MRF reconstruction step.  The correlations are real matrix products
 (``torch.matmul``) in true float32 or float64: close dictionary atoms are
 separated by 1e-4 to 1e-3 in correlation, and a reduced-precision product
 (TF32 on a CUDA card) flips those matches, so every product here runs
-with TF32 switched off (:func:`full_precision`).  The atom-sharded form
+with TF32 switched off (``config.full_precision``).  The atom-sharded form
 (``mesh=``) is not ported yet (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from .. import config
+from ..config import full_precision
 
 __all__ = ["dictionary_match", "compress_dictionary", "project_signals",
            "full_precision"]
-
-
-@contextlib.contextmanager
-def full_precision():
-    """Float32 matrix products in full float32 (TF32 off) inside the
-    block, restoring the caller's setting after it; raises if TF32 is
-    still on (so a product never runs reduced)."""
-    old = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        if torch.backends.cuda.matmul.allow_tf32:
-            raise RuntimeError("TF32 matmuls are on: dictionary matching "
-                               "needs full-precision products")
-        yield
-    finally:
-        torch.set_float32_matmul_precision(old)
 
 
 def _tensor(x):

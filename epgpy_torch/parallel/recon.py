@@ -8,7 +8,7 @@ Counterpart of ``epgpy_tpu/parallel/recon.py`` (:32-257):
 Everything runs on the tensors' device except the small Gram
 eigendecomposition (compress_dictionary) and the host-side operator
 construction of a refinement step's model; products run in full float32
-(match.full_precision).
+(config.full_precision).
 """
 
 from __future__ import annotations

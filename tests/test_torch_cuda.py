@@ -1,5 +1,5 @@
-"""The CUDA FISP kernels (dictionary and Jacobian) vs their plain twins,
-on the card.
+"""The CUDA FISP kernels (dictionary, Jacobian, per-pulse Hessian) vs
+their plain twins, on the card.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it runs on the GPU machine as it is:
@@ -10,10 +10,11 @@ JAX, so it runs on the GPU machine as it is:
 import pytest
 import torch
 
-from chip_smoke import (JAC_CASES, OPTION_CASES, make_case, make_jac_case,
-                        _tensors)
+from chip_smoke import (HESS_CASES, JAC_CASES, OPTION_CASES,
+                        hess_block_errors, hessian_sequence, make_case,
+                        make_hess_case, make_jac_case, _tensors)
 from epgpy_torch import config
-from epgpy_torch.models import cuda_fisp
+from epgpy_torch.models import cuda_fisp, cuda_hessian
 
 
 @pytest.fixture
@@ -64,3 +65,57 @@ def test_cuda_jacobian_kernel_matches_plain_twin(card, case):
         err = max(float((kdre[..., c] - pdre[..., c]).abs().max()),
                   float((kdim[..., c] - pdim[..., c]).abs().max()))
         assert err < 1e-5 * scale, (c, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HESS_CASES[::5], ids=lambda c: c["name"])
+def test_cuda_hessian_kernel_matches_plain_twin(card, case):
+    """On the card: the per-pulse Hessian kernel == its plain twin to 1e-5
+    of each output block's largest magnitude (float32 both, same operation
+    order), and its pulse > echo entries are exact zeros."""
+    args, kw = make_hess_case(case, 24, 150)
+    targs, _ = _tensors(torch, args, {}, "cuda")
+    before = cuda_hessian.HESS_LAUNCHES
+    k = cuda_hessian.fisp_hessian_cuda(*targs, **kw)
+    torch.cuda.synchronize()
+    assert cuda_hessian.HESS_LAUNCHES == before + 1
+    p = cuda_hessian.fisp_hessian_plain(*targs, **kw)
+    assert max(hess_block_errors(k, p).values()) < 1e-5
+    for pair in k.values():
+        for t in pair:
+            if t.ndim == 3:
+                assert float(torch.triu(t, diagonal=1).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_hessian_through_simulate(card):
+    """simulate() routes the flagship probes to the kernel; the float32
+    blocks equal the float64 twin to 1e-5 per block."""
+    import numpy as np
+
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+
+    rng = np.random.default_rng(4)
+    N, B = 60, 6
+    FA, TAU = rng.uniform(10, 60, N), rng.uniform(11, 16, N)
+    T1, T2 = rng.uniform(400, 1600, B), rng.uniform(40, 120, B)
+    seq, probes = hessian_sequence(epg, FA, TAU, T1, T2)
+    before = fisp_dispatch.DISPATCH_COUNTS.get("hessian", 0)
+    launches = cuda_hessian.HESS_LAUNCHES
+    sig, jac, hes = epg.simulate(seq, max_nstate=10, probe=probes,
+                                 asarray=False)
+    assert fisp_dispatch.DISPATCH_COUNTS.get("hessian", 0) == before + 1
+    assert cuda_hessian.HESS_LAUNCHES == launches + 1
+    d64 = lambda x: torch.as_tensor(x, dtype=torch.float64,  # noqa: E731
+                                    device="cuda")
+    ref = cuda_hessian.fisp_hessian_plain(d64(FA), 90.0, d64(TAU), d64(T1),
+                                          d64(T2), nstate=10)
+    h = hes.permute(1, 0, 2, 3)
+    got = {"sig": (sig.real.T, sig.imag.T),
+           "dT1": (jac[..., 1].real.T, jac[..., 1].imag.T),
+           "dT2": (jac[..., 2].real.T, jac[..., 2].imag.T)}
+    for r, pre in enumerate(("d", "dT1d", "dT2d")):
+        got[pre + "alpha"] = (h[:, :, r, :N].real, h[:, :, r, :N].imag)
+        got[pre + "tau"] = (h[:, :, r, N:].real, h[:, :, r, N:].imag)
+    assert max(hess_block_errors(got, ref).values()) < 1e-5

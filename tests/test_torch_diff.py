@@ -6,16 +6,18 @@ epgpy_torch vs epgpy_tpu.
 * ``match_fisp`` on order1/B1-tracked FISP trains returns the JAX
   matcher's dict, ``vars`` and ``b1_scale`` included, and
   ``match_jacobian_probes`` the JAX specs; aliased, chain-rule, order2
-  and Hessian trains fall through with an INFO reason;
+  and Hessian trains fall through with an INFO reason (a Hessian then
+  comes from the general order-2 path, equal to JAX's at 1e-10);
 * ``simulate(probe=[ADC, Jacobian(...)], fisp_kernel="force")`` (the
   kernel's plain twin, float32) equals the general path
   (``fisp_kernel=False``, forward-mode autodiff through the operator
   loop) and JAX's forced dispatch: signal atol 1e-5, Jacobian columns to
   1e-4 of the column's largest magnitude (float32, different operation
   order);
-* the general path in float64 matches the reference golden
-  ``fuzz_diff.npz`` to 1e-8 (the JAX package's budget for it) and JAX's
-  general diff path to 1e-10;
+* the general path in float64 matches the reference goldens
+  ``fuzz_diff.npz`` to 1e-8 (the JAX package's budget for it) and
+  ``fuzz_hessian.npz`` (order 2) to 1e-10, and JAX's general diff path to
+  1e-10;
 * a JAX Jacobian match dict carried through ``convert.from_numpy_params``
   runs in the port's ``run_fisp_jacobian`` to JAX's result (float32, as
   above).
@@ -208,14 +210,16 @@ def test_off_spec_trains_fall_through(port_f64, name, caplog):
     tfd.clear_cache()
     before = tfd.DISPATCH_COUNTS.get("jac:fisp", 0)
     with caplog.at_level(logging.INFO, logger="epgpy_torch"):
-        if kw == "hessian":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tepg.simulate(seq, max_nstate=4, fisp_kernel="force",
-                              probe=probes)
-        else:
-            out = tepg.simulate(seq, max_nstate=4, fisp_kernel="force",
-                                probe=probes)
-            assert out[1].shape == (4, 5, 1)
+        out = tepg.simulate(seq, max_nstate=4, fisp_kernel="force",
+                            probe=probes)
+    if kw == "hessian":
+        # the general order-2 path computes it: == JAX's general path
+        want = jepg.simulate(_off_spec_train(jepg, kw), max_nstate=4,
+                             fisp_kernel=False, probe=[jepg.Hessian(["T1"])])
+        assert out.shape == np.shape(want) == (4, 5, 1, 1)
+        assert np.abs(out - np.asarray(want)).max() < 1e-10
+    else:
+        assert out[1].shape == (4, 5, 1)
     assert tfd.DISPATCH_COUNTS.get("jac:fisp", 0) == before
     assert any(reason in r.getMessage() for r in caplog.records)
 
@@ -308,6 +312,36 @@ def test_general_path_matches_fuzz_diff_golden(port_f64, i):
     ref = _GD[f"jac_re_{i:02d}"] + 1j * _GD[f"jac_im_{i:02d}"]
     assert jac.dtype == np.complex128
     assert np.abs(jac - ref).max() < 1e-8
+
+
+_GH = np.load(os.path.join(GOLDEN_DIR, "fuzz_hessian.npz"))
+_HSPECS = json.loads(bytes(_GH["specs_json"]).decode())
+
+
+@pytest.mark.parametrize("i", range(len(_HSPECS)))
+def test_general_path_matches_fuzz_hessian_golden(port_f64, i):
+    """Random order2 trains (alpha aliases with curvature terms, T1/T2
+    tracking): the port's restricted (magnitude, T1, T2) x (aliases + T1 +
+    T2) Hessian (nested forward mode) == the reference's hand-derived
+    second-order chain rule at 1e-10."""
+    sp = _HSPECS[i]
+    avars = [f"a{n}" for n in range(sp["ntr"])]
+    cross = [(a, p) for a in avars for p in ("T1", "T2")]
+    seq = []
+    for n in range(sp["ntr"]):
+        a = avars[n]
+        seq += [tepg.T(sp["alphas"][n], sp["phi"], order1={a: "alpha"},
+                       order2=[(a, "T1"), (a, "T2"), (a, a)]),
+                tepg.E(sp["taus"][n], sp["T1"], sp["T2"],
+                       order1=["T1", "T2"],
+                       order2=[("T1", "T1"), ("T2", "T2"), ("T1", "T2")]
+                       + cross),
+                tepg.ADC, tepg.S(1)]
+    _, hess = tepg.simulate(seq, max_nstate=6, probe=[
+        tepg.Jacobian(["T1"]), tepg.Hessian(sp["vars1"], sp["vars2"])])
+    ref = _GH[f"hes_re_{i:02d}"] + 1j * _GH[f"hes_im_{i:02d}"]
+    assert hess.dtype == np.complex128 and hess.shape == ref.shape
+    assert np.abs(hess - ref).max() < 1e-10
 
 
 def test_general_path_equals_jax_and_chunks(port_f64):

@@ -19,23 +19,35 @@ MODULES = {
                                      "fisp_jacobian_plain",
                                      "fisp_jacobian_echoes",
                                      "jac_kernel_fits", "JAC_LAUNCHES"],
+    "epgpy_torch.models.cuda_hessian": ["fisp_hessian_cuda",
+                                        "fisp_hessian_plain",
+                                        "hess_kernel_fits",
+                                        "hess_block_size", "HESS_LAUNCHES"],
     "epgpy_torch.models.mrf": ["fisp_mrf_signal", "fisp_mrf_dictionary",
                                "fisp_mrf_jacobian", "save_dictionary",
                                "load_dictionary"],
     "epgpy_torch.models.planes": ["cmul", "rot_coeffs", "rot_coeffs_db1",
                                   "rot_A", "rot_B", "rot_Z", "apply_rot",
                                   "shift_fold", "relax_tangents",
-                                  "inversion_prep", "diff_attenuation"],
+                                  "relax_tau_terms", "inversion_prep",
+                                  "diff_attenuation"],
     "epgpy_torch.fisp_dispatch": ["match_fisp", "run_fisp_kernel",
                                   "kernel_fits", "DISPATCH_COUNTS",
                                   "count_dispatch", "jac_kernel_fits",
                                   "match_jacobian_probes",
-                                  "run_fisp_jacobian"],
+                                  "run_fisp_jacobian", "match_fisp_hessian",
+                                  "match_hessian_probes",
+                                  "run_fisp_hessian", "hess_kernel_fits"],
     "epgpy_torch.diff": ["Jacobian", "Hessian", "parse_order1",
                          "parse_order2", "simulate_diff", "substitute"],
     "epgpy_torch.parallel": ["dictionary_match", "compress_dictionary",
                              "project_signals", "mrf_reconstruct",
-                             "gauss_newton_refine"],
+                             "gauss_newton_refine", "mrf_design_loss",
+                             "mrf_design_loss_grad_fused",
+                             "mrf_design_slsqp", "mrf_design_step",
+                             "FA_BOUNDS", "TR_BOUNDS"],
+    "epgpy_torch.stats": ["crlb", "crlb_split", "confint",
+                          "get_tstat_interval"],
     "epgpy_torch.convert": ["from_numpy_params", "from_numpy_states"],
     "epgpy_torch.config": ["set_precision", "real_dtype", "complex_dtype",
                            "set_device", "device"],
