@@ -102,6 +102,8 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+#: where the phases put their tensors: the card
+DEVICE = "cuda"
 TR, TE, NSTATE = 12.0, 5.0, 10
 NATOMS, NPULSE = 102400, 1000
 
@@ -161,6 +163,54 @@ TSE_GRID = 64
 #: design kernel vs its plain twin, per output block relative to the
 #: block's largest magnitude
 TOL_DESIGN_KERNEL = 1e-5
+
+#: balanced SSFP (bench.py:686-740): 500 pulses x 163,840 atoms, an
+#: inversion prep (TI 18 ms) that precesses with df, sinusoidal flip lobes
+#: and TR, alternating RF phase, demodulated readouts, per-atom df
+BSSFP_N, BSSFP_ATOMS, BSSFP_TI = 500, 163840, 18.0
+#: train lengths of the bSSFP drift curve (float32 path vs the float64
+#: general path, 8 atoms), where a growth with the train would show
+BSSFP_DRIFT = (48, 100, 200, 500)
+#: float32 bSSFP path vs tests/golden/bssfp.npz (the JAX kernel's own
+#: limit, tests/test_bssfp_dispatch.py:251; TPU parity 1.92e-5)
+TOL_BSSFP_GOLDEN = 2e-5
+#: float32 DESS path vs tests/golden/dess.npz (the TPU parity of the JAX
+#: kernel, BENCH_r05.json; 1e-6 in interpret mode on the CPU)
+TOL_DESS_GOLDEN = 2.14e-6
+#: bSSFP MRF serving (examples/mrf_bssfp.py): pulses, the 64 T1 x 64 T2
+#: x 40 df grid, compression rank, voxels, Gauss-Newton iterations per
+#: start, the example's noise (relative to |PD|) and refinement bounds
+MRFB_N, MRFB_GRID, MRFB_RANK = 400, (64, 64, 40), 32
+MRFB_NVOX, MRFB_ITERS, MRFB_NOISE = 8192, 10, 2e-3
+MRFB_BOUNDS = [(150.0, 2500.0), (15.0, 250.0), (-0.06, 0.06)]
+#: DESS T1/T2 mapping (examples/dess_t1t2_mapping.py): TRs, TR, TE, flip
+#: scale, ladder depth, voxels (four 256^2 slices), iterations, noise, seed
+DESS_NTR, DESS_TR, DESS_TE, DESS_FA, DESS_NSTATE = 48, 18.0, 5.0, 30.0, 8
+DESS_NVOX, DESS_ITERS, DESS_NOISE, DESS_SEED = 4 * 256 * 256, 10, 0.0015, 4
+
+#: covering set of the bSSFP kernels' options (each also run through the
+#: Jacobian kernel with and without the ddf group; b1 is the B1 batch
+#: whose dB1 column a B1-tracked train reads)
+BSSFP_CASES = [
+    dict(name="base"),
+    dict(name="inv", inversion=18.0),
+    dict(name="inv_df", inversion=18.0, df=True),
+    dict(name="df_demod", df=True, demodulate=True),
+    dict(name="var_te", var_te=True, demodulate=True),
+    dict(name="b1_all", b1=True, df=True, inversion=12.0, var_te=True,
+         demodulate=True, normalize=True),
+]
+
+#: covering set of the DESS kernels' options at nstate 8 and 15
+DESS_CASES = [
+    dict(name="n8", nstate=8),
+    dict(name="n15_df", nstate=15, df=True),
+    dict(name="n8_df_demod", nstate=8, df=True, demodulate=True),
+    dict(name="n15_var_te_b1", nstate=15, var_te=True, b1=True,
+         demodulate=True),
+    dict(name="n8_all", nstate=8, var_te=True, b1=True, df=True,
+         demodulate=True),
+]
 
 #: published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): float32
 #: outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz) and HBM3
@@ -258,6 +308,44 @@ def make_mse_case(case, natoms, necho=MSE_NECHO, seed=0):
                            rng.uniform(5e-4, 3e-3, natoms))
         kw["diff_ramp"] = case["diff"]
     return (EXC, FA, phi, tau1, tau2, T1, T2, B1), kw
+
+
+def make_bssfp_case(case, natoms, npulse=None, seed=0):
+    """Numpy inputs of one bSSFP option case: (args, kwargs) of
+    bssfp_dictionary_{cuda,plain,pallas} (FA, phi, TR, TE, T1s, T2s, B1s,
+    dfs; demodulate, inversion, normalize)."""
+    rng = np.random.default_rng(seed)
+    npulse = npulse or BSSFP_N
+    FA = 10.0 + 50.0 * np.abs(np.sin(np.arange(npulse) * 2 * np.pi / 100.0))
+    FA += rng.uniform(0, 2, npulse)
+    phi = rng.uniform(0.0, 180.0, npulse)
+    TRs = rng.uniform(11.0, 14.0, npulse)
+    TEs = TRs * rng.uniform(0.3, 0.6, npulse) if case.get("var_te") else 5.0
+    T1 = rng.uniform(200.0, 2500.0, natoms)
+    T2 = np.minimum(rng.uniform(20.0, 250.0, natoms), 0.8 * T1)
+    B1 = rng.uniform(0.7, 1.3, natoms) if case.get("b1") else np.ones(natoms)
+    df = rng.uniform(-0.05, 0.05, natoms) if case.get("df") else None
+    kw = dict(demodulate=case.get("demodulate", False),
+              inversion=case.get("inversion"),
+              normalize=case.get("normalize", False))
+    return (FA, phi, TRs, TEs, T1, T2, B1, df), kw
+
+
+def make_dess_case(case, natoms, npulse=200, seed=0):
+    """Numpy inputs of one DESS option case: (args, kwargs) of
+    dess_{dictionary,jacobian}_{cuda,plain,pallas} (FA, phi, TR, TE, T1s,
+    T2s, B1s, dfs; nstate, demodulate)."""
+    rng = np.random.default_rng(seed)
+    FA = rng.uniform(15.0, 50.0, npulse)
+    phi = rng.uniform(0.0, 360.0, npulse)
+    TRs = rng.uniform(16.0, 20.0, npulse)
+    TEs = rng.uniform(3.0, 6.0, npulse) if case.get("var_te") else DESS_TE
+    T1 = rng.uniform(400.0, 1800.0, natoms)
+    T2 = np.minimum(rng.uniform(35.0, 180.0, natoms), 0.6 * T1)
+    B1 = rng.uniform(0.8, 1.2, natoms) if case.get("b1") else np.ones(natoms)
+    df = rng.uniform(-0.03, 0.03, natoms) if case.get("df") else None
+    kw = dict(nstate=case["nstate"], demodulate=case.get("demodulate", False))
+    return (FA, phi, TRs, TEs, T1, T2, B1, df), kw
 
 
 def make_design_case(case, natoms, necho=TSE_NECHO, seed=0):
@@ -1242,19 +1330,11 @@ def phase_design(torch, epg):
                 slsqp_s=slsqp_s, eval_s=eval_s)
 
 
-def _device_us(event):
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(event, name):
-            return float(getattr(event, name))
-    return 0.0
-
-
 def phase_hess_numbers(torch, epg, card, run):
     """Hessian kernel and plain twin at the flagship shape, the
     assembly's share; returns the kernel's JSON entry."""
     from epgpy_torch import fisp_dispatch
     from epgpy_torch.models import cuda_hessian
-    from torch.profiler import ProfilerActivity, profile
 
     params = fisp_dispatch.match_fisp_hessian(run["seq"])      # memoized
     d = fisp_dispatch.hess_device_params(params)
@@ -1280,14 +1360,8 @@ def phase_hess_numbers(torch, epg, card, run):
     p_ms = _cuda_ms(torch, plain, reps=1)
 
     seq, probes = run["seq"], run["probes"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        epg.simulate(seq, max_nstate=NSTATE, asarray=False, probe=probes)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    total = sum(_device_us(e) for e in events)
-    kern = sum(_device_us(e) for e in events if "fisp_hess" in e.key)
+    split = _profile_split(torch, lambda: epg.simulate(
+        seq, max_nstate=NSTATE, asarray=False, probe=probes), "fisp_hess")
     tag = f"({card})"
     print(f"[numbers] fisp_hess kernel, {HESS_ATOMS} atoms x {HESS_N} "
           f"pulses (3 x {2 * HESS_N}): {k_ms:.3f} ms = "
@@ -1297,14 +1371,7 @@ def phase_hess_numbers(torch, epg, card, run):
     print(f"[numbers] simulate() Hessian end to end, first call (match + "
           f"kernel + assembly): {run['first_s']:.3f} s; memoized match: "
           f"{run['memo_s'] * 1e3:.2f} ms {tag}")
-    if total > 0:
-        print(f"[numbers] simulate() Hessian device time (torch.profiler): "
-              f"{total / 1e3:.3f} ms, fisp_hess kernel {kern / 1e3:.3f} ms, "
-              f"output assembly and the rest {(total - kern) / 1e3:.3f} ms "
-              f"({100 * (total - kern) / total:.1f}%) {tag}")
-    else:
-        print("[numbers] simulate() Hessian device time: not measured "
-              "(the profiler reported no device time)")
+    _print_split("simulate() Hessian", "fisp_hess", split, card)
     flops = linear_ops(torch, lambda n: cuda_hessian.fisp_hessian_plain(
         *_cpu_atoms(torch, args, n, (3, 4)), nstate=NSTATE), HESS_ATOMS)
     nbytes = tensor_bytes(torch, args, kernel())
@@ -1804,7 +1871,6 @@ def phase_mse_numbers(torch, card, run, jac_run):
     grid; simulate()'s device split for the Jacobian; returns the two
     kernels' JSON entries."""
     from epgpy_torch.models import cuda_mse
-    from torch.profiler import ProfilerActivity, profile
 
     args, n = run["kargs"], run["nsig"]
     entries = []
@@ -1858,27 +1924,12 @@ def phase_mse_numbers(torch, card, run, jac_run):
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             **bound_fields(name, flops, nbytes)})
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        jac_run["simulate"]()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    total = sum(_device_us(e) for e in events)
-    kern = sum(_device_us(e) for e in events if "cpmg_jac" in e.key)
     print(f"[numbers] simulate() CPMG end to end: first {run['first_s']:.4f}"
           f" s, memoized {run['memo_s'] * 1e3:.3f} ms; Jacobian first "
           f"{jac_run['first_s']:.4f} s, memoized "
           f"{jac_run['memo_s'] * 1e3:.3f} ms ({card})")
-    if total > 0:
-        print(f"[numbers] simulate() CPMG Jacobian device time "
-              f"(torch.profiler): {total / 1e3:.3f} ms, cpmg_jac kernel "
-              f"{kern / 1e3:.3f} ms, output assembly and the rest "
-              f"{(total - kern) / 1e3:.3f} ms "
-              f"({100 * (total - kern) / total:.1f}%) ({card})")
-    else:
-        print("[numbers] simulate() CPMG Jacobian device time: not measured "
-              "(the profiler reported no device time)")
+    _print_split("simulate() CPMG Jacobian", "cpmg_jac",
+                 _profile_split(torch, jac_run["simulate"], "cpmg_jac"), card)
     return entries
 
 
@@ -1931,13 +1982,724 @@ def phase_design_numbers(torch, card, tse):
             **bound_fields("cpmg_design", flops, nbytes)}
 
 
+# -- the balanced-SSFP and DESS families: kernels vs twins, paths, bSSFP
+# MRF serving, DESS T1/T2 mapping --
+
+
+def _pair_errors(torch, got, want, jac):
+    """(max |delta| of the signals, per-column relative errors of the
+    tangents) of two echo-layout outputs of a kernel and its twin."""
+    if not jac:
+        return max(float((g - w).abs().max()) for g, w in zip(got, want)), []
+    (kre, kim), (kdre, kdim) = got
+    (pre, pim), (pdre, pdim) = want
+    sig = max(float((kre - pre).abs().max()), float((kim - pim).abs().max()))
+    cols = [max(float((kdre[..., c] - pdre[..., c]).abs().max()),
+                float((kdim[..., c] - pdim[..., c]).abs().max()))
+            / max(float(pdre[..., c].abs().max()),
+                  float(pdim[..., c].abs().max()), 1e-30)
+            for c in range(pdre.shape[-1])]
+    return sig, cols
+
+
+def _finite(torch, out):
+    """Whether every tensor of a (nested) kernel output is finite."""
+    if isinstance(out, torch.Tensor):
+        return bool(torch.isfinite(out).all())
+    return all(_finite(torch, o) for o in out)
+
+
+def phase_ssfp_cases(torch, family, natoms=4096):
+    """The bSSFP (`family` "bssfp") or DESS ("dess") kernels vs their
+    plain twins on the card over the option cases, the primal and the
+    Jacobian (bSSFP: with and without the ddf group); returns the worst
+    signal |delta| and the worst per-column relative error."""
+    from epgpy_torch.models import cuda_bssfp, cuda_dess
+
+    worst_sig = worst_col = 0.0
+    cases = BSSFP_CASES if family == "bssfp" else DESS_CASES
+    for case in cases:
+        if family == "bssfp":
+            args, kw = _tensors(torch, *make_bssfp_case(case, natoms),
+                                DEVICE)
+            runs = [(cuda_bssfp.bssfp_dictionary_cuda,
+                     cuda_bssfp.bssfp_dictionary_plain, kw, False)]
+            jkw = {k: v for k, v in kw.items() if k != "normalize"}
+            runs += [(cuda_bssfp.bssfp_jacobian_cuda,
+                      cuda_bssfp.bssfp_jacobian_plain,
+                      dict(jkw, track_df=tdf), True) for tdf in (False, True)]
+        else:
+            args, kw = _tensors(torch, *make_dess_case(case, natoms), DEVICE)
+            runs = [(cuda_dess.dess_echoes, cuda_dess.dess_echoes_plain, kw,
+                     False),
+                    (cuda_dess.dess_jacobian_echoes,
+                     cuda_dess.dess_jacobian_echoes_plain, kw, True)]
+        sig, cols, ok = 0.0, [], True
+        for kfn, pfn, rkw, jac in runs:
+            k = kfn(*args, **rkw)
+            s, c = _pair_errors(torch, k, pfn(*args, **rkw), jac)
+            sig, cols, ok = max(sig, s), cols + c, ok and _finite(torch, k)
+        print(f"[{family}-cases] {case['name']:14s} max|kernel - plain| = "
+              f"{sig:.3e}, per column {', '.join(f'{c:.2e}' for c in cols)}")
+        if not ok or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL:
+            raise AssertionError(
+                f"{family} case {case['name']}: kernel vs plain twin "
+                f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
+                f"{TOL_JAC_KERNEL} or not finite")
+        worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+    return worst_sig, worst_col
+
+
+def bssfp_train(npulse):
+    """The benchmark's bSSFP train (bench.py:701-705): flips, TRs and the
+    alternating RF phases."""
+    FA = 10 + 50 * np.abs(np.sin(np.arange(npulse) * 2 * np.pi / 100))
+    TRv = 12.0 + 2.0 * np.sin(np.arange(npulse) / 17.0)
+    phases = np.cumsum(np.full(npulse, 180.0)) % 360.0
+    return FA, TRv, phases
+
+
+def bssfp_atoms(natoms):
+    """The benchmark's atoms (bench.py:702-708): T1, T2 and df in kHz."""
+    rng = np.random.default_rng(5)
+    return (rng.uniform(300, 2000, natoms), rng.uniform(30, 200, natoms),
+            rng.uniform(-0.05, 0.05, natoms))
+
+
+def bssfp_bench_sequence(epg, T1, T2, DF, npulse=None, tracked=False):
+    """The benchmark's IR-prepped bSSFP train (BSSFP_N pulses unless
+    `npulse`) as a user writes it; with `tracked` every E op tracks (T1,
+    T2, g)."""
+    npulse = npulse or BSSFP_N
+    FA, TRv, phases = bssfp_train(npulse)
+    o1 = ["T1", "T2", "g"] if tracked else False
+    seq = [epg.T(180, 0), epg.E(BSSFP_TI, T1, T2, DF, order1=o1)]
+    for i in range(npulse):
+        te = TRv[i] / 2
+        seq += [epg.T(float(FA[i]), float(phases[i])),
+                epg.E(te, T1, T2, DF, order1=o1),
+                epg.Adc(phase=-float(phases[i])),
+                epg.E(TRv[i] - te, T1, T2, DF, order1=o1)]
+    return seq
+
+
+def bssfp_golden_sequence(epg, g):
+    """The train of tests/golden/bssfp.npz (tests/test_bssfp_dispatch.py:
+    240-247): IR prep, alternating phase, df and a B1 batch."""
+    T1s, T2s, dfs, B1s = g["T1s"], g["T2s"], g["dfs"], g["B1s"]
+    seq = [epg.T(180 * B1s, 0), epg.E(18.0, T1s, T2s, dfs)]
+    for i in range(len(g["FAs"])):
+        te = g["TRs"][i] / 2
+        seq += [epg.T(g["FAs"][i] * B1s, g["phases"][i]),
+                epg.E(te, T1s, T2s, dfs), epg.Adc(phase=-g["phases"][i]),
+                epg.E(g["TRs"][i] - te, T1s, T2s, dfs)]
+    return seq
+
+
+def _golden(name):
+    return np.load(os.path.join(HERE, "tests", "golden", f"{name}.npz"))
+
+
+def _reset_counts(*modules):
+    """Zero the dispatch counts and the launch counters of `modules`."""
+    from epgpy_torch import fisp_dispatch
+
+    fisp_dispatch.clear_cache()
+    fisp_dispatch.DISPATCH_COUNTS.clear()
+    for m in modules:
+        for name in ("LAUNCHES", "JAC_LAUNCHES"):
+            setattr(m, name, 0)
+
+
+def _first_call(torch, fn):
+    """fn()'s result and its host-clock time ending in a device sync."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _expect(what, counts, want):
+    """Raise unless the dispatch/launch counts `counts` are `want`."""
+    print(f"[{what}] counts {counts}")
+    if counts != want:
+        raise AssertionError(f"{what}: counts {counts}, expected {want}")
+
+
+def phase_bssfp_path(torch, epg):
+    """The benchmark's bSSFP dictionary through simulate() (first call and
+    memoized) and through bssfp_echoes, its drift curve against the float64
+    general path and the golden train through simulate() on the card;
+    returns the run's facts."""
+    from epgpy_torch import config, fisp_dispatch
+    from epgpy_torch.models import cuda_bssfp
+
+    T1, T2, DF = bssfp_atoms(BSSFP_ATOMS)
+    seq = bssfp_bench_sequence(epg, T1, T2, DF)
+    _reset_counts(cuda_bssfp)
+    out, first_s = _first_call(torch, lambda: epg.simulate(seq,
+                                                           asarray=False))
+    params = fisp_dispatch.match_bssfp(seq)                    # memoized
+    d = fisp_dispatch.device_params(params)
+    args = (d["FA"], d["phi"], d["TR"], d["TE"], d["T1"], d["T2"], d["B1"],
+            d["df"])
+    kw = dict(demodulate=True, inversion=BSSFP_TI)
+    re, im = cuda_bssfp.bssfp_echoes(*args, **kw)
+    same = bool(torch.equal(out.real, re) and torch.equal(out.imag, im))
+    del re, im
+    g = _golden("bssfp")
+    golden = epg.simulate(bssfp_golden_sequence(epg, g))
+    torch.cuda.synchronize()
+    launches = cuda_bssfp.LAUNCHES
+    _expect("bssfp", (dict(fisp_dispatch.DISPATCH_COUNTS), launches),
+            ({"bssfp": 2}, 3))
+    gerr = float(np.abs(golden - g["signal"]).max())
+    print(f"[bssfp] simulate(): {BSSFP_N} pulses x {BSSFP_ATOMS} atoms -> "
+          f"{tuple(out.shape)} {out.dtype}; bssfp_echoes on the matched "
+          f"parameters {'==' if same else '!='} simulate(); golden "
+          f"bssfp.npz train on the card vs the golden {gerr:.3e} (limit "
+          f"{TOL_BSSFP_GOLDEN})")
+    if (tuple(out.shape) != (BSSFP_N, BSSFP_ATOMS)
+            or out.dtype != torch.complex64 or not same
+            or not _finite(torch, torch.view_as_real(out))
+            or not gerr <= TOL_BSSFP_GOLDEN):
+        raise AssertionError("bSSFP path: shape, finiteness, direct call or "
+                             "golden error out of bounds")
+    # the drift curve: one float64 general-path run of the full train over
+    # 8 atoms; every shorter train is a prefix of it
+    with cpu_float64(config):
+        ref = epg.simulate(bssfp_bench_sequence(epg, T1[:8], T2[:8], DF[:8]),
+                           fisp_kernel=False)
+    err = np.abs(out[:, :8].cpu().numpy() - ref)
+    drift = {n: float(err[:n].max()) for n in BSSFP_DRIFT}
+    print("[bssfp] drift, max|f32 simulate - f64 general path| over the "
+          "first N pulses (8 atoms): "
+          + ", ".join(f"N={n}: {e:.3e}" for n, e in drift.items()))
+    del out
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, asarray=False),
+                     reps=3)
+    return dict(seq=seq, args=args, kw=kw, launches=launches,
+                first_s=first_s, memo_s=memo_s, drift=drift, gerr=gerr)
+
+
+def phase_bssfp_jac_path(torch, epg):
+    """The benchmark's bSSFP train with (T1, T2, g) tracked through
+    simulate(probe=[ADC, Jacobian([mag, T1, T2, g])]); 8 atoms against the
+    float64 general diff path over the first 48 pulses; returns the run's
+    facts."""
+    from epgpy_torch import config, fisp_dispatch
+    from epgpy_torch.models import cuda_bssfp
+
+    names = ["magnitude", "T1", "T2", "g"]
+    T1, T2, DF = bssfp_atoms(BSSFP_ATOMS)
+    seq = bssfp_bench_sequence(epg, T1, T2, DF, tracked=True)
+    probes = [epg.ADC, epg.Jacobian(names)]
+    _reset_counts(cuda_bssfp)
+    (sig, jac), first_s = _first_call(torch, lambda: epg.simulate(
+        seq, asarray=False, probe=probes))
+    _expect("bssfp-jac", (dict(fisp_dispatch.DISPATCH_COUNTS),
+                          cuda_bssfp.JAC_LAUNCHES), ({"jac:bssfp": 1}, 1))
+    if (tuple(jac.shape) != (BSSFP_N, BSSFP_ATOMS, 4)
+            or jac.dtype != torch.complex64 or not _finite(torch, (
+                torch.view_as_real(sig), torch.view_as_real(jac)))
+            or not bool((jac[..., 0] == sig).all())):
+        raise AssertionError("bSSFP Jacobian path: shape, finiteness or "
+                             "magnitude column wrong")
+    n = BSSFP_DRIFT[0]
+    with cpu_float64(config):
+        s64, j64 = epg.simulate(
+            bssfp_bench_sequence(epg, T1[:8], T2[:8], DF[:8], npulse=n,
+                                 tracked=True),
+            probe=probes, fisp_kernel=False)
+    sig_err = float(np.abs(sig[:n, :8].cpu().numpy() - s64).max())
+    cols = col_errors(jac[:n, :8].cpu().numpy(), j64)
+    print(f"[bssfp-jac] simulate(probe=[ADC, Jacobian({names})]) -> "
+          f"{tuple(jac.shape)}; first {n} pulses x 8 atoms vs the f64 "
+          f"general diff path: signal {sig_err:.3e}, columns "
+          f"{', '.join(f'{c:.3e}' for c in cols)} of each column's scale "
+          f"(limits {TOL_BSSFP_GOLDEN}, {TOL_JAC_MODEL})")
+    if not sig_err <= TOL_BSSFP_GOLDEN or not max(cols) <= TOL_JAC_MODEL:
+        raise AssertionError(f"bSSFP Jacobian path error {sig_err:.3e} / "
+                             f"{max(cols):.3e}")
+    del sig, jac
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, asarray=False,
+                                                 probe=probes), reps=2)
+    return dict(seq=seq, launches=1, first_s=first_s, memo_s=memo_s,
+                col_err=max(cols), sig_err=sig_err,
+                simulate=lambda: epg.simulate(seq, asarray=False,
+                                              probe=probes))
+
+
+def dess_flips():
+    """The mapping train's flip ramp (examples/dess_t1t2_mapping.py:52)."""
+    return DESS_FA * (0.5 + np.abs(np.sin(np.arange(DESS_NTR) * np.pi / 24)))
+
+
+def dess_map_sequence(epg, T1, T2, tracked=False):
+    """The DESS mapping train as a user writes it: per TR [T(FA_i, 0),
+    E(TE), ADC, E(TR - 2 TE), S(1), E(TE), ADC]; with `tracked` every E op
+    tracks (T1, T2)."""
+    o1 = ["T1", "T2"] if tracked else False
+    seq = []
+    for fa in dess_flips():
+        seq += [epg.T(float(fa), 0.0), epg.E(DESS_TE, T1, T2, order1=o1),
+                epg.ADC, epg.E(DESS_TR - 2 * DESS_TE, T1, T2, order1=o1),
+                epg.S(1), epg.E(DESS_TE, T1, T2, order1=o1), epg.ADC]
+    return seq
+
+
+def dess_truth():
+    """The example's voxels (examples/dess_t1t2_mapping.py:81-87): T1, T2,
+    the complex PD and the complex noise (2 NTR, V), in its draw order."""
+    rng = np.random.default_rng(DESS_SEED)
+    T1 = rng.uniform(400, 1800, DESS_NVOX)
+    T2 = np.minimum(rng.uniform(35, 180, DESS_NVOX), 0.6 * T1)
+    pd = rng.uniform(0.7, 1.5, DESS_NVOX) * np.exp(
+        2j * np.pi * rng.random(DESS_NVOX))
+    shape = (2 * DESS_NTR, DESS_NVOX)
+    noise = DESS_NOISE * (rng.normal(size=shape) + 1j * rng.normal(size=shape))
+    return T1, T2, pd, noise
+
+
+def phase_dess_path(torch, epg):
+    """DESS through simulate(): the golden dess.npz train against the
+    golden, and the mapping train over the example's voxels, primal and
+    Jacobian (first call and memoized), 8 voxels against the float64
+    general path; returns the run's facts."""
+    from epgpy_torch import config, fisp_dispatch
+    from epgpy_torch.models import cuda_dess
+
+    g = _golden("dess")
+    T1, T2, _, _ = dess_truth()
+    seq = dess_map_sequence(epg, T1, T2)
+    jseq = dess_map_sequence(epg, T1, T2, tracked=True)
+    probes = [epg.ADC, epg.Jacobian(["T1", "T2"])]
+    kw = dict(max_nstate=DESS_NSTATE, asarray=False)
+    _reset_counts(cuda_dess)
+    golden = epg.simulate(epg.dess_sequence(30, alpha=25.0, TR=20.0, TE=5.0,
+                                            T1=1000.0, T2=80.0),
+                          max_nstate=15)
+    out, first_s = _first_call(torch, lambda: epg.simulate(seq, **kw))
+    (sig, jac), jfirst_s = _first_call(torch, lambda: epg.simulate(
+        jseq, probe=probes, **kw))
+    _expect("dess", (dict(fisp_dispatch.DISPATCH_COUNTS),
+                     cuda_dess.LAUNCHES, cuda_dess.JAC_LAUNCHES),
+            ({"dess": 2, "jac:dess": 1}, 2, 1))
+    gerr = float(np.abs(golden - g["signal"]).max())
+    shape = (2 * DESS_NTR, DESS_NVOX)
+    if (tuple(out.shape) != shape or tuple(jac.shape) != shape + (2,)
+            or not _finite(torch, [torch.view_as_real(t)
+                                   for t in (out, sig, jac)])
+            or not float((sig - out).abs().max()) <= TOL_KERNEL):
+        raise AssertionError("DESS path: shape, finiteness, or the "
+                             "Jacobian kernel's signal differs from the "
+                             "primal kernel's")
+    with cpu_float64(config):
+        ref = epg.simulate(dess_map_sequence(epg, T1[:8], T2[:8]),
+                           max_nstate=DESS_NSTATE, fisp_kernel=False)
+        _, j64 = epg.simulate(dess_map_sequence(epg, T1[:8], T2[:8],
+                                                tracked=True),
+                              probe=probes, max_nstate=DESS_NSTATE,
+                              fisp_kernel=False)
+    err = float(np.abs(out[:, :8].cpu().numpy() - ref).max())
+    cols = col_errors(jac[:, :8].cpu().numpy(), j64)
+    print(f"[dess] golden dess.npz train (max_nstate 15) on the card vs the "
+          f"golden {gerr:.3e} (limit {TOL_DESS_GOLDEN}); mapping train "
+          f"{DESS_NTR} TRs x {DESS_NVOX} voxels -> {tuple(out.shape)}, "
+          f"Jacobian {tuple(jac.shape)}; 8 voxels vs the f64 general path: "
+          f"signal {err:.3e} (limit {TOL_PROBE}), columns (T1, T2) "
+          f"{', '.join(f'{c:.3e}' for c in cols)} (limit {TOL_JAC_MODEL})")
+    if not gerr <= TOL_DESS_GOLDEN or not err <= TOL_PROBE \
+            or not max(cols) <= TOL_JAC_MODEL:
+        raise AssertionError(f"DESS path error: golden {gerr:.3e}, signal "
+                             f"{err:.3e}, columns {max(cols):.3e}")
+    del out, sig, jac
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, **kw), reps=3)
+    jmemo_s = _host_s(torch, lambda: epg.simulate(jseq, probe=probes, **kw),
+                      reps=3)
+    print(f"[dess] simulate() mapping train: first {first_s:.4f} s, "
+          f"memoized {memo_s * 1e3:.3f} ms; Jacobian first {jfirst_s:.4f} s, "
+          f"memoized {jmemo_s * 1e3:.3f} ms")
+    params = fisp_dispatch.match_dess(seq)                     # memoized
+    d = fisp_dispatch.device_params(params)
+    args = (d["FA"], d["phi"], d["TR"], d["TE"], d["T1"], d["T2"], d["B1"],
+            d["df"])
+    return dict(args=args, launches=2, jac_launches=1, first_s=first_s,
+                memo_s=memo_s, jfirst_s=jfirst_s, jmemo_s=jmemo_s,
+                gerr=gerr, err=err, col_err=max(cols),
+                simulate=lambda: epg.simulate(jseq, probe=probes, **kw))
+
+
+def _complex_dev(torch, x):
+    return torch.as_tensor(np.asarray(x, np.complex64), device=DEVICE)
+
+
+def phase_bssfp_serving(torch, epg):
+    """bSSFP MR fingerprinting (examples/mrf_bssfp.py) at full width: the
+    163,840-atom (T1, T2, df) dictionary through simulate(), rank-32
+    compression, a match of MRFB_NVOX off-grid voxels and the example's
+    multi-start Gauss-Newton refinement on the bSSFP Jacobian kernel;
+    returns the run's facts."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_bssfp
+    from epgpy_torch.parallel import (compress_dictionary, dictionary_match,
+                                      gauss_newton_refine, project_signals)
+
+    P, (n1, n2, n3) = MRFB_N, MRFB_GRID
+    rng = np.random.default_rng(0)
+    FA = 10 + 50 * np.abs(np.sin(np.arange(P) * 2 * np.pi / 100))
+    FA += rng.uniform(0, 5, P)
+    TR = 12.0 + 2.0 * np.sin(np.arange(P) / 17.0)
+    T1g = np.linspace(200, 2000, n1).reshape(n1, 1, 1)
+    T2g = np.linspace(20, 200, n2).reshape(1, n2, 1)
+    dfg = np.linspace(-0.05, 0.05, n3).reshape(1, 1, n3)
+    grid = np.stack(np.broadcast_arrays(T1g, T2g, dfg), -1).reshape(-1, 3)
+
+    def train(theta, order1=None):
+        return epg.bssfp_sequence(FA, TR, T1=theta[0], T2=theta[1],
+                                  df=theta[2], inversion=18.0, order1=order1)
+
+    _reset_counts(cuda_bssfp)
+    t0 = time.perf_counter()
+    dic = epg.simulate(train((T1g, T2g, dfg)), asarray=False).reshape(P, -1)
+    dic = dic / torch.linalg.vector_norm(dic, dim=0)
+    dre, dim = dic.real.T.contiguous(), dic.imag.T.contiguous()   # (B, P)
+    del dic
+    comp = compress_dictionary(dre, dim, MRFB_RANK)
+    torch.cuda.synchronize()
+    dict_s = time.perf_counter() - t0
+
+    nv = MRFB_NVOX
+    T1t = rng.uniform(300, 1800, nv)
+    T2t = np.minimum(rng.uniform(30, 170, nv), 0.6 * T1t)
+    dft = rng.uniform(-0.045, 0.045, nv)
+    truth = np.stack([T1t, T2t, dft])
+    clean = epg.simulate(train(truth), asarray=False)             # (P, V)
+    pd = rng.normal(size=nv) + 1j * rng.normal(size=nv)
+    noise = MRFB_NOISE * np.abs(pd) * (rng.normal(size=(P, nv))
+                                       + 1j * rng.normal(size=(P, nv)))
+    meas = clean * _complex_dev(torch, pd) + _complex_dev(torch, noise)
+
+    # the truth signals against the twin on a slice of voxels
+    tp = fisp_dispatch.match_bssfp(train(truth))                 # memoized
+    d = fisp_dispatch.device_params(tp)
+    sl = slice(0, 384)
+    twin = cuda_bssfp.bssfp_echoes_plain(
+        d["FA"], d["phi"], d["TR"], d["TE"], d["T1"][sl], d["T2"][sl],
+        d["B1"][sl], d["df"][sl], demodulate=True, inversion=18.0)
+    truth_err = max(float((clean.real[:, sl] - twin[0]).abs().max()),
+                    float((clean.imag[:, sl] - twin[1]).abs().max()))
+    del clean, twin
+
+    # the example's init: match in the compressed space
+    t0 = time.perf_counter()
+    mn = torch.linalg.vector_norm(meas, dim=0)
+    cm = project_signals(comp["basis_re"], comp["basis_im"],
+                         (meas.real / mn).T.contiguous(),
+                         (meas.imag / mn).T.contiguous())
+    idx, _ = dictionary_match(comp["cdict_re"], comp["cdict_im"], cm[0],
+                              cm[1], atom_chunk=16384)
+    torch.cuda.synchronize()
+    match_s = time.perf_counter() - t0
+    theta0 = grid[idx.cpu().numpy()].T.copy()                   # (3, V)
+
+    split = {"host": 0.0, "simulate": 0.0}
+    first_jac = []
+
+    def signal_and_jac(theta):
+        t0 = time.perf_counter()
+        seq = train(theta, order1=["T1", "T2", "g"])
+        params = fisp_dispatch.match_bssfp(seq)   # memoized for simulate()
+        t1 = time.perf_counter()
+        s, j = epg.simulate(seq, asarray=False,
+                            probe=[epg.ADC, epg.Jacobian(["T1", "T2", "g"])])
+        torch.cuda.synchronize()
+        split["host"] += t1 - t0
+        split["simulate"] += time.perf_counter() - t1
+        if not first_jac:
+            first_jac.append((params, j[:, sl].clone()))
+        return (s.real, s.imag), (j.real, j.imag)
+
+    def residual(theta):
+        s = epg.simulate(train(theta), asarray=False)
+        c = (s.conj() * meas).sum(0) / torch.clamp(
+            (s.abs() ** 2).sum(0), min=1e-30)
+        return ((meas - c * s).abs() ** 2).sum(0)
+
+    # multi-start: the match, its df-negated twin and +-half a df step
+    half = 0.5 * float(dfg.flat[1] - dfg.flat[0])
+    starts = []
+    for ddf, neg in ((0.0, False), (0.0, True), (half, False),
+                     (-half, False)):
+        t = theta0.copy()
+        t[2] = (-t[2] if neg else t[2]) + ddf
+        starts.append(t)
+    t0 = time.perf_counter()
+    cands = [gauss_newton_refine(signal_and_jac, t, meas.real, meas.imag,
+                                 iters=MRFB_ITERS, solve_scale=True,
+                                 bounds=MRFB_BOUNDS) for t in starts]
+    gn_s = time.perf_counter() - t0
+    res = torch.stack([residual(c) for c in cands])
+    pick = res.argmin(0).cpu().numpy()
+    theta = np.stack(cands, 0)[pick, :, np.arange(nv)].T
+    torch.cuda.synchronize()
+    launches = dict(bssfp=cuda_bssfp.LAUNCHES,
+                    bssfp_jac=cuda_bssfp.JAC_LAUNCHES)
+    dispatched = dict(fisp_dispatch.DISPATCH_COUNTS)
+
+    # the first Gauss-Newton Jacobian against the twin on the slice
+    params, kj = first_jac[0]
+    d = fisp_dispatch.device_params(params)
+    (_, _), (pdre, pdim) = cuda_bssfp.bssfp_jacobian_echoes_plain(
+        d["FA"], d["phi"], d["TR"], d["TE"], d["T1"][sl], d["T2"][sl],
+        d["B1"][sl], d["df"][sl], demodulate=True, inversion=18.0,
+        track_df=True)
+    want = torch.complex(pdre, pdim)[..., [0, 1, 3]].cpu().numpy()
+    jcols = col_errors(kj.cpu().numpy(), want)
+
+    def rmse(est):
+        return np.sqrt(np.mean((est - truth) ** 2, axis=1))
+
+    e0, e1 = rmse(theta0), rmse(theta)
+    ngn = len(starts) * MRFB_ITERS
+    print(f"[mrf-bssfp] dictionary {n1} x {n2} x {n3} = {len(grid)} atoms x "
+          f"{P} pulses through simulate() + rank-{MRFB_RANK} compression "
+          f"(energy {float(comp['energy']):.6f}): {dict_s:.3f} s; match of "
+          f"{nv} voxels {match_s * 1e3:.1f} ms")
+    print(f"[mrf-bssfp] kernels vs plain twins on {sl.stop} voxels: truth "
+          f"signals {truth_err:.3e} (limit {TOL_KERNEL}), first Gauss-Newton"
+          f" Jacobian columns (T1, T2, df) "
+          f"{', '.join(f'{c:.3e}' for c in jcols)} (limit {TOL_JAC_KERNEL})")
+    print(f"[mrf-bssfp] RMSE match: T1 {e0[0]:.3f} ms, T2 {e0[1]:.4f} ms, df "
+          f"{1e3 * e0[2]:.4f} Hz; refined ({len(starts)} starts x "
+          f"{MRFB_ITERS} Gauss-Newton iterations, solve_scale): T1 "
+          f"{e1[0]:.4f} ms, T2 {e1[1]:.5f} ms, df {1e3 * e1[2]:.5f} Hz; "
+          f"picked start counts {np.bincount(pick, minlength=4).tolist()}")
+    _expect("mrf-bssfp", (dispatched, launches),
+            ({"bssfp": 2 + len(starts), "jac:bssfp": ngn},
+             dict(bssfp=2 + len(starts), bssfp_jac=ngn)))
+    if not truth_err <= TOL_KERNEL or not max(jcols) <= TOL_JAC_KERNEL:
+        raise AssertionError("a bSSFP serving kernel disagrees with its "
+                             "plain twin")
+    if not (e1 < 0.3 * e0).all():
+        raise AssertionError(f"refinement misses the example's criterion: "
+                             f"match RMSE {e0}, refined {e1}")
+    per = {k: v / ngn for k, v in split.items()}
+    per["solve"] = gn_s / ngn - per["host"] - per["simulate"]
+    return dict(launches=launches, dict_s=dict_s, match_s=match_s,
+                gn_s=gn_s, per_iter=per, rmse0=e0, rmse1=e1)
+
+
+def phase_dess_mapping(torch, epg):
+    """Joint T1/T2 mapping from one DESS acquisition
+    (examples/dess_t1t2_mapping.py) over DESS_NVOX voxels: the example's
+    flat start and its own Gauss-Newton loop on the card (variable
+    projection, trace regularizer, step clips, bounds), signal and
+    Jacobian from simulate(); returns the run's facts."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_dess
+
+    T1t, T2t, pd, noise = dess_truth()
+    kw = dict(max_nstate=DESS_NSTATE, asarray=False)
+    probes = [epg.ADC, epg.Jacobian(["T1", "T2"])]
+    _reset_counts(cuda_dess)
+    clean = epg.simulate(dess_map_sequence(epg, T1t, T2t), **kw)
+    meas = (clean * _complex_dev(torch, pd)).to(torch.complex128) \
+        + torch.as_tensor(noise, device=DEVICE)
+    del clean
+
+    T1f = torch.full((DESS_NVOX,), 800.0, dtype=torch.float64, device=DEVICE)
+    T2f = torch.full_like(T1f, 60.0)
+    eye = torch.eye(2, dtype=torch.float64, device=DEVICE)
+    first = []
+    split = {"simulate": 0.0, "solve": 0.0}
+    t0 = time.perf_counter()
+    for _ in range(DESS_ITERS):
+        t1 = time.perf_counter()
+        seq = dess_map_sequence(epg, T1f.cpu().numpy(), T2f.cpu().numpy(),
+                                tracked=True)
+        sig, jac = epg.simulate(seq, probe=probes, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if not first:
+            first.append((fisp_dispatch.match_dess(seq),
+                          jac[:, :512].clone()))
+        sig, jac = sig.to(torch.complex128), jac.to(torch.complex128)
+        # variable projection: the complex scale in closed form per voxel
+        c = (sig.conj() * meas).sum(0) / torch.clamp(
+            (sig.abs() ** 2).sum(0), min=1e-30)
+        r = meas - c * sig
+        J = jac * c[None, :, None]
+        A = torch.einsum("pbi,pbj->bij", J.conj(), J).real
+        b = torch.einsum("pbi,pb->bi", J.conj(), r).real
+        A = A + 1e-8 * torch.diagonal(A, dim1=1, dim2=2).sum(-1)[:, None,
+                                                                 None] * eye
+        step = torch.linalg.solve(A, b[..., None])[..., 0]
+        T1f = torch.clamp(T1f + torch.clamp(step[:, 0], -400.0, 400.0),
+                          100.0, 4000.0)
+        T2f = torch.clamp(T2f + torch.clamp(step[:, 1], -50.0, 50.0),
+                          10.0, 500.0)
+        torch.cuda.synchronize()
+        split["simulate"] += t2 - t1
+        split["solve"] += time.perf_counter() - t2
+    gn_s = time.perf_counter() - t0
+    launches = dict(dess=cuda_dess.LAUNCHES, dess_jac=cuda_dess.JAC_LAUNCHES)
+    _expect("dess-map", (dict(fisp_dispatch.DISPATCH_COUNTS), launches),
+            ({"dess": 1, "jac:dess": DESS_ITERS},
+             dict(dess=1, dess_jac=DESS_ITERS)))
+
+    # the first iteration's Jacobian against the twin on 512 voxels
+    params, kj = first[0]
+    d = fisp_dispatch.device_params(params)
+    sl = slice(0, 512)
+    (_, _), (pdre, pdim) = cuda_dess.dess_jacobian_echoes_plain(
+        d["FA"], d["phi"], d["TR"], d["TE"], d["T1"][sl], d["T2"][sl],
+        d["B1"][sl], None, nstate=DESS_NSTATE)
+    jcols = col_errors(kj.cpu().numpy(),
+                       torch.complex(pdre, pdim)[..., :2].cpu().numpy())
+    e1 = float(torch.sqrt(torch.mean((T1f.cpu() - torch.as_tensor(T1t)) ** 2)))
+    e2 = float(torch.sqrt(torch.mean((T2f.cpu() - torch.as_tensor(T2t)) ** 2)))
+    print(f"[dess-map] {DESS_NVOX} voxels x {DESS_NTR} TRs, {DESS_ITERS} "
+          f"Gauss-Newton iterations from (800, 60): {gn_s:.3f} s (simulate "
+          f"{split['simulate']:.3f} s, host + device solve "
+          f"{split['solve']:.3f} s); T1 RMSE {e1:.3f} ms (limit 25), T2 RMSE "
+          f"{e2:.4f} ms (limit 2.5); first Jacobian vs the twin on 512 "
+          f"voxels, columns (T1, T2) {', '.join(f'{c:.3e}' for c in jcols)} "
+          f"(limit {TOL_JAC_KERNEL})")
+    if not max(jcols) <= TOL_JAC_KERNEL:
+        raise AssertionError("the DESS Jacobian kernel disagrees with its "
+                             "plain twin")
+    if not (e1 < 25.0 and e2 < 2.5):
+        raise AssertionError(f"DESS mapping misses the example's limits: "
+                             f"T1 {e1:.3f} ms, T2 {e2:.4f} ms")
+    return dict(launches=launches, gn_s=gn_s, split=split, rmse=(e1, e2))
+
+
+def _device_us(event):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def _profile_split(torch, fn, key):
+    """Device time of fn() by torch.profiler: (total, kernels whose name
+    holds `key`), in microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return (sum(_device_us(e) for e in events),
+            sum(_device_us(e) for e in events if key in e.key))
+
+
+def _print_split(what, name, split, card):
+    total, kern = split
+    if total > 0:
+        print(f"[numbers] {what} device time (torch.profiler): "
+              f"{total / 1e3:.3f} ms, {name} kernel {kern / 1e3:.3f} ms, "
+              f"output assembly and the rest {(total - kern) / 1e3:.3f} ms "
+              f"({100 * (total - kern) / total:.1f}%) ({card})")
+    else:
+        print(f"[numbers] {what} device time: not measured (the profiler "
+              f"reported no device time)")
+
+
+def kernel_entry(torch, card, name, replaces, fns, args, kw, atom_idx,
+                 natoms, launches, jac):
+    """One kernel's line at its main-path shape: kernel and twin on the
+    same card tensors (held to TOL_KERNEL / TOL_JAC_KERNEL), their times,
+    and the bound from the twin's counted operations and the bytes."""
+    kfn, pfn = fns
+
+    def kernel():
+        return kfn(*args, **kw)
+
+    def plain():
+        return pfn(*args, **kw)
+
+    k, p = kernel(), plain()
+    sig, cols = _pair_errors(torch, k, p, jac)
+    flat = lambda o: [t for x in o for t in (  # noqa: E731
+        x if isinstance(x, tuple) else (x,))]
+    err = max(float((a - b).abs().max()) for a, b in zip(flat(k), flat(p)))
+    print(f"[numbers] {name} at {natoms} atoms: max|kernel - plain| = "
+          f"{err:.3e}" + (f", per column {', '.join(f'{c:.2e}' for c in cols)}"
+                          if cols else ""))
+    if not sig <= TOL_KERNEL or (cols and not max(cols) <= TOL_JAC_KERNEL):
+        raise AssertionError(f"{name} kernel vs plain twin {sig:.3e} / "
+                             f"{max(cols or [0.0]):.3e}")
+    del k, p
+    k_ms = _cuda_ms(torch, kernel)
+    p_ms = _cuda_ms(torch, plain, reps=1)
+    print(f"[numbers] {name} kernel: {k_ms:.3f} ms = "
+          f"{natoms / (k_ms / 1e3):.4g} atoms/s; plain twin {p_ms:.3f} ms "
+          f"({card})")
+    flops = linear_ops(torch, lambda n: pfn(
+        *_cpu_atoms(torch, args, n, atom_idx), **kw), natoms)
+    nbytes = tensor_bytes(torch, args, kernel())
+    return {"name": name, "route": "cuda",
+            "source": f"epgpy_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, **bound_fields(name, flops, nbytes)}
+
+
+def phase_ssfp_numbers(torch, card, bssfp, bjac, dess):
+    """The four kernels at their main-path shapes (bSSFP: the benchmark's
+    500 x 163,840 train, the Jacobian with the ddf group; DESS: the mapping
+    train over 262,144 voxels), simulate()'s host share and device split;
+    returns their JSON entries (launches filled in by main)."""
+    from epgpy_torch.models import cuda_bssfp, cuda_dess
+
+    atoms = (4, 5, 6, 7)
+    dkw = dict(nstate=DESS_NSTATE, demodulate=False)
+    entries = [
+        kernel_entry(torch, card, "bssfp",
+                     "epgpy_tpu/models/pallas_bssfp.py:57",
+                     (cuda_bssfp.bssfp_echoes, cuda_bssfp.bssfp_echoes_plain),
+                     bssfp["args"], bssfp["kw"], atoms, BSSFP_ATOMS, 0,
+                     False),
+        kernel_entry(torch, card, "bssfp_jac",
+                     "epgpy_tpu/models/pallas_bssfp.py:153",
+                     (cuda_bssfp.bssfp_jacobian_echoes,
+                      cuda_bssfp.bssfp_jacobian_echoes_plain),
+                     bssfp["args"], dict(bssfp["kw"], track_df=True), atoms,
+                     BSSFP_ATOMS, 0, True),
+        kernel_entry(torch, card, "dess", "epgpy_tpu/models/pallas_dess.py:33",
+                     (cuda_dess.dess_echoes, cuda_dess.dess_echoes_plain),
+                     dess["args"], dkw, atoms, DESS_NVOX, 0, False),
+        kernel_entry(torch, card, "dess_jac",
+                     "epgpy_tpu/models/pallas_dess.py:201",
+                     (cuda_dess.dess_jacobian_echoes,
+                      cuda_dess.dess_jacobian_echoes_plain),
+                     dess["args"], dkw, atoms, DESS_NVOX, 0, True),
+    ]
+    k_ms = entries[0]["ms"]
+    print(f"[numbers] simulate() bSSFP {BSSFP_N} pulses x {BSSFP_ATOMS} "
+          f"atoms: first {bssfp['first_s']:.4f} s, memoized "
+          f"{bssfp['memo_s'] * 1e3:.3f} ms against the kernel's "
+          f"{k_ms:.3f} ms: {1 - k_ms / (bssfp['memo_s'] * 1e3):.1%} of the "
+          f"memoized call is not the kernel ({card})")
+    print(f"[numbers] simulate() bSSFP Jacobian: first {bjac['first_s']:.4f}"
+          f" s, memoized {bjac['memo_s'] * 1e3:.3f} ms ({card})")
+    _print_split("simulate() bSSFP Jacobian", "bssfp_jac",
+                 _profile_split(torch, bjac["simulate"], "bssfp_jac"), card)
+    _print_split("simulate() DESS Jacobian", "dess_jac",
+                 _profile_split(torch, dess["simulate"], "dess_jac"), card)
+    return entries
+
+
 def main():
     import torch
 
     card = phase_environment(torch)
     import epgpy_torch as epg
 
-    epg.config.set_device("cuda")
+    epg.config.set_device(DEVICE)
     epg.config.set_precision("float32")
     phase_build()
     worst = phase_cases(torch)
@@ -1960,6 +2722,11 @@ def main():
     worst_design = phase_design_cases(torch)
     print(f"[design-cases] worst per-block |kernel - plain| = "
           f"{worst_design:.3e} (limit {TOL_DESIGN_KERNEL})")
+    for family in ("bssfp", "dess"):
+        worst_sig, worst_col = phase_ssfp_cases(torch, family)
+        print(f"[{family}-cases] worst max|kernel - plain| = {worst_sig:.3e}"
+              f" (limit {TOL_KERNEL}), worst column {worst_col:.3e} (limit "
+              f"{TOL_JAC_KERNEL})")
     main_run = phase_main_path(torch, epg)
     jac_run = phase_jac_path(torch, epg)
     serve = phase_serving(torch, epg, main_run.pop("dictionary"))
@@ -1970,6 +2737,11 @@ def main():
     dw_run = phase_dw_path(torch, epg)
     t2b1 = phase_t2b1(torch, epg)
     tse = phase_tse_design(torch, epg)
+    bssfp_run = phase_bssfp_path(torch, epg)
+    bjac_run = phase_bssfp_jac_path(torch, epg)
+    dess_run = phase_dess_path(torch, epg)
+    mrfb = phase_bssfp_serving(torch, epg)
+    dmap = phase_dess_mapping(torch, epg)
     entry = phase_numbers(torch, epg, card, main_run)
     jac_entry = phase_jac_numbers(torch, epg, card, jac_run)
     hess_entry = phase_hess_numbers(torch, epg, card, hess_run)
@@ -1979,6 +2751,19 @@ def main():
     mse_entry, mse_jac_entry = phase_mse_numbers(torch, card, mse_run,
                                                  mse_jac_run)
     design_entry = phase_design_numbers(torch, card, tse)
+    ssfp_entries = phase_ssfp_numbers(torch, card, bssfp_run, bjac_run,
+                                      dess_run)
+    # launches on the bSSFP and DESS paths: the dictionary, its direct
+    # call and the golden train (4g), the Jacobian (4h) and MRF serving
+    # (5f: dictionary, truth, one Jacobian per Gauss-Newton iteration, one
+    # residual per start); the golden and mapping trains (4i) and the
+    # mapping (5g: truth, one Jacobian per iteration)
+    for entry_, n in zip(ssfp_entries, (
+            bssfp_run["launches"] + mrfb["launches"]["bssfp"],
+            bjac_run["launches"] + mrfb["launches"]["bssfp_jac"],
+            dess_run["launches"] + dmap["launches"]["dess"],
+            dess_run["jac_launches"] + dmap["launches"]["dess_jac"])):
+        entry_["launches"] = n
     # launches on the CPMG paths: the published and scaled trains (4d), the
     # DW-TSE train (4f) and T2/B1 mapping (5d: truth and dictionary, one
     # Jacobian per Gauss-Newton iteration); the Jacobian (4e)
@@ -2015,9 +2800,25 @@ def main():
           f"{tse['slsqp_s']:.3f} s ({tse['eval_s'] / tse['slsqp_s']:.1%} in "
           f"evaluations), CRLB {tse['v0']:.6g} -> {tse['v1']:.6g} (constant "
           f"{tse['v_flat']:.6g}) ({card})")
+    per = mrfb["per_iter"]
+    print(f"[numbers] bSSFP MRF serving, {MRFB_NVOX} voxels x "
+          f"{np.prod(MRFB_GRID)} atoms: dictionary + compression "
+          f"{mrfb['dict_s']:.3f} s, match {mrfb['match_s'] * 1e3:.1f} ms; "
+          f"Gauss-Newton per iteration {mrfb['gn_s'] / (4 * MRFB_ITERS):.3f}"
+          f" s = host build + match {per['host']:.3f} s + simulate (kernel "
+          f"+ assembly) {per['simulate']:.3f} s + update/solve "
+          f"{per['solve']:.3f} s; RMSE T1 {mrfb['rmse1'][0]:.4f} ms, T2 "
+          f"{mrfb['rmse1'][1]:.5f} ms, df {1e3 * mrfb['rmse1'][2]:.5f} Hz "
+          f"({card})")
+    print(f"[numbers] DESS T1/T2 mapping, {DESS_NVOX} voxels: {DESS_ITERS} "
+          f"Gauss-Newton iterations {dmap['gn_s']:.3f} s (simulate "
+          f"{dmap['split']['simulate']:.3f} s); T1 RMSE "
+          f"{dmap['rmse'][0]:.3f} ms, T2 RMSE {dmap['rmse'][1]:.4f} ms "
+          f"({card})")
     print(card)
     print(json.dumps({"kernels": [entry, jac_entry, hess_entry, mse_entry,
-                                  mse_jac_entry, design_entry]}))
+                                  mse_jac_entry, design_entry]
+                      + ssfp_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,12 +12,13 @@ This port covers the operators T/E/P/R/S(int)/ADC with order1/order2
 derivative specs, the StateMatrix, the eager general engine, Jacobian and
 Hessian probes (``diff.py``: forward-mode autodiff through the operator
 loop), the FISP MR-fingerprinting models, the fused FISP dictionary,
-Jacobian and per-pulse Hessian kernels for the H100
-(``models/cuda_fisp.py``, ``models/cuda_hessian.py``, ``csrc/*.cu``),
-which ``simulate()`` dispatches to on CUDA in float32, CRLB statistics
-(``stats``), MRF serving and sequence design (``parallel``: dictionary
-match, reconstruction, Gauss-Newton refinement, CRLB design of the MRF
-train).
+Jacobian and per-pulse Hessian kernels, the CPMG, balanced-SSFP and DESS
+dictionary and Jacobian kernels for the H100 (``models/cuda_*.py``,
+``csrc/*.cu``), which ``simulate()`` dispatches to on CUDA in float32,
+the steady-state sequences (``bssfp_sequence``, ``dess_sequence``,
+``spgr_sequence``), CRLB statistics (``stats``), MRF serving and sequence
+design (``parallel``: dictionary match, reconstruction, Gauss-Newton
+refinement, CRLB design of the MRF train).
 """
 
 from . import config, stats
@@ -31,6 +32,7 @@ from .engine import (
     simulate, simulate_simple, modify, flatten_sequence, getshape,
     getnshift, get_adc_times,
 )
+from .models.ssfp import bssfp_sequence, dess_sequence, spgr_sequence
 
 __all__ = [
     "config", "StateMatrix", "Operator", "EmptyOperator", "MultiOperator",
@@ -38,6 +40,7 @@ __all__ = [
     "C", "D", "Probe", "Adc", "ADC", "DFT", "Imaging", "Jacobian", "Hessian",
     "PartialsPruner", "simulate", "simulate_simple",
     "modify", "flatten_sequence", "getshape", "getnshift", "get_adc_times",
+    "bssfp_sequence", "dess_sequence", "spgr_sequence",
 ]
 
 __version__ = "0.1.0"

@@ -44,6 +44,13 @@ _SIGNATURES = {
                      _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "epg_cpmg_design": [_F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _P],
+    "epg_bssfp": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P] + [_I] * 8
+    + [_P],
+    "epg_bssfp_jac": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P] + [_I] * 9
+    + [_P],
+    "epg_dess": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "epg_dess_jac": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 8
+    + [_P],
 }
 
 #: the loaded library and what its build printed: {"lib", "path",

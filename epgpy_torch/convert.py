@@ -12,7 +12,11 @@ Both functions take plain numpy values, so this module needs no JAX:
   T1, T2, TE, TI, amap, shape), ready for ``run_fisp_hessian``, and the
   dict of ``match_mse`` (keys exc, FA, phi, tau1, tau2, T1, T2, B1, shape,
   vars, b1_scale, diffusion), ready for ``run_mse_kernel`` and
-  ``run_mse_jacobian``;
+  ``run_mse_jacobian``; a ``match_bssfp`` dict has ``match_fisp``'s keys
+  and takes the same way, to ``run_bssfp_kernel`` /
+  ``run_bssfp_jacobian``; the dict of ``match_dess`` (keys FA, phi, TR,
+  TE, T1, T2, B1, TI, vars, b1_scale, demod, shape, df) becomes this
+  package's, ready for ``run_dess_kernel`` and ``run_dess_jacobian``;
 * :func:`from_numpy_states` builds a :class:`StateMatrix` from the complex
   ``(*batch, K, 3)`` ladder of a JAX ``StateMatrix.states``.
 """
@@ -29,18 +33,23 @@ __all__ = ["from_numpy_params", "from_numpy_states"]
 _KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "inv_df", "vars",
          "b1_scale", "d_var", "demod", "shape", "df", "diffusion")
 _HESS_KEYS = ("FA", "phi", "TAU", "T1", "T2", "TE", "TI", "amap", "shape")
+_DESS_KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "vars",
+              "b1_scale", "demod", "shape", "df")
 _MSE_KEYS = ("exc", "FA", "phi", "tau1", "tau2", "T1", "T2", "B1", "shape",
              "vars", "b1_scale", "diffusion")
 
 
 def from_numpy_params(params: dict, device) -> dict:
-    """A JAX FISP (or per-pulse Hessian, or CPMG) match dict -> this
-    package's, with device tensors."""
+    """A JAX FISP or bSSFP (or per-pulse Hessian, CPMG or DESS) match
+    dict -> this package's, with device tensors."""
     if "amap" in params:
         return _hessian_params(params, device)
     if "tau1" in params:
         return _mse_params(params, device)
-    out = {k: params.get(k) for k in _KEYS}
+    # the DESS dict is the FISP dict without its inversion, DW and prep
+    # precession keys
+    keys = _KEYS if "inv_df" in params else _DESS_KEYS
+    out = {k: params.get(k) for k in keys}
     for k in ("FA", "phi", "TR", "T1", "T2", "B1", "df"):
         if out[k] is not None:
             out[k] = np.asarray(out[k])

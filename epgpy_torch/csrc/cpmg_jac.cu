@@ -51,22 +51,9 @@ struct JacArgs {
     int use_diff, ramp1, ramp2;
 };
 
-struct Row {
-    float AR, AI, BR, BI, ZR, ZI;
-};
-
-__device__ __forceinline__ Row read_row(const epg::PlaneSet& s, int k) {
-    return Row{s.at(0, k), s.at(1, k), s.at(2, k),
-               s.at(3, k), s.at(4, k), s.at(5, k)};
-}
-
-__device__ __forceinline__ Row rotate(const epg::Rot& r, const Row& x) {
-    Row o;
-    epg::rot_A(r, x.AR, x.AI, x.BR, x.BI, x.ZR, x.ZI, o.AR, o.AI);
-    epg::rot_B(r, x.AR, x.AI, x.BR, x.BI, x.ZR, x.ZI, o.BR, o.BI);
-    epg::rot_Z(r, x.AR, x.AI, x.BR, x.BI, x.ZR, x.ZI, o.ZR, o.ZI);
-    return o;
-}
+using epg::read_row;
+using epg::rotate;
+using epg::Row;
 
 // relaxation of one half-stage and its T1/T2 derivatives
 struct Relax {

@@ -123,6 +123,44 @@ __device__ __forceinline__ void rot_Z(const Rot& r, float AR, float AI,
     im = r.b0r * AI + r.b0i * AR + r.b1i * BR - r.b1r * BI + r.caa * ZI;
 }
 
+// The rotation restricted to k = 0 of a balanced (unshifted) train, whose
+// F-(0) = conj(F+(0)) and Z(0) is real (pallas_bssfp.py:113-122; rot_k0 of
+// planes.py): nF+ = c2 F+ + a1 conj(F+) + a2 Z, nZ = 2 Re(b0 F+) + caa Z.
+// With rot_coeffs_db1's coefficients it is the B1 coefficient pass.
+__device__ __forceinline__ void rot_k0(const Rot& r, float FR, float FI,
+                                       float Z, float& nFR, float& nFI,
+                                       float& nZ) {
+    nFR = r.c2 * FR + r.a1r * FR + r.a1i * FI + r.a2r * Z;
+    nFI = r.c2 * FI + r.a1i * FR - r.a1r * FI + r.a2i * Z;
+    nZ = 2.0f * (r.b0r * FR - r.b0i * FI) + r.caa * Z;
+}
+
+// One row of a plane set, and its rotation (rot_A, rot_B, rot_Z).
+struct Row {
+    float AR, AI, BR, BI, ZR, ZI;
+};
+
+__device__ __forceinline__ Row rotate(const Rot& r, const Row& x) {
+    Row o;
+    rot_A(r, x.AR, x.AI, x.BR, x.BI, x.ZR, x.ZI, o.AR, o.AI);
+    rot_B(r, x.AR, x.AI, x.BR, x.BI, x.ZR, x.ZI, o.BR, o.BI);
+    rot_Z(r, x.AR, x.AI, x.BR, x.BI, x.ZR, x.ZI, o.ZR, o.ZI);
+    return o;
+}
+
+// The F-plane decay (cF e^{i 2 pi df TR}) times (re + i im), or its T2
+// derivative when handed dcF; a real product without off-resonance.
+__device__ __forceinline__ void fdecay(bool cplx, float cr, float ci,
+                                       float re, float im, float& oR,
+                                       float& oI) {
+    if (cplx) {
+        cmul(cr, ci, re, im, oR, oI);
+    } else {
+        oR = cr * re;
+        oI = cr * im;
+    }
+}
+
 // One thread's plane set in shared memory.
 struct PlaneSet {
     float* base;  // &smem[threadIdx.x]
@@ -132,6 +170,11 @@ struct PlaneSet {
         return base[(j * H + k) * ld];
     }
 };
+
+__device__ __forceinline__ Row read_row(const PlaneSet& s, int k) {
+    return Row{s.at(0, k), s.at(1, k), s.at(2, k),
+               s.at(3, k), s.at(4, k), s.at(5, k)};
+}
 
 // The unit ladder shift of _shift_store, folded through k = 0 and done in
 // place as a row walk: A(k) <- A(k-1), A(0) <- B(1), B(k) <- B(k+1),

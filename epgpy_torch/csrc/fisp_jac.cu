@@ -57,36 +57,10 @@ struct JacArgs {
     int var_te, use_inv, inv_df, use_df, demod, use_diff, diff_ramp, track_d;
 };
 
-// The F-plane decay (cF e^{i 2 pi df TR}) times (re + i im), or its T2
-// derivative when handed dcF.
-__device__ __forceinline__ void fdecay(bool cplx, float cr, float ci,
-                                       float re, float im, float& oR,
-                                       float& oI) {
-    if (cplx) {
-        epg::cmul(cr, ci, re, im, oR, oI);
-    } else {
-        oR = cr * re;
-        oI = cr * im;
-    }
-}
-
-struct Row {
-    float AR, AI, BR, BI, ZR, ZI;
-};
-
-__device__ __forceinline__ Row read_row(const epg::PlaneSet& s, int k) {
-    return Row{s.at(0, k), s.at(1, k), s.at(2, k),
-               s.at(3, k), s.at(4, k), s.at(5, k)};
-}
-
-// rotated row: (rot_A re/im, rot_B re/im, rot_Z re/im)
-__device__ __forceinline__ Row rotate(const epg::Rot& r, const Row& x) {
-    Row o;
-    epg::rot_A(r, x.AR, x.AI, x.BR, x.BI, x.ZR, x.ZI, o.AR, o.AI);
-    epg::rot_B(r, x.AR, x.AI, x.BR, x.BI, x.ZR, x.ZI, o.BR, o.BI);
-    epg::rot_Z(r, x.AR, x.AI, x.BR, x.BI, x.ZR, x.ZI, o.ZR, o.ZI);
-    return o;
-}
+using epg::fdecay;
+using epg::read_row;
+using epg::rotate;
+using epg::Row;
 
 __global__ void fisp_jac_kernel(const JacArgs p) {
     extern __shared__ float smem[];

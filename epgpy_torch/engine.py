@@ -4,11 +4,14 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
 ``simulate()`` has two routes:
 
 * **the kernel dispatch**: a family table (JAX ``engine.py:874-940``)
-  tries FISP, then CPMG; the first match wins.  An exact FISP train
-  (fisp_dispatch.match_fisp) runs as one fused CUDA kernel
+  tries FISP, CPMG, bSSFP, then DESS; the first match wins.  An exact
+  FISP train (fisp_dispatch.match_fisp) runs as one fused CUDA kernel
   (models/cuda_fisp.py), a CPMG / multi-spin-echo train, DW-TSE included
-  (fisp_dispatch.match_mse), as the CPMG kernel (models/cuda_mse.py).
-  Both engage only without ``probe``, and so do their Jacobian probes
+  (fisp_dispatch.match_mse), as the CPMG kernel (models/cuda_mse.py), a
+  balanced SSFP train (match_bssfp) as the k = 0 bSSFP kernel
+  (models/cuda_bssfp.py), a DESS train (match_dess) as the two-echo DESS
+  kernel (models/cuda_dess.py).  They engage only without ``probe``, and
+  so do their Jacobian probes
   (``probe=[ADC, Jacobian([...])]`` on a train whose E ops track
   ``order1=["T1", "T2"]`` and whose T ops may track B1): the fused
   primal+tangent kernel of the family; per-pulse trains (T ops tracking
@@ -146,10 +149,10 @@ def _kernel_gate(fisp_kernel, what):
 
 
 def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp):
-    """The family table (engine.py:874-940 of the JAX package): FISP, then
-    CPMG; the first match wins, each family behind its own shared-memory
-    gate.  Returns the kernel's echo train (N, *batch), or None
-    (logged)."""
+    """The family table (engine.py:874-940 of the JAX package): FISP,
+    CPMG, bSSFP, DESS; the first match wins, each family behind its own
+    shared-memory gate (none for bSSFP: its state is three registers).
+    Returns the kernel's echo train (N, *batch), or None (logged)."""
     from . import fisp_dispatch as fd
 
     if not _kernel_gate(fisp_kernel, "fused kernels"):
@@ -160,6 +163,11 @@ def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp):
         (lambda seq: fd.match_mse(seq, kvalue),
          lambda p: fd.mse_kernel_fits(ncap, p["diffusion"] is not None),
          fd.run_mse_kernel, "CPMG", "mse"),
+        # k = 0 only: three floats per atom in registers, always fits
+        (fd.match_bssfp, lambda p: True, fd.run_bssfp_kernel, "bSSFP",
+         "bssfp"),
+        (fd.match_dess, lambda p: fd.kernel_fits(ncap), fd.run_dess_kernel,
+         "DESS", "dess"),
     ]
     for matcher, fits, runner, family, tag in families:
         params = matcher(sequence)
@@ -218,9 +226,10 @@ def _diff_dispatch(sequence, probes, ncap, fisp_kernel, kvalue, disp):
 
 
 def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
-    """Jacobian probes on a FISP or CPMG train (engine.py:1042-1136 of the
-    JAX package): the fused primal+tangent kernel's outputs, a tuple over
-    probes, or None (logged) for the general path."""
+    """Jacobian probes on a FISP, CPMG, bSSFP or DESS train (engine.py:
+    1042-1136 of the JAX package): the fused primal+tangent kernel's
+    outputs, a tuple over probes, or None (logged) for the general
+    path."""
     from . import fisp_dispatch
 
     # cheap probe-shape pre-check against the maximal variable set before
@@ -240,6 +249,12 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
          lambda p: fisp_dispatch.mse_jac_kernel_fits(
              ncap, p["diffusion"] is not None),
          fisp_dispatch.run_mse_jacobian, "CPMG", "jac:mse"),
+        # k = 0 only, always fits (engine.py:1081-1082)
+        (fisp_dispatch.match_bssfp, lambda p: True,
+         fisp_dispatch.run_bssfp_jacobian, "bSSFP", "jac:bssfp"),
+        (fisp_dispatch.match_dess,
+         lambda p: fisp_dispatch.jac_kernel_fits(ncap),
+         fisp_dispatch.run_dess_jacobian, "DESS", "jac:dess"),
     ]
     for matcher, fits, runner, family, tag in families:
         params = matcher(sequence)
@@ -264,10 +279,11 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
                         len(params["FA"]), ncap)
         fisp_dispatch.count_dispatch(tag)
         return runner(params, ncap, specs)
-    # the bSSFP, DESS, ME-GRE, DW-FISP and composite Jacobian families of
-    # the JAX dispatcher are not ported yet (ROADMAP)
-    LOGGER.info("simulate: Jacobian kernels not used: not a FISP or CPMG "
-                "train (other Jacobian families are not ported)")
+    # the ME-GRE, DW-FISP and composite Jacobian families of the JAX
+    # dispatcher are not ported yet (ROADMAP)
+    LOGGER.info("simulate: Jacobian kernels not used: not a FISP, CPMG, "
+                "bSSFP or DESS train (other Jacobian families are not "
+                "ported)")
     return None
 
 

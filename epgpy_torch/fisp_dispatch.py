@@ -41,9 +41,15 @@ The CPMG family (``:1349-1650``): :func:`match_mse` recognizes the
 multi-spin-echo train ``[T(exc)] + [E, S(1), D?, T(ref_i), E, S(1), D?,
 ADC] * E`` (E and S in either order within a half, D only after the
 half's S: the DW-TSE form), and :func:`run_mse_kernel` /
-:func:`run_mse_jacobian` run the CPMG kernels (models/cuda_mse.py).  The
-DW-FISP, bSSFP, DESS, ME-GRE, EPG-X and composite families of the JAX
-dispatcher are not ported yet (ROADMAP).
+:func:`run_mse_jacobian` run the CPMG kernels (models/cuda_mse.py).
+
+The balanced-SSFP and DESS families (``:793-1110``): :func:`match_bssfp`
+recognizes the spoiler-free ``[T, E, ADC, E] * N`` train (the FISP
+matcher with ``spoiled=False``: no S op, and the E ops may track ``g``),
+:func:`match_dess` the double-echo ``[T, E, ADC, E, S(1), E, ADC] * N``
+train; their runners drive models/cuda_bssfp.py and models/cuda_dess.py.
+The DW-FISP, ME-GRE, EPG-X and composite families of the JAX dispatcher
+are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -54,7 +60,8 @@ import numpy as np
 import torch
 
 from . import common, config
-from .models import cuda_fisp, cuda_hessian, cuda_mse
+from .models import (cuda_bssfp, cuda_dess, cuda_fisp, cuda_hessian,
+                     cuda_mse)
 
 LOGGER = logging.getLogger(__name__)
 
@@ -63,7 +70,9 @@ __all__ = ["match_fisp", "run_fisp_kernel", "device_params", "kernel_fits",
            "match_fisp_hessian", "match_hessian_probes", "run_fisp_hessian",
            "hess_kernel_fits", "hess_device_params", "match_mse",
            "run_mse_kernel", "run_mse_jacobian", "mse_kernel_fits",
-           "mse_jac_kernel_fits", "count_dispatch", "DISPATCH_COUNTS",
+           "mse_jac_kernel_fits", "match_bssfp", "run_bssfp_kernel",
+           "run_bssfp_jacobian", "match_dess", "run_dess_kernel",
+           "run_dess_jacobian", "count_dispatch", "DISPATCH_COUNTS",
            "clear_cache"]
 
 #: per-sequence match memo keyed on operator identities; entries pin the
@@ -294,19 +303,26 @@ def match_fisp(sequence):
     return params
 
 
-def _match_fisp_impl(sequence):
-    """(params, None) for a FISP train, else (None, reason)."""
+def _match_fisp_impl(sequence, spoiled=True):
+    """(params, None) for a FISP train -- with ``spoiled=False`` a balanced
+    ``[T, E, ADC, E] * N`` train (``match_bssfp``) -- else (None, reason)."""
     from .ops.evolution import E
     from .ops.probe import Adc
     from .ops.shift import S
     from .ops.transition import T
 
+    group = 5 if spoiled else 4
+    # balanced trains admit off-resonance tracking (bSSFP resolves df, so
+    # dS/dg is a fitted column in MRF-bSSFP and the kernel carries a ddf
+    # tangent group); the FISP kernels have no df tangent group
+    allowed = ("T1", "T2") if spoiled else ("T1", "T2", "g")
     prep, off = None, 0
-    if len(sequence) % 5 == 2:
+    if len(sequence) % group == 2:
         t0, e0 = sequence[0], sequence[1]
         if type(t0) is not T or type(e0) is not E:
             return None, "ops 0-1 are not a [T, E] inversion prep"
-        if _t_b1_order1(t0) is None or _canonical_order1(e0) is None:
+        if _t_b1_order1(t0) is None \
+                or _canonical_order1(e0, allowed) is None:
             return None, "ops 0-1: derivative spec the kernel does not take"
         TI = _scalar(e0.tau)
         if TI is None:
@@ -317,26 +333,29 @@ def _match_fisp_impl(sequence):
     alphas, phis, te_taus, tr_taus, adc_phases = [], [], [], [], []
     b1_coeffs = []
     T1 = T2 = DF = tracked = None
-    for i in range(len(sequence) // 5):
-        group = sequence[5 * i:5 * i + 5]
-        for j, (op, typ) in enumerate(zip(group, (T, E, Adc, E, S))):
+    types = (T, E, Adc, E, S)[:group]
+    for i in range(len(sequence) // group):
+        ops = sequence[group * i:group * i + group]
+        for j, (op, typ) in enumerate(zip(ops, types)):
             if type(op) is not typ:
-                return None, (f"op {off + 5 * i + j} ({op.name}) is not "
+                return None, (f"op {off + group * i + j} ({op.name}) is not "
                               f"{typ.__name__}")
-        t_op, e1, adc, e2, s = group
-        at = off + 5 * i
-        # T may track B1 (chain-rule spec), E may track T1/T2 -- the same
-        # spec on every E; the readout and the shift track nothing
+        t_op, e1, adc, e2 = ops[:4]
+        s = ops[4] if spoiled else None
+        at = off + group * i
+        # T may track B1 (chain-rule spec), E may track T1/T2 (and g on a
+        # balanced train) -- the same spec on every E; the readout and the
+        # shift track nothing
         b1c = _t_b1_order1(t_op)
-        if b1c is None or not _no_diff(adc) or not _no_diff(s):
-            return None, (f"ops {at}-{at + 4}: derivative spec the kernel "
-                          f"does not take")
+        if b1c is None or not _no_diff(adc) or (spoiled and not _no_diff(s)):
+            return None, (f"ops {at}-{at + group - 1}: derivative spec the "
+                          f"kernel does not take")
         b1_coeffs.append(b1c)
-        c1, c2 = _canonical_order1(e1), _canonical_order1(e2)
+        c1, c2 = _canonical_order1(e1, allowed), _canonical_order1(e2, allowed)
         if c1 is None or c1 != c2 or (tracked is not None
                                       and tracked != c1):
             return None, (f"ops {at + 1},{at + 3}: E derivative specs are "
-                          f"not one canonical T1/T2 tracking")
+                          f"not one canonical {'/'.join(allowed)} tracking")
         tracked = c1
         # ADC: F0; phase absent or a host scalar (checked against -phi
         # below: receiver demodulation)
@@ -344,7 +363,7 @@ def _match_fisp_impl(sequence):
         if adc.attr != "F0" or (adc.phase is not None and ph_adc is None):
             return None, f"op {at + 2}: not a plain F0 readout"
         adc_phases.append(ph_adc)
-        if s.k != 1:
+        if spoiled and s.k != 1:
             return None, f"op {at + 4}: shift is not S(1)"
         ph, tte, ttr = _scalar(t_op.phi), _scalar(e1.tau), _scalar(e2.tau)
         if ph is None or tte is None or ttr is None:
@@ -408,12 +427,17 @@ def _match_fisp_impl(sequence):
         g0 = _host_nd(e0.g)
         if g0 is None:
             return None, "op 1: prep off-resonance not a host value"
-        if np.any(g0 != 0.0):
+        if not spoiled:
+            # a balanced prep always precesses with the train's df (the
+            # bSSFP kernel applies the TI phase whenever df is given)
+            if not np.array_equal(g0, DF):
+                return None, "op 1: prep off-resonance differs from train's"
+        elif np.any(g0 != 0.0):
             # a precessing prep must carry the train's off-resonance
             if not np.array_equal(g0, DF):
                 return None, "op 1: prep off-resonance differs from train's"
             inv_df = True
-        if _canonical_order1(e0) != tracked:
+        if _canonical_order1(e0, allowed) != tracked:
             # the kernel seeds prep tangents in closed form: the prep
             # relaxation is differentiated, so tracking must agree
             return None, "op 1: prep tracking differs from the train's"
@@ -487,14 +511,15 @@ def _cached_device(params, device, build, dtype=None):
     return dev
 
 
-def device_params(params, device=None):
-    """The FISP kernels' float32 tensors for a match dict (cached on it).
-    TE stays a python float when constant (the kernel hoists its decay
-    factors)."""
-    def build(device):
+def device_params(params, device=None, dtype=torch.float32):
+    """The kernels' tensors for a FISP, bSSFP or DESS match dict (cached
+    on it), float32 unless `dtype` says otherwise (the plain twins take
+    float64 too).  TE stays a python float when constant (the kernels
+    hoist its decay factors)."""
+    def build(device, dtype):
         def vec(k):
-            return torch.as_tensor(np.asarray(params[k], np.float32),
-                                   device=device)
+            return torch.as_tensor(np.array(params[k], np.float64),
+                                   dtype=dtype, device=device)
 
         TE = params["TE"]
         dev = {k: vec(k) for k in ("FA", "phi", "TR", "T1", "T2", "B1")}
@@ -502,7 +527,7 @@ def device_params(params, device=None):
         dev["df"] = None if params.get("df") is None else vec("df")
         return dev
 
-    return _cached_device(params, device, build)
+    return _cached_device(params, device, build, dtype)
 
 
 def run_fisp_kernel(params, nstate):
@@ -923,12 +948,8 @@ def run_fisp_jacobian(params, nstate, specs):
         d["df"], nstate=max(int(nstate), 1),
         demodulate=bool(params.get("demod")), inversion=params.get("TI"),
         inversion_df=bool(params.get("inv_df")))
-    b1s, inv = params.get("b1_scale"), None
-    if b1s is not None:
-        # 1/s in the kernel's precision, as the JAX runner scales
-        inv = (float(np.float32(1.0) / np.float32(b1s))
-               if re.dtype == torch.float32 else 1.0 / float(b1s))
-    cols = {"T1": (0, None), "T2": (1, None), "B1": (2, inv)}
+    cols = {"T1": (0, None), "T2": (1, None),
+            "B1": (2, _b1_inv(params, re.dtype))}
     return _assemble_jac_outputs(re, im, dre, dim, specs,
                                  tuple(params["shape"]), cols)
 
@@ -1216,11 +1237,253 @@ def run_mse_jacobian(params, nstate, specs):
     (re, im), (dre, dim) = cuda_mse.cpmg_jacobian_echoes(
         *_mse_args(params), nstate=max(int(nstate), 1), diffusion=diff,
         diff_ramp=ramps)
-    b1s, inv = params.get("b1_scale"), None
-    if b1s is not None:
-        # 1/s in the kernel's precision, as the JAX runner scales
-        inv = (float(np.float32(1.0) / np.float32(b1s))
-               if re.dtype == torch.float32 else 1.0 / float(b1s))
-    cols = {"T1": (0, None), "T2": (1, None), "B1": (2, inv)}
+    cols = {"T1": (0, None), "T2": (1, None),
+            "B1": (2, _b1_inv(params, re.dtype))}
+    return _assemble_jac_outputs(re, im, dre, dim, specs,
+                                 tuple(params["shape"]), cols)
+
+
+# -- the balanced-SSFP and DESS families (epgpy_tpu/fisp_dispatch.py:
+# 793-1110) --
+
+
+def match_bssfp(sequence):
+    """Match balanced SSFP (TrueFISP) trains ``[T, E, ADC, E] * N``
+    (``epgpy_tpu/fisp_dispatch.py:793``).
+
+    The spoiler-free sibling of :func:`match_fisp` (the same checks minus
+    the S op; the EPG ladder never leaves k = 0): per-pulse flip, phase,
+    TR and TE, rank-1 ``outer(FA, B1)`` flip batches, per-atom
+    off-resonance (``E.g``, a mapped parameter in bSSFP MRF, Ma 2013),
+    receiver demodulation ``Adc(phase=-phi_i)`` and an optional
+    ``[T(180-family), E(TI)]`` inversion prep, whose E carries the train's
+    off-resonance.  E ops may track ``order1=["T1", "T2"]`` and ``"g"``.
+    Returns the :func:`match_fisp` dict or None, logging the reason at
+    INFO; memoized on operator identities.
+    """
+    n = len(sequence)
+    if n < 8 or n % 4 not in (0, 2):
+        params, reason = None, (
+            f"{n} ops is not [T, E, ADC, E] x N (N >= 2), optionally after "
+            f"a [T, E] inversion prep")
+    else:
+        key = ("bssfp",) + tuple(id(op) for op in sequence)
+        params, reason = _memoized(
+            key, sequence, lambda: _match_fisp_impl(sequence, spoiled=False))
+    if params is None:
+        LOGGER.info("match_bssfp: not a bSSFP train: %s", reason)
+    return params
+
+
+def _ssfp_args(params):
+    """The bSSFP and DESS kernels' positional tensors of a match dict, in
+    the working precision (float32 for the kernels)."""
+    d = device_params(params, dtype=config.real_dtype())
+    return (d["FA"], d["phi"], d["TR"], d["TE"], d["T1"], d["T2"], d["B1"],
+            d["df"])
+
+
+def _b1_inv(params, dtype):
+    """1/b1_scale in the kernel's precision (as the JAX runners scale), or
+    None for a train without B1 tracking."""
+    b1s = params.get("b1_scale")
+    if b1s is None:
+        return None
+    if dtype == torch.float32:
+        return float(np.float32(1.0) / np.float32(b1s))
+    return 1.0 / float(b1s)
+
+
+def run_bssfp_kernel(params, nstate=None):
+    """Run the bSSFP kernel on a match dict; returns the echo train as a
+    complex tensor in the engine's layout, (N, *batch).  `nstate` is taken
+    for the engine's uniform call and ignored: there is no ladder."""
+    re, im = cuda_bssfp.bssfp_echoes(
+        *_ssfp_args(params), demodulate=bool(params.get("demod")),
+        inversion=params.get("TI"))
+    return torch.complex(re, im).reshape((re.shape[0],)
+                                         + tuple(params["shape"]))
+
+
+def run_bssfp_jacobian(params, nstate, specs):
+    """Run the bSSFP Jacobian kernel for matched diff probes
+    (``epgpy_tpu/fisp_dispatch.py:843-887``; `nstate` ignored).
+
+    A tracked ``g`` turns on the kernel's ddf tangent group (column 3);
+    B1-tracked trains get the kernel's dB1 column (2) divided by the
+    matcher's ``b1_scale``.  Returns a tuple over probes: signal
+    (N, *batch), Jacobian (N, *batch, k) with columns in probe-variable
+    order."""
+    track_df = "g" in (params.get("vars") or ())
+    (re, im), (dre, dim) = cuda_bssfp.bssfp_jacobian_echoes(
+        *_ssfp_args(params), demodulate=bool(params.get("demod")),
+        inversion=params.get("TI"), track_df=track_df)
+    cols = {"T1": (0, None), "T2": (1, None)}
+    if track_df:
+        cols["g"] = (3, None)
+    inv = _b1_inv(params, re.dtype)
+    if inv is not None:
+        cols["B1"] = (2, inv)
+    return _assemble_jac_outputs(re, im, dre, dim, specs,
+                                 tuple(params["shape"]), cols)
+
+
+def match_dess(sequence):
+    """Match DESS trains ``[T, E, ADC, E, S(1), E, ADC] * N``
+    (``epgpy_tpu/fisp_dispatch.py:890``).
+
+    The double-echo steady-state family (reference examples/basics/
+    dess.py): one FISP echo at TE after each pulse and one PSIF echo
+    after the gradient.  Per-TR flip, phase and timing, rank-1
+    ``outer(FA, B1)`` flips, per-atom off-resonance and ``Adc(phase=
+    -phi)`` demodulation (on both echoes) are accepted; E ops may track
+    ``order1=["T1", "T2"]`` and T ops B1.  The PSIF echo depends only on
+    the full TR = tau1 + tau2 + tau3.  Returns the JAX matcher's dict
+    ``(FA, phi, TR, TE, T1, T2, B1, TI, vars, b1_scale, demod, shape,
+    df)`` or None, logging the reason at INFO; memoized on operator
+    identities.
+    """
+    n = len(sequence)
+    if n < 14 or n % 7 != 0:
+        params, reason = None, (f"{n} ops is not [T, E, ADC, E, S(1), E, "
+                                f"ADC] x N (N >= 2)")
+    else:
+        key = ("dess",) + tuple(id(op) for op in sequence)
+        params, reason = _memoized(key, sequence,
+                                   lambda: _match_dess_impl(sequence))
+    if params is None:
+        LOGGER.info("match_dess: not a DESS train: %s", reason)
+    return params
+
+
+def _match_dess_impl(sequence):
+    """(params, None) for a DESS train, else (None, reason)."""
+    from .ops.evolution import E
+    from .ops.probe import Adc
+    from .ops.shift import S
+    from .ops.transition import T
+
+    types = (T, E, Adc, E, S, E, Adc)
+    alphas, phis, te_taus, tr_taus, adc_phases = [], [], [], [], []
+    b1_coeffs = []
+    T1 = T2 = DF = tracked = None
+    for i in range(len(sequence) // 7):
+        ops = sequence[7 * i:7 * i + 7]
+        for j, (op, typ) in enumerate(zip(ops, types)):
+            if type(op) is not typ:
+                return None, (f"op {7 * i + j} ({op.name}) is not "
+                              f"{typ.__name__}")
+        t_op, e1, a1, e2, s, e3, a2 = ops
+        at = 7 * i
+        b1c = _t_b1_order1(t_op)
+        if b1c is None or not all(map(_no_diff, (a1, a2, s))):
+            return None, (f"ops {at}-{at + 6}: derivative spec the kernel "
+                          f"does not take")
+        b1_coeffs.append(b1c)
+        if s.k != 1:
+            return None, f"op {at + 4}: shift is not S(1)"
+        cs = [_canonical_order1(e) for e in (e1, e2, e3)]
+        if cs[0] is None or cs[0] != cs[1] or cs[0] != cs[2] \
+                or (tracked is not None and tracked != cs[0]):
+            return None, (f"ops {at + 1},{at + 3},{at + 5}: E derivative "
+                          f"specs are not one canonical T1/T2 tracking")
+        tracked = cs[0]
+        ph = _scalar(t_op.phi)
+        taus = [_scalar(e.tau) for e in (e1, e2, e3)]
+        if ph is None or any(t is None for t in taus):
+            return None, f"ops {at}-{at + 5}: phase or delay not a host scalar"
+        # both ADCs: F0, phase absent or a host scalar
+        for k, adc in ((at + 2, a1), (at + 6, a2)):
+            ph_adc = None if adc.phase is None else _scalar(adc.phase)
+            if adc.attr != "F0" or (adc.phase is not None
+                                    and ph_adc is None):
+                return None, f"op {k}: not a plain F0 readout"
+            adc_phases.append(ph_adc)
+        g1, g2, g3 = (_host_nd(e.g) for e in (e1, e2, e3))
+        if (g1 is None or g2 is None or g3 is None
+                or not np.array_equal(g1, g2)
+                or not np.array_equal(g1, g3)):
+            return None, (f"ops {at + 1},{at + 3},{at + 5}: off-resonance "
+                          f"differs")
+        if DF is None:
+            DF = g1
+        elif not np.array_equal(DF, g1):
+            return None, f"op {at + 1}: off-resonance differs from TR 0"
+        for e in (e1, e2, e3):
+            t1v, t2v = _host_nd(e.T1), _host_nd(e.T2)
+            if t1v is None or t2v is None:
+                return None, f"{e.name}: T1/T2 not host values"
+            if T1 is None:
+                T1, T2 = t1v, t2v
+            elif not (np.array_equal(T1, t1v) and np.array_equal(T2, t2v)):
+                return None, f"{e.name}: T1/T2 differ from TR 0's"
+        a = _host_nd(t_op.alpha)
+        if a is None:
+            return None, f"op {at}: flip angle not a host value"
+        alphas.append(a)
+        phis.append(ph)
+        te_taus.append(taus[0])
+        tr_taus.append(taus[0] + taus[1] + taus[2])
+
+    te_arr = np.asarray(te_taus)
+    TE = float(te_arr[0]) if (te_arr == te_arr[0]).all() else te_arr
+    # ADC phases: all absent -> plain; all equal to -phi_i -> receiver
+    # demodulation on both echoes
+    if all(p is None for p in adc_phases):
+        demod = False
+    elif any(p is None for p in adc_phases):
+        return None, "some readouts are demodulated, some not"
+    else:
+        d = (np.asarray(adc_phases) + np.repeat(np.asarray(phis), 2)) % 360.0
+        if (np.minimum(d, 360.0 - d) > 1e-6).any():
+            return None, "readout phases are not -phi_i"
+        demod = True
+    fab = _rank1_factor(alphas)
+    if fab is None:
+        return None, "flip angles are not rank-1 outer(FA, B1)"
+    FA, B1 = fab
+    b1_scale = None
+    if any(c != () for c in b1_coeffs):
+        b1_scale = _b1_scale_from_coeffs(FA, b1_coeffs)
+        if b1_scale is None:
+            return None, "B1 chain-rule coefficients are not one ratio of FA"
+    if not common.broadcastable(T1.shape, T2.shape, B1.shape, DF.shape):
+        return None, "T1, T2, B1 and df batch shapes do not broadcast"
+    bshape = common.broadcast_shapes(T1.shape, T2.shape, B1.shape, DF.shape)
+    T1f, T2f, B1f, DFf = _append_rows((T1, T2, B1, DF), bshape)
+    return {
+        "FA": FA, "phi": np.asarray(phis), "TR": np.asarray(tr_taus),
+        "TE": TE, "T1": T1f, "T2": T2f, "B1": B1f, "TI": None,
+        "vars": tracked if b1_scale is None
+        else tuple(sorted(tracked + ("B1",))),
+        "b1_scale": b1_scale, "demod": demod, "shape": bshape,
+        "df": DFf if DFf.any() else None,
+    }, None
+
+
+def run_dess_kernel(params, nstate):
+    """Run the DESS kernel on a match dict; returns both echo trains as
+    one complex tensor in the engine's layout, (2N, *batch) with rows
+    FISP_0, PSIF_0, FISP_1, ... (the kernel writes that order)."""
+    re, im = cuda_dess.dess_echoes(
+        *_ssfp_args(params), nstate=max(int(nstate), 1),
+        demodulate=bool(params.get("demod")))
+    return torch.complex(re, im).reshape((re.shape[0],)
+                                         + tuple(params["shape"]))
+
+
+def run_dess_jacobian(params, nstate, specs):
+    """Run the DESS Jacobian kernel for matched diff probes
+    (``epgpy_tpu/fisp_dispatch.py:1051-1110``): both echoes' signal and
+    Jacobian rows in ADC order (FISP_0, PSIF_0, ...), the dB1 columns of
+    B1-tracked trains divided by the matcher's ``b1_scale``.  Returns a
+    tuple over probes: signal (2N, *batch), Jacobian (2N, *batch, k)."""
+    (re, im), (dre, dim) = cuda_dess.dess_jacobian_echoes(
+        *_ssfp_args(params), nstate=max(int(nstate), 1),
+        demodulate=bool(params.get("demod")))
+    cols = {"T1": (0, None), "T2": (1, None)}
+    inv = _b1_inv(params, re.dtype)
+    if inv is not None:
+        cols["B1"] = (2, inv)
     return _assemble_jac_outputs(re, im, dre, dim, specs,
                                  tuple(params["shape"]), cols)

@@ -122,6 +122,17 @@ def _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
     return x
 
 
+def _takes_twin(T1s, what):
+    """Whether a wrapper runs the plain twin (CPU tensors) rather than the
+    CUDA kernel (CUDA tensors); raises for anything else."""
+    if not isinstance(T1s, torch.Tensor):
+        raise TypeError("T1s must be a tensor: its device selects the "
+                        "kernel (CUDA) or the plain twin (CPU)")
+    if T1s.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for device {T1s.device}")
+    return T1s.device.type == "cpu"
+
+
 def fisp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
                       nstate=10, demodulate=False, inversion=None,
                       inversion_df=True, diffusion=None, diff_ramp=True):
@@ -214,12 +225,8 @@ def fisp_echoes(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *, nstate=10,
     kw = dict(nstate=nstate, demodulate=demodulate, inversion=inversion,
               inversion_df=inversion_df, diffusion=diffusion,
               diff_ramp=diff_ramp)
-    if not isinstance(T1s, torch.Tensor):
-        raise TypeError("T1s must be a tensor")
-    if T1s.device.type == "cpu":
+    if _takes_twin(T1s, "FISP"):
         return fisp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs, **kw)
-    if T1s.device.type != "cuda":
-        raise ValueError(f"no FISP kernel for device {T1s.device}")
     return _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, **kw)
 
 
@@ -507,13 +514,9 @@ def fisp_jacobian_echoes(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
     kw = dict(nstate=nstate, demodulate=demodulate, inversion=inversion,
               inversion_df=inversion_df, diffusion=diffusion,
               diff_ramp=diff_ramp, track_diffusivity=track_diffusivity)
-    if not isinstance(T1s, torch.Tensor):
-        raise TypeError("T1s must be a tensor")
-    if T1s.device.type == "cpu":
+    if _takes_twin(T1s, "FISP Jacobian"):
         return fisp_jacobian_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s,
                                           dfs, **kw)
-    if T1s.device.type != "cuda":
-        raise ValueError(f"no FISP Jacobian kernel for device {T1s.device}")
     return _launch_jac(FA, phi, TR, TE, T1s, T2s, B1s, dfs, **kw)
 
 

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from . import planes
-from .cuda_fisp import SMEM_PER_BLOCK
+from .cuda_fisp import SMEM_PER_BLOCK, _takes_twin
 
 __all__ = ["fisp_hessian_cuda", "fisp_hessian_plain", "hess_kernel_fits",
            "hess_block_size", "HESS_LAUNCHES"]
@@ -297,14 +297,10 @@ def fisp_hessian_cuda(FA, phi, TAU, T1s, T2s, *, te=None, inversion=None,
     ``dT2dalpha``, ``dT1dtau``, ``dT2dtau`` (B, N_echo, N_pulse), entries
     with pulse > echo exactly zero.
     """
-    if not isinstance(T1s, torch.Tensor):
-        raise TypeError("T1s must be a tensor")
     kw = dict(te=te, inversion=inversion, nstate=nstate,
               second_order=second_order)
-    if T1s.device.type == "cpu":
+    if _takes_twin(T1s, "FISP Hessian"):
         return fisp_hessian_plain(FA, phi, TAU, T1s, T2s, **kw)
-    if T1s.device.type != "cuda":
-        raise ValueError(f"no FISP Hessian kernel for device {T1s.device}")
     return _launch(FA, phi, TAU, T1s, T2s, **kw)
 
 

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from . import planes
-from .cuda_fisp import SMEM_PER_BLOCK
+from .cuda_fisp import SMEM_PER_BLOCK, _jac_finish, _takes_twin
 
 __all__ = ["cpmg_dictionary_cuda", "cpmg_dictionary_plain", "cpmg_echoes",
            "cpmg_echoes_plain", "cpmg_jacobian_cuda", "cpmg_jacobian_plain",
@@ -200,13 +200,9 @@ def cpmg_echoes(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, *, nstate,
     """Echo train (re, im), each (E, B) float32: the CUDA kernel for CUDA
     tensors, the plain twin for CPU tensors."""
     kw = dict(nstate=nstate, diffusion=diffusion, diff_ramp=diff_ramp)
-    if not isinstance(T1s, torch.Tensor):
-        raise TypeError("T1s must be a tensor")
-    if T1s.device.type == "cpu":
+    if _takes_twin(T1s, "CPMG"):
         return cpmg_echoes_plain(exc, FA, phi, tau1, tau2, T1s, T2s, B1s,
                                  **kw)
-    if T1s.device.type != "cuda":
-        raise ValueError(f"no CPMG kernel for device {T1s.device}")
     return _launch(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, jac=False, **kw)
 
 
@@ -365,20 +361,10 @@ def cpmg_jacobian_echoes(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, *, nstate,
     """Echoes (E, B) and tangents (E, B, 3) in float32: the CUDA Jacobian
     kernel for CUDA tensors, the plain twin for CPU tensors."""
     kw = dict(nstate=nstate, diffusion=diffusion, diff_ramp=diff_ramp)
-    if not isinstance(T1s, torch.Tensor):
-        raise TypeError("T1s must be a tensor")
-    if T1s.device.type == "cpu":
+    if _takes_twin(T1s, "CPMG Jacobian"):
         return cpmg_jacobian_echoes_plain(exc, FA, phi, tau1, tau2, T1s,
                                           T2s, B1s, **kw)
-    if T1s.device.type != "cuda":
-        raise ValueError(f"no CPMG Jacobian kernel for device {T1s.device}")
     return _launch(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, jac=True, **kw)
-
-
-def _jac_finish(echoes):
-    """(B, E) and (B, E, 3) views of echo-layout Jacobian outputs."""
-    (re, im), (dre, dim) = echoes
-    return (re.T, im.T), (dre.transpose(0, 1), dim.transpose(0, 1))
 
 
 def cpmg_jacobian_plain(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, *, nstate,

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from . import planes
-from .cuda_fisp import SMEM_PER_BLOCK
+from .cuda_fisp import SMEM_PER_BLOCK, _takes_twin
 
 __all__ = ["cpmg_design_cuda", "cpmg_design_plain", "design_kernel_fits",
            "design_tile", "DESIGN_LAUNCHES"]
@@ -286,13 +286,9 @@ def cpmg_design_cuda(exc, FA, phi, ESP, T1s, T2s, *, nstate,
     ``dT2dalpha``, ``dT1desp``, ``dT2desp`` (B, E_echo, E_variable),
     entries with variable > echo exactly zero.
     """
-    if not isinstance(T1s, torch.Tensor):
-        raise TypeError("T1s must be a tensor")
     kw = dict(nstate=nstate, second_order=second_order)
-    if T1s.device.type == "cpu":
+    if _takes_twin(T1s, "CPMG design"):
         return cpmg_design_plain(exc, FA, phi, ESP, T1s, T2s, **kw)
-    if T1s.device.type != "cuda":
-        raise ValueError(f"no CPMG design kernel for device {T1s.device}")
     return _launch(exc, FA, phi, ESP, T1s, T2s, **kw)
 
 

@@ -11,7 +11,11 @@ tangents and the DW-FISP attenuation rows with their D-derivatives.  The
 CPMG kernels (``epgpy_tpu/models/pallas_mse.py:86-111, 153-168`` and
 ``pallas_msedesign.py:142-244``) add the excitation from equilibrium, the
 half-stage relaxation ``E(tau)`` with its k = 0 recovery and its (T1, T2)
-tangents, and the post-shift attenuation of every plane of a set.
+tangents, and the post-shift attenuation of every plane of a set.  The
+balanced-SSFP kernels (``epgpy_tpu/models/pallas_bssfp.py:113-122,
+261-267``) add the rotation restricted to k = 0 (three floats per atom,
+no ladder; its B1 derivative is :func:`rot_coeffs_db1` through the same
+function).
 
 A plane set is the 6-tuple ``(AR, AI, BR, BI, ZR, ZI)`` of ``(nstate + 1,
 B)`` real tensors with A(k) = F+(k), B(k) = F+(-k) and Z(k), k = 0..N;
@@ -26,7 +30,8 @@ import math
 import torch
 
 __all__ = ["cmul", "phase_terms", "rot_coeffs", "rot_coeffs_db1", "rot_A",
-           "rot_B", "rot_Z", "apply_rot", "shift_fold", "relax_tangents",
+           "rot_B", "rot_Z", "apply_rot", "rot_k0", "shift_fold",
+           "te_terms", "relax_tangents",
            "relax_tau_terms", "inversion_prep", "diff_attenuation",
            "excitation", "excitation_terms", "half_relax",
            "half_relax_tangents", "attenuate"]
@@ -64,6 +69,18 @@ def rot_coeffs_db1(a, da, cp, sp, c2p, s2p):
     return (-0.5 * sa * da, c2p * dsin2, s2p * dsin2, sp * dsa, -cp * dsa,
             -sa * da, -0.5 * sp * dsa, -0.5 * cp * dsa,
             -0.5 * sp * dsa, 0.5 * cp * dsa)
+
+
+def te_terms(te, T2, DF):
+    """The echo's TE factors of the balanced-SSFP and DESS kernels:
+    (e^{-te/T2}, its T2 derivative, the df phasor (cos, sin) of
+    2 pi df te, or None without df)."""
+    e2te = torch.exp(-te / T2)
+    pte = None
+    if DF is not None:
+        ang = 2 * math.pi * DF * te
+        pte = (torch.cos(ang), torch.sin(ang))
+    return e2te, e2te * te / (T2 * T2), pte
 
 
 def relax_tangents(cZ, cF, TR, T1, T2):
@@ -146,6 +163,19 @@ def apply_rot(rc, s):
     br, bi = rot_B(c2, a1r, a1i, a2r, a2i, s)
     zr, zi = rot_Z(caa, b0r, b0i, b1r, b1i, s)
     return ar, ai, br, bi, zr, zi
+
+
+def rot_k0(rc, FR, FI, Z):
+    """A rotation restricted to k = 0 of a balanced (unshifted) train,
+    whose F-(0) = conj(F+(0)) and Z(0) is real
+    (``epgpy_tpu/models/pallas_bssfp.py:113-122``): nF+ = c2 F+ +
+    a1 conj(F+) + a2 Z, nZ = 2 Re(b0 F+) + caa Z, for the 10-tuple of
+    :func:`rot_coeffs` (or its B1 derivative, :func:`rot_coeffs_db1`).
+    Returns (Re nF+, Im nF+, nZ)."""
+    c2, a1r, a1i, a2r, a2i, caa, b0r, b0i = rc[:8]
+    return (c2 * FR + a1r * FR + a1i * FI + a2r * Z,
+            c2 * FI + a1i * FR - a1r * FI + a2i * Z,
+            2.0 * (b0r * FR - b0i * FI) + caa * Z)
 
 
 def shift_fold(s):

@@ -1,5 +1,6 @@
 """The CUDA kernels (FISP dictionary, Jacobian, per-pulse Hessian; CPMG
-dictionary, Jacobian, per-echo design) vs their plain twins, on the card.
+dictionary, Jacobian, per-echo design; bSSFP and DESS dictionary and
+Jacobian) vs their plain twins, on the card.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it runs on the GPU machine as it is:
@@ -10,14 +11,16 @@ JAX, so it runs on the GPU machine as it is:
 import pytest
 import torch
 
-from chip_smoke import (DESIGN_CASES, HESS_CASES, JAC_CASES, MSE_CASES,
-                        OPTION_CASES, _atom_tensors, _causal_max,
-                        hess_block_errors, hessian_sequence, make_case,
-                        make_design_case, make_hess_case, make_jac_case,
-                        make_mse_case, mse_grid, mse_sequence, _tensors)
+from chip_smoke import (BSSFP_CASES, DESIGN_CASES, DESS_CASES, HESS_CASES,
+                        JAC_CASES, MSE_CASES, OPTION_CASES, _atom_tensors,
+                        _causal_max, _pair_errors, hess_block_errors,
+                        hessian_sequence, make_bssfp_case, make_case,
+                        make_design_case, make_dess_case, make_hess_case,
+                        make_jac_case, make_mse_case, mse_grid, mse_sequence,
+                        _tensors)
 from epgpy_torch import config
-from epgpy_torch.models import (cuda_fisp, cuda_hessian, cuda_mse,
-                                cuda_msedesign)
+from epgpy_torch.models import (cuda_bssfp, cuda_dess, cuda_fisp,
+                                cuda_hessian, cuda_mse, cuda_msedesign)
 
 
 @pytest.fixture
@@ -193,3 +196,91 @@ def test_cuda_cpmg_through_simulate(card):
     for c in range(3):
         assert np.abs(jac[..., c] - rjac[..., c]).max() \
             < 1e-4 * np.abs(rjac[..., c]).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BSSFP_CASES, ids=lambda c: c["name"])
+def test_cuda_bssfp_kernels_match_plain_twins(card, case):
+    """On the card: the bSSFP kernel == its twin to 2e-6; the bSSFP
+    Jacobian kernel's echoes to 2e-6 and its (T1, T2, B1, df) columns to
+    1e-5 of the column's largest value (float32 both, same operation
+    order)."""
+    args, kw = _tensors(torch, *make_bssfp_case(case, 1000, 300), "cuda")
+    jkw = dict(demodulate=kw["demodulate"], inversion=kw["inversion"],
+               track_df=True)
+    before = (cuda_bssfp.LAUNCHES, cuda_bssfp.JAC_LAUNCHES)
+    k = cuda_bssfp.bssfp_dictionary_cuda(*args, **kw)
+    kj = cuda_bssfp.bssfp_jacobian_echoes(*args, **jkw)
+    torch.cuda.synchronize()
+    assert (cuda_bssfp.LAUNCHES, cuda_bssfp.JAC_LAUNCHES) == (before[0] + 1,
+                                                              before[1] + 1)
+    sig, _ = _pair_errors(torch, k,
+                          cuda_bssfp.bssfp_dictionary_plain(*args, **kw),
+                          False)
+    jsig, cols = _pair_errors(
+        torch, kj, cuda_bssfp.bssfp_jacobian_echoes_plain(*args, **jkw), True)
+    assert max(sig, jsig) < 2e-6 and max(cols) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DESS_CASES, ids=lambda c: c["name"])
+def test_cuda_dess_kernels_match_plain_twins(card, case):
+    """On the card: the DESS kernel's two echo trains == its twin's to
+    2e-6; the DESS Jacobian kernel's echoes to 2e-6 and both echoes'
+    (T1, T2, B1) columns to 1e-5 of the column's largest value."""
+    args, kw = _tensors(torch, *make_dess_case(case, 1000, 120), "cuda")
+    before = (cuda_dess.LAUNCHES, cuda_dess.JAC_LAUNCHES)
+    k = cuda_dess.dess_echoes(*args, **kw)
+    kj = cuda_dess.dess_jacobian_echoes(*args, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_dess.LAUNCHES, cuda_dess.JAC_LAUNCHES) == (before[0] + 1,
+                                                            before[1] + 1)
+    sig, _ = _pair_errors(torch, k, cuda_dess.dess_echoes_plain(*args, **kw),
+                          False)
+    jsig, cols = _pair_errors(
+        torch, kj, cuda_dess.dess_jacobian_echoes_plain(*args, **kw), True)
+    assert max(sig, jsig) < 2e-6 and max(cols) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_bssfp_and_dess_through_simulate(card):
+    """simulate() routes a bSSFP and a DESS train and their Jacobian probes
+    to the kernels; each equals the float64 general path."""
+    import numpy as np
+
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+
+    T1, T2 = np.array([500.0, 900.0, 1400.0]), np.array([40.0, 70.0, 110.0])
+    FA = 10 + 40 * np.abs(np.sin(np.arange(60) / 7.0))
+    trains = {
+        "bssfp": lambda o1: epg.bssfp_sequence(
+            FA, 12.0, T1=T1, T2=T2, df=np.array([0.01, -0.02, 0.03]),
+            inversion=18.0, order1=o1 or None),
+        "dess": lambda o1: sum((
+            [epg.T(float(fa), 0.0), epg.E(5.0, T1, T2, order1=o1), epg.ADC,
+             epg.E(8.0, T1, T2, order1=o1), epg.S(1),
+             epg.E(5.0, T1, T2, order1=o1), epg.ADC] for fa in FA), []),
+    }
+    names = ["magnitude", "T1", "T2"]
+    got = {}
+    before = dict(fisp_dispatch.DISPATCH_COUNTS)
+    for fam, train in trains.items():
+        got[fam] = (epg.simulate(train(False), max_nstate=8),
+                    *epg.simulate(train(["T1", "T2"]), max_nstate=8,
+                                  probe=[epg.ADC, epg.Jacobian(names)]))
+    for tag in ("bssfp", "jac:bssfp", "dess", "jac:dess"):
+        assert fisp_dispatch.DISPATCH_COUNTS.get(tag, 0) \
+            == before.get(tag, 0) + 1, tag
+    config.set_device("cpu")
+    config.set_precision("float64")
+    for fam, train in trains.items():
+        ref = epg.simulate(train(["T1", "T2"]), max_nstate=8,
+                           probe=[epg.ADC, epg.Jacobian(names)],
+                           fisp_kernel=False)
+        sig, jsig, jac = got[fam]
+        assert np.abs(sig - ref[0]).max() < 1e-6
+        assert np.abs(jsig - ref[0]).max() < 1e-6
+        for c in range(3):
+            assert np.abs(jac[..., c] - ref[1][..., c]).max() \
+                < 1e-4 * np.abs(ref[1][..., c]).max()

@@ -14,7 +14,8 @@ PUBLIC = ["config", "StateMatrix", "Operator", "EmptyOperator",
           "E", "P", "R", "S", "D", "Probe", "Adc", "ADC", "Jacobian",
           "Hessian", "PartialsPruner", "simulate",
           "simulate_simple", "modify", "flatten_sequence", "getshape",
-          "getnshift", "get_adc_times"]
+          "getnshift", "get_adc_times", "bssfp_sequence", "dess_sequence",
+          "spgr_sequence"]
 MODULES = {
     "epgpy_torch.models.cuda_fisp": ["fisp_dictionary_cuda",
                                      "fisp_dictionary_plain", "kernel_fits",
@@ -37,6 +38,21 @@ MODULES = {
                                           "cpmg_design_plain",
                                           "design_kernel_fits",
                                           "design_tile", "DESIGN_LAUNCHES"],
+    "epgpy_torch.models.cuda_bssfp": ["bssfp_dictionary_cuda",
+                                      "bssfp_dictionary_plain",
+                                      "bssfp_jacobian_cuda",
+                                      "bssfp_jacobian_plain",
+                                      "bssfp_echoes",
+                                      "bssfp_jacobian_echoes", "LAUNCHES",
+                                      "JAC_LAUNCHES"],
+    "epgpy_torch.models.cuda_dess": ["dess_dictionary_cuda",
+                                     "dess_dictionary_plain",
+                                     "dess_jacobian_cuda",
+                                     "dess_jacobian_plain", "dess_echoes",
+                                     "dess_jacobian_echoes", "LAUNCHES",
+                                     "JAC_LAUNCHES"],
+    "epgpy_torch.models.ssfp": ["spgr_sequence", "bssfp_sequence",
+                                "dess_sequence"],
     "epgpy_torch.models.mse": ["cpmg_sequence", "mse_signal"],
     "epgpy_torch.ops.diffusion": ["D", "compute_bmatrix",
                                   "diffusion_operator"],
@@ -45,7 +61,7 @@ MODULES = {
                                "load_dictionary"],
     "epgpy_torch.models.planes": ["cmul", "rot_coeffs", "rot_coeffs_db1",
                                   "rot_A", "rot_B", "rot_Z", "apply_rot",
-                                  "shift_fold", "relax_tangents",
+                                  "rot_k0", "shift_fold", "relax_tangents",
                                   "relax_tau_terms", "inversion_prep",
                                   "diff_attenuation"],
     "epgpy_torch.fisp_dispatch": ["match_fisp", "run_fisp_kernel",
@@ -57,7 +73,10 @@ MODULES = {
                                   "run_fisp_hessian", "hess_kernel_fits",
                                   "match_mse", "run_mse_kernel",
                                   "run_mse_jacobian", "mse_kernel_fits",
-                                  "mse_jac_kernel_fits"],
+                                  "mse_jac_kernel_fits", "match_bssfp",
+                                  "run_bssfp_kernel", "run_bssfp_jacobian",
+                                  "match_dess", "run_dess_kernel",
+                                  "run_dess_jacobian"],
     "epgpy_torch.diff": ["Jacobian", "Hessian", "parse_order1",
                          "parse_order2", "simulate_diff", "substitute"],
     "epgpy_torch.parallel": ["dictionary_match", "compress_dictionary",
@@ -125,6 +144,20 @@ SAME_ARGS = {
         "epgpy_tpu.models.pallas_mse:cpmg_jacobian_pallas",
     "epgpy_torch.models.cuda_msedesign:cpmg_design_cuda":
         "epgpy_tpu.models.pallas_msedesign:cpmg_design_pallas",
+    "epgpy_torch.models.cuda_bssfp:bssfp_dictionary_cuda":
+        "epgpy_tpu.models.pallas_bssfp:bssfp_dictionary_pallas",
+    "epgpy_torch.models.cuda_bssfp:bssfp_jacobian_cuda":
+        "epgpy_tpu.models.pallas_bssfp:bssfp_jacobian_pallas",
+    "epgpy_torch.models.cuda_dess:dess_dictionary_cuda":
+        "epgpy_tpu.models.pallas_dess:dess_dictionary_pallas",
+    "epgpy_torch.models.cuda_dess:dess_jacobian_cuda":
+        "epgpy_tpu.models.pallas_dess:dess_jacobian_pallas",
+    "epgpy_torch.models.ssfp:spgr_sequence":
+        "epgpy_tpu.models.ssfp:spgr_sequence",
+    "epgpy_torch.models.ssfp:bssfp_sequence":
+        "epgpy_tpu.models.ssfp:bssfp_sequence",
+    "epgpy_torch.models.ssfp:dess_sequence":
+        "epgpy_tpu.models.ssfp:dess_sequence",
 }
 #: TPU-only knobs the port does not take
 TPU_ONLY = {"interpret", "btile", "pchunk"}
