@@ -74,6 +74,28 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    iterations of ``tse_design_slsqp`` (one design kernel launch per
    evaluation) under the SAR and flip-step constraints; the designed train
    must keep both and beat the constant train at the same SAR;
+3g-3h. the bSSFP and DESS kernels against their twins over every option;
+4g-4i. the bSSFP dictionary (163,840 x 500, golden, drift) and its (T1, T2,
+   g) Jacobian, DESS (golden, 262,144-voxel mapping train, Jacobian)
+   through ``simulate()``; 5f-5g. bSSFP MRF serving and DESS T1/T2 mapping;
+3i. the ME-GRE kernels (primal and (T1, T2, B1, df) Jacobian) against their
+   twins over every option (m = 2 and 3, df, demodulation, a per-pulse
+   echo-time matrix, a B1 batch, the df group at dfs=None);
+3j. the full-ladder FISP kernel against its twin at nstate 0, 10 and 150,
+   against the folded kernel, and fisp_dictionary_cuda's nstate-0 route;
+4j. the bench's ME-GRE train (200 TRs x 3 echoes) over 262,144 atoms
+   through ``simulate()``, 8 atoms against the float64 general path, the
+   golden megre.npz train on the card;
+4k. its (T2, g)-tracked Jacobian through ``simulate()``;
+5h. T2/B0 mapping (examples/megre_t2_b0_mapping.py) of 262,144 voxels:
+   the two-echo phase start and 8 Gauss-Newton iterations on the ME-GRE
+   Jacobian kernel, held to the example's two RMSE asserts;
+4l. the full-ladder kernel on the FISP headline train: the nstate-0
+   dictionary against its twin on the same tensors, and the nstate-10
+   parity oracle of phase 4's dictionary;
+4m. DW-FISP: the FISP headline train with one D after each S(1) through
+   ``simulate(kvalue=...)`` and its (T1, T2, Dcoef) Jacobian, against the
+   kernels' twins on the same tensors and the float64 general paths;
 6. numbers for every kernel at its main-path shape: kernel and twin times,
    launches on the main paths, and the bound (the twin's operations,
    counted by ``count_ops`` -- for the CPMG family over only the ladder
@@ -83,7 +105,8 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    calls, the assembly's device share (``torch.profiler``), the design and
    serving splits.
 
-The second-to-last lines are the card's name and power limit and a JSON
+Each phase prints its wall time (``[time]``).  The second-to-last lines
+are the card's name and power limit and a JSON
 object of per-kernel results; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -187,6 +210,32 @@ MRFB_BOUNDS = [(150.0, 2500.0), (15.0, 250.0), (-0.06, 0.06)]
 #: scale, ladder depth, voxels (four 256^2 slices), iterations, noise, seed
 DESS_NTR, DESS_TR, DESS_TE, DESS_FA, DESS_NSTATE = 48, 18.0, 5.0, 30.0, 8
 DESS_NVOX, DESS_ITERS, DESS_NOISE, DESS_SEED = 4 * 256 * 256, 10, 0.0015, 4
+#: multi-echo GRE (bench.py:1162-1198): TRs, cumulative echo times, the
+#: tail delay (TR 16 ms), ladder depth, its draw seed; four 256^2 slices
+#: of atoms instead of the bench's 8,192
+MEGRE_N, MEGRE_TES, MEGRE_TAIL, MEGRE_NSTATE, MEGRE_SEED = (
+    200, (3.0, 7.0, 11.0), 5.0, 8, 12)
+MEGRE_ATOMS = 4 * 256 * 256
+#: TRs of the ME-GRE Jacobian's float64 oracle (a prefix of the train)
+MEGRE_JAC_N = 50
+#: float32 ME-GRE path vs tests/golden/megre.npz (the JAX test's own limit,
+#: tests/test_megre_dispatch.py:235)
+TOL_MEGRE_GOLDEN = 1e-6
+#: T2/B0 mapping (examples/megre_t2_b0_mapping.py): TRs, the two echo
+#: times, TR, T1, ladder depth, voxels (four 256^2 slices instead of its
+#: 64), Gauss-Newton iterations, noise, seed and its two asserts (T2 RMSE
+#: in ms, B0 RMSE in kHz)
+B0_NTR, B0_TES, B0_TR, B0_T1, B0_NSTATE = 24, (4.0, 12.0), 22.0, 1200.0, 8
+B0_NVOX, B0_ITERS, B0_NOISE, B0_SEED = 4 * 256 * 256, 8, 0.002, 9
+B0_LIMITS = (2.0, 2e-4)
+#: DW-FISP: the FISP headline train with one D(7 ms, 1e-3 mm^2/s, k=1)
+#: after each S(1), at examples/mrf_dw.py:42's kvalue (a 40 mT/m, 7 ms
+#: diffusion gradient, rad/m per state index); the float64 Jacobian
+#: oracle runs over the train's first DWF_JAC_N pulses, the Jacobian
+#: kernel's plain twin over its first DWF_TWIN_ATOMS atoms
+DWF_TAU, DWF_D = 7.0, 1e-3
+DWF_KVALUE = 2.675e8 * 40e-3 * DWF_TAU * 1e-3
+DWF_JAC_N, DWF_TWIN_ATOMS = 200, 8192
 
 #: covering set of the bSSFP kernels' options (each also run through the
 #: Jacobian kernel with and without the ddf group; b1 is the B1 batch
@@ -211,6 +260,31 @@ DESS_CASES = [
     dict(name="n8_all", nstate=8, var_te=True, b1=True, df=True,
          demodulate=True),
 ]
+
+#: covering set of the ME-GRE kernels' options: m echoes, nstate, df,
+#: demodulation, a per-pulse (m, P) echo-time matrix, a B1 batch; the
+#: cases without df run the Jacobian's df group at dfs=None
+MEGRE_CASES = [
+    dict(name="m2_n8", m=2, nstate=8),
+    dict(name="m3_n12_df", m=3, nstate=12, df=True),
+    dict(name="m2_n8_df_demod", m=2, nstate=8, df=True, demodulate=True),
+    dict(name="m3_n12_var_te_b1", m=3, nstate=12, var_te=True, b1=True,
+         demodulate=True),
+    dict(name="m3_n8_all", m=3, nstate=8, var_te=True, b1=True, df=True,
+         demodulate=True),
+]
+
+#: the full-ladder kernel's option cases: the FISP cases it takes (no
+#: diffusion, no normalize: neither reaches the kernel), each at nstate 0
+#: and at the FISP depth, where the folded kernel is its parity partner
+FULL_CASES = [dict(c, nstate=n, name=f"{c['name']}_n{n}")
+              for c in [dict(name="base"), dict(name="var_te", var_te=True),
+                        dict(name="inv_df", inversion=20.0, df=True,
+                             inversion_df=True),
+                        dict(name="inv_df_off", inversion=20.0, df=True,
+                             inversion_df=False),
+                        dict(name="df_demod", df=True, demodulate=True)]
+              for n in (0, NSTATE)]
 
 #: published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): float32
 #: outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz) and HBM3
@@ -346,6 +420,33 @@ def make_dess_case(case, natoms, npulse=200, seed=0):
     df = rng.uniform(-0.03, 0.03, natoms) if case.get("df") else None
     kw = dict(nstate=case["nstate"], demodulate=case.get("demodulate", False))
     return (FA, phi, TRs, TEs, T1, T2, B1, df), kw
+
+
+def make_megre_case(case, natoms, npulse=MEGRE_N, seed=0):
+    """Numpy inputs of one ME-GRE option case: (args, kwargs) of
+    megre_{dictionary,jacobian}_{cuda,plain,pallas} (FA, phi, TR, TEs, T1s,
+    T2s, B1s, dfs; nstate, demodulate)."""
+    rng = np.random.default_rng(seed)
+    m = case["m"]
+    FA = rng.uniform(12.0, 45.0, npulse)
+    phi = rng.uniform(0.0, 360.0, npulse)
+    TRs = rng.uniform(18.0, 24.0, npulse)
+    TEs = (np.cumsum(rng.uniform(2.0, 5.0, (m, npulse)), axis=0)
+           if case.get("var_te") else np.asarray(MEGRE_TES[:m]))
+    T1 = rng.uniform(300.0, 2500.0, natoms)
+    T2 = np.minimum(rng.uniform(20.0, 300.0, natoms), 0.8 * T1)
+    B1 = rng.uniform(0.8, 1.2, natoms) if case.get("b1") else np.ones(natoms)
+    df = rng.uniform(-0.05, 0.05, natoms) if case.get("df") else None
+    kw = dict(nstate=case["nstate"], demodulate=case.get("demodulate", False))
+    return (FA, phi, TRs, TEs, T1, T2, B1, df), kw
+
+
+def make_full_case(case, natoms, npulse, seed=0):
+    """Numpy inputs of one full-ladder option case: make_case's without
+    normalize (args and kwargs of fisp_full_echoes[_plain])."""
+    args, kw = make_case(case, natoms, npulse, seed)
+    del kw["normalize"]
+    return args, kw
 
 
 def make_design_case(case, natoms, necho=TSE_NECHO, seed=0):
@@ -794,10 +895,7 @@ def phase_numbers(torch, epg, card, run):
     from epgpy_torch.models import cuda_fisp
 
     seq = run["seq"]
-    params = fisp_dispatch.match_fisp(seq)          # memoized
-    d = fisp_dispatch.device_params(params)
-    args = (d["FA"], d["phi"], d["TR"], d["TE"], d["T1"], d["T2"], d["B1"],
-            d["df"])
+    args = _match_args(fisp_dispatch, fisp_dispatch.match_fisp(seq))
 
     def kernel():
         return cuda_fisp.fisp_echoes(*args, nstate=NSTATE)
@@ -815,7 +913,7 @@ def phase_numbers(torch, epg, card, run):
 
     k_ms = _cuda_ms(torch, kernel)
     p_ms = _cuda_ms(torch, plain)
-    memo_s = _host_s(torch, lambda: epg.simulate(
+    memo_s, nomemo_s = _memo_pair(torch, lambda: epg.simulate(
         seq, max_nstate=NSTATE, asarray=False))
 
     g_atoms, g_pulses = 4096, 100
@@ -832,7 +930,8 @@ def phase_numbers(torch, epg, card, run):
           f"{NATOMS / (p_ms / 1e3):.4g} atoms/s {tag}")
     print(f"[numbers] simulate() end to end, first call (match + kernel): "
           f"{run['first_s']:.3f} s; memoized match: {memo_s:.4f} s "
-          f"= {NATOMS / memo_s:.4g} atoms/s {tag}")
+          f"= {NATOMS / memo_s:.4g} atoms/s; with the preamble recomputed "
+          f"each call {nomemo_s:.4f} s {tag}")
     print(f"[numbers] general op loop, {g_atoms} atoms x {g_pulses} TRs: "
           f"{gen_s:.4f} s = {g_atoms / gen_s:.4g} atoms/s {tag}")
     flops = linear_ops(torch, lambda n: cuda_fisp.fisp_echoes_plain(
@@ -2139,10 +2238,7 @@ def phase_bssfp_path(torch, epg):
     _reset_counts(cuda_bssfp)
     out, first_s = _first_call(torch, lambda: epg.simulate(seq,
                                                            asarray=False))
-    params = fisp_dispatch.match_bssfp(seq)                    # memoized
-    d = fisp_dispatch.device_params(params)
-    args = (d["FA"], d["phi"], d["TR"], d["TE"], d["T1"], d["T2"], d["B1"],
-            d["df"])
+    args = _match_args(fisp_dispatch, fisp_dispatch.match_bssfp(seq))
     kw = dict(demodulate=True, inversion=BSSFP_TI)
     re, im = cuda_bssfp.bssfp_echoes(*args, **kw)
     same = bool(torch.equal(out.real, re) and torch.equal(out.imag, im))
@@ -2176,10 +2272,11 @@ def phase_bssfp_path(torch, epg):
           "first N pulses (8 atoms): "
           + ", ".join(f"N={n}: {e:.3e}" for n, e in drift.items()))
     del out
-    memo_s = _host_s(torch, lambda: epg.simulate(seq, asarray=False),
-                     reps=3)
+    memo_s, nomemo_s = _memo_pair(torch, lambda: epg.simulate(
+        seq, asarray=False), reps=3)
     return dict(seq=seq, args=args, kw=kw, launches=launches,
-                first_s=first_s, memo_s=memo_s, drift=drift, gerr=gerr)
+                first_s=first_s, memo_s=memo_s, nomemo_s=nomemo_s,
+                drift=drift, gerr=gerr)
 
 
 def phase_bssfp_jac_path(torch, epg):
@@ -2320,10 +2417,7 @@ def phase_dess_path(torch, epg):
     print(f"[dess] simulate() mapping train: first {first_s:.4f} s, "
           f"memoized {memo_s * 1e3:.3f} ms; Jacobian first {jfirst_s:.4f} s, "
           f"memoized {jmemo_s * 1e3:.3f} ms")
-    params = fisp_dispatch.match_dess(seq)                     # memoized
-    d = fisp_dispatch.device_params(params)
-    args = (d["FA"], d["phi"], d["TR"], d["TE"], d["T1"], d["T2"], d["B1"],
-            d["df"])
+    args = _match_args(fisp_dispatch, fisp_dispatch.match_dess(seq))
     return dict(args=args, launches=2, jac_launches=1, first_s=first_s,
                 memo_s=memo_s, jfirst_s=jfirst_s, jmemo_s=jmemo_s,
                 gerr=gerr, err=err, col_err=max(cols),
@@ -2575,6 +2669,471 @@ def phase_dess_mapping(torch, epg):
     return dict(launches=launches, gn_s=gn_s, split=split, rmse=(e1, e2))
 
 
+# -- the ME-GRE family, the full ladder and DW-FISP: kernels vs twins,
+# paths, T2/B0 mapping --
+
+
+def phase_megre_cases(torch, natoms=4096):
+    """The ME-GRE kernels vs their plain twins on the card over the option
+    cases, primal and Jacobian (the df group at dfs=None included);
+    returns the worst signal |delta| and the worst per-column relative
+    error."""
+    from epgpy_torch.models import cuda_megre
+
+    worst_sig = worst_col = 0.0
+    for case in MEGRE_CASES:
+        args, kw = _tensors(torch, *make_megre_case(case, natoms), DEVICE)
+        sig, cols, ok = 0.0, [], True
+        for kfn, pfn, jac in (
+                (cuda_megre.megre_echoes, cuda_megre.megre_echoes_plain,
+                 False),
+                (cuda_megre.megre_jacobian_echoes,
+                 cuda_megre.megre_jacobian_echoes_plain, True)):
+            k = kfn(*args, **kw)
+            s_, c = _pair_errors(torch, k, pfn(*args, **kw), jac)
+            sig, cols, ok = max(sig, s_), cols + c, ok and _finite(torch, k)
+        print(f"[megre-cases] {case['name']:17s} max|kernel - plain| = "
+              f"{sig:.3e}, columns (T1, T2, B1, df) "
+              f"{', '.join(f'{c:.2e}' for c in cols)}")
+        if not ok or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL:
+            raise AssertionError(
+                f"megre case {case['name']}: kernel vs plain twin "
+                f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
+                f"{TOL_JAC_KERNEL} or not finite")
+        worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+    return worst_sig, worst_col
+
+
+def phase_full_cases(torch, natoms=4096, npulse=NPULSE):
+    """The full-ladder kernel vs its plain twin on the card over its option
+    cases (nstate 0 and the FISP depth, plus one 150-deep ladder, the
+    gate's largest), against the folded kernel at nstate >= 1, and the
+    nstate-0 route of fisp_dictionary_cuda; returns the worst |delta|."""
+    from epgpy_torch.models import cuda_fisp
+
+    worst = 0.0
+    for case in FULL_CASES + [dict(name="inv_df_n150", nstate=150,
+                                   inversion=20.0, df=True)]:
+        args, kw = _tensors(torch, *make_full_case(case, natoms, npulse),
+                            DEVICE)
+        k = cuda_fisp.fisp_full_echoes(*args, **kw)
+        delta, _ = _pair_errors(torch, k,
+                                cuda_fisp.fisp_full_echoes_plain(*args, **kw),
+                                False)
+        fold = "-"
+        if kw["nstate"] >= 1:
+            f, _ = _pair_errors(torch, k, cuda_fisp.fisp_echoes(*args, **kw),
+                                False)
+            fold = f"{f:.3e}"
+            delta = max(delta, f)
+        print(f"[full-cases] {case['name']:16s} max|kernel - plain| = "
+              f"{delta:.3e}; vs fisp_half {fold}")
+        if not _finite(torch, k) or not delta <= TOL_KERNEL:
+            raise AssertionError(f"full case {case['name']}: {delta:.3e} > "
+                                 f"{TOL_KERNEL} or not finite")
+        worst = max(worst, delta)
+    # the nstate-0 route of the dictionary goes through the full kernel
+    args, kw = _tensors(torch, *make_case(OPTION_CASES[0], natoms, npulse),
+                        DEVICE)
+    kw["nstate"] = 0
+    before = cuda_fisp.FULL_LAUNCHES
+    got = cuda_fisp.fisp_dictionary_cuda(*args, **kw)
+    want = cuda_fisp.fisp_full_ladder_plain(*args, **kw)
+    d0, _ = _pair_errors(torch, got, want, False)
+    print(f"[full-cases] fisp_dictionary_cuda(nstate=0): "
+          f"{cuda_fisp.FULL_LAUNCHES - before} full-ladder launch, "
+          f"max|kernel - plain| = {d0:.3e}")
+    if cuda_fisp.FULL_LAUNCHES != before + 1 or not d0 <= TOL_KERNEL:
+        raise AssertionError("fisp_dictionary_cuda(nstate=0) did not run "
+                             "the full-ladder kernel or disagrees")
+    return max(worst, d0)
+
+
+def megre_atoms(natoms):
+    """The bench's ME-GRE draws (bench.py:1128-1133): the flip train, then
+    per-atom T1, T2 and df (kHz)."""
+    rng = np.random.default_rng(MEGRE_SEED)
+    FA = rng.uniform(12.0, 45.0, MEGRE_N)
+    T1 = rng.uniform(300.0, 2500.0, natoms).astype(np.float32)
+    T2 = np.minimum(rng.uniform(20.0, 300.0, natoms),
+                    0.8 * T1).astype(np.float32)
+    df = rng.uniform(-0.05, 0.05, natoms).astype(np.float32)
+    return FA, T1, T2, df
+
+
+def megre_sequence(epg, FA, T1, T2, df, tes=MEGRE_TES, tail=MEGRE_TAIL,
+                   order1=False):
+    """An ME-GRE train as a user writes it (bench.py:1162-1178): per TR
+    [T(FA_i, 0), (E(te_j - te_{j-1}), ADC) x m, E(tail), S(1)]."""
+    seq = []
+    for fa in FA:
+        seq.append(epg.T(float(fa), 0.0))
+        prev = 0.0
+        for te in tes:
+            seq += [epg.E(te - prev, T1, T2, df, order1=order1), epg.ADC]
+            prev = te
+        seq += [epg.E(tail, T1, T2, df, order1=order1), epg.S(1)]
+    return seq
+
+
+def megre_golden_sequence(epg):
+    """The train of tests/golden/megre.npz (tests/test_megre_dispatch.py:
+    220-232)."""
+    return megre_sequence(epg, [15.0 + i for i in range(20)], 900.0, 70.0,
+                          0.02, tes=(4.0, 9.0, 15.0), tail=7.0)
+
+
+def phase_megre_path(torch, epg):
+    """ME-GRE through simulate(): the bench's train over MEGRE_ATOMS atoms
+    (first call and memoized, and megre_echoes on the matched parameters),
+    8 atoms against the float64 general path, the golden megre.npz train on
+    the card; returns the run's facts."""
+    from epgpy_torch import config, fisp_dispatch
+    from epgpy_torch.models import cuda_megre
+
+    FA, T1, T2, DF = megre_atoms(MEGRE_ATOMS)
+    seq = megre_sequence(epg, FA, T1, T2, DF)
+    kw = dict(max_nstate=MEGRE_NSTATE, asarray=False)
+    m = len(MEGRE_TES)
+    _reset_counts(cuda_megre)
+    out, first_s = _first_call(torch, lambda: epg.simulate(seq, **kw))
+    args = _match_args(fisp_dispatch, fisp_dispatch.match_megre(seq))
+    re, im = cuda_megre.megre_echoes(*args, nstate=MEGRE_NSTATE)
+    same = bool(torch.equal(out.real, re) and torch.equal(out.imag, im))
+    del re, im
+    g = _golden("megre")
+    golden = epg.simulate(megre_golden_sequence(epg), max_nstate=12)
+    torch.cuda.synchronize()
+    _expect("megre", (dict(fisp_dispatch.DISPATCH_COUNTS),
+                      cuda_megre.LAUNCHES), ({"megre": 2}, 3))
+    gerr = float(np.abs(golden - g["signal"]).max())
+    with cpu_float64(config):
+        ref = epg.simulate(megre_sequence(epg, FA, T1[:8], T2[:8], DF[:8]),
+                           max_nstate=MEGRE_NSTATE, fisp_kernel=False)
+    err = float(np.abs(out[:, :8].cpu().numpy() - ref).max())
+    shape = (m * MEGRE_N, MEGRE_ATOMS)
+    print(f"[megre] simulate(): {MEGRE_N} TRs x {m} echoes x {MEGRE_ATOMS} "
+          f"atoms -> {tuple(out.shape)} {out.dtype}; megre_echoes on the "
+          f"matched parameters {'==' if same else '!='} simulate(); 8 atoms "
+          f"vs the f64 general path {err:.3e} (limit {TOL_PROBE}); golden "
+          f"megre.npz train on the card vs the golden {gerr:.3e} (limit "
+          f"{TOL_MEGRE_GOLDEN})")
+    if (tuple(out.shape) != shape or out.dtype != torch.complex64
+            or not same or not _finite(torch, torch.view_as_real(out))
+            or not err <= TOL_PROBE or not gerr <= TOL_MEGRE_GOLDEN):
+        raise AssertionError("ME-GRE path: shape, finiteness, direct call, "
+                             "f64 error or golden error out of bounds")
+    del out
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, **kw), reps=3)
+    print(f"[megre] simulate() first {first_s:.4f} s, memoized "
+          f"{memo_s * 1e3:.3f} ms")
+    return dict(args=args, launches=3, first_s=first_s, memo_s=memo_s,
+                gerr=gerr, err=err)
+
+
+def phase_megre_jac_path(torch, epg):
+    """The bench's (T2, g)-tracked ME-GRE train (bench.py:1180-1198) over
+    MEGRE_ATOMS atoms through simulate(probe=[ADC, Jacobian(["T2", "g"])]);
+    8 atoms over the first MEGRE_JAC_N TRs against the float64 general
+    diff path; returns the run's facts."""
+    from epgpy_torch import config, fisp_dispatch
+    from epgpy_torch.models import cuda_megre
+
+    names = ["T2", "g"]
+    FA, T1, T2, DF = megre_atoms(MEGRE_ATOMS)
+    seq = megre_sequence(epg, FA, T1, T2, DF, order1=names)
+    probes = [epg.ADC, epg.Jacobian(names)]
+    kw = dict(max_nstate=MEGRE_NSTATE, asarray=False, probe=probes)
+    _reset_counts(cuda_megre)
+    (sig, jac), first_s = _first_call(torch, lambda: epg.simulate(seq, **kw))
+    _expect("megre-jac", (dict(fisp_dispatch.DISPATCH_COUNTS),
+                          cuda_megre.JAC_LAUNCHES), ({"jac:megre": 1}, 1))
+    shape = (len(MEGRE_TES) * MEGRE_N, MEGRE_ATOMS)
+    if (tuple(jac.shape) != shape + (2,) or jac.dtype != torch.complex64
+            or not _finite(torch, (torch.view_as_real(sig),
+                                   torch.view_as_real(jac)))):
+        raise AssertionError("ME-GRE Jacobian path: shape or finiteness")
+    # the float64 oracle over the train's first MEGRE_JAC_N TRs (a prefix:
+    # a TR's echoes depend on the TRs before it only)
+    n = MEGRE_JAC_N * len(MEGRE_TES)
+    with cpu_float64(config):
+        s64, j64 = epg.simulate(
+            megre_sequence(epg, FA[:MEGRE_JAC_N], T1[:8], T2[:8], DF[:8],
+                           order1=names),
+            probe=probes, max_nstate=MEGRE_NSTATE, fisp_kernel=False)
+    sig_err = float(np.abs(sig[:n, :8].cpu().numpy() - s64).max())
+    cols = col_errors(jac[:n, :8].cpu().numpy(), j64)
+    print(f"[megre-jac] simulate(probe=[ADC, Jacobian({names})]) -> "
+          f"{tuple(jac.shape)}; first {MEGRE_JAC_N} TRs x 8 atoms vs the "
+          f"f64 general diff path: "
+          f"signal {sig_err:.3e}, columns (T2, g) "
+          f"{', '.join(f'{c:.3e}' for c in cols)} (limits {TOL_PROBE}, "
+          f"{TOL_JAC_MODEL})")
+    if not sig_err <= TOL_PROBE or not max(cols) <= TOL_JAC_MODEL:
+        raise AssertionError(f"ME-GRE Jacobian path error {sig_err:.3e} / "
+                             f"{max(cols):.3e}")
+    del sig, jac
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, **kw), reps=2)
+    print(f"[megre-jac] simulate() first {first_s:.4f} s, memoized "
+          f"{memo_s * 1e3:.3f} ms")
+    return dict(launches=1, first_s=first_s, memo_s=memo_s,
+                col_err=max(cols), sig_err=sig_err,
+                simulate=lambda: epg.simulate(seq, **kw))
+
+
+def b0_flips():
+    """The mapping train's flips (examples/megre_t2_b0_mapping.py:31)."""
+    return 12.0 + 18.0 * np.abs(np.sin(np.arange(B0_NTR) * np.pi / 12))
+
+
+def phase_b0_mapping(torch, epg):
+    """Joint T2 + B0 mapping from a two-echo GRE train
+    (examples/megre_t2_b0_mapping.py) over B0_NVOX voxels: the example's
+    draws, its two-echo phase initialization and B0_ITERS Gauss-Newton
+    iterations (solve_scale) whose signal and (T2, g) Jacobian come from
+    simulate() and the ME-GRE Jacobian kernel; the first Jacobian against
+    the twin on 512 voxels; returns the run's facts."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_megre
+    from epgpy_torch.parallel import gauss_newton_refine
+
+    FA = b0_flips()
+    tail = B0_TR - B0_TES[-1]
+
+    def train(T1, T2, df, order1=False):
+        return megre_sequence(epg, FA, T1, T2, df, tes=B0_TES, tail=tail,
+                              order1=order1)
+
+    V = B0_NVOX
+    rng = np.random.default_rng(B0_SEED)
+    T2t = rng.uniform(30, 150, V)
+    dft = rng.uniform(-0.03, 0.03, V)
+    _reset_counts(cuda_megre)
+    sig = epg.simulate(train(np.full(V, B0_T1), T2t, dft),
+                       max_nstate=B0_NSTATE, asarray=False)
+    pd = rng.uniform(0.7, 1.5, V) * np.exp(2j * np.pi * rng.random(V))
+    shape = tuple(sig.shape)
+    noise = B0_NOISE * (rng.normal(size=shape) + 1j * rng.normal(size=shape))
+    meas = (sig.to(torch.complex128) * torch.as_tensor(pd, device=DEVICE)
+            + torch.as_tensor(noise, device=DEVICE))
+    del sig
+    # the example's two-echo start: the phase between the echoes of one
+    # TR is 2 pi df (te2 - te1), the phasor averaged over TRs
+    dphi = torch.angle((meas[0::2].conj() * meas[1::2]).sum(0))
+    df0 = dphi.cpu().numpy() / (2 * np.pi * (B0_TES[1] - B0_TES[0]))
+    theta0 = np.stack([np.full(V, 70.0), df0])
+
+    split = {"host": 0.0, "simulate": 0.0}
+    first = []
+    names = ["T2", "g"]
+
+    def signal_and_jac(theta):
+        t0 = time.perf_counter()
+        seq = train(np.full(V, B0_T1), theta[0], theta[1], order1=names)
+        params = fisp_dispatch.match_megre(seq)   # memoized for simulate()
+        t1 = time.perf_counter()
+        s, j = epg.simulate(seq, max_nstate=B0_NSTATE, asarray=False,
+                            probe=[epg.ADC, epg.Jacobian(names)])
+        torch.cuda.synchronize()
+        split["host"] += t1 - t0
+        split["simulate"] += time.perf_counter() - t1
+        if not first:
+            first.append((params, j[:, :512].clone()))
+        return (s.real, s.imag), (j.real, j.imag)
+
+    t0 = time.perf_counter()
+    theta = gauss_newton_refine(signal_and_jac, theta0, meas.real, meas.imag,
+                                iters=B0_ITERS, solve_scale=True,
+                                bounds=[(10.0, 400.0), (-0.06, 0.06)])
+    torch.cuda.synchronize()
+    gn_s = time.perf_counter() - t0
+    launches = dict(megre=cuda_megre.LAUNCHES,
+                    megre_jac=cuda_megre.JAC_LAUNCHES)
+    _expect("b0-map", (dict(fisp_dispatch.DISPATCH_COUNTS), launches),
+            ({"megre": 1, "jac:megre": B0_ITERS},
+             dict(megre=1, megre_jac=B0_ITERS)))
+
+    # the first Gauss-Newton Jacobian against the twin on 512 voxels
+    params, kj = first[0]
+    a = _match_args(fisp_dispatch, params)
+    sl = slice(0, 512)
+    (_, _), (pdre, pdim) = cuda_megre.megre_jacobian_echoes_plain(
+        *a[:4], a[4][sl], a[5][sl], a[6][sl],
+        None if a[7] is None else a[7][sl], nstate=B0_NSTATE)
+    jcols = col_errors(kj.cpu().numpy(),
+                       torch.complex(pdre, pdim)[..., [1, 3]].cpu().numpy())
+    e_t2 = float(np.sqrt(np.mean((theta[0] - T2t) ** 2)))
+    e_df = float(np.sqrt(np.mean((theta[1] - dft) ** 2)))
+    e0_t2 = float(np.sqrt(np.mean((theta0[0] - T2t) ** 2)))
+    e0_df = float(np.sqrt(np.mean((theta0[1] - dft) ** 2)))
+    per = {k: v / B0_ITERS for k, v in split.items()}
+    per["solve"] = gn_s / B0_ITERS - per["host"] - per["simulate"]
+    print(f"[b0-map] {V} voxels x {B0_NTR} TRs x {len(B0_TES)} echoes, "
+          f"{B0_ITERS} Gauss-Newton iterations: {gn_s:.3f} s; RMSE start "
+          f"T2 {e0_t2:.3f} ms, B0 {1e3 * e0_df:.4f} Hz -> refined T2 "
+          f"{e_t2:.4f} ms (limit {B0_LIMITS[0]}), B0 {1e3 * e_df:.5f} Hz "
+          f"(limit {1e3 * B0_LIMITS[1]}); first Jacobian vs the twin on 512 "
+          f"voxels, columns (T2, g) {', '.join(f'{c:.3e}' for c in jcols)} "
+          f"(limit {TOL_JAC_KERNEL})")
+    if not max(jcols) <= TOL_JAC_KERNEL:
+        raise AssertionError("the ME-GRE Jacobian kernel disagrees with its "
+                             "plain twin")
+    if not (e_t2 < B0_LIMITS[0] and e_df < B0_LIMITS[1]):
+        raise AssertionError(f"T2/B0 mapping misses the example's limits: "
+                             f"T2 {e_t2:.4f} ms, B0 {e_df:.3e} kHz")
+    return dict(launches=launches, gn_s=gn_s, per_iter=per,
+                rmse=(e_t2, e_df))
+
+
+def dwfisp_sequence(epg, FA, T1, T2, B1, npulse=None, tracked=False):
+    """The FISP headline train with one D(DWF_TAU, DWF_D, k=1) after each
+    S(1), the same D instance every TR; with `tracked`, the E ops track T1
+    and T2 and the D op its diffusivity."""
+    o1 = ["T1", "T2"] if tracked else False
+    d_op = epg.D(DWF_TAU, DWF_D, k=1, order1=["Dcoef"] if tracked else False)
+    seq = []
+    for fa in FA[:npulse]:
+        seq += [epg.T((fa * B1).astype(np.float32), 90),
+                epg.E(TE, T1, T2, order1=o1), epg.ADC,
+                epg.E(TR - TE, T1, T2, order1=o1), epg.S(1), d_op]
+    return seq
+
+
+def phase_dwfisp_path(torch, epg):
+    """DW-FISP through simulate(): the FISP headline train (NATOMS x
+    NPULSE, nstate NSTATE) with its D ops at DWF_KVALUE, 8 atoms against
+    the float64 general path; its (T1, T2, Dcoef) Jacobian, 8 atoms over
+    the first DWF_JAC_N pulses against the float64 general diff path;
+    returns the run's facts."""
+    from epgpy_torch import config, fisp_dispatch
+    from epgpy_torch.models import cuda_fisp
+
+    FA = make_train(NPULSE)
+    T1, T2, B1 = make_atoms(NATOMS)
+    kw = dict(max_nstate=NSTATE, asarray=False, kvalue=DWF_KVALUE)
+    names = ["magnitude", "T1", "T2", "Dcoef"]
+    probes = [epg.ADC, epg.Jacobian(names)]
+    seq = dwfisp_sequence(epg, FA, T1, T2, B1)
+    jseq = dwfisp_sequence(epg, FA, T1, T2, B1, tracked=True)
+    _reset_counts(cuda_fisp)
+    out, first_s = _first_call(torch, lambda: epg.simulate(seq, **kw))
+    (sig, jac), jfirst_s = _first_call(torch, lambda: epg.simulate(
+        jseq, probe=probes, **kw))
+    _expect("dw-fisp", (dict(fisp_dispatch.DISPATCH_COUNTS),
+                        cuda_fisp.LAUNCHES, cuda_fisp.JAC_LAUNCHES),
+            ({"dw": 1, "jac:dw": 1}, 1, 1))
+    if (tuple(out.shape) != (NPULSE, NATOMS)
+            or tuple(jac.shape) != (NPULSE, NATOMS, len(names))
+            or not _finite(torch, [torch.view_as_real(t)
+                                   for t in (out, sig, jac)])
+            or not float((sig - out).abs().max()) <= TOL_KERNEL):
+        raise AssertionError("DW-FISP path: shape, finiteness, or the "
+                             "Jacobian kernel's signal differs from the "
+                             "primal kernel's")
+    # the kernels' outputs against their plain twins on the same card
+    # tensors, with the matched diffusion: the whole primal, the Jacobian
+    # over the first DWF_TWIN_ATOMS atoms (columns T1, T2, Dcoef)
+    params = fisp_dispatch.match_dwfisp(jseq, DWF_KVALUE)
+    diffusion, ramp = fisp_dispatch._dw_diffusion(params)
+    a = _match_args(fisp_dispatch, params)
+    tkw = dict(nstate=NSTATE, demodulate=bool(params.get("demod")),
+               inversion=params.get("TI"),
+               inversion_df=bool(params.get("inv_df")), diffusion=diffusion,
+               diff_ramp=ramp)
+    pre, pim = cuda_fisp.fisp_echoes_plain(*a, **tkw)
+    twin_err = max(float((out.real - pre).abs().max()),
+                   float((out.imag - pim).abs().max()))
+    del pre, pim
+    sl = slice(0, DWF_TWIN_ATOMS)
+    (_, _), (pdre, pdim) = cuda_fisp.fisp_jacobian_echoes_plain(
+        *a[:4], a[4][sl], a[5][sl], a[6][sl], None, track_diffusivity=True,
+        **tkw)
+    twin_cols = col_errors(jac[:, sl, 1:].cpu().numpy(), torch.complex(
+        pdre, pdim)[..., [0, 1, 3]].cpu().numpy())
+    print(f"[dw-fisp] kernels vs plain twins on the same card tensors: "
+          f"signal {twin_err:.3e} (limit {TOL_KERNEL}); Jacobian over "
+          f"{DWF_TWIN_ATOMS} atoms, columns (T1, T2, Dcoef) "
+          f"{', '.join(f'{c:.3e}' for c in twin_cols)} (limit "
+          f"{TOL_JAC_KERNEL})")
+    if not twin_err <= TOL_KERNEL or not max(twin_cols) <= TOL_JAC_KERNEL:
+        raise AssertionError("DW-FISP kernels disagree with their twins")
+    B8 = tuple(x[:8] for x in (T1, T2, B1))
+    with cpu_float64(config):
+        ref = epg.simulate(dwfisp_sequence(epg, FA, *B8), max_nstate=NSTATE,
+                           kvalue=DWF_KVALUE, fisp_kernel=False)
+        _, j64 = epg.simulate(dwfisp_sequence(epg, FA, *B8, npulse=DWF_JAC_N,
+                                              tracked=True),
+                              probe=probes, max_nstate=NSTATE,
+                              kvalue=DWF_KVALUE, fisp_kernel=False)
+    err = float(np.abs(out[:, :8].cpu().numpy() - ref).max())
+    free = float(out[:, :8].abs().max())
+    cols = col_errors(jac[:DWF_JAC_N, :8].cpu().numpy(), j64)
+    print(f"[dw-fisp] simulate(kvalue={DWF_KVALUE:.6g}): {NPULSE} pulses x "
+          f"{NATOMS} atoms -> {tuple(out.shape)}, Jacobian "
+          f"{tuple(jac.shape)}; 8 atoms vs the f64 general path: signal "
+          f"{err:.3e} (limit {TOL_PROBE}); first {DWF_JAC_N} pulses vs the "
+          f"f64 general diff path, columns {names} "
+          f"{', '.join(f'{c:.3e}' for c in cols)} (limit {TOL_JAC_MODEL})")
+    if not err <= TOL_PROBE or not max(cols) <= TOL_JAC_MODEL \
+            or not free > 0:
+        raise AssertionError(f"DW-FISP path error: signal {err:.3e}, "
+                             f"columns {max(cols):.3e}")
+    del out, sig, jac
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, **kw), reps=3)
+    jmemo_s = _host_s(torch, lambda: epg.simulate(jseq, probe=probes, **kw),
+                      reps=2)
+    print(f"[dw-fisp] simulate() first {first_s:.4f} s, memoized "
+          f"{memo_s * 1e3:.3f} ms; Jacobian first {jfirst_s:.4f} s, memoized "
+          f"{jmemo_s * 1e3:.3f} ms")
+    return dict(launches=1, jac_launches=1, first_s=first_s, memo_s=memo_s,
+                jfirst_s=jfirst_s, jmemo_s=jmemo_s, err=err,
+                col_err=max(cols))
+
+
+def phase_full_path(torch, run):
+    """The full-ladder kernel on the FISP headline train's matched
+    parameters: fisp_dictionary_cuda(nstate=0), the JAX wrapper's
+    full-ladder route (a perfectly spoiled dictionary) and the main-path
+    launch, held against its plain twin on the same card tensors; then
+    fisp_full_ladder_cuda at nstate NSTATE, the parity oracle of the folded
+    phase-4 simulate() dictionary (a check, not counted); returns the
+    run's facts (the kernel arguments, launches, the errors)."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_fisp
+
+    args = _match_args(fisp_dispatch, fisp_dispatch.match_fisp(run["seq"]))
+    dictionary = run["dictionary"]
+    cuda_fisp.FULL_LAUNCHES = 0
+    s0 = cuda_fisp.fisp_dictionary_cuda(*args, nstate=0)
+    torch.cuda.synchronize()
+    launches = cuda_fisp.FULL_LAUNCHES
+    _expect("full", launches, 1)
+    twin_err = _pair_errors(
+        torch, s0, cuda_fisp.fisp_dictionary_plain(*args, nstate=0), False)[0]
+    oracle = cuda_fisp.fisp_full_ladder_cuda(*args, nstate=NSTATE)
+    err = max(float((oracle[0] - dictionary.real.T).abs().max()),
+              float((oracle[1] - dictionary.imag.T).abs().max()))
+    # no magnetization leaves the unit ball
+    ok = _finite(torch, s0) and bool(
+        (torch.complex(*s0).abs() <= 1.0 + 1e-6).all())
+    print(f"[full] fisp_dictionary_cuda(nstate=0) -> {tuple(s0[0].shape)}, "
+          f"vs its plain twin on the same tensors {twin_err:.3e}; "
+          f"fisp_full_ladder_cuda(nstate={NSTATE}) vs the folded simulate() "
+          f"dictionary {err:.3e} (limits {TOL_KERNEL}); launches {launches}")
+    if not ok or not twin_err <= TOL_KERNEL or not err <= TOL_KERNEL:
+        raise AssertionError(f"full-ladder path: finiteness, twin error "
+                             f"{twin_err:.3e} or oracle error {err:.3e}")
+    return dict(args=args, launches=launches, err=err, twin_err=twin_err)
+
+
+def _match_args(fisp_dispatch, params):
+    """The kernels' positional tensors (FA, phi, TR, TE, T1s, T2s, B1s,
+    dfs) of a FISP, DESS or ME-GRE match dict, float32 on the card."""
+    d = fisp_dispatch.device_params(params)
+    return (d["FA"], d["phi"], d["TR"], d["TE"], d["T1"], d["T2"], d["B1"],
+            d["df"])
+
+
 def _device_us(event):
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -2683,7 +3242,8 @@ def phase_ssfp_numbers(torch, card, bssfp, bjac, dess):
           f"atoms: first {bssfp['first_s']:.4f} s, memoized "
           f"{bssfp['memo_s'] * 1e3:.3f} ms against the kernel's "
           f"{k_ms:.3f} ms: {1 - k_ms / (bssfp['memo_s'] * 1e3):.1%} of the "
-          f"memoized call is not the kernel ({card})")
+          f"memoized call is not the kernel; with the preamble recomputed "
+          f"each call {bssfp['nomemo_s'] * 1e3:.3f} ms ({card})")
     print(f"[numbers] simulate() bSSFP Jacobian: first {bjac['first_s']:.4f}"
           f" s, memoized {bjac['memo_s'] * 1e3:.3f} ms ({card})")
     _print_split("simulate() bSSFP Jacobian", "bssfp_jac",
@@ -2693,66 +3253,165 @@ def phase_ssfp_numbers(torch, card, bssfp, bjac, dess):
     return entries
 
 
+def phase_megre_numbers(torch, card, megre, mjac, full, b0, dw,
+                        half_bound_ms):
+    """The ME-GRE kernels at the main-path shape (the bench's train over
+    MEGRE_ATOMS atoms) and the full-ladder kernel at the FISP headline
+    shape (nstate 0; at nstate NSTATE beside `half_bound_ms`, fisp_half's
+    bound on that train), simulate()'s device split of the ME-GRE
+    Jacobian, the T2/B0 and DW-FISP timings; returns the three kernels'
+    JSON entries (launches filled in by main)."""
+    from epgpy_torch.models import cuda_fisp, cuda_megre
+
+    atoms = (4, 5, 6, 7)
+    mkw = dict(nstate=MEGRE_NSTATE, demodulate=False)
+    entries = [
+        kernel_entry(torch, card, "megre",
+                     "epgpy_tpu/models/pallas_megre.py:93",
+                     (cuda_megre.megre_echoes, cuda_megre.megre_echoes_plain),
+                     megre["args"], mkw, atoms, MEGRE_ATOMS, 0, False),
+        kernel_entry(torch, card, "megre_jac",
+                     "epgpy_tpu/models/pallas_megre.py:220",
+                     (cuda_megre.megre_jacobian_echoes,
+                      cuda_megre.megre_jacobian_echoes_plain),
+                     megre["args"], mkw, atoms, MEGRE_ATOMS, 0, True),
+        # the route users take, fisp_dictionary_cuda(nstate=0) in the
+        # echo layout: one ladder row, all of it needed
+        kernel_entry(torch, card, "fisp_full",
+                     "epgpy_tpu/models/pallas_fisp.py:116",
+                     (cuda_fisp.fisp_echoes, cuda_fisp.fisp_echoes_plain),
+                     full["args"], dict(nstate=0), atoms, NATOMS, 0, False),
+    ]
+    # the parity oracle's depth: the literal 2 NSTATE + 1 rows compute the
+    # folded train, whose operations fisp_half's count gives
+    oracle_ms = _cuda_ms(torch, lambda: cuda_fisp.fisp_full_echoes(
+        *full["args"], nstate=NSTATE))
+    print(f"[numbers] fisp_full at nstate {NSTATE} (the fold's parity "
+          f"oracle): {oracle_ms:.3f} ms against the train's bound "
+          f"{half_bound_ms:.4f} ms from fisp_half's counted operations "
+          f"({card})")
+    k_ms = entries[0]["ms"]
+    print(f"[numbers] simulate() ME-GRE {MEGRE_N} TRs x {len(MEGRE_TES)} "
+          f"echoes x {MEGRE_ATOMS} atoms: first {megre['first_s']:.4f} s, "
+          f"memoized {megre['memo_s'] * 1e3:.3f} ms against the kernel's "
+          f"{k_ms:.3f} ms ({card})")
+    print(f"[numbers] simulate() ME-GRE (T2, g) Jacobian: first "
+          f"{mjac['first_s']:.4f} s, memoized {mjac['memo_s'] * 1e3:.3f} ms "
+          f"({card})")
+    _print_split("simulate() ME-GRE Jacobian", "megre_jac",
+                 _profile_split(torch, mjac["simulate"], "megre_jac"), card)
+    per = b0["per_iter"]
+    print(f"[numbers] T2/B0 mapping, {B0_NVOX} voxels: {B0_ITERS} "
+          f"Gauss-Newton iterations {b0['gn_s']:.3f} s; per iteration host "
+          f"build + match {per['host']:.4f} s + simulate (kernel + assembly) "
+          f"{per['simulate']:.4f} s + update/solve {per['solve']:.4f} s; "
+          f"RMSE T2 {b0['rmse'][0]:.4f} ms, B0 {1e3 * b0['rmse'][1]:.5f} Hz "
+          f"({card})")
+    print(f"[numbers] simulate() DW-FISP {NPULSE} pulses x {NATOMS} atoms: "
+          f"first {dw['first_s']:.4f} s, memoized {dw['memo_s'] * 1e3:.3f} "
+          f"ms; (T1, T2, Dcoef) Jacobian first {dw['jfirst_s']:.4f} s, "
+          f"memoized {dw['jmemo_s'] * 1e3:.3f} ms ({card})")
+    return entries
+
+
+def _memo_pair(torch, fn, reps=5):
+    """Host-clock seconds of a memoized simulate() call fn(), with the
+    preamble memo kept and with it cleared before every call (the matcher's
+    memo stays): what the memo saves, within one run."""
+    from epgpy_torch import engine
+
+    kept = _host_s(torch, fn, reps=reps)
+
+    def cleared():
+        engine._PREAMBLE_CACHE.clear()
+        fn()
+
+    return kept, _host_s(torch, cleared, reps=reps)
+
+
+def _timed(fn, *args):
+    """fn(*args), printing its wall time under the phase's name."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     card = phase_environment(torch)
     import epgpy_torch as epg
 
     epg.config.set_device(DEVICE)
     epg.config.set_precision("float32")
-    phase_build()
-    worst = phase_cases(torch)
+    _timed(phase_build)
+    worst = _timed(phase_cases, torch)
     print(f"[cases] worst max|kernel - plain| = {worst:.3e} "
           f"(limit {TOL_KERNEL})")
-    worst_sig, worst_col = phase_jac_cases(torch)
+    worst_sig, worst_col = _timed(phase_jac_cases, torch)
     print(f"[jac-cases] worst max|kernel - plain| = {worst_sig:.3e} (limit "
           f"{TOL_KERNEL}), worst column {worst_col:.3e} (limit "
           f"{TOL_JAC_KERNEL})")
-    worst_hess = phase_hess_cases(torch)
+    worst_hess = _timed(phase_hess_cases, torch)
     print(f"[hess-cases] worst per-block |kernel - plain| = {worst_hess:.3e} "
           f"(limit {TOL_HESS_KERNEL}) over {len(HESS_CASES)} cases")
-    worst_mse, _ = phase_mse_cases(torch)
+    worst_mse, _ = _timed(phase_mse_cases, torch)
     print(f"[mse-cases] worst max|kernel - plain| = {worst_mse:.3e} (limit "
           f"{TOL_KERNEL}) over {len(MSE_CASES)} cases")
-    worst_sig, worst_col = phase_mse_cases(torch, jac=True)
+    worst_sig, worst_col = _timed(phase_mse_cases, torch, 4096, True)
     print(f"[mse-jac-cases] worst max|kernel - plain| = {worst_sig:.3e} "
           f"(limit {TOL_KERNEL}), worst column {worst_col:.3e} (limit "
           f"{TOL_JAC_KERNEL})")
-    worst_design = phase_design_cases(torch)
+    worst_design = _timed(phase_design_cases, torch)
     print(f"[design-cases] worst per-block |kernel - plain| = "
           f"{worst_design:.3e} (limit {TOL_DESIGN_KERNEL})")
     for family in ("bssfp", "dess"):
-        worst_sig, worst_col = phase_ssfp_cases(torch, family)
+        worst_sig, worst_col = _timed(phase_ssfp_cases, torch, family)
         print(f"[{family}-cases] worst max|kernel - plain| = {worst_sig:.3e}"
               f" (limit {TOL_KERNEL}), worst column {worst_col:.3e} (limit "
               f"{TOL_JAC_KERNEL})")
-    main_run = phase_main_path(torch, epg)
-    jac_run = phase_jac_path(torch, epg)
-    serve = phase_serving(torch, epg, main_run.pop("dictionary"))
-    hess_run = phase_hess_path(torch, epg)
-    design = phase_design(torch, epg)
-    mse_run = phase_mse_path(torch, epg)
-    mse_jac_run = phase_mse_jac_path(torch, epg)
-    dw_run = phase_dw_path(torch, epg)
-    t2b1 = phase_t2b1(torch, epg)
-    tse = phase_tse_design(torch, epg)
-    bssfp_run = phase_bssfp_path(torch, epg)
-    bjac_run = phase_bssfp_jac_path(torch, epg)
-    dess_run = phase_dess_path(torch, epg)
-    mrfb = phase_bssfp_serving(torch, epg)
-    dmap = phase_dess_mapping(torch, epg)
-    entry = phase_numbers(torch, epg, card, main_run)
-    jac_entry = phase_jac_numbers(torch, epg, card, jac_run)
-    hess_entry = phase_hess_numbers(torch, epg, card, hess_run)
+    worst_sig, worst_col = _timed(phase_megre_cases, torch)
+    print(f"[megre-cases] worst max|kernel - plain| = {worst_sig:.3e} (limit "
+          f"{TOL_KERNEL}), worst column {worst_col:.3e} (limit "
+          f"{TOL_JAC_KERNEL})")
+    worst_full = _timed(phase_full_cases, torch)
+    print(f"[full-cases] worst max|kernel - plain or fold| = "
+          f"{worst_full:.3e} (limit {TOL_KERNEL})")
+    main_run = _timed(phase_main_path, torch, epg)
+    full_run = _timed(phase_full_path, torch, main_run)
+    jac_run = _timed(phase_jac_path, torch, epg)
+    serve = _timed(phase_serving, torch, epg, main_run.pop("dictionary"))
+    hess_run = _timed(phase_hess_path, torch, epg)
+    design = _timed(phase_design, torch, epg)
+    mse_run = _timed(phase_mse_path, torch, epg)
+    mse_jac_run = _timed(phase_mse_jac_path, torch, epg)
+    dw_run = _timed(phase_dw_path, torch, epg)
+    t2b1 = _timed(phase_t2b1, torch, epg)
+    tse = _timed(phase_tse_design, torch, epg)
+    bssfp_run = _timed(phase_bssfp_path, torch, epg)
+    bjac_run = _timed(phase_bssfp_jac_path, torch, epg)
+    dess_run = _timed(phase_dess_path, torch, epg)
+    mrfb = _timed(phase_bssfp_serving, torch, epg)
+    dmap = _timed(phase_dess_mapping, torch, epg)
+    megre_run = _timed(phase_megre_path, torch, epg)
+    mjac_run = _timed(phase_megre_jac_path, torch, epg)
+    b0 = _timed(phase_b0_mapping, torch, epg)
+    dwf = _timed(phase_dwfisp_path, torch, epg)
+    entry = _timed(phase_numbers, torch, epg, card, main_run)
+    jac_entry = _timed(phase_jac_numbers, torch, epg, card, jac_run)
+    hess_entry = _timed(phase_hess_numbers, torch, epg, card, hess_run)
     # launches on the Hessian's main paths: the flagship (4c) and the SLSQP
     # run of the design (5c)
     hess_entry["launches"] += design["launches"]
-    mse_entry, mse_jac_entry = phase_mse_numbers(torch, card, mse_run,
-                                                 mse_jac_run)
-    design_entry = phase_design_numbers(torch, card, tse)
-    ssfp_entries = phase_ssfp_numbers(torch, card, bssfp_run, bjac_run,
-                                      dess_run)
+    mse_entry, mse_jac_entry = _timed(phase_mse_numbers, torch, card,
+                                      mse_run, mse_jac_run)
+    design_entry = _timed(phase_design_numbers, torch, card, tse)
+    ssfp_entries = _timed(phase_ssfp_numbers, torch, card, bssfp_run,
+                          bjac_run, dess_run)
+    megre_entries = _timed(phase_megre_numbers, torch, card, megre_run,
+                           mjac_run, full_run, b0, dwf, entry["bound_ms"])
     # launches on the bSSFP and DESS paths: the dictionary, its direct
     # call and the golden train (4g), the Jacobian (4h) and MRF serving
     # (5f: dictionary, truth, one Jacobian per Gauss-Newton iteration, one
@@ -2764,15 +3423,25 @@ def main():
             dess_run["launches"] + dmap["launches"]["dess"],
             dess_run["jac_launches"] + dmap["launches"]["dess_jac"])):
         entry_["launches"] = n
+    # launches on the ME-GRE paths: the train, its direct call and the
+    # golden train (4j), the Jacobian (4k), T2/B0 mapping (5h: truth, one
+    # Jacobian per iteration); the full-ladder path (4l)
+    for entry_, n in zip(megre_entries, (
+            megre_run["launches"] + b0["launches"]["megre"],
+            mjac_run["launches"] + b0["launches"]["megre_jac"],
+            full_run["launches"])):
+        entry_["launches"] = n
     # launches on the CPMG paths: the published and scaled trains (4d), the
     # DW-TSE train (4f) and T2/B1 mapping (5d: truth and dictionary, one
     # Jacobian per Gauss-Newton iteration); the Jacobian (4e)
     mse_entry["launches"] += dw_run["launches"] + t2b1["launches"]["cpmg"]
     mse_jac_entry["launches"] += t2b1["launches"]["cpmg_jac"]
-    # launches on the main paths: the dictionary (4), the Jacobian (4b)
-    # and serving (5b: truth fingerprints, one Jacobian per iteration)
-    entry["launches"] += serve["launches"]["fisp_half"]
-    jac_entry["launches"] += serve["launches"]["fisp_jac"]
+    # launches on the main paths: the dictionary (4), the Jacobian (4b),
+    # serving (5b: truth fingerprints, one Jacobian per iteration) and the
+    # DW-FISP train and its Jacobian (4m)
+    entry["launches"] += serve["launches"]["fisp_half"] + dwf["launches"]
+    jac_entry["launches"] += (serve["launches"]["fisp_jac"]
+                              + dwf["jac_launches"])
     per = serve["per_iter"]
     print(f"[numbers] serving, {NVOX} voxels x {NATOMS} atoms: match "
           f"{serve['match_s'] * 1e3:.1f} ms; Gauss-Newton per iteration "
@@ -2815,10 +3484,11 @@ def main():
           f"{dmap['split']['simulate']:.3f} s); T1 RMSE "
           f"{dmap['rmse'][0]:.3f} ms, T2 RMSE {dmap['rmse'][1]:.4f} ms "
           f"({card})")
+    print(f"[time] total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [entry, jac_entry, hess_entry, mse_entry,
                                   mse_jac_entry, design_entry]
-                      + ssfp_entries}))
+                      + ssfp_entries + megre_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

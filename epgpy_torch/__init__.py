@@ -11,10 +11,12 @@ the same names:
 This port covers the operators T/E/P/R/S(int)/ADC with order1/order2
 derivative specs, the StateMatrix, the eager general engine, Jacobian and
 Hessian probes (``diff.py``: forward-mode autodiff through the operator
-loop), the FISP MR-fingerprinting models, the fused FISP dictionary,
-Jacobian and per-pulse Hessian kernels, the CPMG, balanced-SSFP and DESS
-dictionary and Jacobian kernels for the H100 (``models/cuda_*.py``,
-``csrc/*.cu``), which ``simulate()`` dispatches to on CUDA in float32,
+loop), the FISP MR-fingerprinting models, the fused FISP dictionary
+(folded and full ladder), Jacobian and per-pulse Hessian kernels, the
+CPMG, balanced-SSFP, DESS and multi-echo GRE dictionary and Jacobian
+kernels for the H100 (``models/cuda_*.py``, ``csrc/*.cu``), which
+``simulate()`` dispatches to on CUDA in float32 (DW-FISP trains through
+the FISP kernels' diffusion attenuation),
 the steady-state sequences (``bssfp_sequence``, ``dess_sequence``,
 ``spgr_sequence``), CRLB statistics (``stats``), MRF serving and sequence
 design (``parallel``: dictionary match, reconstruction, Gauss-Newton

@@ -51,6 +51,10 @@ _SIGNATURES = {
     "epg_dess": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "epg_dess_jac": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 8
     + [_P],
+    "epg_megre": [_P] * 9 + [_I] * 8 + [_P],
+    "epg_megre_jac": [_P] * 9 + [_I] * 8 + [_P],
+    "epg_fisp_full": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P]
+    + [_I] * 10 + [_P],
 }
 
 #: the loaded library and what its build printed: {"lib", "path",

@@ -1,4 +1,4 @@
-"""Shape utilities: append-style broadcasting.
+"""Shape utilities: append-style broadcasting; the operator-identity memo.
 
 Counterpart of ``epgpy_tpu/common.py``.  Parameter arrays broadcast
 **left-aligned** ("append" style, reference epgpy/common.py:273-334): new
@@ -15,7 +15,7 @@ import torch
 from . import config
 
 __all__ = ["get_shape", "expand_shapes", "broadcastable", "broadcast_shapes",
-           "expand_arrays", "to_real"]
+           "expand_arrays", "to_real", "memoize_on_ops"]
 
 
 def get_shape(obj) -> tuple:
@@ -93,3 +93,19 @@ def to_real(x):
     """Host value or tensor -> real tensor on the working device/dtype."""
     return torch.as_tensor(x, dtype=config.real_dtype(),
                            device=config.device())
+
+
+def memoize_on_ops(cache, maxsize, key, sequence, compute):
+    """``cache[key]``'s value, else ``compute()`` stored under `key`: the
+    memo of per-sequence host work (the engine's preamble, the dispatch's
+    matchers), whose keys hold the ids of `sequence`'s operators.  Each
+    entry pins the operator list so the ids cannot be reused while it is
+    cached; at `maxsize` entries the oldest is evicted first."""
+    hit = cache.get(key)
+    if hit is not None:
+        return hit[0]
+    result = compute()
+    while len(cache) >= maxsize:
+        cache.pop(next(iter(cache)))
+    cache[key] = (result, list(sequence))
+    return result

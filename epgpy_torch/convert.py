@@ -16,7 +16,12 @@ Both functions take plain numpy values, so this module needs no JAX:
   and takes the same way, to ``run_bssfp_kernel`` /
   ``run_bssfp_jacobian``; the dict of ``match_dess`` (keys FA, phi, TR,
   TE, T1, T2, B1, TI, vars, b1_scale, demod, shape, df) becomes this
-  package's, ready for ``run_dess_kernel`` and ``run_dess_jacobian``;
+  package's, ready for ``run_dess_kernel`` and ``run_dess_jacobian``; the
+  dict of ``match_megre`` (the DESS keys with an (m, N) TE, plus
+  ``nechoes``) is ready for ``run_megre_kernel`` and
+  ``run_megre_jacobian``, and a ``match_dwfisp`` dict (``match_fisp``'s
+  keys, its ``diffusion`` entry holding bT, bL, a numpy Dcoef -- scalar or
+  3x3 -- and ramp) for ``run_dwfisp_kernel`` and ``run_dwfisp_jacobian``;
 * :func:`from_numpy_states` builds a :class:`StateMatrix` from the complex
   ``(*batch, K, 3)`` ladder of a JAX ``StateMatrix.states``.
 """
@@ -35,20 +40,25 @@ _KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "inv_df", "vars",
 _HESS_KEYS = ("FA", "phi", "TAU", "T1", "T2", "TE", "TI", "amap", "shape")
 _DESS_KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "vars",
               "b1_scale", "demod", "shape", "df")
+_MEGRE_KEYS = _DESS_KEYS + ("nechoes",)
 _MSE_KEYS = ("exc", "FA", "phi", "tau1", "tau2", "T1", "T2", "B1", "shape",
              "vars", "b1_scale", "diffusion")
 
 
 def from_numpy_params(params: dict, device) -> dict:
-    """A JAX FISP or bSSFP (or per-pulse Hessian, CPMG or DESS) match
-    dict -> this package's, with device tensors."""
+    """A JAX FISP, DW-FISP or bSSFP (or per-pulse Hessian, CPMG, DESS or
+    ME-GRE) match dict -> this package's, with device tensors."""
     if "amap" in params:
         return _hessian_params(params, device)
     if "tau1" in params:
         return _mse_params(params, device)
     # the DESS dict is the FISP dict without its inversion, DW and prep
-    # precession keys
-    keys = _KEYS if "inv_df" in params else _DESS_KEYS
+    # precession keys; the ME-GRE dict is the DESS dict with its echo
+    # count (and an (m, N) TE)
+    if "nechoes" in params:
+        keys = _MEGRE_KEYS
+    else:
+        keys = _KEYS if "inv_df" in params else _DESS_KEYS
     out = {k: params.get(k) for k in keys}
     for k in ("FA", "phi", "TR", "T1", "T2", "B1", "df"):
         if out[k] is not None:
@@ -61,6 +71,13 @@ def from_numpy_params(params: dict, device) -> dict:
     out["vars"] = tuple(out["vars"] or ())
     if out["b1_scale"] is not None:
         out["b1_scale"] = float(out["b1_scale"])
+    if "nechoes" in out:
+        out["nechoes"] = int(out["nechoes"])
+    if out.get("diffusion") is not None:
+        d = dict(out["diffusion"])
+        out["diffusion"] = {"bT": float(d["bT"]), "bL": float(d["bL"]),
+                            "Dcoef": np.asarray(d["Dcoef"], dtype=np.float64),
+                            "ramp": bool(d["ramp"])}
     fisp_dispatch.device_params(out, device)
     return out
 

@@ -4,13 +4,16 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
 ``simulate()`` has two routes:
 
 * **the kernel dispatch**: a family table (JAX ``engine.py:874-940``)
-  tries FISP, CPMG, bSSFP, then DESS; the first match wins.  An exact
-  FISP train (fisp_dispatch.match_fisp) runs as one fused CUDA kernel
-  (models/cuda_fisp.py), a CPMG / multi-spin-echo train, DW-TSE included
-  (fisp_dispatch.match_mse), as the CPMG kernel (models/cuda_mse.py), a
-  balanced SSFP train (match_bssfp) as the k = 0 bSSFP kernel
-  (models/cuda_bssfp.py), a DESS train (match_dess) as the two-echo DESS
-  kernel (models/cuda_dess.py).  They engage only without ``probe``, and
+  tries FISP, CPMG, bSSFP, DESS, ME-GRE, then DW-FISP; the first match
+  wins.  An exact FISP train (fisp_dispatch.match_fisp) runs as one fused
+  CUDA kernel (models/cuda_fisp.py), a CPMG / multi-spin-echo train,
+  DW-TSE included (fisp_dispatch.match_mse), as the CPMG kernel
+  (models/cuda_mse.py), a balanced SSFP train (match_bssfp) as the k = 0
+  bSSFP kernel (models/cuda_bssfp.py), a DESS train (match_dess) as the
+  two-echo DESS kernel (models/cuda_dess.py), a multi-echo GRE train
+  (match_megre) as the ME-GRE kernel (models/cuda_megre.py), a DW-FISP
+  train (match_dwfisp) as the FISP kernel with its diffusion
+  attenuation.  They engage only without ``probe``, and
   so do their Jacobian probes
   (``probe=[ADC, Jacobian([...])]`` on a train whose E ops track
   ``order1=["T1", "T2"]`` and whose T ops may track B1): the fused
@@ -32,8 +35,10 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
   yet.
 
 The ladder capacity is fixed up front from the sequence's total shift
-count, capped by ``max_nstate``.  ``kvalue`` (rad/m per ladder index)
-scales the wavenumbers the diffusion operator reads.
+count, capped by ``max_nstate``; the count and the batch shape are
+memoized per operator list (``_sequence_preamble``, ``clear_caches``).
+``kvalue`` (rad/m per ladder index) scales the wavenumbers the diffusion
+operator reads.
 """
 
 from __future__ import annotations
@@ -51,7 +56,8 @@ from .statematrix import StateMatrix
 LOGGER = logging.getLogger(__name__)
 
 __all__ = ["simulate", "simulate_simple", "modify", "default_modifier",
-           "flatten_sequence", "getshape", "getnshift", "get_adc_times"]
+           "flatten_sequence", "getshape", "getnshift", "get_adc_times",
+           "clear_caches"]
 
 
 # -- sequence introspection (host-side) --
@@ -94,6 +100,32 @@ def get_adc_times(sequence):
     return times
 
 
+#: per-sequence preamble memo (JAX ``engine.py:293-338``): keyed on the
+#: operator identities, ``max_nstate`` and ``kvalue``; each entry pins its
+#: operator list so ids cannot be reused while cached, oldest evicted first
+_PREAMBLE_CACHE: dict = {}
+_PREAMBLE_CACHE_MAX = 32
+
+
+def clear_caches():
+    """Drop the per-sequence preamble memo and the dispatch's match memo
+    (needed only after mutating an operator's arrays in place)."""
+    from . import fisp_dispatch
+
+    _PREAMBLE_CACHE.clear()
+    fisp_dispatch.clear_cache()
+
+
+def _sequence_preamble(sequence, max_nstate, kvalue):
+    """Cached (nshift, shape) of a flat operator list: repeat simulate()
+    calls on one train (dictionary services, Gauss-Newton loops) skip the
+    O(n_ops) sweeps of :func:`getnshift` and :func:`getshape`."""
+    key = (max_nstate, float(kvalue)) + tuple(id(op) for op in sequence)
+    return common.memoize_on_ops(
+        _PREAMBLE_CACHE, _PREAMBLE_CACHE_MAX, key, sequence,
+        lambda: (getnshift(sequence), getshape(sequence)))
+
+
 def _capacity(nshift: int, max_nstate) -> int:
     """Static ladder half-capacity of a 1-D integer-shift sequence: exact
     with ``nshift``, capped at ``max_nstate``."""
@@ -111,7 +143,8 @@ def simulate_simple(sm, sequence, probes=None, callback=None, disp=False,
     `max_nstate` (the reference resizes inside each shift).
     """
     seq = flatten_sequence(sequence)
-    ncap = _capacity(getnshift(seq), max_nstate)
+    ncap = _capacity(_sequence_preamble(seq, max_nstate, sm.kvalue)[0],
+                     max_nstate)
     if sm.nstate < ncap:
         sm = sm.resize(ncap)
     if disp:
@@ -150,8 +183,9 @@ def _kernel_gate(fisp_kernel, what):
 
 def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp):
     """The family table (engine.py:874-940 of the JAX package): FISP,
-    CPMG, bSSFP, DESS; the first match wins, each family behind its own
-    shared-memory gate (none for bSSFP: its state is three registers).
+    CPMG, bSSFP, DESS, ME-GRE, DW-FISP; the first match wins, each family
+    behind its own shared-memory gate (none for bSSFP: its state is three
+    registers).
     Returns the kernel's echo train (N, *batch), or None (logged)."""
     from . import fisp_dispatch as fd
 
@@ -168,6 +202,14 @@ def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp):
          "bssfp"),
         (fd.match_dess, lambda p: fd.kernel_fits(ncap), fd.run_dess_kernel,
          "DESS", "dess"),
+        # the FISP kernel's 6 planes (cuda_megre.megre_kernel_fits)
+        (fd.match_megre, lambda p: fd.kernel_fits(ncap),
+         fd.run_megre_kernel, "ME-GRE", "megre"),
+        # the FISP kernel computes the attenuation rows per TR: its 6
+        # planes, not the JAX gate's 9 VMEM planes
+        (lambda seq: fd.match_dwfisp(seq, kvalue),
+         lambda p: fd.kernel_fits(ncap), fd.run_dwfisp_kernel, "DW-FISP",
+         "dw"),
     ]
     for matcher, fits, runner, family, tag in families:
         params = matcher(sequence)
@@ -226,10 +268,10 @@ def _diff_dispatch(sequence, probes, ncap, fisp_kernel, kvalue, disp):
 
 
 def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
-    """Jacobian probes on a FISP, CPMG, bSSFP or DESS train (engine.py:
-    1042-1136 of the JAX package): the fused primal+tangent kernel's
-    outputs, a tuple over probes, or None (logged) for the general
-    path."""
+    """Jacobian probes on a FISP, CPMG, bSSFP, DESS, ME-GRE or DW-FISP
+    train (engine.py:1042-1136 of the JAX package): the fused
+    primal+tangent kernel's outputs, a tuple over probes, or None (logged)
+    for the general path."""
     from . import fisp_dispatch
 
     # cheap probe-shape pre-check against the maximal variable set before
@@ -255,6 +297,18 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
         (fisp_dispatch.match_dess,
          lambda p: fisp_dispatch.jac_kernel_fits(ncap),
          fisp_dispatch.run_dess_jacobian, "DESS", "jac:dess"),
+        # 30 planes: the df tangent group (engine.py:1084-1085), the
+        # FISP Jacobian kernel's with its dD group
+        (fisp_dispatch.match_megre,
+         lambda p: fisp_dispatch.jac_kernel_fits(ncap, True),
+         fisp_dispatch.run_megre_jacobian, "ME-GRE", "jac:megre"),
+        # the FISP Jacobian kernel's 24 planes, 30 with the dD group (not
+        # the JAX gate's 30/36 VMEM planes: the attenuation rows are
+        # computed per TR)
+        (lambda seq: fisp_dispatch.match_dwfisp(seq, kvalue),
+         lambda p: fisp_dispatch.jac_kernel_fits(
+             ncap, p["d_var"] is not None),
+         fisp_dispatch.run_dwfisp_jacobian, "DW-FISP", "jac:dw"),
     ]
     for matcher, fits, runner, family, tag in families:
         params = matcher(sequence)
@@ -279,11 +333,11 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
                         len(params["FA"]), ncap)
         fisp_dispatch.count_dispatch(tag)
         return runner(params, ncap, specs)
-    # the ME-GRE, DW-FISP and composite Jacobian families of the JAX
-    # dispatcher are not ported yet (ROADMAP)
+    # the composite Jacobian family of the JAX dispatcher is not ported
+    # yet (ROADMAP)
     LOGGER.info("simulate: Jacobian kernels not used: not a FISP, CPMG, "
-                "bSSFP or DESS train (other Jacobian families are not "
-                "ported)")
+                "bSSFP, DESS, ME-GRE or DW-FISP train (other Jacobian "
+                "families are not ported)")
     return None
 
 
@@ -317,7 +371,7 @@ def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,
                        else probe_mod.Probe(pb)
                        for pb in (probe if isinstance(probe, (tuple, list))
                                   else [probe]))
-    nshift, shape = getnshift(sequence), getshape(sequence)
+    nshift, shape = _sequence_preamble(sequence, max_nstate, kvalue)
     ncap = _capacity(nshift, max_nstate)
     LOGGER.info("simulate: %d ops, nshift=%d, shape=%s", len(sequence),
                 nshift, shape)

@@ -48,8 +48,15 @@ recognizes the spoiler-free ``[T, E, ADC, E] * N`` train (the FISP
 matcher with ``spoiled=False``: no S op, and the E ops may track ``g``),
 :func:`match_dess` the double-echo ``[T, E, ADC, E, S(1), E, ADC] * N``
 train; their runners drive models/cuda_bssfp.py and models/cuda_dess.py.
-The DW-FISP, ME-GRE, EPG-X and composite families of the JAX dispatcher
-are not ported yet (ROADMAP).
+
+The ME-GRE family (``:1113-1346``): :func:`match_megre` recognizes the
+multi-echo spoiled GRE train ``[T, (E, ADC) * m, E?, S(1)] * N`` (m >= 2;
+E ops may track T1, T2 and g), run by models/cuda_megre.py.  The DW-FISP
+family (``:628-790``): :func:`match_dwfisp` is the FISP matcher with one D
+op after each shift (``dw=True``: the same D instance every TR, a host
+``kvalue``; a scalar D may be tracked as ``order1=["Dcoef"]``), run by the
+FISP kernels with their diffusion attenuation.  The EPG-X and composite
+families of the JAX dispatcher are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -61,7 +68,7 @@ import torch
 
 from . import common, config
 from .models import (cuda_bssfp, cuda_dess, cuda_fisp, cuda_hessian,
-                     cuda_mse)
+                     cuda_megre, cuda_mse)
 
 LOGGER = logging.getLogger(__name__)
 
@@ -72,8 +79,9 @@ __all__ = ["match_fisp", "run_fisp_kernel", "device_params", "kernel_fits",
            "run_mse_kernel", "run_mse_jacobian", "mse_kernel_fits",
            "mse_jac_kernel_fits", "match_bssfp", "run_bssfp_kernel",
            "run_bssfp_jacobian", "match_dess", "run_dess_kernel",
-           "run_dess_jacobian", "count_dispatch", "DISPATCH_COUNTS",
-           "clear_cache"]
+           "run_dess_jacobian", "match_megre", "run_megre_kernel",
+           "run_megre_jacobian", "match_dwfisp", "run_dwfisp_kernel", "run_dwfisp_jacobian",
+           "count_dispatch", "DISPATCH_COUNTS", "clear_cache"]
 
 #: per-sequence match memo keyed on operator identities; entries pin the
 #: operator list so ids cannot be reused while cached
@@ -103,24 +111,17 @@ def kernel_fits(nstate) -> bool:
     return cuda_fisp.kernel_fits(max(int(nstate), 1))
 
 
-def jac_kernel_fits(nstate) -> bool:
-    """Whether the FISP Jacobian kernel's 24 planes fit in one block's
-    shared memory (see cuda_fisp.jac_kernel_fits); the FISP family has
-    no diffusion, so its Jacobians never need the 30-plane layout."""
-    return cuda_fisp.jac_kernel_fits(max(int(nstate), 1))
+def jac_kernel_fits(nstate, track_diffusivity=False) -> bool:
+    """Whether the FISP Jacobian kernel's 24 planes (30 with the DW-FISP
+    dD group) fit in one block's shared memory (see
+    cuda_fisp.jac_kernel_fits)."""
+    return cuda_fisp.jac_kernel_fits(max(int(nstate), 1), track_diffusivity)
 
 
 def _memoized(key, sequence, compute):
-    """Memoize a matcher result (including non-matches) on `key`; the
-    entry pins the op list, oldest entries evict first."""
-    hit = _MATCH_CACHE.get(key)
-    if hit is not None:
-        return hit[0]
-    result = compute()
-    while len(_MATCH_CACHE) >= _MATCH_CACHE_MAX:
-        _MATCH_CACHE.pop(next(iter(_MATCH_CACHE)))
-    _MATCH_CACHE[key] = (result, list(sequence))
-    return result
+    """Memoize a matcher result (including non-matches) on `key`."""
+    return common.memoize_on_ops(_MATCH_CACHE, _MATCH_CACHE_MAX, key,
+                                 sequence, compute)
 
 
 def _is_device(x):
@@ -213,6 +214,27 @@ def _t_b1_order1(op):
     return _host_scalar_coeff(cfs["alpha"])
 
 
+def _d_order1(op):
+    """D-op order1 for diffusivity tracking (``epgpy_tpu/fisp_dispatch.py:
+    261``): no spec -> ``()`` (untracked); ``order1=["Dcoef"]`` or the alias
+    ``order1={"D": "Dcoef"}`` with unit coefficient -> the tracked name;
+    anything else -> None (no match)."""
+    if getattr(op, "order2", None):
+        return None
+    o1 = getattr(op, "order1", None)
+    if not o1:
+        return ()
+    if len(o1) != 1:
+        return None
+    (var, cfs), = o1.items()
+    if var not in ("D", "Dcoef") or not isinstance(cfs, dict) \
+            or set(cfs) != {"Dcoef"}:
+        return None
+    if _host_scalar_coeff(cfs["Dcoef"]) != 1.0:
+        return None
+    return var
+
+
 def _b1_scale_from_coeffs(FA, coeffs):
     """Shared-ratio validation for B1-tracked trains.
 
@@ -303,15 +325,18 @@ def match_fisp(sequence):
     return params
 
 
-def _match_fisp_impl(sequence, spoiled=True):
+def _match_fisp_impl(sequence, spoiled=True, dw=False, kvalue=1.0):
     """(params, None) for a FISP train -- with ``spoiled=False`` a balanced
-    ``[T, E, ADC, E] * N`` train (``match_bssfp``) -- else (None, reason)."""
+    ``[T, E, ADC, E] * N`` train (``match_bssfp``), with ``dw`` a DW-FISP
+    ``[T, E, ADC, E, S(1), D] * N`` train (``match_dwfisp``) -- else (None,
+    reason)."""
+    from .ops.diffusion import D as Dop
     from .ops.evolution import E
     from .ops.probe import Adc
     from .ops.shift import S
     from .ops.transition import T
 
-    group = 5 if spoiled else 4
+    group = 6 if dw else (5 if spoiled else 4)
     # balanced trains admit off-resonance tracking (bSSFP resolves df, so
     # dS/dg is a fitted column in MRF-bSSFP and the kernel carries a ddf
     # tangent group); the FISP kernels have no df tangent group
@@ -331,9 +356,9 @@ def _match_fisp_impl(sequence, spoiled=True):
         sequence = sequence[2:]
 
     alphas, phis, te_taus, tr_taus, adc_phases = [], [], [], [], []
-    b1_coeffs = []
+    b1_coeffs, d_ops, d_var = [], [], ()
     T1 = T2 = DF = tracked = None
-    types = (T, E, Adc, E, S)[:group]
+    types = (T, E, Adc, E, S, Dop)[:group]
     for i in range(len(sequence) // group):
         ops = sequence[group * i:group * i + group]
         for j, (op, typ) in enumerate(zip(ops, types)):
@@ -351,6 +376,15 @@ def _match_fisp_impl(sequence, spoiled=True):
             return None, (f"ops {at}-{at + group - 1}: derivative spec the "
                           f"kernel does not take")
         b1_coeffs.append(b1c)
+        if dw:
+            # the D op may track its diffusivity; every TR's D is one
+            # instance (checked by _dw_bvalue), so the spec is shared
+            dvar = _d_order1(ops[5])
+            if dvar is None:
+                return None, (f"op {at + 5}: D derivative spec the kernel "
+                              f"does not take")
+            d_var = dvar or d_var
+            d_ops.append(ops[5])
         c1, c2 = _canonical_order1(e1, allowed), _canonical_order1(e2, allowed)
         if c1 is None or c1 != c2 or (tracked is not None
                                       and tracked != c1):
@@ -481,6 +515,20 @@ def _match_fisp_impl(sequence, spoiled=True):
         if b1_scale is None:
             return None, "B1 chain-rule coefficients are not one ratio of FA"
 
+    diffusion = None
+    if dw:
+        if not isinstance(kvalue, (int, float)):
+            return None, f"kvalue {kvalue!r} is not a host number"
+        f = _dw_bvalue(d_ops, kvalue, allow_diff=bool(d_var))
+        if f is None:
+            return None, ("D ops are not one host D(tau, Dcoef, k=1 | None) "
+                          "instance")
+        bbase, ramp, dcoef = f
+        if d_var and np.ndim(dcoef) != 0:
+            # the kernel's dD column is the scalar-diffusivity tangent
+            return None, "a tracked D is not a scalar diffusivity"
+        diffusion = {"bT": bbase, "bL": bbase, "Dcoef": dcoef, "ramp": ramp}
+
     # n-D batch grids flatten to the kernel's atom axis (append rule);
     # run_fisp_kernel restores the batch shape on the outputs
     if not common.broadcastable(T1.shape, T2.shape, B1.shape, DF.shape):
@@ -488,12 +536,14 @@ def _match_fisp_impl(sequence, spoiled=True):
     bshape = common.broadcast_shapes(T1.shape, T2.shape, B1.shape, DF.shape)
     T1f, T2f, B1f, DFf = _append_rows((T1, T2, B1, DF), bshape)
     out_vars = tuple(tracked) + (("B1",) if b1_scale is not None else ())
+    if d_var:
+        out_vars = out_vars + (d_var,)
     return {
         "FA": FA, "phi": np.asarray(phis), "TR": TR, "TE": TE,
         "T1": T1f, "T2": T2f, "B1": B1f, "TI": TI, "inv_df": inv_df,
         "vars": tuple(sorted(out_vars)), "b1_scale": b1_scale,
-        "d_var": None, "demod": demod, "shape": bshape,
-        "df": DFf if DFf.any() else None, "diffusion": None,
+        "d_var": d_var or None, "demod": demod, "shape": bshape,
+        "df": DFf if DFf.any() else None, "diffusion": diffusion,
     }, None
 
 
@@ -512,13 +562,14 @@ def _cached_device(params, device, build, dtype=None):
 
 
 def device_params(params, device=None, dtype=torch.float32):
-    """The kernels' tensors for a FISP, bSSFP or DESS match dict (cached
-    on it), float32 unless `dtype` says otherwise (the plain twins take
-    float64 too).  TE stays a python float when constant (the kernels
-    hoist its decay factors)."""
+    """The kernels' tensors for a FISP, bSSFP, DESS, ME-GRE or DW-FISP
+    match dict (cached on it), float32 unless `dtype` says otherwise (the
+    plain twins take float64 too).  TE stays a python float when constant
+    (the kernels hoist its decay factors)."""
     def build(device, dtype):
         def vec(k):
-            return torch.as_tensor(np.array(params[k], np.float64),
+            # C order: an (m, N) ME-GRE TE comes transposed from the matcher
+            return torch.as_tensor(np.array(params[k], np.float64, order="C"),
                                    dtype=dtype, device=device)
 
         TE = params["TE"]
@@ -1485,5 +1536,264 @@ def run_dess_jacobian(params, nstate, specs):
     inv = _b1_inv(params, re.dtype)
     if inv is not None:
         cols["B1"] = (2, inv)
+    return _assemble_jac_outputs(re, im, dre, dim, specs,
+                                 tuple(params["shape"]), cols)
+
+
+# -- the ME-GRE family (epgpy_tpu/fisp_dispatch.py:1113-1346) --
+
+
+def match_megre(sequence):
+    """Match multi-echo spoiled GRE trains ``[T, (E, ADC) * m, E?, S(1)] *
+    N`` with m >= 2 echoes per TR (``epgpy_tpu/fisp_dispatch.py:1113``).
+
+    The T2*/B0-mapping acquisition: m echoes at increasing cumulative echo
+    times before the spoiler (single-echo trains belong to
+    :func:`match_fisp`; DESS reads its second echo after the shift and is
+    disjoint).  Per-TR flip, phase and timing, rank-1 ``outer(FA, B1)``
+    flips, per-atom off-resonance and ``Adc(phase=-phi)`` demodulation are
+    accepted; the echo count and the trailing E must be the same in every
+    TR.  E ops may track ``order1=["T1", "T2", "g"]`` (one spec on every
+    E), T ops B1.  Returns the JAX matcher's dict ``(FA, phi, TR, TE, T1,
+    T2, B1, TI, vars, b1_scale, demod, shape, nechoes, df)`` -- TE the (m,
+    N) cumulative echo times, TR the full TRs -- or None, logging the
+    reason at INFO; memoized on operator identities.
+    """
+    n = len(sequence)
+    if n < 12:
+        params, reason = None, f"{n} ops is shorter than 2 TRs of 2 echoes"
+    else:
+        key = ("megre",) + tuple(id(op) for op in sequence)
+        params, reason = _memoized(key, sequence,
+                                   lambda: _match_megre_impl(sequence))
+    if params is None:
+        LOGGER.info("match_megre: not an ME-GRE train: %s", reason)
+    return params
+
+
+def _match_megre_impl(sequence):
+    """(params, None) for an ME-GRE train, else (None, reason)."""
+    from .ops.evolution import E
+    from .ops.probe import Adc
+    from .ops.shift import S
+    from .ops.transition import T
+
+    # echo count and block shape from the first TR
+    if type(sequence[0]) is not T:
+        return None, "op 0 is not T"
+    m, i = 0, 1
+    while (i + 1 < len(sequence) and type(sequence[i]) is E
+           and type(sequence[i + 1]) is Adc):
+        m, i = m + 1, i + 2
+    if m < 2 or i >= len(sequence):
+        return None, f"TR 0 reads {m} echo(es), not m >= 2 before the shift"
+    has_rest = type(sequence[i]) is E
+    L = 2 + 2 * m + int(has_rest)
+    if len(sequence) % L != 0 or len(sequence) // L < 2:
+        return None, (f"{len(sequence)} ops is not N >= 2 blocks of TR 0's "
+                      f"{L} ops")
+
+    alphas, phis, adc_phases, te_rows, tr_taus, b1_coeffs = \
+        [], [], [], [], [], []
+    T1 = T2 = DF = tracked = None
+    for b in range(len(sequence) // L):
+        blk = sequence[L * b:L * (b + 1)]
+        at = L * b
+        t_op, s_op = blk[0], blk[-1]
+        e_ops = list(blk[1:1 + 2 * m:2]) + (list(blk[-2:-1]) if has_rest
+                                            else [])
+        adcs = blk[2:2 + 2 * m:2]
+        if (type(t_op) is not T or type(s_op) is not S
+                or any(type(e) is not E for e in e_ops)
+                or any(type(a) is not Adc for a in adcs)):
+            return None, f"ops {at}-{at + L - 1}: not TR 0's block shape"
+        b1c = _t_b1_order1(t_op)
+        if b1c is None or not all(map(_no_diff, [s_op] + list(adcs))):
+            return None, (f"ops {at}-{at + L - 1}: derivative spec the "
+                          f"kernel does not take")
+        b1_coeffs.append(b1c)
+        if s_op.k != 1:
+            return None, f"op {at + L - 1}: shift is not S(1)"
+        cs = [_canonical_order1(e, allowed=("T1", "T2", "g")) for e in e_ops]
+        if cs[0] is None or any(c != cs[0] for c in cs) \
+                or (tracked is not None and tracked != cs[0]):
+            return None, (f"ops {at}-{at + L - 1}: E derivative specs are "
+                          f"not one canonical T1/T2/g tracking")
+        tracked = cs[0]
+        ph = _scalar(t_op.phi)
+        taus = [_scalar(e.tau) for e in e_ops]
+        if ph is None or any(t is None for t in taus):
+            return None, (f"ops {at}-{at + L - 1}: phase or delay not a "
+                          f"host scalar")
+        for adc in adcs:
+            ph_adc = None if adc.phase is None else _scalar(adc.phase)
+            if adc.attr != "F0" or (adc.phase is not None
+                                    and ph_adc is None):
+                return None, f"ops {at}-{at + L - 1}: not a plain F0 readout"
+            adc_phases.append(ph_adc)
+        gs = [_host_nd(e.g) for e in e_ops]
+        if any(g is None for g in gs) \
+                or any(not np.array_equal(gs[0], g) for g in gs[1:]):
+            return None, f"ops {at}-{at + L - 1}: off-resonance differs"
+        if DF is None:
+            DF = gs[0]
+        elif not np.array_equal(DF, gs[0]):
+            return None, f"op {at + 1}: off-resonance differs from TR 0's"
+        for e in e_ops:
+            t1v, t2v = _host_nd(e.T1), _host_nd(e.T2)
+            if t1v is None or t2v is None:
+                return None, f"{e.name}: T1/T2 not host values"
+            if T1 is None:
+                T1, T2 = t1v, t2v
+            elif not (np.array_equal(T1, t1v) and np.array_equal(T2, t2v)):
+                return None, f"{e.name}: T1/T2 differ from TR 0's"
+        a = _host_nd(t_op.alpha)
+        if a is None:
+            return None, f"op {at}: flip angle not a host value"
+        alphas.append(a)
+        phis.append(ph)
+        te_rows.append(np.cumsum(taus[:m]))
+        tr_taus.append(float(np.sum(taus)))
+
+    TE = np.asarray(te_rows).T                       # (m, N)
+    TR = np.asarray(tr_taus)
+    # ADC phases: all absent -> plain; all equal to -phi_i -> receiver
+    # demodulation on every echo
+    if all(p is None for p in adc_phases):
+        demod = False
+    elif any(p is None for p in adc_phases):
+        return None, "some readouts are demodulated, some not"
+    else:
+        d = (np.asarray(adc_phases) + np.repeat(np.asarray(phis), m)) % 360.0
+        if (np.minimum(d, 360.0 - d) > 1e-6).any():
+            return None, "readout phases are not -phi_i"
+        demod = True
+    fab = _rank1_factor(alphas)
+    if fab is None:
+        return None, "flip angles are not rank-1 outer(FA, B1)"
+    FA, B1 = fab
+    b1_scale = None
+    if any(c != () for c in b1_coeffs):
+        b1_scale = _b1_scale_from_coeffs(FA, b1_coeffs)
+        if b1_scale is None:
+            return None, "B1 chain-rule coefficients are not one ratio of FA"
+    if not common.broadcastable(T1.shape, T2.shape, B1.shape, DF.shape):
+        return None, "T1, T2, B1 and df batch shapes do not broadcast"
+    bshape = common.broadcast_shapes(T1.shape, T2.shape, B1.shape, DF.shape)
+    T1f, T2f, B1f, DFf = _append_rows((T1, T2, B1, DF), bshape)
+    return {
+        "FA": FA, "phi": np.asarray(phis), "TR": TR, "TE": TE,
+        "T1": T1f, "T2": T2f, "B1": B1f, "TI": None,
+        "vars": tracked if b1_scale is None
+        else tuple(sorted(tracked + ("B1",))),
+        "b1_scale": b1_scale, "demod": demod, "shape": bshape,
+        "nechoes": m, "df": DFf if DFf.any() else None,
+    }, None
+
+
+def run_megre_kernel(params, nstate):
+    """Run the ME-GRE kernel on a match dict; returns the echo trains as
+    one complex tensor in the engine's layout, (m N, *batch) with row i m
+    + j for echo j of TR i (the kernel writes that order)."""
+    re, im = cuda_megre.megre_echoes(
+        *_ssfp_args(params), nstate=max(int(nstate), 1),
+        demodulate=bool(params.get("demod")))
+    return torch.complex(re, im).reshape((re.shape[0],)
+                                         + tuple(params["shape"]))
+
+
+def run_megre_jacobian(params, nstate, specs):
+    """Run the ME-GRE Jacobian kernel for matched diff probes
+    (``epgpy_tpu/fisp_dispatch.py:1333``): columns T1 0, T2 1, B1 2
+    (divided by the matcher's ``b1_scale``) and g 3, the off-resonance
+    column, exact at df = 0.  Returns a tuple over probes: signal (m N,
+    *batch), Jacobian (m N, *batch, k) in ADC order."""
+    (re, im), (dre, dim) = cuda_megre.megre_jacobian_echoes(
+        *_ssfp_args(params), nstate=max(int(nstate), 1),
+        demodulate=bool(params.get("demod")))
+    cols = {"T1": (0, None), "T2": (1, None), "g": (3, None)}
+    inv = _b1_inv(params, re.dtype)
+    if inv is not None:
+        cols["B1"] = (2, inv)
+    return _assemble_jac_outputs(re, im, dre, dim, specs,
+                                 tuple(params["shape"]), cols)
+
+
+# -- the DW-FISP family (epgpy_tpu/fisp_dispatch.py:628-790) --
+
+
+def match_dwfisp(sequence, kvalue=1.0):
+    """Match diffusion-weighted FISP trains ``[T, E, ADC, E, S(1), D] * N``
+    (optionally after a ``[T, E(TI)]`` prep; ``epgpy_tpu/fisp_dispatch.py:
+    669``).
+
+    One isotropic or tensor ``D`` op right after each unit spoiler (``k=1``
+    gradient-ramp attenuation, or ``k=None`` constant k), the same op
+    instance every TR; ``kvalue`` (rad/m per state index, a host number)
+    sets the physical b-values.  A scalar D may track its diffusivity
+    (``order1=["Dcoef"]``).  Returns the :func:`match_fisp` dict with its
+    ``diffusion`` entry ``(bT, bL, Dcoef, ramp)`` and ``d_var``, or None,
+    logging the reason at INFO; memoized on operator identities and
+    kvalue.
+    """
+    n = len(sequence)
+    if n < 12 or n % 6 not in (0, 2) or not isinstance(kvalue, (int, float)):
+        params, reason = None, (
+            f"{n} ops (kvalue {kvalue!r}) is not [T, E, ADC, E, S(1), D] x N "
+            f"(N >= 2), optionally after a [T, E] prep, with a host kvalue")
+    else:
+        key = ("dw", float(kvalue)) + tuple(id(op) for op in sequence)
+        params, reason = _memoized(key, sequence, lambda: _match_fisp_impl(
+            sequence, dw=True, kvalue=kvalue))
+    if params is None:
+        LOGGER.info("match_dwfisp: not a DW-FISP train: %s", reason)
+    return params
+
+
+def _dw_diffusion(params):
+    """The FISP kernels' ``diffusion=(bT, bL, Dc)`` and ramp flag of a
+    DW-FISP match dict: a tensor D with 1-D wavenumbers reduces to
+    ``sum(D)`` (reference epgpy/diffusion.py broadcast semantics), a
+    scalar the kernels broadcast over the atoms."""
+    diff = params["diffusion"]
+    Dc = np.asarray(diff["Dcoef"], np.float64)
+    Dc = float(Dc if Dc.ndim == 0 else Dc.sum())
+    return (float(diff["bT"]), float(diff["bL"]), Dc), bool(diff["ramp"])
+
+
+def run_dwfisp_kernel(params, nstate):
+    """Run the FISP kernel with its DW-FISP attenuation on a match dict;
+    returns the echo train as a complex tensor in the engine's layout,
+    (N, *batch)."""
+    diffusion, ramp = _dw_diffusion(params)
+    re, im = cuda_fisp.fisp_echoes(
+        *_ssfp_args(params), nstate=max(int(nstate), 1),
+        demodulate=bool(params.get("demod")), inversion=params.get("TI"),
+        inversion_df=bool(params.get("inv_df")), diffusion=diffusion,
+        diff_ramp=ramp)
+    return torch.complex(re, im).reshape((re.shape[0],)
+                                         + tuple(params["shape"]))
+
+
+def run_dwfisp_jacobian(params, nstate, specs):
+    """Run the FISP Jacobian kernel with its DW-FISP attenuation for
+    matched diff probes (``epgpy_tpu/fisp_dispatch.py:752``): the T1, T2
+    and B1 groups ride through the parameter-free attenuation, a tracked
+    diffusivity adds the dD column (3, named by ``d_var``), the dB1 column
+    is divided by the matcher's ``b1_scale``.  Returns a tuple over
+    probes: signal (N, *batch), Jacobian (N, *batch, k)."""
+    diffusion, ramp = _dw_diffusion(params)
+    d_var = params.get("d_var")
+    (re, im), (dre, dim) = cuda_fisp.fisp_jacobian_echoes(
+        *_ssfp_args(params), nstate=max(int(nstate), 1),
+        demodulate=bool(params.get("demod")), inversion=params.get("TI"),
+        inversion_df=bool(params.get("inv_df")), diffusion=diffusion,
+        diff_ramp=ramp, track_diffusivity=d_var is not None)
+    cols = {"T1": (0, None), "T2": (1, None)}
+    inv = _b1_inv(params, re.dtype)
+    if inv is not None:
+        cols["B1"] = (2, inv)
+    if d_var is not None:
+        cols[d_var] = (3, None)
     return _assemble_jac_outputs(re, im, dre, dim, specs,
                                  tuple(params["shape"]), cols)

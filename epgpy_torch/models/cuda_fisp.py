@@ -13,7 +13,15 @@ against on the card.
 what the kernel does not take: no fallback) and the plain twin for CPU
 tensors.  ``LAUNCHES`` counts kernel launches.  The TPU-only knobs of the
 JAX signature (``btile``, ``pchunk``, ``interpret``, ``half_ladder``) are
-not taken: there is no padding and no full-ladder variant here.
+not taken: there is no padding.
+
+The full-ladder kernel (``_kernel`` :116, ``fisp_dictionary_pallas``'s
+``half_ladder=False``) is ``fisp_full_ladder_cuda`` / ``_plain`` (kernel
+``epgpy_torch/csrc/fisp_full.cu``: the literal 2 nstate + 1 rows, no
+diffusion; ``FULL_LAUNCHES``).  The dictionary functions take it at
+``nstate < 1``, where the fold has no k = 1 row, as the JAX wrapper does
+(``pallas_fisp.py:957``); otherwise it is the fold's parity oracle.  Its
+twin is also ``models/mrf.py``'s full-ladder model.
 
 The Jacobian (``fisp_jacobian_pallas`` :775 with ``_kernel_jac`` :458)
 follows the same pattern: ``fisp_jacobian_cuda`` / ``fisp_jacobian_plain``
@@ -34,12 +42,17 @@ from . import planes
 __all__ = ["fisp_dictionary_cuda", "fisp_dictionary_plain", "fisp_echoes",
            "fisp_echoes_plain", "kernel_fits", "block_size", "SMEM_PER_BLOCK",
            "fisp_jacobian_cuda", "fisp_jacobian_plain", "fisp_jacobian_echoes",
-           "fisp_jacobian_echoes_plain", "jac_kernel_fits", "jac_block_size"]
+           "fisp_jacobian_echoes_plain", "jac_kernel_fits", "jac_block_size",
+           "fisp_full_ladder_cuda", "fisp_full_ladder_plain",
+           "fisp_full_echoes", "fisp_full_echoes_plain", "full_kernel_fits",
+           "full_block_size"]
 
 #: kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
 #: Jacobian kernel launches so far
 JAC_LAUNCHES = 0
+#: full-ladder kernel launches so far
+FULL_LAUNCHES = 0
 
 #: shared memory one block may use on sm_90 (H100), bytes
 SMEM_PER_BLOCK = 232448
@@ -122,6 +135,20 @@ def _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
     return x
 
 
+def _full_ladder(nstate, diffusion):
+    """Whether a dictionary call takes the full-ladder kernel: at nstate 0
+    (the fold needs a k = 1 row); raises below 0, and for diffusion there,
+    which the JAX wrapper takes only on the half ladder."""
+    if int(nstate) < 0:
+        raise ValueError(f"nstate must be >= 0, got {nstate}")
+    if int(nstate) >= 1:
+        return False
+    if diffusion is not None:
+        raise ValueError("diffusion requires the half-ladder kernel "
+                         "(nstate >= 1)")
+    return True
+
+
 def _takes_twin(T1s, what):
     """Whether a wrapper runs the plain twin (CPU tensors) rather than the
     CUDA kernel (CUDA tensors); raises for anything else."""
@@ -137,9 +164,13 @@ def fisp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
                       nstate=10, demodulate=False, inversion=None,
                       inversion_df=True, diffusion=None, diff_ramp=True):
     """Echo train (re, im), each (P, B), by the plain PyTorch recurrence
-    (the kernel's twin), on T1s's device in T1s's dtype."""
-    if int(nstate) < 1:
-        raise ValueError("the folded ladder needs nstate >= 1")
+    (the kernel's twin), on T1s's device in T1s's dtype; nstate 0 takes
+    the full-ladder twin."""
+    if _full_ladder(nstate, diffusion):
+        return fisp_full_echoes_plain(
+            FA, phi, TR, TE, T1s, T2s, B1s, dfs, nstate=nstate,
+            demodulate=demodulate, inversion=inversion,
+            inversion_df=inversion_df)
     x = _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
                  strict=False)
     T1, T2, B1, DF = x["T1"], x["T2"], x["B1"], x["df"]
@@ -221,7 +252,13 @@ def fisp_echoes(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *, nstate=10,
                 demodulate=False, inversion=None, inversion_df=True,
                 diffusion=None, diff_ramp=True):
     """Echo train (re, im), each (P, B) float32: the CUDA kernel for CUDA
-    tensors, the plain twin for CPU tensors."""
+    tensors, the plain twin for CPU tensors; nstate 0 takes the
+    full-ladder kernel."""
+    if _full_ladder(nstate, diffusion):
+        return fisp_full_echoes(FA, phi, TR, TE, T1s, T2s, B1s, dfs,
+                                nstate=nstate, demodulate=demodulate,
+                                inversion=inversion,
+                                inversion_df=inversion_df)
     kw = dict(nstate=nstate, demodulate=demodulate, inversion=inversion,
               inversion_df=inversion_df, diffusion=diffusion,
               diff_ramp=diff_ramp)
@@ -238,8 +275,6 @@ def _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate,
     if T1s.dtype != torch.float32:
         raise TypeError(f"the FISP kernel computes in float32, got {T1s.dtype}")
     nstate = int(nstate)
-    if nstate < 1:
-        raise ValueError("the folded ladder needs nstate >= 1")
     if not kernel_fits(nstate):
         raise ValueError(f"nstate={nstate}: the kernel state does not fit "
                          f"in {SMEM_PER_BLOCK} bytes of shared memory")
@@ -609,3 +644,215 @@ def fisp_jacobian_cuda(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
         demodulate=demodulate, inversion=inversion,
         inversion_df=inversion_df, diffusion=diffusion, diff_ramp=diff_ramp,
         track_diffusivity=track_diffusivity))
+
+
+# -- the full ladder: 2 nstate + 1 rows of F+, F- and Z --
+
+
+def full_kernel_fits(nstate) -> bool:
+    """Whether the full-ladder kernel's state fits at its smallest block
+    (32 threads): 6 planes x (2 nstate + 1) rows x 32 atoms x 4 bytes --
+    nstate <= 150."""
+    return 4 * _PLANES * (2 * int(nstate) + 1) * 32 <= SMEM_PER_BLOCK
+
+
+def full_block_size(nstate) -> int:
+    """Threads per block of the full-ladder kernel: 128, halved while the
+    state does not fit."""
+    block = 128
+    while block > 32 and (4 * _PLANES * (2 * int(nstate) + 1) * block
+                          > SMEM_PER_BLOCK):
+        block //= 2
+    return block
+
+
+def fisp_full_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                           nstate=10, demodulate=False, inversion=None,
+                           inversion_df=True):
+    """Echo train (re, im), each (P, B), on the literal 2 nstate + 1-row
+    ladder (k = 0 at row nstate) by the plain PyTorch recurrence (the
+    full-ladder kernel's twin), on T1s's device in T1s's dtype.  It is the
+    port's one full-ladder program: ``models/mrf.fisp_mrf_dictionary``
+    runs it and ``fisp_mrf_jacobian`` differentiates it forward, so it
+    writes nothing in place (``torch.func.jvp`` under ``vmap``)."""
+    N = int(nstate)
+    if N < 0:
+        raise ValueError(f"nstate must be >= 0, got {nstate}")
+    x = _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, None,
+                 strict=False)
+    T1, T2, B1, DF = x["T1"], x["T2"], x["B1"], x["df"]
+    K = 2 * N + 1
+    use_df = DF is not None
+    z = torch.zeros((K, x["B"]), dtype=T1.dtype, device=T1.device)
+    centre = torch.zeros((K, 1), dtype=T1.dtype, device=T1.device)
+    centre[N] = 1.0                    # the k = 0 row
+    # F+ re, F+ im, F- re, F- im, Z re, Z im
+    if x["TI"] is not None:
+        TI = x["TI"]
+        (fpi, z0), _ = planes.inversion_prep(B1, T1, T2, TI)
+        if use_df and inversion_df:
+            th = 2 * math.pi * DF * TI
+            cth, sth = torch.cos(th), torch.sin(th)
+            s = [centre * v for v in (-fpi * sth, fpi * cth, -fpi * sth,
+                                      -fpi * cth, z0)] + [z]
+        else:
+            s = [z, centre * fpi, z, centre * -fpi, centre * z0, z]
+    else:
+        s = [z, z, z, z, centre.expand_as(z), z]
+
+    deg = math.pi / 180.0
+    cp, sp, c2p, s2p = planes.phase_terms(x["phi"] * deg)
+    var_te = isinstance(x["TE"], torch.Tensor)
+    if not var_te:
+        te = x["TE"]
+        e1te, e2te = torch.exp(-te / T1), torch.exp(-te / T2)
+    out_re, out_im = [], []
+    FA, TR = x["FA"], x["TR"]
+    cmul = planes.cmul
+    for i in range(x["P"]):
+        if var_te:
+            te = x["TE"][i]
+            e1te, e2te = torch.exp(-te / T1), torch.exp(-te / T2)
+        (cos2, m01r, m01i, m02r, m02i, ca, m20r, m20i, m21r,
+         m21i) = planes.rot_coeffs(FA[i] * B1 * deg, cp[i], sp[i], c2p[i],
+                                   s2p[i])
+        m12r, m12i = m02r, -m02i       # m12 = i e^{-i phi} sin a
+        rem = TR[i] - te
+        E1b = torch.exp(-rem / T1)
+        E2b = torch.exp(-rem / T2)
+        cF = e2te * E2b
+        cZ = e1te * E1b
+        rec = (1.0 - e1te) * E1b + (1.0 - E1b)
+        zero = torch.zeros_like(cF)
+        if use_df:
+            ang_te = 2 * math.pi * DF * te
+            pteR, pteI = torch.cos(ang_te), torch.sin(ang_te)
+            ang = 2 * math.pi * DF * (te + rem)
+            pR, pI = torch.cos(ang), torch.sin(ang)
+            cFpR, cFpI, cFmR, cFmI = cF * pR, cF * pI, cF * pR, -cF * pI
+        else:
+            cFpR, cFpI, cFmR, cFmI = cF, zero, cF, zero
+        FpR, FpI, FmR, FmI, ZR, ZI = s
+
+        # echo from the k = 0 row (post-rotation, post-TE decay)
+        bR, bI = cmul(m01r, m01i, FmR[N], FmI[N])
+        dR, dI = cmul(m02r, m02i, ZR[N], ZI[N])
+        eR = (cos2 * FpR[N] + bR + dR) * e2te
+        eI = (cos2 * FpI[N] + bI + dI) * e2te
+        if use_df:
+            eR, eI = cmul(pteR, pteI, eR, eI)
+        if demodulate:
+            eR, eI = eR * cp[i] + eI * sp[i], eI * cp[i] - eR * sp[i]
+        out_re.append(eR)
+        out_im.append(eI)
+
+        # the relaxation folded into the rotation rows
+        c00 = cmul(cFpR, cFpI, cos2, zero)
+        c01 = cmul(cFpR, cFpI, m01r, m01i)
+        c02 = cmul(cFpR, cFpI, m02r, m02i)
+        aR, aI = cmul(*c00, FpR, FpI)
+        bR, bI = cmul(*c01, FmR, FmI)
+        dR, dI = cmul(*c02, ZR, ZI)
+        nFpR, nFpI = aR + bR + dR, aI + bI + dI
+        c10 = cmul(cFmR, cFmI, m01r, -m01i)
+        c11 = cmul(cFmR, cFmI, cos2, zero)
+        c12 = cmul(cFmR, cFmI, m12r, m12i)
+        aR, aI = cmul(*c10, FpR, FpI)
+        bR, bI = cmul(*c11, FmR, FmI)
+        dR, dI = cmul(*c12, ZR, ZI)
+        nFmR, nFmI = aR + bR + dR, aI + bI + dI
+        aR, aI = cmul(m20r * cZ, m20i * cZ, FpR, FpI)
+        bR, bI = cmul(m21r * cZ, m21i * cZ, FmR, FmI)
+        zz = ca * cZ
+        nZR = aR + bR + zz * ZR
+        nZR = torch.cat([nZR[:N], (nZR[N] + rec)[None], nZR[N + 1:]])
+        # unit shift: F+ up a row, F- down a row, zero-filled
+        zrow = z[:1]
+        s = [torch.cat([zrow, nFpR[:-1]]), torch.cat([zrow, nFpI[:-1]]),
+             torch.cat([nFmR[1:], zrow]), torch.cat([nFmI[1:], zrow]),
+             nZR, aI + bI + zz * ZI]
+    return torch.stack(out_re), torch.stack(out_im)
+
+
+def fisp_full_echoes(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *, nstate=10,
+                     demodulate=False, inversion=None, inversion_df=True):
+    """Echo train (re, im), each (P, B) float32, on the full ladder: the
+    CUDA kernel for CUDA tensors, the plain twin for CPU tensors."""
+    kw = dict(nstate=nstate, demodulate=demodulate, inversion=inversion,
+              inversion_df=inversion_df)
+    if _takes_twin(T1s, "full-ladder FISP"):
+        return fisp_full_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs,
+                                      **kw)
+    return _launch_full(FA, phi, TR, TE, T1s, T2s, B1s, dfs, **kw)
+
+
+def _launch_full(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate,
+                 inversion, inversion_df):
+    global FULL_LAUNCHES
+    from .. import _build
+
+    if T1s.dtype != torch.float32:
+        raise TypeError(f"the full-ladder FISP kernel computes in float32, "
+                        f"got {T1s.dtype}")
+    nstate = int(nstate)
+    if nstate < 0:
+        raise ValueError(f"nstate must be >= 0, got {nstate}")
+    if not full_kernel_fits(nstate):
+        raise ValueError(f"nstate={nstate}: the full-ladder kernel state does"
+                         f" not fit in {SMEM_PER_BLOCK} bytes of shared "
+                         f"memory")
+    x = _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, None,
+                 strict=True)
+    P, B = x["P"], x["B"]
+    out_re = torch.empty((P, B), dtype=torch.float32, device=T1s.device)
+    out_im = torch.empty_like(out_re)
+    var_te = isinstance(x["TE"], torch.Tensor)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    # asynchronous on the current stream; see _launch on temporaries
+    lib = _build.load()
+    rc = lib.epg_fisp_full(
+        ptr(x["FA"]), ptr(x["phi"]), ptr(x["TR"]),
+        ptr(x["TE"]) if var_te else None, 0.0 if var_te else x["TE"],
+        0.0 if x["TI"] is None else x["TI"],
+        ptr(x["T1"]), ptr(x["T2"]), ptr(x["B1"]), ptr(x["df"]),
+        ptr(out_re), ptr(out_im), P, B, nstate, int(var_te),
+        int(x["TI"] is not None), int(bool(inversion_df)),
+        int(x["df"] is not None), int(bool(demodulate)),
+        full_block_size(nstate),
+        T1s.device.index if T1s.device.index is not None
+        else torch.cuda.current_device(),
+        torch.cuda.current_stream(T1s.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fisp_full kernel launch failed: CUDA error {rc}")
+    FULL_LAUNCHES += 1
+    return out_re, out_im
+
+
+def fisp_full_ladder_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                           nstate=10, demodulate=False, inversion=None,
+                           inversion_df=True, normalize=False):
+    """FISP dictionary on the full ladder by the plain PyTorch twin of the
+    kernel.  Arguments and returns as :func:`fisp_full_ladder_cuda`; any
+    device, either precision."""
+    re, im = fisp_full_echoes_plain(
+        FA, phi, TR, TE, T1s, T2s, B1s, dfs, nstate=nstate,
+        demodulate=demodulate, inversion=inversion,
+        inversion_df=inversion_df)
+    return _finish(re, im, normalize)
+
+
+def fisp_full_ladder_cuda(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                          nstate=10, demodulate=False, inversion=None,
+                          inversion_df=True, normalize=False):
+    """FISP MRF dictionary via the full-ladder CUDA kernel (the JAX
+    wrapper's ``half_ladder=False``): arguments and returns as
+    :func:`fisp_dictionary_cuda` without diffusion, any nstate >= 0 (up
+    to 150 on the card)."""
+    re, im = fisp_full_echoes(
+        FA, phi, TR, TE, T1s, T2s, B1s, dfs, nstate=nstate,
+        demodulate=demodulate, inversion=inversion,
+        inversion_df=inversion_df)
+    return _finish(re, im, normalize)

@@ -15,7 +15,9 @@ tangents, and the post-shift attenuation of every plane of a set.  The
 balanced-SSFP kernels (``epgpy_tpu/models/pallas_bssfp.py:113-122,
 261-267``) add the rotation restricted to k = 0 (three floats per atom,
 no ladder; its B1 derivative is :func:`rot_coeffs_db1` through the same
-function).
+function).  The multi-echo GRE kernels (``epgpy_tpu/models/
+pallas_megre.py:129-143, 304-343``) add the echo copy of the rotated k = 0
+row and the off-resonance tangent of a phasor.
 
 A plane set is the 6-tuple ``(AR, AI, BR, BI, ZR, ZI)`` of ``(nstate + 1,
 B)`` real tensors with A(k) = F+(k), B(k) = F+(-k) and Z(k), k = 0..N;
@@ -31,7 +33,7 @@ import torch
 
 __all__ = ["cmul", "phase_terms", "rot_coeffs", "rot_coeffs_db1", "rot_A",
            "rot_B", "rot_Z", "apply_rot", "rot_k0", "shift_fold",
-           "te_terms", "relax_tangents",
+           "te_terms", "echo_copy", "df_tangent", "relax_tangents",
            "relax_tau_terms", "inversion_prep", "diff_attenuation",
            "excitation", "excitation_terms", "half_relax",
            "half_relax_tangents", "attenuate"]
@@ -81,6 +83,23 @@ def te_terms(te, T2, DF):
         ang = 2 * math.pi * DF * te
         pte = (torch.cos(ang), torch.sin(ang))
     return e2te, e2te * te / (T2 * T2), pte
+
+
+def echo_copy(e2te, pte, re, im):
+    """One echo of the multi-echo GRE kernels: the rotated k = 0 row
+    (re, im) decayed by e2te and, with off-resonance, phased by pte (the
+    (cos, sin) pair of :func:`te_terms`; None without df)."""
+    eR, eI = e2te * re, e2te * im
+    if pte is not None:
+        eR, eI = cmul(pte[0], pte[1], eR, eI)
+    return eR, eI
+
+
+def df_tangent(t, re, im):
+    """d/ddf of e^{i 2 pi df t} (re + i im): i 2 pi t (re + i im), the
+    off-resonance tangent of a phasor over a time t (ms; df in kHz)."""
+    w = 2 * math.pi * t
+    return -w * im, w * re
 
 
 def relax_tangents(cZ, cF, TR, T1, T2):

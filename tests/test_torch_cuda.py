@@ -1,6 +1,6 @@
-"""The CUDA kernels (FISP dictionary, Jacobian, per-pulse Hessian; CPMG
-dictionary, Jacobian, per-echo design; bSSFP and DESS dictionary and
-Jacobian) vs their plain twins, on the card.
+"""The CUDA kernels (FISP dictionary, full ladder, Jacobian, per-pulse
+Hessian; CPMG dictionary, Jacobian, per-echo design; bSSFP, DESS and ME-GRE
+dictionary and Jacobian) vs their plain twins, on the card.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it runs on the GPU machine as it is:
@@ -11,16 +11,18 @@ JAX, so it runs on the GPU machine as it is:
 import pytest
 import torch
 
-from chip_smoke import (BSSFP_CASES, DESIGN_CASES, DESS_CASES, HESS_CASES,
-                        JAC_CASES, MSE_CASES, OPTION_CASES, _atom_tensors,
-                        _causal_max, _pair_errors, hess_block_errors,
-                        hessian_sequence, make_bssfp_case, make_case,
-                        make_design_case, make_dess_case, make_hess_case,
-                        make_jac_case, make_mse_case, mse_grid, mse_sequence,
-                        _tensors)
+from chip_smoke import (BSSFP_CASES, DESIGN_CASES, DESS_CASES, FULL_CASES,
+                        HESS_CASES, JAC_CASES, MEGRE_CASES, MSE_CASES,
+                        OPTION_CASES, _atom_tensors, _causal_max,
+                        _pair_errors, hess_block_errors, hessian_sequence,
+                        make_bssfp_case, make_case, make_design_case,
+                        make_dess_case, make_full_case, make_hess_case,
+                        make_jac_case, make_megre_case, make_mse_case,
+                        megre_sequence, mse_grid, mse_sequence, _tensors)
 from epgpy_torch import config
 from epgpy_torch.models import (cuda_bssfp, cuda_dess, cuda_fisp,
-                                cuda_hessian, cuda_mse, cuda_msedesign)
+                                cuda_hessian, cuda_megre, cuda_mse,
+                                cuda_msedesign)
 
 
 @pytest.fixture
@@ -282,5 +284,101 @@ def test_cuda_bssfp_and_dess_through_simulate(card):
         assert np.abs(sig - ref[0]).max() < 1e-6
         assert np.abs(jsig - ref[0]).max() < 1e-6
         for c in range(3):
+            assert np.abs(jac[..., c] - ref[1][..., c]).max() \
+                < 1e-4 * np.abs(ref[1][..., c]).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MEGRE_CASES, ids=lambda c: c["name"])
+def test_cuda_megre_kernels_match_plain_twins(card, case):
+    """On the card: the ME-GRE kernel's echoes == its twin's to 2e-6; the
+    ME-GRE Jacobian kernel's echoes to 2e-6 and its (T1, T2, B1, df)
+    columns to 1e-5 of the column's largest value (the df column at
+    dfs=None included)."""
+    args, kw = _tensors(torch, *make_megre_case(case, 1000, 120), "cuda")
+    before = (cuda_megre.LAUNCHES, cuda_megre.JAC_LAUNCHES)
+    k = cuda_megre.megre_echoes(*args, **kw)
+    kj = cuda_megre.megre_jacobian_echoes(*args, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_megre.LAUNCHES, cuda_megre.JAC_LAUNCHES) == (before[0] + 1,
+                                                              before[1] + 1)
+    sig, _ = _pair_errors(torch, k,
+                          cuda_megre.megre_echoes_plain(*args, **kw), False)
+    jsig, cols = _pair_errors(
+        torch, kj, cuda_megre.megre_jacobian_echoes_plain(*args, **kw), True)
+    assert max(sig, jsig) < 2e-6 and max(cols) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FULL_CASES, ids=lambda c: c["name"])
+def test_cuda_full_ladder_kernel_matches_plain_twin(card, case):
+    """On the card: the full-ladder FISP kernel == its twin to 2e-6, and ==
+    the folded kernel at nstate >= 1; fisp_dictionary_cuda at nstate 0
+    launches it."""
+    args, kw = _tensors(torch, *make_full_case(case, 1000, 300), "cuda")
+    before = cuda_fisp.FULL_LAUNCHES
+    k = cuda_fisp.fisp_dictionary_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    if kw["nstate"] == 0:
+        assert cuda_fisp.FULL_LAUNCHES == before + 1
+        k = (k[0].T, k[1].T)
+    else:
+        f = cuda_fisp.fisp_full_echoes(*args, **kw)
+        assert cuda_fisp.FULL_LAUNCHES == before + 1
+        fold, _ = _pair_errors(torch, f, (k[0].T, k[1].T), False)
+        assert fold < 2e-6
+        k = f
+    sig, _ = _pair_errors(torch, k,
+                          cuda_fisp.fisp_full_echoes_plain(*args, **kw),
+                          False)
+    assert sig < 2e-6
+
+
+@pytest.mark.cuda
+def test_cuda_megre_and_dwfisp_through_simulate(card):
+    """simulate() routes an ME-GRE and a DW-FISP train and their Jacobian
+    probes to the kernels (dispatch counts megre, jac:megre, dw, jac:dw);
+    each equals the float64 general path."""
+    import numpy as np
+
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+
+    T1, T2 = np.array([500.0, 900.0, 1400.0]), np.array([40.0, 70.0, 110.0])
+    df = np.array([0.01, -0.02, 0.03])
+    FA = 10 + 40 * np.abs(np.sin(np.arange(40) / 7.0))
+    kv = 2 * np.pi / 1e-3
+
+    def dw(o1):
+        d = epg.D(7.0, 1.1e-3, k=1, order1=["Dcoef"] if o1 else False)
+        return sum(([epg.T(float(fa), 90.0), epg.E(5.0, T1, T2, order1=o1),
+                     epg.ADC, epg.E(7.0, T1, T2, order1=o1), epg.S(1), d]
+                    for fa in FA), [])
+
+    trains = {
+        "megre": (lambda o1: megre_sequence(epg, FA, T1, T2, df,
+                                            order1=o1),
+                  ["magnitude", "T2", "g"], ["T2", "g"]),
+        "dw": (dw, ["magnitude", "T1", "Dcoef"], ["T1", "T2"]),
+    }
+    got = {}
+    before = dict(fisp_dispatch.DISPATCH_COUNTS)
+    for fam, (train, names, o1) in trains.items():
+        got[fam] = (epg.simulate(train(False), max_nstate=8, kvalue=kv),
+                    *epg.simulate(train(o1), max_nstate=8, kvalue=kv,
+                                  probe=[epg.ADC, epg.Jacobian(names)]))
+    for tag in ("megre", "jac:megre", "dw", "jac:dw"):
+        assert fisp_dispatch.DISPATCH_COUNTS.get(tag, 0) \
+            == before.get(tag, 0) + 1, tag
+    config.set_device("cpu")
+    config.set_precision("float64")
+    for fam, (train, names, o1) in trains.items():
+        ref = epg.simulate(train(o1), max_nstate=8, kvalue=kv,
+                           probe=[epg.ADC, epg.Jacobian(names)],
+                           fisp_kernel=False)
+        sig, jsig, jac = got[fam]
+        assert np.abs(sig - ref[0]).max() < 1e-6
+        assert np.abs(jsig - ref[0]).max() < 1e-6
+        for c in range(len(names)):
             assert np.abs(jac[..., c] - ref[1][..., c]).max() \
                 < 1e-4 * np.abs(ref[1][..., c]).max()

@@ -196,3 +196,75 @@ def test_general_path_equals_jax_and_golden(port_f64, build):
     values, times = tepg.simulate_simple(
         tepg.StateMatrix(), tseq, max_nstate=kw.get("max_nstate"))
     assert len(values) == len(times) == got.shape[0]
+
+
+# -- the per-sequence preamble memo (epgpy_tpu/engine.py:293-338) --
+
+
+@pytest.fixture
+def counted_preamble(monkeypatch):
+    """Counts the engine's getnshift/getshape sweeps; the memo starts
+    empty."""
+    from epgpy_torch import engine
+
+    calls = {"getnshift": 0, "getshape": 0}
+    for name in calls:
+        fn = getattr(engine, name)
+
+        def wrapped(seq, _fn=fn, _name=name):
+            calls[_name] += 1
+            return _fn(seq)
+
+        monkeypatch.setattr(engine, name, wrapped)
+    engine.clear_caches()
+    yield calls
+    engine.clear_caches()
+
+
+def test_preamble_memo_skips_the_sweeps(port_f32, counted_preamble):
+    seq = fisp_train(tepg, P=4)
+    a = tepg.simulate(seq, fisp_kernel=False)
+    assert counted_preamble == {"getnshift": 1, "getshape": 1}
+    b = tepg.simulate(seq, fisp_kernel=False)
+    assert counted_preamble == {"getnshift": 1, "getshape": 1}
+    assert np.array_equal(a, b)
+    # the same operators in a new list hit; another list misses
+    tepg.simulate(list(seq), fisp_kernel=False)
+    assert counted_preamble["getshape"] == 1
+    tepg.simulate(seq[:-5], fisp_kernel=False)
+    assert counted_preamble["getshape"] == 2
+
+
+def test_preamble_memo_keys_max_nstate_and_kvalue(port_f32,
+                                                  counted_preamble):
+    seq = fisp_train(tepg, P=4)
+    tepg.simulate(seq, fisp_kernel=False)
+    tepg.simulate(seq, fisp_kernel=False, max_nstate=2)
+    assert counted_preamble["getnshift"] == 2
+    tepg.simulate(seq, fisp_kernel=False, max_nstate=2, kvalue=3.0)
+    assert counted_preamble["getnshift"] == 3
+    tepg.simulate(seq, fisp_kernel=False, max_nstate=2, kvalue=3.0)
+    assert counted_preamble["getnshift"] == 3
+
+
+def test_preamble_memo_evicts_oldest_and_clears(port_f32, counted_preamble):
+    from epgpy_torch import engine
+
+    seq = fisp_train(tepg, P=3)
+    for n in range(engine._PREAMBLE_CACHE_MAX + 1):
+        tepg.simulate(seq, fisp_kernel=False, max_nstate=n + 1)
+    assert len(engine._PREAMBLE_CACHE) == engine._PREAMBLE_CACHE_MAX
+    assert counted_preamble["getshape"] == engine._PREAMBLE_CACHE_MAX + 1
+    # the newest entry is kept, the oldest (max_nstate 1) evicted
+    tepg.simulate(seq, fisp_kernel=False,
+                  max_nstate=engine._PREAMBLE_CACHE_MAX + 1)
+    assert counted_preamble["getshape"] == engine._PREAMBLE_CACHE_MAX + 1
+    tepg.simulate(seq, fisp_kernel=False, max_nstate=1)
+    assert counted_preamble["getshape"] == engine._PREAMBLE_CACHE_MAX + 2
+    # an entry pins its operator list
+    assert all(list(map(id, entry[1])) == list(map(id, seq))
+               for entry in engine._PREAMBLE_CACHE.values())
+    tepg.simulate(seq, fisp_kernel="force")
+    assert tfd._MATCH_CACHE
+    engine.clear_caches()
+    assert not engine._PREAMBLE_CACHE and not tfd._MATCH_CACHE

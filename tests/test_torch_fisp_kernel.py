@@ -8,13 +8,19 @@ and the difference grows with the pulse count.  In float64 the folded
 twin equals the port's full-ladder model (models/mrf.py) to 1e-11, which
 proves the fold.  The CUDA kernel itself is held against the twin on the
 card (tests/test_torch_cuda.py and chip_smoke.py).
+
+The full-ladder twin (``fisp_full_ladder_plain``, the JAX wrapper's
+``half_ladder=False`` and its nstate-0 route) is held against
+``fisp_dictionary_pallas(half_ladder=False, interpret=True)`` at nstate 0
+and at nstate >= 1 (1e-5, float32 both), and against the folded twin at
+nstate >= 1 (float64, 1e-11: the fold is exact).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import OPTION_CASES, make_case, _tensors
+from chip_smoke import FULL_CASES, OPTION_CASES, make_case, _tensors
 from epgpy_torch.models import cuda_fisp, mrf
 from epgpy_tpu.models.pallas_fisp import fisp_dictionary_pallas
 
@@ -73,7 +79,13 @@ def test_cpu_tensors_take_the_plain_twin(port_f32):
     with pytest.raises(TypeError):
         cuda_fisp.fisp_dictionary_cuda(*args, **kw)     # numpy T1s
     with pytest.raises(ValueError, match="nstate"):
-        cuda_fisp.fisp_dictionary_plain(*targs, **{**tkw, "nstate": 0})
+        cuda_fisp.fisp_dictionary_plain(*targs, **{**tkw, "nstate": -1})
+    # nstate 0 takes the full-ladder twin, as the JAX wrapper does
+    before = cuda_fisp.FULL_LAUNCHES
+    z = cuda_fisp.fisp_dictionary_cuda(*targs, **{**tkw, "nstate": 0})
+    f = cuda_fisp.fisp_full_ladder_plain(*targs, **{**tkw, "nstate": 0})
+    assert cuda_fisp.FULL_LAUNCHES == before
+    assert torch.equal(z[0], f[0]) and torch.equal(z[1], f[1])
 
 
 def test_shared_memory_gate():
@@ -85,3 +97,45 @@ def test_shared_memory_gate():
     for n in (1, 10, 40, 150, 301):
         assert (24 * (n + 1) * cuda_fisp.block_size(n)
                 <= cuda_fisp.SMEM_PER_BLOCK)
+
+
+@pytest.mark.parametrize("case", FULL_CASES[::3] + FULL_CASES[1::4],
+                         ids=lambda c: c["name"])
+def test_full_ladder_twin_matches_pallas_kernel(port_f32, case):
+    args, kw = make_case(case, 40, 60, seed=5)
+    re, im = fisp_dictionary_pallas(*args, interpret=True, btile=128,
+                                    half_ladder=False, **kw)
+    targs, tkw = _tensors(torch, args, kw, "cpu")
+    got = cplx(*cuda_fisp.fisp_full_ladder_cuda(*targs, **tkw))
+    assert got.shape == (40, 60)
+    assert np.abs(got - cplx(re, im)).max() < 1e-5
+    if kw["nstate"] == 0:
+        # the dictionary's nstate-0 route is this kernel
+        z = cplx(*cuda_fisp.fisp_dictionary_cuda(*targs, **tkw))
+        assert np.array_equal(z, got)
+
+
+@pytest.mark.parametrize("case", [c for c in FULL_CASES if c["nstate"]],
+                         ids=lambda c: c["name"])
+def test_full_ladder_twin_equals_fold(port_f64, case):
+    """The full-ladder twin == the folded half-ladder twin, float64."""
+    (FA, phi, TR, TE, T1, T2, B1, df), kw = make_case(case, 12, 50, seed=6)
+    t = lambda x: None if x is None else torch.as_tensor(x)  # noqa: E731
+    targs = (t(FA), t(phi), t(TR), TE if np.ndim(TE) == 0 else t(TE), t(T1),
+             t(T2), t(B1), t(df))
+    kw = {k: v for k, v in kw.items() if k != "normalize"}
+    full = cuda_fisp.fisp_full_ladder_plain(*targs, **kw)
+    fold = cuda_fisp.fisp_dictionary_plain(*targs, **kw)
+    assert full[0].dtype == torch.float64
+    assert np.abs(cplx(*full) - cplx(*fold)).max() < 1e-11
+
+
+def test_full_ladder_gate_and_diffusion():
+    # 6 planes x (2 nstate + 1) rows x 32 atoms x 4 B within 227 KB
+    assert cuda_fisp.full_kernel_fits(150)
+    assert not cuda_fisp.full_kernel_fits(151)
+    assert cuda_fisp.full_block_size(10) == 128
+    assert cuda_fisp.full_block_size(150) == 32
+    args, kw = _tensors(torch, *make_case(OPTION_CASES[7], 8, 10), "cpu")
+    with pytest.raises(ValueError, match="half-ladder"):
+        cuda_fisp.fisp_dictionary_cuda(*args, **{**kw, "nstate": 0})

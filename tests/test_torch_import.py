@@ -51,6 +51,19 @@ MODULES = {
                                      "dess_jacobian_plain", "dess_echoes",
                                      "dess_jacobian_echoes", "LAUNCHES",
                                      "JAC_LAUNCHES"],
+    "epgpy_torch.models.cuda_megre": ["megre_dictionary_cuda",
+                                      "megre_dictionary_plain",
+                                      "megre_jacobian_cuda",
+                                      "megre_jacobian_plain", "megre_echoes",
+                                      "megre_jacobian_echoes",
+                                      "megre_kernel_fits",
+                                      "megre_jac_kernel_fits", "LAUNCHES",
+                                      "JAC_LAUNCHES"],
+    "epgpy_torch.models.cuda_fisp": ["fisp_full_ladder_cuda",
+                                     "fisp_full_ladder_plain",
+                                     "fisp_full_echoes", "full_kernel_fits",
+                                     "FULL_LAUNCHES"],
+    "epgpy_torch.engine": ["clear_caches", "simulate"],
     "epgpy_torch.models.ssfp": ["spgr_sequence", "bssfp_sequence",
                                 "dess_sequence"],
     "epgpy_torch.models.mse": ["cpmg_sequence", "mse_signal"],
@@ -61,7 +74,8 @@ MODULES = {
                                "load_dictionary"],
     "epgpy_torch.models.planes": ["cmul", "rot_coeffs", "rot_coeffs_db1",
                                   "rot_A", "rot_B", "rot_Z", "apply_rot",
-                                  "rot_k0", "shift_fold", "relax_tangents",
+                                  "rot_k0", "shift_fold", "echo_copy",
+                                  "df_tangent", "relax_tangents",
                                   "relax_tau_terms", "inversion_prep",
                                   "diff_attenuation"],
     "epgpy_torch.fisp_dispatch": ["match_fisp", "run_fisp_kernel",
@@ -76,7 +90,11 @@ MODULES = {
                                   "mse_jac_kernel_fits", "match_bssfp",
                                   "run_bssfp_kernel", "run_bssfp_jacobian",
                                   "match_dess", "run_dess_kernel",
-                                  "run_dess_jacobian"],
+                                  "run_dess_jacobian", "match_megre",
+                                  "run_megre_kernel", "run_megre_jacobian",
+                                  "match_dwfisp",
+                                  "run_dwfisp_kernel",
+                                  "run_dwfisp_jacobian"],
     "epgpy_torch.diff": ["Jacobian", "Hessian", "parse_order1",
                          "parse_order2", "simulate_diff", "substitute"],
     "epgpy_torch.parallel": ["dictionary_match", "compress_dictionary",
@@ -152,6 +170,12 @@ SAME_ARGS = {
         "epgpy_tpu.models.pallas_dess:dess_dictionary_pallas",
     "epgpy_torch.models.cuda_dess:dess_jacobian_cuda":
         "epgpy_tpu.models.pallas_dess:dess_jacobian_pallas",
+    "epgpy_torch.models.cuda_megre:megre_dictionary_cuda":
+        "epgpy_tpu.models.pallas_megre:megre_dictionary_pallas",
+    "epgpy_torch.models.cuda_megre:megre_jacobian_cuda":
+        "epgpy_tpu.models.pallas_megre:megre_jacobian_pallas",
+    "epgpy_torch.fisp_dispatch:match_dwfisp":
+        "epgpy_tpu.fisp_dispatch:match_dwfisp",
     "epgpy_torch.models.ssfp:spgr_sequence":
         "epgpy_tpu.models.ssfp:spgr_sequence",
     "epgpy_torch.models.ssfp:bssfp_sequence":
