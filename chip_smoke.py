@@ -13,7 +13,8 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    covering set of option cases at 4096 atoms x 1000 pulses (plus one
    case at nstate 40, beyond 48 KB of shared memory per block);
 3b. the same for the FISP Jacobian kernel (fingerprints + dS/dT1, dT2,
-   dB1[, dD]), per tangent column relative to the column's largest value;
+   dB1[, dD]) at 250 pulses, per tangent column relative to the column's
+   largest value;
 4. the main path at full size: the FISP MR-fingerprinting dictionary
    train [T(FA_i*B1, 90), E(5, T1, T2), ADC, E(7, T1, T2), S(1)] x 1000
    over 102,400 atoms (T1 x T2 x B1 grid) through
@@ -35,7 +36,7 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    refined T1 and T2 RMSE must beat the match-only RMSE;
 3c. the per-pulse Hessian kernel against its plain twin over every
    option (4-op/5-op form, inversion, second order, nstate 6/10, phi
-   90/30) at 400 TRs x 64 atoms, per output block, and its pulse > echo
+   90/30) at 100 TRs x 64 atoms, per output block, and its pulse > echo
    entries exactly zero;
 4c. the flagship Hessian through ``simulate()``: the 400-TR train
    [T(a_i, 90), E(tau_i, T1, T2), ADC, S(1)] with alpha/tau aliases over
@@ -96,6 +97,25 @@ Phases (each raises on failure: a failure exits non-zero with no result):
 4m. DW-FISP: the FISP headline train with one D after each S(1) through
    ``simulate(kvalue=...)`` and its (T1, T2, Dcoef) Jacobian, against the
    kernels' twins on the same tensors and the float64 general paths;
+3k. the composite-GRE kernels (primal and Jacobian) against their twins
+   over every option: shifts up, down and mixed, ADC phases, b1u stages,
+   df, D stages with ramps -1/0/+1, stages without a readout and neutral
+   stages, nstate 1; the Jacobian with no group, each group alone and all
+   four;
+4n. the cardiac MRF schedule (examples/cardiac_mrf_t1t2.py: 8 beats x 32
+   readouts, IR and T2prep preps, 275 stages) over a 127,988-atom (T1, T2)
+   dictionary through ``simulate()``, 8 atoms against the float64 general
+   path, the golden mprage.npz and cardiac_mrf.npz trains on the card;
+4o. an MPRAGE train (6 segments x 24 readouts, adiabatic inversions,
+   B1-tracked flips, per-atom df) over 102,400 atoms through
+   ``simulate(probe=[ADC, Jacobian([mag, T1, T2, B1, g])])``: the columns
+   against the twin (8,192 atoms) and the float64 general diff path;
+5i. MPRAGE T1 mapping (examples/mprage_t1_mapping.py) of 262,144 voxels:
+   match and 6 Gauss-Newton iterations on the T1 group, the example's two
+   asserts;
+5j. cardiac MRF T1/T2 mapping (examples/cardiac_mrf_t1t2.py) of 8,192
+   voxels against 4n's dictionary, 6 Gauss-Newton iterations of (T1, T2),
+   the example's asserts;
 6. numbers for every kernel at its main-path shape: kernel and twin times,
    launches on the main paths, and the bound (the twin's operations,
    counted by ``count_ops`` -- for the CPMG family over only the ladder
@@ -236,6 +256,38 @@ B0_LIMITS = (2.0, 2e-4)
 DWF_TAU, DWF_D = 7.0, 1e-3
 DWF_KVALUE = 2.675e8 * 40e-3 * DWF_TAU * 1e-3
 DWF_JAC_N, DWF_TWIN_ATOMS = 200, 8192
+#: depth of the twin checks of phases 3b and 3c (pulses): the kernels' own
+#: loops are depth-independent, the twins' Python loops are not
+JAC_CASE_N, HESS_CASE_N = 250, 100
+
+#: cardiac MRF (examples/cardiac_mrf_t1t2.py as published, Hamilton 2017):
+#: heartbeats, readouts per beat, FISP TE and TR, R-R interval (ms), the
+#: cycled preparations and the ladder depth; the dictionary grid is 400 T1
+#: (300-2000 ms) x 320 T2 (20-250 ms, log-spaced), kept where T2 < 0.8 T1
+#: (127,988 atoms), instead of the example's 20 x 16
+CMRF_NBEAT, CMRF_NREAD, CMRF_TE, CMRF_TRG, CMRF_RR = 8, 32, 1.4, 5.1, 800.0
+CMRF_PREPS = ("ir", None, "t2prep30", "t2prep50", None, "t2prep80")
+CMRF_NSTATE, CMRF_GRID, CMRF_EXAMPLE_GRID = 10, (400, 320), (20, 16)
+#: cardiac MRF mapping: voxels (the FISP serving width instead of the
+#: example's 48), Gauss-Newton iterations, noise and seed
+CMRF_NVOX, CMRF_ITERS, CMRF_NOISE, CMRF_SEED = 8192, 6, 3e-4, 23
+#: MPRAGE T1 mapping (examples/mprage_t1_mapping.py as published): T1
+#: grid, segments, readouts per segment, Gauss-Newton iterations, ladder
+#: depth, TI, TD, TE, TR and readout flip; voxels four 256^2 slices instead
+#: of its 48; noise and seed
+MPR_NT1, MPR_NSEG, MPR_NREAD, MPR_ITERS, MPR_NSTATE = 96, 6, 24, 6, 8
+MPR_TI, MPR_TD, MPR_TE, MPR_TRG, MPR_FA = 650.0, 800.0, 3.0, 7.0, 8.0
+MPR_NVOX, MPR_NOISE, MPR_SEED = 4 * 256 * 256, 2e-4, 17
+#: the composite Jacobian's main path: tests/test_composite_jacobian.py's
+#: MPRAGE train (_mprage_ops) at MPR_NSEG segments x MPR_NREAD readouts,
+#: every group tracked; atoms, ladder depth, the twin's atoms, the float64
+#: oracle's segments (a prefix) and the draw seed
+COMPJ_ATOMS, COMPJ_NSTATE, COMPJ_TWIN, COMPJ_F64_SEG, COMPJ_SEED = (
+    102400, 8, 8192, 2, 11)
+COMPJ_NAMES = ["magnitude", "T1", "T2", "B1", "g"]
+#: float32 composite path vs tests/golden/{mprage,cardiac_mrf}.npz (the
+#: JAX tests' limit, tests/test_composite_dispatch.py:83, :115)
+TOL_COMP_GOLDEN = 2e-6
 
 #: covering set of the bSSFP kernels' options (each also run through the
 #: Jacobian kernel with and without the ddf group; b1 is the B1 batch
@@ -273,6 +325,28 @@ MEGRE_CASES = [
     dict(name="m3_n8_all", m=3, nstate=8, var_te=True, b1=True, df=True,
          demodulate=True),
 ]
+
+#: covering set of the composite kernels' options: shift directions (up,
+#: down, mixed), ADC phases, b1u (adiabatic) stages with a B1 batch, df, D
+#: stages with ramp directions -1, 0 and +1, stages without a readout and
+#: neutral (flip 0) stages, nstate 1 with shifts both ways
+COMP_CASES = [
+    dict(name="up", shift="up"),
+    dict(name="down", shift="down"),
+    dict(name="mixed_adcph", shift="mixed", adcph=True),
+    dict(name="b1u_df", shift="up", b1u=True, df=True),
+    dict(name="d_rd", shift="mixed", diffusion=True),
+    dict(name="sparse_neutral", shift="mixed", sparse=True),
+    dict(name="n1_mixed_df", shift="mixed", nstate=1, df=True),
+    dict(name="all", shift="mixed", adcph=True, b1u=True, df=True,
+         diffusion=True, sparse=True),
+]
+#: the Jacobian's group sets held against the twin: none (magnitude only),
+#: each group alone, all four
+COMP_GROUP_SETS = [(), ("T1",), ("T2",), ("B1",), ("df",),
+                   ("T1", "T2", "B1", "df")]
+#: stages of an option case
+COMP_CASE_N = 300
 
 #: the full-ladder kernel's option cases: the FISP cases it takes (no
 #: diffusion, no normalize: neither reaches the kernel), each at nstate 0
@@ -439,6 +513,60 @@ def make_megre_case(case, natoms, npulse=MEGRE_N, seed=0):
     df = rng.uniform(-0.05, 0.05, natoms) if case.get("df") else None
     kw = dict(nstate=case["nstate"], demodulate=case.get("demodulate", False))
     return (FA, phi, TRs, TEs, T1, T2, B1, df), kw
+
+
+def make_comp_case(case, natoms, nstage=COMP_CASE_N, seed=0):
+    """Numpy inputs of one composite option case: (args, kwargs) of
+    composite_{cuda,plain,pallas} and their Jacobians (FA, phi, ta, tb,
+    adci, shift, aph, b1u, T1s, T2s, B1s, dfs; nadc, nstate and the D
+    stages (btd, rdir, Dc): a ramp only on a shifting stage, in its
+    direction, as the matcher builds them)."""
+    rng = np.random.default_rng(seed)
+    N = nstage
+    FA = rng.uniform(5.0, 60.0, N)
+    phi = rng.uniform(0.0, 360.0, N)
+    ta = rng.uniform(1.0, 4.0, N)
+    tb = rng.uniform(2.0, 8.0, N)
+    shift = {"up": np.ones(N), "down": -np.ones(N),
+             "mixed": rng.choice([-1.0, 0.0, 1.0], N)}[case["shift"]]
+    adc = np.ones(N, bool)
+    if case.get("sparse"):
+        adc = rng.random(N) < 0.6
+        adc[0] = True
+        FA[rng.random(N) < 0.15] = 0.0          # neutral stages
+        tb[rng.random(N) < 0.05] = 300.0        # recovery delays
+    adci = np.where(adc, np.cumsum(adc) - 1, -1)
+    aph = rng.uniform(-np.pi, np.pi, N) if case.get("adcph") else None
+    b1u = ((rng.random(N) < 0.7).astype(float) if case.get("b1u")
+           else None)
+    T1 = rng.uniform(300.0, 2000.0, natoms)
+    T2 = np.minimum(rng.uniform(20.0, 250.0, natoms), 0.8 * T1)
+    B1 = rng.uniform(0.8, 1.2, natoms)
+    df = rng.uniform(-0.05, 0.05, natoms) if case.get("df") else None
+    kw = dict(nadc=int(adc.sum()), nstate=case.get("nstate", 10))
+    if case.get("diffusion"):
+        d = rng.random(N) < 0.4
+        ramp = (shift != 0) & (rng.random(N) < 0.7)
+        kw["diffusion"] = (np.where(d, rng.uniform(5.0, 40.0, N), 0.0),
+                           np.where(d & ramp, shift, 0.0),
+                           rng.uniform(0.5e-3, 3e-3, natoms))
+    return (FA, phi, ta, tb, adci, shift, aph, b1u, T1, T2, B1, df), kw
+
+
+def comp_tensors(torch, args, kw, device):
+    """make_comp_case's inputs as the kernels take them on `device`: float32
+    tensors, adci and shift int32."""
+    def t(x, dt=None):
+        if x is None or np.ndim(x) == 0:
+            return x
+        return torch.as_tensor(np.asarray(x), dtype=dt or torch.float32,
+                               device=device)
+
+    kw = dict(kw)
+    if kw.get("diffusion") is not None:
+        kw["diffusion"] = tuple(t(d) for d in kw["diffusion"])
+    return tuple(t(a, torch.int32 if i in (4, 5) else None)
+                 for i, a in enumerate(args)), kw
 
 
 def make_full_case(case, natoms, npulse, seed=0):
@@ -822,7 +950,8 @@ def phase_build():
     print(f"[build] {info['path']} "
           f"({'already built' if secs is None else f'{secs:.1f} s'})")
     for line in info["log"].splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
+        if ("registers" in line or "smem" in line or "spill" in line
+                or "properties for" in line):
             print(f"[build] {line.strip()}")
 
 
@@ -945,7 +1074,7 @@ def phase_numbers(torch, epg, card, run):
             **bound_fields("fisp_half", flops, nbytes)}
 
 
-def phase_jac_cases(torch, natoms=4096, npulse=NPULSE):
+def phase_jac_cases(torch, natoms=4096, npulse=JAC_CASE_N):
     """Jacobian kernel vs plain twin over the option cases; returns the
     worst fingerprint |delta| and the worst per-column relative error."""
     from epgpy_torch.models import cuda_fisp
@@ -1177,7 +1306,7 @@ def phase_hess_cases(torch, natoms=64):
 
     worst = 0.0
     for case in HESS_CASES:
-        args, kw = make_hess_case(case, natoms, HESS_N)
+        args, kw = make_hess_case(case, natoms, HESS_CASE_N)
         targs, _ = _tensors(torch, args, {}, "cuda")
         k = cuda_hessian.fisp_hessian_cuda(*targs, **kw)
         p = cuda_hessian.fisp_hessian_plain(*targs, **kw)
@@ -3314,6 +3443,565 @@ def phase_megre_numbers(torch, card, megre, mjac, full, b0, dw,
     return entries
 
 
+# -- composite GRE: kernels vs twins, the cardiac MRF dictionary, the
+# MPRAGE Jacobian, MPRAGE T1 and cardiac MRF T1/T2 mapping --
+
+
+def phase_comp_cases(torch, natoms=4096):
+    """The composite kernels vs their plain twins on the card over the
+    option cases, the primal and the Jacobian with all four groups (the
+    last case with every group set of COMP_GROUP_SETS: none, each alone,
+    all), the Jacobian's signal also against the primal kernel's; returns
+    the worst signal |delta| and the worst per-column relative error."""
+    from epgpy_torch.models import cuda_composite as cc
+
+    worst_sig = worst_col = 0.0
+    for case in COMP_CASES:
+        args, kw = comp_tensors(torch, *make_comp_case(case, natoms), DEVICE)
+        k = cc.composite_cuda(*args, **kw)
+        sig, _ = _pair_errors(torch, k, cc.composite_plain(*args, **kw),
+                              False)
+        cols, ok = [], _finite(torch, k)
+        sets = COMP_GROUP_SETS if case["name"] == "all" \
+            else COMP_GROUP_SETS[-1:]
+        for groups in sets:
+            kj = cc.composite_jacobian_cuda(*args, groups=groups, **kw)
+            s_, c = _pair_errors(torch, kj, cc.composite_jacobian_plain(
+                *args, groups=groups, **kw), True)
+            same, _ = _pair_errors(torch, kj[0], k, False)
+            sig, cols = max(sig, s_, same), cols + c
+            ok = ok and _finite(torch, kj)
+        print(f"[comp-cases] {case['name']:15s} nstate={kw['nstate']:2d} "
+              f"max|kernel - plain| = {sig:.3e}, columns over "
+              f"{len(sets)} group set(s) "
+              f"{', '.join(f'{c:.2e}' for c in cols)}")
+        if not ok or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL:
+            raise AssertionError(
+                f"composite case {case['name']}: kernel vs plain twin "
+                f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
+                f"{TOL_JAC_KERNEL} or not finite")
+        worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+    return worst_sig, worst_col
+
+
+def cardiac_train(epg, T1, T2, track=None):
+    """examples/cardiac_mrf_t1t2.py's schedule as plain operators: CMRF_NBEAT
+    beats, each an optional prep (inversion + TI 21 ms, or a 90x-180y-90-x
+    T2prep with a crusher), CMRF_NREAD FISP readouts on a sinusoidal flip
+    ramp and the rest of the R-R interval."""
+    o1 = {"order1": track} if track else {}
+    rng = np.random.default_rng(2)
+    seq = []
+    for b in range(CMRF_NBEAT):
+        prep = CMRF_PREPS[b % len(CMRF_PREPS)]
+        used = 0.0
+        if prep == "ir":
+            seq += [epg.T(180.0, 0.0), epg.E(21.0, T1, T2, **o1)]
+            used += 21.0
+        elif prep:
+            tep = float(prep[6:])
+            seq += [epg.T(90.0, 0.0), epg.E(tep / 2, T1, T2, **o1),
+                    epg.T(180.0, 90.0), epg.E(tep / 2, T1, T2, **o1),
+                    epg.T(90.0, 180.0), epg.S(1)]
+            used += tep
+        fas = 4.0 + 11.0 * np.sin(np.pi * (np.arange(CMRF_NREAD) + 1)
+                                  / (CMRF_NREAD + 1)) + rng.uniform(
+                                      -0.5, 0.5, CMRF_NREAD)
+        for fa in fas:
+            seq += [epg.T(float(fa), 0.0), epg.E(CMRF_TE, T1, T2, **o1),
+                    epg.ADC, epg.E(CMRF_TRG - CMRF_TE, T1, T2, **o1),
+                    epg.S(1)]
+        used += CMRF_NREAD * CMRF_TRG
+        seq.append(epg.E(max(CMRF_RR - used, 50.0), T1, T2, **o1))
+    return seq
+
+
+def cardiac_grid(shape=CMRF_GRID):
+    """The dictionary's (T1, T2) atoms on a T1 x T2 grid of `shape`, (A, 2),
+    T2 < 0.8 T1."""
+    t1g = np.linspace(300.0, 2000.0, shape[0])
+    t2g = np.geomspace(20.0, 250.0, shape[1])
+    g = np.stack(np.meshgrid(t1g, t2g, indexing="ij"), -1).reshape(-1, 2)
+    return g[g[:, 1] < 0.8 * g[:, 0]]
+
+
+def comp_golden_sequence(epg, name, g):
+    """The trains of tests/golden/mprage.npz and cardiac_mrf.npz
+    (tests/test_composite_dispatch.py:67-78, :86-105)."""
+    T1s, T2s = g["T1s"], g["T2s"]
+    seq = []
+    if name == "mprage":
+        for seg in range(4):
+            seq += [epg.T(180, 0), epg.E(120.0, T1s, T2s)]
+            for i in range(8):
+                seq += [epg.T(9.0 + 0.5 * i + seg, 30.0 * i),
+                        epg.E(3.0, T1s, T2s), epg.ADC,
+                        epg.E(5.5, T1s, T2s), epg.S(1)]
+            seq += [epg.E(250.0, T1s, T2s)]
+        return seq
+    eco = [12.0, 24.0, 12.0]
+    for blk in range(3):
+        scale = blk + 1.0
+        seq += [epg.T(90, 0), epg.E(eco[0] * scale, T1s, T2s),
+                epg.T(180, 90), epg.E(eco[1] * scale, T1s, T2s),
+                epg.T(180, 90), epg.E(eco[2] * scale, T1s, T2s),
+                epg.T(90, 180), epg.S(1)]
+        for i in range(10):
+            seq += [epg.T((12.0 + i + 2.0 * blk) * g["B1s"][None, :],
+                          15.0 * i), epg.E(2.5, T1s, T2s), epg.ADC,
+                    epg.E(6.0, T1s, T2s), epg.S(1)]
+        seq += [epg.E(180.0, T1s, T2s)]
+    return seq
+
+
+def phase_comp_path(torch, epg):
+    """The cardiac MRF dictionary (CMRF_GRID atoms, 275 stages, 256
+    readouts) through simulate() (first call and memoized) and through
+    composite_echoes on the matched parameters, 8 atoms against the float64
+    general path, the golden mprage.npz and cardiac_mrf.npz trains on the
+    card; returns the run's facts."""
+    from epgpy_torch import config, fisp_dispatch
+    from epgpy_torch.models import cuda_composite
+
+    grid = cardiac_grid()
+    seq = cardiac_train(epg, grid[:, 0], grid[:, 1])
+    kw = dict(max_nstate=CMRF_NSTATE, asarray=False)
+    _reset_counts(cuda_composite)
+    out, first_s = _first_call(torch, lambda: epg.simulate(seq, **kw))
+    params = fisp_dispatch.match_composite(seq)
+    args, ckw = fisp_dispatch._comp_call(params, CMRF_NSTATE)
+    re, im = cuda_composite.composite_echoes(*args, **ckw)
+    same = bool(torch.equal(out.real, re) and torch.equal(out.imag, im))
+    del re, im
+    gerr = {}
+    for name in ("mprage", "cardiac_mrf"):
+        g = _golden(name)
+        got = epg.simulate(comp_golden_sequence(epg, name, g))
+        gerr[name] = float(np.abs(got - g["signal"]).max())
+    torch.cuda.synchronize()
+    _expect("comp", (dict(fisp_dispatch.DISPATCH_COUNTS),
+                     cuda_composite.LAUNCHES), ({"comp": 3}, 4))
+    probe = np.linspace(0, len(grid) - 1, 8).astype(int)
+    with cpu_float64(config):
+        ref = epg.simulate(cardiac_train(epg, grid[probe, 0],
+                                         grid[probe, 1]),
+                           max_nstate=CMRF_NSTATE, fisp_kernel=False)
+    err = float(np.abs(out[:, probe].cpu().numpy() - ref).max())
+    shape = (CMRF_NBEAT * CMRF_NREAD, len(grid))
+    print(f"[comp] simulate(): cardiac MRF, {len(params['FA'])} stages x "
+          f"{len(grid)} atoms -> {tuple(out.shape)} {out.dtype}; "
+          f"composite_echoes on the matched parameters "
+          f"{'==' if same else '!='} simulate(); 8 atoms vs the f64 general "
+          f"path {err:.3e} (limit {TOL_PROBE}); goldens on the card "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gerr.items())
+          + f" (limit {TOL_COMP_GOLDEN})")
+    if (tuple(out.shape) != shape or out.dtype != torch.complex64
+            or not same or not _finite(torch, torch.view_as_real(out))
+            or not err <= TOL_PROBE
+            or not max(gerr.values()) <= TOL_COMP_GOLDEN):
+        raise AssertionError("composite path: shape, finiteness, direct call, "
+                             "f64 error or golden error out of bounds")
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, **kw), reps=3)
+    print(f"[comp] simulate() first {first_s:.4f} s, memoized "
+          f"{memo_s * 1e3:.3f} ms")
+    return dict(args=args, kw=ckw, launches=4, first_s=first_s,
+                memo_s=memo_s, gerr=gerr, err=err, grid=grid,
+                dictionary=out)
+
+
+def comp_jac_draws():
+    """The 4o train's readout flips (MPR_NSEG, MPR_NREAD) and its atoms
+    T1, T2, B1 and df (kHz), each (COMPJ_ATOMS,)."""
+    rng = np.random.default_rng(COMPJ_SEED)
+    FA = rng.uniform(6.0, 14.0, (MPR_NSEG, MPR_NREAD))
+    n = COMPJ_ATOMS
+    return (FA, rng.uniform(400.0, 1800.0, n), rng.uniform(30.0, 150.0, n),
+            rng.uniform(0.85, 1.15, n), rng.uniform(-0.02, 0.02, n))
+
+
+def comp_jac_sequence(epg, FA, T1, T2, B1, df):
+    """tests/test_composite_jacobian.py:20-44's MPRAGE train: per segment an
+    adiabatic T(180) (B1-insensitive) and E(TI), readouts [T(fa B1) tracking
+    B1, E(2.2), ADC, E(3.8), S(1)], E(TD); the E ops track T1, T2 and g."""
+    o1 = ["T1", "T2", "g"]
+    seq = []
+    for s, fas in enumerate(FA):
+        seq += [epg.T(180.0, 0.0), epg.E(12.0 + s, T1, T2, df, order1=o1)]
+        for fa in fas:
+            seq += [epg.T(fa * B1, 0.0, order1={"B1": {"alpha": float(fa)}}),
+                    epg.E(2.2, T1, T2, df, order1=o1), epg.ADC,
+                    epg.E(3.8, T1, T2, df, order1=o1), epg.S(1)]
+        seq += [epg.E(80.0 + 5 * s, T1, T2, df, order1=o1)]
+    return seq
+
+
+def phase_comp_jac_path(torch, epg):
+    """The MPRAGE Jacobian (all four groups: 30 planes) over COMPJ_ATOMS
+    atoms through simulate(probe=[ADC, Jacobian(COMPJ_NAMES)]); the first
+    COMPJ_TWIN atoms against the Jacobian kernel's twin on the same card
+    tensors, 8 atoms over the first COMPJ_F64_SEG segments against the
+    float64 general diff path; returns the run's facts."""
+    from epgpy_torch import config, fisp_dispatch
+    from epgpy_torch.models import cuda_composite
+
+    FA, T1, T2, B1, DF = comp_jac_draws()
+    seq = comp_jac_sequence(epg, FA, T1, T2, B1, DF)
+    probes = [epg.ADC, epg.Jacobian(COMPJ_NAMES)]
+    kw = dict(max_nstate=COMPJ_NSTATE, asarray=False, probe=probes)
+    _reset_counts(cuda_composite)
+    (sig, jac), first_s = _first_call(torch, lambda: epg.simulate(seq, **kw))
+    _expect("comp-jac", (dict(fisp_dispatch.DISPATCH_COUNTS),
+                         cuda_composite.JAC_LAUNCHES), ({"jac:comp": 1}, 1))
+    nadc = MPR_NSEG * MPR_NREAD
+    if (tuple(jac.shape) != (nadc, COMPJ_ATOMS, len(COMPJ_NAMES))
+            or jac.dtype != torch.complex64
+            or not _finite(torch, (torch.view_as_real(sig),
+                                   torch.view_as_real(jac)))):
+        raise AssertionError("composite Jacobian path: shape or finiteness")
+    # the kernel's columns against the twin's on the same tensors: the
+    # twin's groups (T1, T2, B1, df), B1 over the matcher's b1_scale
+    params = fisp_dispatch.match_composite(seq)
+    args, ckw = fisp_dispatch._comp_call(params, COMPJ_NSTATE)
+    n = COMPJ_TWIN
+    (pre, pim), (pdre, pdim) = cuda_composite.composite_jacobian_plain(
+        *args[:8], *(None if a is None else a[:n] for a in args[8:]), **ckw)
+    want = torch.complex(pdre, pdim)
+    want[..., 2] /= params["b1_scale"]
+    twin_sig = float((sig[:, :n] - torch.complex(pre, pim)).abs().max())
+    twin_cols = col_errors(jac[:, :n, 1:].cpu().numpy(), want.cpu().numpy())
+    del pre, pim, pdre, pdim, want
+    # the float64 oracle over the first COMPJ_F64_SEG segments (a prefix)
+    npre = COMPJ_F64_SEG * MPR_NREAD
+    with cpu_float64(config):
+        s64, j64 = epg.simulate(
+            comp_jac_sequence(epg, FA[:COMPJ_F64_SEG], T1[:8], T2[:8],
+                              B1[:8], DF[:8]),
+            probe=probes, max_nstate=COMPJ_NSTATE, fisp_kernel=False)
+    sig_err = float(np.abs(sig[:npre, :8].cpu().numpy() - s64).max())
+    cols = col_errors(jac[:npre, :8].cpu().numpy(), j64)
+    print(f"[comp-jac] simulate(probe=[ADC, Jacobian({COMPJ_NAMES})]): "
+          f"{len(params['FA'])} stages x {COMPJ_ATOMS} atoms -> "
+          f"{tuple(jac.shape)}; first {n} atoms vs the twin: signal "
+          f"{twin_sig:.3e}, columns (T1, T2, B1, g) "
+          f"{', '.join(f'{c:.3e}' for c in twin_cols)} (limits {TOL_KERNEL}, "
+          f"{TOL_JAC_KERNEL}); first {npre} readouts x 8 atoms vs the f64 "
+          f"general diff path: signal {sig_err:.3e}, columns "
+          f"{', '.join(f'{c:.3e}' for c in cols)} (limits {TOL_PROBE}, "
+          f"{TOL_JAC_MODEL})")
+    if not twin_sig <= TOL_KERNEL or not max(twin_cols) <= TOL_JAC_KERNEL:
+        raise AssertionError("the composite Jacobian kernel disagrees with "
+                             "its plain twin on the main path")
+    if not sig_err <= TOL_PROBE or not max(cols) <= TOL_JAC_MODEL:
+        raise AssertionError(f"composite Jacobian path error {sig_err:.3e} / "
+                             f"{max(cols):.3e}")
+    del sig, jac
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, **kw), reps=2)
+    print(f"[comp-jac] simulate() first {first_s:.4f} s, memoized "
+          f"{memo_s * 1e3:.3f} ms")
+    return dict(args=args, kw=ckw, launches=1, first_s=first_s,
+                memo_s=memo_s, twin_cols=twin_cols, cols=cols,
+                simulate=lambda: epg.simulate(seq, **kw))
+
+
+def mprage_train(epg, T1, T2, track=None):
+    """examples/mprage_t1_mapping.py's acquisition as plain operators: per
+    segment an adiabatic inversion and TI, MPR_NREAD RF-spoiled readouts
+    (117-degree quadratic phase cycling, demodulated ADC) and TD."""
+    ph = np.cumsum(np.arange(MPR_NSEG * MPR_NREAD) * 117.0) % 360.0
+    o1 = {"order1": track} if track else {}
+    seq = []
+    j = 0
+    for _ in range(MPR_NSEG):
+        seq += [epg.T(180.0, 0.0), epg.E(MPR_TI, T1, T2, **o1)]
+        for _ in range(MPR_NREAD):
+            seq += [epg.T(MPR_FA, float(ph[j])), epg.E(MPR_TE, T1, T2, **o1),
+                    epg.Adc(phase=-float(ph[j])),
+                    epg.E(MPR_TRG - MPR_TE, T1, T2, **o1), epg.S(1)]
+            j += 1
+        seq += [epg.E(MPR_TD, T1, T2, **o1)]
+    return seq
+
+
+def _unit_rows(x):
+    """Rows of a complex (n, P) tensor scaled to unit norm."""
+    return x / x.abs().square().sum(dim=1, keepdim=True).sqrt()
+
+
+def _gn_signal_and_jac(torch, epg, train, names, nstate, voxels, split,
+                       first):
+    """The Gauss-Newton signal_and_jac of a composite mapping: theta ->
+    the tracked train through simulate(probe=[ADC, Jacobian(names)]), host
+    build + match and simulate() timed into `split`; the first call keeps
+    its match dict and the Jacobian of its first `voxels` voxels."""
+    from epgpy_torch import fisp_dispatch
+
+    def signal_and_jac(theta):
+        t0 = time.perf_counter()
+        seq = train(theta)
+        params = fisp_dispatch.match_composite(seq)  # memoized for simulate
+        t1 = time.perf_counter()
+        s, j = epg.simulate(seq, max_nstate=nstate, asarray=False,
+                            probe=[epg.ADC, epg.Jacobian(names)])
+        torch.cuda.synchronize()
+        split["host"] += t1 - t0
+        split["simulate"] += time.perf_counter() - t1
+        if not first:
+            first.append((params, j[:, :voxels].clone()))
+        return (s.real, s.imag), (j.real, j.imag)
+
+    return signal_and_jac
+
+
+def _first_jac_vs_twin(torch, first, nstate, groups, voxels):
+    """Per-column errors of the first Gauss-Newton Jacobian against the
+    composite Jacobian kernel's twin on the same parameters."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_composite
+
+    params, kj = first[0]
+    args, ckw = fisp_dispatch._comp_call(params, nstate)
+    _, (pdre, pdim) = cuda_composite.composite_jacobian_plain(
+        *args[:8], *(None if a is None else a[:voxels] for a in args[8:]),
+        groups=groups, **ckw)
+    return col_errors(kj.cpu().numpy(),
+                      torch.complex(pdre, pdim).cpu().numpy())
+
+
+def phase_mprage_mapping(torch, epg):
+    """MPRAGE T1 mapping (examples/mprage_t1_mapping.py) of MPR_NVOX voxels:
+    the example's T1-only dictionary and draws through simulate(), the
+    match, and MPR_ITERS Gauss-Newton iterations (solve_scale) on the
+    composite Jacobian kernel's T1 group (12 planes), held to the example's
+    two asserts; the first Jacobian against the twin on 512 voxels; returns
+    the run's facts."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_composite
+    from epgpy_torch.parallel import dictionary_match, gauss_newton_refine
+
+    rng = np.random.default_rng(MPR_SEED)
+    grid = np.linspace(300.0, 3000.0, MPR_NT1)
+    step = grid[1] - grid[0]
+    V = MPR_NVOX
+    kw = dict(max_nstate=MPR_NSTATE, asarray=False)
+    _reset_counts(cuda_composite)
+    D = _unit_rows(epg.simulate(mprage_train(epg, grid, 80.0), **kw).T)
+    t1_true = rng.uniform(350.0, 2900.0, V)
+    t2_true = rng.uniform(55.0, 140.0, V)
+    vseq = mprage_train(epg, t1_true, t2_true)
+    clean = epg.simulate(vseq, **kw).T
+    pd = torch.as_tensor((rng.uniform(0.6, 1.2, V) * np.exp(
+        2j * np.pi * rng.uniform(size=V)))[:, None].astype(np.complex64),
+        device=DEVICE)
+    noise = torch.as_tensor((rng.normal(0.0, MPR_NOISE, clean.shape)
+                             * (1 + 1j)).astype(np.complex64), device=DEVICE)
+
+    def match(clean):
+        """Unit-norm noisy voxels and their T1 errors after the match."""
+        obs = _unit_rows(clean * pd + noise)
+        idx, _ = dictionary_match(D.real, D.imag, obs.real, obs.imag)
+        return obs, grid[idx.cpu().numpy()], np.abs(
+            grid[idx.cpu().numpy()] - t1_true)
+
+    t0 = time.perf_counter()
+    obs, t1_hat, err = match(clean)
+    torch.cuda.synchronize()
+    match_s = time.perf_counter() - t0
+    del clean
+    # the example's nearest-grid-point assert is a max over its 48 voxels;
+    # over many more the tail passes a grid step (the float64 JAX general
+    # path on the same draws: 41.18 ms at 8,192 voxels, 0.13% of them past
+    # 1.01 steps).  Where it fails, the twin's voxel trains must fail it
+    # alike, and the match RMS must stay within one grid step.
+    twin_max = None
+    if not err.max() <= 1.01 * step:
+        args, ckw = fisp_dispatch._comp_call(
+            fisp_dispatch.match_composite(vseq), MPR_NSTATE)
+        tre, tim = cuda_composite.composite_plain(*args, **ckw)
+        twin_max = float(match(torch.complex(tre, tim).T)[2].max())
+        del tre, tim
+
+    split = {"host": 0.0, "simulate": 0.0}
+    first = []
+    sj = _gn_signal_and_jac(torch, epg, lambda th: mprage_train(
+        epg, th[0], 80.0, track=["T1"]), ["T1"], MPR_NSTATE, 512, split,
+        first)
+    t0 = time.perf_counter()
+    theta = gauss_newton_refine(sj, t1_hat[None], obs.T.real, obs.T.imag,
+                                iters=MPR_ITERS, bounds=[(200.0, 3200.0)],
+                                solve_scale=True)
+    torch.cuda.synchronize()
+    gn_s = time.perf_counter() - t0
+    launches = dict(composite=cuda_composite.LAUNCHES,
+                    composite_jac=cuda_composite.JAC_LAUNCHES)
+    _expect("mprage-map", (dict(fisp_dispatch.DISPATCH_COUNTS), launches),
+            ({"comp": 2, "jac:comp": MPR_ITERS},
+             dict(composite=2, composite_jac=MPR_ITERS)))
+    jcols = _first_jac_vs_twin(torch, first, MPR_NSTATE, ("T1",), 512)
+    rms0 = float(np.sqrt(np.mean(err ** 2)))
+    rms1 = float(np.sqrt(np.mean((theta[0] - t1_true) ** 2)))
+    per = {k: v / MPR_ITERS for k, v in split.items()}
+    per["solve"] = gn_s / MPR_ITERS - per["host"] - per["simulate"]
+    held = (f"max |err| {err.max():.2f} ms (limit {1.01 * step:.2f}, 1.01 "
+            f"grid steps)")
+    if twin_max is not None:
+        held += (f": beyond it, as the twin's {twin_max:.2f} ms; held "
+                 f"instead: match RMS <= one grid step {step:.2f} ms")
+    print(f"[mprage-map] {V} voxels x {MPR_NSEG * MPR_NREAD} readouts, "
+          f"{MPR_NT1}-atom T1 dictionary: match {match_s * 1e3:.2f} ms, "
+          f"{held}; match RMS {rms0:.3f} ms; {MPR_ITERS} Gauss-Newton "
+          f"iterations {gn_s:.3f} s: RMS {rms1:.3f} ms (limit "
+          f"{0.8 * rms0:.3f}); first Jacobian vs the twin on 512 voxels "
+          f"{jcols[0]:.3e} (limit {TOL_JAC_KERNEL})")
+    if not jcols[0] <= TOL_JAC_KERNEL:
+        raise AssertionError("the composite Jacobian kernel disagrees with "
+                             "its plain twin in the MPRAGE fit")
+    matched = (err.max() <= 1.01 * step if twin_max is None
+               else twin_max > 1.01 * step and rms0 <= step)
+    if not (matched and rms1 < 0.8 * rms0):
+        raise AssertionError(f"MPRAGE T1 mapping misses the example's "
+                             f"asserts: {held}, RMS {rms0:.3f} -> "
+                             f"{rms1:.3f} ms")
+    return dict(launches=launches, gn_s=gn_s, per_iter=per, match_s=match_s,
+                err_max=float(err.max()), twin_max=twin_max,
+                rms=(rms0, rms1))
+
+
+def phase_cardiac_mapping(torch, epg, comp):
+    """Cardiac MRF T1/T2 mapping (examples/cardiac_mrf_t1t2.py) of
+    CMRF_NVOX voxels against phase 4n's dictionary: the example's draws
+    through simulate(), the match, and CMRF_ITERS Gauss-Newton iterations
+    of (T1, T2) (18 planes); the first Jacobian against the twin on 512
+    voxels; returns the run's facts.
+
+    The example's assert halves the RMSE of a match against its own 20 x
+    16 dictionary.  The 127,988-atom match already sits near the
+    refinement's noise floor, so the refined maps are held to half the
+    example dictionary's match (simulated here too) and below the fine
+    match's."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_composite
+    from epgpy_torch.parallel import dictionary_match, gauss_newton_refine
+
+    grid = comp["grid"]
+    D = _unit_rows(comp["dictionary"].T)
+    rng = np.random.default_rng(CMRF_SEED)
+    V = CMRF_NVOX
+    t1_true = rng.uniform(350.0, 1900.0, V)
+    t2_true = np.minimum(rng.uniform(25.0, 220.0, V), 0.6 * t1_true)
+    _reset_counts(cuda_composite)
+    clean = epg.simulate(cardiac_train(epg, t1_true, t2_true),
+                         max_nstate=CMRF_NSTATE, asarray=False).T
+    pd = rng.uniform(0.6, 1.2, V) * np.exp(2j * np.pi * rng.uniform(size=V))
+    noise = rng.normal(0.0, CMRF_NOISE, clean.shape) * (1 + 1j)
+    obs = (clean * torch.as_tensor(pd[:, None].astype(np.complex64),
+                                   device=DEVICE)
+           + torch.as_tensor(noise.astype(np.complex64), device=DEVICE))
+    del clean
+    nobs = _unit_rows(obs)
+    t0 = time.perf_counter()
+    idx, _ = dictionary_match(D.real, D.imag, nobs.real, nobs.imag,
+                              atom_chunk=16384)
+    torch.cuda.synchronize()
+    match_s = time.perf_counter() - t0
+    fit = grid[idx.cpu().numpy()]
+    truth = np.stack([t1_true, t2_true])
+
+    def rmse(est):
+        return np.sqrt(np.mean((est - truth) ** 2, axis=1))
+
+    err0 = rmse(fit.T)
+    egrid = cardiac_grid(CMRF_EXAMPLE_GRID)
+    ED = _unit_rows(epg.simulate(cardiac_train(epg, egrid[:, 0],
+                                               egrid[:, 1]),
+                                 max_nstate=CMRF_NSTATE, asarray=False).T)
+    eidx, _ = dictionary_match(ED.real, ED.imag, nobs.real, nobs.imag)
+    errE = rmse(egrid[eidx.cpu().numpy()].T)
+
+    split = {"host": 0.0, "simulate": 0.0}
+    first = []
+    names = ["T1", "T2"]
+    sj = _gn_signal_and_jac(torch, epg, lambda th: cardiac_train(
+        epg, th[0], th[1], track=names), names, CMRF_NSTATE, 512, split,
+        first)
+    t0 = time.perf_counter()
+    theta = gauss_newton_refine(sj, fit.T.copy(), obs.T.real, obs.T.imag,
+                                iters=CMRF_ITERS,
+                                bounds=[(200.0, 2500.0), (10.0, 400.0)],
+                                solve_scale=True)
+    torch.cuda.synchronize()
+    gn_s = time.perf_counter() - t0
+    launches = dict(composite=cuda_composite.LAUNCHES,
+                    composite_jac=cuda_composite.JAC_LAUNCHES)
+    _expect("cardiac-map", (dict(fisp_dispatch.DISPATCH_COUNTS), launches),
+            ({"comp": 2, "jac:comp": CMRF_ITERS},
+             dict(composite=2, composite_jac=CMRF_ITERS)))
+    jcols = _first_jac_vs_twin(torch, first, CMRF_NSTATE, ("T1", "T2"), 512)
+    err1 = rmse(theta)
+    per = {k: v / CMRF_ITERS for k, v in split.items()}
+    per["solve"] = gn_s / CMRF_ITERS - per["host"] - per["simulate"]
+    print(f"[cardiac-map] {V} voxels x {len(grid)} atoms: match "
+          f"{match_s * 1e3:.1f} ms, RMSE T1 {err0[0]:.3f} ms, T2 "
+          f"{err0[1]:.3f} ms (the example's {len(egrid)}-atom dictionary: "
+          f"T1 {errE[0]:.3f} ms, T2 {errE[1]:.3f} ms); {CMRF_ITERS} "
+          f"Gauss-Newton iterations {gn_s:.3f} s: RMSE T1 {err1[0]:.3f} ms, "
+          f"T2 {err1[1]:.3f} ms (limits half the example dictionary's "
+          f"match and below the fine match's); first Jacobian vs the twin "
+          f"on 512 voxels, columns (T1, T2) "
+          f"{', '.join(f'{c:.3e}' for c in jcols)} (limit {TOL_JAC_KERNEL})")
+    if not max(jcols) <= TOL_JAC_KERNEL:
+        raise AssertionError("the composite Jacobian kernel disagrees with "
+                             "its plain twin in the cardiac MRF fit")
+    if not ((err1 < 0.5 * errE).all() and (err1 < err0).all()):
+        raise AssertionError(f"cardiac MRF mapping misses the example's "
+                             f"asserts: RMSE {errE} (example dictionary), "
+                             f"{err0} (fine) -> {err1}")
+    return dict(launches=launches, gn_s=gn_s, per_iter=per, match_s=match_s,
+                rmse=(errE, err0, err1))
+
+
+def phase_comp_numbers(torch, card, comp, cjac, mpr, cmrf):
+    """The composite kernels at their main-path shapes (the cardiac MRF
+    dictionary of 4n; the MPRAGE Jacobian of 4o, all four groups),
+    simulate()'s latencies, the Jacobian's device split and the two
+    mappings' Gauss-Newton splits; returns the JSON entries (launches
+    filled in by main)."""
+    from epgpy_torch.models import cuda_composite as cc
+
+    atoms = (8, 9, 10, 11)
+    entries = [
+        kernel_entry(torch, card, "composite",
+                     "epgpy_tpu/models/pallas_composite.py:69",
+                     (cc.composite_echoes, cc.composite_plain), comp["args"],
+                     comp["kw"], atoms, len(comp["grid"]), 0, False),
+        kernel_entry(torch, card, "composite_jac",
+                     "epgpy_tpu/models/pallas_composite.py:364",
+                     (cc.composite_jacobian_echoes,
+                      cc.composite_jacobian_plain), cjac["args"], cjac["kw"],
+                     atoms, COMPJ_ATOMS, 0, True),
+    ]
+    print(f"[numbers] simulate() cardiac MRF dictionary, "
+          f"{len(comp['grid'])} atoms: first {comp['first_s']:.4f} s, "
+          f"memoized {comp['memo_s'] * 1e3:.3f} ms against the kernel's "
+          f"{entries[0]['ms']:.3f} ms ({card})")
+    print(f"[numbers] simulate() MPRAGE Jacobian, {COMPJ_ATOMS} atoms, 4 "
+          f"groups: first {cjac['first_s']:.4f} s, memoized "
+          f"{cjac['memo_s'] * 1e3:.3f} ms against the kernel's "
+          f"{entries[1]['ms']:.3f} ms ({card})")
+    _print_split("simulate() MPRAGE Jacobian", "composite_jac",
+                 _profile_split(torch, cjac["simulate"], "composite_jac"),
+                 card)
+    for what, run, iters in (("MPRAGE T1 mapping", mpr, MPR_ITERS),
+                             ("cardiac MRF T1/T2 mapping", cmrf,
+                              CMRF_ITERS)):
+        per = run["per_iter"]
+        print(f"[numbers] {what}: match {run['match_s'] * 1e3:.2f} ms; "
+              f"{iters} Gauss-Newton iterations {run['gn_s']:.3f} s, per "
+              f"iteration host build + match {per['host']:.4f} s + simulate "
+              f"(kernel + assembly) {per['simulate']:.4f} s + update/solve "
+              f"{per['solve']:.4f} s ({card})")
+    return entries
+
+
 def _memo_pair(torch, fn, reps=5):
     """Host-clock seconds of a memoized simulate() call fn(), with the
     preamble memo kept and with it cleared before every call (the matcher's
@@ -3379,6 +4067,10 @@ def main():
     worst_full = _timed(phase_full_cases, torch)
     print(f"[full-cases] worst max|kernel - plain or fold| = "
           f"{worst_full:.3e} (limit {TOL_KERNEL})")
+    worst_sig, worst_col = _timed(phase_comp_cases, torch)
+    print(f"[comp-cases] worst max|kernel - plain| = {worst_sig:.3e} (limit "
+          f"{TOL_KERNEL}), worst column {worst_col:.3e} (limit "
+          f"{TOL_JAC_KERNEL})")
     main_run = _timed(phase_main_path, torch, epg)
     full_run = _timed(phase_full_path, torch, main_run)
     jac_run = _timed(phase_jac_path, torch, epg)
@@ -3399,6 +4091,11 @@ def main():
     mjac_run = _timed(phase_megre_jac_path, torch, epg)
     b0 = _timed(phase_b0_mapping, torch, epg)
     dwf = _timed(phase_dwfisp_path, torch, epg)
+    comp_run = _timed(phase_comp_path, torch, epg)
+    cjac_run = _timed(phase_comp_jac_path, torch, epg)
+    mpr = _timed(phase_mprage_mapping, torch, epg)
+    cmrf = _timed(phase_cardiac_mapping, torch, epg, comp_run)
+    del comp_run["dictionary"]
     entry = _timed(phase_numbers, torch, epg, card, main_run)
     jac_entry = _timed(phase_jac_numbers, torch, epg, card, jac_run)
     hess_entry = _timed(phase_hess_numbers, torch, epg, card, hess_run)
@@ -3412,6 +4109,19 @@ def main():
                           bjac_run, dess_run)
     megre_entries = _timed(phase_megre_numbers, torch, card, megre_run,
                            mjac_run, full_run, b0, dwf, entry["bound_ms"])
+    comp_entries = _timed(phase_comp_numbers, torch, card, comp_run,
+                          cjac_run, mpr, cmrf)
+    # launches on the composite paths: the cardiac MRF dictionary, its
+    # direct call and the two golden trains (4n), the MPRAGE Jacobian (4o),
+    # the two mappings (5i: dictionary, voxels and one Jacobian per
+    # iteration; 5j: voxels, the example's dictionary and one Jacobian per
+    # iteration)
+    comp_entries[0]["launches"] = (comp_run["launches"]
+                                   + mpr["launches"]["composite"]
+                                   + cmrf["launches"]["composite"])
+    comp_entries[1]["launches"] = (cjac_run["launches"]
+                                   + mpr["launches"]["composite_jac"]
+                                   + cmrf["launches"]["composite_jac"])
     # launches on the bSSFP and DESS paths: the dictionary, its direct
     # call and the golden train (4g), the Jacobian (4h) and MRF serving
     # (5f: dictionary, truth, one Jacobian per Gauss-Newton iteration, one
@@ -3488,7 +4198,7 @@ def main():
     print(card)
     print(json.dumps({"kernels": [entry, jac_entry, hess_entry, mse_entry,
                                   mse_jac_entry, design_entry]
-                      + ssfp_entries + megre_entries}))
+                      + ssfp_entries + megre_entries + comp_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -55,6 +55,8 @@ _SIGNATURES = {
     "epg_megre_jac": [_P] * 9 + [_I] * 8 + [_P],
     "epg_fisp_full": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P]
     + [_I] * 10 + [_P],
+    "epg_composite": [_P] * 16 + [_I] * 12 + [_P],
+    "epg_composite_jac": [_P] * 16 + [_I] * 13 + [_P],
 }
 
 #: the loaded library and what its build printed: {"lib", "path",

@@ -22,6 +22,10 @@ Both functions take plain numpy values, so this module needs no JAX:
   ``run_megre_jacobian``, and a ``match_dwfisp`` dict (``match_fisp``'s
   keys, its ``diffusion`` entry holding bT, bL, a numpy Dcoef -- scalar or
   3x3 -- and ramp) for ``run_dwfisp_kernel`` and ``run_dwfisp_jacobian``;
+  the dict of ``match_composite`` (keys FA, phi, ta, tb, adci, shift, aph,
+  b1u, T1, T2, B1, df, nadc, shape, vars, b1_scale, diffusion -- None or
+  btd, rdir and the scalar Dc), recognised by its ``adci``, is ready for
+  ``run_composite_kernel`` and ``run_composite_jacobian``;
 * :func:`from_numpy_states` builds a :class:`StateMatrix` from the complex
   ``(*batch, K, 3)`` ladder of a JAX ``StateMatrix.states``.
 """
@@ -41,15 +45,21 @@ _HESS_KEYS = ("FA", "phi", "TAU", "T1", "T2", "TE", "TI", "amap", "shape")
 _DESS_KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "vars",
               "b1_scale", "demod", "shape", "df")
 _MEGRE_KEYS = _DESS_KEYS + ("nechoes",)
+_COMP_KEYS = ("FA", "phi", "ta", "tb", "adci", "shift", "aph", "b1u", "T1",
+              "T2", "B1", "df", "nadc", "shape", "vars", "b1_scale",
+              "diffusion")
 _MSE_KEYS = ("exc", "FA", "phi", "tau1", "tau2", "T1", "T2", "B1", "shape",
              "vars", "b1_scale", "diffusion")
 
 
 def from_numpy_params(params: dict, device) -> dict:
-    """A JAX FISP, DW-FISP or bSSFP (or per-pulse Hessian, CPMG, DESS or
-    ME-GRE) match dict -> this package's, with device tensors."""
+    """A JAX FISP, DW-FISP or bSSFP (or per-pulse Hessian, CPMG, DESS,
+    ME-GRE or composite-GRE) match dict -> this package's, with device
+    tensors."""
     if "amap" in params:
         return _hessian_params(params, device)
+    if "adci" in params:
+        return _composite_params(params, device)
     if "tau1" in params:
         return _mse_params(params, device)
     # the DESS dict is the FISP dict without its inversion, DW and prep
@@ -113,6 +123,26 @@ def _mse_params(params, device):
             "b2": float(d["b2"]), "ramp2": bool(d["ramp2"]),
             "D2": np.asarray(d["D2"], dtype=np.float64)}
     fisp_dispatch._mse_device_params(out, device)
+    return out
+
+
+def _composite_params(params, device):
+    out = {k: params.get(k) for k in _COMP_KEYS}
+    for k in ("FA", "phi", "ta", "tb", "adci", "shift", "aph", "b1u", "T1",
+              "T2", "B1", "df"):
+        if out[k] is not None:
+            out[k] = np.asarray(out[k])
+    out["nadc"] = int(out["nadc"])
+    out["shape"] = tuple(out["shape"])
+    out["vars"] = tuple(out["vars"] or ())
+    if out["b1_scale"] is not None:
+        out["b1_scale"] = float(out["b1_scale"])
+    if out["diffusion"] is not None:
+        d = dict(out["diffusion"])
+        out["diffusion"] = {"btd": np.asarray(d["btd"], dtype=np.float64),
+                            "rdir": np.asarray(d["rdir"], dtype=np.float64),
+                            "Dc": float(np.asarray(d["Dc"]))}
+    fisp_dispatch._comp_device_params(out, device)
     return out
 
 

@@ -211,6 +211,113 @@ struct FoldedShift {
     }
 };
 
+// The unit ladder shift S(-1) of the composite kernels, folded through
+// k = 0 and done in place as a row walk (pallas_composite.py:184-194;
+// shift_down of planes.py): A(k) <- A(k+1), A(N) <- 0, B(k) <- B(k-1),
+// B(0) <- A(1), Z unshifted.  The mirror of FoldedShift, walked in the same
+// order (put(k, ...) for k = 0, 1, ..., H-1): it carries B up and writes A
+// one row down, so a row is written only after it has been read.  finish()
+// zero-fills A(N).  Needs H >= 2.
+struct DownShift {
+    PlaneSet s;
+    float carR, carI;  // new B(k-1), waiting for row k to be read
+
+    __device__ __forceinline__ void put(int k, float nAR, float nAI,
+                                        float nBR, float nBI, float nZR,
+                                        float nZI) {
+        s.at(4, k) = nZR;
+        s.at(5, k) = nZI;
+        if (k >= 1) {
+            s.at(0, k - 1) = nAR;
+            s.at(1, k - 1) = nAI;
+            s.at(2, k) = carR;
+            s.at(3, k) = carI;
+            if (k == 1) {
+                s.at(2, 0) = nAR;
+                s.at(3, 0) = nAI;
+            }
+        }
+        carR = nBR;
+        carI = nBI;
+    }
+
+    __device__ __forceinline__ void finish() {
+        s.at(0, s.H - 1) = 0.0f;
+        s.at(1, s.H - 1) = 0.0f;
+    }
+};
+
+// One stage's row walk of the composite kernels: the up shift (dir > 0),
+// the down shift (dir < 0) or none, where the new row k is written in
+// place.  dir is the same for every thread of the block (a per-stage
+// table entry), so the branches are uniform.
+struct StageShift {
+    int dir;
+    FoldedShift up;
+    DownShift down;
+
+    __device__ __forceinline__ StageShift(const PlaneSet& s, int d)
+        : dir(d), up{s, 0.0f, 0.0f}, down{s, 0.0f, 0.0f} {}
+
+    __device__ __forceinline__ void put(int k, float nAR, float nAI,
+                                        float nBR, float nBI, float nZR,
+                                        float nZI) {
+        if (dir > 0) {
+            up.put(k, nAR, nAI, nBR, nBI, nZR, nZI);
+        } else if (dir < 0) {
+            down.put(k, nAR, nAI, nBR, nBI, nZR, nZI);
+        } else {
+            const PlaneSet& s = up.s;
+            s.at(0, k) = nAR;
+            s.at(1, k) = nAI;
+            s.at(2, k) = nBR;
+            s.at(3, k) = nBI;
+            s.at(4, k) = nZR;
+            s.at(5, k) = nZI;
+        }
+    }
+
+    __device__ __forceinline__ void finish() {
+        if (dir > 0) {
+            up.finish();
+        } else if (dir < 0) {
+            down.finish();
+        }
+    }
+};
+
+// The composite kernels' stage-closing diffusion attenuation of row k
+// (_datten of pallas_composite.py:41-66; stage_attenuation of planes.py)
+// for the stage's b-value base bt and ramp direction rd in {-1, 0, +1}:
+// A(k) was ramped (k - rd) -> k and B(k) = F+(-k) was ramped
+// -(k + rd) -> -k, so the rd k term changes sign between them (att_rows
+// below knows only rd = +1); Z does not ramp.  Computed per row at each
+// stage and never stored: bt changes from stage to stage.
+struct StageAtt {
+    float aA, aB, aZ;
+};
+
+__device__ __forceinline__ StageAtt stage_att(int k, float bt, float rd,
+                                              float Dc) {
+    const float kf = static_cast<float>(k);
+    const float k2 = kf * kf;
+    const float third = (rd * rd) * (1.0f / 3.0f);
+    return StageAtt{expf(-(bt * (k2 - rd * kf + third)) * Dc),
+                    expf(-(bt * (k2 + rd * kf + third)) * Dc),
+                    expf(-(bt * k2) * Dc)};
+}
+
+// Row k of a plane set times a row's attenuation (attenuate of planes.py).
+__device__ __forceinline__ void attenuate_row(const PlaneSet& s, int k,
+                                              const StageAtt& a) {
+    s.at(0, k) *= a.aA;
+    s.at(1, k) *= a.aA;
+    s.at(2, k) *= a.aB;
+    s.at(3, k) *= a.aB;
+    s.at(4, k) *= a.aZ;
+    s.at(5, k) *= a.aZ;
+}
+
 // FoldedShift::put after the DW-TSE attenuation of the CPMG half-stage
 // E(tau) S(1) [D] (cpmg.cu, cpmg_jac.cu; attenuate() of planes.py) when `a`
 // is not null: each new value of row k is scaled by the row put() writes it

@@ -4,16 +4,19 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
 ``simulate()`` has two routes:
 
 * **the kernel dispatch**: a family table (JAX ``engine.py:874-940``)
-  tries FISP, CPMG, bSSFP, DESS, ME-GRE, then DW-FISP; the first match
-  wins.  An exact FISP train (fisp_dispatch.match_fisp) runs as one fused
-  CUDA kernel (models/cuda_fisp.py), a CPMG / multi-spin-echo train,
-  DW-TSE included (fisp_dispatch.match_mse), as the CPMG kernel
+  tries FISP, CPMG, bSSFP, DESS, ME-GRE, DW-FISP, then composite GRE; the
+  first match wins.  An exact FISP train (fisp_dispatch.match_fisp) runs
+  as one fused CUDA kernel (models/cuda_fisp.py), a CPMG / multi-spin-echo
+  train, DW-TSE included (fisp_dispatch.match_mse), as the CPMG kernel
   (models/cuda_mse.py), a balanced SSFP train (match_bssfp) as the k = 0
   bSSFP kernel (models/cuda_bssfp.py), a DESS train (match_dess) as the
   two-echo DESS kernel (models/cuda_dess.py), a multi-echo GRE train
   (match_megre) as the ME-GRE kernel (models/cuda_megre.py), a DW-FISP
   train (match_dwfisp) as the FISP kernel with its diffusion
-  attenuation.  They engage only without ``probe``, and
+  attenuation, and any other stage train ``[T?, E*, Adc?, E*, S(+-k)?,
+  D?]`` -- MPRAGE, prepared cardiac MRF, saturation recovery
+  (match_composite) -- as the composite kernel (models/cuda_composite.py).
+  They engage only without ``probe``, and
   so do their Jacobian probes
   (``probe=[ADC, Jacobian([...])]`` on a train whose E ops track
   ``order1=["T1", "T2"]`` and whose T ops may track B1): the fused
@@ -183,11 +186,12 @@ def _kernel_gate(fisp_kernel, what):
 
 def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp):
     """The family table (engine.py:874-940 of the JAX package): FISP,
-    CPMG, bSSFP, DESS, ME-GRE, DW-FISP; the first match wins, each family
-    behind its own shared-memory gate (none for bSSFP: its state is three
-    registers).
+    CPMG, bSSFP, DESS, ME-GRE, DW-FISP, composite GRE; the first match
+    wins, each family behind its own shared-memory gate (none for bSSFP:
+    its state is three registers).
     Returns the kernel's echo train (N, *batch), or None (logged)."""
     from . import fisp_dispatch as fd
+    from .models import cuda_composite
 
     if not _kernel_gate(fisp_kernel, "fused kernels"):
         return None
@@ -210,6 +214,16 @@ def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp):
         (lambda seq: fd.match_dwfisp(seq, kvalue),
          lambda p: fd.kernel_fits(ncap), fd.run_dwfisp_kernel, "DW-FISP",
          "dw"),
+        # the EPG-X families (xgre, then xcomp) go here, before composite,
+        # as in the JAX table (engine.py:884-892), once they are ported.
+        # Composite stage trains come last: the exact-pattern families
+        # above keep their faster kernels.  Its gate counts the 6 planes
+        # only: the JAX gate folds its VMEM output windows in
+        # (engine.py:925-929), but on the card the echoes go to HBM
+        (lambda seq: fd.match_composite(seq, kvalue),
+         lambda p: cuda_composite.composite_kernel_fits(ncap),
+         fd.run_composite_kernel,
+         "composite GRE", "comp"),
     ]
     for matcher, fits, runner, family, tag in families:
         params = matcher(sequence)
@@ -268,11 +282,13 @@ def _diff_dispatch(sequence, probes, ncap, fisp_kernel, kvalue, disp):
 
 
 def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
-    """Jacobian probes on a FISP, CPMG, bSSFP, DESS, ME-GRE or DW-FISP
-    train (engine.py:1042-1136 of the JAX package): the fused
-    primal+tangent kernel's outputs, a tuple over probes, or None (logged)
-    for the general path."""
+    """Jacobian probes on a FISP, CPMG, bSSFP, DESS, ME-GRE, DW-FISP or
+    composite-GRE train (engine.py:1042-1136 of the JAX package): the
+    fused primal+tangent kernel's outputs, a tuple over probes, or None
+    (logged) for the general path.  Each family's gate sees the match and
+    the probe specs."""
     from . import fisp_dispatch
+    from .models import cuda_composite
 
     # cheap probe-shape pre-check against the maximal variable set before
     # paying the host-side train factorization
@@ -284,31 +300,40 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
         return None
     families = [
         (fisp_dispatch.match_fisp,
-         lambda p: fisp_dispatch.jac_kernel_fits(ncap),
+         lambda p, s: fisp_dispatch.jac_kernel_fits(ncap),
          fisp_dispatch.run_fisp_jacobian, "FISP", "jac:fisp"),
         # 24 planes, 30 with the DW-TSE attenuation (engine.py:1083-1099)
         (lambda seq: fisp_dispatch.match_mse(seq, kvalue),
-         lambda p: fisp_dispatch.mse_jac_kernel_fits(
+         lambda p, s: fisp_dispatch.mse_jac_kernel_fits(
              ncap, p["diffusion"] is not None),
          fisp_dispatch.run_mse_jacobian, "CPMG", "jac:mse"),
         # k = 0 only, always fits (engine.py:1081-1082)
-        (fisp_dispatch.match_bssfp, lambda p: True,
+        (fisp_dispatch.match_bssfp, lambda p, s: True,
          fisp_dispatch.run_bssfp_jacobian, "bSSFP", "jac:bssfp"),
         (fisp_dispatch.match_dess,
-         lambda p: fisp_dispatch.jac_kernel_fits(ncap),
+         lambda p, s: fisp_dispatch.jac_kernel_fits(ncap),
          fisp_dispatch.run_dess_jacobian, "DESS", "jac:dess"),
         # 30 planes: the df tangent group (engine.py:1084-1085), the
         # FISP Jacobian kernel's with its dD group
         (fisp_dispatch.match_megre,
-         lambda p: fisp_dispatch.jac_kernel_fits(ncap, True),
+         lambda p, s: fisp_dispatch.jac_kernel_fits(ncap, True),
          fisp_dispatch.run_megre_jacobian, "ME-GRE", "jac:megre"),
         # the FISP Jacobian kernel's 24 planes, 30 with the dD group (not
         # the JAX gate's 30/36 VMEM planes: the attenuation rows are
         # computed per TR)
         (lambda seq: fisp_dispatch.match_dwfisp(seq, kvalue),
-         lambda p: fisp_dispatch.jac_kernel_fits(
+         lambda p, s: fisp_dispatch.jac_kernel_fits(
              ncap, p["d_var"] is not None),
          fisp_dispatch.run_dwfisp_jacobian, "DW-FISP", "jac:dw"),
+        # the EPG-X families go here, before composite (engine.py:
+        # 1042-1074), once they are ported.  Composite comes last; its
+        # gate counts 6 (1 + ng) planes for the ng tangent groups the
+        # probes need -- not the JAX gate's output windows
+        # (engine.py:1086-1095): the outputs go to HBM
+        (lambda seq: fisp_dispatch.match_composite(seq, kvalue),
+         lambda p, s: cuda_composite.composite_jac_kernel_fits(
+             ncap, len(fisp_dispatch.composite_jac_groups(s))),
+         fisp_dispatch.run_composite_jacobian, "composite GRE", "jac:comp"),
     ]
     for matcher, fits, runner, family, tag in families:
         params = matcher(sequence)
@@ -322,7 +347,7 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
                         [getattr(pb, "variables", None) for pb in probes],
                         params["vars"])
             return None
-        if not fits(params):
+        if not fits(params, specs):
             LOGGER.info("simulate: %s Jacobian kernel not used: gate: "
                         "nstate=%d does not fit in shared memory", family,
                         ncap)
@@ -333,11 +358,9 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
                         len(params["FA"]), ncap)
         fisp_dispatch.count_dispatch(tag)
         return runner(params, ncap, specs)
-    # the composite Jacobian family of the JAX dispatcher is not ported
-    # yet (ROADMAP)
     LOGGER.info("simulate: Jacobian kernels not used: not a FISP, CPMG, "
-                "bSSFP, DESS, ME-GRE or DW-FISP train (other Jacobian "
-                "families are not ported)")
+                "bSSFP, DESS, ME-GRE, DW-FISP or composite-GRE train (the "
+                "EPG-X families are not ported)")
     return None
 
 

@@ -55,8 +55,15 @@ E ops may track T1, T2 and g), run by models/cuda_megre.py.  The DW-FISP
 family (``:628-790``): :func:`match_dwfisp` is the FISP matcher with one D
 op after each shift (``dw=True``: the same D instance every TR, a host
 ``kvalue``; a scalar D may be tracked as ``order1=["Dcoef"]``), run by the
-FISP kernels with their diffusion attenuation.  The EPG-X and composite
-families of the JAX dispatcher are not ported yet (ROADMAP).
+FISP kernels with their diffusion attenuation.
+
+The composite-GRE family (``:2888-3292``): :func:`match_composite` folds
+any ``[T?, E*, Adc?, E*, S(+-k)?, D?]`` stage train -- MPRAGE, cardiac MRF
+with IR and T2prep preps, saturation recovery -- into per-stage tables,
+run by models/cuda_composite.py (:func:`run_composite_kernel`,
+:func:`run_composite_jacobian` with only the tangent groups the probes
+need).  The EPG-X families of the JAX dispatcher are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -67,8 +74,8 @@ import numpy as np
 import torch
 
 from . import common, config
-from .models import (cuda_bssfp, cuda_dess, cuda_fisp, cuda_hessian,
-                     cuda_megre, cuda_mse)
+from .models import (cuda_bssfp, cuda_composite, cuda_dess, cuda_fisp,
+                     cuda_hessian, cuda_megre, cuda_mse)
 
 LOGGER = logging.getLogger(__name__)
 
@@ -80,7 +87,9 @@ __all__ = ["match_fisp", "run_fisp_kernel", "device_params", "kernel_fits",
            "mse_jac_kernel_fits", "match_bssfp", "run_bssfp_kernel",
            "run_bssfp_jacobian", "match_dess", "run_dess_kernel",
            "run_dess_jacobian", "match_megre", "run_megre_kernel",
-           "run_megre_jacobian", "match_dwfisp", "run_dwfisp_kernel", "run_dwfisp_jacobian",
+           "run_megre_jacobian", "match_dwfisp", "run_dwfisp_kernel",
+           "run_dwfisp_jacobian", "match_composite", "run_composite_kernel",
+           "run_composite_jacobian", "composite_jac_groups",
            "count_dispatch", "DISPATCH_COUNTS", "clear_cache"]
 
 #: per-sequence match memo keyed on operator identities; entries pin the
@@ -235,18 +244,23 @@ def _d_order1(op):
     return var
 
 
-def _b1_scale_from_coeffs(FA, coeffs):
-    """Shared-ratio validation for B1-tracked trains.
+def _b1_scale_from_coeffs(FA, coeffs, sens=None):
+    """Shared-ratio validation for B1-tracked trains
+    (``epgpy_tpu/fisp_dispatch.py:228-258``).
 
     The kernel's dB1 column is w.r.t. its internally factored B1
     (``_rank1_factor`` absorbs the physical scale into FA), with per-pulse
     coefficient d(a_i)/dB1_kernel = FA_i.  The spec says d(alpha_i)/dB1 =
-    c_i, so one shared ratio s = FA_i / c_i must hold on every pulse with
-    a flip; then dS/dB1 = dS/dB1_kernel / s.  Pulses without a flip must
-    be untracked.  Returns s or None."""
+    c_i, so one shared ratio s = FA_i / c_i must hold on every pulse the
+    kernel's dB1 group sums; then dS/dB1 = dS/dB1_kernel / s.  ``sens``
+    marks those pulses (default: every pulse with a flip; the composite
+    family's adiabatic stages are not among them): they must be tracked,
+    and the others untracked.  Returns s or None."""
+    if sens is None:
+        sens = [abs(float(fa)) > 1e-12 for fa in FA[:len(coeffs)]]
     s = None
-    for fa, c in zip(FA, coeffs):
-        if abs(float(fa)) > 1e-12:
+    for fa, c, on in zip(FA, coeffs, sens):
+        if on:
             if c == () or c == 0.0:
                 return None
             r = float(fa) / c
@@ -1795,5 +1809,326 @@ def run_dwfisp_jacobian(params, nstate, specs):
         cols["B1"] = (2, inv)
     if d_var is not None:
         cols[d_var] = (3, None)
+    return _assemble_jac_outputs(re, im, dre, dim, specs,
+                                 tuple(params["shape"]), cols)
+
+
+# -- the composite-GRE family (epgpy_tpu/fisp_dispatch.py:2888-3292) --
+
+
+def match_composite(sequence, kvalue=1.0):
+    """Match gradient-echo *stage* trains for the composite kernels
+    (``epgpy_tpu/fisp_dispatch.py:2892``).
+
+    A stage is ``[T?, E*, Adc?, E*, S(+-k)?, D?]``, every element optional:
+    the op list folds greedily into stages (consecutive E taus accumulate;
+    a shift, a second Adc or a D closes the stage; ``S(+-k)`` with |k| <= 8
+    expands into |k| unit-shift stages; Wait and other empty ops are
+    skipped).  This covers the segmented and prepared GRE trains the
+    exact-pattern families reject -- MPRAGE/MP2RAGE, cardiac MRF with IR
+    and T2prep preps, saturation recovery, DW-prepared trains -- and is
+    the last family of the engine's tables.  Requirements: 3 to 8192
+    stages and at least one readout; host scalar taus and phases; one
+    shared (T1, T2, g) on every E, which may track them canonically; F0
+    Adc ops with an optional host scalar phase; a rank-1 ``outer(FA, B1)``
+    of the vector flips, scalar flips being adiabatic (b1u = 0); B1
+    tracking on exactly the B1-sensitive stages; D ops with a float tau,
+    one shared scalar Dcoef and a ramp (``k=+-1``) only in the direction of
+    its stage's shift.  Returns the JAX matcher's dict (FA, phi, ta, tb,
+    adci, shift, aph, b1u, T1, T2, B1, df, nadc, shape, vars, b1_scale,
+    diffusion: None or {btd, rdir, Dc}, Dc a host float) or None, logging
+    the reason at INFO; memoized on the operator identities and kvalue.
+    """
+    if len(sequence) < 8 or not isinstance(kvalue, (int, float)):
+        params, reason = None, (f"{len(sequence)} ops (kvalue {kvalue!r}): "
+                                f"fewer than 8, or kvalue not a host number")
+    else:
+        key = ("comp", float(kvalue)) + tuple(id(op) for op in sequence)
+        params, reason = _memoized(
+            key, sequence, lambda: _match_composite_impl(sequence, kvalue))
+    if params is None:
+        LOGGER.info("match_composite: not a composite-GRE stage train: %s",
+                    reason)
+    return params
+
+
+def _fold_stages(sequence):
+    """(stages, T1, T2, DF, tracked) of the stage grammar, or (None,
+    reason): each stage a dict of its flip, phase, ta, tb, readout, ADC
+    phase, shift, closing D op and B1 tracking coefficient."""
+    from .ops import base as _base
+    from .ops.diffusion import D
+    from .ops.evolution import E
+    from .ops.probe import Adc, Probe
+    from .ops.shift import S
+    from .ops.transition import T
+
+    stages, cur = [], None
+
+    def new_stage(fa=None, ph=0.0, b1c=()):
+        return {"fa": np.zeros(1) if fa is None else fa, "phi": ph,
+                "ta": 0.0, "tb": 0.0, "adc": False, "aph": 0.0, "shift": 0,
+                "d": None, "b1c": b1c}
+
+    def close():
+        nonlocal cur
+        if cur is not None:
+            stages.append(cur)
+            cur = None
+
+    T1 = T2 = DF = tracked = None
+    for n, op in enumerate(sequence):
+        if type(op) is T:
+            b1c = _t_b1_order1(op)
+            a, ph = _host_nd(op.alpha), _scalar(op.phi)
+            if b1c is None or a is None or ph is None:
+                return None, (f"op {n} ({op.name}): flip or phase not a host "
+                              f"value, or a derivative spec other than B1")
+            close()
+            cur = new_stage(a, ph, b1c)
+        elif type(op) is E:
+            c = _canonical_order1(op, ("T1", "T2", "g"))
+            if c is None or (tracked is not None and tracked != c):
+                return None, (f"op {n} ({op.name}): E derivative specs are "
+                              f"not one canonical T1/T2/g tracking")
+            tracked = c
+            tau = _scalar(op.tau)
+            if tau is None or tau < 0:
+                return None, f"op {n} ({op.name}): tau not a host scalar >= 0"
+            t1v, t2v, gv = _host_nd(op.T1), _host_nd(op.T2), _host_nd(op.g)
+            if t1v is None or t2v is None or gv is None:
+                return None, f"op {n} ({op.name}): T1/T2/g not host values"
+            if T1 is None:
+                T1, T2, DF = t1v, t2v, gv
+            elif not (np.array_equal(T1, t1v) and np.array_equal(T2, t2v)
+                      and np.array_equal(DF, gv)):
+                return None, (f"op {n} ({op.name}): T1, T2 or g differ from "
+                              f"the first E's")
+            if cur is None or cur["shift"]:
+                close()
+                cur = new_stage()
+            cur["tb" if cur["adc"] else "ta"] += tau
+        elif type(op) is Adc:
+            ph_adc = None if op.phase is None else _scalar(op.phase)
+            if op.attr != "F0" or (op.phase is not None and ph_adc is None):
+                return None, f"op {n}: not a plain F0 readout"
+            if cur is None or cur["adc"] or cur["shift"]:
+                close()
+                cur = new_stage()
+            cur["adc"] = True
+            cur["aph"] = 0.0 if ph_adc is None else float(ph_adc)
+        elif type(op) is S:
+            k = int(op.k)
+            if not _no_diff(op) or abs(k) > 8:
+                return None, f"op {n}: shift {k} tracked or beyond +-8"
+            if cur is None:
+                cur = new_stage()
+            for _ in range(abs(k)):
+                if cur["shift"]:
+                    close()
+                    cur = new_stage()
+                cur["shift"] = 1 if k > 0 else -1
+        elif type(op) is D:
+            # a D op closes its stage: its attenuation follows the shift
+            if cur is None:
+                cur = new_stage()
+            cur["d"] = op
+            close()
+        elif isinstance(op, Probe):
+            return None, f"op {n}: a probe other than Adc"
+        elif not isinstance(op, _base.EmptyOperator):
+            return None, f"op {n} ({type(op).__name__}): not a stage op"
+    close()
+    return (stages, T1, T2, DF, tracked), None
+
+
+def _composite_diffusion(stages, kvalue):
+    """The per-stage D tables {btd, rdir, Dc} (``fisp_dispatch._dw_bvalue``
+    conventions), None without D stages, or a string: why not."""
+    d_list = [(i, s["d"]) for i, s in enumerate(stages) if s["d"] is not None]
+    if not d_list:
+        return None
+    N = len(stages)
+    btd, rdir = np.zeros(N), np.zeros(N)
+    dc0, seen = None, set()
+    for i, d in d_list:
+        if not _no_diff(d) or not isinstance(d.tau, float):
+            return f"stage {i}: D tracked or its tau not a host float"
+        if _is_device(d.Dcoef) or getattr(d.Dcoef, "ndim", 0) != 0:
+            return f"stage {i}: Dcoef not a host scalar"
+        rd = 0.0
+        if d.kshift is not None:
+            ks = np.asarray(d.kshift)
+            rd = float(ks.reshape(-1)[0]) if ks.shape == (1, 1) else None
+            if rd not in (-1.0, 1.0) or rd != float(stages[i]["shift"]):
+                return f"stage {i}: D ramp is not its stage's unit shift"
+        if dc0 is None:
+            dc0 = d.Dcoef
+            seen.add(id(dc0))
+        elif id(d.Dcoef) not in seen:
+            if len(seen) >= 16 or not np.array_equal(
+                    np.asarray(_host(dc0)), np.asarray(_host(d.Dcoef))):
+                return f"stage {i}: D ops do not share one Dcoef"
+            seen.add(id(d.Dcoef))
+        btd[i] = d.tau * 1e-3 * (float(kvalue) * 1e-3) ** 2
+        rdir[i] = rd
+    return {"btd": btd, "rdir": rdir, "Dc": float(np.asarray(_host(dc0)))}
+
+
+def _match_composite_impl(sequence, kvalue=1.0):
+    """(params, None) for a composite stage train, else (None, reason)."""
+    folded, reason = _fold_stages(sequence)
+    if folded is None:
+        return None, reason
+    stages, T1, T2, DF, tracked = folded
+    N = len(stages)
+    nadc = sum(1 for s in stages if s["adc"])
+    if N < 3 or N > 8192 or nadc < 1 or T1 is None:
+        return None, (f"{N} stages, {nadc} readouts: needs 3 to 8192 stages, "
+                      f"a readout and an E op")
+
+    # rank-1 flip factorization; scalar-flip stages (adiabatic preps)
+    # bypass the per-atom B1 scale (b1u = 0)
+    FA, b1u = np.zeros(N), np.ones(N)
+    vec = [i for i, s in enumerate(stages) if s["fa"].size > 1]
+    if vec:
+        fab = _rank1_factor([stages[i]["fa"] for i in vec])
+        if fab is None:
+            return None, "vector flips are not rank-1 outer(FA, B1)"
+        FAv, B1 = fab
+        FA[vec] = FAv
+        for i, s in enumerate(stages):
+            if s["fa"].size == 1:
+                FA[i] = float(s["fa"].reshape(-1)[0])
+                b1u[i] = 0.0
+        if np.all(B1 == 1.0):
+            b1u[:] = 1.0
+    else:
+        B1 = np.ones(1)
+        for i, s in enumerate(stages):
+            FA[i] = float(s["fa"].reshape(-1)[0])
+
+    # B1 tracking: the kernel's dB1 group sums d(a)/dB1 = FA_i over the
+    # B1-sensitive stages; the tracked set must be exactly those
+    b1_coeffs = [s["b1c"] for s in stages]
+    b1_scale = None
+    if any(c != () for c in b1_coeffs):
+        sens = [b1u[i] != 0.0 and abs(FA[i]) > 1e-12 for i in range(N)]
+        b1_scale = _b1_scale_from_coeffs(FA, b1_coeffs, sens)
+        if b1_scale is None:
+            return None, ("B1 tracking is not one ratio of FA over exactly "
+                          "the B1-sensitive stages")
+
+    adci = np.full(N, -1, np.int64)
+    aph, shift = np.zeros(N), np.zeros(N, np.int64)
+    j = 0
+    for i, s in enumerate(stages):
+        if s["adc"]:
+            adci[i] = j
+            j += 1
+            aph[i] = s["aph"] * np.pi / 180.0
+        shift[i] = s["shift"]
+
+    diffusion = _composite_diffusion(stages, kvalue)
+    if isinstance(diffusion, str):
+        return None, diffusion
+    if not common.broadcastable(T1.shape, T2.shape, B1.shape, DF.shape):
+        return None, "T1, T2, B1 and g batch shapes do not broadcast"
+    bshape = common.broadcast_shapes(T1.shape, T2.shape, B1.shape, DF.shape)
+    T1f, T2f, B1f, DFf = _append_rows((T1, T2, B1, DF), bshape)
+    return {
+        "FA": FA, "phi": np.asarray([s["phi"] for s in stages]),
+        "ta": np.asarray([s["ta"] for s in stages]),
+        "tb": np.asarray([s["tb"] for s in stages]),
+        "adci": adci, "shift": shift, "aph": aph, "b1u": b1u,
+        "T1": T1f, "T2": T2f, "B1": B1f, "df": DFf if DFf.any() else None,
+        "nadc": int(nadc), "shape": bshape,
+        "vars": (tracked or ()) if b1_scale is None
+        else tuple(sorted((tracked or ()) + ("B1",))),
+        "b1_scale": b1_scale, "diffusion": diffusion,
+    }, None
+
+
+def _comp_device_params(params, device=None, dtype=None):
+    """The composite kernels' tensors of a match dict, cached on it (like
+    :func:`device_params`): the stage tables (FA, phi, ta, tb, aph, b1u,
+    btd, rdir in the working precision, adci and shift int32) and the
+    atoms (T1, T2, B1, df or None, Dc (B,) or None)."""
+    def build(device, dtype):
+        def vec(k, src=params, dt=dtype):
+            return torch.as_tensor(np.array(src[k], np.float64), dtype=dt,
+                                   device=device)
+
+        dev = {k: vec(k) for k in ("FA", "phi", "ta", "tb", "aph", "b1u",
+                                   "T1", "T2", "B1")}
+        dev["adci"] = vec("adci", dt=torch.int32)
+        dev["shift"] = vec("shift", dt=torch.int32)
+        dev["df"] = None if params.get("df") is None else vec("df")
+        diff = params.get("diffusion")
+        if diff is None:
+            dev["diffusion"] = None
+        else:
+            dev["diffusion"] = (vec("btd", diff), vec("rdir", diff),
+                                torch.full_like(dev["T1"], float(diff["Dc"])))
+        return dev
+
+    return _cached_device(params, device, build,
+                          config.real_dtype() if dtype is None else dtype)
+
+
+def _comp_call(params, nstate):
+    """Positional tensors and keywords of the composite kernels for a
+    match dict: a shifting train runs at nstate >= 1 (``:3212-3214``), the
+    static flags come from the host tables."""
+    d = _comp_device_params(params)
+    shift = np.asarray(params["shift"])
+    up, down = bool((shift == 1).any()), bool((shift == -1).any())
+    ns = int(nstate)
+    if (up or down) and ns < 1:
+        ns = 1
+    args = tuple(d[k] for k in ("FA", "phi", "ta", "tb", "adci", "shift",
+                                "aph", "b1u", "T1", "T2", "B1", "df"))
+    kw = dict(nadc=int(params["nadc"]), nstate=ns,
+              diffusion=d["diffusion"], has_up=up, has_down=down,
+              has_adcph=bool(np.asarray(params["aph"]).any()),
+              has_b1u=not bool(np.asarray(params["b1u"]).all()))
+    return args, kw
+
+
+def run_composite_kernel(params, nstate):
+    """Run the composite kernel on a match dict (``:3205``); returns the
+    echo train as a complex tensor in the engine's layout, (nadc, *batch):
+    the kernel writes (nadc, B)."""
+    args, kw = _comp_call(params, nstate)
+    re, im = cuda_composite.composite_echoes(*args, **kw)
+    return torch.complex(re, im).reshape((re.shape[0],)
+                                         + tuple(params["shape"]))
+
+
+def composite_jac_groups(specs):
+    """The kernel's tangent groups the matched probe specs need, in the
+    canonical order (T1, T2, B1, df) (``:3225``); dispatch specs name the
+    df column "g", the E ops' parameter."""
+    want = set()
+    for spec in specs:
+        if spec[0] == "jac":
+            want.update(n for n in spec[1] if n != "magnitude")
+    return tuple(g for g in cuda_composite.COMP_JAC_GROUPS
+                 if ("g" if g == "df" else g) in want)
+
+
+def run_composite_jacobian(params, nstate, specs):
+    """Run the composite Jacobian kernel for matched diff probes
+    (``:3270``) with only the tangent groups the probes need; the B1
+    column is divided by the matcher's ``b1_scale``, and each name maps to
+    its column in group order.  Returns a tuple over probes: signal (nadc,
+    *batch), Jacobian (nadc, *batch, k)."""
+    args, kw = _comp_call(params, nstate)
+    groups = composite_jac_groups(specs)
+    (re, im), (dre, dim) = cuda_composite.composite_jacobian_echoes(
+        *args, groups=groups, **kw)
+    inv = _b1_inv(params, re.dtype)
+    cols = {("g" if g == "df" else g): (j, inv if g == "B1" else None)
+            for j, g in enumerate(groups)}
     return _assemble_jac_outputs(re, im, dre, dim, specs,
                                  tuple(params["shape"]), cols)

@@ -1,9 +1,12 @@
 """Model-level simulators and kernels (counterpart of ``epgpy_tpu/models``)."""
 
-from . import (cuda_bssfp, cuda_dess, cuda_fisp, cuda_hessian, cuda_megre,
-               cuda_mse, cuda_msedesign, mrf, mse, planes, ssfp)
+from . import (cuda_bssfp, cuda_composite, cuda_dess, cuda_fisp,
+               cuda_hessian, cuda_megre, cuda_mse, cuda_msedesign, mrf, mse,
+               planes, ssfp)
 from .cuda_bssfp import (bssfp_dictionary_cuda, bssfp_dictionary_plain,
                          bssfp_jacobian_cuda, bssfp_jacobian_plain)
+from .cuda_composite import (composite_cuda, composite_jacobian_cuda,
+                             composite_jacobian_plain, composite_plain)
 from .cuda_dess import (dess_dictionary_cuda, dess_dictionary_plain,
                         dess_jacobian_cuda, dess_jacobian_plain)
 from .cuda_fisp import (fisp_dictionary_cuda, fisp_dictionary_plain,
@@ -18,11 +21,13 @@ from .mrf import (fisp_mrf_signal, fisp_mrf_dictionary, save_dictionary,
 from .mse import cpmg_sequence, mse_signal
 from .ssfp import bssfp_sequence, dess_sequence, spgr_sequence
 
-__all__ = ["cuda_bssfp", "cuda_dess", "cuda_fisp", "cuda_hessian",
-           "cuda_megre", "cuda_mse", "cuda_msedesign", "mrf", "mse", "planes",
-           "ssfp",
+__all__ = ["cuda_bssfp", "cuda_composite", "cuda_dess", "cuda_fisp",
+           "cuda_hessian", "cuda_megre", "cuda_mse", "cuda_msedesign", "mrf",
+           "mse", "planes", "ssfp",
            "bssfp_dictionary_cuda", "bssfp_dictionary_plain",
            "bssfp_jacobian_cuda", "bssfp_jacobian_plain",
+           "composite_cuda", "composite_plain", "composite_jacobian_cuda",
+           "composite_jacobian_plain",
            "dess_dictionary_cuda", "dess_dictionary_plain",
            "dess_jacobian_cuda", "dess_jacobian_plain",
            "fisp_dictionary_cuda", "fisp_dictionary_plain",

@@ -17,7 +17,10 @@ balanced-SSFP kernels (``epgpy_tpu/models/pallas_bssfp.py:113-122,
 no ladder; its B1 derivative is :func:`rot_coeffs_db1` through the same
 function).  The multi-echo GRE kernels (``epgpy_tpu/models/
 pallas_megre.py:129-143, 304-343``) add the echo copy of the rotated k = 0
-row and the off-resonance tangent of a phasor.
+row and the off-resonance tangent of a phasor.  The composite-GRE kernels
+(``epgpy_tpu/models/pallas_composite.py:41-66, 184-194``) add the down
+shift S(-1) and the per-stage diffusion attenuation with a ramp in either
+direction.
 
 A plane set is the 6-tuple ``(AR, AI, BR, BI, ZR, ZI)`` of ``(nstate + 1,
 B)`` real tensors with A(k) = F+(k), B(k) = F+(-k) and Z(k), k = 0..N;
@@ -33,8 +36,9 @@ import torch
 
 __all__ = ["cmul", "phase_terms", "rot_coeffs", "rot_coeffs_db1", "rot_A",
            "rot_B", "rot_Z", "apply_rot", "rot_k0", "shift_fold",
-           "te_terms", "echo_copy", "df_tangent", "relax_tangents",
-           "relax_tau_terms", "inversion_prep", "diff_attenuation",
+           "shift_down", "stage_attenuation", "te_terms", "echo_copy",
+           "df_tangent", "relax_tangents", "relax_tau_terms",
+           "inversion_prep", "diff_attenuation",
            "excitation", "excitation_terms", "half_relax",
            "half_relax_tangents", "attenuate"]
 
@@ -204,6 +208,32 @@ def shift_fold(s):
     zrow = torch.zeros_like(AR[:1])
     return (torch.cat([BR[1:2], AR[:-1]]), torch.cat([BI[1:2], AI[:-1]]),
             torch.cat([BR[1:], zrow]), torch.cat([BI[1:], zrow]), ZR, ZI)
+
+
+def shift_down(s):
+    """The unit ladder shift S(-1) folded through k = 0 (the composite
+    kernels, ``epgpy_tpu/models/pallas_composite.py:184-194``): A(k) <-
+    A(k+1), A(N) <- 0, B(k) <- B(k-1), B(0) <- A(1), Z unshifted."""
+    AR, AI, BR, BI, ZR, ZI = s
+    zrow = torch.zeros_like(AR[:1])
+    return (torch.cat([AR[1:], zrow]), torch.cat([AI[1:], zrow]),
+            torch.cat([AR[1:2], BR[:-1]]), torch.cat([AI[1:2], BI[:-1]]), ZR,
+            ZI)
+
+
+def stage_attenuation(bt, rd, Dc, H):
+    """The composite kernels' stage-closing diffusion attenuation rows
+    ``(aA, aB, aZ)``, each (H, B) (``_datten``, ``pallas_composite.py:
+    41-66``), for a b-value base ``bt`` per squared state index and a ramp
+    direction ``rd`` in {-1, 0, +1} (host numbers): A(k) was ramped
+    (k - rd) -> k and B(k) = F+(-k) was ramped -(k + rd) -> -k, so the
+    signs of the rd k term swap between them; Z does not ramp."""
+    rows = torch.arange(H, dtype=Dc.dtype, device=Dc.device)[:, None]
+    k2 = rows * rows
+    third = (rd * rd) * (1.0 / 3.0)
+    return (torch.exp(-(bt * (k2 - rd * rows + third)) * Dc),
+            torch.exp(-(bt * (k2 + rd * rows + third)) * Dc),
+            torch.exp(-(bt * k2) * Dc))
 
 
 def excitation(exc, H, B, dtype, device):

@@ -55,7 +55,9 @@ def compute_bmatrix(tau, k1, k2=None):
         return a[..., :, None] * b[..., None, :]
 
     if tau.ndim:
-        tau = tau.reshape(tau.shape + (1,) * (k1.ndim + 1 - tau.ndim))
+        # a batched tau's axes lead the (..., n, d, d) b-matrix, so the
+        # attenuation comes out (*tau, ..., n) for _align
+        tau = tau.reshape(tau.shape + (1,) * (k1.ndim + 1))
     bmat = outer(k1, k1) * tau
     if k2 is None:
         return bmat

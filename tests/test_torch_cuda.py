@@ -1,6 +1,7 @@
 """The CUDA kernels (FISP dictionary, full ladder, Jacobian, per-pulse
-Hessian; CPMG dictionary, Jacobian, per-echo design; bSSFP, DESS and ME-GRE
-dictionary and Jacobian) vs their plain twins, on the card.
+Hessian; CPMG dictionary, Jacobian, per-echo design; bSSFP, DESS, ME-GRE
+and composite-GRE dictionary and Jacobian) vs their plain twins, on the
+card.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it runs on the GPU machine as it is:
@@ -11,18 +12,20 @@ JAX, so it runs on the GPU machine as it is:
 import pytest
 import torch
 
-from chip_smoke import (BSSFP_CASES, DESIGN_CASES, DESS_CASES, FULL_CASES,
-                        HESS_CASES, JAC_CASES, MEGRE_CASES, MSE_CASES,
-                        OPTION_CASES, _atom_tensors, _causal_max,
-                        _pair_errors, hess_block_errors, hessian_sequence,
-                        make_bssfp_case, make_case, make_design_case,
+from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_GROUP_SETS,
+                        DESIGN_CASES, DESS_CASES, FULL_CASES, HESS_CASES,
+                        JAC_CASES, MEGRE_CASES, MSE_CASES, OPTION_CASES,
+                        _atom_tensors, _causal_max, _pair_errors,
+                        comp_jac_draws, comp_jac_sequence, comp_tensors,
+                        hess_block_errors, hessian_sequence, make_bssfp_case,
+                        make_case, make_comp_case, make_design_case,
                         make_dess_case, make_full_case, make_hess_case,
                         make_jac_case, make_megre_case, make_mse_case,
                         megre_sequence, mse_grid, mse_sequence, _tensors)
 from epgpy_torch import config
-from epgpy_torch.models import (cuda_bssfp, cuda_dess, cuda_fisp,
-                                cuda_hessian, cuda_megre, cuda_mse,
-                                cuda_msedesign)
+from epgpy_torch.models import (cuda_bssfp, cuda_composite, cuda_dess,
+                                cuda_fisp, cuda_hessian, cuda_megre,
+                                cuda_mse, cuda_msedesign)
 
 
 @pytest.fixture
@@ -382,3 +385,65 @@ def test_cuda_megre_and_dwfisp_through_simulate(card):
         for c in range(len(names)):
             assert np.abs(jac[..., c] - ref[1][..., c]).max() \
                 < 1e-4 * np.abs(ref[1][..., c]).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COMP_CASES, ids=lambda c: c["name"])
+def test_cuda_composite_kernels_match_plain_twins(card, case):
+    """On the card: the composite kernel's echoes == its twin's to 2e-6; the
+    composite Jacobian kernel's echoes to 2e-6 and its (T1, T2, B1, df)
+    columns to 1e-5 of the column's largest value, over every group set
+    on the case with every option."""
+    args, kw = comp_tensors(torch, *make_comp_case(case, 1000, 200), "cuda")
+    sets = COMP_GROUP_SETS if case["name"] == "all" else COMP_GROUP_SETS[-1:]
+    before = (cuda_composite.LAUNCHES, cuda_composite.JAC_LAUNCHES)
+    k = cuda_composite.composite_echoes(*args, **kw)
+    kj = [cuda_composite.composite_jacobian_echoes(*args, groups=g, **kw)
+          for g in sets]
+    torch.cuda.synchronize()
+    assert (cuda_composite.LAUNCHES, cuda_composite.JAC_LAUNCHES) == (
+        before[0] + 1, before[1] + len(sets))
+    sig, _ = _pair_errors(torch, k, cuda_composite.composite_plain(*args,
+                                                                  **kw), False)
+    assert sig < 2e-6
+    for g, got in zip(sets, kj):
+        jsig, cols = _pair_errors(torch, got, cuda_composite.
+                                  composite_jacobian_plain(*args, groups=g,
+                                                           **kw), True)
+        assert jsig < 2e-6 and len(cols) == len(g)
+        assert max(cols, default=0.0) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_composite_through_simulate(card):
+    """simulate() routes an MPRAGE train and its (T1, T2, B1, g) Jacobian
+    probe to the composite kernels (dispatch counts comp, jac:comp); each
+    equals the float64 general path."""
+    import numpy as np
+
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+
+    FA, T1, T2, B1, df = comp_jac_draws()
+    n = 6
+    names = ["magnitude", "T1", "T2", "B1", "g"]
+
+    def train():
+        return comp_jac_sequence(epg, FA[:2, :8], T1[:n], T2[:n], B1[:n],
+                                 df[:n])
+
+    before = dict(fisp_dispatch.DISPATCH_COUNTS)
+    probes = [epg.ADC, epg.Jacobian(names)]
+    sig = epg.simulate(train(), max_nstate=8)
+    jsig, jac = epg.simulate(train(), max_nstate=8, probe=probes)
+    for tag in ("comp", "jac:comp"):
+        assert fisp_dispatch.DISPATCH_COUNTS.get(tag, 0) \
+            == before.get(tag, 0) + 1, tag
+    config.set_device("cpu")
+    config.set_precision("float64")
+    ref = epg.simulate(train(), max_nstate=8, probe=probes, fisp_kernel=False)
+    assert np.abs(sig - ref[0]).max() < 1e-6
+    assert np.abs(jsig - ref[0]).max() < 1e-6
+    for c in range(len(names)):
+        assert np.abs(jac[..., c] - ref[1][..., c]).max() \
+            < 1e-4 * np.abs(ref[1][..., c]).max()

@@ -92,6 +92,38 @@ def test_dw_train_general_path_matches_jax(port_f64, Dc):
     assert np.abs(got - want).max() < 1e-10
 
 
+def _batched_tau_train(e):
+    """tests/test_dwfisp_dispatch.py:101-102's "traced_tau" train: one D
+    with a batched tau = [7, 7] after every S(1), 2 atoms x 8 TRs."""
+    FA = 10 + 50 * np.abs(np.sin(np.arange(8) / 5.0))
+    T1, T2 = np.linspace(600, 1500, 2), np.linspace(50, 120, 2)
+    d = e.D(np.array([7.0, 7.0]), 1e-3, k=1)
+    seq = []
+    for i in range(8):
+        seq += [e.T(float(FA[i]), 90.0), e.E(5.0, T1, T2), e.ADC,
+                e.E(7.0 + (i % 2), T1, T2), e.S(1), d]
+    return seq
+
+
+def test_batched_tau_train_matches_jax(port_f64):
+    """A D op with a batched tau runs on the general path (its tau axes
+    lead the ladder axis) and equals the JAX general path; no kernel
+    claims the train, so the forced dispatch gives the same values."""
+    from epgpy_torch import fisp_dispatch as tfd
+
+    want = np.asarray(jepg.simulate(_batched_tau_train(jepg), max_nstate=6,
+                                    kvalue=KV, fisp_kernel=False))
+    got = tepg.simulate(_batched_tau_train(tepg), max_nstate=6, kvalue=KV,
+                        fisp_kernel=False)
+    tfd.DISPATCH_COUNTS.clear()
+    forced = tepg.simulate(_batched_tau_train(tepg), max_nstate=6,
+                           kvalue=KV, fisp_kernel="force")
+    assert tfd.DISPATCH_COUNTS == {}
+    assert got.shape == forced.shape == want.shape == (8, 2)
+    assert np.abs(got - want).max() < 1e-10
+    assert np.abs(forced - want).max() < 1e-10
+
+
 def test_dcoef_jacobian_matches_jax(port_f64):
     """dS/dDcoef through the general diff path (the D op's one
     differentiable parameter) == the JAX general path."""

@@ -26,7 +26,7 @@ from epgpy_torch import fisp_dispatch as tfd
 from epgpy_torch.convert import from_numpy_params
 from epgpy_tpu import fisp_dispatch as jfd
 
-from torch_support import port_f32, port_f64  # noqa: F401
+from torch_support import composite_claims, port_f32, port_f64  # noqa: F401
 
 KV = 2 * np.pi / 1e-3          # 1 mm voxel: 6283 rad/m per state index
 
@@ -105,12 +105,10 @@ def test_off_pattern_trains_fall_through(port_f64, name, caplog):
         assert tfd.match_dwfisp(seq, KV) is None
     assert any("not a DW-FISP train" in r.getMessage()
                for r in caplog.records)
-    if name == "array_tau":
-        # the port's general path does not take a batched D tau yet
-        return
     before = dict(tfd.DISPATCH_COUNTS)
     got = tepg.simulate(seq, fisp_kernel="force", max_nstate=6, kvalue=KV)
-    assert tfd.DISPATCH_COUNTS == before
+    assert tfd.DISPATCH_COUNTS == composite_claims(
+        tfd, jfd, seq, _train(jepg, **kw), before, KV)
     want = tepg.simulate(seq, fisp_kernel=False, max_nstate=6, kvalue=KV)
     assert np.abs(got - want).max() < 1e-10
 

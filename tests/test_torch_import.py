@@ -59,6 +59,16 @@ MODULES = {
                                       "megre_kernel_fits",
                                       "megre_jac_kernel_fits", "LAUNCHES",
                                       "JAC_LAUNCHES"],
+    "epgpy_torch.models.cuda_composite": ["composite_cuda",
+                                          "composite_plain",
+                                          "composite_jacobian_cuda",
+                                          "composite_jacobian_plain",
+                                          "composite_echoes",
+                                          "composite_jacobian_echoes",
+                                          "composite_kernel_fits",
+                                          "composite_jac_kernel_fits",
+                                          "COMP_JAC_GROUPS", "LAUNCHES",
+                                          "JAC_LAUNCHES"],
     "epgpy_torch.models.cuda_fisp": ["fisp_full_ladder_cuda",
                                      "fisp_full_ladder_plain",
                                      "fisp_full_echoes", "full_kernel_fits",
@@ -77,7 +87,8 @@ MODULES = {
                                   "rot_k0", "shift_fold", "echo_copy",
                                   "df_tangent", "relax_tangents",
                                   "relax_tau_terms", "inversion_prep",
-                                  "diff_attenuation"],
+                                  "diff_attenuation", "shift_down",
+                                  "stage_attenuation"],
     "epgpy_torch.fisp_dispatch": ["match_fisp", "run_fisp_kernel",
                                   "kernel_fits", "DISPATCH_COUNTS",
                                   "count_dispatch", "jac_kernel_fits",
@@ -94,7 +105,10 @@ MODULES = {
                                   "run_megre_kernel", "run_megre_jacobian",
                                   "match_dwfisp",
                                   "run_dwfisp_kernel",
-                                  "run_dwfisp_jacobian"],
+                                  "run_dwfisp_jacobian", "match_composite",
+                                  "run_composite_kernel",
+                                  "run_composite_jacobian",
+                                  "composite_jac_groups"],
     "epgpy_torch.diff": ["Jacobian", "Hessian", "parse_order1",
                          "parse_order2", "simulate_diff", "substitute"],
     "epgpy_torch.parallel": ["dictionary_match", "compress_dictionary",
@@ -176,6 +190,18 @@ SAME_ARGS = {
         "epgpy_tpu.models.pallas_megre:megre_jacobian_pallas",
     "epgpy_torch.fisp_dispatch:match_dwfisp":
         "epgpy_tpu.fisp_dispatch:match_dwfisp",
+    "epgpy_torch.models.cuda_composite:composite_cuda":
+        "epgpy_tpu.models.pallas_composite:composite_pallas",
+    "epgpy_torch.models.cuda_composite:composite_jacobian_cuda":
+        "epgpy_tpu.models.pallas_composite:composite_jacobian_pallas",
+    "epgpy_torch.fisp_dispatch:match_composite":
+        "epgpy_tpu.fisp_dispatch:match_composite",
+    "epgpy_torch.fisp_dispatch:run_composite_kernel":
+        "epgpy_tpu.fisp_dispatch:run_composite_kernel",
+    "epgpy_torch.fisp_dispatch:run_composite_jacobian":
+        "epgpy_tpu.fisp_dispatch:run_composite_jacobian",
+    "epgpy_torch.fisp_dispatch:composite_jac_groups":
+        "epgpy_tpu.fisp_dispatch:composite_jac_groups",
     "epgpy_torch.models.ssfp:spgr_sequence":
         "epgpy_tpu.models.ssfp:spgr_sequence",
     "epgpy_torch.models.ssfp:bssfp_sequence":

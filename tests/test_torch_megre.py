@@ -38,7 +38,8 @@ from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_megre
 
 from chip_smoke import MEGRE_CASES, make_megre_case, _tensors
-from torch_support import GOLDEN_DIR, cplx, port_f32, port_f64  # noqa: F401
+from torch_support import (GOLDEN_DIR, cplx, family_train,  # noqa: F401
+                           port_f32, port_f64)
 
 B, NTR = 8, 24
 
@@ -306,51 +307,6 @@ def test_jax_params_through_port_runners(port_f32, name):
 # -- the family table: every ported family claims its own trains only --
 
 
-_T1, _T2 = np.array([600.0, 1100.0, 1700.0]), np.array([50.0, 90.0, 150.0])
-
-
-def _family_train(e, fam, n=4):
-    """tests/test_dispatch_fuzz.py's family grammars (plus DW-FISP) in
-    package `e`, deterministic."""
-    seq = []
-    if fam == "fisp":
-        for i in range(n):
-            seq += [e.T(20.0 + i, 90.0), e.E(5.0, _T1, _T2), e.ADC,
-                    e.E(7.0, _T1, _T2), e.S(1)]
-    elif fam == "mse":
-        seq = [e.T(90, 90)]
-        for i in range(n):
-            seq += [e.E(4.0, _T1, _T2), e.S(1), e.T(150.0 + i, 0.0),
-                    e.E(4.0, _T1, _T2), e.S(1), e.ADC]
-    elif fam == "bssfp":
-        for i in range(n):
-            seq += [e.T(30.0 + i, 180.0 * (i % 2)),
-                    e.E(6.0, _T1, _T2, -0.01), e.ADC,
-                    e.E(6.0, _T1, _T2, -0.01)]
-    elif fam == "dess":
-        for i in range(n):
-            seq += [e.T(25.0, 0.0), e.E(5.0, _T1, _T2), e.ADC,
-                    e.E(8.0, _T1, _T2), e.S(1), e.E(5.0, _T1, _T2), e.ADC]
-    elif fam == "megre":
-        for i in range(n):
-            seq.append(e.T(14.0, 0.0))
-            prev = 0.0
-            for te in (3.0, 7.0, 11.0):
-                seq += [e.E(te - prev, _T1, _T2), e.ADC]
-                prev = te
-            seq += [e.E(4.0, _T1, _T2), e.S(1)]
-    elif fam == "megre_m1":          # one echo per TR: FISP's
-        for i in range(n):
-            seq += [e.T(14.0, 0.0), e.E(3.0, _T1, _T2), e.ADC,
-                    e.E(4.0, _T1, _T2), e.S(1)]
-    else:                             # dw
-        d = e.D(5.0, 1.3e-3, k=1)
-        for i in range(n):
-            seq += [e.T(20.0 + i, 90.0), e.E(5.0, _T1, _T2), e.ADC,
-                    e.E(7.0, _T1, _T2), e.S(1), d]
-    return seq
-
-
 FAMILIES = {"fisp": "fisp", "mse": "mse", "bssfp": "bssfp", "dess": "dess",
             "megre": "megre", "megre_m1": "fisp", "dw": "dw"}
 
@@ -365,7 +321,7 @@ def _matchers(fd):
 @pytest.mark.parametrize("fam", FAMILIES)
 def test_families_are_disjoint(fam):
     claims = {pkg: {tag for tag, m in _matchers(fd).items()
-                    if m(_family_train(e, fam)) is not None}
+                    if m(family_train(e, fam)) is not None}
               for pkg, (e, fd) in {"jax": (jepg, jfd),
                                    "torch": (tepg, tfd)}.items()}
     assert claims["torch"] == claims["jax"] == {FAMILIES[fam]}

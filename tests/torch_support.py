@@ -51,6 +51,72 @@ def random_ladder(rng, batch, nstate):
     return np.stack([fp, np.conj(fp[..., ::-1]), z], axis=-1)
 
 
+def composite_claims(tfd, jfd, seq, jseq, before, kvalue=1.0):
+    """The dispatch counts after one forced simulate() of an off-pattern
+    train (`seq`; `jseq` the same train in the JAX package): `before`, plus
+    one "comp" where the composite family -- last in the family table --
+    claims it, as the JAX matcher does (tests/test_dwfisp_dispatch.py:
+    112-116)."""
+    claimed = tfd.match_composite(seq, kvalue) is not None
+    assert claimed == (jfd.match_composite(jseq, kvalue) is not None)
+    if not claimed:
+        return before
+    return dict(before, comp=before.get("comp", 0) + 1)
+
+
+#: the family grammars' batch (tests/test_dispatch_fuzz.py)
+_T1, _T2 = np.array([600.0, 1100.0, 1700.0]), np.array([50.0, 90.0, 150.0])
+
+
+def family_train(e, fam, n=4):
+    """tests/test_dispatch_fuzz.py's family grammars (plus DW-FISP and a
+    prepared train only the composite family takes) in package `e`,
+    deterministic."""
+    seq = []
+    if fam == "fisp":
+        for i in range(n):
+            seq += [e.T(20.0 + i, 90.0), e.E(5.0, _T1, _T2), e.ADC,
+                    e.E(7.0, _T1, _T2), e.S(1)]
+    elif fam == "mse":
+        seq = [e.T(90, 90)]
+        for i in range(n):
+            seq += [e.E(4.0, _T1, _T2), e.S(1), e.T(150.0 + i, 0.0),
+                    e.E(4.0, _T1, _T2), e.S(1), e.ADC]
+    elif fam == "bssfp":
+        for i in range(n):
+            seq += [e.T(30.0 + i, 180.0 * (i % 2)),
+                    e.E(6.0, _T1, _T2, -0.01), e.ADC,
+                    e.E(6.0, _T1, _T2, -0.01)]
+    elif fam == "dess":
+        for i in range(n):
+            seq += [e.T(25.0, 0.0), e.E(5.0, _T1, _T2), e.ADC,
+                    e.E(8.0, _T1, _T2), e.S(1), e.E(5.0, _T1, _T2), e.ADC]
+    elif fam == "megre":
+        for i in range(n):
+            seq.append(e.T(14.0, 0.0))
+            prev = 0.0
+            for te in (3.0, 7.0, 11.0):
+                seq += [e.E(te - prev, _T1, _T2), e.ADC]
+                prev = te
+            seq += [e.E(4.0, _T1, _T2), e.S(1)]
+    elif fam == "megre_m1":          # one echo per TR: FISP's
+        for i in range(n):
+            seq += [e.T(14.0, 0.0), e.E(3.0, _T1, _T2), e.ADC,
+                    e.E(4.0, _T1, _T2), e.S(1)]
+    elif fam == "dw":
+        d = e.D(5.0, 1.3e-3, k=1)
+        for i in range(n):
+            seq += [e.T(20.0 + i, 90.0), e.E(5.0, _T1, _T2), e.ADC,
+                    e.E(7.0, _T1, _T2), e.S(1), d]
+    else:                             # "comp": an inversion-prepared train
+        seq = [e.T(180.0, 0.0), e.E(20.0, _T1, _T2)]
+        for i in range(n):
+            seq += [e.T(20.0 + i, 90.0), e.E(5.0, _T1, _T2), e.ADC,
+                    e.E(7.0, _T1, _T2), e.S(1)]
+        seq += [e.E(300.0, _T1, _T2)]
+    return seq
+
+
 def cplx(re, im):
     """(re, im) pair of arrays or tensors -> one complex numpy array."""
     def host(x):
