@@ -116,6 +116,28 @@ Phases (each raises on failure: a failure exits non-zero with no result):
 5j. cardiac MRF T1/T2 mapping (examples/cardiac_mrf_t1t2.py) of 8,192
    voxels against 4n's dictionary, 6 Gauss-Newton iterations of (T1, T2),
    the example's asserts;
+3l-3m. the EPG-X GRE and composite EPG-X kernels (primal and, with two
+   tangent variables, Jacobian) against their twins over every option:
+   spoiled and balanced, one to four pools, two exchange stages, df, a
+   rank-1 B1 batch, complex saturation, a deep ladder; MT prep, IR-MT with
+   adiabatic stages, shifts up and down, ADC phases, sparse readouts;
+4p. (a) the bench's spoiled two-pool MT-GRE train (bench.py:777-834: 100
+   TRs, Graham bound-pool saturation) over 262,144 atoms through
+   ``simulate(density=[0.8, 0.2])``, 8 atoms against the float64 general
+   path, and (f) the goldens xgre_parity.npz, xbssfp.npz, xcomp_gre.npz
+   through the kernels, exchange_gre.npz through the float64 general path
+   on the card and the MT rates of mt_rates.npz;
+4q. (b) the bench's balanced two-pool train (bench.py:1306-1323, 200 TRs)
+   over 163,840 atoms through ``simulate(density=)``;
+4r. (c) the bench's segmented MT-prepared train (bench.py:1258-1287: 4 x
+   25 readouts) over 131,072 atoms through ``simulate(density=)``, and
+   examples/mt_prep_gre.py's MTR asserts at that width;
+5k. (d) examples/mt_qmt_fit_refine.py as published at 262,144 voxels:
+   match and 8 Gauss-Newton iterations of (f, T2f) on the EPG-X Jacobian
+   kernel, the example's asserts;
+5l. (e) examples/mt_prep_gre.py's exchange-rate fit at 65,536 voxels on
+   the composite EPG-X Jacobian kernel through
+   ``parallel.gauss_newton_refine``, k RMSE < 2e-4;
 6. numbers for every kernel at its main-path shape: kernel and twin times,
    launches on the main paths, and the bound (the twin's operations,
    counted by ``count_ops`` -- for the CPMG family over only the ladder
@@ -288,6 +310,66 @@ COMPJ_NAMES = ["magnitude", "T1", "T2", "B1", "g"]
 #: float32 composite path vs tests/golden/{mprage,cardiac_mrf}.npz (the
 #: JAX tests' limit, tests/test_composite_dispatch.py:83, :115)
 TOL_COMP_GOLDEN = 2e-6
+
+#: EPG-X, two-pool MT (Malik 2018, Gloor 2008; reference workload
+#: epgpy/exchange.py:89-120).  (a) the bench's spoiled MT-GRE train
+#: (bench.py:777-834): TRs, atoms (four 256^2 slices, free-pool T2 40-120
+#: ms; the bench's 32,768), ladder depth, densities, exchange rate, the X
+#: stage's tau, the Graham saturation of a 5 ms, 10 uT pulse 2 kHz off
+#: resonance on a super-Lorentzian line of T2 12 us, applied over 5 ms
+XGRE_NTR, XGRE_ATOMS, XGRE_NSTATE = 100, 4 * 256 * 256, 10
+XGRE_DENS, XGRE_K, XGRE_TAU, XGRE_SATDUR = (0.8, 0.2), 0.005, 10.0, 5.0
+#: (b) the bench's balanced two-pool train (bench.py:1306-1323): TRs and
+#: atoms (the bSSFP dictionary's width instead of the bench's 8,192)
+XBSSFP_NTR, XBSSFP_ATOMS = 200, 163840
+#: (c) the bench's segmented MT-prepared train (bench.py:1258-1287): 4
+#: segments x 25 readouts over 131,072 atoms (2 x 65,536), nstate 8; the
+#: MTR checks of examples/mt_prep_gre.py (6 segments x 24 readouts) at the
+#: same width
+XCOMP_NAT, XCOMP_NSEG, XCOMP_NSTATE = 65536, 4, 8
+MTP_NSEG, MTP_NREAD, MTP_TE, MTP_TRG, MTP_TREC = 6, 24, 2.5, 8.0, 180.0
+#: (d) examples/mt_qmt_fit_refine.py as published (NTR 48, nstate 10, 8
+#: Gauss-Newton iterations of (f, T2f), noise 2e-4, seed 17) at four
+#: 256^2 slices of voxels instead of its 48
+QMT_NTR, QMT_NSTATE, QMT_ITERS, QMT_NVOX = 48, 10, 8, 4 * 256 * 256
+#: voxels of the fits' Jacobians held against the twins on the card
+QMT_TWIN = 8192
+#: (e) examples/mt_prep_gre.py's exchange-rate fit (8 Gauss-Newton
+#: iterations, noise 2e-4, seed 3): voxels instead of its 64
+KFIT_NVOX = 65536
+#: float32 EPG-X paths vs tests/golden/{xgre_parity,xbssfp,xcomp_gre}.npz,
+#: relative to the golden's largest magnitude (the JAX tests' limit,
+#: tests/test_xgre_dispatch.py:71, :477); the float64 general path on the
+#: card vs exchange_gre.npz (tests/test_shiftnd.py:444)
+TOL_X_GOLDEN, TOL_XCHG_GOLDEN = 2e-6, 1e-9
+#: the EPG-X kernels' option cases (primal and, with two tangent
+#: variables, Jacobian): spoiled and balanced, one to four pools, two
+#: exchange stages, off-resonance, a rank-1 B1 batch, complex saturation,
+#: a ladder beyond 48 KB of shared memory per block
+XGRE_CASES = [
+    dict(name="spoiled"),
+    dict(name="balanced_df", balanced=True, g=True, two_stage=True),
+    dict(name="two_stage_df", two_stage=True, g=True),
+    dict(name="b1_csat", b1=True, csat=True),
+    dict(name="three_pools", C=3, two_stage=True, g=True),
+    dict(name="one_pool", C=1),
+    dict(name="four_pools", C=4),
+    dict(name="deep", nstate=40, two_stage=True),
+]
+#: the composite EPG-X kernels' option cases: MT prep (saturation), IR-MT
+#: with adiabatic (b1u = 0) stages beside a B1 batch, balanced, shifts up
+#: and down with ADC phases over three pools, sparse readouts with df
+XCOMP_CASES = [
+    dict(name="mt_prep", sat=True),
+    dict(name="ir_b1u", b1u=True),
+    dict(name="balanced", shift="none", nstate=1),
+    dict(name="mixed_adcph_3", C=3, shift="mixed", adcph=True, sat=True),
+    dict(name="sparse_df", shift="mixed", sparse=True, g=True),
+    dict(name="all", shift="mixed", adcph=True, sat=True, b1u=True, g=True,
+         sparse=True),
+]
+#: TRs / stages of the EPG-X option cases
+XGRE_CASE_N, XCOMP_CASE_N = 60, 80
 
 #: covering set of the bSSFP kernels' options (each also run through the
 #: Jacobian kernel with and without the ddf group; b1 is the B1 batch
@@ -567,6 +649,196 @@ def comp_tensors(torch, args, kw, device):
         kw["diffusion"] = tuple(t(d) for d in kw["diffusion"])
     return tuple(t(a, torch.int32 if i in (4, 5) else None)
                  for i, a in enumerate(args)), kw
+
+
+def _xpools(rng, C, natoms, g=False):
+    """Random densities, kinetic matrix and per-compartment atoms (T1, T2,
+    g as (C, B); g None without off-resonance) of C pools."""
+    from epgpy_torch.ops.exchange import exchange_matrix
+
+    d = rng.uniform(0.2, 1.0, C)
+    dens = d / d.sum()
+    khi = (exchange_matrix(rng.uniform(0.002, 0.02), ncomp=C,
+                           densities=dens) if C > 1 else np.zeros((1, 1)))
+    T1 = rng.uniform(500.0, 1500.0, (C, natoms))
+    T2 = np.concatenate([rng.uniform(20.0, 150.0, (1, natoms)),
+                         rng.uniform(0.01, 5.0, (C - 1, natoms))])
+    gv = rng.uniform(-0.05, 0.05, (C, natoms)) if g else None
+    return dens, khi, T1, T2, gv
+
+
+def make_xgre_case(case, natoms, ntr=XGRE_CASE_N, seed=0):
+    """Numpy inputs of one EPG-X GRE option case: (args, kwargs) of
+    xgre_dictionary_{cuda,plain,pallas} (alpha, phi, satf_re, satf_im,
+    satz_re, satz_im, dens, stageA, stageB, b1; nstate, shift)."""
+    rng = np.random.default_rng(seed)
+    C, N = case.get("C", 2), ntr
+    alpha = np.concatenate([rng.uniform(5.0, 40.0, (N, 1)),
+                            rng.uniform(0.0, 10.0, (N, C - 1))], axis=1)
+    phi = rng.uniform(0.0, 360.0, (N, C))
+    rT = (rng.uniform(0.0, 0.05, (N, C)) + 1j * rng.uniform(-0.3, 0.3, (N, C))
+          if case.get("csat") else np.zeros((N, C)))
+    rL = np.zeros((N, C))
+    rL[:, -1] = rng.uniform(0.0, 0.6, N)
+    satf, satz = np.conj(np.exp(-rT)), np.exp(-rL) + 0j
+    dens, khi, T1, T2, g = _xpools(rng, C, natoms, case.get("g"))
+    if g is None:
+        g = np.zeros((C, natoms))
+    if case.get("two_stage"):
+        stageA = (khi, T1, T2, g, 3.0)
+    else:
+        stageA = (np.zeros((C, C)), T1, T2, g, 0.0)
+    stageB = (khi, T1, T2, g, 7.0 if case.get("two_stage") else 10.0)
+    b1 = rng.uniform(0.8, 1.2, natoms) if case.get("b1") else None
+    balanced = bool(case.get("balanced"))
+    kw = dict(nstate=0 if balanced else case.get("nstate", 10),
+              shift=not balanced)
+    return (alpha, phi, satf.real, satf.imag, satz.real, satz.imag, dens,
+            stageA, stageB, b1), kw
+
+
+def _x_tangents(torch, fn, khi, T2, C):
+    """(value, [tangent wrt the free pool's T2, tangent wrt the exchange
+    rate k of khi = k kron]) of fn(khi, T2) by torch.func.jvp, float64."""
+    khi = torch.as_tensor(np.asarray(khi, np.float64))
+    T2 = torch.as_tensor(np.asarray(T2, np.float64))
+    e0 = torch.zeros_like(T2)
+    e0[0] = 1.0
+    val, t1 = torch.func.jvp(lambda t: fn(khi, t), (T2,), (e0,))
+    _, t2 = torch.func.jvp(lambda k: fn(k, T2), (khi,), (khi / 0.01,))
+    return val, [t1, t2]
+
+
+def make_xgre_jac_case(torch, case, natoms, ntr=XGRE_CASE_N, seed=0):
+    """Numpy inputs of one EPG-X GRE Jacobian case: the primal case's train
+    with per-atom densities (C, B), the stages' (mr, mi, ml) (B, C, C) by
+    the port's exchange_stage_mats in float64, and two variables -- the
+    free pool's T2 and the exchange rate (the second also moving the
+    densities) -- by torch.func.jvp: (args, kwargs) of
+    xgre_jacobian_{cuda,plain,pallas}."""
+    from epgpy_torch.models.cuda_xgre import exchange_stage_mats
+
+    args, kw = make_xgre_case(case, natoms, ntr, seed)
+    rng = np.random.default_rng(seed + 1)
+    dens = args[6]
+    C = len(dens)
+    mats, dmats = [], []
+    for khi, T1, T2, g, tau in args[7:9]:
+        val, tans = _x_tangents(
+            torch, lambda k, t: exchange_stage_mats(k, T1, t, g, tau), khi,
+            T2, C)
+        mats.append(tuple(v.numpy() for v in val))
+        dmats.append(tuple(np.stack([t[p].numpy() for t in tans])
+                           for p in range(3)))
+    ddens = np.stack([np.zeros((C, natoms)),
+                      rng.uniform(-0.05, 0.05, (C, natoms))])
+    dens_b = np.broadcast_to(np.asarray(dens)[:, None], (C, natoms)).copy()
+    return (args[:6] + (dens_b, mats[0], mats[1], dmats[0], dmats[1], ddens,
+                        args[9])), kw
+
+
+def xgre_tensors(torch, args, device, jac=False):
+    """EPG-X GRE case inputs as the kernels take them on `device`: float32
+    tensors (khi and tau stay host values in the primal's stages)."""
+    def t(x):
+        return None if x is None else torch.as_tensor(
+            np.asarray(x, np.float32), device=device)
+
+    out = [t(a) for a in args[:7]]
+    if jac:
+        out += [tuple(t(m) for m in grp) for grp in args[7:11]]
+        out += [t(args[11]), t(args[12])]
+    else:
+        out += [(khi, t(T1), t(T2), t(g), tau)
+                for khi, T1, T2, g, tau in args[7:9]] + [t(args[9])]
+    return tuple(out)
+
+
+def make_xcomp_case(case, natoms, nstage=XCOMP_CASE_N, seed=0):
+    """Numpy inputs of one composite EPG-X option case: (args, kwargs) of
+    xcomposite_{cuda,plain,pallas} (alpha, phi, satf_re, satf_im, satz_re,
+    satz_im, adci, shift, aph, mia, mib, dens, taus, khi, T1, T2, g, b1,
+    b1u; nadc, nstate and the has_* flags)."""
+    rng = np.random.default_rng(seed)
+    C, N = case.get("C", 2), nstage
+    alpha = np.concatenate([rng.uniform(5.0, 40.0, (N, 1)),
+                            rng.uniform(0.0, 8.0, (N, C - 1))], axis=1)
+    phi = rng.uniform(0.0, 360.0, (N, C))
+    satf, satz = np.ones((N, C), complex), np.ones((N, C), complex)
+    if case.get("sat"):
+        on = rng.random(N) < 0.3
+        satz[on, -1] = np.exp(-rng.uniform(0.1, 0.6, on.sum()))
+        satf[on, 0] = np.exp(-1j * rng.uniform(-0.2, 0.2, on.sum()))
+    shift = {"up": np.ones(N), "none": np.zeros(N),
+             "mixed": rng.choice([-1.0, 0.0, 1.0], N)}[case.get("shift",
+                                                               "up")]
+    adc = np.ones(N, bool)
+    if case.get("sparse"):
+        adc = rng.random(N) < 0.6
+        adc[0] = True
+    adci = np.where(adc, np.cumsum(adc) - 1, -1)
+    aph = rng.uniform(-np.pi, np.pi, N) if case.get("adcph") else np.zeros(N)
+    b1u = np.ones(N)
+    if case.get("b1u"):
+        adiab = rng.random(N) < 0.2
+        b1u[adiab] = 0.0
+        alpha[adiab] = np.asarray([180.0] + [0.0] * (C - 1))
+    taus = np.array([0.0, 3.0, 7.0, 120.0, 2.5, 50.0])
+    mia = rng.integers(0, len(taus), N)
+    mib = rng.integers(0, len(taus), N)
+    dens, khi, T1, T2, g = _xpools(rng, C, natoms, case.get("g"))
+    if g is None:
+        g = np.zeros((C, natoms))
+    b1 = rng.uniform(0.8, 1.2, natoms)
+    kw = dict(nadc=int(adc.sum()), nstate=case.get("nstate", 8),
+              has_up=bool((shift == 1).any()),
+              has_down=bool((shift == -1).any()),
+              has_adcph=bool(case.get("adcph")), has_sat=bool(case.get("sat")),
+              has_b1u=bool(case.get("b1u")))
+    return (alpha, phi, satf.real, satf.imag, satz.real, satz.imag, adci,
+            shift, aph, mia, mib, dens, taus, khi, T1, T2, g, b1, b1u), kw
+
+
+def make_xcomp_jac_case(torch, case, natoms, nstage=XCOMP_CASE_N, seed=0):
+    """Numpy inputs of one composite EPG-X Jacobian case: the primal case's
+    stage tables, per-atom densities (C, B), the distinct-tau tables (mr,
+    mi, ml) (nmat, B, C, C) by the port's xcomposite_stage_mat_tables in
+    float64 and their tangents for the free pool's T2 and the exchange
+    rate (which also moves the densities) by torch.func.jvp: (args, kwargs)
+    of xcomposite_jacobian_{cuda,plain,pallas}."""
+    from epgpy_torch.models.cuda_xcomposite import (
+        xcomposite_stage_mat_tables)
+
+    args, kw = make_xcomp_case(case, natoms, nstage, seed)
+    rng = np.random.default_rng(seed + 1)
+    dens, taus, khi, T1, T2, g = args[11:17]
+    C = len(dens)
+    val, tans = _x_tangents(
+        torch, lambda k, t: xcomposite_stage_mat_tables(k, T1, t, g, taus),
+        khi, T2, C)
+    mats = tuple(v.numpy() for v in val)
+    dmats = [tuple(t[p].numpy() for p in range(3)) for t in tans]
+    ddens = [np.zeros((C, natoms)), rng.uniform(-0.05, 0.05, (C, natoms))]
+    dens_b = np.broadcast_to(np.asarray(dens)[:, None], (C, natoms)).copy()
+    return args[:11] + (dens_b, mats, dmats, ddens, args[17], args[18]), kw
+
+
+def xcomp_tensors(torch, args, device, jac=False):
+    """Composite EPG-X case inputs on `device`: float32 tensors, adci,
+    shift, mia and mib int32 (taus and khi stay host values)."""
+    def t(x, dt=None):
+        return None if x is None else torch.as_tensor(
+            np.asarray(x), dtype=dt or torch.float32, device=device)
+
+    out = [t(a, torch.int32 if i in (6, 7, 9, 10) else None)
+           for i, a in enumerate(args[:12])]
+    if jac:
+        out += [tuple(t(m) for m in args[12]),
+                [tuple(t(m) for m in d) for d in args[13]],
+                [t(d) for d in args[14]]]
+        return tuple(out) + (t(args[15]), t(args[16]))
+    return tuple(out) + (args[12], args[13], t(args[14]), t(args[15]),
+                         t(args[16]), t(args[17]), t(args[18]))
 
 
 def make_full_case(case, natoms, npulse, seed=0):
@@ -3285,6 +3557,47 @@ def _profile_split(torch, fn, key):
             sum(_device_us(e) for e in events if key in e.key))
 
 
+def _launch_ms(torch, fn, symbol, reps=5):
+    """The kernel's own device time inside the wrapper call fn(), in ms:
+    CUDA events recorded on the launch stream just before and just after
+    the library's entry point `symbol`, best of `reps` calls after one
+    warm-up (independent of torch.profiler)."""
+    from epgpy_torch import _build
+
+    load, pairs = _build.load, []
+
+    class Timed:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            entry = getattr(self._lib, name)
+            if name != symbol:
+                return entry
+
+            def launch(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                rc = entry(*args)
+                stop.record()
+                pairs.append((start, stop))
+                return rc
+            return launch
+
+    _build.load = lambda: Timed(load())
+    try:
+        for _ in range(reps + 1):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        _build.load = load
+    if len(pairs) != reps + 1:
+        raise AssertionError(f"{symbol}: {len(pairs)} launches timed, "
+                             f"expected {reps + 1}")
+    return min(a.elapsed_time(b) for a, b in pairs[1:])
+
+
 def _print_split(what, name, split, card):
     total, kern = split
     if total > 0:
@@ -3298,10 +3611,13 @@ def _print_split(what, name, split, card):
 
 
 def kernel_entry(torch, card, name, replaces, fns, args, kw, atom_idx,
-                 natoms, launches, jac):
+                 natoms, launches, jac, cut=None, errors=None):
     """One kernel's line at its main-path shape: kernel and twin on the
     same card tensors (held to TOL_KERNEL / TOL_JAC_KERNEL), their times,
-    and the bound from the twin's counted operations and the bytes."""
+    and the bound from the twin's counted operations and the bytes.
+    ``cut(n)`` gives the twin's CPU arguments on the first n atoms (default:
+    the per-atom tensors at `atom_idx`), ``errors(kernel, twin)`` the
+    (signal, columns) errors (default: _pair_errors)."""
     kfn, pfn = fns
 
     def kernel():
@@ -3311,7 +3627,8 @@ def kernel_entry(torch, card, name, replaces, fns, args, kw, atom_idx,
         return pfn(*args, **kw)
 
     k, p = kernel(), plain()
-    sig, cols = _pair_errors(torch, k, p, jac)
+    sig, cols = (_pair_errors(torch, k, p, jac) if errors is None
+                 else errors(k, p))
     flat = lambda o: [t for x in o for t in (  # noqa: E731
         x if isinstance(x, tuple) else (x,))]
     err = max(float((a - b).abs().max()) for a, b in zip(flat(k), flat(p)))
@@ -3327,8 +3644,10 @@ def kernel_entry(torch, card, name, replaces, fns, args, kw, atom_idx,
     print(f"[numbers] {name} kernel: {k_ms:.3f} ms = "
           f"{natoms / (k_ms / 1e3):.4g} atoms/s; plain twin {p_ms:.3f} ms "
           f"({card})")
-    flops = linear_ops(torch, lambda n: pfn(
-        *_cpu_atoms(torch, args, n, atom_idx), **kw), natoms)
+    if cut is None:
+        def cut(n):
+            return _cpu_atoms(torch, args, n, atom_idx)
+    flops = linear_ops(torch, lambda n: pfn(*cut(n), **kw), natoms)
     nbytes = tensor_bytes(torch, args, kernel())
     return {"name": name, "route": "cuda",
             "source": f"epgpy_torch/csrc/{name}.cu", "replaces": replaces,
@@ -4002,6 +4321,859 @@ def phase_comp_numbers(torch, card, comp, cjac, mpr, cmrf):
     return entries
 
 
+# -- EPG-X: kernels vs twins, the spoiled, balanced and MT-prepared trains,
+# the goldens, the qMT and exchange-rate Gauss-Newton fits --
+
+
+def _x_errors(torch, got, want, jac):
+    """(max |delta| of the signals, per-column relative errors) of two
+    EPG-X kernel outputs: the Jacobian's columns are its variables (and,
+    for the composite, its groups after the primal), each relative to the
+    column's largest magnitude."""
+    if not jac:
+        return max(float((g - w).abs().max()) for g, w in zip(got, want)), []
+    if isinstance(got[0], tuple):          # xgre: ((re, im), (jre, jim))
+        (kre, kim), (kdre, kdim) = got
+        (pre, pim), (pdre, pdim) = want
+    else:                                  # xcomposite: (re, im) with G
+        kre, kim, pre, pim = got[0][:, 0], got[1][:, 0], want[0][:, 0], \
+            want[1][:, 0]
+        kdre, kdim, pdre, pdim = got[0][:, 1:], got[1][:, 1:], \
+            want[0][:, 1:], want[1][:, 1:]
+    sig = max(float((kre - pre).abs().max()), float((kim - pim).abs().max()))
+    cols = []
+    for v in range(pdre.shape[1]):         # the variables' axis
+        d = max(float((kdre[:, v] - pdre[:, v]).abs().max()),
+                float((kdim[:, v] - pdim[:, v]).abs().max()))
+        scale = max(float(pdre[:, v].abs().max()),
+                    float(pdim[:, v].abs().max()), 1e-30)
+        cols.append(d / scale)
+    return sig, cols
+
+
+def phase_xcases(torch, family, natoms=4096):
+    """The EPG-X kernels (`family` "xgre" or "xcomp") vs their plain twins
+    on the card over the option cases, the primal and the Jacobian with
+    two variables; returns the worst signal |delta| and the worst
+    per-column relative error."""
+    from epgpy_torch.models import cuda_xcomposite, cuda_xgre
+
+    if family == "xgre":
+        cases, mk, mkj, tens = (XGRE_CASES, make_xgre_case,
+                                make_xgre_jac_case, xgre_tensors)
+        fns = ((cuda_xgre.xgre_dictionary_cuda,
+                cuda_xgre.xgre_dictionary_plain),
+               (cuda_xgre.xgre_jacobian_cuda, cuda_xgre.xgre_jacobian_plain))
+    else:
+        cases, mk, mkj, tens = (XCOMP_CASES, make_xcomp_case,
+                                make_xcomp_jac_case, xcomp_tensors)
+        fns = ((cuda_xcomposite.xcomposite_cuda,
+                cuda_xcomposite.xcomposite_plain),
+               (cuda_xcomposite.xcomposite_jacobian_cuda,
+                cuda_xcomposite.xcomposite_jacobian_plain))
+    worst_sig = worst_col = 0.0
+    for case in cases:
+        args, kw = mk(case, natoms)
+        targs = tens(torch, args, DEVICE)
+        k = fns[0][0](*targs, **kw)
+        sig, _ = _x_errors(torch, k, fns[0][1](*targs, **kw), False)
+        ok = _finite(torch, k)
+        jargs, jkw = mkj(torch, case, natoms)
+        targs = tens(torch, jargs, DEVICE, jac=True)
+        kj = fns[1][0](*targs, **jkw)
+        s_, cols = _x_errors(torch, kj, fns[1][1](*targs, **jkw), True)
+        ok = ok and _finite(torch, kj)
+        sig = max(sig, s_)
+        print(f"[{family}-cases] {case['name']:14s} max|kernel - plain| = "
+              f"{sig:.3e}, columns {', '.join(f'{c:.2e}' for c in cols)}")
+        if not ok or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL:
+            raise AssertionError(
+                f"{family} case {case['name']}: kernel vs plain twin "
+                f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
+                f"{TOL_JAC_KERNEL} or not finite")
+        worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+    return worst_sig, worst_col
+
+
+def mt_saturation():
+    """The bench's bound-pool saturation rate (1/ms): a 5 ms, 10 uT pulse
+    2 kHz off resonance on a super-Lorentzian line of T2 12 us (Graham
+    1997; bench.py:794-795)."""
+    from epgpy_torch.utils import magnettransfer as mt
+
+    return mt.saturation_rate(5.0, 10.0, mt.absorption_rate(
+        12e-3, "super-lorentzian", 2.0))
+
+
+def xgre_bench_sequence(epg, T2f, ntr=XGRE_NTR):
+    """bench.py:799-811's two-pool MT-GRE train over a free-pool T2 sweep:
+    [R(sat), T([10, 0]), ADC, X(10), S(1)] x ntr."""
+    T2 = np.stack([np.asarray(T2f, float), np.full(len(T2f), 0.012)])
+    khi = epg.exchange_matrix(XGRE_K, densities=list(XGRE_DENS))
+    X = epg.X(XGRE_TAU, khi, axis=0, T1=np.asarray([1000.0, 1000.0]), T2=T2)
+    sat = epg.R(0, rL=np.asarray([0.0, mt_saturation() * XGRE_SATDUR]),
+                r0=None)
+    seq = []
+    for _ in range(ntr):
+        seq += [sat, epg.T(np.asarray([10.0, 0.0]), 0), epg.ADC, X,
+                epg.S(1)]
+    return seq
+
+
+def families_draws(natoms):
+    """bench.py:1128-1132's draws (seed 12): 200 flips, T1 and T2 of
+    `natoms` atoms."""
+    rng = np.random.default_rng(12)
+    FA = rng.uniform(12.0, 45.0, 200)
+    T1 = rng.uniform(300.0, 2500.0, natoms)
+    T2 = np.minimum(rng.uniform(20.0, 300.0, natoms), 0.8 * T1)
+    return FA, T1, T2
+
+
+def xbssfp_bench_sequence(epg, T2, FA):
+    """bench.py:1306-1318's balanced two-pool train: [T([FA_i, 0], 180 (i %
+    2)), X(3), ADC, X(7)] per TR, bound-pool T2 20 us."""
+    khi = epg.exchange_matrix(0.004, ncomp=2, densities=[0.85, 0.15])
+    T2x = np.stack([np.asarray(T2, float), np.full(len(T2), 0.02)])
+    T1x = np.array([1000.0, 1100.0])
+    X1 = epg.X(3.0, khi, axis=0, T1=T1x, T2=T2x)
+    X2 = epg.X(7.0, khi, axis=0, T1=T1x, T2=T2x)
+    seq = []
+    for i in range(len(FA)):
+        seq += [epg.T(np.array([float(FA[i]), 0.0]), 180.0 * (i % 2)), X1,
+                epg.ADC, X2]
+    return seq
+
+
+def xcomp_bench_sequence(epg, T2f, FA, nseg=XCOMP_NSEG, nread=25):
+    """bench.py:1266-1279's segmented MT-prepared train: per segment a
+    saturation R and X(150), nread readouts [T([FA_i / 3, 0]), X(3), ADC,
+    X(7), S(1)], X(150)."""
+    khi = epg.exchange_matrix(0.005, ncomp=2, densities=[0.85, 0.15])
+    T2p = np.stack([np.asarray(T2f, float), np.full(len(T2f), 0.012)])
+    T1p = np.array([1000.0, 1100.0])
+    Xte = epg.X(3.0, khi, axis=0, T1=T1p, T2=T2p)
+    Xtr = epg.X(7.0, khi, axis=0, T1=T1p, T2=T2p)
+    Xrec = epg.X(150.0, khi, axis=0, T1=T1p, T2=T2p)
+    seq = []
+    for _ in range(nseg):
+        seq += [epg.R(0, rL=np.asarray([0.0, 0.3]), r0=None), Xrec]
+        for i in range(nread):
+            seq += [epg.T(np.asarray([float(FA[i] / 3), 0.0]), 0.0), Xte,
+                    epg.ADC, Xtr, epg.S(1)]
+        seq += [Xrec]
+    return seq
+
+
+def xgre_parity_train(epg):
+    """tests/golden/xgre_parity.npz's train (tools/make_golden.py:1079)."""
+    T2 = np.stack([np.linspace(40.0, 120.0, 4), np.full(4, 0.012)])
+    X = epg.X(10.0, epg.exchange_matrix(0.005, densities=[0.8, 0.2]),
+              axis=0, T1=np.asarray([1000.0, 1000.0]), T2=T2)
+    sat = epg.R(0, rL=np.asarray([0.0, 2.5]), r0=None)
+    seq = []
+    for _ in range(20):
+        seq += [sat, epg.T(np.asarray([10.0, 0.0]), 0), epg.ADC, X,
+                epg.S(1)]
+    return seq
+
+
+def xbssfp_golden_train(epg, g):
+    """tests/golden/xbssfp.npz's balanced train
+    (tests/test_xgre_dispatch.py:459-485)."""
+    khi = epg.exchange_matrix(0.004, axis=0, ncomp=2, densities=[0.85, 0.15])
+    kw = dict(T1=[900.0, 400.0], T2=[70.0, 0.02], g=[0.003, 0.0])
+    X1, X2 = epg.X(2.3, khi, axis=0, **kw), epg.X(5.0 - 2.3, khi, axis=0,
+                                                   **kw)
+    seq = []
+    for i in range(len(g["FAs"])):
+        seq += [epg.R(0, rL=np.asarray([0.0, 0.3])),
+                epg.T(np.array([g["FAs"][i], 0.0]), float(g["phases"][i])),
+                X1, epg.ADC, X2]
+    return seq
+
+
+def xcomp_golden_train(epg):
+    """tests/golden/xcomp_gre.npz's train (tools/make_golden.py:1103)."""
+    khi = epg.exchange_matrix(0.005, ncomp=2, densities=[0.85, 0.15])
+    T2 = np.stack([np.linspace(50.0, 110.0, 4), np.full(4, 0.012)])
+    T1 = np.array([1000.0, 1100.0])
+    Xte, Xtr = (epg.X(3.0, khi, axis=0, T1=T1, T2=T2),
+                epg.X(7.0, khi, axis=0, T1=T1, T2=T2))
+    Xrec = epg.X(150.0, khi, axis=0, T1=T1, T2=T2)
+    sat = epg.R(0, rL=np.asarray([0.0, 0.3]), r0=None)
+    seq = []
+    for seg in range(3):
+        seq += [sat, Xrec]
+        for i in range(6):
+            seq += [epg.T(np.asarray([8.0 + i + seg, 0.0]), 0.0), Xte,
+                    epg.ADC, Xtr, epg.S(1)]
+        seq += [Xrec]
+    return seq
+
+
+def exchange_gre_train(epg):
+    """tests/golden/exchange_gre.npz's train (tests/test_shiftnd.py:
+    429-444): a scalar-rate X on the last axis (run with a custom initial
+    state, so the general path takes it)."""
+    X = epg.X(10.0, 0.01, axis=-1, T1=[1000.0, 500.0], T2=[80.0, 20.0],
+              g=[0.0, 0.02])
+    seq = []
+    for _ in range(40):
+        seq += [epg.T(15.0, 0), epg.ADC, X, epg.S(1)]
+    return seq
+
+
+def _x_goldens(torch, epg):
+    """The EPG-X goldens on the card: xgre_parity, xbssfp and xcomp_gre
+    through simulate() and the kernels (float32, relative to the golden's
+    largest magnitude), exchange_gre through the general path in float64
+    on the card, and the MT rates of mt_rates.npz (host numpy); returns
+    {name: error}."""
+    from epgpy_torch import config
+    from epgpy_torch.utils import magnettransfer as mt
+
+    err = {}
+    for name, seq, kw in (
+            ("xgre_parity", xgre_parity_train(epg),
+             dict(max_nstate=10, density=[0.8, 0.2])),
+            ("xbssfp", xbssfp_golden_train(epg, _golden("xbssfp")),
+             dict(density=[0.85, 0.15])),
+            ("xcomp_gre", xcomp_golden_train(epg),
+             dict(max_nstate=8, density=[0.85, 0.15]))):
+        g = _golden(name)["signal"]
+        out = epg.simulate(seq, asarray=False, **kw)
+        err[name] = float(np.abs(out.cpu().numpy() - g).max()
+                          / np.abs(g).max())
+        twin = _xcomp_twin_err if name == "xcomp_gre" else _xgre_twin_err
+        err[name + " vs twin"] = twin(torch, seq, tuple(out.shape[1:]),
+                                      kw["density"], kw.get("max_nstate", 0),
+                                      out)
+    old = config.precision()
+    config.set_precision("float64")
+    try:
+        sig = epg.simulate(exchange_gre_train(epg), max_nstate=12,
+                           init=np.array([0, 0, 0.5]) * np.ones((2, 1, 1)),
+                           density=[0.5, 0.5])
+    finally:
+        config.set_precision(old)
+    err["exchange_gre"] = float(np.abs(sig - _golden("exchange_gre")[
+        "signal"]).max())
+    g = _golden("mt_rates")
+    off = g["offres"]
+    rel = [np.abs(mt.absorption_rate(12e-3, s, off) / g[s] - 1).max()
+           for s in ("gaussian", "lorentzian")]
+    rel.append(abs(mt.saturation_rate(5.0, 10.0, mt.absorption_rate(
+        12e-3, "gaussian", 2.0)) / g["satrate"] - 1))
+    err["mt_rates"] = float(max(rel))
+    sl = float(np.abs(mt.absorption_rate(12e-3, "super-lorentzian", off[2:])
+                      / g["super_lorentzian"] - 1).max())
+    print(f"[x-goldens] on the card: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in err.items())
+        + f", super-Lorentzian {sl:.3e} (limits {TOL_X_GOLDEN} relative, "
+        f"the kernels vs their twins {TOL_KERNEL}, exchange_gre "
+        f"{TOL_XCHG_GOLDEN} in float64, mt_rates 1e-10 and 1e-6 relative)")
+    if (max(err[k] for k in ("xgre_parity", "xbssfp", "xcomp_gre"))
+            > TOL_X_GOLDEN or max(v for k, v in err.items()
+                                  if k.endswith("twin")) > TOL_KERNEL
+            or err["exchange_gre"] > TOL_XCHG_GOLDEN
+            or err["mt_rates"] > 1e-10 or sl > 1e-6):
+        raise AssertionError(f"EPG-X goldens out of bounds: {err}")
+    return err
+
+
+def _x_probe(torch, epg, build, atoms, kw, out):
+    """max |float32 path - float64 general path| over the probe atoms:
+    `build(idx)` builds the train over those atoms."""
+    from epgpy_torch import config
+
+    with cpu_float64(config):
+        ref = epg.simulate(build(atoms), fisp_kernel=False, **kw)
+    return float(np.abs(out[..., atoms].cpu().numpy() - ref).max())
+
+
+def _xgre_args(fisp_dispatch, params, nstate):
+    """The xgre kernels' positional tensors and keywords of a match."""
+    d = fisp_dispatch._xgre_device_params(params)
+    balanced = bool(params["balanced"])
+    args = tuple(d[k] for k in ("alpha", "phi", "satf_re", "satf_im",
+                                "satz_re", "satz_im", "dens", "stageA",
+                                "stageB", "B1"))
+    return args, dict(nstate=0 if balanced else max(int(nstate), 1),
+                      shift=not balanced)
+
+
+def _twin_err(torch, out, re, im):
+    """max |simulate() output - plain twin| over re and im, the twin's
+    (N, C, B) echoes laid out as the engine's output."""
+    return max(float((out.real - re.reshape(out.shape)).abs().max()),
+               float((out.imag - im.reshape(out.shape)).abs().max()))
+
+
+def _xgre_twin_err(torch, seq, shape, dens, nstate, out):
+    """max |out - xgre_dictionary_plain| on the card, all atoms: `out` is
+    what simulate(density=) gave for `seq` (the xgre kernel's echoes), the
+    twin runs on the same matched tensors."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_xgre
+
+    args, kw = _xgre_args(fisp_dispatch,
+                          fisp_dispatch.match_xgre(seq, shape, dens), nstate)
+    return _twin_err(torch, out, *cuda_xgre.xgre_dictionary_plain(*args,
+                                                                  **kw))
+
+
+def _xcomp_twin_err(torch, seq, shape, dens, nstate, out):
+    """max |out - xcomposite_plain| on the card, all atoms, as
+    _xgre_twin_err for the composite EPG-X kernel."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_xcomposite
+
+    params = fisp_dispatch.match_xcomposite(seq, shape, dens)
+    args, d, kw = fisp_dispatch._xcomp_call(params, nstate)
+    return _twin_err(torch, out, *cuda_xcomposite.xcomposite_plain(
+        *args, params["taus"], params["khi"], d["T1"], d["T2"], d["g"],
+        d["B1"], d["b1u"], **kw))
+
+
+def _xgre_cut(torch, args):
+    """cut(n) of kernel_entry for the xgre primal's arguments: the stages'
+    (C, B) atoms and B1 cut to the first n atoms, on the CPU."""
+    def cut(n):
+        out = [a.cpu() for a in args[:7]]
+        out += [(khi, T1[:, :n].cpu(), T2[:, :n].cpu(), g[:, :n].cpu(), tau)
+                for khi, T1, T2, g, tau in args[7:9]]
+        return tuple(out) + (None if args[9] is None else args[9][:n].cpu(),)
+    return cut
+
+
+def phase_xgre_path(torch, epg):
+    """(a) the bench's spoiled MT-GRE train over XGRE_ATOMS atoms through
+    simulate(density=) (first call and memoized) and through the xgre
+    kernel on the matched parameters, 8 atoms against the float64 general
+    path, and the EPG-X goldens on the card; returns the run's facts."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_xcomposite, cuda_xgre
+
+    T2f = np.linspace(40.0, 120.0, XGRE_ATOMS)
+    seq = xgre_bench_sequence(epg, T2f)
+    kw = dict(max_nstate=XGRE_NSTATE, density=list(XGRE_DENS),
+              asarray=False)
+    _reset_counts(cuda_xgre, cuda_xcomposite)
+    out, first_s = _first_call(torch, lambda: epg.simulate(seq, **kw))
+    params = fisp_dispatch.match_xgre(seq, (2, XGRE_ATOMS), list(XGRE_DENS))
+    direct = fisp_dispatch.run_xgre_kernel(params, XGRE_NSTATE)
+    same = bool(torch.equal(out, direct))
+    del direct
+    gerr = _x_goldens(torch, epg)
+    torch.cuda.synchronize()
+    _expect("xgre", (dict(fisp_dispatch.DISPATCH_COUNTS), cuda_xgre.LAUNCHES,
+                     cuda_xcomposite.LAUNCHES),
+            ({"xgre": 3, "xcomp": 1}, 4, 1))
+    probe = np.linspace(0, XGRE_ATOMS - 1, 8).astype(int)
+    err = _x_probe(torch, epg, lambda idx: xgre_bench_sequence(epg, T2f[idx]),
+                   probe, dict(max_nstate=XGRE_NSTATE,
+                               density=list(XGRE_DENS)), out)
+    shape = (XGRE_NTR, 2, XGRE_ATOMS)
+    print(f"[xgre] simulate(density=): the bench's MT-GRE, {XGRE_NTR} TRs x "
+          f"{XGRE_ATOMS} atoms -> {tuple(out.shape)} {out.dtype} "
+          f"({out.numel() * 8 / 1e6:.0f} MB); run_xgre_kernel on the match "
+          f"{'==' if same else '!='} simulate(); 8 atoms vs the f64 general "
+          f"path {err:.3e} (limit {TOL_PROBE})")
+    if (tuple(out.shape) != shape or out.dtype != torch.complex64
+            or not same or not _finite(torch, torch.view_as_real(out))
+            or not err <= TOL_PROBE):
+        raise AssertionError("xgre path: shape, finiteness, direct call or "
+                             "f64 error out of bounds")
+    del out
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, **kw), reps=3)
+    print(f"[xgre] simulate() first {first_s:.4f} s, memoized "
+          f"{memo_s * 1e3:.3f} ms")
+    args, ckw = _xgre_args(fisp_dispatch, params, XGRE_NSTATE)
+    return dict(args=args, kw=ckw, launches=4, comp_launches=1,
+                first_s=first_s, memo_s=memo_s, gerr=gerr, err=err)
+
+
+def phase_xbssfp_path(torch, epg):
+    """(b) the bench's balanced two-pool train over XBSSFP_ATOMS atoms
+    through simulate(density=) (nstate 0: the xgre kernel without the
+    shift), 8 atoms against the float64 general path (to the bSSFP
+    family's limit TOL_BSSFP_GOLDEN: a balanced train never spoils, so
+    float32 rounding accumulates over its 200 TRs -- 1.6e-6 for the twin
+    on the CPU); returns the run's facts."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_xgre
+
+    FA, _, T2 = families_draws(XBSSFP_ATOMS)
+    seq = xbssfp_bench_sequence(epg, T2, FA)
+    kw = dict(density=[0.85, 0.15], asarray=False)
+    _reset_counts(cuda_xgre)
+    out, first_s = _first_call(torch, lambda: epg.simulate(seq, **kw))
+    _expect("xbssfp", (dict(fisp_dispatch.DISPATCH_COUNTS),
+                       cuda_xgre.LAUNCHES), ({"xgre": 1}, 1))
+    twin = _xgre_twin_err(torch, seq, (2, XBSSFP_ATOMS), [0.85, 0.15], 0,
+                          out)
+    probe = np.linspace(0, XBSSFP_ATOMS - 1, 8).astype(int)
+    err = _x_probe(torch, epg,
+                   lambda idx: xbssfp_bench_sequence(epg, T2[idx], FA),
+                   probe, dict(density=[0.85, 0.15]), out)
+    print(f"[xbssfp] simulate(density=): balanced two-pool, {len(FA)} TRs "
+          f"x {XBSSFP_ATOMS} atoms -> {tuple(out.shape)}; all atoms vs "
+          f"the plain twin on the card {twin:.3e} (limit {TOL_KERNEL}); 8 "
+          f"atoms vs the f64 general path {err:.3e} (limit "
+          f"{TOL_BSSFP_GOLDEN})")
+    if (tuple(out.shape) != (len(FA), 2, XBSSFP_ATOMS)
+            or not _finite(torch, torch.view_as_real(out))
+            or not twin <= TOL_KERNEL or not err <= TOL_BSSFP_GOLDEN):
+        raise AssertionError("balanced xgre path out of bounds")
+    del out
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, **kw), reps=3)
+    print(f"[xbssfp] simulate() first {first_s:.4f} s, memoized "
+          f"{memo_s * 1e3:.3f} ms")
+    return dict(launches=1, first_s=first_s, memo_s=memo_s, err=err,
+                twin=twin)
+
+
+def mtp_train(epg, k_exch, T2f, sat_rate):
+    """examples/mt_prep_gre.py's segmented MT-prepared GRE (MTP_NSEG
+    segments of MTP_NREAD readouts; the saturation power 0.5-1.5x per
+    segment; khi = 0 for k_exch = 0); returns (sequence, densities)."""
+    dens = np.asarray([0.88, 0.12]) / np.sum([0.88, 0.12])
+    khi = (np.zeros((2, 2)) if k_exch == 0.0
+           else epg.exchange_matrix(k_exch, ncomp=2, densities=dens))
+    T2 = np.stack([np.asarray(T2f, float), np.full(len(T2f), 0.012)])
+    T1 = np.asarray([1000.0, 1000.0])
+    Xte = epg.X(MTP_TE, khi, axis=0, T1=T1, T2=T2)
+    Xtr = epg.X(MTP_TRG - MTP_TE, khi, axis=0, T1=T1, T2=T2)
+    Xrec = epg.X(MTP_TREC, khi, axis=0, T1=T1, T2=T2)
+    seq = []
+    for s in range(MTP_NSEG):
+        if sat_rate > 0:
+            scale = 0.5 + (s % 3) * 0.5
+            seq.append(epg.R(0, rL=np.asarray([0.0, sat_rate * scale]),
+                             r0=None))
+        seq.append(Xrec)
+        for _ in range(MTP_NREAD):
+            seq += [epg.T(np.asarray([9.0, 0.0]), 0.0), Xte, epg.ADC, Xtr,
+                    epg.S(1)]
+        seq += [Xrec]
+    return seq, list(dens)
+
+
+def phase_xcomp_path(torch, epg):
+    """(c) the bench's segmented MT-prepared train over 2 x XCOMP_NAT
+    atoms through simulate(density=) and through the composite EPG-X
+    kernel on the matched parameters, 8 atoms against the float64 general
+    path, then examples/mt_prep_gre.py's MTR checks at the same width;
+    returns the run's facts."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_xcomposite
+
+    FA, _, T2 = families_draws(XCOMP_NAT)
+    T2f = np.concatenate([T2, T2])
+    natx = len(T2f)
+    seq = xcomp_bench_sequence(epg, T2f, FA)
+    kw = dict(max_nstate=XCOMP_NSTATE, density=[0.85, 0.15], asarray=False)
+    _reset_counts(cuda_xcomposite)
+    out, first_s = _first_call(torch, lambda: epg.simulate(seq, **kw))
+    params = fisp_dispatch.match_xcomposite(seq, (2, natx), [0.85, 0.15])
+    direct = fisp_dispatch.run_xcomposite_kernel(params, XCOMP_NSTATE)
+    same = bool(torch.equal(out, direct))
+    del direct
+    probe = np.linspace(0, natx - 1, 8).astype(int)
+    err = _x_probe(torch, epg,
+                   lambda idx: xcomp_bench_sequence(epg, T2f[idx], FA),
+                   probe, dict(max_nstate=XCOMP_NSTATE,
+                               density=[0.85, 0.15]), out)
+    nadc = XCOMP_NSEG * 25
+    print(f"[xcomp] simulate(density=): the bench's MT-prepared train, "
+          f"{len(params['alpha'])} stages x {natx} atoms -> "
+          f"{tuple(out.shape)}; run_xcomposite_kernel on the match "
+          f"{'==' if same else '!='} simulate(); 8 atoms vs the f64 general "
+          f"path {err:.3e} (limit {TOL_PROBE})")
+    if (tuple(out.shape) != (nadc, 2, natx) or not same
+            or not _finite(torch, torch.view_as_real(out))
+            or not err <= TOL_PROBE):
+        raise AssertionError("xcomp path out of bounds")
+    del out
+
+    # examples/mt_prep_gre.py's MTR checks, at natx voxels, each train's
+    # kernel echoes held against the plain twin on all voxels
+    T2v = np.random.default_rng(3).uniform(50.0, 120.0, natx)
+    twins = []
+
+    def mean_signal(k, rate):
+        s, dens = mtp_train(epg, k, T2v, rate)
+        sig = epg.simulate(s, max_nstate=XCOMP_NSTATE, density=dens,
+                           asarray=False)
+        twins.append(_xcomp_twin_err(torch, s, (2, natx), dens,
+                                     XCOMP_NSTATE, sig))
+        return sig[:, 0, :].abs().mean(dim=0).double().cpu().numpy()
+
+    s_off = mean_signal(0.005, 0.0)
+    mtr = [float(((s_off - mean_signal(0.005, r)) / s_off).mean())
+           for r in (0.15, 0.3, 0.6)]
+    mtr0 = float(np.abs((mean_signal(0.0, 0.0) - mean_signal(0.0, 0.6))
+                        / mean_signal(0.0, 0.0)).max())
+    print(f"[xcomp] examples/mt_prep_gre.py at {natx} voxels: MTR "
+          f"{', '.join(f'{m:.4f}' for m in mtr)} at 0.15/0.3/0.6 per ms "
+          f"(asserts: > 0.01, increasing); khi = 0 control max |MTR| "
+          f"{mtr0:.2e} (assert < 1e-5); the {len(twins)} trains vs the "
+          f"plain twin on the card, all voxels: max {max(twins):.3e} (limit "
+          f"{TOL_KERNEL})")
+    if not (mtr[0] > 0.01 and mtr[0] < mtr[1] < mtr[2]) or not mtr0 < 1e-5:
+        raise AssertionError("mt_prep_gre MTR asserts failed")
+    if not max(twins) <= TOL_KERNEL:
+        raise AssertionError(f"xcomposite kernel vs plain twin on the MTR "
+                             f"trains: {twins}")
+    # the train and the 7 MTR trains through simulate(), the direct call
+    _expect("xcomp", (dict(fisp_dispatch.DISPATCH_COUNTS),
+                      cuda_xcomposite.LAUNCHES), ({"xcomp": 8}, 9))
+    memo_s = _host_s(torch, lambda: epg.simulate(seq, **kw), reps=3)
+    print(f"[xcomp] simulate() first {first_s:.4f} s, memoized "
+          f"{memo_s * 1e3:.3f} ms")
+    args, d, ckw = fisp_dispatch._xcomp_call(params, XCOMP_NSTATE)
+    args = args + (params["taus"], params["khi"], d["T1"], d["T2"], d["g"],
+                   d["B1"], d["b1u"])
+    return dict(args=args, kw=ckw, launches=9, first_s=first_s,
+                memo_s=memo_s, err=err, mtr=mtr, mtr0=mtr0, natoms=natx)
+
+
+def _xcomp_cut(torch, args):
+    """cut(n) for the composite EPG-X primal's arguments: T1, T2, g and B1
+    cut to the first n atoms, on the CPU."""
+    def cut(n):
+        out = [a.cpu() if isinstance(a, torch.Tensor) else a
+               for a in args[:14]]
+        out += [a[:, :n].cpu() for a in args[14:17]]
+        return tuple(out) + (None if args[17] is None else args[17][:n].cpu(),
+                             args[18].cpu())
+    return cut
+
+
+def qmt_problem(torch, epg):
+    """examples/mt_qmt_fit_refine.py's acquisition on the card: the (N, C)
+    train tensors and the differentiable per-voxel stage map (f, T2f) ->
+    (mr, mi, ml, dens) of its X(TR) stage."""
+    from epgpy_torch.models import cuda_xgre
+
+    FAS = 8.0 + 52.0 * np.abs(np.sin(np.arange(QMT_NTR) * 0.18))
+    W = mt_saturation()
+    dev = torch.device(DEVICE)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    Z = np.zeros((QMT_NTR, 2))
+    train = (t(np.stack([FAS, np.zeros(QMT_NTR)], 1)), t(Z),
+             t(np.ones((QMT_NTR, 2))), t(Z),
+             t(np.stack([np.ones(QMT_NTR),
+                         np.full(QMT_NTR, np.exp(-W * 10.0))], 1)), t(Z))
+
+    def stage(f, T2f):
+        d0, d1 = 1.0 - f, f
+        khi = torch.stack([torch.stack([0.005 / d0, -0.005 / d1]),
+                           torch.stack([-0.005 / d0, 0.005 / d1])])
+        T2 = torch.stack([T2f, torch.full_like(T2f, 0.012)])
+        T1 = torch.full_like(T2, 1000.0)
+        return cuda_xgre.exchange_stage_mats(khi, T1, T2, None, 12.0) \
+            + (torch.stack([d0, d1]),)
+
+    return train, stage
+
+
+def qmt_jac_args(torch, train, stage, f, T2f):
+    """The xgre Jacobian's arguments for per-voxel (f, T2f): the identity
+    stage A, the X(TR) stage B and its (df, dT2f) tangents by
+    torch.func.jvp of the stage map."""
+    one, zero = torch.ones_like(f), torch.zeros_like(f)
+    (mr, mi, ml, dens), tf = torch.func.jvp(stage, (f, T2f), (one, zero))
+    _, tt = torch.func.jvp(stage, (f, T2f), (zero, one))
+    B = f.shape[0]
+    eye = torch.eye(2, dtype=f.dtype, device=f.device).expand(B, 2, 2)
+    matsA = (eye.contiguous(), torch.zeros_like(eye), eye.contiguous())
+    dA = tuple(torch.zeros((2, B, 2, 2), dtype=f.dtype, device=f.device)
+               for _ in range(3))
+    dB = tuple(torch.stack([a, b]) for a, b in zip(tf[:3], tt[:3]))
+    return train + (dens, matsA, (mr, mi, ml), dA, dB,
+                    torch.stack([tf[3], tt[3]]))
+
+
+def _qmt_mag(out):
+    """|S| of the free pool (N, B) and d|S|/d(f, T2f) (N, B, 2) of an xgre
+    Jacobian output."""
+    (re, im), (jre, jim) = out
+    sr, si = re[:, 0], im[:, 0]
+    mag = (sr * sr + si * si).sqrt() + 1e-30
+    jmag = (sr[:, None] * jre[:, :, 0] + si[:, None] * jim[:, :, 0]) \
+        / mag[:, None]
+    return mag, jmag.movedim(1, -1)
+
+
+def _jac_cut(torch, args, axes, cpu=True):
+    """cut(n) for a Jacobian entry point: the arguments at the positions
+    of `axes` cut to their first n atoms along the axis it gives (tuples
+    and lists walked), every tensor on the CPU (or where it is)."""
+    def walk(a, n, ax):
+        if isinstance(a, torch.Tensor):
+            a = a if ax is None else a.narrow(ax, 0, n)
+            return a.cpu() if cpu else a
+        if isinstance(a, (tuple, list)):
+            return type(a)(walk(x, n, ax) for x in a)
+        return a
+
+    def cut(n):
+        return tuple(walk(a, n, axes.get(i)) for i, a in enumerate(args))
+    return cut
+
+
+#: atom axes of the xgre Jacobian's arguments: dens (C, B), matsA/B
+#: (B, C, C), their tangents (V, B, C, C), ddens (V, C, B)
+XGRE_JAC_AXES = {6: -1, 7: 0, 8: 0, 9: 1, 10: 1, 11: -1}
+#: and of the composite EPG-X Jacobian's (shared dens): the tables (nmat,
+#: B, C, C), their tangents, ddens (C, B)
+XCOMP_JAC_AXES = {12: 1, 13: 1, 14: -1}
+
+
+def phase_qmt_fit(torch, epg):
+    """(d) examples/mt_qmt_fit_refine.py at QMT_NVOX voxels: noisy
+    observations at random (f, T2f), a match against the example's 12 x 16
+    (f, T2f) dictionary (one Jacobian kernel call), QMT_ITERS damped
+    Gauss-Newton iterations (one Jacobian kernel call each), the example's
+    asserts; the first iteration's Jacobian against the twin on its first
+    8,192 voxels; returns the run's facts."""
+    from epgpy_torch import config
+    from epgpy_torch.models import cuda_xgre
+
+    _reset_counts(cuda_xgre)
+    train, stage = qmt_problem(torch, epg)
+    dev = torch.device(DEVICE)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    def forward(f, T2f):
+        return _qmt_mag(cuda_xgre.xgre_jacobian_echoes(
+            *qmt_jac_args(torch, train, stage, t(f), t(T2f)),
+            nstate=QMT_NSTATE))
+
+    rng = np.random.default_rng(17)
+    f_true = rng.uniform(0.08, 0.28, QMT_NVOX)
+    t2_true = rng.uniform(45.0, 115.0, QMT_NVOX)
+    t0 = time.perf_counter()
+    mag_true, _ = forward(f_true, t2_true)
+    obs = mag_true.double() + torch.as_tensor(
+        rng.normal(0, 2e-4, (QMT_NTR, QMT_NVOX)), device=dev)
+    bounds = np.array([[0.03, 0.40], [30.0, 140.0]])
+    grid = np.stack(np.meshgrid(np.linspace(*bounds[0], 12),
+                                np.linspace(*bounds[1], 16), indexing="ij"),
+                    -1).reshape(-1, 2)
+    D, _ = forward(grid[:, 0], grid[:, 1])
+    D = D.double()
+    with config.full_precision():
+        hit = ((obs / obs.norm(dim=0)).T
+               @ (D / D.norm(dim=0))).argmax(dim=1).cpu().numpy()
+    theta = grid[hit].T.copy()
+    match_s = time.perf_counter() - t0
+    rms = lambda th: (float(np.sqrt(np.mean((th[0] - f_true) ** 2))),  # noqa
+                      float(np.sqrt(np.mean((th[1] - t2_true) ** 2))))
+    err0 = rms(theta)
+    lam, twin = 1e-3, None
+    lo, hi = (torch.as_tensor(bounds[:, i], device=dev)[:, None]
+              for i in (0, 1))
+    th = torch.as_tensor(theta, device=dev)
+    t0 = time.perf_counter()
+    for it in range(QMT_ITERS):
+        if it == 0:
+            args = qmt_jac_args(torch, train, stage, th[0].float(),
+                                th[1].float())
+            k = cuda_xgre.xgre_jacobian_echoes(*args, nstate=QMT_NSTATE)
+            cut = _jac_cut(torch, args, XGRE_JAC_AXES, cpu=False)
+            twin = _x_errors(torch, tuple(
+                (a[..., :QMT_TWIN], b[..., :QMT_TWIN]) for a, b in k),
+                cuda_xgre.xgre_jacobian_plain(*cut(QMT_TWIN),
+                                              nstate=QMT_NSTATE), True)
+            mag, J = _qmt_mag(k)
+            del k, args
+        else:
+            mag, J = forward(th[0].cpu().numpy(), th[1].cpu().numpy())
+        r, J = obs - mag.double(), J.double()
+        A = torch.einsum("nbi,nbj->bij", J, J)
+        diag = A.diagonal(dim1=1, dim2=2).clamp(min=1e-12)
+        A = A + torch.diag_embed(lam * diag)
+        g = torch.einsum("nbi,nb->bi", J, r)
+        th = th + torch.linalg.solve(A, g[..., None])[..., 0].T
+        th = torch.minimum(torch.maximum(th, lo), hi)
+    torch.cuda.synchronize()
+    gn_s = time.perf_counter() - t0
+    err1 = rms(th.cpu().numpy())
+    print(f"[qmt] examples/mt_qmt_fit_refine.py at {QMT_NVOX} voxels: match "
+          f"RMS f {err0[0]:.4f}, T2f {err0[1]:.3f} ms ({match_s:.3f} s); "
+          f"{QMT_ITERS} Gauss-Newton iterations ({gn_s:.3f} s) -> f "
+          f"{err1[0]:.5f}, T2f {err1[1]:.4f} ms (asserts: below the match, "
+          f"f < 0.01, T2f < 2 ms); first Jacobian vs the twin on "
+          f"{QMT_TWIN} voxels: signal {twin[0]:.3e}, columns "
+          f"{', '.join(f'{c:.3e}' for c in twin[1])}")
+    if not (err1[0] < err0[0] and err1[1] < err0[1] and err1[0] < 0.01
+            and err1[1] < 2.0):
+        raise AssertionError(f"qMT fit asserts failed: {err0} -> {err1}")
+    if not twin[0] <= TOL_KERNEL or not max(twin[1]) <= TOL_JAC_KERNEL:
+        raise AssertionError("the xgre Jacobian kernel disagrees with its "
+                             "twin on the qMT fit")
+    _expect("qmt", (cuda_xgre.JAC_LAUNCHES,), (2 + QMT_ITERS,))
+    f0 = torch.as_tensor(f_true, dtype=torch.float32, device=dev)
+    t20 = torch.as_tensor(t2_true, dtype=torch.float32, device=dev)
+    return dict(args=qmt_jac_args(torch, train, stage, f0, t20),
+                kw=dict(nstate=QMT_NSTATE), launches=2 + QMT_ITERS,
+                err0=err0, err1=err1, gn_s=gn_s, match_s=match_s, twin=twin)
+
+
+def phase_kfit(torch, epg):
+    """(e) examples/mt_prep_gre.py's exchange-rate fit at KFIT_NVOX voxels:
+    the composite EPG-X Jacobian kernel at the per-voxel truth plus noise
+    as the data, then 8 Gauss-Newton iterations of k through
+    parallel.gauss_newton_refine (one kernel call each), k RMSE < 2e-4;
+    the truth's Jacobian against the twin on its first 8,192 voxels;
+    returns the run's facts."""
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_xcomposite
+    from epgpy_torch.parallel import gauss_newton_refine
+
+    _reset_counts(cuda_xcomposite)
+    rng = np.random.default_rng(3)
+    n = KFIT_NVOX
+    T2f = rng.uniform(50.0, 120.0, n)
+    k_true = rng.uniform(0.003, 0.009, n)
+    seq, dens = mtp_train(epg, 0.005, T2f, 0.3)
+    params = fisp_dispatch.match_xcomposite(seq, (2, n), dens)
+    args, _, kw = fisp_dispatch._xcomp_call(params, XCOMP_NSTATE)
+    dev = torch.device(DEVICE)
+    kron = torch.as_tensor(np.asarray([[1.0, -1.0], [-1.0, 1.0]])
+                           / np.asarray(dens), dtype=torch.float32,
+                           device=dev)
+    T1m = torch.full((2, n), 1000.0, device=dev)
+    T2 = torch.stack([torch.as_tensor(T2f, dtype=torch.float32, device=dev),
+                      torch.full((n,), 0.012, device=dev)])
+    zeros = torch.zeros((2, n), device=dev)
+
+    def tables(k):
+        return cuda_xcomposite.xcomposite_stage_mat_tables(
+            k[None, None, :] * kron[:, :, None], T1m, T2, None,
+            params["taus"])
+
+    def jac_args(k):
+        mats = tables(k)
+        _, dk = torch.func.jvp(tables, (k,), (torch.ones_like(k),))
+        return args[:12] + (mats, [dk], [zeros])
+
+    def fused(k):
+        re, im = cuda_xcomposite.xcomposite_jacobian_echoes(*jac_args(k),
+                                                             **kw)
+        return ((re[:, 0, 0], im[:, 0, 0]),
+                (re[:, 1:, 0].movedim(1, -1), im[:, 1:, 0].movedim(1, -1)))
+
+    kt = torch.as_tensor(k_true, dtype=torch.float32, device=dev)
+    targs = jac_args(kt)
+    k = cuda_xcomposite.xcomposite_jacobian_echoes(*targs, **kw)
+    twin = _x_errors(torch, tuple(x[..., :QMT_TWIN] for x in k),
+                     cuda_xcomposite.xcomposite_jacobian_plain(
+                         *_jac_cut(torch, targs, XCOMP_JAC_AXES,
+                                   cpu=False)(QMT_TWIN), **kw), True)
+    noise = 2e-4
+    mre = k[0][:, 0, 0].double().cpu().numpy() \
+        + noise * rng.standard_normal((params["nadc"], n))
+    mim = k[1][:, 0, 0].double().cpu().numpy() \
+        + noise * rng.standard_normal((params["nadc"], n))
+    del k
+    t0 = time.perf_counter()
+    theta = gauss_newton_refine(
+        lambda th: fused(torch.as_tensor(th[0], dtype=torch.float32,
+                                         device=dev)),
+        np.full((1, n), 0.006), mre, mim, iters=8, bounds=[(5e-4, 0.05)],
+        solve_scale=True)
+    gn_s = time.perf_counter() - t0
+    rms_k = float(np.sqrt(np.mean((theta[0] - k_true) ** 2)))
+    print(f"[kfit] examples/mt_prep_gre.py's exchange-rate fit at {n} "
+          f"voxels: 8 Gauss-Newton iterations ({gn_s:.3f} s), k RMSE "
+          f"{rms_k:.3e} /ms (assert < 2e-4; truth 3-9e-3, start 6e-3); the "
+          f"truth's Jacobian vs the twin on {QMT_TWIN} voxels: signal "
+          f"{twin[0]:.3e}, column {twin[1][0]:.3e}")
+    if not rms_k < 2e-4:
+        raise AssertionError(f"exchange-rate fit RMSE {rms_k}")
+    if not twin[0] <= TOL_KERNEL or not max(twin[1]) <= TOL_JAC_KERNEL:
+        raise AssertionError("the composite EPG-X Jacobian kernel disagrees "
+                             "with its twin on the exchange-rate fit")
+    _expect("kfit", (cuda_xcomposite.JAC_LAUNCHES,), (9,))
+    return dict(args=targs, kw=kw, launches=9, rms_k=rms_k, gn_s=gn_s,
+                twin=twin, cut=_jac_cut(torch, targs, XCOMP_JAC_AXES))
+
+
+def phase_x_numbers(torch, card, xg, xc, qmt, kfit):
+    """The four EPG-X kernels at their main-path shapes: the xgre kernel at
+    (a)'s (spoiled MT-GRE, 262,144 atoms), its Jacobian at (d)'s (48 TRs,
+    262,144 voxels, 2 variables), the composite EPG-X kernel at (c)'s
+    (131,072 atoms) and its Jacobian at (e)'s (65,536 voxels, 1
+    variable); returns the JSON entries (launches filled in by main)."""
+    from epgpy_torch.models import cuda_xcomposite as cx
+    from epgpy_torch.models import cuda_xgre as cg
+
+    def err(jac):
+        return lambda k, p: _x_errors(torch, k, p, jac)
+
+    entries = [
+        kernel_entry(torch, card, "xgre",
+                     "epgpy_tpu/models/pallas_xgre.py:48",
+                     (cg.xgre_dictionary_echoes, cg.xgre_dictionary_plain),
+                     xg["args"], xg["kw"], (), XGRE_ATOMS, 0, False,
+                     cut=_xgre_cut(torch, xg["args"]), errors=err(False)),
+        kernel_entry(torch, card, "xgre_jac",
+                     "epgpy_tpu/models/pallas_xgre.py:282",
+                     (cg.xgre_jacobian_echoes, cg.xgre_jacobian_plain),
+                     qmt["args"], qmt["kw"], (), QMT_NVOX, 0, True,
+                     cut=_jac_cut(torch, qmt["args"], XGRE_JAC_AXES),
+                     errors=err(True)),
+        kernel_entry(torch, card, "xcomposite",
+                     "epgpy_tpu/models/pallas_xcomposite.py:51",
+                     (cx.xcomposite_echoes, cx.xcomposite_plain),
+                     xc["args"], xc["kw"], (), xc["natoms"], 0, False,
+                     cut=_xcomp_cut(torch, xc["args"]), errors=err(False)),
+        kernel_entry(torch, card, "xcomposite_jac",
+                     "epgpy_tpu/models/pallas_xcomposite.py:292",
+                     (cx.xcomposite_jacobian_echoes,
+                      cx.xcomposite_jacobian_plain), kfit["args"],
+                     kfit["kw"], (), KFIT_NVOX, 0, True, cut=kfit["cut"],
+                     errors=err(True)),
+    ]
+    # the wrappers build the per-atom stage matrices (the primal) and
+    # pack the coefficient rows before the launch: split the device time
+    for e, run, key in zip(entries, (xg, qmt, xc, kfit),
+                           ("xgre_kernel", "xgre_jac_kernel", "xcomp_kernel",
+                            "xcomp_jac_kernel")):
+        fn = {"xgre": cg.xgre_dictionary_echoes,
+              "xgre_jac": cg.xgre_jacobian_echoes,
+              "xcomposite": cx.xcomposite_echoes,
+              "xcomposite_jac": cx.xcomposite_jacobian_echoes}[e["name"]]
+        split = _profile_split(torch, lambda: fn(*run["args"], **run["kw"]),
+                               key)
+        _print_split(f"{e['name']} wrapper call", e["name"], split, card)
+        own = _launch_ms(torch, lambda: fn(*run["args"], **run["kw"]),
+                         f"epg_{e['name']}")
+        print(f"[numbers] {e['name']} kernel alone (CUDA events around the "
+              f"launch): {own:.3f} ms of the wrapper's {e['ms']:.3f} ms "
+              f"({card})")
+    print(f"[numbers] simulate(density=) spoiled MT-GRE, {XGRE_ATOMS} atoms:"
+          f" first {xg['first_s']:.4f} s, memoized {xg['memo_s'] * 1e3:.3f} "
+          f"ms against the kernel's {entries[0]['ms']:.3f} ms ({card})")
+    print(f"[numbers] simulate(density=) MT-prepared, {xc['natoms']} atoms: "
+          f"first {xc['first_s']:.4f} s, memoized {xc['memo_s'] * 1e3:.3f} "
+          f"ms against the kernel's {entries[2]['ms']:.3f} ms ({card})")
+    print(f"[numbers] qMT fit, {QMT_NVOX} voxels: match "
+          f"{qmt['match_s']:.3f} s, {QMT_ITERS} Gauss-Newton iterations "
+          f"{qmt['gn_s']:.3f} s; k fit, {KFIT_NVOX} voxels: 8 iterations "
+          f"{kfit['gn_s']:.3f} s ({card})")
+    return entries
+
+
 def _memo_pair(torch, fn, reps=5):
     """Host-clock seconds of a memoized simulate() call fn(), with the
     preamble memo kept and with it cleared before every call (the matcher's
@@ -4071,6 +5243,11 @@ def main():
     print(f"[comp-cases] worst max|kernel - plain| = {worst_sig:.3e} (limit "
           f"{TOL_KERNEL}), worst column {worst_col:.3e} (limit "
           f"{TOL_JAC_KERNEL})")
+    for family in ("xgre", "xcomp"):
+        worst_sig, worst_col = _timed(phase_xcases, torch, family)
+        print(f"[{family}-cases] worst max|kernel - plain| = {worst_sig:.3e}"
+              f" (limit {TOL_KERNEL}), worst column {worst_col:.3e} (limit "
+              f"{TOL_JAC_KERNEL})")
     main_run = _timed(phase_main_path, torch, epg)
     full_run = _timed(phase_full_path, torch, main_run)
     jac_run = _timed(phase_jac_path, torch, epg)
@@ -4096,6 +5273,11 @@ def main():
     mpr = _timed(phase_mprage_mapping, torch, epg)
     cmrf = _timed(phase_cardiac_mapping, torch, epg, comp_run)
     del comp_run["dictionary"]
+    xg = _timed(phase_xgre_path, torch, epg)
+    xb = _timed(phase_xbssfp_path, torch, epg)
+    xc = _timed(phase_xcomp_path, torch, epg)
+    qmt = _timed(phase_qmt_fit, torch, epg)
+    kfit = _timed(phase_kfit, torch, epg)
     entry = _timed(phase_numbers, torch, epg, card, main_run)
     jac_entry = _timed(phase_jac_numbers, torch, epg, card, jac_run)
     hess_entry = _timed(phase_hess_numbers, torch, epg, card, hess_run)
@@ -4111,6 +5293,16 @@ def main():
                            mjac_run, full_run, b0, dwf, entry["bound_ms"])
     comp_entries = _timed(phase_comp_numbers, torch, card, comp_run,
                           cjac_run, mpr, cmrf)
+    x_entries = _timed(phase_x_numbers, torch, card, xg, xc, qmt, kfit)
+    # launches on the EPG-X paths: the spoiled train, its direct call and
+    # the two xgre goldens (a, f) and the balanced train (b); the qMT fit
+    # (d: truth, dictionary, one per iteration); the MT-prepared train, its
+    # direct call and the 7 MTR trains (c) and the xcomp_gre golden (f);
+    # the exchange-rate fit (e: truth, one per iteration)
+    for entry_, n in zip(x_entries, (
+            xg["launches"] + xb["launches"], qmt["launches"],
+            xc["launches"] + xg["comp_launches"], kfit["launches"])):
+        entry_["launches"] = n
     # launches on the composite paths: the cardiac MRF dictionary, its
     # direct call and the two golden trains (4n), the MPRAGE Jacobian (4o),
     # the two mappings (5i: dictionary, voxels and one Jacobian per
@@ -4198,7 +5390,8 @@ def main():
     print(card)
     print(json.dumps({"kernels": [entry, jac_entry, hess_entry, mse_entry,
                                   mse_jac_entry, design_entry]
-                      + ssfp_entries + megre_entries + comp_entries}))
+                      + ssfp_entries + megre_entries + comp_entries
+                      + x_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,6 +28,7 @@ from .statematrix import StateMatrix
 from .ops import (
     Operator, EmptyOperator, MultiOperator, DiffOperator, Wait,
     T, Tx, Ty, Phi, E, P, R, S, G, C, D, Probe, Adc, ADC, DFT, Imaging,
+    X, exchange_matrix,
 )
 from .diff import Jacobian, Hessian, PartialsPruner
 from .engine import (
@@ -39,7 +40,8 @@ from .models.ssfp import bssfp_sequence, dess_sequence, spgr_sequence
 __all__ = [
     "config", "StateMatrix", "Operator", "EmptyOperator", "MultiOperator",
     "DiffOperator", "Wait", "T", "Tx", "Ty", "Phi", "E", "P", "R", "S", "G",
-    "C", "D", "Probe", "Adc", "ADC", "DFT", "Imaging", "Jacobian", "Hessian",
+    "C", "D", "Probe", "Adc", "ADC", "DFT", "Imaging", "X", "exchange_matrix",
+    "Jacobian", "Hessian",
     "PartialsPruner", "simulate", "simulate_simple",
     "modify", "flatten_sequence", "getshape", "getnshift", "get_adc_times",
     "bssfp_sequence", "dess_sequence", "spgr_sequence",

@@ -57,6 +57,10 @@ _SIGNATURES = {
     + [_I] * 10 + [_P],
     "epg_composite": [_P] * 16 + [_I] * 12 + [_P],
     "epg_composite_jac": [_P] * 16 + [_I] * 13 + [_P],
+    "epg_xgre": [_P] * 10 + [_I] * 7 + [_P],
+    "epg_xgre_jac": [_P] * 10 + [_I] * 8 + [_P],
+    "epg_xcomposite": [_P] * 16 + [_I] * 12 + [_P],
+    "epg_xcomposite_jac": [_P] * 16 + [_I] * 14 + [_P],
 }
 
 #: the loaded library and what its build printed: {"lib", "path",

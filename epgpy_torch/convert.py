@@ -26,6 +26,16 @@ Both functions take plain numpy values, so this module needs no JAX:
   b1u, T1, T2, B1, df, nadc, shape, vars, b1_scale, diffusion -- None or
   btd, rdir and the scalar Dc), recognised by its ``adci``, is ready for
   ``run_composite_kernel`` and ``run_composite_jacobian``;
+* :func:`from_numpy_xparams` turns the JAX side's EPG-X values into this
+  package's: the dict of ``match_xgre`` (keys alpha, phi, B1, satf_re/im,
+  satz_re/im, dens, khiA/B, T1A/B, T2A/B, gA/B, tauA/B, shape, C,
+  balanced), ready for ``run_xgre_kernel``; the dict of
+  ``match_xcomposite`` (keys alpha, B1, phi, satf_re/im, satz_re/im,
+  adci, shift, aph, b1u, mia, mib, taus, dens, khi, T1, T2, g, nadc,
+  shape, C, has_sat), ready for ``run_xcomposite_kernel``; and a stage- or
+  table-matrix tuple ``(mr, mi, ml)`` of ``exchange_stage_mats`` /
+  ``xcomposite_stage_mat_tables`` (or a list of them: the tangents),
+  as tensors for the Jacobian entry points;
 * :func:`from_numpy_states` builds a :class:`StateMatrix` from the complex
   ``(*batch, K, 3)`` ladder of a JAX ``StateMatrix.states``.
 """
@@ -37,7 +47,7 @@ import numpy as np
 from . import fisp_dispatch
 from .statematrix import StateMatrix
 
-__all__ = ["from_numpy_params", "from_numpy_states"]
+__all__ = ["from_numpy_params", "from_numpy_xparams", "from_numpy_states"]
 
 _KEYS = ("FA", "phi", "TR", "TE", "T1", "T2", "B1", "TI", "inv_df", "vars",
          "b1_scale", "d_var", "demod", "shape", "df", "diffusion")
@@ -143,6 +153,56 @@ def _composite_params(params, device):
                             "rdir": np.asarray(d["rdir"], dtype=np.float64),
                             "Dc": float(np.asarray(d["Dc"]))}
     fisp_dispatch._comp_device_params(out, device)
+    return out
+
+
+_XGRE_KEYS = ("alpha", "phi", "B1", "satf_re", "satf_im", "satz_re",
+              "satz_im", "dens", "khiA", "khiB", "T1A", "T2A", "gA", "tauA",
+              "T1B", "T2B", "gB", "tauB", "shape", "C", "balanced")
+_XCOMP_KEYS = ("alpha", "B1", "phi", "satf_re", "satf_im", "satz_re",
+               "satz_im", "adci", "shift", "aph", "b1u", "mia", "mib", "taus",
+               "dens", "khi", "T1", "T2", "g", "nadc", "shape", "C",
+               "has_sat")
+
+
+def from_numpy_xparams(obj, device, dtype=None):
+    """A JAX EPG-X value -> this package's: a ``match_xgre`` or
+    ``match_xcomposite`` dict (recognised by ``khiA`` / ``taus``) becomes
+    a match dict of this package with its kernel tensors on `device`; an
+    ``(mr, mi, ml)`` tuple of stage matrices or tables becomes a tuple of
+    tensors on `device` (float32 unless `dtype`), and a list of such
+    tuples a list."""
+    import torch
+
+    if isinstance(obj, dict):
+        return _xparams(obj, device, dtype)
+    dtype = torch.float32 if dtype is None else dtype
+    if isinstance(obj, list):
+        return [from_numpy_xparams(o, device, dtype) for o in obj]
+    return tuple(torch.as_tensor(np.asarray(m, dtype=np.float64),
+                                 dtype=dtype, device=device) for m in obj)
+
+
+def _xparams(params, device, dtype):
+    keys = _XGRE_KEYS if "khiA" in params else _XCOMP_KEYS
+    out = {}
+    for k in keys:
+        v = params.get(k)
+        if isinstance(v, (bool, int, float)) or v is None:
+            out[k] = v
+        elif k == "shape":
+            out[k] = tuple(int(d) for d in v)
+        else:
+            a = np.asarray(v)
+            out[k] = float(a) if a.ndim == 0 else a
+    out["C"] = int(out["C"])
+    if "khiA" in params:
+        out["balanced"] = bool(out["balanced"])
+        fisp_dispatch._xgre_device_params(out, device, dtype)
+    else:
+        out["nadc"] = int(out["nadc"])
+        out["has_sat"] = bool(out["has_sat"])
+        fisp_dispatch._xcomp_device_params(out, device, dtype)
     return out
 
 

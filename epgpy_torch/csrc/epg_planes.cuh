@@ -256,6 +256,7 @@ struct StageShift {
     FoldedShift up;
     DownShift down;
 
+    StageShift() = default;   // arrays of them (the EPG-X kernels)
     __device__ __forceinline__ StageShift(const PlaneSet& s, int d)
         : dir(d), up{s, 0.0f, 0.0f}, down{s, 0.0f, 0.0f} {}
 
@@ -363,6 +364,129 @@ __device__ __forceinline__ void att_rows(const epg::PlaneSet& a, float bT,
         a.at(1, k) = expf(-fB * Dc);
         a.at(2, k) = expf(-fZ * Dc);
     }
+}
+
+// -- EPG-X: the C x C exchange mix of C compartments' plane sets --
+
+// One exchange stage's coefficients for C compartments, row-major (i, j):
+// the transverse matrix mT (re, im; it acts on A and B alike, both F+
+// states) and the real longitudinal matrix mL.
+template <int C>
+struct XMix {
+    float r[C * C], i[C * C], l[C * C];
+};
+
+// Load an XMix from C * C-row blocks of a (rows, B) array: row (part *
+// C * C + i * C + j) of `rows`, column b (part 0/1/2 = mT re / im / mL).
+template <int C>
+__device__ __forceinline__ XMix<C> load_xmix(const float* rows, int B,
+                                             int b) {
+    XMix<C> m;
+#pragma unroll
+    for (int q = 0; q < C * C; ++q) {
+        m.r[q] = rows[static_cast<size_t>(q) * B + b];
+        m.i[q] = rows[static_cast<size_t>(C * C + q) * B + b];
+        m.l[q] = rows[static_cast<size_t>(2 * C * C + q) * B + b];
+    }
+    return m;
+}
+
+// The mix of row k of C plane sets (_mix_planes of pallas_common.py:74-99;
+// mix_planes of planes.py): A and B with mT, Z with mL around the
+// equilibrium, which sits on the k = 0 Z row (k0): dev = Z - dens there,
+// Z' = mL dev + dens.  x and y must not alias.
+template <int C>
+__device__ __forceinline__ void mix_rows(const XMix<C>& m,
+                                         const float (&dens)[C], bool k0,
+                                         const Row (&x)[C], Row (&y)[C]) {
+    float dev[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) dev[j] = k0 ? x[j].ZR - dens[j] : x[j].ZR;
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+        Row o;
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+            const int q = i * C + j;
+            float ar, ai, br, bi;
+            cmul(m.r[q], m.i[q], x[j].AR, x[j].AI, ar, ai);
+            cmul(m.r[q], m.i[q], x[j].BR, x[j].BI, br, bi);
+            const float zr = m.l[q] * dev[j];
+            const float zi = m.l[q] * x[j].ZI;
+            if (j == 0) {
+                o = Row{ar, ai, br, bi, zr, zi};
+            } else {
+                o.AR += ar;
+                o.AI += ai;
+                o.BR += br;
+                o.BI += bi;
+                o.ZR += zr;
+                o.ZI += zi;
+            }
+        }
+        if (k0) o.ZR += dens[i];
+        y[i] = o;
+    }
+}
+
+// The tangent of mix_rows (pallas_xgre.py:324-350; mix_tangent of
+// planes.py): t'_i = sum_j [M_ij (t_j - de_j) + dM_ij (x_j - e_j)] + de_i,
+// with x the primal rows from BEFORE the mix, dm and ddens the tangents of
+// the coefficients and the densities.  t and y must not alias.
+template <int C>
+__device__ __forceinline__ void mix_tangent_rows(
+    const XMix<C>& m, const XMix<C>& dm, const float (&dens)[C],
+    const float (&ddens)[C], bool k0, const Row (&t)[C], const Row (&x)[C],
+    Row (&y)[C]) {
+    float xdev[C], tdev[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+        xdev[j] = k0 ? x[j].ZR - dens[j] : x[j].ZR;
+        tdev[j] = k0 ? t[j].ZR - ddens[j] : t[j].ZR;
+    }
+#pragma unroll
+    for (int i = 0; i < C; ++i) {
+        Row o;
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+            const int q = i * C + j;
+            float ar, ai, dar, dai, br, bi, dbr, dbi;
+            cmul(m.r[q], m.i[q], t[j].AR, t[j].AI, ar, ai);
+            cmul(dm.r[q], dm.i[q], x[j].AR, x[j].AI, dar, dai);
+            cmul(m.r[q], m.i[q], t[j].BR, t[j].BI, br, bi);
+            cmul(dm.r[q], dm.i[q], x[j].BR, x[j].BI, dbr, dbi);
+            const float zr = m.l[q] * tdev[j] + dm.l[q] * xdev[j];
+            const float zi = m.l[q] * t[j].ZI + dm.l[q] * x[j].ZI;
+            ar = ar + dar;
+            ai = ai + dai;
+            br = br + dbr;
+            bi = bi + dbi;
+            if (j == 0) {
+                o = Row{ar, ai, br, bi, zr, zi};
+            } else {
+                o.AR += ar;
+                o.AI += ai;
+                o.BR += br;
+                o.BI += bi;
+                o.ZR += zr;
+                o.ZI += zi;
+            }
+        }
+        if (k0) o.ZR += ddens[i];
+        y[i] = o;
+    }
+}
+
+// The EPG-X saturation of one row before the pulse: A and B (F+ states)
+// times the complex factor (fr, fi) = conj(e^{-rT}), Z times (zr, zi) =
+// e^{-rL} (pallas_xgre.py:77-84).
+__device__ __forceinline__ Row saturate(const Row& x, float fr, float fi,
+                                        float zr, float zi) {
+    Row o;
+    cmul(fr, fi, x.AR, x.AI, o.AR, o.AI);
+    cmul(fr, fi, x.BR, x.BI, o.BR, o.BI);
+    cmul(zr, zi, x.ZR, x.ZI, o.ZR, o.ZI);
+    return o;
 }
 
 }  // namespace epg

@@ -4,8 +4,9 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
 ``simulate()`` has two routes:
 
 * **the kernel dispatch**: a family table (JAX ``engine.py:874-940``)
-  tries FISP, CPMG, bSSFP, DESS, ME-GRE, DW-FISP, then composite GRE; the
-  first match wins.  An exact FISP train (fisp_dispatch.match_fisp) runs
+  tries FISP, CPMG, bSSFP, DESS, ME-GRE, DW-FISP, EPG-X GRE, composite
+  EPG-X, then composite GRE; the first match wins.  An exact FISP train
+  (fisp_dispatch.match_fisp) runs
   as one fused CUDA kernel (models/cuda_fisp.py), a CPMG / multi-spin-echo
   train, DW-TSE included (fisp_dispatch.match_mse), as the CPMG kernel
   (models/cuda_mse.py), a balanced SSFP train (match_bssfp) as the k = 0
@@ -16,6 +17,11 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
   attenuation, and any other stage train ``[T?, E*, Adc?, E*, S(+-k)?,
   D?]`` -- MPRAGE, prepared cardiac MRF, saturation recovery
   (match_composite) -- as the composite kernel (models/cuda_composite.py).
+  With the ``density`` option only the EPG-X families take part: an
+  exchange / MT gradient-echo train over C compartments, spoiled or
+  balanced (match_xgre), runs as the EPG-X kernel (models/cuda_xgre.py),
+  a prepared multi-compartment stage train (match_xcomposite) as the
+  composite EPG-X kernel (models/cuda_xcomposite.py).
   They engage only without ``probe``, and
   so do their Jacobian probes
   (``probe=[ADC, Jacobian([...])]`` on a train whose E ops track
@@ -184,17 +190,33 @@ def _kernel_gate(fisp_kernel, what):
     return True
 
 
-def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp):
+def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp, shape,
+                     density):
     """The family table (engine.py:874-940 of the JAX package): FISP,
-    CPMG, bSSFP, DESS, ME-GRE, DW-FISP, composite GRE; the first match
-    wins, each family behind its own shared-memory gate (none for bSSFP:
-    its state is three registers).
+    CPMG, bSSFP, DESS, ME-GRE, DW-FISP, EPG-X GRE, composite EPG-X,
+    composite GRE; the first match wins, each family behind its own
+    shared-memory gate (none for bSSFP: its state is three registers).
+    With `density` set only the EPG-X families take part (the others
+    assume a unit equilibrium).
     Returns the kernel's echo train (N, *batch), or None (logged)."""
     from . import fisp_dispatch as fd
     from .models import cuda_composite
 
     if not _kernel_gate(fisp_kernel, "fused kernels"):
         return None
+    # the EPG-X families: 6 planes per compartment (a balanced train runs
+    # at nstate 0); the JAX gates' output windows (engine.py:910-922) do
+    # not apply, the echoes go to HBM
+    xfamilies = [
+        (lambda seq: fd.match_xgre(seq, shape, density),
+         lambda p: fd.xgre_kernel_fits(p, ncap), fd.run_xgre_kernel,
+         "EPG-X GRE", "xgre"),
+        (lambda seq: fd.match_xcomposite(seq, shape, density),
+         lambda p: fd.xcomposite_kernel_fits(p, ncap),
+         fd.run_xcomposite_kernel, "EPG-X composite", "xcomp"),
+    ]
+    if density is not None:
+        return _run_families(xfamilies, sequence, ncap, disp)
     families = [
         (fd.match_fisp, lambda p: fd.kernel_fits(ncap), fd.run_fisp_kernel,
          "FISP", "fisp"),
@@ -214,8 +236,7 @@ def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp):
         (lambda seq: fd.match_dwfisp(seq, kvalue),
          lambda p: fd.kernel_fits(ncap), fd.run_dwfisp_kernel, "DW-FISP",
          "dw"),
-        # the EPG-X families (xgre, then xcomp) go here, before composite,
-        # as in the JAX table (engine.py:884-892), once they are ported.
+    ] + xfamilies + [
         # Composite stage trains come last: the exact-pattern families
         # above keep their faster kernels.  Its gate counts the 6 planes
         # only: the JAX gate folds its VMEM output windows in
@@ -225,6 +246,14 @@ def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp):
          fd.run_composite_kernel,
          "composite GRE", "comp"),
     ]
+    return _run_families(families, sequence, ncap, disp)
+
+
+def _run_families(families, sequence, ncap, disp):
+    """The first family of `families` whose matcher takes the train and
+    whose gate passes runs it; None (logged) when none does."""
+    from . import fisp_dispatch as fd
+
     for matcher, fits, runner, family, tag in families:
         params = matcher(sequence)
         if params is None:
@@ -235,7 +264,8 @@ def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp):
             continue
         if disp:
             LOGGER.info("simulate: %s train -> fused CUDA kernel (%d pulses, "
-                        "nstate=%d)", family, len(params["FA"]), ncap)
+                        "nstate=%d)", family,
+                        len(params.get("FA", params.get("alpha", ()))), ncap)
         fd.count_dispatch(tag)
         return runner(params, ncap)
     return None
@@ -325,11 +355,11 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
          lambda p, s: fisp_dispatch.jac_kernel_fits(
              ncap, p["d_var"] is not None),
          fisp_dispatch.run_dwfisp_jacobian, "DW-FISP", "jac:dw"),
-        # the EPG-X families go here, before composite (engine.py:
-        # 1042-1074), once they are ported.  Composite comes last; its
-        # gate counts 6 (1 + ng) planes for the ng tangent groups the
-        # probes need -- not the JAX gate's output windows
-        # (engine.py:1086-1095): the outputs go to HBM
+        # composite comes last; its gate counts 6 (1 + ng) planes for the
+        # ng tangent groups the probes need -- not the JAX gate's output
+        # windows (engine.py:1086-1095): the outputs go to HBM.  The EPG-X
+        # trains have no Jacobian dispatch (engine.py:1047-1080): with the
+        # density option they take the general diff path, as in JAX
         (lambda seq: fisp_dispatch.match_composite(seq, kvalue),
          lambda p, s: cuda_composite.composite_jac_kernel_fits(
              ncap, len(fisp_dispatch.composite_jac_groups(s))),
@@ -359,14 +389,14 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
         fisp_dispatch.count_dispatch(tag)
         return runner(params, ncap, specs)
     LOGGER.info("simulate: Jacobian kernels not used: not a FISP, CPMG, "
-                "bSSFP, DESS, ME-GRE, DW-FISP or composite-GRE train (the "
-                "EPG-X families are not ported)")
+                "bSSFP, DESS, ME-GRE, DW-FISP or composite-GRE train")
     return None
 
 
 def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,
              disp: bool = False, max_nstate=None, fisp_kernel="auto",
-             probe=None, jacobian_chunk=None, kvalue=1.0):
+             probe=None, jacobian_chunk=None, kvalue=1.0, density=None,
+             init=None):
     """Simulate an operator sequence; returns the ADC values.
 
     API of ``epgpy_tpu.simulate`` (reference epgpy/functions.py:50-170)
@@ -381,6 +411,11 @@ def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,
     ``jacobian_chunk=N`` pushes N tangent columns at a time on the
     general diff path (N x N Hessian blocks; memory bound).  ``kvalue``
     (rad/m per ladder index) sets the physical wavenumbers of D ops.
+    ``density`` sets the equilibrium (the per-compartment densities of
+    EPG-X trains, whose X ops mix ``states - equilibrium``); with it set
+    only the EPG-X kernel families take part.  ``init`` is the initial
+    state (a complex (..., K, 3) ladder, default ``[0, 0, 1]``); with it
+    set no kernel takes the train.
     """
     from . import diff
 
@@ -398,37 +433,39 @@ def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,
     ncap = _capacity(nshift, max_nstate)
     LOGGER.info("simulate: %d ops, nshift=%d, shape=%s", len(sequence),
                 nshift, shape)
-    use_kernel = fisp_kernel not in (False, None)
+    use_kernel = fisp_kernel not in (False, None) and init is None
+
+    def initial_state():
+        return StateMatrix([0, 0, 1] if init is None else init,
+                           density=1.0 if density is None else density,
+                           nstate=ncap, kvalue=kvalue).broadcast(shape)
 
     values = None
     if probes is not None and any(isinstance(pb, (diff.Jacobian,
                                                   diff.Hessian))
                                   for pb in probes):
-        if use_kernel:
+        if use_kernel and density is None:
             values = _diff_dispatch(sequence, probes, ncap, fisp_kernel,
                                     kvalue, disp)
         if values is None:
             if disp:
                 LOGGER.info("simulate: general diff path (%d ops, "
                             "nstate=%d)", len(sequence), ncap)
-            sm = StateMatrix([0, 0, 1], nstate=ncap,
-                             kvalue=kvalue).broadcast(shape)
-            values = diff.simulate_diff(sequence, probes, sm,
+            values = diff.simulate_diff(sequence, probes, initial_state(),
                                         max_nstate=max_nstate,
                                         jacobian_chunk=jacobian_chunk)
     else:
         if use_kernel and probes is None:
             values = _primal_dispatch(sequence, ncap, fisp_kernel, kvalue,
-                                      disp)
+                                      disp, shape, density)
             if values is not None:
                 values = (values,)
         if values is None:
             if disp:
                 LOGGER.info("simulate: general path (%d ops, nstate=%d)",
                             len(sequence), ncap)
-            sm = StateMatrix([0, 0, 1], nstate=ncap,
-                             kvalue=kvalue).broadcast(shape)
-            acquired, _ = simulate_simple(sm, sequence, probes=probes,
+            acquired, _ = simulate_simple(initial_state(), sequence,
+                                          probes=probes,
                                           max_nstate=max_nstate)
             values = tuple(torch.stack([v[i] for v in acquired])
                            for i in range(len(acquired[0])))

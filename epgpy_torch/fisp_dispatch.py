@@ -62,8 +62,14 @@ any ``[T?, E*, Adc?, E*, S(+-k)?, D?]`` stage train -- MPRAGE, cardiac MRF
 with IR and T2prep preps, saturation recovery -- into per-stage tables,
 run by models/cuda_composite.py (:func:`run_composite_kernel`,
 :func:`run_composite_jacobian` with only the tangent groups the probes
-need).  The EPG-X families of the JAX dispatcher are not ported yet
-(ROADMAP).
+need).
+
+The EPG-X families (``:2166-2884``): :func:`match_xgre` recognizes the
+exchange / MT gradient-echo train ``[R?, T, X?, Adc, X?, S(1)?] * N`` over
+C compartments (spoiled or balanced), :func:`match_xcomposite` any
+prepared stage train ``[R?, T?, X*, Adc?, X*, S(+-1)?]`` with one exchange
+generator; both read the ``density`` option, and their runners drive
+models/cuda_xgre.py and models/cuda_xcomposite.py.
 """
 
 from __future__ import annotations
@@ -75,7 +81,8 @@ import torch
 
 from . import common, config
 from .models import (cuda_bssfp, cuda_composite, cuda_dess, cuda_fisp,
-                     cuda_hessian, cuda_megre, cuda_mse)
+                     cuda_hessian, cuda_megre, cuda_mse, cuda_xcomposite,
+                     cuda_xgre)
 
 LOGGER = logging.getLogger(__name__)
 
@@ -90,6 +97,9 @@ __all__ = ["match_fisp", "run_fisp_kernel", "device_params", "kernel_fits",
            "run_megre_jacobian", "match_dwfisp", "run_dwfisp_kernel",
            "run_dwfisp_jacobian", "match_composite", "run_composite_kernel",
            "run_composite_jacobian", "composite_jac_groups",
+           "match_xgre", "run_xgre_kernel", "xgre_kernel_fits",
+           "match_xcomposite", "run_xcomposite_kernel",
+           "xcomposite_kernel_fits",
            "count_dispatch", "DISPATCH_COUNTS", "clear_cache"]
 
 #: per-sequence match memo keyed on operator identities; entries pin the
@@ -2132,3 +2142,649 @@ def run_composite_jacobian(params, nstate, specs):
             for j, g in enumerate(groups)}
     return _assemble_jac_outputs(re, im, dre, dim, specs,
                                  tuple(params["shape"]), cols)
+
+
+# ---------------------------------------------------------------------------
+# EPG-X GRE dispatch (``:2170-2504``): exchange / MT trains -> cuda_xgre
+# ---------------------------------------------------------------------------
+
+
+def match_xgre(sequence, shape, density=None):
+    """Match EPG-X GRE trains (``epgpy_tpu/fisp_dispatch.py:2170``).
+
+    Pattern (per TR, the same structure every TR):
+
+        [ R(sat)? , T , X? , Adc , X? , S(1)? ]       (at least one X)
+
+    The trailing S(1) is in EVERY block (spoiled GRE) or in NONE (the
+    balanced family, bSSFP-MT: the kernel runs shiftless at nstate 0).
+    ``T`` carries per-compartment flips on the leading (axis-0) compartment
+    batch -- scalars per (TR, compartment), or a rank-1 ``outer(alpha_ic,
+    B1)`` per-atom batch; the X stages are the SAME op instance every TR,
+    with host scalar tau and a host (C, C) khi (T1/T2/g may be tensors:
+    they pass through to the kernel); the saturation ``R`` has raw rates
+    and no recovery.  `shape` is the engine's broadcast batch shape
+    (compartments lead), `density` the simulate() option: a real host
+    vector each stage's kinetic matrix conserves.  Returns the JAX
+    matcher's dict (alpha, phi, B1, satf_re/im, satz_re/im, dens, khiA/B,
+    T1A/B, T2A/B, gA/B, tauA/B, shape, C, balanced) or None, logging the
+    reason at INFO; memoized on the operator identities, shape and
+    density."""
+    if len(sequence) < 8:
+        params, reason = None, f"{len(sequence)} ops: fewer than 8"
+    else:
+        dkey = _density_key(density)
+        if dkey is False:
+            params, reason = None, "density is not a host vector"
+        else:
+            key = ("xgre", tuple(shape), dkey) + tuple(id(op)
+                                                       for op in sequence)
+            params, reason = _memoized(
+                key, sequence,
+                lambda: _match_xgre_impl(sequence, tuple(shape), density))
+    if params is None:
+        LOGGER.info("match_xgre: not an EPG-X GRE train: %s", reason)
+    return params
+
+
+def _density_key(density):
+    """The memo key of a density option: None, a tuple of its values, or
+    False when it is not a host vector."""
+    if density is None:
+        return None
+    if _is_device(density):
+        return False
+    try:
+        return tuple(np.ravel(np.asarray(_host(density))).tolist())
+    except (TypeError, ValueError):
+        return False
+
+
+def _comp_vec(x, C):
+    """Host per-compartment (C,) float vector from a scalar, (C,) or
+    (C, 1, ...) value (the compartment axis leads), else None."""
+    v = _host_nd(x)
+    if v is None or any(d != 1 for d in v.shape[1:]):
+        return None
+    v = v.reshape(-1)
+    if v.shape[0] == 1:
+        return np.full((C,), v[0])
+    return v if v.shape[0] == C else None
+
+
+def _comp_cvec(x, C):
+    """Host complex (C,) vector of an R op's rate (None = 0), else
+    None."""
+    if x is None:
+        return np.zeros(C, complex)
+    if _is_device(x):
+        return None
+    try:
+        v = np.atleast_1d(np.asarray(_host(x), dtype=complex))
+    except (TypeError, ValueError):
+        return None
+    if any(d != 1 for d in v.shape[1:]):
+        return None
+    v = v.reshape(-1)
+    if v.shape[0] == 1:
+        return np.full((C,), v[0])
+    return v if v.shape[0] == C else None
+
+
+def _xgre_stage_ok(x, C):
+    """One X stage op the kernels take: compartments on axis 0, no
+    derivative specs, a host scalar tau, a (C, C) khi, T1/T2/g (host or
+    tensors without grad) with a leading axis of 1 or C."""
+    if getattr(x, "axis", None) != 0 or not _no_diff(x):
+        return False
+    if _scalar(x.tau) is None or tuple(np.shape(x.khi)) != (C, C):
+        return False
+    for leaf in (x.T1, x.T2, x.g):
+        if leaf is None:
+            continue
+        if isinstance(leaf, torch.Tensor) and leaf.requires_grad:
+            return False
+        s = tuple(np.shape(leaf))
+        if s and s[0] not in (1, C):
+            return False
+    return True
+
+
+def _x_density(density, C, khis):
+    """(dens, None): the (C,) host densities (ones without the option) if
+    every kinetic matrix of `khis` conserves them, else (None, reason)."""
+    if density is None:
+        dens = np.ones(C)
+    else:
+        d = np.asarray(_host(density))
+        if np.iscomplexobj(d):
+            if not np.allclose(d.imag, 0):
+                return None, "complex density"
+            d = d.real
+        dens = _comp_vec(d.astype(float), C)
+        if dens is None:
+            return None, f"density is not a ({C},) vector"
+    for khi in khis:
+        if not np.allclose(khi @ dens, 0, atol=1e-8):
+            return None, "a kinetic matrix does not conserve the density"
+    return dens, None
+
+
+def _sat_factors(sat, C):
+    """(satf, satz): the F+ factor conj(e^{-rT}) and the Z factor
+    e^{-rL} of a saturation R op (ones without one), or None."""
+    if sat is None:
+        return np.ones(C, complex), np.ones(C, complex)
+    if not _no_diff(sat) or getattr(sat, "axes", None) is not None \
+            or sat.r0 is not None:
+        return None
+    rT, rL = _comp_cvec(sat.rT, C), _comp_cvec(sat.rL, C)
+    if rT is None or rL is None:
+        return None
+    return np.conj(np.exp(-rT)), np.exp(-rL)
+
+
+def _comp_flips(op, C):
+    """(alpha, phi) of a T op: alpha (C, *rest) host flips (a scalar or
+    size-1 leading axis broadcasts over the compartments), phi a (C,)
+    host vector; None if not so."""
+    if not _no_diff(op) or getattr(op, "axes", None) is not None:
+        return None
+    a, p = _host_nd(op.alpha), _comp_vec(op.phi, C)
+    if a is None or p is None:
+        return None
+    if a.ndim == 0 or a.size == 1:
+        a = np.full((C,), float(a.reshape(-1)[0]))
+    if a.shape[0] == 1:
+        a = np.broadcast_to(a, (C,) + a.shape[1:])
+    if a.shape[0] != C:
+        return None
+    return a, p
+
+
+def _match_xgre_impl(sequence, shape, density):
+    """(params, None) for an EPG-X GRE train, else (None, reason)."""
+    from .ops.evolution import R
+    from .ops.exchange import X
+    from .ops.probe import Adc
+    from .ops.shift import S
+    from .ops.transition import T
+
+    n = len(sequence)
+
+    def parse_block(i):
+        sat = x1 = x2 = s = None
+        j = i
+        if j < n and type(sequence[j]) is R:
+            sat, j = sequence[j], j + 1
+        if j >= n or type(sequence[j]) is not T:
+            return None
+        t, j = sequence[j], j + 1
+        if j < n and type(sequence[j]) is X:
+            x1, j = sequence[j], j + 1
+        if j >= n or type(sequence[j]) is not Adc:
+            return None
+        adc, j = sequence[j], j + 1
+        if j < n and type(sequence[j]) is X:
+            x2, j = sequence[j], j + 1
+        if j < n and type(sequence[j]) is S:
+            s, j = sequence[j], j + 1
+        return (sat, t, x1, adc, x2, s), j
+
+    blocks, i = [], 0
+    while i < n:
+        blk = parse_block(i)
+        if blk is None:
+            return None, (f"op {i}: not a block [R?, T, X?, Adc, X?, "
+                          f"S(1)?]")
+        blocks.append(blk[0])
+        i = blk[1]
+    if len(blocks) < 2:
+        return None, "fewer than 2 blocks"
+    sat0, _, x1_0, _, x2_0, s0 = blocks[0]
+    xop = x1_0 if x1_0 is not None else x2_0
+    if xop is None:
+        return None, "no X stage"
+    for sat, _, x1, adc, x2, s in blocks:
+        if ((sat is None) != (sat0 is None) or x1 is not x1_0
+                or x2 is not x2_0 or (s is None) != (s0 is None)):
+            return None, ("blocks differ in structure or in their X "
+                          "instances")
+        if adc.attr != "F0" or adc.phase is not None or not _no_diff(adc):
+            return None, "a readout is not a plain F0 Adc"
+        if s is not None and (s.k != 1 or not _no_diff(s)):
+            return None, "a shift is not S(1)"
+    C = int(np.shape(xop.khi)[-1])
+    if len(shape) < 1 or shape[0] != C:
+        return None, f"batch shape {shape} does not lead with {C} pools"
+    for x in (x1_0, x2_0):
+        if x is not None and not _xgre_stage_ok(x, C):
+            return None, (f"{x.name}: not axis 0, tracked, or tau / khi / "
+                          f"T1 / T2 / g not of the kernel's form")
+    khis = {tag: (np.zeros((C, C)) if x is None
+                  else np.asarray(x.khi, dtype=float))
+            for tag, x in (("A", x1_0), ("B", x2_0))}
+    dens, reason = _x_density(density, C, [khis[t] for t in "AB"
+                                           if khis[t].any()])
+    if dens is None:
+        return None, reason
+
+    ahs, phis, satf, satz = [], [], [], []
+    for sat, t, _, _, _, _ in blocks:
+        fl = _comp_flips(t, C)
+        sf = _sat_factors(sat, C)
+        if fl is None or sf is None:
+            return None, (f"{t.name}: flips or phases not host values, or "
+                          f"a saturation with recovery or tracking")
+        ahs.append(fl[0])
+        phis.append(fl[1])
+        satf.append(sf[0])
+        satz.append(sf[1])
+    if all(all(d == 1 for d in a.shape[1:]) for a in ahs):
+        alphas, B1 = np.stack([a.reshape(C) for a in ahs]), None
+    else:
+        fab = _rank1_factor([np.atleast_1d(a[c]) for a in ahs
+                             for c in range(C)])
+        if fab is None:
+            return None, "per-atom flips are not rank-1 outer(alpha, B1)"
+        coefs, B1 = fab
+        alphas = coefs.reshape(len(ahs), C)
+        if not common.broadcastable(B1.shape, tuple(shape[1:])):
+            return None, "the B1 batch does not broadcast into the atoms"
+    satf, satz = np.asarray(satf), np.asarray(satz)
+
+    def leaf(x, name):
+        return None if x is None else getattr(x, name)
+
+    return {
+        "alpha": alphas, "phi": np.asarray(phis), "B1": B1,
+        "satf_re": satf.real, "satf_im": satf.imag,
+        "satz_re": satz.real, "satz_im": satz.imag,
+        "dens": dens, "khiA": khis["A"], "khiB": khis["B"],
+        "T1A": leaf(x1_0, "T1"), "T2A": leaf(x1_0, "T2"),
+        "gA": leaf(x1_0, "g"),
+        "tauA": 0.0 if x1_0 is None else _scalar(x1_0.tau),
+        "T1B": leaf(x2_0, "T1"), "T2B": leaf(x2_0, "T2"),
+        "gB": leaf(x2_0, "g"),
+        "tauB": 0.0 if x2_0 is None else _scalar(x2_0.tau),
+        "shape": tuple(shape), "C": C, "balanced": s0 is None,
+    }, None
+
+
+def _comp_atoms(x, bshape, default, device, dtype):
+    """(C, B) tensor of a per-compartment parameter: append-rule
+    right-pad to the batch shape, broadcast, flatten the atoms."""
+    x = default if x is None else x
+    if isinstance(x, torch.Tensor):
+        x = x.to(device=device, dtype=dtype)
+    else:
+        x = torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dtype,
+                            device=device)
+    if x.ndim == 0:
+        x = x.reshape(1)
+    x = x.reshape(tuple(x.shape) + (1,) * (len(bshape) - x.ndim))
+    return torch.broadcast_to(x, bshape).reshape(bshape[0],
+                                                 -1).contiguous()
+
+
+def _atom_b1(B1, bshape, device, dtype):
+    """The (B,) flip scale of a rank-1 flip batch, or None."""
+    if B1 is None:
+        return None
+    rest = tuple(bshape[1:])
+    b1 = np.asarray(B1, dtype=np.float64)
+    b1 = np.broadcast_to(b1.reshape(b1.shape + (1,) * (len(rest) - b1.ndim)),
+                         rest).reshape(-1)
+    return torch.as_tensor(np.array(b1), dtype=dtype,
+                           device=device)
+
+
+def _x_train(params, device, dtype):
+    """The (N, C) per-TR tables of an EPG-X match dict as tensors."""
+    return {k: torch.as_tensor(np.asarray(params[k], np.float64),
+                               dtype=dtype, device=device).contiguous()
+            for k in ("alpha", "phi", "satf_re", "satf_im", "satz_re",
+                      "satz_im", "dens")}
+
+
+def _xgre_device_params(params, device=None, dtype=None):
+    """The xgre kernels' tensors of a match dict, cached on it: the train
+    tables, the B1 row and the two stages (khi, T1, T2, g as (C, B), tau);
+    an absent stage is the identity (khi = 0, tau = 0)."""
+    def build(device, dtype):
+        bshape = tuple(params["shape"])
+        dev = _x_train(params, device, dtype)
+        dev["B1"] = _atom_b1(params.get("B1"), bshape, device, dtype)
+        for s in ("A", "B"):
+            dev["stage" + s] = (
+                params["khi" + s],
+                _comp_atoms(params["T1" + s], bshape, np.inf, device, dtype),
+                _comp_atoms(params["T2" + s], bshape, np.inf, device, dtype),
+                _comp_atoms(params["g" + s], bshape, 0.0, device, dtype),
+                float(params["tau" + s]))
+        return dev
+
+    return _cached_device(params, device, build,
+                          config.real_dtype() if dtype is None else dtype)
+
+
+def xgre_kernel_fits(params, nstate) -> bool:
+    """Whether an xgre match's 6 C planes fit at 32 threads (a balanced
+    train runs at nstate 0 and always does)."""
+    ns = 0 if params["balanced"] else max(int(nstate), 1)
+    return cuda_xgre.xgre_kernel_fits(ns, params["C"])
+
+
+def run_xgre_kernel(params, nstate):
+    """Run the EPG-X GRE kernel on a match dict (``:2491``); returns the
+    echoes as a complex tensor in the engine's layout, (N, C, *rest)."""
+    d = _xgre_device_params(params)
+    balanced = bool(params["balanced"])
+    re, im = cuda_xgre.xgre_dictionary_echoes(
+        d["alpha"], d["phi"], d["satf_re"], d["satf_im"], d["satz_re"],
+        d["satz_im"], d["dens"], d["stageA"], d["stageB"], d["B1"],
+        nstate=0 if balanced else max(int(nstate), 1), shift=not balanced)
+    return torch.complex(re, im).reshape((re.shape[0],)
+                                         + tuple(params["shape"]))
+
+
+# ---------------------------------------------------------------------------
+# Composite EPG-X dispatch (``:2507-2884``): prepared stage trains ->
+# cuda_xcomposite
+# ---------------------------------------------------------------------------
+
+
+def match_xcomposite(sequence, shape, density=None):
+    """Match composite EPG-X stage trains (``:2507``):
+
+        stage = [R(sat)?, T(alpha_c, phi_c)?, X(tau)*, Adc?, X(tau)*,
+                 S(+-1)?]
+
+    -- the prepared and segmented multi-compartment schedules
+    :func:`match_xgre` rejects (MT-prepared GRE with saturation blocks and
+    recovery delays, IR-MT, saturation-recovery MT).  Consecutive X ops
+    accumulate their taus; every X carries the same khi/T1/T2/g (one
+    generator, so X(t1) X(t2) = X(t1 + t2)), and the distinct accumulated
+    taus (at most 16) become a stage-matrix table indexed per stage.  Flips
+    are host per-compartment values, vector flips a rank-1 ``outer(alpha_c,
+    B1)`` with scalar flips adiabatic (b1u = 0); saturation by raw-rate
+    ``R`` ops without recovery; F0 readouts with an optional host ADC
+    phase; shifts S(+-k), |k| <= 8.  Returns the JAX matcher's dict
+    (alpha, B1, phi, satf_re/im, satz_re/im, adci, shift, aph, b1u, mia,
+    mib, taus, dens, khi, T1, T2, g, nadc, shape, C, has_sat) or None,
+    logging the reason; memoized like :func:`match_xgre`."""
+    if len(sequence) < 6:
+        params, reason = None, f"{len(sequence)} ops: fewer than 6"
+    else:
+        dkey = _density_key(density)
+        if dkey is False:
+            params, reason = None, "density is not a host vector"
+        else:
+            key = ("xcomp", tuple(shape), dkey) + tuple(id(op)
+                                                        for op in sequence)
+            params, reason = _memoized(
+                key, sequence, lambda: _match_xcomposite_impl(
+                    sequence, tuple(shape), density))
+    if params is None:
+        LOGGER.info("match_xcomposite: not a composite EPG-X train: %s",
+                    reason)
+    return params
+
+
+def _x_generator(xops):
+    """The first X op if every X op shares its generator (khi, T1, T2, g
+    equal in value; at most 8 distinct leaf groups) and is a kernel stage,
+    else None."""
+    x0 = xops[0]
+    if not _xgre_stage_ok(x0, int(np.shape(x0.khi)[-1])):
+        return None
+    groups = {}
+    for x in xops:
+        if not _no_diff(x) or _scalar(x.tau) is None:
+            return None
+        groups.setdefault((id(x.khi), id(x.T1), id(x.T2), id(x.g)), x)
+    if len(groups) > 8:
+        return None
+    for x in list(groups.values())[1:]:
+        for a, b in ((x.khi, x0.khi), (x.T1, x0.T1), (x.T2, x0.T2),
+                     (x.g, x0.g)):
+            if (a is None) != (b is None):
+                return None
+            if a is not None and a is not b and (
+                    _is_device(a) or _is_device(b)
+                    or not np.array_equal(np.asarray(_host(a)),
+                                          np.asarray(_host(b)))):
+                return None
+    return x0
+
+
+def _fold_xstages(sequence, C):
+    """The composite EPG-X stages of an op list, or (None, reason)."""
+    from .ops import base as _base
+    from .ops.evolution import R
+    from .ops.exchange import X
+    from .ops.probe import Adc, Probe
+    from .ops.shift import S
+    from .ops.transition import T
+
+    stages, cur, have_pulse = [], None, False
+
+    def new_stage():
+        return {"sat": None, "alpha": np.zeros(C), "phi": np.zeros(C),
+                "ta": 0.0, "tb": 0.0, "adc": False, "aph": 0.0, "shift": 0}
+
+    def close():
+        nonlocal cur
+        if cur is not None:
+            stages.append(cur)
+            cur = None
+
+    for n, op in enumerate(sequence):
+        if type(op) is R:
+            close()
+            cur, have_pulse = new_stage(), False
+            cur["sat"] = op
+        elif type(op) is T:
+            fl = _comp_flips(op, C)
+            if fl is None:
+                return None, (f"op {n} ({op.name}): flips or phases not host "
+                              f"per-compartment values, or tracked")
+            if cur is None or have_pulse or cur["ta"] or cur["tb"] \
+                    or cur["adc"] or cur["shift"]:
+                close()
+                cur = new_stage()
+            cur["alpha"], cur["phi"], have_pulse = fl[0], fl[1], True
+        elif type(op) is X:
+            tau = _scalar(op.tau)
+            if tau < 0:
+                return None, f"op {n}: negative tau"
+            if cur is None or cur["shift"]:
+                close()
+                cur, have_pulse = new_stage(), False
+            cur["tb" if cur["adc"] else "ta"] += tau
+        elif type(op) is Adc:
+            ph = None if op.phase is None else _scalar(op.phase)
+            if op.attr != "F0" or (op.phase is not None and ph is None) \
+                    or not _no_diff(op):
+                return None, f"op {n}: not a plain F0 readout"
+            if cur is None or cur["adc"] or cur["shift"]:
+                close()
+                cur, have_pulse = new_stage(), False
+            cur["adc"] = True
+            cur["aph"] = 0.0 if ph is None else float(ph) * np.pi / 180.0
+        elif type(op) is S:
+            k = getattr(op, "k", None)
+            if k is None or not _no_diff(op) or abs(k) > 8:
+                return None, f"op {n}: shift tracked or beyond +-8"
+            if cur is None:
+                cur, have_pulse = new_stage(), False
+            for _ in range(abs(k)):
+                if cur["shift"]:
+                    close()
+                    cur, have_pulse = new_stage(), False
+                cur["shift"] = 1 if k > 0 else -1
+        elif isinstance(op, Probe):
+            return None, f"op {n}: a probe other than Adc"
+        elif not isinstance(op, _base.EmptyOperator):
+            return None, f"op {n} ({type(op).__name__}): not a stage op"
+    close()
+    return stages, None
+
+
+def _match_xcomposite_impl(sequence, shape, density):
+    """(params, None) for a composite EPG-X train, else (None, reason)."""
+    from .ops.exchange import X
+
+    xops = [op for op in sequence if type(op) is X]
+    if not xops:
+        return None, "no X op"
+    if len({id(x) for x in xops}) > 64:
+        return None, "more than 64 distinct X instances"
+    x0 = _x_generator(xops)
+    if x0 is None:
+        return None, ("the X ops do not share one kernel-form generator "
+                      "(khi, T1, T2, g), or one is tracked")
+    C = int(np.shape(x0.khi)[-1])
+    if len(shape) < 1 or shape[0] != C:
+        return None, f"batch shape {shape} does not lead with {C} pools"
+    stages, reason = _fold_xstages(sequence, C)
+    if stages is None:
+        return None, reason
+    N = len(stages)
+    nadc = sum(1 for s in stages if s["adc"])
+    if N < 2 or nadc < 1 or N > 8192:
+        return None, (f"{N} stages, {nadc} readouts: needs 2 to 8192 stages "
+                      f"and a readout")
+    khi = np.asarray(x0.khi, dtype=float)
+    dens, reason = _x_density(density, C, [khi])
+    if dens is None:
+        return None, reason
+
+    satf, satz = np.ones((N, C), complex), np.ones((N, C), complex)
+    for i, s in enumerate(stages):
+        sf = _sat_factors(s["sat"], C)
+        if sf is None:
+            return None, f"stage {i}: saturation with recovery or tracking"
+        satf[i], satz[i] = sf
+
+    taus, mia, mib = [0.0], np.zeros(N, np.int64), np.zeros(N, np.int64)
+
+    def tau_idx(t):
+        if t not in taus:
+            taus.append(t)
+        return taus.index(t)
+
+    for i, s in enumerate(stages):
+        mia[i], mib[i] = tau_idx(float(s["ta"])), tau_idx(float(s["tb"]))
+    if len(taus) > 16:
+        return None, f"{len(taus)} distinct taus: more than 16"
+
+    adci, aph = np.full(N, -1, np.int64), np.zeros(N)
+    shift = np.asarray([s["shift"] for s in stages], np.int64)
+    j = 0
+    for i, s in enumerate(stages):
+        if s["adc"]:
+            adci[i], aph[i] = j, s["aph"]
+            j += 1
+
+    # rank-1 factorization over the vector (stage, compartment) flips only:
+    # scalar-flip stages (adiabatic preps) bypass B1 (b1u = 0)
+    ahs, b1u = [s["alpha"] for s in stages], np.ones(N)
+    vec = [i for i, a in enumerate(ahs)
+           if not all(d == 1 for d in a.shape[1:])]
+    if not vec:
+        alphas = np.stack([np.asarray(a).reshape(C) for a in ahs])
+        B1 = None
+    else:
+        fab = _rank1_factor([np.atleast_1d(ahs[i][c]) for i in vec
+                             for c in range(C)])
+        if fab is None:
+            return None, "vector flips are not rank-1 outer(alpha, B1)"
+        coefs, B1 = fab
+        alphas, vset, k = np.zeros((N, C)), set(vec), 0
+        for i in range(N):
+            if i in vset:
+                alphas[i] = coefs[k:k + C]
+                k += C
+            else:
+                alphas[i] = np.asarray(ahs[i]).reshape(C)
+                b1u[i] = 0.0
+        if np.all(B1 == 1.0):
+            b1u[:] = 1.0
+        if not common.broadcastable(B1.shape, tuple(shape[1:])):
+            return None, "the B1 batch does not broadcast into the atoms"
+
+    return {
+        "alpha": alphas, "B1": B1,
+        "phi": np.stack([s["phi"] for s in stages]),
+        "satf_re": satf.real, "satf_im": satf.imag,
+        "satz_re": satz.real, "satz_im": satz.imag,
+        "adci": adci, "shift": shift, "aph": aph, "b1u": b1u,
+        "mia": mia, "mib": mib, "taus": np.asarray(taus),
+        "dens": dens, "khi": khi, "T1": x0.T1, "T2": x0.T2, "g": x0.g,
+        "nadc": int(nadc), "shape": tuple(shape), "C": C,
+        "has_sat": bool(np.any(satf != 1.0) or np.any(satz != 1.0)),
+    }, None
+
+
+def _xcomp_device_params(params, device=None, dtype=None):
+    """The composite EPG-X kernels' tensors of a match dict, cached on it:
+    the (N, C) train, the per-stage tables (adci, shift, mia, mib int32;
+    aph, b1u), the atoms' T1, T2, g as (C, B) and the B1 row."""
+    def build(device, dtype):
+        bshape = tuple(params["shape"])
+        dev = _x_train(params, device, dtype)
+        for k in ("adci", "shift", "mia", "mib"):
+            dev[k] = torch.as_tensor(np.asarray(params[k]), dtype=torch.int32,
+                                     device=device)
+        for k in ("aph", "b1u"):
+            dev[k] = torch.as_tensor(np.asarray(params[k], np.float64),
+                                     dtype=dtype, device=device)
+        dev["T1"] = _comp_atoms(params["T1"], bshape, np.inf, device, dtype)
+        dev["T2"] = _comp_atoms(params["T2"], bshape, np.inf, device, dtype)
+        dev["g"] = _comp_atoms(params["g"], bshape, 0.0, device, dtype)
+        dev["B1"] = _atom_b1(params.get("B1"), bshape, device, dtype)
+        return dev
+
+    return _cached_device(params, device, build,
+                          config.real_dtype() if dtype is None else dtype)
+
+
+def _xcomp_nstate(params, nstate):
+    shift = np.asarray(params["shift"])
+    moves = bool((shift != 0).any())
+    return max(int(nstate), 1) if moves else int(nstate)
+
+
+def xcomposite_kernel_fits(params, nstate) -> bool:
+    """Whether a composite EPG-X match's 6 C planes fit at 32 threads."""
+    return cuda_xgre.xgre_kernel_fits(_xcomp_nstate(params, nstate),
+                                      params["C"])
+
+
+def _xcomp_call(params, nstate):
+    """Positional tensors and keywords of the composite EPG-X kernels for
+    a match dict (``:2867``)."""
+    d = _xcomp_device_params(params)
+    shift = np.asarray(params["shift"])
+    args = tuple(d[k] for k in ("alpha", "phi", "satf_re", "satf_im",
+                                "satz_re", "satz_im", "adci", "shift", "aph",
+                                "mia", "mib", "dens"))
+    kw = dict(nadc=int(params["nadc"]), nstate=_xcomp_nstate(params, nstate),
+              has_up=bool((shift == 1).any()),
+              has_down=bool((shift == -1).any()),
+              has_adcph=bool(np.asarray(params["aph"]).any()),
+              has_sat=bool(params["has_sat"]),
+              has_b1u=not bool(np.asarray(params["b1u"]).all()))
+    return args, d, kw
+
+
+def run_xcomposite_kernel(params, nstate):
+    """Run the composite EPG-X kernel on a match dict; returns the echoes
+    as a complex tensor in the engine's layout, (nadc, C, *rest)."""
+    args, d, kw = _xcomp_call(params, nstate)
+    re, im = cuda_xcomposite.xcomposite_echoes(
+        *args, params["taus"], params["khi"], d["T1"], d["T2"], d["g"],
+        d["B1"], d["b1u"], **kw)
+    return torch.complex(re, im).reshape((re.shape[0],)
+                                         + tuple(params["shape"]))

@@ -20,7 +20,9 @@ pallas_megre.py:129-143, 304-343``) add the echo copy of the rotated k = 0
 row and the off-resonance tangent of a phasor.  The composite-GRE kernels
 (``epgpy_tpu/models/pallas_composite.py:41-66, 184-194``) add the down
 shift S(-1) and the per-stage diffusion attenuation with a ramp in either
-direction.
+direction.  The EPG-X kernels (``epgpy_tpu/models/pallas_common.py:
+74-99``, ``pallas_xgre.py:324-350``) add the C x C complex mix of the
+compartments' plane sets around the k = 0 equilibrium and its tangent.
 
 A plane set is the 6-tuple ``(AR, AI, BR, BI, ZR, ZI)`` of ``(nstate + 1,
 B)`` real tensors with A(k) = F+(k), B(k) = F+(-k) and Z(k), k = 0..N;
@@ -40,7 +42,7 @@ __all__ = ["cmul", "phase_terms", "rot_coeffs", "rot_coeffs_db1", "rot_A",
            "df_tangent", "relax_tangents", "relax_tau_terms",
            "inversion_prep", "diff_attenuation",
            "excitation", "excitation_terms", "half_relax",
-           "half_relax_tangents", "attenuate"]
+           "half_relax_tangents", "attenuate", "mix_planes", "mix_tangent"]
 
 
 def cmul(cr, ci, xr, xi):
@@ -282,3 +284,74 @@ def attenuate(s, att):
     aA, aB, aZ = att
     return (s[0] * aA, s[1] * aA, s[2] * aB, s[3] * aB, s[4] * aZ,
             s[5] * aZ)
+
+
+def mix_planes(sets, m, dens):
+    """The C x C exchange mix of C plane sets (``_mix_planes``): the F
+    planes with the complex transverse matrix, Z with the real longitudinal
+    one around the equilibrium, which sits on the k = 0 Z row: dev = Z -
+    dens at k = 0, Z' = mL dev + dens at k = 0.  ``m(part, i, j)`` is the
+    coefficient (part 0/1/2 = mT re / mT im / mL) and ``dens(j)`` the
+    compartment's density, each a (B,) tensor or a number."""
+    C = len(sets)
+    devs = [_dev0(sets[j][4], dens(j)) for j in range(C)]
+    out = []
+    for i in range(C):
+        for j in range(C):
+            mr, mi, ml = m(0, i, j), m(1, i, j), m(2, i, j)
+            AR, AI, BR, BI = sets[j][:4]
+            ar, ai = cmul(mr, mi, AR, AI)
+            br, bi = cmul(mr, mi, BR, BI)
+            zr, zi = ml * devs[j], ml * sets[j][5]
+            if j == 0:
+                nAR, nAI, nBR, nBI, nZR, nZI = ar, ai, br, bi, zr, zi
+            else:
+                nAR, nAI = nAR + ar, nAI + ai
+                nBR, nBI = nBR + br, nBI + bi
+                nZR, nZI = nZR + zr, nZI + zi
+        nZR = nZR.clone()
+        nZR[0] = nZR[0] + dens(i)
+        out.append((nAR, nAI, nBR, nBI, nZR, nZI))
+    return out
+
+
+def mix_tangent(tsets, xsets, m, dm, dens, ddens):
+    """The tangent of :func:`mix_planes` (``pallas_xgre.py:324-350``):
+    t'_i = sum_j [M_ij (t_j - de_j) + dM_ij (x_j - e_j)] + de_i, for the
+    tangent sets `tsets` and the primal sets `xsets` from BEFORE the mix;
+    ``dm`` and ``ddens`` are the tangents of ``m`` and ``dens``."""
+    C = len(tsets)
+    xdevs = [_dev0(xsets[j][4], dens(j)) for j in range(C)]
+    tdevs = [_dev0(tsets[j][4], ddens(j)) for j in range(C)]
+    out = []
+    for i in range(C):
+        for j in range(C):
+            mr, mi, ml = m(0, i, j), m(1, i, j), m(2, i, j)
+            dmr, dmi, dml = dm(0, i, j), dm(1, i, j), dm(2, i, j)
+            tAR, tAI, tBR, tBI = tsets[j][:4]
+            xAR, xAI, xBR, xBI = xsets[j][:4]
+            ar, ai = cmul(mr, mi, tAR, tAI)
+            dar, dai = cmul(dmr, dmi, xAR, xAI)
+            br, bi = cmul(mr, mi, tBR, tBI)
+            dbr, dbi = cmul(dmr, dmi, xBR, xBI)
+            zr = ml * tdevs[j] + dml * xdevs[j]
+            zi = ml * tsets[j][5] + dml * xsets[j][5]
+            ar, ai = ar + dar, ai + dai
+            br, bi = br + dbr, bi + dbi
+            if j == 0:
+                nAR, nAI, nBR, nBI, nZR, nZI = ar, ai, br, bi, zr, zi
+            else:
+                nAR, nAI = nAR + ar, nAI + ai
+                nBR, nBI = nBR + br, nBI + bi
+                nZR, nZI = nZR + zr, nZI + zi
+        nZR = nZR.clone()
+        nZR[0] = nZR[0] + ddens(i)
+        out.append((nAR, nAI, nBR, nBI, nZR, nZI))
+    return out
+
+
+def _dev0(Z, d):
+    """Z - d on the k = 0 row only (the equilibrium's support)."""
+    dev = Z.clone()
+    dev[0] = dev[0] - d
+    return dev

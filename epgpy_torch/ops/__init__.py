@@ -7,7 +7,9 @@ from .evolution import E, P, R
 from .shift import S, G, C
 from .diffusion import D
 from .probe import Probe, Adc, ADC, DFT, Imaging
+from .exchange import X, exchange_matrix
 
 __all__ = ["Operator", "EmptyOperator", "MultiOperator", "DiffOperator",
            "Wait", "T", "Tx", "Ty", "Phi", "rotation_operator", "E", "P",
-           "R", "S", "G", "C", "D", "Probe", "Adc", "ADC", "DFT", "Imaging"]
+           "R", "S", "G", "C", "D", "Probe", "Adc", "ADC", "DFT", "Imaging",
+           "X", "exchange_matrix"]

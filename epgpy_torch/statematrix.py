@@ -97,6 +97,12 @@ class StateMatrix:
         return self.states[..., self.nstate, 2]
 
     @property
+    def density(self):
+        """Equilibrium densities: the real Z(0) of the equilibrium,
+        (*batch) (the per-compartment weights of EPG-X trains)."""
+        return self.equilibrium[..., self.nstate, 2].real
+
+    @property
     def k(self):
         """Physical wavenumbers (rad/m) of the ladder rows, (K, 1):
         ``arange(-n, n + 1) * kvalue`` (one dimension)."""

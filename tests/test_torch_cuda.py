@@ -1,7 +1,7 @@
 """The CUDA kernels (FISP dictionary, full ladder, Jacobian, per-pulse
-Hessian; CPMG dictionary, Jacobian, per-echo design; bSSFP, DESS, ME-GRE
-and composite-GRE dictionary and Jacobian) vs their plain twins, on the
-card.
+Hessian; CPMG dictionary, Jacobian, per-echo design; bSSFP, DESS, ME-GRE,
+composite-GRE, EPG-X GRE and composite EPG-X dictionary and Jacobian) vs
+their plain twins, on the card.
 
 These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it runs on the GPU machine as it is:
@@ -21,11 +21,15 @@ from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_GROUP_SETS,
                         make_case, make_comp_case, make_design_case,
                         make_dess_case, make_full_case, make_hess_case,
                         make_jac_case, make_megre_case, make_mse_case,
-                        megre_sequence, mse_grid, mse_sequence, _tensors)
+                        megre_sequence, mse_grid, mse_sequence, _tensors,
+                        XCOMP_CASES, XGRE_CASES, _x_errors, make_xcomp_case,
+                        make_xcomp_jac_case, make_xgre_case,
+                        make_xgre_jac_case, xcomp_tensors, xgre_tensors)
 from epgpy_torch import config
 from epgpy_torch.models import (cuda_bssfp, cuda_composite, cuda_dess,
                                 cuda_fisp, cuda_hessian, cuda_megre,
-                                cuda_mse, cuda_msedesign)
+                                cuda_mse, cuda_msedesign, cuda_xcomposite,
+                                cuda_xgre)
 
 
 @pytest.fixture
@@ -447,3 +451,81 @@ def test_cuda_composite_through_simulate(card):
     for c in range(len(names)):
         assert np.abs(jac[..., c] - ref[1][..., c]).max() \
             < 1e-4 * np.abs(ref[1][..., c]).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,case", [("xgre", c) for c in XGRE_CASES]
+                         + [("xcomp", c) for c in XCOMP_CASES],
+                         ids=lambda x: x if isinstance(x, str) else x["name"])
+def test_cuda_exchange_kernels_match_plain_twins(card, family, case):
+    """On the card: the EPG-X GRE and composite EPG-X kernels' echoes ==
+    their twins' to 2e-6; their Jacobian kernels' echoes to 2e-6 and each
+    variable's column to 1e-5 of its largest value; one launch each."""
+    if family == "xgre":
+        mod, mk, mkj, tens = cuda_xgre, make_xgre_case, make_xgre_jac_case, \
+            xgre_tensors
+        fns = (mod.xgre_dictionary_echoes, mod.xgre_dictionary_plain,
+               mod.xgre_jacobian_echoes, mod.xgre_jacobian_plain)
+    else:
+        mod, mk, mkj, tens = cuda_xcomposite, make_xcomp_case, \
+            make_xcomp_jac_case, xcomp_tensors
+        fns = (mod.xcomposite_echoes, mod.xcomposite_plain,
+               mod.xcomposite_jacobian_echoes, mod.xcomposite_jacobian_plain)
+    args, kw = mk(case, 1000, 60)
+    targs = tens(torch, args, "cuda")
+    jargs, jkw = mkj(torch, case, 1000, 60)
+    tj = tens(torch, jargs, "cuda", jac=True)
+    before = (mod.LAUNCHES, mod.JAC_LAUNCHES)
+    k, kj = fns[0](*targs, **kw), fns[2](*tj, **jkw)
+    torch.cuda.synchronize()
+    assert (mod.LAUNCHES, mod.JAC_LAUNCHES) == (before[0] + 1,
+                                                 before[1] + 1)
+    sig, _ = _x_errors(torch, k, fns[1](*targs, **kw), False)
+    jsig, cols = _x_errors(torch, kj, fns[3](*tj, **jkw), True)
+    assert sig < 2e-6 and jsig < 2e-6
+    assert len(cols) == 2 and max(cols) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_exchange_through_simulate(card):
+    """simulate(density=...) routes a spoiled and a balanced MT-GRE train to
+    the xgre kernel and a segmented MT-prepared train to the composite
+    EPG-X kernel (dispatch counts xgre, xcomp); each equals the float64
+    general path."""
+    import numpy as np
+
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+
+    dens = [0.85, 0.15]
+    khi = epg.exchange_matrix(0.005, densities=dens)
+    T2 = np.stack([np.linspace(40.0, 120.0, 6), np.full(6, 0.012)])
+    T1 = np.array([1000.0, 1100.0])
+    sat = epg.R(0, rL=np.asarray([0.0, 0.3]))
+
+    def trains():
+        Xa, Xb = epg.X(3.0, khi, axis=0, T1=T1, T2=T2), \
+            epg.X(7.0, khi, axis=0, T1=T1, T2=T2)
+        Xr = epg.X(150.0, khi, axis=0, T1=T1, T2=T2)
+        spoiled, balanced, prep = [], [], []
+        for i in range(20):
+            spoiled += [sat, epg.T(np.asarray([10.0 + i, 0.0]), 0), Xa,
+                        epg.ADC, Xb, epg.S(1)]
+            balanced += [epg.T(np.asarray([20.0, 0.0]), 180.0 * (i % 2)),
+                         Xa, epg.ADC, Xb]
+        for seg in range(3):
+            prep += [sat, Xr] + [op for i in range(6) for op in (
+                epg.T(np.asarray([8.0 + i, 0.0]), 0.0), Xa, epg.ADC, Xb,
+                epg.S(1))] + [Xr]
+        return spoiled, balanced, prep
+
+    before = dict(fisp_dispatch.DISPATCH_COUNTS)
+    got = [epg.simulate(s, max_nstate=8, density=dens) for s in trains()]
+    counts = fisp_dispatch.DISPATCH_COUNTS
+    assert counts.get("xgre", 0) == before.get("xgre", 0) + 2
+    assert counts.get("xcomp", 0) == before.get("xcomp", 0) + 1
+    config.set_device("cpu")
+    config.set_precision("float64")
+    for g, s in zip(got, trains()):
+        ref = epg.simulate(s, max_nstate=8, density=dens, fisp_kernel=False)
+        assert np.abs(g - ref).max() < 1e-6

@@ -11,7 +11,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PUBLIC = ["config", "StateMatrix", "Operator", "EmptyOperator",
           "MultiOperator", "DiffOperator", "Wait", "T", "Tx", "Ty", "Phi",
-          "E", "P", "R", "S", "D", "Probe", "Adc", "ADC", "Jacobian",
+          "E", "P", "R", "S", "D", "X", "exchange_matrix", "Probe", "Adc",
+          "ADC", "Jacobian",
           "Hessian", "PartialsPruner", "simulate",
           "simulate_simple", "modify", "flatten_sequence", "getshape",
           "getnshift", "get_adc_times", "bssfp_sequence", "dess_sequence",
@@ -88,7 +89,32 @@ MODULES = {
                                   "df_tangent", "relax_tangents",
                                   "relax_tau_terms", "inversion_prep",
                                   "diff_attenuation", "shift_down",
-                                  "stage_attenuation"],
+                                  "stage_attenuation", "mix_planes",
+                                  "mix_tangent"],
+    "epgpy_torch.models.cuda_xgre": ["xgre_dictionary_cuda",
+                                     "xgre_dictionary_plain",
+                                     "xgre_dictionary_echoes",
+                                     "xgre_jacobian_cuda",
+                                     "xgre_jacobian_plain",
+                                     "xgre_jacobian_echoes",
+                                     "exchange_stage_mats",
+                                     "xgre_kernel_fits",
+                                     "xgre_jac_kernel_fits", "LAUNCHES",
+                                     "JAC_LAUNCHES"],
+    "epgpy_torch.models.cuda_xcomposite": ["xcomposite_cuda",
+                                           "xcomposite_plain",
+                                           "xcomposite_echoes",
+                                           "xcomposite_jacobian_cuda",
+                                           "xcomposite_jacobian_plain",
+                                           "xcomposite_jacobian_echoes",
+                                           "xcomposite_stage_mat_tables",
+                                           "LAUNCHES", "JAC_LAUNCHES"],
+    "epgpy_torch.ops.exchange": ["X", "exchange_matrix", "exchange_operator",
+                                 "PrecomputedExchange",
+                                 "precompute_exchange"],
+    "epgpy_torch.utils.magnettransfer": ["saturation_rate",
+                                         "absorption_rate"],
+    "epgpy_torch.utils.constants": ["gamma_1H", "gamma_23Na"],
     "epgpy_torch.fisp_dispatch": ["match_fisp", "run_fisp_kernel",
                                   "kernel_fits", "DISPATCH_COUNTS",
                                   "count_dispatch", "jac_kernel_fits",
@@ -108,7 +134,10 @@ MODULES = {
                                   "run_dwfisp_jacobian", "match_composite",
                                   "run_composite_kernel",
                                   "run_composite_jacobian",
-                                  "composite_jac_groups"],
+                                  "composite_jac_groups", "match_xgre",
+                                  "run_xgre_kernel", "xgre_kernel_fits",
+                                  "match_xcomposite", "run_xcomposite_kernel",
+                                  "xcomposite_kernel_fits"],
     "epgpy_torch.diff": ["Jacobian", "Hessian", "parse_order1",
                          "parse_order2", "simulate_diff", "substitute"],
     "epgpy_torch.parallel": ["dictionary_match", "compress_dictionary",
@@ -120,7 +149,8 @@ MODULES = {
                              "tse_design_slsqp", "FA_BOUNDS", "TR_BOUNDS"],
     "epgpy_torch.stats": ["crlb", "crlb_split", "confint",
                           "get_tstat_interval"],
-    "epgpy_torch.convert": ["from_numpy_params", "from_numpy_states"],
+    "epgpy_torch.convert": ["from_numpy_params", "from_numpy_xparams",
+                            "from_numpy_states"],
     "epgpy_torch.config": ["set_precision", "real_dtype", "complex_dtype",
                            "set_device", "device"],
 }
@@ -202,6 +232,35 @@ SAME_ARGS = {
         "epgpy_tpu.fisp_dispatch:run_composite_jacobian",
     "epgpy_torch.fisp_dispatch:composite_jac_groups":
         "epgpy_tpu.fisp_dispatch:composite_jac_groups",
+    "epgpy_torch.ops.exchange:X": "epgpy_tpu.ops.exchange:X",
+    "epgpy_torch.ops.exchange:exchange_matrix":
+        "epgpy_tpu.ops.exchange:exchange_matrix",
+    "epgpy_torch.ops.exchange:exchange_operator":
+        "epgpy_tpu.ops.exchange:exchange_operator",
+    "epgpy_torch.utils.magnettransfer:saturation_rate":
+        "epgpy_tpu.utils.magnettransfer:saturation_rate",
+    "epgpy_torch.utils.magnettransfer:absorption_rate":
+        "epgpy_tpu.utils.magnettransfer:absorption_rate",
+    "epgpy_torch.models.cuda_xgre:xgre_dictionary_cuda":
+        "epgpy_tpu.models.pallas_xgre:xgre_dictionary_pallas",
+    "epgpy_torch.models.cuda_xgre:xgre_jacobian_cuda":
+        "epgpy_tpu.models.pallas_xgre:xgre_jacobian_pallas",
+    "epgpy_torch.models.cuda_xgre:exchange_stage_mats":
+        "epgpy_tpu.models.pallas_xgre:exchange_stage_mats",
+    "epgpy_torch.models.cuda_xcomposite:xcomposite_cuda":
+        "epgpy_tpu.models.pallas_xcomposite:xcomposite_pallas",
+    "epgpy_torch.models.cuda_xcomposite:xcomposite_jacobian_cuda":
+        "epgpy_tpu.models.pallas_xcomposite:xcomposite_jacobian_pallas",
+    "epgpy_torch.models.cuda_xcomposite:xcomposite_stage_mat_tables":
+        "epgpy_tpu.models.pallas_xcomposite:xcomposite_stage_mat_tables",
+    "epgpy_torch.fisp_dispatch:match_xgre":
+        "epgpy_tpu.fisp_dispatch:match_xgre",
+    "epgpy_torch.fisp_dispatch:run_xgre_kernel":
+        "epgpy_tpu.fisp_dispatch:run_xgre_kernel",
+    "epgpy_torch.fisp_dispatch:match_xcomposite":
+        "epgpy_tpu.fisp_dispatch:match_xcomposite",
+    "epgpy_torch.fisp_dispatch:run_xcomposite_kernel":
+        "epgpy_tpu.fisp_dispatch:run_xcomposite_kernel",
     "epgpy_torch.models.ssfp:spgr_sequence":
         "epgpy_tpu.models.ssfp:spgr_sequence",
     "epgpy_torch.models.ssfp:bssfp_sequence":
@@ -233,3 +292,22 @@ def test_jax_names_and_argument_order(port):
     want, open_tail = params(SAME_ARGS[port], TPU_ONLY)
     # where the JAX function forwards **kwargs, the port may name them
     assert (got[:len(want)] if open_tail else got) == want, (got, want)
+
+
+#: every source of the port, and the card's smoke test
+SOURCES = sorted(
+    os.path.relpath(os.path.join(d, f), ROOT)
+    for d, _, fs in os.walk(os.path.join(ROOT, "epgpy_torch"))
+    for f in fs if f.endswith(".py")) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_source_imports_neither_jax_nor_the_jax_package(path):
+    """No source line of the port (or chip_smoke.py) imports jax or
+    epgpy_tpu, the EPG-X modules included."""
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|epgpy_tpu)\b")
+    with open(os.path.join(ROOT, path)) as fh:
+        bad = [i for i, line in enumerate(fh, 1) if pat.match(line)]
+    assert not bad, (path, bad)

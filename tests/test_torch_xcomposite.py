@@ -1,0 +1,291 @@
+"""The composite EPG-X family of epgpy_torch vs epgpy_tpu: the kernels'
+plain twins, simulate(density=) dispatch, fall-through, the golden, the
+Jacobian and the family table.
+
+* ``xcomposite_plain`` / ``xcomposite_jacobian_plain`` (float32) vs the
+  JAX Pallas kernels in interpret mode over ``chip_smoke.XCOMP_CASES`` (MT
+  prep, IR-MT with adiabatic stages beside a B1 batch, balanced, shifts up
+  and down with ADC phases over three pools, sparse readouts with df), 8
+  atoms x 24 stages (12 for three pools and for the Jacobian): signals
+  2e-6 absolute (1e-5 for the primal over three pools, whose tables come
+  from torch.linalg.matrix_exp against the JAX f32 Pade; the Jacobian
+  takes its tables as inputs), tangent columns 1e-5 of the column's scale;
+* ``simulate(density=..., fisp_kernel="force")`` (the twin, float64) vs
+  the float64 general path at 1e-10 on the JAX tests' prepared trains, the
+  dispatch counted; ``match_xcomposite`` == the JAX matcher's dict; the
+  fall-through cases of ``tests/test_xcomposite_dispatch.py:123`` fall
+  through; the exact-pattern xgre family keeps its trains;
+* the golden ``xcomp_gre.npz`` at 1e-10 (float64);
+* the float64 Jacobian twin vs central finite differences of the general
+  path (free-pool T2 and the exchange rate), 1e-6 relative.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import epgpy_tpu as jepg
+import epgpy_torch as tepg
+from epgpy_torch import fisp_dispatch as tfd
+from epgpy_torch.convert import from_numpy_xparams
+from epgpy_torch.models import cuda_xcomposite
+from epgpy_tpu import fisp_dispatch as jfd
+from epgpy_tpu.models import pallas_xcomposite
+
+from chip_smoke import (XCOMP_CASES, make_xcomp_case, make_xcomp_jac_case,
+                        xcomp_golden_train, xcomp_tensors)
+from torch_support import (GOLDEN_DIR, cplx, port_f32,  # noqa: F401
+                           port_f64, same_match)
+
+B, NSTAGE = 8, 24
+
+
+def _tol(case):
+    return 2e-6 if case.get("C", 2) <= 2 else 1e-5
+
+
+def _nstage(case, jac=False):
+    """Stages of a JAX interpret-mode comparison: its cost grows with the
+    groups and the square of the pools."""
+    return NSTAGE // 2 if jac or case.get("C", 2) > 2 else NSTAGE
+
+
+@pytest.mark.parametrize("case", XCOMP_CASES, ids=lambda c: c["name"])
+def test_xcomposite_twin_matches_jax_kernel(case):
+    args, kw = make_xcomp_case(case, B, _nstage(case))
+    want = pallas_xcomposite.xcomposite_pallas(*args, interpret=True,
+                                               btile=128, **kw)
+    got = cuda_xcomposite.xcomposite_plain(
+        *xcomp_tensors(torch, args, "cpu"), **kw)
+    assert got[0].shape == (kw["nadc"], case.get("C", 2), B)
+    assert np.abs(cplx(*got) - cplx(*want)).max() < _tol(case)
+
+
+@pytest.mark.parametrize("case", XCOMP_CASES, ids=lambda c: c["name"])
+def test_xcomposite_jacobian_twin_matches_jax_kernel(case):
+    args, kw = make_xcomp_jac_case(torch, case, B, _nstage(case, True))
+    want = pallas_xcomposite.xcomposite_jacobian_pallas(
+        *args, interpret=True, btile=128, **kw)
+    got = cuda_xcomposite.xcomposite_jacobian_plain(
+        *xcomp_tensors(torch, args, "cpu", jac=True), **kw)
+    g, w = cplx(*got), cplx(*want)
+    assert g.shape == w.shape == (kw["nadc"], 3, case.get("C", 2), B)
+    assert np.abs(g[:, 0] - w[:, 0]).max() < 2e-6
+    for v in (1, 2):
+        scale = np.abs(w[:, v]).max()
+        assert scale > 0
+        assert np.abs(g[:, v] - w[:, v]).max() < 1e-5 * scale
+
+
+def _pools(e, B=4, C=2, k=0.005):
+    dens = np.asarray([0.85, 0.15][:C])
+    dens = dens / dens.sum()
+    khi = (np.zeros((C, C)) if k == 0
+           else e.exchange_matrix(k, ncomp=C, densities=dens))
+    T2 = np.stack([np.linspace(40.0, 120.0, B)]
+                  + [np.full(B, 0.012 * (c + 1)) for c in range(C - 1)])
+    return dens, khi, np.linspace(800.0, 1200.0, C), T2
+
+
+def _mt_prep_train(e, nseg=3, nread=5, B=4, *, balanced=False, ir=False,
+                   b1=None, seed=11, k=0.005, T2=None):
+    """tests/test_xcomposite_dispatch.py's segmented MT-GRE in package `e`:
+    per segment a saturation block (or an adiabatic inversion) and a
+    recovery X, nread readouts, a recovery delay."""
+    dens, khi, T1, T2_ = _pools(e, B, k=k)
+    T2 = T2_ if T2 is None else T2
+    rng = np.random.default_rng(seed)
+    Xte = e.X(3.0, khi, axis=0, T1=T1, T2=T2)
+    Xtr = e.X(7.0, khi, axis=0, T1=T1, T2=T2)
+    Xrec = e.X(120.0, khi, axis=0, T1=T1, T2=T2)
+    seq = []
+    for s in range(nseg):
+        if ir:
+            seq += [e.T(np.asarray([180.0, 0.0]), 0.0), Xrec]
+        else:
+            seq += [e.R(0, rL=np.asarray([0.0, 0.3 + 0.05 * s]), r0=None),
+                    Xrec]
+        for i in range(nread):
+            fa = float(rng.uniform(8, 15))
+            al = (np.asarray([fa, 0.0]) if b1 is None
+                  else np.stack([fa * b1, np.zeros(B)]))
+            seq += [e.T(al, 0.0), Xte, e.ADC, Xtr]
+            if not balanced:
+                seq.append(e.S(1))
+        seq += [Xrec]
+    return seq, list(dens)
+
+
+TRAINS = {
+    "mt_prep": dict(),
+    "ir_mt": dict(nseg=2, nread=6, B=3, ir=True),
+    "balanced": dict(nseg=2, nread=5, B=3, balanced=True),
+    "ir_b1": dict(nseg=2, nread=5, B=4, ir=True,
+                  b1=np.linspace(0.85, 1.15, 4)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRAINS))
+def test_simulate_density_dispatch_matches_general_path(port_f64, name):
+    kw = TRAINS[name]
+    seq, dens = _mt_prep_train(tepg, **kw)
+    shape = (2, kw.get("B", 4))
+    params = tfd.match_xcomposite(seq, shape, dens)
+    assert params is not None
+    assert tfd.match_xgre(seq, shape, dens) is None
+    jseq, _ = _mt_prep_train(jepg, **kw)
+    same_match(params, jfd.match_xcomposite(jseq, shape, dens))
+    if kw.get("ir") and kw.get("b1") is not None:
+        assert (np.asarray(params["b1u"]) == 0.0).sum() >= 2
+    tfd.clear_cache()
+    tfd.DISPATCH_COUNTS.clear()
+    ns = 1 if kw.get("balanced") else 5
+    out = tepg.simulate(seq, max_nstate=ns, density=dens,
+                        fisp_kernel="force")
+    assert tfd.DISPATCH_COUNTS == {"xcomp": 1}
+    ref = tepg.simulate(seq, max_nstate=ns, density=dens, fisp_kernel=False)
+    assert out.shape == ref.shape == (params["nadc"],) + shape
+    assert np.abs(out - ref).max() < 1e-10
+
+
+def test_match_extracts_params():
+    seq, dens = _mt_prep_train(tepg)
+    params = tfd.match_xcomposite(seq, (2, 4), dens)
+    assert params["C"] == 2 and params["nadc"] == 15 and params["has_sat"]
+    assert sorted(params["taus"]) == [0.0, 3.0, 7.0, 120.0]
+    assert np.all(np.asarray(params["b1u"]) == 1.0)
+
+
+@pytest.mark.parametrize("mutate", ["mixed_generator", "z0_adc",
+                                    "batched_tau"])
+def test_fall_through(port_f64, mutate):
+    out = []
+    for e in (tepg, jepg):
+        seq, dens = _mt_prep_train(e, nseg=2, nread=4, B=3)
+        i = next(j for j, op in enumerate(seq) if type(op) is e.X)
+        x = seq[i]
+        if mutate == "mixed_generator":
+            seq[i] = e.X(3.0, e.exchange_matrix(0.004, ncomp=2,
+                                                densities=dens), axis=0,
+                         T1=np.asarray([800.0, 1200.0]), T2=x.T2)
+        elif mutate == "z0_adc":
+            j = next(j for j, op in enumerate(seq) if isinstance(op, e.Adc))
+            seq[j] = e.Adc(attr="Z0")
+        else:
+            seq[i] = e.X(np.asarray([3.0, 3.0]), x.khi, axis=0, T1=x.T1,
+                         T2=x.T2)
+        fd = tfd if e is tepg else jfd
+        out.append(fd.match_xcomposite(seq, (2, 3), dens))
+        if e is tepg and mutate != "batched_tau":
+            got = tepg.simulate(seq, fisp_kernel="force", max_nstate=4,
+                                density=dens)
+            assert np.isfinite(got).all()
+    assert out == [None, None]
+
+
+def test_exact_xgre_still_wins(port_f64):
+    """A canonical per-TR train stays with the exact-pattern xgre family
+    (first in the table), which the composite matcher would also take."""
+    dens, khi, T1, T2 = _pools(tepg, 3)
+    X2 = tepg.X(10.0, khi, axis=0, T1=T1, T2=T2)
+    seq = []
+    for _ in range(6):
+        seq += [tepg.T(np.asarray([12.0, 0.0]), 0.0), tepg.ADC, X2,
+                tepg.S(1)]
+    dens = list(dens)
+    assert tfd.match_xgre(seq, (2, 3), dens) is not None
+    assert tfd.match_xcomposite(seq, (2, 3), dens) is not None
+    tfd.DISPATCH_COUNTS.clear()
+    out = tepg.simulate(seq, max_nstate=5, density=dens, fisp_kernel="force")
+    assert tfd.DISPATCH_COUNTS == {"xgre": 1}
+    ref = tepg.simulate(seq, max_nstate=5, density=dens, fisp_kernel=False)
+    assert np.abs(out - ref).max() < 1e-10
+
+
+def test_xcomp_gre_golden(port_f64):
+    """tests/golden/xcomp_gre.npz (tools/make_golden.py:1103)."""
+    g = np.load(os.path.join(GOLDEN_DIR, "xcomp_gre.npz"))
+    seq = xcomp_golden_train(tepg)
+    tfd.DISPATCH_COUNTS.clear()
+    for fk in (False, "force"):
+        sig = tepg.simulate(seq, max_nstate=8, density=[0.85, 0.15],
+                            fisp_kernel=fk)
+        assert np.abs(sig - g["signal"]).max() < 1e-10
+    assert tfd.DISPATCH_COUNTS == {"xcomp": 1}
+
+
+def test_jacobian_twin_finite_differences(port_f64):
+    """The float64 Jacobian twin vs central differences of the general path
+    over the free pool's T2 (per atom) and the exchange rate
+    (tests/test_xcomposite_dispatch.py:179's problem, tighter)."""
+    Bn = 4
+    seq, dens = _mt_prep_train(tepg, nseg=2, nread=4, B=Bn)
+    params = tfd.match_xcomposite(seq, (2, Bn), dens)
+    d = np.asarray(dens)
+    kron = np.asarray([[1.0, -1.0], [-1.0, 1.0]]) / d
+    T1m = np.broadcast_to(np.asarray([800.0, 1200.0])[:, None], (2, Bn))
+    T2f0, k0 = np.linspace(40.0, 120.0, Bn), 0.005
+
+    def tables(t2f, k):
+        T2 = torch.stack([t2f, torch.full_like(t2f, 0.012)])
+        return cuda_xcomposite.xcomposite_stage_mat_tables(
+            k * torch.as_tensor(kron), T1m, T2, None, params["taus"])
+
+    t2 = torch.as_tensor(T2f0)
+    k = torch.tensor(k0, dtype=torch.float64)
+    mats = tables(t2, k)
+    _, dm_t2 = torch.func.jvp(lambda t: tables(t, k), (t2,),
+                              (torch.ones_like(t2),))
+    _, dm_k = torch.func.jvp(lambda kk: tables(t2, kk), (k,),
+                             (torch.ones_like(k),))
+    zeros = np.zeros((2, Bn))
+    re, im = cuda_xcomposite.xcomposite_jacobian_plain(
+        *(params[n] for n in ("alpha", "phi", "satf_re", "satf_im",
+                              "satz_re", "satz_im", "adci", "shift", "aph",
+                              "mia", "mib")),
+        d, mats, [dm_t2, dm_k], [zeros, zeros], nadc=params["nadc"],
+        nstate=5, has_up=True, has_sat=True)
+    got = cplx(re, im)
+
+    def general(t2f, kk):
+        s, _ = _mt_prep_train(tepg, nseg=2, nread=4, B=Bn, k=kk,
+                              T2=np.stack([t2f, np.full(Bn, 0.012)]))
+        return tepg.simulate(s, max_nstate=5, density=dens,
+                             fisp_kernel=False)
+
+    assert np.abs(got[:, 0] - general(T2f0, k0)).max() < 1e-10
+    for v, (dx, h) in enumerate(((np.ones(Bn), 1e-4), (None, 1e-7)), 1):
+        if dx is not None:
+            fd = (general(T2f0 + h, k0) - general(T2f0 - h, k0)) / (2 * h)
+        else:
+            fd = (general(T2f0, k0 + h) - general(T2f0, k0 - h)) / (2 * h)
+        assert np.abs(got[:, v] - fd).max() < 1e-6 * np.abs(fd).max()
+
+
+def test_converted_jax_match_runs_to_jax_values(port_f32):
+    seq, dens = _mt_prep_train(jepg, nseg=2, nread=4, B=4, ir=True,
+                               b1=np.linspace(0.9, 1.1, 4))
+    jparams = jfd.match_xcomposite(seq, (2, 4), dens)
+    want = jfd.run_xcomposite_kernel(jparams, 5, interpret=True)
+    got = tfd.run_xcomposite_kernel(from_numpy_xparams(jparams, "cpu"), 5)
+    w = np.asarray(want["__c_re"]) + 1j * np.asarray(want["__c_im"])
+    assert got.shape == w.shape
+    assert np.abs(got.numpy() - w).max() < 2e-6
+
+
+def test_echo_layout_and_launch_counters():
+    args, kw = make_xcomp_case(XCOMP_CASES[-1], 4, 12)
+    targs = xcomp_tensors(torch, args, "cpu")
+    jargs, jkw = make_xcomp_jac_case(torch, XCOMP_CASES[-1], 4, 12)
+    tj = xcomp_tensors(torch, jargs, "cpu", jac=True)
+    before = (cuda_xcomposite.LAUNCHES, cuda_xcomposite.JAC_LAUNCHES)
+    re, _ = cuda_xcomposite.xcomposite_echoes(*targs, **kw)
+    jre, _ = cuda_xcomposite.xcomposite_jacobian_echoes(*tj, **jkw)
+    assert (cuda_xcomposite.LAUNCHES, cuda_xcomposite.JAC_LAUNCHES) == before
+    assert torch.allclose(re, jre[:, 0], atol=1e-6)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_xcomposite.xcomposite_cuda(*targs, **kw)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_xcomposite.xcomposite_jacobian_cuda(*tj, **jkw)

@@ -122,3 +122,17 @@ def cplx(re, im):
     def host(x):
         return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     return host(re) + 1j * host(im)
+
+
+def same_match(got, want):
+    """A port match dict holds a JAX match dict's every key with the same
+    value (numbers exactly, arrays to 1e-12 relative)."""
+    for k, w in want.items():
+        g = got[k]
+        if w is None or g is None:
+            assert g is None and w is None, k
+        elif isinstance(w, (bool, int, float, tuple)):
+            assert g == w, k
+        else:
+            assert np.allclose(np.asarray(g), np.asarray(w), rtol=1e-12,
+                               atol=0), k
