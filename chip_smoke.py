@@ -52,10 +52,13 @@ Phases (each raises on failure: a failure exits non-zero with no result):
 3d. the CPMG kernel against its plain twin over its options (per-echo
    spacings and phases, B1, DW-TSE stages with and without the ramp term,
    the Jacobian gate's deepest DW ladder) at 4096 atoms x 18 echoes;
-3e. the same for the CPMG Jacobian kernel (echoes + dT1, dT2, dB1);
+3e. the same for the CPMG Jacobian kernel (echoes + dT1, dT2, dB1), also
+   at the gate's edge (nstate 74) and at ragged shapes (1, 33 and 4,097
+   atoms, a one-echo train);
 3f. the per-echo design kernel against its twin, first and second order,
-   32 echoes, nstate 64 and 168, per output block, variable > echo
-   entries exactly zero;
+   32 echoes, nstate 64, the gates' edges (168 second order, 386 first)
+   and ragged shapes (1, 33 and 4,097 atoms; 1, 13 and 33 echoes), per
+   output block, variable > echo entries exactly zero;
 4d. the published CPMG train (bench.py:563-594) through ``simulate()`` at
    100 T2 x 50 attenuations and at 200 x 3200 (640,000 signals), the
    latter also through ``cpmg_dictionary_cuda``; 8 signals of each against
@@ -145,7 +148,10 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    the bytes moved over the HBM rate, whichever is longer); ``simulate()``
    first and memoized
    calls, the assembly's device share (``torch.profiler``), the design and
-   serving splits.
+   serving splits; the CPMG Jacobian kernel also at the T2/B1 mapping's
+   shape and inside ``simulate()`` by CUDA events, the design kernel also
+   at the SLSQP's 4 atoms, and the registers (ptxas), shared memory per
+   block and resident warps per SM of both.
 
 Each phase prints its wall time (``[time]``).  The second-to-last lines
 are the card's name and power limit and a JSON
@@ -159,6 +165,7 @@ import json
 import math
 import os
 import pstats
+import re
 import shutil
 import subprocess
 import sys
@@ -504,7 +511,14 @@ MSE_CASES = [
     dict(name="dw_const_ramp", diff=(False, True), var=True),
     dict(name="dw_b1", diff=(True, False), b1=True),
     dict(name="gate_dw", diff=(True, True), var=True, b1=True, nstate=59),
+    dict(name="gate", var=True, b1=True, nstate=74),
 ]
+#: ragged shapes (atoms, echoes) of the warp-row Jacobian kernel, each run
+#: with the cases named in MSE_RAGGED_CASES: one atom, a block of 8
+#: atom-warps and one, 4,097 atoms, a one-echo train
+MSE_JAC_SHAPES = [(1, MSE_NECHO), (33, MSE_NECHO), (4097, MSE_NECHO),
+                  (33, 1)]
+MSE_RAGGED_CASES = ("spacing_phase", "dw_b1")
 
 #: the design kernel: first and second order at the example's depth, and
 #: per-echo phases at the gate's deepest second-order ladder
@@ -512,7 +526,14 @@ DESIGN_CASES = [
     dict(name="o2", second_order=True),
     dict(name="o1", second_order=False),
     dict(name="o2_phase_n168", second_order=True, phase=True, nstate=168),
+    dict(name="o1_n386", second_order=False, nstate=386),
 ]
+#: ragged shapes (atoms, echoes) of the warp-row design kernel, each at
+#: first and second order: one atom, 33 and 4,097 atoms, a one-echo train,
+#: echo counts that are no multiple of the tile (13: two tiles of 7
+#: lane-warps, one idle; 33: five tiles of 7, three ladder chunks)
+DESIGN_SHAPES = [(1, TSE_NECHO), (33, TSE_NECHO), (4097, TSE_NECHO),
+                 (33, 1), (33, 13), (33, 33)]
 
 
 def make_mse_case(case, natoms, necho=MSE_NECHO, seed=0):
@@ -1149,9 +1170,11 @@ def reference_probe():
 
 def col_errors(got, want):
     """Per-column max |delta| of (..., k) arrays relative to the column's
-    largest magnitude."""
+    largest magnitude (a column that is all zeros, as dT1 of a one-echo
+    CPMG train, must come out exactly zero)."""
     return [float(np.abs(got[..., c] - want[..., c]).max()
-                  / np.abs(want[..., c]).max()) for c in range(want.shape[-1])]
+                  / max(np.abs(want[..., c]).max(), 1e-30))
+            for c in range(want.shape[-1])]
 
 
 def _tensors(torch, args, kw, device):
@@ -1225,6 +1248,118 @@ def phase_build():
         if ("registers" in line or "smem" in line or "spill" in line
                 or "properties for" in line):
             print(f"[build] {line.strip()}")
+
+
+#: per-SM limits of sm_90 that decide occupancy: registers and their
+#: allocation unit per warp, resident warps and blocks, shared memory and
+#: what the runtime reserves of it per block
+SM_REGS, SM_REG_UNIT, SM_WARPS, SM_BLOCKS = 65536, 256, 64, 32
+SM_SMEM, SM_SMEM_RESERVED = 233472, 1024
+
+
+def ptxas_registers(log):
+    """{kernel (mangled name): registers} from the ``-Xptxas -v`` lines of
+    the build log."""
+    regs, name = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+        elif name and "Used" in line and "registers" in line:
+            regs[name] = int(line.split("Used")[1].split()[0])
+            name = None
+    return regs
+
+
+def resident_warps(regs, warps, smem):
+    """Warps one SM holds of a kernel with `regs` registers per thread,
+    `warps` per block and `smem` bytes of shared memory per block: the
+    least of what the registers, the shared memory and the SM's warp and
+    block slots admit, each in whole blocks; and the first two alone."""
+    warp_regs = -(-regs * 32 // SM_REG_UNIT) * SM_REG_UNIT
+    by_regs = SM_REGS // warp_regs // warps
+    by_smem = SM_SMEM // (smem + SM_SMEM_RESERVED)
+    blocks = min(by_regs, by_smem, SM_WARPS // warps, SM_BLOCKS)
+    return blocks * warps, by_regs * warps, by_smem * warps
+
+
+#: one SASS instruction: its address, an optional predicate, the opcode
+SASS_OP = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_]*)")
+#: SASS opcode classes of the instruction mix that phase_occupancy prints
+SASS_CLASSES = {
+    "fp32": ("FFMA", "FMUL", "FADD", "MUFU"),
+    "shared": ("LDS", "STS"),
+    "shuffle": ("SHFL",),
+    "integer": ("IMAD", "IADD3", "LEA", "LOP3", "SHF", "ISETP"),
+    "move": ("MOV", "FSEL", "SEL"),
+    "branch": ("BRA", "BSSY", "BSYNC", "WARPSYNC"),
+}
+
+
+def sass_mix(lib, keys):
+    """{key: {class: static instruction count, "total": n}} of the first
+    kernel in the library whose mangled name holds each key, from
+    ``cuobjdump -sass`` (None when the tool is missing)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    mix = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0]
+        key = next((k for k in keys if k in name and k not in mix), None)
+        if key is None:
+            continue
+        ops = [m.group(1) for m in SASS_OP.finditer(part)]
+        counts = {c: sum(op in names for op in ops)
+                  for c, names in SASS_CLASSES.items()}
+        mix[key] = dict(counts, total=len(ops))
+    return mix
+
+
+def phase_occupancy():
+    """Registers (ptxas), shared memory per block, resident warps per SM
+    and the static SASS instruction mix of the two warp-row kernels at
+    their main-path geometries."""
+    from epgpy_torch import _build
+    from epgpy_torch.models import cuda_mse, cuda_msedesign
+
+    regs = ptxas_registers(_build.build_info()["log"])
+
+    def of(key):
+        hits = [r for n, r in regs.items() if key in n]
+        return hits[0] if len(hits) == 1 else None
+
+    rows = []
+    for dif in (False, True):
+        warps = cuda_mse.mse_jac_block_size(MSE_NSTATE, dif)
+        rows.append((f"cpmg_jac nstate {MSE_NSTATE}{' DW' if dif else ''}",
+                     of(f"cpmg_jac_kernelILb{int(dif)}E"), warps,
+                     cuda_mse.jac_block_smem(MSE_NSTATE, warps, dif)))
+    for so in (True, False):
+        E, n = TSE_NECHO, 2 * TSE_NECHO
+        tile = cuda_msedesign.design_tile(E, n, so)
+        rows.append((f"cpmg_design E {E} nstate {n} order {1 + so}",
+                     of(f"cpmg_design_kernelILb{int(so)}E"), tile,
+                     cuda_msedesign.design_block_smem(n, tile, so)))
+    for what, r, warps, smem in rows:
+        if r is None:
+            print(f"[occupancy] {what}: registers not measured (no ptxas "
+                  f"line: the library was built before this run)")
+            continue
+        res, by_regs, by_smem = resident_warps(r, warps, smem)
+        print(f"[occupancy] {what}: {r} registers, {warps} warps and "
+              f"{smem} B of shared memory per block; {res} resident warps "
+              f"per SM (registers admit {by_regs}, shared memory "
+              f"{by_smem})")
+    keys = ("cpmg_jac_kernelILb0E", "cpmg_design_kernelILb1E")
+    mix = sass_mix(_build.build_info()["path"], keys)
+    for key in keys:
+        m = (mix or {}).get(key)
+        print(f"[occupancy] {key} SASS instructions: "
+              + (", ".join(f"{k} {v}" for k, v in m.items()) if m
+                 else "not measured (no cuobjdump)"))
 
 
 def phase_cases(torch, natoms=4096, npulse=NPULSE):
@@ -1888,14 +2023,19 @@ def phase_hess_numbers(torch, epg, card, run):
 
 def phase_mse_cases(torch, natoms=4096, jac=False):
     """The CPMG kernel (or, with `jac`, its Jacobian kernel) vs its plain
-    twin over the option cases at the published depth; returns the worst
-    echo |delta| and (jac) the worst per-column relative error."""
+    twin over the option cases at the published depth (and, with `jac`,
+    at the ragged shapes of MSE_JAC_SHAPES); returns the worst echo
+    |delta| and (jac) the worst per-column relative error."""
     from epgpy_torch.models import cuda_mse
 
     tag = "mse-jac-cases" if jac else "mse-cases"
+    runs = [(case, natoms, MSE_NECHO) for case in MSE_CASES]
+    if jac:
+        runs += [(case, n, e) for n, e in MSE_JAC_SHAPES
+                 for case in MSE_CASES if case["name"] in MSE_RAGGED_CASES]
     worst_sig = worst_col = 0.0
-    for case in MSE_CASES:
-        args, kw = _atom_tensors(torch, *make_mse_case(case, natoms), 5,
+    for case, n, necho in runs:
+        args, kw = _atom_tensors(torch, *make_mse_case(case, n, necho), 5,
                                  "cuda")
         if jac:
             (kre, kim), (kdre, kdim) = cuda_mse.cpmg_jacobian_cuda(*args, **kw)
@@ -1911,15 +2051,16 @@ def phase_mse_cases(torch, natoms=4096, jac=False):
         sig = max(float((kre - pre).abs().max()),
                   float((kim - pim).abs().max()))
         ok = all(bool(torch.isfinite(t).all()) for t in parts)
-        print(f"[{tag}] {case['name']:14s} nstate={kw['nstate']:2d} "
-              f"max|kernel - plain| = {sig:.3e}"
+        print(f"[{tag}] {case['name']:14s} B={n:4d} E={necho:2d} "
+              f"nstate={kw['nstate']:2d} max|kernel - plain| = {sig:.3e}"
               + (f", per column {', '.join(f'{c:.2e}' for c in cols)}"
                  if jac else ""))
         if not ok or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL:
             raise AssertionError(
-                f"case {case['name']}: CPMG{' Jacobian' if jac else ''} "
-                f"kernel vs plain twin {sig:.3e} / {max(cols):.3e} over "
-                f"{TOL_KERNEL} / {TOL_JAC_KERNEL} or not finite")
+                f"case {case['name']} (B={n}, E={necho}): CPMG"
+                f"{' Jacobian' if jac else ''} kernel vs plain twin "
+                f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
+                f"{TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
     return worst_sig, worst_col
 
@@ -1933,14 +2074,18 @@ def _causal_max(torch, out):
 
 def phase_design_cases(torch, natoms=64):
     """The design kernel vs its plain twin, first and second order, per
-    output block, and its variable > echo entries exactly zero; returns
+    output block, over the option cases and the ragged shapes of
+    DESIGN_SHAPES, and its variable > echo entries exactly zero; returns
     the worst per-block relative error."""
     from epgpy_torch.models import cuda_msedesign
 
+    runs = [(case, natoms, TSE_NECHO) for case in DESIGN_CASES]
+    runs += [(dict(name=f"o{2 if so else 1}", second_order=so), n, e)
+             for n, e in DESIGN_SHAPES for so in (True, False)]
     worst = 0.0
-    for case in DESIGN_CASES:
-        args, kw = _atom_tensors(torch, *make_design_case(case, natoms), 4,
-                                 "cuda")
+    for case, n, necho in runs:
+        args, kw = _atom_tensors(
+            torch, *make_design_case(case, n, necho), 4, "cuda")
         k = cuda_msedesign.cpmg_design_cuda(*args, **kw)
         p = cuda_msedesign.cpmg_design_plain(*args, **kw)
         errs = hess_block_errors(k, p)
@@ -1948,14 +2093,17 @@ def phase_design_cases(torch, natoms=64):
                  for t in pair)
         upper = _causal_max(torch, k)
         err = max(errs.values())
-        print(f"[design-cases] {case['name']:14s} nstate={kw['nstate']:3d} "
-              f"{len(k)} blocks, max per-block |kernel - plain| = "
-              f"{err:.3e}; variable > echo entries max {upper:.1e}")
+        tile = cuda_msedesign.design_tile(necho, kw["nstate"],
+                                          kw["second_order"])
+        print(f"[design-cases] {case['name']:14s} B={n:4d} E={necho:2d} "
+              f"nstate={kw['nstate']:3d} tile={tile} {len(k)} blocks, max "
+              f"per-block |kernel - plain| = {err:.3e}; variable > echo "
+              f"entries max {upper:.1e}")
         if not ok or not err <= TOL_DESIGN_KERNEL or upper != 0.0:
             raise AssertionError(
-                f"case {case['name']}: design kernel vs plain twin "
-                f"{err:.3e} > {TOL_DESIGN_KERNEL}, non-finite, or nonzero "
-                f"variable > echo entries ({upper:.1e})")
+                f"case {case['name']} (B={n}, E={necho}): design kernel vs "
+                f"plain twin {err:.3e} > {TOL_DESIGN_KERNEL}, non-finite, "
+                f"or nonzero variable > echo entries ({upper:.1e})")
         worst = max(worst, err)
     return worst
 
@@ -2292,7 +2440,7 @@ def phase_t2b1(torch, epg):
         raise AssertionError("the refined T2 map does not beat the "
                              "mono-exponential and match estimates")
     return dict(launches=launches, rmse=r, dict_s=dict_s, match_s=match_s,
-                gn_s=gn_s)
+                gn_s=gn_s, jac_args=jargs, nstate=nst)
 
 
 def phase_tse_design(torch, epg):
@@ -2363,13 +2511,14 @@ def phase_tse_design(torch, epg):
                              "the constant train")
     return dict(launches=launches, fused_ms=fused_ms, slsqp_s=slsqp_s,
                 eval_s=eval_s, nit=res.nit, nfev=res.nfev, v0=v0, v1=v1,
-                v_flat=v_flat, FA=FA, grid=(t1g, t2g))
+                v_flat=v_flat, FA=FA, grid=(t1g, t2g), atoms=(t1s, t2s))
 
 
-def phase_mse_numbers(torch, card, run, jac_run):
+def phase_mse_numbers(torch, card, run, jac_run, t2b1):
     """CPMG kernel and Jacobian kernel vs their plain twins at the scaled
-    grid; simulate()'s device split for the Jacobian; returns the two
-    kernels' JSON entries."""
+    grid, the Jacobian kernel also at the T2/B1 mapping's shape;
+    simulate()'s device split for the Jacobian (torch.profiler and CUDA
+    events); returns the two kernels' JSON entries."""
     from epgpy_torch.models import cuda_mse
 
     args, n = run["kargs"], run["nsig"]
@@ -2430,6 +2579,29 @@ def phase_mse_numbers(torch, card, run, jac_run):
           f"{jac_run['memo_s'] * 1e3:.3f} ms ({card})")
     _print_split("simulate() CPMG Jacobian", "cpmg_jac",
                  _profile_split(torch, jac_run["simulate"], "cpmg_jac"), card)
+    own = _launch_ms(torch, jac_run["simulate"], "epg_cpmg_jac")
+    span = _cuda_ms(torch, jac_run["simulate"])
+    print(f"[numbers] simulate() CPMG Jacobian by CUDA events: the call's "
+          f"span on the stream {span:.3f} ms, the cpmg_jac kernel (events "
+          f"around its launch) {own:.3f} ms, the rest {span - own:.3f} ms "
+          f"({card})")
+
+    # the Jacobian kernel at the T2/B1 mapping's shape (5d)
+    margs, mst = t2b1["jac_args"], t2b1["nstate"]
+
+    def mapping():
+        return cuda_mse.cpmg_jacobian_echoes(*margs, nstate=mst)
+
+    m_ms = _cuda_ms(torch, mapping)
+    flops = reached_ops(
+        torch, "cpmg_jac", lambda k, s, m: cuda_mse.cpmg_jacobian_echoes_plain(
+            *_cpu_train(torch, margs, m, (5, 6, 7), k, (1,)), nstate=s),
+        MAP_NECHO, mst, MAP_NVOX)
+    b = bound_fields("cpmg_jac", flops, tensor_bytes(torch, margs, mapping()))
+    print(f"[numbers] cpmg_jac at the T2/B1 mapping's Jacobian, {MAP_NVOX} "
+          f"voxels x {MAP_NECHO} echoes, nstate {mst}: kernel {m_ms:.3f} ms;"
+          f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+          f"{b['bound_ms'] / m_ms:.1%} of it ({card})")
     return entries
 
 
@@ -2474,6 +2646,32 @@ def phase_design_numbers(torch, card, tse):
             *_cpu_train(torch, args, m, (4, 5), k, (1, 3)), nstate=s,
             second_order=True), E, 2 * E, len(t1g))
     nbytes = tensor_bytes(torch, args, kernel())
+
+    # the shape that launches it on the main path: the SLSQP's atoms
+    t1s, t2s = tse["atoms"]
+    args4 = args[:4] + (t1s, t2s)
+
+    def kernel4():
+        return cuda_msedesign.cpmg_design_cuda(*args4, **kw)
+
+    k4, p4 = kernel4(), cuda_msedesign.cpmg_design_plain(*args4, **kw)
+    err4 = max(hess_block_errors(k4, p4).values())
+    if not err4 <= TOL_DESIGN_KERNEL or _causal_max(torch, k4) != 0.0:
+        raise AssertionError(f"design kernel vs plain twin at "
+                             f"{len(TSE_T1)} atoms {err4:.3e}")
+    k4_ms = _cuda_ms(torch, kernel4)
+    flops4 = reached_ops(
+        torch, "cpmg_design",
+        lambda k, s, m: cuda_msedesign.cpmg_design_plain(
+            *_cpu_train(torch, args4, m, (4, 5), k, (1, 3)), nstate=s,
+            second_order=True), E, 2 * E, len(TSE_T1))
+    b4 = bound_fields("cpmg_design", flops4,
+                      tensor_bytes(torch, args4, k4))
+    print(f"[numbers] cpmg_design at the SLSQP's {len(TSE_T1)} atoms x {E} "
+          f"echoes: kernel {k4_ms:.3f} ms (per block <= {err4:.2e} of the "
+          f"twin), bound {b4['bound_ms']:.4f} ms ({b4['bound_by']}), "
+          f"{b4['bound_ms'] / k4_ms:.1%} of it; {tse['launches']} launches "
+          f"on that path; at {len(t1g)} atoms {k_ms:.3f} ms ({card})")
     return {"name": "cpmg_design", "route": "cuda",
             "source": "epgpy_torch/csrc/cpmg_design.cu",
             "replaces": "epgpy_tpu/models/pallas_msedesign.py:80",
@@ -5285,8 +5483,9 @@ def main():
     # run of the design (5c)
     hess_entry["launches"] += design["launches"]
     mse_entry, mse_jac_entry = _timed(phase_mse_numbers, torch, card,
-                                      mse_run, mse_jac_run)
+                                      mse_run, mse_jac_run, t2b1)
     design_entry = _timed(phase_design_numbers, torch, card, tse)
+    _timed(phase_occupancy)
     ssfp_entries = _timed(phase_ssfp_numbers, torch, card, bssfp_run,
                           bjac_run, dess_run)
     megre_entries = _timed(phase_megre_numbers, torch, card, megre_run,

@@ -18,21 +18,27 @@
 // each with the chain coefficient 1/2.  Lane i is zero before echo i, so
 // every output with i > echo j is an exact zero, which the kernel writes.
 //
-// What bounds it on the card: the state.  A lane carries 6 groups x 6
-// planes x H rows = 9,360 bytes at the example's E = 32, nstate 64, so a
-// block holds at most ~23 lanes.  The design is fisp_hess.cu's: one block
-// per (atom, tile of L lanes), one thread per lane, the lane groups in
-// shared memory at [group][plane][row][thread] (conflict-free; a thread
-// touches only its column).  The per-atom groups are needed only by the
-// seeded lane, but must advance every echo: the block keeps three buffers
-// of them (entering the echo, after its first half-stage, after its
-// rotation; 18 floats per row each), built cooperatively by all threads
-// between barriers (four per echo), read by the seeded lane as broadcasts.
-// Each tile recomputes them.  The lane work is two row walks per echo
-// (half-stage 1; rotation fused with half-stage 2), each a folded shift in
-// place.  The causal skip: a lane does no work before its echo.  Outputs,
-// (2G, B, E, E) floats with the lane index innermost, are written
-// coalesced, zeros included.  Math is precise (no fast-math).
+// What bounds it on the card: instruction issue and, at a few atoms, the
+// latency of one lane's chain of 2E half-stages, not bytes or operations.
+// A lane carries 6 groups x 6 planes x H rows (H = 65 at the example's E
+// = 32, nstate 64).  The design: one block per (atom, tile of lanes), one
+// warp per lane (a "lane-warp"), the rows of its groups across the warp's
+// 32 threads (epg_planes.cuh's warp-row layout: one record of 6 G + 1
+// floats per row, odd so the lanes' rows fall in distinct banks; a thread
+// touches only its own rows and values cross lanes by shuffles,
+// epg::WarpShift).  Tile t of an atom takes lanes t, t + ntiles, ... so
+// that the tiles finish together.  The per-atom groups are needed only by
+// the seeded lane, but must advance every echo: the block keeps three
+// buffers of them (entering the echo, after its first half-stage, after
+// its rotation; 18 floats per row each, stored 19 apart), built
+// cooperatively by all threads between barriers (four per echo) and read
+// row-wise by the lane-warps.  Each tile recomputes them.  The lane work
+// is two chunk walks per echo (half-stage 1; rotation fused with
+// half-stage 2); every walk, per-atom stages included, stops at the last
+// row the echo can have reached (epg::reach): rows beyond hold exact
+// zeros.  The causal skip: a lane-warp does no work before its echo, and
+// writes its zeros.  Outputs are (2G, B, E, E) floats with the lane index
+// innermost.  Math is precise (no fast-math).
 #include <cuda_runtime.h>
 
 #include "epg_planes.cuh"
@@ -41,7 +47,8 @@ namespace {
 
 constexpr float kDeg = 0.017453292519943295f;   // pi / 180
 // floats per ladder row of one per-atom buffer: P, U1, U2 (6 planes each)
-constexpr int kAtomRow = 18;
+// and one more, so that the lane-warps' row reads are conflict-free
+constexpr int kAtomRow = 19;
 
 struct DesignArgs {
     float exc_ar, exc_ai, exc_z;   // excited F+(0) (re, im) and Z(0)
@@ -54,6 +61,8 @@ struct DesignArgs {
     float* out_lane;    // (2G, B, E, E): per lane group (re, im), [b][j][i]
     int E, B, H, ntiles;
 };
+
+constexpr int kMaxTile = 8;   // lane-warps per block
 
 // half-spacing coefficients (pallas_msedesign.py:121-134)
 struct Coef {
@@ -105,13 +114,14 @@ __device__ __forceinline__ void atom_new(const float* src, int g, int s,
     }
 }
 
-// Cooperative half-stage of the per-atom groups: dst = Sh(D src + r),
-// destination rows split over the block's threads.
+// Cooperative half-stage of the per-atom groups: dst = Sh(D src + r) on
+// rows 0..rows-1 (those it can reach; dst holds zeros beyond), split over
+// the block's n threads.
 __device__ __forceinline__ void atom_stage(const float* src, float* dst,
-                                           const Coef& c, int H, int tid,
-                                           int L) {
-    for (int t = tid; t < 3 * H; t += L) {
-        const int g = t / H, k = t - g * H;
+                                           const Coef& c, int H, int rows,
+                                           int tid, int n) {
+    for (int t = tid; t < 3 * rows; t += n) {
+        const int g = t / rows, k = t - g * rows;
         float nw[6];
         float* o = dst + k * kAtomRow + 6 * g;
         if (k >= 1) {
@@ -137,22 +147,25 @@ __device__ __forceinline__ void atom_stage(const float* src, float* dst,
     }
 }
 
-// Cooperative rotation of the per-atom groups: dst = M src, rowwise.
+// Cooperative rotation of the per-atom groups: dst = M src on rows
+// 0..rows-1.
 __device__ __forceinline__ void atom_rotate(const float* src, float* dst,
-                                            const epg::Rot& r, int H,
-                                            int tid, int L) {
-    for (int t = tid; t < 3 * H; t += L) {
-        const int g = t / H, k = t - g * H;
+                                            const epg::Rot& r, int rows,
+                                            int tid, int n) {
+    for (int t = tid; t < 3 * rows; t += n) {
+        const int g = t / rows, k = t - g * rows;
         rotate(r, src + k * kAtomRow + 6 * g, dst + k * kAtomRow + 6 * g);
     }
 }
 
-__device__ __forceinline__ void read6(const epg::PlaneSet& s, int k,
+__device__ __forceinline__ void read6(const epg::RowSet& s, int k,
                                       float x[6]) {
-    for (int j = 0; j < 6; ++j) x[j] = s.at(j, k);
+    const float* r = &s.at(0, k);
+#pragma unroll
+    for (int j = 0; j < 6; ++j) x[j] = r[j];
 }
 
-__device__ __forceinline__ void put6(epg::FoldedShift& sh, int k,
+__device__ __forceinline__ void put6(epg::WarpShift& sh, int k,
                                      const float v[6]) {
     sh.put(k, v[0], v[1], v[2], v[3], v[4], v[5]);
 }
@@ -162,7 +175,7 @@ __device__ __forceinline__ void put6(epg::FoldedShift& sh, int k,
 // entering the stage (rotated already in the second half-stage), at the
 // per-atom buffer entering it, m = 1 seeds the lane at its own echo.
 template <bool SECOND>
-__device__ __forceinline__ void lane_put(epg::FoldedShift* sh, int k,
+__device__ __forceinline__ void lane_put(epg::WarpShift* sh, int k,
                                          const Coef& c, float m,
                                          const float* at, const float yA[6],
                                          const float yT[6],
@@ -208,78 +221,93 @@ __device__ __forceinline__ void lane_put(epg::FoldedShift* sh, int k,
 }
 
 // One echo of lane i's groups: half-stage 1, then the rotation (lane A
-// seeded with M' P, W1/W2 with M' U1 / M' U2) fused with half-stage 2.
+// seeded with M' P, W1/W2 with M' U1 / M' U2) fused with half-stage 2,
+// each over the 32-row chunks echo n can have reached; lanes past the
+// ladder's end read its last row and the shifts drop what they compute.
 // S0, S1, S2: the per-atom buffers entering the echo, after half-stage 1
 // and after the rotation.
 template <bool SECOND>
 __device__ __forceinline__ void lane_echo(const DesignArgs& p,
-                                          const epg::PlaneSet* s,
-                                          const float* S0, const float* S1,
-                                          const float* S2, const Coef& c,
-                                          const epg::Rot& r,
+                                          const epg::RowSet* s, int n,
+                                          int lane, const float* S0,
+                                          const float* S1, const float* S2,
+                                          const Coef& c, const epg::Rot& r,
                                           const epg::Rot& dr, float m) {
     constexpr int G = SECOND ? 6 : 2;
+    const int H = p.H;
     float y[6][6];
     {
-        epg::FoldedShift sh[G];
-        for (int g = 0; g < G; ++g) sh[g] = epg::FoldedShift{s[g], 0.f, 0.f};
-        for (int k = 0; k < p.H; ++k) {
-            for (int g = 0; g < G; ++g) read6(s[g], k, y[g]);
-            lane_put<SECOND>(sh, k, c, m, S0 + k * kAtomRow, y[0], y[1],
+        epg::WarpShift sh[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) sh[g] = epg::warp_shift(s[g]);
+        const int top = epg::reach(n, 1, H);
+        for (int k = lane; k - lane <= top; k += epg::kWarp) {
+            const int kr = k < H ? k : H - 1;
+#pragma unroll
+            for (int g = 0; g < G; ++g) read6(s[g], kr, y[g]);
+            lane_put<SECOND>(sh, k, c, m, S0 + kr * kAtomRow, y[0], y[1],
                              y[2], y[3], y[4], y[5]);
         }
-        for (int g = 0; g < G; ++g) sh[g].finish();
     }
     {
-        epg::FoldedShift sh[G];
-        for (int g = 0; g < G; ++g) sh[g] = epg::FoldedShift{s[g], 0.f, 0.f};
-        for (int k = 0; k < p.H; ++k) {
-            const float* a1 = S1 + k * kAtomRow;
+        epg::WarpShift sh[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) sh[g] = epg::warp_shift(s[g]);
+        const int top = epg::reach(n, 2, H);
+        for (int k = lane; k - lane <= top; k += epg::kWarp) {
+            const int kr = k < H ? k : H - 1;
+            const float* a1 = S1 + kr * kAtomRow;
+#pragma unroll
             for (int g = 0; g < G; ++g) {
                 float x[6];
-                read6(s[g], k, x);
+                read6(s[g], kr, x);
                 rotate(r, x, y[g]);
             }
             // seeds: d(M)/dalpha applied to the per-atom rows P, U1, U2
             // after half-stage 1, into lane groups A, W1, W2
-            const int seeded[3] = {0, 2, 3};
+#pragma unroll
             for (int q = 0; q < (SECOND ? 3 : 1); ++q) {
+                const int g = q == 0 ? 0 : q + 1;
                 float d[6];
                 rotate(dr, a1 + 6 * q, d);
-                for (int j = 0; j < 6; ++j)
-                    y[seeded[q]][j] = y[seeded[q]][j] + m * d[j];
+#pragma unroll
+                for (int j = 0; j < 6; ++j) y[g][j] = y[g][j] + m * d[j];
             }
-            lane_put<SECOND>(sh, k, c, m, S2 + k * kAtomRow, y[0], y[1],
+            lane_put<SECOND>(sh, k, c, m, S2 + kr * kAtomRow, y[0], y[1],
                              y[2], y[3], y[4], y[5]);
         }
-        for (int g = 0; g < G; ++g) sh[g].finish();
     }
 }
 
 template <bool SECOND>
-__global__ void cpmg_design_kernel(const DesignArgs p) {
+__global__ void __launch_bounds__(kMaxTile * epg::kWarp)
+cpmg_design_kernel(const DesignArgs p) {
     constexpr int G = SECOND ? 6 : 2;
     extern __shared__ float smem[];
-    const int L = static_cast<int>(blockDim.x);
+    const int nthr = static_cast<int>(blockDim.x);
+    const int L = nthr / epg::kWarp;
     const int tid = static_cast<int>(threadIdx.x);
+    const int lane = tid & (epg::kWarp - 1);
+    const int w = tid / epg::kWarp;
     const int H = p.H, E = p.E;
     const int b = blockIdx.x / p.ntiles;
     const int tile = blockIdx.x - b * p.ntiles;
-    const int i = tile * L + tid;  // this thread's lane (echo variable)
-    epg::PlaneSet s[G];
-    for (int g = 0; g < G; ++g)
-        s[g] = epg::PlaneSet{smem + tid + 6 * g * H * L, H, L};
-    float* S0 = smem + 6 * G * H * L;   // [H][kAtomRow], three buffers
+    const int i = tile + w * p.ntiles;  // this warp's lane (echo variable)
+    constexpr int S = 6 * G + 1;   // floats per row record (odd)
+    float* base = smem + static_cast<size_t>(w) * S * H;
+    epg::RowSet s[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) s[g] = epg::RowSet{base + 6 * g, S, H};
+    float* S0 = smem + static_cast<size_t>(S) * H * L;  // [H][kAtomRow]
     float* S1 = S0 + H * kAtomRow;
     float* S2 = S1 + H * kAtomRow;
 
     const float T1 = p.t1[b];
     const float T2 = p.t2[b];
-    for (int g = 0; g < G; ++g)
-        for (int j = 0; j < 6; ++j)
-            for (int k = 0; k < H; ++k) s[g].at(j, k) = 0.0f;
-    // the excited state; U1, U2 start at zero
-    for (int t = tid; t < H * kAtomRow; t += L) S0[t] = 0.0f;
+    // every plane and per-atom buffer starts at zero (rows beyond the
+    // reach stay so); the excited state; U1, U2 start at zero
+    for (int t = tid; t < (S * L + 3 * kAtomRow) * H; t += nthr)
+        smem[t] = 0.0f;
     __syncthreads();
     if (tid == 0) {
         S0[0] = p.exc_ar;
@@ -303,36 +331,34 @@ __global__ void cpmg_design_kernel(const DesignArgs p) {
         const epg::Rot r = epg::rot_coeffs_sc(sa, ca, cp, sp, c2p, s2p);
         const epg::Rot dr =
             epg::rot_coeffs_db1(sa, ca, kDeg, cp, sp, c2p, s2p);
+        const int rows1 = epg::reach(n, 1, H) + 1;
+        const int rows2 = epg::reach(n, 2, H) + 1;
 
-        atom_stage(S0, S1, c, H, tid, L);
+        atom_stage(S0, S1, c, H, rows1, tid, nthr);
         __syncthreads();
-        atom_rotate(S1, S2, r, H, tid, L);
+        atom_rotate(S1, S2, r, rows1, tid, nthr);
         __syncthreads();
-        if (i < E) {
+        if (i < E) {   // uniform per warp
             const size_t at = static_cast<size_t>(b) * EE
                 + static_cast<size_t>(n) * E + i;
             if (i <= n) {
-                lane_echo<SECOND>(p, s, S0, S1, S2, c, r, dr,
+                lane_echo<SECOND>(p, s, n, lane, S0, S1, S2, c, r, dr,
                                   i == n ? 1.0f : 0.0f);
-                for (int g = 0; g < G; ++g) {
-                    p.out_lane[(2 * g) * lane_plane + at] = s[g].at(0, 0);
-                    p.out_lane[(2 * g + 1) * lane_plane + at] = s[g].at(1, 0);
-                }
-            } else {  // causality: lane i is zero before echo i
-                for (int o = 0; o < 2 * G; ++o)
-                    p.out_lane[o * lane_plane + at] = 0.0f;
+                __syncwarp();   // row 0 (lane 0's) to lanes 0..2G-1
+                if (lane < 2 * G)
+                    p.out_lane[lane * lane_plane + at] =
+                        base[6 * (lane >> 1) + (lane & 1)];
+            } else if (lane < 2 * G) {  // causality: zero before echo i
+                p.out_lane[lane * lane_plane + at] = 0.0f;
             }
         }
-        __syncthreads();                 // S0 is no longer read this echo
-        atom_stage(S2, S0, c, H, tid, L);
+        __syncthreads();      // S0 is no longer read this echo, nor row 0
+        atom_stage(S2, S0, c, H, rows2, tid, nthr);
         __syncthreads();
-        if (tile == 0 && tid == 0) {
+        if (tile == 0 && tid < 6) {
             // per-atom echoes: row 0 of P, U1, U2 after the second stage
-            float* o = p.out_atom + static_cast<size_t>(b) * E + n;
-            for (int g = 0; g < 3; ++g) {
-                o[(2 * g) * atom_plane] = S0[6 * g];
-                o[(2 * g + 1) * atom_plane] = S0[6 * g + 1];
-            }
+            p.out_atom[tid * atom_plane + static_cast<size_t>(b) * E + n] =
+                S0[6 * (tid >> 1) + (tid & 1)];
         }
     }
 }
@@ -340,8 +366,10 @@ __global__ void cpmg_design_kernel(const DesignArgs p) {
 template <bool SECOND>
 int launch(const DesignArgs& a, int tile, cudaStream_t stream) {
     constexpr int G = SECOND ? 6 : 2;
+    if (tile < 1 || tile > kMaxTile)
+        return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = sizeof(float) * static_cast<size_t>(a.H)
-        * (static_cast<size_t>(6 * G) * tile + 3 * kAtomRow);
+        * (static_cast<size_t>(6 * G + 1) * tile + 3 * kAtomRow);
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             cpmg_design_kernel<SECOND>,
@@ -350,8 +378,8 @@ int launch(const DesignArgs& a, int tile, cudaStream_t stream) {
         if (e != cudaSuccess) return static_cast<int>(e);
     }
     const long long grid = static_cast<long long>(a.ntiles) * a.B;
-    cpmg_design_kernel<SECOND><<<static_cast<unsigned>(grid), tile, smem,
-                                 stream>>>(a);
+    cpmg_design_kernel<SECOND><<<static_cast<unsigned>(grid),
+                                 tile * epg::kWarp, smem, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -359,7 +387,7 @@ int launch(const DesignArgs& a, int tile, cudaStream_t stream) {
 
 // Launch on `stream` of CUDA device `device`; allocates nothing.  Returns
 // the CUDA error code of the launch (0 on success); the caller raises on
-// anything else.
+// anything else.  `tile` is lane-warps per block (at most 8).
 extern "C" int epg_cpmg_design(float exc_ar, float exc_ai, float exc_z,
                                const float* fa, const float* phi,
                                const float* esp, const float* t1,

@@ -320,7 +320,7 @@ __device__ __forceinline__ void attenuate_row(const PlaneSet& s, int k,
 }
 
 // FoldedShift::put after the DW-TSE attenuation of the CPMG half-stage
-// E(tau) S(1) [D] (cpmg.cu, cpmg_jac.cu; attenuate() of planes.py) when `a`
+// E(tau) S(1) [D] (cpmg.cu; attenuate() of planes.py) when `a`
 // is not null: each new value of row k is scaled by the row put() writes it
 // to -- A to k + 1, B to k - 1 (and from k = 1 to A(0) as well: aA(0) ==
 // aB(0)), Z to k.  `a` holds the planes aA, aB, aZ at rows 0..H-1; the
@@ -487,6 +487,134 @@ __device__ __forceinline__ Row saturate(const Row& x, float fr, float fi,
     cmul(fr, fi, x.BR, x.BI, o.BR, o.BI);
     cmul(zr, zi, x.ZR, x.ZI, o.ZR, o.ZI);
     return o;
+}
+
+// -- warp-row layout: one warp per folded ladder, rows across its lanes --
+//
+// The CPMG tangent kernels (cpmg_jac.cu, cpmg_design.cu) give each ladder
+// a warp.  Lane l owns rows l, l + 32, ..., walked as 32-row chunks c (row
+// k = 32 c + l).  Row k of every plane of every group the warp carries
+// sits in one record of S floats in shared memory (plane j of a group at
+// record offset 6 g + j), S odd: consecutive lanes then touch words S
+// apart, all in distinct banks, and every access to a row is one address
+// plus a constant offset.  A lane reads and writes only its own rows:
+// values cross lanes by shuffles, so a half-stage needs no __syncwarp
+// between its chunks.
+
+constexpr int kWarp = 32;
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// One group's planes (or a set of per-row values) on the warp-row layout.
+struct RowSet {
+    float* base;  // record of row 0, at the group's first plane
+    int S;        // floats per row record (odd)
+    int H;        // rows (nstate + 1)
+    __device__ __forceinline__ float& at(int j, int k) const {
+        return base[k * S + j];
+    }
+};
+
+__device__ __forceinline__ Row read_row(const RowSet& s, int k) {
+    const float* r = &s.at(0, k);
+    return Row{r[0], r[1], r[2], r[3], r[4], r[5]};
+}
+
+// The folded unit shift of FoldedShift on the warp-row layout: fed the
+// same unshifted new values of every row, it leaves the same planes.
+// Every lane of the warp calls put(k, ...) for chunk c = 0, 1, ... in
+// order, k = 32 c + lane, rows k >= H included (their values are
+// dropped); the caller walks only the chunks that can hold non-zero rows
+// (a chunk beyond the ladder's reach holds exact zeros and stays so).
+// put writes the lane's own row k: A(k) <- new A(k-1), B(k) <- new B(k+1)
+// (B(H-1) <- 0), Z(k) <- new Z(k), with A(0) <- new B(1).  Two rotations
+// by one lane move A up and B down; at the chunk's edges they hand lane 0
+// the chunk's last new A, kept as the next chunk's A(k-1), and lane 31
+// the chunk's first new B, which belongs to the previous chunk's last row
+// (lane 31's own row there).  Lane 31 writes its own B(k) as 0 until then,
+// which stands when no chunk follows: that row is beyond the reach, or
+// the ladder's end.
+struct WarpShift {
+    RowSet s;
+    float carR, carI;  // lane 0: new A of row 32 c - 1
+
+    __device__ __forceinline__ void put(int k, float nAR, float nAI,
+                                        float nBR, float nBI, float nZR,
+                                        float nZI) {
+        const int lane = k & (kWarp - 1);
+        const int below = (lane + kWarp - 1) & (kWarp - 1);
+        const int above = (lane + 1) & (kWarp - 1);
+        const float aR = __shfl_sync(kFullMask, nAR, below);
+        const float aI = __shfl_sync(kFullMask, nAI, below);
+        const float bR = __shfl_sync(kFullMask, nBR, above);
+        const float bI = __shfl_sync(kFullMask, nBI, above);
+        const bool first = lane == 0, last = lane == kWarp - 1;
+        const float AR = first ? (k == 0 ? bR : carR) : aR;
+        const float AI = first ? (k == 0 ? bI : carI) : aI;
+        carR = aR;
+        carI = aI;
+        const bool zeroB = last || k == s.H - 1;
+        if (k < s.H) {
+            float* r = &s.at(0, k);
+            r[0] = AR;
+            r[1] = AI;
+            r[2] = zeroB ? 0.0f : bR;
+            r[3] = zeroB ? 0.0f : bI;
+            r[4] = nZR;
+            r[5] = nZI;
+        }
+        if (last && k >= kWarp) {
+            s.at(2, k - kWarp) = bR;
+            s.at(3, k - kWarp) = bI;
+        }
+    }
+};
+
+__device__ __forceinline__ WarpShift warp_shift(const RowSet& s) {
+    return WarpShift{s, 0.0f, 0.0f};
+}
+
+// The DW-TSE factors for the new values of row k (put_attenuated's): each
+// value is scaled by the row the shift moves it to -- A to k + 1, B to
+// k - 1, Z to k -- from `a`, whose values 0, 1, 2 are aA, aB, aZ; rows are
+// clamped into the ladder for the lanes past its end, whose values the
+// shift drops.
+__device__ __forceinline__ StageAtt warp_att(const RowSet& a, int k) {
+    const int top = a.H - 1;
+    return StageAtt{a.at(0, k + 1 < top ? k + 1 : top),
+                    a.at(1, k >= 1 ? (k - 1 < top ? k - 1 : top) : 0),
+                    a.at(2, k < top ? k : top)};
+}
+
+// att_rows on the warp-row layout: lane l fills rows l, l + 32, ... (the
+// same expressions; call __syncwarp before other lanes read them).
+__device__ __forceinline__ void att_rows_warp(const RowSet& a, float bT,
+                                              float bL, bool ramp, float Dc,
+                                              int lane) {
+    for (int k = lane; k < a.H; k += kWarp) {
+        const float kf = static_cast<float>(k);
+        const float k2 = kf * kf;
+        float fA, fB;
+        if (ramp) {
+            fA = bT * (k2 - kf + 1.0f / 3.0f);
+            fB = bT * (k2 + kf + 1.0f / 3.0f);
+        } else {
+            fA = bT * k2;
+            fB = fA;
+        }
+        const float fZ = bL * k2;
+        a.at(0, k) = expf(-fA * Dc);
+        a.at(1, k) = expf(-fB * Dc);
+        a.at(2, k) = expf(-fZ * Dc);
+    }
+}
+
+// The last row a half-stage of echo i (0-based) can make non-zero, within
+// the ladder: after the excitation only row 0 holds state and every shift
+// reaches one row further, so the first half-stage of echo i reaches row
+// 2 i + 1, the second 2 i + 2.
+__device__ __forceinline__ int reach(int i, int half, int H) {
+    const int r = 2 * i + half;
+    return r < H - 1 ? r : H - 1;
 }
 
 }  // namespace epg

@@ -22,11 +22,14 @@ not take: no fallback) and the plain twin for CPU tensors; the echo-layout
 ``LAUNCHES`` / ``JAC_LAUNCHES`` count kernel launches.  The TPU-only knobs
 (``btile``, ``interpret``) are not taken.
 
-Shared-memory gates (one thread per atom, planes at [plane][row][atom]):
-the primal keeps 6 planes (12 with diffusion), so ``mse_kernel_fits``
-admits nstate <= 301 (150 with diffusion) at its smallest block of 32;
-the Jacobian keeps 24 planes (30 with diffusion): nstate <= 74 (59).  The
-published 18-echo train needs nstate 36.
+Shared-memory gates: the primal runs one thread per atom with 6 planes
+(12 with diffusion) at [plane][row][atom], so ``mse_kernel_fits`` admits
+nstate <= 301 (150 with diffusion) at its smallest block of 32.  The
+Jacobian runs one warp per atom with its 24 planes (30 with diffusion)
+across the lanes (``cpmg_jac.cu``); ``mse_jac_kernel_fits`` keeps the gate
+of the earlier one-thread-per-atom layout, nstate <= 74 (59), so that no
+train changed route with the layout.  The published 18-echo train needs
+nstate 36.
 """
 
 from __future__ import annotations
@@ -43,12 +46,16 @@ __all__ = ["cpmg_dictionary_cuda", "cpmg_dictionary_plain", "cpmg_echoes",
            "cpmg_echoes_plain", "cpmg_jacobian_cuda", "cpmg_jacobian_plain",
            "cpmg_jacobian_echoes", "cpmg_jacobian_echoes_plain",
            "mse_kernel_fits", "mse_jac_kernel_fits", "mse_block_size",
-           "mse_jac_block_size", "LAUNCHES", "JAC_LAUNCHES"]
+           "mse_jac_block_size", "jac_block_smem", "LAUNCHES",
+           "JAC_LAUNCHES", "JAC_MAX_WARPS"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
 #: Jacobian kernel launches so far
 JAC_LAUNCHES = 0
+#: atom-warps per block of the Jacobian kernel (cpmg_jac.cu's launch
+#: bound: 256 threads)
+JAC_MAX_WARPS = 8
 
 
 def _planes(diffusion, jac):
@@ -68,30 +75,45 @@ def mse_kernel_fits(nstate, diffusion=False) -> bool:
 
 
 def mse_jac_kernel_fits(nstate, diffusion=False) -> bool:
-    """Whether the CPMG Jacobian kernel's 24 planes (30 with diffusion)
-    fit at its smallest block (32 atoms): nstate <= 74 (59)."""
+    """Whether the CPMG Jacobian kernel takes this ladder: while 32 atoms'
+    24 planes (30 with diffusion) fit one block's shared memory, nstate <=
+    74 (59).  A block of the warp-row kernel holds at most
+    ``JAC_MAX_WARPS`` ladders, so the layout itself would admit deeper
+    ones; the gate stays where the one-thread-per-atom layout had it, so
+    that the same trains take the kernel."""
     return _smem(max(int(nstate), 1), 32, bool(diffusion), True) \
         <= SMEM_PER_BLOCK
-
-
-def _block(nstate, diffusion, jac, start):
-    block = start
-    while block > 32 and _smem(nstate, block, diffusion, jac) \
-            > SMEM_PER_BLOCK:
-        block //= 2
-    return block
 
 
 def mse_block_size(nstate, diffusion=False) -> int:
     """Threads per block of the primal kernel: 128, halved while the
     planes do not fit (128 holds the 18-echo train, with diffusion too)."""
-    return _block(nstate, bool(diffusion), False, 128)
+    block = 128
+    while block > 32 and _smem(nstate, block, bool(diffusion), False) \
+            > SMEM_PER_BLOCK:
+        block //= 2
+    return block
+
+
+def jac_block_smem(nstate, warps, diffusion=False) -> int:
+    """Shared memory of one block of the Jacobian kernel: per atom-warp,
+    one record per ladder row of its 24 plane values (30 with the DW-TSE
+    factors) and one more, which makes the record odd (conflict-free)."""
+    return 4 * (_planes(diffusion, True) + 1) * (int(nstate) + 1) * warps
 
 
 def mse_jac_block_size(nstate, diffusion=False) -> int:
-    """Threads per block of the Jacobian kernel: 64, halved while the
-    planes do not fit (at nstate 36: 64 without diffusion, 32 with)."""
-    return _block(nstate, bool(diffusion), True, 64)
+    """Atom-warps per block of the Jacobian kernel (one warp per atom):
+    ``JAC_MAX_WARPS``, halved while they do not fit one block (8 at every
+    ladder the gate admits: 60,000 bytes at its edges, nstate 74 and 59
+    with diffusion; 29,600 at the published nstate 36, where an SM's
+    shared memory holds 56 atom-warps and its registers decide how many
+    run)."""
+    warps = JAC_MAX_WARPS
+    while warps > 1 and jac_block_smem(nstate, warps, bool(diffusion)) \
+            > SMEM_PER_BLOCK:
+        warps //= 2
+    return warps
 
 
 def _prepare(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, diffusion, diff_ramp,

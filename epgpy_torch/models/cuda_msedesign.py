@@ -40,7 +40,7 @@ from . import planes
 from .cuda_fisp import SMEM_PER_BLOCK, _takes_twin
 
 __all__ = ["cpmg_design_cuda", "cpmg_design_plain", "design_kernel_fits",
-           "design_tile", "DESIGN_LAUNCHES"]
+           "design_tile", "design_block_smem", "DESIGN_LAUNCHES"]
 
 #: design kernel launches so far (diagnostics: proves a run went through it)
 DESIGN_LAUNCHES = 0
@@ -49,41 +49,50 @@ DESIGN_LAUNCHES = 0
 _LANE_NAMES = ("dalpha", "desp", "dT1dalpha", "dT2dalpha", "dT1desp",
                "dT2desp")
 #: floats per ladder row of one buffer of the per-atom groups P, U1, U2
-_ATOM_ROW = 18
+#: (18, and one more: an odd row stride is conflict-free)
+_ATOM_ROW = 19
 #: the kernel keeps three such buffers (before and after the first
 #: half-stage, after the rotation)
 _ATOM_BUFFERS = 3
-#: smallest lane tile the gate admits
-_MIN_TILE = 8
+#: lane-warps per block at most (cpmg_design.cu's launch bound: 256
+#: threads); also the tile the gate is taken at
+_MAX_TILE = 8
 
 
 def _lane_groups(second_order):
     return 6 if second_order else 2
 
 
-def _smem_bytes(nstate, tile, second_order):
-    """Shared memory of one block: the lane groups' planes (6 planes x H
-    rows per group and lane) and the per-atom buffers."""
+def design_block_smem(nstate, tile, second_order=True) -> int:
+    """Shared memory of one block of the design kernel: per lane-warp,
+    one record per ladder row of its 6 G plane values and one more (odd:
+    conflict-free), and the three per-atom buffers."""
     H = int(nstate) + 1
-    return 4 * H * (6 * _lane_groups(second_order) * tile
+    return 4 * H * ((6 * _lane_groups(second_order) + 1) * tile
                     + _ATOM_BUFFERS * _ATOM_ROW)
 
 
 def design_kernel_fits(nstate, second_order=True) -> bool:
-    """Whether the design kernel's state fits in one block's shared
-    memory at a tile of 8 lanes: nstate <= 168 (second order), <= 386
-    (first)."""
-    return _smem_bytes(max(int(nstate), 1), _MIN_TILE,
-                       second_order) <= SMEM_PER_BLOCK
+    """Whether the design kernel takes this ladder: while 8 lanes' planes
+    (6 G x H floats each) and three per-atom buffers of 18 H floats fit
+    one block's shared memory -- nstate <= 168 (second order), <= 386
+    (first).  That is the one-thread-per-lane layout's gate, kept so that
+    the same designs take the kernel; the warp-row kernel needs one
+    lane-warp (``design_tile`` never gives less), so it would admit
+    deeper ladders."""
+    H = max(int(nstate), 1) + 1
+    return 4 * H * (6 * _lane_groups(second_order) * _MAX_TILE
+                    + _ATOM_BUFFERS * 18) <= SMEM_PER_BLOCK
 
 
 def design_tile(nechoes, nstate, second_order=True) -> int:
-    """Lanes (threads) per block: at most 64 and what fits, then evened
-    out over the tiles (E = 32, nstate 64, second order: 2 tiles of 16
-    lanes, 164 KB)."""
+    """Lane-warps per block (one warp per design lane): at most 8 and
+    what fits, then evened out over the tiles (E = 32, nstate 64, second
+    order: 4 tiles of 8 lane-warps, 91,780 bytes, two blocks per SM; at
+    the gate's nstate 168, 7)."""
     E = int(nechoes)
-    tile = min(E, 64)
-    while tile > 1 and _smem_bytes(nstate, tile, second_order) \
+    tile = min(E, _MAX_TILE)
+    while tile > 1 and design_block_smem(nstate, tile, second_order) \
             > SMEM_PER_BLOCK:
         tile -= 1
     ntiles = -(-E // tile)

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_GROUP_SETS,
-                        DESIGN_CASES, DESS_CASES, FULL_CASES, HESS_CASES,
-                        JAC_CASES, MEGRE_CASES, MSE_CASES, OPTION_CASES,
+                        DESIGN_CASES, DESIGN_SHAPES, DESS_CASES, FULL_CASES,
+                        HESS_CASES, JAC_CASES, MEGRE_CASES, MSE_CASES,
+                        MSE_JAC_SHAPES, MSE_RAGGED_CASES, OPTION_CASES,
                         _atom_tensors, _causal_max, _pair_errors,
                         comp_jac_draws, comp_jac_sequence, comp_tensors,
                         hess_block_errors, hessian_sequence, make_bssfp_case,
@@ -174,6 +175,49 @@ def test_cuda_design_kernel_matches_plain_twin(card, case):
     assert cuda_msedesign.DESIGN_LAUNCHES == before + 1
     p = cuda_msedesign.cpmg_design_plain(*args, **kw)
     assert max(hess_block_errors(k, p).values()) < 1e-5
+    assert _causal_max(torch, k) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MSE_JAC_SHAPES, ids=str)
+@pytest.mark.parametrize("name", MSE_RAGGED_CASES)
+def test_cuda_cpmg_jac_ragged_shapes(card, name, shape):
+    """On the card, at ragged atom counts and a one-echo train: the
+    warp-row Jacobian kernel == its twin, echoes to 2e-6 and tangent
+    columns to 1e-5 of the column's largest value."""
+    case = next(c for c in MSE_CASES if c["name"] == name)
+    args, kw = _atom_tensors(torch, *make_mse_case(case, *shape), 5, "cuda")
+    before = cuda_mse.JAC_LAUNCHES
+    (kre, kim), (kdre, kdim) = cuda_mse.cpmg_jacobian_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_mse.JAC_LAUNCHES == before + 1
+    (pre, pim), (pdre, pdim) = cuda_mse.cpmg_jacobian_plain(*args, **kw)
+    assert max(float((kre - pre).abs().max()),
+               float((kim - pim).abs().max())) < 2e-6
+    for c in range(3):
+        scale = max(float(pdre[..., c].abs().max()),
+                    float(pdim[..., c].abs().max()))
+        err = max(float((kdre[..., c] - pdre[..., c]).abs().max()),
+                  float((kdim[..., c] - pdim[..., c]).abs().max()))
+        assert err <= 1e-5 * scale, (c, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DESIGN_SHAPES, ids=str)
+@pytest.mark.parametrize("second_order", [True, False])
+def test_cuda_design_ragged_shapes(card, second_order, shape):
+    """On the card, at ragged atom counts, a one-echo train and echo
+    counts no multiple of the tile: the warp-row design kernel == its
+    twin to 1e-5 of each block; variable > echo entries exact zeros."""
+    case = dict(name="ragged", second_order=second_order)
+    args, kw = _atom_tensors(torch, *make_design_case(case, *shape), 4,
+                             "cuda")
+    before = cuda_msedesign.DESIGN_LAUNCHES
+    k = cuda_msedesign.cpmg_design_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_msedesign.DESIGN_LAUNCHES == before + 1
+    p = cuda_msedesign.cpmg_design_plain(*args, **kw)
+    assert max(hess_block_errors(k, p).values()) <= 1e-5
     assert _causal_max(torch, k) == 0.0
 
 

@@ -30,11 +30,12 @@ import epgpy_tpu as jepg
 import epgpy_torch as tepg
 from epgpy_torch import fisp_dispatch as tfd
 from epgpy_torch.convert import from_numpy_params
-from epgpy_torch.models import cuda_mse
+from epgpy_torch.models import cuda_fisp, cuda_mse
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_mse
 
-from torch_support import GOLDEN_DIR, cplx, port_f32, port_f64  # noqa: F401
+from torch_support import (GOLDEN_DIR, ShiftRecorder, cplx,  # noqa: F401
+                           port_f32, port_f64, rows_beyond)
 
 KV = 2 * np.pi / 1e-3        # 1 mm voxel: 6283 rad/m per state index
 EXC = (90.0, 90.0)
@@ -128,10 +129,81 @@ def test_echo_layout_and_launch_counters():
     assert not cuda_mse.mse_kernel_fits(151, True)
     assert cuda_mse.mse_jac_kernel_fits(74)
     assert not cuda_mse.mse_jac_kernel_fits(60, True)
-    assert cuda_mse.mse_jac_block_size(36) == 64
-    assert cuda_mse.mse_jac_block_size(36, True) == 32
+    # atom-warps per block (one warp per atom), with and without DW-TSE
+    assert cuda_mse.mse_jac_block_size(36) == 8
+    assert cuda_mse.mse_jac_block_size(36, True) == 8
     with pytest.raises(TypeError):
         cuda_mse.cpmg_echoes(*args[:5], np.ones(3), *args[6:], **kw)
+
+
+# -- what the warp-row Jacobian kernel's chunk skip and geometry rest on --
+
+
+#: cases of the reach test: per-echo spacings and phases, a B1 batch,
+#: DW-TSE with and without the ramp term
+REACH_CASES = {
+    "base": dict(),
+    "spacing_phase_b1": dict(var=True, b1=True),
+    "dw_ramps": dict(diff=(True, False), var=True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", REACH_CASES)
+def test_jacobian_twin_ladder_stays_within_reach(monkeypatch, name, dtype):
+    """After half-stage h (0-based, two per echo) every group of the
+    Jacobian twin is exactly zero past row min(h + 1, nstate): rows the
+    echo cannot have reached hold zeros, the invariant by which the kernel
+    skips the 32-row chunks beyond the reach.  And a train cut to j + 1
+    echoes gives the same outputs at nstate 2 (j + 1) and deeper."""
+    args, kw = _inputs(REACH_CASES[name], seed=3)
+    targs, tkw = _torch(args, kw)
+    targs = targs[:5] + tuple(a.to(dtype) for a in targs[5:])
+    if "diffusion" in tkw:
+        tkw["diffusion"] = tkw["diffusion"][:4] + tuple(
+            d.to(dtype) for d in tkw["diffusion"][4:])
+    rec = ShiftRecorder(monkeypatch)
+    cuda_mse.cpmg_jacobian_echoes_plain(*targs, **tkw)
+    assert len(rec.sets) == 2 * NECHO * 4
+    for q, s in enumerate(rec.sets):
+        h = q // 4
+        assert rows_beyond(s, min(h + 1, NSTATE)) == 0.0, (q, h)
+    for j in (0, 2, 5):
+        cut = targs[:1] + tuple(a[:j + 1] for a in targs[1:5]) + targs[5:]
+        want = cuda_mse.cpmg_jacobian_echoes_plain(
+            *cut, **dict(tkw, nstate=2 * (j + 1)))
+        for n in (2 * (j + 1) + 1, 2 * (j + 1) + 9, 40):
+            got = cuda_mse.cpmg_jacobian_echoes_plain(*cut,
+                                                      **dict(tkw, nstate=n))
+            for a, b in zip(got[0] + got[1], want[0] + want[1]):
+                assert torch.equal(a, b), (j, n)
+
+
+#: the Jacobian gates as the one-thread-per-atom layout set them: the
+#: warp-row kernel keeps them, so no train changes route
+JAC_GATE = {False: 74, True: 59}
+
+
+@pytest.mark.parametrize("diffusion", [False, True])
+def test_jacobian_gate_unchanged(diffusion):
+    """mse_jac_kernel_fits over nstate 1-400 is the pinned table: nstate
+    <= 74 without DW-TSE, <= 59 with it."""
+    got = [cuda_mse.mse_jac_kernel_fits(n, diffusion) for n in range(1, 401)]
+    assert got == [n <= JAC_GATE[diffusion] for n in range(1, 401)]
+
+
+@pytest.mark.parametrize("diffusion", [False, True])
+def test_jacobian_launch_geometry_fits(diffusion):
+    """For every ladder the gate admits: 1 to 8 atom-warps per block whose
+    row records (24 plane values, 30 with DW-TSE, and one more) fit one
+    block's shared memory."""
+    record = (30 if diffusion else 24) + 1
+    for n in range(1, JAC_GATE[diffusion] + 1):
+        warps = cuda_mse.mse_jac_block_size(n, diffusion)
+        assert 1 <= warps <= cuda_mse.JAC_MAX_WARPS == 8, n
+        smem = 4 * record * (n + 1) * warps
+        assert cuda_mse.jac_block_smem(n, warps, diffusion) == smem, n
+        assert smem <= cuda_fisp.SMEM_PER_BLOCK, n
 
 
 # -- float64 paths vs the goldens --

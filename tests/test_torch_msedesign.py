@@ -27,7 +27,9 @@ from epgpy_torch.parallel import (mse_design_loss_grad_fused,
                                   tse_design_slsqp)
 from epgpy_tpu.models.pallas_msedesign import cpmg_design_pallas
 
-from torch_support import cplx, port_f32, port_f64  # noqa: F401
+from epgpy_torch.models.cuda_fisp import SMEM_PER_BLOCK
+from torch_support import (ShiftRecorder, cplx, port_f32,  # noqa: F401
+                           port_f64, rows_beyond)
 
 NECHO = 8
 RNG = np.random.default_rng(5)
@@ -91,8 +93,77 @@ def test_causal_zeros_and_first_order(twin_design):
     assert cuda_msedesign.design_kernel_fits(168)
     assert not cuda_msedesign.design_kernel_fits(169)
     assert cuda_msedesign.design_kernel_fits(386, second_order=False)
-    assert cuda_msedesign.design_tile(32, 64) == 16
-    assert cuda_msedesign.design_tile(32, 64, second_order=False) == 32
+    # lane-warps per block (one warp per design lane), 4 tiles of 8
+    assert cuda_msedesign.design_tile(32, 64) == 8
+    assert cuda_msedesign.design_tile(32, 64, second_order=False) == 8
+
+
+# -- what the warp-row design kernel's chunk skip and geometry rest on --
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("second_order", [True, False])
+def test_twin_ladder_stays_within_reach(monkeypatch, second_order, dtype):
+    """After half-stage h (0-based, two per echo) every lane group and
+    every per-atom group of the design twin is exactly zero past row
+    min(h + 1, nstate) -- with per-echo phases and spacings -- the
+    invariant by which the kernel skips the 32-row chunks beyond the
+    reach; and a train cut to j + 1 echoes gives the same outputs at
+    nstate 2 (j + 1) and deeper."""
+    phi = np.random.default_rng(8).uniform(0.0, 40.0, NECHO)
+    args = ((90.0, 90.0), FA, phi, ESP, _t(T1g[:6], dtype),
+            _t(T2g[:6], dtype))
+    rec = ShiftRecorder(monkeypatch)
+    cuda_msedesign.cpmg_design_plain(*args, nstate=NS,
+                                     second_order=second_order)
+    per_half = (6 if second_order else 2) + 3
+    assert len(rec.sets) == 2 * NECHO * per_half
+    for q, s in enumerate(rec.sets):
+        h = q // per_half
+        assert rows_beyond(s, min(h + 1, NS)) == 0.0, (q, h)
+    for j in (0, 3):
+        cut = args[:1] + tuple(np.asarray(a)[:j + 1] for a in args[1:4]) \
+            + args[4:]
+        want = cuda_msedesign.cpmg_design_plain(
+            *cut, nstate=2 * (j + 1), second_order=second_order)
+        for n in (2 * (j + 1) + 1, 2 * (j + 1) + 9, 40):
+            got = cuda_msedesign.cpmg_design_plain(
+                *cut, nstate=n, second_order=second_order)
+            assert set(got) == set(want)
+            for key in got:
+                for a, b in zip(got[key], want[key]):
+                    assert torch.equal(a, b), (j, n, key)
+
+
+#: the design gates as the one-thread-per-lane layout set them: the
+#: warp-row kernel keeps them, so no design changes route
+DESIGN_GATE = {True: 168, False: 386}
+
+
+@pytest.mark.parametrize("second_order", [True, False])
+def test_design_gate_unchanged(second_order):
+    """design_kernel_fits over nstate 1-400 is the pinned table: nstate
+    <= 168 at second order, <= 386 at first."""
+    got = [cuda_msedesign.design_kernel_fits(n, second_order)
+           for n in range(1, 401)]
+    assert got == [n <= DESIGN_GATE[second_order] for n in range(1, 401)]
+
+
+@pytest.mark.parametrize("second_order", [True, False])
+def test_design_launch_geometry_fits(second_order):
+    """For every ladder the gate admits and echo counts from 1 to 100: 1
+    to 8 lane-warps per block, no more than the echoes, whose row records
+    (6 G plane values per lane-warp and one more) and three per-atom
+    buffers (19 floats per row) fit one block's shared memory."""
+    G = 6 if second_order else 2
+    for E in (1, 2, 7, 8, 9, 31, 32, 33, 64, 100):
+        for n in range(1, DESIGN_GATE[second_order] + 1):
+            tile = cuda_msedesign.design_tile(E, n, second_order)
+            assert 1 <= tile <= min(E, 8), (E, n)
+            smem = 4 * (n + 1) * ((6 * G + 1) * tile + 3 * 19)
+            assert cuda_msedesign.design_block_smem(
+                n, tile, second_order) == smem, (E, n)
+            assert smem <= SMEM_PER_BLOCK, (E, n)
 
 
 def _alias_train(e, esp=ESP):

@@ -136,3 +136,29 @@ def same_match(got, want):
         else:
             assert np.allclose(np.asarray(g), np.asarray(w), rtol=1e-12,
                                atol=0), k
+
+
+class ShiftRecorder:
+    """Records every plane set that ``planes.shift_fold`` returns while
+    active (the plain twins shift each group once per half-stage), so a
+    test can read the folded ladders the twins otherwise keep to
+    themselves."""
+
+    def __init__(self, monkeypatch):
+        from epgpy_torch.models import planes
+
+        self.sets = []
+        fold = planes.shift_fold
+
+        def record(s):
+            out = fold(s)
+            self.sets.append(out)
+            return out
+
+        monkeypatch.setattr(planes, "shift_fold", record)
+
+
+def rows_beyond(s, top):
+    """The largest |value| of a plane set's rows past `top` (0 when none)."""
+    return max((float(p[top + 1:].abs().max()) if p.shape[0] > top + 1
+                else 0.0) for p in s)
