@@ -414,6 +414,20 @@ MEGRE_CASES = [
     dict(name="m3_n8_all", m=3, nstate=8, var_te=True, b1=True, df=True,
          demodulate=True),
 ]
+#: the segmented Jacobian kernel's own edges (see JAC_EDGE_CASES): the
+#: gate's deepest ladder (nstate 59, its df group at dfs=None), R changing
+#: at nstate 31 / 32 / 33, nstate 1 (16 ladders per warp, one echo too
+#: many for the segment's lanes: m = 3 > W = 2)
+MEGRE_EDGE_CASES = [
+    dict(name="gate_n59", m=3, nstate=59, var_te=True, b1=True,
+         demodulate=True),
+    dict(name="n31", m=2, nstate=31, df=True),
+    dict(name="n32", m=3, nstate=32, var_te=True, b1=True, df=True,
+         demodulate=True),
+    dict(name="n33", m=2, nstate=33, df=True, demodulate=True),
+    dict(name="n1", m=3, nstate=1, var_te=True, b1=True, df=True,
+         demodulate=True),
+]
 
 #: covering set of the composite kernels' options: shift directions (up,
 #: down, mixed), ADC phases, b1u (adiabatic) stages with a B1 batch, df, D
@@ -489,6 +503,33 @@ JAC_CASES = [
     dict(name="all", var_te=True, inversion=15.0, df=True, demodulate=True,
          diffusion="ramp", track_d=True),
 ]
+
+
+#: the segmented Jacobian kernels' (fisp_jac.cu, megre_jac.cu) own edges,
+#: each held against its twin over a train longer than the ladder: the
+#: gate's deepest ladders (nstate 74; 59 with the dD group), rows per lane
+#: changing at nstate 31 / 32 / 33 (R = 1, 2) and nstate 1 (16 ladders per
+#: warp)
+JAC_EDGE_CASES = [
+    dict(name="gate_n74", nstate=74, var_te=True, inversion=20.0, df=True,
+         demodulate=True),
+    dict(name="gate_d_n59", nstate=59, inversion=20.0, df=True,
+         diffusion="ramp", track_d=True),
+    dict(name="n31", nstate=31, df=True, demodulate=True),
+    dict(name="n32", nstate=32, var_te=True, inversion=20.0),
+    dict(name="n33_d", nstate=33, diffusion="noramp", track_d=True),
+    dict(name="n1", nstate=1, inversion=20.0, df=True, demodulate=True),
+]
+#: atoms and pulses of the segmented kernels' edge cases
+SEG_EDGE_SHAPE = (1000, 100)
+#: ragged shapes (atoms, pulses) of the segmented kernels, each run with
+#: the option case SEG_RAGGED_CASES names: 1, 2 and 3 atoms (part of one
+#: warp's segments), 33 and 4,097 (a partial block), a one-pulse train
+SEG_SHAPES = [(1, 120), (2, 120), (3, 120), (33, 120), (4097, 120), (33, 1)]
+SEG_RAGGED_CASES = {"fisp_jac": "all", "megre_jac": "m3_n8_all"}
+#: DW-FISP: pulses of the gate-edge check (nstate 59 with the dD group) on
+#: the matched train, over SEG_SHAPES' 4,097 atoms
+DWF_EDGE_N = 100
 
 
 #: every option of the Hessian kernel: form (4-op: echo at tau; 5-op: echo
@@ -1257,15 +1298,18 @@ SM_REGS, SM_REG_UNIT, SM_WARPS, SM_BLOCKS = 65536, 256, 64, 32
 SM_SMEM, SM_SMEM_RESERVED = 233472, 1024
 
 
-def ptxas_registers(log):
+def ptxas_registers(log, what="registers"):
     """{kernel (mangled name): registers} from the ``-Xptxas -v`` lines of
-    the build log."""
+    the build log; with what="stack", {kernel: stack-frame bytes}."""
     regs, name = {}, None
     for line in log.splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for")[1].strip()
+        elif name and what == "stack" and "bytes stack frame" in line:
+            regs[name] = int(line.split("bytes stack frame")[0].split()[-1])
         elif name and "Used" in line and "registers" in line:
-            regs[name] = int(line.split("Used")[1].split()[0])
+            if what == "registers":
+                regs[name] = int(line.split("Used")[1].split()[0])
             name = None
     return regs
 
@@ -1290,6 +1334,7 @@ SASS_CLASSES = {
     "fp32": ("FFMA", "FMUL", "FADD", "MUFU"),
     "shared": ("LDS", "STS"),
     "shuffle": ("SHFL",),
+    "local": ("LDL", "STL"),
     "integer": ("IMAD", "IADD3", "LEA", "LOP3", "SHF", "ISETP"),
     "move": ("MOV", "FSEL", "SEL"),
     "branch": ("BRA", "BSSY", "BSYNC", "WARPSYNC"),
@@ -1319,17 +1364,46 @@ def sass_mix(lib, keys):
 
 
 def phase_occupancy():
-    """Registers (ptxas), shared memory per block, resident warps per SM
-    and the static SASS instruction mix of the two warp-row kernels at
-    their main-path geometries."""
+    """Registers and stack frame (ptxas), shared memory per block, resident
+    warps per SM and the static SASS instruction mix of the warp-row CPMG
+    kernels and the segmented FISP and ME-GRE Jacobian kernels at their
+    main-path geometries."""
     from epgpy_torch import _build
-    from epgpy_torch.models import cuda_mse, cuda_msedesign
+    from epgpy_torch.models import cuda_fisp, cuda_megre, cuda_mse, \
+        cuda_msedesign
 
-    regs = ptxas_registers(_build.build_info()["log"])
+    log = _build.build_info()["log"]
+    regs, stack = ptxas_registers(log), ptxas_registers(log, "stack")
 
-    def of(key):
-        hits = [r for n, r in regs.items() if key in n]
+    def of(key, table=regs):
+        hits = [r for n, r in table.items() if key in n]
         return hits[0] if len(hits) == 1 else None
+
+    # the segmented kernels' main-path instances (R rows per lane): FISP
+    # with G = 3 and 4 groups at nstate NSTATE, ME-GRE at MEGRE_NSTATE with
+    # its echoes
+    seg = []
+    for d in (False, True):
+        geo = cuda_fisp.fisp_jac_geometry(NSTATE, d)
+        seg.append((f"fisp_jac nstate {NSTATE}{' dD' if d else ''}",
+                    f"fisp_jac_kernelILi{geo['R']}ELi{4 if d else 3}EE", geo))
+    geo = cuda_megre.megre_jac_geometry(MEGRE_NSTATE, len(MEGRE_TES))
+    seg.append((f"megre_jac nstate {MEGRE_NSTATE} m {len(MEGRE_TES)}",
+                f"megre_jac_kernelILi{geo['R']}EE", geo))
+    for what, key, geo in seg:
+        r, frame = of(key), of(key, stack)
+        if r is None:
+            print(f"[occupancy] {what}: registers not measured (no ptxas "
+                  f"line: the library was built before this run)")
+            continue
+        res, by_regs, by_smem = resident_warps(r, geo["warps"], geo["smem"])
+        print(f"[occupancy] {what}: {r} registers, {frame} B stack frame, "
+              f"{geo['warps']} warps ({geo['L']} ladders of {geo['W']} "
+              f"lanes x {geo['R']} rows each), {geo['pulses']} pulses per "
+              f"chunk and "
+              f"{geo['smem']} B of shared memory per block; {res} resident "
+              f"warps per SM (registers admit {by_regs}, shared memory "
+              f"{by_smem})")
 
     rows = []
     for dif in (False, True):
@@ -1353,7 +1427,8 @@ def phase_occupancy():
               f"{smem} B of shared memory per block; {res} resident warps "
               f"per SM (registers admit {by_regs}, shared memory "
               f"{by_smem})")
-    keys = ("cpmg_jac_kernelILb0E", "cpmg_design_kernelILb1E")
+    keys = ("cpmg_jac_kernelILb0E", "cpmg_design_kernelILb1E") + tuple(
+        key for _, key, _ in seg)
     mix = sass_mix(_build.build_info()["path"], keys)
     for key in keys:
         m = (mix or {}).get(key)
@@ -1482,13 +1557,19 @@ def phase_numbers(torch, epg, card, run):
 
 
 def phase_jac_cases(torch, natoms=4096, npulse=JAC_CASE_N):
-    """Jacobian kernel vs plain twin over the option cases; returns the
-    worst fingerprint |delta| and the worst per-column relative error."""
+    """Jacobian kernel vs plain twin over the option cases, the segmented
+    layout's edges (JAC_EDGE_CASES) and ragged shapes (SEG_SHAPES);
+    returns the worst fingerprint |delta| and the worst per-column
+    relative error."""
     from epgpy_torch.models import cuda_fisp
 
+    runs = [(case, natoms, npulse) for case in JAC_CASES + [
+        dict(name="nstate40", nstate=40, inversion=20.0, df=True)]]
+    runs += [(case, *SEG_EDGE_SHAPE) for case in JAC_EDGE_CASES]
+    runs += [(case, n, p) for n, p in SEG_SHAPES for case in JAC_CASES
+             if case["name"] == SEG_RAGGED_CASES["fisp_jac"]]
     worst_sig = worst_col = 0.0
-    for case in JAC_CASES + [dict(name="nstate40", nstate=40,
-                                  inversion=20.0, df=True)]:
+    for case, natoms, npulse in runs:
         args, kw = _tensors(torch, *make_jac_case(case, natoms, npulse),
                             "cuda")
         (kre, kim), (kd_re, kd_im) = cuda_fisp.fisp_jacobian_cuda(*args, **kw)
@@ -1500,12 +1581,14 @@ def phase_jac_cases(torch, natoms=4096, npulse=JAC_CASE_N):
                           torch.complex(pd_re, pd_im).cpu().numpy())
         ok = all(bool(torch.isfinite(t).all())
                  for t in (kre, kim, kd_re, kd_im))
-        print(f"[jac-cases] {case['name']:14s} nstate={kw['nstate']:2d} "
-              f"max|kernel - plain| = {sig:.3e}, per column "
+        print(f"[jac-cases] {case['name']:14s} B={natoms:5d} P={npulse:4d} "
+              f"nstate={kw['nstate']:2d} max|kernel - plain| = {sig:.3e}, "
+              f"per column "
               f"{', '.join(f'{c:.2e}' for c in cols)}")
         if not ok or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL:
             raise AssertionError(
-                f"case {case['name']}: Jacobian kernel vs plain twin "
+                f"case {case['name']} (B={natoms}, P={npulse}): Jacobian "
+                f"kernel vs plain twin "
                 f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
                 f"{TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
@@ -1567,10 +1650,13 @@ def phase_jac_path(torch, epg):
         raise AssertionError(f"Jacobian column error {max(cols):.3e} > "
                              f"{TOL_JAC_MODEL}")
     del sig, jac
-    memo_s = _host_s(torch, lambda: epg.simulate(
-        seq, max_nstate=NSTATE, asarray=False, probe=probes), reps=2)
+    def call():
+        return epg.simulate(seq, max_nstate=NSTATE, asarray=False,
+                            probe=probes)
+
+    memo_s = _host_s(torch, call, reps=2)
     return dict(seq=seq, launches=launches, first_s=first_s, memo_s=memo_s,
-                probe_err=probe_err, col_err=max(cols))
+                probe_err=probe_err, col_err=max(cols), simulate=call)
 
 
 def phase_serving(torch, epg, dictionary):
@@ -1695,6 +1781,8 @@ def phase_jac_numbers(torch, epg, card, run):
     print(f"[numbers] simulate() Jacobian end to end, first call (match + "
           f"kernel): {run['first_s']:.3f} s; memoized match: "
           f"{run['memo_s']:.4f} s {tag}")
+    _split_events(torch, "simulate() FISP Jacobian", "fisp_jac",
+                  run["simulate"], card)
     flops = linear_ops(torch, lambda n: cuda_fisp.fisp_jacobian_echoes_plain(
         *_cpu_atoms(torch, args, n, (4, 5, 6, 7)), nstate=NSTATE), NATOMS)
     nbytes = tensor_bytes(torch, args, kernel())
@@ -2579,12 +2667,8 @@ def phase_mse_numbers(torch, card, run, jac_run, t2b1):
           f"{jac_run['memo_s'] * 1e3:.3f} ms ({card})")
     _print_split("simulate() CPMG Jacobian", "cpmg_jac",
                  _profile_split(torch, jac_run["simulate"], "cpmg_jac"), card)
-    own = _launch_ms(torch, jac_run["simulate"], "epg_cpmg_jac")
-    span = _cuda_ms(torch, jac_run["simulate"])
-    print(f"[numbers] simulate() CPMG Jacobian by CUDA events: the call's "
-          f"span on the stream {span:.3f} ms, the cpmg_jac kernel (events "
-          f"around its launch) {own:.3f} ms, the rest {span - own:.3f} ms "
-          f"({card})")
+    _split_events(torch, "simulate() CPMG Jacobian", "cpmg_jac",
+                  jac_run["simulate"], card, reps=5)
 
     # the Jacobian kernel at the T2/B1 mapping's shape (5d)
     margs, mst = t2b1["jac_args"], t2b1["nstate"]
@@ -3274,14 +3358,20 @@ def phase_dess_mapping(torch, epg):
 
 def phase_megre_cases(torch, natoms=4096):
     """The ME-GRE kernels vs their plain twins on the card over the option
-    cases, primal and Jacobian (the df group at dfs=None included);
-    returns the worst signal |delta| and the worst per-column relative
-    error."""
+    cases, the segmented Jacobian kernel's edges (MEGRE_EDGE_CASES) and
+    ragged shapes (SEG_SHAPES), primal and Jacobian (the df group at
+    dfs=None included); returns the worst signal |delta| and the worst
+    per-column relative error."""
     from epgpy_torch.models import cuda_megre
 
+    runs = [(case, natoms, MEGRE_N) for case in MEGRE_CASES]
+    runs += [(case, *SEG_EDGE_SHAPE) for case in MEGRE_EDGE_CASES]
+    runs += [(case, n, p) for n, p in SEG_SHAPES for case in MEGRE_CASES
+             if case["name"] == SEG_RAGGED_CASES["megre_jac"]]
     worst_sig = worst_col = 0.0
-    for case in MEGRE_CASES:
-        args, kw = _tensors(torch, *make_megre_case(case, natoms), DEVICE)
+    for case, n, npulse in runs:
+        args, kw = _tensors(torch, *make_megre_case(case, n, npulse),
+                            DEVICE)
         sig, cols, ok = 0.0, [], True
         for kfn, pfn, jac in (
                 (cuda_megre.megre_echoes, cuda_megre.megre_echoes_plain,
@@ -3291,12 +3381,14 @@ def phase_megre_cases(torch, natoms=4096):
             k = kfn(*args, **kw)
             s_, c = _pair_errors(torch, k, pfn(*args, **kw), jac)
             sig, cols, ok = max(sig, s_), cols + c, ok and _finite(torch, k)
-        print(f"[megre-cases] {case['name']:17s} max|kernel - plain| = "
-              f"{sig:.3e}, columns (T1, T2, B1, df) "
+        print(f"[megre-cases] {case['name']:17s} B={n:5d} P={npulse:3d} "
+              f"nstate={kw['nstate']:2d} max|kernel - plain| = {sig:.3e}, "
+              f"columns (T1, T2, B1, df) "
               f"{', '.join(f'{c:.2e}' for c in cols)}")
         if not ok or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL:
             raise AssertionError(
-                f"megre case {case['name']}: kernel vs plain twin "
+                f"megre case {case['name']} (B={n}, P={npulse}): kernel "
+                f"vs plain twin "
                 f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
                 f"{TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
@@ -3656,6 +3748,30 @@ def phase_dwfisp_path(torch, epg):
           f"{TOL_JAC_KERNEL})")
     if not twin_err <= TOL_KERNEL or not max(twin_cols) <= TOL_JAC_KERNEL:
         raise AssertionError("DW-FISP kernels disagree with their twins")
+    # the gate's deepest dD ladder (nstate 59) on the same matched train:
+    # its first DWF_EDGE_N pulses over a ragged 4,097 atoms
+    n, sl = DWF_EDGE_N, slice(0, 4097)
+    ea = tuple(x[:n] for x in a[:3]) + (
+        a[3][:n] if isinstance(a[3], torch.Tensor) else a[3],
+        a[4][sl], a[5][sl], a[6][sl], None)
+    ekw = dict(tkw, nstate=59, track_diffusivity=True)
+    (kre, kim), (kdre, kdim) = cuda_fisp.fisp_jacobian_echoes(*ea, **ekw)
+    (pre, pim), (pdre, pdim) = cuda_fisp.fisp_jacobian_echoes_plain(*ea,
+                                                                    **ekw)
+    edge_sig = max(float((kre - pre).abs().max()),
+                   float((kim - pim).abs().max()))
+    edge_cols = col_errors(torch.complex(kdre, kdim).cpu().numpy(),
+                           torch.complex(pdre, pdim).cpu().numpy())
+    print(f"[dw-fisp] fisp_jac at the gate (nstate 59, dD group), {n} "
+          f"pulses x {ea[4].shape[0]} atoms of the matched train vs its "
+          f"twin: signal "
+          f"{edge_sig:.3e} (limit {TOL_KERNEL}); columns (T1, T2, B1, D) "
+          f"{', '.join(f'{c:.3e}' for c in edge_cols)} (limit "
+          f"{TOL_JAC_KERNEL})")
+    if not edge_sig <= TOL_KERNEL or not max(edge_cols) <= TOL_JAC_KERNEL:
+        raise AssertionError("DW-FISP: fisp_jac at nstate 59 disagrees with "
+                             "its twin")
+    del kre, kim, kdre, kdim, pre, pim, pdre, pdim
     B8 = tuple(x[:8] for x in (T1, T2, B1))
     with cpu_float64(config):
         ref = epg.simulate(dwfisp_sequence(epg, FA, *B8), max_nstate=NSTATE,
@@ -3686,7 +3802,8 @@ def phase_dwfisp_path(torch, epg):
           f"{jmemo_s * 1e3:.3f} ms")
     return dict(launches=1, jac_launches=1, first_s=first_s, memo_s=memo_s,
                 jfirst_s=jfirst_s, jmemo_s=jmemo_s, err=err,
-                col_err=max(cols))
+                col_err=max(cols), jac_args=a,
+                jac_kw=dict(tkw, track_diffusivity=True))
 
 
 def phase_full_path(torch, run):
@@ -3794,6 +3911,16 @@ def _launch_ms(torch, fn, symbol, reps=5):
         raise AssertionError(f"{symbol}: {len(pairs)} launches timed, "
                              f"expected {reps + 1}")
     return min(a.elapsed_time(b) for a, b in pairs[1:])
+
+
+def _split_events(torch, what, name, fn, card, reps=3):
+    """Print fn()'s span on the stream and the kernel `name`'s own time
+    inside it, both by CUDA events (_cuda_ms, _launch_ms)."""
+    own = _launch_ms(torch, fn, f"epg_{name}", reps)
+    span = _cuda_ms(torch, fn, reps)
+    print(f"[numbers] {what} by CUDA events: the call's span on the stream "
+          f"{span:.3f} ms, the {name} kernel (events around its launch) "
+          f"{own:.3f} ms, the rest {span - own:.3f} ms ({card})")
 
 
 def _print_split(what, name, split, card):
@@ -3946,6 +4073,13 @@ def phase_megre_numbers(torch, card, megre, mjac, full, b0, dw,
           f"({card})")
     _print_split("simulate() ME-GRE Jacobian", "megre_jac",
                  _profile_split(torch, mjac["simulate"], "megre_jac"), card)
+    _split_events(torch, "simulate() ME-GRE Jacobian", "megre_jac",
+                  mjac["simulate"], card)
+    dd_ms = _cuda_ms(torch, lambda: cuda_fisp.fisp_jacobian_echoes(
+        *dw["jac_args"], **dw["jac_kw"]), reps=3)
+    print(f"[numbers] fisp_jac with the dD group (the DW-FISP train's "
+          f"matched parameters, {NATOMS} atoms x {NPULSE} pulses, nstate "
+          f"{NSTATE}): {dd_ms:.3f} ms ({card})")
     per = b0["per_iter"]
     print(f"[numbers] T2/B0 mapping, {B0_NVOX} voxels: {B0_ITERS} "
           f"Gauss-Newton iterations {b0['gn_s']:.3f} s; per iteration host "

@@ -617,4 +617,145 @@ __device__ __forceinline__ int reach(int i, int half, int H) {
     return r < H - 1 ? r : H - 1;
 }
 
+// -- segmented layout: several short ladders per warp, rows across the
+// lanes of a segment, the state in registers --
+//
+// The FISP and ME-GRE tangent kernels (fisp_jac.cu, megre_jac.cu) give a
+// folded ladder of H = nstate + 1 rows a segment of W = ceil(H / R)
+// consecutive lanes, and a warp holds L = 32 / W segments; lanes past the
+// last segment run the same instructions on a clamped atom and store
+// nothing.  Lane r of a segment owns rows k = r + W c, c < R, of every
+// plane of every group, in registers: R (seg_rows) is a template
+// parameter, so each plane is a statically indexed float[R], and the
+// per-pulse work of a lane -- its rotation coefficients, the broadcasts,
+// the shift's selects -- serves R rows.  Rows k >= H are padding and stay
+// zero.  Values cross lanes only by shuffles, so nothing of the state
+// needs a barrier.
+
+// Rows per lane for a ladder of H rows: 2 (W = ceil(H / 2) lanes), 3 past
+// 64 rows, 1 for the shortest ladders; the kernels' gates keep H <= 75
+// (cuda_fisp.seg_layout mirrors this).
+__host__ __device__ __forceinline__ int seg_rows(int H) {
+    return H <= 3 ? 1 : (H <= 64 ? 2 : 3);
+}
+
+struct SegLane {
+    int lane;  // lane in the warp
+    int r;     // lane in the segment: it owns rows r + W c
+    int base;  // the segment's first lane
+    int W;     // lanes per segment
+    int H;     // rows (nstate + 1)
+};
+
+// The lane's place for segments of W lanes.
+__device__ __forceinline__ SegLane seg_lane(int lane, int W, int H) {
+    const int seg = lane / W;
+    return SegLane{lane, lane - seg * W, seg * W, W, H};
+}
+
+// Lane u of the lane's segment hands every lane of it v (lanes past the
+// last segment read some lane of the warp; they store nothing).
+__device__ __forceinline__ float seg_bcast(const SegLane& q, float v,
+                                           int u) {
+    return __shfl_sync(kFullMask, v, (q.base + u) & (kWarp - 1));
+}
+
+// The folded unit shift of FoldedShift on the segmented layout: fed the
+// same unshifted new values of every row (s[j][c]: plane j of row r +
+// W c), it leaves the same planes.  A(k) <- new A(k-1), A(0) <- new B(1),
+// B(k) <- new B(k+1), B(H-1) <- 0, Z unshifted.  Two rotations of the
+// segment by one lane move new A up and new B down: a lane reads the lane
+// below and the lane above, the segment's first and last lanes each
+// other, chunk by chunk.  The row-0 lane takes B(1) (the lane above) as
+// both A(0) and B(0); lane 0 of chunk c > 0 takes new A of row W c - 1
+// from the last lane's chunk c - 1; the last lane takes new B of row
+// W (c + 1) from lane 0's chunk c + 1; the row-(H-1) lane writes B as 0.
+// Padding rows are written as 0.
+template <int R>
+__device__ __forceinline__ void seg_shift(const SegLane& q,
+                                          float (&s)[6][R]) {
+    const bool first = q.r == 0;
+    const bool last = q.r == q.W - 1;
+    const int below = (first ? q.base + q.W - 1 : q.lane - 1) & (kWarp - 1);
+    const int above = (last ? q.base : q.lane + 1) & (kWarp - 1);
+    float aR[R], aI[R], bR[R], bI[R];
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+        aR[c] = __shfl_sync(kFullMask, s[0][c], below);
+        aI[c] = __shfl_sync(kFullMask, s[1][c], below);
+        bR[c] = __shfl_sync(kFullMask, s[2][c], above);
+        bI[c] = __shfl_sync(kFullMask, s[3][c], above);
+    }
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+        const int k = q.r + q.W * c;
+        const int prev = c > 0 ? c - 1 : 0;
+        const int next = c + 1 < R ? c + 1 : c;
+        const float AR = first ? (c == 0 ? bR[0] : aR[prev]) : aR[c];
+        const float AI = first ? (c == 0 ? bI[0] : aI[prev]) : aI[c];
+        const bool up = last && c + 1 < R;
+        const float BR = up ? bR[next] : bR[c];
+        const float BI = up ? bI[next] : bI[c];
+        const bool keep = R == 1 || k < q.H;   // W = H at R = 1
+        const bool zeroB = k >= q.H - 1;
+        s[0][c] = keep ? AR : 0.0f;
+        s[1][c] = keep ? AI : 0.0f;
+        s[2][c] = zeroB ? 0.0f : BR;
+        s[3][c] = zeroB ? 0.0f : BI;
+        s[4][c] = keep ? s[4][c] : 0.0f;
+        s[5][c] = keep ? s[5][c] : 0.0f;
+    }
+}
+
+// The post-shift diffusion attenuation factors of row k (fisp_jac's and
+// att_rows's order of operations: f = bT (k^2 -+ k + 1/3) or bT k^2, bL
+// k^2; a = exp(-f Dc)) and their D derivatives d = -f a, for A, B, Z.
+// Constant over a train, so a lane computes its rows' once.
+__device__ __forceinline__ void seg_att(int k, float bT, float bL,
+                                        bool ramp, float Dc, float (&a)[3],
+                                        float (&d)[3]) {
+    const float kf = static_cast<float>(k);
+    const float k2 = kf * kf;
+    float f[3];
+    if (ramp) {
+        f[0] = bT * (k2 - kf + 1.0f / 3.0f);
+        f[1] = bT * (k2 + kf + 1.0f / 3.0f);
+    } else {
+        f[0] = bT * k2;
+        f[1] = f[0];
+    }
+    f[2] = bL * k2;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+        a[j] = expf(-f[j] * Dc);
+        d[j] = -f[j] * a[j];
+    }
+}
+
+// A block's staged outputs to device memory: for each of `planes` output
+// planes, `rows` rows of `A` atoms, stage[(o * ld + t) * A + a] ->
+// out[o * plane + (row0 + t) * B + atom0 + a] where atom0 + a < B.  Thread
+// i keeps atom a = i % A and walks the rows i / A, i / A + blockDim / A,
+// ... (the threads past the last whole sweep idle), so each row leaves as
+// one run of consecutive words and no division runs per row.
+__device__ __forceinline__ void flush_stage(const float* stage, float* out,
+                                            int planes, int ld, int rows,
+                                            int A, size_t plane, size_t row0,
+                                            int B, int atom0) {
+    const int step = blockDim.x / A;
+    const int a = threadIdx.x % A;
+    const int i = threadIdx.x / A;
+    if (i >= step || atom0 + a >= B) return;
+    int o = i / rows, t = i - o * rows;
+    while (o < planes) {
+        out[o * plane + (row0 + t) * B + atom0 + a] =
+            stage[(o * ld + t) * A + a];
+        t += step;
+        while (t >= rows) {
+            t -= rows;
+            ++o;
+        }
+    }
+}
+
 }  // namespace epg

@@ -27,7 +27,11 @@ The Jacobian (``fisp_jacobian_pallas`` :775 with ``_kernel_jac`` :458)
 follows the same pattern: ``fisp_jacobian_cuda`` / ``fisp_jacobian_plain``
 (kernel ``epgpy_torch/csrc/fisp_jac.cu``; fingerprints and dS/d(T1, T2,
 B1[, D]) in one pass), the echo-layout ``fisp_jacobian_echoes[_plain]``
-that the dispatch uses, and ``JAC_LAUNCHES``.
+that the dispatch uses, and ``JAC_LAUNCHES``.  Its kernel, like
+``megre_jac.cu``, runs the segmented layout (a ladder's rows across a
+segment of a warp's lanes, several ladders per warp, the state in
+registers); ``seg_layout`` and ``seg_geometry`` give its launch geometry,
+``fisp_jac_geometry`` the FISP kernel's.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ __all__ = ["fisp_dictionary_cuda", "fisp_dictionary_plain", "fisp_echoes",
            "fisp_echoes_plain", "kernel_fits", "block_size", "SMEM_PER_BLOCK",
            "fisp_jacobian_cuda", "fisp_jacobian_plain", "fisp_jacobian_echoes",
            "fisp_jacobian_echoes_plain", "jac_kernel_fits", "jac_block_size",
+           "seg_layout", "seg_geometry", "fisp_jac_geometry",
            "fisp_full_ladder_cuda", "fisp_full_ladder_plain",
            "fisp_full_echoes", "fisp_full_echoes_plain", "full_kernel_fits",
            "full_block_size"]
@@ -372,17 +377,64 @@ def _jac_planes(track_diffusivity):
 
 
 def jac_kernel_fits(nstate, track_diffusivity=False) -> bool:
-    """Whether the Jacobian kernel's shared-memory state fits at its
-    smallest block (32 threads): 24 (30 with D) planes x (nstate+1) rows
-    x 32 atoms x 4 bytes -- nstate <= 74 (59)."""
+    """The Jacobian kernels' gate: 24 (30 with D) planes x (nstate+1) rows
+    x 32 atoms x 4 bytes within one block's shared memory -- nstate <= 74
+    (59).  It is the thread-per-atom layout's bound, which ``dess_jac.cu``
+    still runs.  The FISP and ME-GRE Jacobian kernels keep their state in
+    registers, at most 3 rows per lane (nstate <= 95), and keep this gate
+    so that no train changes route."""
     return (4 * _jac_planes(track_diffusivity) * (int(nstate) + 1) * 32
             <= SMEM_PER_BLOCK)
 
 
+#: the segmented tangent kernels (fisp_jac.cu, megre_jac.cu): warps per
+#: block at most, pulses per chunk at most, floats of one chunk's table and
+#: staged echoes per block (48 KB), table floats per pulse -- the kernels'
+#: kMaxWarps, kMaxPulses, kChunkFloats and kTab
+SEG_WARPS, SEG_PULSES, SEG_CHUNK_FLOATS, SEG_TABLE = 4, 32, 12288, 8
+
+
+def seg_layout(nstate):
+    """(R, W, L) of the segmented layout for a ladder of H = nstate + 1
+    rows: rows per lane (``epg::seg_rows``: 2, 3 past 64 rows, 1 for H <=
+    3), lanes per ladder (W = ceil(H / R); lane r of a segment owns rows
+    r + W c, c < R) and ladders per warp (32 // W)."""
+    H = int(nstate) + 1
+    R = 1 if H <= 3 else (2 if H <= 64 else 3)
+    W = -(-H // R)
+    return R, W, 32 // W
+
+
+def seg_geometry(nstate, outputs, table=SEG_TABLE):
+    """Launch geometry of a segmented tangent kernel whose atoms each stage
+    `outputs` floats per pulse beside a `table` of floats per pulse:
+    dict(R, W, L) of :func:`seg_layout`, ``warps`` per block (SEG_WARPS,
+    halved while one pulse's table and staged outputs pass
+    SEG_CHUNK_FLOATS), ``atoms`` per block (warps x L), ``pulses`` per
+    chunk and ``smem``, the block's shared bytes (the kernels compute the
+    same from ``warps``)."""
+    R, W, L = seg_layout(nstate)
+    outputs = int(outputs)
+    warps = SEG_WARPS
+    while warps > 1 and table + outputs * warps * L > SEG_CHUNK_FLOATS:
+        warps //= 2
+    per = table + outputs * warps * L
+    pulses = min(SEG_PULSES, max(1, SEG_CHUNK_FLOATS // per))
+    return dict(R=R, W=W, L=L, warps=warps, atoms=warps * L, pulses=pulses,
+                smem=4 * pulses * per)
+
+
+def fisp_jac_geometry(nstate, track_diffusivity=False):
+    """:func:`seg_geometry` of the FISP Jacobian kernel: 2 + 2G staged
+    floats per atom and pulse (G = 3, or 4 with D)."""
+    return seg_geometry(nstate, 2 + 2 * (4 if track_diffusivity else 3))
+
+
 def jac_block_size(nstate, track_diffusivity=False) -> int:
-    """Threads per block of the Jacobian kernel: 64, halved while the
-    state does not fit (at nstate 10, 64 threads hold 67.5 KB and an SM
-    keeps 3 blocks resident)."""
+    """Threads per block of the DESS Jacobian kernel (``dess_jac.cu``, the
+    thread-per-atom layout): 64, halved while the state does not fit (at
+    nstate 10, 64 threads hold 67.5 KB and an SM keeps 3 blocks
+    resident)."""
     block = 64
     while block > 32 and (4 * _jac_planes(track_diffusivity)
                           * (int(nstate) + 1) * block > SMEM_PER_BLOCK):
@@ -571,8 +623,8 @@ def _launch_jac(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate,
     if track_d and diffusion is None:
         raise ValueError("track_diffusivity requires diffusion=")
     if not jac_kernel_fits(nstate, track_d):
-        raise ValueError(f"nstate={nstate}: the Jacobian kernel state does "
-                         f"not fit in {SMEM_PER_BLOCK} bytes of shared memory")
+        raise ValueError(f"nstate={nstate}: beyond the Jacobian kernel's "
+                         f"gate (nstate <= 74, 59 with D)")
     x = _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
                  strict=True)
     P, B = x["P"], x["B"]
@@ -596,7 +648,7 @@ def _launch_jac(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate,
         int(var_te), int(x["TI"] is not None), int(bool(inversion_df)),
         int(x["df"] is not None), int(bool(demodulate)),
         int(x["diff"] is not None), int(bool(diff_ramp)), int(track_d),
-        jac_block_size(nstate, track_d),
+        fisp_jac_geometry(nstate, track_d)["warps"],
         T1s.device.index if T1s.device.index is not None
         else torch.cuda.current_device(),
         torch.cuda.current_stream(T1s.device).cuda_stream)

@@ -43,15 +43,15 @@ import torch
 
 from . import planes
 from .cuda_dess import _fmul, _relax
-from .cuda_fisp import (SMEM_PER_BLOCK, _jac_views, _prepare, _takes_twin,
-                        block_size, jac_block_size, jac_kernel_fits,
-                        kernel_fits)
+from .cuda_fisp import (SEG_TABLE, SMEM_PER_BLOCK, _jac_views, _prepare,
+                        _takes_twin, block_size, jac_kernel_fits,
+                        kernel_fits, seg_geometry)
 
 __all__ = ["megre_dictionary_cuda", "megre_dictionary_plain", "megre_echoes",
            "megre_echoes_plain", "megre_jacobian_cuda", "megre_jacobian_plain",
            "megre_jacobian_echoes", "megre_jacobian_echoes_plain",
-           "megre_kernel_fits", "megre_jac_kernel_fits", "LAUNCHES",
-           "JAC_LAUNCHES"]
+           "megre_kernel_fits", "megre_jac_kernel_fits",
+           "megre_jac_geometry", "LAUNCHES", "JAC_LAUNCHES"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -69,9 +69,21 @@ def megre_kernel_fits(nstate) -> bool:
 
 
 def megre_jac_kernel_fits(nstate) -> bool:
-    """Whether the Jacobian kernel's 30 planes (primal, T1, T2, B1, df)
-    fit at its smallest block: nstate <= 59."""
+    """The Jacobian kernel's gate: nstate <= 59, where the thread-per-atom
+    layout's 30 planes (primal, T1, T2, B1, df) fitted 32 atoms in one
+    block's shared memory.  The segmented kernel keeps its state in
+    registers, at most 3 rows per lane (nstate <= 95), and keeps this gate
+    so that no train changes route."""
     return jac_kernel_fits(max(int(nstate), 1), True)
+
+
+def megre_jac_geometry(nstate, m):
+    """Launch geometry of the Jacobian kernel for m echoes per TR
+    (``cuda_fisp.seg_geometry``: each atom stages 10 m floats per pulse,
+    the table holds the m echo times beside SEG_TABLE); its shared bytes
+    pass SMEM_PER_BLOCK only for hundreds of echoes."""
+    return seg_geometry(max(int(nstate), 1), 10 * int(m),
+                        SEG_TABLE + int(m))
 
 
 def _setup(FA, phi, TR, TEs, T1s, T2s, B1s, dfs, strict):
@@ -255,10 +267,15 @@ def _launch(FA, phi, TR, TEs, T1s, T2s, B1s, dfs, *, nstate, demodulate,
                         f"{T1s.dtype}")
     nstate = max(int(nstate), 1)
     if not (megre_jac_kernel_fits if jac else megre_kernel_fits)(nstate):
-        raise ValueError(f"nstate={nstate}: the {name} kernel state does not "
-                         f"fit in {SMEM_PER_BLOCK} bytes of shared memory")
+        raise ValueError(f"nstate={nstate}: beyond the {name} kernel's gate")
     x = _setup(FA, phi, TR, TEs, T1s, T2s, B1s, dfs, strict=True)
     P, B, m = x["P"], x["B"], x["m"]
+    if jac:
+        geo = megre_jac_geometry(nstate, m)
+        if geo["smem"] > SMEM_PER_BLOCK:
+            raise ValueError(f"{m} echoes per TR: one pulse's staged echoes "
+                             f"({geo['smem']} bytes) exceed "
+                             f"{SMEM_PER_BLOCK} bytes of shared memory")
     out = torch.empty((10 if jac else 2, m * P, B), dtype=torch.float32,
                       device=T1s.device)
 
@@ -272,7 +289,7 @@ def _launch(FA, phi, TR, TEs, T1s, T2s, B1s, dfs, *, nstate, demodulate,
     rc = fn(ptr(x["FA"]), ptr(x["phi"]), ptr(x["TR"]), ptr(x["TE"]),
             ptr(x["T1"]), ptr(x["T2"]), ptr(x["B1"]), ptr(x["df"]), ptr(out),
             P, B, m, nstate, int(x["df"] is not None), int(bool(demodulate)),
-            jac_block_size(nstate, True) if jac else block_size(nstate),
+            geo["warps"] if jac else block_size(nstate),
             T1s.device.index if T1s.device.index is not None
             else torch.cuda.current_device(),
             torch.cuda.current_stream(T1s.device).cuda_stream)

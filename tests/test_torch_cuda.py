@@ -14,8 +14,10 @@ import torch
 
 from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_GROUP_SETS,
                         DESIGN_CASES, DESIGN_SHAPES, DESS_CASES, FULL_CASES,
-                        HESS_CASES, JAC_CASES, MEGRE_CASES, MSE_CASES,
-                        MSE_JAC_SHAPES, MSE_RAGGED_CASES, OPTION_CASES,
+                        HESS_CASES, JAC_CASES, JAC_EDGE_CASES, MEGRE_CASES,
+                        MEGRE_EDGE_CASES, MSE_CASES, MSE_JAC_SHAPES,
+                        MSE_RAGGED_CASES, OPTION_CASES, SEG_EDGE_SHAPE,
+                        SEG_RAGGED_CASES, SEG_SHAPES,
                         _atom_tensors, _causal_max, _pair_errors,
                         comp_jac_draws, comp_jac_sequence, comp_tensors,
                         hess_block_errors, hessian_sequence, make_bssfp_case,
@@ -81,6 +83,47 @@ def test_cuda_jacobian_kernel_matches_plain_twin(card, case):
         err = max(float((kdre[..., c] - pdre[..., c]).abs().max()),
                   float((kdim[..., c] - pdim[..., c]).abs().max()))
         assert err < 1e-5 * scale, (c, err, scale)
+
+
+def _fisp_jac_vs_twin(case, natoms, npulse):
+    """fisp_jac (one launch) vs its twin: fingerprints to 2e-6, tangent
+    columns to 1e-5 of the column's largest value (an all-zero column
+    exactly)."""
+    targs, tkw = _tensors(torch, *make_jac_case(case, natoms, npulse),
+                          "cuda")
+    before = cuda_fisp.JAC_LAUNCHES
+    (kre, kim), (kdre, kdim) = cuda_fisp.fisp_jacobian_cuda(*targs, **tkw)
+    torch.cuda.synchronize()
+    assert cuda_fisp.JAC_LAUNCHES == before + 1
+    (pre, pim), (pdre, pdim) = cuda_fisp.fisp_jacobian_plain(*targs, **tkw)
+    assert max(float((kre - pre).abs().max()),
+               float((kim - pim).abs().max())) <= 2e-6
+    for c in range(pdre.shape[-1]):
+        scale = max(float(pdre[..., c].abs().max()),
+                    float(pdim[..., c].abs().max()))
+        err = max(float((kdre[..., c] - pdre[..., c]).abs().max()),
+                  float((kdim[..., c] - pdim[..., c]).abs().max()))
+        assert err <= 1e-5 * scale, (c, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", JAC_EDGE_CASES, ids=lambda c: c["name"])
+def test_cuda_jacobian_segmented_edges(card, case):
+    """On the card, at the segmented layout's edges (the gate's nstate 74
+    and 59 with the dD group, nstate 31 / 32 / 33 where the rows per lane
+    change, nstate 1), over a train longer than the ladder: the Jacobian
+    kernel == its twin."""
+    _fisp_jac_vs_twin(case, *SEG_EDGE_SHAPE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SEG_SHAPES, ids=str)
+def test_cuda_jacobian_ragged_shapes(card, shape):
+    """On the card, at 1, 2, 3, 33 and 4,097 atoms and a one-pulse train:
+    the Jacobian kernel == its twin (every option at once)."""
+    case = next(c for c in JAC_CASES
+                if c["name"] == SEG_RAGGED_CASES["fisp_jac"])
+    _fisp_jac_vs_twin(case, *shape)
 
 
 @pytest.mark.cuda
@@ -358,6 +401,40 @@ def test_cuda_megre_kernels_match_plain_twins(card, case):
     jsig, cols = _pair_errors(
         torch, kj, cuda_megre.megre_jacobian_echoes_plain(*args, **kw), True)
     assert max(sig, jsig) < 2e-6 and max(cols) < 1e-5
+
+
+def _megre_jac_vs_twin(case, natoms, npulse):
+    """megre_jac (one launch) vs its twin: echoes to 2e-6, the (T1, T2,
+    B1, df) columns to 1e-5 of the column's largest value."""
+    args, kw = _tensors(torch, *make_megre_case(case, natoms, npulse),
+                        "cuda")
+    before = cuda_megre.JAC_LAUNCHES
+    kj = cuda_megre.megre_jacobian_echoes(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_megre.JAC_LAUNCHES == before + 1
+    sig, cols = _pair_errors(
+        torch, kj, cuda_megre.megre_jacobian_echoes_plain(*args, **kw), True)
+    assert sig <= 2e-6 and max(cols) <= 1e-5, (sig, cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MEGRE_EDGE_CASES, ids=lambda c: c["name"])
+def test_cuda_megre_jacobian_segmented_edges(card, case):
+    """On the card, at the segmented layout's edges (the gate's nstate 59,
+    nstate 31 / 32 / 33, nstate 1 with more echoes than lanes per
+    segment), over a train longer than the ladder: the ME-GRE Jacobian
+    kernel == its twin."""
+    _megre_jac_vs_twin(case, *SEG_EDGE_SHAPE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SEG_SHAPES, ids=str)
+def test_cuda_megre_jacobian_ragged_shapes(card, shape):
+    """On the card, at 1, 2, 3, 33 and 4,097 atoms and a one-pulse train:
+    the ME-GRE Jacobian kernel == its twin (every option at once)."""
+    case = next(c for c in MEGRE_CASES
+                if c["name"] == SEG_RAGGED_CASES["megre_jac"])
+    _megre_jac_vs_twin(case, *shape)
 
 
 @pytest.mark.cuda

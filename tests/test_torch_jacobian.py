@@ -18,11 +18,12 @@ import pytest
 import torch
 
 from chip_smoke import JAC_CASES, make_jac_case, _tensors
-from epgpy_torch.models import cuda_fisp, mrf
+from epgpy_torch.models import cuda_fisp, mrf, planes
 from epgpy_tpu.models import mrf as jmrf
 from epgpy_tpu.models.pallas_fisp import fisp_jacobian_pallas
 
-from torch_support import cplx, port_f32, port_f64  # noqa: F401
+from torch_support import (cplx, port_f32, port_f64,  # noqa: F401
+                           seg_owned_atoms, seg_shift_emulated)
 
 NATOMS, NPULSE = 100, 60     # 100 atoms: a ragged 128-atom tile in JAX
 
@@ -161,3 +162,75 @@ def test_jacobian_shared_memory_gate():
         planes = 30 if d else 24
         assert (4 * planes * (n + 1) * cuda_fisp.jac_block_size(n, d)
                 <= cuda_fisp.SMEM_PER_BLOCK)
+
+
+# -- the segmented layout of fisp_jac.cu: its lane map, geometry and gate --
+
+#: ladders of H = nstate + 1 rows: 2 (one row per lane, 16 per warp), 9,
+#: 11 (the main paths' depths, two rows per lane), 32, 33 (one and two
+#: ladders per warp), 64, 65 (two and three rows per lane), 75 (the gate's)
+SEG_ROWS = (2, 9, 11, 32, 33, 64, 65, 75)
+
+
+@pytest.mark.parametrize("H", SEG_ROWS)
+def test_segmented_lane_map_matches_twin(port_f64, monkeypatch, H):
+    """The float64 twin with every folded shift replayed through the
+    segmented layout's lane map (epg::seg_shift, emulated in numpy with NaN
+    in the idle lanes and padding rows) equals the twin exactly, every
+    group and pulse: inversion, df, per-pulse TE, demodulation and the
+    diffusion attenuation, with the dD group where the gate admits it; the
+    train is longer than the ladder, so the shift reaches its last row."""
+    case = dict(name="lane_map", var_te=True, inversion=20.0, df=True,
+                demodulate=True, diffusion="ramp", track_d=H <= 60,
+                nstate=H - 1)
+    args, kw = make_jac_case(case, 37, H + 6, seed=9)
+    targs, tkw = _tensors(torch, args, kw, "cpu")
+    targs = tuple(a.double() if isinstance(a, torch.Tensor) else a
+                  for a in targs)
+    bT, bL, Dc = tkw["diffusion"]
+    tkw["diffusion"] = (bT, bL, Dc.double())
+    want = cuda_fisp.fisp_jacobian_echoes_plain(*targs, **tkw)
+    monkeypatch.setattr(planes, "shift_fold", seg_shift_emulated)
+    got = cuda_fisp.fisp_jacobian_echoes_plain(*targs, **tkw)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("track_d", [False, True], ids=["G3", "G4"])
+def test_segmented_launch_geometry(track_d):
+    """For every ladder the gate admits: 1-3 rows per lane (2, 3 past 64
+    rows, 1 up to 3 rows), a segment of W = ceil(H / R) lanes holding the
+    H rows, as many ladders per warp as fit its 32 lanes, 1-4 warps per
+    block, 1-32 pulses per chunk, the table and staged echoes within 48 KB
+    of shared memory, and a grid whose (block, warp, segment) slots store
+    each of 1, 2, 3, 33 and 4,097 atoms exactly once."""
+    G = 4 if track_d else 3
+    for n in range(1, (59 if track_d else 74) + 1):
+        geo = cuda_fisp.fisp_jac_geometry(n, track_d)
+        R, W, L, warps = geo["R"], geo["W"], geo["L"], geo["warps"]
+        H = n + 1
+        assert R == (1 if H <= 3 else 2 if H <= 64 else 3)
+        assert W == -(-H // R) <= 32 and W * R >= H
+        assert 1 <= L and L * W <= 32 < (L + 1) * W
+        assert 1 <= warps <= cuda_fisp.SEG_WARPS == 4
+        assert geo["atoms"] == warps * L
+        assert 1 <= geo["pulses"] <= cuda_fisp.SEG_PULSES == 32
+        assert geo["smem"] == 4 * geo["pulses"] * (
+            cuda_fisp.SEG_TABLE + (2 + 2 * G) * geo["atoms"])
+        assert geo["smem"] <= 48 * 1024 <= cuda_fisp.SMEM_PER_BLOCK
+        for B in (1, 2, 3, 33, 4097):
+            owned, grid = seg_owned_atoms(geo, B)
+            assert sorted(owned) == list(range(B)), (n, B)
+            assert (grid - 1) * geo["atoms"] < B <= grid * geo["atoms"]
+
+
+def test_jacobian_gate_unchanged():
+    """The gate answers as the thread-per-atom layout set it, for nstate
+    1-400: nstate <= 74, and <= 59 with D; the segmented kernel keeps it,
+    so no train changes route."""
+    fits = [n for n in range(1, 401) if cuda_fisp.jac_kernel_fits(n)]
+    fits_d = [n for n in range(1, 401) if cuda_fisp.jac_kernel_fits(n, True)]
+    assert fits == list(range(1, 75))
+    assert fits_d == list(range(1, 60))
+    # the kernels' templates hold at most 3 rows per lane
+    assert max(cuda_fisp.seg_layout(n)[0] for n in fits) <= 3

@@ -33,13 +33,14 @@ import epgpy_tpu as jepg
 import epgpy_torch as tepg
 from epgpy_torch import fisp_dispatch as tfd
 from epgpy_torch.convert import from_numpy_params
-from epgpy_torch.models import cuda_megre
+from epgpy_torch.models import cuda_fisp, cuda_megre, planes
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_megre
 
 from chip_smoke import MEGRE_CASES, make_megre_case, _tensors
 from torch_support import (GOLDEN_DIR, cplx, family_train,  # noqa: F401
-                           port_f32, port_f64)
+                           port_f32, port_f64, seg_owned_atoms,
+                           seg_shift_emulated)
 
 B, NTR = 8, 24
 
@@ -325,3 +326,67 @@ def test_families_are_disjoint(fam):
               for pkg, (e, fd) in {"jax": (jepg, jfd),
                                    "torch": (tepg, tfd)}.items()}
     assert claims["torch"] == claims["jax"] == {FAMILIES[fam]}
+
+
+# -- the segmented layout of megre_jac.cu: its lane map, geometry and gate --
+
+
+@pytest.mark.parametrize("H", [2, 9, 32, 33, 60])
+def test_segmented_lane_map_matches_twin(port_f64, monkeypatch, H):
+    """The float64 Jacobian twin with every folded shift replayed through
+    the segmented layout's lane map (epg::seg_shift, emulated in numpy with
+    NaN in the idle lanes and padding rows) equals the twin exactly: three
+    echoes with a per-pulse echo-time matrix, df, a B1 batch and
+    demodulation, the train longer than the ladder (H = 60: the gate's)."""
+    case = dict(name="lane_map", m=3, nstate=H - 1, var_te=True, b1=True,
+                df=True, demodulate=True)
+    args, kw = make_megre_case(case, 29, H + 5, seed=3)
+    t = lambda x: None if x is None else torch.as_tensor(x)  # noqa: E731
+    targs = tuple(t(a) for a in args)
+    want = cuda_megre.megre_jacobian_echoes_plain(*targs, **kw)
+    monkeypatch.setattr(planes, "shift_fold", seg_shift_emulated)
+    got = cuda_megre.megre_jacobian_echoes_plain(*targs, **kw)
+    assert got[0][0].dtype == torch.float64
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 12, 40])
+def test_segmented_launch_geometry(m):
+    """For every ladder the gate admits and m echoes per TR: 1 or 2 rows
+    per lane, a segment of W = ceil(H / R) lanes holding the H rows, as
+    many ladders per warp as fit its 32 lanes, 1-4 warps per block (fewer
+    only where one pulse's staged echoes would pass 48 KB), the table
+    (with the m echo times) and a chunk's staged echoes within
+    SMEM_PER_BLOCK, and a grid whose slots store each of 1, 2, 3, 33 and
+    4,097 atoms exactly once."""
+    for n in range(0, 60):
+        geo = cuda_megre.megre_jac_geometry(n, m)
+        H = max(n, 1) + 1
+        R, W, L, warps = geo["R"], geo["W"], geo["L"], geo["warps"]
+        assert R == (1 if H <= 3 else 2)
+        assert W == -(-H // R) <= 32 and W * R >= H
+        assert 1 <= L and L * W <= 32 < (L + 1) * W
+        assert 1 <= warps <= cuda_fisp.SEG_WARPS
+        assert geo["atoms"] == warps * L
+        assert 1 <= geo["pulses"] <= cuda_fisp.SEG_PULSES
+        table = cuda_fisp.SEG_TABLE + m          # with the echo times
+        per = table + 10 * m * geo["atoms"]
+        assert geo["smem"] == 4 * geo["pulses"] * per
+        assert geo["smem"] <= cuda_fisp.SMEM_PER_BLOCK
+        assert (warps == cuda_fisp.SEG_WARPS
+                or table + 20 * m * geo["atoms"] > cuda_fisp.SEG_CHUNK_FLOATS)
+        for B in (1, 2, 3, 33, 4097):
+            owned, grid = seg_owned_atoms(geo, B)
+            assert sorted(owned) == list(range(B)), (n, m, B)
+            assert (grid - 1) * geo["atoms"] < B <= grid * geo["atoms"]
+
+
+def test_jacobian_gate_unchanged():
+    """The Jacobian gate answers as the thread-per-atom layout set it, for
+    nstate 0-400 (0 runs as 1): nstate <= 59; the segmented kernel keeps
+    it, so no train changes route."""
+    fits = [n for n in range(0, 401) if cuda_megre.megre_jac_kernel_fits(n)]
+    assert fits == list(range(0, 60))
+    assert fits == [n for n in range(0, 401)
+                    if cuda_fisp.jac_kernel_fits(max(n, 1), True)]

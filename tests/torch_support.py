@@ -162,3 +162,64 @@ def rows_beyond(s, top):
     """The largest |value| of a plane set's rows past `top` (0 when none)."""
     return max((float(p[top + 1:].abs().max()) if p.shape[0] > top + 1
                 else 0.0) for p in s)
+
+
+def seg_shift_emulated(s):
+    """``planes.shift_fold`` through the segmented layout's lane map, in
+    numpy: the planes (each (H, B)) are laid out as the FISP and ME-GRE
+    Jacobian kernels hold them -- a ladder in a segment of W lanes, 32 // W
+    ladders per warp, lane r owning rows r + W c, c < R
+    (``cuda_fisp.seg_layout``) -- with NaN in the lanes past the last
+    segment and atom and in the padding rows; ``epg::seg_shift``
+    (csrc/epg_planes.cuh) is replayed step by step (two rotations of each
+    segment by one lane, then the row-0, wrap, last-row and padding
+    selects), and the lanes' rows are read back.  A NaN that reached a
+    ladder row would show in the result."""
+    from epgpy_torch.models import cuda_fisp
+
+    dtype = s[0].dtype
+    v0 = np.stack([np.asarray(p, dtype=np.float64) for p in s])  # (6, H, B)
+    H, B = v0.shape[1:]
+    R, W, L = cuda_fisp.seg_layout(H - 1)
+    nwarps = -(-B // L)
+    lane = np.arange(32)
+    seg, r = lane // W, lane % W
+    base = seg * W
+    k = r[None, :] + W * np.arange(R)[:, None]                   # (R, 32)
+    atom = np.arange(nwarps)[:, None] * L + seg[None, :]         # (w, 32)
+    valid = ((seg < L)[None, None, :] & (atom < B)[None, :, :]
+             & (k < H)[:, None, :])                              # (R, w, 32)
+    kk = np.broadcast_to(np.minimum(k, H - 1)[:, None, :], valid.shape)
+    aa = np.broadcast_to(np.minimum(atom, B - 1)[None], valid.shape)
+    v = np.where(valid[None], v0[:, kk, aa], np.nan)        # (6, R, w, 32)
+    first, last = r == 0, r == W - 1
+    below = np.where(first, base + W - 1, lane - 1) % 32
+    above = np.where(last, base, lane + 1) % 32
+    a, b = v[0:2][..., below], v[2:4][..., above]
+    out = v.copy()
+    for c in range(R):
+        kc = k[c]
+        A = np.where(first, b[:, 0] if c == 0 else a[:, c - 1], a[:, c])
+        up = last & (c + 1 < R)
+        Bn = np.where(up, b[:, min(c + 1, R - 1)], b[:, c])
+        keep = kc < H
+        zero_b = kc >= H - 1
+        out[0:2, c] = np.where(keep, A, 0.0)
+        out[2:4, c] = np.where(zero_b, 0.0, Bn)
+        out[4:6, c] = np.where(keep, v[4:6, c], 0.0)
+    res = np.zeros_like(v0)
+    c_, w_, l_ = np.nonzero(valid)
+    res[:, k[c_, l_], atom[w_, l_]] = out[:, c_, w_, l_]
+    return tuple(torch.as_tensor(x, dtype=dtype) for x in res)
+
+
+def seg_owned_atoms(geo, B):
+    """The atoms the segmented kernels store, one entry per (block, warp,
+    segment) that stores, for a launch geometry ``geo``
+    (``cuda_fisp.seg_geometry``) over B atoms: block i's warp w, segment
+    s < L, owns atom i * atoms + w * L + s when it is below B; the grid
+    has ceil(B / atoms) blocks."""
+    grid = -(-B // geo["atoms"])
+    return [a for i in range(grid) for w in range(geo["warps"])
+            for s in range(geo["L"])
+            for a in [i * geo["atoms"] + w * geo["L"] + s] if a < B], grid
