@@ -450,6 +450,29 @@ COMP_GROUP_SETS = [(), ("T1",), ("T2",), ("B1",), ("df",),
                    ("T1", "T2", "B1", "df")]
 #: stages of an option case
 COMP_CASE_N = 300
+#: the segmented composite Jacobian kernel's edges, each with every option
+#: (every shift direction, D with ramps, df, ADC phases, b1u, sparse
+#: readouts) over COMP_CASE_N stages: the gate's deepest ladder for each
+#: group count (nstate 59 / 74 / 99 / 150 with 4 / 3 / 2 / 1 groups: 2 /
+#: 3 / 4 / 5 rows per lane), rows per lane changing (nstate 2 / 3) and
+#: nstate 1; (case, groups)
+_COMP_ALL = dict(shift="mixed", adcph=True, b1u=True, df=True,
+                 diffusion=True, sparse=True)
+COMP_EDGE_CASES = [
+    (dict(_COMP_ALL, name="gate_g4_n59", nstate=59),
+     ("T1", "T2", "B1", "df")),
+    (dict(_COMP_ALL, name="gate_g3_n74", nstate=74), ("T1", "T2", "df")),
+    (dict(_COMP_ALL, name="gate_g2_n99", nstate=99), ("B1", "df")),
+    (dict(_COMP_ALL, name="gate_g1_n150", nstate=150), ("T2",)),
+    (dict(_COMP_ALL, name="g4_n2", nstate=2), ("T1", "T2", "B1", "df")),
+    (dict(_COMP_ALL, name="g4_n3", nstate=3), ("T1", "T2", "B1", "df")),
+    (dict(_COMP_ALL, name="g4_n1", nstate=1), ("T1", "T2", "B1", "df")),
+]
+#: atoms of the composite edge cases; ragged shapes (atoms, stages) of the
+#: case with every option and every group, at nstate 1 and COMPJ_NSTATE:
+#: 1, 33 and 4,097 atoms, 1, 2 and 33 stages
+COMP_EDGE_ATOMS = 1000
+COMP_SHAPES = [(1, 33), (33, 33), (4097, 33), (33, 1), (33, 2)]
 
 #: the full-ladder kernel's option cases: the FISP cases it takes (no
 #: diffusion, no normalize: neither reaches the kernel), each at nstate 0
@@ -539,6 +562,30 @@ HESS_CASES = [dict(name=f"{'5op' if te else '4op'}{'_inv' if inv else ''}"
                    te=te, inversion=inv, second_order=so, nstate=ns, phi=phi)
               for te in (None, 5.0) for inv in (None, 20.0)
               for so in (True, False) for ns in (6, 10) for phi in (90, 30)]
+
+
+#: the two-pass Hessian kernel's own edges (fisp_hess.cu), each held
+#: against its twin over a train longer than the ladder: the gate's deepest
+#: ladders (nstate 46 at second order, 126 at first: 2 and 4 rows per
+#: lane), rows per lane changing (nstate 2 / 3: 1 / 2 rows; first order 63
+#: / 64: 2 / 3 rows, 95 / 96: 3 / 4 rows) and nstate 1 (16 ladders per warp)
+HESS_EDGE_CASES = [
+    dict(name="gate_o2_n46", te=5.0, inversion=20.0, nstate=46, phi=30),
+    dict(name="gate_o1_n126", inversion=20.0, second_order=False,
+         nstate=126, phi=30),
+    dict(name="o2_n1", nstate=1, phi=30),
+    dict(name="o2_n2", te=5.0, nstate=2),
+    dict(name="o2_n3", inversion=20.0, nstate=3, phi=30),
+    dict(name="o1_n63", second_order=False, nstate=63),
+    dict(name="o1_n64", te=5.0, second_order=False, nstate=64, phi=30),
+    dict(name="o1_n95", second_order=False, nstate=95),
+    dict(name="o1_n96", inversion=20.0, second_order=False, nstate=96),
+]
+#: atoms of the Hessian edge cases; ragged shapes (atoms, pulses): 1, 33
+#: and 4,097 atoms (part of one lane-pass block's ladders, a partial atom
+#: block), 1, 2 and 33 pulses, each at nstate 1 and at the main path's 10
+HESS_EDGE_ATOMS = 64
+HESS_SHAPES = [(1, 33), (33, 33), (4097, 33), (33, 1), (33, 2)]
 
 
 #: covering set of the CPMG kernels' options (var: per-echo spacings and
@@ -1232,9 +1279,12 @@ def _tensors(torch, args, kw, device):
     return tuple(t(a) for a in args), kw
 
 
-def _cuda_ms(torch, fn, reps=5):
-    """Best of `reps` timed runs (CUDA events) after one warm-up, in ms."""
-    fn()
+def _cuda_ms(torch, fn, reps=5, warm=True):
+    """Best of `reps` timed runs (CUDA events) after one warm-up, in ms;
+    ``warm=False`` where the caller has just run fn() on the same inputs
+    (a plain twin's comparison call), which serves as the warm-up."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     best = math.inf
     for _ in range(reps):
@@ -1341,36 +1391,46 @@ SASS_CLASSES = {
 }
 
 
-def sass_mix(lib, keys):
+def sass_mix(lib, keys, kernels=()):
     """{key: {class: static instruction count, "total": n}} of the first
     kernel in the library whose mangled name holds each key, from
-    ``cuobjdump -sass`` (None when the tool is missing)."""
+    ``cuobjdump -sass`` (None when the tool is missing); with `kernels`,
+    the mangled names of those kernels, only they are disassembled (the whole
+    library takes ~25 s), and the whole library is dumped only if that
+    leaves a key without its kernel."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(tool):
         return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True).stdout
-    mix = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split("\n", 1)[0]
-        key = next((k for k in keys if k in name and k not in mix), None)
-        if key is None:
-            continue
-        ops = [m.group(1) for m in SASS_OP.finditer(part)]
-        counts = {c: sum(op in names for op in ops)
-                  for c, names in SASS_CLASSES.items()}
-        mix[key] = dict(counts, total=len(ops))
-    return mix
+
+    def dump(*only):
+        return subprocess.run([tool, "-sass", *only, str(lib)],
+                              capture_output=True, text=True).stdout
+
+    def count(sass):
+        mix = {}
+        for part in sass.split("Function : ")[1:]:
+            name = part.split("\n", 1)[0]
+            key = next((k for k in keys if k in name and k not in mix), None)
+            if key is None:
+                continue
+            ops = [m.group(1) for m in SASS_OP.finditer(part)]
+            counts = {c: sum(op in names for op in ops)
+                      for c, names in SASS_CLASSES.items()}
+            mix[key] = dict(counts, total=len(ops))
+        return mix
+
+    mix = count(dump("-fun", ",".join(kernels))) if kernels else {}
+    return mix if len(mix) == len(keys) else count(dump())
 
 
 def phase_occupancy():
     """Registers and stack frame (ptxas), shared memory per block, resident
     warps per SM and the static SASS instruction mix of the warp-row CPMG
-    kernels and the segmented FISP and ME-GRE Jacobian kernels at their
-    main-path geometries."""
+    kernels and the segmented FISP, ME-GRE and composite Jacobian kernels
+    and the Hessian kernel's two passes at their main-path geometries."""
     from epgpy_torch import _build
-    from epgpy_torch.models import cuda_fisp, cuda_megre, cuda_mse, \
-        cuda_msedesign
+    from epgpy_torch.models import cuda_composite, cuda_fisp, cuda_hessian, \
+        cuda_megre, cuda_mse, cuda_msedesign
 
     log = _build.build_info()["log"]
     regs, stack = ptxas_registers(log), ptxas_registers(log, "stack")
@@ -1390,6 +1450,20 @@ def phase_occupancy():
     geo = cuda_megre.megre_jac_geometry(MEGRE_NSTATE, len(MEGRE_TES))
     seg.append((f"megre_jac nstate {MEGRE_NSTATE} m {len(MEGRE_TES)}",
                 f"megre_jac_kernelILi{geo['R']}EE", geo))
+    geo = cuda_composite.comp_jac_geometry(COMPJ_NSTATE, 4)
+    seg.append((f"composite_jac nstate {COMPJ_NSTATE} 4 groups",
+                f"composite_jac_kernelILi5ELi{geo['R']}EE", geo))
+    # the Hessian kernel's two passes at the flagship's second order: the
+    # lane pass stages its echoes (and a 36-float table per pulse), the
+    # atom pass (one warp per block) only its rotation table (40 bytes per
+    # pulse)
+    geo = cuda_hessian.hess_geometry(NSTATE, True)
+    hgeo = dict(geo, pulses=cuda_hessian.HESS_PULSES)
+    seg.append((f"fisp_hess lane pass nstate {NSTATE}",
+                f"hess_lane_kernelILb1ELi{geo['R']}EE", hgeo))
+    seg.append((f"fisp_hess atom pass nstate {NSTATE}",
+                f"hess_atom_kernelILb1ELi{geo['R']}EE",
+                dict(hgeo, warps=1, smem=40 * cuda_hessian.HESS_PULSES)))
     for what, key, geo in seg:
         r, frame = of(key), of(key, stack)
         if r is None:
@@ -1429,7 +1503,11 @@ def phase_occupancy():
               f"{by_smem})")
     keys = ("cpmg_jac_kernelILb0E", "cpmg_design_kernelILb1E") + tuple(
         key for _, key, _ in seg)
-    mix = sass_mix(_build.build_info()["path"], keys)
+    t0 = time.perf_counter()
+    mix = sass_mix(_build.build_info()["path"], keys,
+                   [n for n in regs if any(k in n for k in keys)])
+    print(f"[time] phase_occupancy: cuobjdump and the SASS count "
+          f"{time.perf_counter() - t0:.1f} s")
     for key in keys:
         m = (mix or {}).get(key)
         print(f"[occupancy] {key} SASS instructions: "
@@ -1772,7 +1850,7 @@ def phase_jac_numbers(torch, epg, card, run):
         raise AssertionError(f"Jacobian kernel vs plain twin {max(cols):.3e}")
     del kre, kim, kdre, kdim, pre, pim, pdre, pdim
     k_ms = _cuda_ms(torch, kernel)
-    p_ms = _cuda_ms(torch, plain, reps=1)
+    p_ms = _cuda_ms(torch, plain, reps=1, warm=False)
     tag = f"({card})"
     print(f"[numbers] fisp_jac kernel, {NATOMS} atoms x {NPULSE} pulses: "
           f"{k_ms:.3f} ms = {NATOMS / (k_ms / 1e3):.4g} atoms/s {tag}")
@@ -1795,13 +1873,22 @@ def phase_jac_numbers(torch, epg, card, run):
 
 
 def phase_hess_cases(torch, natoms=64):
-    """Hessian kernel vs plain twin over every option; returns the worst
-    per-block relative error."""
+    """Hessian kernel vs plain twin over every option, the two-pass
+    kernel's edges (HESS_EDGE_CASES) and ragged shapes (HESS_SHAPES);
+    returns the worst per-block relative error."""
     from epgpy_torch.models import cuda_hessian
 
-    worst = 0.0
-    for case in HESS_CASES:
-        args, kw = make_hess_case(case, natoms, HESS_CASE_N)
+    runs = [("options", case, natoms, HESS_CASE_N) for case in HESS_CASES]
+    runs += [("edges", case, HESS_EDGE_ATOMS,
+              max(HESS_CASE_N, case["nstate"] + 10))
+             for case in HESS_EDGE_CASES]
+    runs += [("shapes", dict(name=f"ragged_n{ns}", nstate=ns, te=te,
+                             inversion=inv), n, p) for n, p in HESS_SHAPES
+             for ns, te, inv in ((1, 5.0, 20.0), (NSTATE, None, None))]
+    worst, wall = 0.0, dict.fromkeys(("options", "edges", "shapes"), 0.0)
+    for part, case, natoms, npulse in runs:
+        t0 = time.perf_counter()
+        args, kw = make_hess_case(case, natoms, npulse)
         targs, _ = _tensors(torch, args, {}, "cuda")
         k = cuda_hessian.fisp_hessian_cuda(*targs, **kw)
         p = cuda_hessian.fisp_hessian_plain(*targs, **kw)
@@ -1811,14 +1898,17 @@ def phase_hess_cases(torch, natoms=64):
         upper = max(float(torch.triu(t, diagonal=1).abs().max())
                     for t in parts if t.ndim == 3)
         err = max(errs.values())
-        print(f"[hess-cases] {case['name']:22s} max per-block |kernel - "
-              f"plain| = {err:.3e}; pulse > echo entries max {upper:.1e}")
+        print(f"[hess-cases] {case['name']:22s} B={natoms:4d} N={npulse:3d} "
+              f"max per-block |kernel - plain| = {err:.3e}; pulse > echo "
+              f"entries max {upper:.1e}")
         if not ok or not err <= TOL_HESS_KERNEL or upper != 0.0:
             raise AssertionError(
                 f"case {case['name']}: Hessian kernel vs plain twin "
                 f"{err:.3e} > {TOL_HESS_KERNEL}, non-finite, or nonzero "
                 f"pulse > echo entries ({upper:.1e})")
         worst = max(worst, err)
+        wall[part] += time.perf_counter() - t0
+    _print_wall("phase_hess_cases", wall)
     return worst
 
 
@@ -2053,6 +2143,45 @@ def phase_design(torch, epg):
                 slsqp_s=slsqp_s, eval_s=eval_s)
 
 
+def hess_kernel_ops(torch, N, nstate, second_order):
+    """Operations per atom of the two-pass Hessian kernel's recurrence
+    (fisp_hess.cu), counted by ``count_ops`` on one step of its groups on
+    one ladder: the atom pass's N steps of P, U1, U2, and per chain (A,
+    T) the N (N + 1) / 2 steps of a lane from its own pulse on, the seed
+    terms once (a seeded step costs a plain one); the shifts move data and
+    count nothing, as on the twins."""
+    from epgpy_torch.models import planes
+
+    H = int(nstate) + 1
+
+    def step_ops(C):
+        one = torch.ones((H, 1), dtype=torch.float64)
+        groups = [tuple(one.clone() for _ in range(6)) for _ in range(C)]
+        rc = tuple(torch.ones(1, dtype=torch.float64) for _ in range(10))
+        cF, cZ, dcZ1, dcF2, e2, de2, rec = (torch.ones(1, dtype=torch.float64)
+                                            for _ in range(7))
+
+        def step():
+            y = [planes.apply_rot(rc, g) for g in groups]
+            echo = [e2 * y[0][0][0], e2 * y[0][1][0]]
+            n0 = [cF * v for v in y[0][:4]] + [cZ * v for v in y[0][4:]]
+            n0[4][0] = n0[4][0] + rec
+            if C == 3:
+                echo += [e2 * y[1][0][0], e2 * y[1][1][0],
+                         e2 * y[2][0][0] + de2 * y[0][0][0],
+                         e2 * y[2][1][0] + de2 * y[0][1][0]]
+                n1 = [cF * v for v in y[1][:4]] + [
+                    cZ * v + dcZ1 * p for v, p in zip(y[1][4:], y[0][4:])]
+                n1[4][0] = n1[4][0] + rec
+                [cF * v + dcF2 * p for v, p in zip(y[2][:4], y[0][:4])]
+                [cZ * v for v in y[2][4:]]
+            return echo
+        return count_ops(torch, step)
+
+    lanes = N * (N + 1) // 2
+    return N * step_ops(3) + 2 * lanes * step_ops(3 if second_order else 1)
+
+
 def phase_hess_numbers(torch, epg, card, run):
     """Hessian kernel and plain twin at the flagship shape, the
     assembly's share; returns the kernel's JSON entry."""
@@ -2080,11 +2209,16 @@ def phase_hess_numbers(torch, epg, card, run):
                              f"{max(errs.values()):.3e}")
     del k, p
     k_ms = _cuda_ms(torch, kernel)
-    p_ms = _cuda_ms(torch, plain, reps=1)
+    p_ms = _cuda_ms(torch, plain, reps=1, warm=False)
 
     seq, probes = run["seq"], run["probes"]
-    split = _profile_split(torch, lambda: epg.simulate(
-        seq, max_nstate=NSTATE, asarray=False, probe=probes), "fisp_hess")
+
+    def memoized():
+        return epg.simulate(seq, max_nstate=NSTATE, asarray=False,
+                            probe=probes)
+
+    # both passes' kernels (hess_atom_kernel, hess_lane_kernel)
+    split = _profile_split(torch, memoized, "hess_")
     tag = f"({card})"
     print(f"[numbers] fisp_hess kernel, {HESS_ATOMS} atoms x {HESS_N} "
           f"pulses (3 x {2 * HESS_N}): {k_ms:.3f} ms = "
@@ -2095,15 +2229,23 @@ def phase_hess_numbers(torch, epg, card, run):
           f"kernel + assembly): {run['first_s']:.3f} s; memoized match: "
           f"{run['memo_s'] * 1e3:.2f} ms {tag}")
     _print_split("simulate() Hessian", "fisp_hess", split, card)
+    _split_events(torch, "simulate() Hessian", "fisp_hess", memoized, card)
     flops = linear_ops(torch, lambda n: cuda_hessian.fisp_hessian_plain(
         *_cpu_atoms(torch, args, n, (3, 4)), nstate=NSTATE), HESS_ATOMS)
     nbytes = tensor_bytes(torch, args, kernel())
+    work = hess_kernel_ops(torch, HESS_N, NSTATE, True) * HESS_ATOMS
+    # the bound counts the function's own work (the atom pass, each chain
+    # from its own pulse, the seed terms once); the twin also multiplies
+    # the seed terms by a zero mask at every other pulse
+    print(f"[bound] fisp_hess: the twin's recurrence counts {flops:.4g} "
+          f"FLOP -> {flops / PEAK_FP32 * 1e3:.4f} ms at the FP32 peak; the "
+          f"bound takes the function's own {min(flops, work):.4g}")
     return {"name": "fisp_hess", "route": "cuda",
             "source": "epgpy_torch/csrc/fisp_hess.cu",
             "replaces": "epgpy_tpu/models/pallas_hessian.py:83",
             "launches": run["launches"], "max_abs_err": err,
             "ms": k_ms, "plain_ms": p_ms,
-            **bound_fields("fisp_hess", flops, nbytes)}
+            **bound_fields("fisp_hess", min(flops, work), nbytes)}
 
 
 # -- the CPMG family: kernels vs twins, paths, T2/B1 mapping, TSE design --
@@ -2644,7 +2786,7 @@ def phase_mse_numbers(torch, card, run, jac_run, t2b1):
             raise AssertionError(f"{name} kernel vs plain twin {err:.3e}")
         del k, p
         k_ms = _cuda_ms(torch, kernel)
-        p_ms = _cuda_ms(torch, plain, reps=1)
+        p_ms = _cuda_ms(torch, plain, reps=1, warm=False)
         print(f"[numbers] {name} kernel: {k_ms:.3f} ms = "
               f"{n / (k_ms / 1e3):.4g} signals/s; plain twin {p_ms:.3f} ms "
               f"({card})")
@@ -2720,7 +2862,7 @@ def phase_design_numbers(torch, card, tse):
                              f"{max(errs.values()):.3e}")
     del k, p
     k_ms = _cuda_ms(torch, kernel)
-    p_ms = _cuda_ms(torch, plain, reps=1)
+    p_ms = _cuda_ms(torch, plain, reps=1, warm=False)
     print(f"[numbers] cpmg_design kernel: {k_ms:.3f} ms = "
           f"{len(t1g) / (k_ms / 1e3):.4g} atoms/s; plain twin {p_ms:.3f} ms"
           f" ({card})")
@@ -3851,6 +3993,12 @@ def _match_args(fisp_dispatch, params):
 
 
 def _device_us(event):
+    """An event's own device time in microseconds, counted on the device's
+    events (kernels, copies) only: an operator on the host also reports
+    the device time of the kernels it launched, which its kernels' own
+    events already hold."""
+    if str(getattr(event, "device_type", "")).endswith("CPU"):
+        return 0.0
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
             return float(getattr(event, name))
@@ -3965,7 +4113,7 @@ def kernel_entry(torch, card, name, replaces, fns, args, kw, atom_idx,
                              f"{max(cols or [0.0]):.3e}")
     del k, p
     k_ms = _cuda_ms(torch, kernel)
-    p_ms = _cuda_ms(torch, plain, reps=1)
+    p_ms = _cuda_ms(torch, plain, reps=1, warm=False)
     print(f"[numbers] {name} kernel: {k_ms:.3f} ms = "
           f"{natoms / (k_ms / 1e3):.4g} atoms/s; plain twin {p_ms:.3f} ms "
           f"({card})")
@@ -4102,11 +4250,15 @@ def phase_comp_cases(torch, natoms=4096):
     """The composite kernels vs their plain twins on the card over the
     option cases, the primal and the Jacobian with all four groups (the
     last case with every group set of COMP_GROUP_SETS: none, each alone,
-    all), the Jacobian's signal also against the primal kernel's; returns
-    the worst signal |delta| and the worst per-column relative error."""
+    all), the Jacobian's signal also against the primal kernel's; then the
+    segmented Jacobian kernel's edges (COMP_EDGE_CASES) and ragged shapes
+    (COMP_SHAPES); returns the worst signal |delta| and the worst
+    per-column relative error."""
     from epgpy_torch.models import cuda_composite as cc
 
     worst_sig = worst_col = 0.0
+    wall = dict.fromkeys(("options", "edges", "shapes"), 0.0)
+    t0 = time.perf_counter()
     for case in COMP_CASES:
         args, kw = comp_tensors(torch, *make_comp_case(case, natoms), DEVICE)
         k = cc.composite_cuda(*args, **kw)
@@ -4132,6 +4284,31 @@ def phase_comp_cases(torch, natoms=4096):
                 f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
                 f"{TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+    wall["options"] = time.perf_counter() - t0
+    runs = [("edges", case, groups, COMP_EDGE_ATOMS, COMP_CASE_N)
+            for case, groups in COMP_EDGE_CASES]
+    runs += [("shapes", dict(_COMP_ALL, name=f"ragged_n{nst}", nstate=nst),
+              COMP_GROUP_SETS[-1], n, ns)
+             for n, ns in COMP_SHAPES for nst in (1, COMPJ_NSTATE)]
+    for part, case, groups, n, ns in runs:
+        t0 = time.perf_counter()
+        args, kw = comp_tensors(torch, *make_comp_case(case, n, ns), DEVICE)
+        kj = cc.composite_jacobian_cuda(*args, groups=groups, **kw)
+        sig, cols = _pair_errors(torch, kj, cc.composite_jacobian_plain(
+            *args, groups=groups, **kw), True)
+        print(f"[comp-cases] {case['name']:15s} B={n:5d} N={ns:3d} "
+              f"nstate={kw['nstate']:3d} groups {','.join(groups)}: "
+              f"max|kernel - plain| = {sig:.3e}, columns "
+              f"{', '.join(f'{c:.2e}' for c in cols)}")
+        if (not _finite(torch, kj) or not sig <= TOL_KERNEL
+                or not max(cols) <= TOL_JAC_KERNEL):
+            raise AssertionError(
+                f"composite Jacobian edge {case['name']} (B={n}, N={ns}): "
+                f"kernel vs plain twin {sig:.3e} / {max(cols):.3e} over "
+                f"{TOL_KERNEL} / {TOL_JAC_KERNEL} or not finite")
+        worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+        wall[part] += time.perf_counter() - t0
+    _print_wall("phase_comp_cases", wall)
     return worst_sig, worst_col
 
 
@@ -5521,6 +5698,12 @@ def _memo_pair(torch, fn, reps=5):
     return kept, _host_s(torch, cleared, reps=reps)
 
 
+def _print_wall(phase, wall):
+    """One line of a phase's wall time split by its parts."""
+    print(f"[time] {phase} by part: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in wall.items()))
+
+
 def _timed(fn, *args):
     """fn(*args), printing its wall time under the phase's name."""
     t0 = time.perf_counter()
@@ -5548,7 +5731,8 @@ def main():
           f"{TOL_JAC_KERNEL})")
     worst_hess = _timed(phase_hess_cases, torch)
     print(f"[hess-cases] worst per-block |kernel - plain| = {worst_hess:.3e} "
-          f"(limit {TOL_HESS_KERNEL}) over {len(HESS_CASES)} cases")
+          f"(limit {TOL_HESS_KERNEL}) over {len(HESS_CASES)} cases, "
+          f"{len(HESS_EDGE_CASES)} edges and {2 * len(HESS_SHAPES)} shapes")
     worst_mse, _ = _timed(phase_mse_cases, torch)
     print(f"[mse-cases] worst max|kernel - plain| = {worst_mse:.3e} (limit "
           f"{TOL_KERNEL}) over {len(MSE_CASES)} cases")

@@ -36,8 +36,7 @@ _SIGNATURES = {
     "epg_fisp_jac": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _F, _F, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P],
-    "epg_fisp_hess": [_P, _P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _I, _I, _I, _I, _P],
+    "epg_fisp_hess": [_P] * 3 + [_F] * 2 + [_P] * 5 + [_I] * 8 + [_P],
     "epg_cpmg": [_F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
                  _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "epg_cpmg_jac": [_F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
@@ -56,7 +55,7 @@ _SIGNATURES = {
     "epg_fisp_full": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P]
     + [_I] * 10 + [_P],
     "epg_composite": [_P] * 16 + [_I] * 12 + [_P],
-    "epg_composite_jac": [_P] * 16 + [_I] * 13 + [_P],
+    "epg_composite_jac": [_P] * 16 + [_I] * 14 + [_P],
     "epg_xgre": [_P] * 10 + [_I] * 7 + [_P],
     "epg_xgre_jac": [_P] * 10 + [_I] * 8 + [_P],
     "epg_xcomposite": [_P] * 16 + [_I] * 12 + [_P],

@@ -12,29 +12,44 @@
 // for the tangent groups the 4-bit mask selects (bit 0 T1, 1 T2, 2 B1,
 // 3 df).  Plane group 0 is the primal folded ladder, then one group of six
 // planes per selected tangent, in that order: 6 (1 + ng) planes of
-// H = nstate + 1 rows, so an unselected group costs no shared memory.  Every
-// op of a stage is affine in the state, so a tangent goes through the
-// primal's operator plus the derivative of its coefficients applied to the
-// primal: T1 perturbs cZ and the k = 0 recovery (drec = -dcZ), T2 the
-// carried cF and the echo's ta decay, B1 the rotation coefficients (one
-// more rotation of the primal rows, da = fa b1u pi/180: adiabatic stages
-// drop out), df the phasors -- i 2 pi t times the primal, t = ta on the
-// echo and ta + tb on the carried F planes, computed whether or not a df
-// is given so the df column is exact at df = 0.  The stage's shift and its
-// D attenuation are parameter-free and apply to every group alike.  Output
-// planes (2 + 2 ng, nadc, B): (re, im) per group, rows in ADC order.
+// H = nstate + 1 rows.  Every op of a stage is affine in the state, so a
+// tangent goes through the primal's operator plus the derivative of its
+// coefficients applied to the primal: T1 perturbs cZ and the k = 0 recovery
+// (drec = -dcZ), T2 the carried cF and the echo's ta decay, B1 the rotation
+// coefficients (one more rotation of the primal rows, da = fa b1u pi/180:
+// adiabatic stages drop out), df the phasors -- i 2 pi t times the primal,
+// t = ta on the echo and ta + tb on the carried F planes, computed whether
+// or not a df is given so the df column is exact at df = 0.  The stage's
+// shift and its D attenuation are parameter-free and apply to every group
+// alike.  Output planes (2 + 2 ng, nadc, B): (re, im) per group, rows in ADC
+// order.
 //
 // What bounds it on the card: the arithmetic, (1 + ng) rotated groups per
-// row plus the B1 coefficient pass, and the state, 6 (1 + ng) (nstate + 1)
-// floats per atom (1080 bytes at nstate 8 with all four groups).  The
-// design is megre_jac.cu's: one thread per atom runs the whole train, the
-// planes sit in shared memory at [plane][row][threadIdx.x] (conflict-free,
-// no barrier), one row walk serves every group (each group reads, rotates
-// and puts its own row into its own epg::StageShift, so only the primal's
-// rotated row is held across groups), the stage tables are broadcast reads
-// from global memory and every branch on a stage or on the mask is uniform
-// across the block.  The ragged atom edge is masked; math is precise.
+// row plus the B1 coefficient pass, with the state, 6 (1 + ng) (nstate + 1)
+// floats per atom, too large for a thread.  The design is fisp_jac.cu's, on
+// epg_planes.cuh's segmented layout: a ladder takes a segment of W =
+// ceil(H / R) lanes and a warp holds 32 / W ladders (6 of 5 lanes at the
+// main path's nstate 8, R = 2); lane r keeps rows r + W c, c < R, of every
+// group in registers (G = 1 + ng and R are template parameters; which
+// tangent a group holds is known at compile time where G leaves one
+// choice, else a branch uniform across the block).  A stage is one step of
+// R rows on every lane -- rotate, relax, the groups' coefficient terms --
+// then the stage's shift, uniform across the warp: epg::seg_shift (+1),
+// epg::seg_shift_down (-1) or none, and with D the attenuation computed
+// per owned row.  The atom-independent terms of a chunk of up to 32 stages
+// (the phase's sin/cos, the flip, ta, tb, b1u, the ADC phasor, the D base
+// and ramp, the output row and the shift) sit in a table in shared memory
+// that the block fills between two barriers; the atom's own terms of stage
+// t0 + j (the flip's sin/cos, the decays and their tangents, the df
+// phasors) are computed by lane j of the segment and broadcast by a
+// shuffle when that stage runs.  The row-0 lane writes a readout stage's
+// echoes into shared memory; after the chunk the block copies each to its
+// own output row (adci is a permutation, not increasing) as runs of
+// consecutive atoms.  A segment past the last atom runs on a clamped atom
+// and stores nothing.  Math is precise (no fast-math).
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "epg_planes.cuh"
 
@@ -42,6 +57,15 @@ namespace {
 
 constexpr float kDeg = 0.017453292519943295f;   // pi / 180
 constexpr float kTwoPi = 6.283185307179586f;
+
+// warps per block at most, stages per chunk at most, floats of one chunk's
+// table and staged echoes (48 KB), table floats per stage; mirrored by
+// cuda_fisp.SEG_WARPS, SEG_PULSES, SEG_CHUNK_FLOATS and
+// cuda_composite.COMP_JAC_TABLE
+constexpr int kMaxWarps = 4;
+constexpr int kMaxStages = 32;
+constexpr int kChunkFloats = 12288;
+constexpr int kTab = 16;
 
 struct CompJacArgs {
     const float* fa;    // (N,) flip angles, degrees
@@ -62,218 +86,463 @@ struct CompJacArgs {
     float* out;         // (2 + 2 ng, nadc, B): (re, im) per group
     int N, B, H, nadc, mask;
     int use_df, use_up, use_down, use_adcph, use_b1u, use_d;
+    int T;              // stages per chunk
 };
 
-__global__ void composite_jac_kernel(const CompJacArgs p) {
-    extern __shared__ float smem[];
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= p.B) return;  // ragged edge; no barrier follows
-    const int H = p.H;
-    const int ld = static_cast<int>(blockDim.x);
-    // the plane group of each selected tangent (T1, T2, B1, df), 0 when
-    // not selected; groups are packed after the primal in that order
-    int slot[4];
-    int ng = 0;
-    for (int g = 0; g < 4; ++g) slot[g] = (p.mask >> g) & 1 ? ++ng : 0;
-    auto set = [&](int g) {
-        return epg::PlaneSet{smem + threadIdx.x + 6 * g * H * ld, H, ld};
-    };
-    const epg::PlaneSet P = set(0);
+using epg::fdecay;
+using epg::rotate;
+using epg::Row;
+
+// An atom's terms of one stage.
+struct StageTerms {
+    float sa, ca;        // sin, cos of the flip
+    float cZ, dcZ;       // Z decay over ta + tb and its T1 derivative
+    float cFr, cFi;      // F decay over ta + tb, with the df phasor
+    float dcFr, dcFi;    // its T2 derivative
+    float e2a, de2a;     // the echo's decay over ta and its T2 derivative
+    float pc, ps;        // the echo's phasor: df over ta, then the ADC phase
+};
+
+struct Atom {
+    float T1, T2, B1, DF;
+};
+
+// The terms of the stage whose table entries are v1 = (fa, ta, tb, b1u) and
+// v2 = (cos aph, sin aph, -, -).
+__device__ __forceinline__ StageTerms stage_terms(const CompJacArgs& p,
+                                                  const float4 v1,
+                                                  const float4 v2,
+                                                  const Atom& at) {
     const bool cdf = p.use_df != 0;
-
-    const float T1 = p.t1[b];
-    const float T2 = p.t2[b];
-    const float B1 = p.b1[b];
-    const float DF = cdf ? p.df[b] : 0.0f;
-    const float Dc = p.use_d ? p.dc[b] : 0.0f;
-
-    for (int g = 0; g <= ng; ++g)
-        for (int j = 0; j < 6; ++j)
-            for (int k = 0; k < H; ++k) set(g).at(j, k) = 0.0f;
-    P.at(4, 0) = 1.0f;
-
-    const size_t plane = static_cast<size_t>(p.nadc) * p.B;
-
-    for (int i = 0; i < p.N; ++i) {
-        const float fa = p.fa[i];
-        const float ph = p.phi[i] * kDeg;
-        float sp, cp, s2p, c2p, sa, ca;
-        sincosf(ph, &sp, &cp);
-        sincosf(2.0f * ph, &s2p, &c2p);
-        float a, da;
-        if (p.use_b1u) {
-            const float u = p.b1u[i];
-            a = fa * (1.0f + u * (B1 - 1.0f)) * kDeg;
-            da = fa * u * kDeg;
-        } else {
-            a = fa * B1 * kDeg;
-            da = fa * kDeg;
-        }
-        sincosf(a, &sa, &ca);
-        const epg::Rot r = epg::rot_coeffs_sc(sa, ca, cp, sp, c2p, s2p);
-        const epg::Rot dr = epg::rot_coeffs_db1(sa, ca, da, cp, sp, c2p, s2p);
-
-        const float ta = p.ta[i];
-        const float tb = p.tb[i];
-        const float tt = ta + tb;
-        const float e1a = expf(-ta / T1);
-        const float e1b = expf(-tb / T1);
-        const float e2a = expf(-ta / T2);
-        const float cF = e2a * expf(-tb / T2);
-        const float cZ = e1a * e1b;
-        const float rec = 1.0f - cZ;
-        const float de2a = e2a * ta / (T2 * T2);
-        const float dcF = cF * tt / (T2 * T2);
-        const float dcZ = cZ * tt / (T1 * T1);
-        float cFr = cF, cFi = 0.0f, dcFr = dcF, dcFi = 0.0f;
+    StageTerms o;
+    const float fa = v1.x;
+    const float a = p.use_b1u ? fa * (1.0f + v1.w * (at.B1 - 1.0f)) * kDeg
+                              : fa * at.B1 * kDeg;
+    sincosf(a, &o.sa, &o.ca);
+    const float ta = v1.y, tb = v1.z;
+    const float tt = ta + tb;
+    const float e1a = expf(-ta / at.T1);
+    const float e1b = expf(-tb / at.T1);
+    o.e2a = expf(-ta / at.T2);
+    const float cF = o.e2a * expf(-tb / at.T2);
+    o.cZ = e1a * e1b;
+    o.de2a = o.e2a * ta / (at.T2 * at.T2);
+    const float dcF = cF * tt / (at.T2 * at.T2);
+    o.dcZ = o.cZ * tt / (at.T1 * at.T1);
+    o.cFr = cF;
+    o.cFi = 0.0f;
+    o.dcFr = dcF;
+    o.dcFi = 0.0f;
+    o.pc = 1.0f;
+    o.ps = 0.0f;
+    if (cdf) {
+        float pI, pR;
+        sincosf(kTwoPi * at.DF * tt, &pI, &pR);
+        o.cFr = cF * pR;
+        o.cFi = cF * pI;
+        o.dcFr = dcF * pR;
+        o.dcFi = dcF * pI;
+        sincosf(kTwoPi * at.DF * ta, &o.ps, &o.pc);
+    }
+    if (p.use_adcph) {
         if (cdf) {
-            float pI, pR;
-            sincosf(kTwoPi * DF * tt, &pI, &pR);
-            cFr = cF * pR;
-            cFi = cF * pI;
-            dcFr = dcF * pR;
-            dcFi = dcF * pI;
-        }
-        // d/ddf of the carried F coefficient: i 2 pi tt (cFr + i cFi)
-        const float w = kTwoPi * tt;
-        const float fFr = -w * cFi;
-        const float fFi = w * cFr;
-        // the echo's phasor: df over ta, then the ADC phase
-        const bool phased = cdf || p.use_adcph;
-        float pc = 1.0f, ps = 0.0f;
-        if (cdf) sincosf(kTwoPi * DF * ta, &ps, &pc);
-        if (p.use_adcph) {
-            float as, ac;
-            sincosf(p.aph[i], &as, &ac);
-            if (cdf) {
-                epg::cmul(pc, ps, ac, as, pc, ps);
-            } else {
-                pc = ac;
-                ps = as;
-            }
-        }
-        // the echo of a rotated k = 0 row: decay over ta, then the phasor
-        auto echo = [&](float re, float im, float& oR, float& oI) {
-            oR = e2a * re;
-            oI = e2a * im;
-            if (phased) epg::cmul(pc, ps, oR, oI, oR, oI);
-        };
-        const int idx = p.adci[i];
-        const bool readout = idx >= 0 && idx < p.nadc;
-        auto write = [&](int o, float eR, float eI) {
-            const size_t at = static_cast<size_t>(idx) * p.B + b;
-            p.out[(2 * o) * plane + at] = eR;
-            p.out[(2 * o + 1) * plane + at] = eI;
-        };
-
-        int dir = p.shift[i];
-        if (!((dir > 0 && p.use_up) || (dir < 0 && p.use_down))) dir = 0;
-        epg::StageShift shP(P, dir);
-        epg::StageShift sh1(set(slot[0]), dir), sh2(set(slot[1]), dir),
-            sh3(set(slot[2]), dir), sh4(set(slot[3]), dir);
-        for (int k = 0; k < H; ++k) {
-            const epg::Row x = epg::read_row(P, k);
-            const epg::Row R = epg::rotate(r, x);
-            float pR = 0.0f, pI = 0.0f;
-            const bool at_echo = k == 0 && readout;
-            if (at_echo) {
-                echo(R.AR, R.AI, pR, pI);
-                write(0, pR, pI);
-            }
-            {   // primal
-                float nAR, nAI, nBR, nBI;
-                epg::fdecay(cdf, cFr, cFi, R.AR, R.AI, nAR, nAI);
-                epg::fdecay(cdf, cFr, cFi, R.BR, R.BI, nBR, nBI);
-                float nZR = cZ * R.ZR;
-                if (k == 0) nZR = nZR + rec;
-                shP.put(k, nAR, nAI, nBR, nBI, nZR, cZ * R.ZI);
-            }
-            if (slot[0]) {   // dT1: only cZ and rec = 1 - cZ carry tangents
-                const epg::Row t = epg::rotate(r, epg::read_row(sh1.up.s, k));
-                if (at_echo) {
-                    float eR, eI;
-                    echo(t.AR, t.AI, eR, eI);
-                    write(slot[0], eR, eI);
-                }
-                float nAR, nAI, nBR, nBI;
-                epg::fdecay(cdf, cFr, cFi, t.AR, t.AI, nAR, nAI);
-                epg::fdecay(cdf, cFr, cFi, t.BR, t.BI, nBR, nBI);
-                float nZR = cZ * t.ZR + dcZ * R.ZR;
-                if (k == 0) nZR = nZR - dcZ;
-                sh1.put(k, nAR, nAI, nBR, nBI, nZR, cZ * t.ZI + dcZ * R.ZI);
-            }
-            if (slot[1]) {   // dT2: cF and the echo's ta decay
-                const epg::Row t = epg::rotate(r, epg::read_row(sh2.up.s, k));
-                if (at_echo) {
-                    float eR, eI, xR = de2a * R.AR, xI = de2a * R.AI;
-                    echo(t.AR, t.AI, eR, eI);
-                    if (phased) epg::cmul(pc, ps, xR, xI, xR, xI);
-                    write(slot[1], eR + xR, eI + xI);
-                }
-                float aR, aI, bR, bI, xaR, xaI, xbR, xbI;
-                epg::fdecay(cdf, cFr, cFi, t.AR, t.AI, aR, aI);
-                epg::fdecay(cdf, dcFr, dcFi, R.AR, R.AI, xaR, xaI);
-                epg::fdecay(cdf, cFr, cFi, t.BR, t.BI, bR, bI);
-                epg::fdecay(cdf, dcFr, dcFi, R.BR, R.BI, xbR, xbI);
-                sh2.put(k, aR + xaR, aI + xaI, bR + xbR, bI + xbI,
-                        cZ * t.ZR, cZ * t.ZI);
-            }
-            if (slot[2]) {   // dB1: the rotation coefficients' pass
-                const epg::Row C = epg::rotate(dr, x);
-                const epg::Row t = epg::rotate(r, epg::read_row(sh3.up.s, k));
-                if (at_echo) {
-                    float eR, eI;
-                    echo(t.AR + C.AR, t.AI + C.AI, eR, eI);
-                    write(slot[2], eR, eI);
-                }
-                float nAR, nAI, nBR, nBI;
-                epg::fdecay(cdf, cFr, cFi, t.AR + C.AR, t.AI + C.AI, nAR, nAI);
-                epg::fdecay(cdf, cFr, cFi, t.BR + C.BR, t.BI + C.BI, nBR, nBI);
-                sh3.put(k, nAR, nAI, nBR, nBI, cZ * (t.ZR + C.ZR),
-                        cZ * (t.ZI + C.ZI));
-            }
-            if (slot[3]) {   // ddf: the phasors' derivative on the primal
-                const epg::Row t = epg::rotate(r, epg::read_row(sh4.up.s, k));
-                if (at_echo) {
-                    float eR, eI;
-                    echo(t.AR, t.AI, eR, eI);
-                    const float we = kTwoPi * ta;
-                    write(slot[3], eR + -we * pI, eI + we * pR);
-                }
-                float aR, aI, bR, bI, yaR, yaI, ybR, ybI;
-                epg::fdecay(cdf, cFr, cFi, t.AR, t.AI, aR, aI);
-                epg::fdecay(cdf, cFr, cFi, t.BR, t.BI, bR, bI);
-                epg::cmul(fFr, fFi, R.AR, R.AI, yaR, yaI);
-                epg::cmul(fFr, fFi, R.BR, R.BI, ybR, ybI);
-                // Z carries no off-resonance
-                sh4.put(k, aR + yaR, aI + yaI, bR + ybR, bI + ybI,
-                        cZ * t.ZR, cZ * t.ZI);
-            }
-        }
-        shP.finish();
-        if (slot[0]) sh1.finish();
-        if (slot[1]) sh2.finish();
-        if (slot[2]) sh3.finish();
-        if (slot[3]) sh4.finish();
-        if (p.use_d) {
-            const float bt = p.btd[i];
-            if (bt != 0.0f) {   // a stage without D: every factor is 1
-                const float rd = p.rdir[i];
-                for (int k = 0; k < H; ++k) {
-                    const epg::StageAtt f = epg::stage_att(k, bt, rd, Dc);
-                    for (int g = 0; g <= ng; ++g)
-                        epg::attenuate_row(set(g), k, f);
-                }
-            }
+            epg::cmul(o.pc, o.ps, v2.x, v2.y, o.pc, o.ps);
+        } else {
+            o.pc = v2.x;
+            o.ps = v2.y;
         }
     }
+    return o;
+}
+
+// Lane u of the segment hands its stage terms to the whole segment.
+__device__ __forceinline__ StageTerms bcast(const epg::SegLane& q,
+                                            const StageTerms& m, int u,
+                                            bool cdf, bool phased) {
+    StageTerms o = m;
+    o.sa = epg::seg_bcast(q, m.sa, u);
+    o.ca = epg::seg_bcast(q, m.ca, u);
+    o.cZ = epg::seg_bcast(q, m.cZ, u);
+    o.dcZ = epg::seg_bcast(q, m.dcZ, u);
+    o.cFr = epg::seg_bcast(q, m.cFr, u);
+    o.dcFr = epg::seg_bcast(q, m.dcFr, u);
+    o.e2a = epg::seg_bcast(q, m.e2a, u);
+    o.de2a = epg::seg_bcast(q, m.de2a, u);
+    if (cdf) {
+        o.cFi = epg::seg_bcast(q, m.cFi, u);
+        o.dcFi = epg::seg_bcast(q, m.dcFi, u);
+    }
+    if (phased) {
+        o.pc = epg::seg_bcast(q, m.pc, u);
+        o.ps = epg::seg_bcast(q, m.ps, u);
+    }
+    return o;
+}
+
+template <int R>
+__device__ __forceinline__ Row row(const float (&s)[6][R], int c) {
+    return Row{s[0][c], s[1][c], s[2][c], s[3][c], s[4][c], s[5][c]};
+}
+
+template <int R>
+__device__ __forceinline__ void put(float (&s)[6][R], int c, float nAR,
+                                    float nAI, float nBR, float nBI,
+                                    float nZR, float nZI) {
+    s[0][c] = nAR;
+    s[1][c] = nAI;
+    s[2][c] = nBR;
+    s[3][c] = nBI;
+    s[4][c] = nZR;
+    s[5][c] = nZI;
+}
+
+// The tangent kinds: T1, T2, B1, df (the mask's bits).  Group g >= 1 of G
+// holds the g-th selected kind kd, which lies in [g - 1, g + 4 - G]: one
+// choice when G = 5, so the kind is a compile-time constant there.
+template <int G, int g, int K>
+__device__ __forceinline__ bool holds(int kd) {
+    return K >= g - 1 && K <= g + 4 - G && (G == 5 || kd == K);
+}
+
+// The kind of group g >= 1: the g-th set bit of the mask.
+__device__ __forceinline__ int group_kind(int mask, int g) {
+    int kk = 0;
+    for (; kk < 3; ++kk)
+        if (((mask >> kk) & 1) && --g == 0) break;
+    return kk;
+}
+
+// What every group's row step reads: the stage's rotated primal row P (and
+// its B1 coefficient pass Cb), the stage terms, the echo's output slot.
+struct RowCtx {
+    Row P, Cb;
+    StageTerms pt;
+    float fFr, fFi;   // d/ddf of the carried F coefficient: i 2 pi tt cF
+    float pR, pI;     // the primal's echo
+    float we;         // 2 pi ta
+    bool k0, at_echo;
+};
+
+// The echo of a rotated k = 0 row: decay over ta, then the phasor.
+__device__ __forceinline__ void echo_of(const RowCtx& x, bool phased,
+                                        float re, float im, float& oR,
+                                        float& oI) {
+    oR = x.pt.e2a * re;
+    oI = x.pt.e2a * im;
+    if (phased) epg::cmul(x.pt.pc, x.pt.ps, oR, oI, oR, oI);
+}
+
+// Row c of tangent group g (kind kd): its rotated row, its echo into
+// e[2 g TA], e[(2 g + 1) TA] and its relaxed new values.
+template <int G, int g, int R>
+__device__ __forceinline__ void group_row(float (&s)[6][R], int c, int kd,
+                                          const epg::Rot& r,
+                                          const RowCtx& x, bool cdf,
+                                          bool phased, float* e, int TA) {
+    const StageTerms& pt = x.pt;
+    const Row t = rotate(r, row(s, c));
+    float eR = 0.0f, eI = 0.0f;
+    if (holds<G, g, 0>(kd)) {
+        // dT1: only cZ and rec = 1 - cZ carry tangents
+        if (x.at_echo) echo_of(x, phased, t.AR, t.AI, eR, eI);
+        float nAR, nAI, nBR, nBI;
+        fdecay(cdf, pt.cFr, pt.cFi, t.AR, t.AI, nAR, nAI);
+        fdecay(cdf, pt.cFr, pt.cFi, t.BR, t.BI, nBR, nBI);
+        float nZR = pt.cZ * t.ZR + pt.dcZ * x.P.ZR;
+        if (x.k0) nZR = nZR - pt.dcZ;
+        put(s, c, nAR, nAI, nBR, nBI, nZR, pt.cZ * t.ZI + pt.dcZ * x.P.ZI);
+    } else if (holds<G, g, 1>(kd)) {
+        // dT2: cF and the echo's ta decay
+        if (x.at_echo) {
+            float xR = pt.de2a * x.P.AR, xI = pt.de2a * x.P.AI;
+            echo_of(x, phased, t.AR, t.AI, eR, eI);
+            if (phased) epg::cmul(pt.pc, pt.ps, xR, xI, xR, xI);
+            eR = eR + xR;
+            eI = eI + xI;
+        }
+        float aR, aI, bR, bI, xaR, xaI, xbR, xbI;
+        fdecay(cdf, pt.cFr, pt.cFi, t.AR, t.AI, aR, aI);
+        fdecay(cdf, pt.dcFr, pt.dcFi, x.P.AR, x.P.AI, xaR, xaI);
+        fdecay(cdf, pt.cFr, pt.cFi, t.BR, t.BI, bR, bI);
+        fdecay(cdf, pt.dcFr, pt.dcFi, x.P.BR, x.P.BI, xbR, xbI);
+        put(s, c, aR + xaR, aI + xaI, bR + xbR, bI + xbI, pt.cZ * t.ZR,
+            pt.cZ * t.ZI);
+    } else if (holds<G, g, 2>(kd)) {
+        // dB1: the rotation coefficients' pass
+        const Row& C = x.Cb;
+        if (x.at_echo)
+            echo_of(x, phased, t.AR + C.AR, t.AI + C.AI, eR, eI);
+        float nAR, nAI, nBR, nBI;
+        fdecay(cdf, pt.cFr, pt.cFi, t.AR + C.AR, t.AI + C.AI, nAR, nAI);
+        fdecay(cdf, pt.cFr, pt.cFi, t.BR + C.BR, t.BI + C.BI, nBR, nBI);
+        put(s, c, nAR, nAI, nBR, nBI, pt.cZ * (t.ZR + C.ZR),
+            pt.cZ * (t.ZI + C.ZI));
+    } else if (holds<G, g, 3>(kd)) {
+        // ddf: the phasors' derivative on the primal
+        if (x.at_echo) {
+            echo_of(x, phased, t.AR, t.AI, eR, eI);
+            eR = eR + -x.we * x.pI;
+            eI = eI + x.we * x.pR;
+        }
+        float aR, aI, bR, bI, yaR, yaI, ybR, ybI;
+        fdecay(cdf, pt.cFr, pt.cFi, t.AR, t.AI, aR, aI);
+        fdecay(cdf, pt.cFr, pt.cFi, t.BR, t.BI, bR, bI);
+        epg::cmul(x.fFr, x.fFi, x.P.AR, x.P.AI, yaR, yaI);
+        epg::cmul(x.fFr, x.fFi, x.P.BR, x.P.BI, ybR, ybI);
+        // Z carries no off-resonance
+        put(s, c, aR + yaR, aI + yaI, bR + ybR, bI + ybI, pt.cZ * t.ZR,
+            pt.cZ * t.ZI);
+    }
+    if (x.at_echo) {
+        e[2 * g * TA] = eR;
+        e[(2 * g + 1) * TA] = eI;
+    }
+}
+
+// Register budget per instance (megre_jac.cu's): 3 blocks of kMaxWarps
+// warps per SM (at most 168 registers) at R <= 2 rows per lane, no cap
+// above.
+template <int R>
+constexpr int kMinBlocks = R <= 2 ? 3 : 1;
+template <int R>
+constexpr int kBoundThreads =
+    (kMinBlocks<R> > 1 ? 1 : 2) * kMaxWarps * epg::kWarp;
+
+// G = 1 + ng groups, R rows per lane.  Dynamic shared memory: the chunk's
+// table (4 float4 per stage: cos phi, sin phi, cos 2phi, sin 2phi; fa, ta,
+// tb, b1u; cos aph, sin aph, btd, rdir; adci, shift as int bits, -, -),
+// then the staged echoes (2 G, T, A) of the block's A atoms.
+template <int G, int R>
+__global__ void __launch_bounds__(kBoundThreads<R>, kMinBlocks<R>)
+    composite_jac_kernel(const CompJacArgs p) {
+    extern __shared__ float4 smem[];
+    constexpr int NO = 2 * G;
+    const int T = p.T;
+    float4* tab = smem;
+    float* stage = reinterpret_cast<float*>(smem + 4 * T);
+    const int H = p.H;
+    const int W = (H + R - 1) / R;   // lanes per ladder
+    const int L = epg::kWarp / W;
+    const epg::SegLane q =
+        epg::seg_lane(threadIdx.x & (epg::kWarp - 1), W, H);
+    const int seg = q.base / W;
+    const int A = static_cast<int>(blockDim.x / epg::kWarp) * L;
+    const int slot = static_cast<int>(threadIdx.x / epg::kWarp) * L + seg;
+    const int atom0 = blockIdx.x * A;
+    const bool writer = q.r == 0 && seg < L;   // the segment's row-0 lane
+    const int b = min(atom0 + slot, p.B - 1);  // clamped past the last atom
+    const bool cdf = p.use_df != 0;
+    const bool phased = cdf || p.use_adcph;
+    const bool has_b1 = (p.mask & 4) != 0;
+    const int TA = T * A;   // floats per staged output plane
+    // the kind of each group (T1 0, T2 1, B1 2, df 3): the set bits in order
+    const int kd1 = group_kind(p.mask, 1), kd2 = group_kind(p.mask, 2),
+              kd3 = group_kind(p.mask, 3), kd4 = group_kind(p.mask, 4);
+
+    Atom at;
+    at.T1 = p.t1[b];
+    at.T2 = p.t2[b];
+    at.B1 = p.b1[b];
+    at.DF = cdf ? p.df[b] : 0.0f;
+    const float Dc = p.use_d ? p.dc[b] : 0.0f;
+
+    float s[G][6][R];   // s[g][j][c]: plane j of group g, row r + W c
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+            for (int c = 0; c < R; ++c) s[g][j][c] = 0.0f;
+    if (q.r == 0) s[0][4][0] = 1.0f;
+
+    const size_t plane = static_cast<size_t>(p.nadc) * p.B;
+    for (int i0 = 0; i0 < p.N; i0 += T) {
+        const int n = min(T, p.N - i0);
+        for (int t = threadIdx.x; t < n; t += blockDim.x) {
+            const int i = i0 + t;
+            const float ph = p.phi[i] * kDeg;
+            float sp, cp, s2p, c2p, as = 0.0f, ac = 1.0f;
+            sincosf(ph, &sp, &cp);
+            sincosf(2.0f * ph, &s2p, &c2p);
+            if (p.use_adcph) sincosf(p.aph[i], &as, &ac);
+            int dir = p.shift[i];
+            if (!((dir > 0 && p.use_up) || (dir < 0 && p.use_down))) dir = 0;
+            const int idx = p.adci[i];
+            tab[4 * t] = make_float4(cp, sp, c2p, s2p);
+            tab[4 * t + 1] = make_float4(p.fa[i], p.ta[i], p.tb[i],
+                                         p.use_b1u ? p.b1u[i] : 1.0f);
+            tab[4 * t + 2] = make_float4(ac, as, p.use_d ? p.btd[i] : 0.0f,
+                                         p.use_d ? p.rdir[i] : 0.0f);
+            tab[4 * t + 3] = make_float4(
+                __int_as_float(idx >= 0 && idx < p.nadc ? idx : -1),
+                __int_as_float(dir), 0.0f, 0.0f);
+        }
+        __syncthreads();
+        for (int t0 = 0; t0 < n; t0 += W) {
+            const int nu = min(W, n - t0);
+            // this lane's atom terms of stage t0 + r, broadcast below
+            const int tm = t0 + min(q.r, nu - 1);
+            const StageTerms mine =
+                stage_terms(p, tab[4 * tm + 1], tab[4 * tm + 2], at);
+            for (int u = 0; u < nu; ++u) {
+                const int t = t0 + u;
+                RowCtx x;
+                x.pt = bcast(q, mine, u, cdf, phased);
+                const StageTerms& pt = x.pt;
+                const float4 ph = tab[4 * t];   // cp, sp, c2p, s2p
+                const float4 v1 = tab[4 * t + 1];
+                const float4 v3 = tab[4 * t + 3];
+                const int idx = __float_as_int(v3.x);
+                const int dir = __float_as_int(v3.y);
+                const epg::Rot r =
+                    epg::rot_coeffs_sc(pt.sa, pt.ca, ph.x, ph.y, ph.z, ph.w);
+                epg::Rot dr{};
+                if (has_b1)
+                    dr = epg::rot_coeffs_db1(
+                        pt.sa, pt.ca,
+                        p.use_b1u ? v1.x * v1.w * kDeg : v1.x * kDeg, ph.x,
+                        ph.y, ph.z, ph.w);
+                const float rec = 1.0f - pt.cZ;
+                const float w = kTwoPi * (v1.y + v1.z);
+                x.fFr = -w * pt.cFi;
+                x.fFi = w * pt.cFr;
+                x.we = kTwoPi * v1.y;
+                float* const e = stage + t * A + slot;
+
+#pragma unroll
+                for (int c = 0; c < R; ++c) {
+                    x.k0 = c == 0 && q.r == 0;
+                    x.at_echo = c == 0 && writer && idx >= 0;
+                    const Row xr = row(s[0], c);
+                    x.P = rotate(r, xr);
+                    if (has_b1) x.Cb = rotate(dr, xr);
+                    x.pR = x.pI = 0.0f;
+                    if (x.at_echo) {
+                        echo_of(x, phased, x.P.AR, x.P.AI, x.pR, x.pI);
+                        e[0] = x.pR;
+                        e[TA] = x.pI;
+                    }
+                    {   // primal
+                        float nAR, nAI, nBR, nBI;
+                        fdecay(cdf, pt.cFr, pt.cFi, x.P.AR, x.P.AI, nAR, nAI);
+                        fdecay(cdf, pt.cFr, pt.cFi, x.P.BR, x.P.BI, nBR, nBI);
+                        float nZR = pt.cZ * x.P.ZR;
+                        if (x.k0) nZR = nZR + rec;
+                        put(s[0], c, nAR, nAI, nBR, nBI, nZR, pt.cZ * x.P.ZI);
+                    }
+                    if constexpr (G > 1)
+                        group_row<G, 1, R>(s[1], c, kd1, r, x, cdf,
+                                           phased, e, TA);
+                    if constexpr (G > 2)
+                        group_row<G, 2, R>(s[2], c, kd2, r, x, cdf,
+                                           phased, e, TA);
+                    if constexpr (G > 3)
+                        group_row<G, 3, R>(s[3], c, kd3, r, x, cdf,
+                                           phased, e, TA);
+                    if constexpr (G > 4)
+                        group_row<G, 4, R>(s[4], c, kd4, r, x, cdf,
+                                           phased, e, TA);
+                }
+                if (dir > 0) {
+#pragma unroll
+                    for (int g = 0; g < G; ++g) epg::seg_shift(q, s[g]);
+                } else if (dir < 0) {
+#pragma unroll
+                    for (int g = 0; g < G; ++g) epg::seg_shift_down(q, s[g]);
+                }
+                const float4 v2 = tab[4 * t + 2];   // -, -, btd, rdir
+                const float bt = v2.z;
+                if (p.use_d && bt != 0.0f) {
+                    // a stage without D: every factor is 1
+                    const float rd = v2.w;
+#pragma unroll
+                    for (int c = 0; c < R; ++c) {
+                        const epg::StageAtt f =
+                            epg::stage_att(q.r + W * c, bt, rd, Dc);
+#pragma unroll
+                        for (int g = 0; g < G; ++g) {
+                            s[g][0][c] *= f.aA;
+                            s[g][1][c] *= f.aA;
+                            s[g][2][c] *= f.aB;
+                            s[g][3][c] *= f.aB;
+                            s[g][4][c] *= f.aZ;
+                            s[g][5][c] *= f.aZ;
+                        }
+                    }
+                }
+            }
+        }
+        __syncthreads();
+        // each readout stage's staged echoes to its own output row: thread
+        // i keeps atom a = i % A and walks the (output, stage) rows
+        const int step = blockDim.x / A;
+        const int a = threadIdx.x % A;
+        const int i = threadIdx.x / A;
+        if (i < step && atom0 + a < p.B) {
+            for (int rw = i; rw < NO * n; rw += step) {
+                const int o = rw / n, t = rw - o * n;
+                const int idx = __float_as_int(tab[4 * t + 3].x);
+                if (idx >= 0)
+                    p.out[o * plane + static_cast<size_t>(idx) * p.B + atom0
+                          + a] = stage[(o * T + t) * A + a];
+            }
+        }
+        __syncthreads();   // the next chunk's table overwrites the rows
+    }
+}
+
+template <int G, int R>
+int launch(CompJacArgs a, int warps, cudaStream_t stream) {
+    const int W = (a.H + R - 1) / R;
+    const int A = warps * (epg::kWarp / W);
+    const int per = kTab + 2 * G * A;
+    a.T = std::min(kMaxStages, std::max(1, kChunkFloats / per));
+    const size_t smem = sizeof(float) * static_cast<size_t>(a.T) * per;
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            composite_jac_kernel<G, R>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const int grid = (a.B + A - 1) / A;
+    composite_jac_kernel<G, R>
+        <<<grid, warps * epg::kWarp, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int launch_r(const CompJacArgs& a, int R, int warps, cudaStream_t st) {
+    switch (R) {
+        case 1: return launch<G, 1>(a, warps, st);
+        case 2: return launch<G, 2>(a, warps, st);
+        case 3:
+            if constexpr (G <= 4) return launch<G, 3>(a, warps, st);
+            break;
+        case 4:
+            if constexpr (G <= 3) return launch<G, 4>(a, warps, st);
+            break;
+        case 5:
+            if constexpr (G <= 2) return launch<G, 5>(a, warps, st);
+            break;
+        case 10:
+            if constexpr (G == 1) return launch<G, 10>(a, warps, st);
+            break;
+        default:
+            break;
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Launch on `stream` of CUDA device `device`; allocates nothing.  Returns
 // the CUDA error code of the launch (0 on success); the caller raises on
-// anything else.
+// anything else.  `block` is warps per block (at most 4) and `R` the
+// ladder's rows per lane, both from cuda_composite.comp_jac_geometry; an
+// instance exists for R <= 2 with 4 groups, 3 with 3, 4 with 2, 5 with 1
+// and R = 10 without groups (the gate's edges), and W = ceil(H / R) must
+// fit a warp.
 extern "C" int epg_composite_jac(const float* fa, const float* phi,
                                  const float* ta, const float* tb,
                                  const int* adci, const int* shift,
@@ -282,26 +551,25 @@ extern "C" int epg_composite_jac(const float* fa, const float* phi,
                                  const float* t1, const float* t2,
                                  const float* b1, const float* df,
                                  const float* dc, float* out, int N, int B,
-                                 int nadc, int nstate, int mask, int use_df,
-                                 int use_up, int use_down, int use_adcph,
-                                 int use_b1u, int use_d, int block,
-                                 int device, void* stream) {
+                                 int nadc, int nstate, int R, int mask,
+                                 int use_df, int use_up, int use_down,
+                                 int use_adcph, int use_b1u, int use_d,
+                                 int block, int device, void* stream) {
     CompJacArgs a{fa, phi, ta, tb, adci, shift, aph, b1u, btd, rdir, t1, t2,
                   b1, df, dc, out, N, B, nstate + 1, nadc, mask & 15, use_df,
-                  use_up, use_down, use_adcph, use_b1u, use_d};
-    const int ng = __builtin_popcount(static_cast<unsigned>(a.mask));
-    cudaError_t e = cudaSetDevice(device);
+                  use_up, use_down, use_adcph, use_b1u, use_d, 0};
+    const int G = 1 + __builtin_popcount(static_cast<unsigned>(a.mask));
+    const cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
-    const size_t smem =
-        sizeof(float) * 6 * (1 + ng) * static_cast<size_t>(a.H) * block;
-    if (smem > 48 * 1024) {
-        e = cudaFuncSetAttribute(
-            composite_jac_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
+    if (block < 1 || block > kMaxWarps || a.H < 2 || R < 1 ||
+        (a.H + R - 1) / R > epg::kWarp)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch (G) {
+        case 1: return launch_r<1>(a, R, block, st);
+        case 2: return launch_r<2>(a, R, block, st);
+        case 3: return launch_r<3>(a, R, block, st);
+        case 4: return launch_r<4>(a, R, block, st);
+        default: return launch_r<5>(a, R, block, st);
     }
-    const int grid = (B + block - 1) / block;
-    composite_jac_kernel<<<grid, block, smem,
-                           static_cast<cudaStream_t>(stream)>>>(a);
-    return static_cast<int>(cudaGetLastError());
 }

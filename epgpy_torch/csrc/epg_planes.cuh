@@ -620,7 +620,8 @@ __device__ __forceinline__ int reach(int i, int half, int H) {
 // -- segmented layout: several short ladders per warp, rows across the
 // lanes of a segment, the state in registers --
 //
-// The FISP and ME-GRE tangent kernels (fisp_jac.cu, megre_jac.cu) give a
+// The tangent kernels fisp_jac.cu, megre_jac.cu, composite_jac.cu and
+// fisp_hess.cu (its two passes) give a
 // folded ladder of H = nstate + 1 rows a segment of W = ceil(H / R)
 // consecutive lanes, and a warp holds L = 32 / W segments; lanes past the
 // last segment run the same instructions on a clamped atom and store
@@ -702,6 +703,48 @@ __device__ __forceinline__ void seg_shift(const SegLane& q,
         s[1][c] = keep ? AI : 0.0f;
         s[2][c] = zeroB ? 0.0f : BR;
         s[3][c] = zeroB ? 0.0f : BI;
+        s[4][c] = keep ? s[4][c] : 0.0f;
+        s[5][c] = keep ? s[5][c] : 0.0f;
+    }
+}
+
+// The folded down shift of DownShift on the segmented layout (the composite
+// tangent kernel's S(-1)): A(k) <- new A(k+1), A(H-1) <- 0, B(k) <- new
+// B(k-1), B(0) <- new A(1), Z unshifted -- seg_shift with the roles of the A
+// and B planes swapped: new B moves up (a lane reads the lane below) and
+// new A down (the lane above), with seg_shift's wrap, row-0, last-row and
+// padding selects.
+template <int R>
+__device__ __forceinline__ void seg_shift_down(const SegLane& q,
+                                               float (&s)[6][R]) {
+    const bool first = q.r == 0;
+    const bool last = q.r == q.W - 1;
+    const int below = (first ? q.base + q.W - 1 : q.lane - 1) & (kWarp - 1);
+    const int above = (last ? q.base : q.lane + 1) & (kWarp - 1);
+    float bR[R], bI[R], aR[R], aI[R];
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+        bR[c] = __shfl_sync(kFullMask, s[2][c], below);
+        bI[c] = __shfl_sync(kFullMask, s[3][c], below);
+        aR[c] = __shfl_sync(kFullMask, s[0][c], above);
+        aI[c] = __shfl_sync(kFullMask, s[1][c], above);
+    }
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+        const int k = q.r + q.W * c;
+        const int prev = c > 0 ? c - 1 : 0;
+        const int next = c + 1 < R ? c + 1 : c;
+        const float BR = first ? (c == 0 ? aR[0] : bR[prev]) : bR[c];
+        const float BI = first ? (c == 0 ? aI[0] : bI[prev]) : bI[c];
+        const bool up = last && c + 1 < R;
+        const float AR = up ? aR[next] : aR[c];
+        const float AI = up ? aI[next] : aI[c];
+        const bool keep = R == 1 || k < q.H;   // W = H at R = 1
+        const bool zeroA = k >= q.H - 1;
+        s[0][c] = zeroA ? 0.0f : AR;
+        s[1][c] = zeroA ? 0.0f : AI;
+        s[2][c] = keep ? BR : 0.0f;
+        s[3][c] = keep ? BI : 0.0f;
         s[4][c] = keep ? s[4][c] : 0.0f;
         s[5][c] = keep ? s[5][c] : 0.0f;
     }

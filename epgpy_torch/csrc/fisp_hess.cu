@@ -4,35 +4,51 @@
 // (:83), driven there by fisp_hessian_pallas (:383); the Python wrapper is
 // epgpy_torch/models/cuda_hessian.py:fisp_hessian_cuda and the plain
 // PyTorch twin beside it (fisp_hessian_plain) computes the same recurrence
-// with the same operation order.
+// (tests/torch_support.py:hessian_two_pass computes it in this kernel's
+// order and equals the twin in float64).
 //
 // What it computes, per atom: the forward propagation of 3 + 6N tangents
 // of the train [T(alpha_n, phi_n), E(tau_n) | E(TE), ADC, E(tau_n), S(1)]
 // over N pulses.  Nine groups of folded plane sets (A/B/Z re+im, H =
 // nstate + 1 rows): P (the primal), U1 = dP/dT1, U2 = dP/dT2 per atom, and
 // per pulse variable i (the "lane") A = d/dalpha_i, T = d/dtau_i and, with
-// SECOND, W1/W2 = d2/dT1,2 dalpha_i, X1/X2 = d2/dT1,2 dtau_i.  Every
-// tangent moves by the primal's per-pulse operator (rotation, relaxation,
-// folded unit shift) plus seed terms built from the per-atom groups; lane
-// i is seeded at pulse i and is exactly zero before it, so every output
-// with i > echo j is an exact zero.
+// SECOND, W1/W2 = d2/dT1,2 dalpha_i, X1/X2 = d2/dT1,2 dtau_i.  A lane is
+// exactly zero before its pulse i, so every output with i > echo j is an
+// exact zero.  After pulse i a lane's groups move by the primal's operator
+// plus the per-atom scalars dcZ1, dcF2 and de2 alone, and they form two
+// closed chains, {A, W1, W2} and {T, X1, X2}, each of them the recurrence of
+// (P, U1, U2) without the recovery; the per-atom groups enter a chain only
+// at pulse i, as its seed: P, U1, U2 before the pulse, rotated by the
+// pulse's d/dalpha (A) or its rotation (T), then stepped with the normal
+// relaxation (A) or with its tau derivatives and the recovery's (T).
 //
-// What bounds it on the card: the state.  A lane carries 6 groups x 6
-// planes x H rows = 1,584 bytes at nstate 10, so 400 lanes of one atom
-// (634 KB) do not fit one SM's 227 KB.  The design: one block per (atom,
-// tile of L lanes), one thread per lane, the lane groups in shared memory
-// at [group][plane][row][thread] (conflict-free; a thread touches only its
-// column).  The per-atom groups are needed by every lane at every row, so
-// the block keeps them once, as rows already rotated by the pulse's
-// rotation (Y) and by its d/dalpha (Q): 36 floats per row, read as
-// broadcasts.  They are double-buffered: while the lanes read pulse n's
-// rows, the first 3H threads build pulse n+1's (relax, shift, rotate) into
-// the other buffer, so one barrier per pulse suffices.  Each tile of an
-// atom recomputes them from pulse 0: 3H rows per pulse against L lanes.
-// The causal skip: a lane does no work before its pulse (a tile whose
-// first lane is above n only writes zeros), which halves the arithmetic;
-// the outputs, (2G, B, N, N) floats with the lane index innermost, are
-// written coalesced, zeros included.  Math is precise (no fast-math).
+// What bounds it on the card: the operations -- per atom and pulse, 2 (n+1)
+// chains of three groups -- and the output, 12 N^2 floats per atom (1.97 GB
+// at 256 atoms x 400 pulses).  The design is two passes on epg_planes.cuh's
+// segmented layout (a ladder in a segment of W = ceil(H / R) lanes, lane r
+// keeping rows r + W c, c < R, of its groups in registers, the shift by
+// shuffles):
+// (a) the atom pass runs P, U1, U2 of one atom per segment over the N
+//     pulses, one warp per block so that its few warps (the atoms over
+//     32 / W) spread over as many SMs; it writes the per-atom outputs and,
+//     before every pulse's rotation, the groups' rows into a seed scratch
+//     (18 planes, 6 at first order; the wrapper allocates it) laid out
+//     [pulse][plane, row block][atom][lane], so a warp's consecutive atoms
+//     store one run per plane and row block;
+// (b) the lane pass gives every (atom, chain, lane i) a ladder: a warp's
+//     segments are one atom, one chain and consecutive i, a block sixteen
+//     such warps, so the per-pulse scalars are uniform across the block and
+//     sit in a table in shared memory that two warps fill per chunk of 32
+//     pulses (one the rotation and its d/dalpha, sincospif once per pulse,
+//     the other the relaxation and its tangents).  A ladder holds zeros
+//     until pulse i, loads its seed from the scratch there and from then
+//     on steps in the plain form: rotate, relax, the chain's cross terms,
+//     the shift, the echo.  A block starts at the first pulse of its lowest
+//     i and writes the rows above it (i > j) as zeros; the echoes are
+//     staged in shared memory per chunk and leave as runs over the block's
+//     consecutive i (80 at the flagship's nstate 10).  Blocks are ordered
+//     longest first.
+// Math is precise (no fast-math).
 #include <cuda_runtime.h>
 
 #include "epg_planes.cuh"
@@ -40,369 +56,427 @@
 namespace {
 
 constexpr float kDeg = 0.017453292519943295f;   // pi / 180
-// floats per ladder row of the per-atom groups: Y of P, U1, U2, then Q
-constexpr int kAtomRow = 36;
+// warps per lane-pass block (the atom pass runs one warp per block),
+// pulses per chunk; mirrored by cuda_hessian.HESS_WARPS and HESS_PULSES
+constexpr int kWarps = 16;
+constexpr int kPulses = 32;
+static_assert(kPulses <= epg::kWarp && kWarps >= 2,
+              "a lane-pass chunk's table is one pulse per lane of warps 0, 1");
 
 struct HessArgs {
     const float* fa;    // (N,) flip angles, degrees
     const float* phi;   // (N,) RF phases, degrees
-    const float* tau;   // (N,) tracked delays, ms (the tail TR - TE with te_sep)
+    const float* tau;   // (N,) tracked delays, ms (te_sep: the tail TR - TE)
     float te;           // fixed echo time (te_sep)
     float ti;           // inversion delay (use_inv)
     const float* t1;    // (B,)
     const float* t2;    // (B,)
     float* out_atom;    // (6, B, N): sig, dT1, dT2 as (re, im)
     float* out_lane;    // (2G, B, N, N): per lane group (re, im), [b][j][i]
-    int N, B, H, ntiles;
+    float* seed;        // (N, S R, B, W): P[, U1, U2] before pulse n
+    int N, B, H;
     int te_sep, use_inv;
 };
 
-// relaxation coefficients of one pulse (pallas_hessian.py:153-168)
-struct Relax {
-    float cF, cZ, rec, dcZ1, dcF2, e2, de2;
-    epg::TauTerms t;
+// One step's scalars: the F and Z decay, their T1 and T2 tangents (dcZ1 on
+// Z, dcF2 on F) and the echo's decay and its T2 tangent.
+struct Coef {
+    float cF, cZ, dcZ1, dcF2, e2, de2;
 };
 
-__device__ __forceinline__ void rotate(const epg::Rot& r, const float x[6],
-                                       float o[6]) {
-    epg::rot_A(r, x[0], x[1], x[2], x[3], x[4], x[5], o[0], o[1]);
-    epg::rot_B(r, x[0], x[1], x[2], x[3], x[4], x[5], o[2], o[3]);
-    epg::rot_Z(r, x[0], x[1], x[2], x[3], x[4], x[5], o[4], o[5]);
-}
+// A pulse's table entry in the lane pass: the rotation and the plain step's
+// scalars (read at every pulse), then the seed's -- d/dalpha, the tau
+// derivatives of the step's scalars and of the recovery (rows 0 of P, U1).
+struct __align__(16) Entry {
+    epg::Rot r;
+    Coef c;
+    epg::Rot dr;
+    Coef ct;
+    float rec0, rec1;
+};
 
-// the rotation of pulse n and its d/dalpha (alpha in degrees)
+using epg::Row;
+
+// the rotation of pulse n and its d/dalpha (alpha in degrees); sincospif
+// of the angle in half turns reduces its argument exactly, with no local
+// memory (sincosf's reduction of large arguments takes a stack frame)
 __device__ __forceinline__ void pulse_rot(const HessArgs& p, int n,
                                           epg::Rot& r, epg::Rot& dr) {
-    const float ph = p.phi[n] * kDeg;
+    const float ph = p.phi[n] * (1.0f / 180.0f);
     float sp, cp, s2p, c2p, sa, ca;
-    sincosf(ph, &sp, &cp);
-    sincosf(2.0f * ph, &s2p, &c2p);
-    sincosf(p.fa[n] * kDeg, &sa, &ca);
+    sincospif(ph, &sp, &cp);
+    sincospif(2.0f * ph, &s2p, &c2p);
+    sincospif(p.fa[n] * (1.0f / 180.0f), &sa, &ca);
     r = epg::rot_coeffs_sc(sa, ca, cp, sp, c2p, s2p);
     dr = epg::rot_coeffs_db1(sa, ca, kDeg, cp, sp, c2p, s2p);
 }
 
-__device__ __forceinline__ Relax pulse_relax(const HessArgs& p, int n,
-                                             float T1, float T2, float E2TE,
-                                             float dE2TE) {
-    Relax c;
-    const float ttot = p.te_sep ? p.tau[n] + p.te : p.tau[n];
+// The relaxation of pulse n for one atom (pallas_hessian.py:153-168): the
+// plain step's scalars and the relaxation time.
+__device__ __forceinline__ Coef pulse_relax(const HessArgs& p, int n,
+                                            float T1, float T2, float E2TE,
+                                            float dE2TE, float& ttot) {
+    ttot = p.te_sep ? p.tau[n] + p.te : p.tau[n];
+    Coef c;
     c.cF = expf(-ttot / T2);
     c.cZ = expf(-ttot / T1);
-    c.rec = 1.0f - c.cZ;
     c.dcZ1 = c.cZ * ttot / (T1 * T1);
     c.dcF2 = c.cF * ttot / (T2 * T2);
-    c.t = epg::relax_tau_terms(c.cZ, c.cF, ttot, T1, T2);
     c.e2 = p.te_sep ? E2TE : c.cF;
     c.de2 = p.te_sep ? dE2TE : c.dcF2;
     return c;
 }
 
-// Unshifted new values of per-atom group g (0 P, 1 U1, 2 U2) at source
-// row s, from the rotated rows Rc of the current pulse.
-__device__ __forceinline__ void atom_new(const float* Rc, int g, int s,
-                                         const Relax& c, float o[6]) {
-    const float* y = Rc + s * kAtomRow + 6 * g;
-    const float* yp = Rc + s * kAtomRow;
-    if (g == 0) {
-        for (int j = 0; j < 4; ++j) o[j] = c.cF * y[j];
-        o[4] = c.cZ * y[4];
-        if (s == 0) o[4] = o[4] + c.rec;
-        o[5] = c.cZ * y[5];
-    } else if (g == 1) {
-        for (int j = 0; j < 4; ++j) o[j] = c.cF * y[j];
-        o[4] = c.cZ * y[4] + c.dcZ1 * yp[4];
-        if (s == 0) o[4] = o[4] - c.dcZ1;
-        o[5] = c.cZ * y[5] + c.dcZ1 * yp[5];
-    } else {
-        for (int j = 0; j < 4; ++j) o[j] = c.cF * y[j] + c.dcF2 * yp[j];
-        o[4] = c.cZ * y[4];
-        o[5] = c.cZ * y[5];
-    }
+template <int R>
+__device__ __forceinline__ Row row(const float (&s)[6][R], int c) {
+    return Row{s[0][c], s[1][c], s[2][c], s[3][c], s[4][c], s[5][c]};
 }
 
-__device__ __forceinline__ void store_atom_row(float* Rb, int k, int g,
-                                               const epg::Rot& r,
-                                               const epg::Rot& dr,
-                                               const float x[6]) {
-    float y[6], q[6];
-    rotate(r, x, y);
-    rotate(dr, x, q);
-    float* row = Rb + k * kAtomRow;
-    for (int j = 0; j < 6; ++j) {
-        row[6 * g + j] = y[j];
-        row[18 + 6 * g + j] = q[j];
-    }
-}
-
-__device__ __forceinline__ void read6(const epg::PlaneSet& s, int k,
-                                      float x[6]) {
-    for (int j = 0; j < 6; ++j) x[j] = s.at(j, k);
-}
-
-__device__ __forceinline__ void put6(epg::FoldedShift& sh, int k,
-                                     const float v[6]) {
-    sh.put(k, v[0], v[1], v[2], v[3], v[4], v[5]);
-}
-
-// One pulse of lane i's groups (pallas_hessian.py:206-375); m = 1 seeds
-// the lane at its own pulse.  Rows are read before they are rewritten by
-// the in-place folded shift.
-template <bool SECOND>
-__device__ __forceinline__ void lane_step(const HessArgs& p,
-                                          const epg::PlaneSet* s,
-                                          const float* Rc,
-                                          const epg::Rot& r, const Relax& c,
-                                          float m, size_t at, size_t plane) {
-    constexpr int G = SECOND ? 6 : 2;
-    const float cF = c.cF, cZ = c.cZ, dcZ1 = c.dcZ1, dcF2 = c.dcF2;
-    const float cFt = c.t.cFt, cZt = c.t.cZt, cFt2 = c.t.cFt2,
-                cZt1 = c.t.cZt1, e2 = c.e2, de2 = c.de2;
-    epg::FoldedShift sh[G];
-    for (int g = 0; g < G; ++g) sh[g] = epg::FoldedShift{s[g], 0.0f, 0.0f};
-    for (int k = 0; k < p.H; ++k) {
-        float row[kAtomRow];
-        const float4* src = reinterpret_cast<const float4*>(Rc + k * kAtomRow);
+// One pulse of C groups (1, or 3: a chain or P, U1, U2) on the segmented
+// layout: rotate by r, the echoes of the k = 0 rows into e[o * stride] (o
+// = re, im per group; the echoing lane only), relax with c -- group 1's Z
+// also takes dcZ1 times group 0's, group 2's F dcF2 times group 0's, rows
+// 0 of groups 0 and 1 add rec0 and rec1 to Z -- and shift.
+template <int C, int R, typename I>
+__device__ __forceinline__ void step(const epg::SegLane& q,
+                                     float (&s)[C][6][R], const epg::Rot& r,
+                                     const Coef& c, float rec0, float rec1,
+                                     bool echo, float* e, I stride) {
 #pragma unroll
-        for (int q = 0; q < kAtomRow / 4; ++q) {
-            const float4 v = src[q];
-            row[4 * q] = v.x;
-            row[4 * q + 1] = v.y;
-            row[4 * q + 2] = v.z;
-            row[4 * q + 3] = v.w;
-        }
-        const float* YP = row;
-        const float* YU1 = row + 6;
-        const float* YU2 = row + 12;
-        const float* QP = row + 18;
-        const float* QU1 = row + 24;
-        const float* QU2 = row + 30;
-        float x[6], yA[6], yT[6], yW1[6], yW2[6], yX1[6], yX2[6];
-        read6(s[0], k, x);
-        rotate(r, x, yA);
-        read6(s[1], k, x);
-        rotate(r, x, yT);
-        if constexpr (SECOND) {
-            read6(s[2], k, x);
-            rotate(r, x, yW1);
-            read6(s[3], k, x);
-            rotate(r, x, yW2);
-            read6(s[4], k, x);
-            rotate(r, x, yX1);
-            read6(s[5], k, x);
-            rotate(r, x, yX2);
-        }
-        const float rowm = k == 0 ? 1.0f : 0.0f;
-
-        if (k == 0) {  // echoes from the rotated k = 0 rows
-            float* o = p.out_lane + at;
-            for (int ri = 0; ri < 2; ++ri) {  // re, im
-                o[ri * plane] = e2 * (yA[ri] + m * QP[ri]);
-                o[(2 + ri) * plane] = p.te_sep
-                    ? e2 * yT[ri]
-                    : e2 * yT[ri] + m * cFt * YP[ri];
-                if constexpr (SECOND) {
-                    o[(4 + ri) * plane] = e2 * (yW1[ri] + m * QU1[ri]);
-                    o[(6 + ri) * plane] = e2 * yW2[ri] + de2 * yA[ri]
-                        + m * (e2 * QU2[ri] + de2 * QP[ri]);
-                    if (p.te_sep) {
-                        o[(8 + ri) * plane] = e2 * yX1[ri];
-                        o[(10 + ri) * plane] = e2 * yX2[ri] + de2 * yT[ri];
-                    } else {
-                        o[(8 + ri) * plane] = e2 * yX1[ri] + m * cFt * YU1[ri];
-                        o[(10 + ri) * plane] = e2 * yX2[ri] + de2 * yT[ri]
-                            + m * (cFt * YU2[ri] + cFt2 * YP[ri]);
-                    }
-                }
+    for (int k = 0; k < R; ++k) {
+        const bool k0 = k == 0 && q.r == 0;
+        Row y[C];
+#pragma unroll
+        for (int g = 0; g < C; ++g) y[g] = epg::rotate(r, row(s[g], k));
+        if (k == 0 && echo) {
+            e[0] = c.e2 * y[0].AR;
+            e[stride] = c.e2 * y[0].AI;
+            if constexpr (C == 3) {
+                e[2 * stride] = c.e2 * y[1].AR;
+                e[3 * stride] = c.e2 * y[1].AI;
+                e[4 * stride] = c.e2 * y[2].AR + c.de2 * y[0].AR;
+                e[5 * stride] = c.e2 * y[2].AI + c.de2 * y[0].AI;
             }
         }
-
-        float v[6];
-        // a_i: seed lane n with D M' s
-        for (int j = 0; j < 4; ++j) v[j] = cF * (yA[j] + m * QP[j]);
-        for (int j = 4; j < 6; ++j) v[j] = cZ * (yA[j] + m * QP[j]);
-        put6(sh[0], k, v);
-        // t_i: seed lane n with D'_tau M s + r'_tau
-        for (int j = 0; j < 4; ++j) v[j] = cF * yT[j] + m * cFt * YP[j];
-        v[4] = cZ * yT[4] + m * (cZt * YP[4] - rowm * cZt);
-        v[5] = cZ * yT[5] + m * cZt * YP[5];
-        put6(sh[1], k, v);
-        if constexpr (SECOND) {
-            // w1 = d2/dT1 da_i
-            for (int j = 0; j < 4; ++j) v[j] = cF * (yW1[j] + m * QU1[j]);
-            for (int j = 4; j < 6; ++j)
-                v[j] = cZ * (yW1[j] + m * QU1[j]) + dcZ1 * (yA[j] + m * QP[j]);
-            put6(sh[2], k, v);
-            // w2 = d2/dT2 da_i
-            for (int j = 0; j < 4; ++j)
-                v[j] = cF * (yW2[j] + m * QU2[j]) + dcF2 * (yA[j] + m * QP[j]);
-            for (int j = 4; j < 6; ++j) v[j] = cZ * (yW2[j] + m * QU2[j]);
-            put6(sh[3], k, v);
-            // x1 = d2/dT1 dtau_i
-            for (int j = 0; j < 4; ++j) v[j] = cF * yX1[j] + m * cFt * YU1[j];
-            v[4] = cZ * yX1[4] + dcZ1 * yT[4]
-                + m * (cZt * YU1[4] + cZt1 * YP[4] - rowm * cZt1);
-            v[5] = cZ * yX1[5] + dcZ1 * yT[5]
-                + m * (cZt * YU1[5] + cZt1 * YP[5]);
-            put6(sh[4], k, v);
-            // x2 = d2/dT2 dtau_i
-            for (int j = 0; j < 4; ++j)
-                v[j] = cF * yX2[j] + dcF2 * yT[j]
-                    + m * (cFt * YU2[j] + cFt2 * YP[j]);
-            for (int j = 4; j < 6; ++j) v[j] = cZ * yX2[j] + m * cZt * YU2[j];
-            put6(sh[5], k, v);
+        s[0][0][k] = c.cF * y[0].AR;
+        s[0][1][k] = c.cF * y[0].AI;
+        s[0][2][k] = c.cF * y[0].BR;
+        s[0][3][k] = c.cF * y[0].BI;
+        s[0][4][k] = k0 ? c.cZ * y[0].ZR + rec0 : c.cZ * y[0].ZR;
+        s[0][5][k] = c.cZ * y[0].ZI;
+        if constexpr (C == 3) {
+            s[1][0][k] = c.cF * y[1].AR;
+            s[1][1][k] = c.cF * y[1].AI;
+            s[1][2][k] = c.cF * y[1].BR;
+            s[1][3][k] = c.cF * y[1].BI;
+            const float z1 = c.cZ * y[1].ZR + c.dcZ1 * y[0].ZR;
+            s[1][4][k] = k0 ? z1 + rec1 : z1;
+            s[1][5][k] = c.cZ * y[1].ZI + c.dcZ1 * y[0].ZI;
+            s[2][0][k] = c.cF * y[2].AR + c.dcF2 * y[0].AR;
+            s[2][1][k] = c.cF * y[2].AI + c.dcF2 * y[0].AI;
+            s[2][2][k] = c.cF * y[2].BR + c.dcF2 * y[0].BR;
+            s[2][3][k] = c.cF * y[2].BI + c.dcF2 * y[0].BI;
+            s[2][4][k] = c.cZ * y[2].ZR;
+            s[2][5][k] = c.cZ * y[2].ZI;
         }
     }
-    for (int g = 0; g < G; ++g) sh[g].finish();
+#pragma unroll
+    for (int g = 0; g < C; ++g) epg::seg_shift(q, s[g]);
 }
 
-template <bool SECOND>
-__global__ void fisp_hess_kernel(const HessArgs p) {
-    constexpr int G = SECOND ? 6 : 2;
-    extern __shared__ float smem[];
-    const int L = static_cast<int>(blockDim.x);
-    const int tid = static_cast<int>(threadIdx.x);
+// (a) The atom pass: P, U1, U2 of one atom per segment over the N pulses;
+// the per-atom echoes to out_atom, and before each pulse's rotation the
+// rows of the groups the chains seed from (P, U1, U2; P at first order) to
+// the seed scratch.
+template <bool SECOND, int R>
+__global__ void __launch_bounds__(epg::kWarp)
+    hess_atom_kernel(const HessArgs p) {
+    constexpr int S = SECOND ? 18 : 6;   // seed planes: P[, U1, U2]
+    __shared__ epg::Rot rt[kPulses];
     const int H = p.H, N = p.N;
-    const int b = blockIdx.x / p.ntiles;
-    const int tile = blockIdx.x - b * p.ntiles;
-    const int i = tile * L + tid;  // this thread's lane (pulse variable)
-    epg::PlaneSet s[G];
-    for (int g = 0; g < G; ++g)
-        s[g] = epg::PlaneSet{smem + tid + 6 * g * H * L, H, L};
-    float* R = smem + 6 * G * H * L;  // [2][H][kAtomRow]
-
+    const int W = (H + R - 1) / R;
+    const int L = epg::kWarp / W;
+    const epg::SegLane q =
+        epg::seg_lane(threadIdx.x & (epg::kWarp - 1), W, H);
+    const int seg = q.base / W;
+    const int atom = blockIdx.x * L + seg;
+    const bool store = seg < L && atom < p.B;
+    const int b = min(atom, p.B - 1);   // clamped past the last atom
     const float T1 = p.t1[b];
     const float T2 = p.t2[b];
-    for (int g = 0; g < G; ++g)
-        for (int j = 0; j < 6; ++j)
-            for (int k = 0; k < H; ++k) s[g].at(j, k) = 0.0f;
     float E2TE = 0.0f, dE2TE = 0.0f;
     if (p.te_sep) {
         E2TE = expf(-p.te / T2);
         dE2TE = E2TE * p.te / (T2 * T2);
     }
 
-    // pulse 0's per-atom rows: the initial state (Z(0) = 1, or the closed
-    // form of a perfect inversion and its dT1 seed), rotated
-    epg::Rot r, dr;
-    pulse_rot(p, 0, r, dr);
-    for (int t = tid; t < 3 * H; t += L) {
-        const int g = t / H, k = t - g * H;
-        float x[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        if (k == 0) {
-            if (p.use_inv) {
-                const float E1i = expf(-p.ti / T1);
-                if (g == 0) x[4] = 1.0f - 2.0f * E1i;
-                if (g == 1) x[4] = -2.0f * E1i * p.ti / (T1 * T1);
-            } else if (g == 0) {
-                x[4] = 1.0f;
-            }
+    float s[3][6][R];   // P, U1, U2: s[g][j][c], plane j of row r + W c
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+            for (int c = 0; c < R; ++c) s[g][j][c] = 0.0f;
+    if (q.r == 0) {
+        // the initial state: Z(0) = 1, or the closed form of a perfect
+        // inversion and its dT1 seed
+        if (p.use_inv) {
+            const float E1i = expf(-p.ti / T1);
+            s[0][4][0] = 1.0f - 2.0f * E1i;
+            s[1][4][0] = -2.0f * E1i * p.ti / (T1 * T1);
+        } else {
+            s[0][4][0] = 1.0f;
         }
-        store_atom_row(R, k, g, r, dr, x);
     }
-    __syncthreads();
 
-    const size_t NN = static_cast<size_t>(N) * N;
-    const size_t lane_plane = static_cast<size_t>(p.B) * NN;
     const size_t atom_plane = static_cast<size_t>(p.B) * N;
-    for (int n = 0; n < N; ++n) {
-        const float* Rc = R + (n & 1) * H * kAtomRow;
-        float* Rn = R + ((n + 1) & 1) * H * kAtomRow;
-        const Relax c = pulse_relax(p, n, T1, T2, E2TE, dE2TE);
-        if (tile == 0 && tid == 0) {
-            // per-atom echoes from the rotated k = 0 row
-            float* o = p.out_atom + static_cast<size_t>(b) * N + n;
-            o[0] = c.e2 * Rc[0];
-            o[atom_plane] = c.e2 * Rc[1];
-            o[2 * atom_plane] = c.e2 * Rc[6];
-            o[3 * atom_plane] = c.e2 * Rc[7];
-            o[4 * atom_plane] = c.e2 * Rc[12] + c.de2 * Rc[0];
-            o[5 * atom_plane] = c.e2 * Rc[13] + c.de2 * Rc[1];
+    const size_t BW = static_cast<size_t>(p.B) * W;   // seed floats per row
+    for (int n0 = 0; n0 < N; n0 += kPulses) {
+        const int nc = min(kPulses, N - n0);
+        if (static_cast<int>(threadIdx.x) < nc) {   // one pulse per lane
+            epg::Rot r, dr;
+            pulse_rot(p, n0 + threadIdx.x, r, dr);
+            rt[threadIdx.x] = r;
         }
-        if (i < N) {
-            const size_t at = static_cast<size_t>(b) * NN
-                + static_cast<size_t>(n) * N + i;
-            if (i <= n) {
-                lane_step<SECOND>(p, s, Rc, r, c, i == n ? 1.0f : 0.0f, at,
-                                  lane_plane);
-            } else {  // causality: lane i is zero before pulse i
-                for (int o = 0; o < 2 * G; ++o)
-                    p.out_lane[o * lane_plane + at] = 0.0f;
+        __syncwarp();
+        for (int t = 0; t < nc; ++t) {
+            const int n = n0 + t;
+            if (store) {
+                // plane j of row r + W c at seed[n][(j R + c)][b][r]: the
+                // warp's consecutive atoms store one run per (j, c)
+                float* sd = p.seed + static_cast<size_t>(n) * S * R * BW
+                    + static_cast<size_t>(b) * W + q.r;
+#pragma unroll
+                for (int g = 0; g < S / 6; ++g)
+#pragma unroll
+                    for (int j = 0; j < 6; ++j)
+#pragma unroll
+                        for (int c = 0; c < R; ++c)
+                            sd[((6 * g + j) * R + c) * BW] = s[g][j][c];
             }
+            float ttot;
+            const Coef cf = pulse_relax(p, n, T1, T2, E2TE, dE2TE, ttot);
+            step<3, R>(q, s, rt[t], cf, 1.0f - cf.cZ, -cf.dcZ1,
+                       store && q.r == 0,
+                       p.out_atom + static_cast<size_t>(b) * N + n,
+                       atom_plane);
         }
-        if (n + 1 < N) {
-            // the next pulse's per-atom rows: relax + recover, fold-shift
-            // (A(k) <- A(k-1), A(0) <- B(1), B(k) <- B(k+1), B(N) <- 0),
-            // rotate by pulse n+1 and by its d/dalpha
-            pulse_rot(p, n + 1, r, dr);
-            for (int t = tid; t < 3 * H; t += L) {
-                const int g = t / H, k = t - g * H;
-                float x[6], nw[6];
-                if (k >= 1) {
-                    atom_new(Rc, g, k - 1, c, nw);
-                    x[0] = nw[0];
-                    x[1] = nw[1];
-                } else {
-                    atom_new(Rc, g, 1, c, nw);
-                    x[0] = nw[2];
-                    x[1] = nw[3];
-                }
-                if (k < H - 1) {
-                    atom_new(Rc, g, k + 1, c, nw);
-                    x[2] = nw[2];
-                    x[3] = nw[3];
-                } else {
-                    x[2] = 0.0f;
-                    x[3] = 0.0f;
-                }
-                atom_new(Rc, g, k, c, nw);
-                x[4] = nw[4];
-                x[5] = nw[5];
-                store_atom_row(Rn, k, g, r, dr, x);
-            }
-        }
-        __syncthreads();
+        __syncwarp();
     }
 }
 
-template <bool SECOND>
-int launch(const HessArgs& a, int block, cudaStream_t stream) {
-    constexpr int G = SECOND ? 6 : 2;
-    const size_t smem = sizeof(float)
-        * (static_cast<size_t>(6 * G) * a.H * block
-           + static_cast<size_t>(2 * kAtomRow) * a.H);
-    if (smem > 48 * 1024) {
+// The output plane of a chain's staged output o (re, im per group): the
+// chains are A, W1, W2 (ch 0) and T, X1, X2 (ch 1) of the (2G, ...) layout
+// A, T, W1, W2, X1, X2.
+__device__ __forceinline__ int out_plane(int ch, int o) {
+    const int grp = o >> 1;
+    const int g = grp == 0 ? ch : grp + (ch == 0 ? 1 : 3);
+    return 2 * g + (o & 1);
+}
+
+// (b) The lane pass: block = (atom b, chain ch, lanes I0 .. I0 + A - 1),
+// A = kWarps L ladders, one per segment.  Dynamic shared memory: the
+// staged echoes (2C, kPulses, A).
+template <bool SECOND, int R>
+__global__ void __launch_bounds__(kWarps * epg::kWarp)
+    hess_lane_kernel(const HessArgs p) {
+    constexpr int C = SECOND ? 3 : 1;   // groups per chain
+    constexpr int NO = 2 * C;           // staged outputs per ladder
+    extern __shared__ float stage[];
+    __shared__ Entry tab[kPulses];
+    const int H = p.H, N = p.N;
+    const int W = (H + R - 1) / R;
+    const int L = epg::kWarp / W;
+    const int A = kWarps * L;
+    const int lane = threadIdx.x & (epg::kWarp - 1);
+    const int warp = threadIdx.x / epg::kWarp;
+    const epg::SegLane q = epg::seg_lane(lane, W, H);
+    const int seg = q.base / W;
+    const int slot = warp * L + seg;
+    // blocks of the lowest lanes (the longest) first
+    const int ig = blockIdx.x / (2 * p.B);
+    const int rem = blockIdx.x - ig * 2 * p.B;
+    const int b = rem >> 1, ch = rem & 1;
+    const int I0 = ig * A;
+    const int i = seg < L ? I0 + slot : -1;   // this ladder's lane
+    const bool writer = q.r == 0 && seg < L;
+    const int nw = I0 + warp * L;             // the warp's lowest lane
+    const float T1 = p.t1[b];
+    const float T2 = p.t2[b];
+    float E2TE = 0.0f, dE2TE = 0.0f;
+    if (p.te_sep) {
+        E2TE = expf(-p.te / T2);
+        dE2TE = E2TE * p.te / (T2 * T2);
+    }
+    const size_t NN = static_cast<size_t>(N) * N;
+    const size_t lane_plane = static_cast<size_t>(p.B) * NN;
+    float* const out = p.out_lane + static_cast<size_t>(b) * NN + I0;
+    const int nA = min(A, N - I0);   // the block's lanes below N
+
+    // rows j < I0 of the block's lanes: zeros, one row per warp at a time
+    for (int rw = warp; rw < NO * I0; rw += kWarps) {
+        const int o = rw / I0, j = rw - o * I0;
+        float* dst = out + out_plane(ch, o) * lane_plane
+            + static_cast<size_t>(j) * N;
+        for (int a = lane; a < nA; a += epg::kWarp) dst[a] = 0.0f;
+    }
+
+    float s[C][6][R];
+#pragma unroll
+    for (int g = 0; g < C; ++g)
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+#pragma unroll
+            for (int c = 0; c < R; ++c) s[g][j][c] = 0.0f;
+
+    const int S = 6 * C;
+    const int TA = kPulses * A;   // floats per staged output plane
+    for (int n0 = I0; n0 < N; n0 += kPulses) {
+        const int nc = min(kPulses, N - n0);
+        // the chunk's table: warp 0 the rotations, warp 1 the relaxation
+        if (warp == 0 && lane < nc) {
+            epg::Rot r, dr;
+            pulse_rot(p, n0 + lane, r, dr);
+            tab[lane].r = r;
+            tab[lane].dr = dr;
+        } else if (warp == 1 && lane < nc) {
+            float ttot;
+            const Coef c =
+                pulse_relax(p, n0 + lane, T1, T2, E2TE, dE2TE, ttot);
+            const epg::TauTerms tt =
+                epg::relax_tau_terms(c.cZ, c.cF, ttot, T1, T2);
+            tab[lane].c = c;
+            // the T chain's seed step: d/dtau of the decays; the echo
+            // moves with tau only in the 4-op form
+            tab[lane].ct = Coef{tt.cFt, tt.cZt, tt.cZt1, tt.cFt2,
+                                p.te_sep ? 0.0f : tt.cFt,
+                                p.te_sep ? 0.0f : tt.cFt2};
+            tab[lane].rec0 = -tt.cZt;
+            tab[lane].rec1 = -tt.cZt1;
+        }
+        __syncthreads();
+        for (int t = 0; t < nc; ++t) {
+            const int n = n0 + t;
+            float* const e = stage + t * A + slot;
+            if (n < nw) {   // before the warp's lowest lane: zeros
+                if (writer)
+#pragma unroll
+                    for (int o = 0; o < NO; ++o) e[o * TA] = 0.0f;
+                continue;
+            }
+            epg::Rot r = tab[t].r;
+            Coef cf = tab[t].c;
+            if (n >= nw + L) {   // every ladder of the warp has started
+                step<C, R>(q, s, r, cf, 0.0f, 0.0f, writer, e, TA);
+                continue;
+            }
+            // lane n's ladder starts: its seed, rotated by d/dalpha (A) or
+            // the rotation (T), stepped with the seed's scalars
+            float rec0 = 0.0f, rec1 = 0.0f;
+            if (n == i) {
+                const size_t BW = static_cast<size_t>(p.B) * W;
+                const float* sd = p.seed + static_cast<size_t>(n) * S * R * BW
+                    + static_cast<size_t>(b) * W + q.r;
+#pragma unroll
+                for (int g = 0; g < C; ++g)
+#pragma unroll
+                    for (int j = 0; j < 6; ++j)
+#pragma unroll
+                        for (int c = 0; c < R; ++c)
+                            s[g][j][c] = sd[((6 * g + j) * R + c) * BW];
+                if (ch == 0) {
+                    r = tab[t].dr;
+                } else {
+                    cf = tab[t].ct;
+                    rec0 = tab[t].rec0;
+                    rec1 = tab[t].rec1;
+                }
+            }
+            step<C, R>(q, s, r, cf, rec0, rec1, writer, e, TA);
+        }
+        __syncthreads();
+        // the chunk's echoes: one (output, pulse) row of nA lanes per warp
+        for (int rw = warp; rw < NO * nc; rw += kWarps) {
+            const int o = rw / nc, t = rw - o * nc;
+            float* dst = out + out_plane(ch, o) * lane_plane
+                + static_cast<size_t>(n0 + t) * N;
+            const float* src = stage + o * TA + t * A;
+            for (int a = lane; a < nA; a += epg::kWarp) dst[a] = src[a];
+        }
+    }
+}
+
+template <bool SECOND, int R>
+int launch_atom(const HessArgs& a, cudaStream_t stream) {
+    const int atoms = epg::kWarp / ((a.H + R - 1) / R);
+    hess_atom_kernel<SECOND, R><<<(a.B + atoms - 1) / atoms, epg::kWarp, 0,
+                                  stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SECOND, int R>
+int launch_lane(const HessArgs& a, cudaStream_t stream) {
+    const int W = (a.H + R - 1) / R;
+    const int A = kWarps * (epg::kWarp / W);
+    const size_t smem = sizeof(float) * (SECOND ? 6 : 2) * kPulses * A;
+    if (smem + sizeof(Entry) * kPulses > 48 * 1024) {   // with the table
         const cudaError_t e = cudaFuncSetAttribute(
-            fisp_hess_kernel<SECOND>,
+            hess_lane_kernel<SECOND, R>,
             cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    const long long grid = static_cast<long long>(a.ntiles) * a.B;
-    fisp_hess_kernel<SECOND><<<static_cast<unsigned>(grid), block, smem,
-                               stream>>>(a);
+    const long long grid =
+        static_cast<long long>((a.N + A - 1) / A) * 2 * a.B;
+    if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+    hess_lane_kernel<SECOND, R><<<static_cast<unsigned>(grid),
+                                  kWarps * epg::kWarp, smem, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launch on `stream` of CUDA device `device`; allocates nothing.  Returns
-// the CUDA error code of the launch (0 on success); the caller raises on
-// anything else.
+// Launch both passes on `stream` of CUDA device `device` at R rows per lane
+// (cuda_hessian.hess_geometry decides R: 1 or 2 at second order, up to 4
+// at first, with W = ceil(H / R) <= 32); allocates nothing: `seed` is the
+// caller's scratch of N B 6C W R floats (C = 3 groups at second order, 1
+// at first), sized from the same R.  Returns the CUDA error code of the
+// launches (0 on success); the caller raises on anything else.
 extern "C" int epg_fisp_hess(const float* fa, const float* phi,
                              const float* tau, float te, float ti,
                              const float* t1, const float* t2,
-                             float* out_atom, float* out_lane, int N, int B,
-                             int nstate, int te_sep, int use_inv,
-                             int second_order, int block, int device,
+                             float* out_atom, float* out_lane, float* seed,
+                             int N, int B, int nstate, int R, int te_sep,
+                             int use_inv, int second_order, int device,
                              void* stream) {
-    const int ntiles = (N + block - 1) / block;
-    if (static_cast<long long>(ntiles) * B > 0x7fffffffLL) return 9;
-    HessArgs a{fa, phi, tau, te, ti, t1, t2, out_atom, out_lane, N, B,
-               nstate + 1, ntiles, te_sep, use_inv};
+    HessArgs a{fa, phi, tau, te, ti, t1, t2, out_atom, out_lane, seed, N, B,
+               nstate + 1, te_sep, use_inv};
     const cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
+    if (a.H < 2 || N < 1 || B < 1 || R < 1 || R > (second_order ? 2 : 4) ||
+        (a.H + R - 1) / R > epg::kWarp)
+        return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return second_order ? launch<true>(a, block, st)
-                        : launch<false>(a, block, st);
+    int rc;
+    if (second_order) {
+        rc = R == 1 ? launch_atom<true, 1>(a, st)
+                    : launch_atom<true, 2>(a, st);
+    } else {
+        switch (R) {
+            case 1: rc = launch_atom<false, 1>(a, st); break;
+            case 2: rc = launch_atom<false, 2>(a, st); break;
+            case 3: rc = launch_atom<false, 3>(a, st); break;
+            default: rc = launch_atom<false, 4>(a, st); break;
+        }
+    }
+    if (rc != 0) return rc;
+    if (second_order)
+        return R == 1 ? launch_lane<true, 1>(a, st)
+                      : launch_lane<true, 2>(a, st);
+    switch (R) {
+        case 1: return launch_lane<false, 1>(a, st);
+        case 2: return launch_lane<false, 2>(a, st);
+        case 3: return launch_lane<false, 3>(a, st);
+        default: return launch_lane<false, 4>(a, st);
+    }
 }

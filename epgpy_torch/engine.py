@@ -345,8 +345,7 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
          fisp_dispatch.run_dess_jacobian, "DESS", "jac:dess"),
         # 30 planes: the df tangent group (engine.py:1084-1085), the
         # FISP Jacobian kernel's with its dD group
-        (fisp_dispatch.match_megre,
-         lambda p, s: fisp_dispatch.jac_kernel_fits(ncap, True),
+        (fisp_dispatch.match_megre, lambda p, s: _megre_jac_fits(p, ncap),
          fisp_dispatch.run_megre_jacobian, "ME-GRE", "jac:megre"),
         # the FISP Jacobian kernel's 24 planes, 30 with the dD group (not
         # the JAX gate's 30/36 VMEM planes: the attenuation rows are
@@ -391,6 +390,24 @@ def _jacobian_dispatch(sequence, probes, ncap, kvalue, disp):
     LOGGER.info("simulate: Jacobian kernels not used: not a FISP, CPMG, "
                 "bSSFP, DESS, ME-GRE, DW-FISP or composite-GRE train")
     return None
+
+
+def _megre_jac_fits(params, ncap):
+    """The ME-GRE Jacobian family's gate: the kernel's 30 planes of ncap + 1
+    rows and one pulse's staged echoes, m per TR
+    (``cuda_megre.megre_jac_kernel_fits``); the echo count's refusal is
+    logged here."""
+    from .models import cuda_megre
+
+    m = int(params["nechoes"])
+    if not cuda_megre.megre_jac_kernel_fits(ncap):
+        return False
+    if cuda_megre.megre_jac_kernel_fits(ncap, m):
+        return True
+    LOGGER.info("simulate: ME-GRE Jacobian kernel not used: gate: %d echoes "
+                "per TR stage more than one block's shared memory holds at "
+                "nstate=%d", m, ncap)
+    return False
 
 
 def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,

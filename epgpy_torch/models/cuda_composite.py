@@ -14,8 +14,9 @@ MPRAGE, cardiac MRF with IR and T2prep preps, saturation recovery -- are
 such trains (``fisp_dispatch.match_composite`` builds the tables).
 
 The kernels are ``epgpy_torch/csrc/composite.cu`` and ``composite_jac.cu``
-(see their headers for the design); ``composite_plain`` /
-``composite_jacobian_plain`` are the same recurrences with the same
+(see their headers for the design; the Jacobian kernel runs the segmented
+layout of ``fisp_jac.cu``, its launch geometry ``comp_jac_geometry``);
+``composite_plain`` / ``composite_jacobian_plain`` are the same recurrences with the same
 operation order, vectorised over atoms as (6, nstate+1, B) planes in a
 Python loop over stages, in any precision, on the tensors' device.  The
 Jacobian propagates only the tangent groups asked for, in the canonical
@@ -41,7 +42,8 @@ import torch
 
 from . import planes
 from .cuda_dess import _fmul
-from .cuda_fisp import SMEM_PER_BLOCK, _takes_twin, block_size, kernel_fits
+from .cuda_fisp import (SMEM_PER_BLOCK, _takes_twin, block_size, kernel_fits,
+                        seg_geometry)
 
 __all__ = ["composite_cuda", "composite_plain", "composite_echoes",
            "composite_jacobian_cuda", "composite_jacobian_plain",
@@ -73,19 +75,30 @@ def _jac_bytes(nstate, ngroups, block):
 
 
 def composite_jac_kernel_fits(nstate, ngroups) -> bool:
-    """Whether the Jacobian kernel's 6 (1 + ngroups) planes fit at its
-    smallest block (32 threads): nstate <= 59 with all four groups, 74
-    with three, 99 with two, 150 with one."""
+    """The Jacobian kernel's gate: nstate <= 59 with all four groups, 74
+    with three, 99 with two, 150 with one, 301 with none, where the
+    thread-per-atom layout's 6 (1 + ngroups) planes fitted 32 atoms in one
+    block's shared memory.  The segmented kernel keeps its state in
+    registers (:func:`comp_jac_geometry`) and keeps this gate, so that no
+    train changes route."""
     return _jac_bytes(nstate, ngroups, 32) <= SMEM_PER_BLOCK
 
 
-def jac_block_size(nstate, ngroups) -> int:
-    """Threads per block of the Jacobian kernel: 64, halved while the
-    state does not fit."""
-    block = 64
-    while block > 32 and _jac_bytes(nstate, ngroups, block) > SMEM_PER_BLOCK:
-        block //= 2
-    return block
+#: table floats per stage of the Jacobian kernel (its kTab)
+COMP_JAC_TABLE = 16
+
+
+def comp_jac_geometry(nstate, ngroups):
+    """Launch geometry of the segmented Jacobian kernel (``cuda_fisp.
+    seg_geometry``: each atom stages 2 + 2 ngroups floats per stage beside
+    COMP_JAC_TABLE) at its rows per lane: 2, 1 for H = nstate + 1 <= 3,
+    ceil(H / 32) past 64 rows up to 160 (the gate's edges: 2, 3, 4, 5 rows
+    with 4, 3, 2, 1 groups), 10 above (without groups, to nstate 301).
+    The launch passes R and ``warps`` to the kernel, which dispatches on
+    them."""
+    H = int(nstate) + 1
+    R = 1 if H <= 3 else 2 if H <= 64 else -(-H // 32) if H <= 160 else 10
+    return seg_geometry(nstate, 2 + 2 * int(ngroups), COMP_JAC_TABLE, R)
 
 
 def _host(x):
@@ -418,9 +431,10 @@ def _launch(FA, phi, ta, tb, adci, shift, aph, b1u, T1s, T2s, B1s, dfs, *,
     lib = _build.load()
     if jac:
         mask = sum(1 << COMP_JAC_GROUPS.index(g) for g in groups)
+        geo = comp_jac_geometry(nstate, ng)
         rc = lib.epg_composite_jac(*args, ptr(out), x["N"], B, nadc, nstate,
-                                   mask, *flag_args,
-                                   jac_block_size(nstate, ng), dev, stream)
+                                   geo["R"], mask, *flag_args, geo["warps"],
+                                   dev, stream)
     else:
         rc = lib.epg_composite(*args, ptr(out), x["N"], B, nadc, nstate,
                                *flag_args, block_size(nstate), dev, stream)

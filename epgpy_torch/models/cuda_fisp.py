@@ -394,26 +394,27 @@ def jac_kernel_fits(nstate, track_diffusivity=False) -> bool:
 SEG_WARPS, SEG_PULSES, SEG_CHUNK_FLOATS, SEG_TABLE = 4, 32, 12288, 8
 
 
-def seg_layout(nstate):
+def seg_layout(nstate, R=None):
     """(R, W, L) of the segmented layout for a ladder of H = nstate + 1
     rows: rows per lane (``epg::seg_rows``: 2, 3 past 64 rows, 1 for H <=
-    3), lanes per ladder (W = ceil(H / R); lane r of a segment owns rows
-    r + W c, c < R) and ladders per warp (32 // W)."""
+    3; or the given R), lanes per ladder (W = ceil(H / R); lane r of a
+    segment owns rows r + W c, c < R) and ladders per warp (32 // W)."""
     H = int(nstate) + 1
-    R = 1 if H <= 3 else (2 if H <= 64 else 3)
+    if R is None:
+        R = 1 if H <= 3 else (2 if H <= 64 else 3)
     W = -(-H // R)
     return R, W, 32 // W
 
 
-def seg_geometry(nstate, outputs, table=SEG_TABLE):
+def seg_geometry(nstate, outputs, table=SEG_TABLE, R=None):
     """Launch geometry of a segmented tangent kernel whose atoms each stage
     `outputs` floats per pulse beside a `table` of floats per pulse:
-    dict(R, W, L) of :func:`seg_layout`, ``warps`` per block (SEG_WARPS,
-    halved while one pulse's table and staged outputs pass
-    SEG_CHUNK_FLOATS), ``atoms`` per block (warps x L), ``pulses`` per
-    chunk and ``smem``, the block's shared bytes (the kernels compute the
-    same from ``warps``)."""
-    R, W, L = seg_layout(nstate)
+    dict(R, W, L) of :func:`seg_layout` (at R rows per lane when given),
+    ``warps`` per block (SEG_WARPS, halved while one pulse's table and
+    staged outputs pass SEG_CHUNK_FLOATS), ``atoms`` per block (warps x L),
+    ``pulses`` per chunk and ``smem``, the block's shared bytes (the
+    kernels compute the same from ``warps``)."""
+    R, W, L = seg_layout(nstate, R)
     outputs = int(outputs)
     warps = SEG_WARPS
     while warps > 1 and table + outputs * warps * L > SEG_CHUNK_FLOATS:

@@ -19,10 +19,14 @@ exactly zero before its pulse, so outputs with i > j are exact zeros.
 
 ``fisp_hessian_cuda`` takes the kernel (``epgpy_torch/csrc/fisp_hess.cu``)
 for CUDA tensors and raises on what it does not take; for CPU tensors it
-runs ``fisp_hessian_plain``, the same recurrence with the same operation
-order vectorised over (rows, atoms, lanes), in any precision.
-``HESS_LAUNCHES`` counts kernel launches.  The TPU-only knobs of the JAX
-signature (``pchunk``, ``interpret``, the lane padding) are not taken.
+runs ``fisp_hessian_plain``, the same recurrence vectorised over (rows,
+atoms, lanes), in any precision.  The kernel runs it in two passes on the
+segmented layout (see its header): an atom pass over P, U1, U2 that keeps
+their rows before every pulse in a seed scratch the wrapper allocates, then
+a lane pass whose ladders are (atom, chain, lane) -- ``hess_geometry`` gives
+both passes' launch geometry.  ``HESS_LAUNCHES`` counts kernel launches (one
+per call: both passes).  The TPU-only knobs of the JAX signature
+(``pchunk``, ``interpret``, the lane padding) are not taken.
 """
 
 from __future__ import annotations
@@ -33,10 +37,10 @@ import numpy as np
 import torch
 
 from . import planes
-from .cuda_fisp import SMEM_PER_BLOCK, _takes_twin
+from .cuda_fisp import SMEM_PER_BLOCK, _takes_twin, seg_layout
 
 __all__ = ["fisp_hessian_cuda", "fisp_hessian_plain", "hess_kernel_fits",
-           "hess_block_size", "HESS_LAUNCHES"]
+           "hess_geometry", "HESS_LAUNCHES"]
 
 #: Hessian kernel launches so far (diagnostics: proves a run went through it)
 HESS_LAUNCHES = 0
@@ -44,38 +48,47 @@ HESS_LAUNCHES = 0
 #: per-lane plane groups: A, T (first order), W1, W2, X1, X2 (second)
 _LANE_NAMES = ("dalpha", "dtau", "dT1dalpha", "dT2dalpha", "dT1dtau",
                "dT2dtau")
-#: floats per ladder row of the per-atom groups kept in shared memory:
-#: P, U1, U2 rotated by the pulse's rotation and by its d/dalpha
-_ATOM_ROW = 36
+#: warps per lane-pass block and pulses per chunk (the kernel's
+#: kWarps and kPulses)
+HESS_WARPS, HESS_PULSES = 16, 32
 
 
 def _lane_groups(second_order):
     return 6 if second_order else 2
 
 
-def _smem_bytes(nstate, block, second_order):
-    """Shared memory of one block: the lane groups' planes (6 planes x H
-    rows per group and lane) and two buffers of the per-atom rows."""
-    H = int(nstate) + 1
-    return 4 * (6 * _lane_groups(second_order) * H * block
-                + 2 * _ATOM_ROW * H)
-
-
 def hess_kernel_fits(nstate, second_order=True) -> bool:
-    """Whether the Hessian kernel's shared-memory state fits at its
-    smallest block (32 lanes): nstate <= 46 (second order), <= 140
-    (first)."""
-    return _smem_bytes(nstate, 32, second_order) <= SMEM_PER_BLOCK
+    """The Hessian kernel's gate: nstate <= 46 (second order), <= 126
+    (first), where the thread-per-lane layout's lane groups (6 planes x
+    nstate + 1 rows each) and two buffers of the 36-float per-atom rows
+    fitted 32 lanes in one block's shared memory.  The two-pass kernel
+    keeps its state in registers (:func:`hess_geometry`) and keeps this
+    gate, so that no train changes route."""
+    H = int(nstate) + 1
+    return 4 * (6 * _lane_groups(second_order) * H * 32 + 72 * H) \
+        <= SMEM_PER_BLOCK
 
 
-def hess_block_size(nstate, second_order=True) -> int:
-    """Lanes (threads) per block: 64, halved while the state does not fit
-    (at nstate 10 a second-order block holds 102 KB, so an SM keeps 2)."""
-    block = 64
-    while block > 32 and _smem_bytes(nstate, block,
-                                     second_order) > SMEM_PER_BLOCK:
-        block //= 2
-    return block
+def hess_geometry(nstate, second_order=True):
+    """Launch geometry of the two-pass Hessian kernel for a ladder of H =
+    nstate + 1 rows: ``R`` rows per lane (2; 1 for H <= 3; ceil(H / 32)
+    past 64 rows, 4 at the first-order gate's 127), ``W`` = ceil(H / R)
+    lanes per ladder, ``L`` = 32 // W ladders per warp, HESS_WARPS
+    ``warps`` per lane-pass block; ``atoms`` per atom-pass block (one
+    warp: L) and ``lanes`` per lane-pass block (warps x L); ``seed``, the
+    scratch floats per (pulse, atom) (6 C planes of W R rows, C = 3 groups
+    at second order, 1 at first); ``smem``, a lane-pass block's shared
+    bytes (its staged echoes, 2 C x HESS_PULSES x lanes floats, and its
+    table of 36 floats per pulse).  The launch passes R to the kernel,
+    which dispatches on it, and sizes the seed scratch from it."""
+    H = int(nstate) + 1
+    R, W, L = seg_layout(nstate, 1 if H <= 3 else (2 if H <= 64
+                                                   else -(-H // 32)))
+    C = 3 if second_order else 1
+    lanes = HESS_WARPS * L
+    return dict(R=R, W=W, L=L, warps=HESS_WARPS, atoms=L, lanes=lanes,
+                seed=6 * C * W * R,
+                smem=4 * (2 * C * HESS_PULSES * lanes + 36 * HESS_PULSES))
 
 
 def _prepare(FA, phi, TAU, T1s, T2s, strict):
@@ -316,14 +329,17 @@ def _launch(FA, phi, TAU, T1s, T2s, *, te, inversion, nstate, second_order):
     if nstate < 1:
         raise ValueError("the folded ladder needs nstate >= 1")
     if not hess_kernel_fits(nstate, second_order):
-        raise ValueError(f"nstate={nstate}: the Hessian kernel state does "
-                         f"not fit in {SMEM_PER_BLOCK} bytes of shared memory")
+        raise ValueError(f"nstate={nstate}: beyond the Hessian kernel's "
+                         f"gate")
     x = _prepare(FA, phi, TAU, T1s, T2s, strict=True)
     N, B = x["N"], x["B"]
     dev = T1s.device
     out_atom = torch.empty((6, B, N), dtype=torch.float32, device=dev)
     out_lane = torch.empty((2 * _lane_groups(second_order), B, N, N),
                            dtype=torch.float32, device=dev)
+    # the atom pass's seed rows, read by the lane pass on the same stream
+    geo = hess_geometry(nstate, second_order)
+    seed = torch.empty(N * B * geo["seed"], dtype=torch.float32, device=dev)
     # asynchronous on the current stream; see cuda_fisp._launch on
     # temporaries
     lib = _build.load()
@@ -332,9 +348,8 @@ def _launch(FA, phi, TAU, T1s, T2s, *, te, inversion, nstate, second_order):
         0.0 if te is None else float(te),
         0.0 if inversion is None else float(inversion),
         x["T1"].data_ptr(), x["T2"].data_ptr(), out_atom.data_ptr(),
-        out_lane.data_ptr(), N, B, nstate, int(te is not None),
-        int(inversion is not None), int(second_order),
-        hess_block_size(nstate, second_order),
+        out_lane.data_ptr(), seed.data_ptr(), N, B, nstate, geo["R"],
+        int(te is not None), int(inversion is not None), int(second_order),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:

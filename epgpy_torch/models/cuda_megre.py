@@ -68,13 +68,18 @@ def megre_kernel_fits(nstate) -> bool:
     return kernel_fits(max(int(nstate), 1))
 
 
-def megre_jac_kernel_fits(nstate) -> bool:
+def megre_jac_kernel_fits(nstate, m=None) -> bool:
     """The Jacobian kernel's gate: nstate <= 59, where the thread-per-atom
     layout's 30 planes (primal, T1, T2, B1, df) fitted 32 atoms in one
     block's shared memory.  The segmented kernel keeps its state in
     registers, at most 3 rows per lane (nstate <= 95), and keeps this gate
-    so that no train changes route."""
-    return jac_kernel_fits(max(int(nstate), 1), True)
+    so that no train changes route.  With the echo count `m`, also that one
+    pulse's staged echoes fit a block (:func:`megre_jac_geometry`): m <= 360
+    at nstate 1, m <= 952 at nstate 8."""
+    nstate = max(int(nstate), 1)
+    if not jac_kernel_fits(nstate, True):
+        return False
+    return m is None or megre_jac_geometry(nstate, m)["smem"] <= SMEM_PER_BLOCK
 
 
 def megre_jac_geometry(nstate, m):

@@ -36,10 +36,11 @@ from epgpy_torch.models import cuda_composite
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_composite
 
-from chip_smoke import (COMP_CASES, COMP_GROUP_SETS, comp_golden_sequence,
-                        comp_tensors, make_comp_case)
+from chip_smoke import (COMP_CASES, COMP_EDGE_CASES, COMP_GROUP_SETS,
+                        comp_golden_sequence, comp_tensors, make_comp_case)
+from epgpy_torch.models import cuda_fisp, planes
 from torch_support import (GOLDEN_DIR, cplx, family_train,  # noqa: F401
-                           port_f32, port_f64)
+                           port_f32, port_f64, seg_shift_emulated)
 
 B, NSTAGE = 8, 60
 KV = 2 * np.pi / 1e-3          # 1 mm voxel: rad/m per state index
@@ -527,3 +528,82 @@ def test_exact_families_keep_their_trains(port_f64, fam):
 
 def test_group_order_is_jax():
     assert cuda_composite.COMP_JAC_GROUPS == pallas_composite.COMP_JAC_GROUPS
+
+
+# -- the segmented layout of composite_jac.cu: its down shift, lane map,
+# geometry and gate --
+
+
+def test_seg_shift_down_emulation():
+    """epg::seg_shift_down, replayed in numpy (NaN in the idle lanes, past
+    the last atom and in the padding rows), equals planes.shift_down
+    exactly for every H from 2 to 151 and every R from 1 to 5 that the
+    layout takes (2 <= W = ceil(H / R) <= 32), and leaves the padding rows
+    zero; so does epg::seg_shift with planes.shift_fold."""
+    rng = np.random.default_rng(5)
+    ran = 0
+    for H in range(2, 152):
+        s = tuple(torch.as_tensor(rng.normal(size=(H, 7))) for _ in range(6))
+        for R in range(1, 6):
+            if not 2 <= -(-H // R) <= 32:
+                continue
+            for down, ref in ((True, planes.shift_down),
+                              (False, planes.shift_fold)):
+                got, pad = seg_shift_emulated(s, R, down=down, padding=True)
+                for g, w in zip(got, ref(s)):
+                    assert torch.equal(g, w), (H, R, down)
+                assert (pad == 0.0).all(), (H, R, down)
+            ran += 1
+    assert ran > 300
+
+
+@pytest.mark.parametrize("case,groups", COMP_EDGE_CASES,
+                         ids=lambda c: c["name"] if isinstance(c, dict)
+                         else ",".join(c))
+def test_segmented_lane_map_matches_twin(monkeypatch, case, groups):
+    """The float64 Jacobian twin with every shift -- up and down -- replayed
+    through the kernel's lane map at its rows per lane (comp_jac_geometry:
+    the gate's deepest ladders with 4 / 3 / 2 / 1 groups take 2 / 3 / 4 / 5
+    rows) equals the twin exactly, with every option (mixed shifts, D with
+    ramps, df, ADC phases, b1u, sparse readouts), over more stages than the
+    ladder has rows."""
+    args, kw = make_comp_case(case, 5, case["nstate"] + 12, seed=2)
+    targs, tkw = comp_tensors(torch, args, kw, "cpu")
+    targs = tuple(t.double() if isinstance(t, torch.Tensor)
+                  and t.is_floating_point() else t for t in targs)
+    if tkw.get("diffusion") is not None:
+        tkw["diffusion"] = tuple(d.double() for d in tkw["diffusion"])
+    want = cuda_composite.composite_jacobian_plain(*targs, groups=groups,
+                                                   **tkw)
+    R = cuda_composite.comp_jac_geometry(case["nstate"], len(groups))["R"]
+    monkeypatch.setattr(planes, "shift_fold",
+                        lambda x: seg_shift_emulated(x, R))
+    monkeypatch.setattr(planes, "shift_down",
+                        lambda x: seg_shift_emulated(x, R, down=True))
+    got = cuda_composite.composite_jacobian_plain(*targs, groups=groups,
+                                                  **tkw)
+    assert got[0][0].dtype == torch.float64
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+def test_comp_jac_geometry_and_gate():
+    """The gate answers as the thread-per-atom layout set it (nstate <= 59,
+    74, 99, 150, 301 with 4, 3, 2, 1, 0 groups); for every ladder it admits
+    the segmented kernel takes 2 rows per lane (1 for H <= 3, ceil(H / 32)
+    past 64 rows, 10 past 160) -- at most 6 (1 + ng) R = 72 floats of state
+    per lane with groups -- a segment of 2 <= W <= 32 lanes, as many ladders
+    per warp as fit, 4 warps per block and a chunk within 48 KB."""
+    for ng, top in ((4, 59), (3, 74), (2, 99), (1, 150), (0, 301)):
+        assert cuda_composite.composite_jac_kernel_fits(top, ng)
+        assert not cuda_composite.composite_jac_kernel_fits(top + 1, ng)
+        for n in range(1, top + 1):
+            geo = cuda_composite.comp_jac_geometry(n, ng)
+            H, R, W, L = n + 1, geo["R"], geo["W"], geo["L"]
+            assert R == (1 if H <= 3 else 2 if H <= 64
+                         else -(-H // 32) if H <= 160 else 10)
+            assert ng == 0 or 6 * (1 + ng) * R <= 72
+            assert 2 <= W <= 32 and W == -(-H // R)
+            assert L == 32 // W and geo["warps"] == cuda_fisp.SEG_WARPS
+            per = cuda_composite.COMP_JAC_TABLE + (2 + 2 * ng) * 4 * L
+            assert geo["smem"] == 4 * geo["pulses"] * per <= 48 * 1024

@@ -12,9 +12,11 @@ JAX, so it runs on the GPU machine as it is:
 import pytest
 import torch
 
-from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_GROUP_SETS,
+from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_EDGE_ATOMS,
+                        COMP_EDGE_CASES, COMP_GROUP_SETS, COMP_SHAPES,
                         DESIGN_CASES, DESIGN_SHAPES, DESS_CASES, FULL_CASES,
-                        HESS_CASES, JAC_CASES, JAC_EDGE_CASES, MEGRE_CASES,
+                        HESS_CASES, HESS_EDGE_ATOMS, HESS_EDGE_CASES,
+                        HESS_SHAPES, JAC_CASES, JAC_EDGE_CASES, MEGRE_CASES,
                         MEGRE_EDGE_CASES, MSE_CASES, MSE_JAC_SHAPES,
                         MSE_RAGGED_CASES, OPTION_CASES, SEG_EDGE_SHAPE,
                         SEG_RAGGED_CASES, SEG_SHAPES,
@@ -144,6 +146,42 @@ def test_cuda_hessian_kernel_matches_plain_twin(card, case):
         for t in pair:
             if t.ndim == 3:
                 assert float(torch.triu(t, diagonal=1).abs().max()) == 0.0
+
+
+def _hess_vs_twin(case, natoms, npulse):
+    args, kw = make_hess_case(case, natoms, npulse)
+    targs, _ = _tensors(torch, args, {}, "cuda")
+    before = cuda_hessian.HESS_LAUNCHES
+    k = cuda_hessian.fisp_hessian_cuda(*targs, **kw)
+    torch.cuda.synchronize()
+    assert cuda_hessian.HESS_LAUNCHES == before + 1
+    p = cuda_hessian.fisp_hessian_plain(*targs, **kw)
+    assert max(hess_block_errors(k, p).values()) < 1e-5
+    for pair in k.values():
+        for t in pair:
+            assert bool(torch.isfinite(t).all())
+            if t.ndim == 3:
+                assert float(torch.triu(t, diagonal=1).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HESS_EDGE_CASES, ids=lambda c: c["name"])
+def test_cuda_hessian_two_pass_edges(card, case):
+    """The two-pass kernel at its own edges (the gates' deepest ladders,
+    rows per lane changing, nstate 1) == its twin to 1e-5 per block over a
+    train longer than the ladder; pulse > echo entries exactly zero."""
+    _hess_vs_twin(case, HESS_EDGE_ATOMS, max(100, case["nstate"] + 10))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", HESS_SHAPES, ids=str)
+@pytest.mark.parametrize("nstate", [1, 10])
+def test_cuda_hessian_ragged_shapes(card, nstate, shape):
+    """1, 33 and 4,097 atoms, 1, 2 and 33 pulses, at nstate 1 (5-op form
+    after an inversion) and 10 (4-op)."""
+    case = dict(name="ragged", nstate=nstate, te=5.0 if nstate == 1 else None,
+                inversion=20.0 if nstate == 1 else None)
+    _hess_vs_twin(case, *shape)
 
 
 @pytest.mark.cuda
@@ -537,6 +575,80 @@ def test_cuda_composite_kernels_match_plain_twins(card, case):
                                                            **kw), True)
         assert jsig < 2e-6 and len(cols) == len(g)
         assert max(cols, default=0.0) < 1e-5
+
+
+def _comp_jac_vs_twin(case, groups, natoms, nstage):
+    args, kw = comp_tensors(torch, *make_comp_case(case, natoms, nstage),
+                            "cuda")
+    before = cuda_composite.JAC_LAUNCHES
+    got = cuda_composite.composite_jacobian_echoes(*args, groups=groups, **kw)
+    torch.cuda.synchronize()
+    assert cuda_composite.JAC_LAUNCHES == before + 1
+    sig, cols = _pair_errors(torch, got, cuda_composite.
+                             composite_jacobian_plain(*args, groups=groups,
+                                                      **kw), True)
+    assert sig < 2e-6 and len(cols) == len(groups)
+    assert max(cols, default=0.0) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,groups", COMP_EDGE_CASES,
+                         ids=lambda c: c["name"] if isinstance(c, dict)
+                         else ",".join(c))
+def test_cuda_composite_jacobian_segmented_edges(card, case, groups):
+    """The segmented Jacobian kernel at the gate's deepest ladder for each
+    group count (2 to 5 rows per lane), rows per lane changing and nstate
+    1, with every option: signals to 2e-6, columns to 1e-5."""
+    _comp_jac_vs_twin(case, groups, COMP_EDGE_ATOMS, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", COMP_SHAPES, ids=str)
+@pytest.mark.parametrize("nstate", [1, 8])
+def test_cuda_composite_jacobian_ragged_shapes(card, nstate, shape):
+    """1, 33 and 4,097 atoms, 1, 2 and 33 stages, every group and option."""
+    case = dict(COMP_CASES[-1], nstate=nstate)
+    _comp_jac_vs_twin(case, COMP_GROUP_SETS[-1], *shape)
+
+
+@pytest.mark.cuda
+def test_cuda_megre_jacobian_echo_count_edge(card):
+    """The ME-GRE Jacobian kernel takes 360 echoes per TR at nstate 1 (==
+    its twin) and its guard refuses 361; simulate() sends a 361-echo train
+    to the general diff path, whose answer it returns."""
+    import numpy as np
+
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+
+    for m, fits in ((360, True), (361, False)):
+        case = dict(name=f"m{m}", m=m, nstate=1, df=True, var_te=True)
+        args, kw = _tensors(torch, *make_megre_case(case, 33, 2), "cuda")
+        assert cuda_megre.megre_jac_kernel_fits(1, m) == fits
+        if not fits:
+            with pytest.raises(ValueError):
+                cuda_megre.megre_jacobian_echoes(*args, **kw)
+            continue
+        got = cuda_megre.megre_jacobian_echoes(*args, **kw)
+        sig, cols = _pair_errors(torch, got, cuda_megre.
+                                 megre_jacobian_echoes_plain(*args, **kw),
+                                 True)
+        assert sig < 2e-6 and max(cols) < 1e-5
+    T1, T2 = np.array([800.0, 1300.0]), np.array([40.0, 90.0])
+    seq = []
+    for i in range(2):
+        seq.append(epg.T(15.0 + i, 0.0))
+        for j in range(361):
+            seq += [epg.E(3.0, T1, T2, 0.01, order1=["T2", "g"]), epg.ADC]
+        seq += [epg.E(4.0, T1, T2, 0.01, order1=["T2", "g"]), epg.S(1)]
+    probes = [epg.ADC, epg.Jacobian(["T2", "g"])]
+    before = dict(fisp_dispatch.DISPATCH_COUNTS)
+    sig, jac = epg.simulate(seq, max_nstate=1, probe=probes)
+    assert fisp_dispatch.DISPATCH_COUNTS.get("jac:megre", 0) == before.get(
+        "jac:megre", 0)
+    want_sig, want_jac = epg.simulate(seq, max_nstate=1, probe=probes,
+                                      fisp_kernel=False)
+    assert np.array_equal(sig, want_sig) and np.array_equal(jac, want_jac)
 
 
 @pytest.mark.cuda

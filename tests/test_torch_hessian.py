@@ -29,11 +29,12 @@ import epgpy_torch as tepg
 import epgpy_tpu as jepg
 from epgpy_torch import fisp_dispatch as tfd
 from epgpy_torch.convert import from_numpy_params
-from epgpy_torch.models import cuda_hessian
+from epgpy_torch.models import cuda_fisp, cuda_hessian
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models.pallas_hessian import fisp_hessian_pallas
 
-from torch_support import port_f32, port_f64  # noqa: F401
+from torch_support import (hessian_two_pass, port_f32,  # noqa: F401
+                           port_f64, seg_shift_emulated)
 
 NTR = 10
 RNG = np.random.default_rng(7)
@@ -106,6 +107,158 @@ def test_causality_and_first_order_outputs(case):
             if part.ndim == 3:
                 assert float(torch.triu(part, diagonal=1).abs().max()) == 0.0
                 assert float(part.abs().max()) > 0.0
+
+
+# -- the two-pass decomposition of csrc/fisp_hess.cu --
+
+
+def _f64(x):
+    return x if np.ndim(x) == 0 else torch.as_tensor(
+        np.asarray(x, np.float64))
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES, ids=lambda c: c["name"])
+def test_two_pass_matches_plain_twin(case):
+    """The kernel's decomposition -- an atom pass, the seeds, then each
+    lane's two chains started at its own pulse and stepped in the m = 0
+    form -- equals fisp_hessian_plain in float64 to 1e-12 of each output
+    block's largest magnitude."""
+    args, kw = _kernel_args(case)
+    want = cuda_hessian.fisp_hessian_plain(*map(_f64, args), **kw)
+    got = hessian_two_pass(*args, **kw)
+    assert set(got) == set(want)
+    for key in want:
+        for c in (0, 1):
+            assert got[key][c].dtype == torch.float64
+            assert rel_err(got[key][c], want[key][c]) < 1e-12, (key, c)
+
+
+@pytest.mark.parametrize("case", KERNEL_CASES, ids=lambda c: c["name"])
+def test_two_pass_matches_pallas_kernel(case):
+    """The decomposition against the JAX kernel in interpret mode, at the
+    plain twin's tolerance: 1e-6 of each output block's largest magnitude,
+    a block being the (re, im) pair (the JAX kernel computes in float32,
+    so a part that is zero up to rounding -- dT1's imaginary part at phi
+    90 -- is compared on its block's scale)."""
+    args, kw = _kernel_args(case)
+    want = fisp_hessian_pallas(*args, interpret=True, **kw)
+    got = hessian_two_pass(*args, **kw)
+    for key in want:
+        scale = max(np.abs(np.asarray(w)).max() for w in want[key])
+        for c in (0, 1):
+            err = np.abs(np.asarray(got[key][c]) - np.asarray(want[key][c]))
+            assert err.max() < 1e-6 * scale, (key, c)
+
+
+@pytest.mark.parametrize("second_order", [True, False])
+def test_chains_are_closed(second_order):
+    """Zeroing one chain's seeds leaves the other chain's outputs
+    bit-identical and its own exactly zero: after its pulse a lane's
+    {A, W1, W2} and {T, X1, X2} groups never read each other."""
+    args, kw = _kernel_args(dict(name="closure", te=5.0, inversion=20.0,
+                                 tau=TR5 - 5.0, second_order=second_order))
+    full = hessian_two_pass(*args, **kw)
+    chains = {"A": ("dalpha", "dT1dalpha", "dT2dalpha"),
+              "T": ("dtau", "dT1dtau", "dT2dtau")}
+    for seeded, other in (("A", "T"), ("T", "A")):
+        part = hessian_two_pass(*args, seeds=(seeded,), **kw)
+        for key in chains[seeded]:
+            if key in full:
+                for c in (0, 1):
+                    assert torch.equal(part[key][c], full[key][c]), key
+        for key in chains[other]:
+            if key in full:
+                assert float(part[key][0].abs().max()) == 0.0
+                assert float(full[key][0].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("second_order,nstate", [
+    (True, 1), (True, 2), (True, 3), (True, 46),
+    (False, 1), (False, 63), (False, 64), (False, 95), (False, 96),
+    (False, 126)])
+def test_two_pass_lane_map(monkeypatch, second_order, nstate):
+    """The decomposition with every folded shift replayed through the
+    kernel's segmented lane map at its rows per lane (hess_geometry: 1, 2,
+    3 and 4 rows; epg::seg_shift emulated in numpy with NaN in the idle
+    lanes and padding rows) equals it exactly, the gates' deepest ladders
+    included, over a train longer than the ladder."""
+    geo = cuda_hessian.hess_geometry(nstate, second_order)
+    rng = np.random.default_rng(nstate)
+    N = nstate + 4
+    args = (rng.uniform(10, 60, N), 30.0, rng.uniform(11, 16, N),
+            np.array([800.0, 1500.0]), np.array([45.0, 110.0]))
+    kw = dict(inversion=20.0, nstate=nstate, second_order=second_order)
+    want = hessian_two_pass(*args, **kw)
+
+    def lane_map(s):
+        shape = s[0].shape
+        flat = seg_shift_emulated(tuple(p.reshape(shape[0], -1) for p in s),
+                                  geo["R"])
+        return tuple(p.reshape(shape) for p in flat)
+
+    monkeypatch.setattr(cuda_hessian.planes, "shift_fold", lane_map)
+    got = hessian_two_pass(*args, **kw)
+    for key in want:
+        for c in (0, 1):
+            assert torch.equal(got[key][c], want[key][c]), key
+
+
+def test_hess_geometry_and_gate():
+    """For every ladder the gate admits (nstate 1-46 at second order,
+    1-126 at first; the gate answers as before): rows per lane 2 (1 for H
+    <= 3, ceil(H / 32) past 64 rows), at most 2 at second order and 4 at
+    first, a segment of 2 <= W <= 32 lanes holding the H rows, L = 32 // W
+    ladders per warp, a lane-pass block within SMEM_PER_BLOCK and a seed
+    of 6 C planes x W R rows."""
+    assert cuda_hessian.hess_kernel_fits(46)
+    assert not cuda_hessian.hess_kernel_fits(47)
+    assert cuda_hessian.hess_kernel_fits(126, False)
+    assert not cuda_hessian.hess_kernel_fits(127, False)
+    for so, top in ((True, 46), (False, 126)):
+        for n in range(1, top + 1):
+            geo = cuda_hessian.hess_geometry(n, so)
+            H, R, W, L = n + 1, geo["R"], geo["W"], geo["L"]
+            assert R == (1 if H <= 3 else 2 if H <= 64 else -(-H // 32))
+            assert R <= (2 if so else 4)
+            assert 2 <= W <= 32 and W == -(-H // R) and W * R >= H
+            assert L == 32 // W and geo["atoms"] == L
+            assert geo["lanes"] == cuda_hessian.HESS_WARPS * L
+            assert geo["seed"] == 6 * (3 if so else 1) * W * R
+            assert geo["smem"] <= cuda_fisp.SMEM_PER_BLOCK
+
+
+def _lane_pass_writes(N, B, geo, C):
+    """How often the lane pass writes each (plane, atom, echo j, lane i)
+    of the (2G, B, N, N) output, replaying hess_lane_kernel's loops: per
+    block (atom b, chain ch, lanes I0 .. I0 + A - 1) the rows j < I0 as
+    zeros, then chunks of HESS_PULSES pulses from I0 flushed over the
+    block's lanes below N."""
+    A, T = geo["lanes"], cuda_hessian.HESS_PULSES
+    grps = ((0, 2, 3), (1, 4, 5)) if C == 3 else ((0,), (1,))
+    count = np.zeros((2 * (6 if C == 3 else 2), B, N, N), int)
+    nI = -(-N // A)
+    for blk in range(nI * 2 * B):
+        ig, rem = divmod(blk, 2 * B)
+        b, ch = divmod(rem, 2)
+        I0 = ig * A
+        nA = min(A, N - I0)
+        planes = [2 * g + part for g in grps[ch] for part in (0, 1)]
+        for o in planes:
+            count[o, b, :I0, I0:I0 + nA] += 1
+        for n0 in range(I0, N, T):
+            nc = min(T, N - n0)
+            for o in planes:
+                count[o, b, n0:n0 + nc, I0:I0 + nA] += 1
+    return count
+
+
+@pytest.mark.parametrize("N,B,nstate,second_order", [
+    (1, 1, 1, True), (2, 3, 10, True), (33, 2, 10, True),
+    (70, 2, 46, True), (45, 1, 126, False), (97, 2, 1, False)])
+def test_lane_pass_writes_every_output_once(N, B, nstate, second_order):
+    geo = cuda_hessian.hess_geometry(nstate, second_order)
+    count = _lane_pass_writes(N, B, geo, 3 if second_order else 1)
+    assert (count == 1).all()
 
 
 # -- the dispatch: trains, probes, matchers --

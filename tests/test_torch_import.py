@@ -27,7 +27,7 @@ MODULES = {
     "epgpy_torch.models.cuda_hessian": ["fisp_hessian_cuda",
                                         "fisp_hessian_plain",
                                         "hess_kernel_fits",
-                                        "hess_block_size", "HESS_LAUNCHES"],
+                                        "hess_geometry", "HESS_LAUNCHES"],
     "epgpy_torch.models.cuda_mse": ["cpmg_dictionary_cuda",
                                     "cpmg_dictionary_plain",
                                     "cpmg_jacobian_cuda",
@@ -311,3 +311,40 @@ def test_source_imports_neither_jax_nor_the_jax_package(path):
     with open(os.path.join(ROOT, path)) as fh:
         bad = [i for i, line in enumerate(fh, 1) if pat.match(line)]
     assert not bad, (path, bad)
+
+
+def _c_entry_points():
+    """{name: [ctypes type per parameter]} of every extern "C" entry point
+    in the port's CUDA sources (pointers, float, int)."""
+    import ctypes
+    import glob
+    import re
+
+    def ctype(decl):
+        if "*" in decl:
+            return ctypes.c_void_p
+        return {"float": ctypes.c_float, "int": ctypes.c_int}[
+            decl.split()[-2]]
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(ROOT, "epgpy_torch", "csrc",
+                                              "*.cu"))):
+        with open(path) as fh:
+            src = fh.read()
+        for m in re.finditer(r'extern "C"\s+int\s+(\w+)\s*\(([^)]*)\)\s*\{',
+                             src):
+            out[m.group(1)] = [ctype(a) for a in m.group(2).split(",")]
+    return out
+
+
+def test_c_entry_points_match_their_bindings():
+    """Every C entry point of csrc/ has a ctypes binding in _build with its
+    parameters' count and types, so a launch argument added on one side
+    (the rows per lane that the Hessian and composite-Jacobian wrappers
+    pass) cannot shift the others."""
+    from epgpy_torch import _build
+
+    entries = _c_entry_points()
+    assert set(entries) == set(_build._SIGNATURES)
+    for name, types in entries.items():
+        assert types == _build._SIGNATURES[name], name

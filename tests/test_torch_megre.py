@@ -242,6 +242,63 @@ def test_jacobian_gate_falls_through(port_f64, caplog):
     assert tuple(jac.shape) == (120, 1, 1)
 
 
+@pytest.mark.parametrize("nstate,m,fits", [(1, 360, True), (1, 361, False),
+                                            (8, 952, True), (8, 953, False)])
+def test_jacobian_gate_counts_echoes(nstate, m, fits):
+    """The Jacobian gate refuses what the kernel's own guard refuses: one
+    pulse's staged echoes (``megre_jac_geometry``) past a block's shared
+    memory, m = 361 at nstate 1 and m = 953 at nstate 8; the engine's
+    ME-GRE gate answers the same."""
+    geo = cuda_megre.megre_jac_geometry(nstate, m)
+    assert (geo["smem"] <= cuda_fisp.SMEM_PER_BLOCK) == fits
+    assert cuda_megre.megre_jac_kernel_fits(nstate, m) == fits
+    assert cuda_megre.megre_jac_kernel_fits(nstate)
+    assert tepg.engine._megre_jac_fits({"nechoes": m}, nstate) == fits
+
+
+def test_jacobian_gate_falls_through_on_echo_count(port_f32, caplog):
+    """A tracked ME-GRE train of 361 echoes per TR at nstate 1 passes the
+    plane gate but not the staged echoes': simulate() takes the general
+    diff path with the reason logged and returns its answer."""
+    seq = _train(tepg, P=2, nb=1, m=361, track=("T2", "g"))
+    assert tfd.match_megre(seq)["nechoes"] == 361
+    probes = [tepg.ADC, tepg.Jacobian(["T2", "g"])]
+    before = tfd.DISPATCH_COUNTS.get("jac:megre", 0)
+    with caplog.at_level(logging.INFO, logger="epgpy_torch.engine"):
+        sig, jac = tepg.simulate(seq, fisp_kernel="force", max_nstate=1,
+                                 probe=probes)
+    assert tfd.DISPATCH_COUNTS.get("jac:megre", 0) == before
+    assert any("361 echoes per TR" in r.getMessage() for r in caplog.records)
+    want_sig, want_jac = tepg.simulate(seq, fisp_kernel=False, max_nstate=1,
+                                       probe=probes)
+    assert sig.dtype == np.complex64 and jac.shape == (722, 1, 2)
+    assert np.array_equal(sig, want_sig) and np.array_equal(jac, want_jac)
+    assert np.abs(jac).max() > 0
+
+
+def test_jacobian_echo_count_fall_through_matches_jax(port_f64, caplog):
+    """The 361-echo train that the gate turns away gives the JAX engine's
+    answer in float64: signal and both Jacobian columns, at the general
+    path's parity tolerances."""
+    kw = dict(P=2, nb=1, m=361, track=("T2", "g"))
+    probes = [tepg.ADC, tepg.Jacobian(["T2", "g"])]
+    before = tfd.DISPATCH_COUNTS.get("jac:megre", 0)
+    with caplog.at_level(logging.INFO, logger="epgpy_torch.engine"):
+        sig, jac = tepg.simulate(_train(tepg, **kw), fisp_kernel="force",
+                                 max_nstate=1, probe=probes)
+    assert tfd.DISPATCH_COUNTS.get("jac:megre", 0) == before
+    assert any("361 echoes per TR" in r.getMessage() for r in caplog.records)
+    want_sig, want_jac = (np.asarray(a) for a in jepg.simulate(
+        _train(jepg, **kw), max_nstate=1,
+        probe=[jepg.ADC, jepg.Jacobian(["T2", "g"])]))
+    assert sig.shape == want_sig.shape and jac.shape == want_jac.shape
+    assert np.abs(sig - want_sig).max() < 1e-10
+    for c in range(2):
+        scale = max(np.abs(want_jac[..., c]).max(), 1.0)
+        assert np.abs(want_jac[..., c]).max() > 0
+        assert np.abs(jac[..., c] - want_jac[..., c]).max() < 1e-8 * scale
+
+
 # -- Jacobian probes --
 
 

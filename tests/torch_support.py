@@ -164,23 +164,30 @@ def rows_beyond(s, top):
                 else 0.0) for p in s)
 
 
-def seg_shift_emulated(s):
-    """``planes.shift_fold`` through the segmented layout's lane map, in
-    numpy: the planes (each (H, B)) are laid out as the FISP and ME-GRE
-    Jacobian kernels hold them -- a ladder in a segment of W lanes, 32 // W
-    ladders per warp, lane r owning rows r + W c, c < R
-    (``cuda_fisp.seg_layout``) -- with NaN in the lanes past the last
-    segment and atom and in the padding rows; ``epg::seg_shift``
-    (csrc/epg_planes.cuh) is replayed step by step (two rotations of each
-    segment by one lane, then the row-0, wrap, last-row and padding
-    selects), and the lanes' rows are read back.  A NaN that reached a
-    ladder row would show in the result."""
+def seg_shift_emulated(s, R=None, down=False, padding=False):
+    """``planes.shift_fold`` (``planes.shift_down`` with `down`) through the
+    segmented layout's lane map, in numpy: the planes (each (H, B)) are laid
+    out as the segmented kernels hold them -- a ladder in a segment of W =
+    ceil(H / R) lanes, 32 // W ladders per warp, lane r owning rows r + W c,
+    c < R (R from ``cuda_fisp.seg_layout`` when None) -- with NaN in the
+    lanes past the last segment and atom and in the padding rows;
+    ``epg::seg_shift`` (``epg::seg_shift_down``, csrc/epg_planes.cuh) is
+    replayed step by step (two rotations of each segment by one lane, then
+    the row-0, wrap, last-row and padding selects), and the lanes' rows are
+    read back; with `padding`, also the values the shift leaves in the
+    padding rows of the stored atoms' lanes, (6, n).  A NaN that reached a
+    ladder row or a padding row would show in the result."""
     from epgpy_torch.models import cuda_fisp
 
     dtype = s[0].dtype
     v0 = np.stack([np.asarray(p, dtype=np.float64) for p in s])  # (6, H, B)
     H, B = v0.shape[1:]
-    R, W, L = cuda_fisp.seg_layout(H - 1)
+    if R is None:
+        R = cuda_fisp.seg_layout(H - 1)[0]
+    W = -(-H // R)
+    L = 32 // W
+    # the down shift is the up shift with the A and B planes' roles swapped
+    up, dn = ((2, 3), (0, 1)) if down else ((0, 1), (2, 3))
     nwarps = -(-B // L)
     lane = np.arange(32)
     seg, r = lane // W, lane % W
@@ -195,22 +202,173 @@ def seg_shift_emulated(s):
     first, last = r == 0, r == W - 1
     below = np.where(first, base + W - 1, lane - 1) % 32
     above = np.where(last, base, lane + 1) % 32
-    a, b = v[0:2][..., below], v[2:4][..., above]
+    a, b = v[list(up)][..., below], v[list(dn)][..., above]
     out = v.copy()
     for c in range(R):
         kc = k[c]
         A = np.where(first, b[:, 0] if c == 0 else a[:, c - 1], a[:, c])
-        up = last & (c + 1 < R)
-        Bn = np.where(up, b[:, min(c + 1, R - 1)], b[:, c])
-        keep = kc < H
+        nxt = last & (c + 1 < R)
+        Bn = np.where(nxt, b[:, min(c + 1, R - 1)], b[:, c])
+        keep = (R == 1) | (kc < H)
         zero_b = kc >= H - 1
-        out[0:2, c] = np.where(keep, A, 0.0)
-        out[2:4, c] = np.where(zero_b, 0.0, Bn)
+        out[list(up), c] = np.where(keep, A, 0.0)
+        out[list(dn), c] = np.where(zero_b, 0.0, Bn)
         out[4:6, c] = np.where(keep, v[4:6, c], 0.0)
     res = np.zeros_like(v0)
     c_, w_, l_ = np.nonzero(valid)
     res[:, k[c_, l_], atom[w_, l_]] = out[:, c_, w_, l_]
-    return tuple(torch.as_tensor(x, dtype=dtype) for x in res)
+    res = tuple(torch.as_tensor(x, dtype=dtype) for x in res)
+    if padding:
+        pad = ((seg < L)[None, None, :] & (atom < B)[None, :, :]
+               & (k >= H)[:, None, :])
+        return res, out[:, pad]
+    return res
+
+
+def hessian_two_pass(FA, phi, TAU, T1s, T2s, *, te=None, inversion=None,
+                     nstate=10, second_order=True, seeds=("A", "T")):
+    """The per-pulse Hessian the way csrc/fisp_hess.cu computes it, in
+    float64: an atom pass propagates P, U1, U2 and keeps their rows before
+    each pulse's rotation (the seeds); then every lane i runs two chains,
+    {A, W1, W2} and {T, X1, X2} ({A} and {T} at first order), zero before
+    pulse i.  At pulse i a chain takes the seed rows rotated by the pulse's
+    d/dalpha (A) or its rotation (T) as its rotated state and steps them
+    with the normal relaxation (A) or the tau derivatives of the relaxation
+    and the recovery (T); after pulse i every lane steps all its groups
+    together in the m = 0 form of fisp_hessian_plain (no seed terms).
+    `seeds` names the chains that are seeded (the other one stays zero).
+    Returns fisp_hessian_plain's dict."""
+    from epgpy_torch.models import cuda_hessian, planes
+
+    f64 = torch.float64
+    T1 = torch.as_tensor(np.atleast_1d(np.asarray(T1s, np.float64)))
+    T2 = torch.as_tensor(np.atleast_1d(np.asarray(T2s, np.float64)))
+    T1, T2 = torch.broadcast_tensors(T1, T2)
+    FA = torch.as_tensor(np.asarray(FA, np.float64))
+    N, B, H = FA.shape[0], T1.shape[0], int(nstate) + 1
+    phi = torch.tensor(np.broadcast_to(np.asarray(phi, np.float64), N))
+    TAU = torch.tensor(np.broadcast_to(np.asarray(TAU, np.float64), N))
+    te_sep = te is not None
+    deg = np.pi / 180.0
+    cp, sp, c2p, s2p = planes.phase_terms(phi * deg)
+
+    def zeros(*shape):
+        return tuple(torch.zeros((H, B) + shape, dtype=f64)
+                     for _ in range(6))
+
+    def step(y, c, rec):
+        """One chain (or the atom groups) over rotated rows y = (y0[, y1,
+        y2]): echoes and unshifted new values; c = (cF, cZ, dcZ1, dcF2, e2,
+        de2), rec the row-0 Z terms of y0, y1."""
+        cF, cZ, dcZ1, dcF2, e2, de2 = c
+        echo = [(e2 * y[0][0][0], e2 * y[0][1][0])]
+        new0 = tuple(cF * v for v in y[0][:4]) + tuple(cZ * v
+                                                        for v in y[0][4:])
+        new0[4][0] += rec[0]
+        new = [new0]
+        if len(y) == 3:
+            echo += [(e2 * y[1][0][0], e2 * y[1][1][0]),
+                     (e2 * y[2][0][0] + de2 * y[0][0][0],
+                      e2 * y[2][1][0] + de2 * y[0][1][0])]
+            new1 = tuple(cF * v for v in y[1][:4]) + tuple(
+                cZ * v + dcZ1 * p for v, p in zip(y[1][4:], y[0][4:]))
+            new1[4][0] += rec[1]
+            new += [new1, tuple(cF * v + dcF2 * p for v, p in
+                                zip(y[2][:4], y[0][:4]))
+                    + tuple(cZ * v for v in y[2][4:])]
+        return echo, new
+
+    # the atom pass: P, U1, U2 and their pre-rotation rows at every pulse
+    sP, sU1, sU2 = zeros(), zeros(), zeros()
+    if inversion is not None:
+        E1i = torch.exp(-float(inversion) / T1)
+        sP[4][0] = 1.0 - 2.0 * E1i
+        sU1[4][0] = -2.0 * E1i * float(inversion) / (T1 * T1)
+    else:
+        sP[4][0] = 1.0
+    out_atom = torch.empty((6, B, N), dtype=f64)
+    G = 6 if second_order else 2
+    out_lane = torch.zeros((2 * G, B, N, N), dtype=f64)
+    coeffs, seed_rows = [], []
+    for n in range(N):
+        a = FA[n] * deg
+        rc = planes.rot_coeffs(a, cp[n], sp[n], c2p[n], s2p[n])
+        drc = planes.rot_coeffs_db1(a, deg, cp[n], sp[n], c2p[n], s2p[n])
+        ttot = TAU[n] + float(te) if te_sep else TAU[n]
+        cF, cZ = torch.exp(-ttot / T2), torch.exp(-ttot / T1)
+        dcZ1, dcF2 = planes.relax_tangents(cZ, cF, ttot, T1, T2)
+        cFt, cZt, cFt2, cZt1 = planes.relax_tau_terms(cZ, cF, ttot, T1, T2)
+        if te_sep:
+            e2 = torch.exp(-float(te) / T2)
+            de2 = e2 * float(te) / (T2 * T2)
+            z = torch.zeros_like(cF)
+            tau_c = (cFt, cZt, cZt1, cFt2, z, z)
+        else:
+            e2, de2 = cF, dcF2
+            tau_c = (cFt, cZt, cZt1, cFt2, cFt, cFt2)
+        coeffs.append((rc, drc, (cF, cZ, dcZ1, dcF2, e2, de2), tau_c,
+                       (-cZt, -cZt1)))
+        seed_rows.append((sP, sU1, sU2) if second_order else (sP,))
+        y = [planes.apply_rot(rc, g) for g in (sP, sU1, sU2)]
+        echo, new = step(y, coeffs[n][2], (1.0 - cZ, -dcZ1))
+        for o, (re, im) in enumerate(echo):
+            out_atom[2 * o, :, n], out_atom[2 * o + 1, :, n] = re, im
+        sP, sU1, sU2 = (planes.shift_fold(g) for g in new)
+
+    # the lane pass: groups (A, T, W1, W2, X1, X2) over lanes (H, B, N)
+    chains = (0, 2, 3), (1, 4, 5)
+    if not second_order:
+        chains = (0,), (1,)
+    lane = [zeros(N) for _ in range(G)]
+    bc = lambda t: t.unsqueeze(-1)   # noqa: E731  per-atom over lanes
+    for n in range(N):
+        rc, drc, c, tau_c, tau_rec = coeffs[n]
+        cF, cZ, dcZ1, dcF2, e2, de2 = (bc(v) for v in c)
+        Y = [planes.apply_rot(rc, g) for g in lane]
+        # the m = 0 form of fisp_hessian_plain: every group of every lane
+        yA, yT = Y[0], Y[1]
+        echo = [(e2 * yA[0][0], e2 * yA[1][0]), (e2 * yT[0][0],
+                                                   e2 * yT[1][0])]
+        new = [tuple(cF * v for v in yA[:4]) + tuple(cZ * v
+                                                     for v in yA[4:]),
+               tuple(cF * v for v in yT[:4]) + tuple(cZ * v
+                                                     for v in yT[4:])]
+        if second_order:
+            yW1, yW2, yX1, yX2 = Y[2:]
+            echo += [(e2 * yW1[0][0], e2 * yW1[1][0]),
+                     tuple(e2 * yW2[j][0] + de2 * yA[j][0] for j in (0, 1)),
+                     (e2 * yX1[0][0], e2 * yX1[1][0]),
+                     tuple(e2 * yX2[j][0] + de2 * yT[j][0] for j in (0, 1))]
+            new += [tuple(cF * v for v in yW1[:4])
+                    + tuple(cZ * v + dcZ1 * p
+                            for v, p in zip(yW1[4:], yA[4:])),
+                    tuple(cF * v + dcF2 * p for v, p in zip(yW2[:4], yA[:4]))
+                    + tuple(cZ * v for v in yW2[4:]),
+                    tuple(cF * v for v in yX1[:4])
+                    + tuple(cZ * v + dcZ1 * p
+                            for v, p in zip(yX1[4:], yT[4:])),
+                    tuple(cF * v + dcF2 * p for v, p in zip(yX2[:4], yT[:4]))
+                    + tuple(cZ * v for v in yX2[4:])]
+        # lane n starts: its chains' seeds (its state is zero before)
+        for name, groups, rot, cs, rec in (
+                ("A", chains[0], drc, c, (0.0, 0.0)),
+                ("T", chains[1], rc, tau_c, tau_rec)):
+            if name not in seeds:
+                continue
+            ys = [planes.apply_rot(rot, g) for g in seed_rows[n]]
+            se, sn = step(ys, cs, rec)
+            for g, e_, v in zip(groups, se, sn):
+                echo[g] = tuple(x.clone() for x in echo[g])
+                for j in (0, 1):
+                    echo[g][j][:, n] = e_[j]
+                new[g] = tuple(x.clone() for x in new[g])
+                for j in range(6):
+                    new[g][j][..., n] = v[j]
+        for g in range(G):
+            out_lane[2 * g, :, n], out_lane[2 * g + 1, :, n] = echo[g]
+            out_lane[2 * g:2 * g + 2, :, n, n + 1:] = 0.0
+        lane = [planes.shift_fold(v) for v in new]
+    return cuda_hessian._result(out_atom, out_lane, second_order)
 
 
 def seg_owned_atoms(geo, B):

@@ -1,4 +1,4 @@
-"""Time the FISP and ME-GRE Jacobian kernels of several checkouts on one card.
+"""Time the segmented tangent kernels of several checkouts on one card.
 
     python3 tools/jac_kernel_ab.py ROOT [ROOT ...] [--reps N]
 
@@ -14,13 +14,18 @@ after one warm-up, ``chip_smoke._cuda_ms``) at the main-path shapes:
 * ``fisp_jac`` with the dD group: the same train with DW-FISP's
   attenuation (``chip_smoke.DWF_KVALUE``'s b-value bases, D 1e-3);
 * ``megre_jac``: 262,144 atoms x 200 TRs x 3 echoes, nstate 8
-  (``chip_smoke.make_megre_case``).
+  (``chip_smoke.make_megre_case``);
+* ``fisp_hess``: the flagship per-pulse Hessian, 256 atoms x 400 pulses,
+  nstate 10, second order (``chip_smoke.flagship_train`` /
+  ``design_atoms``);
+* ``composite_jac``: the MPRAGE Jacobian of ``chip_smoke.py`` 4o, 102,400
+  atoms x 156 stages, nstate 8, all four groups (``comp_jac_draws`` /
+  ``comp_jac_sequence`` through ``fisp_dispatch.match_composite``).
 
-Each turn prints one JSON line with its times and the Jacobian kernels'
-ptxas lines (registers, stack frame) where it built them; the last lines
-give the card's name and power limit and the mean of each checkout's two
-turns.  Needs a CUDA
-card; exits non-zero without one.
+Each turn prints one JSON line with its times and the kernels' ptxas lines
+(registers, stack frame) where it built them; the last lines give the
+card's name and power limit and the mean of each checkout's two turns.
+Needs a CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -41,12 +46,16 @@ def turn(root, reps):
     import torch
 
     import chip_smoke as cs
-    from epgpy_torch import _build
-    from epgpy_torch.models import cuda_fisp, cuda_megre
+    import epgpy_torch as epg
+    from epgpy_torch import _build, fisp_dispatch
+    from epgpy_torch.models import (cuda_composite, cuda_fisp, cuda_hessian,
+                                    cuda_megre)
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     dev = "cuda"
+    epg.config.set_device(dev)
+    epg.config.set_precision("float32")
     natoms, npulse = SHAPES["fisp"]
     P = npulse
     FA = cs.make_train(P)
@@ -73,12 +82,26 @@ def turn(root, reps):
                                                       **dkw), reps)
     out["megre_jac_ms"] = cs._cuda_ms(
         torch, lambda: cuda_megre.megre_jacobian_echoes(*margs, **mkw), reps)
+    del margs
+    hFA, hTAU = cs.flagship_train()
+    hT1, hT2 = cs.design_atoms()
+    hargs = (t(hFA), 90.0, t(hTAU), t(hT1), t(hT2))
+    out["fisp_hess_ms"] = cs._cuda_ms(
+        torch, lambda: cuda_hessian.fisp_hessian_cuda(*hargs, nstate=10),
+        reps)
+    params = fisp_dispatch.match_composite(
+        cs.comp_jac_sequence(epg, *cs.comp_jac_draws()), 1.0)
+    cargs, ckw = fisp_dispatch._comp_call(params, cs.COMPJ_NSTATE)
+    out["composite_jac_ms"] = cs._cuda_ms(
+        torch, lambda: cuda_composite.composite_jacobian_echoes(*cargs,
+                                                                **ckw), reps)
     log = _build.build_info()["log"].splitlines()
-    out["ptxas"] = [f"{a.split('for')[-1].strip()[-40:]}: {b.strip()}; "
+    out["ptxas"] = [f"{a.split('for')[-1].strip()[-48:]}: {b.strip()}; "
                     f"{c.strip()}"
                     for a, b, c in zip(log, log[1:], log[2:])
-                    if "Function properties" in a and "_jac_kernel" in a
-                    and ("fisp_jac" in a or "megre_jac" in a)]
+                    if "Function properties" in a
+                    and any(k in a for k in ("fisp_jac", "megre_jac",
+                                             "hess_", "composite_jac"))]
     print(json.dumps(out))
 
 
