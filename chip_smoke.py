@@ -377,6 +377,31 @@ XCOMP_CASES = [
 ]
 #: TRs / stages of the EPG-X option cases
 XGRE_CASE_N, XCOMP_CASE_N = 60, 80
+#: the segmented xgre Jacobian kernel's own edges (V variables, G = V + 1
+#: groups), each held against its twin at XGRE_EDGE_SHAPE: the gate's
+#: deepest ladders -- (C, G) = (1, 2) at nstate 150 (5 rows per lane),
+#: (2, 3) at 49, (4, 3) at 24, (2, 5) at 29 -- the balanced family at four
+#: pools (nstate 0: 32 ladders per warp, one warp per block), and a batch
+#: whose stage A is the identity with zero tangents for the first half of
+#: the atoms and every odd atom after (warps that skip stage A's mix beside
+#: warps that hold both kinds)
+XGRE_EDGE_CASES = [
+    dict(name="gate_c1_g2_n150", C=1, V=1, nstate=150, two_stage=True,
+         g=True),
+    dict(name="gate_c2_g3_n49", nstate=49, two_stage=True, g=True, b1=True,
+         csat=True),
+    dict(name="gate_c4_g3_n24", C=4, nstate=24, two_stage=True),
+    dict(name="gate_c2_g5_n29", V=4, nstate=29, two_stage=True, g=True),
+    dict(name="balanced_c4", C=4, balanced=True, g=True, two_stage=True),
+    dict(name="mixed_identity", two_stage=True, g=True, b1=True,
+         mixed_identity=True),
+]
+XGRE_EDGE_SHAPE = (1000, 60)
+#: ragged shapes (atoms, TRs) of the xgre Jacobian kernel, each run with
+#: XGRE_RAGGED_CASE: 1, 33 and 4,097 atoms, 1 and 2 TRs
+XGRE_SHAPES = [(1, 33), (33, 33), (4097, 33), (33, 1), (33, 2)]
+XGRE_RAGGED_CASE = dict(name="ragged", two_stage=True, g=True, b1=True,
+                        csat=True)
 
 #: covering set of the bSSFP kernels' options (each also run through the
 #: Jacobian kernel with and without the ddf group; b1 is the B1 batch
@@ -401,6 +426,16 @@ DESS_CASES = [
     dict(name="n8_all", nstate=8, var_te=True, b1=True, df=True,
          demodulate=True),
 ]
+#: the segmented DESS Jacobian kernel's own edges, every option on, each
+#: held against its twin at DESS_EDGE_SHAPE: nstate 1 (16 ladders per
+#: warp), 2 (R = 1 with 3 lanes), 64 / 65 (R changing from 2 to 3) and 74
+#: (the gate's deepest ladder); ragged shapes (atoms, pulses) of the
+#: option case with every option: 1, 33 and 4,097 atoms, 1 and 2 pulses
+DESS_EDGE_CASES = [dict(name=f"edge_n{n}", nstate=n, var_te=True, b1=True,
+                        df=True, demodulate=True)
+                   for n in (1, 2, 64, 65, 74)]
+DESS_EDGE_SHAPE = (1000, 100)
+DESS_SHAPES = [(1, 33), (33, 33), (4097, 33), (33, 1), (33, 2)]
 
 #: covering set of the ME-GRE kernels' options: m echoes, nstate, df,
 #: demodulation, a per-pulse (m, P) echo-time matrix, a B1 batch; the
@@ -821,26 +856,41 @@ def _x_tangents(torch, fn, khi, T2, C):
 def make_xgre_jac_case(torch, case, natoms, ntr=XGRE_CASE_N, seed=0):
     """Numpy inputs of one EPG-X GRE Jacobian case: the primal case's train
     with per-atom densities (C, B), the stages' (mr, mi, ml) (B, C, C) by
-    the port's exchange_stage_mats in float64, and two variables -- the
-    free pool's T2 and the exchange rate (the second also moving the
-    densities) -- by torch.func.jvp: (args, kwargs) of
-    xgre_jacobian_{cuda,plain,pallas}."""
+    the port's exchange_stage_mats in float64, and V = case["V"] (default
+    2) variables -- the free pool's T2 and the exchange rate (the second
+    also moving the densities) by torch.func.jvp, further variables
+    multiples of those two -- (args, kwargs) of
+    xgre_jacobian_{cuda,plain,pallas}.  With ``mixed_identity`` stage A
+    is the exact identity with zero tangents for the first half of the
+    atoms and every odd atom after."""
     from epgpy_torch.models.cuda_xgre import exchange_stage_mats
 
     args, kw = make_xgre_case(case, natoms, ntr, seed)
     rng = np.random.default_rng(seed + 1)
     dens = args[6]
-    C = len(dens)
+    C, V = len(dens), case.get("V", 2)
     mats, dmats = [], []
     for khi, T1, T2, g, tau in args[7:9]:
         val, tans = _x_tangents(
             torch, lambda k, t: exchange_stage_mats(k, T1, t, g, tau), khi,
             T2, C)
+        tans = [tuple(p * (1.0 + v // 2) for p in tans[v % 2])
+                for v in range(V)]
         mats.append(tuple(v.numpy() for v in val))
         dmats.append(tuple(np.stack([t[p].numpy() for t in tans])
                            for p in range(3)))
-    ddens = np.stack([np.zeros((C, natoms)),
-                      rng.uniform(-0.05, 0.05, (C, natoms))])
+    if case.get("mixed_identity"):
+        b = np.arange(natoms)
+        on = (b < natoms // 2) | (b % 2 == 1)
+        eye = np.eye(C)
+        mr, mi, ml = (m.copy() for m in mats[0])
+        mr[on], mi[on], ml[on] = eye, 0.0, eye
+        mats[0] = (mr, mi, ml)
+        dmats[0] = tuple(np.where(on[None, :, None, None], 0.0, d)
+                         for d in dmats[0])
+    ddens = np.stack([np.zeros((C, natoms))]
+                     + [rng.uniform(-0.05, 0.05, (C, natoms))
+                        for _ in range(V - 1)])
     dens_b = np.broadcast_to(np.asarray(dens)[:, None], (C, natoms)).copy()
     return (args[:6] + (dens_b, mats[0], mats[1], dmats[0], dmats[1], ddens,
                         args[9])), kw
@@ -1426,11 +1476,13 @@ def sass_mix(lib, keys, kernels=()):
 def phase_occupancy():
     """Registers and stack frame (ptxas), shared memory per block, resident
     warps per SM and the static SASS instruction mix of the warp-row CPMG
-    kernels and the segmented FISP, ME-GRE and composite Jacobian kernels
-    and the Hessian kernel's two passes at their main-path geometries."""
+    kernels and the segmented FISP, ME-GRE, composite, EPG-X GRE and DESS
+    Jacobian kernels and the Hessian kernel's two passes at their
+    main-path geometries; the registers and stack of every xgre Jacobian
+    instance."""
     from epgpy_torch import _build
-    from epgpy_torch.models import cuda_composite, cuda_fisp, cuda_hessian, \
-        cuda_megre, cuda_mse, cuda_msedesign
+    from epgpy_torch.models import cuda_composite, cuda_dess, cuda_fisp, \
+        cuda_hessian, cuda_megre, cuda_mse, cuda_msedesign, cuda_xgre
 
     log = _build.build_info()["log"]
     regs, stack = ptxas_registers(log), ptxas_registers(log, "stack")
@@ -1464,6 +1516,13 @@ def phase_occupancy():
     seg.append((f"fisp_hess atom pass nstate {NSTATE}",
                 f"hess_atom_kernelILb1ELi{geo['R']}EE",
                 dict(hgeo, warps=1, smem=40 * cuda_hessian.HESS_PULSES)))
+    # the qMT fit's xgre Jacobian (C = 2, G = 3) and the DESS mapping's
+    geo = cuda_xgre.xgre_jac_geometry(QMT_NSTATE, 2, 3)
+    seg.append((f"xgre_jac nstate {QMT_NSTATE} C 2 G 3",
+                f"xgre_jac_kernelILi2ELi3ELi{geo['R']}EE", geo))
+    geo = cuda_dess.dess_jac_geometry(DESS_NSTATE)
+    seg.append((f"dess_jac nstate {DESS_NSTATE}",
+                f"dess_jac_kernelILi{geo['R']}EE", geo))
     for what, key, geo in seg:
         r, frame = of(key), of(key, stack)
         if r is None:
@@ -1479,6 +1538,14 @@ def phase_occupancy():
               f"warps per SM (registers admit {by_regs}, shared memory "
               f"{by_smem})")
 
+    inst = sorted((tuple(int(v) for v in m.groups()), r, stack.get(n))
+                  for n, r in regs.items()
+                  for m in [re.search(r"xgre_jac_kernelILi(\d+)ELi(\d+)ELi"
+                                      r"(\d+)EE", n)] if m)
+    if inst:
+        print("[occupancy] xgre_jac instances (C, G, R): registers / stack "
+              "bytes: " + ", ".join(f"{c},{g},{r_}: {r} / {st}"
+                                    for (c, g, r_), r, st in inst))
     rows = []
     for dif in (False, True):
         warps = cuda_mse.mse_jac_block_size(MSE_NSTATE, dif)
@@ -2936,8 +3003,10 @@ def _finite(torch, out):
 def phase_ssfp_cases(torch, family, natoms=4096):
     """The bSSFP (`family` "bssfp") or DESS ("dess") kernels vs their
     plain twins on the card over the option cases, the primal and the
-    Jacobian (bSSFP: with and without the ddf group); returns the worst
-    signal |delta| and the worst per-column relative error."""
+    Jacobian (bSSFP: with and without the ddf group); for "dess" then the
+    segmented Jacobian kernel's edges (DESS_EDGE_CASES) and ragged shapes
+    (DESS_SHAPES); returns the worst signal |delta| and the worst
+    per-column relative error."""
     from epgpy_torch.models import cuda_bssfp, cuda_dess
 
     worst_sig = worst_col = 0.0
@@ -2971,6 +3040,21 @@ def phase_ssfp_cases(torch, family, natoms=4096):
                 f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
                 f"{TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+    if family != "dess":
+        return worst_sig, worst_col
+    # the segmented Jacobian kernel's edges and ragged shapes
+    wall = dict(edges=0.0, shapes=0.0)
+    runs = [("edges", case, *DESS_EDGE_SHAPE) for case in DESS_EDGE_CASES]
+    runs += [("shapes", DESS_CASES[-1], n, p) for n, p in DESS_SHAPES]
+    for part, case, n, p in runs:
+        t0 = time.perf_counter()
+        sig, cols = dess_jac_vs_twin(torch, case, n, p)
+        print(f"[dess-cases] {case['name']:14s} B={n:5d} P={p:3d} "
+              f"nstate={case['nstate']:2d} max|kernel - plain| = {sig:.3e}, "
+              f"per column {', '.join(f'{c:.2e}' for c in cols)}")
+        worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+        wall[part] += time.perf_counter() - t0
+    _print_wall("phase_ssfp_cases dess Jacobian", wall)
     return worst_sig, worst_col
 
 
@@ -4084,13 +4168,16 @@ def _print_split(what, name, split, card):
 
 
 def kernel_entry(torch, card, name, replaces, fns, args, kw, atom_idx,
-                 natoms, launches, jac, cut=None, errors=None):
+                 natoms, launches, jac, cut=None, errors=None, work=None):
     """One kernel's line at its main-path shape: kernel and twin on the
     same card tensors (held to TOL_KERNEL / TOL_JAC_KERNEL), their times,
     and the bound from the twin's counted operations and the bytes.
     ``cut(n)`` gives the twin's CPU arguments on the first n atoms (default:
     the per-atom tensors at `atom_idx`), ``errors(kernel, twin)`` the
-    (signal, columns) errors (default: _pair_errors)."""
+    (signal, columns) errors (default: _pair_errors); ``work(torch, call,
+    natoms)`` the kernel's own operations where it skips some of the
+    twin's (``call(n)`` the twin on n atoms): the bound takes them, the
+    twin's full count is printed beside it."""
     kfn, pfn = fns
 
     def kernel():
@@ -4121,6 +4208,12 @@ def kernel_entry(torch, card, name, replaces, fns, args, kw, atom_idx,
         def cut(n):
             return _cpu_atoms(torch, args, n, atom_idx)
     flops = linear_ops(torch, lambda n: pfn(*cut(n), **kw), natoms)
+    if work is not None:
+        own = work(torch, lambda n: pfn(*cut(n), **kw), natoms)
+        print(f"[bound] {name}: the twin's recurrence counts {flops:.4g} "
+              f"FLOP -> {flops / PEAK_FP32 * 1e3:.4f} ms at the FP32 peak; "
+              f"the bound takes the kernel's own {own:.4g}")
+        flops = own
     nbytes = tensor_bytes(torch, args, kernel())
     return {"name": name, "route": "cuda",
             "source": f"epgpy_torch/csrc/{name}.cu", "replaces": replaces,
@@ -4863,8 +4956,9 @@ def _x_errors(torch, got, want, jac):
 def phase_xcases(torch, family, natoms=4096):
     """The EPG-X kernels (`family` "xgre" or "xcomp") vs their plain twins
     on the card over the option cases, the primal and the Jacobian with
-    two variables; returns the worst signal |delta| and the worst
-    per-column relative error."""
+    two variables; for "xgre" then the segmented Jacobian kernel's edges
+    (XGRE_EDGE_CASES) and ragged shapes (XGRE_SHAPES); returns the worst
+    signal |delta| and the worst per-column relative error."""
     from epgpy_torch.models import cuda_xcomposite, cuda_xgre
 
     if family == "xgre":
@@ -4901,7 +4995,67 @@ def phase_xcases(torch, family, natoms=4096):
                 f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
                 f"{TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+    if family != "xgre":
+        return worst_sig, worst_col
+    wall = dict(edges=0.0, shapes=0.0)
+    runs = [("edges", case, *XGRE_EDGE_SHAPE) for case in XGRE_EDGE_CASES]
+    runs += [("shapes", XGRE_RAGGED_CASE, n, ntr) for n, ntr in XGRE_SHAPES]
+    for part, case, n, ntr in runs:
+        t0 = time.perf_counter()
+        sig, cols = xgre_jac_vs_twin(torch, case, n, ntr)
+        print(f"[xgre-cases] {case['name']:16s} B={n:5d} N={ntr:3d} "
+              f"max|kernel - plain| = {sig:.3e}, columns "
+              f"{', '.join(f'{c:.2e}' for c in cols)}")
+        worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
+        wall[part] += time.perf_counter() - t0
+    _print_wall("phase_xcases xgre Jacobian", wall)
     return worst_sig, worst_col
+
+
+def xgre_jac_vs_twin(torch, case, natoms, ntr):
+    """The xgre Jacobian kernel against its twin on one case of natoms
+    atoms x ntr TRs (one launch): (signal |delta|, per-column relative
+    errors); raises past TOL_KERNEL / TOL_JAC_KERNEL or when not
+    finite."""
+    from epgpy_torch.models import cuda_xgre
+
+    jargs, jkw = make_xgre_jac_case(torch, case, natoms, ntr)
+    targs = xgre_tensors(torch, jargs, DEVICE, jac=True)
+    before = cuda_xgre.JAC_LAUNCHES
+    k = cuda_xgre.xgre_jacobian_cuda(*targs, **jkw)
+    torch.cuda.synchronize()
+    sig, cols = _x_errors(torch, k, cuda_xgre.xgre_jacobian_plain(
+        *targs, **jkw), True)
+    if (cuda_xgre.JAC_LAUNCHES != before + 1 or not _finite(torch, k)
+            or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL):
+        raise AssertionError(
+            f"xgre Jacobian {case['name']} (B={natoms}, N={ntr}): kernel vs "
+            f"plain twin {sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
+            f"{TOL_JAC_KERNEL}, not finite, or not one launch")
+    return sig, cols
+
+
+def dess_jac_vs_twin(torch, case, natoms, npulse):
+    """The DESS Jacobian kernel against its twin on one case of natoms
+    atoms x npulse pulses (one launch): (signal |delta|, per-column
+    relative errors); raises past TOL_KERNEL / TOL_JAC_KERNEL or when not
+    finite."""
+    from epgpy_torch.models import cuda_dess
+
+    args, kw = _tensors(torch, *make_dess_case(case, natoms, npulse),
+                        DEVICE)
+    before = cuda_dess.JAC_LAUNCHES
+    k = cuda_dess.dess_jacobian_echoes(*args, **kw)
+    torch.cuda.synchronize()
+    sig, cols = _pair_errors(torch, k, cuda_dess.dess_jacobian_echoes_plain(
+        *args, **kw), True)
+    if (cuda_dess.JAC_LAUNCHES != before + 1 or not _finite(torch, k)
+            or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL):
+        raise AssertionError(
+            f"DESS Jacobian {case['name']} (B={natoms}, P={npulse}): kernel "
+            f"vs plain twin {sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
+            f"{TOL_JAC_KERNEL}, not finite, or not one launch")
+    return sig, cols
 
 
 def mt_saturation():
@@ -5617,6 +5771,37 @@ def phase_kfit(torch, epg):
                 twin=twin, cut=_jac_cut(torch, targs, XCOMP_JAC_AXES))
 
 
+@contextlib.contextmanager
+def xgre_stage_a_passthrough():
+    """The xgre twins with stage A's mix replaced by a pass-through (the
+    first of each TR's two ``cuda_xgre._mix_groups`` calls returns its
+    sets unchanged): the recurrence a warp of the Jacobian kernel runs
+    when every atom it holds has the identity stage A with zero tangents,
+    as the qMT fit's trains do."""
+    from epgpy_torch.models import cuda_xgre
+
+    mix, calls = cuda_xgre._mix_groups, [0]
+
+    def passthrough(sets, m, dens):
+        calls[0] += 1
+        return list(sets) if calls[0] % 2 else mix(sets, m, dens)
+
+    cuda_xgre._mix_groups = passthrough
+    try:
+        yield
+    finally:
+        cuda_xgre._mix_groups = mix
+
+
+def xgre_jac_kernel_ops(torch, call, natoms):
+    """Operations of the xgre Jacobian kernel on a train whose stage A is
+    the identity with zero tangents for every atom (the qMT fit's): the
+    twin's count (``call(n)`` on n atoms, ``linear_ops``) with stage A's
+    mix replaced by a pass-through, as the kernel's warps skip it."""
+    with xgre_stage_a_passthrough():
+        return linear_ops(torch, call, natoms)
+
+
 def phase_x_numbers(torch, card, xg, xc, qmt, kfit):
     """The four EPG-X kernels at their main-path shapes: the xgre kernel at
     (a)'s (spoiled MT-GRE, 262,144 atoms), its Jacobian at (d)'s (48 TRs,
@@ -5640,7 +5825,7 @@ def phase_x_numbers(torch, card, xg, xc, qmt, kfit):
                      (cg.xgre_jacobian_echoes, cg.xgre_jacobian_plain),
                      qmt["args"], qmt["kw"], (), QMT_NVOX, 0, True,
                      cut=_jac_cut(torch, qmt["args"], XGRE_JAC_AXES),
-                     errors=err(True)),
+                     errors=err(True), work=xgre_jac_kernel_ops),
         kernel_entry(torch, card, "xcomposite",
                      "epgpy_tpu/models/pallas_xcomposite.py:51",
                      (cx.xcomposite_echoes, cx.xcomposite_plain),

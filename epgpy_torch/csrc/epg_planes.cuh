@@ -391,13 +391,34 @@ __device__ __forceinline__ XMix<C> load_xmix(const float* rows, int B,
     return m;
 }
 
+// An XMix read in place from a ladder's record of a per-block shared
+// table: coefficient q of part 0/1/2 at p[part C C + q].  With the records
+// of a block's ladders at an odd stride, every lane of a ladder's segment
+// reads one address (a broadcast), the segments of a warp read distinct
+// banks, and each read is one base register plus an immediate offset.
+struct SharedCol {
+    const float* p;
+    __device__ __forceinline__ float operator[](int q) const { return p[q]; }
+};
+
+template <int C>
+struct SharedXMix {
+    SharedCol r, i, l;
+};
+
+template <int C>
+__device__ __forceinline__ SharedXMix<C> shared_xmix(const float* p) {
+    return SharedXMix<C>{SharedCol{p}, SharedCol{p + C * C},
+                         SharedCol{p + 2 * C * C}};
+}
+
 // The mix of row k of C plane sets (_mix_planes of pallas_common.py:74-99;
 // mix_planes of planes.py): A and B with mT, Z with mL around the
 // equilibrium, which sits on the k = 0 Z row (k0): dev = Z - dens there,
-// Z' = mL dev + dens.  x and y must not alias.
-template <int C>
-__device__ __forceinline__ void mix_rows(const XMix<C>& m,
-                                         const float (&dens)[C], bool k0,
+// Z' = mL dev + dens.  m is an XMix<C> or a SharedXMix<C>, dens a float[C]
+// or a SharedCol.  x and y must not alias.
+template <int C, class M, class D>
+__device__ __forceinline__ void mix_rows(const M& m, const D& dens, bool k0,
                                          const Row (&x)[C], Row (&y)[C]) {
     float dev[C];
 #pragma unroll
@@ -432,12 +453,12 @@ __device__ __forceinline__ void mix_rows(const XMix<C>& m,
 // The tangent of mix_rows (pallas_xgre.py:324-350; mix_tangent of
 // planes.py): t'_i = sum_j [M_ij (t_j - de_j) + dM_ij (x_j - e_j)] + de_i,
 // with x the primal rows from BEFORE the mix, dm and ddens the tangents of
-// the coefficients and the densities.  t and y must not alias.
-template <int C>
+// the coefficients and the densities (types as mix_rows's).  t and y must
+// not alias.
+template <int C, class M, class D>
 __device__ __forceinline__ void mix_tangent_rows(
-    const XMix<C>& m, const XMix<C>& dm, const float (&dens)[C],
-    const float (&ddens)[C], bool k0, const Row (&t)[C], const Row (&x)[C],
-    Row (&y)[C]) {
+    const M& m, const M& dm, const D& dens, const D& ddens, bool k0,
+    const Row (&t)[C], const Row (&x)[C], Row (&y)[C]) {
     float xdev[C], tdev[C];
 #pragma unroll
     for (int j = 0; j < C; ++j) {
@@ -620,13 +641,14 @@ __device__ __forceinline__ int reach(int i, int half, int H) {
 // -- segmented layout: several short ladders per warp, rows across the
 // lanes of a segment, the state in registers --
 //
-// The tangent kernels fisp_jac.cu, megre_jac.cu, composite_jac.cu and
-// fisp_hess.cu (its two passes) give a
+// The tangent kernels fisp_jac.cu, megre_jac.cu, composite_jac.cu,
+// fisp_hess.cu (its two passes), xgre_jac.cu and dess_jac.cu give a
 // folded ladder of H = nstate + 1 rows a segment of W = ceil(H / R)
 // consecutive lanes, and a warp holds L = 32 / W segments; lanes past the
 // last segment run the same instructions on a clamped atom and store
 // nothing.  Lane r of a segment owns rows k = r + W c, c < R, of every
-// plane of every group, in registers: R (seg_rows) is a template
+// plane of every group (xgre_jac.cu and dess_jac.cu: rows k = r R + c, the
+// blocked layout of seg_shift_blocked), in registers: R is a template
 // parameter, so each plane is a statically indexed float[R], and the
 // per-pulse work of a lane -- its rotation coefficients, the broadcasts,
 // the shift's selects -- serves R rows.  Rows k >= H are padding and stay
@@ -642,7 +664,8 @@ __host__ __device__ __forceinline__ int seg_rows(int H) {
 
 struct SegLane {
     int lane;  // lane in the warp
-    int r;     // lane in the segment: it owns rows r + W c
+    int r;     // lane in the segment: it owns rows r + W c (r R + c in
+               // the blocked layout of seg_shift_blocked)
     int base;  // the segment's first lane
     int W;     // lanes per segment
     int H;     // rows (nstate + 1)
@@ -705,6 +728,48 @@ __device__ __forceinline__ void seg_shift(const SegLane& q,
         s[3][c] = zeroB ? 0.0f : BI;
         s[4][c] = keep ? s[4][c] : 0.0f;
         s[5][c] = keep ? s[5][c] : 0.0f;
+    }
+}
+
+// The folded unit shift of FoldedShift on the segmented layout with
+// blocked rows -- lane r of a segment owns rows r R + c, c < R (s[j][c]),
+// instead of seg_shift's r + W c: fed the same unshifted new values of
+// every row, it leaves the same planes.  A(k) <- new A(k-1), A(0) <- new
+// B(1), B(k) <- new B(k+1), B(H-1) <- 0, Z unshifted.  Within a lane the
+// rows move by register; across lanes one shuffle per plane: a lane takes
+// the lane below's last new A and the lane above's first new B (the
+// segment's first lane takes B(1) as A(0) instead; its last lane's last
+// row is row H-1 or padding, whose B is 0).  Padding rows (k >= H) keep A
+// and B at 0; their Z is not touched and stays 0, since a row of zeros
+// rotates, relaxes and mixes to zeros away from row 0.
+template <int R>
+__device__ __forceinline__ void seg_shift_blocked(const SegLane& q,
+                                                  float (&s)[6][R]) {
+    const bool first = q.r == 0;
+    const int below = (q.lane + kWarp - 1) & (kWarp - 1);
+    const int above = (q.lane + 1) & (kWarp - 1);
+    const float aR = __shfl_sync(kFullMask, s[0][R - 1], below);
+    const float aI = __shfl_sync(kFullMask, s[1][R - 1], below);
+    const float bR = __shfl_sync(kFullMask, s[2][0], above);
+    const float bI = __shfl_sync(kFullMask, s[3][0], above);
+    // new A(0) of the segment's first lane: new B(1), its own second row
+    // or the lane above's first
+    const float a0R = first ? (R > 1 ? s[2][R > 1 ? 1 : 0] : bR) : aR;
+    const float a0I = first ? (R > 1 ? s[3][R > 1 ? 1 : 0] : bI) : aI;
+    const int k0 = q.r * R;
+#pragma unroll
+    for (int c = R - 1; c >= 0; --c) {
+        const float AR = c > 0 ? s[0][c > 0 ? c - 1 : 0] : a0R;
+        const float AI = c > 0 ? s[1][c > 0 ? c - 1 : 0] : a0I;
+        s[0][c] = k0 + c < q.H ? AR : 0.0f;
+        s[1][c] = k0 + c < q.H ? AI : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+        const float BR = c + 1 < R ? s[2][c + 1 < R ? c + 1 : c] : bR;
+        const float BI = c + 1 < R ? s[3][c + 1 < R ? c + 1 : c] : bI;
+        s[2][c] = k0 + c >= q.H - 1 ? 0.0f : BR;
+        s[3][c] = k0 + c >= q.H - 1 ? 0.0f : BI;
     }
 }
 

@@ -16,6 +16,8 @@ their headers for the design); ``dess_echoes_plain`` /
 ``dess_jacobian_echoes_plain`` are the same recurrences with the same
 operation order, vectorised over atoms as (6, nstate+1, B) planes in a
 Python loop over TRs, in any precision (float64 makes them oracles).
+The Jacobian kernel runs ``fisp_jac.cu``'s segmented layout at the
+geometry :func:`dess_jac_geometry` decides.
 The echo-layout functions (``dess_echoes``, ``dess_jacobian_echoes`` and
 their twins) return the train's ADC order, FISP_0, PSIF_0, FISP_1, ... on
 the first axis, (2P, B): the engine's layout, which the kernels write
@@ -27,8 +29,8 @@ not take: no fallback) and the plain twin for CPU tensors.  ``LAUNCHES`` /
 ``JAC_LAUNCHES`` count kernel launches.  The TPU-only knobs (``btile``,
 ``pchunk``, ``interpret``) and the padding have no counterpart.  The
 shared-memory gates are the FISP kernels' (``cuda_fisp.kernel_fits``: 6
-planes; ``cuda_fisp.jac_kernel_fits``: 24 planes), and so are the block
-sizes.
+planes; ``cuda_fisp.jac_kernel_fits``: 24 planes), and so is the primal's
+block size.
 """
 
 from __future__ import annotations
@@ -39,13 +41,13 @@ import torch
 
 from . import planes
 from .cuda_fisp import (SMEM_PER_BLOCK, _jac_views, _prepare, _takes_twin,
-                        block_size, jac_block_size, jac_kernel_fits,
-                        kernel_fits)
+                        block_size, jac_kernel_fits, kernel_fits,
+                        seg_geometry)
 
 __all__ = ["dess_dictionary_cuda", "dess_dictionary_plain", "dess_echoes",
            "dess_echoes_plain", "dess_jacobian_cuda", "dess_jacobian_plain",
-           "dess_jacobian_echoes", "dess_jacobian_echoes_plain", "LAUNCHES",
-           "JAC_LAUNCHES"]
+           "dess_jacobian_echoes", "dess_jacobian_echoes_plain",
+           "dess_jac_geometry", "LAUNCHES", "JAC_LAUNCHES"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -54,6 +56,26 @@ JAC_LAUNCHES = 0
 
 _TWO_PI = 2 * math.pi
 _DEG = math.pi / 180.0
+#: floats the Jacobian kernel stages per atom and pulse: (re, im) of four
+#: groups for both echoes
+DESS_JAC_OUTPUTS = 16
+
+
+def dess_jac_rows(nstate) -> int:
+    """Rows per lane of the Jacobian kernel for a ladder of H = nstate + 1
+    rows: 1 up to 3 rows, 2 up to 6, 3 above (the mapping's H = 9 fills
+    three lanes exactly; W = ceil(H / 3) <= 25 lanes at the gate's
+    H = 75)."""
+    H = int(nstate) + 1
+    return 1 if H <= 3 else 2 if H <= 6 else 3
+
+
+def dess_jac_geometry(nstate):
+    """Launch geometry of the segmented Jacobian kernel (``dess_jac.cu``):
+    ``cuda_fisp.seg_geometry`` at :func:`dess_jac_rows` rows per lane with
+    DESS_JAC_OUTPUTS staged floats per atom and pulse; the launch passes R
+    and ``warps`` to the kernel, which dispatches on them."""
+    return seg_geometry(nstate, DESS_JAC_OUTPUTS, R=dess_jac_rows(nstate))
 
 
 def _setup(FA, phi, TR, TE, T1s, T2s, B1s, dfs, nstate, strict):
@@ -241,6 +263,11 @@ def _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate, jac):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    if jac:
+        geo = dess_jac_geometry(nstate)
+        shape = (geo["R"], geo["warps"])
+    else:
+        shape = (block_size(nstate),)
     # asynchronous on the current stream; see cuda_fisp._launch on
     # temporaries
     lib = _build.load()
@@ -249,8 +276,7 @@ def _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate, jac):
             ptr(x["TE"]) if var_te else None, 0.0 if var_te else x["TE"],
             ptr(x["T1"]), ptr(x["T2"]), ptr(x["B1"]), ptr(x["df"]), ptr(out),
             P, B, nstate, int(var_te), int(x["df"] is not None),
-            int(bool(demodulate)),
-            (jac_block_size if jac else block_size)(nstate),
+            int(bool(demodulate)), *shape,
             T1s.device.index if T1s.device.index is not None
             else torch.cuda.current_device(),
             torch.cuda.current_stream(T1s.device).cuda_stream)

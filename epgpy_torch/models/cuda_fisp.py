@@ -46,7 +46,7 @@ from . import planes
 __all__ = ["fisp_dictionary_cuda", "fisp_dictionary_plain", "fisp_echoes",
            "fisp_echoes_plain", "kernel_fits", "block_size", "SMEM_PER_BLOCK",
            "fisp_jacobian_cuda", "fisp_jacobian_plain", "fisp_jacobian_echoes",
-           "fisp_jacobian_echoes_plain", "jac_kernel_fits", "jac_block_size",
+           "fisp_jacobian_echoes_plain", "jac_kernel_fits",
            "seg_layout", "seg_geometry", "fisp_jac_geometry",
            "fisp_full_ladder_cuda", "fisp_full_ladder_plain",
            "fisp_full_echoes", "fisp_full_echoes_plain", "full_kernel_fits",
@@ -379,18 +379,19 @@ def _jac_planes(track_diffusivity):
 def jac_kernel_fits(nstate, track_diffusivity=False) -> bool:
     """The Jacobian kernels' gate: 24 (30 with D) planes x (nstate+1) rows
     x 32 atoms x 4 bytes within one block's shared memory -- nstate <= 74
-    (59).  It is the thread-per-atom layout's bound, which ``dess_jac.cu``
-    still runs.  The FISP and ME-GRE Jacobian kernels keep their state in
-    registers, at most 3 rows per lane (nstate <= 95), and keep this gate
-    so that no train changes route."""
+    (59).  It is the thread-per-atom layout's bound.  The FISP, ME-GRE and
+    DESS Jacobian kernels keep their state in registers, at most 3 rows per
+    lane (nstate <= 95), and keep this gate so that no train changes
+    route."""
     return (4 * _jac_planes(track_diffusivity) * (int(nstate) + 1) * 32
             <= SMEM_PER_BLOCK)
 
 
-#: the segmented tangent kernels (fisp_jac.cu, megre_jac.cu): warps per
-#: block at most, pulses per chunk at most, floats of one chunk's table and
-#: staged echoes per block (48 KB), table floats per pulse -- the kernels'
-#: kMaxWarps, kMaxPulses, kChunkFloats and kTab
+#: the segmented tangent kernels (fisp_jac.cu, megre_jac.cu, dess_jac.cu;
+#: xgre_jac.cu takes the first three): warps per block at most, pulses per
+#: chunk at most, floats of one chunk's table and staged echoes per block
+#: (48 KB), table floats per pulse -- the kernels' kMaxWarps, kMaxPulses,
+#: kChunkFloats and kTab
 SEG_WARPS, SEG_PULSES, SEG_CHUNK_FLOATS, SEG_TABLE = 4, 32, 12288, 8
 
 
@@ -429,18 +430,6 @@ def fisp_jac_geometry(nstate, track_diffusivity=False):
     """:func:`seg_geometry` of the FISP Jacobian kernel: 2 + 2G staged
     floats per atom and pulse (G = 3, or 4 with D)."""
     return seg_geometry(nstate, 2 + 2 * (4 if track_diffusivity else 3))
-
-
-def jac_block_size(nstate, track_diffusivity=False) -> int:
-    """Threads per block of the DESS Jacobian kernel (``dess_jac.cu``, the
-    thread-per-atom layout): 64, halved while the state does not fit (at
-    nstate 10, 64 threads hold 67.5 KB and an SM keeps 3 blocks
-    resident)."""
-    block = 64
-    while block > 32 and (4 * _jac_planes(track_diffusivity)
-                          * (int(nstate) + 1) * block > SMEM_PER_BLOCK):
-        block //= 2
-    return block
 
 
 def _jac_views(out):

@@ -16,7 +16,9 @@ stage as expm of the kinetic matrix).  ``shift=False`` is the balanced
 family: no gradient, the ladder stays at k = 0 (nstate 0).
 
 The kernels are ``epgpy_torch/csrc/xgre.cu`` and ``xgre_jac.cu`` (see their
-headers for the design); ``xgre_dictionary_plain`` /
+headers for the design; the Jacobian kernel runs the segmented layout of
+``fisp_jac.cu`` at the geometry :func:`xgre_jac_geometry` decides);
+``xgre_dictionary_plain`` /
 ``xgre_jacobian_plain`` are the same recurrences with the same operation
 order, vectorised over atoms as (nstate+1, B) planes in a Python loop over
 TRs, in any precision, on the tensors' device.  ``*_cuda`` launch the
@@ -39,13 +41,15 @@ import numpy as np
 import torch
 
 from . import planes
-from .cuda_fisp import SMEM_PER_BLOCK, _takes_twin
+from .cuda_fisp import (SEG_CHUNK_FLOATS, SEG_PULSES, SEG_WARPS,
+                        SMEM_PER_BLOCK, _takes_twin, seg_layout)
 
 __all__ = ["exchange_stage_mats", "xgre_dictionary_cuda",
            "xgre_dictionary_plain", "xgre_dictionary_echoes",
            "xgre_jacobian_cuda", "xgre_jacobian_plain",
            "xgre_jacobian_echoes", "xgre_kernel_fits",
-           "xgre_jac_kernel_fits", "LAUNCHES", "JAC_LAUNCHES"]
+           "xgre_jac_kernel_fits", "xgre_jac_geometry", "LAUNCHES",
+           "JAC_LAUNCHES"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -71,6 +75,50 @@ def xgre_kernel_fits(nstate, C) -> bool:
 def xgre_jac_kernel_fits(nstate, C, G) -> bool:
     """Whether the Jacobian kernel's 6 C G planes fit at 32 threads."""
     return _smem(nstate, 6 * int(C) * int(G), 32) <= SMEM_PER_BLOCK
+
+
+#: TR-table floats per compartment of the Jacobian kernel (its kTab: cos
+#: phi, sin phi, cos 2phi, sin 2phi, four saturation factors, the flip)
+XGRE_JAC_TABLE = 9
+
+
+def xgre_jac_rows(nstate, C, G) -> int:
+    """Rows per lane of the Jacobian kernel: 1 for H = nstate + 1 <= 3,
+    else ceil(H / 32), at least 2 while the 6 C G planes of two rows stay
+    within 72 floats (C G <= 6); the gate's deepest ladders take 5 rows (C
+    G = 2, H 151), 4 (C G = 3, H 100), 3 (C G = 4, H 75), 2 (C G <= 9) and
+    1 (C G >= 10)."""
+    H = int(nstate) + 1
+    if H <= 3:
+        return 1
+    return max(-(-H // 32), 2 if int(C) * int(G) <= 6 else 1)
+
+
+def xgre_jac_geometry(nstate, C, G, R=None):
+    """Launch geometry of the segmented Jacobian kernel (``xgre_jac.cu``):
+    dict(R, W, L) of ``cuda_fisp.seg_layout`` at :func:`xgre_jac_rows`'
+    rows per lane (or the given R), ``warps`` per block (SEG_WARPS, halved
+    while the block's coefficient table, one record of ``coef`` floats per
+    ladder -- 6 C^2 G + C G, rounded up to odd -- and one TR's table and
+    staged echoes pass SEG_CHUNK_FLOATS),
+    ``atoms`` per block (warps x L), ``pulses`` (TRs) per chunk and
+    ``smem``, the block's shared bytes (the kernel computes the same from
+    ``warps``)."""
+    C, G = int(C), int(G)
+    R, W, L = seg_layout(nstate, xgre_jac_rows(nstate, C, G) if R is None
+                         else R)
+    coef = (6 * C * C * G + C * G) | 1
+
+    def per(atoms):    # floats per TR: the table and the staged echoes
+        return XGRE_JAC_TABLE * C + 2 * G * C * atoms
+
+    warps = SEG_WARPS
+    while warps > 1 and coef * warps * L + per(warps * L) > SEG_CHUNK_FLOATS:
+        warps //= 2
+    A = warps * L
+    pulses = min(SEG_PULSES, (SEG_CHUNK_FLOATS - coef * A) // per(A))
+    return dict(R=R, W=W, L=L, warps=warps, atoms=A, pulses=pulses,
+                coef=coef, smem=4 * (coef * A + pulses * per(A)))
 
 
 def block_for(nstate, nplanes, block=128) -> int:
@@ -399,8 +447,8 @@ def xgre_jacobian_cuda(alpha, phi, satf_re, satf_im, satz_re, satz_im,
     scale (a constant of the fit).  The variables must enter only through
     the matrices and densities.  matsA[0] is a float32 CUDA tensor.
     Raises ValueError for V outside 1..4, C (V + 1) above 12, or when the
-    6 C (V + 1) planes do not fit in shared memory.  Returns ``(re, im), (jre, jim)``:
-    (N, C, B) signals and (N, V, C, B) tangents, float32."""
+    6 C (V + 1) planes do not fit in shared memory.  Returns ``(re, im),
+    (jre, jim)``: (N, C, B) signals and (N, V, C, B) tangents, float32."""
     global JAC_LAUNCHES
     tr, b1, coef, drows, ref, N, C, B, V = _jac_setup(
         alpha, phi, satf_re, satf_im, satz_re, satz_im, dens, matsA, matsB,
@@ -411,13 +459,14 @@ def xgre_jacobian_cuda(alpha, phi, satf_re, satf_im, satz_re, satz_im,
     _check_jac_fits("xgre_jac", C, G, nstate)
     out = torch.empty((2, N, G, C, B), dtype=torch.float32,
                       device=ref.device)
+    geo = xgre_jac_geometry(nstate, C, G)
     lib, dev, stream = _launch_env(ref)
     rc = lib.epg_xgre_jac(*(tr[k].data_ptr() for k in ("alpha", "phi", "sfr",
                                                        "sfi", "szr", "szi")),
                           b1.data_ptr(), drows.data_ptr(), coef.data_ptr(),
                           out.data_ptr(), N, C, G, B, nstate,
-                          int(bool(shift)), block_for(nstate, 6 * C * G, 64),
-                          dev, stream)
+                          int(bool(shift)), geo["R"], geo["warps"], dev,
+                          stream)
     if rc != 0:
         raise RuntimeError(f"xgre_jac kernel launch failed: CUDA error {rc}")
     JAC_LAUNCHES += 1

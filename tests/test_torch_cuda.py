@@ -7,6 +7,8 @@ These tests need a CUDA device and skip without one.  The file imports no
 JAX, so it runs on the GPU machine as it is:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
+
+(``-k "xgre or dess"`` selects the EPG-X GRE and DESS kernels' tests.)
 """
 
 import pytest
@@ -29,7 +31,10 @@ from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_EDGE_ATOMS,
                         megre_sequence, mse_grid, mse_sequence, _tensors,
                         XCOMP_CASES, XGRE_CASES, _x_errors, make_xcomp_case,
                         make_xcomp_jac_case, make_xgre_case,
-                        make_xgre_jac_case, xcomp_tensors, xgre_tensors)
+                        make_xgre_jac_case, xcomp_tensors, xgre_tensors,
+                        DESS_EDGE_CASES, DESS_EDGE_SHAPE, DESS_SHAPES,
+                        XGRE_EDGE_CASES, XGRE_EDGE_SHAPE, XGRE_RAGGED_CASE,
+                        XGRE_SHAPES, dess_jac_vs_twin, xgre_jac_vs_twin)
 from epgpy_torch import config
 from epgpy_torch.models import (cuda_bssfp, cuda_composite, cuda_dess,
                                 cuda_fisp, cuda_hessian, cuda_megre,
@@ -377,6 +382,22 @@ def test_cuda_dess_kernels_match_plain_twins(card, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", DESS_EDGE_CASES, ids=lambda c: c["name"])
+def test_cuda_dess_jacobian_segmented_edges(card, case):
+    """The segmented DESS Jacobian kernel at nstate 1, 2, 64, 65 and 74 (1,
+    2 and 3 rows per lane, the gate's deepest ladder) with every option:
+    signals to 2e-6, columns to 1e-5, one launch."""
+    dess_jac_vs_twin(torch, case, *DESS_EDGE_SHAPE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DESS_SHAPES, ids=str)
+def test_cuda_dess_jacobian_ragged_shapes(card, shape):
+    """1, 33 and 4,097 atoms, 1 and 2 pulses, every option at nstate 8."""
+    dess_jac_vs_twin(torch, DESS_CASES[-1], *shape)
+
+
+@pytest.mark.cuda
 def test_cuda_bssfp_and_dess_through_simulate(card):
     """simulate() routes a bSSFP and a DESS train and their Jacobian probes
     to the kernels; each equals the float64 general path."""
@@ -717,6 +738,25 @@ def test_cuda_exchange_kernels_match_plain_twins(card, family, case):
     jsig, cols = _x_errors(torch, kj, fns[3](*tj, **jkw), True)
     assert sig < 2e-6 and jsig < 2e-6
     assert len(cols) == 2 and max(cols) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", XGRE_EDGE_CASES, ids=lambda c: c["name"])
+def test_cuda_xgre_jacobian_segmented_edges(card, case):
+    """The segmented xgre Jacobian kernel at the gate's deepest ladders
+    ((C, G) = (1, 2) at nstate 150, (2, 3) at 49, (4, 3) at 24, (2, 5) at
+    29), the balanced family at four pools, and a batch mixing identity
+    and non-identity stage-A atoms inside warps: signals to 2e-6, columns
+    to 1e-5, one launch."""
+    xgre_jac_vs_twin(torch, case, *XGRE_EDGE_SHAPE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", XGRE_SHAPES, ids=str)
+def test_cuda_xgre_jacobian_ragged_shapes(card, shape):
+    """1, 33 and 4,097 atoms, 1 and 2 TRs, two stages with df, a B1 batch
+    and complex saturation."""
+    xgre_jac_vs_twin(torch, XGRE_RAGGED_CASE, *shape)
 
 
 @pytest.mark.cuda

@@ -16,7 +16,11 @@ dispatch, Jacobian probes and the golden.
 * Jacobian probes through the DESS Jacobian twin == the port's general
   diff path to 1e-8 in float64, (T1, T2) and B1-tracked, both echoes;
 * a JAX match dict carried through ``convert`` runs the port's runners to
-  the JAX runners' values.
+  the JAX runners' values;
+* the segmented Jacobian kernel's lane map (``epg::seg_shift_blocked``
+  replayed in numpy at ``dess_jac_geometry``'s rows per lane) leaves the
+  float64 twin exactly as it was, and its launch geometry for every ladder
+  the gate admits.
 """
 
 import logging
@@ -35,8 +39,10 @@ from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_dess
 
 from chip_smoke import DESS_CASES, make_dess_case, _tensors
+from epgpy_torch.models import cuda_fisp, planes
 from torch_support import (GOLDEN_DIR, composite_claims, cplx,  # noqa: F401
-                           port_f32, port_f64)
+                           port_f32, port_f64, seg_owned_atoms,
+                           seg_shift_emulated, to_f64)
 
 B, NTR = 8, 40
 
@@ -265,3 +271,57 @@ def test_jax_params_through_port_runners(port_f32, name):
             if a.ndim == 3 else np.abs(b).max()
         assert (np.abs(a - b).max(axis=tuple(range(a.ndim - 1)))
                 <= 1e-5 * np.maximum(scale, 1.0)).all()
+
+
+# -- the segmented layout of dess_jac.cu: its lane map and geometry --
+
+
+@pytest.mark.parametrize("H", [2, 3, 9, 16, 64, 65, 75])
+def test_dess_jac_lane_map_matches_twin(monkeypatch, H):
+    """The float64 Jacobian twin with every folded shift replayed through
+    the kernel's lane map at its rows per lane (epg::seg_shift_blocked,
+    emulated in numpy with NaN in the idle lanes and padding rows) equals
+    the twin exactly, both echoes of every group and pulse: a per-pulse TE, df,
+    demodulation and a B1 batch, over more pulses than the ladder has
+    rows (the PSIF echo is the row-0 lane's new A(0))."""
+    case = dict(name="lane_map", nstate=H - 1, var_te=True, b1=True, df=True,
+                demodulate=True)
+    args, kw = _tensors(torch, *make_dess_case(case, 37, H + 6, seed=9),
+                        "cpu")
+    args = to_f64(args)
+    want = cuda_dess.dess_jacobian_echoes_plain(*args, **kw)
+    R = cuda_dess.dess_jac_geometry(H - 1)["R"]
+    monkeypatch.setattr(planes, "shift_fold",
+                        lambda x: seg_shift_emulated(x, R,
+                                                   blocked=True))
+    got = cuda_dess.dess_jacobian_echoes_plain(*args, **kw)
+    assert got[0][0].dtype == torch.float64
+    assert got[1][0].shape == (2 * (H + 6), 37, 3)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+def test_dess_jac_geometry():
+    """For every ladder the gate admits (nstate 1-74): 1 row per lane up
+    to 3 rows, 2 up to 6, 3 above, a segment of W = ceil(H / R) <= 32
+    lanes, as many ladders per warp as fit, 4 warps per
+    block, 1-32 pulses per chunk, the table and both echoes of four groups
+    staged within 48 KB, and a grid whose (block, warp, segment) slots
+    store each of 1, 2, 3, 33 and 4,097 atoms exactly once."""
+    fits = [n for n in range(1, 401) if cuda_fisp.jac_kernel_fits(n)]
+    assert fits == list(range(1, 75))
+    for n in fits:
+        geo = cuda_dess.dess_jac_geometry(n)
+        H, R, W, L = n + 1, geo["R"], geo["W"], geo["L"]
+        assert R == (1 if H <= 3 else 2 if H <= 6 else 3)
+        assert W == -(-H // R) <= 32 and W * R >= H
+        assert L == 32 // W and geo["warps"] == 4
+        assert geo["atoms"] == 4 * L and 1 <= geo["pulses"] <= 32
+        assert geo["smem"] == 4 * geo["pulses"] * (
+            cuda_fisp.SEG_TABLE + cuda_dess.DESS_JAC_OUTPUTS * geo["atoms"])
+        assert geo["smem"] <= 48 * 1024
+        for B_ in (1, 2, 3, 33, 4097):
+            owned, grid = seg_owned_atoms(geo, B_)
+            assert sorted(owned) == list(range(B_)), (n, B_)
+    main = cuda_dess.dess_jac_geometry(8)
+    assert (main["R"], main["W"], main["L"]) == (3, 3, 10)

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from chip_smoke import JAC_CASES, make_jac_case, _tensors
-from epgpy_torch.models import cuda_fisp, mrf, planes
+from epgpy_torch.models import cuda_dess, cuda_fisp, mrf, planes
 from epgpy_tpu.models import mrf as jmrf
 from epgpy_tpu.models.pallas_fisp import fisp_jacobian_pallas
 
@@ -151,17 +151,21 @@ def test_cpu_tensors_take_the_plain_twin(port_f32):
 
 
 def test_jacobian_shared_memory_gate():
-    # 24 (30) planes x (nstate+1) rows x 32 atoms x 4 B within 227 KB
+    # 24 (30) planes x (nstate+1) rows x 32 atoms x 4 B within 227 KB; the
+    # DESS Jacobian kernel, the gate's last thread-per-atom user, now runs
+    # the segmented layout: its geometry at the gate's depths keeps 24 R <=
+    # 72 floats of state per lane and its chunk within 48 KB
     assert cuda_fisp.jac_kernel_fits(74) and not cuda_fisp.jac_kernel_fits(75)
     assert cuda_fisp.jac_kernel_fits(59, True)
     assert not cuda_fisp.jac_kernel_fits(60, True)
-    assert cuda_fisp.jac_block_size(10) == 64
-    assert cuda_fisp.jac_block_size(40) == 32
-    for n, d in ((1, False), (10, False), (36, False), (74, False),
-                 (10, True), (59, True)):
-        planes = 30 if d else 24
-        assert (4 * planes * (n + 1) * cuda_fisp.jac_block_size(n, d)
-                <= cuda_fisp.SMEM_PER_BLOCK)
+    geo = cuda_dess.dess_jac_geometry(10)
+    assert (geo["R"], geo["W"], geo["L"], geo["warps"]) == (3, 4, 8, 4)
+    geo = cuda_dess.dess_jac_geometry(40)
+    assert (geo["R"], geo["W"], geo["L"], geo["warps"]) == (3, 14, 2, 4)
+    for n in (1, 10, 36, 74):
+        geo = cuda_dess.dess_jac_geometry(n)
+        assert 24 * geo["R"] <= 72 and geo["smem"] <= 48 * 1024
+        assert geo["smem"] <= cuda_fisp.SMEM_PER_BLOCK
 
 
 # -- the segmented layout of fisp_jac.cu: its lane map, geometry and gate --

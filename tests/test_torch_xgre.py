@@ -21,7 +21,12 @@ twins, simulate(density=) dispatch, fall-through, goldens, Jacobian.
   the densities, and the free pool's T2), 1e-6 relative;
 * ``match_xgre`` returns the JAX matcher's dict, and a JAX dict carried
   through ``convert.from_numpy_xparams`` runs the port's runner to the same
-  values.
+  values;
+* the segmented Jacobian kernel's lane map (``epg::seg_shift_blocked``
+  replayed in numpy at ``xgre_jac_geometry``'s rows per lane) leaves the
+  float64 twin exactly as it was; its launch geometry for every ladder the gate admits,
+  and the gate as before; its identity-stage-A skip, emulated in float64
+  per warp, within 1e-12 of the twin.
 """
 
 import os
@@ -38,10 +43,14 @@ from epgpy_torch.models import cuda_xgre
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_xgre
 
-from chip_smoke import (XGRE_CASES, make_xgre_case, make_xgre_jac_case,
-                        xbssfp_golden_train, xgre_parity_train, xgre_tensors)
+from chip_smoke import (XGRE_CASES, XGRE_EDGE_CASES, make_xgre_case,
+                        make_xgre_jac_case, xbssfp_golden_train,
+                        xgre_parity_train, xgre_stage_a_passthrough,
+                        xgre_tensors)
+from epgpy_torch.models import planes
 from torch_support import (GOLDEN_DIR, cplx, port_f32,  # noqa: F401
-                           port_f64, same_match)
+                           port_f64, same_match, seg_owned_atoms,
+                           seg_shift_emulated, to_f64, warps_all)
 
 B, NTR = 8, 16
 
@@ -368,3 +377,164 @@ def test_echo_layout_and_launch_counters():
         cuda_xgre._check_jac_fits("xgre_jac", 2, 3, 50)
     with pytest.raises(ValueError, match="variables per pass"):
         cuda_xgre._check_jac_fits("xgre_jac", 2, 6, 5)
+
+
+# -- the segmented layout of xgre_jac.cu: lane map, geometry, gate, skip --
+
+#: (C, G, H) of the lane-map replay: pools and groups (1, 2), (2, 3),
+#: (3, 4), (4, 3) at ladders of H = 2, 11, 33, 50 rows where the gate
+#: admits them, and 151 (5 rows per lane) at (1, 2)
+XGRE_LANE_RUNS = [(C, G, H) for C, G in ((1, 2), (2, 3), (3, 4), (4, 3))
+                  for H in (2, 11, 33, 50, 151)
+                  if (H < 151 or (C, G) == (1, 2))
+                  and cuda_xgre.xgre_jac_kernel_fits(H - 1, C, G)]
+
+
+def _jac64(case, natoms, ntr, seed=9):
+    args, kw = make_xgre_jac_case(torch, case, natoms, ntr, seed=seed)
+    return to_f64(xgre_tensors(torch, args, "cpu", jac=True)), kw
+
+
+@pytest.mark.parametrize("C,G,H", XGRE_LANE_RUNS,
+                         ids=lambda v: str(v))
+def test_xgre_jac_lane_map_matches_twin(monkeypatch, C, G, H):
+    """The float64 Jacobian twin with every folded shift replayed through
+    the kernel's lane map at its rows per lane (epg::seg_shift_blocked,
+    emulated in numpy with NaN in the idle lanes and padding rows) equals
+    the twin exactly, every group, pool and TR: two stages, df, a B1 batch, complex
+    saturation, over more TRs than the ladder has rows."""
+    case = dict(name="lane_map", C=C, V=G - 1, nstate=H - 1, two_stage=True,
+                g=True, b1=True, csat=True)
+    targs, kw = _jac64(case, 37, H + 6)
+    want = cuda_xgre.xgre_jacobian_plain(*targs, **kw)
+    R = cuda_xgre.xgre_jac_geometry(H - 1, C, G)["R"]
+    monkeypatch.setattr(planes, "shift_fold",
+                        lambda x: seg_shift_emulated(x, R,
+                                                   blocked=True))
+    got = cuda_xgre.xgre_jacobian_plain(*targs, **kw)
+    assert got[0][0].dtype == torch.float64
+    assert got[1][0].shape == (H + 6, G - 1, C, 37)
+    for g_, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.isfinite(g_).all() and torch.equal(g_, w)
+
+
+def test_seg_shift_blocked_emulation():
+    """epg::seg_shift_blocked, replayed in numpy (NaN in the idle lanes,
+    past the last atom and in the padding rows), equals planes.shift_fold
+    exactly for every H from 2 to 151 and every R from 1 to 5 that the
+    layout takes (W = ceil(H / R) <= 32), and leaves the padding rows' A
+    and B planes zero."""
+    rng = np.random.default_rng(5)
+    ran = 0
+    for H in range(2, 152):
+        s = tuple(torch.as_tensor(rng.normal(size=(H, 7))) for _ in range(6))
+        for R in range(1, 6):
+            if -(-H // R) > 32:
+                continue
+            got, pad = seg_shift_emulated(s, R, padding=True, blocked=True)
+            for g_, w in zip(got, planes.shift_fold(s)):
+                assert torch.equal(g_, w), (H, R)
+            assert (pad == 0.0).all(), (H, R)
+            ran += 1
+    assert ran == 466
+
+
+#: the rows per lane a (C, G) instance of the kernel takes at most (its
+#: max_rows): the rule at the gate's deepest ladder
+XGRE_MAX_ROWS = {2: 5, 3: 4, 4: 3, 5: 2, 6: 2, 8: 2, 9: 2, 10: 1, 12: 1}
+
+
+def test_xgre_jac_geometry():
+    """For every (nstate, C, G) the gate admits: 1 row per lane up to 3
+    rows, else ceil(H / 32), at least 2 while C G <= 6 (at most the
+    kernel's instance, XGRE_MAX_ROWS); a segment of W = ceil(H / R) <= 32
+    lanes, as many ladders per warp as fit, 1-4 warps per block (4 unless
+    the coefficient table needs fewer), 1-32 TRs per chunk, the
+    coefficient table, TR table and staged echoes within 48 KB, and a
+    grid whose (block, warp, segment) slots store each of 1, 2, 3, 33 and
+    4,097 atoms exactly once."""
+    seen = 0
+    for C in range(1, 5):
+        for G in range(2, 6):
+            if C * G > 12:
+                continue
+            for n in range(0, 401):
+                if not cuda_xgre.xgre_jac_kernel_fits(n, C, G):
+                    continue
+                geo = cuda_xgre.xgre_jac_geometry(n, C, G)
+                H, R, W, L = n + 1, geo["R"], geo["W"], geo["L"]
+                assert R == (1 if H <= 3 else max(-(-H // 32),
+                                                  2 if C * G <= 6 else 1))
+                assert R <= XGRE_MAX_ROWS[C * G]
+                assert W == -(-H // R) <= 32 and W * R >= H
+                assert L == 32 // W and geo["atoms"] == geo["warps"] * L
+                coef = (6 * C * C * G + C * G) | 1     # odd record stride
+                per = cuda_xgre.XGRE_JAC_TABLE * C + 2 * G * C * geo["atoms"]
+                assert geo["coef"] == coef
+                assert 1 <= geo["warps"] <= 4
+                assert geo["warps"] == 4 or (
+                    coef * 2 * geo["atoms"] + per + 2 * G * C * geo["atoms"]
+                    > 12288)
+                assert 1 <= geo["pulses"] <= 32
+                assert geo["smem"] == 4 * (coef * geo["atoms"]
+                                           + geo["pulses"] * per) <= 48 * 1024
+                for B_ in (1, 2, 3, 33, 4097):
+                    owned, grid = seg_owned_atoms(geo, B_)
+                    assert sorted(owned) == list(range(B_)), (n, C, G, B_)
+                seen += 1
+    assert seen == 748
+    main = cuda_xgre.xgre_jac_geometry(10, 2, 3)
+    assert (main["R"], main["W"], main["L"], main["warps"]) == (2, 6, 5, 4)
+
+
+def test_xgre_jac_gate_unchanged():
+    """The gate answers as the thread-per-atom layout set it: 6 C G planes
+    of nstate + 1 rows at 32 threads in 232,448 bytes, for nstate 0-400,
+    C 1-4, G 2-5 (C = 1, G = 2 up to nstate 150)."""
+    for n in range(401):
+        for C in range(1, 5):
+            for G in range(2, 6):
+                assert cuda_xgre.xgre_jac_kernel_fits(n, C, G) == (
+                    4 * 6 * C * G * (n + 1) * 32 <= 232448)
+    assert cuda_xgre.xgre_jac_kernel_fits(150, 1, 2)
+    assert not cuda_xgre.xgre_jac_kernel_fits(151, 1, 2)
+
+
+@pytest.mark.parametrize("which", ["all", "mixed"])
+def test_xgre_jac_identity_skip_emulated(which):
+    """The kernel's warps whose atoms all have the identity stage A with
+    zero tangents skip stage A's mix: emulated in float64 -- the twin with
+    stage A passed through for the atoms of those warps, the full twin
+    for the others -- it is within 1e-12 of the twin (the identity mix
+    around the densities changes a value by a rounding at most); with
+    every atom's stage A the identity every warp skips, with the mixed
+    batch of XGRE_EDGE_CASES some do and some do not."""
+    case = next(c for c in XGRE_EDGE_CASES if c["name"] == "mixed_identity")
+    B_ = 97
+    targs, kw = _jac64(case, B_, 24)
+    mats = targs[7]
+    eye = torch.eye(2, dtype=torch.float64)
+    ident = ((mats[0] == eye).all((1, 2)) & (mats[1] == 0).all((1, 2))
+             & (mats[2] == eye).all((1, 2))
+             & torch.stack([(d == 0).all(0).all((1, 2)) for d in targs[9]])
+             .all(0)).numpy()
+    if which == "all":
+        n = targs[7][0].shape[0]
+        targs = list(targs)
+        targs[7] = (eye.expand(n, 2, 2).clone(),
+                    torch.zeros((n, 2, 2), dtype=torch.float64),
+                    eye.expand(n, 2, 2).clone())
+        targs[9] = tuple(torch.zeros_like(d) for d in targs[9])
+        targs = tuple(targs)
+        ident = np.ones(B_, bool)
+    skip = warps_all(cuda_xgre.xgre_jac_geometry(kw["nstate"], 2, 3), ident)
+    assert skip.any() and (which == "all") == skip.all()
+    full = cuda_xgre.xgre_jacobian_plain(*targs, **kw)
+    with xgre_stage_a_passthrough():
+        passed = cuda_xgre.xgre_jacobian_plain(*targs, **kw)
+    sk = torch.as_tensor(skip)
+    for f, p in zip(full[0] + full[1], passed[0] + passed[1]):
+        emulated = torch.where(sk, p, f)
+        scale = max(float(f.abs().max()), 1.0)
+        assert float((emulated - f).abs().max()) <= 1e-12 * scale
+        assert torch.equal(emulated[..., ~sk], f[..., ~sk])

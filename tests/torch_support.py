@@ -164,7 +164,7 @@ def rows_beyond(s, top):
                 else 0.0) for p in s)
 
 
-def seg_shift_emulated(s, R=None, down=False, padding=False):
+def seg_shift_emulated(s, R=None, down=False, padding=False, blocked=False):
     """``planes.shift_fold`` (``planes.shift_down`` with `down`) through the
     segmented layout's lane map, in numpy: the planes (each (H, B)) are laid
     out as the segmented kernels hold them -- a ladder in a segment of W =
@@ -176,7 +176,11 @@ def seg_shift_emulated(s, R=None, down=False, padding=False):
     the row-0, wrap, last-row and padding selects), and the lanes' rows are
     read back; with `padding`, also the values the shift leaves in the
     padding rows of the stored atoms' lanes, (6, n).  A NaN that reached a
-    ladder row or a padding row would show in the result."""
+    ladder row or a padding row would show in the result.  With `blocked`
+    lane r owns rows r R + c instead (``epg::seg_shift_blocked``, the up
+    shift only): rows move within a lane, and one row of A and of B per
+    lane crosses to the next lane; padding rows' A and B come out 0, their
+    Z as it went in."""
     from epgpy_torch.models import cuda_fisp
 
     dtype = s[0].dtype
@@ -192,7 +196,10 @@ def seg_shift_emulated(s, R=None, down=False, padding=False):
     lane = np.arange(32)
     seg, r = lane // W, lane % W
     base = seg * W
-    k = r[None, :] + W * np.arange(R)[:, None]                   # (R, 32)
+    if blocked:
+        k = r[None, :] * R + np.arange(R)[:, None]               # (R, 32)
+    else:
+        k = r[None, :] + W * np.arange(R)[:, None]               # (R, 32)
     atom = np.arange(nwarps)[:, None] * L + seg[None, :]         # (w, 32)
     valid = ((seg < L)[None, None, :] & (atom < B)[None, :, :]
              & (k < H)[:, None, :])                              # (R, w, 32)
@@ -200,6 +207,26 @@ def seg_shift_emulated(s, R=None, down=False, padding=False):
     aa = np.broadcast_to(np.minimum(atom, B - 1)[None], valid.shape)
     v = np.where(valid[None], v0[:, kk, aa], np.nan)        # (6, R, w, 32)
     first, last = r == 0, r == W - 1
+    if blocked:
+        assert not down
+        out = v.copy()
+        a = v[:2, R - 1][..., (lane - 1) % 32]       # the lane below's last A
+        b = v[2:4, 0][..., (lane + 1) % 32]          # the lane above's first B
+        a0 = np.where(first, v[2:4, 1] if R > 1 else b, a)
+        for c in range(R):
+            A = v[:2, c - 1] if c > 0 else a0
+            Bn = v[2:4, c + 1] if c + 1 < R else b
+            out[:2, c] = np.where(k[c] < H, A, 0.0)
+            out[2:4, c] = np.where(k[c] >= H - 1, 0.0, Bn)
+        res = np.zeros_like(v0)
+        c_, w_, l_ = np.nonzero(valid)
+        res[:, k[c_, l_], atom[w_, l_]] = out[:, c_, w_, l_]
+        res = tuple(torch.as_tensor(x, dtype=dtype) for x in res)
+        if padding:
+            pad = ((seg < L)[None, None, :] & (atom < B)[None, :, :]
+                   & (k >= H)[:, None, :])
+            return res, out[:4, pad]
+        return res
     below = np.where(first, base + W - 1, lane - 1) % 32
     above = np.where(last, base, lane + 1) % 32
     a, b = v[list(up)][..., below], v[list(dn)][..., above]
@@ -381,3 +408,27 @@ def seg_owned_atoms(geo, B):
     return [a for i in range(grid) for w in range(geo["warps"])
             for s in range(geo["L"])
             for a in [i * geo["atoms"] + w * geo["L"] + s] if a < B], grid
+
+
+def warps_all(geo, flags):
+    """Per atom, whether every atom of its warp has `flags` set, for a
+    segmented launch geometry ``geo`` over B = len(flags) atoms: block i's
+    warp w holds atoms i * atoms + w * L + s, s < L, clamped to B - 1 (its
+    lanes past the last segment and past the last atom run on a clamped
+    atom), as the kernels' warp-uniform tests (``__all_sync``) see them."""
+    flags = np.asarray(flags, bool)
+    B, L = len(flags), geo["L"]
+    b = np.arange(B)
+    first = (b // L) * L                       # the warp's first atom
+    held = np.minimum(first[:, None] + np.arange(L)[None, :], B - 1)
+    return flags[held].all(axis=1)
+
+
+def to_f64(x):
+    """Tensors of a (nested) argument tuple as float64 (other values as
+    they are)."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_f64(v) for v in x)
+    return x

@@ -1,6 +1,7 @@
 """Time the segmented tangent kernels of several checkouts on one card.
 
     python3 tools/jac_kernel_ab.py ROOT [ROOT ...] [--reps N]
+                                   [--kernels NAME [NAME ...]]
 
 Runs one turn per checkout -- each ROOT, then this checkout -- and then
 the same turns in reverse order (A, B, B, A for one ROOT), each turn in
@@ -20,7 +21,17 @@ after one warm-up, ``chip_smoke._cuda_ms``) at the main-path shapes:
   ``design_atoms``);
 * ``composite_jac``: the MPRAGE Jacobian of ``chip_smoke.py`` 4o, 102,400
   atoms x 156 stages, nstate 8, all four groups (``comp_jac_draws`` /
-  ``comp_jac_sequence`` through ``fisp_dispatch.match_composite``).
+  ``comp_jac_sequence`` through ``fisp_dispatch.match_composite``);
+* ``xgre_jac``: the qMT fit's Jacobian, 262,144 voxels x 48 TRs, two pools,
+  two variables, nstate 10, at the fit's true (f, T2f) draws
+  (``chip_smoke.qmt_problem`` / ``qmt_jac_args``): the wrapper call and,
+  by CUDA events around the launch (``chip_smoke._launch_ms``), the
+  kernel alone;
+* ``dess_jac``: the DESS mapping train, 262,144 voxels x 48 TRs, nstate 8
+  (``chip_smoke.dess_truth`` / ``dess_map_sequence`` through
+  ``fisp_dispatch.match_dess``).
+
+``--kernels`` times only the named ones (default: all).
 
 Each turn prints one JSON line with its times and the kernels' ptxas lines
 (registers, stack frame) where it built them; the last lines give the
@@ -40,7 +51,11 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = {"fisp": (102400, 1000), "megre": (262144, 200)}
 
 
-def turn(root, reps):
+KERNELS = ("fisp_jac", "megre_jac", "fisp_hess", "composite_jac",
+           "xgre_jac", "dess_jac")
+
+
+def turn(root, reps, kernels):
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -48,14 +63,62 @@ def turn(root, reps):
     import chip_smoke as cs
     import epgpy_torch as epg
     from epgpy_torch import _build, fisp_dispatch
-    from epgpy_torch.models import (cuda_composite, cuda_fisp, cuda_hessian,
-                                    cuda_megre)
+    from epgpy_torch.models import cuda_dess, cuda_xgre
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     dev = "cuda"
     epg.config.set_device(dev)
     epg.config.set_precision("float32")
+    out = {"root": root}
+    if "xgre_jac" in kernels:
+        train, stage = cs.qmt_problem(torch, epg)
+        rng = np.random.default_rng(17)
+        f = torch.as_tensor(rng.uniform(0.08, 0.28, cs.QMT_NVOX),
+                            dtype=torch.float32, device=dev)
+        t2 = torch.as_tensor(rng.uniform(45.0, 115.0, cs.QMT_NVOX),
+                             dtype=torch.float32, device=dev)
+        xargs = cs.qmt_jac_args(torch, train, stage, f, t2)
+
+        def xcall():
+            return cuda_xgre.xgre_jacobian_echoes(*xargs,
+                                                  nstate=cs.QMT_NSTATE)
+        out["xgre_jac_ms"] = cs._cuda_ms(torch, xcall, reps)
+        out["xgre_jac_kernel_ms"] = cs._launch_ms(torch, xcall,
+                                                  "epg_xgre_jac", reps)
+        del xargs
+    if "dess_jac" in kernels:
+        T1, T2, _, _ = cs.dess_truth()
+        dargs = cs._match_args(fisp_dispatch, fisp_dispatch.match_dess(
+            cs.dess_map_sequence(epg, T1, T2)))
+        out["dess_jac_ms"] = cs._cuda_ms(
+            torch, lambda: cuda_dess.dess_jacobian_echoes(
+                *dargs, nstate=cs.DESS_NSTATE), reps)
+        del dargs
+    _fisp_family(root, reps, kernels, out)
+    log = _build.build_info()["log"].splitlines()
+    out["ptxas"] = [f"{a.split('for')[-1].strip()[-48:]}: {b.strip()}; "
+                    f"{c.strip()}"
+                    for a, b, c in zip(log, log[1:], log[2:])
+                    if "Function properties" in a
+                    and any(k in a for k in ("fisp_jac", "megre_jac",
+                                             "hess_", "composite_jac",
+                                             "xgre_jac", "dess_jac"))]
+    print(json.dumps(out))
+
+
+def _fisp_family(root, reps, kernels, out):
+    """The first four kernels' times into `out`."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import (cuda_composite, cuda_fisp, cuda_hessian,
+                                    cuda_megre)
+
+    dev = "cuda"
     natoms, npulse = SHAPES["fisp"]
     P = npulse
     FA = cs.make_train(P)
@@ -71,48 +134,48 @@ def turn(root, reps):
     b = (cs.DWF_KVALUE * 1e-3) ** 2 * cs.DWF_TAU * 1e-3
     dkw = dict(diffusion=(b, b, cs.DWF_D), diff_ramp=True,
                track_diffusivity=True)
-    margs, mkw = cs._tensors(torch, *cs.make_megre_case(
-        dict(m=3, nstate=8), SHAPES["megre"][0], SHAPES["megre"][1]), dev)
-    out = {"root": root}
-    out["fisp_jac_ms"] = cs._cuda_ms(torch, lambda: cuda_fisp.
-                                     fisp_jacobian_echoes(*fargs, nstate=10),
-                                     reps)
-    out["fisp_jac_dD_ms"] = cs._cuda_ms(
-        torch, lambda: cuda_fisp.fisp_jacobian_echoes(*fargs, nstate=10,
-                                                      **dkw), reps)
-    out["megre_jac_ms"] = cs._cuda_ms(
-        torch, lambda: cuda_megre.megre_jacobian_echoes(*margs, **mkw), reps)
-    del margs
-    hFA, hTAU = cs.flagship_train()
-    hT1, hT2 = cs.design_atoms()
-    hargs = (t(hFA), 90.0, t(hTAU), t(hT1), t(hT2))
-    out["fisp_hess_ms"] = cs._cuda_ms(
-        torch, lambda: cuda_hessian.fisp_hessian_cuda(*hargs, nstate=10),
-        reps)
-    params = fisp_dispatch.match_composite(
-        cs.comp_jac_sequence(epg, *cs.comp_jac_draws()), 1.0)
-    cargs, ckw = fisp_dispatch._comp_call(params, cs.COMPJ_NSTATE)
-    out["composite_jac_ms"] = cs._cuda_ms(
-        torch, lambda: cuda_composite.composite_jacobian_echoes(*cargs,
-                                                                **ckw), reps)
-    log = _build.build_info()["log"].splitlines()
-    out["ptxas"] = [f"{a.split('for')[-1].strip()[-48:]}: {b.strip()}; "
-                    f"{c.strip()}"
-                    for a, b, c in zip(log, log[1:], log[2:])
-                    if "Function properties" in a
-                    and any(k in a for k in ("fisp_jac", "megre_jac",
-                                             "hess_", "composite_jac"))]
-    print(json.dumps(out))
+    if "fisp_jac" in kernels:
+        out["fisp_jac_ms"] = cs._cuda_ms(
+            torch, lambda: cuda_fisp.fisp_jacobian_echoes(*fargs, nstate=10),
+            reps)
+        out["fisp_jac_dD_ms"] = cs._cuda_ms(
+            torch, lambda: cuda_fisp.fisp_jacobian_echoes(*fargs, nstate=10,
+                                                          **dkw), reps)
+    if "megre_jac" in kernels:
+        margs, mkw = cs._tensors(torch, *cs.make_megre_case(
+            dict(m=3, nstate=8), SHAPES["megre"][0], SHAPES["megre"][1]),
+            dev)
+        out["megre_jac_ms"] = cs._cuda_ms(
+            torch, lambda: cuda_megre.megre_jacobian_echoes(*margs, **mkw),
+            reps)
+        del margs
+    if "fisp_hess" in kernels:
+        hFA, hTAU = cs.flagship_train()
+        hT1, hT2 = cs.design_atoms()
+        hargs = (t(hFA), 90.0, t(hTAU), t(hT1), t(hT2))
+        out["fisp_hess_ms"] = cs._cuda_ms(
+            torch, lambda: cuda_hessian.fisp_hessian_cuda(*hargs, nstate=10),
+            reps)
+    if "composite_jac" in kernels:
+        params = fisp_dispatch.match_composite(
+            cs.comp_jac_sequence(epg, *cs.comp_jac_draws()), 1.0)
+        cargs, ckw = fisp_dispatch._comp_call(params, cs.COMPJ_NSTATE)
+        out["composite_jac_ms"] = cs._cuda_ms(
+            torch, lambda: cuda_composite.composite_jacobian_echoes(*cargs,
+                                                                    **ckw),
+            reps)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS,
+                    default=list(KERNELS))
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.turn:
-        turn(os.path.abspath(a.roots[0]), a.reps)
+        turn(os.path.abspath(a.roots[0]), a.reps, a.kernels)
         return
     import torch
 
@@ -122,7 +185,8 @@ def main():
     runs = {}
     for root in order + order[::-1]:
         r = subprocess.run([sys.executable, os.path.abspath(__file__), root,
-                            "--turn", "--reps", str(a.reps)],
+                            "--turn", "--reps", str(a.reps), "--kernels",
+                            *a.kernels],
                            capture_output=True, text=True, cwd=root)
         if r.returncode != 0:
             print(r.stdout[-3000:], r.stderr[-3000:])
