@@ -48,7 +48,7 @@ _SIGNATURES = {
     "epg_bssfp_jac": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P] + [_I] * 9
     + [_P],
     "epg_dess": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
-    "epg_dess_jac": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 9
+    "epg_dess_jac": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 10
     + [_P],
     "epg_megre": [_P] * 9 + [_I] * 8 + [_P],
     "epg_megre_jac": [_P] * 9 + [_I] * 8 + [_P],
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "epg_composite": [_P] * 16 + [_I] * 12 + [_P],
     "epg_composite_jac": [_P] * 16 + [_I] * 14 + [_P],
     "epg_xgre": [_P] * 10 + [_I] * 7 + [_P],
-    "epg_xgre_jac": [_P] * 10 + [_I] * 9 + [_P],
+    "epg_xgre_jac": [_P] * 10 + [_I] * 10 + [_P],
     "epg_xcomposite": [_P] * 16 + [_I] * 12 + [_P],
     "epg_xcomposite_jac": [_P] * 16 + [_I] * 14 + [_P],
 }

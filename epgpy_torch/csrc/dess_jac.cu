@@ -45,8 +45,6 @@
 // sincospif of the angles in half turns.
 #include <cuda_runtime.h>
 
-#include <algorithm>
-
 #include "epg_planes.cuh"
 
 namespace {
@@ -360,14 +358,9 @@ int launch(DessJacArgs a, int warps, cudaStream_t stream) {
     const int W = (a.H + R - 1) / R;
     const int A = warps * (epg::kWarp / W);
     const int per = kTab + 2 * kOut * A;
-    a.T = std::min(kMaxPulses, std::max(1, kChunkFloats / per));
+    if (a.T * per > kChunkFloats)
+        return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = sizeof(float) * static_cast<size_t>(a.T) * per;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            dess_jac_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
     const int grid = (a.B + A - 1) / A;
     dess_jac_kernel<R><<<grid, warps * epg::kWarp, smem, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
@@ -377,22 +370,25 @@ int launch(DessJacArgs a, int warps, cudaStream_t stream) {
 
 // Launch on `stream` of CUDA device `device`; allocates nothing.  Returns
 // the CUDA error code of the launch (0 on success; cudaErrorInvalidValue
-// for R outside 1..3 or W = ceil(H / R) lanes beyond a warp); the caller
-// raises on anything else.  `block` is warps per block (at most 4) and `R`
-// the ladder's rows per lane, both from cuda_dess.dess_jac_geometry.
+// for R outside 1..3, W = ceil(H / R) lanes beyond a warp, `pulses`
+// outside 1..32, or a chunk past 48 KB); the caller raises on anything
+// else.  `block` is warps per block (at most 4), `R` the ladder's rows per
+// lane and `pulses` the pulses per chunk, all from
+// cuda_dess.dess_jac_geometry.
 extern "C" int epg_dess_jac(const float* fa, const float* phi,
                             const float* tr, const float* te, float te0,
                             const float* t1, const float* t2,
                             const float* b1, const float* df, float* out,
                             int P, int B, int nstate, int var_te, int use_df,
-                            int demod, int R, int block, int device,
-                            void* stream) {
+                            int demod, int R, int block, int pulses,
+                            int device, void* stream) {
     DessJacArgs a{fa, phi, tr, te, te0, t1, t2, b1, df, out, P, B,
-                  nstate + 1, var_te, use_df, demod, 0};
+                  nstate + 1, var_te, use_df, demod, pulses};
     const cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (block < 1 || block > kMaxWarps || a.H < 2 || R < 1
-        || (a.H + R - 1) / R > epg::kWarp)
+        || (a.H + R - 1) / R > epg::kWarp || pulses < 1
+        || pulses > kMaxPulses)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (R) {

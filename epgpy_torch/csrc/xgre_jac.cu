@@ -54,8 +54,6 @@
 // precise (no fast-math); sincospif of the angles in half turns.
 #include <cuda_runtime.h>
 
-#include <algorithm>
-
 #include "epg_planes.cuh"
 
 namespace {
@@ -300,9 +298,8 @@ int launch(XgreJacArgs a, int warps, cudaStream_t stream) {
     const int W = (a.H + R - 1) / R;
     const int A = warps * (epg::kWarp / W);
     const int per = kTab * C + 2 * G * C * A;   // floats per TR
-    const int room = kChunkFloats - S * A;
-    if (room < per) return static_cast<int>(cudaErrorInvalidValue);
-    a.T = std::min(kMaxTRs, room / per);
+    if (S * A + a.T * per > kChunkFloats)
+        return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem =
         sizeof(float) * (static_cast<size_t>(S) * A
                          + static_cast<size_t>(a.T) * per);
@@ -356,23 +353,26 @@ int launch_g(const XgreJacArgs& a, int G, int R, int warps,
 // Launch on `stream` of CUDA device `device`; allocates nothing.  Returns
 // the CUDA error code of the launch (0 on success; cudaErrorInvalidValue
 // for C outside 1..4, G outside 2..5, C G > 12, R outside 1..max_rows(C G),
-// W = ceil(H / R) lanes beyond a warp, or a block whose coefficient table
-// leaves no room for one TR); the caller raises on anything else.  `block`
-// is warps per block (at most 4) and `R` the ladder's rows per lane, both
-// from cuda_xgre.xgre_jac_geometry.
+// W = ceil(H / R) lanes beyond a warp, `pulses` outside 1..32, or a block
+// whose coefficient table and chunk pass 48 KB); the caller raises on
+// anything else.  `block` is warps per block (at most 4), `R` the ladder's
+// rows per lane and `pulses` the TRs per chunk, all from
+// cuda_xgre.xgre_jac_geometry.
 extern "C" int epg_xgre_jac(const float* alpha, const float* phi,
                             const float* sfr, const float* sfi,
                             const float* szr, const float* szi,
                             const float* b1, const float* dens,
                             const float* coef, float* out, int N, int C,
                             int G, int B, int nstate, int shift, int R,
-                            int block, int device, void* stream) {
+                            int block, int pulses, int device,
+                            void* stream) {
     XgreJacArgs a{alpha, phi, sfr, sfi, szr, szi, b1, dens, coef, out,
-                  N, B, nstate + 1, shift, 0};
+                  N, B, nstate + 1, shift, pulses};
     const cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (block < 1 || block > kMaxWarps || R < 1
-        || (a.H + R - 1) / R > epg::kWarp)
+        || (a.H + R - 1) / R > epg::kWarp || pulses < 1
+        || pulses > kMaxTRs)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (C) {

@@ -73,8 +73,9 @@ def dess_jac_rows(nstate) -> int:
 def dess_jac_geometry(nstate):
     """Launch geometry of the segmented Jacobian kernel (``dess_jac.cu``):
     ``cuda_fisp.seg_geometry`` at :func:`dess_jac_rows` rows per lane with
-    DESS_JAC_OUTPUTS staged floats per atom and pulse; the launch passes R
-    and ``warps`` to the kernel, which dispatches on them."""
+    DESS_JAC_OUTPUTS staged floats per atom and pulse; the launch passes R,
+    ``warps`` and ``pulses`` to the kernel, which checks them and dispatches
+    on R."""
     return seg_geometry(nstate, DESS_JAC_OUTPUTS, R=dess_jac_rows(nstate))
 
 
@@ -265,7 +266,7 @@ def _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate, jac):
 
     if jac:
         geo = dess_jac_geometry(nstate)
-        shape = (geo["R"], geo["warps"])
+        shape = (geo["R"], geo["warps"], geo["pulses"])
     else:
         shape = (block_size(nstate),)
     # asynchronous on the current stream; see cuda_fisp._launch on

@@ -94,19 +94,18 @@ def xgre_jac_rows(nstate, C, G) -> int:
     return max(-(-H // 32), 2 if int(C) * int(G) <= 6 else 1)
 
 
-def xgre_jac_geometry(nstate, C, G, R=None):
+def xgre_jac_geometry(nstate, C, G):
     """Launch geometry of the segmented Jacobian kernel (``xgre_jac.cu``):
     dict(R, W, L) of ``cuda_fisp.seg_layout`` at :func:`xgre_jac_rows`'
-    rows per lane (or the given R), ``warps`` per block (SEG_WARPS, halved
-    while the block's coefficient table, one record of ``coef`` floats per
-    ladder -- 6 C^2 G + C G, rounded up to odd -- and one TR's table and
-    staged echoes pass SEG_CHUNK_FLOATS),
-    ``atoms`` per block (warps x L), ``pulses`` (TRs) per chunk and
-    ``smem``, the block's shared bytes (the kernel computes the same from
-    ``warps``)."""
+    rows per lane, ``warps`` per block (SEG_WARPS, halved while the
+    block's coefficient table, one record of ``coef`` floats per ladder --
+    6 C^2 G + C G, rounded up to odd -- and one TR's table and staged
+    echoes pass SEG_CHUNK_FLOATS), ``atoms`` per block (warps x L),
+    ``pulses`` (TRs) per chunk and ``smem``, the block's shared bytes.
+    The wrapper passes R, warps and pulses to the kernel, which checks
+    them."""
     C, G = int(C), int(G)
-    R, W, L = seg_layout(nstate, xgre_jac_rows(nstate, C, G) if R is None
-                         else R)
+    R, W, L = seg_layout(nstate, xgre_jac_rows(nstate, C, G))
     coef = (6 * C * C * G + C * G) | 1
 
     def per(atoms):    # floats per TR: the table and the staged echoes
@@ -465,8 +464,8 @@ def xgre_jacobian_cuda(alpha, phi, satf_re, satf_im, satz_re, satz_im,
                                                        "sfi", "szr", "szi")),
                           b1.data_ptr(), drows.data_ptr(), coef.data_ptr(),
                           out.data_ptr(), N, C, G, B, nstate,
-                          int(bool(shift)), geo["R"], geo["warps"], dev,
-                          stream)
+                          int(bool(shift)), geo["R"], geo["warps"],
+                          geo["pulses"], dev, stream)
     if rc != 0:
         raise RuntimeError(f"xgre_jac kernel launch failed: CUDA error {rc}")
     JAC_LAUNCHES += 1

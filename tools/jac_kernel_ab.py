@@ -2,9 +2,11 @@
 
     python3 tools/jac_kernel_ab.py ROOT [ROOT ...] [--reps N]
                                    [--kernels NAME [NAME ...]]
+                                   [--rounds N] [--fits]
 
 Runs one turn per checkout -- each ROOT, then this checkout -- and then
-the same turns in reverse order (A, B, B, A for one ROOT), each turn in
+the same turns in reverse order (A, B, B, A for one ROOT), `rounds` times
+over (default 1), each turn in
 its own process, which imports that checkout's ``epgpy_torch``
 (building its CUDA kernels from that checkout's sources) and its
 ``chip_smoke.py`` input makers, and times by CUDA events (best of `reps`
@@ -29,13 +31,19 @@ after one warm-up, ``chip_smoke._cuda_ms``) at the main-path shapes:
   kernel alone;
 * ``dess_jac``: the DESS mapping train, 262,144 voxels x 48 TRs, nstate 8
   (``chip_smoke.dess_truth`` / ``dess_map_sequence`` through
-  ``fisp_dispatch.match_dess``).
+  ``fisp_dispatch.match_dess``): the wrapper call and the kernel alone.
 
-``--kernels`` times only the named ones (default: all).
+``--kernels`` times only the named ones (default: all).  ``--fits`` also
+runs, twice per turn, the two end-to-end fits that call the last two
+kernels -- the qMT (f, T2f) fit (``chip_smoke.phase_qmt_fit``: match and
+8 Gauss-Newton iterations) and the DESS T1/T2 mapping
+(``chip_smoke.phase_dess_mapping``: 10 iterations) -- and keeps the
+second run's host-clock times, in ms.
 
 Each turn prints one JSON line with its times and the kernels' ptxas lines
 (registers, stack frame) where it built them; the last lines give the
-card's name and power limit and the mean of each checkout's two turns.
+card's name and power limit and, per checkout, the mean, least and
+greatest of each time over its turns.
 Needs a CUDA card; exits non-zero without one.
 """
 
@@ -55,7 +63,7 @@ KERNELS = ("fisp_jac", "megre_jac", "fisp_hess", "composite_jac",
            "xgre_jac", "dess_jac")
 
 
-def turn(root, reps, kernels):
+def turn(root, reps, kernels, fits):
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -91,10 +99,22 @@ def turn(root, reps, kernels):
         T1, T2, _, _ = cs.dess_truth()
         dargs = cs._match_args(fisp_dispatch, fisp_dispatch.match_dess(
             cs.dess_map_sequence(epg, T1, T2)))
-        out["dess_jac_ms"] = cs._cuda_ms(
-            torch, lambda: cuda_dess.dess_jacobian_echoes(
-                *dargs, nstate=cs.DESS_NSTATE), reps)
+
+        def dcall():
+            return cuda_dess.dess_jacobian_echoes(*dargs,
+                                                  nstate=cs.DESS_NSTATE)
+        out["dess_jac_ms"] = cs._cuda_ms(torch, dcall, reps)
+        out["dess_jac_kernel_ms"] = cs._launch_ms(torch, dcall,
+                                                  "epg_dess_jac", reps)
         del dargs
+    if fits:
+        for _ in range(2):      # the first run warms the host paths
+            q = cs.phase_qmt_fit(torch, epg)
+            del q["args"]
+            d = cs.phase_dess_mapping(torch, epg)
+        out["qmt_match_ms"] = 1e3 * q["match_s"]
+        out["qmt_gn_ms"] = 1e3 * q["gn_s"]
+        out["dess_map_gn_ms"] = 1e3 * d["gn_s"]
     _fisp_family(root, reps, kernels, out)
     log = _build.build_info()["log"].splitlines()
     out["ptxas"] = [f"{a.split('for')[-1].strip()[-48:]}: {b.strip()}; "
@@ -172,10 +192,12 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--kernels", nargs="+", choices=KERNELS,
                     default=list(KERNELS))
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--fits", action="store_true")
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.turn:
-        turn(os.path.abspath(a.roots[0]), a.reps, a.kernels)
+        turn(os.path.abspath(a.roots[0]), a.reps, a.kernels, a.fits)
         return
     import torch
 
@@ -183,10 +205,10 @@ def main():
         raise SystemExit("no CUDA device")
     order = [os.path.abspath(r) for r in a.roots] + [HERE]
     runs = {}
-    for root in order + order[::-1]:
+    for root in (order + order[::-1]) * a.rounds:
         r = subprocess.run([sys.executable, os.path.abspath(__file__), root,
                             "--turn", "--reps", str(a.reps), "--kernels",
-                            *a.kernels],
+                            *a.kernels] + ["--fits"] * a.fits,
                            capture_output=True, text=True, cwd=root)
         if r.returncode != 0:
             print(r.stdout[-3000:], r.stderr[-3000:])
@@ -199,9 +221,13 @@ def main():
                           text=True).stdout.strip()
     print(card)
     for root, rs in runs.items():
-        mean = {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]
-                if k.endswith("_ms")}
-        print(json.dumps({"root": root, "mean_ms": mean, "card": card}))
+        keys = [k for k in rs[0] if k.endswith("_ms")]
+        print(json.dumps({"root": root, "card": card, "turns": len(rs),
+                          "mean_ms": {k: sum(r[k] for r in rs) / len(rs)
+                                      for k in keys},
+                          "min_ms": {k: min(r[k] for r in rs) for k in keys},
+                          "max_ms": {k: max(r[k] for r in rs)
+                                     for k in keys}}))
 
 
 if __name__ == "__main__":
