@@ -402,6 +402,32 @@ XGRE_EDGE_SHAPE = (1000, 60)
 XGRE_SHAPES = [(1, 33), (33, 33), (4097, 33), (33, 1), (33, 2)]
 XGRE_RAGGED_CASE = dict(name="ragged", two_stage=True, g=True, b1=True,
                         csat=True)
+#: the segmented composite EPG-X Jacobian kernel's own edges (V variables,
+#: G = V + 1 groups, shifts up, down and none), each held against its twin
+#: at XCOMP_EDGE_SHAPE: the gate's deepest ladders -- (C, G) = (1, 2) at
+#: nstate 150 (5 rows per lane), (2, 3) at 49, (4, 3) at 24, (2, 5) at 29,
+#: (3, 4) at 24 -- and a table of 26 distinct taus at three pools, whose
+#: records pass one warp's share of the block (the kernel's global-read
+#: mode)
+XCOMP_EDGE_CASES = [
+    dict(name="gate_c1_g2_n150", C=1, V=1, nstate=150, shift="mixed",
+         adcph=True, g=True),
+    dict(name="gate_c2_g3_n49", nstate=49, shift="mixed", sat=True,
+         b1u=True, g=True),
+    dict(name="gate_c4_g3_n24", C=4, nstate=24, shift="mixed", sparse=True),
+    dict(name="gate_c2_g5_n29", V=4, nstate=29, shift="mixed", adcph=True,
+         g=True),
+    dict(name="gate_c3_g4_n24", C=3, V=3, nstate=24, shift="mixed",
+         sat=True),
+    dict(name="global_taus26", C=3, nstate=4, shift="mixed", ntaus=26,
+         adcph=True, sat=True, sparse=True),
+]
+XCOMP_EDGE_SHAPE = (1000, 80)
+#: ragged shapes (atoms, stages) of the composite EPG-X Jacobian kernel,
+#: each run with XCOMP_RAGGED_CASE: 1, 33 and 4,097 atoms, 1 and 2 stages
+XCOMP_SHAPES = [(1, 33), (33, 33), (4097, 33), (33, 1), (33, 2)]
+XCOMP_RAGGED_CASE = dict(name="ragged", shift="mixed", adcph=True, sat=True,
+                         b1u=True, g=True, sparse=True)
 
 #: covering set of the bSSFP kernels' options (each also run through the
 #: Jacobian kernel with and without the ddf group; b1 is the B1 batch
@@ -642,6 +668,23 @@ MSE_CASES = [
 MSE_JAC_SHAPES = [(1, MSE_NECHO), (33, MSE_NECHO), (4097, MSE_NECHO),
                   (33, 1)]
 MSE_RAGGED_CASES = ("spacing_phase", "dw_b1")
+#: the segmented CPMG kernel's own edges, each held against its twin at
+#: CPMG_EDGE_SHAPE: the gate's deepest ladders (nstate 301: 10 rows on 31
+#: lanes; 150 with DW-TSE: 10 rows on 16 lanes), and truncated ladders
+#: (nstate 8 < 2 x 18 echoes: the last row is reached and A beyond it
+#: dropped) at MSE_NECHO echoes
+CPMG_EDGE_CASES = [
+    dict(name="gate_n301", var=True, b1=True, nstate=301),
+    dict(name="gate_dw_n150", diff=(True, False), var=True, b1=True,
+         nstate=150),
+    dict(name="truncated_n8", var=True, b1=True, nstate=8, necho=MSE_NECHO),
+    dict(name="truncated_dw_n8", diff=(True, True), nstate=8,
+         necho=MSE_NECHO),
+]
+CPMG_EDGE_SHAPE = (1000, 80)
+#: ragged shapes (atoms, echoes) of the CPMG kernel, each with the cases
+#: named in MSE_RAGGED_CASES: 1, 33 and 4,097 atoms, a one-echo train
+CPMG_SHAPES = [(1, MSE_NECHO), (33, MSE_NECHO), (4097, MSE_NECHO), (33, 1)]
 
 #: the design kernel: first and second order at the example's depth, and
 #: per-echo phases at the gate's deepest second-order ladder
@@ -943,6 +986,9 @@ def make_xcomp_case(case, natoms, nstage=XCOMP_CASE_N, seed=0):
         b1u[adiab] = 0.0
         alpha[adiab] = np.asarray([180.0] + [0.0] * (C - 1))
     taus = np.array([0.0, 3.0, 7.0, 120.0, 2.5, 50.0])
+    if case.get("ntaus"):
+        taus = np.concatenate([[0.0], np.linspace(1.5, 180.0,
+                                                  case["ntaus"] - 1)])
     mia = rng.integers(0, len(taus), N)
     mib = rng.integers(0, len(taus), N)
     dens, khi, T1, T2, g = _xpools(rng, C, natoms, case.get("g"))
@@ -962,22 +1008,25 @@ def make_xcomp_jac_case(torch, case, natoms, nstage=XCOMP_CASE_N, seed=0):
     """Numpy inputs of one composite EPG-X Jacobian case: the primal case's
     stage tables, per-atom densities (C, B), the distinct-tau tables (mr,
     mi, ml) (nmat, B, C, C) by the port's xcomposite_stage_mat_tables in
-    float64 and their tangents for the free pool's T2 and the exchange
-    rate (which also moves the densities) by torch.func.jvp: (args, kwargs)
-    of xcomposite_jacobian_{cuda,plain,pallas}."""
+    float64 and V = case["V"] (default 2) variables' tangents -- the free
+    pool's T2 and the exchange rate (which also moves the densities) by
+    torch.func.jvp, further variables multiples of those two: (args,
+    kwargs) of xcomposite_jacobian_{cuda,plain,pallas}."""
     from epgpy_torch.models.cuda_xcomposite import (
         xcomposite_stage_mat_tables)
 
     args, kw = make_xcomp_case(case, natoms, nstage, seed)
     rng = np.random.default_rng(seed + 1)
     dens, taus, khi, T1, T2, g = args[11:17]
-    C = len(dens)
+    C, V = len(dens), case.get("V", 2)
     val, tans = _x_tangents(
         torch, lambda k, t: xcomposite_stage_mat_tables(k, T1, t, g, taus),
         khi, T2, C)
+    tans = [tuple(p * (1.0 + v // 2) for p in tans[v % 2]) for v in range(V)]
     mats = tuple(v.numpy() for v in val)
     dmats = [tuple(t[p].numpy() for p in range(3)) for t in tans]
-    ddens = [np.zeros((C, natoms)), rng.uniform(-0.05, 0.05, (C, natoms))]
+    ddens = [np.zeros((C, natoms))] + [rng.uniform(-0.05, 0.05, (C, natoms))
+                                       for _ in range(V - 1)]
     dens_b = np.broadcast_to(np.asarray(dens)[:, None], (C, natoms)).copy()
     return args[:11] + (dens_b, mats, dmats, ddens, args[17], args[18]), kw
 
@@ -1476,13 +1525,15 @@ def sass_mix(lib, keys, kernels=()):
 def phase_occupancy():
     """Registers and stack frame (ptxas), shared memory per block, resident
     warps per SM and the static SASS instruction mix of the warp-row CPMG
-    kernels and the segmented FISP, ME-GRE, composite, EPG-X GRE and DESS
-    Jacobian kernels and the Hessian kernel's two passes at their
-    main-path geometries; the registers and stack of every xgre Jacobian
-    instance."""
+    kernels and the segmented FISP, ME-GRE, composite, EPG-X GRE, DESS and
+    composite EPG-X Jacobian kernels, the Hessian kernel's two passes and
+    the segmented CPMG kernel at their main-path geometries; the registers
+    and stack of every xgre and composite EPG-X Jacobian instance and
+    every CPMG instance."""
     from epgpy_torch import _build
     from epgpy_torch.models import cuda_composite, cuda_dess, cuda_fisp, \
-        cuda_hessian, cuda_megre, cuda_mse, cuda_msedesign, cuda_xgre
+        cuda_hessian, cuda_megre, cuda_mse, cuda_msedesign, \
+        cuda_xcomposite, cuda_xgre
 
     log = _build.build_info()["log"]
     regs, stack = ptxas_registers(log), ptxas_registers(log, "stack")
@@ -1523,6 +1574,16 @@ def phase_occupancy():
     geo = cuda_dess.dess_jac_geometry(DESS_NSTATE)
     seg.append((f"dess_jac nstate {DESS_NSTATE}",
                 f"dess_jac_kernelILi{geo['R']}EE", geo))
+    # the exchange-rate fit's composite EPG-X Jacobian (C = 2, G = 2, four
+    # table entries) and the published CPMG train (with DW-TSE too)
+    geo = cuda_xcomposite.xcomp_jac_geometry(XCOMP_NSTATE, 2, 2, 4)
+    seg.append((f"xcomposite_jac nstate {XCOMP_NSTATE} C 2 G 2 nmat 4",
+                f"xcomp_jac_kernelILi2ELi2ELi{geo['R']}ELb1EE", geo))
+    for dif in (False, True):
+        geo = cuda_mse.cpmg_geometry(MSE_NSTATE, dif)
+        seg.append((f"cpmg nstate {MSE_NSTATE}{' DW' if dif else ''}",
+                    f"cpmg_kernelILi{geo['R']}ELb{int(dif)}EE",
+                    dict(geo, pulses=geo["echoes"])))
     for what, key, geo in seg:
         r, frame = of(key), of(key, stack)
         if r is None:
@@ -1538,14 +1599,20 @@ def phase_occupancy():
               f"warps per SM (registers admit {by_regs}, shared memory "
               f"{by_smem})")
 
-    inst = sorted((tuple(int(v) for v in m.groups()), r, stack.get(n))
-                  for n, r in regs.items()
-                  for m in [re.search(r"xgre_jac_kernelILi(\d+)ELi(\d+)ELi"
-                                      r"(\d+)EE", n)] if m)
-    if inst:
-        print("[occupancy] xgre_jac instances (C, G, R): registers / stack "
-              "bytes: " + ", ".join(f"{c},{g},{r_}: {r} / {st}"
-                                    for (c, g, r_), r, st in inst))
+    for name, pattern, fields in (
+            ("xgre_jac", r"xgre_jac_kernelILi(\d+)ELi(\d+)ELi(\d+)EE",
+             "C, G, R"),
+            ("xcomposite_jac", r"xcomp_jac_kernelILi(\d+)ELi(\d+)ELi(\d+)"
+             r"ELb(\d)EE", "C, G, R, shared table"),
+            ("cpmg", r"cpmg_kernelILi(\d+)ELb(\d)EE", "R, DW-TSE")):
+        inst = sorted((tuple(int(v) for v in m.groups()), r, stack.get(n))
+                      for n, r in regs.items()
+                      for m in [re.search(pattern, n)] if m)
+        if inst:
+            print(f"[occupancy] {name} instances ({fields}): registers / "
+                  f"stack bytes: " + ", ".join(
+                      f"{','.join(map(str, k))}: {r} / {st}"
+                      for k, r, st in inst))
     rows = []
     for dif in (False, True):
         warps = cuda_mse.mse_jac_block_size(MSE_NSTATE, dif)
@@ -2320,16 +2387,20 @@ def phase_hess_numbers(torch, epg, card, run):
 
 def phase_mse_cases(torch, natoms=4096, jac=False):
     """The CPMG kernel (or, with `jac`, its Jacobian kernel) vs its plain
-    twin over the option cases at the published depth (and, with `jac`,
-    at the ragged shapes of MSE_JAC_SHAPES); returns the worst echo
-    |delta| and (jac) the worst per-column relative error."""
+    twin over the option cases at the published depth and at the ragged
+    shapes (MSE_JAC_SHAPES; CPMG_SHAPES), and for the primal its own edges
+    (CPMG_EDGE_CASES); returns the worst echo |delta| and (jac) the worst
+    per-column relative error."""
     from epgpy_torch.models import cuda_mse
 
     tag = "mse-jac-cases" if jac else "mse-cases"
     runs = [(case, natoms, MSE_NECHO) for case in MSE_CASES]
-    if jac:
-        runs += [(case, n, e) for n, e in MSE_JAC_SHAPES
-                 for case in MSE_CASES if case["name"] in MSE_RAGGED_CASES]
+    runs += [(case, n, e) for n, e in (MSE_JAC_SHAPES if jac else CPMG_SHAPES)
+             for case in MSE_CASES if case["name"] in MSE_RAGGED_CASES]
+    if not jac:
+        runs += [(case, CPMG_EDGE_SHAPE[0],
+                  case.get("necho", CPMG_EDGE_SHAPE[1]))
+                 for case in CPMG_EDGE_CASES]
     worst_sig = worst_col = 0.0
     for case, n, necho in runs:
         args, kw = _atom_tensors(torch, *make_mse_case(case, n, necho), 5,
@@ -2342,14 +2413,17 @@ def phase_mse_cases(torch, natoms=4096, jac=False):
                               torch.complex(pdre, pdim).cpu().numpy())
             parts = (kre, kim, kdre, kdim)
         else:
+            before = cuda_mse.LAUNCHES
             kre, kim = cuda_mse.cpmg_dictionary_cuda(*args, **kw)
+            if cuda_mse.LAUNCHES != before + 1:
+                raise AssertionError(f"case {case['name']}: not one launch")
             pre, pim = cuda_mse.cpmg_dictionary_plain(*args, **kw)
             cols, parts = [0.0], (kre, kim)
         sig = max(float((kre - pre).abs().max()),
                   float((kim - pim).abs().max()))
         ok = all(bool(torch.isfinite(t).all()) for t in parts)
-        print(f"[{tag}] {case['name']:14s} B={n:4d} E={necho:2d} "
-              f"nstate={kw['nstate']:2d} max|kernel - plain| = {sig:.3e}"
+        print(f"[{tag}] {case['name']:15s} B={n:4d} E={necho:2d} "
+              f"nstate={kw['nstate']:3d} max|kernel - plain| = {sig:.3e}"
               + (f", per column {', '.join(f'{c:.2e}' for c in cols)}"
                  if jac else ""))
         if not ok or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL:
@@ -4956,9 +5030,10 @@ def _x_errors(torch, got, want, jac):
 def phase_xcases(torch, family, natoms=4096):
     """The EPG-X kernels (`family` "xgre" or "xcomp") vs their plain twins
     on the card over the option cases, the primal and the Jacobian with
-    two variables; for "xgre" then the segmented Jacobian kernel's edges
-    (XGRE_EDGE_CASES) and ragged shapes (XGRE_SHAPES); returns the worst
-    signal |delta| and the worst per-column relative error."""
+    two variables; then the segmented Jacobian kernel's edges and ragged
+    shapes (XGRE_EDGE_CASES and XGRE_SHAPES; XCOMP_EDGE_CASES and
+    XCOMP_SHAPES); returns the worst signal |delta| and the worst
+    per-column relative error."""
     from epgpy_torch.models import cuda_xcomposite, cuda_xgre
 
     if family == "xgre":
@@ -4995,44 +5070,72 @@ def phase_xcases(torch, family, natoms=4096):
                 f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
                 f"{TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
-    if family != "xgre":
-        return worst_sig, worst_col
+    edges, shape, shapes, ragged, vs_twin = (
+        (XGRE_EDGE_CASES, XGRE_EDGE_SHAPE, XGRE_SHAPES, XGRE_RAGGED_CASE,
+         xgre_jac_vs_twin) if family == "xgre" else
+        (XCOMP_EDGE_CASES, XCOMP_EDGE_SHAPE, XCOMP_SHAPES, XCOMP_RAGGED_CASE,
+         xcomp_jac_vs_twin))
     wall = dict(edges=0.0, shapes=0.0)
-    runs = [("edges", case, *XGRE_EDGE_SHAPE) for case in XGRE_EDGE_CASES]
-    runs += [("shapes", XGRE_RAGGED_CASE, n, ntr) for n, ntr in XGRE_SHAPES]
+    runs = [("edges", case, *shape) for case in edges]
+    runs += [("shapes", ragged, n, ntr) for n, ntr in shapes]
     for part, case, n, ntr in runs:
         t0 = time.perf_counter()
-        sig, cols = xgre_jac_vs_twin(torch, case, n, ntr)
-        print(f"[xgre-cases] {case['name']:16s} B={n:5d} N={ntr:3d} "
+        sig, cols = vs_twin(torch, case, n, ntr)
+        print(f"[{family}-cases] {case['name']:16s} B={n:5d} N={ntr:3d} "
               f"max|kernel - plain| = {sig:.3e}, columns "
               f"{', '.join(f'{c:.2e}' for c in cols)}")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
         wall[part] += time.perf_counter() - t0
-    _print_wall("phase_xcases xgre Jacobian", wall)
+    _print_wall(f"phase_xcases {family} Jacobian", wall)
     return worst_sig, worst_col
+
+
+def _jac_vs_twin(torch, mod, fns, what, case, natoms, nstage, args, kw):
+    """One launch of an EPG-X Jacobian kernel (`fns`: wrapper and twin of
+    module `mod`) against its twin: (signal |delta|, per-column relative
+    errors); raises past TOL_KERNEL / TOL_JAC_KERNEL, when not finite or
+    not one launch."""
+    before = mod.JAC_LAUNCHES
+    k = fns[0](*args, **kw)
+    torch.cuda.synchronize()
+    sig, cols = _x_errors(torch, k, fns[1](*args, **kw), True)
+    if (mod.JAC_LAUNCHES != before + 1 or not _finite(torch, k)
+            or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL):
+        raise AssertionError(
+            f"{what} {case['name']} (B={natoms}, N={nstage}): kernel vs "
+            f"plain twin {sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
+            f"{TOL_JAC_KERNEL}, not finite, or not one launch")
+    return sig, cols
 
 
 def xgre_jac_vs_twin(torch, case, natoms, ntr):
     """The xgre Jacobian kernel against its twin on one case of natoms
-    atoms x ntr TRs (one launch): (signal |delta|, per-column relative
-    errors); raises past TOL_KERNEL / TOL_JAC_KERNEL or when not
-    finite."""
+    atoms x ntr TRs (one launch; see _jac_vs_twin)."""
     from epgpy_torch.models import cuda_xgre
 
     jargs, jkw = make_xgre_jac_case(torch, case, natoms, ntr)
-    targs = xgre_tensors(torch, jargs, DEVICE, jac=True)
-    before = cuda_xgre.JAC_LAUNCHES
-    k = cuda_xgre.xgre_jacobian_cuda(*targs, **jkw)
-    torch.cuda.synchronize()
-    sig, cols = _x_errors(torch, k, cuda_xgre.xgre_jacobian_plain(
-        *targs, **jkw), True)
-    if (cuda_xgre.JAC_LAUNCHES != before + 1 or not _finite(torch, k)
-            or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL):
-        raise AssertionError(
-            f"xgre Jacobian {case['name']} (B={natoms}, N={ntr}): kernel vs "
-            f"plain twin {sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
-            f"{TOL_JAC_KERNEL}, not finite, or not one launch")
-    return sig, cols
+    return _jac_vs_twin(torch, cuda_xgre, (cuda_xgre.xgre_jacobian_cuda,
+                                           cuda_xgre.xgre_jacobian_plain),
+                        "xgre Jacobian", case, natoms, ntr,
+                        xgre_tensors(torch, jargs, DEVICE, jac=True), jkw)
+
+
+def xcomp_jac_vs_twin(torch, case, natoms, nstage):
+    """The composite EPG-X Jacobian kernel against its twin on one case of
+    natoms atoms x nstage stages (one launch; see _jac_vs_twin); the
+    global-read case must take that mode."""
+    from epgpy_torch.models import cuda_xcomposite as cx
+
+    jargs, jkw = make_xcomp_jac_case(torch, case, natoms, nstage)
+    C, nmat = len(jargs[11]), len(jargs[12][0])
+    geo = cx.xcomp_jac_geometry(jkw["nstate"], C, case.get("V", 2) + 1, nmat)
+    if geo["shared"] == ("ntaus" in case):
+        raise AssertionError(f"composite EPG-X Jacobian {case['name']}: "
+                             f"expected the other table mode, {geo}")
+    return _jac_vs_twin(torch, cx, (cx.xcomposite_jacobian_cuda,
+                                    cx.xcomposite_jacobian_plain),
+                        "composite EPG-X Jacobian", case, natoms, nstage,
+                        xcomp_tensors(torch, jargs, DEVICE, jac=True), jkw)
 
 
 def dess_jac_vs_twin(torch, case, natoms, npulse):
@@ -5802,6 +5905,47 @@ def xgre_jac_kernel_ops(torch, call, natoms):
         return linear_ops(torch, call, natoms)
 
 
+@contextlib.contextmanager
+def xcomp_identity_passthrough():
+    """The composite EPG-X twins with a pool's saturation and rotation
+    passed through where they are the identity for every atom (factors (1,
+    0, 1, 0); a flip of 0, whose rotation coefficients are (1, 0, ..., 1,
+    0, ...)): the work the Jacobian kernel's stages skip (its per-stage,
+    per-pool flags).  The tests count no operation."""
+    import torch
+
+    from epgpy_torch.models import cuda_xcomposite, planes
+
+    sat, rot = cuda_xcomposite._saturate, planes.apply_rot
+    one = (1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0)
+
+    def same(vals, ref):
+        return all(bool((torch.as_tensor(v) == w).all())
+                   for v, w in zip(vals, ref))
+
+    def saturate(s, f):
+        return s if same(f, (1.0, 0.0, 1.0, 0.0)) else sat(s, f)
+
+    def rotate(rc, s):
+        return s if same(rc, one) else rot(rc, s)
+
+    cuda_xcomposite._saturate, planes.apply_rot = saturate, rotate
+    try:
+        yield
+    finally:
+        cuda_xcomposite._saturate, planes.apply_rot = sat, rot
+
+
+def xcomp_jac_kernel_ops(torch, call, natoms):
+    """Operations of the composite EPG-X Jacobian kernel: the twin's count
+    (``call(n)`` on n atoms, ``linear_ops``) with the identity saturations
+    and rotations passed through, as the kernel's stages skip them (the
+    exchange-rate fit's bound pool is never flipped, and only the
+    preparation stages saturate)."""
+    with xcomp_identity_passthrough():
+        return linear_ops(torch, call, natoms)
+
+
 def phase_x_numbers(torch, card, xg, xc, qmt, kfit):
     """The four EPG-X kernels at their main-path shapes: the xgre kernel at
     (a)'s (spoiled MT-GRE, 262,144 atoms), its Jacobian at (d)'s (48 TRs,
@@ -5836,7 +5980,7 @@ def phase_x_numbers(torch, card, xg, xc, qmt, kfit):
                      (cx.xcomposite_jacobian_echoes,
                       cx.xcomposite_jacobian_plain), kfit["args"],
                      kfit["kw"], (), KFIT_NVOX, 0, True, cut=kfit["cut"],
-                     errors=err(True)),
+                     errors=err(True), work=xcomp_jac_kernel_ops),
     ]
     # the wrappers build the per-atom stage matrices (the primal) and
     # pack the coefficient rows before the launch: split the device time

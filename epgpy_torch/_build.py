@@ -38,7 +38,7 @@ _SIGNATURES = {
                      _P],
     "epg_fisp_hess": [_P] * 3 + [_F] * 2 + [_P] * 5 + [_I] * 8 + [_P],
     "epg_cpmg": [_F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F,
-                 _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                 _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "epg_cpmg_jac": [_F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
                      _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "epg_cpmg_design": [_F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -59,7 +59,7 @@ _SIGNATURES = {
     "epg_xgre": [_P] * 10 + [_I] * 7 + [_P],
     "epg_xgre_jac": [_P] * 10 + [_I] * 10 + [_P],
     "epg_xcomposite": [_P] * 16 + [_I] * 12 + [_P],
-    "epg_xcomposite_jac": [_P] * 16 + [_I] * 14 + [_P],
+    "epg_xcomposite_jac": [_P] * 16 + [_I] * 17 + [_P],
 }
 
 #: the loaded library and what its build printed: {"lib", "path",

@@ -642,13 +642,14 @@ __device__ __forceinline__ int reach(int i, int half, int H) {
 // lanes of a segment, the state in registers --
 //
 // The tangent kernels fisp_jac.cu, megre_jac.cu, composite_jac.cu,
-// fisp_hess.cu (its two passes), xgre_jac.cu and dess_jac.cu give a
-// folded ladder of H = nstate + 1 rows a segment of W = ceil(H / R)
-// consecutive lanes, and a warp holds L = 32 / W segments; lanes past the
-// last segment run the same instructions on a clamped atom and store
-// nothing.  Lane r of a segment owns rows k = r + W c, c < R, of every
-// plane of every group (xgre_jac.cu and dess_jac.cu: rows k = r R + c, the
-// blocked layout of seg_shift_blocked), in registers: R is a template
+// fisp_hess.cu (its two passes), xgre_jac.cu, dess_jac.cu and
+// xcomposite_jac.cu and the CPMG kernel cpmg.cu give a folded ladder of H
+// = nstate + 1 rows a segment of W = ceil(H / R) consecutive lanes, and a
+// warp holds L = 32 / W segments; lanes past the last segment run the
+// same instructions on a clamped atom and store nothing.  Lane r of a
+// segment owns rows k = r + W c, c < R, of every plane of every group
+// (xgre_jac.cu, dess_jac.cu, xcomposite_jac.cu and cpmg.cu: rows k = r R
+// + c, the blocked layout of seg_shift_blocked), in registers: R is a template
 // parameter, so each plane is a statically indexed float[R], and the
 // per-pulse work of a lane -- its rotation coefficients, the broadcasts,
 // the shift's selects -- serves R rows.  Rows k >= H are padding and stay
@@ -773,6 +774,46 @@ __device__ __forceinline__ void seg_shift_blocked(const SegLane& q,
     }
 }
 
+// The folded down shift of DownShift on the segmented layout with blocked
+// rows (xcomposite_jac.cu's S(-1)): A(k) <- new A(k+1), A(H-1) <- 0, B(k)
+// <- new B(k-1), B(0) <- new A(1), Z unshifted -- seg_shift_blocked with
+// the roles of the A and B planes swapped.  Within a lane the rows move by
+// register; across lanes one shuffle per plane: a lane takes the lane
+// below's last new B and the lane above's first new A (the segment's
+// first lane takes A(1) as B(0) instead; its last lane's last row is row
+// H-1 or padding, whose A is 0).  Padding rows (k >= H) keep A and B at 0
+// and their Z untouched.
+template <int R>
+__device__ __forceinline__ void seg_shift_blocked_down(const SegLane& q,
+                                                       float (&s)[6][R]) {
+    const bool first = q.r == 0;
+    const int below = (q.lane + kWarp - 1) & (kWarp - 1);
+    const int above = (q.lane + 1) & (kWarp - 1);
+    const float bR = __shfl_sync(kFullMask, s[2][R - 1], below);
+    const float bI = __shfl_sync(kFullMask, s[3][R - 1], below);
+    const float aR = __shfl_sync(kFullMask, s[0][0], above);
+    const float aI = __shfl_sync(kFullMask, s[1][0], above);
+    // new B(0) of the segment's first lane: new A(1), its own second row
+    // or the lane above's first
+    const float b0R = first ? (R > 1 ? s[0][R > 1 ? 1 : 0] : aR) : bR;
+    const float b0I = first ? (R > 1 ? s[1][R > 1 ? 1 : 0] : aI) : bI;
+    const int k0 = q.r * R;
+#pragma unroll
+    for (int c = R - 1; c >= 0; --c) {
+        const float BR = c > 0 ? s[2][c > 0 ? c - 1 : 0] : b0R;
+        const float BI = c > 0 ? s[3][c > 0 ? c - 1 : 0] : b0I;
+        s[2][c] = k0 + c < q.H ? BR : 0.0f;
+        s[3][c] = k0 + c < q.H ? BI : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+        const float AR = c + 1 < R ? s[0][c + 1 < R ? c + 1 : c] : aR;
+        const float AI = c + 1 < R ? s[1][c + 1 < R ? c + 1 : c] : aI;
+        s[0][c] = k0 + c >= q.H - 1 ? 0.0f : AR;
+        s[1][c] = k0 + c >= q.H - 1 ? 0.0f : AI;
+    }
+}
+
 // The folded down shift of DownShift on the segmented layout (the composite
 // tangent kernel's S(-1)): A(k) <- new A(k+1), A(H-1) <- 0, B(k) <- new
 // B(k-1), B(0) <- new A(1), Z unshifted -- seg_shift with the roles of the A
@@ -840,30 +881,47 @@ __device__ __forceinline__ void seg_att(int k, float bT, float bL,
     }
 }
 
-// A block's staged outputs to device memory: for each of `planes` output
-// planes, `rows` rows of `A` atoms, stage[(o * ld + t) * A + a] ->
-// out[o * plane + (row0 + t) * B + atom0 + a] where atom0 + a < B.  Thread
-// i keeps atom a = i % A and walks the rows i / A, i / A + blockDim / A,
-// ... (the threads past the last whole sweep idle), so each row leaves as
-// one run of consecutive words and no division runs per row.
-__device__ __forceinline__ void flush_stage(const float* stage, float* out,
-                                            int planes, int ld, int rows,
-                                            int A, size_t plane, size_t row0,
-                                            int B, int atom0) {
+// A block's staged outputs to device memory, each staged row to the output
+// row row_of(t) (a callable; a negative row is not written): for each of
+// `planes` output planes, `rows` staged rows of `A` atoms,
+// stage[(o * ld + t) * A + a] -> out[o * plane + row_of(t) * B + atom0 + a]
+// where atom0 + a < B.  Thread i keeps atom a = i % A and walks the rows
+// i / A, i / A + blockDim / A, ... (the threads past the last whole sweep
+// idle), so each row leaves as one run of consecutive words and no
+// division runs per row.
+template <class RowOf>
+__device__ __forceinline__ void flush_stage_rows(const float* stage,
+                                                 float* out, int planes,
+                                                 int ld, int rows, int A,
+                                                 size_t plane,
+                                                 const RowOf& row_of, int B,
+                                                 int atom0) {
     const int step = blockDim.x / A;
     const int a = threadIdx.x % A;
     const int i = threadIdx.x / A;
     if (i >= step || atom0 + a >= B) return;
     int o = i / rows, t = i - o * rows;
     while (o < planes) {
-        out[o * plane + (row0 + t) * B + atom0 + a] =
-            stage[(o * ld + t) * A + a];
+        const int row = row_of(t);
+        if (row >= 0)
+            out[o * plane + static_cast<size_t>(row) * B + atom0 + a] =
+                stage[(o * ld + t) * A + a];
         t += step;
         while (t >= rows) {
             t -= rows;
             ++o;
         }
     }
+}
+
+// flush_stage_rows to consecutive output rows: staged row t to row0 + t.
+__device__ __forceinline__ void flush_stage(const float* stage, float* out,
+                                            int planes, int ld, int rows,
+                                            int A, size_t plane, size_t row0,
+                                            int B, int atom0) {
+    const int first = static_cast<int>(row0);
+    flush_stage_rows(stage, out, planes, ld, rows, A, plane,
+                     [first](int t) { return first + t; }, B, atom0);
 }
 
 }  // namespace epg

@@ -22,14 +22,17 @@ not take: no fallback) and the plain twin for CPU tensors; the echo-layout
 ``LAUNCHES`` / ``JAC_LAUNCHES`` count kernel launches.  The TPU-only knobs
 (``btile``, ``interpret``) are not taken.
 
-Shared-memory gates: the primal runs one thread per atom with 6 planes
-(12 with diffusion) at [plane][row][atom], so ``mse_kernel_fits`` admits
-nstate <= 301 (150 with diffusion) at its smallest block of 32.  The
+Gates: ``mse_kernel_fits`` is the counterpart of the JAX package's VMEM
+guard, kept as the one-thread-per-atom layout with 6 planes (12 with
+diffusion) in shared memory set it: nstate <= 301 (150 with diffusion).
+The primal kernel now keeps its planes in registers on the segmented
+layout (a ladder in a segment of ceil(H / R) lanes, R = 1-10 rows per
+lane; :func:`cpmg_geometry`) and takes every ladder the gate admits.  The
 Jacobian runs one warp per atom with its 24 planes (30 with diffusion)
-across the lanes (``cpmg_jac.cu``); ``mse_jac_kernel_fits`` keeps the gate
-of the earlier one-thread-per-atom layout, nstate <= 74 (59), so that no
-train changed route with the layout.  The published 18-echo train needs
-nstate 36.
+across the lanes (``cpmg_jac.cu``); ``mse_jac_kernel_fits`` keeps the
+gate of the earlier one-thread-per-atom layout, nstate <= 74 (59).
+Neither gate moved with its layout, so that no train changed route.  The
+published 18-echo train needs nstate 36.
 """
 
 from __future__ import annotations
@@ -45,9 +48,9 @@ from .cuda_fisp import SMEM_PER_BLOCK, _jac_finish, _takes_twin
 __all__ = ["cpmg_dictionary_cuda", "cpmg_dictionary_plain", "cpmg_echoes",
            "cpmg_echoes_plain", "cpmg_jacobian_cuda", "cpmg_jacobian_plain",
            "cpmg_jacobian_echoes", "cpmg_jacobian_echoes_plain",
-           "mse_kernel_fits", "mse_jac_kernel_fits", "mse_block_size",
-           "mse_jac_block_size", "jac_block_smem", "LAUNCHES",
-           "JAC_LAUNCHES", "JAC_MAX_WARPS"]
+           "mse_kernel_fits", "mse_jac_kernel_fits", "cpmg_rows",
+           "cpmg_geometry", "mse_jac_block_size", "jac_block_smem",
+           "LAUNCHES", "JAC_LAUNCHES", "JAC_MAX_WARPS"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -67,9 +70,12 @@ def _smem(nstate, block, diffusion, jac):
 
 
 def mse_kernel_fits(nstate, diffusion=False) -> bool:
-    """Whether the CPMG kernel's planes fit in one block's shared memory
-    at its smallest block (32 atoms): 6 planes (12 with diffusion) x
-    (nstate+1) rows x 4 bytes per atom -- nstate <= 301 (150)."""
+    """Whether the CPMG kernel takes this ladder: while 32 atoms' 6 planes
+    (12 with diffusion) of nstate + 1 rows fit one block's shared memory,
+    nstate <= 301 (150) -- the bound of the one-thread-per-atom layout, the
+    JAX package's VMEM guard.  The segmented kernel keeps its planes in
+    registers (:func:`cpmg_geometry`) and keeps this gate, so that the
+    same trains take the kernel."""
     return _smem(max(int(nstate), 1), 32, bool(diffusion), False) \
         <= SMEM_PER_BLOCK
 
@@ -85,14 +91,44 @@ def mse_jac_kernel_fits(nstate, diffusion=False) -> bool:
         <= SMEM_PER_BLOCK
 
 
-def mse_block_size(nstate, diffusion=False) -> int:
-    """Threads per block of the primal kernel: 128, halved while the
-    planes do not fit (128 holds the 18-echo train, with diffusion too)."""
-    block = 128
-    while block > 32 and _smem(nstate, block, bool(diffusion), False) \
-            > SMEM_PER_BLOCK:
-        block //= 2
-    return block
+#: the segmented primal kernel (cpmg.cu): warps per block, echoes per
+#: chunk at most, table floats per echo (cos phi, sin phi, cos 2phi, sin
+#: 2phi, FA, tau1, tau2) and rows per lane at most -- its kMaxWarps,
+#: kMaxEchoes, kTab and kMaxRows
+CPMG_WARPS, CPMG_ECHOES, CPMG_TABLE, CPMG_MAX_ROWS = 4, 32, 7, 10
+
+
+def cpmg_rows(nstate) -> int:
+    """Rows per lane of the primal kernel for a ladder of H = nstate + 1
+    rows: ceil(H / W) for the fewest lanes per ladder W >= 2 that keep it
+    within CPMG_MAX_ROWS, rounded up to even above 1 (an odd instance
+    takes up to 1.8x the registers of the next even one: 117 at R = 9, 64
+    at R = 10; ptxas, PERF.md) -- 10 at the published nstate 36 (8
+    ladders of 4 lanes per warp), measured 1.8x faster than 5 rows there,
+    with DW-TSE and without (PERF.md), and at the gate's deepest ladders
+    (nstate 301: 31 lanes; 150 with DW-TSE: 16 lanes)."""
+    H = max(int(nstate), 1) + 1
+    R = -(-H // max(2, -(-H // CPMG_MAX_ROWS)))
+    return R + R % 2 if R > 1 else R
+
+
+def cpmg_geometry(nstate, diffusion=False):
+    """Launch geometry of the segmented primal kernel (``cpmg.cu``), the
+    same with and without DW-TSE (`diffusion`):
+    dict(R, W, L) -- rows per lane (:func:`cpmg_rows`), lanes per ladder
+    W = ceil(H / R) (lane r of a segment owns rows r R + c, c < R) and
+    ladders per warp L = 32 // W -- ``warps`` per block (CPMG_WARPS),
+    ``atoms`` per block (warps x L), ``echoes`` per chunk (CPMG_ECHOES) and
+    ``smem``, the block's shared bytes (its echo table).  The wrapper
+    passes R, warps and echoes to the kernel, which checks them."""
+    R = cpmg_rows(nstate)
+    if R > CPMG_MAX_ROWS or -(-(max(int(nstate), 1) + 1) // R) > 32:
+        raise ValueError(f"nstate={nstate}: beyond the CPMG kernel's "
+                         f"{CPMG_MAX_ROWS} rows per lane")
+    W = -(-(max(int(nstate), 1) + 1) // R)
+    L = 32 // W
+    return dict(R=R, W=W, L=L, warps=CPMG_WARPS, atoms=CPMG_WARPS * L,
+                echoes=CPMG_ECHOES, smem=4 * CPMG_TABLE * CPMG_ECHOES)
 
 
 def jac_block_smem(nstate, warps, diffusion=False) -> int:
@@ -264,13 +300,17 @@ def _launch(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, *, nstate, diffusion,
     # asynchronous on the current stream; see cuda_fisp._launch on
     # temporaries
     lib = _build.load()
-    fn = lib.epg_cpmg_jac if jac else lib.epg_cpmg
-    block = (mse_jac_block_size if jac else mse_block_size)(nstate, use_diff)
+    if jac:
+        fn, launch = lib.epg_cpmg_jac, (mse_jac_block_size(nstate,
+                                                           use_diff),)
+    else:
+        geo = cpmg_geometry(nstate, use_diff)
+        fn, launch = lib.epg_cpmg, (geo["R"], geo["warps"], geo["echoes"])
     rc = fn(*planes.excitation_terms(x["exc"]), ptr(x["FA"]), ptr(x["phi"]),
             ptr(x["tau1"]), ptr(x["tau2"]), ptr(x["T1"]), ptr(x["T2"]),
             ptr(x["B1"]),
             ptr(Dc1), ptr(Dc2), bT1, bL1, bT2, bL2, ptr(out), E, B, nstate,
-            int(use_diff), int(r1), int(r2), block,
+            int(use_diff), int(r1), int(r2), *launch,
             T1s.device.index if T1s.device.index is not None
             else torch.cuda.current_device(),
             torch.cuda.current_stream(T1s.device).cuda_stream)

@@ -17,16 +17,21 @@ MT-prepared segmented GRE, IR-MT and saturation-recovery MT are such trains
 (``fisp_dispatch.match_xcomposite`` builds the tables).
 
 The kernels are ``epgpy_torch/csrc/xcomposite.cu`` and
-``xcomposite_jac.cu``; ``xcomposite_plain`` / ``xcomposite_jacobian_plain``
-are the same recurrences with the same operation order, in any precision,
-on the tensors' device.  ``*_cuda`` launch the kernels and raise on CPU
-tensors and on what they do not take (C outside 1..4; the Jacobian's
-variables outside 1..4, C (V + 1) above 12, or its 6 C (V + 1) planes
-beyond one block's shared memory: the JAX package's VMEM guard);
-``*_echoes`` take the kernel for CUDA tensors and the twin for CPU
-tensors.  ``LAUNCHES`` / ``JAC_LAUNCHES``
-count kernel launches.  The TPU-only knobs (``btile``, ``interpret``), the
-8-row alignment of the table blocks and the padding have no counterpart.
+``xcomposite_jac.cu`` (see their headers for the design; the Jacobian
+kernel runs ``xgre_jac.cu``'s segmented layout with blocked rows at the
+geometry :func:`xcomp_jac_geometry` decides, its state in registers);
+``xcomposite_plain`` / ``xcomposite_jacobian_plain`` are the same
+recurrences with the same operation order, in any precision, on the
+tensors' device.  ``*_cuda`` launch the kernels and raise on CPU tensors
+and on what they do not take (C outside 1..4; the Jacobian's variables
+outside 1..4, C (V + 1) above 12, or its 6 C (V + 1) planes of nstate + 1
+rows beyond one block's shared memory at 32 threads: the gate the
+thread-per-atom layout set, kept as the counterpart of the JAX package's
+VMEM guard, so that no train changed route with the layout); ``*_echoes``
+take the kernel for CUDA tensors and the twin for CPU tensors.
+``LAUNCHES`` / ``JAC_LAUNCHES`` count kernel launches.  The TPU-only
+knobs (``btile``, ``interpret``), the 8-row alignment of the table blocks
+and the padding have no counterpart.
 Output rows no stage's adci names are left unwritten: the matcher's adci
 is a permutation of 0..nadc-1.
 """
@@ -39,7 +44,8 @@ import numpy as np
 import torch
 
 from . import planes
-from .cuda_fisp import SMEM_PER_BLOCK, _takes_twin
+from .cuda_fisp import (SEG_CHUNK_FLOATS, SEG_PULSES, SEG_WARPS,
+                        SMEM_PER_BLOCK, _takes_twin, seg_layout)
 from .cuda_xgre import (MAX_C, _check_jac_fits, _cuda_ref, _launch_env,
                         _like, _mix_groups, _saturate, _train, _unit_set,
                         block_for, exchange_stage_mats, xgre_kernel_fits)
@@ -47,7 +53,8 @@ from .cuda_xgre import (MAX_C, _check_jac_fits, _cuda_ref, _launch_env,
 __all__ = ["xcomposite_stage_mat_tables", "xcomposite_cuda",
            "xcomposite_plain", "xcomposite_echoes",
            "xcomposite_jacobian_cuda", "xcomposite_jacobian_plain",
-           "xcomposite_jacobian_echoes", "LAUNCHES", "JAC_LAUNCHES"]
+           "xcomposite_jacobian_echoes", "xcomp_jac_rows",
+           "xcomp_jac_geometry", "LAUNCHES", "JAC_LAUNCHES"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -55,6 +62,61 @@ LAUNCHES = 0
 JAC_LAUNCHES = 0
 
 _DEG = math.pi / 180.0
+
+#: stage-table floats of the Jacobian kernel per compartment (its kTab:
+#: cos phi, sin phi, cos 2phi, sin 2phi, four saturation factors, the
+#: flip, the saturate / rotate flags) and per stage (kStage: output row,
+#: shift direction, mia, mib, b1u, cos and sin of the ADC phase)
+XCOMP_JAC_TABLE, XCOMP_JAC_STAGE = 10, 7
+
+
+def xcomp_jac_rows(nstate, C, G) -> int:
+    """Rows per lane of the Jacobian kernel: 1 for H = nstate + 1 <= 3,
+    else ceil(H / 32), at least 3 while the 6 C G planes of three rows stay
+    within 72 floats (C G <= 4) and at least 2 while two rows do (C G <=
+    6): 3 at the exchange-rate fit (C = 2, G = 2, nstate 8: 10 ladders of
+    3 lanes per warp, no padding row), measured 10% faster than 2 there
+    (PERF.md).  The gate's deepest ladders take 5 rows (C G = 2, H 151), 4
+    (C G = 3, H 100), 3 (C G = 4, H 75), 2 (C G <= 9) and 1 (C G >=
+    10)."""
+    H, CG = int(nstate) + 1, int(C) * int(G)
+    if H <= 3:
+        return 1
+    return max(-(-H // 32), 3 if CG <= 4 else 2 if CG <= 6 else 1)
+
+
+def xcomp_jac_geometry(nstate, C, G, nmat):
+    """Launch geometry of the segmented Jacobian kernel
+    (``xcomposite_jac.cu``) for nmat table entries: dict(R, W, L) of
+    ``cuda_fisp.seg_layout`` at :func:`xcomp_jac_rows`' rows per lane;
+    ``coef``, the floats of one ladder's record (nmat G 3 C^2 table floats
+    and C G densities, rounded up to odd); ``shared``, whether the records
+    sit in the block's shared memory (else the kernel reads the stage's two
+    table entries from device memory, the mode for tables too large for
+    one warp's records); ``warps`` per block (SEG_WARPS, halved while the
+    records and one stage's table and staged echoes pass
+    SEG_CHUNK_FLOATS); ``atoms`` per block (warps x L), ``pulses`` (stages)
+    per chunk and ``smem``, the block's shared bytes.  The wrapper passes
+    R, warps, pulses and the mode to the kernel, which checks them."""
+    C, G, nmat = int(C), int(G), int(nmat)
+    R, W, L = seg_layout(nstate, xcomp_jac_rows(nstate, C, G))
+    coef = (nmat * G * 3 * C * C + C * G) | 1
+
+    def per(atoms):    # floats per stage: the table and the staged echoes
+        return XCOMP_JAC_TABLE * C + XCOMP_JAC_STAGE + 2 * G * C * atoms
+
+    def need(warps, table):
+        return table * coef * warps * L + per(warps * L)
+
+    shared = need(1, True) <= SEG_CHUNK_FLOATS
+    warps = SEG_WARPS
+    while warps > 1 and need(warps, shared) > SEG_CHUNK_FLOATS:
+        warps //= 2
+    A = warps * L
+    table = coef * A if shared else 0
+    pulses = min(SEG_PULSES, (SEG_CHUNK_FLOATS - table) // per(A))
+    return dict(R=R, W=W, L=L, warps=warps, atoms=A, pulses=pulses,
+                coef=coef, shared=shared, smem=4 * (table + pulses * per(A)))
 
 
 def xcomposite_stage_mat_tables(khi, T1, T2, g, taus):
@@ -319,8 +381,9 @@ def xcomposite_jacobian_cuda(alpha, phi, satf_re, satf_im, satz_re,
     tables, each a 3-tuple of (nmat, B, C, C); ddens the per-variable
     density tangents, each (C, B) or (C,) (zeros when the variable does
     not move the equilibrium).  mats[0] is a float32 CUDA tensor.  Raises
-    ValueError for V outside 1..4, C (V + 1) above 12, or when the 6 C
-    (V + 1) planes do not fit in shared memory.  Returns (re, im):
+    ValueError for V outside 1..4, C (V + 1) above 12, or past the gate
+    (6 C (V + 1) planes of nstate + 1 rows at 32 threads within a block's
+    shared memory; the state itself sits in registers).  Returns (re, im):
     (nadc, G, C, B) float32, G = 1 + V (primal first, then one tangent
     per variable)."""
     global JAC_LAUNCHES
@@ -332,14 +395,15 @@ def xcomposite_jacobian_cuda(alpha, phi, satf_re, satf_im, satz_re,
     _cuda_ref(ref, "xcomposite_jac")
     G, nstate, nadc = V + 1, int(nstate), int(nadc)
     _check_jac_fits("xcomposite_jac", C, G, nstate)
+    geo = xcomp_jac_geometry(nstate, C, G, nmat)
     out = torch.empty((2, nadc, G, C, B), dtype=torch.float32,
                       device=ref.device)
     lib, dev, stream = _launch_env(ref)
     rc = lib.epg_xcomposite_jac(
         *_ptrs(tr, st_tab), drows.data_ptr(), b1.data_ptr(),
         table.data_ptr(), out.data_ptr(), N, C, G, B, nadc, nmat, nstate,
-        *(int(bool(f)) for f in flags), block_for(nstate, 6 * C * G, 64),
-        dev, stream)
+        *(int(bool(f)) for f in flags), geo["R"], geo["warps"],
+        geo["pulses"], int(geo["shared"]), dev, stream)
     if rc != 0:
         raise RuntimeError(f"xcomposite_jac kernel launch failed: CUDA error "
                            f"{rc}")

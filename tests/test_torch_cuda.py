@@ -34,7 +34,10 @@ from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_EDGE_ATOMS,
                         make_xgre_jac_case, xcomp_tensors, xgre_tensors,
                         DESS_EDGE_CASES, DESS_EDGE_SHAPE, DESS_SHAPES,
                         XGRE_EDGE_CASES, XGRE_EDGE_SHAPE, XGRE_RAGGED_CASE,
-                        XGRE_SHAPES, dess_jac_vs_twin, xgre_jac_vs_twin)
+                        XGRE_SHAPES, dess_jac_vs_twin, xgre_jac_vs_twin,
+                        CPMG_EDGE_CASES, CPMG_EDGE_SHAPE, CPMG_SHAPES,
+                        XCOMP_EDGE_CASES, XCOMP_EDGE_SHAPE,
+                        XCOMP_RAGGED_CASE, XCOMP_SHAPES, xcomp_jac_vs_twin)
 from epgpy_torch import config
 from epgpy_torch.models import (cuda_bssfp, cuda_composite, cuda_dess,
                                 cuda_fisp, cuda_hessian, cuda_megre,
@@ -247,6 +250,39 @@ def test_cuda_cpmg_kernels_match_plain_twins(card, case):
         err = max(float((kdre[..., c] - pdre[..., c]).abs().max()),
                   float((kdim[..., c] - pdim[..., c]).abs().max()))
         assert err < 1e-5 * scale, (c, err, scale)
+
+
+def _cpmg_vs_twin(case, natoms, necho):
+    args, kw = _atom_tensors(torch, *make_mse_case(case, natoms, necho), 5,
+                             "cuda")
+    before = cuda_mse.LAUNCHES
+    kre, kim = cuda_mse.cpmg_dictionary_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_mse.LAUNCHES == before + 1
+    pre, pim = cuda_mse.cpmg_dictionary_plain(*args, **kw)
+    assert bool(torch.isfinite(kre).all() and torch.isfinite(kim).all())
+    assert max(float((kre - pre).abs().max()),
+               float((kim - pim).abs().max())) < 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CPMG_EDGE_CASES, ids=lambda c: c["name"])
+def test_cuda_cpmg_segmented_edges(card, case):
+    """The segmented CPMG kernel at the gate's deepest ladders (nstate 301:
+    10 rows on 31 lanes; 150 with DW-TSE: 10 rows on 16 lanes) and on
+    truncated ladders (nstate 8 < 2 x 18 echoes): echoes to 2e-6, one
+    launch."""
+    _cpmg_vs_twin(case, CPMG_EDGE_SHAPE[0],
+                  case.get("necho", CPMG_EDGE_SHAPE[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CPMG_SHAPES, ids=str)
+@pytest.mark.parametrize("name", MSE_RAGGED_CASES)
+def test_cuda_cpmg_ragged_shapes(card, name, shape):
+    """1, 33 and 4,097 atoms and a one-echo train: the segmented CPMG
+    kernel == its twin to 2e-6, one launch."""
+    _cpmg_vs_twin(next(c for c in MSE_CASES if c["name"] == name), *shape)
 
 
 @pytest.mark.cuda
@@ -757,6 +793,25 @@ def test_cuda_xgre_jacobian_ragged_shapes(card, shape):
     """1, 33 and 4,097 atoms, 1 and 2 TRs, two stages with df, a B1 batch
     and complex saturation."""
     xgre_jac_vs_twin(torch, XGRE_RAGGED_CASE, *shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", XCOMP_EDGE_CASES, ids=lambda c: c["name"])
+def test_cuda_xcomposite_jacobian_segmented_edges(card, case):
+    """The segmented composite EPG-X Jacobian kernel at the gate's deepest
+    ladders ((C, G) = (1, 2) at nstate 150, (2, 3) at 49, (4, 3) at 24,
+    (2, 5) at 29, (3, 4) at 24) with shifts up, down and none, and with
+    26 table entries (the global-read mode): signals to 2e-6, columns to
+    1e-5, one launch."""
+    xcomp_jac_vs_twin(torch, case, *XCOMP_EDGE_SHAPE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", XCOMP_SHAPES, ids=str)
+def test_cuda_xcomposite_jacobian_ragged_shapes(card, shape):
+    """1, 33 and 4,097 atoms, 1 and 2 stages, every option of the
+    composite EPG-X train."""
+    xcomp_jac_vs_twin(torch, XCOMP_RAGGED_CASE, *shape)
 
 
 @pytest.mark.cuda

@@ -34,8 +34,11 @@ from epgpy_torch.models import cuda_fisp, cuda_mse
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_mse
 
+from chip_smoke import MSE_CASES, make_mse_case
+from epgpy_torch.models import planes
 from torch_support import (GOLDEN_DIR, ShiftRecorder, cplx,  # noqa: F401
-                           port_f32, port_f64, rows_beyond)
+                           port_f32, port_f64, rows_beyond, seg_owned_atoms,
+                           seg_shift_emulated)
 
 KV = 2 * np.pi / 1e-3        # 1 mm voxel: 6283 rad/m per state index
 EXC = (90.0, 90.0)
@@ -204,6 +207,130 @@ def test_jacobian_launch_geometry_fits(diffusion):
         smem = 4 * record * (n + 1) * warps
         assert cuda_mse.jac_block_smem(n, warps, diffusion) == smem, n
         assert smem <= cuda_fisp.SMEM_PER_BLOCK, n
+
+
+# -- the segmented CPMG kernel: reach, lane map, geometry, gate --
+
+
+def _mse64(case, natoms, necho, seed=2):
+    """chip_smoke.make_mse_case's inputs as float64 CPU tensors."""
+    args, kw = make_mse_case(case, natoms, necho, seed)
+    f64 = lambda x: torch.as_tensor(np.asarray(x, np.float64))  # noqa: E731
+    if kw.get("diffusion") is not None:
+        kw["diffusion"] = kw["diffusion"][:4] + tuple(
+            f64(d) for d in kw["diffusion"][4:])
+    return args[:5] + tuple(f64(a) for a in args[5:]), kw
+
+
+def _reach(i, half, H):
+    """epg::reach: the last row half-stage `half` (1, 2) of echo i can
+    make non-zero, within the ladder."""
+    return min(2 * i + half, H - 1)
+
+
+#: (case, nstate, echoes) of the primal reach test: the published depth
+#: and a truncated ladder (nstate 8 < 2 x 18 echoes), each with and
+#: without DW-TSE
+CPMG_REACH_RUNS = [(name, n, 18) for name in ("spacing_phase_b1", "dw_ramps")
+                   for n in (36, 8)]
+
+
+@pytest.mark.parametrize("name,nstate,necho", CPMG_REACH_RUNS,
+                         ids=lambda v: str(v))
+def test_cpmg_twin_ladder_stays_within_reach(monkeypatch, name, nstate,
+                                            necho):
+    """After half-stage (i, half) the CPMG twin's ladder is exactly zero
+    past row epg::reach(i, half, H) and not at it (with DW-TSE, whose
+    attenuation keeps zeros; on a truncated ladder the reach clamps at the
+    last row): the invariant a chunk skip rests on, as in the Jacobian
+    kernel.  The primal kernel measured faster stepping every row on
+    blocked rows than skipping chunks on cyclic ones (PERF.md)."""
+    case = dict(REACH_CASES[name], nstate=nstate)
+    targs, tkw = _mse64(case, 7, necho)
+    rec = ShiftRecorder(monkeypatch)
+    cuda_mse.cpmg_echoes_plain(*targs, **tkw)
+    assert len(rec.sets) == 2 * necho
+    for q, s in enumerate(rec.sets):
+        i, half = divmod(q, 2)
+        top = _reach(i, half + 1, nstate + 1)
+        assert rows_beyond(s, top) == 0.0, (q, top)
+        assert rows_beyond(s, top - 1) > 0.0 or top == nstate, (q, top)
+
+
+#: the lane-map replay's cases: MSE_CASES' options (the gates' 74 and 59
+#: among them) and truncated ladders with and without DW-TSE
+CPMG_LANE_CASES = MSE_CASES + [
+    dict(name="truncated", var=True, b1=True, nstate=8),
+    dict(name="truncated_dw", diff=(True, True), var=True, nstate=8),
+]
+
+
+@pytest.mark.parametrize("case", CPMG_LANE_CASES, ids=lambda c: c["name"])
+def test_cpmg_lane_map_matches_twin(monkeypatch, case):
+    """The float64 CPMG twin with every folded shift replayed through the
+    kernel's lane map at its rows per lane (blocked rows,
+    epg::seg_shift_blocked, emulated in numpy with NaN in the idle lanes
+    and the padding rows) is within 1e-12 of the twin (equal), over 37
+    atoms x 18 echoes."""
+    targs, tkw = _mse64(case, 37, 18)
+    want = cuda_mse.cpmg_echoes_plain(*targs, **tkw)
+    R = cuda_mse.cpmg_geometry(tkw["nstate"], "diffusion" in tkw)["R"]
+    calls = [0]
+
+    def shift(s):
+        calls[0] += 1
+        return seg_shift_emulated(s, R, blocked=True)
+
+    monkeypatch.setattr(planes, "shift_fold", shift)
+    got = cuda_mse.cpmg_echoes_plain(*targs, **tkw)
+    assert calls[0] == 2 * 18
+    for g_, w in zip(got, want):
+        assert g_.dtype == torch.float64 and torch.isfinite(g_).all()
+        assert float((g_ - w).abs().max()) <= 1e-12
+        assert torch.equal(g_, w)
+
+
+@pytest.mark.parametrize("diffusion", [False, True])
+def test_cpmg_geometry(diffusion):
+    """For every ladder the gate admits (nstate 0-301, 0-150 with DW-TSE):
+    the fewest lanes per ladder W >= 2 with ceil(H / W) <= 10 rows per
+    lane, R that count rounded up to even above 1 (the kernel's instances:
+    1, 2, 4, 6, 8, 10), W = ceil(H / R) <= 32, 32 // W ladders per warp; 4
+    warps, 32 echoes per chunk, the echo table in shared memory; a grid
+    whose (block, warp, segment) slots store each of 1, 33 and 4,097
+    atoms exactly once; R = 10, W = 4 at the published nstate 36."""
+    top = 150 if diffusion else 301
+    for n in range(0, top + 1):
+        geo = cuda_mse.cpmg_geometry(n, diffusion)
+        H, R, W, L = max(n, 1) + 1, geo["R"], geo["W"], geo["L"]
+        assert R in (1, 2, 4, 6, 8, 10) and cuda_mse.CPMG_MAX_ROWS == 10
+        assert 2 <= W == -(-H // R) <= 32 and L == 32 // W
+        fewest = max(2, -(-H // 10))
+        assert R - -(-H // fewest) in (0, 1) and W <= fewest
+        assert (geo["warps"], geo["echoes"]) == (4, 32)
+        assert geo["atoms"] == 4 * L
+        assert geo["smem"] == 4 * cuda_mse.CPMG_TABLE * 32
+        for B_ in (1, 33, 4097):
+            owned, _ = seg_owned_atoms(geo, B_)
+            assert sorted(owned) == list(range(B_)), (n, B_)
+    main = cuda_mse.cpmg_geometry(36, diffusion)
+    assert (main["R"], main["W"], main["L"]) == (10, 4, 8)
+    assert cuda_mse.cpmg_geometry(top, diffusion)["W"] == (
+        16 if diffusion else 31)
+
+
+@pytest.mark.parametrize("diffusion", [False, True])
+def test_primal_gate_unchanged(diffusion):
+    """mse_kernel_fits over nstate 0-400 answers as the one-thread-per-atom
+    layout set it: 6 planes (12 with DW-TSE) of max(nstate, 1) + 1 rows at
+    32 atoms in 232,448 bytes -- nstate <= 301 (150)."""
+    planes_ = 12 if diffusion else 6
+    for n in range(401):
+        assert cuda_mse.mse_kernel_fits(n, diffusion) == (
+            4 * planes_ * (max(n, 1) + 1) * 32 <= 232448), n
+    assert cuda_mse.mse_kernel_fits(150 if diffusion else 301, diffusion)
+    assert not cuda_mse.mse_kernel_fits(151 if diffusion else 302,
+                                        diffusion)
 
 
 # -- float64 paths vs the goldens --

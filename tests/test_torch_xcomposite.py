@@ -36,8 +36,10 @@ from epgpy_tpu.models import pallas_xcomposite
 
 from chip_smoke import (XCOMP_CASES, make_xcomp_case, make_xcomp_jac_case,
                         xcomp_golden_train, xcomp_tensors)
+from epgpy_torch.models import cuda_fisp, cuda_xgre, planes
 from torch_support import (GOLDEN_DIR, cplx, port_f32,  # noqa: F401
-                           port_f64, same_match)
+                           port_f64, same_match, seg_owned_atoms,
+                           seg_shift_emulated, to_f64)
 
 B, NSTAGE = 8, 24
 
@@ -289,3 +291,168 @@ def test_echo_layout_and_launch_counters():
         cuda_xcomposite.xcomposite_cuda(*targs, **kw)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_xcomposite.xcomposite_jacobian_cuda(*tj, **jkw)
+
+
+# -- the segmented layout of xcomposite_jac.cu: down shift, lane map,
+# geometry, gate --
+
+
+@pytest.mark.parametrize("H", [2, 3, 9, 10, 25, 151])
+def test_seg_shift_blocked_down_emulation(H):
+    """epg::seg_shift_blocked_down, replayed in numpy (NaN in the idle
+    lanes, past the last atom and in the padding rows), equals
+    planes.shift_down exactly at every R from 1 to 5 that the layout takes
+    (W = ceil(H / R) <= 32), and leaves the padding rows' A and B planes
+    zero."""
+    rng = np.random.default_rng(H)
+    s = tuple(torch.as_tensor(rng.normal(size=(H, 7))) for _ in range(6))
+    ran = 0
+    for R in range(1, 6):
+        if -(-H // R) > 32:
+            continue
+        got, pad = seg_shift_emulated(s, R, down=True, padding=True,
+                                      blocked=True)
+        for g_, w in zip(got, planes.shift_down(s)):
+            assert torch.equal(g_, w), R
+        assert (pad == 0.0).all(), R
+        ran += 1
+    assert ran == (1 if H == 151 else 5)
+
+
+def _deepest(C, G):
+    """The gate's deepest ladder for (C, G): its largest H = nstate + 1."""
+    return max(n for n in range(401)
+               if cuda_xgre.xgre_jac_kernel_fits(n, C, G)) + 1
+
+
+#: (C, G, H) of the lane-map replay: one to four pools, at the exchange-rate
+#: fit's ladder (H = 9) and at the gate's deepest for each (C, G)
+XCOMP_LANE_RUNS = [(C, G, H) for C, G in ((1, 2), (2, 2), (2, 3), (3, 4),
+                                          (4, 3))
+                   for H in (9, _deepest(C, G))]
+
+
+@pytest.mark.parametrize("C,G,H", XCOMP_LANE_RUNS, ids=lambda v: str(v))
+def test_xcomp_jac_lane_map_matches_twin(monkeypatch, C, G, H):
+    """The float64 Jacobian twin with every up and down shift replayed
+    through the kernel's blocked lane map at its rows per lane
+    (epg::seg_shift_blocked and epg::seg_shift_blocked_down, emulated in
+    numpy with NaN in the idle lanes and padding rows) is within 1e-12 of
+    the twin (equal), every group, pool and readout: up, down and
+    unshifted stages, ADC phases, saturation, adiabatic stages, sparse
+    readouts, over more stages than the ladder has rows."""
+    case = dict(name="lane_map", C=C, V=G - 1, nstate=H - 1, shift="mixed",
+                adcph=True, sat=True, b1u=True, g=True, sparse=True)
+    jargs, kw = make_xcomp_jac_case(torch, case, 37, H + 6, seed=4)
+    assert {-1.0, 0.0, 1.0} <= set(np.asarray(jargs[7]).tolist())
+    targs = to_f64(xcomp_tensors(torch, jargs, "cpu", jac=True))
+    want = cuda_xcomposite.xcomposite_jacobian_plain(*targs, **kw)
+    geo = cuda_xcomposite.xcomp_jac_geometry(H - 1, C, G,
+                                             len(jargs[12][0]))
+    R = geo["R"]
+    monkeypatch.setattr(planes, "shift_fold",
+                        lambda x: seg_shift_emulated(x, R, blocked=True))
+    monkeypatch.setattr(planes, "shift_down",
+                        lambda x: seg_shift_emulated(x, R, down=True,
+                                                     blocked=True))
+    got = cuda_xcomposite.xcomposite_jacobian_plain(*targs, **kw)
+    assert got[0].dtype == torch.float64
+    assert got[0].shape == (kw["nadc"], G, C, 37)
+    for g_, w in zip(got, want):
+        assert torch.isfinite(g_).all()
+        assert float((g_ - w).abs().max()) <= 1e-12
+        assert torch.equal(g_, w)
+
+
+#: the rows per lane a (C, G) instance of the kernel takes at most (its
+#: max_rows): the rule at the gate's deepest ladder
+XCOMP_MAX_ROWS = {2: 5, 3: 4, 4: 3, 5: 2, 6: 2, 8: 2, 9: 2, 10: 1, 12: 1}
+
+
+def _global_nmat(nstate, C, G):
+    """The fewest table entries whose records pass one warp's share of the
+    block (the kernel's global-read mode)."""
+    _, _, L = cuda_fisp.seg_layout(nstate,
+                                   cuda_xcomposite.xcomp_jac_rows(nstate, C,
+                                                                  G))
+    per = (cuda_xcomposite.XCOMP_JAC_TABLE * C
+           + cuda_xcomposite.XCOMP_JAC_STAGE + 2 * G * C * L)
+    nmat = 1
+    while ((nmat * G * 3 * C * C + C * G) | 1) * L + per <= 12288:
+        nmat += 1
+    return nmat
+
+
+def test_xcomp_jac_geometry():
+    """For every (nstate, C, G) the gate admits, at 4 table entries (the
+    exchange-rate fit's) and at the fewest entries that pass one warp's
+    share of the block, and at one fewer: 1 row per lane up to 3 rows,
+    else ceil(H / 32), at least 3 while C G <= 4 and 2 while C G <= 6 (at
+    most the kernel's instance, XCOMP_MAX_ROWS); a segment of W = ceil(H / R)
+    <= 32 lanes, as many ladders per warp as fit; the mode reported --
+    the records in shared memory while one warp's records and one stage's
+    table and echoes fit 48 KB, else read from device memory -- 1-4 warps
+    per block (4 unless the records need fewer), 1-32 stages per chunk,
+    the block's tables and staged echoes within 48 KB, and a grid whose
+    (block, warp, segment) slots store each of 1, 2, 3, 33 and 4,097
+    atoms exactly once."""
+    seen = dict(shared=0, device=0)
+    for C in range(1, 5):
+        for G in range(2, 6):
+            if C * G > 12:
+                continue
+            for n in range(0, 401):
+                if not cuda_xgre.xgre_jac_kernel_fits(n, C, G):
+                    continue
+                big = _global_nmat(n, C, G)
+                for nmat in sorted({4, big - 1, big} - {0}):
+                    geo = cuda_xcomposite.xcomp_jac_geometry(n, C, G, nmat)
+                    H, R, W, L = n + 1, geo["R"], geo["W"], geo["L"]
+                    assert R == (1 if H <= 3 else max(
+                        -(-H // 32), 3 if C * G <= 4 else
+                        2 if C * G <= 6 else 1))
+                    assert R <= XCOMP_MAX_ROWS[C * G]
+                    assert W == -(-H // R) <= 32 and W * R >= H
+                    assert L == 32 // W
+                    assert geo["atoms"] == geo["warps"] * L
+                    coef = (nmat * G * 3 * C * C + C * G) | 1
+                    per = (cuda_xcomposite.XCOMP_JAC_TABLE * C
+                           + cuda_xcomposite.XCOMP_JAC_STAGE
+                           + 2 * G * C * geo["atoms"])
+                    assert geo["coef"] == coef
+                    assert geo["shared"] == (nmat < big)
+                    table = coef * geo["atoms"] if geo["shared"] else 0
+                    assert 1 <= geo["warps"] <= 4
+                    assert geo["warps"] == 4 or (
+                        geo["shared"] and coef * 2 * geo["atoms"]
+                        + per + 2 * G * C * geo["atoms"] > 12288)
+                    assert 1 <= geo["pulses"] <= 32
+                    assert geo["smem"] == 4 * (table + geo["pulses"] * per)
+                    assert geo["smem"] <= 48 * 1024
+                    assert geo["smem"] <= cuda_fisp.SMEM_PER_BLOCK
+                    for B_ in (1, 2, 3, 33, 4097):
+                        owned, _ = seg_owned_atoms(geo, B_)
+                        assert sorted(owned) == list(range(B_)), (n, C, G)
+                    seen["shared" if geo["shared"] else "device"] += 1
+    assert seen == dict(shared=1492, device=749)
+    kfit = cuda_xcomposite.xcomp_jac_geometry(8, 2, 2, 4)
+    assert (kfit["R"], kfit["W"], kfit["L"], kfit["warps"], kfit["coef"],
+            kfit["shared"]) == (3, 3, 10, 4, 101, True)
+
+
+def test_xcomp_jac_gate_unchanged():
+    """The Jacobian entry point's gate (cuda_xgre._check_jac_fits) answers
+    as the thread-per-atom layout set it: 1-4 pools, 2-5 groups with C G
+    <= 12, and 6 C G planes of nstate + 1 rows at 32 threads in 232,448
+    bytes, for nstate 0-400."""
+    for n in range(401):
+        for C in range(0, 6):
+            for G in range(1, 7):
+                fits = (1 <= C <= 4 and 2 <= G <= 5 and C * G <= 12
+                        and 4 * 6 * C * G * (n + 1) * 32 <= 232448)
+                try:
+                    cuda_xcomposite._check_jac_fits("x", C, G, n)
+                    took = True
+                except ValueError:
+                    took = False
+                assert took == fits, (n, C, G)

@@ -177,10 +177,11 @@ def seg_shift_emulated(s, R=None, down=False, padding=False, blocked=False):
     read back; with `padding`, also the values the shift leaves in the
     padding rows of the stored atoms' lanes, (6, n).  A NaN that reached a
     ladder row or a padding row would show in the result.  With `blocked`
-    lane r owns rows r R + c instead (``epg::seg_shift_blocked``, the up
-    shift only): rows move within a lane, and one row of A and of B per
-    lane crosses to the next lane; padding rows' A and B come out 0, their
-    Z as it went in."""
+    lane r owns rows r R + c instead
+    (``epg::seg_shift_blocked``, ``epg::seg_shift_blocked_down`` with
+    `down`): rows move within a lane, and one row of A and of B per lane
+    crosses to the next lane; padding rows' A and B come out 0, their Z as
+    it went in."""
     from epgpy_torch.models import cuda_fisp
 
     dtype = s[0].dtype
@@ -207,17 +208,17 @@ def seg_shift_emulated(s, R=None, down=False, padding=False, blocked=False):
     aa = np.broadcast_to(np.minimum(atom, B - 1)[None], valid.shape)
     v = np.where(valid[None], v0[:, kk, aa], np.nan)        # (6, R, w, 32)
     first, last = r == 0, r == W - 1
+    up, dn = list(up), list(dn)
     if blocked:
-        assert not down
         out = v.copy()
-        a = v[:2, R - 1][..., (lane - 1) % 32]       # the lane below's last A
-        b = v[2:4, 0][..., (lane + 1) % 32]          # the lane above's first B
-        a0 = np.where(first, v[2:4, 1] if R > 1 else b, a)
+        a = v[up, R - 1][..., (lane - 1) % 32]     # the lane below's last
+        b = v[dn, 0][..., (lane + 1) % 32]         # the lane above's first
+        a0 = np.where(first, v[dn, 1] if R > 1 else b, a)
         for c in range(R):
-            A = v[:2, c - 1] if c > 0 else a0
-            Bn = v[2:4, c + 1] if c + 1 < R else b
-            out[:2, c] = np.where(k[c] < H, A, 0.0)
-            out[2:4, c] = np.where(k[c] >= H - 1, 0.0, Bn)
+            A = v[up, c - 1] if c > 0 else a0
+            Bn = v[dn, c + 1] if c + 1 < R else b
+            out[up, c] = np.where(k[c] < H, A, 0.0)
+            out[dn, c] = np.where(k[c] >= H - 1, 0.0, Bn)
         res = np.zeros_like(v0)
         c_, w_, l_ = np.nonzero(valid)
         res[:, k[c_, l_], atom[w_, l_]] = out[:, c_, w_, l_]
@@ -229,7 +230,7 @@ def seg_shift_emulated(s, R=None, down=False, padding=False, blocked=False):
         return res
     below = np.where(first, base + W - 1, lane - 1) % 32
     above = np.where(last, base, lane + 1) % 32
-    a, b = v[list(up)][..., below], v[list(dn)][..., above]
+    a, b = v[up][..., below], v[dn][..., above]
     out = v.copy()
     for c in range(R):
         kc = k[c]
@@ -238,8 +239,8 @@ def seg_shift_emulated(s, R=None, down=False, padding=False, blocked=False):
         Bn = np.where(nxt, b[:, min(c + 1, R - 1)], b[:, c])
         keep = (R == 1) | (kc < H)
         zero_b = kc >= H - 1
-        out[list(up), c] = np.where(keep, A, 0.0)
-        out[list(dn), c] = np.where(zero_b, 0.0, Bn)
+        out[up, c] = np.where(keep, A, 0.0)
+        out[dn, c] = np.where(zero_b, 0.0, Bn)
         out[4:6, c] = np.where(keep, v[4:6, c], 0.0)
     res = np.zeros_like(v0)
     c_, w_, l_ = np.nonzero(valid)

@@ -1,4 +1,4 @@
-"""Time the segmented tangent kernels of several checkouts on one card.
+"""Time the segmented kernels of several checkouts on one card.
 
     python3 tools/jac_kernel_ab.py ROOT [ROOT ...] [--reps N]
                                    [--kernels NAME [NAME ...]]
@@ -31,14 +31,24 @@ after one warm-up, ``chip_smoke._cuda_ms``) at the main-path shapes:
   kernel alone;
 * ``dess_jac``: the DESS mapping train, 262,144 voxels x 48 TRs, nstate 8
   (``chip_smoke.dess_truth`` / ``dess_map_sequence`` through
-  ``fisp_dispatch.match_dess``): the wrapper call and the kernel alone.
+  ``fisp_dispatch.match_dess``): the wrapper call and the kernel alone;
+* ``cpmg``: the published 18-echo CPMG train at 640,000 signals, nstate
+  36 (``chip_smoke.mse_grid`` / ``mse_kernel_args`` at ``MSE_SCALED``),
+  and the same with DW-TSE attenuation on both stages (b-value bases 3,
+  4, 5, 6, D 1e-3): the wrapper call (one launch, nothing around it);
+* ``xcomposite_jac``: the exchange-rate fit's Jacobian, 65,536 voxels x
+  156 stages, two pools, one variable, nstate 8, four table entries, at
+  the fit's truth (``chip_smoke.phase_kfit``'s arguments): the wrapper
+  call and the kernel alone.
 
 ``--kernels`` times only the named ones (default: all).  ``--fits`` also
-runs, twice per turn, the two end-to-end fits that call the last two
-kernels -- the qMT (f, T2f) fit (``chip_smoke.phase_qmt_fit``: match and
-8 Gauss-Newton iterations) and the DESS T1/T2 mapping
-(``chip_smoke.phase_dess_mapping``: 10 iterations) -- and keeps the
-second run's host-clock times, in ms.
+runs, twice per turn, the end-to-end fits that call the kernels -- the
+qMT (f, T2f) fit (``chip_smoke.phase_qmt_fit``: match and 8 Gauss-Newton
+iterations), the DESS T1/T2 mapping (``chip_smoke.phase_dess_mapping``: 10
+iterations), the exchange-rate fit (``chip_smoke.phase_kfit``: 8
+iterations) and the CPMG T2/B1 mapping (``chip_smoke.phase_t2b1``:
+dictionary, match and Gauss-Newton) -- and keeps the second run's
+host-clock times, in ms.
 
 Each turn prints one JSON line with its times and the kernels' ptxas lines
 (registers, stack frame) where it built them; the last lines give the
@@ -60,7 +70,7 @@ SHAPES = {"fisp": (102400, 1000), "megre": (262144, 200)}
 
 
 KERNELS = ("fisp_jac", "megre_jac", "fisp_hess", "composite_jac",
-           "xgre_jac", "dess_jac")
+           "xgre_jac", "dess_jac", "cpmg", "xcomposite_jac")
 
 
 def turn(root, reps, kernels, fits):
@@ -71,7 +81,8 @@ def turn(root, reps, kernels, fits):
     import chip_smoke as cs
     import epgpy_torch as epg
     from epgpy_torch import _build, fisp_dispatch
-    from epgpy_torch.models import cuda_dess, cuda_xgre
+    from epgpy_torch.models import cuda_dess, cuda_mse, cuda_xcomposite, \
+        cuda_xgre
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
@@ -107,14 +118,38 @@ def turn(root, reps, kernels, fits):
         out["dess_jac_kernel_ms"] = cs._launch_ms(torch, dcall,
                                                   "epg_dess_jac", reps)
         del dargs
+    if "cpmg" in kernels:
+        T2s, atts = cs.mse_grid(*cs.MSE_SCALED)
+        margs = cs.mse_kernel_args(torch, T2s, atts)
+        dc = torch.full((margs[5].shape[0],), 1e-3, device=dev)
+        for key, kw in (("cpmg_ms", {}), ("cpmg_dw_ms", dict(
+                diffusion=(3.0, 4.0, 5.0, 6.0, dc, dc)))):
+            out[key] = cs._cuda_ms(torch, lambda kw=kw: cuda_mse.cpmg_echoes(
+                *margs, nstate=cs.MSE_NSTATE, **kw), reps)
+        del margs
+    if "xcomposite_jac" in kernels or fits:
+        kf = cs.phase_kfit(torch, epg)
+
+        def kcall():
+            return cuda_xcomposite.xcomposite_jacobian_echoes(*kf["args"],
+                                                              **kf["kw"])
+        if "xcomposite_jac" in kernels:
+            out["xcomposite_jac_ms"] = cs._cuda_ms(torch, kcall, reps)
+            out["xcomposite_jac_kernel_ms"] = cs._launch_ms(
+                torch, kcall, "epg_xcomposite_jac", reps)
     if fits:
         for _ in range(2):      # the first run warms the host paths
             q = cs.phase_qmt_fit(torch, epg)
             del q["args"]
             d = cs.phase_dess_mapping(torch, epg)
+            kf = cs.phase_kfit(torch, epg)
+            m = cs.phase_t2b1(torch, epg)
         out["qmt_match_ms"] = 1e3 * q["match_s"]
         out["qmt_gn_ms"] = 1e3 * q["gn_s"]
         out["dess_map_gn_ms"] = 1e3 * d["gn_s"]
+        out["kfit_gn_ms"] = 1e3 * kf["gn_s"]
+        out["t2b1_dict_ms"] = 1e3 * m["dict_s"]
+        out["t2b1_gn_ms"] = 1e3 * m["gn_s"]
     _fisp_family(root, reps, kernels, out)
     log = _build.build_info()["log"].splitlines()
     out["ptxas"] = [f"{a.split('for')[-1].strip()[-48:]}: {b.strip()}; "
@@ -123,7 +158,9 @@ def turn(root, reps, kernels, fits):
                     if "Function properties" in a
                     and any(k in a for k in ("fisp_jac", "megre_jac",
                                              "hess_", "composite_jac",
-                                             "xgre_jac", "dess_jac"))]
+                                             "xgre_jac", "dess_jac",
+                                             "cpmg_kernel", "xcomp_jac"))]
+    out["build_s"] = _build.build_info()["seconds"]
     print(json.dumps(out))
 
 
