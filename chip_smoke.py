@@ -490,6 +490,11 @@ MEGRE_EDGE_CASES = [
          demodulate=True),
 ]
 
+#: nstates on both sides of every change of the segmented primal kernels'
+#: rows per lane (cuda_fisp.half_rows: fisp_half.cu and composite.cu),
+#: nstate 1 among them
+HALF_ROW_EDGES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 15, 16, 19, 20, 23,
+                  24, 29, 30, 35, 36, 39, 40, 47, 48, 49, 50)
 #: covering set of the composite kernels' options: shift directions (up,
 #: down, mixed), ADC phases, b1u (adiabatic) stages with a B1 batch, df, D
 #: stages with ramp directions -1, 0 and +1, stages without a readout and
@@ -529,6 +534,19 @@ COMP_EDGE_CASES = [
     (dict(_COMP_ALL, name="g4_n3", nstate=3), ("T1", "T2", "B1", "df")),
     (dict(_COMP_ALL, name="g4_n1", nstate=1), ("T1", "T2", "B1", "df")),
 ]
+#: the segmented composite primal kernel's edges, each with every option:
+#: the gate's deepest ladder (nstate 301) with mixed shifts and with every
+#: stage shifting up (its top rows reached over COMP_PRIMAL_TOP_N stages),
+#: and both sides of every change of the rows per lane (HALF_ROW_EDGES,
+#: nstate 1 among them)
+COMP_PRIMAL_EDGE_CASES = [dict(_COMP_ALL, name="gate_n301", nstate=301),
+                          dict(_COMP_ALL, name="gate_up_n301", nstate=301,
+                               shift="up")] + [
+    dict(_COMP_ALL, name=f"rows_n{n}", nstate=n) for n in HALF_ROW_EDGES]
+COMP_PRIMAL_TOP_N = 340
+#: nstates of the composite primal kernel's ragged shapes (COMP_SHAPES):
+#: one lane per ladder (1; 8, MPRAGE's) and four (40)
+COMP_PRIMAL_SHAPE_NSTATES = (1, 8, 40)
 #: atoms of the composite edge cases; ragged shapes (atoms, stages) of the
 #: case with every option and every group, at nstate 1 and COMPJ_NSTATE:
 #: 1, 33 and 4,097 atoms, 1, 2 and 33 stages
@@ -588,6 +606,33 @@ JAC_CASES = [
          diffusion="ramp", track_d=True),
 ]
 
+
+#: the segmented FISP dictionary kernel's own edges, each held against its
+#: twin over HALF_EDGE_PULSES pulses more than the ladder has rows: the
+#: gate's deepest ladder (nstate 301: 12 rows on 26 lanes) with and
+#: without DW-FISP, with inversion, df and demodulation; trains whose TR
+#: and TE repeat in runs (with per-pulse TE and without), so that the
+#: relaxation terms are kept across pulses and recomputed; both sides of
+#: every change of the rows per lane, options alternating
+HALF_EDGE_CASES = [
+    dict(name="gate_n301", nstate=301, inversion=20.0, df=True,
+         demodulate=True),
+    dict(name="gate_dw_n301", nstate=301, inversion=20.0, df=True,
+         demodulate=True, diffusion="ramp"),
+    dict(name="runs_var_te", runs=True, var_te=True, df=True),
+    dict(name="runs", runs=True, inversion=20.0, diffusion="noramp"),
+] + [dict(name=f"rows_n{n}", nstate=n, var_te=True, inversion=20.0, df=True)
+     if n % 2 else dict(name=f"rows_n{n}", nstate=n, runs=True,
+                        demodulate=True, df=True, diffusion="ramp")
+     for n in HALF_ROW_EDGES]
+HALF_EDGE_ATOMS, HALF_EDGE_PULSES = 1000, 40
+#: ragged shapes (atoms, pulses) of the FISP dictionary kernel, each with
+#: HALF_RAGGED_CASE at one lane per ladder (nstate 10) and at four (40): 1,
+#: 33 and 4,097 atoms, trains of 1 and 33 pulses
+HALF_SHAPES = [(1, 120), (33, 120), (4097, 120), (33, 1), (33, 33)]
+HALF_RAGGED_CASE = dict(name="ragged", runs=True, var_te=True,
+                        inversion=15.0, df=True, demodulate=True,
+                        diffusion="ramp")
 
 #: the segmented Jacobian kernels' (fisp_jac.cu, megre_jac.cu) own edges,
 #: each held against its twin over a train longer than the ladder: the
@@ -1296,6 +1341,12 @@ def make_case(case, natoms, npulse, seed=0):
     T2 = np.minimum(rng.uniform(20.0, 250.0, natoms), 0.8 * T1)
     B1 = rng.uniform(0.7, 1.3, natoms)
     df = rng.uniform(-0.05, 0.05, natoms) if case.get("df") else None
+    if case.get("runs"):
+        # TR (and a per-pulse TE) repeat in runs of 1-40 pulses
+        rr = np.random.default_rng(seed + 1)
+        TRs = _runs(rr, npulse, 11.0, 16.0)
+        if case.get("var_te"):
+            TEs = _runs(rr, npulse, 2.0, 5.0)
     kw = dict(nstate=case.get("nstate", NSTATE),
               demodulate=case.get("demodulate", False),
               inversion=case.get("inversion"),
@@ -1305,6 +1356,12 @@ def make_case(case, natoms, npulse, seed=0):
         kw["diffusion"] = (6.0, 4.0, rng.uniform(0.5e-3, 3e-3, natoms))
         kw["diff_ramp"] = case["diffusion"] == "ramp"
     return (FA, phi, TRs, TEs, T1, T2, B1, df), kw
+
+
+def _runs(rng, n, lo, hi):
+    """(n,) values uniform in [lo, hi), each repeated over a run of 1-40."""
+    lens = rng.integers(1, 41, n)
+    return np.repeat(rng.uniform(lo, hi, n), lens)[:n]
 
 
 def make_train(npulse):
@@ -1445,6 +1502,8 @@ def phase_build():
 #: what the runtime reserves of it per block
 SM_REGS, SM_REG_UNIT, SM_WARPS, SM_BLOCKS = 65536, 256, 64, 32
 SM_SMEM, SM_SMEM_RESERVED = 233472, 1024
+#: streaming multiprocessors of an H100 SXM
+SM_COUNT = 132
 
 
 def ptxas_registers(log, what="registers"):
@@ -1527,9 +1586,11 @@ def phase_occupancy():
     warps per SM and the static SASS instruction mix of the warp-row CPMG
     kernels and the segmented FISP, ME-GRE, composite, EPG-X GRE, DESS and
     composite EPG-X Jacobian kernels, the Hessian kernel's two passes and
-    the segmented CPMG kernel at their main-path geometries; the registers
-    and stack of every xgre and composite EPG-X Jacobian instance and
-    every CPMG instance."""
+    the segmented CPMG, FISP dictionary and composite primal kernels at
+    their main-path geometries (the last two with the waves of their
+    grids); the registers and stack of every xgre and composite EPG-X
+    Jacobian instance and every CPMG, FISP dictionary and composite primal
+    instance."""
     from epgpy_torch import _build
     from epgpy_torch.models import cuda_composite, cuda_dess, cuda_fisp, \
         cuda_hessian, cuda_megre, cuda_mse, cuda_msedesign, \
@@ -1584,6 +1645,24 @@ def phase_occupancy():
         seg.append((f"cpmg nstate {MSE_NSTATE}{' DW' if dif else ''}",
                     f"cpmg_kernelILi{geo['R']}ELb{int(dif)}EE",
                     dict(geo, pulses=geo["echoes"])))
+    # the segmented primal kernels at their main paths, with the waves of
+    # their grids: the FISP dictionary (and DW-FISP's), the cardiac MRF
+    # and MPRAGE composite trains
+    waves_of = {}
+    for dif in (False, True):
+        geo = cuda_fisp.fisp_half_geometry(NSTATE, dif)
+        hs = cuda_fisp.half_static_rows(NSTATE, geo["R"])
+        what = f"fisp_half nstate {NSTATE}{' DW' if dif else ''}"
+        seg.append((what, f"fisp_half_kernelILi{geo['R']}ELi{hs}ELb{int(dif)}"
+                          f"EE", geo))
+        waves_of[what] = NATOMS
+    for nst, n in ((CMRF_NSTATE, len(cardiac_grid())),
+                   (MPR_NSTATE, MPR_NVOX)):
+        geo = cuda_composite.comp_geometry(nst)
+        hs = cuda_fisp.half_static_rows(nst, geo["R"])
+        what = f"composite nstate {nst}"
+        seg.append((what, f"composite_kernelILi{geo['R']}ELi{hs}EE", geo))
+        waves_of[what] = n
     for what, key, geo in seg:
         r, frame = of(key), of(key, stack)
         if r is None:
@@ -1591,20 +1670,30 @@ def phase_occupancy():
                   f"line: the library was built before this run)")
             continue
         res, by_regs, by_smem = resident_warps(r, geo["warps"], geo["smem"])
+        waves = ""
+        if what in waves_of:
+            blocks = -(-waves_of[what] // geo["atoms"])
+            waves = (f"; {blocks} blocks over {waves_of[what]} atoms = "
+                     f"{blocks / (SM_COUNT * (res // geo['warps'])):.3f} "
+                     f"waves of {SM_COUNT} SMs")
         print(f"[occupancy] {what}: {r} registers, {frame} B stack frame, "
               f"{geo['warps']} warps ({geo['L']} ladders of {geo['W']} "
               f"lanes x {geo['R']} rows each), {geo['pulses']} pulses per "
               f"chunk and "
               f"{geo['smem']} B of shared memory per block; {res} resident "
               f"warps per SM (registers admit {by_regs}, shared memory "
-              f"{by_smem})")
+              f"{by_smem}){waves}")
 
     for name, pattern, fields in (
             ("xgre_jac", r"xgre_jac_kernelILi(\d+)ELi(\d+)ELi(\d+)EE",
              "C, G, R"),
             ("xcomposite_jac", r"xcomp_jac_kernelILi(\d+)ELi(\d+)ELi(\d+)"
              r"ELb(\d)EE", "C, G, R, shared table"),
-            ("cpmg", r"cpmg_kernelILi(\d+)ELb(\d)EE", "R, DW-TSE")):
+            ("cpmg", r"cpmg_kernelILi(\d+)ELb(\d)EE", "R, DW-TSE"),
+            ("fisp_half", r"fisp_half_kernelILi(\d+)ELi(\d+)ELb(\d)EE",
+             "R, static rows, DW-FISP"),
+            ("composite", r"composite_kernelILi(\d+)ELi(\d+)EE",
+             "R, static rows")):
         inst = sorted((tuple(int(v) for v in m.groups()), r, stack.get(n))
                       for n, r in regs.items()
                       for m in [re.search(pattern, n)] if m)
@@ -1649,25 +1738,53 @@ def phase_occupancy():
                  else "not measured (no cuobjdump)"))
 
 
-def phase_cases(torch, natoms=4096, npulse=NPULSE):
-    """Kernel vs plain twin over the option cases; returns max |delta|."""
+def half_vs_twin(torch, case, natoms, npulse):
+    """The FISP dictionary kernel against its plain twin on one option
+    case: (max |delta| over re and im, whether the kernel's echoes are
+    finite); raises unless the wrapper launched the kernel once."""
     from epgpy_torch.models import cuda_fisp
 
+    args, kw = _tensors(torch, *make_case(case, natoms, npulse), DEVICE)
+    before = cuda_fisp.LAUNCHES
+    kre, kim = cuda_fisp.fisp_dictionary_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    if cuda_fisp.LAUNCHES != before + 1:
+        raise AssertionError(f"case {case['name']}: the kernel did not run")
+    pre, pim = cuda_fisp.fisp_dictionary_plain(*args, **kw)
+    delta = max(float((kre - pre).abs().max()),
+                float((kim - pim).abs().max()))
+    return delta, bool(torch.isfinite(kre).all() and torch.isfinite(kim).all())
+
+
+def phase_cases(torch, natoms=4096, npulse=NPULSE):
+    """Kernel vs plain twin over the option cases, then the segmented
+    kernel's edges (HALF_EDGE_CASES, trains HALF_EDGE_PULSES pulses longer
+    than the ladder) and ragged shapes (HALF_SHAPES at nstate NSTATE and
+    40); returns max |delta|."""
+    runs = [("options", case, natoms, npulse)
+            for case in OPTION_CASES + [dict(name="nstate40", nstate=40,
+                                             inversion=20.0, df=True)]]
+    runs += [("edges", case, HALF_EDGE_ATOMS,
+              case.get("nstate", NSTATE) + 1 + HALF_EDGE_PULSES)
+             for case in HALF_EDGE_CASES]
+    runs += [("shapes", dict(HALF_RAGGED_CASE, name=f"ragged_n{nst}",
+                             nstate=nst), n, p)
+             for n, p in HALF_SHAPES for nst in (NSTATE, 40)]
     worst = 0.0
-    for case in OPTION_CASES + [dict(name="nstate40", nstate=40,
-                                     inversion=20.0, df=True)]:
-        args, kw = _tensors(torch, *make_case(case, natoms, npulse), "cuda")
-        kre, kim = cuda_fisp.fisp_dictionary_cuda(*args, **kw)
-        pre, pim = cuda_fisp.fisp_dictionary_plain(*args, **kw)
-        delta = max(float((kre - pre).abs().max()),
-                    float((kim - pim).abs().max()))
-        ok = bool(torch.isfinite(kre).all() and torch.isfinite(kim).all())
-        print(f"[cases] {case['name']:12s} nstate={kw['nstate']:2d} "
+    wall = dict.fromkeys(("options", "edges", "shapes"), 0.0)
+    for part, case, n, p in runs:
+        t0 = time.perf_counter()
+        delta, ok = half_vs_twin(torch, case, n, p)
+        print(f"[cases] {case['name']:14s} B={n:5d} P={p:4d} "
+              f"nstate={case.get('nstate', NSTATE):3d} "
               f"max|kernel - plain| = {delta:.3e}")
         if not ok or not delta <= TOL_KERNEL:
-            raise AssertionError(f"case {case['name']}: kernel vs plain twin "
-                                 f"{delta:.3e} > {TOL_KERNEL} or not finite")
+            raise AssertionError(f"case {case['name']} (B={n}, P={p}): "
+                                 f"kernel vs plain twin {delta:.3e} > "
+                                 f"{TOL_KERNEL} or not finite")
         worst = max(worst, delta)
+        wall[part] += time.perf_counter() - t0
+    _print_wall("phase_cases", wall)
     return worst
 
 
@@ -4475,8 +4592,43 @@ def phase_comp_cases(torch, natoms=4096):
                 f"{TOL_KERNEL} / {TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
         wall[part] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs = [(case, COMP_EDGE_ATOMS, COMP_PRIMAL_TOP_N
+             if case["shift"] == "up" else COMP_CASE_N)
+            for case in COMP_PRIMAL_EDGE_CASES]
+    runs += [(dict(_COMP_ALL, name=f"primal_ragged_n{nst}", nstate=nst), n,
+              ns) for n, ns in COMP_SHAPES for nst in COMP_PRIMAL_SHAPE_NSTATES]
+    for case, n, ns in runs:
+        sig, ok = comp_vs_twin(torch, case, n, ns)
+        print(f"[comp-cases] primal {case['name']:18s} B={n:5d} N={ns:3d} "
+              f"nstate={case['nstate']:3d}: max|kernel - plain| = {sig:.3e}")
+        if not ok or not sig <= TOL_KERNEL:
+            raise AssertionError(
+                f"composite primal edge {case['name']} (B={n}, N={ns}): "
+                f"kernel vs plain twin {sig:.3e} over {TOL_KERNEL} or not "
+                f"finite")
+        worst_sig = max(worst_sig, sig)
+    wall["primal"] = time.perf_counter() - t0
     _print_wall("phase_comp_cases", wall)
     return worst_sig, worst_col
+
+
+def comp_vs_twin(torch, case, natoms, nstage):
+    """The composite primal kernel against its plain twin on one option
+    case: (max |delta| over re and im, whether the kernel's echoes are
+    finite); raises unless the wrapper launched the kernel once."""
+    from epgpy_torch.models import cuda_composite as cc
+
+    args, kw = comp_tensors(torch, *make_comp_case(case, natoms, nstage),
+                            DEVICE)
+    before = cc.LAUNCHES
+    k = cc.composite_echoes(*args, **kw)
+    torch.cuda.synchronize()
+    if cc.LAUNCHES != before + 1:
+        raise AssertionError(f"composite {case['name']}: the kernel did not "
+                             f"run")
+    sig, _ = _pair_errors(torch, k, cc.composite_plain(*args, **kw), False)
+    return sig, _finite(torch, k)
 
 
 def cardiac_train(epg, T1, T2, track=None):
@@ -6232,12 +6384,14 @@ def main():
           f"{dmap['split']['simulate']:.3f} s); T1 RMSE "
           f"{dmap['rmse'][0]:.3f} ms, T2 RMSE {dmap['rmse'][1]:.4f} ms "
           f"({card})")
+    kernels = ([entry, jac_entry, hess_entry, mse_entry, mse_jac_entry,
+                design_entry] + ssfp_entries + megre_entries + comp_entries
+               + x_entries)
+    print("[bound] share of the bound (bound_ms / ms): " + ", ".join(
+        f"{k['name']} {k['bound_ms'] / k['ms']:.1%}" for k in kernels))
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [entry, jac_entry, hess_entry, mse_entry,
-                                  mse_jac_entry, design_entry]
-                      + ssfp_entries + megre_entries + comp_entries
-                      + x_entries}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

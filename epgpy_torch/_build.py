@@ -31,8 +31,7 @@ _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 #: C entry points and their argument types (see csrc/*.cu)
 _SIGNATURES = {
     "epg_fisp_half": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _F, _F,
-                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _P],
+                      _P] + [_I] * 14 + [_P],
     "epg_fisp_jac": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _F, _F, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P],
@@ -54,7 +53,7 @@ _SIGNATURES = {
     "epg_megre_jac": [_P] * 9 + [_I] * 8 + [_P],
     "epg_fisp_full": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P]
     + [_I] * 10 + [_P],
-    "epg_composite": [_P] * 16 + [_I] * 12 + [_P],
+    "epg_composite": [_P] * 16 + [_I] * 14 + [_P],
     "epg_composite_jac": [_P] * 16 + [_I] * 14 + [_P],
     "epg_xgre": [_P] * 10 + [_I] * 7 + [_P],
     "epg_xgre_jac": [_P] * 10 + [_I] * 10 + [_P],

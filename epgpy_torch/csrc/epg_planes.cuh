@@ -643,12 +643,13 @@ __device__ __forceinline__ int reach(int i, int half, int H) {
 //
 // The tangent kernels fisp_jac.cu, megre_jac.cu, composite_jac.cu,
 // fisp_hess.cu (its two passes), xgre_jac.cu, dess_jac.cu and
-// xcomposite_jac.cu and the CPMG kernel cpmg.cu give a folded ladder of H
-// = nstate + 1 rows a segment of W = ceil(H / R) consecutive lanes, and a
-// warp holds L = 32 / W segments; lanes past the last segment run the
-// same instructions on a clamped atom and store nothing.  Lane r of a
-// segment owns rows k = r + W c, c < R, of every plane of every group
-// (xgre_jac.cu, dess_jac.cu, xcomposite_jac.cu and cpmg.cu: rows k = r R
+// xcomposite_jac.cu and the primal kernels cpmg.cu, fisp_half.cu and
+// composite.cu give a folded ladder of H = nstate + 1 rows a segment of
+// W = ceil(H / R) consecutive lanes, and a warp holds L = 32 / W
+// segments; lanes past the last segment run the same instructions on a
+// clamped atom and store nothing.  Lane r of a segment owns rows k = r + W
+// c, c < R, of every plane of every group (xgre_jac.cu, dess_jac.cu,
+// xcomposite_jac.cu, cpmg.cu, fisp_half.cu and composite.cu: rows k = r R
 // + c, the blocked layout of seg_shift_blocked), in registers: R is a template
 // parameter, so each plane is a statically indexed float[R], and the
 // per-pulse work of a lane -- its rotation coefficients, the broadcasts,
@@ -854,6 +855,33 @@ __device__ __forceinline__ void seg_shift_down(const SegLane& q,
         s[4][c] = keep ? s[4][c] : 0.0f;
         s[5][c] = keep ? s[5][c] : 0.0f;
     }
+}
+
+// The folded shifts of a ladder of a static H <= R rows held by one lane
+// (s[j][c]: plane j, row c; the blocked layout at W = 1, as fisp_half.cu
+// and composite.cu run their ladders of up to 12 rows): planes U, U + 1
+// move up a row and planes D, D + 1 down -- seg_shift_blocked with U = 0
+// (A), D = 2 (B), seg_shift_blocked_down with U = 2, D = 0: U(k) <-
+// U(k-1), U(0) <- D(1), D(k) <- D(k+1), D(H-1) <- 0, Z unshifted.  Rows c
+// >= H are never touched, so no select runs.
+template <int U, int D, int H, int R>
+__device__ __forceinline__ void lane_shift(float (&s)[6][R]) {
+    static_assert(H >= 2 && H <= R, "one lane holds the ladder");
+    const float u0R = s[D][1], u0I = s[D + 1][1];
+#pragma unroll
+    for (int c = H - 1; c >= 1; --c) {
+        s[U][c] = s[U][c - 1];
+        s[U + 1][c] = s[U + 1][c - 1];
+    }
+    s[U][0] = u0R;
+    s[U + 1][0] = u0I;
+#pragma unroll
+    for (int c = 0; c + 1 < H; ++c) {
+        s[D][c] = s[D][c + 1];
+        s[D + 1][c] = s[D + 1][c + 1];
+    }
+    s[D][H - 1] = 0.0f;
+    s[D + 1][H - 1] = 0.0f;
 }
 
 // The post-shift diffusion attenuation factors of row k (fisp_jac's and

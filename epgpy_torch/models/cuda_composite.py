@@ -14,8 +14,10 @@ MPRAGE, cardiac MRF with IR and T2prep preps, saturation recovery -- are
 such trains (``fisp_dispatch.match_composite`` builds the tables).
 
 The kernels are ``epgpy_torch/csrc/composite.cu`` and ``composite_jac.cu``
-(see their headers for the design; the Jacobian kernel runs the segmented
-layout of ``fisp_jac.cu``, its launch geometry ``comp_jac_geometry``);
+(see their headers for the design; the primal kernel runs the segmented
+layout with blocked rows of ``fisp_half.cu``, its launch geometry
+``comp_geometry``; the Jacobian kernel runs the segmented layout of
+``fisp_jac.cu``, its launch geometry ``comp_jac_geometry``);
 ``composite_plain`` / ``composite_jacobian_plain`` are the same recurrences with the same
 operation order, vectorised over atoms as (6, nstate+1, B) planes in a
 Python loop over stages, in any precision, on the tensors' device.  The
@@ -42,14 +44,14 @@ import torch
 
 from . import planes
 from .cuda_dess import _fmul
-from .cuda_fisp import (SMEM_PER_BLOCK, _takes_twin, block_size, kernel_fits,
+from .cuda_fisp import (SMEM_PER_BLOCK, _takes_twin, half_rows, kernel_fits,
                         seg_geometry)
 
 __all__ = ["composite_cuda", "composite_plain", "composite_echoes",
            "composite_jacobian_cuda", "composite_jacobian_plain",
            "composite_jacobian_echoes", "composite_kernel_fits",
            "composite_jac_kernel_fits", "COMP_JAC_GROUPS", "LAUNCHES",
-           "JAC_LAUNCHES"]
+           "JAC_LAUNCHES", "comp_geometry"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -64,10 +66,28 @@ _TWO_PI = 2 * math.pi
 
 
 def composite_kernel_fits(nstate) -> bool:
-    """Whether the primal kernel's 6 planes of nstate + 1 rows fit in one
-    block's shared memory at its smallest block (32 threads): nstate <=
-    301."""
+    """The primal kernel's gate: while 6 planes of nstate + 1 rows of 32
+    atoms fit one block's shared memory, nstate <= 301 -- the bound of the
+    thread-per-atom layout.  The segmented kernel keeps its planes in
+    registers (:func:`comp_geometry`) and keeps this gate, so that no
+    train changes route."""
     return kernel_fits(int(nstate))
+
+
+#: table floats per stage of the primal kernel (its kTab)
+COMP_TABLE = 16
+
+
+def comp_geometry(nstate):
+    """Launch geometry of the segmented primal kernel (``composite.cu``):
+    ``cuda_fisp.seg_geometry`` at ``cuda_fisp.half_rows`` (one lane of 12
+    rows at the cardiac MRF's nstate 10, of 10 at MPRAGE's 8, 1 row at
+    nstate 0), each atom staging its echo (re, im) per stage beside
+    COMP_TABLE table floats -- dict(R, W, L) (lane r of a segment owns rows
+    r R + c, c < R), ``warps`` per block, ``atoms`` per block, ``pulses``
+    (stages) per chunk and ``smem``.  The wrapper passes R, warps and
+    stages to the kernel, which checks them."""
+    return seg_geometry(nstate, 2, COMP_TABLE, half_rows(nstate))
 
 
 def _jac_bytes(nstate, ngroups, block):
@@ -436,8 +456,10 @@ def _launch(FA, phi, ta, tb, adci, shift, aph, b1u, T1s, T2s, B1s, dfs, *,
                                    geo["R"], mask, *flag_args, geo["warps"],
                                    dev, stream)
     else:
+        geo = comp_geometry(nstate)
         rc = lib.epg_composite(*args, ptr(out), x["N"], B, nadc, nstate,
-                               *flag_args, block_size(nstate), dev, stream)
+                               *flag_args, geo["R"], geo["warps"],
+                               geo["pulses"], dev, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     if jac:

@@ -11,7 +11,11 @@ against on the card.
 
 ``fisp_dictionary_cuda`` takes the kernel for CUDA tensors (and raises on
 what the kernel does not take: no fallback) and the plain twin for CPU
-tensors.  ``LAUNCHES`` counts kernel launches.  The TPU-only knobs of the
+tensors.  ``LAUNCHES`` counts kernel launches.  The kernel runs the
+segmented layout with blocked rows (a ladder's rows across a segment of a
+warp's lanes, R consecutive rows per lane, the state in registers);
+``fisp_half_geometry`` gives its launch geometry, and ``half_rows`` the
+rows per lane that ``composite.cu`` takes too.  The TPU-only knobs of the
 JAX signature (``btile``, ``pchunk``, ``interpret``, ``half_ladder``) are
 not taken: there is no padding.
 
@@ -47,7 +51,8 @@ __all__ = ["fisp_dictionary_cuda", "fisp_dictionary_plain", "fisp_echoes",
            "fisp_echoes_plain", "kernel_fits", "block_size", "SMEM_PER_BLOCK",
            "fisp_jacobian_cuda", "fisp_jacobian_plain", "fisp_jacobian_echoes",
            "fisp_jacobian_echoes_plain", "jac_kernel_fits",
-           "seg_layout", "seg_geometry", "fisp_jac_geometry",
+           "seg_layout", "seg_geometry", "fisp_jac_geometry", "half_rows",
+           "half_static_rows", "fisp_half_geometry",
            "fisp_full_ladder_cuda", "fisp_full_ladder_plain",
            "fisp_full_echoes", "fisp_full_echoes_plain", "full_kernel_fits",
            "full_block_size"]
@@ -69,13 +74,18 @@ def _smem_bytes(nstate, block):
 
 
 def kernel_fits(nstate) -> bool:
-    """Whether the kernel's shared-memory state fits at its smallest block
-    (32 threads): 6 planes x (nstate+1) rows x 32 atoms x 4 bytes."""
+    """The FISP dictionary kernel's gate (also DESS's, ME-GRE's and
+    DW-FISP's): while 6 planes x (nstate+1) rows x 32 atoms x 4 bytes fit
+    one block's shared memory, nstate <= 301 -- the bound of the
+    thread-per-atom layout.  The segmented kernel keeps its planes in
+    registers (:func:`fisp_half_geometry`) and keeps this gate, so that no
+    train changes route."""
     return _smem_bytes(nstate, 32) <= SMEM_PER_BLOCK
 
 
 def block_size(nstate) -> int:
-    """Threads per block: 128, halved while the state does not fit."""
+    """Threads per block of the thread-per-atom kernels (``dess.cu``,
+    ``megre.cu``): 128, halved while the state does not fit."""
     block = 128
     while block > 32 and _smem_bytes(nstate, block) > SMEM_PER_BLOCK:
         block //= 2
@@ -286,8 +296,7 @@ def _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate,
     x = _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
                  strict=True)
     P, B = x["P"], x["B"]
-    out_re = torch.empty((P, B), dtype=torch.float32, device=T1s.device)
-    out_im = torch.empty_like(out_re)
+    out = torch.empty((2, P, B), dtype=torch.float32, device=T1s.device)
     var_te = isinstance(x["TE"], torch.Tensor)
     bT, bL, Dc = x["diff"] if x["diff"] is not None else (0.0, 0.0, None)
 
@@ -298,23 +307,25 @@ def _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate,
     # made by _prepare may be freed when this returns: the caching
     # allocator hands their memory out again only in that stream's order,
     # so the kernel has read them first.
+    geo = fisp_half_geometry(nstate, x["diff"] is not None)
     lib = _build.load()
     rc = lib.epg_fisp_half(
         ptr(x["FA"]), ptr(x["phi"]), ptr(x["TR"]),
         ptr(x["TE"]) if var_te else None, 0.0 if var_te else x["TE"],
         0.0 if x["TI"] is None else x["TI"],
         ptr(x["T1"]), ptr(x["T2"]), ptr(x["B1"]), ptr(x["df"]), ptr(Dc),
-        bT, bL, ptr(out_re), ptr(out_im), P, B, nstate,
+        bT, bL, ptr(out), P, B, nstate,
         int(var_te), int(x["TI"] is not None), int(bool(inversion_df)),
         int(x["df"] is not None), int(bool(demodulate)),
-        int(x["diff"] is not None), int(bool(diff_ramp)), block_size(nstate),
+        int(x["diff"] is not None), int(bool(diff_ramp)), geo["R"],
+        geo["warps"], geo["pulses"],
         T1s.device.index if T1s.device.index is not None
         else torch.cuda.current_device(),
         torch.cuda.current_stream(T1s.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fisp_half kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return out_re, out_im
+    return out[0], out[1]
 
 
 def _finish(re, im, normalize):
@@ -424,6 +435,51 @@ def seg_geometry(nstate, outputs, table=SEG_TABLE, R=None):
     pulses = min(SEG_PULSES, max(1, SEG_CHUNK_FLOATS // per))
     return dict(R=R, W=W, L=L, warps=warps, atoms=warps * L, pulses=pulses,
                 smem=4 * pulses * per)
+
+
+#: the segmented primal kernels (fisp_half.cu; composite.cu takes the
+#: rows): table floats per pulse and the rows per lane they take (1 or
+#: even, as an odd R takes up to 1.8x the registers of the next even one,
+#: PERF.md) -- the kernels' kTab and kMaxRows
+HALF_TABLE, HALF_ROWS = 8, (1, 2, 4, 6, 8, 10, 12)
+HALF_MAX_ROWS = HALF_ROWS[-1]
+
+
+def half_rows(nstate) -> int:
+    """Rows per lane of the segmented primal kernels for a ladder of H =
+    max(nstate, 0) + 1 rows: ceil(H / W) for the fewest lanes W that keep
+    it within HALF_MAX_ROWS, rounded up to even above 1 -- 12 on one lane
+    at the FISP headline's nstate 10, 10 at MPRAGE's nstate 8, 12 on 26
+    lanes at the gate's nstate 301.  One lane per ladder measured fastest
+    at nstate 10 and 8 (2.39 ms against 3.59-4.35 on 2, 3 or 6 lanes,
+    PERF.md)."""
+    H = max(int(nstate), 0) + 1
+    R = -(-H // -(-H // HALF_MAX_ROWS))
+    return R + R % 2 if R > 1 else R
+
+
+def half_static_rows(nstate, R) -> int:
+    """The static ladder length of the primal kernels' instance that a
+    ladder of H = nstate + 1 rows takes at R rows per lane: H when one lane
+    holds it at R = H rounded up to even (``fisp_half.cu``'s and
+    ``composite.cu``'s launch_r), else 0 (the instance of R, any H)."""
+    H = max(int(nstate), 0) + 1
+    return H if R >= H and R - H in (0, 1) and (R >= 2 or H == 1) else 0
+
+
+def fisp_half_geometry(nstate, diffusion=False):
+    """Launch geometry of the segmented FISP dictionary kernel
+    (``fisp_half.cu``): :func:`seg_geometry` at :func:`half_rows`,
+    each atom staging its echo (re, im) per pulse beside HALF_TABLE table
+    floats -- dict(R, W, L) (lane r of a segment owns rows r R + c, c <
+    R), ``warps`` per block, ``atoms`` per block, ``pulses`` per chunk and
+    ``smem`` -- with `diffusion`, also each thread's 3 R attenuation
+    factors (the kernel computes the same).  The wrapper passes R, warps
+    and pulses to the kernel, which checks them."""
+    geo = seg_geometry(nstate, 2, HALF_TABLE, half_rows(nstate))
+    if diffusion:
+        geo["smem"] += 4 * 3 * geo["R"] * geo["warps"] * 32
+    return geo
 
 
 def fisp_jac_geometry(nstate, track_diffusivity=False):

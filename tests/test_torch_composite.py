@@ -18,7 +18,11 @@ twins, dispatch, Jacobian probes, the goldens and the family table.
 * a JAX match dict carried through ``convert`` runs the port's runners to
   the JAX runners' values;
 * the exact-pattern families keep their trains: composite comes last in
-  the table.
+  the table;
+* the CUDA kernels' lane maps: the float64 twins with every shift
+  replayed through the segmented layouts (the Jacobian's cyclic rows, the
+  primal's blocked rows, ``torch_support.seg_shift_emulated``) equal the
+  twins; the launch geometries and the gates are pinned.
 """
 
 import logging
@@ -37,10 +41,12 @@ from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_composite
 
 from chip_smoke import (COMP_CASES, COMP_EDGE_CASES, COMP_GROUP_SETS,
-                        comp_golden_sequence, comp_tensors, make_comp_case)
+                        COMP_PRIMAL_EDGE_CASES, comp_golden_sequence,
+                        comp_tensors, make_comp_case)
 from epgpy_torch.models import cuda_fisp, planes
 from torch_support import (GOLDEN_DIR, cplx, family_train,  # noqa: F401
-                           port_f32, port_f64, seg_shift_emulated)
+                           port_f32, port_f64, seg_owned_atoms,
+                           seg_shift_emulated)
 
 B, NSTAGE = 8, 60
 KV = 2 * np.pi / 1e-3          # 1 mm voxel: rad/m per state index
@@ -607,3 +613,78 @@ def test_comp_jac_geometry_and_gate():
             assert L == 32 // W and geo["warps"] == cuda_fisp.SEG_WARPS
             per = cuda_composite.COMP_JAC_TABLE + (2 + 2 * ng) * 4 * L
             assert geo["smem"] == 4 * geo["pulses"] * per <= 48 * 1024
+
+
+# -- the segmented layout of composite.cu (blocked rows): lane map,
+# geometry and gate --
+
+
+@pytest.mark.parametrize("case", COMP_CASES + COMP_PRIMAL_EDGE_CASES,
+                         ids=lambda c: c["name"])
+def test_comp_lane_map_matches_twin(monkeypatch, case):
+    """The float64 primal twin with every shift -- up and down -- replayed
+    through the kernel's lane map at its rows per lane (comp_geometry;
+    blocked rows, epg::seg_shift_blocked and epg::seg_shift_blocked_down
+    emulated in numpy with NaN in the idle lanes, past the last atom and in
+    the padding rows) equals the twin, over every option case and the
+    kernel's edges (nstate 301 with mixed shifts and with every stage
+    shifting up, both sides of every change of the rows per lane), each
+    over 20 stages more than the ladder has rows (60 at least)."""
+    nstage = max(60, case.get("nstate", 10) + 21)
+    args, kw = make_comp_case(case, 5, nstage, seed=2)
+    targs, tkw = comp_tensors(torch, args, kw, "cpu")
+    targs = tuple(t.double() if isinstance(t, torch.Tensor)
+                  and t.is_floating_point() else t for t in targs)
+    if tkw.get("diffusion") is not None:
+        tkw["diffusion"] = tuple(d.double() for d in tkw["diffusion"])
+    want = cuda_composite.composite_plain(*targs, **tkw)
+    R = cuda_composite.comp_geometry(tkw["nstate"])["R"]
+    calls = [0]
+
+    def shift(down):
+        def run(x):
+            calls[0] += 1
+            return seg_shift_emulated(x, R, down=down, blocked=True)
+        return run
+
+    monkeypatch.setattr(planes, "shift_fold", shift(False))
+    monkeypatch.setattr(planes, "shift_down", shift(True))
+    got = cuda_composite.composite_plain(*targs, **tkw)
+    assert calls[0] == int((np.asarray(args[5]) != 0).sum())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and torch.isfinite(g).all()
+        assert torch.equal(g, w)
+
+
+def test_comp_geometry():
+    """For every ladder the gate admits (nstate 0-301): R rows per lane in
+    the kernel's instances (1, 2, 4, ..., 12), as cuda_fisp.half_rows
+    gives them, W = ceil(H / R) <= 32 lanes per ladder, L = 32 // W
+    ladders per warp, 4 warps and 32 stages per chunk, the table (16 floats
+    per stage) and the staged echoes within 48 KB; a grid whose (block,
+    warp, segment) slots store each of 1, 33 and 4,097 atoms exactly once;
+    one ladder per lane at the cardiac MRF's nstate 10 (12 rows) and at
+    MPRAGE's nstate 8 (10 rows), 12 rows on 26 lanes at nstate 301."""
+    for n in range(0, 302):
+        geo = cuda_composite.comp_geometry(n)
+        H, R, W, L = n + 1, geo["R"], geo["W"], geo["L"]
+        assert R in cuda_fisp.HALF_ROWS and R == cuda_fisp.half_rows(n)
+        assert W == -(-H // R) <= 32 and L == 32 // W
+        assert (geo["warps"], geo["pulses"]) == (4, 32)
+        assert geo["atoms"] == 4 * L
+        assert geo["smem"] == 4 * 32 * (cuda_composite.COMP_TABLE
+                                         + 2 * geo["atoms"]) <= 48 * 1024
+        for B_ in (1, 33, 4097):
+            owned, _ = seg_owned_atoms(geo, B_)
+            assert sorted(owned) == list(range(B_)), (n, B_)
+    assert [(g["R"], g["W"]) for g in map(cuda_composite.comp_geometry,
+                                           (10, 8, 301))] == [
+        (12, 1), (10, 1), (12, 26)]
+
+
+def test_comp_gate_unchanged():
+    """composite_kernel_fits over nstate 0-400 answers as the
+    thread-per-atom layout set it (6 planes of nstate + 1 rows of 32 atoms
+    in 232,448 bytes): nstate <= 301."""
+    for n in range(401):
+        assert cuda_composite.composite_kernel_fits(n) == (n <= 301), n

@@ -37,7 +37,11 @@ from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_EDGE_ATOMS,
                         XGRE_SHAPES, dess_jac_vs_twin, xgre_jac_vs_twin,
                         CPMG_EDGE_CASES, CPMG_EDGE_SHAPE, CPMG_SHAPES,
                         XCOMP_EDGE_CASES, XCOMP_EDGE_SHAPE,
-                        XCOMP_RAGGED_CASE, XCOMP_SHAPES, xcomp_jac_vs_twin)
+                        XCOMP_RAGGED_CASE, XCOMP_SHAPES, xcomp_jac_vs_twin,
+                        COMP_PRIMAL_EDGE_CASES, COMP_PRIMAL_SHAPE_NSTATES,
+                        COMP_PRIMAL_TOP_N, COMP_CASE_N, HALF_EDGE_ATOMS,
+                        HALF_EDGE_CASES, HALF_EDGE_PULSES, HALF_RAGGED_CASE,
+                        HALF_SHAPES, comp_vs_twin, half_vs_twin)
 from epgpy_torch import config
 from epgpy_torch.models import (cuda_bssfp, cuda_composite, cuda_dess,
                                 cuda_fisp, cuda_hessian, cuda_megre,
@@ -69,6 +73,28 @@ def test_cuda_kernel_matches_plain_twin(card, case):
     assert cuda_fisp.LAUNCHES == before + 1
     p = cuda_fisp.fisp_dictionary_plain(*targs, **tkw)
     assert max(float((k[i] - p[i]).abs().max()) for i in (0, 1)) < 2e-6
+
+
+#: the segmented FISP dictionary kernel's edges and ragged shapes:
+#: (case, atoms, pulses)
+HALF_RUNS = [(c, HALF_EDGE_ATOMS, c.get("nstate", 10) + 1 + HALF_EDGE_PULSES)
+             for c in HALF_EDGE_CASES] + [
+    (dict(HALF_RAGGED_CASE, name=f"ragged_n{n}_{b}x{p}", nstate=n), b, p)
+    for b, p in HALF_SHAPES for n in (10, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,natoms,npulse", HALF_RUNS,
+                         ids=lambda v: v["name"] if isinstance(v, dict)
+                         else str(v))
+def test_cuda_fisp_half_segmented_edges(card, case, natoms, npulse):
+    """The segmented FISP dictionary kernel at the gate's deepest ladder
+    (nstate 301, with and without DW-FISP), on TR / TE runs, on both sides
+    of every change of the rows per lane, and at ragged shapes (1, 33,
+    4,097 atoms; 1 and 33 pulses; one and four lanes per ladder): echoes
+    to 2e-6 of the twin's, one launch."""
+    delta, ok = half_vs_twin(torch, case, natoms, npulse)
+    assert ok and delta < 2e-6
 
 
 @pytest.mark.cuda
@@ -657,6 +683,47 @@ def test_cuda_composite_jacobian_segmented_edges(card, case, groups):
     group count (2 to 5 rows per lane), rows per lane changing and nstate
     1, with every option: signals to 2e-6, columns to 1e-5."""
     _comp_jac_vs_twin(case, groups, COMP_EDGE_ATOMS, 300)
+
+
+@pytest.mark.cuda
+def test_cuda_primal_kernels_repeat_exactly(card):
+    """The FISP dictionary and composite primal kernels give bitwise the
+    same echoes on a second launch over the same inputs (4,097 atoms, 300
+    pulses or stages: ten chunks, so that a chunk's table, staged echoes
+    and flush follow each other in every block), one launch each."""
+    targs, tkw = _tensors(torch, *make_case(dict(name="repeat", df=True),
+                                            4097, 300), "cuda")
+    first = cuda_fisp.fisp_dictionary_cuda(*targs, **tkw)
+    again = cuda_fisp.fisp_dictionary_cuda(*targs, **tkw)
+    args, kw = comp_tensors(torch, *make_comp_case(COMP_CASES[-1], 4097,
+                                                   300), "cuda")
+    c1 = cuda_composite.composite_echoes(*args, **kw)
+    c2 = cuda_composite.composite_echoes(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first + c1, again + c2):
+        assert torch.equal(a, b)
+
+
+#: the segmented composite primal kernel's edges and ragged shapes:
+#: (case, atoms, stages)
+COMP_PRIMAL_RUNS = [(c, COMP_EDGE_ATOMS, COMP_PRIMAL_TOP_N if c["shift"] ==
+                     "up" else COMP_CASE_N) for c in COMP_PRIMAL_EDGE_CASES] \
+    + [(dict(COMP_CASES[-1], name=f"ragged_n{n}_{b}x{ns}", nstate=n), b, ns)
+       for b, ns in COMP_SHAPES for n in COMP_PRIMAL_SHAPE_NSTATES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,natoms,nstage", COMP_PRIMAL_RUNS,
+                         ids=lambda v: v["name"] if isinstance(v, dict)
+                         else str(v))
+def test_cuda_composite_segmented_edges(card, case, natoms, nstage):
+    """The segmented composite primal kernel at the gate's deepest ladder
+    (nstate 301, mixed shifts and every stage shifting up), on both sides
+    of every change of the rows per lane, and at ragged shapes (1, 33,
+    4,097 atoms; 1, 2 and 33 stages; nstate 1, 8 and 40), every option:
+    echoes to 2e-6 of the twin's, one launch."""
+    sig, ok = comp_vs_twin(torch, case, natoms, nstage)
+    assert ok and sig < 2e-6
 
 
 @pytest.mark.cuda

@@ -6,7 +6,9 @@ covering set of option cases (chip_smoke.OPTION_CASES), both in float32:
 atol 1e-5, since the two sides round differently (operation order, libm)
 and the difference grows with the pulse count.  In float64 the folded
 twin equals the port's full-ladder model (models/mrf.py) to 1e-11, which
-proves the fold.  The CUDA kernel itself is held against the twin on the
+proves the fold; with every shift replayed through the CUDA kernel's
+lane map (blocked rows, ``torch_support.seg_shift_emulated``) it equals
+itself exactly, and the kernel's geometry and the gates are pinned.  The CUDA kernel itself is held against the twin on the
 card (tests/test_torch_cuda.py and chip_smoke.py).
 
 The full-ladder twin (``fisp_full_ladder_plain``, the JAX wrapper's
@@ -20,11 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FULL_CASES, OPTION_CASES, make_case, _tensors
-from epgpy_torch.models import cuda_fisp, mrf
+from chip_smoke import (FULL_CASES, HALF_EDGE_CASES, HALF_EDGE_PULSES,
+                        HALF_ROW_EDGES, OPTION_CASES, make_case, _tensors)
+from epgpy_torch.models import cuda_fisp, mrf, planes
 from epgpy_tpu.models.pallas_fisp import fisp_dictionary_pallas
 
-from torch_support import cplx, port_f32, port_f64  # noqa: F401
+from torch_support import (cplx, port_f32, port_f64,  # noqa: F401
+                           seg_owned_atoms, seg_shift_emulated)
 
 NATOMS, NPULSE = 200, 120     # 200 atoms: a ragged 128-atom tile in JAX
 
@@ -139,3 +143,107 @@ def test_full_ladder_gate_and_diffusion():
     args, kw = _tensors(torch, *make_case(OPTION_CASES[7], 8, 10), "cpu")
     with pytest.raises(ValueError, match="half-ladder"):
         cuda_fisp.fisp_dictionary_cuda(*args, **{**kw, "nstate": 0})
+
+
+# -- the segmented layout of fisp_half.cu: lane map, geometry and gates --
+
+
+def _f64(args):
+    return tuple(None if a is None else a if np.ndim(a) == 0
+                 else torch.as_tensor(np.asarray(a, np.float64))
+                 for a in args)
+
+
+#: the lane-map replay's cases: every option case at the headline depth
+#: (one lane per ladder) and the kernel's edges (the gate's nstate 301 on
+#: 26 lanes with and without DW-FISP, TR / TE runs, both sides of every
+#: change of the rows per lane)
+HALF_LANE_CASES = OPTION_CASES + HALF_EDGE_CASES
+
+
+@pytest.mark.parametrize("case", HALF_LANE_CASES, ids=lambda c: c["name"])
+def test_fisp_half_lane_map_matches_twin(monkeypatch, case):
+    """The float64 FISP twin with every folded shift replayed through the
+    kernel's lane map at its rows per lane (blocked rows,
+    epg::seg_shift_blocked, emulated in numpy with NaN in the idle lanes,
+    past the last atom and in the padding rows) equals the twin, over 37
+    atoms and a train HALF_EDGE_PULSES pulses longer than the ladder (60
+    pulses at least)."""
+    nstate = case.get("nstate", 10)
+    npulse = max(60, nstate + 1 + HALF_EDGE_PULSES)
+    args, kw = make_case(case, 37, npulse, seed=7)
+    kw = {k: v for k, v in kw.items() if k != "normalize"}
+    if "diffusion" in kw:
+        bT, bL, Dc = kw["diffusion"]
+        kw["diffusion"] = (bT, bL, torch.as_tensor(Dc))
+    targs = _f64(args)
+    want = cuda_fisp.fisp_echoes_plain(*targs, **kw)
+    R = cuda_fisp.fisp_half_geometry(nstate, "diffusion" in kw)["R"]
+    calls = [0]
+
+    def shift(s):
+        calls[0] += 1
+        return seg_shift_emulated(s, R, blocked=True)
+
+    monkeypatch.setattr(planes, "shift_fold", shift)
+    got = cuda_fisp.fisp_echoes_plain(*targs, **kw)
+    assert calls[0] == npulse
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and torch.isfinite(g).all()
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("diffusion", [False, True])
+def test_fisp_half_geometry(diffusion):
+    """For every ladder the gate admits (nstate 1-301, with and without
+    DW-FISP): R rows per lane in the kernel's instances (1, 2, 4, ..., 12),
+    the fewest lanes per ladder W = ceil(H / R) <= 32 that keep R within
+    12, L = 32 // W ladders per warp, 4 warps and 32 pulses per chunk, the
+    table and the staged echoes within 48 KB; a grid whose (block, warp,
+    segment) slots store each of 1, 33 and 4,097 atoms exactly once; with
+    DW-FISP, each thread's 3 R attenuation factors in shared memory too,
+    four blocks still fitting an SM; one
+    ladder of 12 rows per lane at the headline's nstate 10 (32 per warp,
+    800 blocks at 102,400 atoms) and 12 rows on 26 lanes at nstate 301."""
+    assert cuda_fisp.HALF_ROWS == (1, 2, 4, 6, 8, 10, 12)
+    for n in range(1, 302):
+        geo = cuda_fisp.fisp_half_geometry(n, diffusion)
+        H, R, W, L = n + 1, geo["R"], geo["W"], geo["L"]
+        assert R in cuda_fisp.HALF_ROWS
+        assert W == -(-H // R) <= 32 and L == 32 // W
+        fewest = -(-H // 12)
+        assert W <= fewest and R - -(-H // fewest) in (0, 1)
+        assert (geo["warps"], geo["pulses"]) == (4, 32)
+        assert geo["atoms"] == 4 * L
+        chunk = 4 * 32 * (cuda_fisp.HALF_TABLE + 2 * geo["atoms"])
+        assert chunk <= 48 * 1024
+        assert geo["smem"] == chunk + (4 * 3 * R * 128 if diffusion else 0)
+        assert 4 * (geo["smem"] + 1024) <= 233472   # 4 blocks per SM
+        for B_ in (1, 33, 4097):
+            owned, _ = seg_owned_atoms(geo, B_)
+            assert sorted(owned) == list(range(B_)), (n, B_)
+    main = cuda_fisp.fisp_half_geometry(10, diffusion)
+    assert (main["R"], main["W"], main["L"]) == (12, 1, 32)
+    assert -(-102400 // main["atoms"]) == 800
+    top = cuda_fisp.fisp_half_geometry(301, diffusion)
+    assert (top["R"], top["W"]) == (12, 26)
+
+
+def test_half_row_edges_cover_every_change():
+    """HALF_ROW_EDGES, the nstates of the card's edge cases, holds both
+    sides of every nstate where the rows per lane change (1-301)."""
+    ch = [n for n in range(2, 302)
+          if cuda_fisp.half_rows(n) != cuda_fisp.half_rows(n - 1)]
+    assert ch and sorted({c - 1 for c in ch} | set(ch)) == list(
+        HALF_ROW_EDGES)
+
+
+def test_fisp_gates_unchanged():
+    """kernel_fits (the FISP dictionary's gate, also DESS's, ME-GRE's and
+    DW-FISP's) and block_size (dess.cu and megre.cu launch with it) over
+    nstate 0-400 answer as the thread-per-atom layout set them: fits up to
+    nstate 301; 128 threads to nstate 74, 64 to 150, 32 above."""
+    for n in range(401):
+        assert cuda_fisp.kernel_fits(n) == (n <= 301), n
+        assert cuda_fisp.block_size(n) == (128 if n <= 74 else 64
+                                           if n <= 150 else 32), n

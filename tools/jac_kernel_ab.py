@@ -39,16 +39,38 @@ after one warm-up, ``chip_smoke._cuda_ms``) at the main-path shapes:
 * ``xcomposite_jac``: the exchange-rate fit's Jacobian, 65,536 voxels x
   156 stages, two pools, one variable, nstate 8, four table entries, at
   the fit's truth (``chip_smoke.phase_kfit``'s arguments): the wrapper
-  call and the kernel alone.
+  call and the kernel alone;
+* ``fisp_half``: the FISP dictionary of the headline train, 102,400 atoms
+  x 1000 pulses, nstate 10; ``fisp_half_dw`` the same with DW-FISP's
+  attenuation (the ``fisp_jac`` dD group's b-value bases, D 1e-3): the
+  wrapper call and the kernel alone;
+* ``composite``: the cardiac MRF dictionary, 127,988 atoms x 275 stages,
+  nstate 10 (``chip_smoke.cardiac_grid`` / ``cardiac_train`` through
+  ``fisp_dispatch.match_composite``), and the MPRAGE mapping's truth train
+  over its 262,144 voxels, nstate 8 (``chip_smoke.mprage_train``): the
+  wrapper calls and the kernel alone.
 
 ``--kernels`` times only the named ones (default: all).  ``--fits`` also
-runs, twice per turn, the end-to-end fits that call the kernels -- the
-qMT (f, T2f) fit (``chip_smoke.phase_qmt_fit``: match and 8 Gauss-Newton
-iterations), the DESS T1/T2 mapping (``chip_smoke.phase_dess_mapping``: 10
-iterations), the exchange-rate fit (``chip_smoke.phase_kfit``: 8
-iterations) and the CPMG T2/B1 mapping (``chip_smoke.phase_t2b1``:
-dictionary, match and Gauss-Newton) -- and keeps the second run's
-host-clock times, in ms.
+runs, twice per turn, the end-to-end fits and calls that take the chosen
+kernels -- the qMT (f, T2f) fit (``chip_smoke.phase_qmt_fit``: match and
+8 Gauss-Newton iterations) for ``xgre_jac``, the DESS T1/T2 mapping
+(``chip_smoke.phase_dess_mapping``: 10 iterations) for ``dess_jac``, the
+exchange-rate fit (``chip_smoke.phase_kfit``: 8 iterations) for
+``xcomposite_jac``, the CPMG T2/B1 mapping (``chip_smoke.phase_t2b1``:
+dictionary, match and Gauss-Newton) for ``cpmg``, the memoized
+``simulate()`` of the FISP dictionary for ``fisp_half`` and of DW-FISP's
+for ``fisp_half_dw``, and for ``composite`` the memoized cardiac MRF
+``simulate()``, the MPRAGE T1 mapping (``chip_smoke.
+phase_mprage_mapping``) and the cardiac MRF T1/T2 mapping
+(``phase_cardiac_mapping``) -- and keeps the second run's host-clock
+times, in ms.
+
+Two knobs time the primal kernels' geometry: ``--blocks N [N ...]`` times
+``fisp_half`` and ``composite`` of a checkout whose kernels run one thread
+per atom at N threads per block (its wrappers' ``block_size``), and
+``--rows R [R ...]`` those of a checkout on the segmented layout at R rows
+per lane (its ``half_rows``, in both wrappers' modules), each beside the
+committed choice.
 
 Each turn prints one JSON line with its times and the kernels' ptxas lines
 (registers, stack frame) where it built them; the last lines give the
@@ -70,10 +92,11 @@ SHAPES = {"fisp": (102400, 1000), "megre": (262144, 200)}
 
 
 KERNELS = ("fisp_jac", "megre_jac", "fisp_hess", "composite_jac",
-           "xgre_jac", "dess_jac", "cpmg", "xcomposite_jac")
+           "xgre_jac", "dess_jac", "cpmg", "xcomposite_jac", "fisp_half",
+           "fisp_half_dw", "composite")
 
 
-def turn(root, reps, kernels, fits):
+def turn(root, reps, kernels, fits, blocks=(), rows=()):
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -127,30 +150,33 @@ def turn(root, reps, kernels, fits):
             out[key] = cs._cuda_ms(torch, lambda kw=kw: cuda_mse.cpmg_echoes(
                 *margs, nstate=cs.MSE_NSTATE, **kw), reps)
         del margs
-    if "xcomposite_jac" in kernels or fits:
+    if "xcomposite_jac" in kernels:
         kf = cs.phase_kfit(torch, epg)
 
         def kcall():
             return cuda_xcomposite.xcomposite_jacobian_echoes(*kf["args"],
                                                               **kf["kw"])
-        if "xcomposite_jac" in kernels:
-            out["xcomposite_jac_ms"] = cs._cuda_ms(torch, kcall, reps)
-            out["xcomposite_jac_kernel_ms"] = cs._launch_ms(
-                torch, kcall, "epg_xcomposite_jac", reps)
+        out["xcomposite_jac_ms"] = cs._cuda_ms(torch, kcall, reps)
+        out["xcomposite_jac_kernel_ms"] = cs._launch_ms(
+            torch, kcall, "epg_xcomposite_jac", reps)
     if fits:
         for _ in range(2):      # the first run warms the host paths
-            q = cs.phase_qmt_fit(torch, epg)
-            del q["args"]
-            d = cs.phase_dess_mapping(torch, epg)
-            kf = cs.phase_kfit(torch, epg)
-            m = cs.phase_t2b1(torch, epg)
-        out["qmt_match_ms"] = 1e3 * q["match_s"]
-        out["qmt_gn_ms"] = 1e3 * q["gn_s"]
-        out["dess_map_gn_ms"] = 1e3 * d["gn_s"]
-        out["kfit_gn_ms"] = 1e3 * kf["gn_s"]
-        out["t2b1_dict_ms"] = 1e3 * m["dict_s"]
-        out["t2b1_gn_ms"] = 1e3 * m["gn_s"]
+            if "xgre_jac" in kernels:
+                q = cs.phase_qmt_fit(torch, epg)
+                out["qmt_match_ms"] = 1e3 * q["match_s"]
+                out["qmt_gn_ms"] = 1e3 * q["gn_s"]
+                del q
+            if "dess_jac" in kernels:
+                out["dess_map_gn_ms"] = 1e3 * cs.phase_dess_mapping(
+                    torch, epg)["gn_s"]
+            if "xcomposite_jac" in kernels:
+                out["kfit_gn_ms"] = 1e3 * cs.phase_kfit(torch, epg)["gn_s"]
+            if "cpmg" in kernels:
+                m = cs.phase_t2b1(torch, epg)
+                out["t2b1_dict_ms"] = 1e3 * m["dict_s"]
+                out["t2b1_gn_ms"] = 1e3 * m["gn_s"]
     _fisp_family(root, reps, kernels, out)
+    _primal(root, reps, kernels, fits, out, blocks, rows)
     log = _build.build_info()["log"].splitlines()
     out["ptxas"] = [f"{a.split('for')[-1].strip()[-48:]}: {b.strip()}; "
                     f"{c.strip()}"
@@ -159,7 +185,9 @@ def turn(root, reps, kernels, fits):
                     and any(k in a for k in ("fisp_jac", "megre_jac",
                                              "hess_", "composite_jac",
                                              "xgre_jac", "dess_jac",
-                                             "cpmg_kernel", "xcomp_jac"))]
+                                             "cpmg_kernel", "xcomp_jac",
+                                             "fisp_half_kernel",
+                                             "composite_kernel"))]
     out["build_s"] = _build.build_info()["seconds"]
     print(json.dumps(out))
 
@@ -223,6 +251,110 @@ def _fisp_family(root, reps, kernels, out):
             reps)
 
 
+def _primal(root, reps, kernels, fits, out, blocks, rows):
+    """The primal kernels' times into `out`: ``fisp_half`` (and DW-FISP's)
+    and ``composite`` (cardiac MRF and MPRAGE) at the committed geometry,
+    then at each of `blocks` threads per block (a thread-per-atom
+    checkout) or each of `rows` rows per lane (a segmented one); with
+    `fits`, the end-to-end calls that take them."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_composite, cuda_fisp
+
+    want = [k for k in ("fisp_half", "fisp_half_dw", "composite")
+            if k in kernels]
+    if not want:
+        return
+    dev = "cuda"
+    natoms, P = SHAPES["fisp"]
+    T1, T2, B1 = cs.make_atoms(natoms)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    fargs = (t(cs.make_train(P)), t(np.full(P, 90.0)), t(np.full(P, cs.TR)),
+             cs.TE, t(T1), t(T2), t(B1), None)
+    b = (cs.DWF_KVALUE * 1e-3) ** 2 * cs.DWF_TAU * 1e-3
+    calls = {}
+    if "fisp_half" in want:
+        calls["fisp_half"] = (lambda: cuda_fisp.fisp_echoes(
+            *fargs, nstate=cs.NSTATE), "epg_fisp_half")
+    if "fisp_half_dw" in want:
+        calls["fisp_half_dw"] = (lambda: cuda_fisp.fisp_echoes(
+            *fargs, nstate=cs.NSTATE, diffusion=(b, b, cs.DWF_D),
+            diff_ramp=True), "epg_fisp_half")
+    if "composite" in want:
+        grid = cs.cardiac_grid()
+        cseq = cs.cardiac_train(epg, grid[:, 0], grid[:, 1])
+        cargs, ckw = fisp_dispatch._comp_call(
+            fisp_dispatch.match_composite(cseq), cs.CMRF_NSTATE)
+        rng = np.random.default_rng(cs.MPR_SEED)
+        mseq = cs.mprage_train(epg, rng.uniform(350.0, 2900.0, cs.MPR_NVOX),
+                               rng.uniform(55.0, 140.0, cs.MPR_NVOX))
+        margs, mkw = fisp_dispatch._comp_call(
+            fisp_dispatch.match_composite(mseq), cs.MPR_NSTATE)
+        calls["composite"] = (lambda: cuda_composite.composite_echoes(
+            *cargs, **ckw), "epg_composite")
+        calls["composite_mprage"] = (lambda: cuda_composite.composite_echoes(
+            *margs, **mkw), "epg_composite")
+
+    def time_all(tag):
+        for key, (fn, symbol) in calls.items():
+            out[f"{key}{tag}_ms"] = cs._cuda_ms(torch, fn, reps)
+            out[f"{key}{tag}_kernel_ms"] = cs._launch_ms(torch, fn, symbol,
+                                                         reps)
+
+    time_all("")
+    segmented = hasattr(cuda_fisp, "half_rows")
+    if blocks and not segmented:
+        size_f, size_c = cuda_fisp.block_size, cuda_composite.block_size
+        try:
+            for n in blocks:
+                cuda_fisp.block_size = cuda_composite.block_size = (
+                    lambda nstate, n=n: n)
+                time_all(f"_block{n}")
+        finally:
+            cuda_fisp.block_size, cuda_composite.block_size = size_f, size_c
+    if rows and segmented:
+        rows_of = cuda_fisp.half_rows
+        try:
+            for r in rows:
+                cuda_fisp.half_rows = cuda_composite.half_rows = (
+                    lambda n, r=r: r)
+                time_all(f"_rows{r}")
+        finally:
+            cuda_fisp.half_rows = cuda_composite.half_rows = rows_of
+    if not fits:
+        return
+    for _ in range(2):      # the first run warms the host paths
+        if "fisp_half" in want:
+            seq = cs.fisp_sequence(epg, cs.make_train(P), T1, T2, B1)
+            out["fisp_simulate_ms"] = 1e3 * cs._host_s(
+                torch, lambda: epg.simulate(seq, max_nstate=cs.NSTATE,
+                                            asarray=False))
+        if "fisp_half_dw" in want:
+            dseq = cs.dwfisp_sequence(epg, cs.make_train(P), T1, T2, B1)
+            out["dwfisp_simulate_ms"] = 1e3 * cs._host_s(
+                torch, lambda: epg.simulate(dseq, max_nstate=cs.NSTATE,
+                                            asarray=False,
+                                            kvalue=cs.DWF_KVALUE))
+        if "composite" in want:
+            out["cardiac_simulate_ms"] = 1e3 * cs._host_s(
+                torch, lambda: epg.simulate(cseq, max_nstate=cs.CMRF_NSTATE,
+                                            asarray=False))
+            mpr = cs.phase_mprage_mapping(torch, epg)
+            out["mprage_map_gn_ms"] = 1e3 * mpr["gn_s"]
+            comp = dict(grid=grid, dictionary=epg.simulate(
+                cseq, max_nstate=cs.CMRF_NSTATE, asarray=False))
+            cmrf = cs.phase_cardiac_mapping(torch, epg, comp)
+            out["cardiac_map_gn_ms"] = 1e3 * cmrf["gn_s"]
+            del comp
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="+")
@@ -231,10 +363,13 @@ def main():
                     default=list(KERNELS))
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--fits", action="store_true")
+    ap.add_argument("--blocks", nargs="*", type=int, default=[])
+    ap.add_argument("--rows", nargs="*", type=int, default=[])
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.turn:
-        turn(os.path.abspath(a.roots[0]), a.reps, a.kernels, a.fits)
+        turn(os.path.abspath(a.roots[0]), a.reps, a.kernels, a.fits,
+             a.blocks, a.rows)
         return
     import torch
 
@@ -245,7 +380,9 @@ def main():
     for root in (order + order[::-1]) * a.rounds:
         r = subprocess.run([sys.executable, os.path.abspath(__file__), root,
                             "--turn", "--reps", str(a.reps), "--kernels",
-                            *a.kernels] + ["--fits"] * a.fits,
+                            *a.kernels] + ["--fits"] * a.fits
+                           + ["--blocks", *map(str, a.blocks)]
+                           + ["--rows", *map(str, a.rows)],
                            capture_output=True, text=True, cwd=root)
         if r.returncode != 0:
             print(r.stdout[-3000:], r.stderr[-3000:])
