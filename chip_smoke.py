@@ -10,10 +10,10 @@ Phases (each raises on failure: a failure exits non-zero with no result):
 2. build: compiles the kernel library from epgpy_torch/csrc into
    build/epgpy_torch/ (first use) and loads it;
 3. the FISP kernel against its plain PyTorch twin on the card, over a
-   covering set of option cases at 4096 atoms x 1000 pulses (plus one
+   covering set of option cases at 4096 atoms x 500 pulses (plus one
    case at nstate 40, beyond 48 KB of shared memory per block);
 3b. the same for the FISP Jacobian kernel (fingerprints + dS/dT1, dT2,
-   dB1[, dD]) at 250 pulses, per tangent column relative to the column's
+   dB1[, dD]) at 120 pulses, per tangent column relative to the column's
    largest value;
 4. the main path at full size: the FISP MR-fingerprinting dictionary
    train [T(FA_i*B1, 90), E(5, T1, T2), ADC, E(7, T1, T2), S(1)] x 1000
@@ -36,7 +36,7 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    refined T1 and T2 RMSE must beat the match-only RMSE;
 3c. the per-pulse Hessian kernel against its plain twin over every
    option (4-op/5-op form, inversion, second order, nstate 6/10, phi
-   90/30) at 100 TRs x 64 atoms, per output block, and its pulse > echo
+   90/30) at 50 TRs x 64 atoms, per output block, and its pulse > echo
    entries exactly zero;
 4c. the flagship Hessian through ``simulate()``: the 400-TR train
    [T(a_i, 90), E(tau_i, T1, T2), ADC, S(1)] with alpha/tau aliases over
@@ -123,7 +123,12 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    tangent variables, Jacobian) against their twins over every option:
    spoiled and balanced, one to four pools, two exchange stages, df, a
    rank-1 B1 batch, complex saturation, a deep ladder; MT prep, IR-MT with
-   adiabatic stages, shifts up and down, ADC phases, sparse readouts;
+   adiabatic stages, shifts up and down, ADC phases, sparse readouts; the
+   segmented Jacobian kernels' edges and ragged shapes; the segmented
+   primal kernels on both sides of every change of their rows per lane at
+   one to four pools up to the gates' deepest ladders, chunk edges,
+   identity and non-identity stages, both table modes and ragged shapes,
+   and a repeated launch that must give the same bits;
 4p. (a) the bench's spoiled two-pool MT-GRE train (bench.py:777-834: 100
    TRs, Graham bound-pool saturation) over 262,144 atoms through
    ``simulate(density=[0.8, 0.2])``, 8 atoms against the float64 general
@@ -285,9 +290,14 @@ B0_LIMITS = (2.0, 2e-4)
 DWF_TAU, DWF_D = 7.0, 1e-3
 DWF_KVALUE = 2.675e8 * 40e-3 * DWF_TAU * 1e-3
 DWF_JAC_N, DWF_TWIN_ATOMS = 200, 8192
-#: depth of the twin checks of phases 3b and 3c (pulses): the kernels' own
-#: loops are depth-independent, the twins' Python loops are not
-JAC_CASE_N, HESS_CASE_N = 250, 100
+#: depth of the twin checks of phases 3b and 3c (pulses), of the FISP
+#: dictionary and full-ladder option cases (3, 3j), the bSSFP option cases
+#: (3g) and the ME-GRE option cases (3i, TRs): the kernels' own loops are
+#: depth-independent, the twins' Python loops are not (cut from 250, 100,
+#: 1000, 500 and 200 to hold the script's time as the EPG-X primal edges
+#: came in)
+JAC_CASE_N, HESS_CASE_N, CASE_NPULSE = 120, 50, 500
+SSFP_CASE_N, MEGRE_CASE_N = 200, 100
 
 #: cardiac MRF (examples/cardiac_mrf_t1t2.py as published, Hamilton 2017):
 #: heartbeats, readouts per beat, FISP TE and TR, R-R interval (ms), the
@@ -428,6 +438,61 @@ XCOMP_EDGE_SHAPE = (1000, 80)
 XCOMP_SHAPES = [(1, 33), (33, 33), (4097, 33), (33, 1), (33, 2)]
 XCOMP_RAGGED_CASE = dict(name="ragged", shift="mixed", adcph=True, sat=True,
                          b1u=True, g=True, sparse=True)
+#: nstates of the segmented primal EPG-X kernels' (xgre.cu, xcomposite.cu)
+#: row edges per pool count C: both sides of every change of the rows per
+#: lane (cuda_xgre.x_rows: one lane up to 12 / C rows, then the fewest
+#: lanes) and the gate's deepest ladder; nstate 0 runs the balanced
+#: (unshifted) train
+X_ROW_EDGES = {
+    1: (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+        19, 20, 21, 22, 23, 24, 26, 27, 29, 30, 32, 33, 35, 36, 39, 40,
+        43, 44, 47, 48, 49, 50, 54, 55, 59, 60, 65, 66, 71, 72, 76, 77,
+        83, 84, 87, 88, 95, 96, 98, 99, 107, 108, 109, 110, 119, 120, 121,
+        301),
+    2: (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 15, 17, 18, 19, 20,
+        23, 24, 25, 150),
+    3: (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 99),
+    4: (0, 1, 2, 3, 4, 74),
+}
+#: every option of the primal EPG-X kernels' edges: two exchange stages
+#: with df, a B1 batch and complex saturation (xgre); mixed shifts, ADC
+#: phases, saturation, b1u, df and stages without a readout (xcomposite)
+_XGRE_ALL = dict(two_stage=True, g=True, b1=True, csat=True)
+_XCOMP_ALL = dict(shift="mixed", adcph=True, sat=True, b1u=True, g=True,
+                  sparse=True)
+#: the primal kernels' edges besides the row edges, at X_PRIMAL_ATOMS atoms
+#: (XGRE_CASE_N TRs, XCOMP_CASE_N stages unless the case says): chunk
+#: edges at 31, 32 and 33 TRs or stages at the main shapes; the deepest
+#: ladders shifted up to their top rows; trains whose
+#: exchange stages are all the identity (every mix skipped) and none; the
+#: bound pool unflipped and unsaturated (the MT trains' skipped rotations
+#: and saturations); the options off (no saturation, ADC phase or b1u,
+#: shifts up only); and the composite kernel's
+#: device-memory table mode (4 pools: 8 taus on one lane at nstate 2, 26
+#: taus on two lanes at nstate 5)
+XGRE_PRIMAL_CASES = [
+    dict(_XGRE_ALL, name=f"chunk_n{nstate}_tr{n}", nstate=nstate,
+         balanced=nstate == 0, ntr=n)
+    for nstate in (10, 0) for n in (31, 32, 33)] + [
+    dict(name="identity", nstate=10, identity=True, b1=True),
+    dict(_XGRE_ALL, name="no_identity", nstate=10),
+    dict(name="bound_unflipped", nstate=10, bound0=True, b1=True),
+    dict(_XGRE_ALL, name="gate_top_c1_n301", C=1, nstate=301, ntr=312),
+    dict(_XGRE_ALL, name="gate_top_c2_n150", nstate=150, ntr=160),
+]
+XCOMP_PRIMAL_CASES = [
+    dict(_XCOMP_ALL, name=f"chunk_n8_st{n}", nstate=8, nstage=n)
+    for n in (31, 32, 33)] + [
+    dict(_XCOMP_ALL, name="mix_identity", nstate=8, mix="identity"),
+    dict(_XCOMP_ALL, name="mix_none", nstate=8, mix="none"),
+    dict(_XCOMP_ALL, name="bound_unflipped", nstate=8, bound0=True),
+    dict(name="options_off", nstate=8, shift="up"),
+    dict(_XCOMP_ALL, name="global_c4_taus8", C=4, nstate=2, ntaus=8),
+    dict(_XCOMP_ALL, name="global_c4_n5_taus26", C=4, nstate=5, ntaus=26),
+    dict(_XCOMP_ALL, name="gate_top_c1_n301", C=1, nstate=301, shift="up",
+         nstage=312),
+]
+X_PRIMAL_ATOMS = 1000
 
 #: covering set of the bSSFP kernels' options (each also run through the
 #: Jacobian kernel with and without the ddf group; b1 is the B1 batch
@@ -514,8 +579,8 @@ COMP_CASES = [
 #: each group alone, all four
 COMP_GROUP_SETS = [(), ("T1",), ("T2",), ("B1",), ("df",),
                    ("T1", "T2", "B1", "df")]
-#: stages of an option case
-COMP_CASE_N = 300
+#: stages of an option case (cut from 300 with the depths above)
+COMP_CASE_N = 150
 #: the segmented composite Jacobian kernel's edges, each with every option
 #: (every shift direction, D with ramps, df, ADC phases, b1u, sparse
 #: readouts) over COMP_CASE_N stages: the gate's deepest ladder for each
@@ -902,7 +967,9 @@ def _xpools(rng, C, natoms, g=False):
 def make_xgre_case(case, natoms, ntr=XGRE_CASE_N, seed=0):
     """Numpy inputs of one EPG-X GRE option case: (args, kwargs) of
     xgre_dictionary_{cuda,plain,pallas} (alpha, phi, satf_re, satf_im,
-    satz_re, satz_im, dens, stageA, stageB, b1; nstate, shift)."""
+    satz_re, satz_im, dens, stageA, stageB, b1; nstate, shift).  With
+    ``identity`` both exchange stages are absent (identities), with
+    ``bound0`` the pools after the first are never flipped."""
     rng = np.random.default_rng(seed)
     C, N = case.get("C", 2), ntr
     alpha = np.concatenate([rng.uniform(5.0, 40.0, (N, 1)),
@@ -921,6 +988,10 @@ def make_xgre_case(case, natoms, ntr=XGRE_CASE_N, seed=0):
     else:
         stageA = (np.zeros((C, C)), T1, T2, g, 0.0)
     stageB = (khi, T1, T2, g, 7.0 if case.get("two_stage") else 10.0)
+    if case.get("identity"):
+        stageB = (np.zeros((C, C)), T1, T2, g, 0.0)
+    if case.get("bound0"):
+        alpha[:, 1:] = 0.0
     b1 = rng.uniform(0.8, 1.2, natoms) if case.get("b1") else None
     balanced = bool(case.get("balanced"))
     kw = dict(nstate=0 if balanced else case.get("nstate", 10),
@@ -1005,7 +1076,9 @@ def make_xcomp_case(case, natoms, nstage=XCOMP_CASE_N, seed=0):
     """Numpy inputs of one composite EPG-X option case: (args, kwargs) of
     xcomposite_{cuda,plain,pallas} (alpha, phi, satf_re, satf_im, satz_re,
     satz_im, adci, shift, aph, mia, mib, dens, taus, khi, T1, T2, g, b1,
-    b1u; nadc, nstate and the has_* flags)."""
+    b1u; nadc, nstate and the has_* flags).  ``mix`` "identity" mixes every
+    stage with table entry 0 (the identity), "none" with none; with
+    ``bound0`` the pools after the first are never flipped."""
     rng = np.random.default_rng(seed)
     C, N = case.get("C", 2), nstage
     alpha = np.concatenate([rng.uniform(5.0, 40.0, (N, 1)),
@@ -1036,6 +1109,12 @@ def make_xcomp_case(case, natoms, nstage=XCOMP_CASE_N, seed=0):
                                                   case["ntaus"] - 1)])
     mia = rng.integers(0, len(taus), N)
     mib = rng.integers(0, len(taus), N)
+    if case.get("mix") == "identity":
+        mia, mib = np.zeros(N, int), np.zeros(N, int)
+    elif case.get("mix") == "none":
+        mia, mib = np.maximum(mia, 1), np.maximum(mib, 1)
+    if case.get("bound0"):
+        alpha[:, 1:] = 0.0
     dens, khi, T1, T2, g = _xpools(rng, C, natoms, case.get("g"))
     if g is None:
         g = np.zeros((C, natoms))
@@ -1586,10 +1665,11 @@ def phase_occupancy():
     warps per SM and the static SASS instruction mix of the warp-row CPMG
     kernels and the segmented FISP, ME-GRE, composite, EPG-X GRE, DESS and
     composite EPG-X Jacobian kernels, the Hessian kernel's two passes and
-    the segmented CPMG, FISP dictionary and composite primal kernels at
-    their main-path geometries (the last two with the waves of their
-    grids); the registers and stack of every xgre and composite EPG-X
-    Jacobian instance and every CPMG, FISP dictionary and composite primal
+    the segmented CPMG, FISP dictionary, composite, EPG-X GRE and
+    composite EPG-X primal kernels at their main-path geometries (the last
+    four with the waves of their grids); the registers and stack of every
+    xgre and composite EPG-X Jacobian instance and every CPMG, FISP
+    dictionary, composite, EPG-X GRE and composite EPG-X primal
     instance."""
     from epgpy_torch import _build
     from epgpy_torch.models import cuda_composite, cuda_dess, cuda_fisp, \
@@ -1663,6 +1743,21 @@ def phase_occupancy():
         what = f"composite nstate {nst}"
         seg.append((what, f"composite_kernelILi{geo['R']}ELi{hs}EE", geo))
         waves_of[what] = n
+    # the primal EPG-X kernels at their main paths: the spoiled and
+    # balanced MT-GRE trains (two pools, nstate XGRE_NSTATE and 0) and the
+    # MT-prepared train (two pools, nstate XCOMP_NSTATE, four table
+    # entries)
+    for nst, n in ((XGRE_NSTATE, XGRE_ATOMS), (0, XBSSFP_ATOMS)):
+        geo = cuda_xgre.xgre_geometry(nst, 2)
+        what = f"xgre nstate {nst} C 2"
+        seg.append((what, f"xgre_kernelILi2ELi{geo['R']}ELb{int(geo['one'])}"
+                          f"EE", geo))
+        waves_of[what] = n
+    geo = cuda_xcomposite.xcomp_geometry(XCOMP_NSTATE, 2, 4)
+    what = f"xcomposite nstate {XCOMP_NSTATE} C 2 nmat 4"
+    seg.append((what, f"xcomp_kernelILi2ELi{geo['R']}ELb{int(geo['one'])}"
+                      f"ELb{int(geo['shared'])}EE", geo))
+    waves_of[what] = 2 * XCOMP_NAT
     for what, key, geo in seg:
         r, frame = of(key), of(key, stack)
         if r is None:
@@ -1693,7 +1788,11 @@ def phase_occupancy():
             ("fisp_half", r"fisp_half_kernelILi(\d+)ELi(\d+)ELb(\d)EE",
              "R, static rows, DW-FISP"),
             ("composite", r"composite_kernelILi(\d+)ELi(\d+)EE",
-             "R, static rows")):
+             "R, static rows"),
+            ("xgre", r"xgre_kernelILi(\d+)ELi(\d+)ELb(\d)EE",
+             "C, R, one lane"),
+            ("xcomposite", r"xcomp_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)EE",
+             "C, R, one lane, shared table")):
         inst = sorted((tuple(int(v) for v in m.groups()), r, stack.get(n))
                       for n, r in regs.items()
                       for m in [re.search(pattern, n)] if m)
@@ -1756,7 +1855,7 @@ def half_vs_twin(torch, case, natoms, npulse):
     return delta, bool(torch.isfinite(kre).all() and torch.isfinite(kim).all())
 
 
-def phase_cases(torch, natoms=4096, npulse=NPULSE):
+def phase_cases(torch, natoms=4096, npulse=CASE_NPULSE):
     """Kernel vs plain twin over the option cases, then the segmented
     kernel's edges (HALF_EDGE_CASES, trains HALF_EDGE_PULSES pulses longer
     than the ladder) and ragged shapes (HALF_SHAPES at nstate NSTATE and
@@ -3204,8 +3303,8 @@ def phase_ssfp_cases(torch, family, natoms=4096):
     cases = BSSFP_CASES if family == "bssfp" else DESS_CASES
     for case in cases:
         if family == "bssfp":
-            args, kw = _tensors(torch, *make_bssfp_case(case, natoms),
-                                DEVICE)
+            args, kw = _tensors(torch, *make_bssfp_case(case, natoms,
+                                                         SSFP_CASE_N), DEVICE)
             runs = [(cuda_bssfp.bssfp_dictionary_cuda,
                      cuda_bssfp.bssfp_dictionary_plain, kw, False)]
             jkw = {k: v for k, v in kw.items() if k != "normalize"}
@@ -3781,7 +3880,7 @@ def phase_megre_cases(torch, natoms=4096):
     per-column relative error."""
     from epgpy_torch.models import cuda_megre
 
-    runs = [(case, natoms, MEGRE_N) for case in MEGRE_CASES]
+    runs = [(case, natoms, MEGRE_CASE_N) for case in MEGRE_CASES]
     runs += [(case, *SEG_EDGE_SHAPE) for case in MEGRE_EDGE_CASES]
     runs += [(case, n, p) for n, p in SEG_SHAPES for case in MEGRE_CASES
              if case["name"] == SEG_RAGGED_CASES["megre_jac"]]
@@ -3812,7 +3911,7 @@ def phase_megre_cases(torch, natoms=4096):
     return worst_sig, worst_col
 
 
-def phase_full_cases(torch, natoms=4096, npulse=NPULSE):
+def phase_full_cases(torch, natoms=4096, npulse=CASE_NPULSE):
     """The full-ladder kernel vs its plain twin on the card over its option
     cases (nstate 0 and the FISP depth, plus one 150-deep ladder, the
     gate's largest), against the folded kernel at nstate >= 1, and the
@@ -5238,24 +5337,48 @@ def phase_xcases(torch, family, natoms=4096):
               f"{', '.join(f'{c:.2e}' for c in cols)}")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
         wall[part] += time.perf_counter() - t0
-    _print_wall(f"phase_xcases {family} Jacobian", wall)
+    # the segmented primal kernel: its edges, then a repeated launch
+    t0 = time.perf_counter()
+    vs_primal = xgre_vs_twin if family == "xgre" else xcomp_vs_twin
+    primal = 0.0
+    for case, n, ntr in x_primal_runs(family):
+        sig = vs_primal(torch, case, n, ntr)
+        print(f"[{family}-cases] primal {case['name']:20s} B={n:5d} "
+              f"N={ntr:3d} nstate={case['nstate']:3d} "
+              f"max|kernel - plain| = {sig:.3e}")
+        primal = max(primal, sig)
+    same = x_primal_repeat(torch, family)
+    print(f"[{family}-cases] primal: worst max|kernel - plain| over "
+          f"{len(x_primal_runs(family))} edges {primal:.3e} (limit "
+          f"{TOL_KERNEL}); a second launch on the same inputs "
+          f"{'gives the same bits' if same else 'DIFFERS'}")
+    if not same:
+        raise AssertionError(f"{family} primal kernel: a repeated launch "
+                             f"differs")
+    worst_sig = max(worst_sig, primal)
+    wall["primal"] = time.perf_counter() - t0
+    _print_wall(f"phase_xcases {family} Jacobian and primal", wall)
     return worst_sig, worst_col
 
 
-def _jac_vs_twin(torch, mod, fns, what, case, natoms, nstage, args, kw):
+def _jac_vs_twin(torch, mod, fns, what, case, natoms, nstage, args, kw,
+                 jac=True):
     """One launch of an EPG-X Jacobian kernel (`fns`: wrapper and twin of
-    module `mod`) against its twin: (signal |delta|, per-column relative
-    errors); raises past TOL_KERNEL / TOL_JAC_KERNEL, when not finite or
-    not one launch."""
-    before = mod.JAC_LAUNCHES
+    module `mod`; the primal kernel without `jac`) against its twin:
+    (signal |delta|, per-column relative errors, none for the primal);
+    raises past TOL_KERNEL / TOL_JAC_KERNEL, when not finite or not one
+    launch."""
+    counter = "JAC_LAUNCHES" if jac else "LAUNCHES"
+    before = getattr(mod, counter)
     k = fns[0](*args, **kw)
     torch.cuda.synchronize()
-    sig, cols = _x_errors(torch, k, fns[1](*args, **kw), True)
-    if (mod.JAC_LAUNCHES != before + 1 or not _finite(torch, k)
-            or not sig <= TOL_KERNEL or not max(cols) <= TOL_JAC_KERNEL):
+    sig, cols = _x_errors(torch, k, fns[1](*args, **kw), jac)
+    worst = max(cols, default=0.0)
+    if (getattr(mod, counter) != before + 1 or not _finite(torch, k)
+            or not sig <= TOL_KERNEL or not worst <= TOL_JAC_KERNEL):
         raise AssertionError(
             f"{what} {case['name']} (B={natoms}, N={nstage}): kernel vs "
-            f"plain twin {sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
+            f"plain twin {sig:.3e} / {worst:.3e} over {TOL_KERNEL} / "
             f"{TOL_JAC_KERNEL}, not finite, or not one launch")
     return sig, cols
 
@@ -5288,6 +5411,79 @@ def xcomp_jac_vs_twin(torch, case, natoms, nstage):
                                     cx.xcomposite_jacobian_plain),
                         "composite EPG-X Jacobian", case, natoms, nstage,
                         xcomp_tensors(torch, jargs, DEVICE, jac=True), jkw)
+
+
+def xgre_vs_twin(torch, case, natoms, ntr):
+    """The xgre primal kernel against its twin on one case of natoms atoms
+    x ntr TRs: max |delta| over re and im (one launch; see
+    _jac_vs_twin)."""
+    from epgpy_torch.models import cuda_xgre
+
+    args, kw = make_xgre_case(case, natoms, ntr)
+    return _jac_vs_twin(torch, cuda_xgre, (cuda_xgre.xgre_dictionary_cuda,
+                                           cuda_xgre.xgre_dictionary_plain),
+                        "xgre", case, natoms, ntr,
+                        xgre_tensors(torch, args, DEVICE), kw, jac=False)[0]
+
+
+def xcomp_vs_twin(torch, case, natoms, nstage):
+    """The composite EPG-X primal kernel against its twin on one case of
+    natoms atoms x nstage stages: max |delta| over re and im (one launch;
+    see _jac_vs_twin); a "global" case must take the device-memory table
+    mode, every other the shared one."""
+    from epgpy_torch.models import cuda_xcomposite as cx
+
+    args, kw = make_xcomp_case(case, natoms, nstage)
+    geo = cx.xcomp_geometry(kw["nstate"], len(args[11]), len(args[12]))
+    if geo["shared"] == ("global" in case["name"]):
+        raise AssertionError(f"composite EPG-X {case['name']}: expected the "
+                             f"other table mode, {geo}")
+    return _jac_vs_twin(torch, cx, (cx.xcomposite_cuda, cx.xcomposite_plain),
+                        "composite EPG-X", case, natoms, nstage,
+                        xcomp_tensors(torch, args, DEVICE), kw, jac=False)[0]
+
+
+def x_primal_runs(family):
+    """(case, atoms, TRs or stages) of a primal EPG-X kernel's edges
+    (`family` "xgre" or "xcomp"): the row edges (X_ROW_EDGES) at one to
+    four pools with every option (nstate 0 balanced or unshifted),
+    XGRE_PRIMAL_CASES / XCOMP_PRIMAL_CASES, then the ragged shapes
+    (XGRE_SHAPES / XCOMP_SHAPES: 1, 33 and 4,097 atoms, 1, 2 and 33 TRs or
+    stages) of the case with every option at the main path's nstate."""
+    if family == "xgre":
+        base, n, extra, shapes = (_XGRE_ALL, XGRE_CASE_N, XGRE_PRIMAL_CASES,
+                                  XGRE_SHAPES)
+        flat, nstate = dict(balanced=True), XGRE_NSTATE
+    else:
+        base, n, extra, shapes = (_XCOMP_ALL, XCOMP_CASE_N,
+                                  XCOMP_PRIMAL_CASES, XCOMP_SHAPES)
+        flat, nstate = dict(shift="none"), XCOMP_NSTATE
+    runs = [(dict(base, name=f"rows_c{C}_n{ns}", C=C, nstate=ns,
+                  **(flat if ns == 0 else {})), X_PRIMAL_ATOMS, n)
+            for C, nstates in X_ROW_EDGES.items() for ns in nstates]
+    runs += [(c, X_PRIMAL_ATOMS, c.get("ntr", c.get("nstage", n)))
+             for c in extra]
+    return runs + [(dict(base, name=f"ragged_{b}x{t}", nstate=nstate), b, t)
+                   for b, t in shapes]
+
+
+def x_primal_repeat(torch, family, natoms=4097, n=100):
+    """Two launches of a primal EPG-X kernel on the same inputs (its
+    option case with every option, natoms atoms x n TRs or stages: four
+    chunks, so that a chunk's table, staged echoes and flush follow each
+    other in every block): whether they agree bit for bit."""
+    from epgpy_torch.models import cuda_xcomposite as cx
+    from epgpy_torch.models import cuda_xgre as cg
+
+    if family == "xgre":
+        args, kw = make_xgre_case(dict(_XGRE_ALL, name="repeat"), natoms, n)
+        targs, fn = xgre_tensors(torch, args, DEVICE), cg.xgre_dictionary_cuda
+    else:
+        args, kw = make_xcomp_case(dict(_XCOMP_ALL, name="repeat"), natoms, n)
+        targs, fn = xcomp_tensors(torch, args, DEVICE), cx.xcomposite_cuda
+    first, again = fn(*targs, **kw), fn(*targs, **kw)
+    torch.cuda.synchronize()
+    return all(bool(torch.equal(a, b)) for a, b in zip(first, again))
 
 
 def dess_jac_vs_twin(torch, case, natoms, npulse):
@@ -6058,17 +6254,20 @@ def xgre_jac_kernel_ops(torch, call, natoms):
 
 
 @contextlib.contextmanager
-def xcomp_identity_passthrough():
-    """The composite EPG-X twins with a pool's saturation and rotation
-    passed through where they are the identity for every atom (factors (1,
-    0, 1, 0); a flip of 0, whose rotation coefficients are (1, 0, ..., 1,
-    0, ...)): the work the Jacobian kernel's stages skip (its per-stage,
-    per-pool flags).  The tests count no operation."""
+def x_identity_passthrough(mod, mixes=False):
+    """The EPG-X twins of `mod` (``cuda_xgre`` or ``cuda_xcomposite``) with
+    a pool's saturation and rotation passed through where they are the
+    identity for every atom (factors (1, 0, 1, 0); a flip of 0, whose
+    rotation coefficients are (1, 0, ..., 1, 0, ...)) and, with `mixes`,
+    a primal exchange mix whose matrices are the identity for every atom:
+    the work the kernels skip (the per-stage, per-pool flags of the
+    composite Jacobian and both primal kernels; the primal kernels'
+    identity stages).  The tests count no operation."""
     import torch
 
-    from epgpy_torch.models import cuda_xcomposite, planes
+    from epgpy_torch.models import planes
 
-    sat, rot = cuda_xcomposite._saturate, planes.apply_rot
+    sat, rot, mix = mod._saturate, planes.apply_rot, mod._mix_groups
     one = (1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0)
 
     def same(vals, ref):
@@ -6081,11 +6280,22 @@ def xcomp_identity_passthrough():
     def rotate(rc, s):
         return s if same(rc, one) else rot(rc, s)
 
-    cuda_xcomposite._saturate, planes.apply_rot = saturate, rotate
+    def mix_groups(sets, m, dens):
+        C = len(sets[0])
+        eye = len(sets) == 1 and same(
+            [m(0, p, i, j) for p in range(3) for i in range(C)
+             for j in range(C)],
+            [float(p != 1 and i == j) for p in range(3) for i in range(C)
+             for j in range(C)])
+        return list(sets) if eye else mix(sets, m, dens)
+
+    mod._saturate, planes.apply_rot = saturate, rotate
+    if mixes:
+        mod._mix_groups = mix_groups
     try:
         yield
     finally:
-        cuda_xcomposite._saturate, planes.apply_rot = sat, rot
+        mod._saturate, planes.apply_rot, mod._mix_groups = sat, rot, mix
 
 
 def xcomp_jac_kernel_ops(torch, call, natoms):
@@ -6094,8 +6304,53 @@ def xcomp_jac_kernel_ops(torch, call, natoms):
     and rotations passed through, as the kernel's stages skip them (the
     exchange-rate fit's bound pool is never flipped, and only the
     preparation stages saturate)."""
-    with xcomp_identity_passthrough():
+    from epgpy_torch.models import cuda_xcomposite
+
+    with x_identity_passthrough(cuda_xcomposite):
         return linear_ops(torch, call, natoms)
+
+
+def twin_ops(torch, mod, call, natoms):
+    """Operations of the recurrence alone (``mod._twin``) in ``call(n)``,
+    the twin on the first n atoms, at n = 2 and 4, extrapolated linearly
+    to `natoms`: a primal EPG-X kernel's work, without the per-atom stage
+    matrices its wrapper builds before the launch."""
+    twin, got = mod._twin, []
+
+    def counted(*a, **k):
+        box = []
+        got.append(count_ops(torch, lambda: box.append(twin(*a, **k))))
+        return box[0]
+
+    mod._twin = counted
+    try:
+        call(2)
+        call(4)
+    finally:
+        mod._twin = twin
+    a, b = got
+    return a + (b - a) / 2.0 * (natoms - 2)
+
+
+def xgre_kernel_ops(torch, call, natoms):
+    """Operations of the xgre primal kernel: the twin's recurrence
+    (``twin_ops``) with the identity saturations, rotations and exchange
+    stages passed through, as the kernel skips them (the MT-GRE train's
+    absent stage A, its unflipped bound pool and unsaturated free pool)."""
+    from epgpy_torch.models import cuda_xgre
+
+    with x_identity_passthrough(cuda_xgre, mixes=True):
+        return twin_ops(torch, cuda_xgre, call, natoms)
+
+
+def xcomp_kernel_ops(torch, call, natoms):
+    """Operations of the composite EPG-X primal kernel: the twin's
+    recurrence (``twin_ops``) with the identity saturations, rotations and
+    mixes (table entry 0) passed through, as the kernel skips them."""
+    from epgpy_torch.models import cuda_xcomposite
+
+    with x_identity_passthrough(cuda_xcomposite, mixes=True):
+        return twin_ops(torch, cuda_xcomposite, call, natoms)
 
 
 def phase_x_numbers(torch, card, xg, xc, qmt, kfit):
@@ -6115,7 +6370,8 @@ def phase_x_numbers(torch, card, xg, xc, qmt, kfit):
                      "epgpy_tpu/models/pallas_xgre.py:48",
                      (cg.xgre_dictionary_echoes, cg.xgre_dictionary_plain),
                      xg["args"], xg["kw"], (), XGRE_ATOMS, 0, False,
-                     cut=_xgre_cut(torch, xg["args"]), errors=err(False)),
+                     cut=_xgre_cut(torch, xg["args"]), errors=err(False),
+                     work=xgre_kernel_ops),
         kernel_entry(torch, card, "xgre_jac",
                      "epgpy_tpu/models/pallas_xgre.py:282",
                      (cg.xgre_jacobian_echoes, cg.xgre_jacobian_plain),
@@ -6126,7 +6382,8 @@ def phase_x_numbers(torch, card, xg, xc, qmt, kfit):
                      "epgpy_tpu/models/pallas_xcomposite.py:51",
                      (cx.xcomposite_echoes, cx.xcomposite_plain),
                      xc["args"], xc["kw"], (), xc["natoms"], 0, False,
-                     cut=_xcomp_cut(torch, xc["args"]), errors=err(False)),
+                     cut=_xcomp_cut(torch, xc["args"]), errors=err(False),
+                     work=xcomp_kernel_ops),
         kernel_entry(torch, card, "xcomposite_jac",
                      "epgpy_tpu/models/pallas_xcomposite.py:292",
                      (cx.xcomposite_jacobian_echoes,

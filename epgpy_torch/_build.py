@@ -55,9 +55,9 @@ _SIGNATURES = {
     + [_I] * 10 + [_P],
     "epg_composite": [_P] * 16 + [_I] * 14 + [_P],
     "epg_composite_jac": [_P] * 16 + [_I] * 14 + [_P],
-    "epg_xgre": [_P] * 10 + [_I] * 7 + [_P],
+    "epg_xgre": [_P] * 10 + [_I] * 9 + [_P],
     "epg_xgre_jac": [_P] * 10 + [_I] * 10 + [_P],
-    "epg_xcomposite": [_P] * 16 + [_I] * 12 + [_P],
+    "epg_xcomposite": [_P] * 16 + [_I] * 16 + [_P],
     "epg_xcomposite_jac": [_P] * 16 + [_I] * 17 + [_P],
 }
 

@@ -643,14 +643,15 @@ __device__ __forceinline__ int reach(int i, int half, int H) {
 //
 // The tangent kernels fisp_jac.cu, megre_jac.cu, composite_jac.cu,
 // fisp_hess.cu (its two passes), xgre_jac.cu, dess_jac.cu and
-// xcomposite_jac.cu and the primal kernels cpmg.cu, fisp_half.cu and
-// composite.cu give a folded ladder of H = nstate + 1 rows a segment of
-// W = ceil(H / R) consecutive lanes, and a warp holds L = 32 / W
-// segments; lanes past the last segment run the same instructions on a
-// clamped atom and store nothing.  Lane r of a segment owns rows k = r + W
-// c, c < R, of every plane of every group (xgre_jac.cu, dess_jac.cu,
-// xcomposite_jac.cu, cpmg.cu, fisp_half.cu and composite.cu: rows k = r R
-// + c, the blocked layout of seg_shift_blocked), in registers: R is a template
+// xcomposite_jac.cu and the primal kernels cpmg.cu, fisp_half.cu,
+// composite.cu, xgre.cu and xcomposite.cu give a folded ladder of H =
+// nstate + 1 rows a segment of W = ceil(H / R) consecutive lanes, and a
+// warp holds L = 32 / W segments; lanes past the last segment run the
+// same instructions on a clamped atom and store nothing.  Lane r of a
+// segment owns rows k = r + W c, c < R, of every plane of every group
+// (xgre_jac.cu, dess_jac.cu, xcomposite_jac.cu and the primal kernels:
+// rows k = r R + c, the blocked layout of seg_shift_blocked), in
+// registers: R is a template
 // parameter, so each plane is a statically indexed float[R], and the
 // per-pulse work of a lane -- its rotation coefficients, the broadcasts,
 // the shift's selects -- serves R rows.  Rows k >= H are padding and stay
@@ -950,6 +951,177 @@ __device__ __forceinline__ void flush_stage(const float* stage, float* out,
     const int first = static_cast<int>(row0);
     flush_stage_rows(stage, out, planes, ld, rows, A, plane,
                      [first](int t) { return first + t; }, B, atom0);
+}
+
+
+// -- the EPG-X primal kernels' stage on the segmented layout (xgre.cu,
+// xcomposite.cu: blocked rows, all C compartments of a row on one lane) --
+
+// A coefficient column read in place from device memory: entry q at p[q
+// ld] (the composite EPG-X kernels' stage entries and densities when the
+// per-atom tables do not fit in shared memory; every lane of a segment
+// reads the same word).
+struct GlobalCol {
+    const float* p;
+    int ld;
+    __device__ __forceinline__ float operator[](int q) const {
+        return __ldg(p + static_cast<size_t>(q) * ld);
+    }
+};
+
+template <int C>
+struct GlobalXMix {
+    GlobalCol r, i, l;
+};
+
+// An XMix loaded into registers from a ladder's record of a per-block
+// shared table (shared_xmix's layout).
+template <int C>
+__device__ __forceinline__ XMix<C> load_shared_xmix(const float* p) {
+    XMix<C> m;
+#pragma unroll
+    for (int q = 0; q < C * C; ++q) {
+        m.r[q] = p[q];
+        m.i[q] = p[C * C + q];
+        m.l[q] = p[2 * C * C + q];
+    }
+    return m;
+}
+
+// Whether a primal EPG-X instance (C pools, R rows per lane) holds a
+// step's two stages' coefficients in registers: while its 6 C R floats of
+// state and their 6 C^2 coefficients stay within 84 floats; else its
+// mixes read them in place from the block's shared table.  In registers a step reads them once instead of once per
+// row; two pools on 6 rows (96 floats) spilled at 128 registers (ptxas).
+template <int C, int R>
+constexpr bool kXmixInRegisters = 6 * C * R + 6 * C * C <= 84;
+
+// A stage's coefficients from a ladder's record: loaded into registers
+// (REG) or read in place by the mixes.
+template <int C, bool REG>
+__device__ __forceinline__ auto record_xmix(const float* p) {
+    if constexpr (REG) {
+        return load_shared_xmix<C>(p);
+    } else {
+        return shared_xmix<C>(p);
+    }
+}
+
+// Row c of a lane's six planes s[j][c], and its store.
+template <int R>
+__device__ __forceinline__ Row lane_row(const float (&s)[6][R], int c) {
+    return Row{s[0][c], s[1][c], s[2][c], s[3][c], s[4][c], s[5][c]};
+}
+
+template <int R>
+__device__ __forceinline__ void lane_put(float (&s)[6][R], int c,
+                                         const Row& x) {
+    s[0][c] = x.AR;
+    s[1][c] = x.AI;
+    s[2][c] = x.BR;
+    s[3][c] = x.BI;
+    s[4][c] = x.ZR;
+    s[5][c] = x.ZI;
+}
+
+// The primal kernels' per-TR (per-stage) table: kXTab floats per
+// compartment -- cos phi, sin phi, cos 2phi, sin 2phi, the saturation
+// factors fr, fi, zr, zi, the flip (degrees) and, at kXFlags, the flags as
+// int bits: kXSaturate where the factors are not (1, 0, 1, 0), kXRotate
+// where the flip is not 0.  A saturation by (1, 0, 1, 0) and a rotation by
+// 0 are exact identities, so the stages that skip them keep the twin's
+// result.
+constexpr int kXTab = 10;
+constexpr int kXFlags = 9;
+constexpr int kXSaturate = 1, kXRotate = 2;
+
+// The flags of a compartment's table entry te (its first 9 floats filled).
+__device__ __forceinline__ float xflags(const float* te, bool sat) {
+    int f = 0;
+    if (sat && !(te[4] == 1.0f && te[5] == 0.0f && te[6] == 1.0f
+                 && te[7] == 0.0f))
+        f |= kXSaturate;
+    if (te[8] != 0.0f) f |= kXRotate;
+    return __int_as_float(f);
+}
+
+// Whether an exchange stage's per-atom coefficients m are the identity.
+template <int C, class M>
+__device__ __forceinline__ bool xmix_identity(const M& m) {
+    bool id = true;
+#pragma unroll
+    for (int k = 0; k < C * C; ++k) {
+        const float one = k % (C + 1) == 0 ? 1.0f : 0.0f;
+        id = id && m.r[k] == one && m.i[k] == 0.0f && m.l[k] == one;
+    }
+    return id;
+}
+
+// The R rows of one EPG-X stage on a lane (s[c][j][k]: plane j of
+// compartment c, row k of the lane): compartment c's rows saturated and
+// rotated (by rot(c), a callable giving the Rot, called only then, so that
+// one compartment's coefficients are live at a time) where the stage's
+// flags (tr[kXTab c + kXFlags]) say they change, then per row the mix mA
+// (skipped with skipA), the echo of the
+// row-0 lane (echo != nullptr: compartment c's (re, im) to echo[c A] and
+// echo[(pl + c) A], phased by (pc, ps) with adcph), the mix mB (skipped
+// with skipB); dens as mix_rows takes it.  The flags and skips are the
+// same for every lane of the warp, so each branch is warp-uniform; a
+// skipped mix is the identity, whose product around the densities the
+// twin rounds once.
+template <int C, int R, class RotOf, class M, class D>
+__device__ __forceinline__ void xstage_rows(
+    float (&s)[C][6][R], const RotOf& rot, const float* tr, const M& mA,
+    bool skipA, const M& mB, bool skipB, const D& dens,
+    bool row0_lane, float* echo, int A, int pl, float pc, float ps,
+    bool adcph) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+        const float* const te = tr + kXTab * c;
+        const int flags = __float_as_int(te[kXFlags]);
+        if (flags & kXSaturate) {
+#pragma unroll
+            for (int k = 0; k < R; ++k)
+                lane_put(s[c], k, saturate(lane_row(s[c], k), te[4], te[5],
+                                           te[6], te[7]));
+        }
+        if (flags & kXRotate) {
+            const Rot r = rot(c);
+#pragma unroll
+            for (int k = 0; k < R; ++k)
+                lane_put(s[c], k, rotate(r, lane_row(s[c], k)));
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+        const bool k0 = k == 0 && row0_lane;
+        Row x[C], y[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) x[c] = lane_row(s[c], k);
+        if (skipA) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) y[c] = x[c];
+        } else {
+            mix_rows<C>(mA, dens, k0, x, y);
+        }
+        if (k == 0 && echo != nullptr) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+                float eR = y[c].AR, eI = y[c].AI;
+                if (adcph) cmul(pc, ps, eR, eI, eR, eI);
+                echo[c * A] = eR;
+                echo[(pl + c) * A] = eI;
+            }
+        }
+        if (skipB) {
+#pragma unroll
+            for (int c = 0; c < C; ++c) lane_put(s[c], k, y[c]);
+        } else {
+            mix_rows<C>(mB, dens, k0, y, x);
+#pragma unroll
+            for (int c = 0; c < C; ++c) lane_put(s[c], k, x[c]);
+        }
+    }
 }
 
 }  // namespace epg

@@ -71,13 +71,14 @@ constexpr float kInvPi = 0.3183098861837907f;   // 1 / pi
 constexpr int kMaxWarps = 4;
 constexpr int kMaxStages = 32;
 constexpr int kChunkFloats = 12288;
-constexpr int kTab = 10;
 constexpr int kStage = 7;
-// the stage-table slot of a compartment's flags, and the flags: its rows
-// are saturated (has_sat and factors other than (1, 0, 1, 0)), rotated
-// (a flip other than 0: the rotation by 0 is the identity)
-constexpr int kFlags = 9;
-constexpr int kSaturate = 1, kRotate = 2;
+// the stage table per compartment and its flags (epg_planes.cuh): a
+// compartment's rows are saturated (has_sat and factors other than (1, 0,
+// 1, 0)), rotated (a flip other than 0: the rotation by 0 is the identity)
+using epg::kXFlags;
+using epg::kXRotate;
+using epg::kXSaturate;
+constexpr int kTab = epg::kXTab;
 
 struct XcompJacArgs {
     const float* alpha;  // (N, C) flips, degrees
@@ -117,36 +118,10 @@ constexpr int kMinBlocks =
 
 using epg::Row;
 
-// A coefficient column read in place from device memory: entry q at p[q
-// ld] (the global mode's stage entries and densities; every lane of a
-// segment reads the same word).
-struct GlobalCol {
-    const float* p;
-    int ld;
-    __device__ __forceinline__ float operator[](int q) const {
-        return __ldg(p + static_cast<size_t>(q) * ld);
-    }
-};
-
-template <int C>
-struct GlobalXMix {
-    GlobalCol r, i, l;
-};
-
-template <int R>
-__device__ __forceinline__ Row row(const float (&s)[6][R], int c) {
-    return Row{s[0][c], s[1][c], s[2][c], s[3][c], s[4][c], s[5][c]};
-}
-
-template <int R>
-__device__ __forceinline__ void put(float (&s)[6][R], int c, const Row& x) {
-    s[0][c] = x.AR;
-    s[1][c] = x.AI;
-    s[2][c] = x.BR;
-    s[3][c] = x.BI;
-    s[4][c] = x.ZR;
-    s[5][c] = x.ZI;
-}
+// the global mode's stage entries and densities, read in place from device
+// memory
+using epg::GlobalCol;
+using epg::GlobalXMix;
 
 // One table mix on every group's row: the tangents first (they read the
 // pre-mix primal), then the primal.
@@ -162,7 +137,7 @@ __device__ __forceinline__ void mix_stage(const M (&m)[G], const D (&dens)[G],
 }
 
 // The R rows of one stage on the lane: saturate and rotate compartment
-// c's rows where the stage's flags (te[kFlags] of its compartment) say
+// c's rows where the stage's flags (te[kXFlags] of its compartment) say
 // they change, then per row mix mA, stage the echo (row-0 lane of a
 // readout stage: `echo` points at the stage's staged (re, im) planes, `pl`
 // floats apart), mix mB.  The flags are the same for every atom, so the
@@ -175,21 +150,24 @@ __device__ __forceinline__ void stage_rows(
 #pragma unroll
     for (int c = 0; c < C; ++c) {
         const float* const te = tr + kTab * c;
-        const int flags = __float_as_int(te[kFlags]);
-        if (flags & kSaturate) {
+        const int flags = __float_as_int(te[kXFlags]);
+        if (flags & kXSaturate) {
 #pragma unroll
             for (int g = 0; g < G; ++g)
 #pragma unroll
                 for (int k = 0; k < R; ++k)
-                    put(s[g][c], k, epg::saturate(row(s[g][c], k), te[4],
-                                                  te[5], te[6], te[7]));
+                    epg::lane_put(s[g][c], k,
+                                  epg::saturate(epg::lane_row(s[g][c], k),
+                                                te[4], te[5], te[6], te[7]));
         }
-        if (flags & kRotate) {
+        if (flags & kXRotate) {
 #pragma unroll
             for (int g = 0; g < G; ++g)
 #pragma unroll
                 for (int k = 0; k < R; ++k)
-                    put(s[g][c], k, epg::rotate(r[c], row(s[g][c], k)));
+                    epg::lane_put(
+                        s[g][c], k,
+                        epg::rotate(r[c], epg::lane_row(s[g][c], k)));
         }
     }
 #pragma unroll
@@ -199,7 +177,7 @@ __device__ __forceinline__ void stage_rows(
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
-            for (int c = 0; c < C; ++c) x[g][c] = row(s[g][c], k);
+            for (int c = 0; c < C; ++c) x[g][c] = epg::lane_row(s[g][c], k);
         mix_stage<C, G>(mA, dens, k0, x, y);
         if (k == 0 && echo != nullptr) {
 #pragma unroll
@@ -216,7 +194,7 @@ __device__ __forceinline__ void stage_rows(
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
-            for (int c = 0; c < C; ++c) put(s[g][c], k, x[g][c]);
+            for (int c = 0; c < C; ++c) epg::lane_put(s[g][c], k, x[g][c]);
     }
 }
 
@@ -309,19 +287,14 @@ __global__ void __launch_bounds__(kMaxWarps* epg::kWarp,
             const float ph = p.phi[qi] * (1.0f / 180.0f);
             sincospif(ph, &te[1], &te[0]);
             sincospif(2.0f * ph, &te[3], &te[2]);
-            int flags = 0;
             if (p.use_sat) {
                 te[4] = p.sfr[qi];
                 te[5] = p.sfi[qi];
                 te[6] = p.szr[qi];
                 te[7] = p.szi[qi];
-                if (!(te[4] == 1.0f && te[5] == 0.0f && te[6] == 1.0f
-                      && te[7] == 0.0f))
-                    flags |= kSaturate;
             }
             te[8] = p.alpha[qi];
-            if (te[8] != 0.0f) flags |= kRotate;
-            te[kFlags] = __int_as_float(flags);
+            te[kXFlags] = epg::xflags(te, p.use_sat != 0);
         }
         for (int t = threadIdx.x; t < n; t += blockDim.x) {
             const int i = i0 + t;
@@ -364,7 +337,7 @@ __global__ void __launch_bounds__(kMaxWarps* epg::kWarp,
 #pragma unroll
                 for (int c = 0; c < C; ++c) {
                     const float* const te = tr + kTab * c;
-                    if (__float_as_int(te[kFlags]) & kRotate)
+                    if (__float_as_int(te[kXFlags]) & kXRotate)
                         r[c] = epg::rot_coeffs_sc(
                             epg::seg_bcast(q, msa[c], u),
                             epg::seg_bcast(q, mca[c], u), te[0], te[1],

@@ -99,21 +99,6 @@ constexpr int kMinBlocks =
 
 using epg::Row;
 
-template <int R>
-__device__ __forceinline__ Row row(const float (&s)[6][R], int c) {
-    return Row{s[0][c], s[1][c], s[2][c], s[3][c], s[4][c], s[5][c]};
-}
-
-template <int R>
-__device__ __forceinline__ void put(float (&s)[6][R], int c, const Row& x) {
-    s[0][c] = x.AR;
-    s[1][c] = x.AI;
-    s[2][c] = x.BR;
-    s[3][c] = x.BI;
-    s[4][c] = x.ZR;
-    s[5][c] = x.ZI;
-}
-
 // One exchange stage on every group's row: the tangents first (they read
 // the pre-mix primal), then the primal.
 template <int C, int G>
@@ -251,8 +236,9 @@ __global__ void __launch_bounds__(kMaxWarps* epg::kWarp, kMinBlocks<C, G, R>)
                         for (int c = 0; c < C; ++c) {
                             const float* const te = tr + kTab * c;
                             x[g][c] = epg::rotate(
-                                r[c], epg::saturate(row(s[g][c], k), te[4],
-                                                    te[5], te[6], te[7]));
+                                r[c],
+                                epg::saturate(epg::lane_row(s[g][c], k),
+                                              te[4], te[5], te[6], te[7]));
                         }
                     if (skipA) {
 #pragma unroll
@@ -276,7 +262,8 @@ __global__ void __launch_bounds__(kMaxWarps* epg::kWarp, kMinBlocks<C, G, R>)
 #pragma unroll
                     for (int g = 0; g < G; ++g)
 #pragma unroll
-                        for (int c = 0; c < C; ++c) put(s[g][c], k, x[g][c]);
+                        for (int c = 0; c < C; ++c)
+                            epg::lane_put(s[g][c], k, x[g][c]);
                 }
                 if (p.shift)
 #pragma unroll

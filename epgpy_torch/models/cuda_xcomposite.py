@@ -17,9 +17,10 @@ MT-prepared segmented GRE, IR-MT and saturation-recovery MT are such trains
 (``fisp_dispatch.match_xcomposite`` builds the tables).
 
 The kernels are ``epgpy_torch/csrc/xcomposite.cu`` and
-``xcomposite_jac.cu`` (see their headers for the design; the Jacobian
-kernel runs ``xgre_jac.cu``'s segmented layout with blocked rows at the
-geometry :func:`xcomp_jac_geometry` decides, its state in registers);
+``xcomposite_jac.cu`` (see their headers for the design; both run
+``xgre_jac.cu``'s segmented layout with blocked rows at the geometries
+:func:`xcomp_geometry` and :func:`xcomp_jac_geometry` decide, their state
+in registers);
 ``xcomposite_plain`` / ``xcomposite_jacobian_plain`` are the same
 recurrences with the same operation order, in any precision, on the
 tensors' device.  ``*_cuda`` launch the kernels and raise on CPU tensors
@@ -46,14 +47,15 @@ import torch
 from . import planes
 from .cuda_fisp import (SEG_CHUNK_FLOATS, SEG_PULSES, SEG_WARPS,
                         SMEM_PER_BLOCK, _takes_twin, seg_layout)
-from .cuda_xgre import (MAX_C, _check_jac_fits, _cuda_ref, _launch_env,
-                        _like, _mix_groups, _saturate, _train, _unit_set,
-                        block_for, exchange_stage_mats, xgre_kernel_fits)
+from .cuda_xgre import (MAX_C, X_TABLE, _check_jac_fits, _chunk_geometry,
+                        _cuda_ref, _launch_env, _like, _mix_groups,
+                        _saturate, _train, _unit_set, exchange_stage_mats,
+                        x_rows, xgre_kernel_fits)
 
 __all__ = ["xcomposite_stage_mat_tables", "xcomposite_cuda",
            "xcomposite_plain", "xcomposite_echoes",
            "xcomposite_jacobian_cuda", "xcomposite_jacobian_plain",
-           "xcomposite_jacobian_echoes", "xcomp_jac_rows",
+           "xcomposite_jacobian_echoes", "xcomp_geometry", "xcomp_jac_rows",
            "xcomp_jac_geometry", "LAUNCHES", "JAC_LAUNCHES"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
@@ -68,6 +70,28 @@ _DEG = math.pi / 180.0
 #: flip, the saturate / rotate flags) and per stage (kStage: output row,
 #: shift direction, mia, mib, b1u, cos and sin of the ADC phase)
 XCOMP_JAC_TABLE, XCOMP_JAC_STAGE = 10, 7
+#: stage-table floats per stage of the primal kernel (its kStage, as the
+#: Jacobian's), beside cuda_xgre.X_TABLE per compartment
+XCOMP_STAGE = 7
+
+
+def xcomp_geometry(nstate, C, nmat):
+    """Launch geometry of the segmented primal kernel (``xcomposite.cu``)
+    for nmat table entries: dict(R, W, L) of ``cuda_fisp.seg_layout`` at
+    ``cuda_xgre.x_rows``' rows per lane, ``one`` (the ladder is the one
+    lane's R rows), ``coef``, the floats of one ladder's record (nmat 3
+    C^2, rounded up to odd), ``shared``, whether the records sit in the
+    block's shared memory (else the kernel reads the stage's two entries
+    from device memory: tables too large for one warp's records),
+    ``warps`` per block (SEG_WARPS, halved while the records and one
+    stage's table and staged echoes pass SEG_CHUNK_FLOATS), ``atoms`` per
+    block, ``pulses`` (stages) per chunk and ``smem``.  The wrapper passes
+    R, warps, pulses and the mode to the kernel, which checks them."""
+    C, nmat = int(C), int(nmat)
+    R, W, L = seg_layout(nstate, x_rows(nstate, C))
+    return dict(R=R, W=W, L=L, one=R == int(nstate) + 1,
+                **_tables_geometry((nmat * 3 * C * C) | 1,
+                                   X_TABLE * C + XCOMP_STAGE, 2 * C, L))
 
 
 def xcomp_jac_rows(nstate, C, G) -> int:
@@ -101,22 +125,19 @@ def xcomp_jac_geometry(nstate, C, G, nmat):
     C, G, nmat = int(C), int(G), int(nmat)
     R, W, L = seg_layout(nstate, xcomp_jac_rows(nstate, C, G))
     coef = (nmat * G * 3 * C * C + C * G) | 1
+    return dict(R=R, W=W, L=L, **_tables_geometry(
+        coef, XCOMP_JAC_TABLE * C + XCOMP_JAC_STAGE, 2 * G * C, L))
 
-    def per(atoms):    # floats per stage: the table and the staged echoes
-        return XCOMP_JAC_TABLE * C + XCOMP_JAC_STAGE + 2 * G * C * atoms
 
-    def need(warps, table):
-        return table * coef * warps * L + per(warps * L)
-
-    shared = need(1, True) <= SEG_CHUNK_FLOATS
-    warps = SEG_WARPS
-    while warps > 1 and need(warps, shared) > SEG_CHUNK_FLOATS:
-        warps //= 2
-    A = warps * L
-    table = coef * A if shared else 0
-    pulses = min(SEG_PULSES, (SEG_CHUNK_FLOATS - table) // per(A))
-    return dict(R=R, W=W, L=L, warps=warps, atoms=A, pulses=pulses,
-                coef=coef, shared=shared, smem=4 * (table + pulses * per(A)))
+def _tables_geometry(coef, table, outputs, L):
+    """``cuda_xgre._chunk_geometry`` of a composite EPG-X kernel whose
+    ladders each hold a record of `coef` floats: ``shared``, whether one
+    warp's records and one stage fit SEG_CHUNK_FLOATS (else the kernel
+    reads the table from device memory and the block holds no records),
+    and ``coef``, the record's floats, beside the chunk's keys."""
+    shared = coef * L + table + outputs * L <= SEG_CHUNK_FLOATS
+    geo = _chunk_geometry(coef if shared else 0, table, outputs, L)
+    return dict(geo, coef=coef, shared=shared)
 
 
 def xcomposite_stage_mat_tables(khi, T1, T2, g, taus):
@@ -303,11 +324,14 @@ def xcomposite_cuda(alpha, phi, satf_re, satf_im, satz_re, satz_im, adci,
                          f"fit in {SMEM_PER_BLOCK} bytes of shared memory")
     out = torch.empty((2, nadc, C, B), dtype=torch.float32,
                       device=ref.device)
+    nmat = int(table.shape[0])
+    geo = xcomp_geometry(nstate, C, nmat)
     lib, dev, stream = _launch_env(ref)
     rc = lib.epg_xcomposite(
         *_ptrs(tr, st_tab), dens.data_ptr(), b1.data_ptr(), table.data_ptr(),
-        out.data_ptr(), N, C, B, nadc, nstate, *(int(bool(f)) for f in flags),
-        block_for(nstate, 6 * C), dev, stream)
+        out.data_ptr(), N, C, B, nadc, nmat, nstate,
+        *(int(bool(f)) for f in flags), geo["R"], geo["warps"],
+        geo["pulses"], int(geo["shared"]), dev, stream)
     if rc != 0:
         raise RuntimeError(f"xcomposite kernel launch failed: CUDA error "
                            f"{rc}")

@@ -16,8 +16,9 @@ stage as expm of the kinetic matrix).  ``shift=False`` is the balanced
 family: no gradient, the ladder stays at k = 0 (nstate 0).
 
 The kernels are ``epgpy_torch/csrc/xgre.cu`` and ``xgre_jac.cu`` (see their
-headers for the design; the Jacobian kernel runs the segmented layout of
-``fisp_jac.cu`` at the geometry :func:`xgre_jac_geometry` decides);
+headers for the design; both run the segmented layout with blocked rows,
+their state in registers, at the geometries :func:`xgre_geometry` and
+:func:`xgre_jac_geometry` decide);
 ``xgre_dictionary_plain`` /
 ``xgre_jacobian_plain`` are the same recurrences with the same operation
 order, vectorised over atoms as (nstate+1, B) planes in a Python loop over
@@ -48,8 +49,8 @@ __all__ = ["exchange_stage_mats", "xgre_dictionary_cuda",
            "xgre_dictionary_plain", "xgre_dictionary_echoes",
            "xgre_jacobian_cuda", "xgre_jacobian_plain",
            "xgre_jacobian_echoes", "xgre_kernel_fits",
-           "xgre_jac_kernel_fits", "xgre_jac_geometry", "LAUNCHES",
-           "JAC_LAUNCHES"]
+           "xgre_jac_kernel_fits", "xgre_geometry", "xgre_jac_geometry",
+           "x_rows", "LAUNCHES", "JAC_LAUNCHES"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -67,8 +68,12 @@ def _smem(nstate, planes_, block):
 
 
 def xgre_kernel_fits(nstate, C) -> bool:
-    """Whether the primal kernel's 6 C planes of nstate + 1 rows fit in one
-    block's shared memory at its smallest block (32 threads)."""
+    """The primal kernels' gate (xgre and the composite EPG-X): 6 C planes
+    of nstate + 1 rows at 32 threads within one block's shared memory --
+    nstate <= 301, 150, 99, 74 for C = 1, 2, 3, 4 -- as the thread-per-atom
+    layout set it; the segmented kernels keep their state in registers
+    (:func:`xgre_geometry`) and keep this gate, so that no train changes
+    route."""
     return _smem(nstate, 6 * int(C), 32) <= SMEM_PER_BLOCK
 
 
@@ -107,25 +112,64 @@ def xgre_jac_geometry(nstate, C, G):
     C, G = int(C), int(G)
     R, W, L = seg_layout(nstate, xgre_jac_rows(nstate, C, G))
     coef = (6 * C * C * G + C * G) | 1
+    return dict(R=R, W=W, L=L, **_chunk_geometry(
+        coef, XGRE_JAC_TABLE * C, 2 * G * C, L))
 
-    def per(atoms):    # floats per TR: the table and the staged echoes
-        return XGRE_JAC_TABLE * C + 2 * G * C * atoms
+
+#: floats of state a lane of the primal kernels holds at most (6 C R), and
+#: their TR-table floats per compartment (epg::kXTab: cos phi, sin phi, cos
+#: 2phi, sin 2phi, four saturation factors, the flip, its flags)
+X_STATE, X_TABLE = 72, 10
+
+
+def x_rows(nstate, C) -> int:
+    """Rows per lane of the primal kernels (xgre.cu, xcomposite.cu) for a
+    ladder of H = nstate + 1 rows over C pools, each lane holding all 6 C
+    planes of its rows, at most X_STATE floats (R <= 12 / C): ceil(H / W)
+    for the fewest lanes W within that -- H when one lane holds the ladder
+    (the instance of its length: every C at nstate 0, up to 12 rows at C =
+    1, 6 at C = 2); 6 rows on 2 lanes at the MT-GRE train's nstate 10, 5 on
+    2 at the MT-prepared train's 8.  Padding rows cost as much as rows, and
+    of two layouts with as many rows the one with fewer lanes measured
+    faster (PERF.md)."""
+    H, top = max(int(nstate), 0) + 1, X_STATE // (6 * int(C))
+    return -(-H // -(-H // top))
+
+
+def xgre_geometry(nstate, C):
+    """Launch geometry of the segmented primal kernel (``xgre.cu``):
+    dict(R, W, L) of ``cuda_fisp.seg_layout`` at :func:`x_rows`' rows per
+    lane (lane r of a segment owns rows r R + k, k < R), ``one`` (the
+    ladder is the one lane's R rows: the instance of its length),
+    ``warps`` per block (SEG_WARPS, halved while the block's coefficient
+    table, one record of ``coef`` = 6 C^2 floats rounded up to odd per
+    ladder, and one TR's table and staged echoes pass SEG_CHUNK_FLOATS),
+    ``atoms`` per block (warps x L), ``pulses`` (TRs) per chunk and
+    ``smem``, the block's shared bytes.  The wrapper passes R, warps and
+    pulses to the kernel, which checks them."""
+    C = int(C)
+    R, W, L = seg_layout(nstate, x_rows(nstate, C))
+    coef = (6 * C * C) | 1
+    geo = _chunk_geometry(coef, X_TABLE * C, 2 * C, L)
+    return dict(R=R, W=W, L=L, one=R == int(nstate) + 1, **geo)
+
+
+def _chunk_geometry(coef, table, outputs, L):
+    """warps, atoms, pulses, coef and smem of a segmented kernel whose
+    blocks hold `coef` floats per ladder and, per pulse, `table` floats
+    and `outputs` staged floats per ladder, L ladders per warp: SEG_WARPS
+    halved while the records and one pulse pass SEG_CHUNK_FLOATS, then as
+    many pulses (at most SEG_PULSES) as fit."""
+    def per(atoms):
+        return table + outputs * atoms
 
     warps = SEG_WARPS
     while warps > 1 and coef * warps * L + per(warps * L) > SEG_CHUNK_FLOATS:
         warps //= 2
     A = warps * L
     pulses = min(SEG_PULSES, (SEG_CHUNK_FLOATS - coef * A) // per(A))
-    return dict(R=R, W=W, L=L, warps=warps, atoms=A, pulses=pulses,
-                coef=coef, smem=4 * (coef * A + pulses * per(A)))
-
-
-def block_for(nstate, nplanes, block=128) -> int:
-    """Threads per block: `block`, halved while `nplanes` planes of
-    nstate + 1 rows do not fit."""
-    while block > 32 and _smem(nstate, nplanes, block) > SMEM_PER_BLOCK:
-        block //= 2
-    return block
+    return dict(warps=warps, atoms=A, pulses=pulses, coef=coef,
+                smem=4 * (coef * A + pulses * per(A)))
 
 
 def _cdtype(dt):
@@ -392,12 +436,13 @@ def xgre_dictionary_cuda(alpha, phi, satf_re, satf_im, satz_re, satz_im,
                          f"to {MAX_C} compartments whose 6 C planes fit in "
                          f"{SMEM_PER_BLOCK} bytes of shared memory")
     out = torch.empty((2, N, C, B), dtype=torch.float32, device=ref.device)
+    geo = xgre_geometry(nstate, C)
     lib, dev, stream = _launch_env(ref)
     rc = lib.epg_xgre(*(tr[k].data_ptr() for k in ("alpha", "phi", "sfr",
                                                    "sfi", "szr", "szi")),
                       dens.data_ptr(), b1.data_ptr(), coef.data_ptr(),
                       out.data_ptr(), N, C, B, nstate, int(bool(shift)),
-                      block_for(nstate, 6 * C), dev, stream)
+                      geo["R"], geo["warps"], geo["pulses"], dev, stream)
     if rc != 0:
         raise RuntimeError(f"xgre kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -41,7 +41,9 @@ from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_EDGE_ATOMS,
                         COMP_PRIMAL_EDGE_CASES, COMP_PRIMAL_SHAPE_NSTATES,
                         COMP_PRIMAL_TOP_N, COMP_CASE_N, HALF_EDGE_ATOMS,
                         HALF_EDGE_CASES, HALF_EDGE_PULSES, HALF_RAGGED_CASE,
-                        HALF_SHAPES, comp_vs_twin, half_vs_twin)
+                        HALF_SHAPES, comp_vs_twin, half_vs_twin,
+                        x_primal_repeat, x_primal_runs, xcomp_vs_twin,
+                        xgre_vs_twin)
 from epgpy_torch import config
 from epgpy_torch.models import (cuda_bssfp, cuda_composite, cuda_dess,
                                 cuda_fisp, cuda_hessian, cuda_megre,
@@ -879,6 +881,46 @@ def test_cuda_xcomposite_jacobian_ragged_shapes(card, shape):
     """1, 33 and 4,097 atoms, 1 and 2 stages, every option of the
     composite EPG-X train."""
     xcomp_jac_vs_twin(torch, XCOMP_RAGGED_CASE, *shape)
+
+
+def _x_run_id(v):
+    return v["name"] if isinstance(v, dict) else str(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,natoms,ntr", x_primal_runs("xgre"),
+                         ids=_x_run_id)
+def test_cuda_xgre_segmented_edges(card, case, natoms, ntr):
+    """The segmented xgre primal kernel on both sides of every change of
+    its rows per lane at one to four pools up to the gate's deepest
+    ladders (and those shifted to their top rows), the balanced train at
+    nstate 0, chunk edges at 31, 32 and 33 TRs, identity stages (every
+    mix skipped) and none, the unflipped bound pool, and the ragged shapes
+    (1, 33, 4,097 atoms; 1, 2, 33 TRs): echoes to 2e-6 of the twin's, one
+    launch."""
+    xgre_vs_twin(torch, case, natoms, ntr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,natoms,nstage", x_primal_runs("xcomp"),
+                         ids=_x_run_id)
+def test_cuda_xcomposite_segmented_edges(card, case, natoms, nstage):
+    """The segmented composite EPG-X primal kernel over the same row edges
+    with up, down and no shifts (none at nstate 0), chunk edges at 31, 32
+    and 33 stages, every mix with the identity entry and none, the
+    unflipped bound pool, the options off, both table modes and the ragged
+    shapes: echoes to 2e-6 of the twin's, one launch."""
+    xcomp_vs_twin(torch, case, natoms, nstage)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["xgre", "xcomp"])
+def test_cuda_x_primal_kernels_repeat_exactly(card, family):
+    """Both primal EPG-X kernels give bitwise the same echoes on a second
+    launch over the same inputs (4,097 atoms, 100 TRs or stages: four
+    chunks, so that a chunk's table, staged echoes and flush follow each
+    other in every block)."""
+    assert x_primal_repeat(torch, family)
 
 
 @pytest.mark.cuda

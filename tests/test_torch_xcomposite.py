@@ -17,7 +17,12 @@ Jacobian and the family table.
   through; the exact-pattern xgre family keeps its trains;
 * the golden ``xcomp_gre.npz`` at 1e-10 (float64);
 * the float64 Jacobian twin vs central finite differences of the general
-  path (free-pool T2 and the exchange rate), 1e-6 relative.
+  path (free-pool T2 and the exchange rate), 1e-6 relative;
+* the segmented kernels' lane maps (``epg::seg_shift_blocked``,
+  ``epg::seg_shift_blocked_down`` and the one-lane ``epg::lane_shift``
+  replayed in numpy) leave the float64 twins exactly as they were; their
+  launch geometries (rows per lane, warps, chunk and table mode) for every
+  ladder the gates admit, and the gates as before.
 """
 
 import os
@@ -34,8 +39,9 @@ from epgpy_torch.models import cuda_xcomposite
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_xcomposite
 
-from chip_smoke import (XCOMP_CASES, make_xcomp_case, make_xcomp_jac_case,
-                        xcomp_golden_train, xcomp_tensors)
+from chip_smoke import (X_ROW_EDGES, XCOMP_CASES, make_xcomp_case,
+                        make_xcomp_jac_case, xcomp_golden_train,
+                        xcomp_tensors)
 from epgpy_torch.models import cuda_fisp, cuda_xgre, planes
 from torch_support import (GOLDEN_DIR, cplx, port_f32,  # noqa: F401
                            port_f64, same_match, seg_owned_atoms,
@@ -456,3 +462,94 @@ def test_xcomp_jac_gate_unchanged():
                 except ValueError:
                     took = False
                 assert took == fits, (n, C, G)
+
+
+# -- the segmented layout of xcomposite.cu (blocked rows, every pool of a
+# row on one lane): lane map, geometry --
+
+
+@pytest.mark.parametrize("C,nstate", [(C, n) for C, ns in X_ROW_EDGES.items()
+                                      for n in ns], ids=str)
+def test_xcomp_lane_map_matches_twin(monkeypatch, C, nstate):
+    """The float64 primal twin with every up and down shift replayed
+    through the kernel's lane map at its rows per lane (xcomp_geometry;
+    blocked rows, epg::seg_shift_blocked and epg::seg_shift_blocked_down --
+    epg::lane_shift for a ladder on one lane -- emulated in numpy with NaN
+    in the idle lanes, past the last atom and in the padding rows) equals
+    the twin, every pool and readout: up, down and unshifted stages in one
+    train (none at nstate 0), ADC phases, saturation, adiabatic stages,
+    sparse readouts, df, over 21 stages more than the ladder has rows."""
+    case = dict(name="lane_map", C=C, nstate=nstate,
+                shift="mixed" if nstate else "none", adcph=True, sat=True,
+                b1u=True, g=True, sparse=True)
+    args, kw = make_xcomp_case(case, 5, nstate + 21, seed=2)
+    shifts = np.asarray(args[7])
+    assert set(shifts.tolist()) == ({-1.0, 0.0, 1.0} if nstate else {0.0})
+    targs = to_f64(xcomp_tensors(torch, args, "cpu"))
+    want = cuda_xcomposite.xcomposite_plain(*targs, **kw)
+    geo = cuda_xcomposite.xcomp_geometry(nstate, C, len(args[12]))
+    calls = [0]
+
+    def shift(down):
+        def run(x):
+            calls[0] += 1
+            return seg_shift_emulated(x, geo["R"], down=down, blocked=True)
+        return run
+
+    monkeypatch.setattr(planes, "shift_fold", shift(False))
+    monkeypatch.setattr(planes, "shift_down", shift(True))
+    got = cuda_xcomposite.xcomposite_plain(*targs, **kw)
+    assert calls[0] == C * int((shifts != 0).sum())
+    for g_, w in zip(got, want):
+        assert g_.dtype == torch.float64 and g_.shape == (kw["nadc"], C, 5)
+        assert torch.isfinite(g_).all() and torch.equal(g_, w)
+
+
+def test_xcomp_geometry():
+    """For every (nstate, C) the primal gate admits (xgre_kernel_fits), at
+    1, 4 and 6 table entries (the MT-prepared train's 4, the option cases'
+    6) and at the fewest entries whose records pass one warp's share of the
+    block, and one fewer: cuda_xgre.x_rows' rows per lane (xgre.cu's
+    layout), a segment of W = ceil(H / R) <= 32 lanes; the mode -- the
+    records in shared memory while one warp's records and one stage's
+    table and echoes fit 48 KB, else read from device memory -- 1-4 warps
+    per block (4 unless the records need fewer), 1-32 stages per chunk,
+    the block's tables and staged echoes within 48 KB, and a grid whose
+    slots store each of 1, 33 and 4,097 atoms exactly once."""
+    seen = dict(shared=0, device=0)
+    for C in range(1, 5):
+        for n in range(0, 302):
+            if not cuda_xgre.xgre_kernel_fits(n, C):
+                continue
+            R, W, L = cuda_fisp.seg_layout(n, cuda_xgre.x_rows(n, C))
+            per = (cuda_xgre.X_TABLE * C + cuda_xcomposite.XCOMP_STAGE
+                   + 2 * C * L)
+            big = 1
+            while ((big * 3 * C * C) | 1) * L + per <= 12288:
+                big += 1
+            for nmat in sorted({1, 4, 6, big - 1, big} - {0}):
+                geo = cuda_xcomposite.xcomp_geometry(n, C, nmat)
+                assert (geo["R"], geo["W"], geo["L"]) == (R, W, L)
+                assert geo["one"] == (R == n + 1) and W <= 32
+                coef = (nmat * 3 * C * C) | 1
+                per = (cuda_xgre.X_TABLE * C + cuda_xcomposite.XCOMP_STAGE
+                       + 2 * C * geo["atoms"])
+                assert geo["coef"] == coef
+                assert geo["shared"] == (nmat < big)
+                assert geo["atoms"] == geo["warps"] * L
+                table = coef * geo["atoms"] if geo["shared"] else 0
+                assert 1 <= geo["warps"] <= 4
+                assert geo["warps"] == 4 or (
+                    geo["shared"] and coef * 2 * geo["atoms"] + per
+                    + 2 * C * geo["atoms"] > 12288)
+                assert 1 <= geo["pulses"] <= 32
+                assert geo["smem"] == 4 * (table + geo["pulses"] * per)
+                assert geo["smem"] <= 48 * 1024
+                for B_ in (1, 33, 4097):
+                    owned, _ = seg_owned_atoms(geo, B_)
+                    assert sorted(owned) == list(range(B_)), (n, C, nmat)
+                seen["shared" if geo["shared"] else "device"] += 1
+    assert seen["device"] == sum(t + 1 for t in (301, 150, 99, 74))
+    mtp = cuda_xcomposite.xcomp_geometry(8, 2, 4)
+    assert (mtp["R"], mtp["W"], mtp["L"], mtp["warps"], mtp["coef"],
+            mtp["shared"], mtp["pulses"]) == (5, 2, 16, 4, 49, True, 32)

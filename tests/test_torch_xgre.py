@@ -26,7 +26,13 @@ twins, simulate(density=) dispatch, fall-through, goldens, Jacobian.
   replayed in numpy at ``xgre_jac_geometry``'s rows per lane) leaves the
   float64 twin exactly as it was; its launch geometry for every ladder the gate admits,
   and the gate as before; its identity-stage-A skip, emulated in float64
-  per warp, within 1e-12 of the twin.
+  per warp, within 1e-12 of the twin;
+* the segmented primal kernel's lane map (``epg::seg_shift_blocked`` and
+  the one-lane ``epg::lane_shift`` replayed in numpy at ``xgre_geometry``'s
+  rows per lane) leaves the float64 primal twin exactly as it was, for one
+  to four pools on both sides of every change of the rows per lane, at
+  the gate's deepest ladders and at nstate 0; its geometry for every
+  ladder the gate admits, and the primal gate's table as before.
 """
 
 import os
@@ -43,7 +49,8 @@ from epgpy_torch.models import cuda_xgre
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_xgre
 
-from chip_smoke import (XGRE_CASES, XGRE_EDGE_CASES, make_xgre_case,
+from chip_smoke import (X_ROW_EDGES, XGRE_CASES, XGRE_EDGE_CASES,
+                        make_xgre_case,
                         make_xgre_jac_case, xbssfp_golden_train,
                         xgre_parity_train, xgre_stage_a_passthrough,
                         xgre_tensors)
@@ -538,3 +545,120 @@ def test_xgre_jac_identity_skip_emulated(which):
         scale = max(float(f.abs().max()), 1.0)
         assert float((emulated - f).abs().max()) <= 1e-12 * scale
         assert torch.equal(emulated[..., ~sk], f[..., ~sk])
+
+
+# -- the segmented layout of xgre.cu (blocked rows, every pool of a row on
+# one lane): lane map, row edges, geometry, gate --
+
+#: the primal gate's deepest ladder per pool count (nstate)
+XGRE_PRIMAL_TOP = {1: 301, 2: 150, 3: 99, 4: 74}
+
+
+def test_x_row_edges_cover_every_change():
+    """chip_smoke.X_ROW_EDGES, the nstates the card's edge runs take, are
+    both sides of every change of the primal kernels' rows per lane
+    (cuda_xgre.x_rows) and the gate's deepest ladder, at one to four
+    pools."""
+    for C, top in XGRE_PRIMAL_TOP.items():
+        want = {top}
+        for n in range(1, top + 1):
+            if cuda_xgre.x_rows(n, C) != cuda_xgre.x_rows(n - 1, C):
+                want |= {n - 1, n}
+        assert set(X_ROW_EDGES[C]) == want, C
+
+
+@pytest.mark.parametrize("C,nstate", [(C, n) for C, ns in X_ROW_EDGES.items()
+                                      for n in ns], ids=str)
+def test_xgre_lane_map_matches_twin(monkeypatch, C, nstate):
+    """The float64 primal twin with every folded shift replayed through
+    the kernel's lane map at its rows per lane (xgre_geometry; blocked rows,
+    epg::seg_shift_blocked -- epg::lane_shift for a ladder on one lane --
+    emulated in numpy with NaN in the idle lanes, past the last atom and in
+    the padding rows) equals the twin, every pool and TR: two stages, df, a
+    B1 batch, complex saturation, over 7 TRs more than the ladder has rows;
+    nstate 0 is the balanced train, which never shifts."""
+    case = dict(name="lane_map", C=C, nstate=nstate, balanced=nstate == 0,
+                two_stage=True, g=True, b1=True, csat=True)
+    ntr = nstate + 7
+    args, kw = make_xgre_case(case, 37, ntr, seed=4)
+    targs = to_f64(xgre_tensors(torch, args, "cpu"))
+    want = cuda_xgre.xgre_dictionary_plain(*targs, **kw)
+    R = cuda_xgre.xgre_geometry(nstate, C)["R"]
+    calls = [0]
+
+    def shift(x):
+        calls[0] += 1
+        return seg_shift_emulated(x, R, blocked=True)
+
+    monkeypatch.setattr(planes, "shift_fold", shift)
+    got = cuda_xgre.xgre_dictionary_plain(*targs, **kw)
+    assert calls[0] == (0 if nstate == 0 else C * ntr)
+    for g_, w in zip(got, want):
+        assert g_.dtype == torch.float64 and g_.shape == (ntr, C, 37)
+        assert torch.isfinite(g_).all() and torch.equal(g_, w)
+
+
+def test_xgre_geometry():
+    """For every (nstate, C) the gate admits: x_rows' rows per lane, at
+    most 6 C R = 72 floats of state, the ladder's own length on one lane
+    while it fits (the kernel's one-lane instance), else ceil(H / W) on
+    the fewest lanes W, above 12 / C / 2 rows (the kernel's general
+    instances); a segment of W = ceil(H / R) <= 32 lanes, R W >= H, as
+    many ladders per warp as fit, 1-4 warps per block (4 unless the coefficient table needs fewer), 1-32
+    TRs per chunk, the coefficient table, TR table and staged echoes within
+    48 KB, and a grid whose (block, warp, segment) slots store each of 1,
+    2, 33 and 4,097 atoms exactly once."""
+    seen = 0
+    for C, deepest in XGRE_PRIMAL_TOP.items():
+        top = 12 // C
+        for n in range(0, 302):
+            if not cuda_xgre.xgre_kernel_fits(n, C):
+                continue
+            geo = cuda_xgre.xgre_geometry(n, C)
+            H, R, W, L = n + 1, geo["R"], geo["W"], geo["L"]
+            assert R == cuda_xgre.x_rows(n, C) and 6 * C * R <= 72
+            assert geo["one"] == (H <= top) == (R == H) == (W == 1)
+            assert geo["one"] or 2 * R > top      # an instance of the kernel
+            assert R == -(-H // W)
+            assert W == -(-H // R) == -(-H // min(H, top)) <= 32
+            assert W * R >= H
+            assert L == 32 // W and geo["atoms"] == geo["warps"] * L
+            coef = (6 * C * C) | 1                 # odd record stride
+            per = cuda_xgre.X_TABLE * C + 2 * C * geo["atoms"]
+            assert geo["coef"] == coef
+            assert 1 <= geo["warps"] <= 4
+            assert geo["warps"] == 4 or (
+                coef * 2 * geo["atoms"] + per + 2 * C * geo["atoms"]
+                > 12288)
+            assert 1 <= geo["pulses"] <= 32
+            assert geo["smem"] == 4 * (coef * geo["atoms"]
+                                       + geo["pulses"] * per) <= 48 * 1024
+            for B_ in (1, 2, 33, 4097):
+                owned, _ = seg_owned_atoms(geo, B_)
+                assert sorted(owned) == list(range(B_)), (n, C, B_)
+            seen += 1
+    assert seen == sum(t + 1 for t in XGRE_PRIMAL_TOP.values())
+    main = cuda_xgre.xgre_geometry(10, 2)
+    assert (main["R"], main["W"], main["L"], main["warps"], main["one"],
+            main["pulses"]) == (6, 2, 16, 4, False, 32)
+    flat = cuda_xgre.xgre_geometry(0, 2)
+    assert (flat["R"], flat["W"], flat["L"], flat["one"]) == (1, 1, 32, True)
+
+
+def test_xgre_gate_unchanged():
+    """The primal kernels' gate (xgre_kernel_fits, which the composite
+    EPG-X kernel shares) answers as the thread-per-atom layout set it: 6 C
+    planes of nstate + 1 rows at 32 threads in 232,448 bytes -- nstate <=
+    301, 150, 99 and 74 for C = 1, 2, 3, 4 -- over nstate 0-301; and the
+    dispatch's gate takes every balanced train."""
+    from epgpy_torch.models import cuda_fisp
+
+    assert cuda_fisp.SMEM_PER_BLOCK == 232448
+    table = {C: [cuda_xgre.xgre_kernel_fits(n, C) for n in range(302)]
+             for C in range(1, 5)}
+    for C, top in XGRE_PRIMAL_TOP.items():
+        assert table[C] == [n <= top for n in range(302)], C
+    for C in range(1, 5):
+        assert tfd.xgre_kernel_fits(dict(balanced=True, C=C), 400)
+        assert not tfd.xgre_kernel_fits(dict(balanced=False, C=C),
+                                        XGRE_PRIMAL_TOP[C] + 1)

@@ -48,7 +48,15 @@ after one warm-up, ``chip_smoke._cuda_ms``) at the main-path shapes:
   nstate 10 (``chip_smoke.cardiac_grid`` / ``cardiac_train`` through
   ``fisp_dispatch.match_composite``), and the MPRAGE mapping's truth train
   over its 262,144 voxels, nstate 8 (``chip_smoke.mprage_train``): the
-  wrapper calls and the kernel alone.
+  wrapper calls and the kernel alone;
+* ``xgre``: the bench's spoiled MT-GRE train, 262,144 atoms x 100 TRs, two
+  pools, nstate 10 (``chip_smoke.xgre_bench_sequence`` through
+  ``fisp_dispatch.match_xgre``, as ``phase_xgre_path``); ``xgre_bssfp``
+  its balanced train, 163,840 atoms x 200 TRs, nstate 0
+  (``xbssfp_bench_sequence``, as ``phase_xbssfp_path``); ``xcomposite``
+  the MT-prepared train, 131,072 atoms x 108 stages, nstate 8
+  (``xcomp_bench_sequence`` through ``fisp_dispatch.match_xcomposite``, as
+  ``phase_xcomp_path``): the wrapper calls and the kernel alone.
 
 ``--kernels`` times only the named ones (default: all).  ``--fits`` also
 runs, twice per turn, the end-to-end fits and calls that take the chosen
@@ -59,7 +67,9 @@ exchange-rate fit (``chip_smoke.phase_kfit``: 8 iterations) for
 ``xcomposite_jac``, the CPMG T2/B1 mapping (``chip_smoke.phase_t2b1``:
 dictionary, match and Gauss-Newton) for ``cpmg``, the memoized
 ``simulate()`` of the FISP dictionary for ``fisp_half`` and of DW-FISP's
-for ``fisp_half_dw``, and for ``composite`` the memoized cardiac MRF
+for ``fisp_half_dw``, the memoized ``simulate(density=)`` of each EPG-X
+train for ``xgre``, ``xgre_bssfp`` and ``xcomposite``, and for
+``composite`` the memoized cardiac MRF
 ``simulate()``, the MPRAGE T1 mapping (``chip_smoke.
 phase_mprage_mapping``) and the cardiac MRF T1/T2 mapping
 (``phase_cardiac_mapping``) -- and keeps the second run's host-clock
@@ -69,8 +79,11 @@ Two knobs time the primal kernels' geometry: ``--blocks N [N ...]`` times
 ``fisp_half`` and ``composite`` of a checkout whose kernels run one thread
 per atom at N threads per block (its wrappers' ``block_size``), and
 ``--rows R [R ...]`` those of a checkout on the segmented layout at R rows
-per lane (its ``half_rows``, in both wrappers' modules), each beside the
-committed choice.
+per lane (its ``half_rows``, in both wrappers' modules), and ``xgre``,
+``xgre_bssfp`` and ``xcomposite`` at R rows per lane where the checkout's
+EPG-X primal kernels are segmented (``x_rows`` of ``cuda_xgre`` and
+``cuda_xcomposite``; a ladder longer than one lane holds takes R above 12
+/ C / 2 rows, 4-6 at two pools), each beside the committed choice.
 
 Each turn prints one JSON line with its times and the kernels' ptxas lines
 (registers, stack frame) where it built them; the last lines give the
@@ -93,7 +106,7 @@ SHAPES = {"fisp": (102400, 1000), "megre": (262144, 200)}
 
 KERNELS = ("fisp_jac", "megre_jac", "fisp_hess", "composite_jac",
            "xgre_jac", "dess_jac", "cpmg", "xcomposite_jac", "fisp_half",
-           "fisp_half_dw", "composite")
+           "fisp_half_dw", "composite", "xgre", "xgre_bssfp", "xcomposite")
 
 
 def turn(root, reps, kernels, fits, blocks=(), rows=()):
@@ -177,6 +190,7 @@ def turn(root, reps, kernels, fits, blocks=(), rows=()):
                 out["t2b1_gn_ms"] = 1e3 * m["gn_s"]
     _fisp_family(root, reps, kernels, out)
     _primal(root, reps, kernels, fits, out, blocks, rows)
+    _xprimal(reps, kernels, fits, out, rows)
     log = _build.build_info()["log"].splitlines()
     out["ptxas"] = [f"{a.split('for')[-1].strip()[-48:]}: {b.strip()}; "
                     f"{c.strip()}"
@@ -187,7 +201,8 @@ def turn(root, reps, kernels, fits, blocks=(), rows=()):
                                              "xgre_jac", "dess_jac",
                                              "cpmg_kernel", "xcomp_jac",
                                              "fisp_half_kernel",
-                                             "composite_kernel"))]
+                                             "composite_kernel",
+                                             "xgre_kernel", "xcomp_kernel"))]
     out["build_s"] = _build.build_info()["seconds"]
     print(json.dumps(out))
 
@@ -353,6 +368,81 @@ def _primal(root, reps, kernels, fits, out, blocks, rows):
             cmrf = cs.phase_cardiac_mapping(torch, epg, comp)
             out["cardiac_map_gn_ms"] = 1e3 * cmrf["gn_s"]
             del comp
+
+
+def _xprimal(reps, kernels, fits, out, rows):
+    """The primal EPG-X kernels' times into `out`: ``xgre`` (the spoiled
+    MT-GRE train), ``xgre_bssfp`` (its balanced train) and ``xcomposite``
+    (the MT-prepared train) at the committed geometry, then at each of
+    `rows` rows per lane where the checkout's kernels are segmented; with
+    `fits`, the memoized ``simulate(density=)`` of each train."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_xcomposite, cuda_xgre
+
+    want = [k for k in ("xgre", "xgre_bssfp", "xcomposite") if k in kernels]
+    if not want:
+        return
+    calls, sims = {}, {}
+    if "xgre" in want:
+        seq = cs.xgre_bench_sequence(
+            epg, np.linspace(40.0, 120.0, cs.XGRE_ATOMS))
+        dens = list(cs.XGRE_DENS)
+        args, kw = cs._xgre_args(fisp_dispatch, fisp_dispatch.match_xgre(
+            seq, (2, cs.XGRE_ATOMS), dens), cs.XGRE_NSTATE)
+        calls["xgre"] = (lambda a=args, k=kw: cuda_xgre.xgre_dictionary_echoes(
+            *a, **k), "epg_xgre")
+        sims["xgre"] = (seq, dict(max_nstate=cs.XGRE_NSTATE, density=dens))
+    if "xgre_bssfp" in want:
+        FA, _, T2 = cs.families_draws(cs.XBSSFP_ATOMS)
+        seq = cs.xbssfp_bench_sequence(epg, T2, FA)
+        args, kw = cs._xgre_args(fisp_dispatch, fisp_dispatch.match_xgre(
+            seq, (2, cs.XBSSFP_ATOMS), [0.85, 0.15]), 0)
+        calls["xgre_bssfp"] = (
+            lambda a=args, k=kw: cuda_xgre.xgre_dictionary_echoes(*a, **k),
+            "epg_xgre")
+        sims["xgre_bssfp"] = (seq, dict(density=[0.85, 0.15]))
+    if "xcomposite" in want:
+        FA, _, T2 = cs.families_draws(cs.XCOMP_NAT)
+        T2f = np.concatenate([T2, T2])
+        seq = cs.xcomp_bench_sequence(epg, T2f, FA)
+        params = fisp_dispatch.match_xcomposite(seq, (2, len(T2f)),
+                                                [0.85, 0.15])
+        args, d, kw = fisp_dispatch._xcomp_call(params, cs.XCOMP_NSTATE)
+        args = args + (params["taus"], params["khi"], d["T1"], d["T2"],
+                       d["g"], d["B1"], d["b1u"])
+        calls["xcomposite"] = (
+            lambda a=args, k=kw: cuda_xcomposite.xcomposite_echoes(*a, **k),
+            "epg_xcomposite")
+        sims["xcomposite"] = (seq, dict(max_nstate=cs.XCOMP_NSTATE,
+                                        density=[0.85, 0.15]))
+
+    def time_all(tag):
+        for key, (fn, symbol) in calls.items():
+            out[f"{key}{tag}_ms"] = cs._cuda_ms(torch, fn, reps)
+            out[f"{key}{tag}_kernel_ms"] = cs._launch_ms(torch, fn, symbol,
+                                                         reps)
+
+    time_all("")
+    if rows and hasattr(cuda_xgre, "x_rows"):
+        rows_of = cuda_xgre.x_rows
+        try:
+            for r in rows:
+                cuda_xgre.x_rows = cuda_xcomposite.x_rows = (
+                    lambda n, C, r=r: r)
+                time_all(f"_rows{r}")
+        finally:
+            cuda_xgre.x_rows = cuda_xcomposite.x_rows = rows_of
+    if not fits:
+        return
+    for _ in range(2):      # the first run warms the host paths
+        for key, (seq, skw) in sims.items():
+            out[f"{key}_simulate_ms"] = 1e3 * cs._host_s(
+                torch, lambda: epg.simulate(seq, asarray=False, **skw))
 
 
 def main():
