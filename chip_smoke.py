@@ -462,8 +462,11 @@ _XCOMP_ALL = dict(shift="mixed", adcph=True, sat=True, b1u=True, g=True,
                   sparse=True)
 #: the primal kernels' edges besides the row edges, at X_PRIMAL_ATOMS atoms
 #: (XGRE_CASE_N TRs, XCOMP_CASE_N stages unless the case says): chunk
-#: edges at 31, 32 and 33 TRs or stages at the main shapes; the deepest
-#: ladders shifted up to their top rows; trains whose
+#: edges at 31, 32 and 33 TRs or stages at the main shapes; the gate's
+#: deepest ladder at every pool count (C = 1..4: nstate 301, 150, 99, 74)
+#: shifted up over H + 10 TRs or stages (the edges above reach row 60 or
+#: 80 at most), so that the truncation at row H - 1 and the top lane's
+#: shuffle run on state; trains whose
 #: exchange stages are all the identity (every mix skipped) and none; the
 #: bound pool unflipped and unsaturated (the MT trains' skipped rotations
 #: and saturations); the options off (no saturation, ADC phase or b1u,
@@ -478,7 +481,9 @@ XGRE_PRIMAL_CASES = [
     dict(_XGRE_ALL, name="no_identity", nstate=10),
     dict(name="bound_unflipped", nstate=10, bound0=True, b1=True),
     dict(_XGRE_ALL, name="gate_top_c1_n301", C=1, nstate=301, ntr=312),
-    dict(_XGRE_ALL, name="gate_top_c2_n150", nstate=150, ntr=160),
+    dict(_XGRE_ALL, name="gate_top_c2_n150", nstate=150, ntr=161),
+    dict(_XGRE_ALL, name="gate_top_c3_n99", C=3, nstate=99, ntr=110),
+    dict(_XGRE_ALL, name="gate_top_c4_n74", C=4, nstate=74, ntr=85),
 ]
 XCOMP_PRIMAL_CASES = [
     dict(_XCOMP_ALL, name=f"chunk_n8_st{n}", nstate=8, nstage=n)
@@ -491,6 +496,12 @@ XCOMP_PRIMAL_CASES = [
     dict(_XCOMP_ALL, name="global_c4_n5_taus26", C=4, nstate=5, ntaus=26),
     dict(_XCOMP_ALL, name="gate_top_c1_n301", C=1, nstate=301, shift="up",
          nstage=312),
+    dict(_XCOMP_ALL, name="gate_top_c2_n150", nstate=150, shift="up",
+         nstage=161),
+    dict(_XCOMP_ALL, name="gate_top_c3_n99", C=3, nstate=99, shift="up",
+         nstage=110),
+    dict(_XCOMP_ALL, name="gate_top_c4_n74", C=4, nstate=74, shift="up",
+         nstage=85),
 ]
 X_PRIMAL_ATOMS = 1000
 
@@ -579,11 +590,14 @@ COMP_CASES = [
 #: each group alone, all four
 COMP_GROUP_SETS = [(), ("T1",), ("T2",), ("B1",), ("df",),
                    ("T1", "T2", "B1", "df")]
-#: stages of an option case (cut from 300 with the depths above)
-COMP_CASE_N = 150
+#: stages of an option case (cut from 300 with the depths above); stages
+#: of an edge case: with mixed shifts the ladder reaches about two thirds
+#: of them, 200 rows, past the deepest ladders' (151 rows at 1 group) and
+#: into the composite primal kernel's 302
+COMP_CASE_N, COMP_EDGE_N = 150, 300
 #: the segmented composite Jacobian kernel's edges, each with every option
 #: (every shift direction, D with ramps, df, ADC phases, b1u, sparse
-#: readouts) over COMP_CASE_N stages: the gate's deepest ladder for each
+#: readouts) over COMP_EDGE_N stages: the gate's deepest ladder for each
 #: group count (nstate 59 / 74 / 99 / 150 with 4 / 3 / 2 / 1 groups: 2 /
 #: 3 / 4 / 5 rows per lane), rows per lane changing (nstate 2 / 3) and
 #: nstate 1; (case, groups)
@@ -4668,7 +4682,7 @@ def phase_comp_cases(torch, natoms=4096):
                 f"{TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
     wall["options"] = time.perf_counter() - t0
-    runs = [("edges", case, groups, COMP_EDGE_ATOMS, COMP_CASE_N)
+    runs = [("edges", case, groups, COMP_EDGE_ATOMS, COMP_EDGE_N)
             for case, groups in COMP_EDGE_CASES]
     runs += [("shapes", dict(_COMP_ALL, name=f"ragged_n{nst}", nstate=nst),
               COMP_GROUP_SETS[-1], n, ns)
@@ -4693,7 +4707,7 @@ def phase_comp_cases(torch, natoms=4096):
         wall[part] += time.perf_counter() - t0
     t0 = time.perf_counter()
     runs = [(case, COMP_EDGE_ATOMS, COMP_PRIMAL_TOP_N
-             if case["shift"] == "up" else COMP_CASE_N)
+             if case["shift"] == "up" else COMP_EDGE_N)
             for case in COMP_PRIMAL_EDGE_CASES]
     runs += [(dict(_COMP_ALL, name=f"primal_ragged_n{nst}", nstate=nst), n,
               ns) for n, ns in COMP_SHAPES for nst in COMP_PRIMAL_SHAPE_NSTATES]

@@ -376,21 +376,6 @@ struct XMix {
     float r[C * C], i[C * C], l[C * C];
 };
 
-// Load an XMix from C * C-row blocks of a (rows, B) array: row (part *
-// C * C + i * C + j) of `rows`, column b (part 0/1/2 = mT re / im / mL).
-template <int C>
-__device__ __forceinline__ XMix<C> load_xmix(const float* rows, int B,
-                                             int b) {
-    XMix<C> m;
-#pragma unroll
-    for (int q = 0; q < C * C; ++q) {
-        m.r[q] = rows[static_cast<size_t>(q) * B + b];
-        m.i[q] = rows[static_cast<size_t>(C * C + q) * B + b];
-        m.l[q] = rows[static_cast<size_t>(2 * C * C + q) * B + b];
-    }
-    return m;
-}
-
 // An XMix read in place from a ladder's record of a per-block shared
 // table: coefficient q of part 0/1/2 at p[part C C + q].  With the records
 // of a block's ladders at an odd stride, every lane of a ladder's segment

@@ -39,10 +39,10 @@
 // odd stride; a stage loads its two entries into registers where they fit
 // beside the state (6 C R + 6 C^2 within 84 floats: R = 5 on 2 lanes at
 // the main shape), else the mixes read them in place; where one warp's
-// records do not
-// fit in the block's 48 KB (many distinct taus at many pools), the
-// kernel's second mode reads the stage's two entries in place from device
-// memory instead (`SHARED`; the geometry chooses the mode by shape).  A mix
+// records do not fit in the block's 48 KB (many distinct taus at many
+// pools), the kernel's second mode has the mixes read the stage's two
+// entries in place from device memory instead, as xcomposite_jac.cu's does
+// (`SHARED`; the geometry chooses the mode by shape).  A mix
 // with entry 0 is skipped when that entry is the identity for every atom
 // of the warp (the test runs once, before the stage loop; the entry is the
 // same for every atom, so the branch is warp-uniform).  The
@@ -242,13 +242,6 @@ __global__ void __launch_bounds__(kMaxWarps* epg::kWarp, SHARED ? 4 : 1)
                 epg::xstage_rows<C, R>(
                     s, rot, tr, epg::record_xmix<C, REG>(rec + ma * M3),
                     skipA, epg::record_xmix<C, REG>(rec + mb * M3),
-                    skipB, dens, q.r == 0, echo, A, TC, ts[5], ts[6],
-                    p.use_adcph != 0);
-            } else if constexpr (REG) {
-                const size_t mat = static_cast<size_t>(M3) * p.B;
-                epg::xstage_rows<C, R>(
-                    s, rot, tr, epg::load_xmix<C>(p.table + ma * mat, p.B, b),
-                    skipA, epg::load_xmix<C>(p.table + mb * mat, p.B, b),
                     skipB, dens, q.r == 0, echo, A, TC, ts[5], ts[6],
                     p.use_adcph != 0);
             } else {

@@ -39,7 +39,7 @@ from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_EDGE_ATOMS,
                         XCOMP_EDGE_CASES, XCOMP_EDGE_SHAPE,
                         XCOMP_RAGGED_CASE, XCOMP_SHAPES, xcomp_jac_vs_twin,
                         COMP_PRIMAL_EDGE_CASES, COMP_PRIMAL_SHAPE_NSTATES,
-                        COMP_PRIMAL_TOP_N, COMP_CASE_N, HALF_EDGE_ATOMS,
+                        COMP_PRIMAL_TOP_N, COMP_EDGE_N, HALF_EDGE_ATOMS,
                         HALF_EDGE_CASES, HALF_EDGE_PULSES, HALF_RAGGED_CASE,
                         HALF_SHAPES, comp_vs_twin, half_vs_twin,
                         x_primal_repeat, x_primal_runs, xcomp_vs_twin,
@@ -684,7 +684,7 @@ def test_cuda_composite_jacobian_segmented_edges(card, case, groups):
     """The segmented Jacobian kernel at the gate's deepest ladder for each
     group count (2 to 5 rows per lane), rows per lane changing and nstate
     1, with every option: signals to 2e-6, columns to 1e-5."""
-    _comp_jac_vs_twin(case, groups, COMP_EDGE_ATOMS, 300)
+    _comp_jac_vs_twin(case, groups, COMP_EDGE_ATOMS, COMP_EDGE_N)
 
 
 @pytest.mark.cuda
@@ -709,7 +709,7 @@ def test_cuda_primal_kernels_repeat_exactly(card):
 #: the segmented composite primal kernel's edges and ragged shapes:
 #: (case, atoms, stages)
 COMP_PRIMAL_RUNS = [(c, COMP_EDGE_ATOMS, COMP_PRIMAL_TOP_N if c["shift"] ==
-                     "up" else COMP_CASE_N) for c in COMP_PRIMAL_EDGE_CASES] \
+                     "up" else COMP_EDGE_N) for c in COMP_PRIMAL_EDGE_CASES] \
     + [(dict(COMP_CASES[-1], name=f"ragged_n{n}_{b}x{ns}", nstate=n), b, ns)
        for b, ns in COMP_SHAPES for n in COMP_PRIMAL_SHAPE_NSTATES]
 

@@ -3,6 +3,7 @@
     python3 tools/jac_kernel_ab.py ROOT [ROOT ...] [--reps N]
                                    [--kernels NAME [NAME ...]]
                                    [--rounds N] [--fits]
+                                   [--rows R [R ...]] [--nstates N [N ...]]
 
 Runs one turn per checkout -- each ROOT, then this checkout -- and then
 the same turns in reverse order (A, B, B, A for one ROOT), `rounds` times
@@ -84,6 +85,8 @@ per lane (its ``half_rows``, in both wrappers' modules), and ``xgre``,
 EPG-X primal kernels are segmented (``x_rows`` of ``cuda_xgre`` and
 ``cuda_xcomposite``; a ladder longer than one lane holds takes R above 12
 / C / 2 rows, 4-6 at two pools), each beside the committed choice.
+``--nstates N [N ...]`` also times ``xgre``'s MT-GRE train cut at each
+ladder depth N (keys ``xgre_nN``), at the committed rows and at each R.
 
 Each turn prints one JSON line with its times and the kernels' ptxas lines
 (registers, stack frame) where it built them; the last lines give the
@@ -109,7 +112,7 @@ KERNELS = ("fisp_jac", "megre_jac", "fisp_hess", "composite_jac",
            "fisp_half_dw", "composite", "xgre", "xgre_bssfp", "xcomposite")
 
 
-def turn(root, reps, kernels, fits, blocks=(), rows=()):
+def turn(root, reps, kernels, fits, blocks=(), rows=(), nstates=()):
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -190,7 +193,7 @@ def turn(root, reps, kernels, fits, blocks=(), rows=()):
                 out["t2b1_gn_ms"] = 1e3 * m["gn_s"]
     _fisp_family(root, reps, kernels, out)
     _primal(root, reps, kernels, fits, out, blocks, rows)
-    _xprimal(reps, kernels, fits, out, rows)
+    _xprimal(reps, kernels, fits, out, rows, nstates)
     log = _build.build_info()["log"].splitlines()
     out["ptxas"] = [f"{a.split('for')[-1].strip()[-48:]}: {b.strip()}; "
                     f"{c.strip()}"
@@ -370,12 +373,13 @@ def _primal(root, reps, kernels, fits, out, blocks, rows):
             del comp
 
 
-def _xprimal(reps, kernels, fits, out, rows):
+def _xprimal(reps, kernels, fits, out, rows, nstates=()):
     """The primal EPG-X kernels' times into `out`: ``xgre`` (the spoiled
-    MT-GRE train), ``xgre_bssfp`` (its balanced train) and ``xcomposite``
-    (the MT-prepared train) at the committed geometry, then at each of
-    `rows` rows per lane where the checkout's kernels are segmented; with
-    `fits`, the memoized ``simulate(density=)`` of each train."""
+    MT-GRE train, also at each ladder depth of `nstates`), ``xgre_bssfp``
+    (its balanced train) and ``xcomposite`` (the MT-prepared train) at the
+    committed geometry, then at each of `rows` rows per lane where the
+    checkout's kernels are segmented; with `fits`, the memoized
+    ``simulate(density=)`` of each train."""
     import numpy as np
     import torch
 
@@ -392,10 +396,13 @@ def _xprimal(reps, kernels, fits, out, rows):
         seq = cs.xgre_bench_sequence(
             epg, np.linspace(40.0, 120.0, cs.XGRE_ATOMS))
         dens = list(cs.XGRE_DENS)
-        args, kw = cs._xgre_args(fisp_dispatch, fisp_dispatch.match_xgre(
-            seq, (2, cs.XGRE_ATOMS), dens), cs.XGRE_NSTATE)
-        calls["xgre"] = (lambda a=args, k=kw: cuda_xgre.xgre_dictionary_echoes(
-            *a, **k), "epg_xgre")
+        params = fisp_dispatch.match_xgre(seq, (2, cs.XGRE_ATOMS), dens)
+        for key, ns in [("xgre", cs.XGRE_NSTATE)] + [
+                (f"xgre_n{n}", n) for n in nstates]:
+            args, kw = cs._xgre_args(fisp_dispatch, params, ns)
+            calls[key] = (
+                lambda a=args, k=kw: cuda_xgre.xgre_dictionary_echoes(*a, **k),
+                "epg_xgre")
         sims["xgre"] = (seq, dict(max_nstate=cs.XGRE_NSTATE, density=dens))
     if "xgre_bssfp" in want:
         FA, _, T2 = cs.families_draws(cs.XBSSFP_ATOMS)
@@ -455,11 +462,12 @@ def main():
     ap.add_argument("--fits", action="store_true")
     ap.add_argument("--blocks", nargs="*", type=int, default=[])
     ap.add_argument("--rows", nargs="*", type=int, default=[])
+    ap.add_argument("--nstates", nargs="*", type=int, default=[])
     ap.add_argument("--turn", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.turn:
         turn(os.path.abspath(a.roots[0]), a.reps, a.kernels, a.fits,
-             a.blocks, a.rows)
+             a.blocks, a.rows, a.nstates)
         return
     import torch
 
@@ -472,7 +480,8 @@ def main():
                             "--turn", "--reps", str(a.reps), "--kernels",
                             *a.kernels] + ["--fits"] * a.fits
                            + ["--blocks", *map(str, a.blocks)]
-                           + ["--rows", *map(str, a.rows)],
+                           + ["--rows", *map(str, a.rows)]
+                           + ["--nstates", *map(str, a.nstates)],
                            capture_output=True, text=True, cwd=root)
         if r.returncode != 0:
             print(r.stdout[-3000:], r.stderr[-3000:])
