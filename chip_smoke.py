@@ -10,10 +10,10 @@ Phases (each raises on failure: a failure exits non-zero with no result):
 2. build: compiles the kernel library from epgpy_torch/csrc into
    build/epgpy_torch/ (first use) and loads it;
 3. the FISP kernel against its plain PyTorch twin on the card, over a
-   covering set of option cases at 4096 atoms x 500 pulses (plus one
+   covering set of option cases at 4096 atoms x 300 pulses (plus one
    case at nstate 40, beyond 48 KB of shared memory per block);
 3b. the same for the FISP Jacobian kernel (fingerprints + dS/dT1, dT2,
-   dB1[, dD]) at 120 pulses, per tangent column relative to the column's
+   dB1[, dD]) at 80 pulses, per tangent column relative to the column's
    largest value;
 4. the main path at full size: the FISP MR-fingerprinting dictionary
    train [T(FA_i*B1, 90), E(5, T1, T2), ADC, E(7, T1, T2), S(1)] x 1000
@@ -79,12 +79,21 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    evaluation) under the SAR and flip-step constraints; the designed train
    must keep both and beat the constant train at the same SAR;
 3g-3h. the bSSFP and DESS kernels against their twins over every option;
+   the primal bSSFP kernel also over TR and TE runs across its 32-pulse
+   chunks, inversion with and without df, a large df t (0.5 kHz over
+   1,000 ms TRs) and ragged shapes (1-4,097 atoms, 1-33 pulses), each
+   launched twice for the same bits;
 4g-4i. the bSSFP dictionary (163,840 x 500, golden, drift) and its (T1, T2,
    g) Jacobian, DESS (golden, 262,144-voxel mapping train, Jacobian)
    through ``simulate()``; 5f-5g. bSSFP MRF serving and DESS T1/T2 mapping;
 3i. the ME-GRE kernels (primal and (T1, T2, B1, df) Jacobian) against their
    twins over every option (m = 2 and 3, df, demodulation, a per-pulse
-   echo-time matrix, a B1 batch, the df group at dfs=None);
+   echo-time matrix, a B1 batch, the df group at dfs=None); the primal
+   kernel also on both sides of every change of its instance or rows per
+   lane up to the gate's nstate 301, at 1-1,000 echoes (past its
+   registers and its staging area), over TR and echo-time runs across
+   its chunks, ragged shapes and chunk edges, each launched twice for the
+   same bits;
 3j. the full-ladder FISP kernel against its twin at nstate 0, 10 and 150,
    against the folded kernel, and fisp_dictionary_cuda's nstate-0 route;
 4j. the bench's ME-GRE train (200 TRs x 3 echoes) over 262,144 atoms
@@ -295,9 +304,10 @@ DWF_JAC_N, DWF_TWIN_ATOMS = 200, 8192
 #: (3g) and the ME-GRE option cases (3i, TRs): the kernels' own loops are
 #: depth-independent, the twins' Python loops are not (cut from 250, 100,
 #: 1000, 500 and 200 to hold the script's time as the EPG-X primal edges
-#: came in)
-JAC_CASE_N, HESS_CASE_N, CASE_NPULSE = 120, 50, 500
-SSFP_CASE_N, MEGRE_CASE_N = 200, 100
+#: came in, and from 120, 500, 200 and 100 as the ME-GRE and bSSFP primal
+#: edges did)
+JAC_CASE_N, HESS_CASE_N, CASE_NPULSE = 80, 50, 300
+SSFP_CASE_N, MEGRE_CASE_N = 120, 60
 
 #: cardiac MRF (examples/cardiac_mrf_t1t2.py as published, Hamilton 2017):
 #: heartbeats, readouts per beat, FISP TE and TR, R-R interval (ms), the
@@ -565,6 +575,75 @@ MEGRE_EDGE_CASES = [
     dict(name="n1", m=3, nstate=1, var_te=True, b1=True, df=True,
          demodulate=True),
 ]
+
+#: nstates on both sides of every change of the primal ME-GRE kernel's
+#: instance or rows per lane (cuda_megre.megre_rows: the one-lane instance
+#: of each length at nstate 1-11, R = 7 on two lanes from 12, ..., 12 rows
+#: on 11 lanes from 120) and the gate's deepest ladder, 301
+MEGRE_ROW_EDGES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16,
+                   17, 18, 19, 20, 21, 22, 23, 24, 26, 27, 29, 30, 32, 33,
+                   35, 36, 39, 40, 43, 44, 47, 48, 49, 50, 54, 55, 59, 60,
+                   65, 66, 71, 72, 76, 77, 83, 84, 87, 88, 95, 96, 98, 99,
+                   107, 108, 109, 110, 119, 120, 121, 301)
+#: the primal ME-GRE kernel's edges (megre.cu), each held against its twin
+#: over MEGRE_EDGE_ATOMS atoms and a train MEGRE_EDGE_PULSES TRs longer than
+#: the ladder: every nstate of MEGRE_ROW_EDGES, those on one lane (1-11)
+#: with df on and off, the rest alternating df, demodulation, a per-pulse
+#: echo-time matrix and TR / echo-time runs
+MEGRE_PRIMAL_EDGE_CASES = [
+    dict(name=f"rows_n{n}{'' if df else '_nodf'}", m=2 + n % 2, nstate=n,
+         df=df, demodulate=n % 2 == 0, var_te=n % 2 == 1, runs=n % 3 == 0)
+    for n in MEGRE_ROW_EDGES for df in ((True, False) if n <= 11
+                                        else (n % 4 != 0,))]
+MEGRE_EDGE_ATOMS, MEGRE_EDGE_PULSES = 1000, 10
+#: the primal ME-GRE kernel's echo counts and train shapes, each (case,
+#: atoms, TRs): m = 400 at nstate 1 and m = 1,000 at nstate 8 on one lane
+#: (factors recomputed each TR), m = 4 (the most held in registers) and 5,
+#: m = 400 at nstate 12 (two lanes, past the staging area: stored
+#: directly) and m = 1 at 12; TR and echo-time runs ending mid-chunk and
+#: at chunk boundaries; the ragged shapes of 1, 33 and 4,097 atoms, 1 and
+#: 2 TRs and the chunk edges of 31-33 TRs, at nstate 8 (one lane) and 12
+#: (two lanes, 31 TRs per staged chunk)
+_MEGRE_ALL = dict(df=True, demodulate=True, var_te=True, b1=True)
+MEGRE_PRIMAL_CASES = [
+    (dict(name="m400_n1", m=400, nstate=1, df=True, demodulate=True), 33,
+     12),
+    (dict(name="m1000_n8", m=1000, nstate=8, df=True), 33, 12),
+    (dict(_MEGRE_ALL, name="m4_n8", m=4, nstate=8), 1000, 40),
+    (dict(_MEGRE_ALL, name="m5_n8", m=5, nstate=8), 1000, 40),
+    (dict(name="m5_n12_df", m=5, nstate=12, df=True), 1000, 40),
+    (dict(name="m400_n12", m=400, nstate=12, df=True, demodulate=True), 33,
+     14),
+    (dict(name="m1_n12", m=1, nstate=12, df=True), 1000, 40),
+    (dict(_MEGRE_ALL, name="runs_n8", m=3, nstate=8, runs=True), 1000, 80),
+    (dict(name="runs_n8_fixed_te", m=3, nstate=8, runs=True), 1000, 80),
+    (dict(_MEGRE_ALL, name="runs_n12", m=3, nstate=12, runs=True), 1000,
+     80),
+] + [(dict(_MEGRE_ALL, name=f"shape_n{n}", m=3, nstate=n), b, p)
+     for n in (8, 12)
+     for b, p in ((1, 40), (33, 40), (4097, 40), (33, 1), (33, 2),
+                  (1000, 31), (1000, 32), (1000, 33))]
+
+#: the primal bSSFP kernel's edges (bssfp.cu), each held against its twin
+#: over BSSFP_EDGE_SHAPE: TR (and TE) runs ending mid-chunk and at the
+#: 32-pulse chunk boundary, then varying; inversion without and with df;
+#: a large df t (df 0.5 kHz, TR 1,000 ms); then every option over the
+#: ragged shapes BSSFP_SHAPES: 1, 2 and 31-33 pulses, atom counts off the
+#: 128-thread block
+BSSFP_EDGE_CASES = [
+    dict(name="runs_var_te", runs=True, var_te=True, df=True, demodulate=True,
+         inversion=18.0),
+    dict(name="runs_fixed_te", runs=True, df=True),
+    dict(name="inv_nodf", inversion=18.0, var_te=True),
+    dict(name="inv_df", inversion=18.0, df=True, demodulate=True),
+    dict(name="big_df", big_df=True, df=True, inversion=18.0,
+         demodulate=True),
+    dict(name="big_df_var_te", big_df=True, df=True, var_te=True),
+]
+BSSFP_EDGE_SHAPE = (1000, 100)
+BSSFP_SHAPES = [(1, 1), (1, 2), (33, 31), (129, 32), (4097, 33), (127, 2)]
+BSSFP_RAGGED_CASE = dict(name="ragged", b1=True, df=True, inversion=12.0,
+                         var_te=True, demodulate=True)
 
 #: nstates on both sides of every change of the segmented primal kernels'
 #: rows per lane (cuda_fisp.half_rows: fisp_half.cu and composite.cu),
@@ -866,6 +945,23 @@ def make_bssfp_case(case, natoms, npulse=None, seed=0):
     T2 = np.minimum(rng.uniform(20.0, 250.0, natoms), 0.8 * T1)
     B1 = rng.uniform(0.7, 1.3, natoms) if case.get("b1") else np.ones(natoms)
     df = rng.uniform(-0.05, 0.05, natoms) if case.get("df") else None
+    if case.get("runs"):
+        # TR (and TE) held over runs that span a chunk boundary
+        # (cuda_bssfp.BSSFP_PULSES) and end mid-chunk or at a boundary,
+        # then varying every pulse
+        TRs = _held_runs(rng, TRs, (0, 20, 40, 64, 70))
+        if case.get("var_te"):
+            TEs = TRs * _held_runs(rng, np.full(npulse, 0.45),
+                                    (0, 13, 32, 52))
+    if case.get("big_df"):
+        # a large df t: df about 0.5 kHz over TRs of 1,000 ms, where
+        # sincosf(2 pi df t) and sincospif(2 df t) part ways
+        TRs = np.full(npulse, 1000.0)
+        if case.get("var_te"):
+            TEs = TRs * rng.uniform(0.3, 0.6, npulse)
+        T1 = rng.uniform(1500.0, 3000.0, natoms)
+        T2 = rng.uniform(600.0, 1400.0, natoms)
+        df = rng.uniform(0.49, 0.51, natoms) * rng.choice([-1.0, 1.0], natoms)
     kw = dict(demodulate=case.get("demodulate", False),
               inversion=case.get("inversion"),
               normalize=case.get("normalize", False))
@@ -904,8 +1000,31 @@ def make_megre_case(case, natoms, npulse=MEGRE_N, seed=0):
     T2 = np.minimum(rng.uniform(20.0, 300.0, natoms), 0.8 * T1)
     B1 = rng.uniform(0.8, 1.2, natoms) if case.get("b1") else np.ones(natoms)
     df = rng.uniform(-0.05, 0.05, natoms) if case.get("df") else None
+    if m > len(MEGRE_TES) and not case.get("var_te"):
+        # many echoes 0.02-0.05 ms apart, shared by every TR
+        TEs = np.cumsum(rng.uniform(0.02, 0.05, m))
+    if case.get("runs"):
+        # TR and the echo times held over runs that span the chunk
+        # boundaries of one lane (32 TRs) and of two (31) and end mid-chunk
+        # or at a boundary; then TR varies every TR
+        TRs = _held_runs(rng, TRs, (0, 20, 32, 40, 62, 70))
+        if case.get("var_te"):
+            TEs = np.cumsum(rng.uniform(2.0, 5.0, (m, 1)), axis=0) * (
+                _held_runs(rng, np.ones(npulse), (0, 13, 31, 45, 64))[None])
     kw = dict(nstate=case["nstate"], demodulate=case.get("demodulate", False))
     return (FA, phi, TRs, TEs, T1, T2, B1, df), kw
+
+
+def _held_runs(rng, varying, starts):
+    """`varying` (one value per pulse) held constant over runs starting at
+    each index of `starts` (each run's value drawn near its first pulse's)
+    up to the last start, and as it is from there on."""
+    out = np.array(varying, dtype=np.float64)
+    ends = list(starts[1:]) + [starts[-1]]
+    for a, b in zip(starts[:-1], ends[:-1]):
+        if a < len(out):
+            out[a:b] = out[a] * rng.uniform(0.9, 1.1)
+    return out
 
 
 def make_comp_case(case, natoms, nstage=COMP_CASE_N, seed=0):
@@ -1678,16 +1797,16 @@ def phase_occupancy():
     """Registers and stack frame (ptxas), shared memory per block, resident
     warps per SM and the static SASS instruction mix of the warp-row CPMG
     kernels and the segmented FISP, ME-GRE, composite, EPG-X GRE, DESS and
-    composite EPG-X Jacobian kernels, the Hessian kernel's two passes and
-    the segmented CPMG, FISP dictionary, composite, EPG-X GRE and
-    composite EPG-X primal kernels at their main-path geometries (the last
-    four with the waves of their grids); the registers and stack of every
-    xgre and composite EPG-X Jacobian instance and every CPMG, FISP
-    dictionary, composite, EPG-X GRE and composite EPG-X primal
-    instance."""
+    composite EPG-X Jacobian kernels, the Hessian kernel's two passes, the
+    segmented CPMG, FISP dictionary, composite, EPG-X GRE, composite EPG-X
+    and ME-GRE primal kernels and the bSSFP primal kernel at their
+    main-path geometries (the primal ones with the waves of their grids);
+    the registers and stack of every xgre and composite EPG-X Jacobian
+    instance and every CPMG, FISP dictionary, composite, EPG-X GRE,
+    composite EPG-X, ME-GRE and bSSFP primal instance."""
     from epgpy_torch import _build
-    from epgpy_torch.models import cuda_composite, cuda_dess, cuda_fisp, \
-        cuda_hessian, cuda_megre, cuda_mse, cuda_msedesign, \
+    from epgpy_torch.models import cuda_bssfp, cuda_composite, cuda_dess, \
+        cuda_fisp, cuda_hessian, cuda_megre, cuda_mse, cuda_msedesign, \
         cuda_xcomposite, cuda_xgre
 
     log = _build.build_info()["log"]
@@ -1772,6 +1891,23 @@ def phase_occupancy():
     seg.append((what, f"xcomp_kernelILi2ELi{geo['R']}ELb{int(geo['one'])}"
                       f"ELb{int(geo['shared'])}EE", geo))
     waves_of[what] = 2 * XCOMP_NAT
+    # the primal ME-GRE kernel on the bench's train (one lane of nstate + 1
+    # rows: the instance of its length) and the golden train's two lanes
+    # (nstate 12); the primal bSSFP kernel (one thread per atom, the
+    # chunk's 32-pulse table)
+    for nst, n in ((MEGRE_NSTATE, MEGRE_ATOMS), (12, None)):
+        geo = cuda_megre.megre_geometry(nst, len(MEGRE_TES))
+        what = f"megre nstate {nst} m {len(MEGRE_TES)}"
+        seg.append((what, f"megre_kernelILi{geo['R']}ELi"
+                          f"{geo['R'] if geo['one'] else 0}EE", geo))
+        if n:
+            waves_of[what] = n
+    geo = dict(R=1, W=1, L=32, warps=cuda_bssfp.BLOCK // 32, atoms=
+               cuda_bssfp.BLOCK, pulses=cuda_bssfp.BSSFP_PULSES,
+               smem=32 * cuda_bssfp.BSSFP_PULSES)
+    what = "bssfp"
+    seg.append((what, f"bssfp_kernelILb{int(cuda_bssfp.EXP2)}EE", geo))
+    waves_of[what] = BSSFP_ATOMS
     for what, key, geo in seg:
         r, frame = of(key), of(key, stack)
         if r is None:
@@ -1806,7 +1942,9 @@ def phase_occupancy():
             ("xgre", r"xgre_kernelILi(\d+)ELi(\d+)ELb(\d)EE",
              "C, R, one lane"),
             ("xcomposite", r"xcomp_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)EE",
-             "C, R, one lane, shared table")):
+             "C, R, one lane, shared table"),
+            ("megre", r"megre_kernelILi(\d+)ELi(\d+)EE", "R, static rows"),
+            ("bssfp", r"bssfp_kernelILb(\d)EE", "exp2")):
         inst = sorted((tuple(int(v) for v in m.groups()), r, stack.get(n))
                       for n, r in regs.items()
                       for m in [re.search(pattern, n)] if m)
@@ -3344,8 +3482,8 @@ def phase_ssfp_cases(torch, family, natoms=4096):
                 f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
                 f"{TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
-    if family != "dess":
-        return worst_sig, worst_col
+    if family == "bssfp":
+        return max(worst_sig, bssfp_primal_edges(torch)), worst_col
     # the segmented Jacobian kernel's edges and ragged shapes
     wall = dict(edges=0.0, shapes=0.0)
     runs = [("edges", case, *DESS_EDGE_SHAPE) for case in DESS_EDGE_CASES]
@@ -3360,6 +3498,44 @@ def phase_ssfp_cases(torch, family, natoms=4096):
         wall[part] += time.perf_counter() - t0
     _print_wall("phase_ssfp_cases dess Jacobian", wall)
     return worst_sig, worst_col
+
+
+def bssfp_primal_edges(torch):
+    """The primal bSSFP kernel's own edges vs its plain twin: the runs,
+    inversion and large-df cases (BSSFP_EDGE_CASES at BSSFP_EDGE_SHAPE)
+    and every option over the ragged shapes (BSSFP_SHAPES), each launched
+    twice (bit-equal); returns the worst |delta|."""
+    from epgpy_torch.models import cuda_bssfp
+
+    t0 = time.perf_counter()
+    runs = [(case, *BSSFP_EDGE_SHAPE) for case in BSSFP_EDGE_CASES]
+    runs += [(BSSFP_RAGGED_CASE, n, p) for n, p in BSSFP_SHAPES]
+    worst = 0.0
+    for case, n, npulse in runs:
+        args, kw = _tensors(torch, *make_bssfp_case(case, n, npulse), DEVICE)
+        kw.pop("normalize")
+        before = cuda_bssfp.LAUNCHES
+        k = cuda_bssfp.bssfp_echoes(*args, **kw)
+        again = cuda_bssfp.bssfp_echoes(*args, **kw)
+        torch.cuda.synchronize()
+        if cuda_bssfp.LAUNCHES != before + 2:
+            raise AssertionError(f"bssfp edge {case['name']}: the kernel "
+                                 f"did not run")
+        same = all(torch.equal(a, b) for a, b in zip(k, again))
+        delta, _ = _pair_errors(torch, k, cuda_bssfp.bssfp_echoes_plain(
+            *args, **kw), False)
+        print(f"[bssfp-cases] primal {case['name']:14s} B={n:5d} "
+              f"P={npulse:3d} max|kernel - plain| = {delta:.3e}; second "
+              f"launch {'bit-equal' if same else 'DIFFERS'}")
+        if not _finite(torch, k) or not delta <= TOL_KERNEL or not same:
+            raise AssertionError(
+                f"bssfp primal edge {case['name']} (B={n}, P={npulse}): "
+                f"kernel vs plain twin {delta:.3e} over {TOL_KERNEL}, not "
+                f"finite, or a second launch differs")
+        worst = max(worst, delta)
+    _print_wall("phase_ssfp_cases bssfp primal edges",
+                dict(edges=time.perf_counter() - t0))
+    return worst
 
 
 def bssfp_train(npulse):
@@ -3922,7 +4098,44 @@ def phase_megre_cases(torch, natoms=4096):
                 f"{sig:.3e} / {max(cols):.3e} over {TOL_KERNEL} / "
                 f"{TOL_JAC_KERNEL} or not finite")
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
-    return worst_sig, worst_col
+    # the primal kernel's own edges: every change of instance or rows per
+    # lane, the echo counts (past the registers and the staging area), TR
+    # and echo-time runs, ragged shapes and chunk edges
+    t0 = time.perf_counter()
+    runs = [(case, MEGRE_EDGE_ATOMS, case["nstate"] + 1 + MEGRE_EDGE_PULSES)
+            for case in MEGRE_PRIMAL_EDGE_CASES] + MEGRE_PRIMAL_CASES
+    primal = 0.0
+    for case, n, npulse in runs:
+        args, kw = _tensors(torch, *make_megre_case(case, n, npulse),
+                            DEVICE)
+        before = cuda_megre.LAUNCHES
+        k = cuda_megre.megre_echoes(*args, **kw)
+        again = cuda_megre.megre_echoes(*args, **kw)
+        torch.cuda.synchronize()
+        if cuda_megre.LAUNCHES != before + 2:
+            raise AssertionError(f"megre edge {case['name']}: the kernel "
+                                 f"did not run")
+        same = all(torch.equal(a, b) for a, b in zip(k, again))
+        delta, _ = _pair_errors(torch, k, cuda_megre.megre_echoes_plain(
+            *args, **kw), False)
+        geo = cuda_megre.megre_geometry(kw["nstate"], case["m"])
+        print(f"[megre-cases] primal {case['name']:17s} B={n:5d} "
+              f"P={npulse:3d} m={case['m']:4d} (R {geo['R']} on "
+              f"{geo['W']} lanes, {'staged' if geo['stage'] else 'stored'}, "
+              f"{geo['pulses']} TRs per chunk) max|kernel - plain| = "
+              f"{delta:.3e}; second launch "
+              f"{'bit-equal' if same else 'DIFFERS'}")
+        if not _finite(torch, k) or not delta <= TOL_KERNEL or not same:
+            raise AssertionError(
+                f"megre primal edge {case['name']} (B={n}, P={npulse}): "
+                f"kernel vs plain twin {delta:.3e} over {TOL_KERNEL}, not "
+                f"finite, or a second launch differs")
+        primal = max(primal, delta)
+    print(f"[megre-cases] primal edges: {len(runs)} runs, worst "
+          f"max|kernel - plain| = {primal:.3e} (limit {TOL_KERNEL})")
+    _print_wall("phase_megre_cases primal edges",
+                dict(edges=time.perf_counter() - t0))
+    return max(worst_sig, primal), worst_col
 
 
 def phase_full_cases(torch, natoms=4096, npulse=CASE_NPULSE):

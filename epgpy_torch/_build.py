@@ -42,14 +42,14 @@ _SIGNATURES = {
                      _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "epg_cpmg_design": [_F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _P],
-    "epg_bssfp": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P] + [_I] * 8
+    "epg_bssfp": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P] + [_I] * 9
     + [_P],
     "epg_bssfp_jac": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P] + [_I] * 9
     + [_P],
     "epg_dess": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
     "epg_dess_jac": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 10
     + [_P],
-    "epg_megre": [_P] * 9 + [_I] * 8 + [_P],
+    "epg_megre": [_P] * 9 + [_I] * 11 + [_P],
     "epg_megre_jac": [_P] * 9 + [_I] * 8 + [_P],
     "epg_fisp_full": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P, _P]
     + [_I] * 10 + [_P],

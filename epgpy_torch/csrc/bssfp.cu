@@ -18,16 +18,23 @@
 // What bounds it on the card: the outputs are 2 * P * B * 4 bytes (655 MB
 // at 500 pulses x 163,840 atoms, 0.2 ms at 3.35 TB/s) and the inputs a few
 // (P,) and (B,) vectors, against ~60 FP32 operations per atom and pulse
-// plus the precise transcendentals (sincosf of the phase, the doubled phase
-// and the flip, expf of the TR decays, two df phasors): ~5e9 operations
-// there, of the same order as the bytes' time, with the transcendentals'
-// many instructions each on top.  The design: one thread per atom keeps the
-// three state floats in registers across the whole train (no shared
-// memory, no barrier), reads the per-pulse table through the read-only
-// path (every thread of a warp reads the same word: a broadcast), and
-// stores each pulse's echo coalesced along atoms, so the bytes leave at the
-// rate of one 128-byte line per warp and pulse.  The TE decay and TE phasor
-// are hoisted when TE is constant.  The ragged atom edge is masked; math is
+// plus the transcendentals, whose instructions outnumber the rest.  The
+// design: one thread per atom keeps the three state floats in registers
+// across the whole train and stores each pulse's echo coalesced along
+// atoms (one 128-byte line per warp, pulse and plane).  The atom-
+// independent terms of a chunk of up to 32 pulses -- the RF phase's
+// cos/sin of phi and 2 phi, the flip, TR, TE and whether TR and TE repeat
+// the previous pulse's -- sit in a table the block fills between two
+// barriers (every thread then reads one word at a time: a broadcast).
+// Per atom and pulse there remain the sincos of the B1-scaled flip and,
+// on a pulse whose TR or TE differs from the previous one's (every pulse
+// of the benchmark's train), the TR decays and phasor and the TE decay and
+// phasor; the rest of the time they stay in registers.  Angles are in half
+// turns, the inversion prologue's too (sincospif: no large-argument path
+// and no stack frame, exact at any df t), the phasors' from the atom's 2
+// df; with EXP2 the decays are exp2f of the time times the atom's
+// -log2(e) / T (no division per pulse), else expf(-t / T).  A thread
+// past the last atom runs on a clamped atom and stores nothing; math is
 // precise (no fast-math): the error budget is against an f64 reference.
 #include <cuda_runtime.h>
 
@@ -35,9 +42,14 @@
 
 namespace {
 
-constexpr float kDeg = 0.017453292519943295f;   // pi / 180
-constexpr float kPi = 3.141592653589793f;
-constexpr float kTwoPi = 6.283185307179586f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// threads per block, pulses per chunk at most; mirrored by
+// cuda_bssfp.BLOCK and BSSFP_PULSES
+constexpr int kBlock = 128;
+constexpr int kMaxPulses = 32;
+// table flags: TR, TE repeat the previous pulse's
+constexpr int kTrRepeats = 1, kTeRepeats = 2;
 
 struct BssfpArgs {
     const float* fa;    // (P,) flip angles, degrees
@@ -55,26 +67,41 @@ struct BssfpArgs {
     int var_te, use_inv, use_df, demod;
 };
 
-__global__ void bssfp_kernel(const BssfpArgs p) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= p.B) return;  // ragged edge; no barrier follows
+// The decay over a time t of an atom of relaxation time T: exp2f(k t) with
+// k = -log2(e) / T (EXP2), else expf(-t / T).
+template <bool EXP2>
+__device__ __forceinline__ float decay(float t, float T, float k) {
+    return EXP2 ? exp2f(k * t) : expf(-t / T);
+}
+
+template <bool EXP2>
+__global__ void __launch_bounds__(kBlock) bssfp_kernel(const BssfpArgs p) {
+    __shared__ float4 tab[2 * kMaxPulses];
+    const int bi = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool live = bi < p.B;
+    const int b = min(bi, p.B - 1);   // clamped past the last atom
     const float T1 = p.t1[b];
     const float T2 = p.t2[b];
     const float B1 = p.b1[b];
     const bool cdf = p.use_df != 0;
     const float DF = cdf ? p.df[b] : 0.0f;
+    const float DF2 = 2.0f * DF;   // the phasors' half turns per ms
+    // -log2(e) / T as the twin forms it: the reciprocal, then the product
+    const float k1 = EXP2 ? (1.0f / T1) * -kLog2e : 0.0f;
+    const float k2 = EXP2 ? (1.0f / T2) * -kLog2e : 0.0f;
 
     float FR = 0.0f, FI = 0.0f, Z = 1.0f;
     if (p.use_inv) {
-        // 180*B1 pulse about phi = 0, then TI relaxation and precession
+        // 180*B1 pulse about phi = 0 (B1 half turns), then TI relaxation
+        // and precession
         float sai, cai;
-        sincosf(kPi * B1, &sai, &cai);
-        const float E1i = expf(-p.ti / T1);
-        const float E2i = expf(-p.ti / T2);
+        sincospif(B1, &sai, &cai);
+        const float E1i = decay<EXP2>(p.ti, T1, k1);
+        const float E2i = decay<EXP2>(p.ti, T2, k2);
         const float fpi = -sai * E2i;
         if (cdf) {
             float si, ci;
-            sincosf(kTwoPi * DF * p.ti, &si, &ci);
+            sincospif(DF2 * p.ti, &si, &ci);
             FR = -fpi * si;
             FI = fpi * ci;
         } else {
@@ -83,74 +110,107 @@ __global__ void bssfp_kernel(const BssfpArgs p) {
         Z = cai * E1i + 1.0f - E1i;
     }
 
-    float E2te = 0.0f, pteR0 = 1.0f, pteI0 = 0.0f;
+    // the TE terms (hoisted when TE is constant) and the TR terms, kept
+    // while the table says they repeat
+    float e2te = 0.0f, pteR = 1.0f, pteI = 0.0f;
     if (!p.var_te) {
-        E2te = expf(-p.te0 / T2);
-        if (cdf) sincosf(kTwoPi * DF * p.te0, &pteI0, &pteR0);
+        e2te = decay<EXP2>(p.te0, T2, k2);
+        if (cdf) sincospif(DF2 * p.te0, &pteI, &pteR);
     }
+    float cF = 0.0f, cZ = 0.0f, pR = 1.0f, pI = 0.0f;
     const size_t plane = static_cast<size_t>(p.P) * p.B;
 
-    for (int i = 0; i < p.P; ++i) {
-        float e2te = E2te, pteR = pteR0, pteI = pteI0;
-        if (p.var_te) {
-            const float te = __ldg(p.te + i);
-            e2te = expf(-te / T2);
-            if (cdf) sincosf(kTwoPi * DF * te, &pteI, &pteR);
+    for (int i0 = 0; i0 < p.P; i0 += kMaxPulses) {
+        const int n = min(kMaxPulses, p.P - i0);
+        for (int t = threadIdx.x; t < n; t += blockDim.x) {
+            const int i = i0 + t;
+            const float ph = p.phi[i] * (1.0f / 180.0f);
+            float sp, cp, s2p, c2p;
+            sincospif(ph, &sp, &cp);
+            sincospif(2.0f * ph, &s2p, &c2p);
+            const float tri = p.tr[i];
+            const float tei = p.var_te ? p.te[i] : p.te0;
+            int fl = 0;
+            if (i > 0 && tri == p.tr[i - 1]) fl |= kTrRepeats;
+            if (i > 0 && (!p.var_te || tei == p.te[i - 1])) fl |= kTeRepeats;
+            tab[2 * t] = make_float4(cp, sp, c2p, s2p);
+            tab[2 * t + 1] =
+                make_float4(p.fa[i], tri, tei, static_cast<float>(fl));
         }
-        const float ph = __ldg(p.phi + i) * kDeg;
-        float sp, cp, s2p, c2p;
-        sincosf(ph, &sp, &cp);
-        sincosf(2.0f * ph, &s2p, &c2p);
-        const epg::Rot r =
-            epg::rot_coeffs(__ldg(p.fa + i) * B1 * kDeg, cp, sp, c2p, s2p);
-        float nFR, nFI, nZ;
-        epg::rot_k0(r, FR, FI, Z, nFR, nFI, nZ);
+        __syncthreads();
+#pragma unroll 1
+        for (int t = 0; t < n; ++t) {
+            const float4 ph = tab[2 * t];       // cp, sp, c2p, s2p
+            const float4 mv = tab[2 * t + 1];   // fa, TR, TE, flags
+            const int fl = static_cast<int>(mv.w);
+            if (p.var_te && !(fl & kTeRepeats)) {
+                e2te = decay<EXP2>(mv.z, T2, k2);
+                if (cdf) sincospif(DF2 * mv.z, &pteI, &pteR);
+            }
+            float sa, ca;
+            sincospif(mv.x * B1 * (1.0f / 180.0f), &sa, &ca);
+            const epg::Rot r =
+                epg::rot_coeffs_sc(sa, ca, ph.x, ph.y, ph.z, ph.w);
+            float nFR, nFI, nZ;
+            epg::rot_k0(r, FR, FI, Z, nFR, nFI, nZ);
 
-        // echo at TE: T2 decay, off-resonance phase, demodulation
-        float eR = nFR * e2te, eI = nFI * e2te;
-        if (cdf) epg::cmul(pteR, pteI, eR, eI, eR, eI);
-        if (p.demod) {
-            const float dR = eR * cp + eI * sp;
-            eI = eI * cp - eR * sp;
-            eR = dR;
-        }
-        const size_t o = static_cast<size_t>(i) * p.B + b;
-        p.out[o] = eR;
-        p.out[plane + o] = eI;
+            // echo at TE: T2 decay, off-resonance phase, demodulation
+            float eR = nFR * e2te, eI = nFI * e2te;
+            if (cdf) epg::cmul(pteR, pteI, eR, eI, eR, eI);
+            if (p.demod) {
+                const float dR = eR * ph.x + eI * ph.y;
+                eI = eI * ph.x - eR * ph.y;
+                eR = dR;
+            }
+            if (live) {
+                const size_t o = static_cast<size_t>(i0 + t) * p.B + bi;
+                p.out[o] = eR;
+                p.out[plane + o] = eI;
+            }
 
-        // full-TR relaxation (no shift: the state stays at k = 0)
-        const float TRi = __ldg(p.tr + i);
-        const float cF = expf(-TRi / T2);
-        const float cZ = expf(-TRi / T1);
-        if (cdf) {
-            float pI, pR;
-            sincosf(kTwoPi * DF * TRi, &pI, &pR);
-            FR = cF * (nFR * pR - nFI * pI);
-            FI = cF * (nFI * pR + nFR * pI);
-        } else {
-            FR = cF * nFR;
-            FI = cF * nFI;
+            // full-TR relaxation (no shift: the state stays at k = 0)
+            if (!(fl & kTrRepeats)) {
+                cF = decay<EXP2>(mv.y, T2, k2);
+                cZ = decay<EXP2>(mv.y, T1, k1);
+                if (cdf) sincospif(DF2 * mv.y, &pI, &pR);
+            }
+            if (cdf) {
+                FR = cF * (nFR * pR - nFI * pI);
+                FI = cF * (nFI * pR + nFR * pI);
+            } else {
+                FR = cF * nFR;
+                FI = cF * nFI;
+            }
+            Z = cZ * nZ + (1.0f - cZ);
         }
-        Z = cZ * nZ + (1.0f - cZ);
+        __syncthreads();   // the table is read before the next chunk's
     }
 }
 
 }  // namespace
 
 // Launch on `stream` of CUDA device `device`; allocates nothing.  Returns
-// the CUDA error code of the launch (0 on success); the caller raises on
-// anything else.
+// the CUDA error code of the launch (0 on success; cudaErrorInvalidValue
+// for a `block` other than kBlock); the caller raises on anything else.
+// `exp2`: the decays by exp2f of a per-atom factor (cuda_bssfp.EXP2).
 extern "C" int epg_bssfp(const float* fa, const float* phi, const float* tr,
                          const float* te, float te0, float ti,
                          const float* t1, const float* t2, const float* b1,
                          const float* df, float* out, int P, int B,
                          int var_te, int use_inv, int use_df, int demod,
-                         int block, int device, void* stream) {
+                         int exp2, int block, int device, void* stream) {
     BssfpArgs a{fa, phi, tr, te, te0, ti, t1, t2, b1, df, out, P, B,
                 var_te, use_inv, use_df, demod};
-    cudaError_t e = cudaSetDevice(device);
+    const cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
+    if (block != kBlock || P < 1 || B < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
     const int grid = (B + block - 1) / block;
-    bssfp_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (exp2) {
+        bssfp_kernel<true><<<grid, block, 0, st>>>(a);
+    } else {
+        bssfp_kernel<false><<<grid, block, 0, st>>>(a);
+    }
     return static_cast<int>(cudaGetLastError());
 }

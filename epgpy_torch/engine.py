@@ -228,7 +228,8 @@ def _primal_dispatch(sequence, ncap, fisp_kernel, kvalue, disp, shape,
          "bssfp"),
         (fd.match_dess, lambda p: fd.kernel_fits(ncap), fd.run_dess_kernel,
          "DESS", "dess"),
-        # the FISP kernel's 6 planes (cuda_megre.megre_kernel_fits)
+        # cuda_megre.megre_kernel_fits: the thread-per-atom layout's bound
+        # (the FISP kernel's 6 planes), kept so that no train changes route
         (fd.match_megre, lambda p: fd.kernel_fits(ncap),
          fd.run_megre_kernel, "ME-GRE", "megre"),
         # the FISP kernel computes the attenuation rows per TR: its 6

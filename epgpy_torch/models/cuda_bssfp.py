@@ -20,6 +20,12 @@ any precision (float64 makes them oracles).  The Jacobian carries dS/dT1,
 dS/dT2, dS/dB1 and, with ``track_df``, dS/ddf (df in kHz, exact at any df:
 the phase is linear in df).
 
+The primal kernel takes the atom-independent terms of each chunk of
+BSSFP_PULSES pulses from a shared table, its angles in half turns
+(``sincospif``; the twin's :func:`planes.sincospi`) and, with ``EXP2``,
+its decays as exp2 of the time times the atom's -log2(e) / T; its twin
+computes the same.
+
 ``*_cuda`` takes the kernel for CUDA tensors (and raises on what it does
 not take: no fallback) and the plain twin for CPU tensors; the echo-layout
 ``bssfp_echoes`` / ``bssfp_jacobian_echoes`` are what the dispatch uses.
@@ -41,7 +47,7 @@ from .cuda_fisp import _finish, _jac_finish, _jac_views, _prepare, _takes_twin
 __all__ = ["bssfp_dictionary_cuda", "bssfp_dictionary_plain", "bssfp_echoes",
            "bssfp_echoes_plain", "bssfp_jacobian_cuda", "bssfp_jacobian_plain",
            "bssfp_jacobian_echoes", "bssfp_jacobian_echoes_plain",
-           "LAUNCHES", "JAC_LAUNCHES", "BLOCK"]
+           "LAUNCHES", "JAC_LAUNCHES", "BLOCK", "BSSFP_PULSES", "EXP2"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -49,6 +55,12 @@ LAUNCHES = 0
 JAC_LAUNCHES = 0
 #: threads per block of both kernels (one atom each, state in registers)
 BLOCK = 128
+#: pulses per chunk of the primal kernel's table (bssfp.cu's kMaxPulses)
+BSSFP_PULSES = 32
+#: the primal kernel's (and its twin's) decays: exp2 of the time times the
+#: atom's -log2(e) / T (no division per pulse), else exp(-t / T)
+EXP2 = True
+_LOG2E = math.log2(math.e)
 
 _TWO_PI = 2 * math.pi
 _DEG = math.pi / 180.0
@@ -104,20 +116,51 @@ def bssfp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
                  strict=False)
     T1, T2, B1, DF = x["T1"], x["T2"], x["B1"], x["df"]
     P, B = x["P"], x["B"]
-    FR, FI, Z = _start(x, 0)[0]
-    cp, sp, c2p, s2p = planes.phase_terms(x["phi"] * _DEG)
+    # angles in half turns, as the kernel's sincospif takes them; the
+    # decays by the atom's factors (bssfp.cu's decay)
+    cp, sp, c2p, s2p = planes.phase_terms_pi(x["phi"] * (1.0 / 180.0))
+    DF2 = None if DF is None else 2.0 * DF
+    if EXP2:
+        # as torch divides a number by a tensor: reciprocal, then product
+        k1 = torch.reciprocal(T1) * -_LOG2E
+        k2 = torch.reciprocal(T2) * -_LOG2E
+
+        def decay(t, T, k):
+            return torch.exp2(k * t)
+    else:
+        k1 = k2 = None
+
+        def decay(t, T, k):
+            return torch.exp(-t / T)
+
+    def te_terms(te):
+        return decay(te, T2, k2), (None if DF2 is None
+                                   else planes.sincospi(DF2 * te))
+
+    FR, FI, Z = torch.zeros_like(T1), torch.zeros_like(T1), torch.ones_like(T1)
+    if x["TI"] is not None:
+        # the 180*B1 inversion (B1 half turns), TI relaxation and precession
+        TI = x["TI"]
+        cai, sai = planes.sincospi(B1)
+        fpi = -sai * decay(TI, T2, k2)
+        E1i = decay(TI, T1, k1)
+        Z = cai * E1i + 1.0 - E1i
+        if DF2 is None:
+            FI = fpi
+        else:
+            ci, si = planes.sincospi(DF2 * TI)
+            FR, FI = -fpi * si, fpi * ci
+
     var_te = isinstance(x["TE"], torch.Tensor)
     if not var_te:
-        te = x["TE"]
-        e2te, _, pte = planes.te_terms(te, T2, DF)
+        e2te, pte = te_terms(x["TE"])
     out = torch.empty((2, P, B), dtype=T1.dtype, device=T1.device)
     FA, TR = x["FA"], x["TR"]
     for i in range(P):
         if var_te:
-            te = x["TE"][i]
-            e2te, _, pte = planes.te_terms(te, T2, DF)
-        rc = planes.rot_coeffs(FA[i] * B1 * _DEG, cp[i], sp[i], c2p[i],
-                               s2p[i])
+            e2te, pte = te_terms(x["TE"][i])
+        ca, sa = planes.sincospi(FA[i] * B1 * (1.0 / 180.0))
+        rc = planes.rot_coeffs_sc(sa, ca, cp[i], sp[i], c2p[i], s2p[i])
         nFR, nFI, nZ = planes.rot_k0(rc, FR, FI, Z)
         eR, eI = nFR * e2te, nFI * e2te
         if pte is not None:
@@ -128,11 +171,10 @@ def bssfp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
         out[1, i] = eI
         # full-TR relaxation and precession (no shift: the state stays
         # at k = 0)
-        cF = torch.exp(-TR[i] / T2)
-        cZ = torch.exp(-TR[i] / T1)
-        if DF is not None:
-            ang = _TWO_PI * DF * TR[i]
-            pR, pI = torch.cos(ang), torch.sin(ang)
+        cF = decay(TR[i], T2, k2)
+        cZ = decay(TR[i], T1, k1)
+        if DF2 is not None:
+            pR, pI = planes.sincospi(DF2 * TR[i])
             FR, FI = cF * (nFR * pR - nFI * pI), cF * (nFI * pR + nFR * pI)
         else:
             FR, FI = cF * nFR, cF * nFI
@@ -269,8 +311,7 @@ def _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, demodulate, inversion,
             ptr(x["T1"]), ptr(x["T2"]), ptr(x["B1"]), ptr(x["df"]),
             ptr(out), P, B, int(var_te), int(x["TI"] is not None),
             int(x["df"] is not None), int(bool(demodulate))]
-    if jac:
-        args.append(int(bool(track_df)))
+    args.append(int(bool(track_df)) if jac else int(bool(EXP2)))
     fn = lib.epg_bssfp_jac if jac else lib.epg_bssfp
     rc = fn(*args, BLOCK,
             T1s.device.index if T1s.device.index is not None

@@ -84,8 +84,8 @@ def kernel_fits(nstate) -> bool:
 
 
 def block_size(nstate) -> int:
-    """Threads per block of the thread-per-atom kernels (``dess.cu``,
-    ``megre.cu``): 128, halved while the state does not fit."""
+    """Threads per block of the thread-per-atom kernel ``dess.cu``: 128,
+    halved while the state does not fit."""
     block = 128
     while block > 32 and _smem_bytes(nstate, block) > SMEM_PER_BLOCK:
         block //= 2

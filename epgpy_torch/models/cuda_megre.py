@@ -18,7 +18,8 @@ the carried F planes (t = TR) -- computed whether or not ``dfs`` is given,
 so the df column is exact at df = 0, where a B0 fit starts.
 
 The kernels are ``epgpy_torch/csrc/megre.cu`` and ``megre_jac.cu`` (see
-their headers for the design); ``megre_echoes_plain`` /
+their headers for the design; ``megre_geometry`` and ``megre_jac_geometry``
+give their launch geometry); ``megre_echoes_plain`` /
 ``megre_jacobian_echoes_plain`` are the same recurrences with the same
 operation order, vectorised over atoms as (6, nstate+1, B) planes in a
 Python loop over TRs, in any precision (float64 makes them oracles).
@@ -44,14 +45,15 @@ import torch
 from . import planes
 from .cuda_dess import _fmul, _relax
 from .cuda_fisp import (SEG_TABLE, SMEM_PER_BLOCK, _jac_views, _prepare,
-                        _takes_twin, block_size, jac_kernel_fits,
-                        kernel_fits, seg_geometry)
+                        _takes_twin, jac_kernel_fits, kernel_fits,
+                        seg_geometry)
 
 __all__ = ["megre_dictionary_cuda", "megre_dictionary_plain", "megre_echoes",
            "megre_echoes_plain", "megre_jacobian_cuda", "megre_jacobian_plain",
            "megre_jacobian_echoes", "megre_jacobian_echoes_plain",
-           "megre_kernel_fits", "megre_jac_kernel_fits",
-           "megre_jac_geometry", "LAUNCHES", "JAC_LAUNCHES"]
+           "megre_kernel_fits", "megre_jac_kernel_fits", "megre_rows",
+           "megre_geometry", "megre_jac_geometry", "LAUNCHES",
+           "JAC_LAUNCHES"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -61,11 +63,65 @@ JAC_LAUNCHES = 0
 _DEG = math.pi / 180.0
 
 
+#: the primal kernel (megre.cu): warps per block, TRs per chunk at most,
+#: floats of one chunk's table and staged echoes (48 KB), table floats per
+#: TR, rows per lane at most, echoes whose factors a lane holds in
+#: registers -- the kernel's kMaxWarps, kMaxTRs, kChunkFloats, kTab,
+#: kMaxRows and kHeldEchoes
+(MEGRE_WARPS, MEGRE_TRS, MEGRE_CHUNK_FLOATS, MEGRE_TABLE, MEGRE_MAX_ROWS,
+ MEGRE_HELD_ECHOES) = (4, 32, 12288, 8, 12, 4)
+
+
 def megre_kernel_fits(nstate) -> bool:
-    """Whether the primal kernel's 6 planes of nstate + 1 rows fit in one
-    block's shared memory at its smallest block (32 threads): nstate <=
-    301."""
+    """The primal kernel's gate: nstate <= 301, where the thread-per-atom
+    layout's 6 planes of nstate + 1 rows fitted 32 atoms in one block's
+    shared memory.  The segmented kernel keeps its state in registers (302
+    rows fit 26 lanes of 12, :func:`megre_geometry`) and keeps this gate so
+    that no train changes route; it takes any echo count."""
     return kernel_fits(max(int(nstate), 1))
+
+
+def megre_rows(nstate) -> int:
+    """Rows per lane of the primal kernel for a ladder of H = max(nstate,
+    1) + 1 rows: ceil(H / W) for the fewest lanes W that keep it within
+    MEGRE_MAX_ROWS -- H on one lane up to nstate 11 (the instance of its
+    length: the bench's nstate 8 takes 9 rows), odd R included (7 on 2
+    lanes at the golden train's nstate 12, 12 on 26 lanes at the gate's
+    301)."""
+    H = max(int(nstate), 1) + 1
+    return -(-H // -(-H // MEGRE_MAX_ROWS))
+
+
+def megre_geometry(nstate, m, R=None):
+    """Launch geometry of the primal kernel (``megre.cu``) for m echoes per
+    TR at :func:`megre_rows` rows per lane (or the given R): dict(R, W, L)
+    (lane r of a segment of W lanes owns rows r R + c, c < R; L ladders
+    per warp), ``one`` (the ladder is the one lane's R rows: the instance
+    of its length), ``warps`` per block (MEGRE_WARPS), ``atoms`` per block
+    (warps x L), ``stage`` (a multi-lane ladder's row-0 lane stages the
+    chunk's echoes in shared memory while one TR's echoes of the block fit
+    MEGRE_CHUNK_FLOATS beside the table; otherwise, and on one lane, where
+    consecutive lanes are consecutive atoms, they are stored directly),
+    ``pulses`` (TRs per chunk: MEGRE_TRS, fewer while the staged echoes do
+    not fit), ``held`` (the echo factors stay in registers: m <=
+    MEGRE_HELD_ECHOES, else they are recomputed each TR) and ``smem``, the
+    block's shared bytes.  Any m >= 1 has a geometry.  The wrapper passes
+    R, warps, pulses and stage to the kernel, which checks them."""
+    H = max(int(nstate), 1) + 1
+    m = int(m)
+    R = megre_rows(nstate) if R is None else int(R)
+    W = -(-H // R)
+    L = 32 // W
+    warps = MEGRE_WARPS
+    A = warps * L
+    per = MEGRE_TABLE + 2 * m * A
+    stage = W > 1 and per <= MEGRE_CHUNK_FLOATS
+    if not stage:
+        per = MEGRE_TABLE
+    pulses = min(MEGRE_TRS, MEGRE_CHUNK_FLOATS // per)
+    return dict(R=R, W=W, L=L, one=W == 1, warps=warps, atoms=A,
+                stage=stage, pulses=pulses, held=m <= MEGRE_HELD_ECHOES,
+                smem=4 * pulses * per)
 
 
 def megre_jac_kernel_fits(nstate, m=None) -> bool:
@@ -115,6 +171,29 @@ def _setup(FA, phi, TR, TEs, T1s, T2s, B1s, dfs, strict):
     return x
 
 
+def _echo_factor(te, T2, DF2):
+    """The echo factor of an echo at te (``megre.cu``'s echo_factor):
+    e^{-te/T2} times, with df, the phasor of DF2 te half turns (DF2 = 2
+    df), as a (re, im) pair (im None without df)."""
+    e = torch.exp(-te / T2)
+    if DF2 is None:
+        return e, None
+    c, s = planes.sincospi(DF2 * te)
+    return e * c, e * s
+
+
+def _relax_terms(TRi, T1, T2, DF2):
+    """The full-TR terms of the primal kernel (``megre.cu``'s
+    relax_terms): cZ and the F-plane decay e^{-TR/T2} with its phasor of
+    DF2 TR half turns, as a (re, im) pair (im None without df)."""
+    cF = torch.exp(-TRi / T2)
+    cZ = torch.exp(-TRi / T1)
+    if DF2 is None:
+        return cZ, (cF, None)
+    c, s = planes.sincospi(DF2 * TRi)
+    return cZ, (cF * c, cF * s)
+
+
 def _phase(pte, re, im):
     """(re, im) times the echo's df phasor (None: no off-resonance)."""
     return (re, im) if pte is None else planes.cmul(pte[0], pte[1], re, im)
@@ -131,28 +210,25 @@ def megre_echoes_plain(FA, phi, TR, TEs, T1s, T2s, B1s, dfs=None, *,
     s = [torch.zeros((H, B), dtype=T1.dtype, device=T1.device)
          for _ in range(6)]
     s[4][0] = 1.0
-    cp, sp, c2p, s2p = planes.phase_terms(x["phi"] * _DEG)
+    # angles in half turns, as the kernel's sincospif takes them
+    cp, sp, c2p, s2p = planes.phase_terms_pi(x["phi"] * (1.0 / 180.0))
+    DF2 = None if DF is None else 2.0 * DF
     out = torch.empty((2, m * P, B), dtype=T1.dtype, device=T1.device)
     FA, TR, TE = x["FA"], x["TR"], x["TE"]
     for i in range(P):
-        rc = planes.rot_coeffs(FA[i] * B1 * _DEG, cp[i], sp[i], c2p[i],
-                               s2p[i])
+        ca, sa = planes.sincospi(FA[i] * B1 * (1.0 / 180.0))
+        rc = planes.rot_coeffs_sc(sa, ca, cp[i], sp[i], c2p[i], s2p[i])
         R = planes.apply_rot(rc, s)
-        # m echoes from the rotated k = 0 row, each decayed and phased to
-        # its own echo time
+        # m echoes from the rotated k = 0 row, each times its echo factor
+        # e^{-te/T2} e^{i 2 pi df te}
         for j in range(m):
-            te = TE[j, i]
-            pte = None
-            if DF is not None:
-                ang = 2 * math.pi * DF * te
-                pte = (torch.cos(ang), torch.sin(ang))
-            eR, eI = planes.echo_copy(torch.exp(-te / T2), pte, R[0][0],
-                                      R[1][0])
+            f = _echo_factor(TE[j, i], T2, DF2)
+            eR, eI = _fmul(f, R[0][0], R[1][0])
             if demodulate:
                 eR, eI = eR * cp[i] + eI * sp[i], eI * cp[i] - eR * sp[i]
             out[0, i * m + j] = eR
             out[1, i * m + j] = eI
-        cZ, _, cF, _ = _relax(TR[i], T1, T2, DF)
+        cZ, cF = _relax_terms(TR[i], T1, T2, DF2)
         nZR = cZ * R[4]
         nZR[0] = nZR[0] + (1.0 - cZ)
         s = planes.shift_fold(_fmul(cF, R[0], R[1]) + _fmul(cF, R[2], R[3])
@@ -281,6 +357,10 @@ def _launch(FA, phi, TR, TEs, T1s, T2s, B1s, dfs, *, nstate, demodulate,
             raise ValueError(f"{m} echoes per TR: one pulse's staged echoes "
                              f"({geo['smem']} bytes) exceed "
                              f"{SMEM_PER_BLOCK} bytes of shared memory")
+        extra = (geo["warps"],)
+    else:
+        geo = megre_geometry(nstate, m)
+        extra = (geo["R"], geo["warps"], geo["pulses"], int(geo["stage"]))
     out = torch.empty((10 if jac else 2, m * P, B), dtype=torch.float32,
                       device=T1s.device)
 
@@ -294,7 +374,7 @@ def _launch(FA, phi, TR, TEs, T1s, T2s, B1s, dfs, *, nstate, demodulate,
     rc = fn(ptr(x["FA"]), ptr(x["phi"]), ptr(x["TR"]), ptr(x["TE"]),
             ptr(x["T1"]), ptr(x["T2"]), ptr(x["B1"]), ptr(x["df"]), ptr(out),
             P, B, m, nstate, int(x["df"] is not None), int(bool(demodulate)),
-            geo["warps"] if jac else block_size(nstate),
+            *extra,
             T1s.device.index if T1s.device.index is not None
             else torch.cuda.current_device(),
             torch.cuda.current_stream(T1s.device).cuda_stream)

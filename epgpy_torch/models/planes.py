@@ -36,7 +36,8 @@ import math
 
 import torch
 
-__all__ = ["cmul", "phase_terms", "rot_coeffs", "rot_coeffs_db1", "rot_A",
+__all__ = ["cmul", "phase_terms", "sincospi", "phase_terms_pi", "rot_coeffs",
+           "rot_coeffs_sc", "rot_coeffs_db1", "rot_A",
            "rot_B", "rot_Z", "apply_rot", "rot_k0", "shift_fold",
            "shift_down", "stage_attenuation", "te_terms", "echo_copy",
            "df_tangent", "relax_tangents", "relax_tau_terms",
@@ -54,11 +55,35 @@ def phase_terms(ph):
     return torch.cos(ph), torch.sin(ph), torch.cos(2 * ph), torch.sin(2 * ph)
 
 
+def sincospi(x):
+    """(cos pi x, sin pi x) of an angle x in half turns, as CUDA's
+    sincospif takes it: x is first reduced to [-1, 1] by an exact
+    subtraction of an even integer, so the result keeps its accuracy at
+    any x (2 df t of a large df t; in float32 too)."""
+    r = x - 2.0 * torch.round(x * 0.5)
+    a = math.pi * r
+    return torch.cos(a), torch.sin(a)
+
+
+def phase_terms_pi(ph):
+    """(cos phi, sin phi, cos 2phi, sin 2phi) of a phase in half turns
+    (degrees / 180), by :func:`sincospi`: the tables of the kernels that
+    take the phase's sincospif."""
+    cp, sp = sincospi(ph)
+    c2p, s2p = sincospi(2.0 * ph)
+    return cp, sp, c2p, s2p
+
+
 def rot_coeffs(a, cp, sp, c2p, s2p):
     """Weigel rotation closed forms for flip `a` (radians) and the phase
     terms of :func:`phase_terms`: the 10-tuple
     (c2, m01r, m01i, m02r, m02i, ca, m20r, m20i, m21r, m21i)."""
-    ca, sa = torch.cos(a), torch.sin(a)
+    return rot_coeffs_sc(torch.sin(a), torch.cos(a), cp, sp, c2p, s2p)
+
+
+def rot_coeffs_sc(sa, ca, cp, sp, c2p, s2p):
+    """:func:`rot_coeffs` from the flip's sine `sa` and cosine `ca`
+    (``epg::rot_coeffs_sc``)."""
     cos2, sin2 = (1 + ca) * 0.5, (1 - ca) * 0.5
     return (cos2, c2p * sin2, s2p * sin2, sp * sa, -cp * sa,
             ca, -0.5 * sp * sa, -0.5 * cp * sa,

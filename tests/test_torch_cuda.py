@@ -43,7 +43,10 @@ from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_EDGE_ATOMS,
                         HALF_EDGE_CASES, HALF_EDGE_PULSES, HALF_RAGGED_CASE,
                         HALF_SHAPES, comp_vs_twin, half_vs_twin,
                         x_primal_repeat, x_primal_runs, xcomp_vs_twin,
-                        xgre_vs_twin)
+                        xgre_vs_twin, BSSFP_EDGE_CASES, BSSFP_EDGE_SHAPE,
+                        BSSFP_RAGGED_CASE, BSSFP_SHAPES, MEGRE_EDGE_ATOMS,
+                        MEGRE_EDGE_PULSES, MEGRE_PRIMAL_CASES,
+                        MEGRE_PRIMAL_EDGE_CASES)
 from epgpy_torch import config
 from epgpy_torch.models import (cuda_bssfp, cuda_composite, cuda_dess,
                                 cuda_fisp, cuda_hessian, cuda_megre,
@@ -524,6 +527,53 @@ def test_cuda_megre_kernels_match_plain_twins(card, case):
     jsig, cols = _pair_errors(
         torch, kj, cuda_megre.megre_jacobian_echoes_plain(*args, **kw), True)
     assert max(sig, jsig) < 2e-6 and max(cols) < 1e-5
+
+
+def _primal_twice(fn, twin, args, kw, counter):
+    """The primal kernel launched twice (both through the kernel, the same
+    bits) against its twin: max |delta|."""
+    before = counter()
+    k, again = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert counter() == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
+    assert all(bool(torch.isfinite(x).all()) for x in k)
+    return _pair_errors(torch, k, twin(*args, **kw), False)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,natoms,npulse", [
+    (c, MEGRE_EDGE_ATOMS, c["nstate"] + 1 + MEGRE_EDGE_PULSES)
+    for c in MEGRE_PRIMAL_EDGE_CASES] + MEGRE_PRIMAL_CASES,
+    ids=lambda c: c["name"] if isinstance(c, dict) else str(c))
+def test_cuda_megre_primal_segmented_edges(card, case, natoms, npulse):
+    """On the card: the segmented ME-GRE primal kernel == its twin to 2e-6
+    on both sides of every change of its instance or rows per lane, at
+    1-1,000 echoes, over TR and echo-time runs, ragged shapes and chunk
+    edges; a second launch gives the same bits."""
+    args, kw = _tensors(torch, *make_megre_case(case, natoms, npulse),
+                        "cuda")
+    assert _primal_twice(cuda_megre.megre_echoes,
+                         cuda_megre.megre_echoes_plain, args, kw,
+                         lambda: cuda_megre.LAUNCHES) <= 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,natoms,npulse", [
+    (c, *BSSFP_EDGE_SHAPE) for c in BSSFP_EDGE_CASES] + [
+    (BSSFP_RAGGED_CASE, n, p) for n, p in BSSFP_SHAPES],
+    ids=lambda c: c["name"] if isinstance(c, dict) else str(c))
+def test_cuda_bssfp_primal_edges(card, case, natoms, npulse):
+    """On the card: the bSSFP primal kernel == its twin to 2e-6 over TR
+    and TE runs across its 32-pulse chunks, inversion with and without
+    df, a large df t and ragged shapes; a second launch gives the same
+    bits."""
+    args, kw = _tensors(torch, *make_bssfp_case(case, natoms, npulse),
+                        "cuda")
+    kw.pop("normalize")
+    assert _primal_twice(cuda_bssfp.bssfp_echoes,
+                         cuda_bssfp.bssfp_echoes_plain, args, kw,
+                         lambda: cuda_bssfp.LAUNCHES) <= 2e-6
 
 
 def _megre_jac_vs_twin(case, natoms, npulse):

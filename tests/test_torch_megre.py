@@ -37,7 +37,8 @@ from epgpy_torch.models import cuda_fisp, cuda_megre, planes
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_megre
 
-from chip_smoke import MEGRE_CASES, make_megre_case, _tensors
+from chip_smoke import (MEGRE_CASES, MEGRE_PRIMAL_CASES, MEGRE_ROW_EDGES,
+                        make_megre_case, _tensors)
 from torch_support import (GOLDEN_DIR, cplx, family_train,  # noqa: F401
                            port_f32, port_f64, seg_owned_atoms,
                            seg_shift_emulated)
@@ -447,3 +448,134 @@ def test_jacobian_gate_unchanged():
     assert fits == list(range(0, 60))
     assert fits == [n for n in range(0, 401)
                     if cuda_fisp.jac_kernel_fits(max(n, 1), True)]
+
+
+# -- the primal kernel (megre.cu): geometry, lane map, edges, gate --
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 400, 1000])
+def test_primal_launch_geometry(m):
+    """For every ladder the gate admits and m echoes per TR (1,000
+    included): the fewest lanes with at most 12 rows each, R = ceil(H /
+    W) (one lane, the instance of the ladder's own length, up to nstate
+    11); 4 warps per block; the echoes stored directly on one lane, staged
+    on more while one TR's echoes of the block fit beside the table (else
+    stored); 32 TRs per chunk, fewer only while staged echoes need it; the
+    block's table and staged echoes within 48 KB; the factors held in
+    registers up to 4 echoes; and a grid whose slots store each of 1, 2,
+    3, 33 and 4,097 atoms exactly once."""
+    for n in range(0, 302):
+        geo = cuda_megre.megre_geometry(n, m)
+        H = max(n, 1) + 1
+        R, W, L = geo["R"], geo["W"], geo["L"]
+        W0 = -(-H // cuda_megre.MEGRE_MAX_ROWS)
+        assert W == W0 and R == -(-H // W) <= cuda_megre.MEGRE_MAX_ROWS
+        assert geo["one"] == (W == 1) == (n <= 11)
+        assert W * R >= H > (W - 1) * R and W <= 32 and L == 32 // W
+        assert geo["warps"] == cuda_megre.MEGRE_WARPS
+        assert geo["atoms"] == geo["warps"] * L
+        staged = 2 * m * geo["atoms"]
+        fits = cuda_megre.MEGRE_TABLE + staged <= cuda_megre.MEGRE_CHUNK_FLOATS
+        assert geo["stage"] == (W > 1 and fits)
+        per = cuda_megre.MEGRE_TABLE + (staged if geo["stage"] else 0)
+        assert 1 <= geo["pulses"] <= cuda_megre.MEGRE_TRS
+        assert geo["pulses"] * per <= cuda_megre.MEGRE_CHUNK_FLOATS
+        assert (geo["pulses"] == cuda_megre.MEGRE_TRS
+                or (geo["pulses"] + 1) * per > cuda_megre.MEGRE_CHUNK_FLOATS)
+        assert geo["smem"] == 4 * geo["pulses"] * per <= 48 * 1024
+        assert geo["held"] == (m <= cuda_megre.MEGRE_HELD_ECHOES)
+        if n in (1, 8, 12, 301):
+            for B in (1, 2, 3, 33, 4097):
+                owned, grid = seg_owned_atoms(geo, B)
+                assert sorted(owned) == list(range(B)), (n, m, B)
+    assert cuda_megre.megre_geometry(8, 3)["R"] == 9      # the bench's
+    assert cuda_megre.megre_geometry(12, 3)["R"] == 7     # the golden's
+
+
+@pytest.mark.parametrize("nstate", [1, 8, 11, 12, 23, 24, 36, 60])
+def test_primal_lane_map_matches_twin(port_f64, monkeypatch, nstate):
+    """The float64 primal twin with every folded shift replayed through
+    the kernel's lane map at its rows per lane (blocked rows, one lane up
+    to nstate 11: epg::lane_shift; more: epg::seg_shift_blocked, emulated
+    in numpy with NaN in the idle lanes, past the last atom and in the
+    padding rows) equals the twin, over 37 atoms and a train 10 TRs
+    longer than the ladder with TR and echo-time runs, df and
+    demodulation."""
+    case = dict(name="lane_map", m=3, nstate=nstate, var_te=True, b1=True,
+                df=True, demodulate=True, runs=True)
+    npulse = max(80, nstate + 11)
+    args, kw = make_megre_case(case, 37, npulse, seed=3)
+    t = lambda x: None if x is None else torch.as_tensor(x)  # noqa: E731
+    targs = tuple(t(a) for a in args)
+    want = cuda_megre.megre_echoes_plain(*targs, **kw)
+    R = cuda_megre.megre_geometry(nstate, 3)["R"]
+    calls = [0]
+
+    def shift(s):
+        calls[0] += 1
+        return seg_shift_emulated(s, R, blocked=True)
+
+    monkeypatch.setattr(planes, "shift_fold", shift)
+    got = cuda_megre.megre_echoes_plain(*targs, **kw)
+    assert calls[0] == npulse
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and torch.isfinite(g).all()
+        assert torch.equal(g, w)
+
+
+def test_primal_row_edges_cover_every_change():
+    """MEGRE_ROW_EDGES, the nstates of the card's primal edges, holds
+    nstate 1-12 (each one-lane instance and the first two-lane one), both
+    sides of every change of the rows per lane up to the gate, and the
+    gate's deepest ladder, 301."""
+    ch = [n for n in range(2, 302)
+          if cuda_megre.megre_rows(n) != cuda_megre.megre_rows(n - 1)]
+    assert ch and sorted({c - 1 for c in ch} | set(ch) | set(range(1, 13))
+                         | {301}) == list(MEGRE_ROW_EDGES)
+
+
+@pytest.mark.parametrize("case,natoms,ntr", [
+    c for c in MEGRE_PRIMAL_CASES if c[0]["m"] <= 5 and c[1] >= 33
+    and c[0]["name"] in ("m4_n8", "m5_n12_df", "runs_n8", "runs_n12")],
+    ids=lambda c: c["name"] if isinstance(c, dict) else str(c))
+def test_primal_edge_twin_matches_jax_kernel(case, natoms, ntr):
+    """The primal twin vs the JAX kernel in interpret mode on the card's
+    primal edge cases (4 and 5 echoes, two lanes, TR and echo-time runs),
+    8 atoms: 1e-5 absolute, as the option cases."""
+    args, kw = make_megre_case(case, B, ntr)
+    re, im = pallas_megre.megre_dictionary_pallas(*args, interpret=True,
+                                                  btile=128, **kw)
+    targs, tkw = _tensors(torch, args, kw, "cpu")
+    got = cuda_megre.megre_dictionary_plain(*targs, **tkw)
+    assert got[0].shape == (B, ntr, case["m"])
+    assert np.abs(cplx(*got) - cplx(re, im)).max() < 1e-5
+
+
+def test_primal_many_echoes_twin_matches_float64():
+    """1,000 echoes per TR (the factors recomputed each TR on the card) at
+    nstate 8: the float32 twin within 1e-6 of the float64 twin on the same
+    inputs, echo-major rows i m + j."""
+    case = dict(name="m1000", m=1000, nstate=8, df=True, demodulate=True)
+    args, kw = make_megre_case(case, 5, 4)
+    targs, tkw = _tensors(torch, args, kw, "cpu")
+    got = cuda_megre.megre_echoes_plain(*targs, **tkw)
+    ref = cuda_megre.megre_echoes_plain(
+        *(a.double() if isinstance(a, torch.Tensor) else a for a in targs),
+        **tkw)
+    assert got[0].shape == (4000, 5)
+    assert max(float((g.double() - r).abs().max())
+               for g, r in zip(got, ref)) < 1e-6
+    d_re, _ = cuda_megre.megre_dictionary_plain(*targs, **tkw)
+    assert torch.equal(d_re[:, 2, 999], got[0][2 * 1000 + 999])
+
+
+def test_primal_gate_unchanged():
+    """The primal gate answers as the thread-per-atom layout set it, for
+    nstate 0-400 (0 runs as 1): nstate <= 301, the FISP kernel's; the
+    segmented kernel keeps it, so no train changes route, and any echo
+    count has a geometry."""
+    fits = [n for n in range(0, 401) if cuda_megre.megre_kernel_fits(n)]
+    assert fits == list(range(0, 302))
+    assert fits == [n for n in range(0, 401)
+                    if cuda_fisp.kernel_fits(max(n, 1))]
+    assert cuda_megre.megre_geometry(301, 100000)["smem"] <= 48 * 1024

@@ -31,13 +31,13 @@ import epgpy_tpu as jepg
 import epgpy_torch as tepg
 from epgpy_torch import fisp_dispatch as tfd
 from epgpy_torch.convert import from_numpy_params
-from epgpy_torch.models import cuda_bssfp
+from epgpy_torch.models import cuda_bssfp, planes
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_bssfp
 from epgpy_tpu.models import ssfp as jssfp
 
-from chip_smoke import (BSSFP_CASES, bssfp_atoms, bssfp_bench_sequence,
-                        make_bssfp_case, _tensors)
+from chip_smoke import (BSSFP_CASES, BSSFP_EDGE_CASES, bssfp_atoms,
+                        bssfp_bench_sequence, make_bssfp_case, _tensors)
 from torch_support import (GOLDEN_DIR, composite_claims, cplx,  # noqa: F401
                            port_f32, port_f64)
 
@@ -83,7 +83,9 @@ def test_bssfp_jacobian_twin_matches_jax_kernel(case):
 def test_echo_layout_and_launch_counters():
     """The echo-layout wrappers take the twins for CPU tensors and count no
     kernel launch; the dictionary is the transposed echo train, the
-    Jacobian's signal the primal's."""
+    Jacobian's signal the primal's to float32 rounding (2e-6: the primal
+    twin takes its kernel's half-turn angles and exp2 decays, the
+    Jacobian twin its own kernel's radians and exp)."""
     args, kw = _tensors(torch, *_inputs(BSSFP_CASES[-1]), "cpu")
     kw.pop("normalize")
     before = (cuda_bssfp.LAUNCHES, cuda_bssfp.JAC_LAUNCHES)
@@ -93,11 +95,81 @@ def test_echo_layout_and_launch_counters():
                                                          **kw)
     nre, nim = cuda_bssfp.bssfp_dictionary_cuda(*args, normalize=True, **kw)
     assert torch.equal(re, dre.T) and torch.equal(im, dim.T)
-    assert torch.equal(re, jre) and jd.shape == (NPULSE, B, 4)
+    assert torch.allclose(re, jre, rtol=0.0, atol=2e-6)
+    assert jd.shape == (NPULSE, B, 4)
     assert torch.allclose((nre ** 2 + nim ** 2).sum(-1), torch.ones(B))
     assert (cuda_bssfp.LAUNCHES, cuda_bssfp.JAC_LAUNCHES) == before
     with pytest.raises(TypeError):
         cuda_bssfp.bssfp_echoes(*args[:4], np.ones(B), *args[5:], **kw)
+
+
+_EDGES = [c for c in BSSFP_EDGE_CASES if not c.get("big_df")]
+_BIG_DF = [c for c in BSSFP_EDGE_CASES if c.get("big_df")]
+
+
+@pytest.mark.parametrize("exp2", [True, False])
+@pytest.mark.parametrize("case", _EDGES + BSSFP_CASES[-1:],
+                         ids=lambda c: c["name"])
+def test_bssfp_edge_twin_matches_jax_kernel(monkeypatch, case, exp2):
+    """The primal twin, with the kernel's decays by exp2 of per-atom
+    factors and by exp(-t / T) alike (cuda_bssfp.EXP2), vs the JAX kernel
+    in interpret mode on the card's primal edge cases (TR and TE runs
+    across the 32-pulse chunks, inversion with and without df) and the
+    case with every option, 8 atoms x 80 pulses: 1e-5 absolute."""
+    monkeypatch.setattr(cuda_bssfp, "EXP2", exp2)
+    args, kw = make_bssfp_case(case, B, 80)
+    jre, jim = pallas_bssfp.bssfp_dictionary_pallas(*args, interpret=True,
+                                                    **kw)
+    targs, tkw = _tensors(torch, args, kw, "cpu")
+    tre, tim = cuda_bssfp.bssfp_dictionary_plain(*targs, **tkw)
+    assert tre.shape == (B, 80) and tre.dtype == torch.float32
+    assert np.abs(cplx(tre, tim) - cplx(jre, jim)).max() < 1e-5
+
+
+@pytest.mark.parametrize("case", _BIG_DF, ids=lambda c: c["name"])
+def test_bssfp_big_df_twin_matches_float64(case):
+    """A large df t (df 0.5 kHz over TRs of 1,000 ms: 1,000 half turns a
+    TR): the float32 twin, whose phasors take sincospi of 2 df t as the
+    kernel's sincospif does, within 1e-4 of the float64 twin on the same
+    float32 inputs (the float32 product 2 df TR near 1,000 carries an ulp
+    of 6.1e-5 half turns)."""
+    args, kw = make_bssfp_case(case, B, 60)
+    targs, tkw = _tensors(torch, args, kw, "cpu")
+    got = cuda_bssfp.bssfp_dictionary_plain(*targs, **tkw)
+    ref = cuda_bssfp.bssfp_dictionary_plain(
+        *(a.double() if isinstance(a, torch.Tensor) else a for a in targs),
+        **tkw)
+    assert max(float((g.double() - r).abs().max())
+               for g, r in zip(got, ref)) < 1e-4
+
+
+def test_sincospi_exact_at_large_arguments():
+    """planes.sincospi (the twins' sincospif) reduces half turns exactly:
+    in float32 at 1,000-50,000 half turns it stays within 4e-7 of the
+    float64 cosine and sine of the same float32 arguments, where cos(2 pi
+    df t) of a float32 product is off by up to 1e-2."""
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.uniform(1e3, 5e4, 4096), dtype=torch.float32)
+    c, s_ = planes.sincospi(x)
+    x64 = x.double()
+    r = x64 - 2.0 * torch.round(x64 / 2.0)
+    assert float((c.double() - torch.cos(np.pi * r)).abs().max()) < 4e-7
+    assert float((s_.double() - torch.sin(np.pi * r)).abs().max()) < 4e-7
+    naive = torch.cos(np.pi * x)
+    assert float((naive.double() - torch.cos(np.pi * r)).abs().max()) > 1e-3
+
+
+def test_bssfp_primal_always_admitted():
+    """bSSFP keeps no gate (three floats per atom in registers): the
+    engine's family table admits every matched train, and the primal
+    kernel's table needs no more than its 32-pulse chunk."""
+    import inspect
+
+    from epgpy_torch import engine
+
+    src = inspect.getsource(engine)
+    assert "(fd.match_bssfp, lambda p: True, fd.run_bssfp_kernel" in src
+    assert cuda_bssfp.BSSFP_PULSES == 32 and cuda_bssfp.BLOCK == 128
 
 
 # -- float64 paths vs the golden --

@@ -57,7 +57,18 @@ after one warm-up, ``chip_smoke._cuda_ms``) at the main-path shapes:
   (``xbssfp_bench_sequence``, as ``phase_xbssfp_path``); ``xcomposite``
   the MT-prepared train, 131,072 atoms x 108 stages, nstate 8
   (``xcomp_bench_sequence`` through ``fisp_dispatch.match_xcomposite``, as
-  ``phase_xcomp_path``): the wrapper calls and the kernel alone.
+  ``phase_xcomp_path``): the wrapper calls and the kernel alone;
+* ``megre``: the bench's ME-GRE train, 262,144 atoms x 200 TRs x 3
+  echoes, nstate 8 (``chip_smoke.megre_atoms`` / ``megre_sequence``
+  through ``fisp_dispatch.match_megre``, as ``phase_megre_path``: TR and
+  echo times repeat every TR), and ``megre_var`` the option case of
+  ``chip_smoke.make_megre_case`` at the same shape (TR and RF phase
+  drawn per TR); ``bssfp``: the bench's IR-prepped bSSFP train, 163,840
+  atoms x 500 pulses (``chip_smoke.bssfp_atoms`` /
+  ``bssfp_bench_sequence`` through ``fisp_dispatch.match_bssfp``, as
+  ``phase_bssfp_path``: TR varies every pulse), and ``bssfp_expf`` the
+  same with the decays by expf (``cuda_bssfp.EXP2`` off, where the
+  checkout has it): the wrapper calls and the kernel alone.
 
 ``--kernels`` times only the named ones (default: all).  ``--fits`` also
 runs, twice per turn, the end-to-end fits and calls that take the chosen
@@ -73,7 +84,11 @@ train for ``xgre``, ``xgre_bssfp`` and ``xcomposite``, and for
 ``composite`` the memoized cardiac MRF
 ``simulate()``, the MPRAGE T1 mapping (``chip_smoke.
 phase_mprage_mapping``) and the cardiac MRF T1/T2 mapping
-(``phase_cardiac_mapping``) -- and keeps the second run's host-clock
+(``phase_cardiac_mapping``), for ``megre`` the memoized ME-GRE
+``simulate()`` and the T2/B0 mapping (``chip_smoke.phase_b0_mapping``: 8
+iterations) and for ``bssfp`` the memoized bSSFP ``simulate()`` and the
+bSSFP MRF serving (``chip_smoke.phase_bssfp_serving``: 4 starts x 10
+Gauss-Newton iterations) -- and keeps the second run's host-clock
 times, in ms.
 
 Two knobs time the primal kernels' geometry: ``--blocks N [N ...]`` times
@@ -87,6 +102,10 @@ EPG-X primal kernels are segmented (``x_rows`` of ``cuda_xgre`` and
 / C / 2 rows, 4-6 at two pools), each beside the committed choice.
 ``--nstates N [N ...]`` also times ``xgre``'s MT-GRE train cut at each
 ladder depth N (keys ``xgre_nN``), at the committed rows and at each R.
+``--rows`` also times ``megre`` at R rows per lane where the checkout's
+primal ME-GRE kernel is segmented (its ``megre_rows``), and ``--nstates``
+its bench train at each ladder depth N (keys ``megre_nN``), at the
+committed rows and at each R.
 
 Each turn prints one JSON line with its times and the kernels' ptxas lines
 (registers, stack frame) where it built them; the last lines give the
@@ -109,7 +128,8 @@ SHAPES = {"fisp": (102400, 1000), "megre": (262144, 200)}
 
 KERNELS = ("fisp_jac", "megre_jac", "fisp_hess", "composite_jac",
            "xgre_jac", "dess_jac", "cpmg", "xcomposite_jac", "fisp_half",
-           "fisp_half_dw", "composite", "xgre", "xgre_bssfp", "xcomposite")
+           "fisp_half_dw", "composite", "xgre", "xgre_bssfp", "xcomposite",
+           "megre", "bssfp")
 
 
 def turn(root, reps, kernels, fits, blocks=(), rows=(), nstates=()):
@@ -194,6 +214,7 @@ def turn(root, reps, kernels, fits, blocks=(), rows=(), nstates=()):
     _fisp_family(root, reps, kernels, out)
     _primal(root, reps, kernels, fits, out, blocks, rows)
     _xprimal(reps, kernels, fits, out, rows, nstates)
+    _ssfp_primal(reps, kernels, fits, out, rows, nstates)
     log = _build.build_info()["log"].splitlines()
     out["ptxas"] = [f"{a.split('for')[-1].strip()[-48:]}: {b.strip()}; "
                     f"{c.strip()}"
@@ -205,7 +226,9 @@ def turn(root, reps, kernels, fits, blocks=(), rows=(), nstates=()):
                                              "cpmg_kernel", "xcomp_jac",
                                              "fisp_half_kernel",
                                              "composite_kernel",
-                                             "xgre_kernel", "xcomp_kernel"))]
+                                             "xgre_kernel", "xcomp_kernel",
+                                             "megre_kernel",
+                                             "bssfp_kernel"))]
     out["build_s"] = _build.build_info()["seconds"]
     print(json.dumps(out))
 
@@ -450,6 +473,87 @@ def _xprimal(reps, kernels, fits, out, rows, nstates=()):
         for key, (seq, skw) in sims.items():
             out[f"{key}_simulate_ms"] = 1e3 * cs._host_s(
                 torch, lambda: epg.simulate(seq, asarray=False, **skw))
+
+
+def _ssfp_primal(reps, kernels, fits, out, rows, nstates=()):
+    """The primal ME-GRE and bSSFP kernels' times into `out`: ``megre``
+    (the bench's train; at each ladder depth of `nstates` too) and
+    ``megre_var`` (TR and phase per TR), ``bssfp`` and ``bssfp_expf``
+    (the bench's train) at the committed geometry, then ``megre`` at each
+    of `rows` rows per lane where the checkout's kernel is segmented; with
+    `fits`, the memoized ``simulate()`` of both trains, the T2/B0 mapping
+    and the bSSFP MRF serving."""
+    import torch
+
+    import chip_smoke as cs
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_bssfp, cuda_megre
+
+    want = [k for k in ("megre", "bssfp") if k in kernels]
+    if not want:
+        return
+    calls, sims = {}, {}
+    if "megre" in want:
+        FA, T1, T2, DF = cs.megre_atoms(cs.MEGRE_ATOMS)
+        seq = cs.megre_sequence(epg, FA, T1, T2, DF)
+        margs = cs._match_args(fisp_dispatch, fisp_dispatch.match_megre(seq))
+        for key, ns in [("megre", cs.MEGRE_NSTATE)] + [
+                (f"megre_n{n}", n) for n in nstates]:
+            calls[key] = (lambda ns=ns: cuda_megre.megre_echoes(
+                *margs, nstate=ns), "epg_megre")
+        vargs, vkw = cs._tensors(torch, *cs.make_megre_case(
+            dict(m=3, nstate=cs.MEGRE_NSTATE), *SHAPES["megre"]), "cuda")
+        calls["megre_var"] = (lambda: cuda_megre.megre_echoes(*vargs, **vkw),
+                              "epg_megre")
+        sims["megre"] = (seq, dict(max_nstate=cs.MEGRE_NSTATE))
+    if "bssfp" in want:
+        T1b, T2b, DFb = cs.bssfp_atoms(cs.BSSFP_ATOMS)
+        bseq = cs.bssfp_bench_sequence(epg, T1b, T2b, DFb)
+        bargs = cs._match_args(fisp_dispatch, fisp_dispatch.match_bssfp(bseq))
+
+        def bcall():
+            return cuda_bssfp.bssfp_echoes(*bargs, demodulate=True,
+                                           inversion=cs.BSSFP_TI)
+        calls["bssfp"] = (bcall, "epg_bssfp")
+        sims["bssfp"] = (bseq, {})
+
+    def time_all(tag, keys):
+        for key in keys:
+            fn, symbol = calls[key]
+            out[f"{key}{tag}_ms"] = cs._cuda_ms(torch, fn, reps)
+            out[f"{key}{tag}_kernel_ms"] = cs._launch_ms(torch, fn, symbol,
+                                                         reps)
+
+    time_all("", list(calls))
+    if "bssfp" in want and hasattr(cuda_bssfp, "EXP2"):
+        try:
+            cuda_bssfp.EXP2 = False
+            time_all("_expf", ["bssfp"])
+        finally:
+            cuda_bssfp.EXP2 = True
+    if rows and "megre" in want and hasattr(cuda_megre, "megre_rows"):
+        rows_of = cuda_megre.megre_rows
+        keys = [k for k in calls if k.startswith("megre")
+                and k != "megre_var"]
+        try:
+            for r in rows:
+                cuda_megre.megre_rows = lambda n, r=r: r
+                time_all(f"_rows{r}", keys)
+        finally:
+            cuda_megre.megre_rows = rows_of
+    if not fits:
+        return
+    for _ in range(2):      # the first run warms the host paths
+        for key, (sseq, skw) in sims.items():
+            out[f"{key}_simulate_ms"] = 1e3 * cs._host_s(
+                torch, lambda: epg.simulate(sseq, asarray=False, **skw))
+        if "megre" in want:
+            out["b0_map_gn_ms"] = 1e3 * cs.phase_b0_mapping(torch,
+                                                            epg)["gn_s"]
+        if "bssfp" in want:
+            out["mrf_bssfp_gn_ms"] = 1e3 * cs.phase_bssfp_serving(
+                torch, epg)["gn_s"]
 
 
 def main():
