@@ -1803,7 +1803,7 @@ def phase_occupancy():
     main-path geometries (the primal ones with the waves of their grids);
     the registers and stack of every xgre and composite EPG-X Jacobian
     instance and every CPMG, FISP dictionary, composite, EPG-X GRE,
-    composite EPG-X, ME-GRE and bSSFP primal instance."""
+    composite EPG-X and ME-GRE primal instance."""
     from epgpy_torch import _build
     from epgpy_torch.models import cuda_bssfp, cuda_composite, cuda_dess, \
         cuda_fisp, cuda_hessian, cuda_megre, cuda_mse, cuda_msedesign, \
@@ -1906,7 +1906,7 @@ def phase_occupancy():
                cuda_bssfp.BLOCK, pulses=cuda_bssfp.BSSFP_PULSES,
                smem=32 * cuda_bssfp.BSSFP_PULSES)
     what = "bssfp"
-    seg.append((what, f"bssfp_kernelILb{int(cuda_bssfp.EXP2)}EE", geo))
+    seg.append((what, "bssfp_kernelENS", geo))
     waves_of[what] = BSSFP_ATOMS
     for what, key, geo in seg:
         r, frame = of(key), of(key, stack)
@@ -1943,8 +1943,7 @@ def phase_occupancy():
              "C, R, one lane"),
             ("xcomposite", r"xcomp_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)EE",
              "C, R, one lane, shared table"),
-            ("megre", r"megre_kernelILi(\d+)ELi(\d+)EE", "R, static rows"),
-            ("bssfp", r"bssfp_kernelILb(\d)EE", "exp2")):
+            ("megre", r"megre_kernelILi(\d+)ELi(\d+)EE", "R, static rows")):
         inst = sorted((tuple(int(v) for v in m.groups()), r, stack.get(n))
                       for n, r in regs.items()
                       for m in [re.search(pattern, n)] if m)

@@ -42,7 +42,7 @@ _SIGNATURES = {
                      _F, _F, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "epg_cpmg_design": [_F, _F, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _I, _I, _P],
-    "epg_bssfp": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P] + [_I] * 9
+    "epg_bssfp": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P] + [_I] * 8
     + [_P],
     "epg_bssfp_jac": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P] + [_I] * 9
     + [_P],

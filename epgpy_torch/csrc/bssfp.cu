@@ -32,10 +32,11 @@
 // phasor; the rest of the time they stay in registers.  Angles are in half
 // turns, the inversion prologue's too (sincospif: no large-argument path
 // and no stack frame, exact at any df t), the phasors' from the atom's 2
-// df; with EXP2 the decays are exp2f of the time times the atom's
-// -log2(e) / T (no division per pulse), else expf(-t / T).  A thread
-// past the last atom runs on a clamped atom and stores nothing; math is
-// precise (no fast-math): the error budget is against an f64 reference.
+// df; the decays are exp2f of the time times the atom's -log2(e) / T, with
+// no division per pulse (0.58 ms against 0.74 with expf(-t / T) at the
+// benchmark's shape, PERF.md).  A thread past the last atom runs on a
+// clamped atom and stores nothing; math is precise (no fast-math): the
+// error budget is against an f64 reference.
 #include <cuda_runtime.h>
 
 #include "epg_planes.cuh"
@@ -67,14 +68,6 @@ struct BssfpArgs {
     int var_te, use_inv, use_df, demod;
 };
 
-// The decay over a time t of an atom of relaxation time T: exp2f(k t) with
-// k = -log2(e) / T (EXP2), else expf(-t / T).
-template <bool EXP2>
-__device__ __forceinline__ float decay(float t, float T, float k) {
-    return EXP2 ? exp2f(k * t) : expf(-t / T);
-}
-
-template <bool EXP2>
 __global__ void __launch_bounds__(kBlock) bssfp_kernel(const BssfpArgs p) {
     __shared__ float4 tab[2 * kMaxPulses];
     const int bi = blockIdx.x * blockDim.x + threadIdx.x;
@@ -87,8 +80,8 @@ __global__ void __launch_bounds__(kBlock) bssfp_kernel(const BssfpArgs p) {
     const float DF = cdf ? p.df[b] : 0.0f;
     const float DF2 = 2.0f * DF;   // the phasors' half turns per ms
     // -log2(e) / T as the twin forms it: the reciprocal, then the product
-    const float k1 = EXP2 ? (1.0f / T1) * -kLog2e : 0.0f;
-    const float k2 = EXP2 ? (1.0f / T2) * -kLog2e : 0.0f;
+    const float k1 = (1.0f / T1) * -kLog2e;
+    const float k2 = (1.0f / T2) * -kLog2e;
 
     float FR = 0.0f, FI = 0.0f, Z = 1.0f;
     if (p.use_inv) {
@@ -96,8 +89,8 @@ __global__ void __launch_bounds__(kBlock) bssfp_kernel(const BssfpArgs p) {
         // and precession
         float sai, cai;
         sincospif(B1, &sai, &cai);
-        const float E1i = decay<EXP2>(p.ti, T1, k1);
-        const float E2i = decay<EXP2>(p.ti, T2, k2);
+        const float E1i = exp2f(k1 * p.ti);
+        const float E2i = exp2f(k2 * p.ti);
         const float fpi = -sai * E2i;
         if (cdf) {
             float si, ci;
@@ -114,7 +107,7 @@ __global__ void __launch_bounds__(kBlock) bssfp_kernel(const BssfpArgs p) {
     // while the table says they repeat
     float e2te = 0.0f, pteR = 1.0f, pteI = 0.0f;
     if (!p.var_te) {
-        e2te = decay<EXP2>(p.te0, T2, k2);
+        e2te = exp2f(k2 * p.te0);
         if (cdf) sincospif(DF2 * p.te0, &pteI, &pteR);
     }
     float cF = 0.0f, cZ = 0.0f, pR = 1.0f, pI = 0.0f;
@@ -144,7 +137,7 @@ __global__ void __launch_bounds__(kBlock) bssfp_kernel(const BssfpArgs p) {
             const float4 mv = tab[2 * t + 1];   // fa, TR, TE, flags
             const int fl = static_cast<int>(mv.w);
             if (p.var_te && !(fl & kTeRepeats)) {
-                e2te = decay<EXP2>(mv.z, T2, k2);
+                e2te = exp2f(k2 * mv.z);
                 if (cdf) sincospif(DF2 * mv.z, &pteI, &pteR);
             }
             float sa, ca;
@@ -170,8 +163,8 @@ __global__ void __launch_bounds__(kBlock) bssfp_kernel(const BssfpArgs p) {
 
             // full-TR relaxation (no shift: the state stays at k = 0)
             if (!(fl & kTrRepeats)) {
-                cF = decay<EXP2>(mv.y, T2, k2);
-                cZ = decay<EXP2>(mv.y, T1, k1);
+                cF = exp2f(k2 * mv.y);
+                cZ = exp2f(k1 * mv.y);
                 if (cdf) sincospif(DF2 * mv.y, &pI, &pR);
             }
             if (cdf) {
@@ -192,13 +185,12 @@ __global__ void __launch_bounds__(kBlock) bssfp_kernel(const BssfpArgs p) {
 // Launch on `stream` of CUDA device `device`; allocates nothing.  Returns
 // the CUDA error code of the launch (0 on success; cudaErrorInvalidValue
 // for a `block` other than kBlock); the caller raises on anything else.
-// `exp2`: the decays by exp2f of a per-atom factor (cuda_bssfp.EXP2).
 extern "C" int epg_bssfp(const float* fa, const float* phi, const float* tr,
                          const float* te, float te0, float ti,
                          const float* t1, const float* t2, const float* b1,
                          const float* df, float* out, int P, int B,
                          int var_te, int use_inv, int use_df, int demod,
-                         int exp2, int block, int device, void* stream) {
+                         int block, int device, void* stream) {
     BssfpArgs a{fa, phi, tr, te, te0, ti, t1, t2, b1, df, out, P, B,
                 var_te, use_inv, use_df, demod};
     const cudaError_t e = cudaSetDevice(device);
@@ -206,11 +198,6 @@ extern "C" int epg_bssfp(const float* fa, const float* phi, const float* tr,
     if (block != kBlock || P < 1 || B < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     const int grid = (B + block - 1) / block;
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (exp2) {
-        bssfp_kernel<true><<<grid, block, 0, st>>>(a);
-    } else {
-        bssfp_kernel<false><<<grid, block, 0, st>>>(a);
-    }
+    bssfp_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a);
     return static_cast<int>(cudaGetLastError());
 }

@@ -22,9 +22,8 @@ the phase is linear in df).
 
 The primal kernel takes the atom-independent terms of each chunk of
 BSSFP_PULSES pulses from a shared table, its angles in half turns
-(``sincospif``; the twin's :func:`planes.sincospi`) and, with ``EXP2``,
-its decays as exp2 of the time times the atom's -log2(e) / T; its twin
-computes the same.
+(``sincospif``; the twin's :func:`planes.sincospi`) and its decays as exp2
+of the time times the atom's -log2(e) / T; its twin computes the same.
 
 ``*_cuda`` takes the kernel for CUDA tensors (and raises on what it does
 not take: no fallback) and the plain twin for CPU tensors; the echo-layout
@@ -47,7 +46,7 @@ from .cuda_fisp import _finish, _jac_finish, _jac_views, _prepare, _takes_twin
 __all__ = ["bssfp_dictionary_cuda", "bssfp_dictionary_plain", "bssfp_echoes",
            "bssfp_echoes_plain", "bssfp_jacobian_cuda", "bssfp_jacobian_plain",
            "bssfp_jacobian_echoes", "bssfp_jacobian_echoes_plain",
-           "LAUNCHES", "JAC_LAUNCHES", "BLOCK", "BSSFP_PULSES", "EXP2"]
+           "LAUNCHES", "JAC_LAUNCHES", "BLOCK", "BSSFP_PULSES"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -57,9 +56,6 @@ JAC_LAUNCHES = 0
 BLOCK = 128
 #: pulses per chunk of the primal kernel's table (bssfp.cu's kMaxPulses)
 BSSFP_PULSES = 32
-#: the primal kernel's (and its twin's) decays: exp2 of the time times the
-#: atom's -log2(e) / T (no division per pulse), else exp(-t / T)
-EXP2 = True
 _LOG2E = math.log2(math.e)
 
 _TWO_PI = 2 * math.pi
@@ -117,33 +113,25 @@ def bssfp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
     T1, T2, B1, DF = x["T1"], x["T2"], x["B1"], x["df"]
     P, B = x["P"], x["B"]
     # angles in half turns, as the kernel's sincospif takes them; the
-    # decays by the atom's factors (bssfp.cu's decay)
+    # decays by exp2 of the atom's factors
     cp, sp, c2p, s2p = planes.phase_terms_pi(x["phi"] * (1.0 / 180.0))
     DF2 = None if DF is None else 2.0 * DF
-    if EXP2:
-        # as torch divides a number by a tensor: reciprocal, then product
-        k1 = torch.reciprocal(T1) * -_LOG2E
-        k2 = torch.reciprocal(T2) * -_LOG2E
-
-        def decay(t, T, k):
-            return torch.exp2(k * t)
-    else:
-        k1 = k2 = None
-
-        def decay(t, T, k):
-            return torch.exp(-t / T)
+    # -log2(e) / T as torch divides a number by a tensor: the reciprocal,
+    # then the product
+    k1 = torch.reciprocal(T1) * -_LOG2E
+    k2 = torch.reciprocal(T2) * -_LOG2E
 
     def te_terms(te):
-        return decay(te, T2, k2), (None if DF2 is None
-                                   else planes.sincospi(DF2 * te))
+        return torch.exp2(k2 * te), (None if DF2 is None
+                                     else planes.sincospi(DF2 * te))
 
     FR, FI, Z = torch.zeros_like(T1), torch.zeros_like(T1), torch.ones_like(T1)
     if x["TI"] is not None:
         # the 180*B1 inversion (B1 half turns), TI relaxation and precession
         TI = x["TI"]
         cai, sai = planes.sincospi(B1)
-        fpi = -sai * decay(TI, T2, k2)
-        E1i = decay(TI, T1, k1)
+        fpi = -sai * torch.exp2(k2 * TI)
+        E1i = torch.exp2(k1 * TI)
         Z = cai * E1i + 1.0 - E1i
         if DF2 is None:
             FI = fpi
@@ -171,8 +159,8 @@ def bssfp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
         out[1, i] = eI
         # full-TR relaxation and precession (no shift: the state stays
         # at k = 0)
-        cF = decay(TR[i], T2, k2)
-        cZ = decay(TR[i], T1, k1)
+        cF = torch.exp2(k2 * TR[i])
+        cZ = torch.exp2(k1 * TR[i])
         if DF2 is not None:
             pR, pI = planes.sincospi(DF2 * TR[i])
             FR, FI = cF * (nFR * pR - nFI * pI), cF * (nFI * pR + nFR * pI)
@@ -311,7 +299,8 @@ def _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, demodulate, inversion,
             ptr(x["T1"]), ptr(x["T2"]), ptr(x["B1"]), ptr(x["df"]),
             ptr(out), P, B, int(var_te), int(x["TI"] is not None),
             int(x["df"] is not None), int(bool(demodulate))]
-    args.append(int(bool(track_df)) if jac else int(bool(EXP2)))
+    if jac:
+        args.append(int(bool(track_df)))
     fn = lib.epg_bssfp_jac if jac else lib.epg_bssfp
     rc = fn(*args, BLOCK,
             T1s.device.index if T1s.device.index is not None

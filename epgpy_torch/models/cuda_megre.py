@@ -92,9 +92,9 @@ def megre_rows(nstate) -> int:
     return -(-H // -(-H // MEGRE_MAX_ROWS))
 
 
-def megre_geometry(nstate, m, R=None):
+def megre_geometry(nstate, m):
     """Launch geometry of the primal kernel (``megre.cu``) for m echoes per
-    TR at :func:`megre_rows` rows per lane (or the given R): dict(R, W, L)
+    TR at :func:`megre_rows` rows per lane: dict(R, W, L)
     (lane r of a segment of W lanes owns rows r R + c, c < R; L ladders
     per warp), ``one`` (the ladder is the one lane's R rows: the instance
     of its length), ``warps`` per block (MEGRE_WARPS), ``atoms`` per block
@@ -103,13 +103,13 @@ def megre_geometry(nstate, m, R=None):
     MEGRE_CHUNK_FLOATS beside the table; otherwise, and on one lane, where
     consecutive lanes are consecutive atoms, they are stored directly),
     ``pulses`` (TRs per chunk: MEGRE_TRS, fewer while the staged echoes do
-    not fit), ``held`` (the echo factors stay in registers: m <=
-    MEGRE_HELD_ECHOES, else they are recomputed each TR) and ``smem``, the
-    block's shared bytes.  Any m >= 1 has a geometry.  The wrapper passes
-    R, warps, pulses and stage to the kernel, which checks them."""
+    not fit) and ``smem``, the block's shared bytes.  Any m >= 1 has a
+    geometry (the kernel holds up to MEGRE_HELD_ECHOES echo factors in
+    registers and recomputes more each TR).  The wrapper passes R, warps,
+    pulses and stage to the kernel, which checks them."""
     H = max(int(nstate), 1) + 1
     m = int(m)
-    R = megre_rows(nstate) if R is None else int(R)
+    R = megre_rows(nstate)
     W = -(-H // R)
     L = 32 // W
     warps = MEGRE_WARPS
@@ -120,8 +120,7 @@ def megre_geometry(nstate, m, R=None):
         per = MEGRE_TABLE
     pulses = min(MEGRE_TRS, MEGRE_CHUNK_FLOATS // per)
     return dict(R=R, W=W, L=L, one=W == 1, warps=warps, atoms=A,
-                stage=stage, pulses=pulses, held=m <= MEGRE_HELD_ECHOES,
-                smem=4 * pulses * per)
+                stage=stage, pulses=pulses, smem=4 * pulses * per)
 
 
 def megre_jac_kernel_fits(nstate, m=None) -> bool:

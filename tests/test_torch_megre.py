@@ -461,9 +461,8 @@ def test_primal_launch_geometry(m):
     11); 4 warps per block; the echoes stored directly on one lane, staged
     on more while one TR's echoes of the block fit beside the table (else
     stored); 32 TRs per chunk, fewer only while staged echoes need it; the
-    block's table and staged echoes within 48 KB; the factors held in
-    registers up to 4 echoes; and a grid whose slots store each of 1, 2,
-    3, 33 and 4,097 atoms exactly once."""
+    block's table and staged echoes within 48 KB; and a grid whose slots
+    store each of 1, 2, 3, 33 and 4,097 atoms exactly once."""
     for n in range(0, 302):
         geo = cuda_megre.megre_geometry(n, m)
         H = max(n, 1) + 1
@@ -483,7 +482,6 @@ def test_primal_launch_geometry(m):
         assert (geo["pulses"] == cuda_megre.MEGRE_TRS
                 or (geo["pulses"] + 1) * per > cuda_megre.MEGRE_CHUNK_FLOATS)
         assert geo["smem"] == 4 * geo["pulses"] * per <= 48 * 1024
-        assert geo["held"] == (m <= cuda_megre.MEGRE_HELD_ECHOES)
         if n in (1, 8, 12, 301):
             for B in (1, 2, 3, 33, 4097):
                 owned, grid = seg_owned_atoms(geo, B)

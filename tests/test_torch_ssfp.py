@@ -107,16 +107,14 @@ _EDGES = [c for c in BSSFP_EDGE_CASES if not c.get("big_df")]
 _BIG_DF = [c for c in BSSFP_EDGE_CASES if c.get("big_df")]
 
 
-@pytest.mark.parametrize("exp2", [True, False])
 @pytest.mark.parametrize("case", _EDGES + BSSFP_CASES[-1:],
                          ids=lambda c: c["name"])
-def test_bssfp_edge_twin_matches_jax_kernel(monkeypatch, case, exp2):
-    """The primal twin, with the kernel's decays by exp2 of per-atom
-    factors and by exp(-t / T) alike (cuda_bssfp.EXP2), vs the JAX kernel
-    in interpret mode on the card's primal edge cases (TR and TE runs
-    across the 32-pulse chunks, inversion with and without df) and the
-    case with every option, 8 atoms x 80 pulses: 1e-5 absolute."""
-    monkeypatch.setattr(cuda_bssfp, "EXP2", exp2)
+def test_bssfp_edge_twin_matches_jax_kernel(case):
+    """The primal twin (the kernel's half-turn angles and exp2 decays of
+    per-atom factors) vs the JAX kernel in interpret mode on the card's
+    primal edge cases (TR and TE runs across the 32-pulse chunks,
+    inversion with and without df) and the case with every option, 8
+    atoms x 80 pulses: 1e-5 absolute."""
     args, kw = make_bssfp_case(case, B, 80)
     jre, jim = pallas_bssfp.bssfp_dictionary_pallas(*args, interpret=True,
                                                     **kw)
@@ -159,17 +157,16 @@ def test_sincospi_exact_at_large_arguments():
     assert float((naive.double() - torch.cos(np.pi * r)).abs().max()) > 1e-3
 
 
-def test_bssfp_primal_always_admitted():
-    """bSSFP keeps no gate (three floats per atom in registers): the
-    engine's family table admits every matched train, and the primal
-    kernel's table needs no more than its 32-pulse chunk."""
-    import inspect
-
-    from epgpy_torch import engine
-
-    src = inspect.getsource(engine)
-    assert "(fd.match_bssfp, lambda p: True, fd.run_bssfp_kernel" in src
-    assert cuda_bssfp.BSSFP_PULSES == 32 and cuda_bssfp.BLOCK == 128
+@pytest.mark.parametrize("max_nstate", [0, 301, 302, 5000])
+def test_bssfp_primal_always_admitted(port_f64, max_nstate):
+    """bSSFP keeps no gate (three floats per atom in registers, whatever
+    the ladder cap): a matched train is dispatched at any max_nstate, the
+    FISP-family gate's edge 301 / 302 included."""
+    seq, golden = _golden_train(tepg)
+    before = tfd.DISPATCH_COUNTS.get("bssfp", 0)
+    got = tepg.simulate(seq, fisp_kernel="force", max_nstate=max_nstate)
+    assert tfd.DISPATCH_COUNTS.get("bssfp", 0) == before + 1
+    assert np.abs(got - golden).max() < 1e-10
 
 
 # -- float64 paths vs the golden --

@@ -66,9 +66,8 @@ after one warm-up, ``chip_smoke._cuda_ms``) at the main-path shapes:
   drawn per TR); ``bssfp``: the bench's IR-prepped bSSFP train, 163,840
   atoms x 500 pulses (``chip_smoke.bssfp_atoms`` /
   ``bssfp_bench_sequence`` through ``fisp_dispatch.match_bssfp``, as
-  ``phase_bssfp_path``: TR varies every pulse), and ``bssfp_expf`` the
-  same with the decays by expf (``cuda_bssfp.EXP2`` off, where the
-  checkout has it): the wrapper calls and the kernel alone.
+  ``phase_bssfp_path``: TR varies every pulse): the wrapper calls and
+  the kernel alone.
 
 ``--kernels`` times only the named ones (default: all).  ``--fits`` also
 runs, twice per turn, the end-to-end fits and calls that take the chosen
@@ -478,8 +477,8 @@ def _xprimal(reps, kernels, fits, out, rows, nstates=()):
 def _ssfp_primal(reps, kernels, fits, out, rows, nstates=()):
     """The primal ME-GRE and bSSFP kernels' times into `out`: ``megre``
     (the bench's train; at each ladder depth of `nstates` too) and
-    ``megre_var`` (TR and phase per TR), ``bssfp`` and ``bssfp_expf``
-    (the bench's train) at the committed geometry, then ``megre`` at each
+    ``megre_var`` (TR and phase per TR), ``bssfp`` (the bench's train) at
+    the committed geometry, then ``megre`` at each
     of `rows` rows per lane where the checkout's kernel is segmented; with
     `fits`, the memoized ``simulate()`` of both trains, the T2/B0 mapping
     and the bSSFP MRF serving."""
@@ -526,12 +525,6 @@ def _ssfp_primal(reps, kernels, fits, out, rows, nstates=()):
                                                          reps)
 
     time_all("", list(calls))
-    if "bssfp" in want and hasattr(cuda_bssfp, "EXP2"):
-        try:
-            cuda_bssfp.EXP2 = False
-            time_all("_expf", ["bssfp"])
-        finally:
-            cuda_bssfp.EXP2 = True
     if rows and "megre" in want and hasattr(cuda_megre, "megre_rows"):
         rows_of = cuda_megre.megre_rows
         keys = [k for k in calls if k.startswith("megre")
