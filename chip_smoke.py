@@ -36,7 +36,7 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    refined T1 and T2 RMSE must beat the match-only RMSE;
 3c. the per-pulse Hessian kernel against its plain twin over every
    option (4-op/5-op form, inversion, second order, nstate 6/10, phi
-   90/30) at 50 TRs x 64 atoms, per output block, and its pulse > echo
+   90/30) at 30 TRs x 64 atoms, per output block, and its pulse > echo
    entries exactly zero;
 4c. the flagship Hessian through ``simulate()``: the 400-TR train
    [T(a_i, 90), E(tau_i, T1, T2), ADC, S(1)] with alpha/tau aliases over
@@ -304,9 +304,11 @@ DWF_JAC_N, DWF_TWIN_ATOMS = 200, 8192
 #: (3g) and the ME-GRE option cases (3i, TRs): the kernels' own loops are
 #: depth-independent, the twins' Python loops are not (cut from 250, 100,
 #: 1000, 500 and 200 to hold the script's time as the EPG-X primal edges
-#: came in, and from 120, 500, 200 and 100 as the ME-GRE and bSSFP primal
-#: edges did)
-JAC_CASE_N, HESS_CASE_N, CASE_NPULSE = 80, 50, 300
+#: came in, and from 120, 50, 500, 200 and 100 as the ME-GRE and bSSFP
+#: primal edges did); the Hessian edges keep 50 TRs at least
+#: (HESS_EDGE_N)
+JAC_CASE_N, HESS_CASE_N, CASE_NPULSE = 80, 30, 300
+HESS_EDGE_N = 50
 SSFP_CASE_N, MEGRE_CASE_N = 120, 60
 
 #: cardiac MRF (examples/cardiac_mrf_t1t2.py as published, Hamilton 2017):
@@ -2381,7 +2383,7 @@ def phase_hess_cases(torch, natoms=64):
 
     runs = [("options", case, natoms, HESS_CASE_N) for case in HESS_CASES]
     runs += [("edges", case, HESS_EDGE_ATOMS,
-              max(HESS_CASE_N, case["nstate"] + 10))
+              max(HESS_EDGE_N, case["nstate"] + 10))
              for case in HESS_EDGE_CASES]
     runs += [("shapes", dict(name=f"ragged_n{ns}", nstate=ns, te=te,
                              inversion=inv), n, p) for n, p in HESS_SHAPES

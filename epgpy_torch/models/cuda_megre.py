@@ -218,15 +218,14 @@ def megre_echoes_plain(FA, phi, TR, TEs, T1s, T2s, B1s, dfs=None, *,
         ca, sa = planes.sincospi(FA[i] * B1 * (1.0 / 180.0))
         rc = planes.rot_coeffs_sc(sa, ca, cp[i], sp[i], c2p[i], s2p[i])
         R = planes.apply_rot(rc, s)
-        # m echoes from the rotated k = 0 row, each times its echo factor
-        # e^{-te/T2} e^{i 2 pi df te}
-        for j in range(m):
-            f = _echo_factor(TE[j, i], T2, DF2)
-            eR, eI = _fmul(f, R[0][0], R[1][0])
-            if demodulate:
-                eR, eI = eR * cp[i] + eI * sp[i], eI * cp[i] - eR * sp[i]
-            out[0, i * m + j] = eR
-            out[1, i * m + j] = eI
+        # the m echoes from the rotated k = 0 row at once, (m, B): each
+        # times its echo factor e^{-te/T2} e^{i 2 pi df te}
+        f = _echo_factor(TE[:, i, None], T2, DF2)
+        eR, eI = _fmul(f, R[0][0], R[1][0])
+        if demodulate:
+            eR, eI = eR * cp[i] + eI * sp[i], eI * cp[i] - eR * sp[i]
+        out[0, i * m:(i + 1) * m] = eR
+        out[1, i * m:(i + 1) * m] = eI
         cZ, cF = _relax_terms(TR[i], T1, T2, DF2)
         nZR = cZ * R[4]
         nZR[0] = nZR[0] + (1.0 - cZ)
