@@ -240,7 +240,7 @@ def test_half_row_edges_cover_every_change():
 
 def test_fisp_gates_unchanged():
     """kernel_fits (the FISP dictionary's gate, also DESS's, ME-GRE's and
-    DW-FISP's) and block_size (dess.cu and megre.cu launch with it) over
+    DW-FISP's) and block_size (dess.cu launches with it) over
     nstate 0-400 answer as the thread-per-atom layout set them: fits up to
     nstate 301; 128 threads to nstate 74, 64 to 150, 32 above."""
     for n in range(401):
