@@ -90,8 +90,8 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    twins over every option (m = 2 and 3, df, demodulation, a per-pulse
    echo-time matrix, a B1 batch, the df group at dfs=None); the primal
    kernel also on both sides of every change of its instance or rows per
-   lane up to the gate's nstate 301, at 1-1,000 echoes (past its
-   registers and its staging area), over TR and echo-time runs across
+   lane up to the gate's nstate 301, at 1-1,000 echoes (past the echo
+   factors it holds in registers), over TR and echo-time runs across
    its chunks, ragged shapes and chunk edges, each launched twice for the
    same bits;
 3j. the full-ladder FISP kernel against its twin at nstate 0, 10 and 150,
@@ -601,11 +601,10 @@ MEGRE_EDGE_ATOMS, MEGRE_EDGE_PULSES = 1000, 10
 #: the primal ME-GRE kernel's echo counts and train shapes, each (case,
 #: atoms, TRs): m = 400 at nstate 1 and m = 1,000 at nstate 8 on one lane
 #: (factors recomputed each TR), m = 4 (the most held in registers) and 5,
-#: m = 400 at nstate 12 (two lanes, past the staging area: stored
-#: directly) and m = 1 at 12; TR and echo-time runs ending mid-chunk and
-#: at chunk boundaries; the ragged shapes of 1, 33 and 4,097 atoms, 1 and
-#: 2 TRs and the chunk edges of 31-33 TRs, at nstate 8 (one lane) and 12
-#: (two lanes, 31 TRs per staged chunk)
+#: m = 400 and m = 1 at nstate 12 (two lanes); TR and echo-time runs
+#: ending mid-chunk and at chunk boundaries; the ragged shapes of 1, 33
+#: and 4,097 atoms, 1 and 2 TRs and the chunk edges of 31-33 TRs, at
+#: nstate 8 (one lane) and 12 (two lanes)
 _MEGRE_ALL = dict(df=True, demodulate=True, var_te=True, b1=True)
 MEGRE_PRIMAL_CASES = [
     (dict(name="m400_n1", m=400, nstate=1, df=True, demodulate=True), 33,
@@ -1361,14 +1360,22 @@ def count_ops(torch, fn):
     elementwise arithmetic call counts its output's elements (a fused
     multiply-add twice), a reduction its input's; copies, views and
     indexing count nothing.  A plain twin repeats its kernel's
-    expressions, so on a twin this counts the kernel's arithmetic."""
+    expressions, so on a twin this counts the kernel's arithmetic.  The
+    twins' ``planes.sincospi`` counts as one cosine and one sine: its
+    reduction of the half turns to [-1, 1] and their product with pi
+    mirror how sincospif rounds, not work of the function."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
+    from epgpy_torch.models import planes
+
     total = [0]
+    counting = [True]
 
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
+            if not counting[0]:
+                return out
             name = func.overloadpacket.__name__.rstrip("_")
             if name in _ARITH or name in _FUSED:
                 n = out.numel() if isinstance(out, torch.Tensor) else 1
@@ -1377,8 +1384,21 @@ def count_ops(torch, fn):
                 total[0] += args[0].numel()
             return out
 
-    with Count():
-        fn()
+    def sincospi(x):
+        counting[0] = False
+        try:
+            a = math.pi * (x - 2.0 * torch.round(x * 0.5))
+        finally:
+            counting[0] = True
+        return torch.cos(a), torch.sin(a)
+
+    kept = planes.sincospi
+    planes.sincospi = sincospi
+    try:
+        with Count():
+            fn()
+    finally:
+        planes.sincospi = kept
     return total[0]
 
 
@@ -4122,8 +4142,8 @@ def phase_megre_cases(torch, natoms=4096):
         geo = cuda_megre.megre_geometry(kw["nstate"], case["m"])
         print(f"[megre-cases] primal {case['name']:17s} B={n:5d} "
               f"P={npulse:3d} m={case['m']:4d} (R {geo['R']} on "
-              f"{geo['W']} lanes, {'staged' if geo['stage'] else 'stored'}, "
-              f"{geo['pulses']} TRs per chunk) max|kernel - plain| = "
+              f"{geo['W']} lanes, {geo['pulses']} TRs per chunk) "
+              f"max|kernel - plain| = "
               f"{delta:.3e}; second launch "
               f"{'bit-equal' if same else 'DIFFERS'}")
         if not _finite(torch, k) or not delta <= TOL_KERNEL or not same:

@@ -35,12 +35,12 @@
 // consecutive lanes hold consecutive atoms, so each echo is stored
 // directly, coalesced along atoms.  Deeper ladders take the instance of
 // R, whose shift (epg::seg_shift_blocked) moves rows within a lane by
-// register and one row of A and of B per lane by a shuffle; there the
-// row-0 lane stages the chunk's echoes in shared memory and the block
-// writes them out as runs of consecutive atoms (epg::flush_stage), with
-// a barrier before the next chunk's table -- or, where one TR's echoes of
-// the block pass the staging area (hundreds of echoes), stores them
-// directly: no echo count is refused.  The atom-independent terms of a
+// register and one row of A and of B per lane by a shuffle.  The row-0
+// lane of a ladder stores its echoes directly on every instance (a warp
+// stores 32 / W consecutive atoms at once; this timed faster than
+// staging a chunk's echoes in shared memory at 2 to 26 lanes per
+// ladder), so the echoes take no shared memory and no echo count is
+// refused.  The atom-independent terms of a
 // chunk of up to 32 TRs -- the RF phase's cos/sin of phi and 2 phi, the
 // flip, TR and whether TR and the m echo times repeat the previous TR's
 // -- sit in a table the block fills between two barriers; the echo times
@@ -63,17 +63,18 @@
 
 namespace {
 
-// warps per block at most, TRs per chunk at most, floats of one chunk's
-// table and staged echoes (48 KB), table floats per TR, rows per lane at
-// most, echoes whose factors a lane holds in registers; mirrored by
-// cuda_megre.MEGRE_WARPS, MEGRE_TRS, MEGRE_CHUNK_FLOATS, MEGRE_TABLE,
-// MEGRE_MAX_ROWS and MEGRE_HELD_ECHOES
+// warps per block at most, TRs per chunk, table floats per TR, rows per
+// lane at most, echoes whose factors a lane holds in registers; mirrored
+// by cuda_megre.MEGRE_WARPS, MEGRE_TRS, MEGRE_TABLE, MEGRE_MAX_ROWS and
+// MEGRE_HELD_ECHOES
 constexpr int kMaxWarps = 4;
 constexpr int kMaxTRs = 32;
-constexpr int kChunkFloats = 12288;
 constexpr int kTab = 8;
 constexpr int kMaxRows = 12;
 constexpr int kHeldEchoes = 4;
+// the fewest rows per lane of a ladder across lanes: H > (W - 1) kMaxRows
+// rows on W = ceil(H / R) lanes give R > kMaxRows (W - 1) / W >= 6
+constexpr int kMinSplitRows = kMaxRows / 2 + 1;
 
 struct MegreArgs {
     const float* fa;    // (P,) flip angles, degrees
@@ -87,8 +88,6 @@ struct MegreArgs {
     float* out;         // (2, m P, B): re, im; row i m + j
     int P, B, H, m;
     int use_df, demod;
-    int T;              // TRs per chunk
-    int stage;          // stage the echoes in shared memory (else store)
 };
 
 // An atom's relaxation terms over a TR: the F decay with its df phasor,
@@ -131,16 +130,13 @@ __device__ __forceinline__ void echo_factor(float te, float T2, float DF2,
 
 // The train on the lane's rows: R rows per lane of a ladder of p.H rows
 // (HS = 0) or a ladder of a static HS rows on one lane; DFM: the
-// off-resonance terms off (0), on (1) or as p.use_df says (2).  smem: the
-// chunk's table (2 float4 per TR: cos phi, sin phi, cos 2phi, sin 2phi;
-// fa, TR, TR repeats, echo times repeat), then (p.stage) the staged
-// echoes (2, T m, A) of the block's A atoms.
+// off-resonance terms off (0), on (1) or as p.use_df says (2).  tab: the
+// chunk's table, 2 float4 per TR: cos phi, sin phi, cos 2phi, sin 2phi;
+// fa, TR, TR repeats, echo times repeat.
 template <int R, int HS, int DFM>
-__device__ __forceinline__ void megre_run(const MegreArgs& p, float4* smem) {
+__device__ __forceinline__ void megre_run(const MegreArgs& p, float4* tab) {
     constexpr int NR = HS > 0 ? HS : R;   // rows a lane steps
-    const int T = p.T;
-    float4* const tab = smem;
-    float* const stage = reinterpret_cast<float*>(smem + 2 * T);
+    constexpr int T = kMaxTRs;
     const int H = HS > 0 ? HS : p.H;
     const int W = HS > 0 ? 1 : (H + R - 1) / R;   // lanes per ladder
     const int L = epg::kWarp / W;
@@ -157,7 +153,6 @@ __device__ __forceinline__ void megre_run(const MegreArgs& p, float4* smem) {
     const bool cdf = DFM == 2 ? p.use_df != 0 : DFM == 1;
     const int m = p.m;
     const bool held = m <= kHeldEchoes;
-    const int TM = T * m;   // staged rows per output plane
 
     const float T1 = p.t1[b];
     const float T2 = p.t2[b];
@@ -214,8 +209,8 @@ __device__ __forceinline__ void megre_run(const MegreArgs& p, float4* smem) {
             }
             const epg::Rot r =
                 epg::rot_coeffs_sc(sa, ca, ph.x, ph.y, ph.z, ph.w);
-            // echo j of the rotated k = 0 row: stored, staged or (the
-            // other lanes) dropped
+            // echo j of the rotated k = 0 row: stored by the writer, dropped
+            // by the other lanes
             const auto emit = [&](int j, float fR, float fI, float AR,
                                   float AI) {
                 float eR, eI;
@@ -231,16 +226,10 @@ __device__ __forceinline__ void megre_run(const MegreArgs& p, float4* smem) {
                     eR = dR;
                 }
                 if (!writer) return;
-                if (p.stage) {
-                    float* const e = stage + (t * m + j) * A + slot;
-                    e[0] = eR;
-                    e[static_cast<size_t>(TM) * A] = eI;
-                } else {
-                    const size_t o =
-                        (static_cast<size_t>(i) * m + j) * p.B + atom0 + slot;
-                    p.out[o] = eR;
-                    p.out[plane + o] = eI;
-                }
+                const size_t o =
+                    (static_cast<size_t>(i) * m + j) * p.B + atom0 + slot;
+                p.out[o] = eR;
+                p.out[plane + o] = eI;
             };
 #pragma unroll
             for (int c = 0; c < NR; ++c) {
@@ -279,12 +268,7 @@ __device__ __forceinline__ void megre_run(const MegreArgs& p, float4* smem) {
                 epg::seg_shift_blocked(q, s);
             }
         }
-        __syncthreads();   // the table (and the staged echoes) are done
-        if (p.stage) {
-            epg::flush_stage(stage, p.out, 2, TM, n * m, A, plane,
-                             static_cast<size_t>(i0) * m, p.B, atom0);
-            __syncthreads();   // the flush is done before the next chunk
-        }
+        __syncthreads();   // the table is done before the next chunk's
     }
 }
 
@@ -302,7 +286,7 @@ constexpr int kMinBlocks = HS == 0 && R >= 10 ? 3 : 4;
 template <int R, int HS>
 __global__ void __launch_bounds__(kMaxWarps* epg::kWarp, kMinBlocks<R, HS>)
     megre_kernel(const MegreArgs p) {
-    extern __shared__ float4 smem[];
+    __shared__ float4 smem[kTab / 4 * kMaxTRs];
     if constexpr (HS > 0) {
         if (p.use_df) {
             megre_run<R, HS, 1>(p, smem);
@@ -318,19 +302,15 @@ template <int R, int HS>
 int launch(const MegreArgs& a, int warps, cudaStream_t stream) {
     const int W = HS > 0 ? 1 : (a.H + R - 1) / R;
     const long long A = static_cast<long long>(warps) * (epg::kWarp / W);
-    const long long per = kTab + (a.stage ? 2LL * a.m * A : 0LL);
-    if (a.T * per > kChunkFloats)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = sizeof(float) * static_cast<size_t>(a.T * per);
     const int grid = static_cast<int>((a.B + A - 1) / A);
-    megre_kernel<R, HS><<<grid, warps * epg::kWarp, smem, stream>>>(a);
+    megre_kernel<R, HS><<<grid, warps * epg::kWarp, 0, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
 }
 
 // R rows per lane: a ladder of H = R rows takes the one-lane instance of
-// its length, any other H the instance of R (R = 3 .. kMaxRows; the
-// fewest lanes give a ladder longer than one lane holds R >= 7, the rows
-// sweeps take fewer).
+// its length, any other H the instance of R (R = kMinSplitRows ..
+// kMaxRows, the rows the fewest lanes give a ladder longer than one lane
+// holds).
 template <int R = 1>
 int launch_r(const MegreArgs& a, int rows, int warps, cudaStream_t st) {
     if constexpr (R > kMaxRows) {
@@ -340,7 +320,7 @@ int launch_r(const MegreArgs& a, int rows, int warps, cudaStream_t st) {
         if constexpr (R >= 2) {
             if (a.H == R) return launch<R, R>(a, warps, st);
         }
-        if constexpr (R >= 3) return launch<R, 0>(a, warps, st);
+        if constexpr (R >= kMinSplitRows) return launch<R, 0>(a, warps, st);
         return static_cast<int>(cudaErrorInvalidValue);
     }
 }
@@ -350,24 +330,21 @@ int launch_r(const MegreArgs& a, int rows, int warps, cudaStream_t st) {
 // Launch on `stream` of CUDA device `device`; allocates nothing.  Returns
 // the CUDA error code of the launch (0 on success; cudaErrorInvalidValue
 // for nstate < 1, m < 1, R without an instance (launch_r), W = ceil(H /
-// R) lanes beyond a warp, `block` outside 1..4 warps, `pulses` outside
-// 1..32 or a chunk past 48 KB); the caller raises on anything else.  `R`
-// rows per lane, `block` warps per block, `pulses` TRs per chunk and
-// `stage` (stage the echoes, else store them directly) come from
-// cuda_megre.megre_geometry.  `out` is (2, m P, B): re, then im.
+// R) lanes beyond a warp or `block` outside 1..4 warps); the caller
+// raises on anything else.  `R` rows per lane and `block` warps per block
+// come from cuda_megre.megre_geometry.  `out` is (2, m P, B): re, then
+// im.
 extern "C" int epg_megre(const float* fa, const float* phi, const float* tr,
                          const float* te, const float* t1, const float* t2,
                          const float* b1, const float* df, float* out, int P,
                          int B, int m, int nstate, int use_df, int demod,
-                         int R, int block, int pulses, int stage, int device,
-                         void* stream) {
+                         int R, int block, int device, void* stream) {
     MegreArgs a{fa, phi, tr, te, t1, t2, b1, df, out, P, B, nstate + 1, m,
-                use_df, demod, pulses, stage};
+                use_df, demod};
     const cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (block < 1 || block > kMaxWarps || a.H < 2 || m < 1 || R < 1
-        || (a.H + R - 1) / R > epg::kWarp || pulses < 1
-        || pulses > kMaxTRs)
+        || (a.H + R - 1) / R > epg::kWarp)
         return static_cast<int>(cudaErrorInvalidValue);
     return launch_r(a, R, block, static_cast<cudaStream_t>(stream));
 }

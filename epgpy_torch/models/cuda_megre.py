@@ -63,13 +63,12 @@ JAC_LAUNCHES = 0
 _DEG = math.pi / 180.0
 
 
-#: the primal kernel (megre.cu): warps per block, TRs per chunk at most,
-#: floats of one chunk's table and staged echoes (48 KB), table floats per
-#: TR, rows per lane at most, echoes whose factors a lane holds in
-#: registers -- the kernel's kMaxWarps, kMaxTRs, kChunkFloats, kTab,
-#: kMaxRows and kHeldEchoes
-(MEGRE_WARPS, MEGRE_TRS, MEGRE_CHUNK_FLOATS, MEGRE_TABLE, MEGRE_MAX_ROWS,
- MEGRE_HELD_ECHOES) = (4, 32, 12288, 8, 12, 4)
+#: the primal kernel (megre.cu): warps per block, TRs per chunk, table
+#: floats per TR, rows per lane at most, echoes whose factors a lane holds
+#: in registers -- the kernel's kMaxWarps, kMaxTRs, kTab, kMaxRows and
+#: kHeldEchoes
+(MEGRE_WARPS, MEGRE_TRS, MEGRE_TABLE, MEGRE_MAX_ROWS,
+ MEGRE_HELD_ECHOES) = (4, 32, 8, 12, 4)
 
 
 def megre_kernel_fits(nstate) -> bool:
@@ -98,29 +97,19 @@ def megre_geometry(nstate, m):
     (lane r of a segment of W lanes owns rows r R + c, c < R; L ladders
     per warp), ``one`` (the ladder is the one lane's R rows: the instance
     of its length), ``warps`` per block (MEGRE_WARPS), ``atoms`` per block
-    (warps x L), ``stage`` (a multi-lane ladder's row-0 lane stages the
-    chunk's echoes in shared memory while one TR's echoes of the block fit
-    MEGRE_CHUNK_FLOATS beside the table; otherwise, and on one lane, where
-    consecutive lanes are consecutive atoms, they are stored directly),
-    ``pulses`` (TRs per chunk: MEGRE_TRS, fewer while the staged echoes do
-    not fit) and ``smem``, the block's shared bytes.  Any m >= 1 has a
+    (warps x L), ``pulses`` (TRs per chunk, MEGRE_TRS) and ``smem``, the
+    block's shared bytes: the chunk's table alone, whatever m (each
+    ladder's row-0 lane stores its echoes directly).  Any m >= 1 has a
     geometry (the kernel holds up to MEGRE_HELD_ECHOES echo factors in
-    registers and recomputes more each TR).  The wrapper passes R, warps,
-    pulses and stage to the kernel, which checks them."""
+    registers and recomputes more each TR).  The wrapper passes R and
+    warps to the kernel, which checks them."""
     H = max(int(nstate), 1) + 1
-    m = int(m)
     R = megre_rows(nstate)
     W = -(-H // R)
     L = 32 // W
     warps = MEGRE_WARPS
-    A = warps * L
-    per = MEGRE_TABLE + 2 * m * A
-    stage = W > 1 and per <= MEGRE_CHUNK_FLOATS
-    if not stage:
-        per = MEGRE_TABLE
-    pulses = min(MEGRE_TRS, MEGRE_CHUNK_FLOATS // per)
-    return dict(R=R, W=W, L=L, one=W == 1, warps=warps, atoms=A,
-                stage=stage, pulses=pulses, smem=4 * pulses * per)
+    return dict(R=R, W=W, L=L, one=W == 1, warps=warps, atoms=warps * L,
+                pulses=MEGRE_TRS, smem=4 * MEGRE_TRS * MEGRE_TABLE)
 
 
 def megre_jac_kernel_fits(nstate, m=None) -> bool:
@@ -358,7 +347,7 @@ def _launch(FA, phi, TR, TEs, T1s, T2s, B1s, dfs, *, nstate, demodulate,
         extra = (geo["warps"],)
     else:
         geo = megre_geometry(nstate, m)
-        extra = (geo["R"], geo["warps"], geo["pulses"], int(geo["stage"]))
+        extra = (geo["R"], geo["warps"])
     out = torch.empty((10 if jac else 2, m * P, B), dtype=torch.float32,
                       device=T1s.device)
 

@@ -458,11 +458,11 @@ def test_primal_launch_geometry(m):
     """For every ladder the gate admits and m echoes per TR (1,000
     included): the fewest lanes with at most 12 rows each, R = ceil(H /
     W) (one lane, the instance of the ladder's own length, up to nstate
-    11); 4 warps per block; the echoes stored directly on one lane, staged
-    on more while one TR's echoes of the block fit beside the table (else
-    stored); 32 TRs per chunk, fewer only while staged echoes need it; the
-    block's table and staged echoes within 48 KB; and a grid whose slots
-    store each of 1, 2, 3, 33 and 4,097 atoms exactly once."""
+    11), at least 7 rows per lane across lanes (the kernel's least
+    instance there); 4 warps per block; 32 TRs per chunk; the block's
+    shared memory the chunk's table alone, whatever m (the echoes are
+    stored directly); and a grid whose slots store each of 1, 2, 3, 33 and
+    4,097 atoms exactly once."""
     for n in range(0, 302):
         geo = cuda_megre.megre_geometry(n, m)
         H = max(n, 1) + 1
@@ -473,15 +473,10 @@ def test_primal_launch_geometry(m):
         assert W * R >= H > (W - 1) * R and W <= 32 and L == 32 // W
         assert geo["warps"] == cuda_megre.MEGRE_WARPS
         assert geo["atoms"] == geo["warps"] * L
-        staged = 2 * m * geo["atoms"]
-        fits = cuda_megre.MEGRE_TABLE + staged <= cuda_megre.MEGRE_CHUNK_FLOATS
-        assert geo["stage"] == (W > 1 and fits)
-        per = cuda_megre.MEGRE_TABLE + (staged if geo["stage"] else 0)
-        assert 1 <= geo["pulses"] <= cuda_megre.MEGRE_TRS
-        assert geo["pulses"] * per <= cuda_megre.MEGRE_CHUNK_FLOATS
-        assert (geo["pulses"] == cuda_megre.MEGRE_TRS
-                or (geo["pulses"] + 1) * per > cuda_megre.MEGRE_CHUNK_FLOATS)
-        assert geo["smem"] == 4 * geo["pulses"] * per <= 48 * 1024
+        assert W == 1 or R >= cuda_megre.MEGRE_MAX_ROWS // 2 + 1
+        assert geo["pulses"] == cuda_megre.MEGRE_TRS
+        assert geo["smem"] == 4 * geo["pulses"] * cuda_megre.MEGRE_TABLE
+        assert geo["smem"] <= 48 * 1024
         if n in (1, 8, 12, 301):
             for B in (1, 2, 3, 33, 4097):
                 owned, grid = seg_owned_atoms(geo, B)

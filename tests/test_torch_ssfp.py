@@ -82,20 +82,30 @@ def test_bssfp_jacobian_twin_matches_jax_kernel(case):
 
 def test_echo_layout_and_launch_counters():
     """The echo-layout wrappers take the twins for CPU tensors and count no
-    kernel launch; the dictionary is the transposed echo train, the
-    Jacobian's signal the primal's to float32 rounding (2e-6: the primal
-    twin takes its kernel's half-turn angles and exp2 decays, the
-    Jacobian twin its own kernel's radians and exp)."""
+    kernel launch; the dictionary is the transposed echo train.  The
+    Jacobian's signal is the primal's recurrence: in float64, where the
+    primal twin's half-turn angles and exp2 decays and the Jacobian twin's
+    radians and exp agree to rounding, within 1e-12 of it; in float32
+    within 2e-6."""
     args, kw = _tensors(torch, *_inputs(BSSFP_CASES[-1]), "cpu")
     kw.pop("normalize")
     before = (cuda_bssfp.LAUNCHES, cuda_bssfp.JAC_LAUNCHES)
     re, im = cuda_bssfp.bssfp_echoes(*args, **kw)
     dre, dim = cuda_bssfp.bssfp_dictionary_cuda(*args, **kw)
-    (jre, _), (jd, _) = cuda_bssfp.bssfp_jacobian_echoes(*args, track_df=True,
-                                                         **kw)
+    (jre, jim), (jd, _) = cuda_bssfp.bssfp_jacobian_echoes(
+        *args, track_df=True, **kw)
     nre, nim = cuda_bssfp.bssfp_dictionary_cuda(*args, normalize=True, **kw)
+    args64 = tuple(a.double() if isinstance(a, torch.Tensor) else a
+                   for a in args)
+    re64, im64 = cuda_bssfp.bssfp_echoes(*args64, **kw)
+    (jre64, jim64), _ = cuda_bssfp.bssfp_jacobian_echoes(
+        *args64, track_df=True, **kw)
+    assert re64.dtype == jre64.dtype == torch.float64
     assert torch.equal(re, dre.T) and torch.equal(im, dim.T)
+    assert float((re64 - jre64).abs().max()) < 1e-12
+    assert float((im64 - jim64).abs().max()) < 1e-12
     assert torch.allclose(re, jre, rtol=0.0, atol=2e-6)
+    assert torch.allclose(im, jim, rtol=0.0, atol=2e-6)
     assert jd.shape == (NPULSE, B, 4)
     assert torch.allclose((nre ** 2 + nim ** 2).sum(-1), torch.ones(B))
     assert (cuda_bssfp.LAUNCHES, cuda_bssfp.JAC_LAUNCHES) == before

@@ -104,7 +104,9 @@ ladder depth N (keys ``xgre_nN``), at the committed rows and at each R.
 ``--rows`` also times ``megre`` at R rows per lane where the checkout's
 primal ME-GRE kernel is segmented (its ``megre_rows``), and ``--nstates``
 its bench train at each ladder depth N (keys ``megre_nN``), at the
-committed rows and at each R.
+committed rows and at each R the kernel has an instance for: a ladder of
+R rows on one lane, or R >= 7 across lanes (the rows ``megre_rows`` can
+give a ladder longer than one lane holds).
 
 Each turn prints one JSON line with its times and the kernels' ptxas lines
 (registers, stack frame) where it built them; the last lines give the
@@ -492,13 +494,14 @@ def _ssfp_primal(reps, kernels, fits, out, rows, nstates=()):
     want = [k for k in ("megre", "bssfp") if k in kernels]
     if not want:
         return
-    calls, sims = {}, {}
+    calls, sims, depth = {}, {}, {}
     if "megre" in want:
         FA, T1, T2, DF = cs.megre_atoms(cs.MEGRE_ATOMS)
         seq = cs.megre_sequence(epg, FA, T1, T2, DF)
         margs = cs._match_args(fisp_dispatch, fisp_dispatch.match_megre(seq))
         for key, ns in [("megre", cs.MEGRE_NSTATE)] + [
                 (f"megre_n{n}", n) for n in nstates]:
+            depth[key] = ns
             calls[key] = (lambda ns=ns: cuda_megre.megre_echoes(
                 *margs, nstate=ns), "epg_megre")
         vargs, vkw = cs._tensors(torch, *cs.make_megre_case(
@@ -532,7 +535,9 @@ def _ssfp_primal(reps, kernels, fits, out, rows, nstates=()):
         try:
             for r in rows:
                 cuda_megre.megre_rows = lambda n, r=r: r
-                time_all(f"_rows{r}", keys)
+                time_all(f"_rows{r}", [
+                    k for k in keys if r == max(depth[k], 1) + 1
+                    or r >= cuda_megre.MEGRE_MAX_ROWS // 2 + 1])
         finally:
             cuda_megre.megre_rows = rows_of
     if not fits:
