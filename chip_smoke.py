@@ -81,8 +81,10 @@ Phases (each raises on failure: a failure exits non-zero with no result):
 3g-3h. the bSSFP and DESS kernels against their twins over every option;
    the primal bSSFP kernel also over TR and TE runs across its 32-pulse
    chunks, inversion with and without df, a large df t (0.5 kHz over
-   1,000 ms TRs) and ragged shapes (1-4,097 atoms, 1-33 pulses), each
-   launched twice for the same bits;
+   1,000 ms TRs) and ragged shapes (1-4,097 atoms, 1-33 pulses), the
+   primal DESS kernel on both sides of every change of its instance or
+   rows per lane up to the gate's nstate 301 and over ragged shapes on
+   one and two lanes, each launched twice for the same bits;
 4g-4i. the bSSFP dictionary (163,840 x 500, golden, drift) and its (T1, T2,
    g) Jacobian, DESS (golden, 262,144-voxel mapping train, Jacobian)
    through ``simulate()``; 5f-5g. bSSFP MRF serving and DESS T1/T2 mapping;
@@ -96,6 +98,9 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    same bits;
 3j. the full-ladder FISP kernel against its twin at nstate 0, 10 and 150,
    against the folded kernel, and fisp_dictionary_cuda's nstate-0 route;
+   at nstate 0 and 1 also over TR and TE runs across its 32-pulse chunks
+   and ragged shapes (1-4,097 atoms, 1-33 pulses), each launched twice
+   for the same bits;
 4j. the bench's ME-GRE train (200 TRs x 3 echoes) over 262,144 atoms
    through ``simulate()``, 8 atoms against the float64 general path, the
    golden megre.npz train on the card;
@@ -300,16 +305,21 @@ DWF_TAU, DWF_D = 7.0, 1e-3
 DWF_KVALUE = 2.675e8 * 40e-3 * DWF_TAU * 1e-3
 DWF_JAC_N, DWF_TWIN_ATOMS = 200, 8192
 #: depth of the twin checks of phases 3b and 3c (pulses), of the FISP
-#: dictionary and full-ladder option cases (3, 3j), the bSSFP option cases
-#: (3g) and the ME-GRE option cases (3i, TRs): the kernels' own loops are
+#: dictionary option cases (3; 3j's full-ladder cases once), the bSSFP
+#: option cases (3g) and the ME-GRE option cases (3i, TRs): the kernels'
+#: own loops are
 #: depth-independent, the twins' Python loops are not (cut from 250, 100,
 #: 1000, 500 and 200 to hold the script's time as the EPG-X primal edges
 #: came in, and from 120, 50, 500, 200 and 100 as the ME-GRE and bSSFP
 #: primal edges did); the Hessian edges keep 50 TRs at least
-#: (HESS_EDGE_N)
+#: (HESS_EDGE_N); the full-ladder option cases (3j) and the DESS option
+#: cases (3h) cut from 300 and 200 to 150 and 100 as the DESS primal and
+#: full-ladder edges came in (150 pulses still reach the nstate-150 case's
+#: top row)
 JAC_CASE_N, HESS_CASE_N, CASE_NPULSE = 80, 30, 300
 HESS_EDGE_N = 50
 SSFP_CASE_N, MEGRE_CASE_N = 120, 60
+FULL_CASE_N, DESS_CASE_N = 150, 100
 
 #: cardiac MRF (examples/cardiac_mrf_t1t2.py as published, Hamilton 2017):
 #: heartbeats, readouts per beat, FISP TE and TR, R-R interval (ms), the
@@ -550,6 +560,31 @@ DESS_EDGE_CASES = [dict(name=f"edge_n{n}", nstate=n, var_te=True, b1=True,
                    for n in (1, 2, 64, 65, 74)]
 DESS_EDGE_SHAPE = (1000, 100)
 DESS_SHAPES = [(1, 33), (33, 33), (4097, 33), (33, 1), (33, 2)]
+#: nstates on both sides of every change of the primal DESS kernel's
+#: instance or rows per lane (cuda_dess.dess_rows: the one-lane instance of
+#: each length at nstate 1-11, R = 7 on two lanes from 12, ..., 12 rows on
+#: 11 lanes from 120) and the gate's deepest ladder, 301
+DESS_ROW_EDGES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16,
+                  17, 18, 19, 20, 21, 22, 23, 24, 26, 27, 29, 30, 32, 33,
+                  35, 36, 39, 40, 43, 44, 47, 48, 49, 50, 54, 55, 59, 60,
+                  65, 66, 71, 72, 76, 77, 83, 84, 87, 88, 95, 96, 98, 99,
+                  107, 108, 109, 110, 119, 120, 121, 301)
+#: the primal DESS kernel's edges (dess.cu), each held against its twin
+#: over DESS_PRIMAL_EDGE_ATOMS atoms and a train DESS_PRIMAL_EDGE_PULSES
+#: TRs longer than the ladder and launched twice (bit-equal): every nstate
+#: of DESS_ROW_EDGES, those on one lane (1-11) with df on and off, the rest
+#: alternating df, demodulation, a per-TR TE and TR / TE runs; then every
+#: option over the ragged shapes DESS_SHAPES at nstate 8 (one lane) and 12
+#: (two lanes)
+DESS_PRIMAL_EDGE_CASES = [
+    dict(name=f"rows_n{n}{'' if df else '_nodf'}", nstate=n, df=df,
+         demodulate=n % 2 == 0, var_te=n % 2 == 1, b1=True,
+         runs=n % 3 == 0)
+    for n in DESS_ROW_EDGES for df in ((True, False) if n <= 11
+                                       else (n % 4 != 0,))]
+DESS_PRIMAL_EDGE_ATOMS, DESS_PRIMAL_EDGE_PULSES = 1000, 11
+DESS_RAGGED_CASE = dict(name="ragged", var_te=True, b1=True, df=True,
+                        demodulate=True, runs=True)
 
 #: covering set of the ME-GRE kernels' options: m echoes, nstate, df,
 #: demodulation, a per-pulse (m, P) echo-time matrix, a B1 batch; the
@@ -723,6 +758,23 @@ FULL_CASES = [dict(c, nstate=n, name=f"{c['name']}_n{n}")
                              inversion_df=False),
                         dict(name="df_demod", df=True, demodulate=True)]
               for n in (0, NSTATE)]
+#: the full-ladder kernel's edges (fisp_full.cu), each held against its
+#: twin and launched twice (bit-equal), at nstate 0 (the k = 0 row in
+#: registers) and 1 (the rows in shared memory): TR and TE runs across the
+#: 32-pulse chunks over FULL_EDGE_SHAPE, and every option over the ragged
+#: shapes FULL_SHAPES: 1, 33 and 4,097 atoms (off the 128-thread block), 1,
+#: 2 and 33 pulses
+FULL_RAGGED_CASE = dict(name="ragged", runs=True, var_te=True,
+                        inversion=15.0, df=True, inversion_df=True,
+                        demodulate=True)
+FULL_EDGE_CASES = [dict(c, nstate=n, name=f"{c['name']}_n{n}")
+                   for c in [dict(name="runs", runs=True, df=True),
+                             dict(name="runs_var_te_inv", runs=True,
+                                  var_te=True, inversion=20.0, df=True,
+                                  inversion_df=False, demodulate=True)]
+                   for n in (0, 1)]
+FULL_EDGE_SHAPE = (1000, 100)
+FULL_SHAPES = [(1, 33), (33, 33), (4097, 33), (33, 1), (33, 2)]
 
 #: published peaks of one H100 SXM (NVIDIA's data sheet, 700 W): float32
 #: outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz) and HBM3
@@ -982,6 +1034,13 @@ def make_dess_case(case, natoms, npulse=200, seed=0):
     T2 = np.minimum(rng.uniform(35.0, 180.0, natoms), 0.6 * T1)
     B1 = rng.uniform(0.8, 1.2, natoms) if case.get("b1") else np.ones(natoms)
     df = rng.uniform(-0.03, 0.03, natoms) if case.get("df") else None
+    if case.get("runs"):
+        # TR (and TE) held over runs that span the primal kernel's 32-TR
+        # chunk boundary and end mid-chunk or at a boundary, then varying
+        # every TR
+        TRs = _held_runs(rng, TRs, (0, 20, 32, 40, 64, 70))
+        if case.get("var_te"):
+            TEs = _held_runs(rng, TEs, (0, 13, 32, 45, 64))
     kw = dict(nstate=case["nstate"], demodulate=case.get("demodulate", False))
     return (FA, phi, TRs, TEs, T1, T2, B1, df), kw
 
@@ -1821,11 +1880,12 @@ def phase_occupancy():
     kernels and the segmented FISP, ME-GRE, composite, EPG-X GRE, DESS and
     composite EPG-X Jacobian kernels, the Hessian kernel's two passes, the
     segmented CPMG, FISP dictionary, composite, EPG-X GRE, composite EPG-X
-    and ME-GRE primal kernels and the bSSFP primal kernel at their
-    main-path geometries (the primal ones with the waves of their grids);
-    the registers and stack of every xgre and composite EPG-X Jacobian
-    instance and every CPMG, FISP dictionary, composite, EPG-X GRE,
-    composite EPG-X and ME-GRE primal instance."""
+    and ME-GRE primal kernels, the bSSFP and DESS primal kernels and the
+    full-ladder kernel's two instances at their main-path geometries (the
+    primal ones with the waves of their grids); the registers and stack of
+    every xgre and composite EPG-X Jacobian instance and every CPMG, FISP
+    dictionary, composite, EPG-X GRE, composite EPG-X, ME-GRE and DESS
+    primal instance."""
     from epgpy_torch import _build
     from epgpy_torch.models import cuda_bssfp, cuda_composite, cuda_dess, \
         cuda_fisp, cuda_hessian, cuda_megre, cuda_mse, cuda_msedesign, \
@@ -1930,6 +1990,27 @@ def phase_occupancy():
     what = "bssfp"
     seg.append((what, "bssfp_kernelENS", geo))
     waves_of[what] = BSSFP_ATOMS
+    # the primal DESS kernel on the mapping train (one lane of nstate + 1
+    # rows) and at nstate 12 (two lanes); the full-ladder kernel's nstate-0
+    # instance (one thread per atom, the chunk's table) on the FISP
+    # headline and its deeper instance at NSTATE (the rows in shared
+    # memory)
+    for nst, n in ((DESS_NSTATE, DESS_NVOX), (12, None)):
+        geo = cuda_dess.dess_geometry(nst)
+        what = f"dess nstate {nst}"
+        seg.append((what, f"dess_kernelILi{geo['R']}ELi"
+                          f"{geo['R'] if geo['one'] else 0}EE", geo))
+        if n:
+            waves_of[what] = n
+    for nst in (0, NSTATE):
+        fg = cuda_fisp.full_geometry(nst)
+        geo = dict(R=1, W=1, L=32, warps=fg["threads"] // 32,
+                   atoms=fg["threads"], pulses=fg["pulses"], smem=fg["smem"])
+        what = f"fisp_full nstate {nst}"
+        seg.append((what, "fisp_full_k0E" if fg["one"] else
+                    "fisp_full_rowsE", geo))
+        if fg["one"]:
+            waves_of[what] = NATOMS
     for what, key, geo in seg:
         r, frame = of(key), of(key, stack)
         if r is None:
@@ -1965,7 +2046,8 @@ def phase_occupancy():
              "C, R, one lane"),
             ("xcomposite", r"xcomp_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)EE",
              "C, R, one lane, shared table"),
-            ("megre", r"megre_kernelILi(\d+)ELi(\d+)EE", "R, static rows")):
+            ("megre", r"megre_kernelILi(\d+)ELi(\d+)EE", "R, static rows"),
+            ("dess", r"dess_kernelILi(\d+)ELi(\d+)EE", "R, static rows")):
         inst = sorted((tuple(int(v) for v in m.groups()), r, stack.get(n))
                       for n, r in regs.items()
                       for m in [re.search(pattern, n)] if m)
@@ -3485,7 +3567,8 @@ def phase_ssfp_cases(torch, family, natoms=4096):
                       cuda_bssfp.bssfp_jacobian_plain,
                       dict(jkw, track_df=tdf), True) for tdf in (False, True)]
         else:
-            args, kw = _tensors(torch, *make_dess_case(case, natoms), DEVICE)
+            args, kw = _tensors(torch, *make_dess_case(case, natoms,
+                                                        DESS_CASE_N), DEVICE)
             runs = [(cuda_dess.dess_echoes, cuda_dess.dess_echoes_plain, kw,
                      False),
                     (cuda_dess.dess_jacobian_echoes,
@@ -3505,6 +3588,7 @@ def phase_ssfp_cases(torch, family, natoms=4096):
         worst_sig, worst_col = max(worst_sig, sig), max(worst_col, max(cols))
     if family == "bssfp":
         return max(worst_sig, bssfp_primal_edges(torch)), worst_col
+    worst_sig = max(worst_sig, dess_primal_edges(torch))
     # the segmented Jacobian kernel's edges and ragged shapes
     wall = dict(edges=0.0, shapes=0.0)
     runs = [("edges", case, *DESS_EDGE_SHAPE) for case in DESS_EDGE_CASES]
@@ -3521,6 +3605,37 @@ def phase_ssfp_cases(torch, family, natoms=4096):
     return worst_sig, worst_col
 
 
+def dess_primal_edges(torch):
+    """The primal DESS kernel's own edges vs its plain twin: every change
+    of instance or rows per lane up to the gate (DESS_PRIMAL_EDGE_CASES
+    over DESS_PRIMAL_EDGE_ATOMS atoms and nstate + 1 +
+    DESS_PRIMAL_EDGE_PULSES TRs) and every option over the ragged shapes
+    (DESS_SHAPES) at nstate 8 (one lane) and 12 (two lanes), each launched
+    twice (bit-equal); returns the worst |delta|."""
+    from epgpy_torch.models import cuda_dess
+
+    t0 = time.perf_counter()
+    runs = [(case, DESS_PRIMAL_EDGE_ATOMS,
+             case["nstate"] + 1 + DESS_PRIMAL_EDGE_PULSES)
+            for case in DESS_PRIMAL_EDGE_CASES]
+    runs += [(dict(DESS_RAGGED_CASE, nstate=ns, name=f"ragged_n{ns}"), n, p)
+             for ns in (DESS_NSTATE, 12) for n, p in DESS_SHAPES]
+    worst = 0.0
+    for case, n, npulse in runs:
+        args, kw = _tensors(torch, *make_dess_case(case, n, npulse), DEVICE)
+        geo = cuda_dess.dess_geometry(kw["nstate"])
+        worst = max(worst, primal_twice_vs_twin(
+            torch, "dess-cases", case["name"], cuda_dess, "LAUNCHES",
+            cuda_dess.dess_echoes, cuda_dess.dess_echoes_plain, args, kw, n,
+            npulse, f"nstate {kw['nstate']}, R {geo['R']} on {geo['W']} "
+            f"lanes"))
+    print(f"[dess-cases] primal edges: {len(runs)} runs, worst "
+          f"max|kernel - plain| = {worst:.3e} (limit {TOL_KERNEL})")
+    _print_wall("phase_ssfp_cases dess primal edges",
+                dict(edges=time.perf_counter() - t0))
+    return worst
+
+
 def bssfp_primal_edges(torch):
     """The primal bSSFP kernel's own edges vs its plain twin: the runs,
     inversion and large-df cases (BSSFP_EDGE_CASES at BSSFP_EDGE_SHAPE)
@@ -3535,25 +3650,10 @@ def bssfp_primal_edges(torch):
     for case, n, npulse in runs:
         args, kw = _tensors(torch, *make_bssfp_case(case, n, npulse), DEVICE)
         kw.pop("normalize")
-        before = cuda_bssfp.LAUNCHES
-        k = cuda_bssfp.bssfp_echoes(*args, **kw)
-        again = cuda_bssfp.bssfp_echoes(*args, **kw)
-        torch.cuda.synchronize()
-        if cuda_bssfp.LAUNCHES != before + 2:
-            raise AssertionError(f"bssfp edge {case['name']}: the kernel "
-                                 f"did not run")
-        same = all(torch.equal(a, b) for a, b in zip(k, again))
-        delta, _ = _pair_errors(torch, k, cuda_bssfp.bssfp_echoes_plain(
-            *args, **kw), False)
-        print(f"[bssfp-cases] primal {case['name']:14s} B={n:5d} "
-              f"P={npulse:3d} max|kernel - plain| = {delta:.3e}; second "
-              f"launch {'bit-equal' if same else 'DIFFERS'}")
-        if not _finite(torch, k) or not delta <= TOL_KERNEL or not same:
-            raise AssertionError(
-                f"bssfp primal edge {case['name']} (B={n}, P={npulse}): "
-                f"kernel vs plain twin {delta:.3e} over {TOL_KERNEL}, not "
-                f"finite, or a second launch differs")
-        worst = max(worst, delta)
+        worst = max(worst, primal_twice_vs_twin(
+            torch, "bssfp-cases", case["name"], cuda_bssfp, "LAUNCHES",
+            cuda_bssfp.bssfp_echoes, cuda_bssfp.bssfp_echoes_plain, args, kw,
+            n, npulse, "one thread per atom"))
     _print_wall("phase_ssfp_cases bssfp primal edges",
                 dict(edges=time.perf_counter() - t0))
     return worst
@@ -4129,29 +4229,12 @@ def phase_megre_cases(torch, natoms=4096):
     for case, n, npulse in runs:
         args, kw = _tensors(torch, *make_megre_case(case, n, npulse),
                             DEVICE)
-        before = cuda_megre.LAUNCHES
-        k = cuda_megre.megre_echoes(*args, **kw)
-        again = cuda_megre.megre_echoes(*args, **kw)
-        torch.cuda.synchronize()
-        if cuda_megre.LAUNCHES != before + 2:
-            raise AssertionError(f"megre edge {case['name']}: the kernel "
-                                 f"did not run")
-        same = all(torch.equal(a, b) for a, b in zip(k, again))
-        delta, _ = _pair_errors(torch, k, cuda_megre.megre_echoes_plain(
-            *args, **kw), False)
         geo = cuda_megre.megre_geometry(kw["nstate"], case["m"])
-        print(f"[megre-cases] primal {case['name']:17s} B={n:5d} "
-              f"P={npulse:3d} m={case['m']:4d} (R {geo['R']} on "
-              f"{geo['W']} lanes, {geo['pulses']} TRs per chunk) "
-              f"max|kernel - plain| = "
-              f"{delta:.3e}; second launch "
-              f"{'bit-equal' if same else 'DIFFERS'}")
-        if not _finite(torch, k) or not delta <= TOL_KERNEL or not same:
-            raise AssertionError(
-                f"megre primal edge {case['name']} (B={n}, P={npulse}): "
-                f"kernel vs plain twin {delta:.3e} over {TOL_KERNEL}, not "
-                f"finite, or a second launch differs")
-        primal = max(primal, delta)
+        primal = max(primal, primal_twice_vs_twin(
+            torch, "megre-cases", case["name"], cuda_megre, "LAUNCHES",
+            cuda_megre.megre_echoes, cuda_megre.megre_echoes_plain, args, kw,
+            n, npulse, f"nstate {kw['nstate']}, m {case['m']}, R "
+            f"{geo['R']} on {geo['W']} lanes"))
     print(f"[megre-cases] primal edges: {len(runs)} runs, worst "
           f"max|kernel - plain| = {primal:.3e} (limit {TOL_KERNEL})")
     _print_wall("phase_megre_cases primal edges",
@@ -4159,7 +4242,7 @@ def phase_megre_cases(torch, natoms=4096):
     return max(worst_sig, primal), worst_col
 
 
-def phase_full_cases(torch, natoms=4096, npulse=CASE_NPULSE):
+def phase_full_cases(torch, natoms=4096, npulse=FULL_CASE_N):
     """The full-ladder kernel vs its plain twin on the card over its option
     cases (nstate 0 and the FISP depth, plus one 150-deep ladder, the
     gate's largest), against the folded kernel at nstate >= 1, and the
@@ -4201,7 +4284,53 @@ def phase_full_cases(torch, natoms=4096, npulse=CASE_NPULSE):
     if cuda_fisp.FULL_LAUNCHES != before + 1 or not d0 <= TOL_KERNEL:
         raise AssertionError("fisp_dictionary_cuda(nstate=0) did not run "
                              "the full-ladder kernel or disagrees")
-    return max(worst, d0)
+    # the kernel's own edges at nstate 0 and 1: TR / TE runs across the
+    # chunks, then every option over the ragged shapes
+    t0 = time.perf_counter()
+    runs = [(case, *FULL_EDGE_SHAPE) for case in FULL_EDGE_CASES]
+    runs += [(dict(FULL_RAGGED_CASE, nstate=ns,
+                   name=f"ragged_n{ns}"), n, p)
+             for ns in (0, 1) for n, p in FULL_SHAPES]
+    edges = 0.0
+    for case, n, npulse in runs:
+        args, kw = _tensors(torch, *make_full_case(case, n, npulse), DEVICE)
+        geo = cuda_fisp.full_geometry(kw["nstate"])
+        edges = max(edges, primal_twice_vs_twin(
+            torch, "full-cases", case["name"], cuda_fisp, "FULL_LAUNCHES",
+            cuda_fisp.fisp_full_echoes, cuda_fisp.fisp_full_echoes_plain,
+            args, kw, n, npulse,
+            f"nstate {kw['nstate']}, {geo['threads']} threads"))
+    print(f"[full-cases] edges: {len(runs)} runs, worst max|kernel - "
+          f"plain| = {edges:.3e} (limit {TOL_KERNEL})")
+    _print_wall("phase_full_cases edges",
+                dict(edges=time.perf_counter() - t0))
+    return max(worst, d0, edges)
+
+
+def primal_twice_vs_twin(torch, tag, name, module, counter, kfn, pfn, args,
+                         kw, natoms, npulse, geometry):
+    """One primal edge: the wrapper `kfn` launched twice on the card
+    (module.<counter> must count both launches; the two results
+    bit-equal) and held against its plain twin `pfn` on the same tensors
+    at TOL_KERNEL; prints one line tagged `tag` and returns the
+    |delta|."""
+    before = getattr(module, counter)
+    k = kfn(*args, **kw)
+    again = kfn(*args, **kw)
+    torch.cuda.synchronize()
+    if getattr(module, counter) != before + 2:
+        raise AssertionError(f"{tag} edge {name}: the kernel did not run")
+    same = all(torch.equal(a, b) for a, b in zip(k, again))
+    delta, _ = _pair_errors(torch, k, pfn(*args, **kw), False)
+    print(f"[{tag}] primal {name:20s} B={natoms:5d} P={npulse:3d} "
+          f"({geometry}) max|kernel - plain| = {delta:.3e}; second launch "
+          f"{'bit-equal' if same else 'DIFFERS'}")
+    if not _finite(torch, k) or not delta <= TOL_KERNEL or not same:
+        raise AssertionError(
+            f"{tag} primal edge {name} (B={natoms}, P={npulse}): kernel vs "
+            f"plain twin {delta:.3e} over {TOL_KERNEL}, not finite, or a "
+            f"second launch differs")
+    return delta
 
 
 def megre_atoms(natoms):

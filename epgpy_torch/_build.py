@@ -46,7 +46,7 @@ _SIGNATURES = {
     + [_P],
     "epg_bssfp_jac": [_P, _P, _P, _P, _F, _F, _P, _P, _P, _P, _P] + [_I] * 9
     + [_P],
-    "epg_dess": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    "epg_dess": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "epg_dess_jac": [_P, _P, _P, _P, _F, _P, _P, _P, _P, _P] + [_I] * 10
     + [_P],
     "epg_megre": [_P] * 9 + [_I] * 9 + [_P],

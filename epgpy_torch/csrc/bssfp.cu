@@ -43,14 +43,10 @@
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-
 // threads per block, pulses per chunk at most; mirrored by
 // cuda_bssfp.BLOCK and BSSFP_PULSES
 constexpr int kBlock = 128;
-constexpr int kMaxPulses = 32;
-// table flags: TR, TE repeat the previous pulse's
-constexpr int kTrRepeats = 1, kTeRepeats = 2;
+constexpr int kMaxPulses = epg::kTabPulses;
 
 struct BssfpArgs {
     const float* fa;    // (P,) flip angles, degrees
@@ -79,67 +75,32 @@ __global__ void __launch_bounds__(kBlock) bssfp_kernel(const BssfpArgs p) {
     const bool cdf = p.use_df != 0;
     const float DF = cdf ? p.df[b] : 0.0f;
     const float DF2 = 2.0f * DF;   // the phasors' half turns per ms
-    // -log2(e) / T as the twin forms it: the reciprocal, then the product
-    const float k1 = (1.0f / T1) * -kLog2e;
-    const float k2 = (1.0f / T2) * -kLog2e;
+    const float k1 = epg::exp2_rate(T1);
+    const float k2 = epg::exp2_rate(T2);
 
+    // the inversion prep and TI precession, or equilibrium
     float FR = 0.0f, FI = 0.0f, Z = 1.0f;
-    if (p.use_inv) {
-        // 180*B1 pulse about phi = 0 (B1 half turns), then TI relaxation
-        // and precession
-        float sai, cai;
-        sincospif(B1, &sai, &cai);
-        const float E1i = exp2f(k1 * p.ti);
-        const float E2i = exp2f(k2 * p.ti);
-        const float fpi = -sai * E2i;
-        if (cdf) {
-            float si, ci;
-            sincospif(DF2 * p.ti, &si, &ci);
-            FR = -fpi * si;
-            FI = fpi * ci;
-        } else {
-            FI = fpi;
-        }
-        Z = cai * E1i + 1.0f - E1i;
-    }
+    if (p.use_inv) epg::inversion_exp2(B1, k1, k2, p.ti, DF2, cdf, FR, FI, Z);
 
     // the TE terms (hoisted when TE is constant) and the TR terms, kept
     // while the table says they repeat
     float e2te = 0.0f, pteR = 1.0f, pteI = 0.0f;
-    if (!p.var_te) {
-        e2te = exp2f(k2 * p.te0);
-        if (cdf) sincospif(DF2 * p.te0, &pteI, &pteR);
-    }
+    if (!p.var_te) epg::te_exp2(p.te0, k2, DF2, cdf, e2te, pteR, pteI);
     float cF = 0.0f, cZ = 0.0f, pR = 1.0f, pI = 0.0f;
     const size_t plane = static_cast<size_t>(p.P) * p.B;
 
     for (int i0 = 0; i0 < p.P; i0 += kMaxPulses) {
         const int n = min(kMaxPulses, p.P - i0);
-        for (int t = threadIdx.x; t < n; t += blockDim.x) {
-            const int i = i0 + t;
-            const float ph = p.phi[i] * (1.0f / 180.0f);
-            float sp, cp, s2p, c2p;
-            sincospif(ph, &sp, &cp);
-            sincospif(2.0f * ph, &s2p, &c2p);
-            const float tri = p.tr[i];
-            const float tei = p.var_te ? p.te[i] : p.te0;
-            int fl = 0;
-            if (i > 0 && tri == p.tr[i - 1]) fl |= kTrRepeats;
-            if (i > 0 && (!p.var_te || tei == p.te[i - 1])) fl |= kTeRepeats;
-            tab[2 * t] = make_float4(cp, sp, c2p, s2p);
-            tab[2 * t + 1] =
-                make_float4(p.fa[i], tri, tei, static_cast<float>(fl));
-        }
+        epg::fill_pulse_table(tab, i0, n, p.phi, p.fa, p.tr, p.te, p.te0,
+                              p.var_te != 0);
         __syncthreads();
 #pragma unroll 1
         for (int t = 0; t < n; ++t) {
             const float4 ph = tab[2 * t];       // cp, sp, c2p, s2p
             const float4 mv = tab[2 * t + 1];   // fa, TR, TE, flags
             const int fl = static_cast<int>(mv.w);
-            if (p.var_te && !(fl & kTeRepeats)) {
-                e2te = exp2f(k2 * mv.z);
-                if (cdf) sincospif(DF2 * mv.z, &pteI, &pteR);
-            }
+            if (p.var_te && !(fl & epg::kTeRepeats))
+                epg::te_exp2(mv.z, k2, DF2, cdf, e2te, pteR, pteI);
             float sa, ca;
             sincospif(mv.x * B1 * (1.0f / 180.0f), &sa, &ca);
             const epg::Rot r =
@@ -162,7 +123,7 @@ __global__ void __launch_bounds__(kBlock) bssfp_kernel(const BssfpArgs p) {
             }
 
             // full-TR relaxation (no shift: the state stays at k = 0)
-            if (!(fl & kTrRepeats)) {
+            if (!(fl & epg::kTrRepeats)) {
                 cF = exp2f(k2 * mv.y);
                 cZ = exp2f(k1 * mv.y);
                 if (cdf) sincospif(DF2 * mv.y, &pI, &pR);

@@ -53,13 +53,6 @@ __device__ __forceinline__ Rot rot_coeffs_sc(float sa, float ca, float cp,
     return r;
 }
 
-__device__ __forceinline__ Rot rot_coeffs(float a, float cp, float sp,
-                                          float c2p, float s2p) {
-    float sa, ca;
-    sincosf(a, &sa, &ca);
-    return rot_coeffs_sc(sa, ca, cp, sp, c2p, s2p);
-}
-
 // d/dB1 of rot_coeffs for a flip a = FA * B1 with da = d(a)/dB1 (the
 // FISP Jacobian's B1 tangent; _kernel_jac's dcos2, dm01 .. dm21, dca)
 __device__ __forceinline__ Rot rot_coeffs_db1(float sa, float ca, float da,
@@ -171,129 +164,13 @@ struct PlaneSet {
     }
 };
 
-__device__ __forceinline__ Row read_row(const PlaneSet& s, int k) {
-    return Row{s.at(0, k), s.at(1, k), s.at(2, k),
-               s.at(3, k), s.at(4, k), s.at(5, k)};
-}
-
-// The unit ladder shift of _shift_store, folded through k = 0 and done in
-// place as a row walk: A(k) <- A(k-1), A(0) <- B(1), B(k) <- B(k+1),
-// B(N) <- 0, Z unshifted.  The caller reads row k, computes its new
-// (unshifted) values and hands them to put(k, ...) for k = 0, 1, ..., H-1
-// in order; rows are written only after they have been read.  finish()
-// zero-fills B(N).
-struct FoldedShift {
-    PlaneSet s;
-    float carR, carI;  // new A(k-1), waiting for row k to be read
-
-    __device__ __forceinline__ void put(int k, float nAR, float nAI,
-                                        float nBR, float nBI, float nZR,
-                                        float nZI) {
-        s.at(4, k) = nZR;
-        s.at(5, k) = nZI;
-        if (k >= 1) {
-            s.at(0, k) = carR;
-            s.at(1, k) = carI;
-            s.at(2, k - 1) = nBR;
-            s.at(3, k - 1) = nBI;
-            if (k == 1) {
-                s.at(0, 0) = nBR;
-                s.at(1, 0) = nBI;
-            }
-        }
-        carR = nAR;
-        carI = nAI;
-    }
-
-    __device__ __forceinline__ void finish() {
-        s.at(2, s.H - 1) = 0.0f;
-        s.at(3, s.H - 1) = 0.0f;
-    }
-};
-
-// The unit ladder shift S(-1) of the composite kernels, folded through
-// k = 0 and done in place as a row walk (pallas_composite.py:184-194;
-// shift_down of planes.py): A(k) <- A(k+1), A(N) <- 0, B(k) <- B(k-1),
-// B(0) <- A(1), Z unshifted.  The mirror of FoldedShift, walked in the same
-// order (put(k, ...) for k = 0, 1, ..., H-1): it carries B up and writes A
-// one row down, so a row is written only after it has been read.  finish()
-// zero-fills A(N).  Needs H >= 2.
-struct DownShift {
-    PlaneSet s;
-    float carR, carI;  // new B(k-1), waiting for row k to be read
-
-    __device__ __forceinline__ void put(int k, float nAR, float nAI,
-                                        float nBR, float nBI, float nZR,
-                                        float nZI) {
-        s.at(4, k) = nZR;
-        s.at(5, k) = nZI;
-        if (k >= 1) {
-            s.at(0, k - 1) = nAR;
-            s.at(1, k - 1) = nAI;
-            s.at(2, k) = carR;
-            s.at(3, k) = carI;
-            if (k == 1) {
-                s.at(2, 0) = nAR;
-                s.at(3, 0) = nAI;
-            }
-        }
-        carR = nBR;
-        carI = nBI;
-    }
-
-    __device__ __forceinline__ void finish() {
-        s.at(0, s.H - 1) = 0.0f;
-        s.at(1, s.H - 1) = 0.0f;
-    }
-};
-
-// One stage's row walk of the composite kernels: the up shift (dir > 0),
-// the down shift (dir < 0) or none, where the new row k is written in
-// place.  dir is the same for every thread of the block (a per-stage
-// table entry), so the branches are uniform.
-struct StageShift {
-    int dir;
-    FoldedShift up;
-    DownShift down;
-
-    StageShift() = default;   // arrays of them (the EPG-X kernels)
-    __device__ __forceinline__ StageShift(const PlaneSet& s, int d)
-        : dir(d), up{s, 0.0f, 0.0f}, down{s, 0.0f, 0.0f} {}
-
-    __device__ __forceinline__ void put(int k, float nAR, float nAI,
-                                        float nBR, float nBI, float nZR,
-                                        float nZI) {
-        if (dir > 0) {
-            up.put(k, nAR, nAI, nBR, nBI, nZR, nZI);
-        } else if (dir < 0) {
-            down.put(k, nAR, nAI, nBR, nBI, nZR, nZI);
-        } else {
-            const PlaneSet& s = up.s;
-            s.at(0, k) = nAR;
-            s.at(1, k) = nAI;
-            s.at(2, k) = nBR;
-            s.at(3, k) = nBI;
-            s.at(4, k) = nZR;
-            s.at(5, k) = nZI;
-        }
-    }
-
-    __device__ __forceinline__ void finish() {
-        if (dir > 0) {
-            up.finish();
-        } else if (dir < 0) {
-            down.finish();
-        }
-    }
-};
-
 // The composite kernels' stage-closing diffusion attenuation of row k
 // (_datten of pallas_composite.py:41-66; stage_attenuation of planes.py)
 // for the stage's b-value base bt and ramp direction rd in {-1, 0, +1}:
 // A(k) was ramped (k - rd) -> k and B(k) = F+(-k) was ramped
-// -(k + rd) -> -k, so the rd k term changes sign between them (att_rows
-// below knows only rd = +1); Z does not ramp.  Computed per row at each
-// stage and never stored: bt changes from stage to stage.
+// -(k + rd) -> -k, so the rd k term changes sign between them; Z does not
+// ramp.  Computed per row at each stage and never stored: bt changes from
+// stage to stage.
 struct StageAtt {
     float aA, aB, aZ;
 };
@@ -306,64 +183,6 @@ __device__ __forceinline__ StageAtt stage_att(int k, float bt, float rd,
     return StageAtt{expf(-(bt * (k2 - rd * kf + third)) * Dc),
                     expf(-(bt * (k2 + rd * kf + third)) * Dc),
                     expf(-(bt * k2) * Dc)};
-}
-
-// Row k of a plane set times a row's attenuation (attenuate of planes.py).
-__device__ __forceinline__ void attenuate_row(const PlaneSet& s, int k,
-                                              const StageAtt& a) {
-    s.at(0, k) *= a.aA;
-    s.at(1, k) *= a.aA;
-    s.at(2, k) *= a.aB;
-    s.at(3, k) *= a.aB;
-    s.at(4, k) *= a.aZ;
-    s.at(5, k) *= a.aZ;
-}
-
-// FoldedShift::put after the DW-TSE attenuation of the CPMG half-stage
-// E(tau) S(1) [D] (cpmg.cu; attenuate() of planes.py) when `a`
-// is not null: each new value of row k is scaled by the row put() writes it
-// to -- A to k + 1, B to k - 1 (and from k = 1 to A(0) as well: aA(0) ==
-// aB(0)), Z to k.  `a` holds the planes aA, aB, aZ at rows 0..H-1; the
-// values put() drops (A of row H-1, B of row 0) take any factor.
-__device__ __forceinline__ void put_attenuated(FoldedShift& sh,
-                                               const PlaneSet* a, int k,
-                                               float nAR, float nAI,
-                                               float nBR, float nBI,
-                                               float nZR, float nZI) {
-    if (a != nullptr) {
-        const float fA = a->at(0, k + 1 < a->H ? k + 1 : k);
-        const float fB = a->at(1, k >= 1 ? k - 1 : 0);
-        const float fZ = a->at(2, k);
-        nAR *= fA;
-        nAI *= fA;
-        nBR *= fB;
-        nBI *= fB;
-        nZR *= fZ;
-        nZI *= fZ;
-    }
-    sh.put(k, nAR, nAI, nBR, nBI, nZR, nZI);
-}
-
-// attenuation rows of one stage (planes.diff_attenuation's order of
-// operations: f = bT (k^2 -+ k + 1/3) or bT k^2, bL k^2; a = exp(-f Dc))
-__device__ __forceinline__ void att_rows(const epg::PlaneSet& a, float bT,
-                                         float bL, bool ramp, float Dc) {
-    for (int k = 0; k < a.H; ++k) {
-        const float kf = static_cast<float>(k);
-        const float k2 = kf * kf;
-        float fA, fB;
-        if (ramp) {
-            fA = bT * (k2 - kf + 1.0f / 3.0f);
-            fB = bT * (k2 + kf + 1.0f / 3.0f);
-        } else {
-            fA = bT * k2;
-            fB = fA;
-        }
-        const float fZ = bL * k2;
-        a.at(0, k) = expf(-fA * Dc);
-        a.at(1, k) = expf(-fB * Dc);
-        a.at(2, k) = expf(-fZ * Dc);
-    }
 }
 
 // -- EPG-X: the C x C exchange mix of C compartments' plane sets --
@@ -525,7 +344,7 @@ __device__ __forceinline__ Row read_row(const RowSet& s, int k) {
     return Row{r[0], r[1], r[2], r[3], r[4], r[5]};
 }
 
-// The folded unit shift of FoldedShift on the warp-row layout: fed the
+// The folded unit shift (planes.shift_fold) on the warp-row layout: fed the
 // same unshifted new values of every row, it leaves the same planes.
 // Every lane of the warp calls put(k, ...) for chunk c = 0, 1, ... in
 // order, k = 32 c + lane, rows k >= H included (their values are
@@ -579,8 +398,8 @@ __device__ __forceinline__ WarpShift warp_shift(const RowSet& s) {
     return WarpShift{s, 0.0f, 0.0f};
 }
 
-// The DW-TSE factors for the new values of row k (put_attenuated's): each
-// value is scaled by the row the shift moves it to -- A to k + 1, B to
+// The DW-TSE factors for the new values of row k (attenuate() of
+// planes.py after the shift): each value is scaled by the row the shift moves it to -- A to k + 1, B to
 // k - 1, Z to k -- from `a`, whose values 0, 1, 2 are aA, aB, aZ; rows are
 // clamped into the ladder for the lanes past its end, whose values the
 // shift drops.
@@ -591,8 +410,10 @@ __device__ __forceinline__ StageAtt warp_att(const RowSet& a, int k) {
                     a.at(2, k < top ? k : top)};
 }
 
-// att_rows on the warp-row layout: lane l fills rows l, l + 32, ... (the
-// same expressions; call __syncwarp before other lanes read them).
+// The attenuation rows of one stage on the warp-row layout
+// (planes.diff_attenuation's order of operations: f = bT (k^2 -+ k + 1/3)
+// or bT k^2, bL k^2; a = exp(-f Dc)): lane l fills rows l, l + 32, ...
+// (call __syncwarp before other lanes read them).
 __device__ __forceinline__ void att_rows_warp(const RowSet& a, float bT,
                                               float bL, bool ramp, float Dc,
                                               int lane) {
@@ -672,7 +493,7 @@ __device__ __forceinline__ float seg_bcast(const SegLane& q, float v,
     return __shfl_sync(kFullMask, v, (q.base + u) & (kWarp - 1));
 }
 
-// The folded unit shift of FoldedShift on the segmented layout: fed the
+// The folded unit shift (planes.shift_fold) on the segmented layout: fed the
 // same unshifted new values of every row (s[j][c]: plane j of row r +
 // W c), it leaves the same planes.  A(k) <- new A(k-1), A(0) <- new B(1),
 // B(k) <- new B(k+1), B(H-1) <- 0, Z unshifted.  Two rotations of the
@@ -719,7 +540,7 @@ __device__ __forceinline__ void seg_shift(const SegLane& q,
     }
 }
 
-// The folded unit shift of FoldedShift on the segmented layout with
+// The folded unit shift (planes.shift_fold) on the segmented layout with
 // blocked rows -- lane r of a segment owns rows r R + c, c < R (s[j][c]),
 // instead of seg_shift's r + W c: fed the same unshifted new values of
 // every row, it leaves the same planes.  A(k) <- new A(k-1), A(0) <- new
@@ -761,7 +582,7 @@ __device__ __forceinline__ void seg_shift_blocked(const SegLane& q,
     }
 }
 
-// The folded down shift of DownShift on the segmented layout with blocked
+// The folded down shift (planes.shift_down) on the segmented layout with blocked
 // rows (xcomposite_jac.cu's S(-1)): A(k) <- new A(k+1), A(H-1) <- 0, B(k)
 // <- new B(k-1), B(0) <- new A(1), Z unshifted -- seg_shift_blocked with
 // the roles of the A and B planes swapped.  Within a lane the rows move by
@@ -801,7 +622,7 @@ __device__ __forceinline__ void seg_shift_blocked_down(const SegLane& q,
     }
 }
 
-// The folded down shift of DownShift on the segmented layout (the composite
+// The folded down shift (planes.shift_down) on the segmented layout (the composite
 // tangent kernel's S(-1)): A(k) <- new A(k+1), A(H-1) <- 0, B(k) <- new
 // B(k-1), B(0) <- new A(1), Z unshifted -- seg_shift with the roles of the A
 // and B planes swapped: new B moves up (a lane reads the lane below) and
@@ -871,8 +692,8 @@ __device__ __forceinline__ void lane_shift(float (&s)[6][R]) {
 }
 
 // The post-shift diffusion attenuation factors of row k (fisp_jac's and
-// att_rows's order of operations: f = bT (k^2 -+ k + 1/3) or bT k^2, bL
-// k^2; a = exp(-f Dc)) and their D derivatives d = -f a, for A, B, Z.
+// att_rows_warp's order of operations: f = bT (k^2 -+ k + 1/3) or bT k^2,
+// bL k^2; a = exp(-f Dc)) and their D derivatives d = -f a, for A, B, Z.
 // Constant over a train, so a lane computes its rows' once.
 __device__ __forceinline__ void seg_att(int k, float bT, float bL,
                                         bool ramp, float Dc, float (&a)[3],
@@ -1106,6 +927,134 @@ __device__ __forceinline__ void xstage_rows(
 #pragma unroll
             for (int c = 0; c < C; ++c) lane_put(s[c], k, x[c]);
         }
+    }
+}
+
+
+// -- the primal kernels' per-chunk pulse table and one TR of a lane's rows
+// (bssfp.cu, fisp_full.cu, dess.cu; megre.cu steps its rows the same
+// way) --
+
+// The atom-independent terms of a chunk of up to kTabPulses pulses, which
+// the block fills between two barriers: per pulse two float4, (cos phi,
+// sin phi, cos 2phi, sin 2phi) of the RF phase by sincospif of phi / 180,
+// and (flip in degrees, TR, TE, flags), the flags as a float holding
+// kTrRepeats and kTeRepeats where TR and TE equal the previous pulse's (a
+// constant TE repeats from the second pulse on).  Every thread then reads
+// one word at a time (a broadcast), and a kernel keeps its decays of TR
+// and TE in registers while the flags say they repeat: every lane steps
+// the same pulse, so the test is warp-uniform.
+constexpr int kTabPulses = 32;
+constexpr int kTrRepeats = 1, kTeRepeats = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ void fill_pulse_table(float4* tab, int i0, int n,
+                                                 const float* phi,
+                                                 const float* fa,
+                                                 const float* tr,
+                                                 const float* te, float te0,
+                                                 bool var_te) {
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+        const int i = i0 + t;
+        const float ph = phi[i] * (1.0f / 180.0f);
+        float sp, cp, s2p, c2p;
+        sincospif(ph, &sp, &cp);
+        sincospif(2.0f * ph, &s2p, &c2p);
+        const float tri = tr[i];
+        const float tei = var_te ? te[i] : te0;
+        int fl = 0;
+        if (i > 0 && tri == tr[i - 1]) fl |= kTrRepeats;
+        if (i > 0 && (!var_te || tei == te[i - 1])) fl |= kTeRepeats;
+        tab[2 * t] = make_float4(cp, sp, c2p, s2p);
+        tab[2 * t + 1] = make_float4(fa[i], tri, tei, static_cast<float>(fl));
+    }
+}
+
+// An atom's exp2 decay rate per ms, -log2(e) / T, as the twins form it
+// (planes.exp2_rates): the reciprocal, then the product.  A decay over t
+// is then exp2f(k t), with no division per pulse.
+__device__ __forceinline__ float exp2_rate(float T) {
+    return (1.0f / T) * -kLog2e;
+}
+
+// The echo's TE terms (planes.exp2_te_terms): e^{-TE / T2} as exp2f(k2
+// TE) and, with df, the phasor of DF2 TE half turns (DF2 = 2 df).
+__device__ __forceinline__ void te_exp2(float te, float k2, float DF2,
+                                        bool cdf, float& e2te, float& pteR,
+                                        float& pteI) {
+    e2te = exp2f(k2 * te);
+    if (cdf) sincospif(DF2 * te, &pteI, &pteR);
+}
+
+// A 180*B1 pulse about phi = 0 (B1 half turns), then TI relaxation, in
+// closed form (planes.inversion_exp2): F+(0) (FR, FI), its residual
+// precessing by DF2 TI half turns when `precess`, and Z(0).
+__device__ __forceinline__ void inversion_exp2(float B1, float k1, float k2,
+                                               float ti, float DF2,
+                                               bool precess, float& FR,
+                                               float& FI, float& Z) {
+    float sai, cai;
+    sincospif(B1, &sai, &cai);
+    const float E1i = exp2f(k1 * ti);
+    const float E2i = exp2f(k2 * ti);
+    const float fpi = -sai * E2i;
+    if (precess) {
+        float si, ci;
+        sincospif(DF2 * ti, &si, &ci);
+        FR = -fpi * si;
+        FI = fpi * ci;
+    } else {
+        FR = 0.0f;
+        FI = fpi;
+    }
+    Z = cai * E1i + 1.0f - E1i;
+}
+
+// An atom's relaxation terms over a TR: the F decay with its df phasor,
+// the Z decay and the k = 0 recovery.
+struct Relax {
+    float cFr, cFi, cZ, rec;
+};
+
+// The terms over TR by exp2f of TR times the atom's rates k1 and k2
+// (exp2_rate of T1 and T2), the phasor by sincospif of DF2 TR half turns
+// (DF2 = 2 df).
+__device__ __forceinline__ Relax relax_exp2(float TR, float k1, float k2,
+                                            float DF2, bool cdf) {
+    Relax o;
+    const float cF = exp2f(k2 * TR);
+    o.cZ = exp2f(k1 * TR);
+    o.rec = 1.0f - o.cZ;
+    o.cFr = cF;
+    o.cFi = 0.0f;
+    if (cdf) {
+        float pI, pR;
+        sincospif(DF2 * TR, &pI, &pR);
+        o.cFr = cF * pR;
+        o.cFi = cF * pI;
+    }
+    return o;
+}
+
+// One TR of a folded ladder's rows on a lane, before the shift: each of
+// the first NR rows s[j][c] rotated by r, then relaxed by rx (A and B
+// times the F decay, Z times cZ, the recovery on row c = 0 where the lane
+// holds the ladder's row 0); echo(y) sees row c = 0 rotated and not yet
+// relaxed, on every lane (a lane that does not hold row 0 drops it).
+template <int NR, int R, class Echo>
+__device__ __forceinline__ void step_rows(float (&s)[6][R], const Rot& r,
+                                          const Relax& rx, bool cdf,
+                                          bool row0, const Echo& echo) {
+#pragma unroll
+    for (int c = 0; c < NR; ++c) {
+        const Row y = rotate(r, lane_row(s, c));
+        if (c == 0) echo(y);
+        fdecay(cdf, rx.cFr, rx.cFi, y.AR, y.AI, s[0][c], s[1][c]);
+        fdecay(cdf, rx.cFr, rx.cFi, y.BR, y.BI, s[2][c], s[3][c]);
+        float nZR = rx.cZ * y.ZR;
+        if (c == 0 && row0) nZR = nZR + rx.rec;
+        s[4][c] = nZR;
+        s[5][c] = rx.cZ * y.ZI;
     }
 }
 

@@ -90,15 +90,11 @@ struct MegreArgs {
     int use_df, demod;
 };
 
-// An atom's relaxation terms over a TR: the F decay with its df phasor,
-// the Z decay and the k = 0 recovery.
-struct Relax {
-    float cFr, cFi, cZ, rec;
-};
-
-__device__ __forceinline__ Relax relax_terms(float TRi, float T1, float T2,
-                                             float DF2, bool cdf) {
-    Relax o;
+// An atom's relaxation terms over a TR (epg::Relax) by expf of -TR / T.
+__device__ __forceinline__ epg::Relax relax_terms(float TRi, float T1,
+                                                  float T2, float DF2,
+                                                  bool cdf) {
+    epg::Relax o;
     const float cF = expf(-TRi / T2);
     o.cZ = expf(-TRi / T1);
     o.rec = 1.0f - o.cZ;
@@ -166,7 +162,7 @@ __device__ __forceinline__ void megre_run(const MegreArgs& p, float4* tab) {
         for (int c = 0; c < R; ++c) s[j][c] = 0.0f;
     if (q.r == 0) s[4][0] = 1.0f;
 
-    Relax rx{};               // the relaxation terms of the TR that runs
+    epg::Relax rx{};          // the relaxation terms of the TR that runs
     float ef[kHeldEchoes][2];   // the held echo factors (m <= kHeldEchoes)
 #pragma unroll
     for (int j = 0; j < kHeldEchoes; ++j) ef[j][0] = ef[j][1] = 0.0f;
@@ -231,37 +227,24 @@ __device__ __forceinline__ void megre_run(const MegreArgs& p, float4* tab) {
                 p.out[o] = eR;
                 p.out[plane + o] = eI;
             };
+            epg::step_rows<NR>(s, r, rx, cdf, q.r == 0,
+                               [&](const epg::Row& y) {
+                if (q.r != 0) return;
+                if (held) {
 #pragma unroll
-            for (int c = 0; c < NR; ++c) {
-                const epg::Row y = epg::rotate(
-                    r, epg::Row{s[0][c], s[1][c], s[2][c], s[3][c], s[4][c],
-                                s[5][c]});
-                if (c == 0 && q.r == 0) {
-                    if (held) {
-#pragma unroll
-                        for (int j = 0; j < kHeldEchoes; ++j)
-                            if (j < m) emit(j, ef[j][0], ef[j][1], y.AR, y.AI);
-                    } else {
+                    for (int j = 0; j < kHeldEchoes; ++j)
+                        if (j < m) emit(j, ef[j][0], ef[j][1], y.AR, y.AI);
+                } else {
 #pragma unroll 1
-                        for (int j = 0; j < m; ++j) {
-                            float fR, fI;
-                            echo_factor(__ldg(p.te
-                                              + static_cast<size_t>(j) * p.P
-                                              + i),
-                                        T2, DF2, cdf, fR, fI);
-                            emit(j, fR, fI, y.AR, y.AI);
-                        }
+                    for (int j = 0; j < m; ++j) {
+                        float fR, fI;
+                        echo_factor(
+                            __ldg(p.te + static_cast<size_t>(j) * p.P + i),
+                            T2, DF2, cdf, fR, fI);
+                        emit(j, fR, fI, y.AR, y.AI);
                     }
                 }
-                epg::fdecay(cdf, rx.cFr, rx.cFi, y.AR, y.AI, s[0][c],
-                            s[1][c]);
-                epg::fdecay(cdf, rx.cFr, rx.cFi, y.BR, y.BI, s[2][c],
-                            s[3][c]);
-                float nZR = rx.cZ * y.ZR;
-                if (c == 0 && q.r == 0) nZR = nZR + rx.rec;
-                s[4][c] = nZR;
-                s[5][c] = rx.cZ * y.ZI;
-            }
+            });
             if constexpr (HS > 0) {
                 epg::lane_shift<0, 2, HS>(s);
             } else {

@@ -56,7 +56,6 @@ JAC_LAUNCHES = 0
 BLOCK = 128
 #: pulses per chunk of the primal kernel's table (bssfp.cu's kMaxPulses)
 BSSFP_PULSES = 32
-_LOG2E = math.log2(math.e)
 
 _TWO_PI = 2 * math.pi
 _DEG = math.pi / 180.0
@@ -116,37 +115,21 @@ def bssfp_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
     # decays by exp2 of the atom's factors
     cp, sp, c2p, s2p = planes.phase_terms_pi(x["phi"] * (1.0 / 180.0))
     DF2 = None if DF is None else 2.0 * DF
-    # -log2(e) / T as torch divides a number by a tensor: the reciprocal,
-    # then the product
-    k1 = torch.reciprocal(T1) * -_LOG2E
-    k2 = torch.reciprocal(T2) * -_LOG2E
-
-    def te_terms(te):
-        return torch.exp2(k2 * te), (None if DF2 is None
-                                     else planes.sincospi(DF2 * te))
+    k1, k2 = planes.exp2_rates(T1, T2)
 
     FR, FI, Z = torch.zeros_like(T1), torch.zeros_like(T1), torch.ones_like(T1)
     if x["TI"] is not None:
-        # the 180*B1 inversion (B1 half turns), TI relaxation and precession
-        TI = x["TI"]
-        cai, sai = planes.sincospi(B1)
-        fpi = -sai * torch.exp2(k2 * TI)
-        E1i = torch.exp2(k1 * TI)
-        Z = cai * E1i + 1.0 - E1i
-        if DF2 is None:
-            FI = fpi
-        else:
-            ci, si = planes.sincospi(DF2 * TI)
-            FR, FI = -fpi * si, fpi * ci
+        # the 180*B1 inversion, TI relaxation and precession
+        FR, FI, Z = planes.inversion_exp2(B1, k1, k2, x["TI"], DF2)
 
     var_te = isinstance(x["TE"], torch.Tensor)
     if not var_te:
-        e2te, pte = te_terms(x["TE"])
+        e2te, pte = planes.exp2_te_terms(x["TE"], k2, DF2)
     out = torch.empty((2, P, B), dtype=T1.dtype, device=T1.device)
     FA, TR = x["FA"], x["TR"]
     for i in range(P):
         if var_te:
-            e2te, pte = te_terms(x["TE"][i])
+            e2te, pte = planes.exp2_te_terms(x["TE"][i], k2, DF2)
         ca, sa = planes.sincospi(FA[i] * B1 * (1.0 / 180.0))
         rc = planes.rot_coeffs_sc(sa, ca, cp[i], sp[i], c2p[i], s2p[i])
         nFR, nFI, nZ = planes.rot_k0(rc, FR, FI, Z)

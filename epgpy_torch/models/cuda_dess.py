@@ -16,8 +16,9 @@ their headers for the design); ``dess_echoes_plain`` /
 ``dess_jacobian_echoes_plain`` are the same recurrences with the same
 operation order, vectorised over atoms as (6, nstate+1, B) planes in a
 Python loop over TRs, in any precision (float64 makes them oracles).
-The Jacobian kernel runs ``fisp_jac.cu``'s segmented layout at the
-geometry :func:`dess_jac_geometry` decides.
+Both kernels run the segmented layout with blocked rows, the state in
+registers, at the geometry :func:`dess_geometry` (the primal: a ladder of
+up to 12 rows on one lane) and :func:`dess_jac_geometry` decide.
 The echo-layout functions (``dess_echoes``, ``dess_jacobian_echoes`` and
 their twins) return the train's ADC order, FISP_0, PSIF_0, FISP_1, ... on
 the first axis, (2P, B): the engine's layout, which the kernels write
@@ -28,9 +29,9 @@ functions' per-echo (B, P) views of it.
 not take: no fallback) and the plain twin for CPU tensors.  ``LAUNCHES`` /
 ``JAC_LAUNCHES`` count kernel launches.  The TPU-only knobs (``btile``,
 ``pchunk``, ``interpret``) and the padding have no counterpart.  The
-shared-memory gates are the FISP kernels' (``cuda_fisp.kernel_fits``: 6
-planes; ``cuda_fisp.jac_kernel_fits``: 24 planes), and so is the primal's
-block size.
+gates are the FISP kernels' (``cuda_fisp.kernel_fits``: 6 planes;
+``cuda_fisp.jac_kernel_fits``: 24 planes), the bounds of the
+thread-per-atom layout, kept so that no train changes route.
 """
 
 from __future__ import annotations
@@ -41,13 +42,13 @@ import torch
 
 from . import planes
 from .cuda_fisp import (SMEM_PER_BLOCK, _jac_views, _prepare, _takes_twin,
-                        block_size, jac_kernel_fits, kernel_fits,
-                        seg_geometry)
+                        jac_kernel_fits, kernel_fits, seg_geometry)
 
 __all__ = ["dess_dictionary_cuda", "dess_dictionary_plain", "dess_echoes",
            "dess_echoes_plain", "dess_jacobian_cuda", "dess_jacobian_plain",
            "dess_jacobian_echoes", "dess_jacobian_echoes_plain",
-           "dess_jac_geometry", "LAUNCHES", "JAC_LAUNCHES"]
+           "dess_rows", "dess_geometry", "dess_jac_geometry", "LAUNCHES",
+           "JAC_LAUNCHES"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -59,6 +60,41 @@ _DEG = math.pi / 180.0
 #: floats the Jacobian kernel stages per atom and pulse: (re, im) of four
 #: groups for both echoes
 DESS_JAC_OUTPUTS = 16
+
+
+#: the primal kernel (dess.cu): warps per block, TRs per chunk, table
+#: floats per TR, rows per lane at most -- the kernel's kMaxWarps,
+#: epg::kTabPulses, the table's two float4 and kMaxRows
+DESS_WARPS, DESS_TRS, DESS_TABLE, DESS_MAX_ROWS = 4, 32, 8, 12
+
+
+def dess_rows(nstate) -> int:
+    """Rows per lane of the primal kernel for a ladder of H = nstate + 1
+    rows (nstate >= 1): ceil(H / W) for the fewest lanes W that keep it
+    within DESS_MAX_ROWS -- H on one lane up to nstate 11 (the instance of
+    its length: the mapping train's nstate 8 takes 9 rows), odd R included
+    (7 on 2 lanes at nstate 12, 12 on 26 lanes at the gate's 301)."""
+    H = max(int(nstate), 1) + 1
+    return -(-H // -(-H // DESS_MAX_ROWS))
+
+
+def dess_geometry(nstate):
+    """Launch geometry of the primal kernel (``dess.cu``) at
+    :func:`dess_rows` rows per lane: dict(R, W, L) (lane r of a segment
+    of W lanes owns rows r R + c, c < R; L ladders per warp), ``one`` (the
+    ladder is the one lane's R rows: the instance of its length),
+    ``warps`` per block (DESS_WARPS), ``atoms`` per block (warps x L),
+    ``pulses`` (TRs per chunk, DESS_TRS) and ``smem``, the block's shared
+    bytes: the chunk's table alone (each ladder's row-0 lane stores both
+    echoes directly).  The wrapper passes R and warps to the kernel, which
+    checks them."""
+    H = max(int(nstate), 1) + 1
+    R = dess_rows(nstate)
+    W = -(-H // R)
+    L = 32 // W
+    return dict(R=R, W=W, L=L, one=W == 1, warps=DESS_WARPS,
+                atoms=DESS_WARPS * L, pulses=DESS_TRS,
+                smem=4 * DESS_TRS * DESS_TABLE)
 
 
 def dess_jac_rows(nstate) -> int:
@@ -106,21 +142,37 @@ def _fmul(c, re, im):
     return planes.cmul(c[0], c[1], re, im)
 
 
+def _relax_exp2(TRi, k1, k2, DF2):
+    """The primal kernel's full-TR terms (``epg::relax_exp2``): cZ and the
+    F-plane decay 2^(k2 TR) with the phasor of DF2 TR half turns, as a
+    (re, im) pair (im None without df), for the atom's k = -log2(e) / T."""
+    cF = torch.exp2(k2 * TRi)
+    cZ = torch.exp2(k1 * TRi)
+    if DF2 is None:
+        return cZ, (cF, None)
+    c, s = planes.sincospi(DF2 * TRi)
+    return cZ, (cF * c, cF * s)
+
+
 def dess_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
                       nstate=10, demodulate=False):
     """Both echo trains (re, im), each (2P, B) in ADC order (FISP_0,
     PSIF_0, ...), by the plain PyTorch recurrence (the kernel's twin), on
-    T1s's device in T1s's dtype."""
+    T1s's device in T1s's dtype.  Angles in half turns
+    (``planes.sincospi``, the kernel's sincospif), decays by exp2 of the
+    atom's -log2(e) / T, as the kernel forms them."""
     x = _setup(FA, phi, TR, TE, T1s, T2s, B1s, dfs, nstate, strict=False)
     T1, T2, B1, DF = x["T1"], x["T2"], x["B1"], x["df"]
     P, B, H = x["P"], x["B"], int(nstate) + 1
     s = [torch.zeros((H, B), dtype=T1.dtype, device=T1.device)
          for _ in range(6)]
     s[4][0] = 1.0
-    cp, sp, c2p, s2p = planes.phase_terms(x["phi"] * _DEG)
+    cp, sp, c2p, s2p = planes.phase_terms_pi(x["phi"] * (1.0 / 180.0))
+    DF2 = None if DF is None else 2.0 * DF
+    k1, k2 = planes.exp2_rates(T1, T2)
     var_te = isinstance(x["TE"], torch.Tensor)
     if not var_te:
-        e2te, _, pte = planes.te_terms(x["TE"], T2, DF)
+        e2te, pte = planes.exp2_te_terms(x["TE"], k2, DF2)
     out = torch.empty((2, 2 * P, B), dtype=T1.dtype, device=T1.device)
     FA, TR = x["FA"], x["TR"]
 
@@ -132,10 +184,10 @@ def dess_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
 
     for i in range(P):
         if var_te:
-            e2te, _, pte = planes.te_terms(x["TE"][i], T2, DF)
-        rc = planes.rot_coeffs(FA[i] * B1 * _DEG, cp[i], sp[i], c2p[i],
-                               s2p[i])
-        cZ, _, cF, _ = _relax(TR[i], T1, T2, DF)
+            e2te, pte = planes.exp2_te_terms(x["TE"][i], k2, DF2)
+        ca, sa = planes.sincospi(FA[i] * B1 * (1.0 / 180.0))
+        rc = planes.rot_coeffs_sc(sa, ca, cp[i], sp[i], c2p[i], s2p[i])
+        cZ, cF = _relax_exp2(TR[i], k1, k2, DF2)
         R = planes.apply_rot(rc, s)
         # FISP echo: the rotated k = 0 row after the TE decay
         eR, eI = R[0][0] * e2te, R[1][0] * e2te
@@ -268,7 +320,8 @@ def _launch(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate, jac):
         geo = dess_jac_geometry(nstate)
         shape = (geo["R"], geo["warps"], geo["pulses"])
     else:
-        shape = (block_size(nstate),)
+        geo = dess_geometry(nstate)
+        shape = (geo["R"], geo["warps"])
     # asynchronous on the current stream; see cuda_fisp._launch on
     # temporaries
     lib = _build.load()

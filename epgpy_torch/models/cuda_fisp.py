@@ -24,8 +24,11 @@ The full-ladder kernel (``_kernel`` :116, ``fisp_dictionary_pallas``'s
 ``epgpy_torch/csrc/fisp_full.cu``: the literal 2 nstate + 1 rows, no
 diffusion; ``FULL_LAUNCHES``).  The dictionary functions take it at
 ``nstate < 1``, where the fold has no k = 1 row, as the JAX wrapper does
-(``pallas_fisp.py:957``); otherwise it is the fold's parity oracle.  Its
-twin is also ``models/mrf.py``'s full-ladder model.
+(``pallas_fisp.py:957``): there its own instance keeps the one row in
+registers and, from the second pulse on, steps Z alone (the shift empties
+F+ and F-); deeper, it is the fold's parity oracle, its rows in shared
+memory (``full_geometry``).  Its twin is also ``models/mrf.py``'s
+full-ladder model.
 
 The Jacobian (``fisp_jacobian_pallas`` :775 with ``_kernel_jac`` :458)
 follows the same pattern: ``fisp_jacobian_cuda`` / ``fisp_jacobian_plain``
@@ -48,14 +51,14 @@ import torch
 from . import planes
 
 __all__ = ["fisp_dictionary_cuda", "fisp_dictionary_plain", "fisp_echoes",
-           "fisp_echoes_plain", "kernel_fits", "block_size", "SMEM_PER_BLOCK",
+           "fisp_echoes_plain", "kernel_fits", "SMEM_PER_BLOCK",
            "fisp_jacobian_cuda", "fisp_jacobian_plain", "fisp_jacobian_echoes",
            "fisp_jacobian_echoes_plain", "jac_kernel_fits",
            "seg_layout", "seg_geometry", "fisp_jac_geometry", "half_rows",
            "half_static_rows", "fisp_half_geometry",
            "fisp_full_ladder_cuda", "fisp_full_ladder_plain",
            "fisp_full_echoes", "fisp_full_echoes_plain", "full_kernel_fits",
-           "full_block_size"]
+           "full_geometry", "FULL_BLOCK", "FULL_PULSES"]
 
 #: kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -77,19 +80,10 @@ def kernel_fits(nstate) -> bool:
     """The FISP dictionary kernel's gate (also DESS's, ME-GRE's and
     DW-FISP's): while 6 planes x (nstate+1) rows x 32 atoms x 4 bytes fit
     one block's shared memory, nstate <= 301 -- the bound of the
-    thread-per-atom layout.  The segmented kernel keeps its planes in
-    registers (:func:`fisp_half_geometry`) and keeps this gate, so that no
+    thread-per-atom layout.  The segmented kernels keep their planes in
+    registers (:func:`fisp_half_geometry`) and keep this gate, so that no
     train changes route."""
     return _smem_bytes(nstate, 32) <= SMEM_PER_BLOCK
-
-
-def block_size(nstate) -> int:
-    """Threads per block of the thread-per-atom kernel ``dess.cu``: 128,
-    halved while the state does not fit."""
-    block = 128
-    while block > 32 and _smem_bytes(nstate, block) > SMEM_PER_BLOCK:
-        block //= 2
-    return block
 
 
 def _prepare(FA, phi, TR, TE, T1s, T2s, B1s, dfs, inversion, diffusion,
@@ -754,14 +748,33 @@ def full_kernel_fits(nstate) -> bool:
     return 4 * _PLANES * (2 * int(nstate) + 1) * 32 <= SMEM_PER_BLOCK
 
 
-def full_block_size(nstate) -> int:
-    """Threads per block of the full-ladder kernel: 128, halved while the
-    state does not fit."""
-    block = 128
-    while block > 32 and (4 * _PLANES * (2 * int(nstate) + 1) * block
-                          > SMEM_PER_BLOCK):
-        block //= 2
-    return block
+#: the full-ladder kernel (fisp_full.cu): threads per block of its nstate-0
+#: instance (and at most of the deeper one) and pulses per chunk of its
+#: table -- kBlock and epg::kTabPulses
+FULL_BLOCK, FULL_PULSES = 128, 32
+
+
+def full_geometry(nstate):
+    """Launch geometry of the full-ladder kernel: dict(``one``: the
+    nstate-0 instance, the k = 0 row in registers; ``threads`` per block,
+    one atom each: FULL_BLOCK, halved for the deeper instance while its
+    planes and the chunk's table do not fit a block's shared memory;
+    ``pulses`` per chunk; ``smem``, the block's shared bytes: the table
+    and, above nstate 0, the 6 planes of 2 nstate + 1 rows of every
+    thread).  Every nstate that :func:`full_kernel_fits` admits has one
+    (32 threads at nstate 150); the wrapper passes ``threads`` to the
+    kernel, which checks it."""
+    n = int(nstate)
+    table = 4 * 8 * FULL_PULSES
+
+    def smem(threads):
+        return table + (4 * _PLANES * (2 * n + 1) * threads if n else 0)
+
+    threads = FULL_BLOCK
+    while threads > 32 and smem(threads) > SMEM_PER_BLOCK:
+        threads //= 2
+    return dict(one=n == 0, threads=threads, pulses=FULL_PULSES,
+                smem=smem(threads))
 
 
 def fisp_full_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
@@ -769,10 +782,13 @@ def fisp_full_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
                            inversion_df=True):
     """Echo train (re, im), each (P, B), on the literal 2 nstate + 1-row
     ladder (k = 0 at row nstate) by the plain PyTorch recurrence (the
-    full-ladder kernel's twin), on T1s's device in T1s's dtype.  It is the
-    port's one full-ladder program: ``models/mrf.fisp_mrf_dictionary``
-    runs it and ``fisp_mrf_jacobian`` differentiates it forward, so it
-    writes nothing in place (``torch.func.jvp`` under ``vmap``)."""
+    full-ladder kernel's twin), on T1s's device in T1s's dtype.  Angles in
+    half turns (``planes.sincospi``, the kernel's sincospif), decays by
+    exp2 of the atom's -log2(e) / T over the full TR and TE, as the kernel
+    forms them.  It is the port's one full-ladder program:
+    ``models/mrf.fisp_mrf_dictionary`` runs it and ``fisp_mrf_jacobian``
+    differentiates it forward, so it writes nothing in place
+    (``torch.func.jvp`` under ``vmap``)."""
     N = int(nstate)
     if N < 0:
         raise ValueError(f"nstate must be >= 0, got {nstate}")
@@ -781,53 +797,44 @@ def fisp_full_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
     T1, T2, B1, DF = x["T1"], x["T2"], x["B1"], x["df"]
     K = 2 * N + 1
     use_df = DF is not None
+    DF2 = 2.0 * DF if use_df else None
+    k1, k2 = planes.exp2_rates(T1, T2)
     z = torch.zeros((K, x["B"]), dtype=T1.dtype, device=T1.device)
     centre = torch.zeros((K, 1), dtype=T1.dtype, device=T1.device)
     centre[N] = 1.0                    # the k = 0 row
     # F+ re, F+ im, F- re, F- im, Z re, Z im
     if x["TI"] is not None:
-        TI = x["TI"]
-        (fpi, z0), _ = planes.inversion_prep(B1, T1, T2, TI)
-        if use_df and inversion_df:
-            th = 2 * math.pi * DF * TI
-            cth, sth = torch.cos(th), torch.sin(th)
-            s = [centre * v for v in (-fpi * sth, fpi * cth, -fpi * sth,
-                                      -fpi * cth, z0)] + [z]
-        else:
-            s = [z, centre * fpi, z, centre * -fpi, centre * z0, z]
+        # the 180*B1 inversion, TI relaxation and (with inversion_df)
+        # precession; F-(0) = conj(F+(0))
+        FR, FI, z0 = planes.inversion_exp2(B1, k1, k2, x["TI"],
+                                           DF2 if inversion_df else None)
+        s = [centre * v for v in (FR, FI, FR, -FI, z0)] + [z]
     else:
         s = [z, z, z, z, centre.expand_as(z), z]
 
-    deg = math.pi / 180.0
-    cp, sp, c2p, s2p = planes.phase_terms(x["phi"] * deg)
+    cp, sp, c2p, s2p = planes.phase_terms_pi(x["phi"] * (1.0 / 180.0))
     var_te = isinstance(x["TE"], torch.Tensor)
     if not var_te:
-        te = x["TE"]
-        e1te, e2te = torch.exp(-te / T1), torch.exp(-te / T2)
+        e2te, pte = planes.exp2_te_terms(x["TE"], k2, DF2)
     out_re, out_im = [], []
     FA, TR = x["FA"], x["TR"]
     cmul = planes.cmul
     for i in range(x["P"]):
         if var_te:
-            te = x["TE"][i]
-            e1te, e2te = torch.exp(-te / T1), torch.exp(-te / T2)
+            e2te, pte = planes.exp2_te_terms(x["TE"][i], k2, DF2)
+        ca, sa = planes.sincospi(FA[i] * B1 * (1.0 / 180.0))
         (cos2, m01r, m01i, m02r, m02i, ca, m20r, m20i, m21r,
-         m21i) = planes.rot_coeffs(FA[i] * B1 * deg, cp[i], sp[i], c2p[i],
-                                   s2p[i])
+         m21i) = planes.rot_coeffs_sc(sa, ca, cp[i], sp[i], c2p[i], s2p[i])
         m12r, m12i = m02r, -m02i       # m12 = i e^{-i phi} sin a
-        rem = TR[i] - te
-        E1b = torch.exp(-rem / T1)
-        E2b = torch.exp(-rem / T2)
-        cF = e2te * E2b
-        cZ = e1te * E1b
-        rec = (1.0 - e1te) * E1b + (1.0 - E1b)
+        # the full-TR relaxation (epg::relax_exp2)
+        cF = torch.exp2(k2 * TR[i])
+        cZ = torch.exp2(k1 * TR[i])
+        rec = 1.0 - cZ
         zero = torch.zeros_like(cF)
         if use_df:
-            ang_te = 2 * math.pi * DF * te
-            pteR, pteI = torch.cos(ang_te), torch.sin(ang_te)
-            ang = 2 * math.pi * DF * (te + rem)
-            pR, pI = torch.cos(ang), torch.sin(ang)
-            cFpR, cFpI, cFmR, cFmI = cF * pR, cF * pI, cF * pR, -cF * pI
+            pR, pI = planes.sincospi(DF2 * TR[i])
+            cFpR, cFpI = cF * pR, cF * pI
+            cFmR, cFmI = cFpR, -cFpI
         else:
             cFpR, cFpI, cFmR, cFmI = cF, zero, cF, zero
         FpR, FpI, FmR, FmI, ZR, ZI = s
@@ -838,7 +845,7 @@ def fisp_full_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
         eR = (cos2 * FpR[N] + bR + dR) * e2te
         eI = (cos2 * FpI[N] + bI + dI) * e2te
         if use_df:
-            eR, eI = cmul(pteR, pteI, eR, eI)
+            eR, eI = cmul(pte[0], pte[1], eR, eI)
         if demodulate:
             eR, eI = eR * cp[i] + eI * sp[i], eI * cp[i] - eR * sp[i]
         out_re.append(eR)
@@ -864,12 +871,19 @@ def fisp_full_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
         zz = ca * cZ
         nZR = aR + bR + zz * ZR
         nZR = torch.cat([nZR[:N], (nZR[N] + rec)[None], nZR[N + 1:]])
-        # unit shift: F+ up a row, F- down a row, zero-filled
-        zrow = z[:1]
-        s = [torch.cat([zrow, nFpR[:-1]]), torch.cat([zrow, nFpI[:-1]]),
-             torch.cat([nFmR[1:], zrow]), torch.cat([nFmI[1:], zrow]),
-             nZR, aI + bI + zz * ZI]
+        s = _shift_full([nFpR, nFpI, nFmR, nFmI, nZR, aI + bI + zz * ZI])
     return torch.stack(out_re), torch.stack(out_im)
+
+
+def _shift_full(s):
+    """The full ladder's unit shift of six planes (F+ re, F+ im, F- re,
+    F- im, Z re, Z im), each (K, B): F+ up a row, F- down a row,
+    zero-filled at the ends, Z in place (at nstate 0 it empties both F
+    planes)."""
+    zrow = torch.zeros_like(s[0][:1])
+    return [torch.cat([zrow, s[0][:-1]]), torch.cat([zrow, s[1][:-1]]),
+            torch.cat([s[2][1:], zrow]), torch.cat([s[3][1:], zrow]), s[4],
+            s[5]]
 
 
 def fisp_full_echoes(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *, nstate=10,
@@ -919,7 +933,7 @@ def _launch_full(FA, phi, TR, TE, T1s, T2s, B1s, dfs, *, nstate, demodulate,
         ptr(out_re), ptr(out_im), P, B, nstate, int(var_te),
         int(x["TI"] is not None), int(bool(inversion_df)),
         int(x["df"] is not None), int(bool(demodulate)),
-        full_block_size(nstate),
+        full_geometry(nstate)["threads"],
         T1s.device.index if T1s.device.index is not None
         else torch.cuda.current_device(),
         torch.cuda.current_stream(T1s.device).cuda_stream)

@@ -36,7 +36,8 @@ import math
 
 import torch
 
-__all__ = ["cmul", "phase_terms", "sincospi", "phase_terms_pi", "rot_coeffs",
+__all__ = ["cmul", "phase_terms", "sincospi", "phase_terms_pi", "LOG2E",
+           "exp2_rates", "exp2_te_terms", "inversion_exp2", "rot_coeffs",
            "rot_coeffs_sc", "rot_coeffs_db1", "rot_A",
            "rot_B", "rot_Z", "apply_rot", "rot_k0", "shift_fold",
            "shift_down", "stage_attenuation", "te_terms", "echo_copy",
@@ -72,6 +73,40 @@ def phase_terms_pi(ph):
     cp, sp = sincospi(ph)
     c2p, s2p = sincospi(2.0 * ph)
     return cp, sp, c2p, s2p
+
+
+#: log2(e): a decay e^{-t / T} is 2^(k t) at the rate k = -log2(e) / T
+LOG2E = math.log2(math.e)
+
+
+def exp2_rates(T1, T2):
+    """(k1, k2), the atom's exp2 decay rates -log2(e) / T1 and -log2(e) /
+    T2 of the primal kernels that take exp2 decays (``epg::exp2_rate``),
+    formed as torch divides a number by a tensor: the reciprocal, then the
+    product."""
+    return torch.reciprocal(T1) * -LOG2E, torch.reciprocal(T2) * -LOG2E
+
+
+def exp2_te_terms(te, k2, DF2):
+    """The echo's TE terms (``epg::te_exp2``): e^{-te/T2} as 2^(k2 te) and
+    the df phasor (cos, sin) of DF2 te half turns (DF2 = 2 df), or None
+    without df (DF2 None)."""
+    return torch.exp2(k2 * te), (None if DF2 is None
+                                 else sincospi(DF2 * te))
+
+
+def inversion_exp2(B1, k1, k2, TI, DF2):
+    """A 180*B1 pulse about phi = 0 (B1 half turns), then TI relaxation, in
+    closed form (``epg::inversion_exp2``): (Re F+(0), Im F+(0), Z(0)), the
+    residual F+ precessing by DF2 TI half turns (DF2 None: not)."""
+    cai, sai = sincospi(B1)
+    E1i = torch.exp2(k1 * TI)
+    fpi = -sai * torch.exp2(k2 * TI)
+    z0 = cai * E1i + 1.0 - E1i
+    if DF2 is None:
+        return torch.zeros_like(fpi), fpi, z0
+    ci, si = sincospi(DF2 * TI)
+    return -fpi * si, fpi * ci, z0
 
 
 def rot_coeffs(a, cp, sp, c2p, s2p):

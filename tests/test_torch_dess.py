@@ -20,7 +20,11 @@ dispatch, Jacobian probes and the golden.
 * the segmented Jacobian kernel's lane map (``epg::seg_shift_blocked``
   replayed in numpy at ``dess_jac_geometry``'s rows per lane) leaves the
   float64 twin exactly as it was, and its launch geometry for every ladder
-  the gate admits.
+  the gate admits;
+* the same for the primal kernel (``dess_geometry``: one lane of up to 12
+  rows, then the fewest lanes), its card edges covering every change of
+  rows per lane, its unchanged gate, and the primal twin against the JAX
+  kernel on a 33-TR train, past the kernel's 32-TR chunk.
 """
 
 import logging
@@ -38,7 +42,9 @@ from epgpy_torch.models import cuda_dess
 from epgpy_tpu import fisp_dispatch as jfd
 from epgpy_tpu.models import pallas_dess
 
-from chip_smoke import DESS_CASES, make_dess_case, _tensors
+from chip_smoke import (DESS_CASES, DESS_PRIMAL_EDGE_CASES,
+                        DESS_RAGGED_CASE, DESS_ROW_EDGES, make_dess_case,
+                        _tensors)
 from epgpy_torch.models import cuda_fisp, planes
 from torch_support import (GOLDEN_DIR, composite_claims, cplx,  # noqa: F401
                            port_f32, port_f64, seg_owned_atoms,
@@ -325,3 +331,113 @@ def test_dess_jac_geometry():
             assert sorted(owned) == list(range(B_)), (n, B_)
     main = cuda_dess.dess_jac_geometry(8)
     assert (main["R"], main["W"], main["L"]) == (3, 3, 10)
+
+
+# -- the primal kernel (dess.cu): geometry, lane map, edges, gate --
+
+
+def test_primal_launch_geometry():
+    """For every ladder the gate admits (nstate 1-301): the fewest lanes
+    with at most 12 rows each, R = ceil(H / W) (one lane, the instance of
+    the ladder's own length, up to nstate 11), at least 7 rows per lane
+    across lanes (the kernel's least instance there); 4 warps per block;
+    32 TRs per chunk; the block's shared memory the chunk's table alone
+    (both echoes are stored directly); and a grid whose slots store each
+    of 1, 2, 3, 33 and 4,097 atoms exactly once."""
+    for n in range(1, 302):
+        geo = cuda_dess.dess_geometry(n)
+        H = n + 1
+        R, W, L = geo["R"], geo["W"], geo["L"]
+        W0 = -(-H // cuda_dess.DESS_MAX_ROWS)
+        assert R == cuda_dess.dess_rows(n)
+        assert W == W0 and R == -(-H // W) <= cuda_dess.DESS_MAX_ROWS
+        assert geo["one"] == (W == 1) == (n <= 11)
+        assert W * R >= H > (W - 1) * R and W <= 32 and L == 32 // W
+        assert geo["warps"] == cuda_dess.DESS_WARPS == 4
+        assert geo["atoms"] == geo["warps"] * L
+        assert W == 1 or R >= cuda_dess.DESS_MAX_ROWS // 2 + 1
+        assert geo["pulses"] == cuda_dess.DESS_TRS == 32
+        assert geo["smem"] == 4 * 32 * cuda_dess.DESS_TABLE <= 48 * 1024
+        if n in (1, 8, 12, 301):
+            for B_ in (1, 2, 3, 33, 4097):
+                owned, grid = seg_owned_atoms(geo, B_)
+                assert sorted(owned) == list(range(B_)), (n, B_)
+    assert cuda_dess.dess_geometry(8)["R"] == 9      # the mapping train's
+    assert cuda_dess.dess_geometry(12)["R"] == 7
+    assert cuda_dess.dess_geometry(301)["W"] == 26
+    assert -(-4 * 256 * 256 // cuda_dess.dess_geometry(8)["atoms"]) == 2048
+
+
+@pytest.mark.parametrize("nstate", [1, 8, 11, 12, 15, 23, 24, 36, 60])
+def test_primal_lane_map_matches_twin(monkeypatch, nstate):
+    """The float64 primal twin with every folded shift replayed through
+    the kernel's lane map at its rows per lane (blocked rows, one lane up
+    to nstate 11: epg::lane_shift; more: epg::seg_shift_blocked, emulated
+    in numpy with NaN in the idle lanes, past the last atom and in the
+    padding rows) equals the twin exactly, both echoes of every TR (the
+    PSIF echo is the row-0 lane's post-shift A(0)), over 37 atoms and a
+    train 11 TRs longer than the ladder with TR and TE runs, a per-TR TE,
+    df, demodulation and a B1 batch."""
+    case = dict(name="lane_map", nstate=nstate, var_te=True, b1=True,
+                df=True, demodulate=True, runs=True)
+    npulse = max(80, nstate + 12)
+    args, kw = _tensors(torch, *make_dess_case(case, 37, npulse, seed=3),
+                        "cpu")
+    args = to_f64(args)
+    want = cuda_dess.dess_echoes_plain(*args, **kw)
+    R = cuda_dess.dess_geometry(nstate)["R"]
+    calls = [0]
+
+    def shift(s):
+        calls[0] += 1
+        return seg_shift_emulated(s, R, blocked=True)
+
+    monkeypatch.setattr(planes, "shift_fold", shift)
+    got = cuda_dess.dess_echoes_plain(*args, **kw)
+    assert calls[0] == npulse
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == (2 * npulse, 37)
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+def test_primal_row_edges_cover_every_change():
+    """DESS_ROW_EDGES, the nstates of the card's primal edges, holds
+    nstate 1-12 (each one-lane instance and the first two-lane one), both
+    sides of every change of the rows per lane up to the gate, and the
+    gate's deepest ladder, 301."""
+    ch = [n for n in range(2, 302)
+          if cuda_dess.dess_rows(n) != cuda_dess.dess_rows(n - 1)]
+    assert ch and sorted({c - 1 for c in ch} | set(ch) | set(range(1, 13))
+                         | {301}) == list(DESS_ROW_EDGES)
+    assert {c["nstate"] for c in DESS_PRIMAL_EDGE_CASES} == set(
+        DESS_ROW_EDGES)
+
+
+def test_primal_gate_unchanged():
+    """The primal gate (``cuda_fisp.kernel_fits``, which ``_launch`` asks)
+    answers as the thread-per-atom layout set it for nstate 0-400: nstate
+    <= 301; nstate 0 (no PSIF row) raises before any launch, on either
+    route."""
+    fits = [n for n in range(0, 401) if cuda_fisp.kernel_fits(n)]
+    assert fits == list(range(0, 302))
+    args, kw = _tensors(torch, *_inputs(DESS_CASES[0]), "cpu")
+    for n in (0, -1):
+        with pytest.raises(ValueError, match="nstate >= 1"):
+            cuda_dess.dess_echoes_plain(*args, nstate=n)
+
+
+@pytest.mark.parametrize("case", DESS_CASES + [DESS_RAGGED_CASE | dict(
+    nstate=12)], ids=lambda c: c["name"])
+def test_dess_twin_matches_jax_kernel_33_trs(case):
+    """The primal twin vs the JAX kernel in interpret mode on a 33-TR train
+    (the kernel's table holds 32 TRs a chunk), 8 atoms: both echoes to
+    1e-5, as the option cases; the ragged case with TR and TE runs on two
+    lanes."""
+    args, kw = make_dess_case(case, B, 33, seed=2)
+    (r1, i1), (r2, i2) = pallas_dess.dess_dictionary_pallas(
+        *args, interpret=True, btile=128, **kw)
+    targs, tkw = _tensors(torch, args, kw, "cpu")
+    (t1, t2) = cuda_dess.dess_dictionary_plain(*targs, **tkw)
+    assert t1[0].shape == (B, 33)
+    assert np.abs(cplx(*t1) - cplx(r1, i1)).max() < 1e-5
+    assert np.abs(cplx(*t2) - cplx(r2, i2)).max() < 1e-5

@@ -14,8 +14,11 @@ card (tests/test_torch_cuda.py and chip_smoke.py).
 The full-ladder twin (``fisp_full_ladder_plain``, the JAX wrapper's
 ``half_ladder=False`` and its nstate-0 route) is held against
 ``fisp_dictionary_pallas(half_ladder=False, interpret=True)`` at nstate 0
-and at nstate >= 1 (1e-5, float32 both), and against the folded twin at
-nstate >= 1 (float64, 1e-11: the fold is exact).
+and at nstate >= 1 (1e-5, float32 both; also on a 33-pulse train, past the
+kernel's 32-pulse chunk), and against the folded twin at nstate >= 1
+(float64, 1e-11: the fold is exact); at nstate 0 its F+ and F- planes are
+zero after every pulse and Im Z stays 0 (float64), which the kernel's
+nstate-0 instance relies on; its launch geometry and gate are pinned.
 """
 
 import numpy as np
@@ -23,8 +26,9 @@ import pytest
 import torch
 
 from chip_smoke import (FULL_CASES, HALF_EDGE_CASES, HALF_EDGE_PULSES,
-                        HALF_ROW_EDGES, OPTION_CASES, make_case, _tensors)
-from epgpy_torch.models import cuda_fisp, mrf, planes
+                        HALF_ROW_EDGES, OPTION_CASES, make_case,
+                        make_full_case, _tensors)
+from epgpy_torch.models import cuda_dess, cuda_fisp, mrf, planes
 from epgpy_tpu.models.pallas_fisp import fisp_dictionary_pallas
 
 from torch_support import (cplx, port_f32, port_f64,  # noqa: F401
@@ -95,12 +99,14 @@ def test_cpu_tensors_take_the_plain_twin(port_f32):
 def test_shared_memory_gate():
     # 6 planes x (nstate+1) rows x 32 atoms x 4 B within 227 KB per block
     assert cuda_fisp.kernel_fits(301) and not cuda_fisp.kernel_fits(302)
-    assert cuda_fisp.block_size(10) == 128
-    assert cuda_fisp.block_size(100) == 64
-    assert cuda_fisp.block_size(301) == 32
+    # the kernels it gates keep their planes in registers: the DESS primal
+    # kernel (dess.cu) at most 12 rows per lane on at most 26 lanes, its
+    # block's shared memory the chunk's table alone
     for n in (1, 10, 40, 150, 301):
-        assert (24 * (n + 1) * cuda_fisp.block_size(n)
-                <= cuda_fisp.SMEM_PER_BLOCK)
+        geo = cuda_dess.dess_geometry(n)
+        assert geo["R"] <= 12 and geo["W"] * geo["R"] >= n + 1
+        assert geo["W"] <= 26 and geo["smem"] == 4 * 32 * 8
+    assert cuda_dess.dess_geometry(301)["W"] == 26
 
 
 @pytest.mark.parametrize("case", FULL_CASES[::3] + FULL_CASES[1::4],
@@ -138,8 +144,24 @@ def test_full_ladder_gate_and_diffusion():
     # 6 planes x (2 nstate + 1) rows x 32 atoms x 4 B within 227 KB
     assert cuda_fisp.full_kernel_fits(150)
     assert not cuda_fisp.full_kernel_fits(151)
-    assert cuda_fisp.full_block_size(10) == 128
-    assert cuda_fisp.full_block_size(150) == 32
+    # nstate 0: the k = 0 row in registers, 128 threads, the table alone;
+    # deeper: the rows in shared memory beside the table, 128 threads
+    # halved while they do not fit (32 at the gate's nstate 150)
+    table = 4 * 8 * cuda_fisp.FULL_PULSES
+    assert cuda_fisp.full_geometry(0) == dict(
+        one=True, threads=128, pulses=32, smem=table)
+    assert cuda_fisp.full_geometry(10)["threads"] == 128
+    assert cuda_fisp.full_geometry(150)["threads"] == 32
+    for n in range(0, 151):
+        geo = cuda_fisp.full_geometry(n)
+        assert geo["one"] == (n == 0)
+        assert geo["smem"] == table + (24 * (2 * n + 1) * geo["threads"]
+                                       if n else 0)
+        assert geo["smem"] <= cuda_fisp.SMEM_PER_BLOCK
+        assert geo["threads"] in (32, 64, 128)
+        if geo["threads"] < 128:
+            assert (table + 24 * (2 * n + 1) * 2 * geo["threads"]
+                    > cuda_fisp.SMEM_PER_BLOCK)
     args, kw = _tensors(torch, *make_case(OPTION_CASES[7], 8, 10), "cpu")
     with pytest.raises(ValueError, match="half-ladder"):
         cuda_fisp.fisp_dictionary_cuda(*args, **{**kw, "nstate": 0})
@@ -240,10 +262,72 @@ def test_half_row_edges_cover_every_change():
 
 def test_fisp_gates_unchanged():
     """kernel_fits (the FISP dictionary's gate, also DESS's, ME-GRE's and
-    DW-FISP's) and block_size (dess.cu launches with it) over
-    nstate 0-400 answer as the thread-per-atom layout set them: fits up to
-    nstate 301; 128 threads to nstate 74, 64 to 150, 32 above."""
+    DW-FISP's) and full_kernel_fits (the full ladder's) over nstate 0-400
+    answer as the thread-per-atom layouts set them: fits up to nstate 301
+    and 150; every nstate they admit has a launch geometry of the
+    register-resident kernels (dess.cu: at most 12 rows per lane on at
+    most a warp) and of the full ladder (within a block's shared
+    memory)."""
     for n in range(401):
         assert cuda_fisp.kernel_fits(n) == (n <= 301), n
-        assert cuda_fisp.block_size(n) == (128 if n <= 74 else 64
-                                           if n <= 150 else 32), n
+        assert cuda_fisp.full_kernel_fits(n) == (n <= 150), n
+        if cuda_fisp.kernel_fits(n):
+            geo = cuda_dess.dess_geometry(n)
+            assert geo["R"] <= 12 and geo["W"] <= 32, n
+        if cuda_fisp.full_kernel_fits(n):
+            assert (cuda_fisp.full_geometry(n)["smem"]
+                    <= cuda_fisp.SMEM_PER_BLOCK), n
+
+
+# -- the full-ladder kernel's nstate-0 instance: what it relies on --
+
+
+@pytest.mark.parametrize("case", [c for c in FULL_CASES if not c["nstate"]]
+                         + [dict(name="inv_n0", inversion=20.0, nstate=0),
+                            dict(name="inv_var_te_demod_n0", inversion=15.0,
+                                 var_te=True, demodulate=True, nstate=0)],
+                         ids=lambda c: c["name"])
+def test_full_ladder_nstate0_state_is_real_z(port_f64, monkeypatch, case):
+    """At nstate 0 the float64 full-ladder twin's F+ and F- planes are zero
+    after every pulse (the shift empties the one row) and Im Z stays 0
+    within 1e-15, over the full cases' options with and without the
+    inversion prologue (whose F+ and F- the first pulse carries): the
+    invariant the kernel's nstate-0 instance steps Z alone by."""
+    (FA, phi, TR, TE, T1, T2, B1, df), kw = make_full_case(case, 9, 40,
+                                                           seed=8)
+    t = lambda x: None if x is None else torch.as_tensor(x)  # noqa: E731
+    targs = (t(FA), t(phi), t(TR), TE if np.ndim(TE) == 0 else t(TE), t(T1),
+             t(T2), t(B1), t(df))
+    states = []
+    shift = cuda_fisp._shift_full
+
+    def record(s):
+        out = shift(s)
+        states.append(out)
+        return out
+
+    monkeypatch.setattr(cuda_fisp, "_shift_full", record)
+    re, _ = cuda_fisp.fisp_full_echoes_plain(*targs, **kw)
+    assert re.dtype == torch.float64 and len(states) == 40
+    for s in states:
+        assert all(p.shape == (1, 9) for p in s)
+        assert all(torch.equal(p, torch.zeros_like(p)) for p in s[:4])
+        assert float(s[5].abs().max()) <= 1e-15
+        assert torch.isfinite(s[4]).all()
+
+
+# -- the twins against the JAX kernels across a 32-pulse chunk boundary --
+
+
+@pytest.mark.parametrize("case", FULL_CASES, ids=lambda c: c["name"])
+def test_full_ladder_twin_matches_pallas_kernel_33_pulses(port_f32, case):
+    """The full-ladder twin vs the JAX kernel in interpret mode on a
+    33-pulse train (the kernel's table holds 32 pulses a chunk), 40 atoms:
+    1e-5, as the option cases."""
+    args, kw = make_full_case(case, 40, 33, seed=9)
+    re, im = fisp_dictionary_pallas(*args, interpret=True, btile=128,
+                                    half_ladder=False, **kw)
+    targs, tkw = _tensors(torch, args, kw, "cpu")
+    got = cplx(*cuda_fisp.fisp_full_ladder_cuda(*targs, **tkw))
+    assert got.shape == (40, 33)
+    assert np.abs(got - cplx(re, im)).max() < 1e-5

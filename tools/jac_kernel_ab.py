@@ -67,7 +67,14 @@ after one warm-up, ``chip_smoke._cuda_ms``) at the main-path shapes:
   atoms x 500 pulses (``chip_smoke.bssfp_atoms`` /
   ``bssfp_bench_sequence`` through ``fisp_dispatch.match_bssfp``, as
   ``phase_bssfp_path``: TR varies every pulse): the wrapper calls and
-  the kernel alone.
+  the kernel alone;
+* ``fisp_full``: ``fisp_dictionary_cuda(nstate=0)`` on the FISP headline
+  train's matched parameters, 102,400 atoms x 1000 pulses
+  (``chip_smoke.fisp_sequence`` through ``fisp_dispatch.match_fisp``, as
+  ``phase_full_path``: TR and TE repeat every pulse); ``dess``: the DESS
+  mapping train, 262,144 voxels x 48 TRs, nstate 8 (``chip_smoke.
+  dess_truth`` / ``dess_map_sequence`` through ``fisp_dispatch.
+  match_dess``): the wrapper calls and the kernel alone.
 
 ``--kernels`` times only the named ones (default: all).  ``--fits`` also
 runs, twice per turn, the end-to-end fits and calls that take the chosen
@@ -87,8 +94,9 @@ phase_mprage_mapping``) and the cardiac MRF T1/T2 mapping
 ``simulate()`` and the T2/B0 mapping (``chip_smoke.phase_b0_mapping``: 8
 iterations) and for ``bssfp`` the memoized bSSFP ``simulate()`` and the
 bSSFP MRF serving (``chip_smoke.phase_bssfp_serving``: 4 starts x 10
-Gauss-Newton iterations) -- and keeps the second run's host-clock
-times, in ms.
+Gauss-Newton iterations), for ``dess`` the memoized DESS mapping train's
+``simulate()`` and the DESS T1/T2 mapping -- and keeps the second run's
+host-clock times, in ms.
 
 Two knobs time the primal kernels' geometry: ``--blocks N [N ...]`` times
 ``fisp_half`` and ``composite`` of a checkout whose kernels run one thread
@@ -130,7 +138,7 @@ SHAPES = {"fisp": (102400, 1000), "megre": (262144, 200)}
 KERNELS = ("fisp_jac", "megre_jac", "fisp_hess", "composite_jac",
            "xgre_jac", "dess_jac", "cpmg", "xcomposite_jac", "fisp_half",
            "fisp_half_dw", "composite", "xgre", "xgre_bssfp", "xcomposite",
-           "megre", "bssfp")
+           "megre", "bssfp", "fisp_full", "dess")
 
 
 def turn(root, reps, kernels, fits, blocks=(), rows=(), nstates=()):
@@ -216,6 +224,7 @@ def turn(root, reps, kernels, fits, blocks=(), rows=(), nstates=()):
     _primal(root, reps, kernels, fits, out, blocks, rows)
     _xprimal(reps, kernels, fits, out, rows, nstates)
     _ssfp_primal(reps, kernels, fits, out, rows, nstates)
+    _full_dess(reps, kernels, fits, out)
     log = _build.build_info()["log"].splitlines()
     out["ptxas"] = [f"{a.split('for')[-1].strip()[-48:]}: {b.strip()}; "
                     f"{c.strip()}"
@@ -229,7 +238,8 @@ def turn(root, reps, kernels, fits, blocks=(), rows=(), nstates=()):
                                              "composite_kernel",
                                              "xgre_kernel", "xcomp_kernel",
                                              "megre_kernel",
-                                             "bssfp_kernel"))]
+                                             "bssfp_kernel", "fisp_full",
+                                             "dess_kernel"))]
     out["build_s"] = _build.build_info()["seconds"]
     print(json.dumps(out))
 
@@ -552,6 +562,46 @@ def _ssfp_primal(reps, kernels, fits, out, rows, nstates=()):
         if "bssfp" in want:
             out["mrf_bssfp_gn_ms"] = 1e3 * cs.phase_bssfp_serving(
                 torch, epg)["gn_s"]
+
+
+def _full_dess(reps, kernels, fits, out):
+    """The full-ladder kernel's and the primal DESS kernel's times into
+    `out`: ``fisp_full`` (the dictionary's nstate-0 route on the FISP
+    headline train) and ``dess`` (the DESS mapping train), the wrapper
+    calls and the kernels alone; with `fits`, the memoized ``simulate()``
+    of the DESS mapping train and the DESS T1/T2 mapping."""
+    import torch
+
+    import chip_smoke as cs
+    import epgpy_torch as epg
+    from epgpy_torch import fisp_dispatch
+    from epgpy_torch.models import cuda_dess, cuda_fisp
+
+    calls, dseq = {}, None
+    if "fisp_full" in kernels:
+        natoms, P = SHAPES["fisp"]
+        T1, T2, B1 = cs.make_atoms(natoms)
+        fseq = cs.fisp_sequence(epg, cs.make_train(P), T1, T2, B1)
+        fargs = cs._match_args(fisp_dispatch, fisp_dispatch.match_fisp(fseq))
+        calls["fisp_full"] = (lambda: cuda_fisp.fisp_dictionary_cuda(
+            *fargs, nstate=0), "epg_fisp_full")
+    if "dess" in kernels:
+        T1, T2, _, _ = cs.dess_truth()
+        dseq = cs.dess_map_sequence(epg, T1, T2)
+        dargs = cs._match_args(fisp_dispatch, fisp_dispatch.match_dess(dseq))
+        calls["dess"] = (lambda: cuda_dess.dess_echoes(
+            *dargs, nstate=cs.DESS_NSTATE), "epg_dess")
+    for key, (fn, symbol) in calls.items():
+        out[f"{key}_ms"] = cs._cuda_ms(torch, fn, reps)
+        out[f"{key}_kernel_ms"] = cs._launch_ms(torch, fn, symbol, reps)
+    if not fits or dseq is None:
+        return
+    for _ in range(2):      # the first run warms the host paths
+        out["dess_simulate_ms"] = 1e3 * cs._host_s(
+            torch, lambda: epg.simulate(dseq, max_nstate=cs.DESS_NSTATE,
+                                        asarray=False))
+        out["dess_map_gn_ms"] = 1e3 * cs.phase_dess_mapping(torch,
+                                                            epg)["gn_s"]
 
 
 def main():
