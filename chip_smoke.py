@@ -27,8 +27,18 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    the float64 probe, and its columns the port's float64
    ``fisp_mrf_jacobian`` for the first 8 atoms;
 5. (printed with 6) the FISP numbers: simulate() end to end (first call
-   with the host-side match, then memoized) and the general operator loop
-   at 4096 atoms x 100 TRs;
+   with the host-side match, then memoized);
+4s. the planned general path: the headline train through
+   ``simulate(fisp_kernel=False)`` -- one periodic block of period 5 x
+   1000, its T slot stacked, its E slots precomputed -- as one memoized
+   CUDA graph replay (first call: plan, stacking, capture), against the
+   eager ``simulate_simple`` (run once), the fused kernel's dictionary and
+   the float64 probe; the same at 4096 x 100 beside the first eager
+   loop's time; an
+   inversion-recovery FISP train no kernel family claims (PD, RESET,
+   SPOILER between segments, a ScalarOp per TR) at 102,400 x 200 planned
+   against eager and float64; every planned operator class and an X train
+   through a capture; a callback plan runs eagerly;
 5b. serving: 8,192 off-grid voxels (seeded truth, noise 0.002, random
    complex PD) matched against the unnormalized phase-4 dictionary with
    ``parallel.mrf_reconstruct``, then 5 Gauss-Newton iterations whose
@@ -2210,12 +2220,6 @@ def phase_numbers(torch, epg, card, run):
     memo_s, nomemo_s = _memo_pair(torch, lambda: epg.simulate(
         seq, max_nstate=NSTATE, asarray=False))
 
-    g_atoms, g_pulses = 4096, 100
-    T1, T2, B1 = make_atoms(NATOMS)
-    gseq = fisp_sequence(epg, make_train(g_pulses), T1[:g_atoms],
-                         T2[:g_atoms], B1[:g_atoms])
-    gen_s = _host_s(torch, lambda: epg.simulate(
-        gseq, max_nstate=NSTATE, asarray=False, fisp_kernel=False))
 
     tag = f"({card})"
     print(f"[numbers] fisp_half kernel, {NATOMS} atoms x {NPULSE} pulses: "
@@ -2226,8 +2230,6 @@ def phase_numbers(torch, epg, card, run):
           f"{run['first_s']:.3f} s; memoized match: {memo_s:.4f} s "
           f"= {NATOMS / memo_s:.4g} atoms/s; with the preamble recomputed "
           f"each call {nomemo_s:.4f} s {tag}")
-    print(f"[numbers] general op loop, {g_atoms} atoms x {g_pulses} TRs: "
-          f"{gen_s:.4f} s = {g_atoms / gen_s:.4g} atoms/s {tag}")
     flops = linear_ops(torch, lambda n: cuda_fisp.fisp_echoes_plain(
         *_cpu_atoms(torch, args, n, (4, 5, 6, 7)), nstate=NSTATE), NATOMS)
     nbytes = tensor_bytes(torch, args, kernel())
@@ -6798,6 +6800,263 @@ def phase_x_numbers(torch, card, xg, xc, qmt, kfit):
     return entries
 
 
+#: the unclaimed train of the general path: IR_SEGMENTS inversion-recovery
+#: segments of IR_TRS FISP TRs (200 TRs in all), PD/RESET/SPOILER between
+#: them and a ScalarOp (a small per-TR saturation) in every TR
+IR_SEGMENTS, IR_TRS, IR_TI = 4, 50, 20.0
+#: the port's first eager op loop on an H100 80GB HBM3 (700 W), 4096
+#: atoms x 100 FISP TRs (ms)
+FIRST_EAGER_MS = 134.5
+
+
+def ir_fisp_train(epg, FA, T1, T2, B1, PD):
+    """An inversion-recovery FISP train no kernel family claims: each
+    segment sets the proton density (PD, reset=False) and resets to it,
+    inverts, waits IR_TI, spoils, then runs its TRs [T(FA*B1, 90), E(TE),
+    ADC, E(TR - TE), S(1), ScalarOp] (the ScalarOp a 0.5% saturation of
+    the transverse states)."""
+    sat = epg.ScalarOp([[0.995, 0.995, 1.0]], name="sat")
+    seq = []
+    for seg in range(IR_SEGMENTS):
+        seq += [epg.PD(PD, reset=False), epg.RESET, epg.T(180.0, 0.0),
+                epg.E(IR_TI, T1, T2), epg.SPOILER]
+        for fa in FA[seg * IR_TRS:(seg + 1) * IR_TRS]:
+            seq += [epg.T((fa * B1).astype(np.float32), 90),
+                    epg.E(TE, T1, T2), epg.ADC, epg.E(TR - TE, T1, T2),
+                    epg.S(1), sat]
+    return seq
+
+
+def op_zoo_trains(epg, natoms=64, ntr=8):
+    """Small trains through every operator class the general path plans:
+    T, E, P, R, Phi, S, D, ScalarOp, MatrixOp, CombinedOp, Adc with a
+    phase, Offset, Wait, NULL, System, SPOILER, PD, RESET and expression
+    probes; and a two-pool X train (density).  Returns [(name, seq,
+    simulate kwargs)]."""
+    rng = np.random.default_rng(7)
+    T1 = rng.uniform(300.0, 1500.0, natoms)
+    T2 = rng.uniform(20.0, 150.0, natoms)
+    g = rng.uniform(-0.02, 0.02, natoms)
+    c, s_ = np.cos(0.3), np.sin(0.3)
+    # a real rotation mixing F+ and F- (ladder-symmetric)
+    mat = np.array([[c * c, s_ * s_, 0.0], [s_ * s_, c * c, 0.0],
+                    [0.0, 0.0, 1.0]], dtype=complex)
+    sc = epg.ScalarOp([[0.98 + 0.01j, 0.98 - 0.01j, 0.99]],
+                      [[0.0, 0.0, 0.01]])
+    mo = epg.MatrixOp(mat)
+    comb = epg.E(2.0, T1, T2) @ epg.T(20.0, 45.0)
+    seq = [epg.T(90.0, 90.0), epg.System(kvalue=400.0, note=1.0)]
+    for i in range(ntr):
+        seq += [epg.T(30.0 + 5 * i, 0.0), epg.E(3.0, T1, T2, g),
+                epg.P(1.0, g), epg.R(0.01 + 0.02j, 0.01, r0=0.01),
+                epg.Phi(10.0 * i), epg.S(1), epg.D(3.0, 1e-3, k=1), sc, mo,
+                comb, epg.Adc(phase=-10.0 * i), epg.Offset(-1.0),
+                epg.Wait(1.0), epg.NULL, epg.S(-1), epg.ADC]
+    seq += [epg.SPOILER, epg.PD(rng.uniform(0.5, 1.0, natoms)), epg.ADC,
+            epg.T(40.0, 0.0), epg.RESET, epg.ADC]
+    khi = epg.exchange_matrix(0.01, axis=-1, ncomp=2, densities=[0.8, 0.2])
+    X = epg.X(10.0, khi, axis=-1, T1=[1000.0, 800.0], T2=[80.0, 20.0],
+              g=np.stack([g, g]))
+    xseq = []
+    for i in range(ntr):
+        xseq += [epg.T(20.0 + i, 0.0), epg.ADC, X, epg.S(1)]
+    # fisp_kernel=False: the EPG-X GRE family would claim the X train
+    return [("ops", seq, dict(probe=["F0", "Z0"], fisp_kernel=False)),
+            ("exchange", xseq, dict(max_nstate=8, density=[0.8, 0.2],
+                                    fisp_kernel=False))]
+
+
+def _eager(torch, epg, seq, probes=None, **kw):
+    """simulate_simple on the sequence's batch shape: the eager baseline
+    (the plain loop, no plan), values stacked per probe."""
+    sm = epg.StateMatrix([0, 0, 1], **kw).broadcast(epg.getshape(seq))
+    vals, _ = epg.simulate_simple(sm, seq, probes=probes,
+                                  max_nstate=kw.get("nstate"))
+    return tuple(torch.stack([v[i] for v in vals])
+                 for i in range(len(vals[0])))
+
+
+def _step_breakdown(torch, entry, natoms):
+    """Device ms of each slot's op of a plan's first block, applied once
+    to a (natoms, K, 3) state at repetition 0 (CUDA events, best of 5):
+    where a replayed step's time goes."""
+    from epgpy_torch import engine
+
+    import epgpy_torch as epg
+
+    template, slots = entry.payload[0]
+    sm = epg.T(30.0, 90.0)(epg.StateMatrix(nstate=NSTATE).broadcast(
+        (natoms,)))
+    out = {}
+    for j, slot in enumerate(slots):
+        op = slot[1] if slot[0] == "const" else slot[1].with_leaves(
+            [None if x is None else x[0] for x in slot[2]])
+        name = f"{type(template[j]).__name__}:{slot[0]}"
+        if isinstance(template[j], epg.Probe):
+            ms = _cuda_ms(torch, lambda: engine._acquire(op, None, sm))
+        else:
+            ms = _cuda_ms(torch, lambda: op(sm))
+        out[f"{j}:{name}"] = ms
+    return out
+
+
+def _graph_counts():
+    from epgpy_torch import engine
+
+    return dict(engine.GRAPH_COUNTS)
+
+
+def phase_general(torch, epg, card, main_run):
+    """The planned general path on the card: the FISP headline train at
+    full width through simulate(fisp_kernel=False) -- one periodic block,
+    run as one memoized CUDA graph replay -- against the eager
+    simulate_simple (once), the fused kernel's dictionary and the float64
+    probe; the same at 4096 x 100; the unclaimed IR-FISP train at 102,400
+    x 200 and the operator zoo, planned against eager.  Raises on any miss;
+    returns the numbers."""
+    from epgpy_torch import engine
+
+    tag = f"({card})"
+    seq = main_run["seq"]
+    engine._PLAN_CACHE.clear()
+    c0 = _graph_counts()
+
+    def planned():
+        return epg.simulate(seq, max_nstate=NSTATE, fisp_kernel=False,
+                            asarray=False)
+
+    out, first_s = _first_call(torch, planned)
+    entry = engine._plan_and_payload(engine.flatten_sequence(seq))
+    block = entry.payload[0][1] if entry.kinds[0][0] == "scan" else []
+    slots = [f"{sl[1].__class__.__name__}:{sl[0]}" for sl in block]
+    period = len(entry.payload[0][0]) if block else 0
+    print(f"[general] plan of the headline train: {list(entry.kinds)}, "
+          f"period {period}, slots {slots}; payload + graph "
+          f"{entry.nbytes / 1e6:.1f} MB")
+    want = ["T:stack", "PrecomputedDiagonal:const", "Adc:const",
+            "PrecomputedDiagonal:const", "S:const"]
+    if entry.kinds != (("scan", NPULSE),) or slots != want:
+        raise AssertionError(f"unexpected plan {entry.kinds} {slots}")
+    memo_s = _host_s(torch, planned, reps=3)
+    c1 = _graph_counts()
+    if (c1["captures"] - c0["captures"], c1["replays"] - c0["replays"]) \
+            != (1, 4):
+        raise AssertionError(f"graph counts {c0} -> {c1}: expected one "
+                             f"capture and four replays")
+    breakdown = _step_breakdown(torch, entry, NATOMS)
+    print(f"[general] one step's device time by slot (CUDA events, eager, "
+          f"best of 5): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                      breakdown.items())
+          + f"; sum {sum(breakdown.values()):.4f} ms per TR {tag}")
+    ref8 = reference_probe()
+    probe_err = float(np.abs(out[:, :8].cpu().numpy().T - ref8).max())
+    kern_err = float((out - main_run["dictionary"]).abs().max())
+    sm0 = dict(nstate=NSTATE)
+    eager, eager_s = _first_call(torch, lambda: _eager(torch, epg, seq,
+                                                       **sm0)[0])
+    eager_err = float((out - eager).abs().max())
+    del eager
+    print(f"[general] {NATOMS} atoms x {NPULSE} TRs: first call (plan, "
+          f"stacking, capture, replay) {first_s:.3f} s; memoized replay "
+          f"{memo_s:.4f} s = {NATOMS / memo_s:.4g} atoms/s; eager "
+          f"simulate_simple (once) {eager_s:.3f} s {tag}")
+    print(f"[general] max|planned - eager| = {eager_err:.3e}, max|planned "
+          f"- fused kernel| = {kern_err:.3e} (limit {TOL_KERNEL}), 8-atom "
+          f"float64 probe {probe_err:.3e} (limit {TOL_PROBE})")
+    if not (eager_err <= TOL_KERNEL and kern_err <= TOL_KERNEL
+            and probe_err <= TOL_PROBE):
+        raise AssertionError("general path: planned result off")
+    del out
+
+    # the first eager loop's shape: 4096 atoms x 100 TRs
+    g_atoms, g_pulses = 4096, 100
+    T1, T2, B1 = make_atoms(NATOMS)
+    gseq = fisp_sequence(epg, make_train(g_pulses), T1[:g_atoms],
+                         T2[:g_atoms], B1[:g_atoms])
+    small, small_first = _first_call(torch, lambda: epg.simulate(
+        gseq, max_nstate=NSTATE, fisp_kernel=False, asarray=False))
+    small_memo = _host_s(torch, lambda: epg.simulate(
+        gseq, max_nstate=NSTATE, fisp_kernel=False, asarray=False))
+    small_eager = _host_s(torch, lambda: _eager(torch, epg, gseq, **sm0),
+                          reps=3)
+    small_err = float((small - _eager(torch, epg, gseq, **sm0)[0]).abs()
+                      .max())
+    print(f"[general] {g_atoms} atoms x {g_pulses} TRs: first call "
+          f"{small_first:.3f} s, memoized replay {small_memo * 1e3:.3f} ms, "
+          f"eager simulate_simple {small_eager * 1e3:.3f} ms (the first "
+          f"eager loop {FIRST_EAGER_MS} ms); max|planned - eager| "
+          f"{small_err:.3e} "
+          f"{tag}")
+    if not small_err <= TOL_KERNEL:
+        raise AssertionError(f"4096 x 100 planned vs eager {small_err:.3e}")
+
+    # the unclaimed train: IR-FISP with PD/RESET/SPOILER and a ScalarOp
+    from epgpy_torch import fisp_dispatch
+
+    FA = make_train(IR_SEGMENTS * IR_TRS)
+    PD = np.random.default_rng(3).uniform(0.5, 1.0, NATOMS)
+    iseq = ir_fisp_train(epg, FA, T1, T2, B1, PD)
+    fisp_dispatch.DISPATCH_COUNTS.clear()
+    ir, ir_first = _first_call(torch, lambda: epg.simulate(
+        iseq, max_nstate=NSTATE, asarray=False))
+    if fisp_dispatch.DISPATCH_COUNTS:
+        raise AssertionError(f"a kernel family claimed the IR train: "
+                             f"{fisp_dispatch.DISPATCH_COUNTS}")
+    ir_entry = engine._plan_and_payload(engine.flatten_sequence(iseq))
+    ir_memo = _host_s(torch, lambda: epg.simulate(
+        iseq, max_nstate=NSTATE, asarray=False), reps=3)
+    ir_eager, ir_eager_s = _first_call(
+        torch, lambda: _eager(torch, epg, iseq, **sm0)[0])
+    ir_err = float((ir - ir_eager).abs().max())
+    del ir_eager
+    with cpu_float64(epg.config):
+        ref = epg.simulate(ir_fisp_train(epg, FA, T1[:8], T2[:8], B1[:8],
+                                         PD[:8]), max_nstate=NSTATE)
+    ir_probe = float(np.abs(ir[:, :8].cpu().numpy() - ref).max())
+    print(f"[general] IR-FISP ({IR_SEGMENTS} x {IR_TRS} TRs, PD/RESET/"
+          f"SPOILER, a ScalarOp per TR), {NATOMS} atoms: plan "
+          f"{'/'.join(k[0] if k[0] == 'unroll' else f'scan x{k[1]}' for k in ir_entry.kinds)}; "
+          f"first call {ir_first:.3f} s, memoized replay {ir_memo:.4f} s, "
+          f"eager simulate_simple (once) {ir_eager_s:.3f} s {tag}")
+    print(f"[general] IR-FISP max|planned - eager| = {ir_err:.3e} (limit "
+          f"{TOL_KERNEL}), 8-atom float64 {ir_probe:.3e} (limit "
+          f"{TOL_PROBE})")
+    if not (ir_err <= TOL_KERNEL and ir_probe <= TOL_PROBE):
+        raise AssertionError("IR-FISP planned result off")
+    del ir
+
+    # every operator class through a capture, and the eager reasons
+    zoo_err = 0.0
+    for name, zseq, kw in op_zoo_trains(epg):
+        probes = ([epg.Probe(p) for p in kw["probe"]] if "probe" in kw
+                  else None)
+        got = epg.simulate(zseq, asarray=False, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        init = {"density": kw["density"], "nstate": kw["max_nstate"]} \
+            if "density" in kw else {}
+        want = _eager(torch, epg, zseq, probes, **init)
+        zoo_err = max([zoo_err] + [float((a - b).abs().max())
+                                   for a, b in zip(got, want)])
+    c2 = _graph_counts()
+    cb = []
+    epg.simulate(zseq, callback=lambda sm: cb.append(1), **{
+        k: v for k, v in kw.items() if k != "probe"})
+    if _graph_counts() != c2 or not cb:
+        raise AssertionError("a callback plan went through a graph")
+    print(f"[general] operator zoo (every planned op class, 64 atoms) and "
+          f"a two-pool X train: max|graph - eager| = {zoo_err:.3e} (limit "
+          f"{TOL_KERNEL}); a callback plan ran eagerly; graph counts "
+          f"{_graph_counts()}")
+    if not zoo_err <= TOL_KERNEL:
+        raise AssertionError(f"operator zoo {zoo_err:.3e}")
+    engine._PLAN_CACHE.clear()
+    return dict(first_s=first_s, memo_s=memo_s, eager_s=eager_s,
+                eager_err=eager_err, kern_err=kern_err, probe_err=probe_err,
+                small=(small_first, small_memo, small_eager),
+                ir=(ir_first, ir_memo, ir_eager_s, ir_err, ir_probe),
+                zoo_err=zoo_err)
+
+
 def _memo_pair(torch, fn, reps=5):
     """Host-clock seconds of a memoized simulate() call fn(), with the
     preamble memo kept and with it cleared before every call (the matcher's
@@ -6881,6 +7140,7 @@ def main():
               f"{TOL_JAC_KERNEL})")
     main_run = _timed(phase_main_path, torch, epg)
     full_run = _timed(phase_full_path, torch, main_run)
+    general = _timed(phase_general, torch, epg, card, main_run)
     jac_run = _timed(phase_jac_path, torch, epg)
     serve = _timed(phase_serving, torch, epg, main_run.pop("dictionary"))
     hess_run = _timed(phase_hess_path, torch, epg)
@@ -6976,6 +7236,16 @@ def main():
     entry["launches"] += serve["launches"]["fisp_half"] + dwf["launches"]
     jac_entry["launches"] += (serve["launches"]["fisp_jac"]
                               + dwf["jac_launches"])
+    print(f"[numbers] general path, {NATOMS} atoms x {NPULSE} TRs: planned "
+          f"first call {general['first_s']:.3f} s, memoized CUDA graph "
+          f"replay {general['memo_s']:.4f} s, eager simulate_simple "
+          f"{general['eager_s']:.3f} s; 4096 x 100 memoized "
+          f"{general['small'][1] * 1e3:.3f} ms against eager "
+          f"{general['small'][2] * 1e3:.3f} ms (first eager loop: "
+          f"{FIRST_EAGER_MS} ms); "
+          f"IR-FISP {NATOMS} x {IR_SEGMENTS * IR_TRS} memoized "
+          f"{general['ir'][1]:.4f} s against eager {general['ir'][2]:.3f} s "
+          f"({card})")
     per = serve["per_iter"]
     print(f"[numbers] serving, {NVOX} voxels x {NATOMS} atoms: match "
           f"{serve['match_s'] * 1e3:.1f} ms; Gauss-Newton per iteration "

@@ -8,43 +8,80 @@ the same names:
 >>> seq = [epg.T(90, 90)] + [epg.S(1), epg.T(150, 0), epg.S(1), epg.ADC] * 20
 >>> signal = epg.simulate(epg.modify(seq, T2=[30, 40, 50]))
 
-This port covers the operators T/E/P/R/S(int)/ADC with order1/order2
-derivative specs, the StateMatrix, the eager general engine, Jacobian and
-Hessian probes (``diff.py``: forward-mode autodiff through the operator
-loop), the FISP MR-fingerprinting models, the fused FISP dictionary
-(folded and full ladder), Jacobian and per-pulse Hessian kernels, the
-CPMG, balanced-SSFP, DESS and multi-echo GRE dictionary and Jacobian
-kernels for the H100 (``models/cuda_*.py``, ``csrc/*.cu``), which
-``simulate()`` dispatches to on CUDA in float32 (DW-FISP trains through
-the FISP kernels' diffusion attenuation),
-the steady-state sequences (``bssfp_sequence``, ``dess_sequence``,
+This port covers the operator core -- T/Tx/Ty/Phi/E/P/R/S(int)/D/X, the
+user classes ScalarOp and MatrixOp, CombinedOp (``combine``, ``@``), the
+utility operators SPOILER, RESET, PD, System, Offset, NULL, callable and
+expression probes (``"F0"``, ``"Z0"``) and Adc -- with order1/order2
+derivative specs; the StateMatrix and its options; the general engine
+(``simulate``: ``squeeze_sequence``, the scan planner of periodic blocks
+with precomputed relaxation, run on the card as one memoized CUDA graph;
+``callback``, ``init``, ``nstate``, ``equilibrium``, ``system``, ...);
+Jacobian and Hessian probes (``diff.py``: forward-mode autodiff through
+the operator loop); and the nineteen hand-written Hopper kernels
+(``models/cuda_*.py``, ``csrc/*.cu``) that ``simulate()`` dispatches to on
+CUDA in float32: the FISP dictionary (folded and full ladder), its
+Jacobian and per-pulse Hessian, CPMG (DW-TSE included) and its Jacobian
+and design tangents, bSSFP, DESS, multi-echo GRE, DW-FISP, composite
+stage trains (MPRAGE, cardiac MRF) and the EPG-X GRE and composite
+trains, each with its Jacobian.  Beside them: the FISP MR-fingerprinting
+models, the steady-state sequences (``bssfp_sequence``, ``dess_sequence``,
 ``spgr_sequence``), CRLB statistics (``stats``), MRF serving and sequence
 design (``parallel``: dictionary match, reconstruction, Gauss-Newton
-refinement, CRLB design of the MRF train).
+refinement, CRLB designs of the MRF and TSE trains).  ``epgpy_torch.epg``
+is the flat scripting namespace.
 """
 
 from . import config, stats
 from .statematrix import StateMatrix
 from .ops import (
-    Operator, EmptyOperator, MultiOperator, DiffOperator, Wait,
+    Operator, EmptyOperator, MultiOperator, DiffOperator, CombinableOperator,
+    Wait, Offset, Spoiler, Reset, PD, System, NULL, SPOILER, RESET,
+    ScalarOp, MatrixOp, PrecomputedDiagonal, CombinedOp, combine,
     T, Tx, Ty, Phi, E, P, R, S, G, C, D, Probe, Adc, ADC, DFT, Imaging,
     X, exchange_matrix,
 )
-from .diff import Jacobian, Hessian, PartialsPruner
+from .diff import Jacobian, Hessian, Pair, PartialsPruner
 from .engine import (
-    simulate, simulate_simple, modify, flatten_sequence, getshape,
-    getnshift, get_adc_times,
+    simulate, simulate_simple, modify, flatten_sequence, squeeze_sequence,
+    getshape, getnshift, getkdim, get_adc_times,
 )
 from .models.ssfp import bssfp_sequence, dess_sequence, spgr_sequence
+from .utils import (
+    gamma_1H, gamma_23Na, Axes, get_norm, get_wavenumber, spatial_range,
+    space_to_freq, freq_to_space, saturation_rate, absorption_rate,
+)
+from .utils.helpers import cexp, progressbar
+
+#: reference epgpy/utils.py:5 -- np.newaxis alias used in probe expressions
+NAX = None
+
+
+def check_states(states):
+    """Ladder conjugate-symmetry check (reference epgpy/utils.py:118-121)."""
+    import numpy as _np
+    if hasattr(states, "detach"):
+        states = states.detach().cpu().numpy()
+    states = _np.asarray(states)
+    return bool(_np.allclose(states,
+                             states[..., ::-1, :][..., (1, 0, 2)].conj()))
+
 
 __all__ = [
-    "config", "StateMatrix", "Operator", "EmptyOperator", "MultiOperator",
-    "DiffOperator", "Wait", "T", "Tx", "Ty", "Phi", "E", "P", "R", "S", "G",
-    "C", "D", "Probe", "Adc", "ADC", "DFT", "Imaging", "X", "exchange_matrix",
-    "Jacobian", "Hessian",
-    "PartialsPruner", "simulate", "simulate_simple",
-    "modify", "flatten_sequence", "getshape", "getnshift", "get_adc_times",
-    "bssfp_sequence", "dess_sequence", "spgr_sequence",
+    "config", "stats", "StateMatrix", "Operator", "EmptyOperator",
+    "MultiOperator", "DiffOperator", "CombinableOperator", "Wait", "Offset",
+    "Spoiler", "Reset", "PD", "System", "NULL", "SPOILER", "RESET",
+    "ScalarOp", "MatrixOp", "PrecomputedDiagonal", "CombinedOp", "combine",
+    "T", "Tx", "Ty", "Phi", "E", "P", "R", "S", "G", "C", "D", "Probe",
+    "Adc", "ADC", "DFT", "Imaging", "X", "exchange_matrix", "Jacobian",
+    "Hessian", "Pair", "PartialsPruner", "simulate", "simulate_simple",
+    "modify", "flatten_sequence", "squeeze_sequence", "getshape",
+    "getnshift", "getkdim", "get_adc_times", "bssfp_sequence",
+    "dess_sequence", "spgr_sequence", "gamma_1H", "gamma_23Na", "Axes",
+    "get_norm", "get_wavenumber", "spatial_range", "space_to_freq",
+    "freq_to_space", "saturation_rate", "absorption_rate", "cexp",
+    "progressbar", "NAX", "check_states", "epg",
 ]
+
+from . import epg  # noqa: E402  (after the names it re-exports)
 
 __version__ = "0.1.0"

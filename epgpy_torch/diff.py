@@ -202,28 +202,44 @@ def substitute(op, eps: Dict[str, torch.Tensor]):
     """Copy `op` with tracked parameters shifted by the eps expansion:
     linear deltas ``sum_v c1 eps_v`` and the order2 curvature terms
     ``c2 eps_v eps_w`` (scale 1/2 on the diagonal), which reach the
-    Hessian only.  Ops without specs are returned as they are."""
+    Hessian only.  Operators with user derivative arrays (ScalarOp
+    ``darrs`` / MatrixOp ``dmats``) shift their coefficients by them; a
+    CombinedOp substitutes its constituents.  Ops without specs are
+    returned as they are."""
+    from .ops.combined import CombinedOp
+
+    if isinstance(op, CombinedOp):
+        subs = [substitute(sub, eps) for sub in op.ops]
+        if all(s is o for s, o in zip(subs, op.ops)):
+            return op
+        return CombinedOp(subs, name=op.name, duration=op.duration)
     order1 = getattr(op, "order1", {}) or {}
     order2 = getattr(op, "order2", {}) or {}
     if not order1:
         return op
-    delta: Dict[str, object] = {}
+    lin: Dict[str, object] = {}
+    quad: Dict[str, object] = {}
 
-    def add(param, term):
-        delta[param] = term if param not in delta else delta[param] + term
+    def add(terms, param, term):
+        terms[param] = term if param not in terms else terms[param] + term
 
     for var, coeffs in order1.items():
         if var in eps:
             for param, c in coeffs.items():
-                add(param, _param_tensor(c) * eps[var])
+                add(lin, param, _param_tensor(c) * eps[var])
     for (v1, v2), coeffs in order2.items():
         if v1 in eps and v2 in eps:
             scale = 0.5 if v1 == v2 else 1.0
             for param, c in coeffs.items():
-                add(param, scale * _param_tensor(c) * eps[v1] * eps[v2])
+                add(quad, param, scale * _param_tensor(c) * eps[v1]
+                    * eps[v2])
     new = copy.copy(op)
     new.order1, new.order2 = {}, {}
-    for param, d in delta.items():
+    handled = set()
+    if getattr(op, "diff_arrays", None) is not None:
+        handled = new.apply_diff_arrays(lin, quad)
+    for param in (set(lin) | set(quad)) - handled:
+        d = lin.get(param, 0.0) + quad.get(param, 0.0)
         old = getattr(new, param, None)
         if param not in op.PARAMETERS_ORDER1 or old is None:
             raise ValueError(f"Cannot substitute parameter {param!r} on "

@@ -1,6 +1,6 @@
 """Simulation engine: run an operator sequence, return the probe values.
 
-Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
+Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :362-1277).
 ``simulate()`` has two routes:
 
 * **the kernel dispatch**: a family table (JAX ``engine.py:874-940``)
@@ -36,16 +36,23 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :778-1277).
   running the kernels' plain twins for the CPU; ``False`` opts out.
   Whenever a call does not take a kernel, one INFO line says why (device,
   precision, off-pattern op or probe, shared-memory gate);
-* **the general path**: the eager operator loop of ``simulate_simple``
-  over a StateMatrix broadcast to the sequence's batch shape (for
-  Jacobian and Hessian probes, forward-mode autodiff through it:
-  diff.simulate_diff).
-  It stands in for the JAX package's scan planner, which is not ported
-  yet.
+* **the general path**: the JAX package's scan planner
+  (``_build_plan``, ``_stack_block``, ``_plan_and_payload``,
+  ``_execute_plan``): the flat op list becomes unrolled runs and
+  periodic blocks whose slots are applied as they are, precomputed
+  (E/P/R coefficients, X mixing matrices) or stacked over the
+  repetitions, every payload tensor on the working device.  On CUDA a
+  memoized call replays the planned program as one CUDA graph captured
+  on first use (``_replay``; the counterpart of ``_run_compiled``); a
+  plan with host work between ops (a callback, ``disp``, a callable
+  probe) runs eagerly, as every plan does on the CPU.  Jacobian and
+  Hessian probes run forward-mode autodiff through the plain eager loop
+  of ``simulate_simple`` (diff.simulate_diff).
 
 The ladder capacity is fixed up front from the sequence's total shift
-count, capped by ``max_nstate``; the count and the batch shape are
-memoized per operator list (``_sequence_preamble``, ``clear_caches``).
+count, capped by ``max_nstate`` (``nstate`` is a floor); the count and
+the batch shape are memoized per operator list (``_sequence_preamble``),
+plans and their graphs in ``_PLAN_CACHE`` (``clear_caches`` drops all).
 ``kvalue`` (rad/m per ladder index) scales the wavenumbers the diffusion
 operator reads.
 """
@@ -65,8 +72,8 @@ from .statematrix import StateMatrix
 LOGGER = logging.getLogger(__name__)
 
 __all__ = ["simulate", "simulate_simple", "modify", "default_modifier",
-           "flatten_sequence", "getshape", "getnshift", "get_adc_times",
-           "clear_caches"]
+           "flatten_sequence", "squeeze_sequence", "getshape", "getnshift",
+           "getkdim", "get_adc_times", "clear_caches"]
 
 
 # -- sequence introspection (host-side) --
@@ -117,11 +124,13 @@ _PREAMBLE_CACHE_MAX = 32
 
 
 def clear_caches():
-    """Drop the per-sequence preamble memo and the dispatch's match memo
-    (needed only after mutating an operator's arrays in place)."""
+    """Drop the per-sequence preamble memo, the plan cache (with its CUDA
+    graphs) and the dispatch's match memo (needed only after mutating an
+    operator's arrays in place)."""
     from . import fisp_dispatch
 
     _PREAMBLE_CACHE.clear()
+    _PLAN_CACHE.clear()
     fisp_dispatch.clear_cache()
 
 
@@ -149,23 +158,27 @@ def simulate_simple(sm, sequence, probes=None, callback=None, disp=False,
     sequence's own probe ops) at every Probe.  Returns ``(values,
     times)`` with ``values[i] = [probe values at the i-th probe op]``.
     The ladder is pre-sized to the sequence's shift count, capped at
-    `max_nstate` (the reference resizes inside each shift).
+    `max_nstate` (default: the state's ``max_nstate`` option; the
+    reference resizes inside each shift).  It plans nothing: the A/B
+    baseline of the planned general path of :func:`simulate`.
     """
+    from .utils.helpers import progressbar
+
     seq = flatten_sequence(sequence)
+    if max_nstate is None:
+        max_nstate = (getattr(sm, "options", None) or {}).get("max_nstate")
     ncap = _capacity(_sequence_preamble(seq, max_nstate, sm.kvalue)[0],
                      max_nstate)
     if sm.nstate < ncap:
         sm = sm.resize(ncap)
-    if disp:
-        LOGGER.info("simulate_simple: %d ops, nstate=%d", len(seq), ncap)
     tic = 0
     times, values = [], []
-    for op in seq:
+    for op in (progressbar(seq, "Simulating: ") if disp else seq):
         sm = op(sm)
         tic = tic + np.asarray(op.duration)
         if isinstance(op, probe_mod.Probe):
-            values.append([(pb if pb is not None else op).acquire(
-                sm, post=op.post) for pb in (probes or [op])])
+            values.append([_own((pb if pb is not None else op).acquire(
+                sm, post=op.post)) for pb in (probes or [op])])
             times.append(tic)
         elif callback is not None:
             callback(sm)
@@ -411,57 +424,551 @@ def _megre_jac_fits(params, ncap):
     return False
 
 
-def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,
-             disp: bool = False, max_nstate=None, fisp_kernel="auto",
-             probe=None, jacobian_chunk=None, kvalue=1.0, density=None,
-             init=None):
+# -- squeeze and the scan planner (JAX engine.py:362-395, 470-775) --
+
+
+def squeeze_sequence(sequence):
+    """Merge runs of adjacent combinable linear operators into one
+    CombinedOp each (JAX ``engine.squeeze_sequence``; the reference
+    declares this NotImplemented).  An op that tracks derivatives (an
+    ``order1`` spec) is never merged."""
+    out, run = [], []
+
+    def flush():
+        if len(run) == 1:
+            out.append(run[0])
+        elif run:
+            op = run[0]
+            for nxt in run[1:]:
+                op = op.combine(nxt)
+            out.append(op)
+        run.clear()
+
+    for op in flatten_sequence(sequence):
+        if (isinstance(op, base.CombinableOperator)
+                and not isinstance(op, probe_mod.Probe) and not op.order1):
+            run.append(op)
+        else:
+            flush()
+            out.append(op)
+    flush()
+    return out
+
+
+def getkdim(sequence) -> int:
+    """Number of gradient axes used by the sequence (1: integer 1-D
+    shifts are all the port has)."""
+    return max([getattr(op, "kdim", 1) for op in flatten_sequence(sequence)],
+               default=1)
+
+
+class _ScanBlock:
+    """`reps` repetitions of a `period`-operator block."""
+
+    __slots__ = ("ops", "period", "reps")
+
+    def __init__(self, ops, period, reps):
+        self.ops = ops
+        self.period = period
+        self.reps = reps
+
+
+def _build_plan(ops, *, min_reps=3, min_ops=6, max_period=64, scan=True):
+    """Split the op list into unrolled runs (lists) and periodic blocks
+    (:class:`_ScanBlock`): at each position the smallest period whose
+    block repeats at least `min_reps` times over at least `min_ops` ops
+    wins (JAX ``engine._build_plan``, same thresholds)."""
+    if not scan:
+        return [list(ops)]
+    sigs = [op.signature() for op in ops]
+    plan, buf, i, n = [], [], 0, len(ops)
+    while i < n:
+        best = None
+        for p in range(1, min(max_period, (n - i) // 2) + 1):
+            if sigs[i:i + p] != sigs[i + p:i + 2 * p]:
+                continue
+            r = 2
+            while (i + (r + 1) * p <= n
+                   and sigs[i + r * p:i + (r + 1) * p] == sigs[i:i + p]):
+                r += 1
+            if r >= min_reps and r * p >= min_ops:
+                best = (p, r)
+                break
+        if best:
+            if buf:
+                plan.append(buf)
+                buf = []
+            p, r = best
+            plan.append(_ScanBlock(ops[i:i + p * r], p, r))
+            i += p * r
+        else:
+            buf.append(ops[i])
+            i += 1
+    if buf:
+        plan.append(buf)
+    return plan
+
+
+def _device_leaf(x):
+    """A parameter as a tensor on the working device: complex values in
+    the complex working dtype, others in the real one (None passes)."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        dtype = (config.complex_dtype() if x.is_complex()
+                 else config.real_dtype())
+        return x.to(device=config.device(), dtype=dtype)
+    arr = np.asarray(x)
+    dtype = (config.complex_dtype() if np.iscomplexobj(arr)
+             else config.real_dtype())
+    return torch.as_tensor(arr, dtype=dtype, device=config.device())
+
+
+def _device_op(op):
+    """A copy of `op` whose parameters are tensors on the working device
+    (exchange ops with their mixing matrix computed), so that applying it
+    moves nothing from the host: what a CUDA graph capture requires."""
+    from .ops.combined import CombinedOp
+    from .ops.exchange import X, precompute_exchange
+
+    if isinstance(op, CombinedOp):
+        return op.copy(ops=[_device_op(o) for o in op.ops])
+    if type(op) is X:
+        pre = precompute_exchange(op)
+        if pre is not None:
+            return pre
+    leaves = op.leaves()
+    if not any(x is not None for x in leaves):
+        return op
+    return op.with_leaves([_device_leaf(x) for x in leaves])
+
+
+def _slot_invariant(ops) -> bool:
+    """True when every repetition of a block's slot (ops of one
+    signature: the same class and static configuration) is
+    parameter-identical.  Tensors compare by identity only (a value check
+    would cost a device to host copy); host values by
+    ``np.array_equal``."""
+    op0 = ops[0]
+    leaves0 = op0.leaves()
+    for op in ops[1:]:
+        if op is op0:
+            continue
+        for a, b in zip(leaves0, op.leaves()):
+            if a is b:
+                continue
+            if (a is None or b is None or isinstance(a, torch.Tensor)
+                    or isinstance(b, torch.Tensor)):
+                return False
+            a, b = np.asarray(a), np.asarray(b)
+            if (a.shape != b.shape or a.dtype != b.dtype
+                    or not np.array_equal(a, b)):
+                return False
+    return True
+
+
+def _stack_leaves(ops):
+    """Each parameter position of structurally identical ops stacked
+    along a new leading repetition axis, on the working device."""
+    columns = zip(*[op.leaves() for op in ops])
+    out = []
+    for col in columns:
+        if col[0] is None:
+            out.append(None)
+        elif any(isinstance(x, torch.Tensor) for x in col):
+            out.append(torch.stack([_device_leaf(x) for x in col]))
+        else:
+            out.append(_device_leaf(np.stack([np.asarray(x) for x in col])))
+    return out
+
+
+def _stack_block(block: _ScanBlock):
+    """The slots of a periodic block, one per position of its period:
+    ``("const", op)`` for a slot identical at every repetition (E/P/R
+    precomputed once, X with its mixing matrix, others on the device), or
+    ``("stack", template, leaves)`` with each parameter stacked over the
+    repetitions -- E/P/R as precomputed coefficients over the whole
+    repetition axis, T/Phi and the rest as their parameters (the rotation
+    is formed inside the step).  Step k applies
+    ``template.with_leaves([leaf[k] ...])``."""
+    from .ops.evolution import E, P, R
+    from .ops.scalarop import precompute_diagonal
+
+    p, r = block.period, block.reps
+    slots = []
+    for j in range(p):
+        ops_j = [block.ops[j + k * p] for k in range(r)]
+        if _slot_invariant(ops_j):
+            op = ops_j[0].strip_meta()
+            pre = precompute_diagonal(op) if isinstance(op, (E, P, R)) \
+                else None
+            slots.append(("const", _device_op(op) if pre is None else pre))
+            continue
+        template = ops_j[0].strip_meta()
+        leaves = _stack_leaves(ops_j)
+        if isinstance(template, (E, P, R)):
+            pre = precompute_diagonal(template.with_leaves(leaves), reps=r)
+            if pre is not None:
+                template, leaves = pre, pre.leaves()
+        slots.append(("stack", template, leaves))
+    return slots
+
+
+class _PlanEntry:
+    """A cached plan: the pinned operator list, the plan's kinds and
+    payload (tensors on the working device), its CUDA graphs and the
+    device bytes they hold."""
+
+    __slots__ = ("ops", "kinds", "payload", "nbytes", "graphs")
+
+    def __init__(self, ops, kinds, payload, nbytes):
+        self.ops = ops
+        self.kinds = kinds
+        self.payload = payload
+        self.nbytes = nbytes
+        self.graphs = {}
+
+
+#: plan cache: repeated simulate() calls on the same operator objects skip
+#: signatures, period detection, stacking and capture; entries pin their
+#: ops (ids stay valid) and are evicted oldest first past either limit
+_PLAN_CACHE: dict = {}
+_PLAN_CACHE_MAX = 16
+_PLAN_CACHE_MAX_BYTES = 6 * 1024 ** 3
+
+
+def _tensor_bytes(obj) -> int:
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (list, tuple)):
+        return sum(_tensor_bytes(x) for x in obj)
+    if isinstance(obj, base.Operator):
+        sub = getattr(obj, "ops", None)
+        return _tensor_bytes(obj.leaves()) + (_tensor_bytes(sub) if sub
+                                              else 0)
+    return 0
+
+
+def _evict(keep=None):
+    """Drop the oldest plans until both cache limits hold (`keep` stays)."""
+    while True:
+        total = sum(e.nbytes for e in _PLAN_CACHE.values())
+        if len(_PLAN_CACHE) <= _PLAN_CACHE_MAX and \
+                total <= _PLAN_CACHE_MAX_BYTES:
+            return
+        victim = next((k for k in _PLAN_CACHE if k != keep), None)
+        if victim is None:
+            return
+        _PLAN_CACHE.pop(victim)
+
+
+def _plan_and_payload(sequence, *, scan=True, cache=True):
+    """The cached :class:`_PlanEntry` of a flat operator list, keyed on
+    the operators' ids, `scan`, the working device and precision."""
+    key = (tuple(id(op) for op in sequence), scan, str(config.device()),
+           config.precision())
+    entry = _PLAN_CACHE.get(key) if cache else None
+    if entry is not None:
+        return entry
+    plan = _build_plan(sequence, scan=scan)
+    kinds = tuple(("unroll",) if isinstance(pl, list) else ("scan", pl.reps)
+                  for pl in plan)
+    payload = [[_device_op(op) for op in pl] if isinstance(pl, list)
+               else (pl.ops[:pl.period], _stack_block(pl)) for pl in plan]
+    entry = _PlanEntry(list(sequence), kinds, payload,
+                       sum(_tensor_bytes(pl[1] if isinstance(pl, tuple)
+                                         else pl) for pl in payload))
+    if cache:
+        _PLAN_CACHE[key] = entry
+        _evict(keep=key)
+    return entry
+
+
+def _own(value):
+    """A probe value that holds no view of the ladder: an ``F0`` read is
+    a view that would keep the whole step's ladder alive until the end
+    of the train (1000 ladders of 51.6 MB at the headline's width)."""
+    if isinstance(value, (tuple, list)):
+        return type(value)(_own(v) for v in value)
+    if isinstance(value, torch.Tensor) and value._base is not None:
+        return value.clone()
+    return value
+
+
+def _acquire(op, probes, sm):
+    """All probe values at a probe position (a tuple over probes)."""
+    return tuple(_own((pb if pb is not None else op).acquire(sm,
+                                                             post=op.post))
+                 for pb in (probes if probes is not None else [None]))
+
+
+def _execute_plan(kinds, payload, probes, sm, callback=None, disp=False,
+                  max_reps=None):
+    """Run the planned program (JAX ``engine._execute_plan``): returns
+    (sm, acquired), one tuple of probe values per probe position in
+    sequence order (a block's probe slots interleave rep-major).
+    ``max_reps`` runs at most that many repetitions of each block."""
+    from .utils.helpers import progressbar
+
+    acquired = []
+    for kind, pl in zip(kinds, payload):
+        if kind[0] == "unroll":
+            for op in (progressbar(pl, "Simulating: ") if disp else pl):
+                sm = op(sm)
+                if isinstance(op, probe_mod.Probe):
+                    acquired.append(_acquire(op, probes, sm))
+                elif callback is not None:
+                    callback(sm)
+            continue
+        template, slots = pl
+        probe_slots = {j for j, op in enumerate(template)
+                       if isinstance(op, probe_mod.Probe)}
+        reps = kind[1] if max_reps is None else min(kind[1], max_reps)
+        for k in range(reps):
+            for j, slot in enumerate(slots):
+                op = slot[1] if slot[0] == "const" else slot[1].with_leaves(
+                    [None if x is None else x[k] for x in slot[2]])
+                sm = op(sm)
+                if j in probe_slots:
+                    # the per-step op: probe parameters (an Adc phase)
+                    # vary across repetitions
+                    acquired.append(_acquire(op, probes, sm))
+    return sm, acquired
+
+
+def _stack_values(acquired):
+    """Per-probe values stacked over the ADC axis; a tuple-valued probe
+    (``Probe("(real(F0), imag(F0))")``) gives a tuple of stacks."""
+    out = []
+    for i in range(len(acquired[0])):
+        vals = [a[i] for a in acquired]
+        if isinstance(vals[0], (tuple, list)):
+            out.append(tuple(torch.stack([torch.as_tensor(v[c]) for v in vals])
+                             for c in range(len(vals[0]))))
+        else:
+            out.append(torch.stack([torch.as_tensor(v) for v in vals]))
+    return tuple(out)
+
+
+def _host_work(callback, disp, probes, sequence):
+    """Why the planned program must run eagerly (host work between ops:
+    a callback, the progress bar, a user-callable probe), or None."""
+    if callback is not None:
+        return "a callback runs after every operator"
+    if disp:
+        return "disp shows a progress bar"
+    for pb in list(probes or ()) + [op for op in sequence
+                                    if isinstance(op, probe_mod.Probe)]:
+        if getattr(pb, "_callable", None) is not None:
+            return f"probe {pb!r} calls user code"
+    return None
+
+
+class _Graph:
+    """A captured CUDA graph of a planned program: its static input
+    ladders, its output tensors and the device bytes it holds."""
+
+    __slots__ = ("graph", "states", "equilibrium", "outputs", "nbytes")
+
+
+#: CUDA graph captures and replays (counted for tests and chip_smoke.py)
+GRAPH_COUNTS = {"captures": 0, "replays": 0}
+
+
+def _freeze_probe(pb):
+    if pb is None:
+        return None
+    leaves = tuple(base._freeze(np.asarray(x)) if x is not None and
+                   not isinstance(x, torch.Tensor) else ("id", id(x))
+                   for x in pb.leaves())
+    return (pb.signature(), leaves)
+
+
+def _graph_key(sm, probes):
+    return (tuple(sm.states.shape), tuple(sm.equilibrium.shape),
+            sm.states.dtype, tuple(_freeze_probe(pb) for pb in probes or ()),
+            base._freeze(sm.kvalue), base._freeze(sm.tvalue),
+            base._freeze(sm.system), base._freeze(sm.options))
+
+
+def _capture(entry, probes, sm):
+    """Capture the planned program as one CUDA graph (after an eager
+    warm-up of every block's first repetition and the unrolled runs, on a
+    side stream: lazy module loading and library handles happen there).
+    A failure raises: a plan judged capturable never falls back."""
+    g = _Graph()
+    g.states = sm.states.clone()
+    g.equilibrium = sm.equilibrium.clone()
+    sm0 = sm.update(states=g.states, equilibrium=g.equilibrium)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _execute_plan(entry.kinds, entry.payload, probes, sm0, max_reps=1)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    g.graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g.graph):
+            _, acquired = _execute_plan(entry.kinds, entry.payload, probes,
+                                        sm0)
+            g.outputs = _stack_values(acquired)
+    except Exception as exc:
+        raise RuntimeError(f"simulate: CUDA graph capture of the planned "
+                           f"program failed ({exc}); a capturable plan does "
+                           f"not fall back to eager execution") from exc
+    g.nbytes = max(torch.cuda.memory_reserved() - before, 0) \
+        + 2 * _tensor_bytes([g.states, g.equilibrium])
+    GRAPH_COUNTS["captures"] += 1
+    return g
+
+
+def _replay(entry, probes, sm):
+    """The planned program's outputs through the plan's memoized CUDA
+    graph (captured on first use): the input ladders are copied into the
+    graph's static inputs, the outputs cloned out."""
+    key = _graph_key(sm, probes)
+    g = entry.graphs.get(key)
+    if g is None:
+        g = _capture(entry, probes, sm)
+        entry.graphs[key] = g
+        entry.nbytes += g.nbytes
+        _evict(keep=next((k for k, e in _PLAN_CACHE.items() if e is entry),
+                         None))
+    g.states.copy_(sm.states)
+    g.equilibrium.copy_(sm.equilibrium)
+    g.graph.replay()
+    GRAPH_COUNTS["replays"] += 1
+    return tuple(tuple(c.clone() for c in v) if isinstance(v, tuple)
+                 else v.clone() for v in g.outputs)
+
+
+def _check_exchanges(sequence, sm):
+    """The host conservation check of every exchange op, against the
+    initial state (the planned program applies their precomputed mixing
+    matrices, which do not check)."""
+    from .ops.exchange import X, _check_conservation
+
+    for op in sequence:
+        if type(op) is X and isinstance(op.khi, np.ndarray):
+            _check_conservation(op.khi, sm, op.axis, op.khi.shape[-1])
+
+
+def _run_general(sequence, probes, sm, callback, disp):
+    """The general path: the planned program (JAX ``_plan_and_payload`` /
+    ``_execute_plan``), one CUDA graph replay on the card unless host work
+    forces it eager, eager on the CPU.  Returns the per-probe values."""
+    entry = _plan_and_payload(sequence, scan=callback is None)
+    if disp:
+        LOGGER.info("simulate: %d-op program planned as %s", len(sequence),
+                    "/".join(k[0] if k[0] == "unroll" else f"scan x{k[1]}"
+                             for k in entry.kinds))
+    _check_exchanges(sequence, sm)
+    reason = _host_work(callback, disp, probes, sequence)
+    on_card = sm.states.is_cuda
+    if on_card and reason is None:
+        return _replay(entry, probes, sm)
+    if on_card:
+        LOGGER.info("simulate: planned program runs eagerly: %s", reason)
+    _, acquired = _execute_plan(entry.kinds, entry.payload, probes, sm,
+                                callback=callback, disp=disp)
+    return _stack_values(acquired)
+
+
+#: simulate() options consumed by the StateMatrix; anything else is logged
+#: and forwarded to ``StateMatrix.options`` (JAX ``_KNOWN_OPTIONS``)
+_KNOWN_OPTIONS = frozenset({"tvalue", "equilibrium", "nstate", "shape",
+                            "check", "system"})
+#: JAX options that need coordinate tables (ROADMAP queue 1, item 5)
+_TABLE_OPTIONS = ("kgrid", "prune", "coords")
+
+
+def simulate(sequence, *, adc_time: bool = False, init=None,
+             squeeze: bool = False, probe=None, callback=None,
+             asarray: bool = True, disp: bool = False, max_nstate=None,
+             fisp_kernel="auto", jacobian_chunk=None, kvalue=None,
+             density=None, **options):
     """Simulate an operator sequence; returns the ADC values.
 
-    API of ``epgpy_tpu.simulate`` (reference epgpy/functions.py:50-170)
-    for the options this port honours.  Without `probe`, returns an
-    (N_adc, *batch) complex array of the sequence's own ADC values.  With
-    `probe` (one probe or a list: ``Adc``, callables, ``diff.Jacobian``,
-    ``diff.Hessian``), returns one array per probe (a tuple for a list),
-    acquired at every ADC; a Jacobian is (N_adc, *batch, nvars), a Hessian
-    (N_adc, *batch, n1, n2).  Arrays
-    are numpy with ``asarray`` (default), else tensors on the working
-    device; with ``adc_time``, the ADC times come first.
-    ``jacobian_chunk=N`` pushes N tangent columns at a time on the
-    general diff path (N x N Hessian blocks; memory bound).  ``kvalue``
-    (rad/m per ladder index) sets the physical wavenumbers of D ops.
-    ``density`` sets the equilibrium (the per-compartment densities of
-    EPG-X trains, whose X ops mix ``states - equilibrium``); with it set
-    only the EPG-X kernel families take part.  ``init`` is the initial
-    state (a complex (..., K, 3) ladder, default ``[0, 0, 1]``); with it
-    set no kernel takes the train.
+    API of ``epgpy_tpu.simulate`` (reference epgpy/functions.py:50-170).
+    Without `probe`, returns an (N_adc, *batch) complex array of the
+    sequence's own ADC values.  With `probe` (one probe or a list:
+    ``Adc``, expression strings such as ``"F0"``/``"Z0"``, callables,
+    ``diff.Jacobian``, ``diff.Hessian``), returns one array per probe (a
+    tuple for a list), acquired at every ADC; a Jacobian is (N_adc,
+    *batch, nvars), a Hessian (N_adc, *batch, n1, n2).  Arrays are numpy
+    with ``asarray`` (default), else tensors on the working device; with
+    ``adc_time``, the ADC times come first.
+
+    ``squeeze`` merges adjacent linear ops first (:func:`squeeze_sequence`);
+    ``callback(sm)`` runs after every non-probe op; ``disp`` shows a
+    progress bar.  ``init`` is the initial state: a complex (..., K, 3)
+    ladder (default ``[0, 0, 1]``) or a StateMatrix (its options merged
+    under these).  Options: ``max_nstate`` (ladder cap), ``nstate`` (a
+    capacity floor), ``kvalue`` (rad/m per ladder index, the wavenumbers
+    D ops read), ``tvalue``, ``density`` / ``equilibrium``, ``shape``,
+    ``check``, ``system``; others are logged and forwarded to
+    ``StateMatrix.options``.  ``jacobian_chunk=N`` pushes N tangent columns
+    at a time on the general diff path.  With ``density`` set only the
+    EPG-X kernel families take part; with `init`, a callback or any of
+    the StateMatrix options, no kernel does.
     """
     from . import diff
 
+    for name in _TABLE_OPTIONS:
+        if name in options:
+            raise NotImplementedError(
+                f"simulate({name}=...) needs coordinate tables, not ported "
+                f"to epgpy_torch yet: ROADMAP queue 1, item 5")
+    unknown = set(options) - _KNOWN_OPTIONS
+    if unknown:
+        LOGGER.warning("simulate: unrecognized option(s) %s (forwarded to "
+                       "StateMatrix.options)", sorted(unknown))
     sequence = flatten_sequence(sequence)
+    if squeeze:
+        sequence = squeeze_sequence(sequence)
     if not any(isinstance(op, probe_mod.Probe) for op in sequence):
         raise ValueError("Cannot simulate sequence without at least one "
                          "Probe/ADC")
     probes = None
     if probe is not None:
-        probes = tuple(pb if isinstance(pb, probe_mod.Probe)
+        probes = tuple(pb if isinstance(pb, (probe_mod.Probe, type(None)))
                        else probe_mod.Probe(pb)
                        for pb in (probe if isinstance(probe, (tuple, list))
                                   else [probe]))
+    sm_init = init if isinstance(init, StateMatrix) else None
+    if sm_init is not None and max_nstate is None:
+        max_nstate = sm_init.options.get("max_nstate")
+    if kvalue is None:
+        kvalue = 1.0 if sm_init is None else sm_init.kvalue
     nshift, shape = _sequence_preamble(sequence, max_nstate, kvalue)
     ncap = _capacity(nshift, max_nstate)
     LOGGER.info("simulate: %d ops, nshift=%d, shape=%s", len(sequence),
                 nshift, shape)
-    use_kernel = fisp_kernel not in (False, None) and init is None
+    use_kernel = (fisp_kernel not in (False, None) and init is None
+                  and callback is None and not options)
 
     def initial_state():
+        n = ncap
+        if options.get("nstate") is not None:
+            n = max(n, int(options["nstate"]))
+        opts = {k: v for k, v in options.items() if k != "nstate"}
+        if max_nstate is not None:
+            opts.setdefault("max_nstate", max_nstate)
+        if sm_init is not None:
+            sm = sm_init.update(options={**sm_init.options, **opts})
+            return sm.resize(max(n, sm.nstate)).broadcast(shape)
         return StateMatrix([0, 0, 1] if init is None else init,
                            density=1.0 if density is None else density,
-                           nstate=ncap, kvalue=kvalue).broadcast(shape)
+                           nstate=n, kvalue=kvalue, **opts).broadcast(shape)
 
     values = None
     if probes is not None and any(isinstance(pb, (diff.Jacobian,
                                                   diff.Hessian))
                                   for pb in probes):
+        if any(pb is None for pb in probes):
+            raise ValueError("None probes are not supported with "
+                             "Jacobian/Hessian")
         if use_kernel and density is None:
             values = _diff_dispatch(sequence, probes, ncap, fisp_kernel,
                                     kvalue, disp)
@@ -482,19 +989,24 @@ def simulate(sequence, *, adc_time: bool = False, asarray: bool = True,
             if disp:
                 LOGGER.info("simulate: general path (%d ops, nstate=%d)",
                             len(sequence), ncap)
-            acquired, _ = simulate_simple(initial_state(), sequence,
-                                          probes=probes,
-                                          max_nstate=max_nstate)
-            values = tuple(torch.stack([v[i] for v in acquired])
-                           for i in range(len(acquired[0])))
+            values = _run_general(sequence, probes, initial_state(),
+                                  callback, disp)
     if asarray:
-        values = tuple(v.detach().cpu().numpy() for v in values)
+        values = tuple(_to_numpy(v) for v in values)
     if len(values) == 1:
         values = values[0]
     if adc_time:
         times = get_adc_times(sequence)
         return (np.asarray(times) if asarray else times), values
     return values
+
+
+def _to_numpy(v):
+    """One probe's output as a host array; a tuple-valued probe stacks its
+    components on axis 1 (the reference's per-ADC tuple layout)."""
+    if isinstance(v, (tuple, list)):
+        return np.stack([x.detach().cpu().numpy() for x in v], axis=1)
+    return v.detach().cpu().numpy()
 
 
 # -- modify (reference epgpy/functions.py:251-347) --

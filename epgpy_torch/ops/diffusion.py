@@ -85,6 +85,7 @@ class D(base.DiffOperator):
     (place it right after the matching S(k)).  The diffusivity is
     differentiable: ``order1=["Dcoef"]`` (or an alias ``{"D": "Dcoef"}``)."""
 
+    PARAMS = ("tau", "Dcoef", "kshift")
     PARAMETERS_ORDER1 = frozenset({"Dcoef"})
 
     def __init__(self, tau, D, k=None, *, name=None, duration=None,

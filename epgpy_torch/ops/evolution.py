@@ -9,7 +9,9 @@ epgpy/evolution.py:220-256):
 * ``P(tau, g)`` -- pure precession, ``rT = 2 i pi g tau``;
 * ``R(rT, rL, r0)`` -- generic evolution from complex rates.
 
-Times are in ms, off-resonance ``g`` in kHz.
+Times are in ms, off-resonance ``g`` in kHz.  All three are ScalarOps
+(scalarop.py): they combine with ``@`` and the scan planner precomputes
+their coefficients (``precompute_diagonal``).
 """
 
 from __future__ import annotations
@@ -21,8 +23,8 @@ import torch
 
 from .. import common, config
 from . import base
-from .scalarop import apply_coefficient_elements
-from .transition import _repr
+from .scalarop import ScalarOp, stack_elements
+from .base import _repr
 
 __all__ = ["E", "P", "R", "evolution_elements"]
 
@@ -39,11 +41,12 @@ def evolution_elements(rT, rL=None, r0=None):
     return elems, (None, None, 1 - torch.exp(-r0))
 
 
-class R(base.DiffOperator):
+class R(ScalarOp):
     """Generic evolution from complex rates: coefficients
     ``(conj(e^{-rT}), e^{-rT}, e^{-rL})`` plus recovery ``1 - e^{-r0}``
     (none when ``r0`` is None)."""
 
+    PARAMS = ("rT", "rL", "r0")
     PARAMETERS_ORDER1 = frozenset({"rT", "rL", "r0"})
 
     def __init__(self, rT=0, rL=0, *, r0=None, name=None, duration=None,
@@ -54,8 +57,8 @@ class R(base.DiffOperator):
             # order1=True must not try to differentiate an absent
             # recovery term (diff.substitute would shift a None)
             self.PARAMETERS_ORDER1 = frozenset({"rT", "rL"})
-        super().__init__(name=name or "R", duration=duration,
-                         order1=order1, order2=order2)
+        base.Operator.__init__(self, name=name or "R", duration=duration,
+                               order1=order1, order2=order2)
 
     @property
     def shape(self):
@@ -70,8 +73,8 @@ class R(base.DiffOperator):
             for x in common.expand_arrays(self.rT, self.rL, self.r0))
         return evolution_elements(rT, rL, r0)
 
-    def apply(self, sm):
-        return apply_coefficient_elements(sm, *self.coefficient_elements())
+    def coefficients(self):
+        return stack_elements(*self.coefficient_elements())
 
 
 def _as_complex(value):
@@ -82,9 +85,10 @@ def _as_complex(value):
     return complex(arr) if arr.ndim == 0 else arr
 
 
-class E(base.DiffOperator):
+class E(ScalarOp):
     """Relaxation + precession: tau (ms), T1/T2 (ms), g (kHz)."""
 
+    PARAMS = ("tau", "T1", "T2", "g")
     PARAMETERS_ORDER1 = frozenset({"tau", "T1", "T2", "g"})
 
     def __init__(self, tau, T1, T2, g=0, *, name=None, duration=None,
@@ -95,8 +99,9 @@ class E(base.DiffOperator):
         self.g = common.as_real(0 if g is None else g)
         if duration is True:
             duration = tau
-        super().__init__(name=name or _repr("E", tau, T1, T2, self.g),
-                         duration=duration, order1=order1, order2=order2)
+        base.Operator.__init__(
+            self, name=name or _repr("E", tau, T1, T2, self.g),
+            duration=duration, order1=order1, order2=order2)
 
     @property
     def shape(self):
@@ -111,13 +116,14 @@ class E(base.DiffOperator):
         rL = (tau / T1).to(config.complex_dtype())
         return evolution_elements(rT, rL, rL)
 
-    def apply(self, sm):
-        return apply_coefficient_elements(sm, *self.coefficient_elements())
+    def coefficients(self):
+        return stack_elements(*self.coefficient_elements())
 
 
-class P(base.DiffOperator):
+class P(ScalarOp):
     """Pure precession: tau (ms), g (kHz)."""
 
+    PARAMS = ("tau", "g")
     PARAMETERS_ORDER1 = frozenset({"tau", "g"})
 
     def __init__(self, tau, g, *, name=None, duration=None, order1=False,
@@ -126,8 +132,9 @@ class P(base.DiffOperator):
         self.g = common.as_real(g)
         if duration is True:
             duration = tau
-        super().__init__(name=name or _repr("P", tau, g), duration=duration,
-                         order1=order1, order2=order2)
+        base.Operator.__init__(self, name=name or _repr("P", tau, g),
+                               duration=duration, order1=order1,
+                               order2=order2)
 
     @property
     def shape(self):
@@ -139,5 +146,5 @@ class P(base.DiffOperator):
                   for x in common.expand_arrays(self.tau, self.g))
         return evolution_elements(2j * math.pi * g * tau)
 
-    def apply(self, sm):
-        return apply_coefficient_elements(sm, *self.coefficient_elements())
+    def coefficients(self):
+        return stack_elements(*self.coefficient_elements())

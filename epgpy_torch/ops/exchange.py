@@ -195,6 +195,7 @@ class X(base.DiffOperator):
     one-hot).
     """
 
+    PARAMS = ("tau", "khi", "T1", "T2", "g")
     PARAMETERS_ORDER1 = frozenset({"tau", "khi", "T1", "T2", "g"})
 
     def __init__(self, tau, khi, *, axis=-1, T1=None, T2=None, g=None,
@@ -313,6 +314,8 @@ class PrecomputedExchange(base.Operator):
     """Exchange op with its mixing matrix computed once: applying it skips
     the matrix exponential (a train that reuses one X instance every TR
     pays it once)."""
+
+    PARAMS = ("mat",)
 
     def __init__(self, mat, axis=0, name=None, **kwargs):
         self.mat = mat

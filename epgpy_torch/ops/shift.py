@@ -26,22 +26,41 @@ _TABLE_SHIFTS = ("float and n-D shifts (coordinate tables) are not ported "
                  "(ops/shiftnd.py, ops/shiftdense.py)")
 
 
+#: (K, n, device, dtype) -> the gather map of a shift; filled only outside
+#: a CUDA graph capture (a tensor made during a capture holds its values
+#: only once the graph is replayed)
+_SHIFT_MAPS: dict = {}
+
+
+def _shift_map(K: int, n: int, device, dtype):
+    """Source index into the flattened (K * 3) ladder and a 0/1 mask of
+    the rows a shift by n fills: F+ from row k - n, F- from k + n, Z
+    from k."""
+    key = (K, n, str(device), dtype)
+    hit = _SHIFT_MAPS.get(key)
+    if hit is not None:
+        return hit
+    k = torch.arange(K, device=device)
+    src = torch.stack([k - n, k + n, k], dim=-1)
+    ok = (src >= 0) & (src < K)
+    idx = (src.clamp(0, K - 1) * 3
+           + torch.arange(3, device=device)).reshape(-1)
+    out = (idx, ok.reshape(-1).to(dtype))
+    if not (device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        _SHIFT_MAPS[key] = out
+    return out
+
+
 def shift1d(states, n: int):
-    """Shift a (..., K, 3) ladder by integer n: F+ up, F- down, zero-fill."""
+    """Shift a (..., K, 3) ladder by integer n: F+ up, F- down, zero-fill
+    (one gather over the flattened ladder times the fill mask)."""
     if n == 0:
         return states
-    out = torch.zeros_like(states)
-    if abs(n) >= states.shape[-2]:
-        out[..., 2] = states[..., 2]
-        return out
-    if n > 0:
-        out[..., n:, 0] = states[..., :-n, 0]
-        out[..., :-n, 1] = states[..., n:, 1]
-    else:
-        out[..., :n, 0] = states[..., -n:, 0]
-        out[..., -n:, 1] = states[..., :n, 1]
-    out[..., 2] = states[..., 2]
-    return out
+    K = states.shape[-2]
+    idx, mask = _shift_map(K, int(n), states.device, states.real.dtype)
+    flat = states.reshape(states.shape[:-2] + (3 * K,))
+    return (flat.index_select(-1, idx) * mask).reshape(states.shape)
 
 
 class S(base.DiffOperator):

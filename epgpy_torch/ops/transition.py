@@ -4,6 +4,7 @@ Counterpart of ``epgpy_tpu/ops/transition.py``.  An instantaneous RF pulse
 of flip angle ``alpha`` and phase ``phi`` (degrees) mixes each k-state's
 ``(F+, F-, Z)`` components by the Weigel rotation ``Rz(phi) Rx(alpha)
 Rz(-phi)`` in the configuration basis (reference epgpy/transition.py).
+``T`` and ``Phi`` are MatrixOps (matrixop.py): they combine with ``@``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import torch
 
 from .. import common, config
 from . import base
+from .base import _repr
+from .matrixop import MatrixOp
 from .scalarop import align_batch, apply_coefficients
 
 __all__ = ["T", "Tx", "Ty", "Phi", "rotation_operator", "rotation_elements",
@@ -25,17 +28,17 @@ def _rad(x):
 def rotation_alpha(alpha):
     """EPG rotation about x by `alpha` degrees, configuration basis."""
     a = _rad(alpha)
-    cos2, sin2 = torch.cos(a / 2) ** 2, torch.sin(a / 2) ** 2
-    sin, cos = torch.sin(a), torch.cos(a)
-    mat = torch.stack([
-        torch.stack([cos2, sin2, -sin], dim=-1),
-        torch.stack([sin2, cos2, sin], dim=-1),
-        torch.stack([-0.5 * sin, 0.5 * sin, cos], dim=-1),
-    ], dim=-2).to(config.complex_dtype())
+    cdtype = config.complex_dtype()
+    cos2 = (torch.cos(a / 2) ** 2).to(cdtype)
+    sin2 = (torch.sin(a / 2) ** 2).to(cdtype)
     # the off-diagonal sin terms carry a factor of i
-    mask = torch.tensor([[1, 1, 1j], [1, 1, 1j], [1j, 1j, 1]],
-                        dtype=mat.dtype, device=mat.device)
-    return mat * mask
+    isin = 1j * torch.sin(a).to(cdtype)
+    cos = torch.cos(a).to(cdtype)
+    return torch.stack([
+        torch.stack([cos2, sin2, -isin], dim=-1),
+        torch.stack([sin2, cos2, isin], dim=-1),
+        torch.stack([-0.5 * isin, 0.5 * isin, cos], dim=-1),
+    ], dim=-2)
 
 
 def rotation_phi(phi):
@@ -81,31 +84,40 @@ def rotation_operator(alpha, phi):
     return mat[None] if mat.ndim == 2 else mat
 
 
-class T(base.DiffOperator):
+class T(MatrixOp):
     """Instantaneous RF pulse: flip `alpha`, phase `phi` (degrees)."""
 
+    PARAMS = ("alpha", "phi")
     PARAMETERS_ORDER1 = frozenset({"alpha", "phi"})
 
     def __init__(self, alpha, phi, *, name=None, duration=None,
                  order1=False, order2=False):
         self.alpha = common.as_real(alpha)
         self.phi = common.as_real(phi)
-        super().__init__(name=name or _repr("T", alpha, phi),
-                         duration=duration, order1=order1, order2=order2)
+        base.Operator.__init__(self, name=name or _repr("T", alpha, phi),
+                               duration=duration, order1=order1,
+                               order2=order2)
 
     @property
     def shape(self):
         return common.broadcast_shapes(common.get_shape(self.alpha),
                                        common.get_shape(self.phi), (1,))
 
+    def matrices(self):
+        return rotation_operator(self.alpha, self.phi), None
+
     def apply(self, sm):
-        # coefficient-level madds: no (batch, 3, 3) array is materialized
+        # column j of the rotation as a (*batch, 1, 3) triplet: three
+        # whole-ladder multiply-adds, no (batch, 3, 3) matrix materialized
         m = [align_batch(torch.atleast_1d(e), sm.ndim, 0)[..., None]
              for e in rotation_elements(self.alpha, self.phi)]
+        cols = [torch.stack(torch.broadcast_tensors(m[j], m[3 + j],
+                                                    m[6 + j]), dim=-1)
+                for j in range(3)]
         s = sm.states
-        comps = [m[3 * i] * s[..., 0] + m[3 * i + 1] * s[..., 1]
-                 + m[3 * i + 2] * s[..., 2] for i in range(3)]
-        return sm.update(states=torch.stack(comps, dim=-1))
+        out = s[..., 0:1] * cols[0]
+        out = torch.addcmul(out, s[..., 1:2], cols[1])
+        return sm.update(states=torch.addcmul(out, s[..., 2:3], cols[2]))
 
 
 def Tx(alpha, **kwargs):
@@ -118,16 +130,19 @@ def Ty(alpha, **kwargs):
     return T(alpha, 90, **kwargs)
 
 
-class Phi(base.DiffOperator):
+class Phi(MatrixOp):
     """Pure phase offset (z-rotation by `phi` degrees)."""
 
+    PARAMS = ("phi",)
     PARAMETERS_ORDER1 = frozenset({"phi"})
+    diagonal = True
 
     def __init__(self, phi, *, name=None, duration=0, order1=False,
                  order2=False):
         self.phi = common.as_real(phi)
-        super().__init__(name=name or _repr("Phi", phi), duration=duration,
-                         order1=order1, order2=order2)
+        base.Operator.__init__(self, name=name or _repr("Phi", phi),
+                               duration=duration, order1=order1,
+                               order2=order2)
 
     @property
     def shape(self):
@@ -138,13 +153,10 @@ class Phi(base.DiffOperator):
         arr = torch.stack([e, torch.conj(e), torch.ones_like(e)], dim=-1)
         return (arr[None] if arr.ndim == 1 else arr), None
 
+    def matrices(self):
+        arr, _ = self.coefficients()
+        return arr[..., None] * torch.eye(3, dtype=arr.dtype,
+                                          device=arr.device), None
+
     def apply(self, sm):
         return apply_coefficients(sm, *self.coefficients())
-
-
-def _repr(name, *values):
-    """Cosmetic operator name: scalars printed, arrays as their shape."""
-    def fmt(v):
-        shape = common.get_shape(v)
-        return "array" + str(shape) if shape else f"{float(v):.1f}"
-    return f"{name}({', '.join(fmt(v) for v in values)})"

@@ -1016,3 +1016,36 @@ def test_cuda_exchange_through_simulate(card):
     for g, s in zip(got, trains()):
         ref = epg.simulate(s, max_nstate=8, density=dens, fisp_kernel=False)
         assert np.abs(g - ref).max() < 1e-6
+
+
+@pytest.mark.cuda
+def test_cuda_general_path_is_one_graph_replay(card):
+    """The planned general path on the card: a memoized simulate() is one
+    CUDA graph replay of the planned program (captured on first use),
+    equal to the eager simulate_simple over every planned operator class;
+    a callback plan runs eagerly."""
+    import numpy as np
+
+    import epgpy_torch as epg
+    from chip_smoke import _eager, op_zoo_trains
+    from epgpy_torch import engine
+
+    for name, seq, kw in op_zoo_trains(epg):
+        before = dict(engine.GRAPH_COUNTS)
+        for _ in range(2):
+            got = epg.simulate(seq, asarray=False, **kw)
+        after = engine.GRAPH_COUNTS
+        assert after["captures"] - before["captures"] == 1, name
+        assert after["replays"] - before["replays"] == 2, name
+        got = got if isinstance(got, tuple) else (got,)
+        probes = ([epg.Probe(p) for p in kw["probe"]] if "probe" in kw
+                  else None)
+        init = ({"density": kw["density"], "nstate": kw["max_nstate"]}
+                if "density" in kw else {})
+        for g, w in zip(got, _eager(torch, epg, seq, probes, **init)):
+            assert float((g - w).abs().max()) <= 2e-6, name
+    before = dict(engine.GRAPH_COUNTS)
+    epg.simulate(seq, callback=lambda sm: None, max_nstate=8,
+                 density=[0.8, 0.2])
+    assert engine.GRAPH_COUNTS == before
+    assert np.isfinite(got[0].cpu().numpy()).all()
