@@ -39,6 +39,15 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    SPOILER between segments, a ScalarOp per TR) at 102,400 x 200 planned
    against eager and float64; every planned operator class and an X train
    through a capture; a callback plan runs eagerly;
+4t. the coordinate-table path (phase_table): the bench's three table
+   trains -- the float-shift pSSFP-like train (dense-grid merge), the
+   3-D tensor-diffusion train (sort merge) and the batch-varying
+   shift-prune train (per-atom dense merge) -- at their bench widths and
+   at full width through ``simulate(kgrid=...)``, each a memoized CUDA
+   graph replay held to the eager ``simulate_simple`` to the bit, to a
+   float64 run on the card (8 atoms, 1e-6) and, for the float-shift and
+   prune trains, the dense engine to the table engine (2e-6 of the
+   signal scale); no kernel launches and no dispatch during the phase;
 5b. serving: 8,192 off-grid voxels (seeded truth, noise 0.002, random
    complex PD) matched against the unnormalized phase-4 dictionary with
    ``parallel.mrf_reconstruct``, then 5 Gauss-Newton iterations whose
@@ -7057,6 +7066,178 @@ def phase_general(torch, epg, card, main_run):
                 zoo_err=zoo_err)
 
 
+#: phase_table's trains (bench.py:180-204, 886-910, 949-967): name ->
+#: (TRs, bench width, full width, kgrid, max_nstate)
+TABLE_TRAINS = {"table": (50, 512, 16384, 0.5, 1024),
+                "diff3d": (30, 64, 4096, 1.0, 512),
+                "prune": (40, 256, 16384, 0.5, 512)}
+#: phase_table's limit on |dense - table engine| / max|signal|
+TOL_TABLE_ENGINES = 2e-6
+
+
+def table_params(name, natoms):
+    """The per-atom parameters of a table train at `natoms` atoms, as the
+    bench draws them: T2 (table, diff3d) or the per-atom shifts (prune),
+    and the train's own shifts."""
+    ntr = TABLE_TRAINS[name][0]
+    if name == "table":
+        rng = np.random.default_rng(0)
+        return (np.linspace(40.0, 120.0, natoms),
+                [float(rng.uniform(2, 10)) for _ in range(ntr)])
+    if name == "diff3d":
+        rng = np.random.default_rng(1)
+        return (np.linspace(40.0, 120.0, natoms),
+                [np.round(rng.uniform(-3, 3, size=(1, 3)), 2)
+                 for _ in range(ntr)])
+    return np.random.default_rng(2).uniform(0.5, 3.0, size=(natoms, 1)), None
+
+
+def table_train(epg, name, atoms, shifts):
+    """The bench's table train over the atoms' parameters (`atoms`, from
+    table_params, possibly a slice): [S, (D,) T(40, 0), E(5), ADC] x TRs
+    after T(90, 90)."""
+    seq = [epg.T(90, 90)]
+    if name == "table":
+        for k in shifts:
+            seq += [epg.S(k), epg.T(40, 0), epg.E(5.0, 1000.0, atoms),
+                    epg.ADC]
+    elif name == "diff3d":
+        Dt = np.diag([2e-3, 1e-3, 0.5e-3])
+        for k in shifts:
+            seq += [epg.S(k), epg.D(5.0, Dt, k=k), epg.T(40, 0),
+                    epg.E(5.0, 1000.0, atoms), epg.ADC]
+    else:
+        for i in range(TABLE_TRAINS[name][0]):
+            seq += [epg.S(atoms * (1 + 0.05 * i)), epg.T(40, 0),
+                    epg.E(5.0, 1000.0, 80.0), epg.ADC]
+    return seq
+
+
+def _launch_counts():
+    """Every kernel wrapper's launch counter and the dispatch counts."""
+    import importlib
+
+    from epgpy_torch import fisp_dispatch
+
+    counts = {}
+    for name in ("fisp", "hessian", "mse", "msedesign", "bssfp", "dess",
+                 "megre", "composite", "xgre", "xcomposite"):
+        mod = importlib.import_module(f"epgpy_torch.models.cuda_{name}")
+        counts.update({f"{name}.{k}": v for k, v in vars(mod).items()
+                       if k.endswith("LAUNCHES")})
+    counts["dispatch"] = dict(fisp_dispatch.DISPATCH_COUNTS)
+    return counts
+
+
+def phase_table(torch, epg, card):
+    """The coordinate-table path on the card: each of TABLE_TRAINS at its
+    bench width and at full width through simulate(kgrid=, max_nstate=)
+    -- one periodic block replayed as a memoized CUDA graph -- against the
+    eager simulate_simple (the same merges unplanned: max 0.0), a float64
+    run of the same train on the card (the first 8 atoms, TOL_PROBE) and,
+    where a dense engine runs, the table engine with the dense gate forced
+    off (TOL_TABLE_ENGINES of the signal scale).  No kernel may launch and
+    no family dispatch.  Raises on any miss; returns the numbers."""
+    from epgpy_torch import engine
+
+    tag = f"({card})"
+    before = _launch_counts()
+    out = {}
+    for name, (ntr, bench_w, full_w, kgrid, cap) in TABLE_TRAINS.items():
+        atoms, shifts = table_params(name, full_w)
+        kw = dict(kgrid=kgrid, max_nstate=cap)
+        for width in (bench_w, full_w):
+            engine.clear_caches()
+            seq = table_train(epg, name, atoms[:width], shifts)
+            c0 = _graph_counts()
+
+            def planned():
+                return epg.simulate(seq, asarray=False, **kw)
+
+            sig, first_s = _first_call(torch, planned)
+            memo_s = _host_s(torch, planned, reps=3)
+            c1 = _graph_counts()
+            if (c1["captures"] - c0["captures"],
+                    c1["replays"] - c0["replays"]) != (1, 4):
+                raise AssertionError(f"[table] {name}: graph counts {c0} -> "
+                                     f"{c1}: expected one capture, 4 replays")
+            entry = engine._plan_and_payload(engine.flatten_sequence(seq))
+            pre = engine._sequence_preamble(
+                engine.flatten_sequence(seq), cap, 1.0, kgrid)
+            route = ("dense" if pre[3] is not None else "dense-varying"
+                     if pre[4] is not None else "sort table")
+            sm0 = epg.StateMatrix(**kw).broadcast(epg.getshape(seq))
+            eager, eager_s = _first_call(torch, lambda: torch.stack(
+                [v[0] for v in epg.simulate_simple(sm0, seq)[0]]))
+            eager_err = float((sig - eager).abs().max())
+            del eager
+            scale = float(sig.abs().max())
+            print(f"[table] {name} {width} atoms x {ntr} TRs ({route} merge,"
+                  f" nstate {pre[3] or (pre[4] or (pre[2],))[0]}): plan "
+                  f"{'/'.join(k[0] if k[0] == 'unroll' else f'scan x{k[1]}' for k in entry.kinds)}, "
+                  f"payload + graph {entry.nbytes / 1e6:.1f} MB; first call "
+                  f"{first_s:.3f} s, memoized replay {memo_s * 1e3:.3f} ms "
+                  f"= {width * ntr / memo_s:.4g} TR-atoms/s, eager "
+                  f"simulate_simple {eager_s * 1e3:.1f} ms; max|planned - "
+                  f"eager| = {eager_err:.3e} {tag}")
+            if eager_err != 0.0 or not math.isfinite(scale):
+                raise AssertionError(f"[table] {name}: planned and eager "
+                                     f"differ by {eager_err:.3e}")
+            res = dict(first_s=first_s, memo_s=memo_s, eager_s=eager_s,
+                       nbytes=entry.nbytes, route=route, scale=scale)
+            if width == full_w:
+                epg.config.set_precision("float64")
+                try:
+                    engine.clear_caches()
+                    sig64 = epg.simulate(seq, asarray=False, **kw)
+                finally:
+                    epg.config.set_precision("float32")
+                f64_err = float((sig[:, :8].to(sig64.dtype)
+                                 - sig64[:, :8]).abs().max())
+                del sig64
+                print(f"[table] {name} {width} atoms: max|float32 - float64|"
+                      f" over 8 atoms (both on the card) = {f64_err:.3e} "
+                      f"(limit {TOL_PROBE})")
+                if not f64_err <= TOL_PROBE:
+                    raise AssertionError(f"[table] {name}: float32 vs "
+                                         f"float64 {f64_err:.3e}")
+                res["f64_err"] = f64_err
+            if width == full_w and route != "sort table":
+                gate = ("_dense_bound" if route == "dense"
+                        else "_dense_varying_bound")
+                saved = getattr(engine, gate)
+                setattr(engine, gate, lambda *a, **k: None)
+                try:
+                    engine.clear_caches()
+                    tab, tab_s = _first_call(torch, planned)
+                    tab_memo = _host_s(torch, planned, reps=3)
+                finally:
+                    setattr(engine, gate, saved)
+                    engine.clear_caches()
+                eng_err = float((sig - tab).abs().max()) / scale
+                del tab
+                print(f"[table] {name} {width} atoms: table engine (dense "
+                      f"gate off) first call {tab_s:.3f} s, memoized replay "
+                      f"{tab_memo * 1e3:.3f} ms; max|dense - table| / "
+                      f"max|signal| = {eng_err:.3e} (limit "
+                      f"{TOL_TABLE_ENGINES}) {tag}")
+                if not eng_err <= TOL_TABLE_ENGINES:
+                    raise AssertionError(f"[table] {name}: dense vs table "
+                                         f"engine {eng_err:.3e}")
+                res.update(table_first_s=tab_s, table_memo_s=tab_memo,
+                           engine_err=eng_err)
+            out[f"{name}_{width}"] = res
+            del sig
+    engine.clear_caches()
+    after = _launch_counts()
+    if after != before:
+        raise AssertionError(f"[table] kernel launches or dispatches during "
+                             f"the table trains: {before} -> {after}")
+    print(f"[table] kernel launch counters and dispatch counts unchanged "
+          f"over the phase ({len(before) - 1} counters)")
+    return out
+
+
 def _memo_pair(torch, fn, reps=5):
     """Host-clock seconds of a memoized simulate() call fn(), with the
     preamble memo kept and with it cleared before every call (the matcher's
@@ -7141,6 +7322,7 @@ def main():
     main_run = _timed(phase_main_path, torch, epg)
     full_run = _timed(phase_full_path, torch, main_run)
     general = _timed(phase_general, torch, epg, card, main_run)
+    table = _timed(phase_table, torch, epg, card)
     jac_run = _timed(phase_jac_path, torch, epg)
     serve = _timed(phase_serving, torch, epg, main_run.pop("dictionary"))
     hess_run = _timed(phase_hess_path, torch, epg)

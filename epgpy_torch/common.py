@@ -109,3 +109,23 @@ def memoize_on_ops(cache, maxsize, key, sequence, compute):
         cache.pop(next(iter(cache)))
     cache[key] = (result, list(sequence))
     return result
+
+
+#: small constant tensors (per-axis scales, a shift vector) by value,
+#: device and dtype; filled only outside a CUDA graph capture, whose eager
+#: warm-up pass meets every constant the captured pass will ask for
+_CONSTS: dict = {}
+
+
+def const_tensor(values, dtype, device):
+    """A 1-D tensor of the host numbers `values` on `device`, memoized: a
+    host-to-device copy must not happen inside a CUDA graph capture."""
+    key = (tuple(float(v) for v in values), dtype, str(device))
+    hit = _CONSTS.get(key)
+    if hit is not None:
+        return hit
+    out = torch.tensor(list(key[0]), dtype=dtype, device=device)
+    if not (out.device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        _CONSTS[key] = out
+    return out

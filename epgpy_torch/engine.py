@@ -117,16 +117,18 @@ def get_adc_times(sequence):
 
 
 #: per-sequence preamble memo (JAX ``engine.py:293-338``): keyed on the
-#: operator identities, ``max_nstate`` and ``kvalue``; each entry pins its
-#: operator list so ids cannot be reused while cached, oldest evicted first
+#: operator identities, ``max_nstate``, ``kgrid``, ``kvalue`` and
+#: ``tvalue``; each entry pins its operator list so ids cannot be reused
+#: while cached, oldest evicted first
 _PREAMBLE_CACHE: dict = {}
 _PREAMBLE_CACHE_MAX = 32
 
 
 def clear_caches():
     """Drop the per-sequence preamble memo, the plan cache (with its CUDA
-    graphs) and the dispatch's match memo (needed only after mutating an
-    operator's arrays in place)."""
+    graphs) and the dispatch's match memo (needed after mutating an
+    operator's arrays in place, or after monkeypatching the capacity and
+    dense-grid gates)."""
     from . import fisp_dispatch
 
     _PREAMBLE_CACHE.clear()
@@ -134,20 +136,234 @@ def clear_caches():
     fisp_dispatch.clear_cache()
 
 
-def _sequence_preamble(sequence, max_nstate, kvalue):
-    """Cached (nshift, shape) of a flat operator list: repeat simulate()
-    calls on one train (dictionary services, Gauss-Newton loops) skip the
-    O(n_ops) sweeps of :func:`getnshift` and :func:`getshape`."""
-    key = (max_nstate, float(kvalue)) + tuple(id(op) for op in sequence)
-    return common.memoize_on_ops(
-        _PREAMBLE_CACHE, _PREAMBLE_CACHE_MAX, key, sequence,
-        lambda: (getnshift(sequence), getshape(sequence)))
+def _host_key(value):
+    """A memo key for kvalue / tvalue: host numbers by value, a tensor by
+    identity (no device read)."""
+    if isinstance(value, torch.Tensor):
+        return ("id", id(value))
+    if common.get_shape(value):
+        return tuple(np.ravel(np.asarray(value, dtype=float)))
+    return float(value)
 
 
-def _capacity(nshift: int, max_nstate) -> int:
-    """Static ladder half-capacity of a 1-D integer-shift sequence: exact
-    with ``nshift``, capped at ``max_nstate``."""
-    return min(int(nshift), int(max_nstate)) if max_nstate else int(nshift)
+def _sequence_preamble(sequence, max_nstate, kvalue, kgrid=None,
+                       tvalue=1.0):
+    """Cached host analysis of a flat operator list: (nshift, shape,
+    ncap, dense, varying) -- the shift count, the batch shape, the ladder
+    capacity (:func:`_capacity`), the shared dense-grid bound
+    (:func:`_dense_bound`) and the batch-varying one
+    (:func:`_dense_varying_bound`).  Repeat simulate() calls on one train
+    (dictionary services, Gauss-Newton loops) skip the O(n_ops) sweeps."""
+    key = (max_nstate, kgrid, _host_key(kvalue), _host_key(tvalue)) \
+        + tuple(id(op) for op in sequence)
+
+    def compute():
+        nshift = getnshift(sequence)
+        dense = _dense_bound(sequence, kgrid, max_nstate, kvalue)
+        varying = (None if dense is not None else _dense_varying_bound(
+            sequence, kgrid, max_nstate, kvalue))
+        return (nshift, getshape(sequence),
+                _capacity(sequence, nshift, max_nstate, kgrid, kvalue,
+                          tvalue), dense, varying)
+
+    return common.memoize_on_ops(_PREAMBLE_CACHE, _PREAMBLE_CACHE_MAX, key,
+                                 sequence, compute)
+
+
+#: default half-capacity of a coordinate table (the reference grows its
+#: tables; a table of fixed shape needs a default cap)
+DEFAULT_TABLE_NSTATE = 255
+#: the dense-grid merge's bound on the ladder half-capacity (its rows must
+#: cover the train's whole wavenumber range)
+_DENSE_MAX_NSTATE = 8192
+
+
+def _shift_ops(sequence):
+    from .ops.shift import S
+
+    return [op for op in sequence if isinstance(op, S)]
+
+
+def _is_table(shift_ops) -> bool:
+    """Whether a train's shifts need the coordinate table (a float or a
+    vector shift)."""
+    return any(op._kint is None for op in shift_ops)
+
+
+def _capacity(sequence, nshift: int, max_nstate, kgrid=None, kvalue=1.0,
+              tvalue=1.0) -> int:
+    """Static ladder half-capacity (JAX ``engine._capacity``).
+
+    1-D integer trains are exact with ``nshift``, capped at
+    ``max_nstate``.  A coordinate table can fill at most the lattice box
+    ``prod_d (2 sum|k_d| + 1)`` -- counted in grid cells of the physical
+    wavenumbers ``|k| * kvalue / kgrid`` when the shifts are floats -- or
+    ``3^m`` splitting paths if fewer, capped at ``max_nstate`` or
+    :data:`DEFAULT_TABLE_NSTATE` (a warning when the cap trims)."""
+    shift_ops = _shift_ops(sequence)
+    if not _is_table(shift_ops):
+        return min(int(nshift), int(max_nstate)) if max_nstate \
+            else int(nshift)
+    kdim = max(op.kdim for op in shift_ops)
+    sums = np.zeros(kdim)
+    any_float = False
+    for op in shift_ops:
+        if op._kint is not None:
+            sums[0] += abs(op._kint)
+            continue
+        karr = np.asarray(op.kleaf, dtype=float)
+        any_float = any_float or not op._int_table
+        sums[:karr.shape[-1]] += np.max(np.abs(
+            karr.reshape(-1, karr.shape[-1])), axis=0)
+    if any_float and kgrid:
+        # per-axis physical scale [kvalue (<= 3 axes), tvalue (time)];
+        # device scales have no host value: 1
+        kvalue = None if isinstance(kvalue, torch.Tensor) else kvalue
+        tvalue = None if isinstance(tvalue, torch.Tensor) else tvalue
+        if kvalue is not None and common.get_shape(kvalue):
+            kscales = np.abs(np.asarray(kvalue, dtype=float).ravel())[:3]
+        else:
+            kscales = np.full(min(kdim, 3), abs(
+                1.0 if kvalue is None else float(kvalue)))
+        scales = np.ones(kdim)
+        scales[:len(kscales)] = kscales[:kdim]
+        if kdim == 4:
+            scales[3] = abs(float(tvalue)) if tvalue is not None else 1.0
+        sums = sums * scales / float(kgrid)
+    box = int(np.prod(np.minimum(2 * np.ceil(sums) + 1, 2 ** 20)))
+    paths = 3 ** min(len(shift_ops), 16)
+    bound = (min(box, paths) - 1) // 2 + 1
+    cap = int(max_nstate) if max_nstate else DEFAULT_TABLE_NSTATE
+    if bound > cap:
+        LOGGER.warning(
+            "State-table capacity %d is below the sequence's lattice bound "
+            "%d: magnitude-ranked truncation pruning is active and results "
+            "may lose accuracy (raise max_nstate to silence).", cap, bound)
+    return max(min(bound, cap), 1)
+
+
+def _dense_analysis(sequence, kgrid, max_nstate, kvalue):
+    """The dense engines' eligibility sweep (JAX
+    ``engine._dense_analysis``): every shift 1-D with host values, some
+    of them floats, a scalar host kvalue, no System op that may change
+    kvalue mid-train, and a ladder covering the train's whole range
+    ``sum|k| kvalue / kgrid`` within the cap (so no trim can happen).
+    Returns (bound, window, any_varying), else None."""
+    from .ops.base import System
+
+    if not kgrid or common.get_shape(kvalue) or isinstance(kvalue,
+                                                           torch.Tensor):
+        return None
+    shift_ops = _shift_ops(sequence)
+    if not shift_ops:
+        return None
+    if any(getattr(op, "scalars", None) for op in sequence
+           if isinstance(op, System)):
+        return None
+    total = step_max = 0.0
+    any_float = any_varying = False
+    for op in shift_ops:
+        if op._kint is not None:
+            total += abs(op._kint)
+            step_max = max(step_max, abs(op._kint))
+            continue
+        karr = np.atleast_2d(np.asarray(op.kleaf))
+        if karr.shape[-1] != 1:
+            return None
+        any_varying = any_varying or int(np.prod(op.shape)) > 1
+        any_float = any_float or not op._int_table
+        m = float(np.max(np.abs(karr)))
+        total += m
+        step_max = max(step_max, m)
+    if not any_float:
+        return None
+    kv = abs(float(kvalue))
+    bound = int(np.floor(total * kv / float(kgrid) + 0.5)) + 1
+    window = int(np.ceil(step_max * kv / float(kgrid))) + 1
+    cap = int(max_nstate) if max_nstate else DEFAULT_TABLE_NSTATE
+    if bound > cap or bound > _DENSE_MAX_NSTATE:
+        return None
+    return bound, window, any_varying
+
+
+def _dense_bound(sequence, kgrid, max_nstate, kvalue):
+    """Half-capacity of the shared dense 1-D merge, or None (a module
+    function, so tests can force the gate off)."""
+    a = _dense_analysis(sequence, kgrid, max_nstate, kvalue)
+    return None if a is None or a[2] else a[0]
+
+
+def _dense_varying_bound(sequence, kgrid, max_nstate, kvalue):
+    """(half-capacity, shift half-window) of the batch-varying dense
+    merge, or None (a module function, so tests can force it off)."""
+    a = _dense_analysis(sequence, kgrid, max_nstate, kvalue)
+    return None if a is None or not a[2] else (a[0], a[1])
+
+
+def _center_only_init(sm) -> bool:
+    """True if the initial states are confined to the k = 0 row (reads
+    the device ladder once)."""
+    if sm.coords is not None:
+        return False
+    off = sm.states.clone()
+    off[..., sm.nstate, :] = 0
+    return not bool(off.any())
+
+
+def _setup_table(sm, sequence, shape=None, dense=False,
+                 varying_window=None):
+    """Attach the coordinate table up front for a table train (JAX
+    ``engine._setup_table``), so that the table -- the carried state of a
+    CUDA graph -- has one shape and dtype from the first op on: a float
+    table, which an all-integer train quantizes on the unit grid
+    (``_int_grid``: the merge's output is a float mean, as in JAX, whose
+    table shifts always take this route); the dense engines' options;
+    with a batch-varying shift, the table expanded to the full batch shape
+    (each atom's own)."""
+    shift_ops = _shift_ops(sequence)
+    if not _is_table(shift_ops) or sm.coords is not None:
+        return sm
+    sm = sm.setup_coords(max(op.kdim for op in shift_ops))
+    all_int = all(op._int_table for op in shift_ops)
+    opts = dict(sm.options)
+    if all_int:
+        opts["_int_grid"] = True
+    if dense and not all_int:
+        opts["_dense_grid"] = True
+        LOGGER.info("table merges: dense-grid engine (rows are cells)")
+    elif varying_window and not all_int:
+        opts["_dense_grid_varying"] = int(varying_window)
+        LOGGER.info("table merges: batch-varying dense engine (window=%d)",
+                    int(varying_window))
+    elif not all_int:
+        LOGGER.info("table merges: general table engine (sort)")
+    sm = sm.update(options=opts)
+    if any(int(np.prod(op.shape)) > 1 for op in shift_ops) \
+            and shape is not None:
+        coords = sm.coords
+        bshape = common.broadcast_shapes(sm.shape, tuple(shape))
+        pad = len(bshape) - (coords.ndim - 2)
+        if pad > 0:
+            coords = coords.reshape(coords.shape[:-2] + (1,) * pad
+                                    + coords.shape[-2:])
+        target = common.broadcast_shapes(tuple(coords.shape[:-2]), bshape)
+        sm = sm.update(coords=coords.expand(target + coords.shape[-2:]))
+    return sm
+
+
+def _table_state(sm, sequence, shape, dense, varying, center_only):
+    """The state a table train starts from: the dense engines only where
+    the initial states sit on k = 0, were checked symmetric and every op
+    keeps the ladder symmetry (their windows assume exactly
+    antisymmetric mean wavenumbers); then :func:`_setup_table`."""
+    if (dense is not None or varying is not None) and not (
+            center_only and sm.options.get("_sym_verified", False)
+            and all(getattr(op, "preserves_ladder_symmetry", True)
+                    for op in sequence)):
+        dense = varying = None
+    return _setup_table(sm, sequence, shape, dense=dense is not None,
+                        varying_window=None if varying is None
+                        else varying[1])
 
 
 def simulate_simple(sm, sequence, probes=None, callback=None, disp=False,
@@ -157,20 +373,31 @@ def simulate_simple(sm, sequence, probes=None, callback=None, disp=False,
     Applies each operator to `sm` and acquires `probes` (or the
     sequence's own probe ops) at every Probe.  Returns ``(values,
     times)`` with ``values[i] = [probe values at the i-th probe op]``.
-    The ladder is pre-sized to the sequence's shift count, capped at
-    `max_nstate` (default: the state's ``max_nstate`` option; the
-    reference resizes inside each shift).  It plans nothing: the A/B
-    baseline of the planned general path of :func:`simulate`.
+    The ladder is pre-sized as :func:`simulate` sizes it, from the
+    state's options (``max_nstate`` unless `max_nstate` is given,
+    ``kgrid``) and its kvalue / tvalue; a table train starts from the
+    table and merge engine :func:`simulate` would give it.  It plans
+    nothing: the A/B baseline of the planned general path of
+    :func:`simulate`.
     """
     from .utils.helpers import progressbar
 
     seq = flatten_sequence(sequence)
+    opts = getattr(sm, "options", None) or {}
     if max_nstate is None:
-        max_nstate = (getattr(sm, "options", None) or {}).get("max_nstate")
-    ncap = _capacity(_sequence_preamble(seq, max_nstate, sm.kvalue)[0],
-                     max_nstate)
+        max_nstate = opts.get("max_nstate")
+    _, shape, ncap, dense, varying = _sequence_preamble(
+        seq, max_nstate, sm.kvalue, opts.get("kgrid"), sm.tvalue)
+    if sm.coords is None and _is_table(_shift_ops(seq)):
+        if dense is not None:
+            ncap = dense
+        elif varying is not None:
+            ncap = varying[0]
     if sm.nstate < ncap:
         sm = sm.resize(ncap)
+    if sm.coords is None and _is_table(_shift_ops(seq)):
+        sm = _table_state(sm, seq, shape, dense, varying,
+                          _center_only_init(sm))
     tic = 0
     times, values = [], []
     for op in (progressbar(seq, "Simulating: ") if disp else seq):
@@ -524,6 +751,14 @@ def _device_leaf(x):
     return torch.as_tensor(arr, dtype=dtype, device=config.device())
 
 
+def _device_value(v):
+    """A numeric host array as a tensor on the working device; scalars
+    and anything else as they are."""
+    if isinstance(v, np.ndarray) and v.ndim and v.dtype.kind in "biufc":
+        return _device_leaf(v)
+    return v
+
+
 def _device_op(op):
     """A copy of `op` whose parameters are tensors on the working device
     (exchange ops with their mixing matrix computed), so that applying it
@@ -533,6 +768,12 @@ def _device_op(op):
 
     if isinstance(op, CombinedOp):
         return op.copy(ops=[_device_op(o) for o in op.ops])
+    if isinstance(op, base.System):
+        # system properties (imaging weights, modulation, positions) are
+        # read inside the program
+        return op.copy(values=tuple(_device_value(v) for v in op.values))
+    if isinstance(op, probe_mod.Imaging):
+        op = op.copy(opts={k: _device_value(v) for k, v in op.opts.items()})
     if type(op) is X:
         pre = precompute_exchange(op)
         if pre is not None:
@@ -768,7 +1009,8 @@ class _Graph:
     """A captured CUDA graph of a planned program: its static input
     ladders, its output tensors and the device bytes it holds."""
 
-    __slots__ = ("graph", "states", "equilibrium", "outputs", "nbytes")
+    __slots__ = ("graph", "states", "equilibrium", "coords", "outputs",
+                 "nbytes")
 
 
 #: CUDA graph captures and replays (counted for tests and chip_smoke.py)
@@ -785,8 +1027,11 @@ def _freeze_probe(pb):
 
 
 def _graph_key(sm, probes):
+    coords = None if sm.coords is None else (tuple(sm.coords.shape),
+                                             sm.coords.dtype)
     return (tuple(sm.states.shape), tuple(sm.equilibrium.shape),
-            sm.states.dtype, tuple(_freeze_probe(pb) for pb in probes or ()),
+            sm.states.dtype, coords,
+            tuple(_freeze_probe(pb) for pb in probes or ()),
             base._freeze(sm.kvalue), base._freeze(sm.tvalue),
             base._freeze(sm.system), base._freeze(sm.options))
 
@@ -799,7 +1044,14 @@ def _capture(entry, probes, sm):
     g = _Graph()
     g.states = sm.states.clone()
     g.equilibrium = sm.equilibrium.clone()
-    sm0 = sm.update(states=g.states, equilibrium=g.equilibrium)
+    # the coordinate table is carried state of a table train: a static
+    # input of fixed shape, like the ladders
+    g.coords = None if sm.coords is None else sm.coords.clone()
+    sm0 = sm.update(states=g.states, equilibrium=g.equilibrium,
+                    coords=g.coords)
+    if probes is not None:
+        probes = tuple(None if pb is None else _device_op(pb)
+                       for pb in probes)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -818,7 +1070,7 @@ def _capture(entry, probes, sm):
                            f"program failed ({exc}); a capturable plan does "
                            f"not fall back to eager execution") from exc
     g.nbytes = max(torch.cuda.memory_reserved() - before, 0) \
-        + 2 * _tensor_bytes([g.states, g.equilibrium])
+        + 2 * _tensor_bytes([g.states, g.equilibrium, g.coords])
     GRAPH_COUNTS["captures"] += 1
     return g
 
@@ -837,6 +1089,8 @@ def _replay(entry, probes, sm):
                          None))
     g.states.copy_(sm.states)
     g.equilibrium.copy_(sm.equilibrium)
+    if g.coords is not None:
+        g.coords.copy_(sm.coords)
     g.graph.replay()
     GRAPH_COUNTS["replays"] += 1
     return tuple(tuple(c.clone() for c in v) if isinstance(v, tuple)
@@ -875,12 +1129,11 @@ def _run_general(sequence, probes, sm, callback, disp):
     return _stack_values(acquired)
 
 
-#: simulate() options consumed by the StateMatrix; anything else is logged
-#: and forwarded to ``StateMatrix.options`` (JAX ``_KNOWN_OPTIONS``)
+#: simulate() options consumed by the StateMatrix or the shifts; anything
+#: else is logged and forwarded to ``StateMatrix.options`` (JAX
+#: ``_KNOWN_OPTIONS``)
 _KNOWN_OPTIONS = frozenset({"tvalue", "equilibrium", "nstate", "shape",
-                            "check", "system"})
-#: JAX options that need coordinate tables (ROADMAP queue 1, item 5)
-_TABLE_OPTIONS = ("kgrid", "prune", "coords")
+                            "check", "system", "kgrid", "prune", "coords"})
 
 
 def simulate(sequence, *, adc_time: bool = False, init=None,
@@ -915,11 +1168,6 @@ def simulate(sequence, *, adc_time: bool = False, init=None,
     """
     from . import diff
 
-    for name in _TABLE_OPTIONS:
-        if name in options:
-            raise NotImplementedError(
-                f"simulate({name}=...) needs coordinate tables, not ported "
-                f"to epgpy_torch yet: ROADMAP queue 1, item 5")
     unknown = set(options) - _KNOWN_OPTIONS
     if unknown:
         LOGGER.warning("simulate: unrecognized option(s) %s (forwarded to "
@@ -937,30 +1185,59 @@ def simulate(sequence, *, adc_time: bool = False, init=None,
                        for pb in (probe if isinstance(probe, (tuple, list))
                                   else [probe]))
     sm_init = init if isinstance(init, StateMatrix) else None
-    if sm_init is not None and max_nstate is None:
-        max_nstate = sm_init.options.get("max_nstate")
+    kgrid = options.get("kgrid")
+    if sm_init is not None:
+        if max_nstate is None:
+            max_nstate = sm_init.options.get("max_nstate")
+        if kgrid is None:
+            kgrid = sm_init.options.get("kgrid")
     if kvalue is None:
         kvalue = 1.0 if sm_init is None else sm_init.kvalue
-    nshift, shape = _sequence_preamble(sequence, max_nstate, kvalue)
-    ncap = _capacity(nshift, max_nstate)
+    tvalue = options.get("tvalue")
+    if tvalue is None:
+        tvalue = 1.0 if sm_init is None else sm_init.tvalue
+    nshift, shape, ncap, dense, varying = _sequence_preamble(
+        sequence, max_nstate, kvalue, kgrid, tvalue)
     LOGGER.info("simulate: %d ops, nshift=%d, shape=%s", len(sequence),
                 nshift, shape)
+    # a kgrid, any other option, an init (a coordinate table's included)
+    # or an array kvalue keeps every kernel family off (JAX
+    # engine.py:854-858); a table train's float or vector shifts fail
+    # every family's unit-shift pattern
     use_kernel = (fisp_kernel not in (False, None) and init is None
-                  and callback is None and not options)
+                  and callback is None and not options
+                  and isinstance(kvalue, (int, float)))
+    table = _is_table(_shift_ops(sequence))
 
     def initial_state():
         n = ncap
-        if options.get("nstate") is not None:
+        # the dense engines size the ladder exactly from the lattice;
+        # `nstate` is a floor on the other paths
+        if dense is not None:
+            n = dense
+        elif varying is not None:
+            n = varying[0]
+        elif options.get("nstate") is not None:
             n = max(n, int(options["nstate"]))
         opts = {k: v for k, v in options.items() if k != "nstate"}
         if max_nstate is not None:
             opts.setdefault("max_nstate", max_nstate)
         if sm_init is not None:
             sm = sm_init.update(options={**sm_init.options, **opts})
-            return sm.resize(max(n, sm.nstate)).broadcast(shape)
-        return StateMatrix([0, 0, 1] if init is None else init,
-                           density=1.0 if density is None else density,
-                           nstate=n, kvalue=kvalue, **opts).broadcast(shape)
+            sm = sm.resize(max(n, sm.nstate)).broadcast(shape)
+        else:
+            sm = StateMatrix([0, 0, 1] if init is None else init,
+                             density=1.0 if density is None else density,
+                             nstate=n, kvalue=kvalue,
+                             **opts).broadcast(shape)
+        if not table:
+            return sm
+        # the fresh [0, 0, 1] start is on k = 0 by construction: no
+        # device read
+        center = init is None or (
+            (dense is not None or varying is not None)
+            and _center_only_init(sm))
+        return _table_state(sm, sequence, shape, dense, varying, center)
 
     values = None
     if probes is not None and any(isinstance(pb, (diff.Jacobian,

@@ -180,6 +180,12 @@ def _no_diff(op):
     return not getattr(op, "order1", None) and not getattr(op, "order2", None)
 
 
+def _plain_adc(adc):
+    """An Adc reading F0 itself: no weights, no reduction (JAX
+    ``fisp_dispatch.py:446-451``: a weighted ADC takes the general path)."""
+    return adc.attr == "F0" and adc.plain
+
+
 def _host_scalar_coeff(c):
     """A chain-rule coefficient as a host float, or None (device, traced
     or non-scalar coefficients disqualify; never raise: the matcher must
@@ -418,10 +424,10 @@ def _match_fisp_impl(sequence, spoiled=True, dw=False, kvalue=1.0):
         # ADC: F0; phase absent or a host scalar (checked against -phi
         # below: receiver demodulation)
         ph_adc = None if adc.phase is None else _scalar(adc.phase)
-        if adc.attr != "F0" or (adc.phase is not None and ph_adc is None):
+        if not _plain_adc(adc) or (adc.phase is not None and ph_adc is None):
             return None, f"op {at + 2}: not a plain F0 readout"
         adc_phases.append(ph_adc)
-        if spoiled and s.k != 1:
+        if spoiled and s._kint != 1:
             return None, f"op {at + 4}: shift is not S(1)"
         ph, tte, ttr = _scalar(t_op.phi), _scalar(e1.tau), _scalar(e2.tau)
         if ph is None or tte is None or ttr is None:
@@ -736,9 +742,9 @@ def _match_fisp_hessian_impl(sequence, group=4, prep=None):
         at = group * i
         if type(t_op) is not T or type(adc) is not Adc or type(s) is not S:
             return None, f"block {i}: not [T, E, Adc, (E,) S]"
-        if not _no_diff(adc) or not _no_diff(s) or s.k != 1:
+        if not _no_diff(adc) or not _no_diff(s) or s._kint != 1:
             return None, f"op {at + group - 1}: not a plain S(1)"
-        if adc.attr != "F0" or adc.phase is not None:
+        if not _plain_adc(adc) or adc.phase is not None:
             return None, f"op {at + 2 - (group == 4)}: not a plain F0 readout"
         av = _alias_order1(t_op, "alpha")
         if av is False or av[0] is None:
@@ -848,7 +854,7 @@ def match_hessian_probes(probes, params):
                 return None
             specs.append(("jac", cols))
             have_diff = True
-        elif type(pb) is Adc and pb.attr == "F0" and pb.phase is None:
+        elif type(pb) is Adc and _plain_adc(pb) and pb.phase is None:
             specs.append(("sig",))
         else:
             return None
@@ -967,7 +973,7 @@ def match_jacobian_probes(probes, tracked):
                     v != "magnitude" and v not in tracked for v in names):
                 return None
             specs.append(("jac", names))
-        elif type(pb) is Adc and pb.attr == "F0" and pb.phase is None:
+        elif type(pb) is Adc and _plain_adc(pb) and pb.phase is None:
             specs.append(("sig",))
         else:
             return None
@@ -1145,7 +1151,7 @@ def _match_mse_impl(sequence, kvalue=1.0):
         if _canonical_order1(e) is None or not _no_diff(s):
             return f"ops {at}-{at + len(ops_) - 1}: derivative spec the " \
                    f"kernel does not take"
-        if s.k != 1:
+        if s._kint != 1:
             return f"ops {at}-{at + len(ops_) - 1}: shift is not S(1)"
         if _scalar(e.g) != 0.0:
             return f"ops {at}-{at + len(ops_) - 1}: off-resonance g != 0"
@@ -1183,7 +1189,7 @@ def _match_mse_impl(sequence, kvalue=1.0):
             return None, (f"ops {j - 2}-{k - 1}: E derivative specs are not "
                           f"one canonical T1/T2 tracking")
         tracked = c1
-        if adc.attr != "F0" or adc.phase is not None or not _no_diff(adc):
+        if not _plain_adc(adc) or adc.phase is not None or not _no_diff(adc):
             return None, f"op {k}: not a plain F0 readout"
         # the kernel's dB1 covers the refocusing flips exactly (the
         # scalar excitation is B1-exact: tangents start at zero)
@@ -1455,7 +1461,7 @@ def _match_dess_impl(sequence):
             return None, (f"ops {at}-{at + 6}: derivative spec the kernel "
                           f"does not take")
         b1_coeffs.append(b1c)
-        if s.k != 1:
+        if s._kint != 1:
             return None, f"op {at + 4}: shift is not S(1)"
         cs = [_canonical_order1(e) for e in (e1, e2, e3)]
         if cs[0] is None or cs[0] != cs[1] or cs[0] != cs[2] \
@@ -1470,7 +1476,7 @@ def _match_dess_impl(sequence):
         # both ADCs: F0, phase absent or a host scalar
         for k, adc in ((at + 2, a1), (at + 6, a2)):
             ph_adc = None if adc.phase is None else _scalar(adc.phase)
-            if adc.attr != "F0" or (adc.phase is not None
+            if not _plain_adc(adc) or (adc.phase is not None
                                     and ph_adc is None):
                 return None, f"op {k}: not a plain F0 readout"
             adc_phases.append(ph_adc)
@@ -1636,7 +1642,7 @@ def _match_megre_impl(sequence):
             return None, (f"ops {at}-{at + L - 1}: derivative spec the "
                           f"kernel does not take")
         b1_coeffs.append(b1c)
-        if s_op.k != 1:
+        if s_op._kint != 1:
             return None, f"op {at + L - 1}: shift is not S(1)"
         cs = [_canonical_order1(e, allowed=("T1", "T2", "g")) for e in e_ops]
         if cs[0] is None or any(c != cs[0] for c in cs) \
@@ -1651,7 +1657,7 @@ def _match_megre_impl(sequence):
                           f"host scalar")
         for adc in adcs:
             ph_adc = None if adc.phase is None else _scalar(adc.phase)
-            if adc.attr != "F0" or (adc.phase is not None
+            if not _plain_adc(adc) or (adc.phase is not None
                                     and ph_adc is None):
                 return None, f"ops {at}-{at + L - 1}: not a plain F0 readout"
             adc_phases.append(ph_adc)
@@ -1920,7 +1926,7 @@ def _fold_stages(sequence):
             cur["tb" if cur["adc"] else "ta"] += tau
         elif type(op) is Adc:
             ph_adc = None if op.phase is None else _scalar(op.phase)
-            if op.attr != "F0" or (op.phase is not None and ph_adc is None):
+            if not _plain_adc(op) or (op.phase is not None and ph_adc is None):
                 return None, f"op {n}: not a plain F0 readout"
             if cur is None or cur["adc"] or cur["shift"]:
                 close()
@@ -1928,7 +1934,9 @@ def _fold_stages(sequence):
             cur["adc"] = True
             cur["aph"] = 0.0 if ph_adc is None else float(ph_adc)
         elif type(op) is S:
-            k = int(op.k)
+            if op._kint is None:
+                return None, f"op {n}: a float or vector shift"
+            k = op._kint
             if not _no_diff(op) or abs(k) > 8:
                 return None, f"op {n}: shift {k} tracked or beyond +-8"
             if cur is None:
@@ -2350,9 +2358,9 @@ def _match_xgre_impl(sequence, shape, density):
                 or x2 is not x2_0 or (s is None) != (s0 is None)):
             return None, ("blocks differ in structure or in their X "
                           "instances")
-        if adc.attr != "F0" or adc.phase is not None or not _no_diff(adc):
+        if not _plain_adc(adc) or adc.phase is not None or not _no_diff(adc):
             return None, "a readout is not a plain F0 Adc"
-        if s is not None and (s.k != 1 or not _no_diff(s)):
+        if s is not None and (s._kint != 1 or not _no_diff(s)):
             return None, "a shift is not S(1)"
     C = int(np.shape(xop.khi)[-1])
     if len(shape) < 1 or shape[0] != C:
@@ -2604,7 +2612,7 @@ def _fold_xstages(sequence, C):
             cur["tb" if cur["adc"] else "ta"] += tau
         elif type(op) is Adc:
             ph = None if op.phase is None else _scalar(op.phase)
-            if op.attr != "F0" or (op.phase is not None and ph is None) \
+            if not _plain_adc(op) or (op.phase is not None and ph is None) \
                     or not _no_diff(op):
                 return None, f"op {n}: not a plain F0 readout"
             if cur is None or cur["adc"] or cur["shift"]:
@@ -2613,7 +2621,7 @@ def _fold_xstages(sequence, C):
             cur["adc"] = True
             cur["aph"] = 0.0 if ph is None else float(ph) * np.pi / 180.0
         elif type(op) is S:
-            k = getattr(op, "k", None)
+            k = op._kint
             if k is None or not _no_diff(op) or abs(k) > 8:
                 return None, f"op {n}: shift tracked or beyond +-8"
             if cur is None:

@@ -40,6 +40,9 @@ class Operator:
     #: attributes ignored by :meth:`signature` (cosmetic / timing / diff
     #: specs: the diff path never plans)
     SIGNATURE_IGNORE = frozenset({"name", "duration", "order1", "order2"})
+    #: whether applying the operator keeps F-(k) == conj(F+(-k)) (the
+    #: dense table engines need it throughout a train)
+    preserves_ladder_symmetry: bool = True
 
     def __init__(self, *, name: Optional[str] = None, duration=None,
                  order1=False, order2=False):

@@ -64,6 +64,10 @@ class CombinedOp(base.CombinableOperator):
             for pair in getattr(op, "order2", {}) or {}:
                 merged2.setdefault(pair, {})
         self.order1, self.order2 = merged1, merged2
+        # an asymmetric (check=False) constituent breaks the ladder
+        # symmetry of the whole product: the dense table engines stay off
+        self.preserves_ladder_symmetry = all(
+            getattr(op, "preserves_ladder_symmetry", True) for op in self.ops)
 
     @classmethod
     def of(cls, first, second, *, name=None, duration=None):

@@ -1,4 +1,4 @@
-"""Diffusion operator (Weigel 2010 EPG diffusion) on the 1-D integer ladder.
+"""Diffusion operator (Weigel 2010 EPG diffusion).
 
 Counterpart of ``epgpy_tpu/ops/diffusion.py:29-164`` (reference
 epgpy/diffusion.py).  Each k-state is attenuated by ``exp(-Tr(b D))``,
@@ -12,10 +12,11 @@ interval:
 
 Units: tau in ms, k in rad/m, D in mm^2/s -> b in s/mm^2.  The
 wavenumbers are the StateMatrix's ``k``: the ladder index times its
-``kvalue`` (rad/m per state), one dimension.  A 3x3 tensor D against these
-1-D wavenumbers broadcasts as in the reference: the attenuation uses
-``b00 * sum(D)``.  Float and n-D coordinate tables are not ported (ROADMAP
-queue 1, item 9).
+``kvalue`` on a 1-D ladder, the coordinate table's first three axes times
+``kvalue`` after float or n-D shifts (``ops/shiftnd.py``).  A square
+tensor D broadcasts against lower-dimensional wavenumbers as in the
+reference (1-D: the attenuation uses ``b00 * sum(D)``).  A batched tensor
+``(*batch, d, d)`` takes the operator's batch axes under the append rule.
 
 ``D(tau, D, k)`` with ``k`` set models attenuation *during* the gradient
 and must be placed right after the corresponding ``S(k)``.
@@ -55,9 +56,9 @@ def compute_bmatrix(tau, k1, k2=None):
         return a[..., :, None] * b[..., None, :]
 
     if tau.ndim:
-        # a batched tau's axes lead the (..., n, d, d) b-matrix, so the
-        # attenuation comes out (*tau, ..., n) for _align
-        tau = tau.reshape(tau.shape + (1,) * (k1.ndim + 1))
+        # a batched tau's axes align with the wavenumbers' leading batch
+        # axes (the append rule), broadcasting over (n, d, d)
+        tau = tau.reshape(tau.shape + (1,) * (k1.ndim + 1 - tau.ndim))
     bmat = outer(k1, k1) * tau
     if k2 is None:
         return bmat
@@ -74,6 +75,13 @@ def diffusion_operator(bL, bT, Dcoef):
         trL = torch.diagonal(bL, dim1=-2, dim2=-1).sum(-1)
         trT = torch.diagonal(bT, dim1=-2, dim2=-1).sum(-1)
         return torch.exp(-trL * Dval), torch.exp(-trT * Dval)
+    if Dval.ndim > 2:
+        # (*batch, d, d): the batch axes lead (append rule), then the
+        # state axis
+        nb = Dval.ndim - 2
+        pad = max(bL.ndim - 3 - nb, 0)
+        Dval = Dval.reshape(Dval.shape[:nb] + (1,) * (pad + 1)
+                            + Dval.shape[-2:])
     return (torch.exp(-torch.sum(bL * Dval, dim=(-2, -1))),
             torch.exp(-torch.sum(bT * Dval, dim=(-2, -1))))
 
@@ -98,10 +106,6 @@ class D(base.DiffOperator):
         if self.Dcoef.ndim >= 2 and (self.Dcoef.shape[-1]
                                      != self.Dcoef.shape[-2]):
             raise ValueError("D must be a square 2d matrix")
-        if self.Dcoef.ndim > 2:
-            raise NotImplementedError(
-                "batched diffusion tensors are not ported to epgpy_torch "
-                "yet: ROADMAP queue 1, item 9")
         self.kshift = (None if k is None
                        else np.atleast_2d(np.asarray(k, dtype=float)))
         if (k is not None and np.ndim(k) > 0 and self.Dcoef.ndim >= 2
@@ -109,10 +113,6 @@ class D(base.DiffOperator):
             # a scalar k is exempt (1-D attenuation by b00 broadcast), an
             # array k must match the tensor's dimensionality
             raise ValueError("Incompatible D and k dimensions")
-        if self.kshift is not None and self.kshift.shape[-1] != 1:
-            raise NotImplementedError(
-                "n-D diffusion wavenumbers are not ported to epgpy_torch "
-                "yet: ROADMAP queue 1, item 9")
         if name is None:
             name = f"D({tau}, {np.asarray(D).tolist()}, {k})"
         if duration is True:
@@ -128,35 +128,44 @@ class D(base.DiffOperator):
                                        common.get_shape(self.Dcoef)[:-2],
                                        kshape, (1,))
 
+    @property
+    def kdim(self) -> int:
+        return 1 if self.kshift is None else self.kshift.shape[-1]
+
     def apply(self, sm):
         if not common.broadcastable(self.shape, sm.shape):
             raise ValueError("Incompatible StateMatrix and operator "
                              f"shapes: {sm.shape}, {self.shape}")
-        k = sm.k                                        # (K, 1) rad/m
+        k = sm.k                                   # (*b, K, <=3) rad/m
         bL = compute_bmatrix(self.tau, k)
         if self.kshift is None:
             bT = bL
         else:
-            shift = _real(self.kshift) * sm.kvalue      # (1, 1)
-            bT = compute_bmatrix(self.tau, k - shift[0], k)
+            # kshift is in the units of S(k): scaled by kvalue
+            kd = k.shape[-1]
+            shift = _real(self.kshift)
+            kvalue = sm.kvalue
+            if isinstance(kvalue, np.ndarray):
+                kvalue = common.const_tensor(
+                    kvalue.reshape(-1)[:shift.shape[-1]], shift.dtype,
+                    shift.device)
+            elif isinstance(kvalue, torch.Tensor) and kvalue.ndim:
+                kvalue = kvalue.reshape(-1)[:shift.shape[-1]]
+            shift = shift * kvalue
+            if shift.shape[-1] < kd:
+                shift = torch.nn.functional.pad(
+                    shift, (0, kd - shift.shape[-1]))
+            if shift.shape[:-1] == (1,):
+                shift = shift[0]          # one vector: over every state
+            else:
+                shift = shift[..., None, :]  # batched: add the state axis
+            bT = compute_bmatrix(self.tau, k - shift, k)
         DL, DT = diffusion_operator(bL, bT, self.Dcoef)  # (..., K)
         states = sm.states
         cdt = states.dtype
-        DT = _align(DT.to(cdt), sm.ndim)
-        DL = _align(DL.to(cdt), sm.ndim)
-        Fp = states[..., 0] * DT
-        Z = states[..., 2] * DL
+        Fp = states[..., 0] * DT.to(cdt)
+        Z = states[..., 2] * DL.to(cdt)
         # F-(k) = conj(F+(-k)): the tables are reversal-symmetric, so the
         # mirrored attenuation keeps the ladder consistent
         Fm = torch.conj(torch.flip(Fp, dims=(-1,)))
         return sm.update(states=torch.stack([Fp, Fm, Z], dim=-1))
-
-
-def _align(att, ndim):
-    """(*tau_batch, K) attenuation -> broadcastable against the
-    (*batch, K) ladder columns under the append rule."""
-    nb = att.ndim - 1
-    if nb < ndim:
-        att = att.reshape(att.shape[:nb] + (1,) * (ndim - nb)
-                          + att.shape[-1:])
-    return att

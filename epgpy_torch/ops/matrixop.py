@@ -70,11 +70,17 @@ class MatrixOp(base.DiffOperator, base.CombinableOperator):
                 "axes= pinning is not ported to epgpy_torch")
         if isinstance(mat, torch.Tensor):
             mat = mat[None] if mat.ndim == 2 else mat
+            self.preserves_ladder_symmetry = False
         else:
             mat = _format_matrix(mat, check=check)
             if mat0 is not None:
                 mat0 = _format_matrix(mat0, check=check)
                 mat, mat0 = np.broadcast_arrays(mat, mat0)
+            if not check:
+                perm = (1, 0, 2)
+                sym = all(np.allclose(m, np.conj(m[..., perm, :][..., perm]))
+                          for m in (mat, mat0) if m is not None)
+                self.preserves_ladder_symmetry = bool(sym)
         self.mat, self.mat0 = mat, mat0
         self.diff_arrays = pack_diff_arrays(dmats, d2mats)
         if dmats or d2mats:

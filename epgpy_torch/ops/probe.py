@@ -22,9 +22,6 @@ from . import base
 
 __all__ = ["Probe", "Adc", "ADC", "DFT", "Imaging", "SM_LOCALS"]
 
-_NOT_PORTED = ("{} is not ported to epgpy_torch yet: ROADMAP queue 1, "
-               "item 5 (coordinate tables: ops/shiftnd.py, utils/imaging.py)")
-
 #: StateMatrix attributes accessible in expression probes
 SM_LOCALS = [
     "nstate", "ndim", "kdim", "states", "coords",
@@ -45,10 +42,6 @@ class _SMNamespace(dict):
         self._sm = sm
 
     def __missing__(self, key):
-        if key == "k":
-            # the JAX package's k carries the batch axes: (1.., K, 1)
-            k = self._sm.k
-            return k.reshape((1,) * self._sm.ndim + tuple(k.shape))
         if key in SM_LOCALS:
             return getattr(self._sm, key)
         raise KeyError(key)
@@ -83,28 +76,60 @@ class Probe(base.EmptyOperator):
 
 
 class Adc(Probe):
-    """Readout of a StateMatrix attribute (``F0`` by default), with an
-    optional `phase` (degrees) multiplied in as ``e^{i phase}`` (receiver
-    demodulation).  ``weights``/``reduce`` are not ported yet (ROADMAP
-    queue 1, item 3)."""
+    """Readout of a StateMatrix attribute (``F0`` by default): optional
+    ``weights`` multiply it (appended axes, as the append rule) and
+    ``reduce`` sums it over the given axes (all of the weights' axes when
+    weights are given, everything with True); `phase` (degrees) is
+    multiplied in as ``e^{i phase}`` (receiver demodulation).  `phase` and
+    `weights` are parameters: ADCs that differ only in them still group
+    into one block of the planner."""
 
-    PARAMS = ("phase",)
+    PARAMS = ("phase", "weights")
 
     def __init__(self, attr="F0", *, phase=None, reduce=None, weights=None,
                  name="ADC"):
         if attr not in SM_LOCALS:
             raise ValueError(f"Invalid StateMatrix attribute: {attr}")
-        if reduce is not None or weights is not None:
-            raise NotImplementedError(
-                "Adc weights/reduce is not ported to epgpy_torch yet: "
-                "ROADMAP queue 1, item 3")
         self.attr = attr
         self.phase = (phase if phase is None or isinstance(phase, torch.Tensor)
                       else np.asarray(phase))
+        if reduce is not None and reduce is not True and reduce is not False:
+            reduce = (reduce,) if isinstance(reduce, int) else tuple(reduce)
+            if not all(isinstance(ax, int) for ax in reduce):
+                raise ValueError(f"Expected (tuple of) int axes, got: "
+                                 f"{reduce}")
+        self.reduce = reduce
+        if weights is not None:
+            if not isinstance(weights, torch.Tensor):
+                weights = np.asarray(weights)
+            ndim = max(weights.ndim, 1)
+            if reduce is None:
+                self.reduce = tuple(range(ndim))
+            elif reduce not in (True, False) and not set(reduce) <= set(
+                    range(ndim)):
+                raise ValueError(f"Invalid reduce dimension(s): {reduce}")
+        self.weights = weights
         base.Operator.__init__(self, name=name)
 
+    @property
+    def plain(self) -> bool:
+        """True when the readout is the attribute itself (no weights, no
+        reduction): what the kernel families' matchers accept."""
+        return self.weights is None and self.reduce in (None, False)
+
     def _acquire(self, sm):
-        return getattr(sm, self.attr)
+        arr = getattr(sm, self.attr)
+        if self.weights is not None:
+            w = torch.as_tensor(self.weights, device=arr.device)
+            w = w.to(arr.dtype if w.is_complex() else arr.real.dtype)
+            if w.numel() > 1 and w.ndim < arr.ndim:
+                w = w.reshape(tuple(w.shape) + (1,) * (arr.ndim - w.ndim))
+            arr = arr * w
+        if self.reduce is None or self.reduce is False:
+            return arr
+        if self.reduce is True:
+            return torch.sum(arr)
+        return torch.sum(arr, dim=self.reduce)
 
     def post(self, obj):
         if self.phase is None:
@@ -117,12 +142,61 @@ class Adc(Probe):
         return obj * phasor
 
 
-def DFT(*args, **kwargs):
-    raise NotImplementedError(_NOT_PORTED.format("DFT"))
+class DFT(Probe):
+    """Point-voxel discrete Fourier transform of the F states at `coords`
+    (positions in m, (..., npos, d); default: the ``coords`` system
+    property)."""
+
+    PARAMS = ("coords",)
+
+    def __init__(self, coords=None, *, name=None):
+        self.coords = (None if coords is None or isinstance(
+            coords, torch.Tensor) else np.asarray(coords, dtype=float))
+        base.Operator.__init__(self, name=name or "DFT")
+
+    def _acquire(self, sm):
+        from ..utils.imaging import dft
+        coords = self.coords if self.coords is not None \
+            else sm.system["coords"]
+        return dft(coords, sm.F, sm.k[..., :3])
+
+    def post(self, obj):
+        return obj
 
 
-def Imaging(*args, **kwargs):
-    raise NotImplementedError(_NOT_PORTED.format("Imaging"))
+class Imaging(Probe):
+    """Spatially resolved imaging readout (DFT, voxel shape, T2'/B0 from
+    the accumulated time) at `coords` (default: the ``coords`` system
+    property); ``modulation`` and ``weights`` default to the system
+    properties of those names; other options go to
+    :func:`utils.imaging.imaging`."""
+
+    PARAMS = ("coords",)
+
+    def __init__(self, coords=None, *, name=None, **opts):
+        self.coords = (None if coords is None or isinstance(
+            coords, torch.Tensor) else np.asarray(coords, dtype=float))
+        self.opts = dict(opts)
+        base.Operator.__init__(self, name=name or "Imaging")
+
+    def _acquire(self, sm):
+        from ..utils.imaging import imaging
+        opts = dict(self.opts)
+        coords = self.coords
+        if coords is None:
+            coords = sm.system.get("coords")
+        modulation = opts.pop("modulation", None)
+        if modulation is None:
+            modulation = sm.system.get("modulation")
+        weights = opts.pop("weights", None)
+        if weights is None:
+            weights = sm.system.get("weights")
+        return imaging(coords, sm.F, sm.k[..., :3],
+                       acctime=sm.t if sm.kdim == 4 else None,
+                       modulation=modulation, weights=weights, **opts)
+
+    def post(self, obj):
+        return obj
 
 
 #: default ADC instance (records F0)

@@ -185,11 +185,20 @@ class ScalarOp(base.DiffOperator, base.CombinableOperator):
                 "axes= pinning is not ported to epgpy_torch")
         if isinstance(arr, torch.Tensor):
             arr = arr[None] if arr.ndim == 1 else arr
+            # device coefficients are unverified: the dense table engines
+            # (which assume F-(k) = conj(F+(-k))) stay off
+            self.preserves_ladder_symmetry = False
         else:
             arr = _format_triplet(arr, check=check)
             if arr0 is not None:
                 arr0 = _format_triplet(arr0, check=check)
                 arr, arr0 = np.broadcast_arrays(arr, arr0)
+            if not check:
+                sym = np.allclose(arr, np.conj(arr[..., (1, 0, 2)]))
+                if arr0 is not None:
+                    sym = sym and np.allclose(
+                        arr0, np.conj(arr0[..., (1, 0, 2)]))
+                self.preserves_ladder_symmetry = bool(sym)
         self.arr, self.arr0 = arr, arr0
         self.diff_arrays = pack_diff_arrays(darrs, d2arrs)
         if darrs or d2arrs:

@@ -179,11 +179,28 @@ def test_adc_attr_and_phase(port_f64):
     seq = [tepg.T(90, 0), tepg.Adc(phase=90), tepg.Adc("Z0")]
     out = tepg.simulate(seq)
     assert np.allclose(out, [[1.0], [0.0]])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tepg.Adc(weights=[0.5, 0.5])
-    for fn in (tepg.DFT, tepg.Imaging):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fn()
+    # weighted and reduced readouts, DFT and Imaging probes, against JAX
+    pos = np.array([[0.0], [0.004], [-0.01]])
+
+    def train(e):
+        return [e.T(np.array([60.0, 90.0]), 90), e.S(1, duration=1.0),
+                e.T(30, 0), e.S(1, duration=1.0),
+                e.Adc(weights=[0.25, 0.75]), e.Adc(weights=[[1.0, 2.0]],
+                                                   reduce=1),
+                e.Adc("Z0", reduce=True), e.DFT(pos),
+                e.Imaging(pos, voxel_size=2e-3, reduce=False)]
+
+    got = tepg.simulate(train(tepg), kvalue=300.0, probe=[
+        tepg.Adc(weights=[0.25, 0.75]), tepg.DFT(pos),
+        tepg.Imaging(pos, voxel_size=2e-3, reduce=(0, 1))])
+    want = jepg.simulate(train(jepg), kvalue=300.0, probe=[
+        jepg.Adc(weights=[0.25, 0.75]), jepg.DFT(pos),
+        jepg.Imaging(pos, voxel_size=2e-3, reduce=(0, 1))])
+    for g, w in zip(got, want):
+        assert np.shape(g) == np.shape(w)
+        assert np.abs(g - np.asarray(w)).max() < TOL
+    with pytest.raises(ValueError, match="reduce"):
+        tepg.Adc(weights=[0.5, 0.5], reduce=3)
 
 
 def test_scalarop_darrs_jacobian_matches_jax(port_f64):
@@ -260,8 +277,24 @@ def test_unknown_option_is_logged(port_f64, caplog):
     with caplog.at_level(logging.WARNING, logger="epgpy_torch.engine"):
         tepg.simulate([tepg.T(90, 90), tepg.ADC], frobnicate=1)
     assert "frobnicate" in caplog.text
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tepg.simulate([tepg.T(90, 90), tepg.ADC], kgrid=0.1)
+    # kgrid, prune and coords are known options: a float-shift train
+    # through them against JAX
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="epgpy_torch.engine"):
+        got = tepg.simulate([tepg.T(90, 90), tepg.S(0.35), tepg.T(60, 0),
+                             tepg.S(0.35), tepg.ADC], kgrid=0.1, prune=1e-6)
+    assert "unrecognized" not in caplog.text
+    want = jepg.simulate([jepg.T(90, 90), jepg.S(0.35), jepg.T(60, 0),
+                          jepg.S(0.35), jepg.ADC], kgrid=0.1, prune=1e-6)
+    assert np.abs(got - np.asarray(want)).max() < TOL
+    coords = np.arange(-4, 5, dtype=float)[:, None]    # the 9-row ladder
+    got = tepg.simulate([tepg.T(90, 90), tepg.S(1), tepg.T(50, 0),
+                         tepg.S(0.5), tepg.ADC], coords=coords,
+                        kgrid=0.5)
+    want = jepg.simulate([jepg.T(90, 90), jepg.S(1), jepg.T(50, 0),
+                          jepg.S(0.5), jepg.ADC], coords=coords,
+                         kgrid=0.5)
+    assert np.abs(got - np.asarray(want)).max() < TOL
 
 
 def test_helpers_match_jax(port_f64):

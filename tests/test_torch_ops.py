@@ -99,11 +99,47 @@ def test_S(port_f64, k):
     assert tepg.S(k).nshift == abs(k)
 
 
-def test_S_table_shifts_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tepg.S(0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tepg.G(1.0, 10.0)
+def _table_rows(states, coords):
+    """The occupied rows of a coordinate table, (coords, states) sorted by
+    coordinates: the row order of a table is internal state (JAX's matmul
+    engine keeps key order, the sort engine magnitude order)."""
+    states, coords = np.asarray(states), np.asarray(coords, dtype=float)
+    states = states.reshape(-1, *states.shape[-2:])
+    coords = np.broadcast_to(coords, states.shape[:-1] + coords.shape[-1:])
+    out = []
+    for s, c in zip(states, coords):
+        keep = np.abs(s).sum(-1) > 0
+        order = np.lexsort(np.round(c[keep], 9).T[::-1])
+        out.append((c[keep][order], s[keep][order]))
+    return out
+
+
+@pytest.mark.parametrize("make", [
+    lambda e: e.S(0.5, kgrid=0.25),
+    lambda e: e.S(np.array([[1.3, -0.4]]), kgrid=0.5),
+    lambda e: e.S(np.array([[1, 2, -1]])),
+    lambda e: e.G(1.0, [10.0, 0.0, 5.0], kgrid=50.0),
+    lambda e: e.C(2.0, 0.3, kgrid=0.1),
+])
+def test_S_table_shifts(port_f64, make):
+    """A float, vector, gradient (G) or time (C) shift on a ladder with no
+    table attaches one and merges, as in JAX (compared row set by row
+    set); a second shift merges on the table."""
+    states = random_ladder(np.random.default_rng(3), (3,), 4)
+    jsm, tsm = _pair(states)
+    jop, top = make(jepg), make(tepg)
+    assert top.kdim == jop.kdim and top.shape == jop.shape
+    j = jop(jepg.T(40.0, 10.0)(jop(jsm)))
+    t = top(tepg.T(40.0, 10.0)(top(tsm)))
+    assert t.kdim == j.kdim and t.coords.shape == j.coords.shape
+    for (jc, js), (tc, ts) in zip(_table_rows(j.states, j.coords),
+                                  _table_rows(t.states.numpy(),
+                                              t.coords.numpy())):
+        assert jc.shape == tc.shape
+        assert np.abs(jc - tc).max() < 1e-9
+        assert np.abs(js - ts).max() < ATOL
+    assert np.abs(np.asarray(j.F0) - t.F0.numpy()).max() < ATOL
+    assert t.check()
 
 
 @pytest.mark.parametrize("attr, phase", [
