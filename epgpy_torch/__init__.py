@@ -8,11 +8,15 @@ the same names:
 >>> seq = [epg.T(90, 90)] + [epg.S(1), epg.T(150, 0), epg.S(1), epg.ADC] * 20
 >>> signal = epg.simulate(epg.modify(seq, T2=[30, 40, 50]))
 
-This port covers the operator core -- T/Tx/Ty/Phi/E/P/R/S(int)/D/X, the
+This port covers the operator core -- T/Tx/Ty/Phi/E/P/R/S/G/C/D/X, the
 user classes ScalarOp and MatrixOp, CombinedOp (``combine``, ``@``), the
 utility operators SPOILER, RESET, PD, System, Offset, NULL, callable and
-expression probes (``"F0"``, ``"Z0"``) and Adc -- with order1/order2
-derivative specs; the StateMatrix and its options; the general engine
+expression probes (``"F0"``, ``"Z0"``), Adc (weights, reduce, phase) and
+the imaging readouts DFT and Imaging -- with order1/order2 derivative
+specs; the StateMatrix with its options and its coordinate table (float
+and n-D shifts, Gao 2021's spatially resolved phase graph:
+``ops/shiftnd.py``, ``ops/shiftdense.py``, ``simulate(kgrid=)``); the
+general engine
 (``simulate``: ``squeeze_sequence``, the scan planner of periodic blocks
 with precomputed relaxation, run on the card as one memoized CUDA graph;
 ``callback``, ``init``, ``nstate``, ``equilibrium``, ``system``, ...);
@@ -48,9 +52,10 @@ from .engine import (
 from .models.ssfp import bssfp_sequence, dess_sequence, spgr_sequence
 from .utils import (
     gamma_1H, gamma_23Na, Axes, get_norm, get_wavenumber, spatial_range,
-    space_to_freq, freq_to_space, saturation_rate, absorption_rate,
+    space_to_freq, freq_to_space, saturation_rate, absorption_rate, dft,
 )
 from .utils.helpers import cexp, progressbar
+from .utils.imaging import imaging
 
 #: reference epgpy/utils.py:5 -- np.newaxis alias used in probe expressions
 NAX = None
@@ -78,7 +83,8 @@ __all__ = [
     "getnshift", "getkdim", "get_adc_times", "bssfp_sequence",
     "dess_sequence", "spgr_sequence", "gamma_1H", "gamma_23Na", "Axes",
     "get_norm", "get_wavenumber", "spatial_range", "space_to_freq",
-    "freq_to_space", "saturation_rate", "absorption_rate", "cexp",
+    "freq_to_space", "saturation_rate", "absorption_rate", "dft", "imaging",
+    "cexp",
     "progressbar", "NAX", "check_states", "epg",
 ]
 

@@ -50,11 +50,17 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :362-1277).
   of ``simulate_simple`` (diff.simulate_diff).
 
 The ladder capacity is fixed up front from the sequence's total shift
-count, capped by ``max_nstate`` (``nstate`` is a floor); the count and
-the batch shape are memoized per operator list (``_sequence_preamble``),
+count, capped by ``max_nstate`` (``nstate`` is a floor); a train of float
+or vector shifts gets a coordinate table of ``2 * ncap + 1`` rows instead,
+``ncap`` from the lattice bound of its shifts in ``kgrid`` cells
+(``_capacity``), attached before the first op (``_setup_table``) with the
+merge engine the train allows: the dense rows-are-cells merges where the
+capacity covers the whole range (``_dense_bound``,
+``_dense_varying_bound``), else the sort merge (``ops/shiftnd.py``).  The
+host analysis is memoized per operator list (``_sequence_preamble``),
 plans and their graphs in ``_PLAN_CACHE`` (``clear_caches`` drops all).
-``kvalue`` (rad/m per ladder index) scales the wavenumbers the diffusion
-operator reads.
+``kvalue`` (rad/m per ladder index or table unit) scales the wavenumbers
+the diffusion operator and the imaging probes read.
 """
 
 from __future__ import annotations
@@ -683,8 +689,8 @@ def squeeze_sequence(sequence):
 
 
 def getkdim(sequence) -> int:
-    """Number of gradient axes used by the sequence (1: integer 1-D
-    shifts are all the port has)."""
+    """Number of gradient axes used by the sequence (4 with a time axis,
+    the C operator's)."""
     return max([getattr(op, "kdim", 1) for op in flatten_sequence(sequence)],
                default=1)
 
@@ -736,18 +742,20 @@ def _build_plan(ops, *, min_reps=3, min_ops=6, max_period=64, scan=True):
     return plan
 
 
-def _device_leaf(x):
-    """A parameter as a tensor on the working device: complex values in
-    the complex working dtype, others in the real one (None passes)."""
+def _device_leaf(x, dtype=None):
+    """A parameter as a tensor on the working device: in `dtype` where an
+    operator asks for one (``Operator.LEAF_DTYPES``), else complex values
+    in the complex working dtype and others in the real one (None
+    passes)."""
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
-        dtype = (config.complex_dtype() if x.is_complex()
-                 else config.real_dtype())
+        dtype = dtype or (config.complex_dtype() if x.is_complex()
+                          else config.real_dtype())
         return x.to(device=config.device(), dtype=dtype)
     arr = np.asarray(x)
-    dtype = (config.complex_dtype() if np.iscomplexobj(arr)
-             else config.real_dtype())
+    dtype = dtype or (config.complex_dtype() if np.iscomplexobj(arr)
+                      else config.real_dtype())
     return torch.as_tensor(arr, dtype=dtype, device=config.device())
 
 
@@ -781,7 +789,8 @@ def _device_op(op):
     leaves = op.leaves()
     if not any(x is not None for x in leaves):
         return op
-    return op.with_leaves([_device_leaf(x) for x in leaves])
+    return op.with_leaves([_device_leaf(x, dt) for x, dt in
+                           zip(leaves, op.leaf_dtypes())])
 
 
 def _slot_invariant(ops) -> bool:
@@ -813,13 +822,14 @@ def _stack_leaves(ops):
     along a new leading repetition axis, on the working device."""
     columns = zip(*[op.leaves() for op in ops])
     out = []
-    for col in columns:
+    for dtype, col in zip(ops[0].leaf_dtypes(), columns):
         if col[0] is None:
             out.append(None)
         elif any(isinstance(x, torch.Tensor) for x in col):
-            out.append(torch.stack([_device_leaf(x) for x in col]))
+            out.append(torch.stack([_device_leaf(x, dtype) for x in col]))
         else:
-            out.append(_device_leaf(np.stack([np.asarray(x) for x in col])))
+            out.append(_device_leaf(np.stack([np.asarray(x) for x in col]),
+                                    dtype))
     return out
 
 
@@ -1159,12 +1169,15 @@ def simulate(sequence, *, adc_time: bool = False, init=None,
     ladder (default ``[0, 0, 1]``) or a StateMatrix (its options merged
     under these).  Options: ``max_nstate`` (ladder cap), ``nstate`` (a
     capacity floor), ``kvalue`` (rad/m per ladder index, the wavenumbers
-    D ops read), ``tvalue``, ``density`` / ``equilibrium``, ``shape``,
-    ``check``, ``system``; others are logged and forwarded to
+    D ops read), ``tvalue``, ``kgrid`` (the merge grid of float shifts),
+    ``prune`` (accepted, as in JAX), ``coords`` (an initial coordinate
+    table), ``density`` / ``equilibrium``, ``shape``, ``check``,
+    ``system``; others are logged and forwarded to
     ``StateMatrix.options``.  ``jacobian_chunk=N`` pushes N tangent columns
     at a time on the general diff path.  With ``density`` set only the
-    EPG-X kernel families take part; with `init`, a callback or any of
-    the StateMatrix options, no kernel does.
+    EPG-X kernel families take part; with `init`, a callback, an array
+    `kvalue` or any of the StateMatrix options (``kgrid`` included), no
+    kernel does.
     """
     from . import diff
 

@@ -2,10 +2,9 @@
 ``epgpy_tpu/epg.py``, the reference's ``from epgpy import epg``).
 
 Everything needed for scripting, over the names the port has.  Still to
-come with their modules (ROADMAP queue 1, item 5): ``Sequence``,
-``Variable``, ``Constant``, ``Expression``, ``repeat`` (``sequence.py``),
-``rfpulse``/``RFPulse``, ``imaging``, ``ilt1d``, ``dft`` and
-``load_pulse``.
+come with their modules: ``Sequence``, ``Variable``, ``Constant``,
+``Expression``, ``repeat`` (``sequence.py``, ROADMAP queue 1, item 2),
+``rfpulse``/``RFPulse`` and ``load_pulse`` (item 3), ``ilt1d`` (item 10).
 """
 
 from .statematrix import StateMatrix  # noqa: F401
@@ -21,6 +20,7 @@ from . import (  # noqa: F401
 )
 from .utils import (  # noqa: F401
     gamma_1H, gamma_23Na, Axes, get_norm, get_wavenumber, spatial_range,
-    space_to_freq, freq_to_space, saturation_rate, absorption_rate,
+    space_to_freq, freq_to_space, saturation_rate, absorption_rate, dft,
 )
+from .utils.imaging import imaging  # noqa: F401
 from . import config, stats  # noqa: F401

@@ -35,6 +35,9 @@ class Operator:
 
     #: names of the numeric parameters (stacked by the scan planner)
     PARAMS: tuple = ()
+    #: device dtypes of parameters that do not take the working precision
+    #: (the engine's planned copies)
+    LEAF_DTYPES: dict = {}
     #: parameters with defined first/second derivatives (diff layer)
     PARAMETERS_ORDER1: frozenset = frozenset()
     #: attributes ignored by :meth:`signature` (cosmetic / timing / diff
@@ -88,6 +91,10 @@ class Operator:
     def with_leaves(self, values) -> "Operator":
         """A copy whose parameters (``PARAMS`` order) are `values`."""
         return self.copy(**dict(zip(self.PARAMS, values)))
+
+    def leaf_dtypes(self) -> list:
+        """The device dtype of each leaf (None: the working precision)."""
+        return [self.LEAF_DTYPES.get(p) for p in self.PARAMS]
 
     def signature(self):
         """Structural identity used for scan grouping: the class, the

@@ -102,6 +102,9 @@ class CombinedOp(base.CombinableOperator):
     def leaves(self):
         return [x for op in self.ops for x in op.leaves()]
 
+    def leaf_dtypes(self):
+        return [d for op in self.ops for d in op.leaf_dtypes()]
+
     def with_leaves(self, values):
         values, ops = list(values), []
         for op in self.ops:

@@ -6,9 +6,9 @@ record data from the state matrix at their position in the sequence
 expression string evaluated against the StateMatrix's attributes
 (``SM_LOCALS``) with torch's functions as the math namespace (``"F0"``,
 ``"Z0"``, ``"(real(F0), imag(F0))"``), or the ``Adc`` readout of an
-attribute with optional weights, reduction and receiver phase.  ``DFT`` and
-``Imaging`` need coordinate tables and raise NotImplementedError (ROADMAP
-queue 1, item 5).
+attribute with optional weights, reduction and receiver phase, or the
+spatially resolved readouts ``DFT`` and ``Imaging``, which Fourier-sum the
+F ladder over its wavenumbers at given positions (``utils/imaging.py``).
 """
 
 from __future__ import annotations

@@ -71,6 +71,9 @@ class S(base.DiffOperator):
     API: the capacity is the engine's."""
 
     PARAMS = ("kleaf",)
+    #: shift values stay float64 on the device: the table merges quantize
+    #: their sums into grid cells (``statematrix.COORD_DTYPE``)
+    LEAF_DTYPES = {"kleaf": torch.float64}
 
     def __init__(self, k, *, nmax=None, kgrid=None, prune=1e-8, name=None,
                  duration=None):

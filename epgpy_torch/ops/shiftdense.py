@@ -16,10 +16,12 @@ merge of ``shiftnd.py`` needs no sort:
   rides along as two columns, ``w`` and ``w * k``.
 
 Under those conditions the cells hold exactly what the table engines
-compute.  The batch-varying form (the reference's shift-prune, per-atom
+compute.  The wavenumber bookkeeping runs in the table's float64, the
+states in the working precision.  The batch-varying form (the reference's shift-prune, per-atom
 shifts and per-atom means) gathers each atom's rows from its own base
-offset (JAX's "gather" kernel; its masked-roll kernel, a TPU compile-time
-trade, is not ported) and keeps the F- column as the mirror of F+.
+offset once, then applies the three corrections as static row steps (the
+cells of JAX's "gather" and masked-roll kernels alike) and keeps the F-
+column as the mirror of F+.
 """
 
 from __future__ import annotations
@@ -29,22 +31,6 @@ import torch
 __all__ = ["shiftmerge_dense", "shiftmerge_dense_varying"]
 
 _INT = torch.int64
-
-
-def _move(x, extra, base):
-    """Rows of x (D, ...) moved by ``base + extra[r]`` (extra in
-    {-1, 0, 1}, other rows dropped), zero-filled; rows landing together
-    add, in the order -1, 0, +1."""
-    D = x.shape[0]
-    rows = torch.arange(D, device=x.device)
-    out = torch.zeros_like(x)
-    for e in (-1, 0, 1):
-        src = rows - base - e
-        srcc = src.clamp(0, D - 1)
-        sel = (src >= 0) & (src < D) & (extra.index_select(0, srcc) == e)
-        out = out + x.index_select(0, srcc) * sel.to(x.dtype).reshape(
-            (D,) + (1,) * (x.ndim - 1))
-    return out
 
 
 def _targets(kL, delta, grid, D):
@@ -63,55 +49,78 @@ def shiftmerge_dense(states, wavenums, delta, grid, tol=1e-8):
     states: (*batch, D, 3) complex, row r holding cell ``r - D//2``;
     wavenums: (D,) mean wavenumbers; delta: a 0-d tensor; grid: the cell
     size.  Returns (states', wavenums' (D, 1)): the cells of
-    ``shiftnd.shiftmerge_table`` where no trim happens, placed by cell."""
+    ``shiftnd.shiftmerge_table`` where no trim happens, placed by cell.
+
+    Row r of component c moves to ``r + base[c] + extra[r, c]`` (F+ by
+    m0 + e1, F- by -m0 + e2 with e2 its mirror, Z by eZ), extra in {-1,
+    0, 1}: for each e one gather of the flattened (B, 3D) ladder (rows
+    whose correction is not e read a zero column), the three added in the
+    order -1, 0, +1."""
     D = states.shape[-2]
-    bshape = tuple(states.shape[:-2])
-    rdt = states.real.dtype
-    kL = torch.round(wavenums.reshape(D).to(rdt), decimals=8)
+    dev = states.device
+    kL = torch.round(wavenums.reshape(D), decimals=8)
     eZ, e1, m0 = _targets(kL, delta, grid, D)
-    e2 = -e1.flip(0)                       # F- mirrors F+ (q2 = -q1[::-1])
-    flat = states.reshape(-1, D, 3)
-    B = flat.shape[0]
-
-    def bundle(j, val):
-        """(D, 2B + 2): [re | im | w | w * k] of component j."""
-        comp = flat[..., j].transpose(0, 1)                  # (D, B)
-        w = comp.abs().sum(dim=1)
-        return torch.cat([comp.real, comp.imag, w[:, None],
-                          (w * val)[:, None]], dim=1)
-
-    zero = torch.zeros_like(m0)
-    mZ = _move(bundle(2, kL), eZ, zero)
-    mFp = _move(bundle(0, kL + delta), e1, m0)
-    mFm = _move(bundle(1, kL - delta), e2, -m0)
-    w_out = mZ[:, -2] + mFp[:, -2] + mFm[:, -2]
-    kw_out = mZ[:, -1] + mFp[:, -1] + mFm[:, -1]
-    new_k = kw_out / torch.where(w_out > tol, w_out, torch.ones_like(w_out))
-
-    def restore(m):
-        c = torch.complex(m[:, :B], m[:, B:2 * B])           # (D, B)
-        return c.transpose(0, 1).reshape(bshape + (D,))
-
-    return (torch.stack([restore(mFp), restore(mFm), restore(mZ)], dim=-1),
-            new_k[:, None])
-
-
-def _move_rows(arrs, shifts, base):
-    """Per-atom row moves: each row r of atom b goes to ``r + shifts[b,
-    r]`` where that is ``base[b] + e``, e in {-1, 0, 1} (three row
-    gathers per array); arrs and shifts (B, D), base (B, 1)."""
-    D = shifts.shape[-1]
-    rows = torch.arange(D, device=shifts.device)[None]
-    outs = [torch.zeros_like(a) for a in arrs]
+    extra = torch.stack([e1, -e1.flip(0), eZ], dim=-1)          # (D, 3)
+    base = torch.stack([m0, -m0, torch.zeros_like(m0)])         # (3,)
+    vals = torch.stack([kL + delta, kL - delta, kL], dim=-1)    # (D, 3)
+    # the flattened (B, 3D) ladder and a zero column (3D) that masked-out
+    # entries read
+    flat = states.reshape(-1, 3 * D)
+    flat = torch.cat([flat, torch.zeros_like(flat[:, :1])], dim=-1)
+    # the magnitude weights, summed over the batch (reference
+    # epgpy/shift.py:420), and the weighted wavenumbers
+    w = states.abs().reshape(-1, D, 3).sum(dim=0).to(kL.dtype)
+    wk = torch.stack([w, w * vals])                             # (2, D, 3)
+    rows = torch.arange(D, device=dev)[:, None]
+    cols = torch.arange(3, device=dev)
+    out = wk_out = None
     for e in (-1, 0, 1):
         src = rows - base - e
         srcc = src.clamp(0, D - 1)
         sel = ((src >= 0) & (src < D)
-               & (torch.gather(shifts, -1, srcc) == base + e))
-        for i, a in enumerate(arrs):
-            outs[i] = outs[i] + torch.gather(a, -1, srcc) * sel.to(
-                a.real.dtype)
-    return outs
+               & (torch.gather(extra, 0, srcc) == e))
+        g = flat.index_select(-1, torch.where(
+            sel, srcc * 3 + cols, 3 * D).reshape(-1))
+        out = g if out is None else out.add_(g)
+        gw = torch.gather(wk, 1, srcc.expand(2, D, 3)) * sel.to(wk.dtype)
+        wk_out = gw if wk_out is None else wk_out + gw
+    w_out, kw_out = wk_out[..., 2] + wk_out[..., 0] + wk_out[..., 1]
+    new_k = kw_out / torch.where(w_out > tol, w_out, torch.ones_like(w_out))
+    return out.reshape(states.shape), new_k[:, None]
+
+
+def _step(x, e):
+    """The rows of x (..., D) moved by a static e in {-1, 0, 1}:
+    ``out[..., r] = x[..., r - e]``, zero-filled."""
+    if e == 0:
+        return x
+    zero = torch.zeros_like(x[..., :1])
+    if e > 0:
+        return torch.cat([zero, x[..., :-1]], dim=-1)
+    return torch.cat([x[..., 1:], zero], dim=-1)
+
+
+def _move_rows(arrs, shifts, base=None):
+    """Per-atom row moves: row r of atom b goes to ``r + shifts[b, r]``
+    where that is ``base[b] + e``, e in {-1, 0, 1}; arrs and shifts
+    (B, D), base (B, 1) or None (0).  One row gather per array by the
+    atom's base (into rows -1..D: a row the base moves one past an edge
+    may step back in), then the three corrections as static row steps of
+    the masked rows, added in the order -1, 0, +1."""
+    D = shifts.shape[-1]
+    if base is not None:
+        src = torch.arange(-1, D + 1, device=shifts.device)[None] - base
+        valid = (src >= 0) & (src < D)
+        srcc = src.clamp(0, D - 1)
+        arrs = [torch.gather(a, -1, srcc) * valid for a in arrs]
+        shifts = torch.where(valid, torch.gather(shifts, -1, srcc) - base,
+                             torch.full_like(srcc, 2))
+    outs = None
+    for e in (-1, 0, 1):
+        m = shifts == e
+        terms = [_step(a * m, e) for a in arrs]
+        outs = terms if outs is None else [o + t for o, t in zip(outs, terms)]
+    return outs if base is None else [o[..., 1:-1] for o in outs]
 
 
 def shiftmerge_dense_varying(Fp, Z, wavenums, delta, grid, tol=1e-8):
@@ -124,17 +133,16 @@ def shiftmerge_dense_varying(Fp, Z, wavenums, delta, grid, tol=1e-8):
     reference's prune path assumes the ladder symmetry too).  Returns
     (Fp', Z', wavenums' (B, D))."""
     D = Fp.shape[-1]
-    rdt = Fp.real.dtype
-    kL = torch.round(wavenums.to(rdt), decimals=8)
+    kL = torch.round(wavenums, decimals=8)
     cells = (torch.arange(D, device=Fp.device) - D // 2)[None]
     qL = torch.round(0.5 * (kL - kL.flip(-1)) / grid).to(_INT)
     eZ = qL - cells                                # in {-1, 0, 1}
     k1 = kL + delta[:, None]
     t1 = torch.round(k1 / grid).to(_INT) - cells
     m0 = torch.round(delta / grid).to(_INT)[:, None]
-    wZ = Z.abs()
-    Z2, wZ2, kwZ2 = _move_rows([Z, wZ, wZ * kL], eZ, torch.zeros_like(m0))
-    wFp = Fp.abs()
+    wZ = Z.abs().to(kL.dtype)
+    Z2, wZ2, kwZ2 = _move_rows([Z, wZ, wZ * kL], eZ)
+    wFp = Fp.abs().to(kL.dtype)
     Fp2, wFp2, kwFp2 = _move_rows([Fp, wFp, wFp * k1], t1, m0)
     w_out = wZ2 + wFp2 + wFp2.flip(-1)
     kw_out = kwZ2 + kwFp2 - kwFp2.flip(-1)

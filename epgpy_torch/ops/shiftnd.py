@@ -29,7 +29,9 @@ Not ported, on purpose: the JAX package's one-hot "matmul" engine (an MXU
 workaround for the TPU's slow sorts, equal by construction), the
 power-of-two padding of the sorted rows and the re/im split of the
 payloads (TPU compile-time workarounds), and int32 keys (the keys are
-int64 everywhere, so the int32 key-space overflow cannot happen).
+int64 everywhere, so the int32 key-space overflow cannot happen).  The
+wavenumber bookkeeping (cells, weights, means) runs in float64 at either
+precision (``COORD_DTYPE``), the states in the working one.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ import math
 import numpy as np
 import torch
 
-from .. import common, config
+from .. import common
+from ..statematrix import COORD_DTYPE
 
 __all__ = ["apply_shift", "shiftnd_table", "shiftmerge_table",
            "shiftmerge_table_batched"]
@@ -150,9 +153,8 @@ def _merge_int(cols, coords, delta, C):
     """Integer merge: coords (A, C, d) int64, delta (A, d) int64."""
     cand_q = torch.cat([coords, coords + delta[:, None],
                         coords - delta[:, None]], dim=-2)
-    rdt = cols[0].real.dtype
-    extra = torch.cat([cand_q.to(rdt), torch.ones_like(
-        cand_q[..., :1], dtype=rdt)], dim=-1)
+    extra = torch.cat([cand_q.to(COORD_DTYPE), torch.ones_like(
+        cand_q[..., :1], dtype=COORD_DTYPE)], dim=-1)
     cols, ex = _table_merge(cols, cand_q, extra, C)
     cnt = ex[..., -1:].clamp(min=1.0)
     return cols, torch.round(ex[..., :-1] / cnt).to(_INT)
@@ -171,7 +173,7 @@ def _merge_float(cols, wavenums, delta, grid, C, tol):
     # weights: the state magnitudes summed over the columns (reference
     # epgpy/shift.py:420)
     w = torch.cat([cols[2].abs().sum(-1), cols[0].abs().sum(-1),
-                   cols[1].abs().sum(-1)], dim=-1)           # (A, 3C)
+                   cols[1].abs().sum(-1)], dim=-1).to(kL.dtype)  # (A, 3C)
     kcand = torch.cat([kL, k1, k2], dim=-2)
     extra = torch.cat([kcand * w[..., None], w[..., None]], dim=-1)
     cols, ex = _table_merge(cols, cand_q, extra, C)
@@ -212,9 +214,9 @@ def shiftmerge_table(states, wavenums, delta, grid, C=None, tol=1e-8):
     float; grid: a scalar or (d,) cell size.  Returns (states',
     wavenums')."""
     C = states.shape[-2] if C is None else C
-    rdt = states.real.dtype
-    wavenums = torch.as_tensor(wavenums, device=states.device).to(rdt)
-    delta = torch.as_tensor(delta, device=states.device).to(rdt)
+    wavenums = torch.as_tensor(wavenums, device=states.device).to(
+        COORD_DTYPE)
+    delta = torch.as_tensor(delta, device=states.device).to(COORD_DTYPE)
     d = wavenums.shape[-1]
     cols, new = _merge_float(_shared_cols(states), wavenums.reshape(1, C, d),
                              delta.reshape(1, d), _grid(grid, d, wavenums),
@@ -229,20 +231,20 @@ def shiftmerge_table_batched(states, wavenums, delta, grid, tol=1e-8):
     sort over the (B, 3C) keys; the per-atom weights are each atom's own
     magnitudes.  Returns (states' (B, C, 3), wavenums' (B, C, d))."""
     B, C = states.shape[:2]
-    rdt = states.real.dtype
     d = wavenums.shape[-1]
     cols = tuple(states[..., j][..., None] for j in range(3))
-    cols, new = _merge_float(cols, wavenums.to(rdt), delta.to(rdt),
+    cols, new = _merge_float(cols, wavenums.to(COORD_DTYPE),
+                             delta.to(COORD_DTYPE),
                              _grid(grid, d, wavenums), C, tol)
     return torch.stack([c[..., 0] for c in cols], dim=-1), new
 
 
 def _shift_vector(op, sm, kdim):
     """The shift of `op` as a (*kbatch, kdim) tensor on the state's
-    device: int64 for integer shifts, else the real dtype.  A host value
-    is copied, a planned (device) leaf used as it is; the static integer
+    device: int64 for integer shifts, else float64.  A host value is
+    copied, a planned (device) leaf used as it is; the static integer
     shift is filled in without a copy."""
-    dev, rdt = sm.states.device, sm.states.real.dtype
+    dev = sm.states.device
     if op._kint is not None:
         karr = torch.zeros((1, kdim), dtype=_INT, device=dev)
         karr[0, 0] = op._kint
@@ -253,7 +255,7 @@ def _shift_vector(op, sm, kdim):
     if op._int_table:
         return (torch.round(karr) if karr.is_floating_point()
                 else karr).to(_INT)
-    return karr.to(rdt)
+    return karr.to(COORD_DTYPE)
 
 
 def apply_shift(op, sm):
@@ -308,10 +310,9 @@ def apply_shift(op, sm):
     elif kgrid is None:
         raise AttributeError("kgrid not set")
     ktvalue = sm.ktvalue
-    rdt = states.real.dtype
 
     if not batch_varying and shared:
-        delta = karr.reshape(-1).to(rdt) * ktvalue
+        delta = karr.reshape(-1).to(COORD_DTYPE) * ktvalue
         if (sm.options.get("_dense_grid") and sm.kdim == 1
                 and not int_path):
             new_states, new_k = shiftdense.shiftmerge_dense(
@@ -324,7 +325,7 @@ def apply_shift(op, sm):
 
     bshape = tuple(states.shape[:-2])
     B, C = math.prod(bshape), states.shape[-2]
-    delta = karr.to(rdt) * ktvalue
+    delta = karr.to(COORD_DTYPE) * ktvalue
     dshape = tuple(delta.shape[:-1])
     if len(dshape) < len(bshape):       # the append rule
         delta = delta.reshape(dshape + (1,) * (len(bshape) - len(dshape))

@@ -15,7 +15,8 @@ Batch axes broadcast with the append rule (see common.py).
 ``coords`` is the explicit coordinate table of float and n-D shifts
 (``ops/shiftnd.py``; Gao 2021's spatially resolved phase graph): ``None``
 on the 1-D integer ladder, else a ``(*batch, K, kdim)`` tensor (batch axes
-of size 1 when shared) whose row i holds the wavenumber of ladder row i
+of size 1 when shared; int64, or float64 at either precision) whose row i
+holds the wavenumber of ladder row i
 in units of ``kvalue`` (up to three gradient axes) and, as a fourth
 column, the accumulated dephasing time in units of ``tvalue`` (the ``C``
 operator).  Table rows sit in no particular order except the k = 0 row,
@@ -36,7 +37,12 @@ import torch
 
 from . import common, config
 
-__all__ = ["StateMatrix"]
+__all__ = ["StateMatrix", "COORD_DTYPE"]
+
+#: the float dtype of a coordinate table at either working precision: the
+#: merges quantize mean wavenumbers into grid cells, and float32 means
+#: would cross a cell boundary where float64 ones do not
+COORD_DTYPE = torch.float64
 
 
 class StateMatrix:
@@ -186,14 +192,15 @@ class StateMatrix:
         """Physical wavenumbers (rad/m): ``coords[..., :3] * kvalue``,
         (*1, K, <=3); the integer ladder's row index on a 1-D ladder."""
         coords = self.coords
+        rdt = self.states.real.dtype
         if coords is None:
             n = self.nstate
-            coords = torch.arange(-n, n + 1, dtype=self.states.real.dtype,
+            coords = torch.arange(-n, n + 1, dtype=rdt,
                                   device=self.states.device)[:, None]
             coords = coords.reshape((1,) * self.ndim + tuple(coords.shape))
         coords = coords[..., :3]
         if not coords.is_floating_point():
-            coords = coords.to(self.states.real.dtype)
+            coords = coords.to(rdt)
         kvalue = self.kvalue
         if isinstance(kvalue, torch.Tensor):
             kvalue = kvalue.reshape(-1)[:coords.shape[-1]] \
@@ -202,7 +209,7 @@ class StateMatrix:
             kvalue = common.const_tensor(
                 np.ravel(kvalue)[:coords.shape[-1]], coords.dtype,
                 coords.device)
-        return coords * kvalue
+        return (coords * kvalue).to(rdt)
 
     @property
     def t(self):
@@ -210,37 +217,39 @@ class StateMatrix:
         if self.kdim < 4:
             return torch.zeros((), dtype=self.states.real.dtype,
                                device=self.states.device)
-        return self.coords[..., 3] * self.tvalue
+        return (self.coords[..., 3] * self.tvalue).to(self.states.real.dtype)
 
     @property
     def t0(self):
         """The accumulated time of the k = 0 rows (0 without a time axis)."""
         if self.kdim < 4:
             return self.t
-        return self.coords[..., 3] * self.i0 * self.tvalue
+        return self.t * self.i0
 
     @property
     def ktvalue(self):
         """Scale of each coordinate: [kvalue (up to 3 axes), tvalue (the
-        time axis)], a real tensor of length ``kdim`` (memoized for host
+        time axis)], a float64 tensor of length ``kdim`` (memoized for host
         values: no copy to the device inside a CUDA graph capture)."""
         kdim = self.kdim
         kvalue, tvalue = self.kvalue, self.tvalue
-        ref = self.states.real
+        dev = self.states.device
         if isinstance(kvalue, torch.Tensor) or isinstance(tvalue,
                                                            torch.Tensor):
-            kv = _real_like(kvalue, ref).reshape(-1)
+            kv = torch.as_tensor(kvalue, dtype=COORD_DTYPE,
+                                 device=dev).reshape(-1)
             kv = (kv.expand(min(kdim, 3)) if kv.numel() == 1
                   else kv[:3])
             if kdim == 4:
-                kv = torch.cat([kv, _real_like(tvalue, ref).reshape(1)])
+                kv = torch.cat([kv, torch.as_tensor(
+                    tvalue, dtype=COORD_DTYPE, device=dev).reshape(1)])
             return kv
         if common.get_shape(kvalue):
             coeff = list(np.asarray(kvalue, dtype=float).ravel())[:3]
         else:
             coeff = [float(kvalue)] * min(kdim, 3)
         coeff += [float(tvalue)] * (kdim == 4)
-        return common.const_tensor(coeff, ref.dtype, ref.device)
+        return common.const_tensor(coeff, COORD_DTYPE, dev)
 
     @property
     def size(self) -> int:
@@ -314,7 +323,7 @@ class StateMatrix:
             return self.update(coords=torch.cat([self.coords, zeros],
                                                 dim=-1))
         n = self.nstate
-        coords = torch.zeros((2 * n + 1, kdim), dtype=self.states.real.dtype,
+        coords = torch.zeros((2 * n + 1, kdim), dtype=COORD_DTYPE,
                              device=self.states.device)
         coords[:, 0] = torch.arange(-n, n + 1, dtype=coords.dtype,
                                     device=coords.device)
@@ -362,22 +371,16 @@ def _pad_ladder(arr, K: int):
     return arr[..., -diff:cur + diff, :]
 
 
-def _real_like(x, ref):
-    """A scalar, host array or tensor as a real tensor of `ref`'s dtype
-    and device."""
-    return torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
-
-
 def _coords_tensor(coords):
     """A user coordinate table on the working device: integer tables stay
-    int64, others take the real working dtype."""
+    int64, others are float64 (``COORD_DTYPE``)."""
     if isinstance(coords, torch.Tensor):
         dtype = (torch.int64 if not coords.is_floating_point()
-                 else config.real_dtype())
+                 else COORD_DTYPE)
         return coords.to(device=config.device(), dtype=dtype)
     arr = np.asarray(coords)
     dtype = (torch.int64 if np.issubdtype(arr.dtype, np.integer)
-             else config.real_dtype())
+             else COORD_DTYPE)
     return torch.as_tensor(arr, dtype=dtype, device=config.device())
 
 

@@ -418,14 +418,17 @@ def test_off_pattern_trains_fall_through(port_f64, mutate, caplog):
 
 
 def test_adc_weights_are_not_ported():
-    """The JAX mutation "adc_weights" falls through there; the port's Adc
-    does not take weights at all."""
+    """The JAX mutation "adc_weights" falls through there, and the port's
+    matcher leaves a weighted ADC to the general path too: the composite
+    kernel does not port weighted readouts."""
     seq = _mprage(jepg, nseg=2, nread=4)
     i = next(j for j, op in enumerate(seq) if type(op) is jepg.Adc)
     seq[i] = jepg.Adc(weights=[1.0, 2.0, 3.0])
     assert jfd.match_composite(seq) is None
-    with pytest.raises(NotImplementedError):
-        tepg.Adc(weights=[1.0, 2.0, 3.0])
+    tseq = _mprage(tepg, nseg=2, nread=4)
+    assert tfd.match_composite(tseq) is not None
+    tseq[i] = tepg.Adc(weights=[1.0, 2.0, 3.0])
+    assert tfd.match_composite(tseq) is None
 
 
 def test_device_tensor_disqualifies(port_f64):

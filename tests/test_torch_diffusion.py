@@ -43,8 +43,9 @@ def test_D_matches_jax(port_f64, Dc, k, kvalue):
 def test_statematrix_k_matches_jax(port_f64):
     jsm = jepg.StateMatrix(nstate=6, kvalue=KV)
     tsm = tepg.StateMatrix(nstate=6, kvalue=KV)
-    want = np.asarray(jsm.k).reshape(-1, 1)
-    assert tsm.k.shape == (13, 1)
+    want = np.asarray(jsm.k)
+    # the batch axes lead, as in JAX: (1, 13, 1)
+    assert tsm.k.shape == want.shape == (1, 13, 1)
     assert np.abs(tsm.k.numpy() - want).max() < ATOL
     # kvalue survives an operator application
     assert tepg.S(1)(tsm).kvalue == KV

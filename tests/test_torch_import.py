@@ -16,7 +16,7 @@ PUBLIC = ["config", "StateMatrix", "Operator", "EmptyOperator",
           "Hessian", "PartialsPruner", "simulate",
           "simulate_simple", "modify", "flatten_sequence", "getshape",
           "getnshift", "get_adc_times", "bssfp_sequence", "dess_sequence",
-          "spgr_sequence"]
+          "spgr_sequence", "G", "C", "DFT", "Imaging", "imaging", "dft"]
 MODULES = {
     "epgpy_torch.models.cuda_fisp": ["fisp_dictionary_cuda",
                                      "fisp_dictionary_plain", "kernel_fits",
@@ -112,6 +112,12 @@ MODULES = {
     "epgpy_torch.ops.exchange": ["X", "exchange_matrix", "exchange_operator",
                                  "PrecomputedExchange",
                                  "precompute_exchange"],
+    "epgpy_torch.ops.shiftnd": ["apply_shift", "shiftnd_table",
+                                "shiftmerge_table",
+                                "shiftmerge_table_batched"],
+    "epgpy_torch.ops.shiftdense": ["shiftmerge_dense",
+                                   "shiftmerge_dense_varying"],
+    "epgpy_torch.utils.imaging": ["imaging", "dft"],
     "epgpy_torch.utils.magnettransfer": ["saturation_rate",
                                          "absorption_rate"],
     "epgpy_torch.utils.constants": ["gamma_1H", "gamma_23Na"],
@@ -267,6 +273,18 @@ SAME_ARGS = {
         "epgpy_tpu.models.ssfp:bssfp_sequence",
     "epgpy_torch.models.ssfp:dess_sequence":
         "epgpy_tpu.models.ssfp:dess_sequence",
+    "epgpy_torch.ops.shift:S": "epgpy_tpu.ops.shift:S",
+    "epgpy_torch.ops.shift:G": "epgpy_tpu.ops.shift:G",
+    "epgpy_torch.ops.shift:C": "epgpy_tpu.ops.shift:C",
+    "epgpy_torch.ops.shiftdense:shiftmerge_dense":
+        "epgpy_tpu.ops.shiftdense:shiftmerge_dense",
+    "epgpy_torch.ops.probe:Adc": "epgpy_tpu.ops.probe:Adc",
+    "epgpy_torch.ops.probe:DFT": "epgpy_tpu.ops.probe:DFT",
+    "epgpy_torch.ops.probe:Imaging": "epgpy_tpu.ops.probe:Imaging",
+    "epgpy_torch.utils.imaging:imaging": "epgpy_tpu.utils.imaging:imaging",
+    "epgpy_torch.utils.imaging:dft": "epgpy_tpu.utils.imaging:dft",
+    "epgpy_torch.statematrix:StateMatrix":
+        "epgpy_tpu.statematrix:StateMatrix",
 }
 #: TPU-only knobs the port does not take
 TPU_ONLY = {"interpret", "btile", "pchunk"}

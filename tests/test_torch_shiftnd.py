@@ -104,10 +104,13 @@ def test_shiftmerge_dense_matches_jax(port_f64):
             assert np.abs(_np(g) - np.asarray(w)).max() < TOL
 
 
-@pytest.mark.parametrize("kernel", ["rolls", "gather"])
-def test_shiftmerge_dense_varying_matches_jax(port_f64, kernel, monkeypatch):
+@pytest.mark.parametrize("kernel, dmax", [("rolls", 1.0), ("gather", 1.0),
+                                          ("gather", 4.0)])
+def test_shiftmerge_dense_varying_matches_jax(port_f64, kernel, dmax,
+                                              monkeypatch):
     """The batch-varying dense merge against JAX's lanes kernel, with its
-    masked rolls and with its gathers."""
+    masked rolls and with its gathers; shifts up to 4 (16 rows) move rows
+    past the ladder's edge, and back in by their correction."""
     monkeypatch.setattr(jdense, "_VARYING_ROLL_MAX_WINDOW",
                         99 if kernel == "rolls" else 0)
     rng = np.random.default_rng(6)
@@ -118,12 +121,12 @@ def test_shiftmerge_dense_varying_matches_jax(port_f64, kernel, monkeypatch):
     wav = ((np.arange(D) - D // 2) * grid)[None] + rng.uniform(
         -0.3, 0.3, (B, D)) * grid
     wav = 0.5 * (wav - wav[:, ::-1])
-    delta = rng.uniform(-1.0, 1.0, B)
+    delta = rng.uniform(-dmax, dmax, B)
     Fp, Z, k = shiftdense.shiftmerge_dense_varying(
         torch.as_tensor(fp), torch.as_tensor(z), torch.as_tensor(wav),
         torch.as_tensor(delta), grid)
     (jFp, jZ), jk = jdense.shiftmerge_dense_varying_lanes(
-        (fp.T, z.T), wav.T, delta, grid, 10)
+        (fp.T, z.T), wav.T, delta, grid, 20)
     for g, w in ((Fp, jFp), (Z, jZ), (k, jk)):
         assert np.abs(g.numpy().T - np.asarray(w)).max() < TOL
 
