@@ -25,7 +25,8 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    through ``simulate(seq, probe=[ADC, Jacobian(["magnitude", "T1",
    "T2", "B1"])])``: it must reach the Jacobian kernel, its signal match
    the float64 probe, and its columns the port's float64
-   ``fisp_mrf_jacobian`` for the first 8 atoms;
+   ``fisp_mrf_jacobian`` for the first 8 atoms over the first JAC_F64_N
+   pulses;
 5. (printed with 6) the FISP numbers: simulate() end to end (first call
    with the host-side match, then memoized);
 4s. the planned general path: the headline train through
@@ -179,6 +180,21 @@ Phases (each raises on failure: a failure exits non-zero with no result):
 5l. (e) examples/mt_prep_gre.py's exchange-rate fit at 65,536 voxels on
    the composite EPG-X Jacobian kernel through
    ``parallel.gauss_newton_refine``, k RMSE < 2e-4;
+7. the sequence DSL (phase_sequence): the headline train built with
+   ``Sequence(repeat(...))`` (host build time of its 5,000 virtual ops),
+   ``Sequence.signal`` -- one fisp dispatch, one fisp_half launch, equal
+   to simulate() of the direct-operator train (max 0) -- and the 4-op
+   train through composite; the (T1, T2) Jacobian on the general diff
+   path (the route JAX takes: no family, no launch) against the direct
+   tracked train's Jacobian kernel; an ``axes=`` train that no family
+   takes, equal to its explicitly broadcast form (max 0); the flagship
+   DSL Hessian (examples/profiling_differentiation_mrf_seq.py: 400 TRs,
+   chunk 100) against its direct-operator form on that form's own route;
+8. slice-profile dictionaries (phase_slice_profile): the profile of
+   examples/slice_profile_mrf.py's pulse, fisp_mrf_dictionary_sliced at
+   102,400 atoms x 1000 pulses through fisp_half against the explicit
+   (atoms x z) batch, the plain twin and float64, and the example's
+   shaped-pulse oracle (planned, one CUDA graph) with its three asserts;
 6. numbers for every kernel at its main-path shape: kernel and twin times,
    launches on the main paths, and the bound (the twin's operations,
    counted by ``count_ops`` -- for the CPMG family over only the ladder
@@ -232,6 +248,11 @@ TOL_JAC_MODEL = 1e-4
 #: serving: measured voxels, their noise level and seed
 NVOX, NOISE, SEED = 8192, 0.002, 0
 JAC_NAMES = ["magnitude", "T1", "T2", "B1"]
+#: pulses of the main-path Jacobian held against the float64
+#: fisp_mrf_jacobian (forward-mode AD through a 1000-pulse Python loop is
+#: host-bound; the whole train is held against the kernel's twin in the
+#: numbers phase), as DWF_JAC_N for DW-FISP
+JAC_F64_N = 200
 #: the flagship Hessian (examples/profiling_differentiation_mrf.py) and the
 #: design (examples/optim_mrf.py): pulses, atoms, design TE and TI
 HESS_N, HESS_ATOMS, DESIGN_TE, DESIGN_TI = 400, 256, 5.0, 20.0
@@ -2327,17 +2348,20 @@ def phase_jac_path(torch, epg):
     ours = sig[:, :8].cpu().numpy().T                          # (8, P)
     probe_err = float(np.abs(ours - reference_probe()).max())
     mag_err = float((jac[..., 0] - sig).abs().max())
-    # the float64 oracle: the port's full-ladder model, jvp'd, on the CPU
+    # the float64 oracle: the port's full-ladder model, jvp'd, on the CPU,
+    # over the first JAC_F64_N pulses
+    n = JAC_F64_N
     with cpu_float64(config):
         _, (dre, dim) = mrf.fisp_mrf_jacobian(
-            FA, TR, TE, T1[:8], T2[:8], B1[:8], phi=90.0,
+            FA[:n], TR, TE, T1[:8], T2[:8], B1[:8], phi=90.0,
             variables=("T1", "T2", "B1"), nstate=NSTATE)
-    want = (dre.numpy() + 1j * dim.numpy()).transpose(1, 0, 2)  # (P, 8, 3)
-    cols = col_errors(jac[:, :8, 1:].cpu().numpy(), want)
+    want = (dre.numpy() + 1j * dim.numpy()).transpose(1, 0, 2)  # (n, 8, 3)
+    cols = col_errors(jac[:n, :8, 1:].cpu().numpy(), want)
     print(f"[jac] max|signal - f64 reference probe| (8 atoms) = "
           f"{probe_err:.3e} (limit {TOL_PROBE}); magnitude column = signal "
-          f"to {mag_err:.1e}; T1/T2/B1 columns vs f64 fisp_mrf_jacobian: "
-          f"{', '.join(f'{c:.3e}' for c in cols)} (limit {TOL_JAC_MODEL})")
+          f"to {mag_err:.1e}; T1/T2/B1 columns vs f64 fisp_mrf_jacobian "
+          f"(first {n} pulses): {', '.join(f'{c:.3e}' for c in cols)} "
+          f"(limit {TOL_JAC_MODEL})")
     if not probe_err <= TOL_PROBE or mag_err != 0.0:
         raise AssertionError(f"Jacobian-path signal error {probe_err:.3e}")
     if not max(cols) <= TOL_JAC_MODEL:
@@ -7113,6 +7137,11 @@ def table_train(epg, name, atoms, shifts):
     return seq
 
 
+#: the kernel wrapper modules (``epgpy_torch.models.cuda_*``)
+KERNEL_MODULES = ("fisp", "hessian", "mse", "msedesign", "bssfp", "dess",
+                  "megre", "composite", "xgre", "xcomposite")
+
+
 def _launch_counts():
     """Every kernel wrapper's launch counter and the dispatch counts."""
     import importlib
@@ -7120,8 +7149,7 @@ def _launch_counts():
     from epgpy_torch import fisp_dispatch
 
     counts = {}
-    for name in ("fisp", "hessian", "mse", "msedesign", "bssfp", "dess",
-                 "megre", "composite", "xgre", "xcomposite"):
+    for name in KERNEL_MODULES:
         mod = importlib.import_module(f"epgpy_torch.models.cuda_{name}")
         counts.update({f"{name}.{k}": v for k, v in vars(mod).items()
                        if k.endswith("LAUNCHES")})
@@ -7341,6 +7369,469 @@ def phase_table(torch, epg, card):
     return out
 
 
+# -- the sequence DSL and slice-profile dictionaries --
+
+#: the DSL phase (phase_sequence): depth of the DSL Jacobian train on the
+#: general diff path, the route JAX takes (per-atom unit coefficients;
+#: ROADMAP queue 2) -- cut below NPULSE to keep the phase's time (63 s at
+#: 1000 pulses run alone on the H100, 5.0 s at 100 and 18.6 s at 300
+#: inside this script: milliseconds of host work per op under vmap(jvp))
+DSL_JAC_N = 200
+#: the flagship DSL Hessian (examples/profiling_differentiation_mrf_seq.py):
+#: TRs, jacobian_chunk, T1 and T2
+DSL_HESS_N, DSL_HESS_CHUNK, DSL_HESS_T1, DSL_HESS_T2 = 400, 100, 1380.0, 80.0
+#: DSL Hessian (general diff path) vs the direct-operator form (its own
+#: route), both float32, per block relative to the block's largest value
+TOL_DSL_HESS = 1e-4
+#: the axes= check: pulses of the headline train, B1 x T2 grid side
+AXES_N, AXES_GRID = 200, 64
+#: the slice profile of examples/slice_profile_mrf.py: a 64-sample
+#: windowed sinc of 1 ms under 10 mT/m, a 24 mm z grid of 33 points, the
+#: profile's nominal flip; the example's train (TR, TE), grid and voxels
+SP_NSAMP, SP_DUR, SP_GRAD, SP_FOV, SP_NPOINT, SP_ALPHA = (64, 1.0, 10.0,
+                                                         24.0, 33, 30.0)
+SP_TR, SP_TE, SP_NT1, SP_NT2, SP_NTR, SP_NVOX = 13.0, 4.5, 12, 10, 60, 12
+#: the sliced dictionary's checks: explicit (atoms x z) batch, plain twin
+#: and float64 widths
+SP_EXPLICIT, SP_TWIN, SP_F64 = 4096, 256, 8
+
+
+def dsl_headline(dsl, FA, four=False):
+    """The headline train in the sequence DSL: one block with the flip a
+    product of the per-pulse `alpha` (repeat) and the atoms' `B1`; T1 and
+    T2 named variables.  ``four``: the 4-op form [T, E(TR), ADC, S(1)]."""
+    o = dsl.operators
+    flip = o.T(dsl.Variable("alpha") * dsl.Variable("B1"), 90)
+    if four:
+        block = [flip, o.E(TR, "T1", "T2"), "ADC", o.S(1)]
+    else:
+        block = [flip, o.E(TE, "T1", "T2"), "ADC",
+                 o.E(TR - TE, "T1", "T2"), o.S(1)]
+    return dsl.Sequence(dsl.repeat(block, alpha=[float(a) for a in FA]))
+
+
+def direct_headline(epg, FA, T1, T2, B1, four=False, tracked=False):
+    """The same train as plain operators, from the same host numbers (the
+    DSL evaluates ``alpha * B1`` as ``float(fa) * B1``)."""
+    o1 = ["T1", "T2"] if tracked else False
+    seq = []
+    for fa in FA:
+        flip = epg.T(float(fa) * B1, 90)
+        if four:
+            seq += [flip, epg.E(TR, T1, T2, order1=o1), epg.ADC, epg.S(1)]
+        else:
+            seq += [flip, epg.E(TE, T1, T2, order1=o1), epg.ADC,
+                    epg.E(TR - TE, T1, T2, order1=o1), epg.S(1)]
+    return seq
+
+
+def dsl_hessian_trains(epg, dsl):
+    """The flagship DSL Hessian train and its values, with the direct
+    operator form and probes (examples/profiling_differentiation_mrf_seq.py
+    as published: string variables, repeat with per-repetition names)."""
+    n = DSL_HESS_N
+    alphas = [f"alpha_{i:03d}" for i in range(n)]
+    trs = [f"TR_{i:03d}" for i in range(n)]
+    o = dsl.operators
+    seq = dsl.Sequence(dsl.repeat([o.T("alpha", 90), o.E("TR", "T1", "T2"),
+                                   o.ADC, o.S(1)], alpha=alphas, TR=trs))
+    rng = np.random.default_rng(0)
+    va, vt = rng.uniform(10, 60, n), rng.uniform(11, 16, n)
+    values = {**dict(zip(alphas, va)), **dict(zip(trs, vt))}
+    direct = []
+    for i in range(n):
+        direct += [epg.T(va[i], 90, order1={alphas[i]: "alpha"}),
+                   epg.E(vt[i], DSL_HESS_T1, DSL_HESS_T2,
+                         order1={"T1": "T1", "T2": "T2", trs[i]: "tau"}),
+                   epg.ADC, epg.S(1)]
+    probes = [epg.ADC, epg.Hessian(["magnitude", "T1", "T2"], alphas + trs)]
+    return seq, values, alphas + trs, direct, probes
+
+
+def _zero_all_counts():
+    """Every dispatch count and launch counter to 0 (the match memo too)."""
+    import importlib
+
+    from epgpy_torch import fisp_dispatch
+
+    fisp_dispatch.clear_cache()
+    fisp_dispatch.DISPATCH_COUNTS.clear()
+    for name in KERNEL_MODULES:
+        mod = importlib.import_module(f"epgpy_torch.models.cuda_{name}")
+        for k in [k for k in vars(mod) if k.endswith("LAUNCHES")]:
+            setattr(mod, k, 0)
+
+
+def _nonzero_counts():
+    """The dispatch counts and the launch counters that are not 0."""
+    counts = _launch_counts()
+    out = {k: v for k, v in counts.items() if k != "dispatch" and v}
+    if counts["dispatch"]:
+        out["dispatch"] = counts["dispatch"]
+    return out
+
+
+def phase_sequence(torch, epg, card):
+    """The sequence DSL on the card: the headline train built with
+    Sequence(repeat(...)) -- its host build time, then Sequence.signal,
+    which must dispatch fisp once, launch fisp_half once and equal
+    simulate() of the direct-operator train (max 0); the 4-op train
+    likewise through the composite kernel; the (T1, T2) Jacobian on the
+    route JAX takes (the general diff path: no family, no launch) against
+    the direct tracked train's Jacobian kernel; an axes= train that no
+    family takes, equal to its explicitly broadcast form (max 0); the
+    flagship DSL Hessian (general diff path) against its direct-operator
+    form on the port's own route (the Hessian kernel where
+    match_fisp_hessian takes it).  Raises on any miss; returns the
+    numbers."""
+    from epgpy_torch import diff
+    from epgpy_torch import sequence as dsl
+    from epgpy_torch.models import cuda_hessian
+
+    tag = f"({card})"
+    FA = make_train(NPULSE)
+    T1, T2, B1 = make_atoms(NATOMS)
+    vals = dict(T1=T1, T2=T2, B1=B1)
+    opts = dict(max_nstate=NSTATE)
+    out = {}
+
+    # the DSL train: construction and the host build of its 5,000 ops
+    t0 = time.perf_counter()
+    seq = dsl_headline(dsl, FA)
+    ctor_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops = seq.build(vals)
+    build_s = time.perf_counter() - t0
+    print(f"[dsl] Sequence(repeat(...)) of {len(seq)} virtual ops: "
+          f"{ctor_s:.3f} s; build() of the concrete ops at {NATOMS} atoms: "
+          f"{build_s:.3f} s (host) {tag}")
+    del ops
+
+    _zero_all_counts()
+    sig, call_s = _first_call(torch, lambda: seq.signal(options=opts,
+                                                        **vals))
+    counts = _nonzero_counts()
+    _expect("dsl signal", counts, {"fisp.LAUNCHES": 1,
+                                   "dispatch": {"fisp": 1}})
+    direct = epg.simulate(direct_headline(epg, FA, T1, T2, B1),
+                          asarray=False, **opts)
+    err = float((sig - direct.T).abs().max())
+    probe_err = float(np.abs(sig[:8].cpu().numpy() - reference_probe()).max())
+    print(f"[dsl] Sequence.signal, {NATOMS} atoms x {NPULSE} pulses -> "
+          f"{tuple(sig.shape)} {sig.dtype}: first call {call_s:.3f} s "
+          f"(build + match + fisp_half); "
+          f"max|DSL - direct simulate()| = {err:.3e} (limit 0); max|DSL - "
+          f"f64 reference probe| (8 atoms) = {probe_err:.3e} (limit "
+          f"{TOL_PROBE}) {tag}")
+    if err != 0.0 or not probe_err <= TOL_PROBE:
+        raise AssertionError(f"[dsl] signal vs direct {err:.3e}, probe "
+                             f"{probe_err:.3e}")
+    out.update(ctor_s=ctor_s, build_s=build_s, call_s=call_s,
+               launches={"fisp_half": 1})
+    del sig, direct
+
+    # the 4-op train: the composite kernel
+    seq4 = dsl_headline(dsl, FA, four=True)
+    _zero_all_counts()
+    sig4, call4_s = _first_call(torch, lambda: seq4.signal(options=opts,
+                                                           **vals))
+    _expect("dsl 4-op signal", _nonzero_counts(),
+            {"composite.LAUNCHES": 1, "dispatch": {"comp": 1}})
+    direct4 = epg.simulate(direct_headline(epg, FA, T1, T2, B1, four=True),
+                           asarray=False, **opts)
+    err4 = float((sig4 - direct4.T).abs().max())
+    print(f"[dsl] 4-op Sequence.signal, {NATOMS} x {NPULSE}: first call "
+          f"{call4_s:.3f} s (build + match + composite); max|DSL - direct| "
+          f"= {err4:.3e} (limit 0) {tag}")
+    if err4 != 0.0:
+        raise AssertionError(f"[dsl] 4-op signal vs direct {err4:.3e}")
+    out.update(call4_s=call4_s)
+    out["launches"]["composite"] = 1
+    del sig4, direct4
+
+    # the (T1, T2) Jacobian on the route JAX takes: the general diff path
+    n = DSL_JAC_N
+    if n < NPULSE:
+        print(f"[dsl] the DSL Jacobian train is cut to {n} of {NPULSE} "
+              f"pulses (general diff path; phase time)")
+    seqj = dsl_headline(dsl, FA[:n])
+    _zero_all_counts()
+    (sj, jac), jac_s = _first_call(torch, lambda: seqj.jacobian(
+        ["T1", "T2"], options=opts)(**vals))
+    _expect("dsl jacobian", _nonzero_counts(), {})
+    want = epg.simulate(direct_headline(epg, FA[:n], T1, T2, B1,
+                                        tracked=True),
+                        probe=[epg.ADC, epg.Jacobian(["T1", "T2"])],
+                        asarray=False, **opts)
+    cols = [float((jac[..., c] - want[1][..., c].T).abs().max()
+                  / want[1][..., c].abs().max()) for c in range(2)]
+    sig_err = float((sj - want[0].T).abs().max())
+    print(f"[dsl] Sequence.jacobian([T1, T2]), {NATOMS} atoms x {n} pulses "
+          f"on the general diff path: {jac_s:.3f} s; against the direct "
+          f"tracked train's Jacobian kernel: signal {sig_err:.3e} (limit "
+          f"{TOL_KERNEL}), columns {cols[0]:.3e}, {cols[1]:.3e} (limit "
+          f"{TOL_JAC_MODEL}) {tag}")
+    if not (sig_err <= TOL_KERNEL and max(cols) <= TOL_JAC_MODEL):
+        raise AssertionError(f"[dsl] Jacobian vs direct {sig_err:.3e} "
+                             f"{cols}")
+    out.update(jac_n=n, jac_s=jac_s)
+    del sj, jac, want
+
+    # axes= pinning: the headline's first AXES_N pulses with a B1 sweep on
+    # batch axis 0 (the flips) and T2 pinned to axis 1 (the E ops) -- no
+    # family may take the pinned train, which must equal its explicitly
+    # broadcast form on the general path
+    b1 = np.linspace(0.7, 1.3, AXES_GRID)
+    t2 = np.linspace(20.0, 200.0, AXES_GRID)
+
+    def axes_train(pinned):
+        kw = dict(axes=1) if pinned else {}
+        t2_ = t2 if pinned else t2[None, :]
+        seq = []
+        for fa in FA[:AXES_N]:
+            seq += [epg.T(float(fa) * b1, 90),
+                    epg.E(TE, 1000.0, t2_, **kw), epg.ADC,
+                    epg.E(TR - TE, 1000.0, t2_, **kw), epg.S(1)]
+        return seq
+
+    _zero_all_counts()
+    pinned, axes_s = _first_call(torch, lambda: epg.simulate(
+        axes_train(True), asarray=False, **opts))
+    _expect("axes pinned train", _nonzero_counts(), {})
+    explicit = epg.simulate(axes_train(False), asarray=False,
+                            fisp_kernel=False, **opts)
+    axes_err = float((pinned - explicit).abs().max())
+    print(f"[dsl] axes=1 train, {AXES_GRID} B1 x {AXES_GRID} T2 atoms x "
+          f"{AXES_N} pulses: {tuple(pinned.shape)}, {axes_s:.3f} s on the "
+          f"general path (no family); max|pinned - explicitly broadcast| = "
+          f"{axes_err:.3e} (limit 0) {tag}")
+    if tuple(pinned.shape) != (AXES_N, AXES_GRID, AXES_GRID) \
+            or axes_err != 0.0:
+        raise AssertionError(f"[dsl] axes= train {tuple(pinned.shape)}, "
+                             f"{axes_err:.3e}")
+    out.update(axes_s=axes_s)
+    del pinned, explicit
+
+    # the flagship DSL Hessian against its direct-operator form
+    hseq, hvals, hvars, hdirect, hprobes = dsl_hessian_trains(epg, dsl)
+    hopts = dict(max_nstate=NSTATE, jacobian_chunk=DSL_HESS_CHUNK)
+    _zero_all_counts()
+    g0 = dict(diff.GRAPH_COUNTS)
+    t0 = time.perf_counter()
+    hfunc = hseq.hessian(["magnitude", "T1", "T2"], hvars, options=hopts)
+    hsig, _, hes, = hfunc(hvals, T1=DSL_HESS_T1, T2=DSL_HESS_T2)
+    torch.cuda.synchronize()
+    hess_s = time.perf_counter() - t0
+    _expect("dsl hessian", _nonzero_counts(), {})
+    graphs = {k: diff.GRAPH_COUNTS[k] - g0[k] for k in g0}
+    _zero_all_counts()
+    (_, hes_d), direct_s = _first_call(torch, lambda: epg.simulate(
+        hdirect, probe=hprobes, asarray=False, **hopts))
+    counts = _nonzero_counts()
+    route = ("match_fisp_hessian -> fisp_hess" if counts.get(
+        "dispatch") == {"hessian": 1} else "general diff path")
+    hess_launches = cuda_hessian.HESS_LAUNCHES
+    N = DSL_HESS_N
+    a, b = hes.reshape(N, 3, 2 * N), hes_d.reshape(N, 3, 2 * N)
+    errs = {}
+    for r, row in enumerate(("magnitude", "T1", "T2")):
+        for c, cols_ in (("alpha", slice(0, N)), ("TR", slice(N, 2 * N))):
+            w = b[:, r, cols_]
+            errs[f"{row}x{c}"] = float((a[:, r, cols_] - w).abs().max()
+                                       / w.abs().max())
+    print(f"[dsl] flagship DSL Hessian, {N} TRs x (3 x {2 * N}), "
+          f"jacobian_chunk {DSL_HESS_CHUNK}: {hess_s:.3f} s on the general "
+          f"diff path ({graphs['captures']} CUDA graph captures, "
+          f"{graphs['replays']} replays) -> {tuple(hes.shape)}; the "
+          f"direct-operator form's "
+          f"route: {route} ({counts}), {direct_s:.3f} s; per block "
+          f"|DSL - direct| / scale: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (limit {TOL_DSL_HESS}) {tag}")
+    if not max(errs.values()) <= TOL_DSL_HESS or not bool(
+            torch.isfinite(torch.view_as_real(hsig)).all()):
+        raise AssertionError(f"[dsl] Hessian vs direct {errs}")
+    out.update(hess_s=hess_s, hess_direct_s=direct_s, hess_route=route,
+               hess_err=max(errs.values()))
+    out["launches"]["fisp_hess"] = hess_launches
+    return out
+
+
+def _contract_z(re, im, weights, natoms):
+    """(B, P) of (P, B nz) echoes contracted over z with `weights`."""
+    nz = weights.shape[0]
+    P = re.shape[0]
+    return tuple((x.reshape(P, natoms, nz) * weights).sum(-1).T
+                 for x in (re, im))
+
+
+def shaped_voxels(epg, rfpulse, FA, T1s, T2s):
+    """examples/slice_profile_mrf.py's acquire_shaped: each TR excites with
+    the slice-selective RFPulse swept over z by encode_phase (rewound); the
+    voxel signal is the z sum / npoint, (P, V) complex."""
+    values = sp_values()
+    seq = []
+    for fa in FA:
+        pulse = rfpulse.RFPulse(values, SP_DUR, alpha=float(fa))
+        enc = rfpulse.encode_phase(pulse, gradient=SP_GRAD, fov=SP_FOV,
+                                   npoint=SP_NPOINT, rewind=True)
+        seq += [enc, epg.E(SP_TE, T1s, T2s), epg.ADC,
+                epg.E(SP_TR - SP_TE, T1s, T2s), epg.S(1)]
+    return seq
+
+
+def sp_values():
+    """The example's windowed sinc (time-bandwidth 4), peak 1."""
+    x = np.linspace(-2, 2, SP_NSAMP)
+    v = np.sinc(x) * np.hamming(SP_NSAMP)
+    return v / np.abs(v).max()
+
+
+def _best_match(signals, D):
+    """Normalized-|corr| argmax of (P, V) signals against (B, P) D."""
+    D = D / np.linalg.norm(D, axis=1, keepdims=True)
+    S = signals / np.linalg.norm(signals, axis=0, keepdims=True)
+    return np.argmax(np.abs(D.conj() @ S), axis=0)
+
+
+def phase_slice_profile(torch, epg, card):
+    """Slice-profile-corrected MRF dictionaries on the card: the example's
+    profile (slice_profile_scales); fisp_mrf_dictionary_sliced at 102,400
+    atoms x 1000 pulses through fisp_half, held to fisp_mrf_dictionary of
+    the explicit (atoms x z) batch (4,096 atoms), to the plain twin (256
+    atoms, TOL_KERNEL) and to float64 (8 atoms, TOL_PROBE); then the
+    example's shaped-pulse oracle at its defaults through the planner's
+    CUDA graph, with its three asserts.  Raises on any miss; returns the
+    numbers."""
+    from epgpy_torch import engine
+    from epgpy_torch.models import (cuda_fisp, fisp_mrf_dictionary,
+                                    fisp_mrf_dictionary_sliced,
+                                    slice_profile_scales)
+    from epgpy_torch.ops import rfpulse
+
+    tag = f"({card})"
+    t0 = time.perf_counter()
+    pulse = rfpulse.RFPulse(sp_values(), SP_DUR, alpha=SP_ALPHA)
+    scales, weights = slice_profile_scales(pulse, gradient=SP_GRAD,
+                                           fov=SP_FOV, npoint=SP_NPOINT)
+    prof_s = time.perf_counter() - t0
+    nz = len(scales)
+    print(f"[slice] profile: {nz}/{SP_NPOINT} z points kept, scales "
+          f"{scales.min():.4f}..{scales.max():.4f}, {prof_s:.3f} s {tag}")
+
+    FA = make_train(NPULSE)
+    T1, T2, B1 = make_atoms(NATOMS)
+    kw = dict(scales=scales, weights=weights, nstate=NSTATE)
+    _zero_all_counts()
+    (re, im), first_s = _first_call(torch, lambda: fisp_mrf_dictionary_sliced(
+        FA, TR, TE, T1, T2, B1, **kw))
+    counts = _nonzero_counts()
+    _expect("slice dictionary", counts, {"fisp.LAUNCHES": 1})
+    memo_s = _host_s(torch, lambda: fisp_mrf_dictionary_sliced(
+        FA, TR, TE, T1, T2, B1, **kw), reps=3)
+    if tuple(re.shape) != (NATOMS, NPULSE) or not bool(
+            torch.isfinite(re).all() & torch.isfinite(im).all()):
+        raise AssertionError(f"[slice] dictionary {tuple(re.shape)}")
+    print(f"[slice] fisp_mrf_dictionary_sliced, {NATOMS} atoms x {nz} z x "
+          f"{NPULSE} pulses = {NATOMS * nz} kernel atoms: first call "
+          f"{first_s:.3f} s, again {memo_s:.4f} s = "
+          f"{NATOMS * nz / memo_s:.4g} atom-z/s {tag}")
+
+    w = torch.as_tensor(weights, dtype=torch.float32, device="cuda")
+    s = torch.as_tensor(scales, dtype=torch.float32, device="cuda")
+
+    def batch(n):
+        t = [torch.as_tensor(x[:n], dtype=torch.float32, device="cuda")
+             for x in (T1, T2, B1)]
+        return (t[0].repeat_interleave(nz), t[1].repeat_interleave(nz),
+                (t[2][:, None] * s[None, :]).reshape(-1))
+
+    ex = fisp_mrf_dictionary(FA, TR, TE, *batch(SP_EXPLICIT), nstate=NSTATE)
+    ere, eim = _contract_z(ex[0].T, ex[1].T, w, SP_EXPLICIT)
+    err_ex = max(float((re[:SP_EXPLICIT] - ere).abs().max()),
+                 float((im[:SP_EXPLICIT] - eim).abs().max()))
+    del ex, ere, eim
+    pre, pim = cuda_fisp.fisp_echoes_plain(FA, 90.0, TR, TE, *batch(SP_TWIN),
+                                           nstate=NSTATE)
+    pre, pim = _contract_z(pre, pim, w, SP_TWIN)
+    err_twin = max(float((re[:SP_TWIN] - pre).abs().max()),
+                   float((im[:SP_TWIN] - pim).abs().max()))
+    epg.config.set_precision("float64")
+    try:
+        r64, i64 = fisp_mrf_dictionary_sliced(FA, TR, TE, T1[:SP_F64],
+                                              T2[:SP_F64], B1[:SP_F64], **kw)
+    finally:
+        epg.config.set_precision("float32")
+    err64 = max(float((re[:SP_F64].double() - r64).abs().max()),
+                float((im[:SP_F64].double() - i64).abs().max()))
+    print(f"[slice] max|sliced - fisp_mrf_dictionary of the explicit "
+          f"(atoms x z) batch, contracted| ({SP_EXPLICIT} atoms) = "
+          f"{err_ex:.3e} (limit {TOL_KERNEL}); - plain twin ({SP_TWIN} "
+          f"atoms) = {err_twin:.3e} (limit {TOL_KERNEL}); - float64 on the "
+          f"card ({SP_F64} atoms) = {err64:.3e} (limit {TOL_PROBE}) {tag}")
+    if not (err_ex <= TOL_KERNEL and err_twin <= TOL_KERNEL
+            and err64 <= TOL_PROBE):
+        raise AssertionError(f"[slice] dictionary errors {err_ex:.3e} "
+                             f"{err_twin:.3e} {err64:.3e}")
+    del re, im
+
+    # examples/slice_profile_mrf.py at its defaults
+    rng = np.random.default_rng(11)
+    FAx = 15.0 + 35.0 * np.abs(np.sin(np.arange(SP_NTR) * 0.15)) \
+        + rng.uniform(0, 5, SP_NTR)
+    T1g, T2g = np.meshgrid(np.linspace(500, 1600, SP_NT1),
+                           np.linspace(40, 160, SP_NT2), indexing="ij")
+    T1g, T2g = T1g.ravel(), T2g.ravel()
+    ideal = fisp_mrf_dictionary(FAx, SP_TR, SP_TE, T1g, T2g, phi=0.0,
+                                nstate=NSTATE)
+    _zero_all_counts()
+    corrected = fisp_mrf_dictionary_sliced(
+        FAx, SP_TR, SP_TE, T1g, T2g, scales=scales, weights=weights,
+        phi=0.0, nstate=NSTATE)
+    ex_launches = cuda_fisp.LAUNCHES
+    vox = rng.choice(len(T1g), size=SP_NVOX, replace=False)
+    oseq = shaped_voxels(epg, rfpulse, FAx, T1g[vox], T2g[vox])
+    c0 = _graph_counts()
+    osig, oracle_s = _first_call(torch, lambda: epg.simulate(
+        oseq, max_nstate=NSTATE, asarray=False))
+    c1 = _graph_counts()
+    entry = engine._plan_and_payload(engine.flatten_sequence(oseq))
+    nops = len(entry.ops)
+    if c1["captures"] - c0["captures"] != 1:
+        raise AssertionError(f"[slice] the oracle did not run as a captured "
+                             f"plan: graph counts {c0} -> {c1}")
+    signals = osig.cpu().numpy().sum(axis=2) / SP_NPOINT
+
+    def cplx(pair):
+        return pair[0].cpu().double().numpy() + 1j * pair[1].cpu().numpy()
+
+    hit_i = _best_match(signals, cplx(ideal))
+    hit_c = _best_match(signals, cplx(corrected))
+    t2_i = np.abs(T2g[hit_i] - T2g[vox]).mean()
+    t2_c = np.abs(T2g[hit_c] - T2g[vox]).mean()
+    t1_i = np.abs(T1g[hit_i] - T1g[vox]).mean()
+    t1_c = np.abs(T1g[hit_c] - T1g[vox]).mean()
+    exact_c = float((hit_c == vox).mean())
+    print(f"[slice] shaped-pulse oracle ({SP_NTR} TRs, {nops} ops, "
+          f"{SP_NVOX} voxels x {SP_NPOINT} z; planned, one CUDA graph "
+          f"capture): {oracle_s:.3f} s; ideal dictionary |dT1| {t1_i:.1f} "
+          f"ms, |dT2| {t2_i:.1f} ms; corrected |dT1| {t1_c:.1f} ms, |dT2| "
+          f"{t2_c:.1f} ms, exact {exact_c:.0%} {tag}")
+    if not exact_c >= 0.9:
+        raise AssertionError("[slice] corrected dictionary must recover the "
+                             "grid")
+    if not (t2_c <= t2_i and t1_c <= t1_i):
+        raise AssertionError("[slice] the correction must not worsen the "
+                             "match")
+    if not (t2_i > 0 or t1_i > 0):
+        raise AssertionError("[slice] the slice profile should bias the "
+                             "uncorrected match")
+    return dict(nz=nz, prof_s=prof_s, first_s=first_s, memo_s=memo_s,
+                err_ex=err_ex, err_twin=err_twin, err64=err64,
+                oracle_s=oracle_s, oracle_ops=nops, exact=exact_c,
+                launches={"fisp_half": 1 + ex_launches})
+
+
 def _memo_pair(torch, fn, reps=5):
     """Host-clock seconds of a memoized simulate() call fn(), with the
     preamble memo kept and with it cleared before every call (the matcher's
@@ -7454,12 +7945,15 @@ def main():
     xc = _timed(phase_xcomp_path, torch, epg)
     qmt = _timed(phase_qmt_fit, torch, epg)
     kfit = _timed(phase_kfit, torch, epg)
+    seqp = _timed(phase_sequence, torch, epg, card)
+    slicep = _timed(phase_slice_profile, torch, epg, card)
     entry = _timed(phase_numbers, torch, epg, card, main_run)
     jac_entry = _timed(phase_jac_numbers, torch, epg, card, jac_run)
     hess_entry = _timed(phase_hess_numbers, torch, epg, card, hess_run)
-    # launches on the Hessian's main paths: the flagship (4c) and the SLSQP
-    # run of the design (5c)
-    hess_entry["launches"] += design["launches"]
+    # launches on the Hessian's main paths: the flagship (4c), the SLSQP
+    # run of the design (5c) and the DSL Hessian's direct-operator form (7)
+    hess_entry["launches"] += (design["launches"]
+                               + seqp["launches"]["fisp_hess"])
     mse_entry, mse_jac_entry = _timed(phase_mse_numbers, torch, card,
                                       mse_run, mse_jac_run, t2b1)
     design_entry = _timed(phase_design_numbers, torch, card, tse)
@@ -7487,7 +7981,8 @@ def main():
     # iteration)
     comp_entries[0]["launches"] = (comp_run["launches"]
                                    + mpr["launches"]["composite"]
-                                   + cmrf["launches"]["composite"])
+                                   + cmrf["launches"]["composite"]
+                                   + seqp["launches"]["composite"])
     comp_entries[1]["launches"] = (cjac_run["launches"]
                                    + mpr["launches"]["composite_jac"]
                                    + cmrf["launches"]["composite_jac"])
@@ -7516,9 +8011,12 @@ def main():
     mse_entry["launches"] += dw_run["launches"] + t2b1["launches"]["cpmg"]
     mse_jac_entry["launches"] += t2b1["launches"]["cpmg_jac"]
     # launches on the main paths: the dictionary (4), the Jacobian (4b),
-    # serving (5b: truth fingerprints, one Jacobian per iteration) and the
-    # DW-FISP train and its Jacobian (4m)
-    entry["launches"] += serve["launches"]["fisp_half"] + dwf["launches"]
+    # serving (5b: truth fingerprints, one Jacobian per iteration), the
+    # DW-FISP train and its Jacobian (4m), the DSL signal (7) and the
+    # sliced dictionaries (8: the full-width one and the example's)
+    entry["launches"] += (serve["launches"]["fisp_half"] + dwf["launches"]
+                          + seqp["launches"]["fisp_half"]
+                          + slicep["launches"]["fisp_half"])
     jac_entry["launches"] += (serve["launches"]["fisp_jac"]
                               + dwf["jac_launches"])
     print(f"[numbers] general path, {NATOMS} atoms x {NPULSE} TRs: planned "
@@ -7573,6 +8071,22 @@ def main():
           f"{dmap['split']['simulate']:.3f} s); T1 RMSE "
           f"{dmap['rmse'][0]:.3f} ms, T2 RMSE {dmap['rmse'][1]:.4f} ms "
           f"({card})")
+    print(f"[numbers] sequence DSL, {NATOMS} atoms x {NPULSE} pulses: "
+          f"Sequence(repeat) {seqp['ctor_s']:.3f} s + build "
+          f"{seqp['build_s']:.3f} s (host); signal first call "
+          f"{seqp['call_s']:.3f} s; 4-op "
+          f"signal {seqp['call4_s']:.3f} s; (T1, T2) Jacobian x "
+          f"{seqp['jac_n']} pulses on the general diff path "
+          f"{seqp['jac_s']:.3f} s; axes= train {seqp['axes_s']:.3f} s; "
+          f"flagship DSL Hessian {seqp['hess_s']:.3f}"
+          f" s against its direct form ({seqp['hess_route']}) "
+          f"{seqp['hess_direct_s']:.3f} s ({card})")
+    print(f"[numbers] slice profile: {slicep['nz']} z points "
+          f"({slicep['prof_s']:.3f} s); sliced dictionary {NATOMS} x "
+          f"{NPULSE} first call {slicep['first_s']:.3f} s, again "
+          f"{slicep['memo_s']:.4f} s; shaped-pulse oracle "
+          f"({slicep['oracle_ops']} ops) {slicep['oracle_s']:.3f} s, exact "
+          f"{slicep['exact']:.0%} ({card})")
     kernels = ([entry, jac_entry, hess_entry, mse_entry, mse_jac_entry,
                 design_entry] + ssfp_entries + megre_entries + comp_entries
                + x_entries)

@@ -31,9 +31,16 @@ trains, each with its Jacobian.  Beside them: the FISP MR-fingerprinting
 models, the steady-state sequences (``bssfp_sequence``, ``dess_sequence``,
 ``spgr_sequence``), CRLB statistics (``stats``), MRF serving and sequence
 design (``parallel``: dictionary match, reconstruction, Gauss-Newton
-refinement, CRLB designs of the MRF and TSE trains).  ``epgpy_torch.epg``
-is the flat scripting namespace.
+refinement, CRLB designs of the MRF and TSE trains); the sequence DSL
+(``sequence``: ``Sequence``, ``Variable``, ``repeat``, derivatives by
+``torch.func.jvp``), shaped RF pulses and pulse files (``RFPulse``,
+``load_pulse``) and slice-profile-corrected MRF dictionaries
+(``models.slice_profile``).  ``epgpy_torch.epg`` (alias ``core``) is the
+flat scripting namespace; the reference's submodule aliases
+(``transition``, ``opscalar``, ``functions``, ...) are kept.
 """
+
+import torch
 
 from . import config, stats
 from .statematrix import StateMatrix
@@ -42,20 +49,34 @@ from .ops import (
     Wait, Offset, Spoiler, Reset, PD, System, NULL, SPOILER, RESET,
     ScalarOp, MatrixOp, PrecomputedDiagonal, CombinedOp, combine,
     T, Tx, Ty, Phi, E, P, R, S, G, C, D, Probe, Adc, ADC, DFT, Imaging,
-    X, exchange_matrix,
+    X, exchange_matrix, RFPulse,
 )
 from .diff import Jacobian, Hessian, Pair, PartialsPruner
 from .engine import (
     simulate, simulate_simple, modify, flatten_sequence, squeeze_sequence,
     getshape, getnshift, getkdim, get_adc_times,
 )
+from .sequence import Sequence, Variable, Constant, Expression, repeat
+from . import sequence
 from .models.ssfp import bssfp_sequence, dess_sequence, spgr_sequence
 from .utils import (
     gamma_1H, gamma_23Na, Axes, get_norm, get_wavenumber, spatial_range,
     space_to_freq, freq_to_space, saturation_rate, absorption_rate, dft,
+    load_pulse,
 )
 from .utils.helpers import cexp, progressbar
 from .utils.imaging import imaging
+
+# the reference's flat submodule aliases (``from epgpy import transition``),
+# mapped onto the ops package as in epgpy_tpu/__init__.py
+from .ops import (
+    base as operator, scalarop as opscalar, matrixop as opmatrix,
+    transition, evolution, shift, diffusion, exchange, probe, rfpulse,
+)
+from . import statematrix, common, engine as functions
+# ``from epgpy import operators``: the ops package is the combined
+# operator namespace
+from . import ops as operators
 
 #: reference epgpy/utils.py:5 -- np.newaxis alias used in probe expressions
 NAX = None
@@ -69,6 +90,20 @@ def check_states(states):
     states = _np.asarray(states)
     return bool(_np.allclose(states,
                              states[..., ::-1, :][..., (1, 0, 2)].conj()))
+
+
+def set_array_module(xp=None):
+    """API-compatibility shim: the port has one array module, torch.
+
+    The reference switches numpy/cupy globally (epgpy/common.py:21-50);
+    here the request is accepted and ignored -- the device is set with
+    ``config.set_device``."""
+    return torch
+
+
+def get_array_module(*objs):
+    """API-compatibility shim: always torch (see set_array_module)."""
+    return torch
 
 
 __all__ = [
@@ -85,9 +120,15 @@ __all__ = [
     "get_norm", "get_wavenumber", "spatial_range", "space_to_freq",
     "freq_to_space", "saturation_rate", "absorption_rate", "dft", "imaging",
     "cexp",
-    "progressbar", "NAX", "check_states", "epg",
+    "progressbar", "NAX", "check_states", "epg", "RFPulse", "Sequence",
+    "Variable", "Constant", "Expression", "repeat", "sequence",
+    "load_pulse", "operator", "opscalar", "opmatrix", "transition",
+    "evolution", "shift", "diffusion", "exchange", "probe", "rfpulse",
+    "statematrix", "common", "functions", "operators", "core",
+    "set_array_module", "get_array_module",
 ]
 
 from . import epg  # noqa: E402  (after the names it re-exports)
+from . import epg as core  # noqa: E402  (reference epgpy/core.py)
 
 __version__ = "0.1.0"

@@ -15,7 +15,8 @@ import torch
 from . import config
 
 __all__ = ["get_shape", "expand_shapes", "broadcastable", "broadcast_shapes",
-           "expand_arrays", "to_real", "memoize_on_ops"]
+           "expand_arrays", "to_real", "memoize_on_ops", "shape_with_axes",
+           "set_axes"]
 
 
 def get_shape(obj) -> tuple:
@@ -72,6 +73,40 @@ def expand_arrays(*objs):
         else:
             out.append(obj.reshape(tuple(shape) + (1,) * (ndim - len(shape))))
     return tuple(out)
+
+
+def shape_with_axes(shape: tuple, axes) -> tuple:
+    """Operator batch shape after ``axes=`` pinning (see :func:`set_axes`;
+    JAX ``common.shape_with_axes``)."""
+    if axes is None:
+        return shape
+    nbatch = len(shape)
+    if isinstance(axes, int):
+        axes = tuple(range(axes, axes + nbatch))
+    if len(axes) != nbatch:
+        # as set_axes validates: a zip-truncated shape would disagree with
+        # what apply() accepts
+        raise ValueError(f"Invalid axes {axes} for {nbatch} batch dim(s)")
+    out = [1] * (max(axes) + 1)
+    for pos, dim in zip(axes, shape):
+        out[pos] = dim
+    return tuple(out)
+
+
+def set_axes(core_ndim: int, arr, axes):
+    """Pin an operator's parameter axes to user-chosen batch positions
+    (the reference's ``axes=`` keyword, epgpy/common.py:337-347): the
+    tensor's batch axes (all but the trailing `core_ndim`) move to
+    positions `axes` by inserting singleton axes before them."""
+    nbatch = arr.ndim - core_ndim
+    if isinstance(axes, int):
+        axes = tuple(range(axes, axes + nbatch))
+    axes = tuple(axes)
+    if len(axes) != nbatch or any(not isinstance(ax, int) for ax in axes):
+        raise ValueError(f"Invalid axes {axes} for {nbatch} batch dims")
+    for dim in sorted(i for i in range(max(axes)) if i not in axes):
+        arr = arr.unsqueeze(dim)
+    return arr
 
 
 def as_real(value):

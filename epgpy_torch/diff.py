@@ -20,7 +20,13 @@ sequence:
   (``engine.simulate_simple``); ``torch.func.jvp`` pushes the tangent
   basis through it, batched by ``torch.func.vmap`` (the primal does not
   depend on the tangent, so it runs once per call); a Hessian is a jvp of
-  that jvp over the restricted tangent sets vars1 x vars2.
+  that jvp over the restricted tangent sets vars1 x vars2;
+* on the card, a stage of ``jacobian_chunk`` passes of one shape (the
+  Jacobian chunks, the Hessian blocks) captures its first pass as a CUDA
+  graph and replays it for every chunk, the chunk's tangent basis copied
+  into the graph's static input: the per-op host work of the transforms
+  (milliseconds per op under nested ``jvp``) is paid once per stage, as
+  JAX compiles the chunk program once.
 
 Outputs match the reference probes: Jacobian -> (nADC, ..., nvars),
 Hessian -> (nADC, ..., n1, n2); the pseudo-variable "magnitude" maps to
@@ -250,6 +256,88 @@ def substitute(op, eps: Dict[str, torch.Tensor]):
 
 # -- diff simulation path --
 
+#: CUDA graphs of chunked diff passes: captured and replayed (diagnostics)
+GRAPH_COUNTS = {"captures": 0, "replays": 0}
+
+
+def _on_device(op):
+    """A copy of `op` whose parameters and derivative coefficients are
+    tensors on the working device: a pass captured in a CUDA graph may copy
+    nothing from the host.  Ops without derivative specs take the planner's
+    device copy (``engine._device_op``)."""
+    from .engine import _device_leaf, _device_op
+    from .ops.combined import CombinedOp
+
+    if not (getattr(op, "order1", None) or getattr(op, "order2", None)):
+        return _device_op(op)
+    if isinstance(op, CombinedOp):
+        new = op.copy(ops=[_on_device(o) for o in op.ops])
+    else:
+        leaves = op.leaves()
+        new = op.with_leaves([_device_leaf(x, dt) for x, dt in
+                              zip(leaves, op.leaf_dtypes())])
+        if getattr(op, "diff_arrays", None) is not None:
+            new.diff_arrays = {
+                key: {k: tuple(None if a is None else _param_tensor(a)
+                               for a in pair) for k, pair in part.items()}
+                for key, part in op.diff_arrays.items()}
+    new.order1 = {v: {p: _param_tensor(c) for p, c in cfs.items()}
+                  for v, cfs in (op.order1 or {}).items()}
+    new.order2 = {v: {p: _param_tensor(c) for p, c in cfs.items()}
+                  for v, cfs in (op.order2 or {}).items()}
+    return new
+
+
+class _PassGraph:
+    """One diff pass ``fn(*bases)`` captured as a CUDA graph: each call
+    copies its tangent bases into the static inputs, replays, and clones
+    the outputs out (a tuple of tensors)."""
+
+    def __init__(self, fn, bases):
+        self.inputs = [b.clone() for b in bases]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                self.outputs = fn(*self.inputs)
+        except Exception as exc:
+            raise RuntimeError(f"simulate: CUDA graph capture of a diff pass "
+                               f"failed ({exc})") from exc
+        GRAPH_COUNTS["captures"] += 1
+
+    def __call__(self, *bases):
+        for dst, src in zip(self.inputs, bases):
+            dst.copy_(src)
+        self.graph.replay()
+        GRAPH_COUNTS["replays"] += 1
+        return tuple(o.clone() for o in self.outputs)
+
+
+def _graph_passes(njac, nhess):
+    """Whether the chunked passes replay CUDA graphs: on the card, when a
+    stage has two or more passes of one shape."""
+    return config.device().type == "cuda" and (njac > 1 or nhess > 1)
+
+
+def _run_passes(fn, chunks, graphs, cut):
+    """``fn(*chunk)`` for every chunk (a tuple of tangent bases, each
+    (c, nvars)).  With `graphs`, the chunks' rows are padded to the first
+    chunk's with zero tangents, one captured pass replays them all, and
+    ``cut(outputs, rows)`` trims a padded chunk's outputs back to its
+    rows."""
+    if not graphs:
+        return [fn(*ch) for ch in chunks]
+    full = [b.shape[0] for b in chunks[0]]
+    graph, out = None, []
+    for ch in chunks:
+        rows = [b.shape[0] for b in ch]
+        padded = [torch.cat([b, b.new_zeros((n - b.shape[0],) + b.shape[1:])])
+                  if b.shape[0] < n else b for b, n in zip(ch, full)]
+        if graph is None:
+            graph = _PassGraph(fn, padded)
+        res = graph(*padded)
+        out.append(res if rows == full else cut(res, rows))
+    return out
+
 
 def simulate_diff(sequence, probes, sm, *, max_nstate=None,
                   jacobian_chunk: Optional[int] = None):
@@ -274,7 +362,7 @@ def simulate_diff(sequence, probes, sm, *, max_nstate=None,
     plain probes (N, *batch), Jacobians (N, *batch, len(variables)),
     Hessians (N, *batch, len(variables1), len(variables2)).
     """
-    from .engine import simulate_simple
+    from .engine import _device_op, simulate_simple
     from .ops.probe import Adc
 
     variables = tracked_variables(sequence)
@@ -315,43 +403,97 @@ def simulate_diff(sequence, probes, sm, *, max_nstate=None,
     zero = torch.zeros((nvars,), dtype=config.real_dtype(),
                        device=config.device())
     basis = torch.eye(max(nvars, 1), dtype=zero.dtype, device=zero.device)
+    # the Jacobian columns the outputs read; a Hessian pass also pushes
+    # the first-order tangents of its vars1 and vars2 columns, so only the
+    # others take Jacobian passes
+    needed = set()
+    for pb in probes:
+        if isinstance(pb, Jacobian):
+            needed.update(pb.variables)
+        elif isinstance(pb, Hessian):
+            if "magnitude" in pb.variables1:
+                needed.update(pb.variables2)
+            if "magnitude" in pb.variables2:
+                needed.update(pb.variables1)
+    covered = set(vars1) | set(vars2) if need_hessian else set()
+    jac_vars = [v for v in variables if v in needed and v not in covered]
+    chunk = max(len(jac_vars), 1) if not jacobian_chunk \
+        else int(jacobian_chunk)
+    BJ = basis[[var_idx[v] for v in jac_vars]]
+    jac_chunks = [(BJ[i:i + chunk],) for i in range(0, len(jac_vars), chunk)]
+    B1 = basis[[var_idx[v] for v in vars1]]
+    B2 = basis[[var_idx[v] for v in vars2]]
+    c1 = len(vars1) if not jacobian_chunk else int(jacobian_chunk)
+    c2 = len(vars2) if not jacobian_chunk else int(jacobian_chunk)
+    hess_chunks = [(B1[i:i + c1], B2[j:j + c2])
+                   for i in range(0, len(vars1), c1)
+                   for j in range(0, len(vars2), c2)] if need_hessian else []
+    graphs = _graph_passes(len(jac_chunks), len(hess_chunks))
+    if graphs:
+        moved = {}
+        for op in sequence:
+            if id(op) not in moved:
+                moved[id(op)] = _on_device(op)
+        sequence = [moved[id(op)] for op in sequence]
+        eval_probes = ([_device_op(pb) for pb in regular]
+                       + eval_probes[len(regular):])
+    # the primal pass (also the warm-up of any capture below: lazy
+    # library loads and memoized constants happen outside the graph)
     value = run(zero)
+    nout = len(eval_probes)
+    cols = [{} for _ in range(nout)]       # per output: var -> column
 
     def d1(x, u):
         return torch.func.jvp(run, (x,), (u,))[1]
 
-    jac = None
-    if nvars:
-        chunk = nvars if not jacobian_chunk else min(int(jacobian_chunk),
-                                                     nvars)
-        parts = [torch.func.vmap(lambda u: d1(zero, u))(basis[i:i + chunk])
-                 for i in range(0, nvars, chunk)]
-        jac = tuple(torch.cat([p[k] for p in parts]).movedim(0, -1)
-                    for k in range(len(eval_probes)))
+    def put(names, tangents):
+        for k in range(nout):
+            for n, var in enumerate(names):
+                cols[k][var] = tangents[k][n]
+
+    if jac_chunks:
+        parts = _run_passes(
+            lambda b: torch.func.vmap(lambda u: d1(zero, u))(b),
+            jac_chunks, graphs and len(jac_chunks) > 1,
+            lambda res, rows: tuple(r[:rows[0]] for r in res))
+        for i, part in zip(range(0, len(jac_vars), chunk), parts):
+            put(jac_vars[i:i + chunk], part)
 
     hess = None
     if need_hessian:
         def d2(u, w):
-            # shared variables get both tangents: d2/du dw at eps = 0
-            return torch.func.jvp(lambda x: d1(x, u), (zero,), (w,))[1]
+            # the jvp along w of (run, its jvp along u): shared variables
+            # get both tangents; returns (J u, J w, d2/du dw) at eps = 0
+            (_, ju), (jw, h) = torch.func.jvp(
+                lambda x: torch.func.jvp(run, (x,), (u,)), (zero,), (w,))
+            return ju, jw, h
 
-        B1 = basis[[var_idx[v] for v in vars1]]
-        B2 = basis[[var_idx[v] for v in vars2]]
-        c1 = len(vars1) if not jacobian_chunk else int(jacobian_chunk)
-        c2 = len(vars2) if not jacobian_chunk else int(jacobian_chunk)
+        def block(bu, bw):
+            # inner vmap over vars2 tangents, outer over vars1: H leaves
+            # (c1, c2, N, ...); J u does not vary along w, nor J w along u
+            ju, jw, h = torch.func.vmap(lambda u: torch.func.vmap(
+                lambda w: d2(u, w))(bw))(bu)
+            return (tuple(t[:, 0] for t in ju) + tuple(t[0] for t in jw)
+                    + tuple(h))
+
+        def cut(res, rows):
+            return (tuple(r[:rows[0]] for r in res[:nout])
+                    + tuple(r[:rows[1]] for r in res[nout:2 * nout])
+                    + tuple(r[:rows[0], :rows[1]] for r in res[2 * nout:]))
+
+        blocks = _run_passes(block, hess_chunks,
+                             graphs and len(hess_chunks) > 1, cut)
+        nj = -(-len(vars2) // c2)
         rows = []
-        for i in range(0, len(vars1), c1):
-            row = []
-            for j in range(0, len(vars2), c2):
-                # inner vmap over vars2 tangents, outer over vars1:
-                # leaves (c1, c2, N, ...)
-                blk = torch.func.vmap(lambda u: torch.func.vmap(
-                    lambda w: d2(u, w))(B2[j:j + c2]))(B1[i:i + c1])
-                row.append(blk)
-            rows.append(tuple(torch.cat([b[k] for b in row], dim=1)
-                              for k in range(len(eval_probes))))
+        for bi, i in enumerate(range(0, len(vars1), c1)):
+            row = blocks[bi * nj:(bi + 1) * nj]
+            put(vars1[i:i + c1], row[0][:nout])
+            for j, blk in zip(range(0, len(vars2), c2), row):
+                put(vars2[j:j + c2], blk[nout:2 * nout])
+            rows.append(tuple(torch.cat([b[2 * nout + k] for b in row],
+                                        dim=1) for k in range(nout)))
         hess = tuple(torch.cat([r[k] for r in rows]).movedim(0, -1)
-                     .movedim(0, -1) for k in range(len(eval_probes)))
+                     .movedim(0, -1) for k in range(nout))
 
     row1 = {v: k for k, v in enumerate(vars1)}
     col2 = {v: k for k, v in enumerate(vars2)}
@@ -359,9 +501,9 @@ def simulate_diff(sequence, probes, sm, *, max_nstate=None,
     for pb in probes:
         if isinstance(pb, Jacobian):
             k = len(regular) + attrs.index(pb.probe_attr)
-            cols = [value[k] if var == "magnitude"
-                    else jac[k][..., var_idx[var]] for var in pb.variables]
-            out.append(torch.stack(cols, dim=-1))
+            out.append(torch.stack([value[k] if var == "magnitude"
+                                    else cols[k][var]
+                                    for var in pb.variables], dim=-1))
         elif isinstance(pb, Hessian):
             k = len(regular) + attrs.index(pb.probe_attr)
             rows_out = []
@@ -371,9 +513,9 @@ def simulate_diff(sequence, probes, sm, *, max_nstate=None,
                     if v1 == "magnitude" and v2 == "magnitude":
                         row.append(torch.zeros_like(value[k]))
                     elif v1 == "magnitude":
-                        row.append(jac[k][..., var_idx[v2]])
+                        row.append(cols[k][v2])
                     elif v2 == "magnitude":
-                        row.append(jac[k][..., var_idx[v1]])
+                        row.append(cols[k][v1])
                     elif v1 in row1 and v2 in col2:
                         row.append(hess[k][..., row1[v1], col2[v2]])
                     else:

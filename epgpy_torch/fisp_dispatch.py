@@ -138,9 +138,20 @@ def jac_kernel_fits(nstate, track_diffusivity=False) -> bool:
 
 
 def _memoized(key, sequence, compute):
-    """Memoize a matcher result (including non-matches) on `key`."""
+    """Memoize a matcher result (including non-matches) on `key`.  Every
+    family declines a train with a pinned op (``axes=``): no kernel reads
+    the pinning (the JAX matchers' ``op.axes`` guards, e.g.
+    ``epgpy_tpu/fisp_dispatch.py:382, 444, 939, 1183, 1388``)."""
+    def checked():
+        pinned = next((n for n, op in enumerate(sequence)
+                       if getattr(op, "axes", None) is not None), None)
+        if pinned is not None:
+            return None, (f"op {pinned} ({sequence[pinned].name}): axes= "
+                          f"pinning")
+        return compute()
+
     return common.memoize_on_ops(_MATCH_CACHE, _MATCH_CACHE_MAX, key,
-                                 sequence, compute)
+                                 sequence, checked)
 
 
 def _is_device(x):

@@ -2,7 +2,7 @@
 
 from . import (cuda_bssfp, cuda_composite, cuda_dess, cuda_fisp,
                cuda_hessian, cuda_megre, cuda_mse, cuda_msedesign, mrf, mse,
-               planes, ssfp)
+               planes, slice_profile, ssfp)
 from .cuda_bssfp import (bssfp_dictionary_cuda, bssfp_dictionary_plain,
                          bssfp_jacobian_cuda, bssfp_jacobian_plain)
 from .cuda_composite import (composite_cuda, composite_jacobian_cuda,
@@ -19,11 +19,12 @@ from .cuda_msedesign import cpmg_design_cuda, cpmg_design_plain
 from .mrf import (fisp_mrf_signal, fisp_mrf_dictionary, save_dictionary,
                   load_dictionary)
 from .mse import cpmg_sequence, mse_signal
+from .slice_profile import fisp_mrf_dictionary_sliced, slice_profile_scales
 from .ssfp import bssfp_sequence, dess_sequence, spgr_sequence
 
 __all__ = ["cuda_bssfp", "cuda_composite", "cuda_dess", "cuda_fisp",
            "cuda_hessian", "cuda_megre", "cuda_mse", "cuda_msedesign", "mrf",
-           "mse", "planes", "ssfp",
+           "mse", "planes", "slice_profile", "ssfp",
            "bssfp_dictionary_cuda", "bssfp_dictionary_plain",
            "bssfp_jacobian_cuda", "bssfp_jacobian_plain",
            "composite_cuda", "composite_plain", "composite_jacobian_cuda",
@@ -39,4 +40,5 @@ __all__ = ["cuda_bssfp", "cuda_composite", "cuda_dess", "cuda_fisp",
            "cpmg_design_plain", "fisp_mrf_signal", "fisp_mrf_dictionary",
            "save_dictionary", "load_dictionary", "cpmg_sequence",
            "mse_signal", "bssfp_sequence", "dess_sequence",
-           "spgr_sequence"]
+           "spgr_sequence", "fisp_mrf_dictionary_sliced",
+           "slice_profile_scales"]

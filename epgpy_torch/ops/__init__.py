@@ -12,6 +12,7 @@ from .diffusion import D
 from .probe import Probe, Adc, ADC, DFT, Imaging
 from .exchange import X, exchange_matrix
 from .combined import CombinedOp, combine
+from .rfpulse import RFPulse
 
 __all__ = ["Operator", "EmptyOperator", "MultiOperator", "DiffOperator",
            "CombinableOperator", "Wait", "Offset", "Spoiler", "Reset", "PD",
@@ -19,4 +20,4 @@ __all__ = ["Operator", "EmptyOperator", "MultiOperator", "DiffOperator",
            "PrecomputedDiagonal", "MatrixOp", "T", "Tx", "Ty", "Phi",
            "rotation_operator", "E", "P", "R", "S", "G", "C", "D", "Probe",
            "Adc", "ADC", "DFT", "Imaging", "X", "exchange_matrix",
-           "CombinedOp", "combine"]
+           "CombinedOp", "combine", "RFPulse"]

@@ -49,10 +49,11 @@ class R(ScalarOp):
     PARAMS = ("rT", "rL", "r0")
     PARAMETERS_ORDER1 = frozenset({"rT", "rL", "r0"})
 
-    def __init__(self, rT=0, rL=0, *, r0=None, name=None, duration=None,
-                 order1=False, order2=False):
+    def __init__(self, rT=0, rL=0, *, r0=None, axes=None, name=None,
+                 duration=None, order1=False, order2=False):
         self.rT, self.rL, self.r0 = (None if x is None else _as_complex(x)
                                      for x in (rT, rL, r0))
+        self.axes = axes
         if r0 is None:
             # order1=True must not try to differentiate an absent
             # recovery term (diff.substitute would shift a None)
@@ -62,16 +63,16 @@ class R(ScalarOp):
 
     @property
     def shape(self):
-        return common.broadcast_shapes(
+        return common.shape_with_axes(common.broadcast_shapes(
             common.get_shape(self.rT), common.get_shape(self.rL),
-            common.get_shape(self.r0), (1,))
+            common.get_shape(self.r0), (1,)), self.axes)
 
     def coefficient_elements(self):
         cdtype = config.complex_dtype()
         rT, rL, r0 = (None if x is None else torch.as_tensor(
             x, dtype=cdtype, device=config.device())
             for x in common.expand_arrays(self.rT, self.rL, self.r0))
-        return evolution_elements(rT, rL, r0)
+        return self._pin_elements(*evolution_elements(rT, rL, r0))
 
     def coefficients(self):
         return stack_elements(*self.coefficient_elements())
@@ -91,12 +92,13 @@ class E(ScalarOp):
     PARAMS = ("tau", "T1", "T2", "g")
     PARAMETERS_ORDER1 = frozenset({"tau", "T1", "T2", "g"})
 
-    def __init__(self, tau, T1, T2, g=0, *, name=None, duration=None,
-                 order1=False, order2=False):
+    def __init__(self, tau, T1, T2, g=0, *, axes=None, name=None,
+                 duration=None, order1=False, order2=False):
         self.tau = common.as_real(tau)
         self.T1 = common.as_real(T1)
         self.T2 = common.as_real(T2)
         self.g = common.as_real(0 if g is None else g)
+        self.axes = axes
         if duration is True:
             duration = tau
         base.Operator.__init__(
@@ -105,16 +107,17 @@ class E(ScalarOp):
 
     @property
     def shape(self):
-        return common.broadcast_shapes(
+        return common.shape_with_axes(common.broadcast_shapes(
             common.get_shape(self.tau), common.get_shape(self.T1),
-            common.get_shape(self.T2), common.get_shape(self.g), (1,))
+            common.get_shape(self.T2), common.get_shape(self.g), (1,)),
+            self.axes)
 
     def coefficient_elements(self):
         tau, T1, T2, g = (common.to_real(x) for x in common.expand_arrays(
             self.tau, self.T1, self.T2, self.g))
         rT = tau * (1.0 / T2 + 2j * math.pi * g)
         rL = (tau / T1).to(config.complex_dtype())
-        return evolution_elements(rT, rL, rL)
+        return self._pin_elements(*evolution_elements(rT, rL, rL))
 
     def coefficients(self):
         return stack_elements(*self.coefficient_elements())
@@ -126,10 +129,11 @@ class P(ScalarOp):
     PARAMS = ("tau", "g")
     PARAMETERS_ORDER1 = frozenset({"tau", "g"})
 
-    def __init__(self, tau, g, *, name=None, duration=None, order1=False,
-                 order2=False):
+    def __init__(self, tau, g, *, axes=None, name=None, duration=None,
+                 order1=False, order2=False):
         self.tau = common.as_real(tau)
         self.g = common.as_real(g)
+        self.axes = axes
         if duration is True:
             duration = tau
         base.Operator.__init__(self, name=name or _repr("P", tau, g),
@@ -138,13 +142,14 @@ class P(ScalarOp):
 
     @property
     def shape(self):
-        return common.broadcast_shapes(common.get_shape(self.tau),
-                                       common.get_shape(self.g), (1,))
+        return common.shape_with_axes(common.broadcast_shapes(
+            common.get_shape(self.tau), common.get_shape(self.g), (1,)),
+            self.axes)
 
     def coefficient_elements(self):
         tau, g = (common.to_real(x)
                   for x in common.expand_arrays(self.tau, self.g))
-        return evolution_elements(2j * math.pi * g * tau)
+        return self._pin_elements(*evolution_elements(2j * math.pi * g * tau))
 
     def coefficients(self):
         return stack_elements(*self.coefficient_elements())

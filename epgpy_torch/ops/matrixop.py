@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import common
 from . import base
 from .scalarop import (align_batch, apply_diff_arrays_to, complex_tensor,
                        extend_operators, pack_diff_arrays)
@@ -62,12 +63,11 @@ class MatrixOp(base.DiffOperator, base.CombinableOperator):
     PARAMS = ("mat", "mat0")
     diagonal = False
     diff_arrays = None
+    #: ``axes=`` pinning of the parameter batch axes (common.set_axes)
+    axes = None
 
     def __init__(self, mat, mat0=None, *, dmats=None, d2mats=None,
                  axes=None, name=None, duration=None, check=True, **kwargs):
-        if axes is not None:
-            raise NotImplementedError(
-                "axes= pinning is not ported to epgpy_torch")
         if isinstance(mat, torch.Tensor):
             mat = mat[None] if mat.ndim == 2 else mat
             self.preserves_ladder_symmetry = False
@@ -82,6 +82,7 @@ class MatrixOp(base.DiffOperator, base.CombinableOperator):
                           for m in (mat, mat0) if m is not None)
                 self.preserves_ladder_symmetry = bool(sym)
         self.mat, self.mat0 = mat, mat0
+        self.axes = axes
         self.diff_arrays = pack_diff_arrays(dmats, d2mats)
         if dmats or d2mats:
             self.PARAMETERS_ORDER1 = frozenset(dmats or ()) | {
@@ -94,11 +95,16 @@ class MatrixOp(base.DiffOperator, base.CombinableOperator):
 
     @property
     def shape(self):
-        return tuple(self.mat.shape[:-2])
+        return common.shape_with_axes(tuple(self.mat.shape[:-2]), self.axes)
 
     def matrices(self):
         """(mat, mat0) complex (*batch, 3, 3) matrices on the device."""
-        return complex_tensor(self.mat), complex_tensor(self.mat0)
+        mat, mat0 = complex_tensor(self.mat), complex_tensor(self.mat0)
+        if self.axes is not None:
+            mat = common.set_axes(2, mat, self.axes)
+            mat0 = None if mat0 is None else common.set_axes(2, mat0,
+                                                             self.axes)
+        return mat, mat0
 
     def apply(self, sm):
         return apply_matrices(sm, *self.matrices())

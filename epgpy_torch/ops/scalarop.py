@@ -177,12 +177,11 @@ class ScalarOp(base.DiffOperator, base.CombinableOperator):
     PARAMS = ("arr", "arr0")
     diagonal = True
     diff_arrays = None
+    #: ``axes=`` pinning of the parameter batch axes (common.set_axes)
+    axes = None
 
     def __init__(self, arr, arr0=None, *, darrs=None, d2arrs=None,
                  axes=None, name=None, duration=None, check=True, **kwargs):
-        if axes is not None:
-            raise NotImplementedError(
-                "axes= pinning is not ported to epgpy_torch")
         if isinstance(arr, torch.Tensor):
             arr = arr[None] if arr.ndim == 1 else arr
             # device coefficients are unverified: the dense table engines
@@ -200,6 +199,7 @@ class ScalarOp(base.DiffOperator, base.CombinableOperator):
                         arr0, np.conj(arr0[..., (1, 0, 2)]))
                 self.preserves_ladder_symmetry = bool(sym)
         self.arr, self.arr0 = arr, arr0
+        self.axes = axes
         self.diff_arrays = pack_diff_arrays(darrs, d2arrs)
         if darrs or d2arrs:
             self.PARAMETERS_ORDER1 = frozenset(darrs or ()) | {
@@ -212,11 +212,16 @@ class ScalarOp(base.DiffOperator, base.CombinableOperator):
 
     @property
     def shape(self):
-        return tuple(self.arr.shape[:-1])
+        return common.shape_with_axes(tuple(self.arr.shape[:-1]), self.axes)
 
     def coefficients(self):
         """(arr, arr0) complex (*batch, 3) triplets on the device."""
-        return complex_tensor(self.arr), complex_tensor(self.arr0)
+        arr, arr0 = complex_tensor(self.arr), complex_tensor(self.arr0)
+        if self.axes is not None:
+            arr = common.set_axes(1, arr, self.axes)
+            arr0 = None if arr0 is None else common.set_axes(1, arr0,
+                                                             self.axes)
+        return arr, arr0
 
     def coefficient_elements(self):
         """((aFp, aFm, aZ), (a0Fp, a0Fm, a0Z) | None): batch arrays."""
@@ -225,6 +230,19 @@ class ScalarOp(base.DiffOperator, base.CombinableOperator):
         elems0 = None if arr0 is None else (
             arr0[..., 0], arr0[..., 1], arr0[..., 2])
         return elems, elems0
+
+    def _pin_elements(self, elems, elems0):
+        """``axes=`` pinning of element-form coefficients (JAX
+        ``ScalarOp._pin_elements``)."""
+        if self.axes is None:
+            return elems, elems0
+
+        def pin(e):
+            return None if e is None else common.set_axes(
+                0, torch.atleast_1d(e), self.axes)
+
+        return (tuple(pin(e) for e in elems),
+                None if elems0 is None else tuple(pin(e) for e in elems0))
 
     def matrices(self):
         """The diagonal promoted to (mat, mat0) 3x3 matrices."""
@@ -291,7 +309,12 @@ def precompute_diagonal(op, reps=None):
 
     With ``reps`` the op is a stacked scan slot (a leading repetition axis
     on its parameters) and constant elements get that axis; without, it
-    is one scan-constant op.  Coefficients are evaluated here, once."""
+    is one scan-constant op.  Coefficients are evaluated here, once.  A
+    pinned op (``axes=``) keeps its parameter form (JAX
+    ``scalarop.py:263``): its elements are pinned, and a stacked
+    repetition axis would be pinned with them."""
+    if op.axes is not None:
+        return None
     nelem = max([int(np.prod(common.get_shape(x))) for x in op.leaves()
                  if x is not None] + [1])
     itemsize = torch.empty((), dtype=config.complex_dtype()).element_size()

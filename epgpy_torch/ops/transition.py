@@ -90,27 +90,36 @@ class T(MatrixOp):
     PARAMS = ("alpha", "phi")
     PARAMETERS_ORDER1 = frozenset({"alpha", "phi"})
 
-    def __init__(self, alpha, phi, *, name=None, duration=None,
+    def __init__(self, alpha, phi, *, axes=None, name=None, duration=None,
                  order1=False, order2=False):
         self.alpha = common.as_real(alpha)
         self.phi = common.as_real(phi)
+        self.axes = axes
         base.Operator.__init__(self, name=name or _repr("T", alpha, phi),
                                duration=duration, order1=order1,
                                order2=order2)
 
     @property
     def shape(self):
-        return common.broadcast_shapes(common.get_shape(self.alpha),
-                                       common.get_shape(self.phi), (1,))
+        return common.shape_with_axes(common.broadcast_shapes(
+            common.get_shape(self.alpha), common.get_shape(self.phi), (1,)),
+            self.axes)
 
     def matrices(self):
-        return rotation_operator(self.alpha, self.phi), None
+        mat = rotation_operator(self.alpha, self.phi)
+        if self.axes is not None:
+            mat = common.set_axes(2, mat, self.axes)
+        return mat, None
 
     def apply(self, sm):
         # column j of the rotation as a (*batch, 1, 3) triplet: three
         # whole-ladder multiply-adds, no (batch, 3, 3) matrix materialized
+        elems = rotation_elements(self.alpha, self.phi)
+        if self.axes is not None:
+            elems = [common.set_axes(0, torch.atleast_1d(e), self.axes)
+                     for e in elems]
         m = [align_batch(torch.atleast_1d(e), sm.ndim, 0)[..., None]
-             for e in rotation_elements(self.alpha, self.phi)]
+             for e in elems]
         cols = [torch.stack(torch.broadcast_tensors(m[j], m[3 + j],
                                                     m[6 + j]), dim=-1)
                 for j in range(3)]
@@ -137,21 +146,26 @@ class Phi(MatrixOp):
     PARAMETERS_ORDER1 = frozenset({"phi"})
     diagonal = True
 
-    def __init__(self, phi, *, name=None, duration=0, order1=False,
-                 order2=False):
+    def __init__(self, phi, *, axes=None, name=None, duration=0,
+                 order1=False, order2=False):
         self.phi = common.as_real(phi)
+        self.axes = axes
         base.Operator.__init__(self, name=name or _repr("Phi", phi),
                                duration=duration, order1=order1,
                                order2=order2)
 
     @property
     def shape(self):
-        return common.get_shape(self.phi) or (1,)
+        return common.shape_with_axes(common.get_shape(self.phi) or (1,),
+                                      self.axes)
 
     def coefficients(self):
         e = torch.exp(1j * _rad(self.phi))
         arr = torch.stack([e, torch.conj(e), torch.ones_like(e)], dim=-1)
-        return (arr[None] if arr.ndim == 1 else arr), None
+        arr = arr[None] if arr.ndim == 1 else arr
+        if self.axes is not None:
+            arr = common.set_axes(1, arr, self.axes)
+        return arr, None
 
     def matrices(self):
         arr, _ = self.coefficients()

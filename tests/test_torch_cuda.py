@@ -1049,3 +1049,40 @@ def test_cuda_general_path_is_one_graph_replay(card):
                  density=[0.8, 0.2])
     assert engine.GRAPH_COUNTS == before
     assert np.isfinite(got[0].cpu().numpy()).all()
+
+
+@pytest.mark.cuda
+def test_cuda_diff_passes_replay_one_graph_per_stage(card, monkeypatch):
+    """On the card the chunked diff passes (a DSL Hessian in chunks of 4:
+    three Hessian blocks, which also push the Jacobian columns; a Jacobian
+    in chunks of 4: three chunks) capture one CUDA graph per stage and
+    replay it per chunk; they equal the eager passes."""
+    import numpy as np
+
+    from epgpy_torch import diff
+    from epgpy_torch import sequence as dsl
+
+    n = 5
+    alphas = [f"a{i}" for i in range(n)]
+    taus = [f"t{i}" for i in range(n)]
+    o = dsl.operators
+    seq = dsl.Sequence(dsl.repeat([o.T("alpha", 90), o.E("TR", "T1", "T2"),
+                                   o.ADC, o.S(1)], alpha=alphas, TR=taus))
+    rng = np.random.default_rng(0)
+    vals = {**dict(zip(alphas, rng.uniform(10, 60, n))),
+            **dict(zip(taus, rng.uniform(11, 16, n)))}
+    f = seq.hessian(["magnitude", "T1", "T2"], alphas + taus,
+                    options={"max_nstate": 8, "jacobian_chunk": 4})
+    g = seq.jacobian(["T1"] + alphas + taus,
+                     options={"max_nstate": 8, "jacobian_chunk": 4})
+    T1 = np.linspace(600.0, 1400.0, 33)
+    before = dict(diff.GRAPH_COUNTS)
+    got = f(vals, T1=T1, T2=70.0) + g(vals, T1=T1, T2=70.0)
+    torch.cuda.synchronize()
+    assert diff.GRAPH_COUNTS["captures"] - before["captures"] == 2
+    assert diff.GRAPH_COUNTS["replays"] - before["replays"] == 3 + 3
+    monkeypatch.setattr(diff, "_graph_passes", lambda nj, nh: False)
+    want = f(vals, T1=T1, T2=70.0) + g(vals, T1=T1, T2=70.0)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())

@@ -1,5 +1,6 @@
-"""epgpy_torch imports without JAX and exposes the slice's public names,
-with the JAX package's argument order."""
+"""epgpy_torch imports without JAX and exposes the slice's public names
+(the sequence DSL, the shaped pulses and the reference's flat aliases
+included), with the JAX package's argument order."""
 
 import os
 import subprocess
@@ -16,7 +17,30 @@ PUBLIC = ["config", "StateMatrix", "Operator", "EmptyOperator",
           "Hessian", "PartialsPruner", "simulate",
           "simulate_simple", "modify", "flatten_sequence", "getshape",
           "getnshift", "get_adc_times", "bssfp_sequence", "dess_sequence",
-          "spgr_sequence", "G", "C", "DFT", "Imaging", "imaging", "dft"]
+          "spgr_sequence", "G", "C", "DFT", "Imaging", "imaging", "dft",
+          "Sequence", "Variable", "Constant", "Expression", "repeat",
+          "sequence", "RFPulse", "load_pulse", "operator", "opscalar",
+          "opmatrix", "transition", "evolution", "shift", "diffusion",
+          "exchange", "probe", "rfpulse", "statematrix", "common",
+          "functions", "operators", "core", "set_array_module",
+          "get_array_module"]
+#: the reference's flat aliases: package attribute -> the module it names
+ALIASES = {"operator": "epgpy_torch.ops.base",
+           "opscalar": "epgpy_torch.ops.scalarop",
+           "opmatrix": "epgpy_torch.ops.matrixop",
+           "transition": "epgpy_torch.ops.transition",
+           "evolution": "epgpy_torch.ops.evolution",
+           "shift": "epgpy_torch.ops.shift",
+           "diffusion": "epgpy_torch.ops.diffusion",
+           "exchange": "epgpy_torch.ops.exchange",
+           "probe": "epgpy_torch.ops.probe",
+           "rfpulse": "epgpy_torch.ops.rfpulse",
+           "statematrix": "epgpy_torch.statematrix",
+           "common": "epgpy_torch.common",
+           "functions": "epgpy_torch.engine",
+           "operators": "epgpy_torch.ops",
+           "core": "epgpy_torch.epg",
+           "sequence": "epgpy_torch.sequence"}
 MODULES = {
     "epgpy_torch.models.cuda_fisp": ["fisp_dictionary_cuda",
                                      "fisp_dictionary_plain", "kernel_fits",
@@ -159,6 +183,24 @@ MODULES = {
                             "from_numpy_states"],
     "epgpy_torch.config": ["set_precision", "real_dtype", "complex_dtype",
                            "set_device", "device"],
+    "epgpy_torch.common": ["shape_with_axes", "set_axes"],
+    "epgpy_torch.sequence": ["Sequence", "Variable", "Constant",
+                             "Expression", "VirtualOperator", "repeat",
+                             "operators", "functions", "math", "T", "E",
+                             "P", "R", "Phi", "STR_OPERATORS"],
+    "epgpy_torch.ops.rfpulse": ["RFPulse", "make_pulse_sequence",
+                                "estimate_rf", "estimate_alpha",
+                                "encode_phase"],
+    "epgpy_torch.utils.pulseio": ["load_pulse", "read_pulse", "load_pta",
+                                  "resample_pulse", "PTA_PULSE_KEYS"],
+    "epgpy_torch.models.slice_profile": ["slice_profile_scales",
+                                         "fisp_mrf_dictionary_sliced"],
+    "epgpy_torch.models": ["slice_profile_scales",
+                           "fisp_mrf_dictionary_sliced"],
+    "epgpy_torch.epg": ["Sequence", "Variable", "Constant", "Expression",
+                        "repeat", "operators", "functions", "RFPulse",
+                        "load_pulse", "rfpulse", "opscalar",
+                        "set_array_module", "get_array_module"],
 }
 
 
@@ -183,6 +225,23 @@ def test_public_names():
         m = importlib.import_module(mod)
         missing += [f"{mod}.{n}" for n in names if not hasattr(m, n)]
     assert not missing, missing
+
+
+def test_flat_aliases_name_their_modules():
+    """The reference's submodule aliases (epgpy_tpu/__init__.py:50-98) name
+    the port's modules; the array-module shims return torch."""
+    import importlib
+
+    import torch
+
+    import epgpy_torch
+
+    for name, mod in ALIASES.items():
+        assert getattr(epgpy_torch, name) is importlib.import_module(mod), \
+            name
+    assert epgpy_torch.set_array_module("numpy") is torch
+    assert epgpy_torch.get_array_module() is torch
+    assert epgpy_torch.epg.operators is epgpy_torch.sequence.operators
 
 
 def test_default_device_is_cuda():
@@ -285,9 +344,39 @@ SAME_ARGS = {
     "epgpy_torch.utils.imaging:dft": "epgpy_tpu.utils.imaging:dft",
     "epgpy_torch.statematrix:StateMatrix":
         "epgpy_tpu.statematrix:StateMatrix",
+    "epgpy_torch.ops.transition:T": "epgpy_tpu.ops.transition:T",
+    "epgpy_torch.ops.transition:Phi": "epgpy_tpu.ops.transition:Phi",
+    "epgpy_torch.ops.evolution:E": "epgpy_tpu.ops.evolution:E",
+    "epgpy_torch.ops.evolution:P": "epgpy_tpu.ops.evolution:P",
+    "epgpy_torch.ops.evolution:R": "epgpy_tpu.ops.evolution:R",
+    "epgpy_torch.ops.scalarop:ScalarOp": "epgpy_tpu.ops.scalarop:ScalarOp",
+    "epgpy_torch.ops.matrixop:MatrixOp": "epgpy_tpu.ops.matrixop:MatrixOp",
+    "epgpy_torch.common:shape_with_axes": "epgpy_tpu.common:shape_with_axes",
+    "epgpy_torch.common:set_axes": "epgpy_tpu.common:set_axes",
+    "epgpy_torch.ops.rfpulse:RFPulse": "epgpy_tpu.ops.rfpulse:RFPulse",
+    "epgpy_torch.ops.rfpulse:make_pulse_sequence":
+        "epgpy_tpu.ops.rfpulse:make_pulse_sequence",
+    "epgpy_torch.ops.rfpulse:estimate_rf": "epgpy_tpu.ops.rfpulse:estimate_rf",
+    "epgpy_torch.ops.rfpulse:estimate_alpha":
+        "epgpy_tpu.ops.rfpulse:estimate_alpha",
+    "epgpy_torch.ops.rfpulse:encode_phase":
+        "epgpy_tpu.ops.rfpulse:encode_phase",
+    "epgpy_torch.utils.pulseio:load_pulse": "epgpy_tpu.utils.pulseio:load_pulse",
+    "epgpy_torch.utils.pulseio:read_pulse": "epgpy_tpu.utils.pulseio:read_pulse",
+    "epgpy_torch.utils.pulseio:load_pta": "epgpy_tpu.utils.pulseio:load_pta",
+    "epgpy_torch.utils.pulseio:resample_pulse":
+        "epgpy_tpu.utils.pulseio:resample_pulse",
+    "epgpy_torch.models.slice_profile:slice_profile_scales":
+        "epgpy_tpu.models.slice_profile:slice_profile_scales",
+    "epgpy_torch.models.slice_profile:fisp_mrf_dictionary_sliced":
+        "epgpy_tpu.models.slice_profile:fisp_mrf_dictionary_sliced",
+    "epgpy_torch.sequence:Sequence": "epgpy_tpu.sequence:Sequence",
+    "epgpy_torch.sequence:repeat": "epgpy_tpu.sequence:repeat",
+    "epgpy_torch.sequence:VirtualOperator":
+        "epgpy_tpu.sequence:VirtualOperator",
 }
 #: TPU-only knobs the port does not take
-TPU_ONLY = {"interpret", "btile", "pchunk"}
+TPU_ONLY = {"interpret", "btile", "pchunk", "sharding"}
 
 
 @pytest.mark.parametrize("port", sorted(SAME_ARGS))
