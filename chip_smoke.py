@@ -188,13 +188,28 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    path (the route JAX takes: no family, no launch) against the direct
    tracked train's Jacobian kernel; an ``axes=`` train that no family
    takes, equal to its explicitly broadcast form (max 0); the flagship
-   DSL Hessian (examples/profiling_differentiation_mrf_seq.py: 400 TRs,
-   chunk 100) against its direct-operator form on that form's own route;
+   DSL Hessian (examples/profiling_differentiation_mrf_seq.py: 400 TRs
+   published, cut to DSL_HESS_N; chunk 100) against its direct-operator
+   form on that form's own route;
 8. slice-profile dictionaries (phase_slice_profile): the profile of
    examples/slice_profile_mrf.py's pulse, fisp_mrf_dictionary_sliced at
    102,400 atoms x 1000 pulses through fisp_half against the explicit
    (atoms x z) batch, the plain twin and float64, and the example's
    shaped-pulse oracle (planned, one CUDA graph) with its three asserts;
+9. myelin-water mapping (phase_mwf): examples/mwf_mapping.py's scenario at
+   its widths (32 echoes, 48 T2 bins x 6 B1 candidates, 3000 FISTA
+   iterations) over 262,144 voxels: the EPG-NNLS basis through simulate()
+   on the CPMG kernel against its plain twin, the example's MWF assert per
+   tissue, float32 against float64 on the card (4,096 voxels);
+10. dictionary-free serving (phase_streamed_serving):
+   tools/million_atom_serving.py's scenario at its defaults (2^20 atoms x
+   500 pulses, rank 32 over 16 blocks of 65,536 atoms generated by
+   fisp_mrf_dictionary on fisp_half, 4,096 voxels), 33 fisp_half
+   launches, the streamed and the materialized rank-32 bases matched in
+   float64 (the same maps) and one block against the plain full-ladder
+   program;
+11. a trace (phase_trace): utils.profiling.trace around simulate() of the
+   headline train writes a Chrome trace holding fisp_half's CUDA event;
 6. numbers for every kernel at its main-path shape: kernel and twin times,
    launches on the main paths, and the bound (the twin's operations,
    counted by ``count_ops`` -- for the CPMG family over only the ladder
@@ -7378,8 +7393,12 @@ def phase_table(torch, epg, card):
 #: inside this script: milliseconds of host work per op under vmap(jvp))
 DSL_JAC_N = 200
 #: the flagship DSL Hessian (examples/profiling_differentiation_mrf_seq.py):
-#: TRs, jacobian_chunk, T1 and T2
-DSL_HESS_N, DSL_HESS_CHUNK, DSL_HESS_T1, DSL_HESS_T2 = 400, 100, 1380.0, 80.0
+#: TRs, jacobian_chunk, T1 and T2; the published train has
+#: DSL_HESS_PUBLISHED TRs, cut (with its direct fisp_hess form) to keep the
+#: script's time: the general diff path is host-bound (29.5-49.3 s at 400
+#: TRs: ~8 ms of host work per op and pass)
+DSL_HESS_N, DSL_HESS_CHUNK, DSL_HESS_T1, DSL_HESS_T2 = 200, 100, 1380.0, 80.0
+DSL_HESS_PUBLISHED = 400
 #: DSL Hessian (general diff path) vs the direct-operator form (its own
 #: route), both float32, per block relative to the block's largest value
 TOL_DSL_HESS = 1e-4
@@ -7613,6 +7632,10 @@ def phase_sequence(torch, epg, card):
     del pinned, explicit
 
     # the flagship DSL Hessian against its direct-operator form
+    if DSL_HESS_N < DSL_HESS_PUBLISHED:
+        print(f"[dsl] the flagship DSL Hessian and its direct form are cut "
+              f"to {DSL_HESS_N} of {DSL_HESS_PUBLISHED} TRs (general diff "
+              f"path, host-bound; script time)")
     hseq, hvals, hvars, hdirect, hprobes = dsl_hessian_trains(epg, dsl)
     hopts = dict(max_nstate=NSTATE, jacobian_chunk=DSL_HESS_CHUNK)
     _zero_all_counts()
@@ -7657,6 +7680,15 @@ def phase_sequence(torch, epg, card):
     return out
 
 
+def _full_ladder_args(torch, FA, TR, TE, phi=90.0):
+    """The per-pulse arguments (FA, phi, TR, TE) of
+    ``cuda_fisp.fisp_full_ladder_plain`` as float32 tensors on the card: the
+    plain full-ladder program, called by name as the independent oracle of
+    the dictionary kernels."""
+    return tuple(torch.as_tensor(np.asarray(x, np.float32), device=DEVICE)
+                 for x in (FA, phi, TR, TE))
+
+
 def _contract_z(re, im, weights, natoms):
     """(B, P) of (P, B nz) echoes contracted over z with `weights`."""
     nz = weights.shape[0]
@@ -7697,15 +7729,14 @@ def _best_match(signals, D):
 def phase_slice_profile(torch, epg, card):
     """Slice-profile-corrected MRF dictionaries on the card: the example's
     profile (slice_profile_scales); fisp_mrf_dictionary_sliced at 102,400
-    atoms x 1000 pulses through fisp_half, held to fisp_mrf_dictionary of
-    the explicit (atoms x z) batch (4,096 atoms), to the plain twin (256
-    atoms, TOL_KERNEL) and to float64 (8 atoms, TOL_PROBE); then the
+    atoms x 1000 pulses through fisp_half, held to the plain full-ladder
+    program of the explicit (atoms x z) batch (4,096 atoms), to the plain
+    twin (256 atoms, TOL_KERNEL) and to float64 (8 atoms, TOL_PROBE); then the
     example's shaped-pulse oracle at its defaults through the planner's
     CUDA graph, with its three asserts.  Raises on any miss; returns the
     numbers."""
     from epgpy_torch import engine
-    from epgpy_torch.models import (cuda_fisp, fisp_mrf_dictionary,
-                                    fisp_mrf_dictionary_sliced,
+    from epgpy_torch.models import (cuda_fisp, fisp_mrf_dictionary_sliced,
                                     slice_profile_scales)
     from epgpy_torch.ops import rfpulse
 
@@ -7746,7 +7777,9 @@ def phase_slice_profile(torch, epg, card):
         return (t[0].repeat_interleave(nz), t[1].repeat_interleave(nz),
                 (t[2][:, None] * s[None, :]).reshape(-1))
 
-    ex = fisp_mrf_dictionary(FA, TR, TE, *batch(SP_EXPLICIT), nstate=NSTATE)
+    ex = cuda_fisp.fisp_full_ladder_plain(
+        *_full_ladder_args(torch, FA, TR, TE), *batch(SP_EXPLICIT),
+        nstate=NSTATE)
     ere, eim = _contract_z(ex[0].T, ex[1].T, w, SP_EXPLICIT)
     err_ex = max(float((re[:SP_EXPLICIT] - ere).abs().max()),
                  float((im[:SP_EXPLICIT] - eim).abs().max()))
@@ -7764,7 +7797,7 @@ def phase_slice_profile(torch, epg, card):
         epg.config.set_precision("float32")
     err64 = max(float((re[:SP_F64].double() - r64).abs().max()),
                 float((im[:SP_F64].double() - i64).abs().max()))
-    print(f"[slice] max|sliced - fisp_mrf_dictionary of the explicit "
+    print(f"[slice] max|sliced - full-ladder program of the explicit "
           f"(atoms x z) batch, contracted| ({SP_EXPLICIT} atoms) = "
           f"{err_ex:.3e} (limit {TOL_KERNEL}); - plain twin ({SP_TWIN} "
           f"atoms) = {err_twin:.3e} (limit {TOL_KERNEL}); - float64 on the "
@@ -7782,8 +7815,11 @@ def phase_slice_profile(torch, epg, card):
     T1g, T2g = np.meshgrid(np.linspace(500, 1600, SP_NT1),
                            np.linspace(40, 160, SP_NT2), indexing="ij")
     T1g, T2g = T1g.ravel(), T2g.ravel()
-    ideal = fisp_mrf_dictionary(FAx, SP_TR, SP_TE, T1g, T2g, phi=0.0,
-                                nstate=NSTATE)
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),  # noqa: E731
+                                    device="cuda")
+    ideal = cuda_fisp.fisp_full_ladder_plain(
+        *_full_ladder_args(torch, FAx, SP_TR, SP_TE, phi=0.0), f32(T1g),
+        f32(T2g), f32(np.ones_like(T1g)), nstate=NSTATE)
     _zero_all_counts()
     corrected = fisp_mrf_dictionary_sliced(
         FAx, SP_TR, SP_TE, T1g, T2g, scales=scales, weights=weights,
@@ -7830,6 +7866,423 @@ def phase_slice_profile(torch, epg, card):
                 err_ex=err_ex, err_twin=err_twin, err64=err64,
                 oracle_s=oracle_s, oracle_ops=nops, exact=exact_c,
                 launches={"fisp_half": 1 + ex_launches})
+
+
+# -- EPG-NNLS myelin-water mapping and dictionary-free serving --
+
+#: examples/mwf_mapping.py at its widths: echoes, spacing (ms), T2 bins
+#: (geometric), B1 candidates, T1 (ms), FISTA iterations, noise, seed, the
+#: four tissues (name, MWF, IE-water T2, true B1) and the assert on each
+#: tissue's mean MWF; voxels 262,144 (65,536 per tissue: a masked
+#: whole-brain volume is ~2^20, cut to keep the script's time)
+MWF_NECHO, MWF_ESP, MWF_NBINS, MWF_NB1 = 32, 10.0, 48, 6
+MWF_T2RANGE, MWF_B1RANGE, MWF_T1 = (15.0, 2000.0), (0.75, 1.0), 1000.0
+MWF_ITERS, MWF_SIGMA, MWF_SEED, MWF_NVOX = 3000, 2e-3, 7, 262144
+MWF_TISSUES = (("genu CC", 0.28, 72.0, 0.92),
+               ("frontal WM", 0.15, 78.0, 0.88),
+               ("cortical GM", 0.03, 95.0, 0.97),
+               ("CSF-partial", 0.00, 500.0, 1.00))
+TOL_MWF = 0.06
+#: float32 against float64 on the card over MWF_F64_VOX voxels (the first
+#: quarter of them from each tissue): the share of equal B1 indices, and
+#: max |dMWF| over the voxels whose B1 index agrees.  Set between the
+#: float32 fit's reading (H100: 99.88%, 1.213e-3; CPU: 99.95%, 1.185e-3)
+#: and the control's, the fit on inputs rounded to TF32's 10-bit mantissa
+#: (CPU: 99.12%, 2.846e-3), which must miss them
+MWF_F64_VOX, MWF_B1_AGREE, TOL_MWF_F64 = 4096, 0.995, 2e-3
+#: tools/million_atom_serving.py at its defaults: atoms, pulses, voxels,
+#: rank, blocks, the match's atom chunk; the share of voxels whose served
+#: maps equal the materialized dictionary's rank-32 match
+SRV_ATOMS, SRV_PULSES, SRV_VOX, SRV_RANK = 1 << 20, 500, 4096, 32
+SRV_BLOCKS, SRV_CHUNK, SRV_MAPS_AGREE = 16, 1 << 17, 0.999
+#: one block of the streamed build against the plain full-ladder program
+TOL_SRV_BLOCK = 1e-6
+#: the stored compressed atoms against a complex128 projection of their
+#: block (float32 storage rounds by <= 6e-8; a complex64 projection is off
+#: by ~1e-6), and the stored norms' relative error
+TOL_SRV_CDICT, TOL_SRV_NORM = 2.5e-7, 2.5e-7
+
+
+def mwf_signals(t2_basis, nvox):
+    """examples/mwf_mapping.py's voxels: per tissue, the two-pool decay from
+    its own basis columns (myelin water at 20 ms) at the true B1 -- off the
+    B1 grid -- plus noise, nvox / 4 voxels each (the example's stream:
+    one standard_normal(necho) per voxel, in order).  Returns (signals
+    (nvox, necho) float64, per-voxel true MWF)."""
+    rng = np.random.default_rng(MWF_SEED)
+    nrep = nvox // len(MWF_TISSUES)
+    signals, truth = [], []
+    for _, mwf, t2_ie, b1 in MWF_TISSUES:
+        bmy = t2_basis(MWF_NECHO, MWF_ESP, [20.0, t2_ie], b1,
+                       T1=MWF_T1)[0].astype(np.float64)
+        decay = mwf * bmy[:, 0] + (1 - mwf) * bmy[:, 1]
+        signals.append(decay + MWF_SIGMA * rng.standard_normal(
+            (nrep, MWF_NECHO)))
+        truth.append(np.full(nrep, mwf))
+    return np.concatenate(signals), np.concatenate(truth)
+
+
+def fista_bytes(nb1, nvox, nbins, itemsize=4):
+    """Bytes one iteration of parallel.t2spectrum's FISTA loop moves: 11
+    passes over an (NB1, V, n) plane (the gradient's baddbmm reads z and
+    -Aty and writes it; addcmul reads z and the gradient and writes x_new;
+    the in-place clamp reads and writes it; lerp reads x and x_new and
+    writes z), and the 5 passes a fused iteration needs (read z, x, Aty;
+    write x, z)."""
+    plane = nb1 * nvox * nbins * itemsize
+    return 11 * plane, 5 * plane
+
+
+def phase_mwf(torch, epg, card):
+    """EPG-NNLS myelin-water mapping (examples/mwf_mapping.py) through the
+    port at the example's widths over MWF_NVOX voxels: the basis through
+    t2_basis -> mse_signal -> simulate() on the CPMG kernel (one dispatch,
+    one launch, within TOL_KERNEL of the kernel's plain twin on the
+    matched train); t2_spectrum_map's batched FISTA, first and second call;
+    the example's assert on each tissue's mean MWF; float32 against float64
+    on the card over MWF_F64_VOX voxels.  Raises on any miss; returns the
+    numbers."""
+    from epgpy_torch import engine, fisp_dispatch
+    from epgpy_torch.models import cuda_mse
+    from epgpy_torch.models.mse import cpmg_sequence
+    from epgpy_torch.parallel import t2_basis, t2_spectrum_map
+
+    tag = f"({card})"
+    t2grid = np.geomspace(*MWF_T2RANGE, MWF_NBINS)
+    b1grid = np.linspace(*MWF_B1RANGE, MWF_NB1)
+    _zero_all_counts()
+    basis, basis_s = _first_call(torch, lambda: t2_basis(
+        MWF_NECHO, MWF_ESP, t2grid, b1grid, T1=MWF_T1))
+    counts = _nonzero_counts()
+    _expect("mwf basis", counts, {"mse.LAUNCHES": 1,
+                                  "dispatch": {"mse": 1}})
+    launches = cuda_mse.LAUNCHES
+    # the plain twin on the matched train's tensors
+    seq = cpmg_sequence(MWF_NECHO, esp=MWF_ESP, T1=MWF_T1,
+                        T2=t2grid[:, None], B1=b1grid[None, :],
+                        exc=(90.0, 90.0), ref=(180.0, 0.0))
+    params = fisp_dispatch.match_mse(seq)
+    ncap = engine._sequence_preamble(engine.flatten_sequence(seq), None,
+                                     1.0, None, 1.0)[2]
+    pre, pim = cuda_mse.cpmg_echoes_plain(*fisp_dispatch._mse_args(params),
+                                          nstate=max(int(ncap), 1))
+    twin = torch.sqrt(pre * pre + pim * pim).reshape(
+        MWF_NECHO, MWF_NBINS, MWF_NB1).permute(2, 0, 1).cpu().numpy()
+    basis_err = float(np.abs(basis - twin).max())
+    print(f"[mwf] basis {MWF_NECHO} echoes x {MWF_NBINS} T2 bins x "
+          f"{MWF_NB1} B1 = {MWF_NBINS * MWF_NB1} atoms through simulate() "
+          f"on cpmg.cu: {basis_s:.3f} s (first call); max|basis - plain "
+          f"twin| = {basis_err:.3e} (limit {TOL_KERNEL}) {tag}")
+    if basis.shape != (MWF_NB1, MWF_NECHO, MWF_NBINS) or not (
+            basis_err <= TOL_KERNEL):
+        raise AssertionError(f"[mwf] basis {basis.shape}, {basis_err:.3e}")
+
+    _zero_all_counts()
+    signals, truth = mwf_signals(t2_basis, MWF_NVOX)
+    launches += cuda_mse.LAUNCHES
+    reg = 1e-5 * float(np.mean(np.sum(basis.astype(np.float64) ** 2,
+                                      axis=1)))
+    kw = dict(b1grid=b1grid, mwf_cutoff=40.0, reg=reg, iters=MWF_ITERS)
+    sig32 = torch.as_tensor(signals, dtype=torch.float32, device=DEVICE)
+    b32 = torch.as_tensor(basis, dtype=torch.float32, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    out, fit1_s = _first_call(torch, lambda: t2_spectrum_map(
+        sig32, b32, t2grid, **kw))
+    peak = torch.cuda.max_memory_allocated()
+    out, fit2_s = _first_call(torch, lambda: t2_spectrum_map(
+        sig32, b32, t2grid, **kw))
+    loop_b, fused_b = fista_bytes(MWF_NB1, MWF_NVOX, MWF_NBINS)
+    print(f"[mwf] t2_spectrum_map, {MWF_NVOX} voxels x {MWF_NB1} B1 x "
+          f"{MWF_NBINS} bins, {MWF_ITERS} FISTA iterations: first call "
+          f"{fit1_s:.3f} s, second {fit2_s:.3f} s = "
+          f"{fit2_s / MWF_ITERS * 1e3:.3f} ms per iteration; peak device "
+          f"memory {peak / 1e9:.2f} GB; bytes per iteration "
+          f"{loop_b / 1e9:.3f} GB (11 plane passes) -> byte bound "
+          f"{loop_b / PEAK_HBM * 1e3:.3f} ms, "
+          f"{loop_b / PEAK_HBM * MWF_ITERS:.3f} s per fit; a fused "
+          f"iteration's 5 passes "
+          f"{fused_b / PEAK_HBM * 1e3:.3f} ms, "
+          f"{fused_b / PEAK_HBM * MWF_ITERS / fit2_s:.1%} of the second "
+          f"call {tag}")
+    nrep = MWF_NVOX // len(MWF_TISSUES)
+    means = []
+    for i, (name, mwf, _, b1) in enumerate(MWF_TISSUES):
+        sl = slice(i * nrep, (i + 1) * nrep)
+        est, estb = out["mwf"][sl], out["b1"][sl]
+        means.append(float(est.mean()))
+        print(f"[mwf] {name:<12} true MWF {mwf:.3f}, est {est.mean():.4f} "
+              f"+- {est.std():.4f}; true B1 {b1:.2f}, est "
+              f"{estb.mean():.4f}; gm T2 {out['gm_t2'][sl].mean():.2f} ms")
+        if not abs(est.mean() - mwf) < TOL_MWF:
+            raise AssertionError(f"[mwf] {name}: mean MWF {est.mean():.4f} "
+                                 f"vs {mwf} (limit {TOL_MWF})")
+    if not (np.isfinite(out["spectrum"]).all() and np.isfinite(
+            out["mwf"]).all() and out["spectrum"].shape == (MWF_NVOX,
+                                                             MWF_NBINS)):
+        raise AssertionError("[mwf] non-finite or misshapen maps")
+
+    # float32 against float64 on the card
+    q = MWF_F64_VOX // len(MWF_TISSUES)
+    pick = np.concatenate([np.arange(q) + i * nrep
+                           for i in range(len(MWF_TISSUES))])
+    epg.config.set_precision("float64")
+    try:
+        _zero_all_counts()
+        basis64 = t2_basis(MWF_NECHO, MWF_ESP, t2grid, b1grid, T1=MWF_T1)
+        _expect("mwf float64 basis", _nonzero_counts(), {})
+        reg64 = 1e-5 * float(np.mean(np.sum(basis64 ** 2, axis=1)))
+        out64 = t2_spectrum_map(signals[pick], basis64, t2grid,
+                                **dict(kw, reg=reg64))
+    finally:
+        epg.config.set_precision("float32")
+    # the control: the float32 fit of the same voxels on inputs rounded to
+    # TF32's 10-bit mantissa, which the limits must reject
+    rows = torch.as_tensor(pick, device=DEVICE)
+    ctl = t2_spectrum_map(sig32[rows].half().float(), b32.half().float(),
+                          t2grid, **kw)
+
+    def versus64(fit):
+        agree = fit["b1_index"] == out64["b1_index"]
+        dmwf = np.abs(fit["mwf"] - out64["mwf"])
+        return (float(agree.mean()), float(dmwf[agree].max())
+                if agree.any() else math.inf, float(dmwf.max()))
+
+    share, dmwf_agree, dmwf_all = versus64(
+        {k: out[k][pick] for k in ("b1_index", "mwf")})
+    c_share, c_dmwf, _ = versus64(ctl)
+    print(f"[mwf] float32 vs float64 on the card, {MWF_F64_VOX} voxels "
+          f"({q} per tissue): B1 index equal for {share:.2%} (limit >= "
+          f"{MWF_B1_AGREE:.1%}); max|dMWF| {dmwf_agree:.3e} where it is "
+          f"equal (limit {TOL_MWF_F64}), {dmwf_all:.3e} over all; control "
+          f"(inputs at a 10-bit mantissa): {c_share:.2%}, {c_dmwf:.3e}; "
+          f"basis max|f32 - f64| {float(np.abs(basis - basis64).max()):.3e}"
+          f" {tag}")
+    if not (share >= MWF_B1_AGREE and dmwf_agree <= TOL_MWF_F64):
+        raise AssertionError(f"[mwf] float32 vs float64: {share:.4f}, "
+                             f"{dmwf_agree:.3e}")
+    if c_share >= MWF_B1_AGREE and c_dmwf <= TOL_MWF_F64:
+        raise AssertionError(f"[mwf] the limits pass the control: "
+                             f"{c_share:.4f}, {c_dmwf:.3e}")
+    return dict(basis_s=basis_s, basis_err=basis_err, fit1_s=fit1_s,
+                fit2_s=fit2_s, peak=peak, means=means, b1_agree=share,
+                dmwf=dmwf_agree, c_b1_agree=c_share, c_dmwf=c_dmwf,
+                launches=launches)
+
+
+def serving_grid():
+    """tools/million_atom_serving.py's (T1, T2, B1) grid: 128 x 64 x 128 =
+    2^20 atoms, T2 clamped to 0.8 T1."""
+    n2 = max(int(round((SRV_ATOMS / 4) ** (1 / 3))), 2)
+    n1 = n3 = 2 * n2
+    grid = np.stack(np.meshgrid(np.geomspace(150, 3500, n1),
+                                np.geomspace(15, 400, n2),
+                                np.linspace(0.75, 1.25, n3), indexing="ij"),
+                    -1).reshape(-1, 3)
+    grid[:, 1] = np.minimum(grid[:, 1], 0.8 * grid[:, 0])
+    return grid
+
+
+def phase_streamed_serving(torch, epg, card):
+    """Dictionary-free serving of a 2^20-atom MRF dictionary
+    (tools/million_atom_serving.py at its defaults) through the port:
+    streamed_compress_dictionary over 16 blocks generated by
+    fisp_mrf_dictionary (fisp_half), 4,096 voxels drawn from block 0,
+    served by mrf_reconstruct(dict_re=None, compression=...,
+    atom_chunk=2^17) cold and warm; 33 fisp_half launches; the served maps
+    equal to the materialized dictionary's rank-32 match for >= 99.9% of
+    voxels; block 0's stored atoms and norms against a complex128
+    projection; block 0 against the plain full-ladder program.  Raises on
+    any miss; returns the numbers."""
+    from epgpy_torch.models import cuda_fisp, fisp_mrf_dictionary
+    from epgpy_torch.parallel import (dictionary_match, full_precision,
+                                      mrf_reconstruct, project_signals,
+                                      streamed_compress_dictionary)
+
+    tag = f"({card})"
+    rng = np.random.default_rng(42)
+    FA = (10 + 50 * np.abs(np.sin(np.arange(SRV_PULSES) * 2 * np.pi / 500))
+          + rng.uniform(0, 2, SRV_PULSES)).astype(np.float32)
+    grid = serving_grid()
+    chunks = np.array_split(np.arange(len(grid)), SRV_BLOCKS)
+
+    def generate(i):
+        g = grid[chunks[i]].astype(np.float32)
+        return fisp_mrf_dictionary(FA, 12.0, 5.0, g[:, 0], g[:, 1], g[:, 2],
+                                   nstate=NSTATE)
+
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    comp = streamed_compress_dictionary(generate, SRV_BLOCKS, SRV_RANK)
+    _ = float(comp["cdict_re"][0, 0])
+    build_s = time.perf_counter() - t0
+
+    # observations: on-grid atoms of block 0 (generated again), random
+    # complex PD, light noise -- the tool's stream
+    d0re, d0im = (x.cpu().numpy() for x in generate(0))
+    counts = _nonzero_counts()
+    _expect("streamed serving", counts, {"fisp.LAUNCHES": 2 * SRV_BLOCKS
+                                         + 1})
+    launches = counts["fisp.LAUNCHES"]
+    pick_local = rng.integers(0, len(d0re), SRV_VOX)
+    pick = chunks[0][pick_local]
+    pd = (rng.uniform(0.5, 2.0, SRV_VOX)
+          * np.exp(2j * np.pi * rng.random(SRV_VOX))).astype(np.complex64)
+    sig = pd[:, None] * (d0re[pick_local] + 1j * d0im[pick_local])
+    sig += 1e-4 * (rng.standard_normal(sig.shape)
+                   + 1j * rng.standard_normal(sig.shape)).astype(np.complex64)
+    sre = np.ascontiguousarray(sig.real, np.float32)
+    sim = np.ascontiguousarray(sig.imag, np.float32)
+    del d0re, d0im
+
+    def serve():
+        out = mrf_reconstruct(sre, sim, None, None, grid, compression=comp,
+                              atom_chunk=SRV_CHUNK)
+        return out, out["index"].cpu().numpy()
+
+    t0 = time.perf_counter()
+    serve()
+    serve_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, idx = serve()
+    serve_s = time.perf_counter() - t0
+    pd_hat = (out["pd_re"].cpu().numpy()
+              + 1j * out["pd_im"].cpu().numpy())
+    want = grid[pick].astype(np.float32)
+    got = out["maps"].cpu().numpy().astype(np.float32)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-9)
+    result = {
+        "atoms": len(grid), "pulses": SRV_PULSES, "rank": SRV_RANK,
+        "voxels": SRV_VOX, "build_seconds": build_s,
+        "serve_seconds_cold": serve_cold, "serve_seconds": serve_s,
+        "voxels_per_sec": SRV_VOX / serve_s,
+        "energy": float(comp["energy"]),
+        "index_exact_frac": float(np.mean(idx == pick)),
+        "maps_exact_frac": float(np.mean(rel.max(axis=1) < 1e-5)),
+        "pd_median_rel_err": float(np.median(np.abs(pd_hat - pd)
+                                             / np.abs(pd))),
+        "compressed_bytes": int(comp["cdict_re"].numel() * 4 * 2
+                                + comp["norms"].numel() * 4)}
+    print(f"[serving] {json.dumps(result)}")
+
+    # block 0 against the plain full-ladder program
+    g0 = torch.as_tensor(grid[chunks[0]].astype(np.float32), device=DEVICE)
+    kre, kim = generate(0)
+    pre, pim = cuda_fisp.fisp_full_ladder_plain(
+        *_full_ladder_args(torch, FA, 12.0, 5.0), g0[:, 0].contiguous(),
+        g0[:, 1].contiguous(), g0[:, 2].contiguous(), nstate=NSTATE)
+    block_err = max(float((kre - pre).abs().max()),
+                    float((kim - pim).abs().max()))
+    del kre, kim, pre, pim, g0
+
+    # the served artifact: block 0's stored atoms and norms against one
+    # complex128 projection of the block; a float32 projection (the
+    # control) misses the bound
+    kre, kim = generate(0)
+    d0 = torch.complex(kre.double(), kim.double())
+    del kre, kim
+    n0 = torch.linalg.vector_norm(d0, dim=1)
+    basis = torch.complex(*(torch.as_tensor(np.asarray(comp[k], np.float64),
+                                            device=DEVICE)
+                            for k in ("basis_re", "basis_im")))
+    c64 = (d0 / n0[:, None]) @ basis
+    lo = len(chunks[0])
+    cdict_err = float(torch.maximum(
+        (comp["cdict_re"][:lo].double() - c64.real).abs().max(),
+        (comp["cdict_im"][:lo].double() - c64.imag).abs().max()))
+    norm_err = float(((comp["norms"][:lo].double() - n0) / n0).abs().max())
+    with full_precision():
+        c32 = (d0 / n0[:, None]).to(torch.complex64) @ basis.to(
+            torch.complex64)
+    control_err = float((c32.to(torch.complex128) - c64).abs().max())
+    del d0, n0, c64, c32
+
+    # the materialized dictionary's rank-32 match (as served); the control:
+    # the stored atoms matched in float32
+    blocks = [generate(i) for i in range(SRV_BLOCKS)]
+    dre = torch.cat([b[0] for b in blocks])
+    dim = torch.cat([b[1] for b in blocks])
+    del blocks
+    t0 = time.perf_counter()
+    full = mrf_reconstruct(sre, sim, dre, dim, grid, rank=SRV_RANK,
+                           atom_chunk=SRV_CHUNK)
+    full_maps = full["maps"].cpu().numpy()
+    full_s = time.perf_counter() - t0
+    del dre, dim, full
+    served = out["maps"].cpu().numpy()
+    same = float(np.mean(np.all(full_maps == served, axis=1)))
+    cidx, _ = dictionary_match(comp["cdict_re"], comp["cdict_im"],
+                               *project_signals(comp["basis_re"],
+                                                comp["basis_im"], sre, sim),
+                               atom_chunk=SRV_CHUNK)
+    control = float(np.mean(np.all(grid[cidx.cpu().numpy()].astype(
+        np.float32) == full_maps, axis=1)))
+    print(f"[serving] {len(grid)} atoms x {SRV_PULSES} pulses, rank "
+          f"{SRV_RANK} over {SRV_BLOCKS} blocks: build {build_s:.3f} s, "
+          f"serve cold {serve_cold:.3f} s, warm {serve_s:.4f} s; fisp_half "
+          f"launches {launches} (limit {2 * SRV_BLOCKS + 1}); the "
+          f"materialized dictionary's rank-{SRV_RANK} match ({full_s:.3f} "
+          f"s) gives the served maps for {same:.4%} of voxels (limit >= "
+          f"{SRV_MAPS_AGREE:.1%}; control, the stored atoms matched in "
+          f"float32: {control:.4%}); served maps exact against the grid "
+          f"{result['maps_exact_frac']:.4%}; block 0's stored atoms "
+          f"{cdict_err:.3e} from a complex128 projection (limit "
+          f"{TOL_SRV_CDICT}; control, a complex64 projection: "
+          f"{control_err:.3e}), norms {norm_err:.3e} relative (limit "
+          f"{TOL_SRV_NORM}); block 0 max|kernel - full-ladder program| = "
+          f"{block_err:.3e} (limit {TOL_SRV_BLOCK}) {tag}")
+    if not (same >= SRV_MAPS_AGREE and cdict_err <= TOL_SRV_CDICT
+            and norm_err <= TOL_SRV_NORM and block_err <= TOL_SRV_BLOCK):
+        raise AssertionError(f"[serving] maps {same:.5f}, cdict "
+                             f"{cdict_err:.3e}, norms {norm_err:.3e}, block "
+                             f"{block_err:.3e}, {result}")
+    return dict(result, same=same, control=control, cdict_err=cdict_err,
+                control_err=control_err, norm_err=norm_err,
+                block_err=block_err, full_s=full_s, launches=launches)
+
+
+def phase_trace(torch, epg, card):
+    """utils.profiling.trace around a simulate() of the headline train
+    (102,400 atoms x 1000 pulses, on fisp_half): the Chrome trace it writes
+    (under build/trace/ of the checkout) must hold the fisp_half kernel's
+    CUDA event and the annotated region.  Raises on a miss; returns the
+    kernel launches and the trace's kernel time."""
+    import glob
+
+    from epgpy_torch.models import cuda_fisp
+    from epgpy_torch.utils import profiling
+
+    FA = make_train(NPULSE)
+    T1, T2, B1 = make_atoms(NATOMS)
+    seq = fisp_sequence(epg, FA, T1, T2, B1)
+    epg.simulate(seq, max_nstate=NSTATE, asarray=False)
+    torch.cuda.synchronize()
+    logdir = os.path.join(HERE, "build", "trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    before = cuda_fisp.LAUNCHES
+    with profiling.trace(logdir) as prof:
+        with profiling.annotate("chip_smoke.headline"):
+            epg.simulate(seq, max_nstate=NSTATE, asarray=False)
+    launches = cuda_fisp.LAUNCHES - before
+    files = glob.glob(os.path.join(logdir, "trace_*.json"))
+    events = []
+    for path in files:
+        with open(path) as fh:
+            events += json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    half = [e for e in kernels if "fisp_half" in e.get("name", "")]
+    region = any(e.get("name") == "chip_smoke.headline" for e in events)
+    half_ms = sum(float(e.get("dur", 0.0)) for e in half) / 1e3
+    device_ms = sum(_device_us(e) for e in prof.key_averages()) / 1e3
+    print(f"[trace] utils.profiling.trace of simulate() ({NATOMS} x {NPULSE}"
+          f"): {len(files)} trace file(s), {len(events)} events, "
+          f"{len(kernels)} CUDA kernel events ({len(half)} fisp_half, "
+          f"{half_ms:.3f} ms), region {'found' if region else 'missing'}, "
+          f"key_averages device time {device_ms:.3f} ms ({card})")
+    if len(files) != 1 or not half or not region or launches != 1:
+        raise AssertionError(f"[trace] files {files}, kernels "
+                             f"{len(kernels)}, fisp_half {len(half)}, "
+                             f"region {region}, launches {launches}")
+    return dict(launches=launches, half_ms=half_ms)
 
 
 def _memo_pair(torch, fn, reps=5):
@@ -7947,6 +8400,12 @@ def main():
     kfit = _timed(phase_kfit, torch, epg)
     seqp = _timed(phase_sequence, torch, epg, card)
     slicep = _timed(phase_slice_profile, torch, epg, card)
+    mwf = _timed(phase_mwf, torch, epg, card)
+    srv = _timed(phase_streamed_serving, torch, epg, card)
+    # the serving phase's 2^20-atom planes stay cached in the allocator;
+    # the phases after it time allocating work, so they start without them
+    torch.cuda.empty_cache()
+    traced = _timed(phase_trace, torch, epg, card)
     entry = _timed(phase_numbers, torch, epg, card, main_run)
     jac_entry = _timed(phase_jac_numbers, torch, epg, card, jac_run)
     hess_entry = _timed(phase_hess_numbers, torch, epg, card, hess_run)
@@ -8006,17 +8465,22 @@ def main():
             full_run["launches"])):
         entry_["launches"] = n
     # launches on the CPMG paths: the published and scaled trains (4d), the
-    # DW-TSE train (4f) and T2/B1 mapping (5d: truth and dictionary, one
-    # Jacobian per Gauss-Newton iteration); the Jacobian (4e)
-    mse_entry["launches"] += dw_run["launches"] + t2b1["launches"]["cpmg"]
+    # DW-TSE train (4f), T2/B1 mapping (5d: truth and dictionary, one
+    # Jacobian per Gauss-Newton iteration) and myelin-water mapping (9: the
+    # basis and the four tissues' truth bases); the Jacobian (4e)
+    mse_entry["launches"] += (dw_run["launches"] + t2b1["launches"]["cpmg"]
+                              + mwf["launches"])
     mse_jac_entry["launches"] += t2b1["launches"]["cpmg_jac"]
     # launches on the main paths: the dictionary (4), the Jacobian (4b),
     # serving (5b: truth fingerprints, one Jacobian per iteration), the
-    # DW-FISP train and its Jacobian (4m), the DSL signal (7) and the
-    # sliced dictionaries (8: the full-width one and the example's)
+    # DW-FISP train and its Jacobian (4m), the DSL signal (7), the sliced
+    # dictionaries (8: the full-width one and the example's) and the
+    # streamed serving build (10: two passes of 16 blocks and the
+    # observations' block) and the traced simulate() (11)
     entry["launches"] += (serve["launches"]["fisp_half"] + dwf["launches"]
                           + seqp["launches"]["fisp_half"]
-                          + slicep["launches"]["fisp_half"])
+                          + slicep["launches"]["fisp_half"]
+                          + srv["launches"] + traced["launches"])
     jac_entry["launches"] += (serve["launches"]["fisp_jac"]
                               + dwf["jac_launches"])
     print(f"[numbers] general path, {NATOMS} atoms x {NPULSE} TRs: planned "
@@ -8087,6 +8551,23 @@ def main():
           f"{slicep['memo_s']:.4f} s; shaped-pulse oracle "
           f"({slicep['oracle_ops']} ops) {slicep['oracle_s']:.3f} s, exact "
           f"{slicep['exact']:.0%} ({card})")
+    print(f"[numbers] myelin-water mapping, {MWF_NVOX} voxels x {MWF_NB1} "
+          f"B1 x {MWF_NBINS} bins: basis {mwf['basis_s']:.3f} s (cpmg.cu), "
+          f"fit first {mwf['fit1_s']:.3f} s, second {mwf['fit2_s']:.3f} s "
+          f"({MWF_ITERS} FISTA iterations); tissue MWF "
+          + ", ".join(f"{m:.4f}" for m in mwf["means"])
+          + f"; float32 vs float64 B1 equal {mwf['b1_agree']:.2%}, "
+          f"max|dMWF| {mwf['dmwf']:.3e} (control {mwf['c_b1_agree']:.2%}, "
+          f"{mwf['c_dmwf']:.3e}) ({card})")
+    print(f"[numbers] dictionary-free serving, {srv['atoms']} atoms x "
+          f"{SRV_PULSES} pulses, rank {SRV_RANK}: build "
+          f"{srv['build_seconds']:.3f} s, serve {SRV_VOX} voxels cold "
+          f"{srv['serve_seconds_cold']:.3f} s, warm "
+          f"{srv['serve_seconds']:.4f} s = {srv['voxels_per_sec']:.4g} "
+          f"voxels/s; maps exact {srv['maps_exact_frac']:.4f}; the "
+          f"materialized match's maps equal {srv['same']:.4%} (control "
+          f"{srv['control']:.4%}); stored atoms {srv['cdict_err']:.3e} from "
+          f"complex128 (control {srv['control_err']:.3e}) ({card})")
     kernels = ([entry, jac_entry, hess_entry, mse_entry, mse_jac_entry,
                 design_entry] + ssfp_entries + megre_entries + comp_entries
                + x_entries)

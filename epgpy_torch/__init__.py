@@ -35,7 +35,11 @@ refinement, CRLB designs of the MRF and TSE trains); the sequence DSL
 (``sequence``: ``Sequence``, ``Variable``, ``repeat``, derivatives by
 ``torch.func.jvp``), shaped RF pulses and pulse files (``RFPulse``,
 ``load_pulse``) and slice-profile-corrected MRF dictionaries
-(``models.slice_profile``).  ``epgpy_torch.epg`` (alias ``core``) is the
+(``models.slice_profile``); EPG-NNLS T2 spectra and myelin-water maps
+(``parallel.t2spectrum``), streamed dictionary compression for
+dictionary-free serving, the 1-D inverse Laplace transform (``ilt1d``),
+traces (``utils.profiling``) and EPG diagrams (``utils.plotting``).
+``epgpy_torch.epg`` (alias ``core``) is the
 flat scripting namespace; the reference's submodule aliases
 (``transition``, ``opscalar``, ``functions``, ...) are kept.
 """
@@ -66,6 +70,7 @@ from .utils import (
 )
 from .utils.helpers import cexp, progressbar
 from .utils.imaging import imaging
+from .utils.ilt1d import ilt1d
 
 # the reference's flat submodule aliases (``from epgpy import transition``),
 # mapped onto the ops package as in epgpy_tpu/__init__.py
@@ -119,7 +124,7 @@ __all__ = [
     "dess_sequence", "spgr_sequence", "gamma_1H", "gamma_23Na", "Axes",
     "get_norm", "get_wavenumber", "spatial_range", "space_to_freq",
     "freq_to_space", "saturation_rate", "absorption_rate", "dft", "imaging",
-    "cexp",
+    "ilt1d", "cexp",
     "progressbar", "NAX", "check_states", "epg", "RFPulse", "Sequence",
     "Variable", "Constant", "Expression", "repeat", "sequence",
     "load_pulse", "operator", "opscalar", "opmatrix", "transition",

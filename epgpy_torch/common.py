@@ -16,7 +16,8 @@ from . import config
 
 __all__ = ["get_shape", "expand_shapes", "broadcastable", "broadcast_shapes",
            "expand_arrays", "to_real", "memoize_on_ops", "shape_with_axes",
-           "set_axes"]
+           "set_axes", "expand_dims_after", "extend_operators", "repr_value",
+           "repr_operator", "asnumpy"]
 
 
 def get_shape(obj) -> tuple:
@@ -73,6 +74,61 @@ def expand_arrays(*objs):
         else:
             out.append(obj.reshape(tuple(shape) + (1,) * (ndim - len(shape))))
     return tuple(out)
+
+
+def expand_dims_after(arr, ndim: int):
+    """Append trailing singleton axes until `arr.ndim == ndim` (a host
+    value becomes a tensor on the working device and dtype)."""
+    if not isinstance(arr, torch.Tensor):
+        arr = torch.as_tensor(np.asarray(arr), device=config.device())
+    if arr.ndim >= ndim:
+        return arr
+    return arr.reshape(tuple(arr.shape) + (1,) * (ndim - arr.ndim))
+
+
+def extend_operators(core_ndim: int, *arrs):
+    """Align operator arrays' batch axes (left-aligned), keeping core axes:
+    each array's batch part is ``shape[:-core_ndim]``, and singleton axes
+    go between batch and core so all arrays share one rank (reference
+    epgpy/common.py:354-364)."""
+    ranks = [a.ndim - core_ndim for a in arrs if a is not None]
+    nbatch = max(ranks, default=0)
+    out = []
+    for arr in arrs:
+        if arr is None:
+            out.append(None)
+            continue
+        b = arr.ndim - core_ndim
+        shape = tuple(arr.shape)
+        out.append(arr.reshape(shape[:b] + (1,) * (nbatch - b) + shape[b:]))
+    return tuple(out)
+
+
+def repr_value(value, fmt="") -> str:
+    """A scalar formatted with `fmt`; an array as ``array(shape)``."""
+    shape = get_shape(value)
+    if not shape:
+        try:
+            return format(value.item() if hasattr(value, "item") else value,
+                          fmt)
+        except (TypeError, ValueError):
+            return str(value)
+    return "array" + str(tuple(shape))
+
+
+def repr_operator(name, argnames=(), argvalues=(), formats=()) -> str:
+    """``name(v1, v2, ...)`` of the values that are not None."""
+    formats = list(formats) + [""] * (len(argnames) - len(formats))
+    args = ", ".join(
+        repr_value(v, f) for v, f in zip(argvalues, formats) if v is not None)
+    return f"{name}({args})"
+
+
+def asnumpy(obj):
+    """Copy a tensor (on any device) or array to host numpy."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    return np.asarray(obj)
 
 
 def shape_with_axes(shape: tuple, axes) -> tuple:

@@ -22,7 +22,7 @@ import contextlib
 import torch
 
 __all__ = ["set_precision", "precision", "real_dtype", "complex_dtype",
-           "set_device", "device", "full_precision"]
+           "int_dtype", "set_device", "device", "full_precision"]
 
 _PRECISIONS = {
     "float32": (torch.float32, torch.complex64),
@@ -53,6 +53,12 @@ def real_dtype() -> torch.dtype:
 def complex_dtype() -> torch.dtype:
     """complex64 or complex128, following the working precision."""
     return _PRECISIONS[_state["precision"]][1]
+
+
+def int_dtype() -> torch.dtype:
+    """Integer dtype for k-state coordinates: int32 or int64, following the
+    working precision."""
+    return torch.int64 if _state["precision"] == "float64" else torch.int32
 
 
 def set_device(dev) -> None:

@@ -1107,27 +1107,18 @@ def _replay(entry, probes, sm):
                  else v.clone() for v in g.outputs)
 
 
-def _check_exchanges(sequence, sm):
-    """The host conservation check of every exchange op, against the
-    initial state (the planned program applies their precomputed mixing
-    matrices, which do not check)."""
-    from .ops.exchange import X, _check_conservation
-
-    for op in sequence:
-        if type(op) is X and isinstance(op.khi, np.ndarray):
-            _check_conservation(op.khi, sm, op.axis, op.khi.shape[-1])
-
-
 def _run_general(sequence, probes, sm, callback, disp):
     """The general path: the planned program (JAX ``_plan_and_payload`` /
     ``_execute_plan``), one CUDA graph replay on the card unless host work
-    forces it eager, eager on the CPU.  Returns the per-probe values."""
+    forces it eager, eager on the CPU.  Returns the per-probe values.  As
+    in JAX's compiled program, an exchange op's density-conservation check
+    does not run here (it runs where the op is applied directly, as
+    ``X.apply`` in JAX's eager loop)."""
     entry = _plan_and_payload(sequence, scan=callback is None)
     if disp:
         LOGGER.info("simulate: %d-op program planned as %s", len(sequence),
                     "/".join(k[0] if k[0] == "unroll" else f"scan x{k[1]}"
                              for k in entry.kinds))
-    _check_exchanges(sequence, sm)
     reason = _host_work(callback, disp, probes, sequence)
     on_card = sm.states.is_cuda
     if on_card and reason is None:

@@ -2,8 +2,7 @@
 ``epgpy_tpu/epg.py``, the reference's ``from epgpy import epg``; the
 package also exposes it as ``core``).
 
-Everything needed for scripting, over the names the port has; ``ilt1d``
-comes with its module (ROADMAP queue 1).
+Everything needed for scripting, over the names the port has.
 """
 
 from .statematrix import StateMatrix  # noqa: F401
@@ -31,4 +30,5 @@ from .utils import (  # noqa: F401
     load_pulse,
 )
 from .utils.imaging import imaging  # noqa: F401
+from .utils.ilt1d import ilt1d  # noqa: F401
 from . import config, stats  # noqa: F401

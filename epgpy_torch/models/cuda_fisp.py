@@ -786,9 +786,9 @@ def fisp_full_echoes_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
     half turns (``planes.sincospi``, the kernel's sincospif), decays by
     exp2 of the atom's -log2(e) / T over the full TR and TE, as the kernel
     forms them.  It is the port's one full-ladder program:
-    ``models/mrf.fisp_mrf_dictionary`` runs it and ``fisp_mrf_jacobian``
-    differentiates it forward, so it writes nothing in place
-    (``torch.func.jvp`` under ``vmap``)."""
+    ``models/mrf.fisp_mrf_dictionary`` runs it off the card's kernel route
+    and ``fisp_mrf_jacobian`` differentiates it forward, so it writes
+    nothing in place (``torch.func.jvp`` under ``vmap``)."""
     N = int(nstate)
     if N < 0:
         raise ValueError(f"nstate must be >= 0, got {nstate}")

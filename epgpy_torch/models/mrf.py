@@ -7,11 +7,16 @@ Counterpart of ``epgpy_tpu/models/mrf.py:46-298``.  Physics per TR
     ->  E(TR_p - TE)  ->  S(1)
 
 ``fisp_mrf_signal`` runs one atom on the full (K, 3) ladder;
-``fisp_mrf_dictionary`` runs a batch of atoms through the port's one
-full-ladder program, ``models/cuda_fisp.fisp_full_ladder_plain`` (the
-twin of the full-ladder kernel: real (K, B) planes of F+, F- and Z in a
-Python loop over pulses), on the working device and precision
-(config.py).  It is the full-ladder oracle of the folded kernel.
+``fisp_mrf_dictionary`` runs a batch of atoms on the working device and
+precision (config.py): on the card in float32 within the kernel's gate
+through the FISP dictionary kernel's wrapper
+(``models/cuda_fisp.fisp_echoes``: ``csrc/fisp_half.cu``, the full-ladder
+kernel at nstate 0), otherwise -- on the CPU, in float64, past the gate --
+through the port's one full-ladder program,
+``models/cuda_fisp.fisp_full_ladder_plain`` (the twin of the full-ladder
+kernel: real (K, B) planes of F+, F- and Z in a Python loop over pulses).
+That program is the full-ladder oracle of the folded kernel; a check that
+needs the oracle on the card calls it by name.
 ``fisp_mrf_jacobian`` differentiates that program forward
 (``torch.func.jvp`` with the tangent basis batched by ``vmap``): the
 float64 oracle of the Jacobian kernel.
@@ -27,6 +32,7 @@ import torch
 from .. import common, config
 from ..ops.shift import shift1d
 from ..ops.transition import rotation_operator
+from . import cuda_fisp
 from .cuda_fisp import fisp_full_ladder_plain
 
 __all__ = ["fisp_mrf_signal", "fisp_mrf_dictionary", "fisp_mrf_jacobian",
@@ -90,18 +96,33 @@ def fisp_mrf_dictionary(FA, TR, TE, T1s, T2s, B1s=None, dfs=None, *,
     (P,) (ms).  T1s, T2s, B1s: (B,) per-atom parameters (B1s defaults to
     ones); dfs: optional (B,) off-resonance (kHz) -- with `inversion`, the
     imperfect-inversion residual F+ precesses during TI too.
-    Returns (re, im): (B, P) tensors on the working device and precision.
+    Returns (re, im): (B, P) tensors on the working device and precision
+    (transposed views of the kernel's (P, B) echoes on the card).
+
+    A CUDA float32 batch runs the FISP dictionary kernel, which raises
+    past its shared-memory gate; a float64 batch, on the card too, and a
+    CPU batch run the full-ladder program (the kernel computes in float32
+    only, and the float64 program is the card's float64 reference).
     """
     T1s = common.to_real(T1s)
     T2s = common.to_real(T2s)
     B1s = torch.ones_like(T1s) if B1s is None else common.to_real(B1s)
     dfs = None if dfs is None else common.to_real(dfs)
-    return fisp_full_ladder_plain(
-        common.to_real(FA), common.to_real(phi), common.to_real(TR),
-        common.to_real(TE), T1s, T2s, B1s, dfs, nstate=int(nstate),
-        demodulate=demodulate,
-        inversion=None if inversion is None else float(inversion),
-        normalize=normalize)
+    args = [common.to_real(x) for x in (FA, phi, TR, TE)]
+    kw = dict(nstate=int(nstate), demodulate=demodulate,
+              inversion=None if inversion is None else float(inversion))
+    if T1s.device.type == "cuda" and T1s.dtype == torch.float32:
+        # a host scalar TE stays a host number: the wrapper would read a
+        # 0-d tensor back to the host
+        te = (float(TE) if not isinstance(TE, torch.Tensor)
+              and np.ndim(TE) == 0 else args[3].contiguous())
+        re, im = cuda_fisp.fisp_echoes(
+            *(x.contiguous() for x in args[:3]), te,
+            *(x.contiguous() for x in (T1s, T2s, B1s)),
+            None if dfs is None else dfs.contiguous(), **kw)
+        return cuda_fisp._finish(re, im, normalize)
+    return fisp_full_ladder_plain(*args, T1s, T2s, B1s, dfs,
+                                  normalize=normalize, **kw)
 
 
 def fisp_mrf_jacobian(FA, TR, TE, T1s, T2s, B1s=None, dfs=None, *,

@@ -89,13 +89,11 @@ def slice_profile_scales(pulse, *, gradient, fov, npoint=64, rewind=True,
 
 
 def _echoes(FA, TR, TE, T1, T2, B1, *, phi, nstate, demodulate, inversion):
-    """(re, im), each (P, B): the FISP dictionary kernel's wrapper where it
-    takes the batch (any CPU tensor: its twin; float32 on the card within
-    its gate), else the plain full-ladder program."""
-    on_card = T1.device.type == "cuda"
-    gate = (cuda_fisp.full_kernel_fits if int(nstate) < 1
-            else cuda_fisp.kernel_fits)
-    if not on_card or (T1.dtype == torch.float32 and gate(int(nstate))):
+    """(re, im), each (P, B): the FISP dictionary kernel's wrapper for a
+    CPU batch (its twin) and a float32 batch on the card (which raises past
+    the kernel's gate); a float64 batch on the card runs the plain
+    full-ladder program, the card's float64 reference."""
+    if T1.device.type != "cuda" or T1.dtype == torch.float32:
         return cuda_fisp.fisp_echoes(
             FA, phi, TR, TE, T1, T2, B1, nstate=nstate,
             demodulate=demodulate, inversion=inversion)

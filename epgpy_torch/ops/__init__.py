@@ -13,6 +13,7 @@ from .probe import Probe, Adc, ADC, DFT, Imaging
 from .exchange import X, exchange_matrix
 from .combined import CombinedOp, combine
 from .rfpulse import RFPulse
+from ..diff import Jacobian, Hessian
 
 __all__ = ["Operator", "EmptyOperator", "MultiOperator", "DiffOperator",
            "CombinableOperator", "Wait", "Offset", "Spoiler", "Reset", "PD",
@@ -20,4 +21,4 @@ __all__ = ["Operator", "EmptyOperator", "MultiOperator", "DiffOperator",
            "PrecomputedDiagonal", "MatrixOp", "T", "Tx", "Ty", "Phi",
            "rotation_operator", "E", "P", "R", "S", "G", "C", "D", "Probe",
            "Adc", "ADC", "DFT", "Imaging", "X", "exchange_matrix",
-           "CombinedOp", "combine", "RFPulse"]
+           "CombinedOp", "combine", "RFPulse", "Jacobian", "Hessian"]

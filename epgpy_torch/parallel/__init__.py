@@ -1,19 +1,24 @@
-"""MRF serving and sequence design: dictionary matching, reconstruction,
-Gauss-Newton refinement, CRLB design of the MRF and TSE trains
-(counterpart of ``epgpy_tpu/parallel``; the atom-sharded forms and the
-rest of that package are not ported yet, ROADMAP queue 1)."""
+"""MRF serving and sequence design: dictionary matching and its streamed
+compression, reconstruction, Gauss-Newton refinement, CRLB design of the
+MRF and TSE trains, EPG-NNLS T2 spectra and myelin-water maps
+(counterpart of ``epgpy_tpu/parallel``; the mesh, the atom-sharded forms
+and the FA-only CRLB loss and step come with the mesh slice, ROADMAP
+queue 1)."""
 
 from .crlb import (FA_BOUNDS, TR_BOUNDS, mrf_design_loss,
                    mrf_design_loss_grad_fused, mrf_design_slsqp,
                    mrf_design_step, mse_design_loss_grad_fused,
                    tse_design_slsqp)
 from .match import (compress_dictionary, dictionary_match, full_precision,
-                    project_signals)
+                    load_compression, project_signals, save_compression,
+                    streamed_compress_dictionary)
 from .recon import gauss_newton_refine, mrf_reconstruct
+from .t2spectrum import nnls, t2_basis, t2_spectrum_map
 
 __all__ = ["dictionary_match", "compress_dictionary", "project_signals",
            "full_precision", "mrf_reconstruct", "gauss_newton_refine",
            "mrf_design_loss", "mrf_design_loss_grad_fused",
            "mrf_design_slsqp", "mrf_design_step",
            "mse_design_loss_grad_fused", "tse_design_slsqp", "FA_BOUNDS",
-           "TR_BOUNDS"]
+           "TR_BOUNDS", "streamed_compress_dictionary", "save_compression",
+           "load_compression", "t2_basis", "nnls", "t2_spectrum_map"]

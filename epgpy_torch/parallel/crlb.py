@@ -24,9 +24,10 @@ gradient in (FA_i, esp_i) from ONE launch of the per-echo design kernel
 (``models.cuda_msedesign``), and ``tse_design_slsqp`` drives it with
 scipy's SLSQP under a SAR budget and a per-echo flip-increment bound.
 
-The atom-sharded form (``mesh=``) is not ported (ROADMAP queue 1): only
-``mesh=None`` is accepted.  The FA-only ``fingerprint_crlb_loss`` /
-``crlb_train_step`` are not ported yet either.
+The atom-sharded form (``mesh=``) and the FA-only
+``fingerprint_crlb_loss`` / ``crlb_train_step`` (which take a mesh with a
+``tangents`` axis) come with the mesh slice (ROADMAP queue 1): only
+``mesh=None`` is accepted here.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "the atom-sharded design (mesh=) is not ported to epgpy_torch "
-            "yet (ROADMAP queue 1); pass mesh=None")
+            "yet: it comes with the mesh slice (ROADMAP queue 1); pass "
+            "mesh=None")
 
 
 def _real(x):

@@ -1,14 +1,17 @@
 """MRF dictionary matching.
 
-Counterpart of ``epgpy_tpu/parallel/match.py`` (:21-196, :315-328).  Given
+Counterpart of ``epgpy_tpu/parallel/match.py``.  Given
 a dictionary (atoms x pulses fingerprints) and measured signals (voxels x
 pulses), find for each voxel the atom with the highest |inner product|:
 the MRF reconstruction step.  The correlations are real matrix products
 (``torch.matmul``) in true float32 or float64: close dictionary atoms are
 separated by 1e-4 to 1e-3 in correlation, and a reduced-precision product
 (TF32 on a CUDA card) flips those matches, so every product here runs
-with TF32 switched off (``config.full_precision``).  The atom-sharded form
-(``mesh=``) is not ported yet (ROADMAP queue 1, item 9).
+with TF32 switched off (``config.full_precision``).  A dictionary too
+large to hold is compressed block by block
+(:func:`streamed_compress_dictionary`), and the compressed artifact is
+saved and served without it.  The atom-sharded form (``mesh=``) is not
+ported yet: it comes with the mesh slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -20,14 +23,16 @@ from .. import config
 from ..config import full_precision
 
 __all__ = ["dictionary_match", "compress_dictionary", "project_signals",
-           "full_precision"]
+           "streamed_compress_dictionary", "save_compression",
+           "load_compression", "full_precision"]
 
 
-def _tensor(x):
-    """A tensor as it is; a host array on the working device and dtype."""
+def _tensor(x, dtype=None):
+    """A tensor as it is; a host array on the working device, in `dtype`
+    (default: the working precision's)."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(np.asarray(x), dtype=config.real_dtype(),
+    return torch.as_tensor(np.asarray(x), dtype=dtype or config.real_dtype(),
                            device=config.device())
 
 
@@ -51,7 +56,7 @@ def dictionary_match(dict_re, dict_im, sig_re, sig_im, mesh=None, *,
     if mesh is not None:
         raise NotImplementedError(
             "the atom-sharded match (mesh=) is not ported to epgpy_torch "
-            "yet: ROADMAP queue 1, item 9")
+            "yet: it comes with the mesh slice (ROADMAP queue 1)")
     dre, dim, sre, sim = (_tensor(x) for x in (dict_re, dict_im, sig_re,
                                                sig_im))
     if atom_chunk and dre.shape[0] > atom_chunk:
@@ -108,7 +113,7 @@ def compress_dictionary(dict_re, dict_im, rank):
     dre, dim = _tensor(dict_re), _tensor(dict_im)
     g_re, g_im = (g.cpu().numpy() for g in _gram(dre, dim))
     b_re, b_im, energy = _host_eigh_basis(g_re, g_im, rank)
-    c_re, c_im = project_signals(b_re, b_im, dre, dim)
+    c_re, c_im = _project_atoms(b_re, b_im, dre, dim)
     return {"basis_re": b_re, "basis_im": b_im,
             "cdict_re": c_re, "cdict_im": c_im, "energy": energy}
 
@@ -134,6 +139,117 @@ def _host_eigh_basis(g_re, g_im, rank):
     dtype = np.asarray(g_re).dtype
     return (np.ascontiguousarray(basis.real, dtype=dtype),
             np.ascontiguousarray(basis.imag, dtype=dtype), energy)
+
+
+def _normalize_rows(dre, dim):
+    """L2-normalize split-complex rows; returns (re, im, norms) in the
+    rows' precision.  A zero row stays zero (its norm divides as 1).
+    Float32 rows are scaled in float64: a float32 norm's rounding (~1e-7)
+    scales all of an atom's scores, as far as the gap between adjacent
+    atoms of a dense grid."""
+    wre, wim = dre.to(torch.float64), dim.to(torch.float64)
+    n = torch.sqrt(torch.sum(wre * wre + wim * wim, dim=-1))
+    safe = torch.where(n == 0, torch.ones_like(n), n)[:, None]
+    return ((wre / safe).to(dre.dtype), (wim / safe).to(dre.dtype),
+            n.to(dre.dtype))
+
+
+def streamed_compress_dictionary(generate, nblocks, rank):
+    """Rank-r compression of a dictionary too large to materialize.
+
+    Two passes over generated atom blocks (the dictionary never exists as
+    one (B, P) array: one block at a time lives on the device, and only
+    the compressed (B, r) atoms and the per-atom norms persist):
+
+    1. accumulate the (P, P) Gram of the row-NORMALIZED blocks on the
+       device in the blocks' precision (``sum_b D_b^H D_b``, exactly the
+       full dictionary's Gram); the host eigendecomposition then gives the
+       basis :func:`compress_dictionary` gives on the normalized full
+       dictionary;
+    2. generate each block again and project it onto the basis (in
+       float64, stored in the block's precision).
+
+    Args:
+        generate: ``generate(i) -> (re, im)`` UNnormalized split-complex
+            (B_i, P) fingerprint block for ``i in range(nblocks)`` (tensors
+            or host arrays); called twice per block, so it must be
+            deterministic.  Blocks may differ in row count.
+        nblocks: number of blocks.
+        rank: singular vectors to keep.
+
+    Returns:
+        dict like :func:`compress_dictionary` -- "basis_re"/"basis_im"
+        (P, r) host arrays, "cdict_re"/"cdict_im" (B, r) compressed
+        NORMALIZED atoms (tensors), "energy" -- plus "norms" (B,) original
+        atom norms, so :func:`~epgpy_torch.parallel.mrf_reconstruct` can
+        recover the proton-density scale without the dictionary (pass
+        ``dict_re=None``).
+    """
+    if nblocks < 1:
+        raise ValueError("streamed_compress_dictionary: nblocks >= 1")
+    acc_re = acc_im = None
+    for i in range(nblocks):
+        dre, dim, _ = _normalize_rows(*(_tensor(a) for a in generate(i)))
+        g_re, g_im = _gram(dre, dim)
+        if acc_re is None:
+            acc_re, acc_im = g_re, g_im
+        else:
+            acc_re, acc_im = acc_re + g_re, acc_im + g_im
+        del dre, dim, g_re, g_im
+    g = torch.stack([acc_re, acc_im]).cpu().numpy()     # one host fetch
+    b_re, b_im, energy = _host_eigh_basis(g[0], g[1], rank)
+    c_re, c_im, norms = [], [], []
+    for i in range(nblocks):
+        dre, dim, n = _normalize_rows(*(_tensor(a) for a in generate(i)))
+        cr, ci = _project_atoms(b_re, b_im, dre, dim)
+        c_re.append(cr)
+        c_im.append(ci)
+        norms.append(n)
+        del dre, dim
+    return {"basis_re": b_re, "basis_im": b_im,
+            "cdict_re": torch.cat(c_re), "cdict_im": torch.cat(c_im),
+            "norms": torch.cat(norms), "energy": energy}
+
+
+def save_compression(path, comp):
+    """Persist a compression dict (:func:`compress_dictionary` /
+    :func:`streamed_compress_dictionary` output) as one .npz: the serving
+    artifact.  At rank 32 it is ~P/32 smaller than the dictionary it
+    replaces, and loading it skips both the dictionary's generation and
+    the Gram's eigendecomposition."""
+    arrays = {}
+    for k, v in comp.items():
+        arrays[k] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                     else np.asarray(v))
+    np.savez_compressed(path, **arrays)
+
+
+def load_compression(path):
+    """Load a compression artifact saved by :func:`save_compression`.
+
+    The basis comes back as host arrays, the per-atom leaves ("cdict_re",
+    "cdict_im", "norms") as tensors on the working device, in their saved
+    dtype -- ready for ``mrf_reconstruct(dict_re=None, compression=...)``.
+    """
+    with np.load(path) as data:
+        comp = {k: data[k] for k in data.files}
+    if "energy" in comp:
+        comp["energy"] = float(comp["energy"])
+    for k in ("cdict_re", "cdict_im", "norms"):
+        if k in comp:
+            comp[k] = torch.as_tensor(comp[k], device=config.device())
+    return comp
+
+
+def _project_atoms(basis_re, basis_im, dre, dim):
+    """Compressed (B, r) atoms of (B, P) rows, stored in the rows'
+    precision but accumulated in float64: a float32 projection's rounding
+    (~1e-6 of an atom's norm at P = 500) exceeds the correlation gap
+    between adjacent atoms of a dense grid and flips their matches, where
+    the stored float32 values are within 6e-8 of the float64 ones."""
+    c_re, c_im = project_signals(basis_re, basis_im, dre.to(torch.float64),
+                                 dim.to(torch.float64))
+    return c_re.to(dre.dtype), c_im.to(dre.dtype)
 
 
 def project_signals(basis_re, basis_im, sig_re, sig_im):

@@ -8,7 +8,9 @@ Counterpart of ``epgpy_tpu/parallel/recon.py`` (:32-257):
 Everything runs on the tensors' device except the small Gram
 eigendecomposition (compress_dictionary) and the host-side operator
 construction of a refinement step's model; products run in full float32
-(config.full_precision).
+(config.full_precision).  A compressed match runs in float64, on
+compressed atoms that were projected in float64 and are stored in the
+dictionary's precision.
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ import numpy as np
 import torch
 
 from .. import config
-from .match import (_tensor, compress_dictionary, dictionary_match,
-                    full_precision, project_signals)
+from .match import (_normalize_rows, _tensor, compress_dictionary,
+                    dictionary_match, full_precision, project_signals)
 
 __all__ = ["mrf_reconstruct", "gauss_newton_refine"]
 
@@ -52,7 +54,8 @@ def mrf_reconstruct(sig_re, sig_im, dict_re, dict_im, atom_params=None, *,
             per-atom "norms" (dictionary-free serving).
         atom_params: optional (B, npar) grid values (T1, T2, ...): matched
             rows are gathered into per-voxel maps.
-        mesh, axis: the atom-sharded form (only ``mesh=None`` is ported).
+        mesh, axis: the atom-sharded form (only ``mesh=None`` is ported;
+            the mesh comes with the mesh slice, ROADMAP queue 1).
         rank: optional SVD compression rank (McGivney 2014): matching runs
             in the r-dimensional subspace.
         compression: reuse the "compression" dict of a previous call.
@@ -76,14 +79,19 @@ def mrf_reconstruct(sig_re, sig_im, dict_re, dict_im, atom_params=None, *,
     if compression is not None:
         comp = compression
     elif rank is not None:
-        safe = _safe(_row_norms(dict_re, dict_im))[:, None]
-        comp = compress_dictionary(dict_re / safe, dict_im / safe, rank)
+        comp = compress_dictionary(*_normalize_rows(dict_re, dict_im)[:2],
+                                   rank)
         out["energy"] = comp["energy"]
         out["compression"] = comp
     if compression is not None or rank is not None:
-        mre, mim = comp["cdict_re"], comp["cdict_im"]
+        # the compressed match runs in float64 on the stored atoms: a
+        # float32 score's rounding flips adjacent atoms of a dense grid
+        # (the 128 x 64 x 128 (T1, T2, B1) serving grid)
+        mre, mim = (comp[k].to(torch.float64) for k in ("cdict_re",
+                                                         "cdict_im"))
         vre, vim = project_signals(comp["basis_re"], comp["basis_im"],
-                                   sig_re, sig_im)
+                                   sig_re.to(torch.float64),
+                                   sig_im.to(torch.float64))
     else:
         safe = _safe(_row_norms(dict_re, dict_im))[:, None]
         mre, mim = dict_re / safe, dict_im / safe
@@ -92,7 +100,7 @@ def mrf_reconstruct(sig_re, sig_im, dict_re, dict_im, atom_params=None, *,
     idx, val = dictionary_match(mre, mim, vre, vim, mesh, axis=axis,
                                 atom_chunk=atom_chunk)
     out["index"] = idx
-    out["corr"] = val / _safe(_row_norms(sig_re, sig_im))
+    out["corr"] = (val / _safe(_row_norms(sig_re, sig_im))).to(sig_re.dtype)
 
     if dict_re is None:
         # dictionary-free: pd = <c_idx, v> / norms[idx], exact up to the
@@ -101,7 +109,8 @@ def mrf_reconstruct(sig_re, sig_im, dict_re, dict_im, atom_params=None, *,
         num_re = torch.sum(cre_m * vre + cim_m * vim, dim=-1)
         num_im = torch.sum(cre_m * vim - cim_m * vre, dim=-1)
         n_m = _safe(_tensor(comp["norms"])[idx])
-        out["pd_re"], out["pd_im"] = num_re / n_m, num_im / n_m
+        out["pd_re"], out["pd_im"] = ((num / n_m).to(sig_re.dtype)
+                                      for num in (num_re, num_im))
     else:
         # complex PD against the matched UNnormalized atom, full space
         out["pd_re"], out["pd_im"] = _pd_scale(dict_re[idx], dict_im[idx],

@@ -1086,3 +1086,83 @@ def test_cuda_diff_passes_replay_one_graph_per_stage(card, monkeypatch):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())
+
+
+def _route_atoms(name, B=4097):
+    """(FA, T1, T2, B1) of an atom set of the dictionary route's card test:
+    random atoms at 300 pulses, a spread sample of the 2^20-atom serving
+    grid at its 500-pulse train and at 300, the benchmark's grid at 300 and
+    1000 pulses."""
+    import numpy as np
+
+    from chip_smoke import make_atoms, make_train, serving_grid
+
+    fa300 = 10 + 50 * np.abs(np.sin(np.arange(300) * 2 * np.pi / 250))
+    if name == "random300":
+        rng = np.random.default_rng(1)
+        return (fa300, rng.uniform(200, 2500, B), rng.uniform(20, 200, B),
+                rng.uniform(0.7, 1.3, B))
+    if name.startswith("grid"):
+        g = serving_grid()[::256][:B]
+        fa500 = (10 + 50 * np.abs(np.sin(np.arange(500) * 2 * np.pi / 500))
+                 + np.random.default_rng(42).uniform(0, 2, 500))
+        return (fa500 if name == "grid500" else fa300,
+                g[:, 0], g[:, 1], g[:, 2])
+    return (make_train(int(name[5:])),) + make_atoms(B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("atoms", ["random300", "grid500", "grid300",
+                                   "bench300", "bench1000"])
+@pytest.mark.parametrize("opts", [dict(), dict(nstate=0),
+                                  dict(inversion=18.0, demodulate=True),
+                                  dict(dfs=True, normalize=True)],
+                         ids=["plain", "nstate0", "ir_demod", "df_norm"])
+def test_cuda_fisp_mrf_dictionary_takes_the_kernel(card, opts, atoms):
+    """On the card, fisp_mrf_dictionary of a float32 batch within the gate
+    launches the FISP dictionary kernel (the full-ladder kernel at nstate
+    0), and its distance to the float64 full-ladder program is at most
+    twice that of the float32 full-ladder program (the plain program run
+    by name): the two float32 programs are each 1-2.5e-6 from float64 and
+    up to 4e-6 apart (H100).  Prints the three distances; past the gate a
+    float32 batch raises."""
+    import numpy as np
+
+    from epgpy_torch.models import mrf
+
+    FA, T1, T2, B1 = _route_atoms(atoms)
+    B, P = len(T1), len(FA)
+    kw = dict(opts)
+    dfs = (np.random.default_rng(2).uniform(-0.02, 0.02, B)
+           if kw.pop("dfs", False) else None)
+    kw.setdefault("nstate", 10)
+    before = (cuda_fisp.LAUNCHES, cuda_fisp.FULL_LAUNCHES)
+    re, im = mrf.fisp_mrf_dictionary(FA, 12.0, 5.0, T1, T2, B1, dfs, **kw)
+    torch.cuda.synchronize()
+    launched = (cuda_fisp.LAUNCHES - before[0],
+                cuda_fisp.FULL_LAUNCHES - before[1])
+    assert launched == ((0, 1) if kw["nstate"] == 0 else (1, 0))
+    assert re.shape == (B, P) and re.dtype == torch.float32
+
+    def plain(dtype):
+        def t(x):
+            return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
+                                   device="cuda")
+        return cuda_fisp.fisp_full_ladder_plain(
+            t(FA), t(90.0), t(12.0), t(5.0), t(T1), t(T2), t(B1),
+            None if dfs is None else t(dfs), **kw)
+
+    def dist(pair, ref):
+        return max(float((pair[0].double() - ref[0]).abs().max()),
+                   float((pair[1].double() - ref[1]).abs().max()))
+
+    ref, p32 = plain(torch.float64), plain(torch.float32)
+    err, err_plain = dist((re, im), ref), dist(p32, ref)
+    print(f"[route] {atoms}: route - float32 program "
+          f"{dist((re, im), [x.double() for x in p32]):.3e}, route - "
+          f"float64 program {err:.3e}, float32 program - float64 program "
+          f"{err_plain:.3e}")
+    assert err <= 2 * err_plain and err <= 1e-5, (err, err_plain)
+    with pytest.raises(ValueError):
+        mrf.fisp_mrf_dictionary(FA, 12.0, 5.0, T1[:8], T2[:8], B1[:8],
+                                nstate=4096)

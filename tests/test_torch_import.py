@@ -1,6 +1,7 @@
 """epgpy_torch imports without JAX and exposes the slice's public names
-(the sequence DSL, the shaped pulses and the reference's flat aliases
-included), with the JAX package's argument order."""
+(the sequence DSL, the shaped pulses, the reference's flat aliases, the
+EPG-NNLS fit, the streamed compression, the inverse Laplace transform,
+traces and diagrams included), with the JAX package's argument order."""
 
 import os
 import subprocess
@@ -23,7 +24,7 @@ PUBLIC = ["config", "StateMatrix", "Operator", "EmptyOperator",
           "opmatrix", "transition", "evolution", "shift", "diffusion",
           "exchange", "probe", "rfpulse", "statematrix", "common",
           "functions", "operators", "core", "set_array_module",
-          "get_array_module"]
+          "get_array_module", "ilt1d"]
 #: the reference's flat aliases: package attribute -> the module it names
 ALIASES = {"operator": "epgpy_torch.ops.base",
            "opscalar": "epgpy_torch.ops.scalarop",
@@ -171,6 +172,9 @@ MODULES = {
     "epgpy_torch.diff": ["Jacobian", "Hessian", "parse_order1",
                          "parse_order2", "simulate_diff", "substitute"],
     "epgpy_torch.parallel": ["dictionary_match", "compress_dictionary",
+                             "streamed_compress_dictionary",
+                             "save_compression", "load_compression",
+                             "t2_basis", "nnls", "t2_spectrum_map",
                              "project_signals", "mrf_reconstruct",
                              "gauss_newton_refine", "mrf_design_loss",
                              "mrf_design_loss_grad_fused",
@@ -182,8 +186,22 @@ MODULES = {
     "epgpy_torch.convert": ["from_numpy_params", "from_numpy_xparams",
                             "from_numpy_states"],
     "epgpy_torch.config": ["set_precision", "real_dtype", "complex_dtype",
-                           "set_device", "device"],
-    "epgpy_torch.common": ["shape_with_axes", "set_axes"],
+                           "int_dtype", "set_device", "device"],
+    "epgpy_torch.common": ["shape_with_axes", "set_axes", "asnumpy",
+                           "expand_dims_after", "extend_operators",
+                           "repr_value", "repr_operator"],
+    "epgpy_torch.parallel.t2spectrum": ["t2_basis", "nnls",
+                                        "t2_spectrum_map"],
+    "epgpy_torch.utils.ilt1d": ["ilt1d", "ilt1d_ls", "flt1d", "ilt1d_crb",
+                                "quasi_continuous", "get_bounds",
+                                "get_kernel", "get_resolution"],
+    "epgpy_torch.utils": ["ilt1d_ls", "flt1d", "ilt1d_crb",
+                          "quasi_continuous", "ilt1d", "plotting",
+                          "profiling"],
+    "epgpy_torch.utils.profiling": ["trace", "annotate"],
+    "epgpy_torch.utils.plotting": ["plot_epg", "show", "k_colors_1d",
+                                   "k_colors_2d"],
+    "epgpy_torch.ops": ["Jacobian", "Hessian"],
     "epgpy_torch.sequence": ["Sequence", "Variable", "Constant",
                              "Expression", "VirtualOperator", "repeat",
                              "operators", "functions", "math", "T", "E",
@@ -199,6 +217,7 @@ MODULES = {
                            "fisp_mrf_dictionary_sliced"],
     "epgpy_torch.epg": ["Sequence", "Variable", "Constant", "Expression",
                         "repeat", "operators", "functions", "RFPulse",
+                        "ilt1d",
                         "load_pulse", "rfpulse", "opscalar",
                         "set_array_module", "get_array_module"],
 }
@@ -374,6 +393,44 @@ SAME_ARGS = {
     "epgpy_torch.sequence:repeat": "epgpy_tpu.sequence:repeat",
     "epgpy_torch.sequence:VirtualOperator":
         "epgpy_tpu.sequence:VirtualOperator",
+    "epgpy_torch.parallel.t2spectrum:t2_basis":
+        "epgpy_tpu.parallel.t2spectrum:t2_basis",
+    "epgpy_torch.parallel.t2spectrum:nnls":
+        "epgpy_tpu.parallel.t2spectrum:nnls",
+    "epgpy_torch.parallel.t2spectrum:t2_spectrum_map":
+        "epgpy_tpu.parallel.t2spectrum:t2_spectrum_map",
+    "epgpy_torch.parallel.match:streamed_compress_dictionary":
+        "epgpy_tpu.parallel.match:streamed_compress_dictionary",
+    "epgpy_torch.parallel.match:save_compression":
+        "epgpy_tpu.parallel.match:save_compression",
+    "epgpy_torch.parallel.match:load_compression":
+        "epgpy_tpu.parallel.match:load_compression",
+    "epgpy_torch.utils.ilt1d:ilt1d": "epgpy_tpu.utils.ilt1d:ilt1d",
+    "epgpy_torch.utils.ilt1d:ilt1d_ls": "epgpy_tpu.utils.ilt1d:ilt1d_ls",
+    "epgpy_torch.utils.ilt1d:flt1d": "epgpy_tpu.utils.ilt1d:flt1d",
+    "epgpy_torch.utils.ilt1d:ilt1d_crb": "epgpy_tpu.utils.ilt1d:ilt1d_crb",
+    "epgpy_torch.utils.ilt1d:quasi_continuous":
+        "epgpy_tpu.utils.ilt1d:quasi_continuous",
+    "epgpy_torch.utils.ilt1d:get_bounds": "epgpy_tpu.utils.ilt1d:get_bounds",
+    "epgpy_torch.utils.ilt1d:get_kernel": "epgpy_tpu.utils.ilt1d:get_kernel",
+    "epgpy_torch.utils.ilt1d:get_resolution":
+        "epgpy_tpu.utils.ilt1d:get_resolution",
+    "epgpy_torch.utils.profiling:trace": "epgpy_tpu.utils.profiling:trace",
+    "epgpy_torch.utils.profiling:annotate":
+        "epgpy_tpu.utils.profiling:annotate",
+    "epgpy_torch.utils.plotting:plot_epg": "epgpy_tpu.utils.plotting:plot_epg",
+    "epgpy_torch.utils.plotting:show": "epgpy_tpu.utils.plotting:show",
+    "epgpy_torch.utils.plotting:k_colors_1d":
+        "epgpy_tpu.utils.plotting:k_colors_1d",
+    "epgpy_torch.utils.plotting:k_colors_2d":
+        "epgpy_tpu.utils.plotting:k_colors_2d",
+    "epgpy_torch.common:asnumpy": "epgpy_tpu.common:asnumpy",
+    "epgpy_torch.common:expand_dims_after":
+        "epgpy_tpu.common:expand_dims_after",
+    "epgpy_torch.common:extend_operators": "epgpy_tpu.common:extend_operators",
+    "epgpy_torch.common:repr_value": "epgpy_tpu.common:repr_value",
+    "epgpy_torch.common:repr_operator": "epgpy_tpu.common:repr_operator",
+    "epgpy_torch.config:int_dtype": "epgpy_tpu.config:int_dtype",
 }
 #: TPU-only knobs the port does not take
 TPU_ONLY = {"interpret", "btile", "pchunk", "sharding"}
@@ -455,3 +512,39 @@ def test_c_entry_points_match_their_bindings():
     assert set(entries) == set(_build._SIGNATURES)
     for name, types in entries.items():
         assert types == _build._SIGNATURES[name], name
+
+
+def test_common_helpers_match_jax():
+    """The shape and repr helpers of common and config.int_dtype give
+    JAX's results (on tensors, and on host values)."""
+    import numpy as np
+    import torch
+
+    from epgpy_torch import common as tc, config as tcfg
+    from epgpy_tpu import common as jc
+
+    a = np.arange(6.0).reshape(2, 3)
+    assert tuple(tc.expand_dims_after(torch.as_tensor(a), 4).shape) == \
+        jc.expand_dims_after(a, 4).shape == (2, 3, 1, 1)
+    x, y = np.ones((2, 3, 3)), np.ones((2, 5, 3, 3))
+    got = tc.extend_operators(2, torch.as_tensor(x), None,
+                              torch.as_tensor(y))
+    want = jc.extend_operators(2, x, None, y)
+    assert got[1] is None and want[1] is None
+    assert [tuple(g.shape) for g in got[::2]] == [w.shape for w in want[::2]]
+    for v, f in ((1.5, ".2f"), (np.float64(2.0), ""), (a, ""), (None, "")):
+        assert tc.repr_value(v, f) == jc.repr_value(v, f)
+    assert tc.repr_value(torch.tensor(0.25), ".3f") == "0.250"
+    assert tc.repr_operator("X", ["tau", "khi", "T1"], [5.0, a, None],
+                            [".1f"]) == jc.repr_operator(
+        "X", ["tau", "khi", "T1"], [5.0, a, None], [".1f"]) == \
+        "X(5.0, array(2, 3))"
+    assert np.array_equal(tc.asnumpy(torch.as_tensor(a)), jc.asnumpy(a))
+    old = tcfg.precision()
+    try:
+        tcfg.set_precision("float64")
+        assert tcfg.int_dtype() is torch.int64
+        tcfg.set_precision("float32")
+        assert tcfg.int_dtype() is torch.int32
+    finally:
+        tcfg.set_precision(old)
