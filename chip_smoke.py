@@ -210,6 +210,18 @@ Phases (each raises on failure: a failure exits non-zero with no result):
    program;
 11. a trace (phase_trace): utils.profiling.trace around simulate() of the
    headline train writes a Chrome trace holding fisp_half's CUDA event;
+12. the device mesh (phase_mesh, run after the numbers of 6): a
+   single-controller mesh of four entries on one card ([cuda:0] * 4; over
+   the distinct cards too where there are several) -- the headline
+   dictionary through fisp_mrf_dictionary(sharding=) and
+   fisp_dictionary_cuda_sharded, equal to the unsharded one to the bit
+   with 4 fisp_half launches; the serving phase's 8,192 voxels through
+   mrf_reconstruct(mesh=) against the unsharded serve (maps equal for
+   >= 99.9% of voxels, a differing voxel a near-tie); the fused design at
+   256 atoms x 400 pulses within 2e-6 of mesh=None; the
+   sequence-optimization example's CRLB steps on a (2, 2) mesh, whose
+   loss must fall; each of the ten sharded wrappers at 4,096 atoms equal
+   to its unsharded call to the bit, its counter up by 4;
 6. numbers for every kernel at its main-path shape: kernel and twin times,
    launches on the main paths, and the bound (the twin's operations,
    counted by ``count_ops`` -- for the CPMG family over only the ladder
@@ -8285,6 +8297,308 @@ def phase_trace(torch, epg, card):
     return dict(launches=launches, half_ms=half_ms)
 
 
+# -- the device mesh (phase_mesh) --
+
+#: the ten atom-sharded wrappers: the kernel's name, its module and launch
+#: counter, the unsharded call (the dispatching form where the "_cuda"
+#: wrapper takes CUDA tensors only) and the sharded wrapper
+MESH_WRAPPERS = (
+    ("fisp_half", "fisp", "LAUNCHES", "fisp_dictionary_cuda",
+     "fisp_dictionary_cuda_sharded"),
+    ("fisp_jac", "fisp", "JAC_LAUNCHES", "fisp_jacobian_cuda",
+     "fisp_jacobian_cuda_sharded"),
+    ("cpmg", "mse", "LAUNCHES", "cpmg_dictionary_cuda",
+     "cpmg_dictionary_cuda_sharded"),
+    ("cpmg_jac", "mse", "JAC_LAUNCHES", "cpmg_jacobian_cuda",
+     "cpmg_jacobian_cuda_sharded"),
+    ("bssfp", "bssfp", "LAUNCHES", "bssfp_dictionary_cuda",
+     "bssfp_dictionary_cuda_sharded"),
+    ("fisp_hess", "hessian", "HESS_LAUNCHES", "fisp_hessian_cuda",
+     "fisp_hessian_cuda_sharded"),
+    ("composite_jac", "composite", "JAC_LAUNCHES",
+     "composite_jacobian_echoes", "composite_jacobian_cuda_sharded"),
+    ("xgre", "xgre", "LAUNCHES", "xgre_dictionary_echoes",
+     "xgre_dictionary_cuda_sharded"),
+    ("xcomposite", "xcomposite", "LAUNCHES", "xcomposite_echoes",
+     "xcomposite_cuda_sharded"),
+    ("cpmg_design", "msedesign", "DESIGN_LAUNCHES", "cpmg_design_cuda",
+     "cpmg_design_cuda_sharded"),
+)
+
+
+def mesh_wrapper_cases(torch, natoms, n, device, names=None):
+    """Inputs of the ten atom-sharded wrappers, every option of each on
+    (the FISP, bSSFP, CPMG, composite and EPG-X "all" cases; the Hessian's
+    5-op form after an inversion, second order; the design kernel's second
+    order), `natoms` atoms and trains of `n` pulses, echoes or stages (an
+    int, or a dict by wrapper name), as float32 tensors on `device` (of
+    the wrappers in `names`, default all): a list of dict(name, module,
+    counter, plain (the unsharded call), sharded, args, kw)."""
+    import importlib
+
+    inputs = {
+        "fisp_half": lambda m: _tensors(torch, *make_case(
+            OPTION_CASES[-1], natoms, m), device),
+        "fisp_jac": lambda m: _tensors(torch, *make_jac_case(
+            JAC_CASES[-1], natoms, m), device),
+        "cpmg": lambda m: _atom_tensors(torch, *make_mse_case(
+            MSE_CASES[-1], natoms, m), 5, device),
+        "cpmg_jac": lambda m: _atom_tensors(torch, *make_mse_case(
+            MSE_CASES[-1], natoms, m), 5, device),
+        "bssfp": lambda m: _tensors(torch, *make_bssfp_case(
+            BSSFP_CASES[-1], natoms, m), device),
+        "fisp_hess": lambda m: _atom_tensors(torch, *make_hess_case(
+            dict(te=DESIGN_TE, inversion=DESIGN_TI), natoms, m), 3, device),
+        "composite_jac": lambda m: comp_tensors(torch, *make_comp_case(
+            COMP_CASES[-1], natoms, m), device),
+        "xgre": lambda m: (lambda a, k: (xgre_tensors(torch, a, device), k))(
+            *make_xgre_case(_XGRE_ALL, natoms, m)),
+        "xcomposite": lambda m: (lambda a, k: (xcomp_tensors(torch, a,
+                                                             device), k))(
+            *make_xcomp_case(_XCOMP_ALL, natoms, m)),
+        "cpmg_design": lambda m: _atom_tensors(torch, *make_design_case(
+            DESIGN_CASES[0], natoms, m), 4, device),
+    }
+    cases = []
+    for name, mod, counter, fn, sharded in MESH_WRAPPERS:
+        if names is not None and name not in names:
+            continue
+        module = importlib.import_module(f"epgpy_torch.models.cuda_{mod}")
+        args, kw = inputs[name](n[name] if isinstance(n, dict) else n)
+        if name == "xcomposite":         # b1u is a keyword of the sharded form
+            kw = dict(kw, b1u=args[18])
+            args = args[:18]
+        cases.append(dict(name=name, module=module, counter=counter,
+                          plain=getattr(module, fn),
+                          sharded=getattr(module, sharded),
+                          args=args, kw=kw))
+    return cases
+
+
+def tensor_leaves(out):
+    """The tensors of a wrapper's output (nested tuples and dicts), in
+    order."""
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in tensor_leaves(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in tensor_leaves(o)]
+    return [out]
+
+
+#: the mesh phase: four shards on one card ([cuda:0] * 4); the ten
+#: wrappers' cases at MESH_CASE_ATOMS atoms, each family's train as long as
+#: its option cases'; the sequence-optimization example's widths (its
+#: (atoms, tangents) mesh cut to (2, 2) for four entries: 8 atoms per atom
+#: shard, 16 pulses, nstate 4, fa_weight 0, lr 2.0), MESH_CRLB_STEPS of
+#: its 20 steps (host-bound: 16.7 s for 3 steps and two losses on the card)
+MESH_SHARDS, MESH_CASE_ATOMS, MESH_CRLB_STEPS = 4, 4096, 1
+MESH_CASE_N = {"fisp_half": CASE_NPULSE, "fisp_jac": JAC_CASE_N,
+               "cpmg": MSE_NECHO, "cpmg_jac": MSE_NECHO, "bssfp": BSSFP_N,
+               "fisp_hess": HESS_CASE_N, "composite_jac": COMP_CASE_N,
+               "xgre": XGRE_CASE_N, "xcomposite": XCOMP_CASE_N,
+               "cpmg_design": TSE_NECHO}
+#: the sharded serve against the unsharded one: the share of voxels whose
+#: maps must be equal, and how far apart a differing voxel's two
+#: correlations may be (a near-tie: the shards' FP32 products have other
+#: shapes than the whole one, so cuBLAS may round them differently)
+MESH_SERVE_EQUAL, MESH_SERVE_TIE = 0.999, 1e-6
+#: the sharded fused design against mesh=None (the mean of four shards'
+#: float32 means against one mean over all atoms)
+TOL_MESH_DESIGN = 2e-6
+
+
+def _bitwise(torch, got, want):
+    """Whether two outputs (nested tuples and dicts of tensors) are equal
+    to the bit, and their largest difference."""
+    pairs = list(zip(tensor_leaves(got), tensor_leaves(want)))
+    same = all(g.shape == w.shape and torch.equal(g, w) for g, w in pairs)
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in pairs)
+    return same, err
+
+
+def phase_mesh(torch, epg, card):
+    """The device mesh on the card (phase 12): a single-controller mesh of
+    four entries on cuda:0 (and, where there are several cards, one over
+    them) drives the headline dictionary through
+    fisp_mrf_dictionary(sharding=) and fisp_dictionary_cuda_sharded (equal
+    to the unsharded dictionary to the bit, 4 fisp_half launches each), the
+    serving phase's 8,192 voxels through mrf_reconstruct(mesh=), the fused
+    design at 256 atoms x 400 pulses, the sequence-optimization example's
+    CRLB steps and each of the ten sharded wrappers at 4,096 atoms (equal
+    to its unsharded call to the bit, its counter up by 4).  Raises on a
+    miss; returns the launches of the driven path by kernel and the
+    headline's sharded and unsharded times."""
+    from epgpy_torch.models import cuda_fisp
+    from epgpy_torch.models.mrf import fisp_mrf_dictionary
+    from epgpy_torch.parallel import (atom_sharding, crlb_train_step,
+                                      fingerprint_crlb_loss, make_mesh,
+                                      mrf_design_loss_grad_fused,
+                                      mrf_reconstruct)
+
+    def cuda32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device="cuda")
+
+    mesh = make_mesh([torch.device("cuda", 0)] * MESH_SHARDS)
+    meshes = [mesh]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    FA = make_train(NPULSE)
+    T1, T2, B1 = (cuda32(x) for x in make_atoms(NATOMS))
+    out = {}
+
+    def dictionary(sharding=None):
+        return fisp_mrf_dictionary(FA, TR, TE, T1, T2, B1, nstate=NSTATE,
+                                   sharding=sharding)
+
+    _zero_all_counts()
+    t0 = time.perf_counter()
+    re0, im0 = dictionary()
+    for m in meshes:
+        n = len(m.entries("atoms"))
+        before = cuda_fisp.LAUNCHES
+        re1, im1 = dictionary(atom_sharding(m))
+        launched = cuda_fisp.LAUNCHES - before
+        same, err = _bitwise(torch, (re1, im1), (re0, im0))
+        print(f"[mesh] fisp_mrf_dictionary(sharding=) over {m}, {NATOMS} "
+              f"atoms x {NPULSE} pulses: {launched} fisp_half launches, "
+              f"{'bitwise equal' if same else f'max diff {err:.3e}'} to the "
+              f"unsharded dictionary")
+        if not same or launched != n:
+            raise AssertionError(f"sharded dictionary over {m}: launches "
+                                 f"{launched}, max diff {err:.3e}")
+    wargs = (cuda32(FA), 90.0, TR, TE, T1, T2, B1)
+    want = cuda_fisp.fisp_dictionary_cuda(*wargs, nstate=NSTATE)
+    before = cuda_fisp.LAUNCHES
+    got = cuda_fisp.fisp_dictionary_cuda_sharded(*wargs, mesh=mesh,
+                                                 nstate=NSTATE)
+    launched = cuda_fisp.LAUNCHES - before
+    same, err = _bitwise(torch, got, want)
+    print(f"[mesh] fisp_dictionary_cuda_sharded over {mesh}: {launched} "
+          f"fisp_half launches, {'bitwise equal' if same else err} to "
+          f"fisp_dictionary_cuda")
+    if not same or launched != MESH_SHARDS:
+        raise AssertionError(f"fisp_dictionary_cuda_sharded: launches "
+                             f"{launched}, max diff {err:.3e}")
+    del want, got
+
+    # the serving phase's voxels, matched unsharded and over the mesh
+    rng = np.random.default_rng(SEED)
+    T1t = rng.uniform(300.0, 2500.0, NVOX)
+    T2t = np.minimum(rng.uniform(30.0, 200.0, NVOX), 0.5 * T1t)
+    B1t = rng.uniform(0.75, 1.25, NVOX)
+    pd = rng.uniform(0.5, 2.0, NVOX) * np.exp(2j * np.pi * rng.random(NVOX))
+    noise = NOISE * (rng.standard_normal((NPULSE, NVOX))
+                     + 1j * rng.standard_normal((NPULSE, NVOX)))
+    cre, cim = fisp_mrf_dictionary(FA, TR, TE, *(cuda32(x) for x in (
+        T1t, T2t, B1t)), nstate=NSTATE)
+    meas = (torch.complex(cre, cim)
+            * torch.as_tensor(pd.astype(np.complex64), device="cuda")[:, None]
+            + torch.as_tensor(noise.T.astype(np.complex64), device="cuda"))
+    sre, sim = meas.real.contiguous(), meas.imag.contiguous()
+    grid = np.stack([x.cpu().numpy() for x in (T1, T2, B1)], -1)
+    serve = {}
+    for key, kw in (("single", {}), ("mesh", dict(mesh=mesh))):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        rec = mrf_reconstruct(sre, sim, *((re1, im1) if kw else (re0, im0)),
+                              grid, atom_chunk=16384, **kw)
+        torch.cuda.synchronize()
+        serve[key] = (rec, time.perf_counter() - ts)
+    (r0, s0), (r1, s1) = serve["single"], serve["mesh"]
+    same = (r0["maps"] == r1["maps"]).all(dim=-1)
+    differ = int((~same).sum())
+    tie = (float((r0["corr"] - r1["corr"])[~same].abs().max()) if differ
+           else 0.0)
+    share = 1.0 - differ / NVOX
+    print(f"[mesh] mrf_reconstruct(mesh=) of {NVOX} voxels against "
+          f"{NATOMS} atoms: maps equal to the unsharded serve for "
+          f"{NVOX - differ} of {NVOX} voxels ({share:.4%}; limit "
+          f"{MESH_SERVE_EQUAL:.1%}), {differ} differ, their correlations "
+          f"at most {tie:.3e} apart (limit {MESH_SERVE_TIE}); match "
+          f"{s1 * 1e3:.1f} ms sharded, {s0 * 1e3:.1f} ms unsharded")
+    if share < MESH_SERVE_EQUAL or tie > MESH_SERVE_TIE:
+        raise AssertionError(f"sharded serve: {share:.4%} equal, tie "
+                             f"{tie:.3e}")
+    out.update(serve_equal=share, serve_differ=differ, serve_tie=tie,
+               serve_s=(s1, s0))
+    del serve, r0, r1, meas, cre, cim
+
+    # the fused design over the mesh against mesh=None
+    FA0, TR0 = initial_train(HESS_N)
+    T1d, T2d = design_atoms()
+    dargs = [cuda32(x) for x in (FA0, TR0, T1d, T2d)]
+    kw = dict(TE=DESIGN_TE, nstate=NSTATE, inversion=DESIGN_TI, sigma2=10.0)
+    got = mrf_design_loss_grad_fused(*dargs, mesh, **kw)
+    want = mrf_design_loss_grad_fused(*dargs, **kw)
+    rel = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in zip(got, want))
+    print(f"[mesh] mrf_design_loss_grad_fused over {mesh}, {HESS_ATOMS} "
+          f"atoms x {HESS_N} pulses: loss and gradient within {rel:.3e} of "
+          f"mesh=None (limit {TOL_MESH_DESIGN})")
+    if not rel <= TOL_MESH_DESIGN:
+        raise AssertionError(f"sharded fused design {rel:.3e}")
+    out["design_rel"] = rel
+
+    # examples/sequence_optimization.py on a (2, 2) mesh
+    crlb_mesh = make_mesh([torch.device("cuda", 0)] * 4,
+                          axes=("atoms", "tangents"), shape=(2, 2))
+    natoms = 8 * crlb_mesh.shape["atoms"]
+    T1s = cuda32(np.linspace(400.0, 1400.0, natoms))
+    T2s = cuda32(np.linspace(40.0, 110.0, natoms))
+    fa = cuda32(np.full(16, 30.0))
+    opts = dict(nstate=4, fa_weight=0.0)
+    tc = time.perf_counter()
+    losses = []
+    for _ in range(MESH_CRLB_STEPS):
+        fa, loss = crlb_train_step(fa, T1s, T2s, crlb_mesh, lr=2.0, **opts)
+        losses.append(float(loss))
+    loss0 = losses[0]
+    loss1 = float(fingerprint_crlb_loss(fa, T1s, T2s, crlb_mesh, **opts))
+    crlb_s = time.perf_counter() - tc
+    print(f"[mesh] crlb_train_step over {crlb_mesh}, {natoms} atoms x 16 "
+          f"pulses: CRLB {loss0:.6g} -> {loss1:.6g} in {MESH_CRLB_STEPS} "
+          f"steps ({crlb_s:.2f} s)")
+    if not (math.isfinite(loss1) and loss1 < loss0):
+        raise AssertionError(f"the CRLB steps did not lower the loss: "
+                             f"{loss0} -> {loss1}")
+    out["crlb"] = (loss0, loss1, crlb_s)
+
+    # each of the ten sharded wrappers against its unsharded call
+    for case in mesh_wrapper_cases(torch, MESH_CASE_ATOMS, MESH_CASE_N,
+                                   "cuda"):
+        mod, counter = case["module"], case["counter"]
+        want = case["plain"](*case["args"], **case["kw"])
+        before = getattr(mod, counter)
+        got = case["sharded"](*case["args"], mesh=mesh, **case["kw"])
+        launched = getattr(mod, counter) - before
+        same, err = _bitwise(torch, got, want)
+        print(f"[mesh] {case['name']} sharded over {mesh} at "
+              f"{MESH_CASE_ATOMS} atoms: {launched} launches, "
+              f"{'bitwise equal' if same else f'max diff {err:.3e}'} to "
+              f"the unsharded call")
+        if not same or launched != MESH_SHARDS:
+            raise AssertionError(f"{case['name']} sharded: launches "
+                                 f"{launched}, max diff {err:.3e}")
+    torch.cuda.synchronize()
+    out["path_s"] = time.perf_counter() - t0
+    names = {f"{mod}.{counter}": name
+             for name, mod, counter, _, _ in MESH_WRAPPERS}
+    out["launches"] = {names[k]: v for k, v in _launch_counts().items()
+                       if k in names and v}
+
+    # the headline's times, sharded and unsharded, in turns
+    sh = atom_sharding(mesh)
+    times = [_cuda_ms(torch, dictionary), _cuda_ms(torch, lambda: dictionary(
+        sh)), _cuda_ms(torch, lambda: dictionary(sh)),
+        _cuda_ms(torch, dictionary)]
+    print(f"[mesh] headline dictionary {NATOMS} x {NPULSE}: unsharded "
+          f"{times[0]:.3f} / {times[3]:.3f} ms, over {mesh} {times[1]:.3f} "
+          f"/ {times[2]:.3f} ms (finding, not a claim: four shards on one "
+          f"card run one after another) ({card})")
+    out["headline_ms"] = times
+    return out
+
+
 def _memo_pair(torch, fn, reps=5):
     """Host-clock seconds of a memoized simulate() call fn(), with the
     preamble memo kept and with it cleared before every call (the matcher's
@@ -8424,6 +8738,7 @@ def main():
     comp_entries = _timed(phase_comp_numbers, torch, card, comp_run,
                           cjac_run, mpr, cmrf)
     x_entries = _timed(phase_x_numbers, torch, card, xg, xc, qmt, kfit)
+    mesh = _timed(phase_mesh, torch, epg, card)
     # launches on the EPG-X paths: the spoiled train, its direct call and
     # the two xgre goldens (a, f) and the balanced train (b); the qMT fit
     # (d: truth, dictionary, one per iteration); the MT-prepared train, its
@@ -8571,6 +8886,19 @@ def main():
     kernels = ([entry, jac_entry, hess_entry, mse_entry, mse_jac_entry,
                 design_entry] + ssfp_entries + megre_entries + comp_entries
                + x_entries)
+    # launches on the mesh's paths (12): the ten sharded wrappers' kernels
+    for k in kernels:
+        k["launches"] += mesh["launches"].get(k["name"], 0)
+    print(f"[numbers] device mesh, {MESH_SHARDS} shards on one card: "
+          f"headline dictionary unsharded {mesh['headline_ms'][0]:.3f} ms, "
+          f"sharded {mesh['headline_ms'][1]:.3f} ms; serve equal "
+          f"{mesh['serve_equal']:.4%} ({mesh['serve_differ']} differ, tie "
+          f"{mesh['serve_tie']:.3e}), match {mesh['serve_s'][0]:.3f} s "
+          f"sharded / {mesh['serve_s'][1]:.3f} s; design "
+          f"{mesh['design_rel']:.3e} of mesh=None; CRLB "
+          f"{mesh['crlb'][0]:.6g} -> {mesh['crlb'][1]:.6g} "
+          f"({mesh['crlb'][2]:.2f} s); launches {mesh['launches']}; driven "
+          f"path {mesh['path_s']:.1f} s ({card})")
     print("[bound] share of the bound (bound_ms / ms): " + ", ".join(
         f"{k['name']} {k['bound_ms'] / k['ms']:.1%}" for k in kernels))
     print(f"[time] total: {time.perf_counter() - t_start:.1f} s")

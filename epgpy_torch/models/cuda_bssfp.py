@@ -46,7 +46,8 @@ from .cuda_fisp import _finish, _jac_finish, _jac_views, _prepare, _takes_twin
 __all__ = ["bssfp_dictionary_cuda", "bssfp_dictionary_plain", "bssfp_echoes",
            "bssfp_echoes_plain", "bssfp_jacobian_cuda", "bssfp_jacobian_plain",
            "bssfp_jacobian_echoes", "bssfp_jacobian_echoes_plain",
-           "LAUNCHES", "JAC_LAUNCHES", "BLOCK", "BSSFP_PULSES"]
+           "LAUNCHES", "JAC_LAUNCHES", "BLOCK", "BSSFP_PULSES",
+           "bssfp_dictionary_cuda_sharded"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -324,6 +325,22 @@ def bssfp_dictionary_cuda(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
     re, im = bssfp_echoes(FA, phi, TR, TE, T1s, T2s, B1s, dfs,
                           demodulate=demodulate, inversion=inversion)
     return _finish(re, im, normalize)
+
+
+def bssfp_dictionary_cuda_sharded(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                                  mesh, axis="atoms", **kw):
+    """Atom-sharded :func:`bssfp_dictionary_cuda` over a device mesh
+    (``bssfp_dictionary_pallas_sharded``): each entry of the mesh's `axis`
+    runs the kernel (the plain twin on a CPU entry) on its atom shard; the
+    axis size must divide the atom count, the train is replicated.
+    Returns (re, im), each (B, P), on the mesh's first device."""
+    from ..parallel.mesh import shard_map
+
+    def local(t1, t2, b1, df, *train):
+        return bssfp_dictionary_cuda(*train, t1, t2, b1, df, **kw)
+
+    return shard_map(local, mesh, [(T1s, 0), (T2s, 0), (B1s, 0), (dfs, 0)],
+                     axis=axis, replicated=(FA, phi, TR, TE))
 
 
 def bssfp_jacobian_plain(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,

@@ -51,7 +51,8 @@ __all__ = ["composite_cuda", "composite_plain", "composite_echoes",
            "composite_jacobian_cuda", "composite_jacobian_plain",
            "composite_jacobian_echoes", "composite_kernel_fits",
            "composite_jac_kernel_fits", "COMP_JAC_GROUPS", "LAUNCHES",
-           "JAC_LAUNCHES", "comp_geometry"]
+           "JAC_LAUNCHES", "comp_geometry",
+           "composite_jacobian_cuda_sharded"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -407,6 +408,37 @@ def composite_jacobian_echoes(*args, **kw):
         if _takes_twin(args[8], "composite Jacobian") \
         else composite_jacobian_cuda
     return fn(*args, **kw)
+
+
+def composite_jacobian_cuda_sharded(FA, phi, ta, tb, adci, shift, aph, b1u,
+                                    T1s, T2s, B1s, dfs=None, *, mesh,
+                                    axis="atoms", **kw):
+    """Atom-sharded composite Jacobian over a device mesh
+    (``composite_jacobian_pallas_sharded``): each entry of the mesh's
+    `axis` runs :func:`composite_jacobian_cuda` (the plain twin on a CPU
+    entry) on its atom shard; the axis size must divide the atom count,
+    the per-stage rows are replicated, B1s and dfs broadcast to the atoms
+    and a per-atom diffusion coefficient (B,) shards with them.  Returns
+    ((re, im), (jre, jim)): (nadc, B) signals and (nadc, B, ng) tangents,
+    on the mesh's first device."""
+    from ..parallel.mesh import per_atom, shard_map
+    from .cuda_fisp import _per_atom_dc, _with_dc
+
+    diffusion = kw.pop("diffusion", None)
+    dc = _per_atom_dc(diffusion)
+    T1s = per_atom(T1s)
+    B1s, dfs = (None if x is None else torch.broadcast_to(
+        torch.as_tensor(x, dtype=T1s.dtype, device=T1s.device), T1s.shape)
+        for x in (B1s, dfs))
+
+    def local(t1, t2, b1, df, dcs, diff, *train):
+        return composite_jacobian_echoes(*train, t1, t2, b1, df,
+                                         diffusion=_with_dc(diff, dcs), **kw)
+
+    return shard_map(local, mesh, [(T1s, 0), (T2s, 0), (B1s, 0), (dfs, 0),
+                                   (dc, 0)], axis=axis, out_dim=1,
+                     replicated=(diffusion, FA, phi, ta, tb, adci, shift,
+                                 aph, b1u))
 
 
 def _launch(FA, phi, ta, tb, adci, shift, aph, b1u, T1s, T2s, B1s, dfs, *,

@@ -58,7 +58,9 @@ __all__ = ["fisp_dictionary_cuda", "fisp_dictionary_plain", "fisp_echoes",
            "half_static_rows", "fisp_half_geometry",
            "fisp_full_ladder_cuda", "fisp_full_ladder_plain",
            "fisp_full_echoes", "fisp_full_echoes_plain", "full_kernel_fits",
-           "full_geometry", "FULL_BLOCK", "FULL_PULSES"]
+           "full_geometry", "FULL_BLOCK", "FULL_PULSES",
+           "fisp_dictionary_cuda_sharded",
+           "fisp_jacobian_cuda_sharded"]
 
 #: kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -372,6 +374,42 @@ def fisp_dictionary_cuda(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
         demodulate=demodulate, inversion=inversion,
         inversion_df=inversion_df, diffusion=diffusion, diff_ramp=diff_ramp)
     return _finish(re, im, normalize)
+
+
+def fisp_dictionary_cuda_sharded(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                                 mesh, axis="atoms", **kw):
+    """Atom-sharded :func:`fisp_dictionary_cuda` over a device mesh
+    (``fisp_dictionary_pallas_sharded``): each entry of the mesh's `axis`
+    runs the kernel (the plain twin on a CPU entry) on its atom shard, with
+    no collectives.  The axis size must divide the atom count; the train
+    is replicated, and a per-atom diffusion coefficient (B,) shards with
+    the atoms.  Returns (re, im), each (B, P), on the mesh's first
+    device."""
+    from ..parallel.mesh import shard_map
+
+    diffusion = kw.pop("diffusion", None)
+    dc = _per_atom_dc(diffusion)
+
+    def local(t1, t2, b1, df, dcs, diff, *train):
+        return fisp_dictionary_cuda(*train, t1, t2, b1, df,
+                                    diffusion=_with_dc(diff, dcs), **kw)
+
+    return shard_map(local, mesh, [(T1s, 0), (T2s, 0), (B1s, 0), (dfs, 0),
+                                   (dc, 0)], axis=axis,
+                     replicated=(diffusion, FA, phi, TR, TE))
+
+
+def _per_atom_dc(diffusion):
+    """The per-atom (B,) diffusion coefficient of ``diffusion=(.., ..,
+    Dc)``, which shards with the atoms; None where Dc is shared."""
+    if diffusion is not None and np.ndim(diffusion[2]) == 1:
+        return diffusion[2]
+    return None
+
+
+def _with_dc(diffusion, dc):
+    """``diffusion`` with its shard's Dc where Dc is per-atom."""
+    return diffusion if dc is None else (diffusion[0], diffusion[1], dc)
 
 
 # -- the Jacobian: fingerprints + dS/d(T1, T2, B1[, D]) --
@@ -736,6 +774,27 @@ def fisp_jacobian_cuda(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
         demodulate=demodulate, inversion=inversion,
         inversion_df=inversion_df, diffusion=diffusion, diff_ramp=diff_ramp,
         track_diffusivity=track_diffusivity))
+
+
+def fisp_jacobian_cuda_sharded(FA, phi, TR, TE, T1s, T2s, B1s, dfs=None, *,
+                               mesh, axis="atoms", **kw):
+    """Atom-sharded :func:`fisp_jacobian_cuda` over a device mesh
+    (``fisp_jacobian_pallas_sharded``), as
+    :func:`fisp_dictionary_cuda_sharded`.  Returns ((re, im), (dre, dim)):
+    (B, P) fingerprints and (B, P, 3[+1]) derivatives, on the mesh's first
+    device."""
+    from ..parallel.mesh import shard_map
+
+    diffusion = kw.pop("diffusion", None)
+    dc = _per_atom_dc(diffusion)
+
+    def local(t1, t2, b1, df, dcs, diff, *train):
+        return fisp_jacobian_cuda(*train, t1, t2, b1, df,
+                                  diffusion=_with_dc(diff, dcs), **kw)
+
+    return shard_map(local, mesh, [(T1s, 0), (T2s, 0), (B1s, 0), (dfs, 0),
+                                   (dc, 0)], axis=axis,
+                     replicated=(diffusion, FA, phi, TR, TE))
 
 
 # -- the full ladder: 2 nstate + 1 rows of F+, F- and Z --

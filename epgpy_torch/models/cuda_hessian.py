@@ -40,7 +40,8 @@ from . import planes
 from .cuda_fisp import SMEM_PER_BLOCK, _takes_twin, seg_layout
 
 __all__ = ["fisp_hessian_cuda", "fisp_hessian_plain", "hess_kernel_fits",
-           "hess_geometry", "HESS_LAUNCHES"]
+           "hess_geometry", "HESS_LAUNCHES",
+           "fisp_hessian_cuda_sharded"]
 
 #: Hessian kernel launches so far (diagnostics: proves a run went through it)
 HESS_LAUNCHES = 0
@@ -315,6 +316,27 @@ def fisp_hessian_cuda(FA, phi, TAU, T1s, T2s, *, te=None, inversion=None,
     if _takes_twin(T1s, "FISP Hessian"):
         return fisp_hessian_plain(FA, phi, TAU, T1s, T2s, **kw)
     return _launch(FA, phi, TAU, T1s, T2s, **kw)
+
+
+def fisp_hessian_cuda_sharded(FA, phi, TAU, T1s, T2s, *, mesh, axis="atoms",
+                              second_order=True, **kw):
+    """Atom-sharded :func:`fisp_hessian_cuda` over a device mesh
+    (``fisp_hessian_pallas_sharded``): each entry of the mesh's `axis` runs
+    the kernel (the plain twin on a CPU entry) on its atom shard; the axis
+    size must divide the atom count, the pulse arrays are replicated.
+    Returns the :func:`fisp_hessian_cuda` dict on the mesh's first device,
+    every block with its atoms leading."""
+    from ..parallel.mesh import per_atom, shard_map
+
+    T1s, T2s = torch.broadcast_tensors(
+        *(torch.atleast_1d(per_atom(x)) for x in (T1s, T2s)))
+
+    def local(t1, t2, *train):
+        return fisp_hessian_cuda(*train, t1, t2, second_order=second_order,
+                                 **kw)
+
+    return shard_map(local, mesh, [(T1s, 0), (T2s, 0)], axis=axis,
+                     replicated=(FA, phi, TAU))
 
 
 def _launch(FA, phi, TAU, T1s, T2s, *, te, inversion, nstate, second_order):

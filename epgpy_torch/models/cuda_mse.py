@@ -50,7 +50,9 @@ __all__ = ["cpmg_dictionary_cuda", "cpmg_dictionary_plain", "cpmg_echoes",
            "cpmg_jacobian_echoes", "cpmg_jacobian_echoes_plain",
            "mse_kernel_fits", "mse_jac_kernel_fits", "cpmg_rows",
            "cpmg_geometry", "mse_jac_block_size", "jac_block_smem",
-           "LAUNCHES", "JAC_LAUNCHES", "JAC_MAX_WARPS"]
+           "LAUNCHES", "JAC_LAUNCHES", "JAC_MAX_WARPS",
+           "cpmg_dictionary_cuda_sharded",
+           "cpmg_jacobian_cuda_sharded"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -358,6 +360,22 @@ def cpmg_dictionary_cuda(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, *, nstate,
     return re.T, im.T
 
 
+def cpmg_dictionary_cuda_sharded(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, *,
+                                 mesh, axis="atoms", **kw):
+    """Atom-sharded :func:`cpmg_dictionary_cuda` over a device mesh
+    (``cpmg_dictionary_pallas_sharded``): each entry of the mesh's `axis`
+    runs the kernel (the plain twin on a CPU entry) on its atom shard; the
+    axis size must divide the atom count, the echo train is replicated.
+    Returns (re, im), each (B, E), on the mesh's first device."""
+    from ..parallel.mesh import shard_map
+
+    def local(t1, t2, b1, *train):
+        return cpmg_dictionary_cuda(exc, *train, t1, t2, b1, **kw)
+
+    return shard_map(local, mesh, [(T1s, 0), (T2s, 0), (B1s, 0)], axis=axis,
+                     replicated=(FA, phi, tau1, tau2))
+
+
 # -- the Jacobian: echoes + dS/d(T1, T2, B1) --
 
 
@@ -452,3 +470,19 @@ def cpmg_jacobian_cuda(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, *, nstate,
     return _jac_finish(cpmg_jacobian_echoes(
         exc, FA, phi, tau1, tau2, T1s, T2s, B1s, nstate=nstate,
         diffusion=diffusion, diff_ramp=diff_ramp))
+
+
+def cpmg_jacobian_cuda_sharded(exc, FA, phi, tau1, tau2, T1s, T2s, B1s, *,
+                               mesh, axis="atoms", **kw):
+    """Atom-sharded :func:`cpmg_jacobian_cuda` over a device mesh
+    (``cpmg_jacobian_pallas_sharded``), as
+    :func:`cpmg_dictionary_cuda_sharded`.  Returns ((re, im), (dre, dim)):
+    (B, E) echo trains and (B, E, 3) derivatives, on the mesh's first
+    device."""
+    from ..parallel.mesh import shard_map
+
+    def local(t1, t2, b1, *train):
+        return cpmg_jacobian_cuda(exc, *train, t1, t2, b1, **kw)
+
+    return shard_map(local, mesh, [(T1s, 0), (T2s, 0), (B1s, 0)], axis=axis,
+                     replicated=(FA, phi, tau1, tau2))

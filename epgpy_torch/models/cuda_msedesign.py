@@ -40,7 +40,8 @@ from . import planes
 from .cuda_fisp import SMEM_PER_BLOCK, _takes_twin
 
 __all__ = ["cpmg_design_cuda", "cpmg_design_plain", "design_kernel_fits",
-           "design_tile", "design_block_smem", "DESIGN_LAUNCHES"]
+           "design_tile", "design_block_smem", "DESIGN_LAUNCHES",
+           "cpmg_design_cuda_sharded"]
 
 #: design kernel launches so far (diagnostics: proves a run went through it)
 DESIGN_LAUNCHES = 0
@@ -299,6 +300,26 @@ def cpmg_design_cuda(exc, FA, phi, ESP, T1s, T2s, *, nstate,
     if _takes_twin(T1s, "CPMG design"):
         return cpmg_design_plain(exc, FA, phi, ESP, T1s, T2s, **kw)
     return _launch(exc, FA, phi, ESP, T1s, T2s, **kw)
+
+
+def cpmg_design_cuda_sharded(exc, FA, phi, ESP, T1s, T2s, *, mesh,
+                             axis="atoms", **kw):
+    """Atom-sharded :func:`cpmg_design_cuda` over a device mesh
+    (``cpmg_design_pallas_sharded``): each entry of the mesh's `axis` runs
+    the kernel (the plain twin on a CPU entry) on its atom shard; the axis
+    size must divide the atom count, the echo arrays are replicated.
+    Returns the :func:`cpmg_design_cuda` dict on the mesh's first device,
+    every block with its atoms leading."""
+    from ..parallel.mesh import per_atom, shard_map
+
+    T1s, T2s = torch.broadcast_tensors(
+        *(torch.atleast_1d(per_atom(x)) for x in (T1s, T2s)))
+
+    def local(t1, t2, *train):
+        return cpmg_design_cuda(exc, *train, t1, t2, **kw)
+
+    return shard_map(local, mesh, [(T1s, 0), (T2s, 0)], axis=axis,
+                     replicated=(FA, phi, ESP))
 
 
 def _launch(exc, FA, phi, ESP, T1s, T2s, *, nstate, second_order):

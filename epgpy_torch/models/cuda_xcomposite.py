@@ -56,7 +56,8 @@ __all__ = ["xcomposite_stage_mat_tables", "xcomposite_cuda",
            "xcomposite_plain", "xcomposite_echoes",
            "xcomposite_jacobian_cuda", "xcomposite_jacobian_plain",
            "xcomposite_jacobian_echoes", "xcomp_geometry", "xcomp_jac_rows",
-           "xcomp_jac_geometry", "LAUNCHES", "JAC_LAUNCHES"]
+           "xcomp_jac_geometry", "LAUNCHES", "JAC_LAUNCHES",
+           "xcomposite_cuda_sharded"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -441,6 +442,28 @@ def xcomposite_echoes(*args, **kw):
     fn = xcomposite_plain if _takes_twin(args[14], "xcomposite") \
         else xcomposite_cuda
     return fn(*args, **kw)
+
+
+def xcomposite_cuda_sharded(alpha, phi, satf_re, satf_im, satz_re, satz_im,
+                            adci, shift, aph, mia, mib, dens, taus, khi, T1,
+                            T2, g, b1=None, *, mesh, axis="atoms", **kw):
+    """Atom-sharded composite EPG-X kernel over a device mesh
+    (``xcomposite_pallas_sharded``): each entry of the mesh's `axis` runs
+    :func:`xcomposite_cuda` (the plain twin on a CPU entry) on its atom
+    shard -- axis 1 of the (C, B) T1, T2 and g, b1 (B,) with them; the axis
+    size must divide the atom count, the per-stage rows, the kinetic matrix
+    and the mixing times are replicated.  Returns (re, im), each (nadc, C,
+    B), on the mesh's first device."""
+    from ..parallel.mesh import shard_map
+
+    def local(t1, t2, gg, b1s, *train):
+        return xcomposite_echoes(*train, t1, t2, gg, b1s, **kw)
+
+    return shard_map(local, mesh, [(T1, 1), (T2, 1), (g, 1), (b1, 0)],
+                     axis=axis, out_dim=2,
+                     replicated=(alpha, phi, satf_re, satf_im, satz_re,
+                                 satz_im, adci, shift, aph, mia, mib, dens,
+                                 taus, khi))
 
 
 def xcomposite_jacobian_echoes(*args, **kw):

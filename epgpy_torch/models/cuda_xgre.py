@@ -50,7 +50,8 @@ __all__ = ["exchange_stage_mats", "xgre_dictionary_cuda",
            "xgre_jacobian_cuda", "xgre_jacobian_plain",
            "xgre_jacobian_echoes", "xgre_kernel_fits",
            "xgre_jac_kernel_fits", "xgre_geometry", "xgre_jac_geometry",
-           "x_rows", "LAUNCHES", "JAC_LAUNCHES"]
+           "x_rows", "LAUNCHES", "JAC_LAUNCHES",
+           "xgre_dictionary_cuda_sharded"]
 
 #: primal kernel launches so far (diagnostics: proves a run went through it)
 LAUNCHES = 0
@@ -576,6 +577,34 @@ def xgre_dictionary_echoes(*args, **kw):
     fn = xgre_dictionary_plain if _takes_twin(args[7][2], "xgre") \
         else xgre_dictionary_cuda
     return fn(*args, **kw)
+
+
+def xgre_dictionary_cuda_sharded(alpha, phi, satf_re, satf_im, satz_re,
+                                 satz_im, dens, stageA, stageB, b1=None, *,
+                                 mesh, axis="atoms", **kw):
+    """Atom-sharded EPG-X GRE dictionary over a device mesh
+    (``xgre_dictionary_pallas_sharded``): each entry of the mesh's `axis`
+    runs :func:`xgre_dictionary_cuda` (the plain twin on a CPU entry) on
+    its atom shard -- axis 1 of the stages' (C, B) T1, T2 and g, b1 (B,)
+    with them; the axis size must divide the atom count, the train and the
+    stages' khi and tau are replicated.  Returns (re, im), each (N, C, B),
+    on the mesh's first device."""
+    from ..parallel.mesh import shard_map
+
+    def local(t1a, t2a, ga, t1b, t2b, gb, b1s, rest, *train):
+        (khia, taua), (khib, taub) = rest
+        return xgre_dictionary_echoes(
+            *train, (khia, t1a, t2a, ga, taua), (khib, t1b, t2b, gb, taub),
+            b1s, **kw)
+
+    stage_planes = [(stage[k], 1) for stage in (stageA, stageB)
+                    for k in (1, 2, 3)]
+    return shard_map(local, mesh, stage_planes + [(b1, 0)], axis=axis,
+                     out_dim=2,
+                     replicated=(((stageA[0], stageA[4]),
+                                  (stageB[0], stageB[4])),
+                                 alpha, phi, satf_re, satf_im, satz_re,
+                                 satz_im, dens))
 
 
 def xgre_jacobian_echoes(*args, **kw):

@@ -73,7 +73,10 @@ def fisp_mrf_signal(FA, phi, TR, TE, T1, T2, B1=1.0, *, nstate: int = 10,
         states = _relax(states, common.to_real(inversion), T1, T2, nstate)
     echoes = []
     for i in range(P):
-        mat = rotation_operator(FA[i] * B1, phi[i])[0]
+        # a (1,) slice, not a 0-d element: forward-mode AD through a 0-d
+        # complex64 tensor times a Python scalar gives complex128 tangents
+        # (the FA-train CRLB differentiates this flip in float32)
+        mat = rotation_operator(FA[i:i + 1] * B1, phi[i:i + 1])[0]
         states = torch.einsum("ij,kj->ki", mat, states)
         states = _relax(states, TE[i], T1, T2, nstate)
         echo = states[nstate, 0]
@@ -89,13 +92,16 @@ def fisp_mrf_signal(FA, phi, TR, TE, T1, T2, B1=1.0, *, nstate: int = 10,
 def fisp_mrf_dictionary(FA, TR, TE, T1s, T2s, B1s=None, dfs=None, *,
                         phi=90.0, nstate: int = 10, demodulate: bool = False,
                         inversion: Optional[float] = None,
-                        normalize: bool = False):
+                        normalize: bool = False, sharding=None):
     """Generate a FISP MRF dictionary: one fingerprint per atom.
 
     FA: (P,) flip-angle train (deg); TR: scalar/(P,) (ms); TE: scalar or
     (P,) (ms).  T1s, T2s, B1s: (B,) per-atom parameters (B1s defaults to
     ones); dfs: optional (B,) off-resonance (kHz) -- with `inversion`, the
     imperfect-inversion residual F+ precesses during TI too.
+    ``sharding``: optional ``parallel.atom_sharding(mesh)``: the atoms
+    split over the mesh axis, each shard built on its entry's device by
+    the route below, the result gathered on the mesh's first device.
     Returns (re, im): (B, P) tensors on the working device and precision
     (transposed views of the kernel's (P, B) echoes on the card).
 
@@ -108,6 +114,18 @@ def fisp_mrf_dictionary(FA, TR, TE, T1s, T2s, B1s=None, dfs=None, *,
     T2s = common.to_real(T2s)
     B1s = torch.ones_like(T1s) if B1s is None else common.to_real(B1s)
     dfs = None if dfs is None else common.to_real(dfs)
+    if sharding is not None:
+        from ..parallel.mesh import shard_map
+
+        def build(t1, t2, b1, df):
+            return fisp_mrf_dictionary(
+                FA, TR, TE, t1, t2, b1, df, phi=phi, nstate=nstate,
+                demodulate=demodulate, inversion=inversion,
+                normalize=normalize)
+
+        return shard_map(build, sharding.mesh,
+                         [(T1s, 0), (T2s, 0), (B1s, 0), (dfs, 0)],
+                         axis=sharding.axis)
     args = [common.to_real(x) for x in (FA, phi, TR, TE)]
     kw = dict(nstate=int(nstate), demodulate=demodulate,
               inversion=None if inversion is None else float(inversion))

@@ -106,7 +106,7 @@ def _echoes(FA, TR, TE, T1, T2, B1, *, phi, nstate, demodulate, inversion):
 def fisp_mrf_dictionary_sliced(FA, TR, TE, T1s, T2s, B1s=None, *, scales,
                                weights=None, phi=90.0, nstate: int = 10,
                                demodulate: bool = False, inversion=None,
-                               normalize: bool = False):
+                               normalize: bool = False, sharding=None):
     """Slice-profile-corrected FISP MRF dictionary.
 
     Evaluates the FISP dictionary on the (atoms x z) outer batch
@@ -117,7 +117,10 @@ def fisp_mrf_dictionary_sliced(FA, TR, TE, T1s, T2s, B1s=None, *, scales,
 
     Args mirror ``models.mrf.fisp_mrf_dictionary``; ``scales``/``weights``
     come from :func:`slice_profile_scales` (weights default to uniform
-    1/nz).
+    1/nz).  With ``sharding`` (``parallel.atom_sharding(mesh)``) the atoms
+    split over the mesh axis, and each shard's (atoms x z) batch is built
+    and contracted on its entry's device (JAX shards the (atoms x z)
+    batch: the same atoms per shard, each with its z copies).
 
     Returns:
         ``(re, im)``: (B, P) tensors on the working device (transposed
@@ -127,6 +130,17 @@ def fisp_mrf_dictionary_sliced(FA, TR, TE, T1s, T2s, B1s=None, *, scales,
     T2s = common.to_real(T2s).reshape(-1)
     B1s = (torch.ones_like(T1s) if B1s is None
            else common.to_real(B1s).reshape(-1))
+    if sharding is not None:
+        from ..parallel.mesh import shard_map
+
+        def build(t1, t2, b1):
+            return fisp_mrf_dictionary_sliced(
+                FA, TR, TE, t1, t2, b1, scales=scales, weights=weights,
+                phi=phi, nstate=nstate, demodulate=demodulate,
+                inversion=inversion, normalize=normalize)
+
+        return shard_map(build, sharding.mesh,
+                         [(T1s, 0), (T2s, 0), (B1s, 0)], axis=sharding.axis)
     scales = common.to_real(scales).reshape(-1)
     nz = scales.shape[0]
     if weights is None:

@@ -26,7 +26,52 @@ from . import base
 from .scalarop import ScalarOp, stack_elements
 from .base import _repr
 
-__all__ = ["E", "P", "R", "evolution_elements"]
+__all__ = ["E", "P", "R", "evolution_elements", "evolution_operator",
+           "relaxation_operator", "precession_operator"]
+
+
+def _tensor(x, dtype):
+    return torch.as_tensor(x, dtype=dtype, device=config.device())
+
+
+def evolution_operator(rT, rL, r0=None):
+    """Diagonal evolution coefficients (arr, arr0) from complex rates: arr
+    (..., 3) holds ``(conj(e^{-rT}), e^{-rT}, e^{-rL})`` and arr0 (..., 3)
+    the recovery ``(0, 0, 1 - e^{-r0})`` (None without r0), broadcast to
+    one shape with at least one batch axis."""
+    cdtype = config.complex_dtype()
+    rT, rL, r0 = common.expand_arrays(rT, rL, r0)
+    eT = torch.exp(-_tensor(rT, cdtype))
+    eL = torch.exp(-_tensor(rL, cdtype))
+    arr = torch.stack(torch.broadcast_tensors(eT.conj(), eT, eL), dim=-1)
+    if arr.ndim == 1:
+        arr = arr[None]
+    if r0 is None:
+        return arr, None
+    rec = 1 - torch.exp(-_tensor(r0, cdtype))
+    z = torch.zeros_like(rec)
+    arr0 = torch.stack(torch.broadcast_tensors(z, z, rec), dim=-1)
+    if arr0.ndim == 1:
+        arr0 = arr0[None]
+    return torch.broadcast_tensors(arr, arr0)
+
+
+def relaxation_operator(tau, T1, T2, g):
+    """E coefficients: transverse decay and precession, longitudinal
+    recovery (``rT = tau (1/T2 + 2 i pi g)``, ``rL = r0 = tau / T1``)."""
+    rdtype = config.real_dtype()
+    tau, T1, T2, g = (_tensor(x, rdtype) for x in common.expand_arrays(
+        tau, T1, T2, g))
+    rT = tau * (1.0 / T2 + 2j * math.pi * g)
+    rL = tau / T1
+    return evolution_operator(rT, rL, rL)
+
+
+def precession_operator(tau, g):
+    """P coefficients: precession only (``rT = 2 i pi g tau``)."""
+    rdtype = config.real_dtype()
+    tau, g = (_tensor(x, rdtype) for x in common.expand_arrays(tau, g))
+    return evolution_operator(2j * math.pi * g * tau, 0.0, None)
 
 
 def evolution_elements(rT, rL=None, r0=None):

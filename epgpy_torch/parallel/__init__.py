@@ -1,11 +1,14 @@
-"""MRF serving and sequence design: dictionary matching and its streamed
-compression, reconstruction, Gauss-Newton refinement, CRLB design of the
-MRF and TSE trains, EPG-NNLS T2 spectra and myelin-water maps
-(counterpart of ``epgpy_tpu/parallel``; the mesh, the atom-sharded forms
-and the FA-only CRLB loss and step come with the mesh slice, ROADMAP
-queue 1)."""
+"""Device meshes, MRF serving and sequence design: atom-sharded
+execution, dictionary matching and its streamed compression,
+reconstruction, Gauss-Newton refinement, CRLB design of the MRF and TSE
+trains (the FA-train CRLB with its tangent axis sharded), EPG-NNLS T2
+spectra and myelin-water maps (counterpart of ``epgpy_tpu/parallel``).
+The mesh is single controller (``mesh.py``): one process, whole tensors
+in and out."""
 
-from .crlb import (FA_BOUNDS, TR_BOUNDS, mrf_design_loss,
+from .mesh import atom_sharding, make_mesh
+from .crlb import (FA_BOUNDS, TR_BOUNDS, crlb_train_step,
+                   fingerprint_crlb_loss, mrf_design_loss,
                    mrf_design_loss_grad_fused, mrf_design_slsqp,
                    mrf_design_step, mse_design_loss_grad_fused,
                    tse_design_slsqp)
@@ -15,10 +18,12 @@ from .match import (compress_dictionary, dictionary_match, full_precision,
 from .recon import gauss_newton_refine, mrf_reconstruct
 from .t2spectrum import nnls, t2_basis, t2_spectrum_map
 
-__all__ = ["dictionary_match", "compress_dictionary", "project_signals",
-           "full_precision", "mrf_reconstruct", "gauss_newton_refine",
-           "mrf_design_loss", "mrf_design_loss_grad_fused",
-           "mrf_design_slsqp", "mrf_design_step",
-           "mse_design_loss_grad_fused", "tse_design_slsqp", "FA_BOUNDS",
-           "TR_BOUNDS", "streamed_compress_dictionary", "save_compression",
+__all__ = ["make_mesh", "atom_sharding", "crlb_train_step",
+           "fingerprint_crlb_loss", "dictionary_match",
+           "compress_dictionary", "project_signals", "full_precision",
+           "mrf_reconstruct", "gauss_newton_refine", "mrf_design_loss",
+           "mrf_design_loss_grad_fused", "mrf_design_slsqp",
+           "mrf_design_step", "mse_design_loss_grad_fused",
+           "tse_design_slsqp", "FA_BOUNDS", "TR_BOUNDS",
+           "streamed_compress_dictionary", "save_compression",
            "load_compression", "t2_basis", "nnls", "t2_spectrum_map"]

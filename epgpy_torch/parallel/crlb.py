@@ -1,11 +1,20 @@
-"""CRLB sequence design: the MRF flip-angle and TR train, and the
-variable-flip TSE (CPMG) train.
+"""CRLB sequence design: the MRF flip-angle train (FA-only, and FA and
+TR), and the variable-flip TSE (CPMG) train.
 
-Counterpart of ``epgpy_tpu/parallel/crlb.py`` (:149-463).  The MRF half
-is the reference workflow examples/sequence/optim_mrf.py: choose
-the per-pulse flip angles FA_i and repetition times TR_i of a 5-op FISP
-train after an inversion to minimize the mean Cramer-Rao lower bound of
-(magnitude, T1, T2) over an atom grid, under the box bounds FA in
+Counterpart of ``epgpy_tpu/parallel/crlb.py``.  The FA-only design
+(``fingerprint_crlb_loss``, ``crlb_train_step``) is the mesh layout's
+"training step": the mean CRLB of (T1, T2) in log space over an atom grid
+whose atoms split over the mesh's ``atoms`` axis, plus, where the mesh
+has a ``tangents`` axis, the CRLB over the per-pulse flip angles, whose
+wide ``jacfwd`` runs with its tangent (column) axis split over that axis
+and gathered for the Fisher product (the compiled form of the reference's
+commented-out multiprocessing split of derivative pairs, epgpy/
+functions.py:195-248).
+
+The MRF half is the reference workflow examples/sequence/optim_mrf.py:
+choose the per-pulse flip angles FA_i and repetition times TR_i of a 5-op
+FISP train after an inversion to minimize the mean Cramer-Rao lower bound
+of (magnitude, T1, T2) over an atom grid, under the box bounds FA in
 [10, 60], TR in [11, 16] and |FA_i - FA_{i-1}| <= 1.
 
 * ``mrf_design_loss`` is the autograd oracle: each atom's signal comes
@@ -24,10 +33,10 @@ gradient in (FA_i, esp_i) from ONE launch of the per-echo design kernel
 (``models.cuda_msedesign``), and ``tse_design_slsqp`` drives it with
 scipy's SLSQP under a SAR budget and a per-echo flip-increment bound.
 
-The atom-sharded form (``mesh=``) and the FA-only
-``fingerprint_crlb_loss`` / ``crlb_train_step`` (which take a mesh with a
-``tangents`` axis) come with the mesh slice (ROADMAP queue 1): only
-``mesh=None`` is accepted here.
+Every function takes a mesh (``parallel.make_mesh``): each atom shard
+computes its own mean on its entry, and the loss and gradient are the
+mean of the shards' means (JAX's ``pmean``) on the mesh's first device;
+reverse mode runs through the gather.
 """
 
 from __future__ import annotations
@@ -39,22 +48,15 @@ from .. import config, stats
 from ..models.cuda_hessian import fisp_hessian_cuda
 from ..models.cuda_msedesign import cpmg_design_cuda
 from ..models.mrf import fisp_mrf_signal
+from .mesh import on_entry, pmean, shard_map
 
-__all__ = ["FA_BOUNDS", "TR_BOUNDS", "mrf_design_loss",
-           "mrf_design_loss_grad_fused", "mrf_design_slsqp",
-           "mrf_design_step", "mse_design_loss_grad_fused",
-           "tse_design_slsqp"]
+__all__ = ["fingerprint_crlb_loss", "crlb_train_step", "FA_BOUNDS",
+           "TR_BOUNDS", "mrf_design_loss", "mrf_design_loss_grad_fused",
+           "mrf_design_slsqp", "mrf_design_step",
+           "mse_design_loss_grad_fused", "tse_design_slsqp"]
 
 FA_BOUNDS = (10.0, 60.0)
 TR_BOUNDS = (11.0, 16.0)
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "the atom-sharded design (mesh=) is not ported to epgpy_torch "
-            "yet: it comes with the mesh slice (ROADMAP queue 1); pass "
-            "mesh=None")
 
 
 def _real(x):
@@ -63,6 +65,123 @@ def _real(x):
         return x
     return torch.as_tensor(np.asarray(x, np.float64),
                            dtype=config.real_dtype(), device=config.device())
+
+
+def _atom_mean(local, mesh, T1s, T2s, *replicated):
+    """``local(T1s, T2s, *replicated)`` (a per-atom mean, or a tuple of
+    them); under a mesh, the mean of its values over the atom shards
+    (``pmean`` over ``atoms``), each shard's computed on its entry."""
+    if mesh is None:
+        return local(T1s, T2s, *replicated)
+    means = shard_map(local, mesh, [(T1s, 0), (T2s, 0)],
+                      replicated=replicated, out_dim=None)
+    if isinstance(means[0], tuple):
+        return tuple(pmean(list(m), mesh) for m in zip(*means))
+    return pmean(means, mesh)
+
+
+# -- the FA-only train: (T1, T2) in log space, the FA train on tangents --
+
+
+def _atom_signal_ri(FA, T1, T2, *, TR, TE, nstate):
+    """One atom's fingerprint as a (P, 2) real tensor (re, im columns)."""
+    re, im = fisp_mrf_signal(FA, 90.0, TR, TE, T1, T2, 1.0, nstate=nstate)
+    return torch.stack([re, im], dim=-1)
+
+
+def _trace_inv_fisher(J, ridge):
+    """tr(inv(J^T J + ridge I)) of (..., n, nvars) Jacobians."""
+    eye = torch.eye(J.shape[-1], dtype=J.dtype, device=J.device)
+    fisher = J.mT @ J + ridge * eye
+    return torch.diagonal(torch.linalg.inv(fisher), dim1=-2,
+                          dim2=-1).sum(-1)
+
+
+def _crlb_t1t2(FA, T1, T2, *, TR, TE, nstate, ridge):
+    """CRLB of (T1, T2) for one atom (relative parametrization)."""
+    def f(logt1, logt2):
+        return _atom_signal_ri(FA, torch.exp(logt1), torch.exp(logt2),
+                               TR=TR, TE=TE, nstate=nstate)
+
+    J = torch.stack(torch.func.jacfwd(f, argnums=(0, 1))(
+        torch.log(T1), torch.log(T2)), dim=-1)          # (P, 2, 2)
+    return _trace_inv_fisher(J.reshape(-1, 2), ridge)
+
+
+def _crlb_fa_block(FA, T1s, T2s, devices, *, TR, TE, nstate, ridge):
+    """CRLB over the per-pulse FA variables of each atom of (T1s, T2s),
+    the tangent axis split over the `devices` of the ``tangents`` axis.
+
+    Tangent shard k seeds ``jacfwd`` with its chunk of the FA basis only,
+    on its device; the Fisher product needs every column, so the blocks
+    are gathered (concatenated) on the atoms' device.  The chunks are
+    ceil-divided and zero-padded so that any train length works on any
+    axis size: the pad columns are derivatives with respect to dummy
+    parameters (zero by construction), trimmed after the gather."""
+    P = FA.shape[0]
+    chunk = -(-P // len(devices))
+    pad = chunk * len(devices) - P
+    FAp = torch.cat([FA, FA.new_zeros(pad)]) if pad else FA
+    home = T1s.device
+    blocks = []
+    for k, dev in enumerate(devices):
+        fa, t1s, t2s = (x.to(dev) for x in (FAp, T1s, T2s))
+        start = k * chunk
+
+        def atom(t1, t2):
+            def f(fa_chunk):
+                fa2 = torch.cat([fa[:start], fa_chunk, fa[start + chunk:]])
+                return _atom_signal_ri(fa2[:P], t1, t2, TR=TR, TE=TE,
+                                       nstate=nstate)
+
+            return torch.func.jacfwd(f)(fa[start:start + chunk])
+
+        with on_entry(dev):
+            blocks.append(torch.func.vmap(atom)(t1s, t2s).to(home))
+    J = torch.cat(blocks, dim=-1)[..., :P]               # (B, P, 2, P)
+    return _trace_inv_fisher(J.reshape(J.shape[0], -1, P), ridge)
+
+
+def fingerprint_crlb_loss(FA, T1s, T2s, mesh, *, TR=12.0, TE=5.0,
+                          nstate=6, ridge=1e-6, fa_weight=1e-3):
+    """Mean CRLB over the (sharded) atom grid; FA replicated.
+
+    loss = mean_atoms CRLB_{T1,T2} + fa_weight * mean_atoms CRLB_{FA train}
+
+    The FA-train term is computed only where the mesh has a ``tangents``
+    axis (and ``fa_weight`` is non-zero), its tangent axis split over it;
+    without one it is left out, as in the JAX function.  Returns a 0-d
+    tensor on the mesh's first device."""
+    FA, T1s, T2s = (_real(x) for x in (FA, T1s, T2s))
+    tangents = "tangents" in mesh.axis_names and bool(fa_weight)
+
+    def local(i, t1s, t2s, fa):
+        loss = torch.mean(torch.func.vmap(lambda t1, t2: _crlb_t1t2(
+            fa, t1, t2, TR=TR, TE=TE, nstate=nstate, ridge=ridge))(t1s,
+                                                                  t2s))
+        if tangents:
+            row = mesh.entries("tangents", at={"atoms": i})
+            loss = loss + fa_weight * torch.mean(_crlb_fa_block(
+                fa, t1s, t2s, row, TR=TR, TE=TE, nstate=nstate,
+                ridge=ridge))
+        return loss
+
+    return pmean(shard_map(local, mesh, [(T1s, 0), (T2s, 0)],
+                           replicated=(FA,), out_dim=None, index=True),
+                 mesh)
+
+
+def crlb_train_step(FA, T1s, T2s, mesh, *, lr=0.5, **opts):
+    """One gradient-descent step on the flip-angle train: reverse mode
+    through :func:`fingerprint_crlb_loss` (its ``jacfwd`` blocks and the
+    gathers included).  Returns (new FA, loss)."""
+    fa = _real(FA).detach().clone().requires_grad_(True)
+    loss = fingerprint_crlb_loss(fa, T1s, T2s, mesh, **opts)
+    (grad,) = torch.autograd.grad(loss, (fa,))
+    return fa.detach() - lr * grad.to(fa.device), loss.detach()
+
+
+# -- reference-scale constrained design: FA + TR, 2N free parameters --
 
 
 def _atom_crlb_mt1t2(FA, TR, T1, T2, *, TE, nstate, inversion, sigma2,
@@ -95,23 +214,26 @@ def mrf_design_loss(FA, TR, T1s, T2s, mesh=None, *, TE=5.0, nstate=10,
     autograd gradient); T1s/T2s (B,) atoms.  An optional quadratic
     penalty enforces the reference's |FA_i - FA_{i-1}| < 1 smoothness
     constraint softly.  Returns a 0-d tensor."""
-    _no_mesh(mesh)
     FA, TR, T1s, T2s = (_real(x) for x in (FA, TR, T1s, T2s))
-    crlb = torch.func.vmap(lambda t1, t2: _atom_crlb_mt1t2(
-        FA, TR, t1, t2, TE=TE, nstate=nstate, inversion=inversion,
-        sigma2=sigma2, ridge=ridge))(T1s, T2s)
-    loss = torch.mean(crlb)
+
+    def local(t1s, t2s, fa, tr):
+        return torch.mean(torch.func.vmap(lambda t1, t2: _atom_crlb_mt1t2(
+            fa, tr, t1, t2, TE=TE, nstate=nstate, inversion=inversion,
+            sigma2=sigma2, ridge=ridge))(t1s, t2s))
+
+    loss = _atom_mean(local, mesh, T1s, T2s, FA, TR)
+    FA = FA.to(loss.device)
     if smooth_weight:
         excess = torch.clamp(torch.abs(torch.diff(FA)) - 1.0, min=0.0)
         loss = loss + smooth_weight * torch.sum(excess**2)
     return loss
 
 
-def _loss_and_grad(FA, TR, T1s, T2s, **opts):
+def _loss_and_grad(FA, TR, T1s, T2s, mesh=None, **opts):
     """(loss, gFA, gTR) of :func:`mrf_design_loss` by reverse mode."""
     fa = _real(FA).detach().clone().requires_grad_(True)
     tr = _real(TR).detach().clone().requires_grad_(True)
-    loss = mrf_design_loss(fa, tr, T1s, T2s, **opts)
+    loss = mrf_design_loss(fa, tr, T1s, T2s, mesh, **opts)
     gfa, gtr = torch.autograd.grad(loss, (fa, tr))
     return loss.detach(), gfa, gtr
 
@@ -127,27 +249,34 @@ def mrf_design_loss_grad_fused(FA, TR, T1s, T2s, mesh=None, *, TE=5.0,
     and ``stats.crlb`` contracts the analytic gradient.  The kernel runs
     on the device of T1s (the plain twin on the CPU), in float32; pass
     float32 tensors on the card."""
-    _no_mesh(mesh)
     T1s = _real(T1s)
     T2s, FA, TR = (_real(x).to(T1s) for x in (T2s, FA, TR))
-    out = fisp_hessian_cuda(FA, 90.0, TR - TE, T1s, T2s, te=TE,
-                            inversion=inversion, nstate=nstate)
     N = FA.shape[0]
-    cols = ("sig", "dT1", "dT2")
-    J = torch.complex(torch.stack([out[k][0] for k in cols], -1),
-                      torch.stack([out[k][1] for k in cols], -1))  # (B, N, 3)
-    # H (B, N_echo, 3, 2N): rows (mag, T1, T2), columns (alpha_i, tau_i)
-    cplx = torch.complex64 if T1s.dtype == torch.float32 \
-        else torch.complex128
-    H = torch.empty(J.shape[:2] + (3, 2 * N), dtype=cplx, device=J.device)
-    Hv = torch.view_as_real(H)
-    for r, pre in enumerate(("d", "dT1d", "dT2d")):
-        for half, name in enumerate(("alpha", "tau")):
-            for ri in (0, 1):
-                Hv[:, :, r, half * N:(half + 1) * N, ri] = out[pre + name][ri]
-    w = torch.stack([torch.ones_like(T1s), 1.0 / T1s**2, 1.0 / T2s**2], -1)
-    cost, grad = stats.crlb(J, H, W=w, sigma2=sigma2)
-    loss, grad = torch.mean(cost), torch.mean(grad, dim=0)
+
+    def local(t1s, t2s, fa, tr):
+        out = fisp_hessian_cuda(fa, 90.0, tr - TE, t1s, t2s, te=TE,
+                                inversion=inversion, nstate=nstate)
+        cols = ("sig", "dT1", "dT2")
+        J = torch.complex(torch.stack([out[k][0] for k in cols], -1),
+                          torch.stack([out[k][1] for k in cols], -1))
+        # H (B, N_echo, 3, 2N): rows (mag, T1, T2), columns (alpha_i, tau_i)
+        cplx = torch.complex64 if t1s.dtype == torch.float32 \
+            else torch.complex128
+        H = torch.empty(J.shape[:2] + (3, 2 * N), dtype=cplx,
+                        device=J.device)
+        Hv = torch.view_as_real(H)
+        for r, pre in enumerate(("d", "dT1d", "dT2d")):
+            for half, name in enumerate(("alpha", "tau")):
+                for ri in (0, 1):
+                    Hv[:, :, r, half * N:(half + 1) * N, ri] = \
+                        out[pre + name][ri]
+        w = torch.stack([torch.ones_like(t1s), 1.0 / t1s**2, 1.0 / t2s**2],
+                        -1)
+        cost, grad = stats.crlb(J, H, W=w, sigma2=sigma2)
+        return torch.mean(cost), torch.mean(grad, dim=0)
+
+    loss, grad = _atom_mean(local, mesh, T1s, T2s, FA, TR)
+    FA = FA.to(loss.device)
     gFA, gTR = grad[:N], grad[N:]
     if smooth_weight:
         d = torch.diff(FA)
@@ -172,7 +301,6 @@ def mrf_design_slsqp(FA0, TR0, T1s, T2s, mesh=None, *, maxiter=250,
     precision.  Returns (FA, TR, scipy result)."""
     from scipy import optimize
 
-    _no_mesh(mesh)
     nTR = len(FA0)
     if engine == "fused":
         opts.pop("ridge", None)
@@ -183,10 +311,10 @@ def mrf_design_slsqp(FA0, TR0, T1s, T2s, mesh=None, *, maxiter=250,
             return mrf_design_loss_grad_fused(
                 torch.as_tensor(fa, dtype=torch.float32, device=T1f.device),
                 torch.as_tensor(tr, dtype=torch.float32, device=T1f.device),
-                T1f, T2f, **opts)
+                T1f, T2f, mesh, **opts)
     elif engine == "scan":
         def val_grad(fa, tr):
-            return _loss_and_grad(fa, tr, T1s, T2s, **opts)
+            return _loss_and_grad(fa, tr, T1s, T2s, mesh, **opts)
     else:
         raise ValueError(f"engine must be 'scan' or 'fused', got {engine!r}")
 
@@ -234,31 +362,34 @@ def mse_design_loss_grad_fused(FA, ESP, T1s, T2s, mesh=None, *,
     measures T2, its dS/dT1 column is ~1e-6 of the signal's scale, so the
     3x3 Fisher matrix is singular in float32 and its inverse not finite
     (float64 survives); enable it only for trains with T1 sensitivity."""
-    _no_mesh(mesh)
     T1s = torch.atleast_1d(_real(T1s))
     T2s, FA, ESP = (_real(x).to(T1s) for x in (T2s, FA, ESP))
     T1s, T2s = torch.broadcast_tensors(T1s, torch.atleast_1d(T2s))
     E = FA.shape[0]
-    out = cpmg_design_cuda(exc, FA, 0.0, ESP, T1s, T2s,
-                           nstate=2 * E if nstate is None else nstate,
-                           second_order=True)
 
-    def c(key):
-        return torch.complex(*out[key])
+    def local(t1s, t2s, fa, esp):
+        out = cpmg_design_cuda(exc, fa, 0.0, esp, t1s, t2s,
+                               nstate=2 * E if nstate is None else nstate,
+                               second_order=True)
 
-    cols = [c("sig"), c("dT2")]
-    rows = [torch.cat([c("dalpha"), c("desp")], -1),
-            torch.cat([c("dT2dalpha"), c("dT2desp")], -1)]
-    ws = [torch.ones_like(T1s), 1.0 / T2s**2]
-    if include_t1:
-        cols.insert(1, c("dT1"))
-        rows.insert(1, torch.cat([c("dT1dalpha"), c("dT1desp")], -1))
-        ws.insert(1, 1.0 / T1s**2)
-    J = torch.stack(cols, -1)                   # (B, E, nv)
-    H = torch.stack(rows, -2)                   # (B, E, nv, 2E)
-    cost, grad = stats.crlb(J, H, W=torch.stack(ws, -1), sigma2=sigma2)
-    grad = torch.mean(grad, dim=0)
-    return torch.mean(cost), grad[:E], grad[E:]
+        def c(key):
+            return torch.complex(*out[key])
+
+        cols = [c("sig"), c("dT2")]
+        rows = [torch.cat([c("dalpha"), c("desp")], -1),
+                torch.cat([c("dT2dalpha"), c("dT2desp")], -1)]
+        ws = [torch.ones_like(t1s), 1.0 / t2s**2]
+        if include_t1:
+            cols.insert(1, c("dT1"))
+            rows.insert(1, torch.cat([c("dT1dalpha"), c("dT1desp")], -1))
+            ws.insert(1, 1.0 / t1s**2)
+        J = torch.stack(cols, -1)                   # (B, E, nv)
+        H = torch.stack(rows, -2)                   # (B, E, nv, 2E)
+        cost, grad = stats.crlb(J, H, W=torch.stack(ws, -1), sigma2=sigma2)
+        return torch.mean(cost), torch.mean(grad, dim=0)
+
+    loss, grad = _atom_mean(local, mesh, T1s, T2s, FA, ESP)
+    return loss, grad[:E], grad[E:]
 
 
 def tse_design_slsqp(FA0, ESP0, T1s, T2s, mesh=None, *, maxiter=200,
@@ -278,7 +409,6 @@ def tse_design_slsqp(FA0, ESP0, T1s, T2s, mesh=None, *, maxiter=200,
     design).  Returns (FA, ESP, scipy result)."""
     from scipy import optimize
 
-    _no_mesh(mesh)
     E = len(FA0)
     T1d = _real(T1s)
     if T1d.is_cuda:
@@ -289,7 +419,7 @@ def tse_design_slsqp(FA0, ESP0, T1s, T2s, mesh=None, *, maxiter=200,
         v, gfa, gesp = mse_design_loss_grad_fused(
             torch.as_tensor(x[:E], dtype=T1d.dtype, device=T1d.device),
             torch.as_tensor(x[E:], dtype=T1d.dtype, device=T1d.device),
-            T1d, T2d, **opts)
+            T1d, T2d, mesh, **opts)
         g = torch.cat([gfa, torch.zeros_like(gesp) if fix_esp else gesp])
         return float(v), g.detach().cpu().numpy().astype(float)
 
@@ -325,8 +455,7 @@ def mrf_design_step(FA, TR, T1s, T2s, mesh=None, *, lr_fa=1.0, lr_tr=0.05,
                     **opts):
     """One projected-gradient step on (FA, TR) by autograd of
     :func:`mrf_design_loss`; returns (FA, TR, loss)."""
-    _no_mesh(mesh)
-    loss, gFA, gTR = _loss_and_grad(FA, TR, T1s, T2s, **opts)
-    FA = torch.clamp(_real(FA) - lr_fa * gFA, *FA_BOUNDS)
-    TR = torch.clamp(_real(TR) - lr_tr * gTR, *TR_BOUNDS)
+    loss, gFA, gTR = _loss_and_grad(FA, TR, T1s, T2s, mesh, **opts)
+    FA = torch.clamp(_real(FA).to(gFA.device) - lr_fa * gFA, *FA_BOUNDS)
+    TR = torch.clamp(_real(TR).to(gTR.device) - lr_tr * gTR, *TR_BOUNDS)
     return FA, TR, loss

@@ -10,8 +10,9 @@ separated by 1e-4 to 1e-3 in correlation, and a reduced-precision product
 with TF32 switched off (``config.full_precision``).  A dictionary too
 large to hold is compressed block by block
 (:func:`streamed_compress_dictionary`), and the compressed artifact is
-saved and served without it.  The atom-sharded form (``mesh=``) is not
-ported yet: it comes with the mesh slice (ROADMAP queue 1).
+saved and served without it.  With a mesh (``mesh=``) the dictionary's
+atoms split over a mesh axis: each shard is matched on its entry and the
+best over the shards is taken on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -43,22 +44,43 @@ def dictionary_match(dict_re, dict_im, sig_re, sig_im, mesh=None, *,
     Args:
         dict_re/dict_im: (B, P) dictionary fingerprints (split complex).
         sig_re/sig_im: (V, P) measured signals.
-        mesh, axis: the atom-sharded form; only ``mesh=None`` is ported.
+        mesh: optional ``parallel.make_mesh`` mesh; the dictionary's
+            atoms split over its `axis` (the axis size must divide them),
+            the signals are replicated.  Each shard's best atom is found
+            on its entry, offset by the shard's first atom, and the best
+            over the shards taken, ties going to the lowest atom.
         atom_chunk: optional atom-axis chunk size: the (V, B) correlation
             plane is the match's memory footprint (8192 voxels x 102,400
             atoms = 3.4 GB per float32 plane), so the match can run over
             atom chunks with a running (max, argmax), materializing only
             (V, atom_chunk) at a time.  Exact: ties resolve to the lowest
-            atom index either way.
+            atom index either way.  Applies per shard under a mesh.
 
-    Returns (indices (V,), correlations (V,)) as tensors.
+    Returns (indices (V,), correlations (V,)) as tensors, on the mesh's
+    first device under a mesh.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the atom-sharded match (mesh=) is not ported to epgpy_torch "
-            "yet: it comes with the mesh slice (ROADMAP queue 1)")
     dre, dim, sre, sim = (_tensor(x) for x in (dict_re, dict_im, sig_re,
                                                sig_im))
+    if mesh is None:
+        return _local_match(dre, dim, sre, sim, atom_chunk)
+    from .mesh import shard_map
+
+    found = shard_map(_local_match, mesh, [(dre, 0), (dim, 0)], axis=axis,
+                      replicated=(sre, sim, atom_chunk), out_dim=None)
+    nloc = dre.shape[0] // len(found)
+    first = mesh.devices.flat[0]
+    best = torch.stack([b.to(first) + i * nloc
+                        for i, (b, _) in enumerate(found)])      # (n, V)
+    vals = torch.stack([v.to(first) for _, v in found])
+    # argmax returns the first maximum: the lowest shard, whose index is
+    # its lowest matching atom
+    w = torch.argmax(vals, dim=0, keepdim=True)
+    return (torch.take_along_dim(best, w, dim=0)[0],
+            torch.take_along_dim(vals, w, dim=0)[0])
+
+
+def _local_match(dre, dim, sre, sim, atom_chunk):
+    """The best atom of (dre, dim) for each signal, and its correlation."""
     if atom_chunk and dre.shape[0] > atom_chunk:
         return _chunked_match(dre, dim, sre, sim, int(atom_chunk))
     with full_precision():

@@ -54,8 +54,9 @@ def mrf_reconstruct(sig_re, sig_im, dict_re, dict_im, atom_params=None, *,
             per-atom "norms" (dictionary-free serving).
         atom_params: optional (B, npar) grid values (T1, T2, ...): matched
             rows are gathered into per-voxel maps.
-        mesh, axis: the atom-sharded form (only ``mesh=None`` is ported;
-            the mesh comes with the mesh slice, ROADMAP queue 1).
+        mesh, axis: the atom-sharded match (``dictionary_match``): the
+            (compressed) atoms split over the mesh axis; the compression
+            itself stays global.
         rank: optional SVD compression rank (McGivney 2014): matching runs
             in the r-dimensional subspace.
         compression: reuse the "compression" dict of a previous call.
@@ -93,8 +94,10 @@ def mrf_reconstruct(sig_re, sig_im, dict_re, dict_im, atom_params=None, *,
                                    sig_re.to(torch.float64),
                                    sig_im.to(torch.float64))
     else:
-        safe = _safe(_row_norms(dict_re, dict_im))[:, None]
-        mre, mim = dict_re / safe, dict_im / safe
+        # normalized in float64: a float32 norm's rounding, which follows
+        # the dictionary's memory layout, scales an atom's scores as far
+        # as the gap between neighbours of a dense grid
+        mre, mim = _normalize_rows(dict_re, dict_im)[:2]
         vre, vim = sig_re, sig_im
 
     idx, val = dictionary_match(mre, mim, vre, vim, mesh, axis=axis,

@@ -156,6 +156,23 @@ def test_slsqp_keeps_bounds_and_smoothness(port_f64, engine):
     assert res.fun < float(start)
 
 
-def test_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tpar.mrf_design_loss_grad_fused(FA, TR, T1S, T2S, mesh=object())
+def test_mesh_is_not_ported(port_f64):
+    """The atom-sharded form the port once refused: on a 4-entry CPU mesh
+    the fused loss and gradient are the mean of the shards' means, equal
+    to ``mesh=None`` (4 atoms, one per shard: 1e-6 relative in float32,
+    the means summed in another order) and to JAX's mesh form on four CPU
+    devices (2e-5, the fused design's budget above)."""
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))  # noqa
+    args = (f32(FA), f32(TR), f32(T1S), f32(T2S))
+    mesh = tpar.make_mesh([torch.device("cpu")] * NATOMS)
+    got = tpar.mrf_design_loss_grad_fused(*args, mesh, **KW)
+    single = tpar.mrf_design_loss_grad_fused(*args, **KW)
+    jmesh = jpar.make_mesh(jax.devices("cpu")[:NATOMS], axes=("atoms",))
+    f = np.float32
+    want = jpar.mrf_design_loss_grad_fused(
+        jnp.asarray(FA, f), jnp.asarray(TR, f), jnp.asarray(T1S, f),
+        jnp.asarray(T2S, f), jmesh, interpret=True, **KW)
+    for g, o, w in zip(got, single, want):
+        assert g.dtype == torch.float32
+        assert rel(_host(g), _host(o)) < 1e-6
+        assert rel(_host(g), w) < 2e-5

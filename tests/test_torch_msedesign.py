@@ -23,7 +23,7 @@ import torch
 
 import epgpy_torch as tepg
 from epgpy_torch.models import cuda_msedesign
-from epgpy_torch.parallel import (mse_design_loss_grad_fused,
+from epgpy_torch.parallel import (make_mesh, mse_design_loss_grad_fused,
                                   tse_design_slsqp)
 from epgpy_tpu.models.pallas_msedesign import cpmg_design_pallas
 
@@ -232,8 +232,13 @@ def test_loss_grad_matches_jax(port_f32):
     for a, b in zip(got, want):
         b = np.asarray(b)
         assert np.abs(a.numpy() - b).max() <= 1e-5 * np.abs(b).max()
-    with pytest.raises(NotImplementedError):
-        mse_design_loss_grad_fused(FA, ESP, T1v, T2v, mesh=object())
+    # the atom-sharded form (once refused): the two atoms on a 2-entry CPU
+    # mesh, the mean of the shards' means (1e-6 relative in float32)
+    mesh = make_mesh([torch.device("cpu")] * 2)
+    sharded = mse_design_loss_grad_fused(FA, ESP, T1v, T2v, mesh, nstate=NS)
+    for a, b in zip(sharded, got):
+        assert np.abs(a.numpy() - b.numpy()).max() <= \
+            1e-6 * np.abs(b.numpy()).max()
 
 
 def test_loss_grad_finite_difference(port_f64):

@@ -19,7 +19,8 @@ import epgpy_torch as tepg
 from epgpy_torch.models.mrf import fisp_mrf_dictionary
 from epgpy_torch.parallel import (compress_dictionary, dictionary_match,
                                   full_precision, gauss_newton_refine,
-                                  mrf_reconstruct, project_signals)
+                                  make_mesh, mrf_reconstruct,
+                                  project_signals)
 from epgpy_torch.parallel.match import _chunked_match
 from epgpy_tpu.models import mrf as jmrf
 from epgpy_tpu import parallel as jpar
@@ -71,8 +72,12 @@ def test_dictionary_match_equals_jax(port_f64, dict_and_grid):
     assert ti.dtype == torch.int64 and tv.dtype == torch.float64
     assert np.array_equal(_np(ti), np.asarray(ji))
     assert np.abs(_np(tv) - np.asarray(jv)).max() < 1e-10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dictionary_match(dre, dim, sre, sim, mesh=object())
+    # the atom-sharded form (once refused): the dictionary's 120 atoms over
+    # an 8-entry CPU mesh give the same indices and correlations
+    mesh = make_mesh([torch.device("cpu")] * 8)
+    si, sv = dictionary_match(dre, dim, sre, sim, mesh=mesh)
+    assert np.array_equal(_np(si), _np(ti))
+    assert np.abs(_np(sv) - _np(tv)).max() < 1e-12
 
 
 @pytest.mark.parametrize("chunk", [7, 16, "B-1", "B+5"])
