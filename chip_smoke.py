@@ -180,17 +180,25 @@ Phases (each raises on failure: a failure exits non-zero with no result):
 5l. (e) examples/mt_prep_gre.py's exchange-rate fit at 65,536 voxels on
    the composite EPG-X Jacobian kernel through
    ``parallel.gauss_newton_refine``, k RMSE < 2e-4;
+7d. the planned diff path (phase_diff_planned): small trains of every
+   op form (FISP with B1 on T in padded chunks, the per-pulse aliases'
+   Hessian, ScalarOp derivative arrays, a diagonal CombinedOp, D, X,
+   a float-shift table) through simulate(fisp_kernel=False) -- one CUDA
+   graph per stage -- against the eager form (jvp through
+   simulate_simple); a memoized call captures and plans nothing;
 7. the sequence DSL (phase_sequence): the headline train built with
    ``Sequence(repeat(...))`` (host build time of its 5,000 virtual ops),
    ``Sequence.signal`` -- one fisp dispatch, one fisp_half launch, equal
    to simulate() of the direct-operator train (max 0) -- and the 4-op
-   train through composite; the (T1, T2) Jacobian on the general diff
-   path (the route JAX takes: no family, no launch) against the direct
-   tracked train's Jacobian kernel; an ``axes=`` train that no family
-   takes, equal to its explicitly broadcast form (max 0); the flagship
-   DSL Hessian (examples/profiling_differentiation_mrf_seq.py: 400 TRs
-   published, cut to DSL_HESS_N; chunk 100) against its direct-operator
-   form on that form's own route;
+   train through composite; the (T1, T2) Jacobian on the planned general
+   diff path (the route JAX takes: no family, no launch), at DSL_AB_N
+   pulses beside the eager form, then at all 1000 pulses (first call and
+   memoized) against the direct tracked train's Jacobian kernel; an
+   ``axes=`` train that no family takes, equal to its explicitly
+   broadcast form (max 0); the flagship DSL Hessian
+   (examples/profiling_differentiation_mrf_seq.py: its published 400
+   TRs; chunk 100) against its direct-operator form on that form's own
+   route;
 8. slice-profile dictionaries (phase_slice_profile): the profile of
    examples/slice_profile_mrf.py's pulse, fisp_mrf_dictionary_sliced at
    102,400 atoms x 1000 pulses through fisp_half against the explicit
@@ -278,7 +286,7 @@ JAC_NAMES = ["magnitude", "T1", "T2", "B1"]
 #: pulses of the main-path Jacobian held against the float64
 #: fisp_mrf_jacobian (forward-mode AD through a 1000-pulse Python loop is
 #: host-bound; the whole train is held against the kernel's twin in the
-#: numbers phase), as DWF_JAC_N for DW-FISP
+#: numbers phase)
 JAC_F64_N = 200
 #: the flagship Hessian (examples/profiling_differentiation_mrf.py) and the
 #: design (examples/optim_mrf.py): pulses, atoms, design TE and TI
@@ -351,8 +359,9 @@ DESS_NVOX, DESS_ITERS, DESS_NOISE, DESS_SEED = 4 * 256 * 256, 10, 0.0015, 4
 MEGRE_N, MEGRE_TES, MEGRE_TAIL, MEGRE_NSTATE, MEGRE_SEED = (
     200, (3.0, 7.0, 11.0), 5.0, 8, 12)
 MEGRE_ATOMS = 4 * 256 * 256
-#: TRs of the ME-GRE Jacobian's float64 oracle (a prefix of the train)
-MEGRE_JAC_N = 50
+#: TRs of the ME-GRE Jacobian's float64 oracle (the whole train on the
+#: planned diff path)
+MEGRE_JAC_N = MEGRE_N
 #: float32 ME-GRE path vs tests/golden/megre.npz (the JAX test's own limit,
 #: tests/test_megre_dispatch.py:235)
 TOL_MEGRE_GOLDEN = 1e-6
@@ -370,7 +379,7 @@ B0_LIMITS = (2.0, 2e-4)
 #: kernel's plain twin over its first DWF_TWIN_ATOMS atoms
 DWF_TAU, DWF_D = 7.0, 1e-3
 DWF_KVALUE = 2.675e8 * 40e-3 * DWF_TAU * 1e-3
-DWF_JAC_N, DWF_TWIN_ATOMS = 200, 8192
+DWF_JAC_N, DWF_TWIN_ATOMS = NPULSE, 8192
 #: depth of the twin checks of phases 3b and 3c (pulses), of the FISP
 #: dictionary option cases (3; 3j's full-ladder cases once), the bSSFP
 #: option cases (3g) and the ME-GRE option cases (3i, TRs): the kernels'
@@ -411,7 +420,7 @@ MPR_NVOX, MPR_NOISE, MPR_SEED = 4 * 256 * 256, 2e-4, 17
 #: every group tracked; atoms, ladder depth, the twin's atoms, the float64
 #: oracle's segments (a prefix) and the draw seed
 COMPJ_ATOMS, COMPJ_NSTATE, COMPJ_TWIN, COMPJ_F64_SEG, COMPJ_SEED = (
-    102400, 8, 8192, 2, 11)
+    102400, 8, 8192, MPR_NSEG, 11)
 COMPJ_NAMES = ["magnitude", "T1", "T2", "B1", "g"]
 #: float32 composite path vs tests/golden/{mprage,cardiac_mrf}.npz (the
 #: JAX tests' limit, tests/test_composite_dispatch.py:83, :115)
@@ -3854,7 +3863,7 @@ def phase_bssfp_path(torch, epg):
 def phase_bssfp_jac_path(torch, epg):
     """The benchmark's bSSFP train with (T1, T2, g) tracked through
     simulate(probe=[ADC, Jacobian([mag, T1, T2, g])]); 8 atoms against the
-    float64 general diff path over the first 48 pulses; returns the run's
+    float64 general diff path over the whole train; returns the run's
     facts."""
     from epgpy_torch import config, fisp_dispatch
     from epgpy_torch.models import cuda_bssfp
@@ -3874,7 +3883,7 @@ def phase_bssfp_jac_path(torch, epg):
             or not bool((jac[..., 0] == sig).all())):
         raise AssertionError("bSSFP Jacobian path: shape, finiteness or "
                              "magnitude column wrong")
-    n = BSSFP_DRIFT[0]
+    n = BSSFP_N
     with cpu_float64(config):
         s64, j64 = epg.simulate(
             bssfp_bench_sequence(epg, T1[:8], T2[:8], DF[:8], npulse=n,
@@ -7398,22 +7407,20 @@ def phase_table(torch, epg, card):
 
 # -- the sequence DSL and slice-profile dictionaries --
 
-#: the DSL phase (phase_sequence): depth of the DSL Jacobian train on the
-#: general diff path, the route JAX takes (per-atom unit coefficients;
-#: ROADMAP queue 2) -- cut below NPULSE to keep the phase's time (63 s at
-#: 1000 pulses run alone on the H100, 5.0 s at 100 and 18.6 s at 300
-#: inside this script: milliseconds of host work per op under vmap(jvp))
-DSL_JAC_N = 200
 #: the flagship DSL Hessian (examples/profiling_differentiation_mrf_seq.py):
-#: TRs, jacobian_chunk, T1 and T2; the published train has
-#: DSL_HESS_PUBLISHED TRs, cut (with its direct fisp_hess form) to keep the
-#: script's time: the general diff path is host-bound (29.5-49.3 s at 400
-#: TRs: ~8 ms of host work per op and pass)
-DSL_HESS_N, DSL_HESS_CHUNK, DSL_HESS_T1, DSL_HESS_T2 = 200, 100, 1380.0, 80.0
-DSL_HESS_PUBLISHED = 400
+#: its published TRs, jacobian_chunk, T1 and T2 (with its direct fisp_hess
+#: form)
+DSL_HESS_N, DSL_HESS_CHUNK, DSL_HESS_T1, DSL_HESS_T2 = 400, 100, 1380.0, 80.0
+#: the planned diff path against its eager form (diff.simulate_diff_eager)
+#: on the card, float32: the DSL Jacobian's depth of the A/B (the eager
+#: form costs milliseconds of host work per op and pass), and the
+#: tolerances: the signal absolute, a column relative to its largest value
+DSL_AB_N = 30
+TOL_DIFF_SIG, TOL_DIFF_COL = 2e-6, 1e-5
 #: DSL Hessian (general diff path) vs the direct-operator form (its own
-#: route), both float32, per block relative to the block's largest value
-TOL_DSL_HESS = 1e-4
+#: route), both float32, per block relative to the block's largest value;
+#: the direct form on the planned diff path against the DSL Hessian
+TOL_DSL_HESS, TOL_DSL_PLANNED = 1e-4, 1e-5
 #: the axes= check: pulses of the headline train, B1 x T2 grid side
 AXES_N, AXES_GRID = 200, 64
 #: the slice profile of examples/slice_profile_mrf.py: a 64-sample
@@ -7479,6 +7486,143 @@ def dsl_hessian_trains(epg, dsl):
     return seq, values, alphas + trs, direct, probes
 
 
+def diff_eager(epg, seq, probes, **opts):
+    """The eager diff form (``diff.simulate_diff_eager``: jvp through
+    ``simulate_simple``) of ``simulate(seq, probe=probes, **opts)`` on the
+    general diff path, from the state ``simulate()`` starts from."""
+    from epgpy_torch import diff, engine
+
+    seq = engine.flatten_sequence(seq)
+    max_nstate = opts.get("max_nstate")
+    _, shape, ncap, _, _ = engine._sequence_preamble(
+        seq, max_nstate, opts.get("kvalue", 1.0), opts.get("kgrid"))
+    sm = epg.StateMatrix([0, 0, 1], nstate=ncap,
+                         kvalue=opts.get("kvalue", 1.0),
+                         density=opts.get("density", 1.0),
+                         **({"kgrid": opts["kgrid"]} if "kgrid" in opts
+                            else {})).broadcast(shape)
+    return diff.simulate_diff_eager(seq, tuple(probes), sm,
+                                    max_nstate=max_nstate,
+                                    jacobian_chunk=opts.get("jacobian_chunk"))
+
+
+def _diff_errs(got, want):
+    """(signal error, worst column error relative to its scale) of a
+    (signal, Jacobian-or-Hessian) pair against another."""
+    sig = float((got[0] - want[0]).abs().max())
+    a = got[1].reshape(got[1].shape[0], -1, got[1].shape[-1])
+    b = want[1].reshape(a.shape)
+    cols = [float((a[..., c] - b[..., c]).abs().max()
+                  / max(float(b[..., c].abs().max()), 1e-30))
+            for c in range(a.shape[-1])]
+    return sig, max(cols)
+
+
+def diff_check_trains(epg):
+    """Small trains over the planned diff path's op forms, each (name,
+    ops, probes, simulate options; only the names with `epg` None): a FISP train with T1/T2 on E and B1 on
+    T, chunk 2 of 3 columns (the zero-padded last chunk); the per-pulse
+    aliases' Hessian, chunk 5 (padded blocks); a ScalarOp with derivative
+    arrays and a diagonal CombinedOp; D with a tracked diffusivity; an X
+    train; a float-shift table train."""
+    names = ("fisp", "hessian", "zoo", "exchange", "table")
+    if epg is None:
+        return [(name, None, None, None) for name in names]
+    rng = np.random.default_rng(3)
+    T1, T2 = np.array([700.0, 1300.0]), np.array([50.0, 110.0])
+    o1 = ["T1", "T2"]
+    fisp = [op for fa in rng.uniform(10, 60, 16) for op in (
+        epg.T(fa, 90, order1={"B1": {"alpha": fa}}),
+        epg.E(5, T1, T2, order1=o1), epg.ADC, epg.E(7, T1, T2, order1=o1),
+        epg.S(1))]
+    n = 12
+    al, ta = [f"a{i}" for i in range(n)], [f"t{i}" for i in range(n)]
+    fa, tau = rng.uniform(10, 60, n), rng.uniform(11, 16, n)
+    hess = [op for i in range(n) for op in (
+        epg.T(fa[i], 90, order1={al[i]: "alpha"}),
+        epg.E(tau[i], T1, T2, order1={"T1": "T1", "T2": "T2",
+                                      ta[i]: "tau"}), epg.ADC, epg.S(1))]
+    sat = epg.ScalarOp([[0.9, 0.9, 0.95]],
+                       darrs={"s": np.array([[1.0, 1.0, 0.5]])},
+                       order1={"s": {"s": 1.0}})
+    comb = epg.E(3, T1, T2, order1=o1) @ epg.P(2, 0.01)
+    zoo = [op for _ in range(10) for op in (
+        epg.T(30, 0, order1={"a": "alpha"}), comb, sat, epg.ADC,
+        epg.D(6, 2e-3, k=1, order1={"Dc": "Dcoef"}), epg.S(1))]
+    dens = [0.85, 0.15]
+    khi = epg.exchange_matrix(0.005, densities=dens)
+    Xa = epg.X(5.0, khi, axis=0, T1=np.array([1000.0, 1100.0]),
+               T2=np.stack([np.linspace(40, 120, 3), np.full(3, 0.012)]),
+               order1={"T2f": {"T2": np.array([[1.0], [0.0]])},
+                       "k": {"khi": khi / 0.005}})
+    xtrain = [op for _ in range(12) for op in (
+        epg.T(np.array([15.0, 0.0]), 0), Xa, epg.ADC, epg.S(1))]
+    table = [epg.T(90, 90)] + [op for k in rng.uniform(2, 10, 8) for op in (
+        epg.S(float(k)), epg.T(40, 0), epg.E(5.0, 1000.0, T2, order1=["T2"]),
+        epg.ADC)]
+    jac = lambda names: [epg.ADC, epg.Jacobian(names)]  # noqa: E731
+    return [
+        ("fisp", fisp, jac(["magnitude", "T1", "T2", "B1"]),
+         dict(max_nstate=10, jacobian_chunk=2)),
+        ("hessian", hess, [epg.ADC, epg.Hessian(["magnitude", "T1", "T2"],
+                                                al + ta)],
+         dict(max_nstate=10, jacobian_chunk=5)),
+        ("zoo", zoo, jac(["T1", "T2", "s", "a", "Dc"]),
+         dict(max_nstate=10, kvalue=74900.0)),
+        ("exchange", xtrain, jac(["T2f", "k"]),
+         dict(max_nstate=6, density=dens)),
+        ("table", table, jac(["T2"]), dict(kgrid=0.5, max_nstate=64)),
+    ]
+
+
+def phase_diff_planned(torch, epg, card):
+    """The planned diff path on the card, float32: each train of
+    :func:`diff_check_trains` through ``simulate(fisp_kernel=False)`` --
+    one CUDA graph per stage, captured on the first call and replayed per
+    chunk -- against its eager form (signal TOL_DIFF_SIG, columns
+    TOL_DIFF_COL of their scale); a second call on the same operators
+    plans nothing, captures nothing and replays once per chunk.  Raises on
+    any miss; returns the per-train (first s, memoized s, captures,
+    replays)."""
+    from epgpy_torch import diff, engine
+
+    tag = f"({card})"
+    out = {}
+    for name, seq, probes, opts in diff_check_trains(epg):
+        g0, p0 = dict(diff.GRAPH_COUNTS), dict(diff.PROGRAM_COUNTS)
+        got, first_s = _first_call(torch, lambda: epg.simulate(
+            seq, probe=probes, asarray=False, fisp_kernel=False, **opts))
+        g1, p1 = dict(diff.GRAPH_COUNTS), dict(diff.PROGRAM_COUNTS)
+        again, memo_s = _first_call(torch, lambda: epg.simulate(
+            seq, probe=probes, asarray=False, fisp_kernel=False, **opts))
+        g2, p2 = dict(diff.GRAPH_COUNTS), dict(diff.PROGRAM_COUNTS)
+        want = diff_eager(epg, seq, probes, **opts)
+        sig, col = _diff_errs(got, want)
+        rep_sig, rep_col = _diff_errs(again, got)
+        caps = g1["captures"] - g0["captures"]
+        reps = g1["replays"] - g0["replays"]
+        memo = (g2["captures"] - g1["captures"], g2["replays"] - g1["replays"],
+                p2["plans"] - p1["plans"])
+        print(f"[diff] {name}: planned vs eager signal {sig:.3e} (limit "
+              f"{TOL_DIFF_SIG}), columns {col:.3e} (limit {TOL_DIFF_COL}); "
+              f"first call {first_s:.3f} s ({caps} captures, {reps} "
+              f"replays), memoized {memo_s:.3f} s ({memo[0]} captures, "
+              f"{memo[1]} replays, {memo[2]} plans), memoized == first "
+              f"{max(rep_sig, rep_col):.1e} {tag}")
+        if not (sig <= TOL_DIFF_SIG and col <= TOL_DIFF_COL):
+            raise AssertionError(f"[diff] {name}: planned vs eager {sig:.3e}"
+                                 f" {col:.3e}")
+        if caps < 1 or memo != (0, reps, 0) or rep_sig or rep_col:
+            raise AssertionError(f"[diff] {name}: captures {caps}, replays "
+                                 f"{reps}, memoized {memo}")
+        out[name] = (first_s, memo_s, caps, reps)
+    # the cached diff programs hold their CUDA graphs' pools: release them
+    # for the phases after this one
+    engine.clear_caches()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _zero_all_counts():
     """Every dispatch count and launch counter to 0 (the match memo too)."""
     import importlib
@@ -7515,7 +7659,7 @@ def phase_sequence(torch, epg, card):
     form on the port's own route (the Hessian kernel where
     match_fisp_hessian takes it).  Raises on any miss; returns the
     numbers."""
-    from epgpy_torch import diff
+    from epgpy_torch import diff, engine
     from epgpy_torch import sequence as dsl
     from epgpy_torch.models import cuda_hessian
 
@@ -7580,32 +7724,87 @@ def phase_sequence(torch, epg, card):
     out["launches"]["composite"] = 1
     del sig4, direct4
 
-    # the (T1, T2) Jacobian on the route JAX takes: the general diff path
-    n = DSL_JAC_N
-    if n < NPULSE:
-        print(f"[dsl] the DSL Jacobian train is cut to {n} of {NPULSE} "
-              f"pulses (general diff path; phase time)")
-    seqj = dsl_headline(dsl, FA[:n])
+    # the (T1, T2) Jacobian on the route JAX takes: the general diff path,
+    # planned -- first the DSL call at the A/B depth beside the eager form,
+    # then the full train's built operators twice (first call: plan,
+    # warm-up, capture; memoized: one replay)
+    jprobe = [epg.ADC, epg.Jacobian(["T1", "T2"])]
+    nab = DSL_AB_N
+    ab_ops = dsl_headline(dsl, FA[:nab]).build(vals, order1=["T1", "T2"])
     _zero_all_counts()
-    (sj, jac), jac_s = _first_call(torch, lambda: seqj.jacobian(
-        ["T1", "T2"], options=opts)(**vals))
+    (sa, ja), ab_dsl_s = _first_call(torch, lambda: dsl_headline(
+        dsl, FA[:nab]).jacobian(["T1", "T2"], options=opts)(**vals))
+    ab_first, ab_first_s = _first_call(torch, lambda: epg.simulate(
+        ab_ops, probe=jprobe, asarray=False, **opts))
+    ab_memo, ab_memo_s = _first_call(torch, lambda: epg.simulate(
+        ab_ops, probe=jprobe, asarray=False, **opts))
+    ab_eager, ab_eager_s = _first_call(torch, lambda: diff_eager(
+        epg, ab_ops, jprobe, **opts))
+    _expect("dsl jacobian a/b", _nonzero_counts(), {})
+    ab_sig, ab_col = _diff_errs(ab_memo, ab_eager)
+    dsl_sig, dsl_col = _diff_errs((sa.T, ja.movedim(-2, 0)), ab_memo)
+    nops = 5 * nab
+    print(f"[dsl] A/B, {NATOMS} atoms x {nab} pulses ({nops} ops): eager "
+          f"diff path {ab_eager_s:.3f} s ({1e3 * ab_eager_s / nops:.2f} ms "
+          f"per op), planned first call {ab_first_s:.3f} s "
+          f"({1e3 * ab_first_s / nops:.2f} ms per op), memoized "
+          f"{ab_memo_s:.3f} s ({1e3 * ab_memo_s / nops:.3f} ms per op), "
+          f"Sequence.jacobian {ab_dsl_s:.3f} s; planned vs eager signal "
+          f"{ab_sig:.3e} (limit {TOL_DIFF_SIG}), columns {ab_col:.3e} "
+          f"(limit {TOL_DIFF_COL}); DSL vs built ops {max(dsl_sig, dsl_col)}"
+          f" (limit 0) {tag}")
+    if not (ab_sig <= TOL_DIFF_SIG and ab_col <= TOL_DIFF_COL) \
+            or dsl_sig or dsl_col:
+        raise AssertionError(f"[dsl] A/B {ab_sig:.3e} {ab_col:.3e} "
+                             f"{dsl_sig} {dsl_col}")
+    out.update(ab_n=nab, ab_eager_s=ab_eager_s, ab_first_s=ab_first_s,
+               ab_memo_s=ab_memo_s)
+    del sa, ja, ab_first, ab_memo, ab_eager, ab_ops
+
+    t0 = time.perf_counter()
+    jops = dsl_headline(dsl, FA).build(vals, order1=["T1", "T2"])
+    jbuild_s = time.perf_counter() - t0
+    _zero_all_counts()
+    g0 = dict(diff.GRAPH_COUNTS)
+    _, jac_s = _first_call(torch, lambda: epg.simulate(
+        jops, probe=jprobe, asarray=False, **opts))
+    g1 = dict(diff.GRAPH_COUNTS)
+    # the memoized call on the host clock and, for its device time per
+    # slot application, between CUDA events
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    sj, jac = epg.simulate(jops, probe=jprobe, asarray=False, **opts)
+    ev[1].record()
+    torch.cuda.synchronize()
+    jac_memo_s = time.perf_counter() - t0
+    call_ms = ev[0].elapsed_time(ev[1])
+    g2 = dict(diff.GRAPH_COUNTS)
     _expect("dsl jacobian", _nonzero_counts(), {})
-    want = epg.simulate(direct_headline(epg, FA[:n], T1, T2, B1,
-                                        tracked=True),
-                        probe=[epg.ADC, epg.Jacobian(["T1", "T2"])],
-                        asarray=False, **opts)
-    cols = [float((jac[..., c] - want[1][..., c].T).abs().max()
+    del jops
+    want = epg.simulate(direct_headline(epg, FA, T1, T2, B1, tracked=True),
+                        probe=jprobe, asarray=False, **opts)
+    cols = [float((jac[..., c] - want[1][..., c]).abs().max()
                   / want[1][..., c].abs().max()) for c in range(2)]
-    sig_err = float((sj - want[0].T).abs().max())
-    print(f"[dsl] Sequence.jacobian([T1, T2]), {NATOMS} atoms x {n} pulses "
-          f"on the general diff path: {jac_s:.3f} s; against the direct "
-          f"tracked train's Jacobian kernel: signal {sig_err:.3e} (limit "
-          f"{TOL_KERNEL}), columns {cols[0]:.3e}, {cols[1]:.3e} (limit "
-          f"{TOL_JAC_MODEL}) {tag}")
+    sig_err = float((sj - want[0]).abs().max())
+    caps = (g1["captures"] - g0["captures"], g1["replays"] - g0["replays"],
+            g2["captures"] - g1["captures"], g2["replays"] - g1["replays"])
+    print(f"[dsl] Jacobian([T1, T2]) of the DSL train, {NATOMS} atoms x "
+          f"{NPULSE} pulses on the planned general diff path: build {jbuild_s:.3f} s "
+          f"(host), first call {jac_s:.3f} s ({caps[0]} captures, {caps[1]}"
+          f" replays), memoized {jac_memo_s:.3f} s ({caps[2]} captures, "
+          f"{caps[3]} replays; {call_ms:.1f} ms between CUDA events, "
+          f"{call_ms / (5 * NPULSE):.4f} ms per slot application); against "
+          f"the direct tracked train's Jacobian kernel: signal {sig_err:.3e} "
+          f"(limit {TOL_KERNEL}), columns {cols[0]:.3e}, {cols[1]:.3e} "
+          f"(limit {TOL_JAC_MODEL}) {tag}")
     if not (sig_err <= TOL_KERNEL and max(cols) <= TOL_JAC_MODEL):
         raise AssertionError(f"[dsl] Jacobian vs direct {sig_err:.3e} "
                              f"{cols}")
-    out.update(jac_n=n, jac_s=jac_s)
+    if caps != (1, 1, 0, 1):
+        raise AssertionError(f"[dsl] Jacobian captures/replays {caps}")
+    out.update(jac_s=jac_s, jac_memo_s=jac_memo_s,
+               jac_call_ms=call_ms)
     del sj, jac, want
 
     # axes= pinning: the headline's first AXES_N pulses with a B1 sweep on
@@ -7644,10 +7843,6 @@ def phase_sequence(torch, epg, card):
     del pinned, explicit
 
     # the flagship DSL Hessian against its direct-operator form
-    if DSL_HESS_N < DSL_HESS_PUBLISHED:
-        print(f"[dsl] the flagship DSL Hessian and its direct form are cut "
-              f"to {DSL_HESS_N} of {DSL_HESS_PUBLISHED} TRs (general diff "
-              f"path, host-bound; script time)")
     hseq, hvals, hvars, hdirect, hprobes = dsl_hessian_trains(epg, dsl)
     hopts = dict(max_nstate=NSTATE, jacobian_chunk=DSL_HESS_CHUNK)
     _zero_all_counts()
@@ -7667,13 +7862,19 @@ def phase_sequence(torch, epg, card):
         "dispatch") == {"hessian": 1} else "general diff path")
     hess_launches = cuda_hessian.HESS_LAUNCHES
     N = DSL_HESS_N
-    a, b = hes.reshape(N, 3, 2 * N), hes_d.reshape(N, 3, 2 * N)
-    errs = {}
-    for r, row in enumerate(("magnitude", "T1", "T2")):
-        for c, cols_ in (("alpha", slice(0, N)), ("TR", slice(N, 2 * N))):
-            w = b[:, r, cols_]
-            errs[f"{row}x{c}"] = float((a[:, r, cols_] - w).abs().max()
-                                       / w.abs().max())
+
+    def block_errs(got, want):
+        a, b = got.reshape(N, 3, 2 * N), want.reshape(N, 3, 2 * N)
+        errs = {}
+        for r, row in enumerate(("magnitude", "T1", "T2")):
+            for c, cols_ in (("alpha", slice(0, N)),
+                             ("TR", slice(N, 2 * N))):
+                w = b[:, r, cols_]
+                errs[f"{row}x{c}"] = float((a[:, r, cols_] - w).abs().max()
+                                           / w.abs().max())
+        return errs
+
+    errs = block_errs(hes, hes_d)
     print(f"[dsl] flagship DSL Hessian, {N} TRs x (3 x {2 * N}), "
           f"jacobian_chunk {DSL_HESS_CHUNK}: {hess_s:.3f} s on the general "
           f"diff path ({graphs['captures']} CUDA graph captures, "
@@ -7686,9 +7887,51 @@ def phase_sequence(torch, epg, card):
     if not max(errs.values()) <= TOL_DSL_HESS or not bool(
             torch.isfinite(torch.view_as_real(hsig)).all()):
         raise AssertionError(f"[dsl] Hessian vs direct {errs}")
+    del hes_d
+
+    # the direct operators on the planned diff path (no kernel): the first
+    # call (plan, capture) and the memoized one (replays only) against the
+    # DSL Hessian, and the memoized call equal to the first
+    def planned():
+        return epg.simulate(hdirect, probe=hprobes, asarray=False,
+                            fisp_kernel=False, **hopts)[1]
+
+    _zero_all_counts()
+    g0, p0 = dict(diff.GRAPH_COUNTS), dict(diff.PROGRAM_COUNTS)
+    hes_p, planned_s = _first_call(torch, planned)
+    g1, p1 = dict(diff.GRAPH_COUNTS), dict(diff.PROGRAM_COUNTS)
+    hes_m, planned_memo_s = _first_call(torch, planned)
+    g2, p2 = dict(diff.GRAPH_COUNTS), dict(diff.PROGRAM_COUNTS)
+    _expect("planned direct hessian", _nonzero_counts(), {})
+    perrs = {k: max(a, b) for (k, a), b in zip(
+        block_errs(hes_p, hes).items(), block_errs(hes_m, hes).values())}
+    pcounts = tuple(g[k] - h[k] for g, h in ((g1, g0), (g2, g1))
+                    for k in ("captures", "replays")) + (
+        p1["plans"] - p0["plans"], p2["plans"] - p1["plans"])
+    same = bool(torch.equal(hes_p, hes_m))
+    print(f"[dsl] flagship Hessian's direct operators on the planned diff "
+          f"path (fisp_kernel=False): first call {planned_s:.3f} s "
+          f"({pcounts[0]} captures, {pcounts[1]} replays, {pcounts[4]} "
+          f"plans), memoized {planned_memo_s:.3f} s ({pcounts[2]} "
+          f"captures, {pcounts[3]} replays, {pcounts[5]} plans), memoized "
+          f"== first {same}; per block max over both calls |planned - DSL|"
+          f" / scale: " + ", ".join(f"{k} {v:.2e}" for k, v in perrs.items())
+          + f" (limit {TOL_DSL_PLANNED}) {tag}")
+    if not max(perrs.values()) <= TOL_DSL_PLANNED or not same:
+        raise AssertionError(f"[dsl] planned direct Hessian vs DSL {perrs},"
+                             f" memoized == first {same}")
+    if pcounts[0] < 1 or pcounts[2:] != (0, pcounts[1], 1, 0):
+        raise AssertionError(f"[dsl] planned direct Hessian captures, "
+                             f"replays, plans {pcounts}")
     out.update(hess_s=hess_s, hess_direct_s=direct_s, hess_route=route,
-               hess_err=max(errs.values()))
+               hess_err=max(errs.values()), hess_graphs=graphs,
+               hess_planned_s=(planned_s, planned_memo_s))
     out["launches"]["fisp_hess"] = hess_launches
+    # the cached diff programs hold their CUDA graphs' pools: release them
+    # for the phases after this one
+    del hes, hes_p, hes_m, hfunc
+    engine.clear_caches()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -8712,6 +8955,7 @@ def main():
     xc = _timed(phase_xcomp_path, torch, epg)
     qmt = _timed(phase_qmt_fit, torch, epg)
     kfit = _timed(phase_kfit, torch, epg)
+    dplan = _timed(phase_diff_planned, torch, epg, card)
     seqp = _timed(phase_sequence, torch, epg, card)
     slicep = _timed(phase_slice_profile, torch, epg, card)
     mwf = _timed(phase_mwf, torch, epg, card)
@@ -8854,12 +9098,20 @@ def main():
           f"Sequence(repeat) {seqp['ctor_s']:.3f} s + build "
           f"{seqp['build_s']:.3f} s (host); signal first call "
           f"{seqp['call_s']:.3f} s; 4-op "
-          f"signal {seqp['call4_s']:.3f} s; (T1, T2) Jacobian x "
-          f"{seqp['jac_n']} pulses on the general diff path "
-          f"{seqp['jac_s']:.3f} s; axes= train {seqp['axes_s']:.3f} s; "
-          f"flagship DSL Hessian {seqp['hess_s']:.3f}"
-          f" s against its direct form ({seqp['hess_route']}) "
-          f"{seqp['hess_direct_s']:.3f} s ({card})")
+          f"signal {seqp['call4_s']:.3f} s; (T1, T2) Jacobian on the "
+          f"planned general diff path "
+          f"{seqp['jac_s']:.3f} s first, {seqp['jac_memo_s']:.3f} s "
+          f"memoized (eager A/B at {seqp['ab_n']} pulses "
+          f"{seqp['ab_eager_s']:.3f} s, planned {seqp['ab_first_s']:.3f} / "
+          f"{seqp['ab_memo_s']:.3f} s); axes= train {seqp['axes_s']:.3f} s;"
+          f" flagship DSL Hessian {seqp['hess_s']:.3f}"
+          f" s ({seqp['hess_graphs']}) against its "
+          f"direct form ({seqp['hess_route']}) "
+          f"{seqp['hess_direct_s']:.3f} s, on the planned diff path "
+          f"{seqp['hess_planned_s'][0]:.3f} s first, "
+          f"{seqp['hess_planned_s'][1]:.3f} s memoized; planned diff "
+          f"checks (first, "
+          f"memoized s, captures, replays) {dplan} ({card})")
     print(f"[numbers] slice profile: {slicep['nz']} z points "
           f"({slicep['prof_s']:.3f} s); sliced dictionary {NATOMS} x "
           f"{NPULSE} first call {slicep['first_s']:.3f} s, again "

@@ -46,8 +46,12 @@ Counterpart of ``epgpy_tpu/engine.py`` (:47-125, :153-159, :362-1277).
   on first use (``_replay``; the counterpart of ``_run_compiled``); a
   plan with host work between ops (a callback, ``disp``, a callable
   probe) runs eagerly, as every plan does on the CPU.  Jacobian and
-  Hessian probes run forward-mode autodiff through the plain eager loop
-  of ``simulate_simple`` (diff.simulate_diff).
+  Hessian probes that no kernel family takes run through the same
+  planner (diff.simulate_diff, JAX ``engine.py:1137-1156``): the tracked
+  train substituted with a value-signature memo and planned, tangents as
+  planes on a batch axis of the state, each tracked slot's coefficient
+  derivatives computed once per chunk, the program cached across calls
+  and captured as one CUDA graph per stage on the card.
 
 The ladder capacity is fixed up front from the sequence's total shift
 count, capped by ``max_nstate`` (``nstate`` is a floor); a train of float
@@ -58,7 +62,8 @@ merge engine the train allows: the dense rows-are-cells merges where the
 capacity covers the whole range (``_dense_bound``,
 ``_dense_varying_bound``), else the sort merge (``ops/shiftnd.py``).  The
 host analysis is memoized per operator list (``_sequence_preamble``),
-plans and their graphs in ``_PLAN_CACHE`` (``clear_caches`` drops all).
+plans and their graphs in ``_PLAN_CACHE``, with the planned diff
+programs (``clear_caches`` drops all).
 ``kvalue`` (rad/m per ladder index or table unit) scales the wavenumbers
 the diffusion operator and the imaging probes read.
 """
@@ -1165,7 +1170,7 @@ def simulate(sequence, *, adc_time: bool = False, init=None,
     table), ``density`` / ``equilibrium``, ``shape``, ``check``,
     ``system``; others are logged and forwarded to
     ``StateMatrix.options``.  ``jacobian_chunk=N`` pushes N tangent columns
-    at a time on the general diff path.  With ``density`` set only the
+    at a time on the general diff path (the planned program's chunk).  With ``density`` set only the
     EPG-X kernel families take part; with `init`, a callback, an array
     `kvalue` or any of the StateMatrix options (``kgrid`` included), no
     kernel does.
@@ -1258,7 +1263,6 @@ def simulate(sequence, *, adc_time: bool = False, init=None,
                 LOGGER.info("simulate: general diff path (%d ops, "
                             "nstate=%d)", len(sequence), ncap)
             values = diff.simulate_diff(sequence, probes, initial_state(),
-                                        max_nstate=max_nstate,
                                         jacobian_chunk=jacobian_chunk)
     else:
         if use_kernel and probes is None:

@@ -30,7 +30,8 @@ import torch
 from .. import common, config
 from . import base
 
-__all__ = ["D", "compute_bmatrix", "diffusion_operator"]
+__all__ = ["D", "compute_bmatrix", "diffusion_operator",
+           "diffusion_exponents"]
 
 
 def _real(x):
@@ -67,14 +68,15 @@ def compute_bmatrix(tau, k1, k2=None):
                          + (1.0 / 3.0) * outer(kd, kd))
 
 
-def diffusion_operator(bL, bT, Dcoef):
-    """Attenuation factors (DL, DT) = exp(-Tr(b D)) for L and T states:
-    ``exp(-Tr(b) D)`` for a scalar D, ``exp(-sum(b * D))`` for a tensor."""
+def diffusion_exponents(bL, bT, Dcoef):
+    """The attenuation exponents (sL, sT) = Tr(b D) for L and T states,
+    linear in D: ``Tr(b) D`` for a scalar D, ``sum(b * D)`` for a
+    tensor."""
     Dval = _real(Dcoef)
     if Dval.ndim == 0:
         trL = torch.diagonal(bL, dim1=-2, dim2=-1).sum(-1)
         trT = torch.diagonal(bT, dim1=-2, dim2=-1).sum(-1)
-        return torch.exp(-trL * Dval), torch.exp(-trT * Dval)
+        return trL * Dval, trT * Dval
     if Dval.ndim > 2:
         # (*batch, d, d): the batch axes lead (append rule), then the
         # state axis
@@ -82,8 +84,15 @@ def diffusion_operator(bL, bT, Dcoef):
         pad = max(bL.ndim - 3 - nb, 0)
         Dval = Dval.reshape(Dval.shape[:nb] + (1,) * (pad + 1)
                             + Dval.shape[-2:])
-    return (torch.exp(-torch.sum(bL * Dval, dim=(-2, -1))),
-            torch.exp(-torch.sum(bT * Dval, dim=(-2, -1))))
+    return (torch.sum(bL * Dval, dim=(-2, -1)),
+            torch.sum(bT * Dval, dim=(-2, -1)))
+
+
+def diffusion_operator(bL, bT, Dcoef):
+    """Attenuation factors (DL, DT) = exp(-Tr(b D)) for L and T states:
+    ``exp(-Tr(b) D)`` for a scalar D, ``exp(-sum(b * D))`` for a tensor."""
+    sL, sT = diffusion_exponents(bL, bT, Dcoef)
+    return torch.exp(-sL), torch.exp(-sT)
 
 
 class D(base.DiffOperator):
@@ -132,7 +141,8 @@ class D(base.DiffOperator):
     def kdim(self) -> int:
         return 1 if self.kshift is None else self.kshift.shape[-1]
 
-    def apply(self, sm):
+    def _bmatrices(self, sm):
+        """The b-matrices (bL, bT) of the state's wavenumbers."""
         if not common.broadcastable(self.shape, sm.shape):
             raise ValueError("Incompatible StateMatrix and operator "
                              f"shapes: {sm.shape}, {self.shape}")
@@ -160,6 +170,13 @@ class D(base.DiffOperator):
             else:
                 shift = shift[..., None, :]  # batched: add the state axis
             bT = compute_bmatrix(self.tau, k - shift, k)
+        return bL, bT
+
+    def apply(self, sm):
+        return self._attenuate(sm, *self._bmatrices(sm))
+
+    def _attenuate(self, sm, bL, bT):
+        """The state attenuated by the b-matrices' factors."""
         DL, DT = diffusion_operator(bL, bT, self.Dcoef)  # (..., K)
         states = sm.states
         cdt = states.dtype

@@ -281,9 +281,10 @@ def _check_conservation(khi, sm, ax, ncomp):
                            "magnetization")
 
 
-def _apply_exchange(sm, mat, ax):
+def _apply_exchange(sm, mat, ax, linear=False):
     """Apply the (..., ncomp@ax, ncomp@ax+1, ..., 3) mixing matrix to
-    ``states - equilibrium`` and re-add the equilibrium."""
+    ``states - equilibrium`` and re-add the equilibrium (``linear``: the
+    product alone, a tensor)."""
     ncomp = mat.shape[ax]
     states = sm.states
     eq = sm.equilibrium.to(states.dtype)
@@ -307,6 +308,8 @@ def _apply_exchange(sm, mat, ax):
                         + mat.shape[-1:])
     new = torch.sum(torch.movedim(mat_e, ax + 1, -1)
                     * torch.movedim(dev, ax + 1, -1), dim=-1)
+    if linear:
+        return new
     return sm.update(states=new + torch.broadcast_to(eq, new.shape))
 
 

@@ -44,6 +44,13 @@ def _targets(kL, delta, grid, D):
 
 
 def shiftmerge_dense(states, wavenums, delta, grid, tol=1e-8):
+    """1-D gridded float-shift merge on a dense cell ladder (see
+    :func:`_shiftmerge_dense`)."""
+    return _shiftmerge_dense(states, wavenums, delta, grid, tol)
+
+
+def _shiftmerge_dense(states, wavenums, delta, grid, tol=1e-8,
+                      planes=None):
     """1-D gridded float-shift merge on a dense cell ladder.
 
     states: (*batch, D, 3) complex, row r holding cell ``r - D//2``;
@@ -55,7 +62,9 @@ def shiftmerge_dense(states, wavenums, delta, grid, tol=1e-8):
     m0 + e1, F- by -m0 + e2 with e2 its mirror, Z by eZ), extra in {-1,
     0, 1}: for each e one gather of the flattened (B, 3D) ladder (rows
     whose correction is not e read a zero column), the three added in the
-    order -1, 0, +1."""
+    order -1, 0, +1.  ``planes``: the states carry the diff path's P
+    planes on their last batch axis, the weights read the primal plane.
+    """
     D = states.shape[-2]
     dev = states.device
     kL = torch.round(wavenums.reshape(D), decimals=8)
@@ -69,7 +78,8 @@ def shiftmerge_dense(states, wavenums, delta, grid, tol=1e-8):
     flat = torch.cat([flat, torch.zeros_like(flat[:, :1])], dim=-1)
     # the magnitude weights, summed over the batch (reference
     # epgpy/shift.py:420), and the weighted wavenumbers
-    w = states.abs().reshape(-1, D, 3).sum(dim=0).to(kL.dtype)
+    prim = states if not planes else states[..., 0, :, :]
+    w = prim.abs().reshape(-1, D, 3).sum(dim=0).to(kL.dtype)
     wk = torch.stack([w, w * vals])                             # (2, D, 3)
     rows = torch.arange(D, device=dev)[:, None]
     cols = torch.arange(3, device=dev)
@@ -128,11 +138,22 @@ def shiftmerge_dense_varying(Fp, Z, wavenums, delta, grid, tol=1e-8):
     epgpy/shift.py:478-542): every atom its own shift and its own mean
     wavenumbers, per-atom weights.
 
-    Fp, Z: (B, D) complex, row r holding cell ``r - D//2``; wavenums:
-    (B, D); delta: (B,) real.  The F- column is the mirror of F+ (the
+    Fp, Z: (B, D) complex, row r holding cell ``r - D//2``, or (B, P, D)
+    with the diff path's P planes (moved as the primal plane 0, whose
+    magnitudes weigh); wavenums: (B, D); delta: (B,) real.  The F- column is the mirror of F+ (the
     reference's prune path assumes the ladder symmetry too).  Returns
     (Fp', Z', wavenums' (B, D))."""
     D = Fp.shape[-1]
+    planar = Fp.ndim == 3
+    if planar:
+        # every plane moves as the primal's rows: one (B * P) batch of
+        # rows with per-atom moves and weights repeated over the planes
+        P = Fp.shape[1]
+        wZ1 = Z[:, :1].abs().expand(Z.shape).reshape(-1, D)
+        wFp1 = Fp[:, :1].abs().expand(Fp.shape).reshape(-1, D)
+        Fp, Z = Fp.reshape(-1, D), Z.reshape(-1, D)
+        wavenums = wavenums.repeat_interleave(P, dim=0)
+        delta = delta.repeat_interleave(P, dim=0)
     kL = torch.round(wavenums, decimals=8)
     cells = (torch.arange(D, device=Fp.device) - D // 2)[None]
     qL = torch.round(0.5 * (kL - kL.flip(-1)) / grid).to(_INT)
@@ -140,11 +161,14 @@ def shiftmerge_dense_varying(Fp, Z, wavenums, delta, grid, tol=1e-8):
     k1 = kL + delta[:, None]
     t1 = torch.round(k1 / grid).to(_INT) - cells
     m0 = torch.round(delta / grid).to(_INT)[:, None]
-    wZ = Z.abs().to(kL.dtype)
+    wZ = (wZ1 if planar else Z.abs()).to(kL.dtype)
     Z2, wZ2, kwZ2 = _move_rows([Z, wZ, wZ * kL], eZ)
-    wFp = Fp.abs().to(kL.dtype)
+    wFp = (wFp1 if planar else Fp.abs()).to(kL.dtype)
     Fp2, wFp2, kwFp2 = _move_rows([Fp, wFp, wFp * k1], t1, m0)
     w_out = wZ2 + wFp2 + wFp2.flip(-1)
     kw_out = kwZ2 + kwFp2 - kwFp2.flip(-1)
     new_k = kw_out / torch.where(w_out > tol, w_out, torch.ones_like(w_out))
+    if planar:
+        return (Fp2.reshape(-1, P, D), Z2.reshape(-1, P, D),
+                new_k.reshape(-1, P, D)[:, 0])
     return Fp2, Z2, new_k

@@ -99,15 +99,17 @@ def _select_symmetric(ukeys, mag, nseg, C):
     return torch.cat([mirror.flip(-1), center, top], dim=-1)
 
 
-def _table_merge(cols, cand_q, extra, C):
+def _table_merge(cols, cand_q, extra, C, wstep=1):
     """The shared merge core.
 
     cols: (Fp, Fm, Z), each (A, C, Bc) complex -- A tables of C rows,
     each with Bc state columns; cand_q: (A, 3C, d) int64 candidate cells
     in [Z stays | F+ by +delta | F- by -delta] block order; extra:
-    (A, 3C, e) real per-candidate columns summed per cell.  Returns the
-    kept (Fp, Fm, Z), each (A, C, Bc), and the kept cells' extra
-    (A, C, e)."""
+    (A, 3C, e) real per-candidate columns summed per cell.  The cells are
+    ranked by the magnitudes of every `wstep`-th column (1: all; on the
+    diff path's planar state the primal plane's, so that the tangent
+    planes follow the primal's merge).  Returns the kept (Fp, Fm, Z),
+    each (A, C, Bc), and the kept cells' extra (A, C, e)."""
     A, R = cand_q.shape[:2]
     dev = cand_q.device
     seg, ukeys, nseg = _segments(_encode_keys(cand_q))
@@ -123,7 +125,8 @@ def _table_merge(cols, cand_q, extra, C):
         merged[j].index_put_(
             (idx,), torch.view_as_real(cols[j]).reshape(A * C, Bc, 2),
             accumulate=True)
-    mag = (merged * merged).sum(dim=(0, 2, 3)).reshape(A, R)
+    mw = merged[:, :, ::wstep]
+    mag = (mw * mw).sum(dim=(0, 2, 3)).reshape(A, R)
     e = extra.shape[-1]
     mex = torch.zeros((A * R, e), dtype=extra.dtype, device=dev).index_put_(
         (flat.reshape(-1),), extra.reshape(A * R, e), accumulate=True)
@@ -149,20 +152,21 @@ def _shared_states(cols, bshape):
                         for c in cols], dim=-1)
 
 
-def _merge_int(cols, coords, delta, C):
+def _merge_int(cols, coords, delta, C, wstep=1):
     """Integer merge: coords (A, C, d) int64, delta (A, d) int64."""
     cand_q = torch.cat([coords, coords + delta[:, None],
                         coords - delta[:, None]], dim=-2)
     extra = torch.cat([cand_q.to(COORD_DTYPE), torch.ones_like(
         cand_q[..., :1], dtype=COORD_DTYPE)], dim=-1)
-    cols, ex = _table_merge(cols, cand_q, extra, C)
+    cols, ex = _table_merge(cols, cand_q, extra, C, wstep)
     cnt = ex[..., -1:].clamp(min=1.0)
     return cols, torch.round(ex[..., :-1] / cnt).to(_INT)
 
 
-def _merge_float(cols, wavenums, delta, grid, C, tol):
+def _merge_float(cols, wavenums, delta, grid, C, tol, wstep=1):
     """Float merge (shift-merge): wavenums (A, C, d), delta (A, d) real;
-    the kept cells' magnitude-weighted mean wavenumbers."""
+    the kept cells' magnitude-weighted mean wavenumbers (the weights from
+    every `wstep`-th column, as :func:`_table_merge` ranks)."""
     kL = torch.round(wavenums, decimals=8)
     k1 = kL + delta[:, None]
     k2 = kL - delta[:, None]
@@ -172,11 +176,13 @@ def _merge_float(cols, wavenums, delta, grid, C, tol):
     cand_q = torch.cat([qL, q1, -q1.flip(-2)], dim=-2)
     # weights: the state magnitudes summed over the columns (reference
     # epgpy/shift.py:420)
-    w = torch.cat([cols[2].abs().sum(-1), cols[0].abs().sum(-1),
-                   cols[1].abs().sum(-1)], dim=-1).to(kL.dtype)  # (A, 3C)
+    w = torch.cat([cols[2][..., ::wstep].abs().sum(-1),
+                   cols[0][..., ::wstep].abs().sum(-1),
+                   cols[1][..., ::wstep].abs().sum(-1)],
+                  dim=-1).to(kL.dtype)                         # (A, 3C)
     kcand = torch.cat([kL, k1, k2], dim=-2)
     extra = torch.cat([kcand * w[..., None], w[..., None]], dim=-1)
-    cols, ex = _table_merge(cols, cand_q, extra, C)
+    cols, ex = _table_merge(cols, cand_q, extra, C, wstep)
     wk = ex[..., -1:]
     return cols, ex[..., :-1] / torch.where(wk > tol, wk,
                                              torch.ones_like(wk))
@@ -193,7 +199,7 @@ def _grid(grid, d, ref):
                                ref.device)
 
 
-def shiftnd_table(states, coords, delta, C=None):
+def shiftnd_table(states, coords, delta, C=None, wstep=1):
     """Integer n-D shift on a shared coordinate table.
 
     states: (..., C, 3) complex; coords: (C, d) int; delta: (d,) int.
@@ -203,11 +209,12 @@ def shiftnd_table(states, coords, delta, C=None):
     coords = torch.as_tensor(coords, device=states.device).to(_INT)
     delta = torch.as_tensor(delta, device=states.device).to(_INT)
     cols, new = _merge_int(_shared_cols(states), coords.reshape(1, C, -1),
-                           delta.reshape(1, -1), C)
+                           delta.reshape(1, -1), C, wstep)
     return _shared_states(cols, tuple(states.shape[:-2])), new[0]
 
 
-def shiftmerge_table(states, wavenums, delta, grid, C=None, tol=1e-8):
+def shiftmerge_table(states, wavenums, delta, grid, C=None, tol=1e-8,
+                     wstep=1):
     """Float wavenumber shift with gridded merging (Gao 2021).
 
     states: (..., C, 3); wavenums: (C, d) float, shared; delta: (d,)
@@ -220,23 +227,29 @@ def shiftmerge_table(states, wavenums, delta, grid, C=None, tol=1e-8):
     d = wavenums.shape[-1]
     cols, new = _merge_float(_shared_cols(states), wavenums.reshape(1, C, d),
                              delta.reshape(1, d), _grid(grid, d, wavenums),
-                             C, tol)
+                             C, tol, wstep)
     return _shared_states(cols, tuple(states.shape[:-2])), new[0]
 
 
 def shiftmerge_table_batched(states, wavenums, delta, grid, tol=1e-8):
     """The shift-prune merge: every atom its own table and its own shift.
 
-    states: (B, C, 3); wavenums: (B, C, d); delta: (B, d).  One batched
-    sort over the (B, 3C) keys; the per-atom weights are each atom's own
-    magnitudes.  Returns (states' (B, C, 3), wavenums' (B, C, d))."""
-    B, C = states.shape[:2]
+    states: (B, C, 3), or (B, P, C, 3) with P planes merged as one table
+    (weighted by plane 0); wavenums: (B, C, d); delta: (B, d).  One
+    batched sort over the (B, 3C) keys; the per-atom weights are each
+    atom's own magnitudes.  Returns (states' of the input's shape,
+    wavenums' (B, C, d))."""
+    planar = states.ndim == 4
+    C = states.shape[-2]
     d = wavenums.shape[-1]
-    cols = tuple(states[..., j][..., None] for j in range(3))
+    st = states if planar else states[:, None]
+    cols = tuple(st[..., j].transpose(-1, -2) for j in range(3))
     cols, new = _merge_float(cols, wavenums.to(COORD_DTYPE),
                              delta.to(COORD_DTYPE),
-                             _grid(grid, d, wavenums), C, tol)
-    return torch.stack([c[..., 0] for c in cols], dim=-1), new
+                             _grid(grid, d, wavenums), C, tol,
+                             st.shape[1])
+    out = torch.stack([c.transpose(-1, -2) for c in cols], dim=-1)
+    return (out if planar else out[:, 0]), new
 
 
 def _shift_vector(op, sm, kdim):
@@ -258,8 +271,11 @@ def _shift_vector(op, sm, kdim):
     return karr.to(COORD_DTYPE)
 
 
-def apply_shift(op, sm):
+def apply_shift(op, sm, planes=None):
     """S.apply on a coordinate table (JAX ``shiftnd.apply_shift``).
+    ``planes``: the states carry the diff path's P planes on their last
+    batch axis, with one table; every plane moves as the primal plane 0,
+    whose magnitudes alone weigh and rank the merged cells.
 
     Picks, as the reference does (epgpy/shift.py:213-254):
       * an integer shift on an integer shared table -> ``shiftnd_table``;
@@ -297,9 +313,11 @@ def apply_shift(op, sm):
         return c.reshape(coords_shape[:-2] + tuple(c.shape))
 
     states = sm.states
+    wstep = planes or 1
     if int_path and not batch_varying and shared:
         new_states, new_coords = shiftnd_table(states, coords,
-                                               karr.reshape(-1))
+                                               karr.reshape(-1),
+                                               wstep=wstep)
         return sm.update(states=new_states, coords=restore(new_coords))
 
     kgrid = sm.options.get("kgrid") or op.kgrid
@@ -315,15 +333,20 @@ def apply_shift(op, sm):
         delta = karr.reshape(-1).to(COORD_DTYPE) * ktvalue
         if (sm.options.get("_dense_grid") and sm.kdim == 1
                 and not int_path):
-            new_states, new_k = shiftdense.shiftmerge_dense(
-                states, (coords * ktvalue).reshape(-1), delta.reshape(()),
-                kgrid)
+            args = (states, (coords * ktvalue).reshape(-1),
+                    delta.reshape(()), kgrid)
+            new_states, new_k = (
+                shiftdense._shiftmerge_dense(*args, planes=planes)
+                if planes else shiftdense.shiftmerge_dense(*args))
         else:
             new_states, new_k = shiftmerge_table(states, coords * ktvalue,
-                                                 delta, kgrid)
+                                                 delta, kgrid, wstep=wstep)
         return sm.update(states=new_states, coords=restore(new_k / ktvalue))
 
     bshape = tuple(states.shape[:-2])
+    if planes:
+        # per-atom tables: the atoms are the batch without the plane axis
+        bshape = bshape[:-1]
     B, C = math.prod(bshape), states.shape[-2]
     delta = karr.to(COORD_DTYPE) * ktvalue
     dshape = tuple(delta.shape[:-1])
@@ -331,20 +354,28 @@ def apply_shift(op, sm):
         delta = delta.reshape(dshape + (1,) * (len(bshape) - len(dshape))
                               + tuple(delta.shape[-1:]))
     delta = torch.broadcast_to(delta, bshape + tuple(delta.shape[-1:]))
-    wav = torch.broadcast_to(coords * ktvalue,
-                             bshape + tuple(coords.shape[-2:]))
+    cshape = tuple(coords.shape[-2:])
+    if planes:
+        # the table's plane axis (of 1) and the shift's broadcast one
+        coords = coords.reshape(coords.shape[:-3] + cshape)
+    wav = torch.broadcast_to(coords * ktvalue, bshape + cshape)
+    lead = (B, planes) if planes else (B,)
+    # a per-atom table keeps the state's batch shape (with the planar
+    # state's plane axis of 1)
+    tshape = bshape + ((1,) if planes else ())
     if (sm.options.get("_dense_grid_varying") and sm.kdim == 1
             and not int_path):
         Fp, Z, new_k = shiftdense.shiftmerge_dense_varying(
-            states[..., 0].reshape(B, C), states[..., 2].reshape(B, C),
+            states[..., 0].reshape(lead + (C,)),
+            states[..., 2].reshape(lead + (C,)),
             wav.reshape(B, C), delta.reshape(B), kgrid)
         new_states = torch.stack([Fp, torch.conj(Fp.flip(-1)), Z],
-                                 dim=-1).reshape(bshape + (C, 3))
+                                 dim=-1).reshape(states.shape)
         return sm.update(states=new_states, coords=(
-            new_k[..., None] / ktvalue).reshape(bshape + (C, 1)))
+            new_k[..., None] / ktvalue).reshape(tshape + (C, 1)))
     new_states, new_k = shiftmerge_table_batched(
-        states.reshape(B, C, 3), wav.reshape(B, C, -1), delta.reshape(B, -1),
-        kgrid)
-    return sm.update(states=new_states.reshape(bshape + (C, 3)),
+        states.reshape(lead + (C, 3)), wav.reshape(B, C, -1),
+        delta.reshape(B, -1), kgrid)
+    return sm.update(states=new_states.reshape(states.shape),
                      coords=(new_k / ktvalue).reshape(
-                         bshape + tuple(new_k.shape[-2:])))
+                         tshape + tuple(new_k.shape[-2:])))

@@ -274,6 +274,12 @@ class Derivative(Expression):
         v0 = values[self.var]
         if not v0.is_complex():
             v0 = v0.to(torch.float64)
+        if isinstance(self.expr, Variable) and self.expr.name == self.var:
+            # d(var)/d(var): the unit tangent the jvp below would return,
+            # without its dispatch or a fill of the variable's shape (a DSL
+            # train's T1/T2 on every E op): a broadcast view of one 1
+            return torch.ones((), dtype=v0.dtype,
+                              device=v0.device).expand(v0.shape)
 
         def f(v):
             return _tensor(self.expr.evaluate({**values, self.var: v}))

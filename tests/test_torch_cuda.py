@@ -46,7 +46,9 @@ from chip_smoke import (BSSFP_CASES, COMP_CASES, COMP_EDGE_ATOMS,
                         xgre_vs_twin, BSSFP_EDGE_CASES, BSSFP_EDGE_SHAPE,
                         BSSFP_RAGGED_CASE, BSSFP_SHAPES, MEGRE_EDGE_ATOMS,
                         MEGRE_EDGE_PULSES, MEGRE_PRIMAL_CASES,
-                        MEGRE_PRIMAL_EDGE_CASES)
+                        MEGRE_PRIMAL_EDGE_CASES, TOL_DIFF_COL,
+                        TOL_DIFF_SIG, _diff_errs, diff_check_trains,
+                        diff_eager)
 from epgpy_torch import config
 from epgpy_torch.models import (cuda_bssfp, cuda_composite, cuda_dess,
                                 cuda_fisp, cuda_hessian, cuda_megre,
@@ -1053,10 +1055,11 @@ def test_cuda_general_path_is_one_graph_replay(card):
 
 @pytest.mark.cuda
 def test_cuda_diff_passes_replay_one_graph_per_stage(card, monkeypatch):
-    """On the card the chunked diff passes (a DSL Hessian in chunks of 4:
-    three Hessian blocks, which also push the Jacobian columns; a Jacobian
-    in chunks of 4: three chunks) capture one CUDA graph per stage and
-    replay it per chunk; they equal the eager passes."""
+    """On the card the planned diff programs (a DSL Hessian in chunks of
+    4: three Hessian blocks, which also push the Jacobian columns; a
+    Jacobian in chunks of 4: three chunks) capture one CUDA graph per
+    stage and replay it per chunk; they equal the eager passes (jvp
+    through the plain eager loop, ``diff.simulate_diff_eager``)."""
     import numpy as np
 
     from epgpy_torch import diff
@@ -1081,11 +1084,61 @@ def test_cuda_diff_passes_replay_one_graph_per_stage(card, monkeypatch):
     torch.cuda.synchronize()
     assert diff.GRAPH_COUNTS["captures"] - before["captures"] == 2
     assert diff.GRAPH_COUNTS["replays"] - before["replays"] == 3 + 3
-    monkeypatch.setattr(diff, "_graph_passes", lambda nj, nh: False)
+    monkeypatch.setattr(diff, "simulate_diff", diff.simulate_diff_eager)
     want = f(vals, T1=T1, T2=70.0) + g(vals, T1=T1, T2=70.0)
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [t[0] for t in diff_check_trains(None)])
+def test_cuda_planned_diff_equals_eager(card, name):
+    """On the card, float32: the planned diff path (one CUDA graph per
+    stage) of each op form's train equals the eager form (jvp through
+    ``simulate_simple``): signal TOL_DIFF_SIG, columns TOL_DIFF_COL of
+    their largest value."""
+    import epgpy_torch as epg
+
+    _, seq, probes, opts = next(t for t in diff_check_trains(epg)
+                                if t[0] == name)
+    got = epg.simulate(seq, probe=probes, asarray=False, fisp_kernel=False,
+                       **opts)
+    sig, col = _diff_errs(got, diff_eager(epg, seq, probes, **opts))
+    assert sig <= TOL_DIFF_SIG and col <= TOL_DIFF_COL
+
+
+@pytest.mark.cuda
+def test_cuda_planned_diff_memoized_call_replays_only(card):
+    """A second call on the same operators and probes plans nothing,
+    captures nothing and replays one graph per chunk (a Jacobian of three
+    columns in chunks of 2, a Hessian in padded blocks); its outputs equal
+    the first call's."""
+    import epgpy_torch as epg
+    from epgpy_torch import diff
+
+    for name in ("fisp", "hessian"):
+        _, seq, probes, opts = next(t for t in diff_check_trains(epg)
+                                    if t[0] == name)
+
+        def call():
+            return epg.simulate(seq, probe=probes, asarray=False,
+                                fisp_kernel=False, **opts)
+
+        g0, p0 = dict(diff.GRAPH_COUNTS), dict(diff.PROGRAM_COUNTS)
+        first = call()
+        g1, p1 = dict(diff.GRAPH_COUNTS), dict(diff.PROGRAM_COUNTS)
+        again = call()
+        torch.cuda.synchronize()
+        g2, p2 = dict(diff.GRAPH_COUNTS), dict(diff.PROGRAM_COUNTS)
+        chunks = g1["replays"] - g0["replays"]
+        assert g1["captures"] - g0["captures"] >= 1 and chunks >= 2
+        assert p1["plans"] - p0["plans"] == 1
+        assert g2["captures"] == g1["captures"]
+        assert g2["replays"] - g1["replays"] == chunks
+        assert p2["plans"] == p1["plans"] and p2["hits"] == p1["hits"] + 1
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 def _route_atoms(name, B=4097):

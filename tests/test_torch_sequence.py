@@ -431,11 +431,12 @@ def test_dsl_dispatch_counts_equal_jax(port_f32, form, t1, how):
 
 
 def test_chunked_pass_replay_path(port_f64, monkeypatch):
-    """The card's chunked-pass path (every op and coefficient moved to the
-    device first, the last chunk padded with zero tangents and cut back,
-    one captured pass replayed per stage) with an eager stand-in for the
+    """The card's chunked-program path (the planned diff program of a
+    stage, the last chunk padded with zero directions and cut back, one
+    captured program replayed per stage) with an eager stand-in for the
     CUDA graph: a flagship-style DSL Hessian in chunks of 3 and a
-    Jacobian in chunks of 4 equal the plain path's results."""
+    Jacobian in chunks of 4 equal the eager passes (jvp through the plain
+    eager loop, ``diff.simulate_diff_eager``)."""
     from epgpy_torch import diff
 
     class EagerGraph:
@@ -460,8 +461,10 @@ def test_chunked_pass_replay_path(port_f64, monkeypatch):
     g = seq.jacobian(["T1"] + alphas + taus,
                      options={"max_nstate": 6, "jacobian_chunk": 4})
     T1 = np.array([900.0, 1300.0])
-    want = f(vals, T1=T1, T2=80.0) + g(vals, T1=T1, T2=80.0)
-    monkeypatch.setattr(diff, "_graph_passes", lambda nj, nh: True)
+    with monkeypatch.context() as m:
+        m.setattr(diff, "simulate_diff", diff.simulate_diff_eager)
+        want = f(vals, T1=T1, T2=80.0) + g(vals, T1=T1, T2=80.0)
+    monkeypatch.setattr(diff, "_graph_passes", lambda: True)
     monkeypatch.setattr(diff, "_PassGraph", EagerGraph)
     before = diff.GRAPH_COUNTS["captures"]
     got = f(vals, T1=T1, T2=80.0)
